@@ -1,0 +1,9 @@
+"""internlm2-1.8b [arXiv:2403.17297; hf] — dense GQA."""
+from repro_torch.configs import ArchConfig
+
+CONFIG = ArchConfig(
+    name="internlm2_1_8b", family="dense",
+    n_layers=24, d_model=2048, n_heads=16, n_kv_heads=8,
+    d_ff=8192, vocab_size=92544, head_dim=128,
+    rope_theta=1000000.0,
+)

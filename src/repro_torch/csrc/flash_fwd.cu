@@ -1,0 +1,167 @@
+// Flash-attention forward (prefill) for Hopper.
+//
+// Replaces: src/repro/kernels/flash_attention/kernel.py:51 flash_fwd_builder
+// (reached through pl.pallas_call at src/repro/core/lang.py:1076).
+//
+// Computes o = softmax(q k^T * sm_scale + mask) v and lse (b, h, sq) in f32,
+// with queries aligned to the end of the kv stream (q_offset = skv - sq) and
+// an optional causal mask. GQA: query head hh reads kv head hh / (h / hk).
+//
+// Bound on the H100: at prefill lengths (hundreds to a few thousand tokens)
+// the work is 4 * sq * skv * d / 2 FLOPs per head against O((sq + skv) * d)
+// bytes, so it is bound by operations. This first version keeps the math in
+// f32 on the CUDA cores (no tensor cores), which is the simple, exact-enough
+// design; the FLOPs over the f32 CUDA-core rate are what it is held to.
+// What the design does about it: one block per (q-tile of 64 rows, head,
+// batch); K/V tiles of 32 keys staged in shared memory as f32 and read by all
+// 64 rows; the kv loop stops at the block's causal diagonal, so the masked
+// upper triangle is never loaded or computed. Ragged sequence lengths are
+// masked in the kernel (the TPU version degrades its blocks with fit_block).
+#include "common.cuh"
+
+namespace {
+
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 32;   // keys per shared-memory tile
+constexpr int NT = 256;  // 4 threads per query row
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int h, int hk, int sq, int skv,
+    int causal, float sm_scale, long long qsb, long long qsh, long long qss,
+    long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
+    long long vss) {
+  __shared__ float ks[BK][D + 1];  // +1: rows read by 4 lanes hit 4 banks
+  __shared__ float vs[BK][D];
+  const int t = threadIdx.x, lane = t & 31;
+  const int r = t >> 2, sub = t & 3;  // row of the tile, lane within the row
+  const int qt = blockIdx.x, hh = blockIdx.y, bi = blockIdx.z;
+  const int kh = hh / (h / hk);
+  const int q_offset = skv - sq;
+  const int qi = qt * BQ + r;
+  const bool row_ok = qi < sq;
+  const int q_pos = qi + q_offset;
+
+  float qr[D];
+  const T* qp = q + bi * qsb + hh * qsh + (long long)(row_ok ? qi : 0) * qss;
+#pragma unroll
+  for (int dd = 0; dd < D; ++dd) qr[dd] = row_ok ? repro::to_f32(qp[dd]) : 0.f;
+
+  float acc[D / 4];
+#pragma unroll
+  for (int c = 0; c < D / 4; ++c) acc[c] = 0.f;
+  float m = -CUDART_INF_F, l = 0.f;
+
+  int kv_end = skv;
+  if (causal) {
+    const int last = min(qt * BQ + BQ - 1, sq - 1) + q_offset;
+    kv_end = min(skv, last + 1);  // stop at the block's diagonal
+  }
+  const T* kb = k + bi * ksb + kh * ksh;
+  const T* vb = v + bi * vsb + kh * vsh;
+  const int base = lane & ~3;
+
+  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int e = t; e < BK * D; e += NT) {
+      const int j = e / D, dd = e % D, kpos = k0 + j;
+      float kv = 0.f, vv = 0.f;
+      if (kpos < skv) {
+        kv = repro::to_f32(kb[kpos * kss + dd]);
+        vv = repro::to_f32(vb[kpos * vss + dd]);
+      }
+      ks[j][dd] = kv;
+      vs[j][dd] = vv;
+    }
+    __syncthreads();
+
+    // scores for keys sub, sub+4, ...: each lane holds BK/4 of the row's BK
+    float s[BK / 4];
+    float tmax = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      const int j = sub + 4 * i, kpos = k0 + j;
+      const bool ok = kpos < skv && (!causal || kpos <= q_pos);
+      float dot = 0.f;
+#pragma unroll
+      for (int dd = 0; dd < D; ++dd) dot += qr[dd] * ks[j][dd];
+      s[i] = ok ? dot * sm_scale : -CUDART_INF_F;
+      tmax = fmaxf(tmax, s[i]);
+    }
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float m_new = fmaxf(m, tmax);
+    // fully-masked history (m == -inf) has acc == 0: its correction is 0
+    const float corr = (m == -CUDART_INF_F) ? 0.f : expf(m - m_new);
+    float psum = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      s[i] = (s[i] == -CUDART_INF_F) ? 0.f : expf(s[i] - m_new);
+      psum += s[i];
+    }
+    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+    l = l * corr + psum;
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) acc[c] *= corr;
+    // acc[c] (column sub + 4c) += sum_j p_j v[j]; p_j sits in lane base|(j%4)
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+#pragma unroll
+      for (int s4 = 0; s4 < 4; ++s4) {
+        const float p = __shfl_sync(0xffffffffu, s[i], base | s4);
+        const int j = s4 + 4 * i;
+#pragma unroll
+        for (int c = 0; c < D / 4; ++c) acc[c] += p * vs[j][sub + 4 * c];
+      }
+    }
+  }
+
+  if (row_ok) {
+    const float lsafe = (l == 0.f) ? 1.f : l;
+    T* op = o + (((long long)bi * gridDim.y + hh) * sq + qi) * D;
+#pragma unroll
+    for (int c = 0; c < D / 4; ++c) op[sub + 4 * c] = repro::from_f32<T>(acc[c] / lsafe);
+    if (sub == 0) lse[((long long)bi * gridDim.y + hh) * sq + qi] = m + logf(lsafe);
+  }
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* k, const void* v, void* o, float* lse,
+            int b, int h, int hk, int sq, int skv, int causal, float sm_scale,
+            const long long* st, cudaStream_t stream) {
+  dim3 grid((sq + BQ - 1) / BQ, h, b);
+  flash_fwd_kernel<T, D><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, h, hk, sq, skv, causal, sm_scale, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. d in {32, 64}. o is contiguous
+// (b, h, sq, d), lse contiguous (b, h, sq); q/k/v take element strides for
+// their batch, head and sequence axes (the last axis is contiguous).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
+                         float* lse, int b, int h, int hk, int sq, int skv,
+                         int d, int dtype, int causal, float sm_scale,
+                         long long qsb, long long qsh, long long qss,
+                         long long ksb, long long ksh, long long kss,
+                         long long vsb, long long vsh, long long vss,
+                         void* stream) {
+  const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && d == 32)
+    launch<float, 32>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
+  else if (dtype == 0 && d == 64)
+    launch<float, 64>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
+  else if (dtype == 1 && d == 32)
+    launch<__nv_bfloat16, 32>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
+  else if (dtype == 1 && d == 64)
+    launch<__nv_bfloat16, 64>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}

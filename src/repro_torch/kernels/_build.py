@@ -1,0 +1,117 @@
+"""Build the CUDA C++ kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on first
+use into ``_build/lib<name>-<hash>.so`` beside the package (the directory is
+git-ignored; a hash of the flags, the source and ``common.cuh`` names the
+library, so an edited source is rebuilt and a stale library never loaded).
+:func:`build_all` starts one ``nvcc`` per source, all at once, so a cold
+start pays for the slowest file only. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["SOURCES", "build_all", "load", "check"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("flash_fwd", "paged_decode", "lm_head")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): the "
+                           "CUDA kernels are built from source at first use")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in (f"{name}.cu", "common.cuh"):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists; returns
+    (final path, temp path, Popen) or None when nothing needs building."""
+    out = _lib_path(name)
+    if os.path.exists(out):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return out, tmp, proc
+
+
+def build_all(names=SOURCES) -> dict[str, str]:
+    """Compile every source that has no library yet, one nvcc each, all in
+    parallel. Returns {name: nvcc output} for the sources it compiled
+    (``-Xptxas -v``: registers, shared memory and spills per kernel).
+    Raises with the compiler's output if any build fails."""
+    jobs = {n: j for n in names if (j := _start(n)) is not None}
+    logs, failed = {}, []
+    for name, (out, tmp, proc) in jobs.items():
+        text, _ = proc.communicate()
+        logs[name] = text
+        if proc.returncode != 0:
+            failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{text}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built if needed), with
+    ``argtypes``/``restype`` set from ``signatures`` {fn: (argtypes, restype)}."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not os.path.exists(path):
+                build_all((name,))
+            lib = ctypes.CDLL(path)
+            for fn, (argtypes, restype) in signatures.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str):
+    """Raise if a C entry point returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if code != 0:
+        msg = lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

@@ -1,0 +1,103 @@
+"""Plain PyTorch attention: the functions the prefill and paged-decode
+kernels compute (counterparts of ``repro.kernels.flash_attention.ref``).
+
+Scores and the softmax are f32; as in the JAX oracle, the probabilities are
+cast to v's dtype before the product with v, and the output to q's dtype.
+GQA runs as grouped matmuls: kv heads are never repeated in memory.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["mha_ref", "flash_fwd_ref", "paged_decode_ref"]
+
+
+def _mask(sq, skv, *, causal, window, prefix_len, device):
+    q_pos = torch.arange(sq, device=device) + (skv - sq)
+    k_pos = torch.arange(skv, device=device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    if prefix_len:
+        mask |= k_pos[None, :] < prefix_len
+    return mask
+
+
+def _softmax_av(s, mask, v):
+    """Masked softmax of f32 scores s (.., sq, skv) against v (.., skv, dv):
+    (o f32, lse f32). Fully masked rows give o = 0, lse = -inf."""
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    denom = p.sum(-1, keepdim=True)
+    safe = torch.where(denom == 0, torch.ones_like(denom), denom)
+    p = p / safe
+    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    return o, (m + torch.log(safe)).squeeze(-1)
+
+
+def flash_fwd_ref(q, k, v, *, causal=True, window=None, sm_scale=None,
+                  prefix_len=0):
+    """q (B, H, Sq, D); k (B, Hk, Skv, D); v (B, Hk, Skv, Dv) -> (o (B, H,
+    Sq, Dv) in q's dtype, lse (B, H, Sq) f32). Queries are aligned to the
+    END of the kv sequence; ``window``/``prefix_len`` as in the JAX oracle."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    qg = q.reshape(b, hk, g, sq, d).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * sm_scale
+    mask = _mask(sq, skv, causal=causal, window=window, prefix_len=prefix_len,
+                 device=q.device)
+    o, lse = _softmax_av(s, mask, v[:, :, None])
+    return (o.reshape(b, h, sq, dv).to(q.dtype), lse.reshape(b, h, sq))
+
+
+def mha_ref(q, k, v, *, causal=True, window=None, sm_scale=None,
+            prefix_len=0):
+    """The attention output of :func:`flash_fwd_ref`."""
+    return flash_fwd_ref(q, k, v, causal=causal, window=window,
+                         sm_scale=sm_scale, prefix_len=prefix_len)[0]
+
+
+def paged_decode_ref(q, k_pages, v_pages, *, block_table, kv_len=None,
+                     pos_pages=None, window=None, sm_scale=None):
+    """q (B, H, 1, D) against page pools k/v (P, Hk, page, D|Dv): logical
+    page j of sequence b is pool page ``block_table[b, j]``; ``kv_len`` (B,)
+    is each sequence's valid length (the query sits at kv_len - 1);
+    ``pos_pages`` (P, page), -1 = empty, gives each pool slot's absolute
+    position (omitted, logical order is positional)."""
+    b, h, _, d = q.shape
+    _, hk, page, _ = k_pages.shape
+    dv = v_pages.shape[-1]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    tab = block_table.reshape(b, -1).long()
+    nsp = tab.shape[1]
+    m = nsp * page
+    if kv_len is None:
+        n = torch.full((b,), m, dtype=torch.int64, device=q.device)
+    else:
+        n = torch.as_tensor(kv_len, device=q.device).reshape(-1).long()
+        n = n.expand(b) if n.shape[0] == 1 else n
+    # gather each sequence's pages into logical-contiguous (B, Hk, m, D)
+    kb = k_pages[tab].transpose(1, 2).reshape(b, hk, m, d)
+    vb = v_pages[tab].transpose(1, 2).reshape(b, hk, m, dv)
+    if pos_pages is None:
+        sp = torch.arange(m, device=q.device).expand(b, m)
+    else:
+        sp = pos_pages.long()[tab].reshape(b, m)
+    q_pos = (n - 1)[:, None]
+    mask = (sp >= 0) & (sp <= q_pos)
+    if window is not None:
+        mask &= (q_pos - sp) < window
+    qg = q.reshape(b, hk, g, 1, d).float()
+    s = torch.matmul(qg, kb.float()[:, :, None].transpose(-1, -2)) * sm_scale
+    o, _ = _softmax_av(s, mask[:, None, None, None, :], vb[:, :, None])
+    return o.reshape(b, h, 1, dv).to(q.dtype)

@@ -1,0 +1,4 @@
+from .ops import lm_head_logits
+from .ref import lm_head_logits_ref, masked_logits_ref
+
+__all__ = ["lm_head_logits", "lm_head_logits_ref", "masked_logits_ref"]

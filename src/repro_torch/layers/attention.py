@@ -1,0 +1,118 @@
+"""GQA attention (covers MHA/MQA): init, full-sequence forward, the
+contiguous prefill cache, and one-token decode over a paged KV pool.
+
+Counterpart of the GQA half of ``repro.layers.attention``. Prefill runs
+``flash_attention`` and paged decode ``paged_decode_attention``; each is the
+CUDA kernel on a CUDA tensor and the plain version on the CPU. Sliding
+windows and prefix-LM masks are not ported yet (a later slice, with
+``flash_decode``); ``gqa_forward`` raises for them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 paged_decode_attention)
+
+from .common import dense_init
+from .rope import apply_rope
+
+__all__ = [
+    "gqa_init", "gqa_forward", "gqa_cache_init", "gqa_prefill_cache",
+    "gqa_paged_cache_init", "gqa_paged_decode",
+]
+
+
+def gqa_init(gen, cfg, dtype, device, *, n=None):
+    d, h, hk, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    return {
+        "wq": dense_init(gen, (d, h * hd), dtype, device, n=n),
+        "wk": dense_init(gen, (d, hk * hd), dtype, device, n=n),
+        "wv": dense_init(gen, (d, hk * hd), dtype, device, n=n),
+        "wo": dense_init(gen, (h * hd, d), dtype, device, n=n),
+    }
+
+
+def _qkv(params, x, cfg):
+    """(B, S, d) -> q (B, H, S, hd), k/v (B, Hk, S, hd): strided views of
+    the projections (the kernels take the strides as they are)."""
+    b, s, _ = x.shape
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(b, s, h, hd).transpose(1, 2)
+    k = (x @ params["wk"]).reshape(b, s, hk, hd).transpose(1, 2)
+    v = (x @ params["wv"]).reshape(b, s, hk, hd).transpose(1, 2)
+    return q, k, v
+
+
+def gqa_forward(params, x, cfg, *, return_kv=False):
+    """Causal full-sequence (prefill) attention. x: (B, S, d_model)."""
+    if cfg.window or cfg.prefix_lm:
+        raise NotImplementedError(
+            "gqa_forward: sliding-window and prefix-LM masks are not ported "
+            "to the Hopper prefill kernel yet")
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)
+    if cfg.pos_embed == "rope":
+        positions = torch.arange(s, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, k, v, causal=True)
+    y = o.transpose(1, 2).reshape(b, s, -1) @ params["wo"]
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def gqa_cache_init(cfg, batch, max_len, dtype, device):
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "k": torch.zeros((batch, hk, max_len, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, hk, max_len, hd), dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def gqa_prefill_cache(cache, k, v, cfg):
+    """Fill ``cache`` (updated in place) from prefill k/v (B, Hk, S, hd)."""
+    s = k.shape[2]
+    n = min(s, cache["k"].shape[2])
+    cache["k"][:, :, :n] = k[:, :, :n]
+    cache["v"][:, :, :n] = v[:, :, :n]
+    cache["pos"].fill_(s)
+    return cache
+
+
+def gqa_paged_cache_init(cfg, num_pages, page_size, dtype, device):
+    """Per-layer paged KV pools. Page 0 is the NULL page: idle slots' block
+    tables point at it and their per-step writes land there."""
+    hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (num_pages, hk, page_size, hd)
+    return {"kp": torch.zeros(shape, dtype=dtype, device=device),
+            "vp": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def gqa_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
+                     page_ids, offs):
+    """One-token decode over a PAGED cache. x: (B, 1, d_model).
+
+    ``table`` (B, nsp) i32 names each sequence's pages in logical order,
+    ``lens`` (B,) i32 its length (the new token's position), ``pos_pages``
+    (P, page) i32 the pool-slot -> position map (already stamped with the
+    new token), ``page_ids``/``offs`` (B,) the pool coordinates of this
+    step's write. The new k/v are written into the pools IN PLACE (JAX
+    returns new pools); returns (y, cache)."""
+    b = x.shape[0]
+    q, k1, v1 = _qkv(params, x, cfg)
+    if cfg.pos_embed == "rope":
+        p = lens[:, None, None]                   # per-sequence positions
+        q = apply_rope(q, p, cfg.rope_theta)
+        k1 = apply_rope(k1, p, cfg.rope_theta)
+    kp, vp = cache["kp"], cache["vp"]
+    kp[page_ids, :, offs] = k1[:, :, 0].to(kp.dtype)
+    vp[page_ids, :, offs] = v1[:, :, 0].to(vp.dtype)
+    o = paged_decode_attention(q, kp, vp, block_table=table, kv_len=lens + 1,
+                               pos_pages=pos_pages)
+    y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+    return y, cache

@@ -1,0 +1,30 @@
+"""Shared layer utilities: init, RMSNorm, SiLU.
+
+``rmsnorm`` is the kernel wrapper itself, which picks the Triton kernel for
+a CUDA tensor and the plain version for a CPU tensor; there is no backend
+switch as in ``repro.layers.common``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+__all__ = ["dense_init", "rmsnorm", "silu"]
+
+
+def dense_init(gen, shape, dtype, device, *, n=None, scale=None):
+    """Truncated-normal (+-3 std) fan-in init, drawn from the explicit
+    ``torch.Generator`` ``gen`` (on ``device``). ``n`` stacks that many
+    layers on a leading axis; the fan-in is the per-layer ``shape[0]``."""
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    std = scale if scale is not None else fan_in ** -0.5
+    full = tuple(shape) if n is None else (n, *shape)
+    t = torch.empty(full, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return (t * std).to(dtype)
+
+
+def silu(x):
+    return x * torch.sigmoid(x)

@@ -1,0 +1,25 @@
+"""Rotary position embedding (split-half rotation, f32 math)."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["rope_freqs", "apply_rope"]
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, H, S, D) with even D; positions: (S,), (B, 1, 1) or a scalar,
+    broadcast against (B, H, S)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+    pos = torch.as_tensor(positions, device=x.device).to(torch.float32)
+    angles = pos[..., None] * freqs                           # (..., S, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,218 @@
+"""Decoder LM, the dense GQA subset of ``repro.models.lm``.
+
+Parameters are a plain dict of tensors with the JAX package's tree paths and
+shapes: ``embed`` (Vpad, d), ``final_norm`` (d,), ``head`` (d, Vpad) when
+untied, and ``stacks`` (one per program entry) whose leaves carry the
+stacked ``(n, ...)`` layer axis. The layer loop is a Python loop over that
+axis (JAX scans it). Caches are dicts of tensors too; the paged decode step
+updates its cache IN PLACE and returns it (JAX returns a new one).
+
+Every model runs on the CUDA card unless ``device="cpu"`` is asked for; on
+the card the norms, attention and LM head go through the Hopper kernels, on
+the CPU through their plain versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.lm_head import lm_head_logits
+from repro_torch.layers import blocks
+from repro_torch.layers.common import dense_init, rmsnorm
+
+__all__ = ["LM", "StackSpec", "build_program", "pad_vocab"]
+
+
+def pad_vocab(v: int, multiple: int = 256) -> int:
+    """Megatron-style vocab padding (as the JAX package pads)."""
+    return -(-v // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class StackSpec:
+    kind: str           # dense (the only kind ported so far)
+    n: int
+
+
+def build_program(cfg: ArchConfig) -> list[StackSpec]:
+    if (cfg.shared_attn_every or cfg.ssm_type or cfg.n_experts
+            or cfg.attn_type != "gqa" or cfg.frontend
+            or cfg.pos_embed != "rope" or cfg.embed_scale):
+        raise NotImplementedError(
+            f"{cfg.name}: only dense GQA rope models are ported to PyTorch "
+            "so far (MoE, MLA, SSM, hybrids and frontends come later)")
+    return [StackSpec("dense", cfg.n_layers)]
+
+
+def _layer(tree, i):
+    """Layer ``i`` of a stacked tree (views: in-place writes reach it)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _stack(trees):
+    first = trees[0]
+    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
+                else torch.stack([t[k] for t in trees]))
+            for k, v in first.items()}
+
+
+class LM:
+    def __init__(self, cfg: ArchConfig, *, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = getattr(torch, cfg.dtype)
+        self.program = build_program(cfg)
+        self.vpad = pad_vocab(cfg.vocab_size)
+
+    # ------------------------------------------------------------------ init
+    def init(self, gen: torch.Generator):
+        """Random parameters drawn from ``gen`` (a generator on the model's
+        device), with the JAX package's names and shapes."""
+        cfg, dtype, dev = self.cfg, self.dtype, self.device
+        params = {
+            "embed": dense_init(gen, (self.vpad, cfg.d_model), dtype, dev,
+                                scale=cfg.d_model ** -0.5),
+            "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32,
+                                     device=dev),
+        }
+        if not cfg.tie_embeddings:
+            params["head"] = dense_init(gen, (cfg.d_model, self.vpad), dtype,
+                                        dev)
+        params["stacks"] = [blocks.tblock_init(gen, cfg, dtype, dev, n=s.n)
+                            for s in self.program]
+        return params
+
+    def param_count(self, params) -> int:
+        def count(t):
+            if isinstance(t, dict):
+                return sum(count(v) for v in t.values())
+            if isinstance(t, list):
+                return sum(count(v) for v in t)
+            return t.numel()
+        return count(params)
+
+    # ----------------------------------------------------------- embed/head
+    def _embed(self, params, tokens):
+        return params["embed"][tokens.long()]
+
+    def _head(self, params):
+        """The (d_model, Vpad) head matrix: for tied embeddings the view
+        ``embed.T`` (the LM-head kernel reads it in place)."""
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["head"])
+
+    def _logits(self, params, x):
+        b, s, d = x.shape
+        logits = lm_head_logits(x.reshape(b * s, d),
+                                self._head(params).to(x.dtype),
+                                vocab=self.cfg.vocab_size)
+        return logits.reshape(b, s, self.vpad)
+
+    # -------------------------------------------------------------- prefill
+    def prefill(self, params, tokens, max_len=None):
+        """tokens (B, S) -> (last-token logits (B, Vpad) f32, cache) with a
+        contiguous cache per stack: k/v (n, B, Hk, max_len, hd)."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        s = x.shape[1]
+        max_len = max_len or s
+        if s > max_len:
+            raise ValueError(
+                f"kv cache overflow: prefilling {s} tokens into a cache of "
+                f"max_len={max_len}; raise max_len")
+        caches = []
+        for spec, sp in zip(self.program, params["stacks"]):
+            layer_caches = []
+            for i in range(spec.n):
+                x, c = blocks.tblock_prefill(_layer(sp, i), x, cfg,
+                                             max_len=max_len)
+                layer_caches.append(c)
+            caches.append(_stack(layer_caches))
+        x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
+        logits = self._logits(params, x[:, -1:])[:, 0]
+        return logits, {"pos": s, "stacks": caches}
+
+    def greedy_token(self, logits):
+        return torch.argmax(logits[..., :self.cfg.vocab_size], dim=-1)
+
+    # -------------------------------------------------------- paged decoding
+    @property
+    def pageable(self) -> bool:
+        """True when the program can decode against a paged KV pool: dense
+        GQA stacks with rope positions and no rolling window."""
+        cfg = self.cfg
+        return (all(s.kind == "dense" for s in self.program)
+                and cfg.attn_type == "gqa" and not cfg.window
+                and cfg.pos_embed == "rope")
+
+    def init_paged_cache(self, batch, num_pages, page_size, nseq_pages):
+        """Per-layer KV pools of ``num_pages`` pages of ``page_size`` tokens
+        shared by ``batch`` slots, plus per-slot block tables, lengths and
+        the pool-wide slot -> position map. Page 0 is the NULL page (idle
+        slots point at it; its positions stay -1)."""
+        if not self.pageable:
+            raise ValueError(
+                "paged decode needs an attention-only GQA program with rope "
+                f"positions and no rolling window (window={self.cfg.window})")
+        dev = self.device
+
+        def stacked(n, single):
+            return {k: torch.zeros((n, *v.shape), dtype=v.dtype, device=dev)
+                    for k, v in single.items()}
+
+        stacks = [stacked(s.n, blocks.tblock_paged_cache_init(
+                      self.cfg, num_pages, page_size, self.dtype, "meta"))
+                  for s in self.program]
+        i32 = torch.int32
+        return {"table": torch.zeros((batch, nseq_pages), dtype=i32,
+                                     device=dev),
+                "len": torch.zeros((batch,), dtype=i32, device=dev),
+                "pos_pages": torch.full((num_pages, page_size), -1,
+                                        dtype=i32, device=dev),
+                "stacks": stacks}
+
+    def _paged_decode_hidden(self, params, tokens, cache):
+        """One paged decode step up to the final norm; updates ``cache`` in
+        place. Every slot decodes every step: idle slots carry len 0 and a
+        zero block table, writing into and reading from the null page."""
+        cfg = self.cfg
+        table, lens = cache["table"], cache["len"]
+        pos_pages = cache["pos_pages"]
+        b, nsp = table.shape
+        pg = pos_pages.shape[1]
+        # pool coordinates of this step's KV write, shared by every layer
+        rows = torch.arange(b, device=table.device)
+        page_ids = table[rows, torch.clamp(lens // pg, 0, nsp - 1).long()]
+        page_ids = page_ids.long()
+        offs = (lens % pg).long()
+        # stamp the new positions; the null page is pinned to -1 so idle
+        # slots' writes never masquerade as valid history
+        pos_pages[page_ids, offs] = lens
+        pos_pages[0] = -1
+        x = self._embed(params, tokens)
+        for spec, sp, sc in zip(self.program, params["stacks"],
+                                cache["stacks"]):
+            for i in range(spec.n):
+                x, _ = blocks.tblock_paged_decode(
+                    _layer(sp, i), x, _layer(sc, i), cfg, table=table,
+                    lens=lens, pos_pages=pos_pages, page_ids=page_ids,
+                    offs=offs)
+        x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
+        lens += 1
+        return x, cache
+
+    def paged_greedy_step(self, params, tokens, cache):
+        """One paged greedy token for every slot. tokens: (B, 1). Returns
+        (next (B,) i32, logits (B, Vpad) f32, cache); the argmax comes out of
+        the fused LM-head pass."""
+        x, cache = self._paged_decode_hidden(params, tokens, cache)
+        b, _, d = x.shape
+        logits, _m, arg = lm_head_logits.raw(
+            x.reshape(b, d), self._head(params).to(x.dtype),
+            vocab=self.cfg.vocab_size)
+        return arg[:, 0], logits, cache

@@ -1,0 +1,189 @@
+"""Continuous-batching greedy decode engine over paged KV caches (the
+counterpart of ``repro.serving.engine``).
+
+One ``LM.paged_greedy_step`` runs over ``batch`` SLOTS every step, whatever
+mix of sequences occupies them; the :class:`Scheduler` retires finished
+sequences, refills slots from the FIFO queue mid-flight, and preempts by
+eviction when the page pool runs dry. Admission prefills the new sequence
+alone (B=1 ``LM.prefill``) and copies its contiguous KV into the sequence's
+pages with ``index_copy_``, IN PLACE in the pools (JAX donates the pools to
+a jitted scatter instead).
+
+Token semantics match ``repro.serving.Engine``: the first emitted token
+comes from the prefill logits, every decode step emits the next, the EOS
+token itself is emitted before the sequence retires, and a sequence emits
+at most ``max_new`` tokens. Greedy only; sampling comes in a later slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import fit_block
+
+from .scheduler import Scheduler
+
+__all__ = ["Engine"]
+
+
+class Engine:
+    def __init__(self, model, params, *, batch: int, max_len: int,
+                 num_pages: int | None = None, page_size: int | None = None,
+                 eos_id: int | None = None):
+        if not model.pageable:
+            raise ValueError("Engine needs a pageable model (see LM.pageable)")
+        self.model = model
+        self.params = params
+        self.batch = batch
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.device = model.device
+        if page_size is None:
+            page_size = fit_block(512, max_len)
+        self.page_size = int(page_size)
+        nsp = -(-max_len // self.page_size)
+        if num_pages is None:
+            # every slot can grow to max_len: preemption never fires unless
+            # the caller shrinks the pool deliberately
+            num_pages = batch * nsp + 1
+        if num_pages - 1 < nsp:
+            raise ValueError(
+                f"num_pages={num_pages} cannot hold one max_len={max_len} "
+                f"sequence ({nsp} pages of {self.page_size})")
+        self.sched = Scheduler(batch=batch, page_size=self.page_size,
+                               num_pages=num_pages, max_len=max_len)
+        self.cache = model.init_paged_cache(batch, num_pages, self.page_size,
+                                            nsp)
+        self._requests = {}
+        self._pending = np.zeros((batch,), np.int64)
+        self._slot_pages = [[] for _ in range(batch)]
+
+    # -------------------------------------------------------------- requests
+    def submit(self, prompt, max_new: int) -> int:
+        """Queue a prompt for generation. Returns the request id."""
+        rid = self.sched.submit(prompt, max_new)
+        self._requests[rid] = self.sched.queue[-1]
+        return rid
+
+    def result(self, rid: int) -> list[int]:
+        return list(self._requests[rid].tokens)
+
+    @property
+    def idle(self) -> bool:
+        return self.sched.idle
+
+    # ------------------------------------------------------- device mirrors
+    def _table_row(self, pages: list[int]) -> torch.Tensor:
+        row = np.zeros((self.sched.nseq_pages,), np.int32)
+        row[:len(pages)] = pages               # padded entries hit null page 0
+        return torch.from_numpy(row).to(self.device)
+
+    def _clear_slot(self, slot: int):
+        self.cache["table"][slot] = 0
+        self.cache["len"][slot] = 0
+        self._slot_pages[slot] = []
+        self._pending[slot] = 0
+
+    def _scatter_prefill(self, pcache, pages: list[int], slot: int):
+        """Copy a B=1 contiguous prefill cache into the sequence's pages
+        (logical page j -> pool page pages[j]) and stamp their position rows
+        and the slot's table/len, in place."""
+        c, pg = self.cache, self.page_size
+        npg = len(pages)
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        plen = 0
+        for sc, pc in zip(c["stacks"], pcache["stacks"]):
+            for pool, kv in (("kp", "k"), ("vp", "v")):
+                src = pc[kv]                       # (n, 1, hk, plen, hd)
+                n, _, hk, plen, hd = src.shape
+                full = torch.zeros((n, hk, npg * pg, hd),
+                                   dtype=sc[pool].dtype, device=self.device)
+                full[:, :, :plen] = src[:, 0]
+                sc[pool].index_copy_(1, idx, full.reshape(
+                    n, hk, npg, pg, hd).transpose(1, 2))
+        pos = torch.arange(npg * pg, dtype=torch.int32,
+                           device=self.device).reshape(npg, pg)
+        c["pos_pages"].index_copy_(0, idx, torch.where(pos < plen, pos, -1))
+        c["table"][slot] = self._table_row(pages)
+        c["len"][slot] = plen
+        self._slot_pages[slot] = list(pages)
+
+    def _sync_grown(self, slot: int):
+        """Push newly granted pages into the device table; their position
+        rows reset to -1 (the decode step stamps positions as it writes)."""
+        req = self.sched.slots[slot]
+        pages = self.sched.pages.owned(req.rid)
+        if pages == self._slot_pages[slot]:
+            return
+        known = set(self._slot_pages[slot])
+        new = [p for p in pages if p not in known]
+        if new:
+            self.cache["pos_pages"][torch.tensor(new, device=self.device)] = -1
+        self.cache["table"][slot] = self._table_row(pages)
+        self._slot_pages[slot] = list(pages)
+
+    # ----------------------------------------------------------------- step
+    def _emit(self, slot: int, tok: int, emitted: dict):
+        req = self.sched.slots[slot]
+        req.tokens.append(tok)
+        emitted.setdefault(req.rid, []).append(tok)
+        if ((self.eos_id is not None and tok == self.eos_id)
+                or len(req.tokens) >= req.max_new):
+            self.sched.retire(slot)
+            self._clear_slot(slot)
+
+    def _admit(self, slot: int, req, emitted: dict):
+        toks = torch.tensor([req.resume_prompt], dtype=torch.long,
+                            device=self.device)   # prompt + generated so far
+        logits, pcache = self.model.prefill(self.params, toks)
+        self._scatter_prefill(pcache, self.sched.pages.owned(req.rid), slot)
+        tok = int(self.model.greedy_token(logits[0]))
+        self._pending[slot] = tok
+        self._emit(slot, tok, emitted)
+
+    def step(self) -> dict:
+        """One engine step: admit queued requests into free slots, grow
+        (preempting on famine), run ONE batched decode step, emit. Returns
+        ``{rid: [tokens]}`` emitted this step (admissions emit their prefill
+        token here too)."""
+        emitted: dict = {}
+        for slot, req in self.sched.admit():
+            self._admit(slot, req, emitted)
+        for slot in list(self.sched.running):
+            if self.sched.slots[slot] is None:
+                continue                        # evicted by a younger grow
+            while not self.sched.grow(slot):
+                freed = self.sched.preempt_youngest(exclude=slot)
+                if freed is None:
+                    raise RuntimeError(
+                        "page pool cannot hold a single sequence")
+                self._clear_slot(freed)
+            self._sync_grown(slot)
+        running = self.sched.running
+        if not running:
+            if self.sched.queue:
+                raise RuntimeError(
+                    "no slot admitted but requests remain queued: page pool "
+                    "too small for the front request")
+            return emitted
+        toks = torch.from_numpy(self._pending.reshape(-1, 1)).to(self.device)
+        nxt, _logits, self.cache = self.model.paged_greedy_step(
+            self.params, toks, self.cache)
+        nxt = nxt.cpu().numpy()
+        for slot in running:
+            tok = int(nxt[slot])
+            self._pending[slot] = tok
+            self._emit(slot, tok, emitted)
+        return emitted
+
+    def drain(self, max_steps: int | None = None) -> dict:
+        """Step until every submitted request completed. Returns
+        ``{rid: generated tokens}`` for all requests ever submitted."""
+        steps = 0
+        while not self.sched.idle:
+            self.step()
+            steps += 1
+            if max_steps is not None and steps > max_steps:
+                raise RuntimeError(f"drain: exceeded {max_steps} steps")
+        return {rid: list(r.tokens) for rid, r in self._requests.items()}
