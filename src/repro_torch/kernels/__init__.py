@@ -10,8 +10,9 @@ them.
 
 from __future__ import annotations
 
-from .flash_attention import flash_attention_fwd, paged_decode_attention
-from .lm_head import lm_head_logits
+from .flash_attention import (flash_attention_fwd, flash_bwd, flash_delta,
+                              paged_decode_attention)
+from .lm_head import lm_head_bwd, lm_head_ce, lm_head_logits
 from .rmsnorm import rmsnorm
 
 __all__ = ["KERNELS", "launch_counts", "reset_launches"]
@@ -22,6 +23,10 @@ KERNELS = {
     "flash_fwd": flash_attention_fwd,
     "paged_decode": paged_decode_attention,
     "lm_head": lm_head_logits,
+    "lm_head_ce": lm_head_ce,
+    "lm_head_bwd": lm_head_bwd,
+    "flash_delta": flash_delta,
+    "flash_bwd": flash_bwd,
 }
 
 

@@ -1,9 +1,15 @@
-"""Public attention ops: the CUDA kernels on CUDA tensors, the plain
-versions on the CPU (counterparts of ``repro.kernels.flash_attention.ops``).
+"""Public attention ops: the kernels on CUDA tensors, the plain versions
+on the CPU (counterparts of ``repro.kernels.flash_attention.ops``).
 
-``flash_attention_fwd`` launches ``csrc/flash_fwd.cu`` (prefill: o and lse);
-``flash_attention`` returns its o. ``paged_decode_attention`` launches
-``csrc/paged_decode.cu`` (one-token decode through a block table).
+``flash_attention_fwd`` launches ``csrc/flash_fwd.cu`` (prefill: o and
+lse). ``flash_attention`` is the differentiable op: a
+``torch.autograd.Function`` whose forward is ``flash_attention_fwd`` and
+whose backward (``flash_attention_bwd``) runs ``flash_delta`` (Triton,
+``delta.py``) and then ``flash_bwd`` (``csrc/flash_bwd.cu``), as the JAX
+op's ``_bwd`` runs the delta and fused backward kernels. Both devices go
+through the same Function; on the CPU each step is its plain version.
+``paged_decode_attention`` launches ``csrc/paged_decode.cu`` (one-token
+decode through a block table).
 """
 
 from __future__ import annotations
@@ -13,9 +19,12 @@ import ctypes
 import torch
 
 from .._build import check, load, ptr, stream
-from .ref import flash_fwd_ref, paged_decode_ref
+from . import delta as delta_kernel
+from .ref import (flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
+                  paged_decode_ref)
 
-__all__ = ["flash_attention", "flash_attention_fwd", "paged_decode_attention"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "flash_delta", "flash_bwd", "paged_decode_attention"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
@@ -23,6 +32,7 @@ _MAX_GROUP = 16                # paged decode: query heads per kv head
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 _FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 9 + [_P], _I)}
+_BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I)}
 _PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
 
 
@@ -49,21 +59,35 @@ def _check_qkv(name, q, k, v):
                              "contiguous")
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, sm_scale=None):
-    """q (B, H, Sq, D); k, v (B, Hk, Skv, D) -> (o (B, H, Sq, D) in q's
-    dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the kv
-    stream; ``causal`` masks keys after each query. Any Sq <= Skv."""
-    if q.device.type == "cpu":
-        return flash_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale)
-    name = "flash_attention"
-    _check_cuda(name, q, k, v)
-    _check_qkv(name, q, k, v)
-    b, h, sq, d = q.shape
+def _check_gqa(name, q, k, v):
+    b, h = q.shape[:2]
     _, hk, skv, _ = k.shape
     if k.shape[0] != b or tuple(v.shape[:3]) != (b, hk, skv) or h % hk:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree "
                          "(GQA needs H a multiple of Hk)")
+
+
+def _no_grad_asked(name, *ts):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            f"{name} records no autograd graph; call it under "
+            "torch.no_grad() or use the differentiable op")
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, sm_scale=None):
+    """q (B, H, Sq, D); k, v (B, Hk, Skv, D) -> (o (B, H, Sq, D) in q's
+    dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the kv
+    stream; ``causal`` masks keys after each query. Any Sq <= Skv."""
+    name = "flash_attention_fwd"
+    _no_grad_asked(name, q, k, v)
+    if q.device.type == "cpu":
+        return flash_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+    _check_cuda(name, q, k, v)
+    _check_qkv(name, q, k, v)
+    _check_gqa(name, q, k, v)
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
     if sq > skv or sq == 0:
         raise ValueError(f"{name}: need 0 < Sq <= Skv, got {sq}, {skv}")
     if sm_scale is None:
@@ -83,9 +107,112 @@ def flash_attention_fwd(q, k, v, *, causal=True, sm_scale=None):
 flash_attention_fwd.launches = 0
 
 
+def flash_delta(do, o):
+    """delta = rowsum(do * o) in f32: do, o (B, H, Sq, D) -> (B, H, Sq)."""
+    name = "flash_delta"
+    _no_grad_asked(name, do, o)
+    if do.device.type == "cpu":
+        return flash_delta_ref(do, o)
+    _check_cuda(name, do, o)
+    if do.shape != o.shape or do.dim() != 4:
+        raise ValueError(f"{name}: do {tuple(do.shape)} and o "
+                         f"{tuple(o.shape)} must be one (B, H, Sq, D) shape")
+    if do.dtype not in _DTYPE_CODE or o.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: dtypes {do.dtype}/{o.dtype} must be "
+                         "float32 or bfloat16")
+    if do.stride(-1) != 1 or o.stride(-1) != 1:
+        raise ValueError(f"{name}: the last axes must be contiguous")
+    b, h, sq, _ = do.shape
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=do.device)
+    delta_kernel.launch(do, o, delta)
+    flash_delta.launches += 1
+    return delta
+
+
+flash_delta.launches = 0
+
+
+def flash_bwd(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
+    """dq (B, H, Sq, D) in q's dtype and dk, dv (B, Hk, Skv, D) f32, summed
+    over each kv head's query-head group, from the forward's lse and
+    :func:`flash_delta`'s delta (both (B, H, Sq) f32). Queries are aligned
+    to the end of the kv stream; any Sq and Skv (a query that sees no key
+    contributes nothing)."""
+    name = "flash_bwd"
+    _no_grad_asked(name, q, k, v, do)
+    if q.device.type == "cpu":
+        return flash_bwd_ref(q, k, v, do, lse, delta, causal=causal,
+                             sm_scale=sm_scale)
+    _check_cuda(name, q, k, v, do, lse, delta)
+    _check_qkv(name, q, k, v)
+    _check_gqa(name, q, k, v)
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
+                         f"match q {tuple(q.shape)} {q.dtype}, last axis "
+                         "contiguous")
+    for t, n in ((lse, "lse"), (delta, "delta")):
+        if (tuple(t.shape) != (b, h, sq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {n} must be contiguous f32 "
+                             f"({b}, {h}, {sq}), got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    dev = q.device
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
+    dv = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
+    lib = load("flash_bwd", _BWD_SIG)
+    err = lib.flash_bwd(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                        ptr(dq), ptr(dk), ptr(dv), b, h, hk, sq, skv, d,
+                        _DTYPE_CODE[q.dtype], int(bool(causal)),
+                        float(sm_scale), *q.stride()[:3], *k.stride()[:3],
+                        *v.stride()[:3], *do.stride()[:3], stream())
+    check(lib, err, "flash_bwd")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, sm_scale=None):
+    """The backward host path (``kernel.py:317`` of the JAX package): delta,
+    then dq/dk/dv; dk and dv come group-summed out of :func:`flash_bwd` and
+    are cast to k's and v's dtypes here. Returns (dq, dk, dv)."""
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    delta = flash_delta(do, o)
+    dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, causal=causal,
+                           sm_scale=sm_scale)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse,
+                                         causal=ctx.causal,
+                                         sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, sm_scale=None):
-    """Attention output of :func:`flash_attention_fwd` (lse dropped)."""
-    return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)[0]
+    """Differentiable attention: the o of :func:`flash_attention_fwd`, with
+    the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`."""
+    return _FlashAttention.apply(q, k, v, causal, sm_scale)
 
 
 def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,

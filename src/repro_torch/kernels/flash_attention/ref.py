@@ -1,5 +1,7 @@
-"""Plain PyTorch attention: the functions the prefill and paged-decode
-kernels compute (counterparts of ``repro.kernels.flash_attention.ref``).
+"""Plain PyTorch attention: the functions the prefill, paged-decode and
+backward kernels compute (counterparts of
+``repro.kernels.flash_attention.ref`` and of the TPU backward kernels'
+arithmetic in ``repro.kernels.flash_attention.kernel``).
 
 Scores and the softmax are f32; as in the JAX oracle, the probabilities are
 cast to v's dtype before the product with v, and the output to q's dtype.
@@ -10,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mha_ref", "flash_fwd_ref", "paged_decode_ref"]
+__all__ = ["mha_ref", "flash_fwd_ref", "paged_decode_ref", "flash_delta_ref",
+           "flash_bwd_ref"]
 
 
 def _mask(sq, skv, *, causal, window, prefix_len, device):
@@ -101,3 +104,37 @@ def paged_decode_ref(q, k_pages, v_pages, *, block_table, kv_len=None,
     s = torch.matmul(qg, kb.float()[:, :, None].transpose(-1, -2)) * sm_scale
     o, _ = _softmax_av(s, mask[:, None, None, None, :], vb[:, :, None])
     return o.reshape(b, h, 1, dv).to(q.dtype)
+
+
+def flash_delta_ref(do, o):
+    """delta = rowsum(do * o) in f32: (B, H, Sq, D) x2 -> (B, H, Sq)."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_ref(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
+    """dq, dk, dv of causal (or full) attention from the forward's lse and
+    :func:`flash_delta_ref`'s delta, all in f32 as the TPU backward kernel
+    computes them: ``p = exp(s - lse)`` on visible keys (0 elsewhere, so a
+    row that sees no key, lse = -inf, contributes nothing),
+    ``ds = p * (do v^T - delta) * sm_scale``. Returns dq (B, H, Sq, D) in
+    q's dtype and dk, dv (B, Hk, Skv, D) f32 summed over each kv head's
+    query-head group."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    dv_dim = v.shape[-1]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    qf = q.float().reshape(b, hk, g, sq, d)
+    dof = do.float().reshape(b, hk, g, sq, dv_dim)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    mask = _mask(sq, skv, causal=causal, window=None, prefix_len=0,
+                 device=q.device)
+    p = torch.where(mask, torch.exp(s - lse.reshape(b, hk, g, sq, 1)), 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.reshape(b, hk, g, sq, 1)) * sm_scale
+    dq = torch.matmul(ds, kf).reshape(b, h, sq, d)
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(2)
+    return dq.to(q.dtype), dk, dv

@@ -1,4 +1,7 @@
-from .ops import lm_head_logits
-from .ref import lm_head_logits_ref, masked_logits_ref
+from .ops import lm_head_bwd, lm_head_ce, lm_head_logits
+from .ref import (lm_head_bwd_ref, lm_head_ce_ref, lm_head_ce_stats_ref,
+                  lm_head_logits_ref, masked_logits_ref)
 
-__all__ = ["lm_head_logits", "lm_head_logits_ref", "masked_logits_ref"]
+__all__ = ["lm_head_logits", "lm_head_ce", "lm_head_bwd",
+           "lm_head_logits_ref", "masked_logits_ref", "lm_head_ce_ref",
+           "lm_head_ce_stats_ref", "lm_head_bwd_ref"]

@@ -1,11 +1,14 @@
-"""Plain PyTorch LM head: the function the decode LM-head kernel computes
-(counterpart of ``repro.kernels.lm_head.ref``)."""
+"""Plain PyTorch LM head: the functions the decode LM-head kernel and the
+fused cross-entropy kernels compute (counterpart of
+``repro.kernels.lm_head.ref``, plus the CE backward of
+``lm_head_bwd_builder``)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["masked_logits_ref", "lm_head_logits_ref"]
+__all__ = ["masked_logits_ref", "lm_head_logits_ref", "lm_head_ce_ref",
+           "lm_head_ce_stats_ref", "lm_head_bwd_ref"]
 
 _PAD_LOGIT = -1e30
 
@@ -30,3 +33,39 @@ def lm_head_logits_ref(x, w, *, vocab=None):
     m = live.amax(-1, keepdim=True)
     arg = torch.argmax(live, dim=-1).to(torch.int32)[:, None]
     return logits, m, arg
+
+
+def lm_head_ce_stats_ref(x, w, labels, *, vocab=None):
+    """What the CE forward kernel emits: (lse (R, 1) f32, gold (R, 1) f32),
+    the log-sum-exp over the true vocab and each row's label logit (0 for a
+    label outside the true vocab, which never matches a valid column)."""
+    V = w.shape[1]
+    vocab = V if vocab is None else int(vocab)
+    logits = masked_logits_ref(x, w, vocab=vocab)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    lab = labels.reshape(-1, 1).long()
+    hit = (lab < vocab) & (lab >= 0)
+    gold = torch.gather(logits, 1, lab.clamp(0, V - 1))
+    return lse, torch.where(hit, gold, 0.0)
+
+
+def lm_head_ce_ref(x, w, labels, *, vocab=None):
+    """Per-row token NLL ``logsumexp(logits) - logits[label]``: (R,) f32."""
+    lse, gold = lm_head_ce_stats_ref(x, w, labels, vocab=vocab)
+    return (lse - gold)[:, 0]
+
+
+def lm_head_bwd_ref(x, w, labels, lse, g, *, vocab=None):
+    """The CE backward, recomputed from the saved lse as the TPU kernel
+    does: ``dl = g * (exp(s - lse) - onehot)`` on the true vocab (0 on the
+    padded columns), ``dx = dl w^T`` (R, d) f32, ``dw = x^T dl`` (d, V)
+    f32. ``lse`` and ``g`` are (R, 1) f32."""
+    V = w.shape[1]
+    vocab = V if vocab is None else int(vocab)
+    s = torch.matmul(x.float(), w.float())
+    valid = torch.arange(V, device=x.device) < vocab
+    p = torch.where(valid, torch.exp(s - lse), 0.0)
+    hit = (labels.reshape(-1, 1).long()
+           == torch.arange(V, device=x.device)) & valid
+    dl = (p - hit.float()) * g
+    return torch.matmul(dl, w.float().T), torch.matmul(x.float().T, dl)

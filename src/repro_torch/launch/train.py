@@ -1,0 +1,207 @@
+"""Fault-tolerant training on one device (the counterpart of
+``repro.launch.train`` without a mesh).
+
+Integrates: the eager train step (``LM.loss`` -> ``torch.autograd.grad``
+-> ``AdamW.update``), deterministic synthetic data with prefetch, async
+atomic checkpointing + resume, the straggler watchdog, and failure
+injection with automatic restore-retry. Autotune adoption, rematerializing
+layers, gradient accumulation and sharded (zero1/fsdp) optimizer state are
+not ported yet.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
+      --steps 3
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config, reduced as reduce_cfg
+from repro_torch.data import Prefetcher, SyntheticLMData
+from repro_torch.device import resolve_device
+from repro_torch.models import LM
+from repro_torch.optim import AdamW, WarmupCosine
+from repro_torch.runtime import ChaosError, FailureInjector, StepWatchdog
+from repro_torch.tree import leaves, tree_map, unflatten
+
+__all__ = ["TrainLoop", "main", "train_step", "validate_host_batch"]
+
+
+def validate_host_batch(tokens, vocab_size: int):
+    """Reject out-of-range token ids while the batch is still host data: a
+    label >= vocab_size (or negative) would otherwise train against
+    padded-vocab logits."""
+    t = np.asarray(tokens)
+    if t.size == 0:
+        return
+    lo, hi = int(t.min()), int(t.max())
+    if lo < 0 or hi >= vocab_size:
+        raise ValueError(
+            f"batch tokens out of range [{lo}, {hi}] for vocab_size="
+            f"{vocab_size}: the CE would silently train on padded-"
+            "vocab logits; fix the data pipeline")
+
+
+def train_step(model: LM, optimizer: AdamW, params, opt_state, batch):
+    """One step: (params, opt_state, loss, metrics); params and the
+    optimizer state are updated in place."""
+    loss, metrics = model.loss(params, batch)
+    grads = unflatten(params, torch.autograd.grad(loss, leaves(params)))
+    params, opt_state, opt_metrics = optimizer.update(grads, opt_state, params)
+    return params, opt_state, loss.detach(), dict(metrics, **opt_metrics)
+
+
+def _trainable(params):
+    return tree_map(lambda p: p.detach().requires_grad_(), params)
+
+
+def _param_template(model: LM):
+    """The parameter tree as meta tensors (shapes and dtypes, no memory):
+    the counterpart of ``jax.eval_shape(model.init)``."""
+    meta = copy.copy(model)
+    meta.device = torch.device("meta")
+    return meta.init(torch.Generator())
+
+
+@dataclasses.dataclass
+class TrainLoop:
+    """Restartable training loop with recovery; returns loss history."""
+
+    model: LM
+    global_batch: int
+    seq_len: int
+    steps: int
+    ckpt_dir: str | None = None
+    ckpt_every: int = 50
+    peak_lr: float = 3e-3
+    seed: int = 0
+    injector: FailureInjector | None = None
+    max_retries: int = 3
+    log_every: int = 10
+    verbose: bool = True
+    device: str | None = None     # None: the model's device
+
+    def run(self):
+        model, cfg = self.model, self.model.cfg
+        dev = model.device
+        if self.device is not None and resolve_device(self.device) != dev:
+            raise ValueError(f"TrainLoop device {self.device!r} differs from "
+                             f"the model's {dev}")
+        optimizer = AdamW(schedule=WarmupCosine(
+            peak_lr=self.peak_lr, warmup_steps=max(self.steps // 20, 5),
+            total_steps=self.steps))
+        data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=self.seq_len,
+                               global_batch=self.global_batch, seed=self.seed)
+        mgr = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
+        watchdog = StepWatchdog(absolute_deadline_s=None)
+
+        def fresh_state():
+            gen = torch.Generator(device=dev).manual_seed(self.seed)
+            params = _trainable(model.init(gen))
+            return params, optimizer.init(params), 0
+
+        def restore_state():
+            template = _param_template(model)
+            opt_t = optimizer.init(template)
+            step, (params, opt), _ = mgr.restore((template, opt_t),
+                                                 device=dev)
+            return _trainable(params), opt, step
+
+        if mgr and mgr.latest_step() is not None:
+            params, opt_state, start = restore_state()
+            if self.verbose:
+                print(f"[train] resumed from step {start}")
+        else:
+            params, opt_state, start = fresh_state()
+
+        history = []
+        step = start
+        retries = 0
+        prefetch = Prefetcher(data, start_step=step)
+        try:
+            while step < self.steps:
+                try:
+                    if self.injector:
+                        self.injector.maybe_fail(step)
+                    _, host_batch = prefetch.next()
+                    validate_host_batch(host_batch, cfg.vocab_size)
+                    batch = {"tokens": torch.from_numpy(host_batch).to(dev)}
+                    watchdog.start()
+                    params, opt_state, loss, metrics = train_step(
+                        model, optimizer, params, opt_state, batch)
+                    loss = float(loss)
+                    watchdog.stop()
+                    history.append(loss)
+                    if self.verbose and step % self.log_every == 0:
+                        print(f"[train] step {step:5d} loss {loss:8.4f} "
+                              f"lr {float(metrics['lr']):.2e} "
+                              f"gnorm {float(metrics['grad_norm']):.2f}")
+                    step += 1
+                    if mgr and step % self.ckpt_every == 0:
+                        mgr.save(step, (params, opt_state),
+                                 meta={"loss": loss})
+                except ChaosError as e:
+                    retries += 1
+                    if self.verbose:
+                        print(f"[train] {e} -> recovering "
+                              f"(retry {retries}/{self.max_retries})")
+                    if retries > self.max_retries:
+                        raise
+                    prefetch.close()
+                    if mgr and mgr.latest_step() is not None:
+                        params, opt_state, step = restore_state()
+                    else:
+                        params, opt_state, step = fresh_state()
+                    prefetch = Prefetcher(data, start_step=step)
+            if mgr:
+                mgr.save(self.steps, (params, opt_state), async_=False,
+                         meta={"loss": history[-1] if history else None})
+                mgr.wait()
+        finally:
+            prefetch.close()
+        return {"history": history, "params": params, "opt": opt_state,
+                "straggler_flags": watchdog.flagged, "final_step": step,
+                "tuned": {}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3_2_1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--peak-lr", type=float, default=3e-3)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--fail-at", type=int, nargs="*", default=[])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (the plain PyTorch versions)")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_cfg(cfg)
+    model = LM(cfg, device=args.device)
+    injector = FailureInjector(args.fail_at) if args.fail_at else None
+    loop = TrainLoop(model=model, global_batch=args.global_batch,
+                     seq_len=args.seq_len, steps=args.steps,
+                     ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                     peak_lr=args.peak_lr, injector=injector)
+    t0 = time.time()
+    out = loop.run()
+    h = out["history"]
+    print(f"[train] done on {model.device}: {len(h)} steps in "
+          f"{time.time() - t0:.1f}s; loss {h[0]:.3f} -> {h[-1]:.3f}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
 
 __all__ = ["from_jax_params", "tree_to"]
 
@@ -38,8 +39,4 @@ def from_jax_params(tree, *, device=None):
 
 def tree_to(tree, device):
     """Copy a tree of tensors to ``device``."""
-    if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree_map(lambda t: t.to(device), tree)

@@ -10,6 +10,11 @@ updates its cache IN PLACE and returns it (JAX returns a new one).
 Every model runs on the CUDA card unless ``device="cpu"`` is asked for; on
 the card the norms, attention and LM head go through the Hopper kernels, on
 the CPU through their plain versions.
+
+Training (``loss``) differentiates through the same wrappers: rmsnorm,
+flash attention and the fused CE head are ``torch.autograd.Function``s on
+both devices, and gradients come from ``torch.autograd.grad`` over the
+parameter tree's leaves.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.lm_head import lm_head_logits
+from repro_torch.kernels.lm_head import lm_head_ce, lm_head_logits
 from repro_torch.layers import blocks
 from repro_torch.layers.common import dense_init, rmsnorm
 
@@ -52,6 +57,15 @@ def _layer(tree, i):
     """Layer ``i`` of a stacked tree (views: in-place writes reach it)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree, n):
+    """The ``n`` layers of a stacked tree, each leaf unbound once: autograd
+    then stacks the layers' gradients in one pass instead of adding ``n``
+    dense zero-padded copies."""
+    parts = {k: (_unstack(v, n) if isinstance(v, dict) else torch.unbind(v))
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _stack(trees):
@@ -112,6 +126,63 @@ class LM:
                                 self._head(params).to(x.dtype),
                                 vocab=self.cfg.vocab_size)
         return logits.reshape(b, s, self.vpad)
+
+    # ------------------------------------------------------------- training
+    def _hidden_states(self, params, tokens):
+        """Embed -> layer stacks -> final norm: the shared forward trunk.
+        Returns (hidden (B, S, d), aux (2,) f32); the dense program has no
+        MoE auxiliary losses, so aux is zero."""
+        cfg = self.cfg
+        x = self._embed(params, tokens)
+        for spec, sp in zip(self.program, params["stacks"]):
+            for lp in _unstack(sp, spec.n):
+                x = blocks.tblock_forward(lp, x, cfg)
+        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+        return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), aux
+
+    def forward(self, params, tokens):
+        """Full-sequence forward: (logits (B, S, Vpad) f32, aux). The LM-head
+        kernel has no backward, so the logits carry no gradient."""
+        x, aux = self._hidden_states(params, tokens)
+        with torch.no_grad():
+            return self._logits(params, x), aux
+
+    def _fused_ce(self, params, x, labels):
+        """Mean NLL through ``lm_head_ce``: the (B*S, Vpad) logits are never
+        kept, forward or backward."""
+        b, s, d = x.shape
+        head = self._head(params).to(x.dtype)
+        nll = lm_head_ce(x.reshape(b * s, d), head,
+                         labels.reshape(b * s, 1).to(torch.int32).contiguous(),
+                         vocab=self.cfg.vocab_size)
+        return nll.mean()
+
+    def _check_labels(self, labels):
+        """Labels >= vocab_size index padded-vocab columns, which the kernel
+        excludes, so training would silently optimize against nothing.
+        Raise on the host (one read of the labels' min and max)."""
+        if labels.numel() == 0:
+            return
+        lo, hi = int(labels.min()), int(labels.max())
+        if lo < 0 or hi >= self.cfg.vocab_size:
+            raise ValueError(
+                f"labels out of range [{lo}, {hi}] for vocab_size="
+                f"{self.cfg.vocab_size} (vpad={self.vpad}): CE would "
+                "silently train on padded-vocab logits; clean the batch")
+
+    def loss(self, params, batch):
+        """Next-token CE of ``batch["tokens"]`` (B, S): (total, {"ce",
+        "moe_lb", "moe_z"}); for the dense program total == ce."""
+        tokens = batch["tokens"]
+        labels = tokens[:, 1:]
+        self._check_labels(labels)
+        x, aux = self._hidden_states(params, tokens)
+        pred_x = x[:, :-1] if x.shape[1] > 1 else x
+        ce = self._fused_ce(params, pred_x, labels)
+        lb, z = aux[0], aux[1]
+        nl = max(sum(s.n for s in self.program), 1)
+        total = ce + (0.02 * lb + 1e-3 * z) / nl
+        return total, {"ce": ce, "moe_lb": lb, "moe_z": z}
 
     # -------------------------------------------------------------- prefill
     def prefill(self, params, tokens, max_len=None):

@@ -9,12 +9,17 @@ skips. Run them on the card with
 import pytest
 import torch
 
-from repro_torch.kernels import launch_counts, reset_launches
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                 flash_fwd_ref,
+from repro_torch.kernels import KERNELS, launch_counts, reset_launches
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_fwd,
+                                                 flash_bwd, flash_bwd_ref,
+                                                 flash_delta, flash_delta_ref,
+                                                 flash_fwd_ref, mha_ref,
                                                  paged_decode_attention,
                                                  paged_decode_ref)
-from repro_torch.kernels.lm_head import lm_head_logits, lm_head_logits_ref
+from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
+                                         lm_head_ce, lm_head_ce_stats_ref,
+                                         lm_head_logits, lm_head_logits_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 
 pytestmark = pytest.mark.cuda
@@ -99,13 +104,104 @@ def test_lm_head_kernel_ties_and_tied_head(dev, R):
         assert (arg == 9).all() and torch.equal(arg, rarg)
 
 
+@pytest.mark.parametrize("R,V,vocab", [(5, 96, 70), (70, 200, 200),
+                                        (130, 1100, 1000)])
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_head_ce_kernels(dev, R, V, vocab, tied):
+    d = 48                                     # ragged against the 16 depth
+    x = _rnd(dev, R, d)
+    w = _rnd(dev, V, d, seed=1).T if tied else _rnd(dev, d, V, seed=1)
+    lab = torch.randint(0, vocab, (R, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(R)).to(dev)
+    lse, gold = lm_head_ce.raw(x, w, lab, vocab=vocab)
+    rlse, rgold = lm_head_ce_stats_ref(x, w, lab, vocab=vocab)
+    torch.testing.assert_close(lse, rlse, **TOL)
+    torch.testing.assert_close(gold, rgold, **TOL)
+    g = _rnd(dev, R, 1, seed=2)
+    dx, dw = lm_head_bwd(x, w, lab, lse, g, vocab=vocab)
+    rdx, rdw = lm_head_bwd_ref(x, w, lab, lse, g, vocab=vocab)
+    torch.testing.assert_close(dx, rdx, **TOL)
+    torch.testing.assert_close(dw, rdw, **TOL)
+    assert dw.stride() == ((1, d) if tied else (V, 1))   # w's own layout
+    with pytest.raises(ValueError, match="labels"):
+        lm_head_ce.raw(x, w, lab.cpu(), vocab=vocab)
+
+
+@pytest.mark.parametrize("sq,skv,g,d", [(5, 5, 1, 32), (9, 9, 4, 64),
+                                        (70, 70, 2, 64), (4, 11, 4, 32),
+                                        (130, 200, 4, 64), (7, 4, 2, 32)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels(dev, sq, skv, g, d, causal):
+    """Strided q and do, GQA groups, ragged lengths; (7, 4) causal has rows
+    that see no key (lse = -inf): their dq is exactly 0."""
+    b, hk = 2, 2
+    h = hk * g
+    q = _rnd(dev, b, sq, h, d).transpose(1, 2)
+    k, v = _rnd(dev, b, hk, skv, d, seed=1), _rnd(dev, b, hk, skv, d, seed=2)
+    do = _rnd(dev, b, sq, h, d, seed=3).transpose(1, 2)
+    o, lse = flash_fwd_ref(q, k, v, causal=causal)
+    delta = flash_delta(do, o)
+    torch.testing.assert_close(delta, flash_delta_ref(do, o), **TOL)
+    got = flash_bwd(q, k, v, do, lse, delta, causal=causal)
+    want = flash_bwd_ref(q, k, v, do, lse, delta, causal=causal)
+    for a, b_ in zip(got, want):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b_, **TOL)
+    if causal and sq > skv:
+        assert (got[0][:, :, :sq - skv] == 0).all()
+
+
+def test_gradients_flow_through_kernels_on_cuda(dev):
+    """rmsnorm and flash attention on CUDA tensors record their backward:
+    the gradients equal those of the plain versions."""
+    x = _rnd(dev, 2, 9, 64).requires_grad_()
+    w = _rnd(dev, 64, seed=1).requires_grad_()
+    gy = _rnd(dev, 2, 9, 64, seed=2)
+    got = torch.autograd.grad(rmsnorm(x, w), (x, w), gy)
+    want = torch.autograd.grad(rmsnorm_ref(x, w), (x, w), gy)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **TOL)
+    q = _rnd(dev, 2, 17, 8, 32).transpose(1, 2).requires_grad_()
+    k = _rnd(dev, 2, 2, 17, 32, seed=1).requires_grad_()
+    v = _rnd(dev, 2, 2, 17, 32, seed=2).requires_grad_()
+    go = _rnd(dev, 2, 8, 17, 32, seed=3)
+    reset_launches()
+    got = torch.autograd.grad(flash_attention(q, k, v), (q, k, v), go)
+    counts = launch_counts()
+    assert counts["flash_fwd"] == counts["flash_delta"] == \
+        counts["flash_bwd"] == 1
+    want = torch.autograd.grad(mha_ref(q, k, v), (q, k, v), go)
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, **TOL)
+    with pytest.raises(RuntimeError, match="no backward"):
+        lm_head_logits(x[0], w[:, None])
+
+
+def test_lm_head_ce_grads_on_cuda_match_cpu(dev):
+    x = _rnd(dev, 33, 64).requires_grad_()
+    emb = _rnd(dev, 300, 64, seed=1).requires_grad_()
+    lab = torch.arange(33, dtype=torch.int32, device=dev)[:, None] * 7
+    got = torch.autograd.grad(lm_head_ce(x, emb.T, lab, vocab=250).mean(),
+                              (x, emb))
+    xc, ec = (t.detach().cpu().requires_grad_() for t in (x, emb))
+    want = torch.autograd.grad(lm_head_ce(xc, ec.T, lab.cpu(),
+                                          vocab=250).mean(), (xc, ec))
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b_, **TOL)
+
+
 def test_each_launch_counts_once(dev):
     reset_launches()
     x = _rnd(dev, 2, 64)
     rmsnorm(x, torch.ones(64, device=dev))
     lm_head_logits(x, _rnd(dev, 64, 128))
     q = _rnd(dev, 1, 2, 3, 32)
-    flash_attention_fwd(q, q, q)
-    counts = launch_counts()
-    assert counts == {"rmsnorm": 1, "flash_fwd": 1, "paged_decode": 0,
-                      "lm_head": 1}
+    o, lse = flash_attention_fwd(q, q, q)
+    delta = flash_delta(q, o)
+    flash_bwd(q, q, q, q, lse, delta)
+    lab = torch.zeros((2, 1), dtype=torch.int32, device=dev)
+    w = _rnd(dev, 64, 128)
+    lse2, _ = lm_head_ce.raw(x, w, lab)
+    lm_head_bwd(x, w, lab, lse2, torch.ones((2, 1), device=dev))
+    assert launch_counts() == {name: 0 if name == "paged_decode" else 1
+                               for name in KERNELS}

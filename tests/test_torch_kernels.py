@@ -24,9 +24,11 @@ from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
 
 from repro_torch.kernels import KERNELS, launch_counts, reset_launches
 from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_fwd, mha_ref,
+                                                 flash_attention_fwd,
+                                                 flash_bwd, flash_delta,
+                                                 mha_ref,
                                                  paged_decode_attention)
-from repro_torch.kernels.lm_head import lm_head_logits
+from repro_torch.kernels.lm_head import lm_head_ce, lm_head_logits
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 EW = dict(rtol=1e-5, atol=1e-5)
@@ -216,7 +218,15 @@ def test_non_cuda_devices_raise_instead_of_falling_back():
     q = torch.empty((1, 2, 3, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_bwd(q, q, q, q, torch.empty((1, 2, 3), device="meta"),
+                  torch.empty((1, 2, 3), device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_delta(q, q)
     i32 = dict(dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        lm_head_ce.raw(x, torch.empty((32, 64), device="meta"),
+                       torch.empty((4, 1), **i32))
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_attention(
             q[:, :, :1], torch.empty((3, 2, 4, 32), device="meta"),

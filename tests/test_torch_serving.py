@@ -204,11 +204,15 @@ def test_cpu_step_loads_no_jax_module():
         "from repro_torch.configs import get_config, reduced\n"
         "from repro_torch.models import LM\n"
         "from repro_torch.serving import Engine\n"
+        "from repro_torch.launch.train import main\n"
         "m = LM(reduced(get_config('llama3_2_1b')), device='cpu')\n"
         "p = m.init(torch.Generator().manual_seed(0))\n"
         "e = Engine(m, p, batch=2, max_len=16, page_size=4)\n"
         "e.submit([1, 2, 3], 3)\n"
         "assert len(e.drain()[0]) == 3\n"
+        "out = main(['--reduced', '--device', 'cpu', '--steps', '2', "
+        "'--global-batch', '2', '--seq-len', '8'])\n"
+        "assert len(out['history']) == 2\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
@@ -216,4 +220,5 @@ def test_cpu_step_loads_no_jax_module():
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
-    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr[-2000:]
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), \
+        r.stderr[-2000:]
