@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: builds the port's eight hand-written Hopper kernels from ``src/``,
+GPU: builds the port's twelve hand-written Hopper kernels from ``src/``,
 holds each against its plain PyTorch version, serves ``llama3_2_1b``
 through the continuous-batching engine, trains it through ``TrainLoop``,
-and times each kernel.
+runs the paper's FD, SEM and DG apps at full size, and times each kernel.
 
   python3 chip_smoke.py
 
@@ -12,8 +12,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 1. build: one nvcc per CUDA source, all in parallel, plus the Triton
    rmsnorm and flash-delta kernels;
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
-   1e-4), bf16 at the main paths' full-width shapes (tolerances stated
-   beside each check);
+   1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
+   max|ref| for SEM/DG), bf16 at the main paths' full-width shapes and f32
+   at the apps' full-size shapes (tolerances stated beside each check; the
+   DG kernels also on the apps path's own state, both versions against the
+   f64 result within the f32 rounding bound of their summed terms);
 3. llama3_2_1b at full width with 2 layers in f32, one set of weights on
    the card (kernels) and on the CPU (plain versions): prefill logits and
    the first 8 greedy tokens must agree; the training loss and every
@@ -35,7 +38,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. where the training time goes: one train step on the host clock and
    under ``torch.profiler``;
 8. per-kernel times at the main paths' shapes beside their bound, the
-   plain version's time and one library call's time.
+   plain version's time and one library call's time (null where no single
+   PyTorch call computes the function);
+9. the apps path, launch counts zeroed just before and read just after,
+   each app kernel launched exactly as often as its calls say: ``FDWave``
+   on 8192^2 at radius 4 for 200 steps (MNodes/s, analytic error) and
+   ``launch.apps.fd_wave`` at the example's settings (error < 5e-2); the
+   SEM operator on 32^3 elements of N = 7 (``apply_local`` and
+   ``apply_global``, GFLOP/s) and ``launch.apps.sem_solve`` on 8^3
+   elements of N = 7 (PCG iterations, error < 0.05); ``launch.apps.swe_run``
+   on 2 x 256^2 triangles of N = 5 for 100 LSERK steps (finite, h within
+   (0.9, 1.2), water mass conserved to 1e-5 relative, summed in f64);
+10. where the apps' time goes: an LSERK step on the host clock and under
+    ``torch.profiler``, and ``apply_global`` split into gather, kernel and
+    ``index_add_`` scatter on CUDA events, beside two other scatter calls.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -78,11 +94,26 @@ KERNEL_INFO = {
                     "src/repro/kernels/flash_attention/kernel.py:180"),
     "flash_bwd": ("cuda", "src/repro_torch/csrc/flash_bwd.cu",
                   "src/repro/kernels/flash_attention/kernel.py:210"),
+    "fd2d": ("cuda", "src/repro_torch/csrc/fd2d.cu",
+             "src/repro/apps/fd2d.py:21"),
+    "sem_apply": ("cuda", "src/repro_torch/csrc/sem.cu",
+                  "src/repro/apps/sem.py:29"),
+    "dg_volume": ("cuda", "src/repro_torch/csrc/dg.cu",
+                  "src/repro/apps/dg_swe.py:26"),
+    "dg_surface": ("cuda", "src/repro_torch/csrc/dg.cu",
+                   "src/repro/apps/dg_swe.py:276"),
 }
 SERVE_KERNELS = ("rmsnorm", "flash_fwd", "paged_decode", "lm_head")
 TRAIN_KERNELS = ("lm_head_ce", "lm_head_bwd", "flash_delta", "flash_bwd")
 # the training main path: llama3_2_1b at global batch 4 x seq_len 1024
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+APP_KERNELS = ("fd2d", "sem_apply", "dg_volume", "dg_surface")
+# the apps main path: the FD wave on 8192^2 (radius 4, 200 steps), the SEM
+# operator on 32^3 elements of N = 7 (each apply timed over SEM_REPEATS
+# calls), the DG solver on 2 x 256^2 triangles of N = 5 (100 LSERK steps)
+FD_SIZE, FD_RADIUS, FD_STEPS = 8192, 4, 200
+SEM_ELEMS, SEM_N, SEM_REPEATS = 32, 7, 5
+DG_NX, DG_N, DG_STEPS = 256, 5, 100
 
 
 def log(msg):
@@ -1038,6 +1069,453 @@ def time_train_kernels(dev, cfg, embed):
 
 
 # ---------------------------------------------------------------------------
+# the paper apps: phases 2a (apps), 9, 10 and their times
+# ---------------------------------------------------------------------------
+
+def small_f32_app_checks(dev):
+    """The app kernels against their plain versions in f32 at small ragged
+    shapes: FD with h != w, neither a multiple of the tile, r in {1, 2, 4}
+    (tolerance 2e-5); SEM with E not a multiple of eb, nq in {2, 5, 8}, and
+    DG with N in {1, 3, 5}, E not a multiple of eb (2e-4 of max|ref|: f32
+    contractions summed in another order)."""
+    import torch
+
+    from repro_torch.apps.numerics import fd_second_derivative_weights
+    from repro_torch.kernels.apps import (apply_ref, dg_surface, dg_volume,
+                                          fd2d, fd2d_ref, sem_apply,
+                                          surface_ref, volume_ref)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for h, w, r, block in ((37, 53, 1, (16, 32)), (50, 29, 2, (8, 16)),
+                           (61, 45, 4, (32, 256)), (203, 301, 4, (32, 64))):
+        wts = tuple(float(x) for x in fd_second_derivative_weights(r))
+        u1, u2 = rnd(h, w), rnd(h, w)
+        dx = 2.0 / w
+        dt = 0.5 * dx / 2 ** 0.5
+        check_close(f"fd2d f32 ({h},{w}) r={r} tile {block}",
+                    fd2d(u1, u2, weights=wts, dx=dx, dt=dt, block=block),
+                    fd2d_ref(u1, u2, wts, dx, dt), atol=2e-5, rtol=2e-5)
+    for E, nq, eb in ((7, 2, 4), (13, 5, 4), (37, 8, 32), (70, 8, 32)):
+        u, geo, dmat = rnd(E, nq, nq, nq), rnd(E, 7, nq, nq, nq), rnd(nq, nq)
+        check_rel(f"sem_apply f32 E={E} nq={nq} eb={eb}",
+                  sem_apply(u, geo, dmat, eb=eb), apply_ref(u, geo, dmat),
+                  2e-4)
+    for n, E, eb in ((1, 37, 8), (3, 50, 16), (5, 131, 64), (5, 10, 64)):
+        np_, nfp3 = (n + 1) * (n + 2) // 2, 3 * (n + 1)
+        q = 0.1 * rnd(E, np_, 3)
+        q[..., 0] += 1.5
+        geom, db, dr, ds = rnd(E, 4), rnd(E, np_, 2), rnd(np_, np_), rnd(
+            np_, np_)
+        check_rel(f"dg_volume f32 N={n} E={E} eb={eb}",
+                  dg_volume(q, geom, db, dr, ds, eb=eb),
+                  volume_ref(q, geom, db, dr, ds), 2e-4)
+        qm, qp = 0.1 * rnd(E, nfp3, 3), 0.1 * rnd(E, nfp3, 3)
+        qm[..., 0] += 1.5
+        qp[..., 0] += 1.5
+        theta = rnd(E, nfp3)
+        nrm = torch.stack([theta.cos(), theta.sin(), rnd(E, nfp3).abs()],
+                          -1).contiguous()
+        lift = rnd(np_, nfp3)
+        check_rel(f"dg_surface f32 N={n} E={E} eb={eb}",
+                  dg_surface(qm, qp, nrm, lift, eb=eb),
+                  surface_ref(qm, qp, nrm, lift), 2e-4)
+    torch.cuda.synchronize()
+
+
+def _host_ms(fn, n, warmup=0):
+    """Host ms per call of ``fn`` over ``n`` calls after ``warmup`` untimed
+    ones, card synchronized."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def apps_main_path(dev):
+    """Drive the three apps once through their entry points at full size.
+    Launch counts are zeroed just before and read just after. Returns
+    (counts, expected counts, state for the later phases)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.apps.fd2d import FDWave, fd_flops_per_step
+    from repro_torch.apps.sem import SEMOperator, sem_flops_per_element
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import apps
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t_phase = time.perf_counter()
+
+    # FD: 8192^2, radius 4 (8th order), 200 leapfrog steps
+    t0 = time.perf_counter()
+    fd = FDWave(width=FD_SIZE, height=FD_SIZE, radius=FD_RADIUS)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fd.run(FD_STEPS)                      # synchronizes the card
+    wall = time.perf_counter() - t0
+    err = float(np.abs(fd.solution - fd.analytic()).max())
+    n2 = FD_SIZE * FD_SIZE
+    log(f"[fd] {FD_SIZE}x{FD_SIZE}, radius {FD_RADIUS}, tile {fd.block}, "
+        f"{FD_STEPS} steps to t={fd.current_time:.5f}: {wall:.3f}s = "
+        f"{1e3 * wall / FD_STEPS:.4f} ms/step, "
+        f"{n2 * FD_STEPS / wall / 1e6:.1f} MNodes/s, "
+        f"{fd_flops_per_step(FD_SIZE, FD_SIZE, FD_RADIUS) * FD_STEPS / wall / 1e9:.1f}"
+        f" GFLOP/s; max|u - analytic| {err:.3e} (setup {setup_s:.1f}s)")
+    if not err < 5e-2:
+        fail(f"FD wave at full size diverged: max|err| {err:.3e}")
+    apps.fd_wave(size=256, steps=200, log=log)
+
+    # SEM: 32^3 elements, N = 7, deformed box
+    t0 = time.perf_counter()
+    op = SEMOperator(ex=SEM_ELEMS, ey=SEM_ELEMS, ez=SEM_ELEMS, n=SEM_N)
+    setup_s = time.perf_counter() - t0
+    nq = op.nq
+    gen = torch.Generator(device=dev).manual_seed(9)
+    u_loc = torch.randn((op.E, nq, nq, nq), generator=gen, device=dev)
+    u_glob = torch.randn((op.nglob,), generator=gen, device=dev)
+    flops = sem_flops_per_element(nq) * op.E
+    local_ms = _host_ms(lambda: op.apply_local(u_loc), SEM_REPEATS, 1)
+    global_ms = _host_ms(lambda: op.apply_global(u_glob), SEM_REPEATS, 1)
+    au = op.apply_global(u_glob)
+    if not bool(torch.isfinite(au).all()):
+        fail("SEM apply_global gave non-finite values")
+    log(f"[sem] E={op.E} ({SEM_ELEMS}^3), N={SEM_N}, eb={op.eb}, dofs={op.nglob}: "
+        f"apply_local {local_ms:.4f} ms = {flops / local_ms / 1e6:.1f} "
+        f"GFLOP/s, apply_global {global_ms:.4f} ms = "
+        f"{flops / global_ms / 1e6:.1f} GFLOP/s (host clock, mean of "
+        f"{SEM_REPEATS} after one warm call; setup {setup_s:.1f}s)")
+    solve = apps.sem_solve(n=SEM_N, elems=8, log=log)
+    solve["global_ms"] = _host_ms(lambda: solve["op"].apply_global(
+        solve["u"]), SEM_REPEATS, 1)
+    log(f"[sem] apply_global at the solve's size (E={solve['op'].E}): "
+        f"{solve['global_ms']:.4f} ms host")
+
+    # DG: nx = ny = 256 (131072 triangles), N = 5, 100 LSERK steps
+    t0 = time.perf_counter()
+    swe = apps.swe_run(nx=DG_NX, n=DG_N, steps=DG_STEPS, log=log)
+    log(f"[swe] whole run with setup {time.perf_counter() - t0:.1f}s; dt "
+        f"= 0.5 * hmin / ((N+1)^2 * cmax) = {swe['dt']:.6e}")
+
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[apps] main path {time.perf_counter() - t_phase:.1f}s")
+    expected = {"fd2d": FD_STEPS + 200,
+                "sem_apply": 3 * (SEM_REPEATS + 1) + 1 + 1 + solve["iters"],
+                "dg_volume": 5 * DG_STEPS, "dg_surface": 5 * DG_STEPS}
+    for name, want in expected.items():
+        if counts[name] != want:
+            fail(f"kernel {name} launched {counts[name]} times on the apps "
+                 f"path, expected {want}")
+    return counts, dict(fd=fd, op=op, u_loc=u_loc, u_glob=u_glob, swe=swe)
+
+
+def sem_global_breakdown(op, u_glob):
+    """Where ``apply_global``'s time goes, on CUDA events: the gather of
+    local dofs, the kernel, the ``index_add_`` scatter, and the whole; and,
+    beside the scatter, two other PyTorch calls that compute the same sum
+    (``scatter_add_``, ``index_put_`` with accumulate), which the port does
+    not use."""
+    import torch
+
+    from repro_torch.apps.sem import gather, scatter_add
+    from repro_torch.kernels.apps import sem_apply
+
+    u_loc = gather(u_glob, op.gid_t)
+    au = sem_apply(u_loc, op.geo, op.dmat, eb=op.eb)
+    gid, flat = op.gid_t.reshape(-1), au.reshape(-1)
+    zeros = lambda: torch.zeros(op.nglob, device=au.device)  # noqa: E731
+    parts = dict(
+        gather=cuda_ms(lambda: gather(u_glob, op.gid_t), 10),
+        kernel=cuda_ms(lambda: sem_apply(u_loc, op.geo, op.dmat, eb=op.eb),
+                       10),
+        scatter=cuda_ms(lambda: scatter_add(au, op.gid_t, op.nglob), 10),
+        whole=cuda_ms(lambda: op.apply_global(u_glob), 10),
+        scatter_add_=cuda_ms(lambda: zeros().scatter_add_(0, gid, flat), 10),
+        index_put_=cuda_ms(lambda: zeros().index_put_((gid,), flat,
+                                                      accumulate=True), 10))
+    log(f"[sem] apply_global (E={op.E}, N={op.n}) on CUDA events: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+    return parts
+
+
+def profile_swe_step(sol, Q, dt, nsteps=5):
+    """Where an LSERK step's time goes: ``nsteps`` steps on the host clock,
+    then under ``torch.profiler`` (device-side events only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        nonlocal Q
+        for _ in range(nsteps):
+            Q = sol.step(Q, dt)
+
+    run()                                                    # warm
+    step_ms = _host_ms(run, 1) / nsteps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_ms = _host_ms(run, 1) / nsteps
+    rows = device_rows(prof, nsteps)
+    busy_ms = sum(r[0] for r in rows)
+    log(f"[profile swe] LSERK step (E={sol.E}, N={sol.n}, 5 stages): host "
+        f"{step_ms:.4f} ms/step ({prof_ms:.4f} under the profiler); device "
+        f"busy {busy_ms:.4f} ms/step = {100 * busy_ms / step_ms:.1f}% of "
+        f"the unprofiled step, idle {100 * (1 - busy_ms / step_ms):.1f}%")
+    for ms, n, key in rows[:12]:
+        log(f"[profile swe]   {ms:8.4f} ms/step  {n:4d} calls/step  "
+            f"{key[:90]}")
+    return step_ms, busy_ms
+
+
+def _app_inputs(state, *, perturbed=False):
+    """The app kernels' inputs at the main path's shapes: the FD fields
+    after 200 steps, a random SEM field on the 32^3 mesh, the SWE state
+    after 100 steps and its face traces. ``perturbed`` replaces the SWE
+    state by a seeded random one on the same mesh (h = 1.5 + 0.1 N(0,1),
+    momenta 0.3 N(0,1)) and the flat bottom's zero bathymetry gradient by
+    a random one (50 N(0,1)), so that the source term carries weight."""
+    import torch
+
+    fd, op, sol, Q = state["fd"], state["op"], state["swe"]["solver"], \
+        state["swe"]["Q"]
+    db = sol.db
+    if perturbed:
+        g = torch.Generator(device=Q.device).manual_seed(10)
+        Q = torch.randn(Q.shape, generator=g, device=Q.device) * torch.tensor(
+            [0.1, 0.3, 0.3], device=Q.device)
+        Q[..., 0] += 1.5
+        db = 50 * torch.randn(db.shape, generator=g, device=db.device)
+    QM, QP = sol.traces(Q)
+    return dict(fd=(fd.u1, fd.u2, fd.weights, fd.dx, fd.dt, fd.block),
+                sem=(state["u_loc"], op.geo, op.dmat, op.eb),
+                vol=(Q, sol.geom, db, sol.dr, sol.ds, sol.eb),
+                surf=(QM, QP, sol.nrm, sol.lift, sol.eb))
+
+
+def _volume_terms_abs(Q, geom, dB, Dr, Ds, g):
+    """For each output of the DG volume RHS, the sum of the absolute values
+    of the terms it is summed from (f64): the scale of its f32 rounding."""
+    import torch
+
+    h, hu, hv = Q[..., 0], Q[..., 1], Q[..., 2]
+    u, v = hu / h, hv / h
+    gh2 = 0.5 * g * h * h
+    F = torch.stack([hu.abs(), (hu * u).abs() + gh2, (hu * v).abs()], -1)
+    G = torch.stack([hv.abs(), (hu * v).abs(), (hv * v).abs() + gh2], -1)
+    a = geom.abs()[:, :, None, None]
+    dr, ds = Dr.abs(), Ds.abs()
+    mag = (a[:, 0] * torch.einsum("nm,emf->enf", dr, F)
+           + a[:, 1] * torch.einsum("nm,emf->enf", ds, F)
+           + a[:, 2] * torch.einsum("nm,emf->enf", dr, G)
+           + a[:, 3] * torch.einsum("nm,emf->enf", ds, G))
+    src = torch.stack([torch.zeros_like(h), g * h * dB[..., 0].abs(),
+                       g * h * dB[..., 1].abs()], -1)
+    return mag + src
+
+
+def _surface_terms_abs(QM, QP, nrm, lift, g):
+    """The same for the DG surface RHS: |lift| applied to the absolute
+    terms of (FM - f*) fscale."""
+    import torch
+
+    nx_, ny_, fsc = nrm[..., 0].abs(), nrm[..., 1].abs(), nrm[..., 2].abs()
+
+    def flux_abs(Q):
+        h, hu, hv = Q[..., 0], Q[..., 1], Q[..., 2]
+        u, v = hu / h, hv / h
+        gh2 = 0.5 * g * h * h
+        Fn = torch.stack([hu.abs() * nx_ + hv.abs() * ny_,
+                          ((hu * u).abs() + gh2) * nx_ + (hu * v).abs() * ny_,
+                          (hu * v).abs() * nx_ + ((hv * v).abs() + gh2) * ny_],
+                         -1)
+        return Fn, u.abs() * nx_ + v.abs() * ny_ + torch.sqrt(g * h)
+
+    FM, lamM = flux_abs(QM)
+    FP, lamP = flux_abs(QP)
+    C = torch.maximum(lamM, lamP)[..., None]
+    d = (1.5 * FM + 0.5 * FP + 0.5 * C * (QM.abs() + QP.abs())) * fsc[..., None]
+    return torch.einsum("nf,efq->enq", lift.abs(), d)
+
+
+def check_rounding(name, outs, ref64, mag, rel):
+    """Each of ``outs`` (name: f32 tensor) within ``rel * mag`` of the f64
+    result ``ref64``, elementwise: for outputs that are cancelling sums,
+    where an error that scales with the result cannot hold but one that
+    scales with the summed terms can. ``rel`` = (terms per dot product +
+    16) * 2^-24 is the worst-case rounding of such a sum in f32 (Higham's
+    gamma_n) with room for the pointwise flux arithmetic; a wrong index or
+    term errs by the size of the terms, ~1/rel times more."""
+    import torch
+
+    bound_ = rel * mag
+    worst = {}
+    for label, got in outs.items():
+        if not torch.isfinite(got).all():
+            fail(f"{name} ({label}): non-finite values")
+        err = (got.double() - ref64).abs()
+        bad = err > bound_
+        if bad.any():
+            fail(f"{name} ({label}): {int(bad.sum())} of {err.numel()} "
+                 f"elements beyond {rel:.2e} of their summed |terms| (max "
+                 f"|err| {float(err.max()):.3e})")
+        worst[label] = (float(err.max()),
+                        float((err / bound_.clamp_min(1e-300)).max()))
+    log(f"[check] {name}: max|ref| {float(ref64.abs().max()):.3e}, max "
+        f"summed |terms| {float(mag.max()):.3e}; vs the f64 result "
+        + ", ".join(f"{k} max|err| {e:.3e} ({100 * r:.1f}% of its bound)"
+                    for k, (e, r) in worst.items()) + f" (rel {rel:.2e})")
+
+
+def full_size_app_checks(state):
+    """Each app kernel against its plain version at the main path's
+    shapes and meshes. Returns {kernel: max |err|}. The DG kernels are
+    held twice. On a random state with a random bathymetry gradient, kernel
+    and plain version agree within 2e-4 of max|ref|. On the main path's own
+    state after 100 steps, close to rest on a flat bottom, each output
+    (|ref| < 4) is the cancelling sum of terms near 1e5 (rx ~ 256 times Dr
+    F), so there both the kernel and the plain version are held against
+    the plain version in f64, within the f32 rounding bound of the summed
+    |terms| (``check_rounding``)."""
+    import torch
+
+    from repro_torch.kernels.apps import (GRAV, apply_ref, dg_surface,
+                                          dg_volume, fd2d, fd2d_ref,
+                                          sem_apply, surface_ref, volume_ref)
+
+    a = _app_inputs(state, perturbed=True)
+    u1, u2, wts, dx, dt, block = a["fd"]
+    errs = {"fd2d": check_close(
+        f"fd2d f32 {tuple(u1.shape)} r={(len(wts) - 1) // 2}",
+        fd2d(u1, u2, weights=wts, dx=dx, dt=dt, block=block),
+        fd2d_ref(u1, u2, wts, dx, dt), atol=2e-5, rtol=2e-5)}
+    u, geo, dmat, eb = a["sem"]
+    errs["sem_apply"] = check_rel(f"sem_apply f32 {tuple(u.shape)} eb={eb}",
+                                  sem_apply(u, geo, dmat, eb=eb),
+                                  apply_ref(u, geo, dmat), 2e-4)
+    *args, eb = a["vol"]
+    errs["dg_volume"] = check_rel(f"dg_volume f32 {tuple(args[0].shape)}"
+                                  " (random state and bathymetry)",
+                                  dg_volume(*args, eb=eb), volume_ref(*args),
+                                  2e-4)
+    *args, eb = a["surf"]
+    errs["dg_surface"] = check_rel(f"dg_surface f32 {tuple(args[0].shape)}"
+                                   " (random state)",
+                                   dg_surface(*args, eb=eb),
+                                   surface_ref(*args), 2e-4)
+
+    m = _app_inputs(state)
+    *args, eb = m["vol"]
+    np_ = args[0].shape[1]
+    a64 = [t.double() for t in args]
+    check_rounding(f"dg_volume {tuple(args[0].shape)} (main path state)",
+                   dict(kernel=dg_volume(*args, eb=eb),
+                        plain=volume_ref(*args)),
+                   volume_ref(*a64), _volume_terms_abs(*a64, GRAV),
+                   (np_ + 16) * 2.0 ** -24)
+    *args, eb = m["surf"]
+    nfp3 = args[0].shape[1]
+    a64 = [t.double() for t in args]
+    check_rounding(f"dg_surface {tuple(args[0].shape)} (main path state)",
+                   dict(kernel=dg_surface(*args, eb=eb),
+                        plain=surface_ref(*args)),
+                   surface_ref(*a64), _surface_terms_abs(*a64, GRAV),
+                   (nfp3 + 16) * 2.0 ** -24)
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_app_kernels(state):
+    """{kernel: dict(ms, plain_ms, bound_ms, bound_by, library_ms)} for the
+    app kernels at the main path's shapes (f32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.apps.dg_swe import (dg_bytes_per_element,
+                                         dg_flops_per_element,
+                                         dg_surface_bytes_per_element,
+                                         dg_surface_flops_per_element)
+    from repro_torch.apps.fd2d import fd_flops_per_step
+    from repro_torch.apps.sem import (sem_bytes_per_element,
+                                      sem_flops_per_element)
+    from repro_torch.kernels.apps import (apply_ref, dg_surface, dg_volume,
+                                          fd2d, fd2d_ref, sem_apply,
+                                          surface_ref, volume_ref)
+
+    a = _app_inputs(state)
+    out = {}
+    u1, u2, wts, dx, dt, block = a["fd"]
+    h, w = u1.shape
+    r = (len(wts) - 1) // 2
+    u3 = torch.empty_like(u1)
+    cross = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), device=u1.device)
+    cross[0, 0, r, :] += torch.tensor(wts, device=u1.device)
+    cross[0, 0, :, r] += torch.tensor(wts, device=u1.device)
+    scale = float(torch.tensor(dt * dt, dtype=torch.float32)) * float(
+        torch.tensor(1.0 / (dx * dx), dtype=torch.float32))
+
+    def library_fd():
+        pad = F.pad(u1[None, None], (r, r, r, r), mode="circular")
+        return 2.0 * u1 - u2 + scale * F.conv2d(pad, cross)[0, 0]
+
+    out["fd2d"] = dict(
+        ms=cuda_ms(lambda: fd2d(u1, u2, weights=wts, dx=dx, dt=dt,
+                                block=block, out=u3), 50),
+        plain_ms=cuda_ms(lambda: fd2d_ref(u1, u2, wts, dx, dt), 5, 1),
+        library_ms=cuda_ms(library_fd, 10),
+        library="F.conv2d of the circular-padded field with the cross "
+                "filter (cuDNN, TF32 off) + the update",
+        shape=f"u1/u2/u3 ({h},{w}) f32, r={r}, tile {block}")
+    out["fd2d"].update(zip(("bound_ms", "bound_by"), bound(
+        3 * h * w * 4, fd_flops_per_step(w, h, r), "float32")))
+
+    none = "none: no single PyTorch call computes it"
+    u, geo, dmat, eb = a["sem"]
+    E, nq = u.shape[0], u.shape[1]
+    out["sem_apply"] = dict(
+        ms=cuda_ms(lambda: sem_apply(u, geo, dmat, eb=eb), 20),
+        plain_ms=cuda_ms(lambda: apply_ref(u, geo, dmat), 5, 1),
+        library_ms=None, library=none,
+        shape=f"u ({E},{nq},{nq},{nq}), geo ({E},7,...) f32, eb={eb}")
+    out["sem_apply"].update(zip(("bound_ms", "bound_by"), bound(
+        sem_bytes_per_element(nq, 4) * E, sem_flops_per_element(nq) * E,
+        "float32")))
+
+    *args, eb = a["vol"]
+    E, np_ = args[0].shape[0], args[0].shape[1]
+    out["dg_volume"] = dict(
+        ms=cuda_ms(lambda: dg_volume(*args, eb=eb), 50),
+        plain_ms=cuda_ms(lambda: volume_ref(*args), 10),
+        library_ms=None, library=none,
+        shape=f"q ({E},{np_},3), geom ({E},4), db ({E},{np_},2) f32, "
+              f"eb={eb}")
+    out["dg_volume"].update(zip(("bound_ms", "bound_by"), bound(
+        dg_bytes_per_element(np_, 4) * E, dg_flops_per_element(np_) * E,
+        "float32")))
+
+    *args, eb = a["surf"]
+    nfp3 = args[0].shape[1]
+    out["dg_surface"] = dict(
+        ms=cuda_ms(lambda: dg_surface(*args, eb=eb), 50),
+        plain_ms=cuda_ms(lambda: surface_ref(*args), 10),
+        library_ms=None, library=none,
+        shape=f"qm/qp/nrm ({E},{nfp3},3), lift ({np_},{nfp3}) f32, eb={eb}")
+    out["dg_surface"].update(zip(("bound_ms", "bound_by"), bound(
+        dg_surface_bytes_per_element(np_, nfp3, 4) * E,
+        dg_surface_flops_per_element(np_, nfp3) * E, "float32")))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1083,6 +1561,7 @@ def main():
     # 2a. kernels vs plain, f32 small shapes
     small_f32_checks(dev)
     small_f32_train_checks(dev)
+    small_f32_app_checks(dev)
 
     cfg = get_config("llama3_2_1b")
     page, num_pages, slots = 512, 8 * 4 + 1, 8
@@ -1140,11 +1619,27 @@ def main():
     # 2b (training kernels) and 8. times
     errs.update(full_width_train_checks(dev, cfg, embed))
     times.update(time_train_kernels(dev, cfg, embed))
+    del model, embed
+
+    # 9. the apps path: FD, SEM and DG at full size through their entry
+    # points
+    acounts, astate = apps_main_path(dev)
+    log("app kernels: " + ", ".join(f"{k}={acounts[k]}" for k in APP_KERNELS))
+    counts.update({k: acounts[k] for k in APP_KERNELS})
+
+    # 10. where an LSERK step's time goes; 2b and 8 for the app kernels
+    swe = astate["swe"]
+    profile_swe_step(swe["solver"], swe["Q"], swe["dt"])
+    sem_global_breakdown(astate["op"], astate["u_glob"])
+    errs.update(full_size_app_checks(astate))
+    times.update(time_app_kernels(astate))
+    del astate, swe
     for name, t in times.items():
+        lib = ("null" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
         log(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
-            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
-            f"[{t['library']}]")
+            f"{t['plain_ms']:.4f} ms, library {lib} [{t['library']}]")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

@@ -10,6 +10,7 @@ them.
 
 from __future__ import annotations
 
+from .apps import dg_surface, dg_volume, fd2d, sem_apply
 from .flash_attention import (flash_attention_fwd, flash_bwd, flash_delta,
                               paged_decode_attention)
 from .lm_head import lm_head_bwd, lm_head_ce, lm_head_logits
@@ -27,6 +28,10 @@ KERNELS = {
     "lm_head_bwd": lm_head_bwd,
     "flash_delta": flash_delta,
     "flash_bwd": flash_bwd,
+    "fd2d": fd2d,
+    "sem_apply": sem_apply,
+    "dg_volume": dg_volume,
+    "dg_surface": dg_surface,
 }
 
 

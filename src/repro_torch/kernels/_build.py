@@ -6,6 +6,8 @@ git-ignored; a hash of the flags, the source and ``common.cuh`` names the
 library, so an edited source is rebuilt and a stale library never loaded).
 :func:`build_all` starts one ``nvcc`` per source, all at once, so a cold
 start pays for the slowest file only. Nothing here runs at import time.
+:func:`on_cpu` is the one rule every wrapper follows to choose between its
+kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -17,13 +19,13 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCES", "build_all", "load", "check"]
+__all__ = ["SOURCES", "build_all", "load", "check", "on_cpu"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
-           "flash_bwd")
+           "flash_bwd", "fd2d", "sem", "dg")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -98,6 +100,21 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             lib.kernel_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def on_cpu(name: str, *tensors) -> bool:
+    """True when every tensor lies on the CPU (the wrapper runs its plain
+    version), False when all lie on one CUDA device (it launches its
+    kernel). Any other placement raises: no wrapper falls back. ``None``
+    (an optional input left out) is skipped."""
+    devices = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; "
+                         "every tensor must be on one CUDA device (or all "
+                         "on the CPU)")
+    return False
 
 
 def check(lib: ctypes.CDLL, code: int, what: str):

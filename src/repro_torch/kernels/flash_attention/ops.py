@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from .._build import check, load, ptr, stream
+from .._build import check, load, on_cpu, ptr, stream
 from . import delta as delta_kernel
 from .ref import (flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
                   paged_decode_ref)
@@ -34,14 +34,6 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 9 + [_P], _I)}
 _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I)}
 _PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
-
-
-def _check_cuda(name, *ts):
-    dev = ts[0].device
-    for t in ts:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: every tensor must be on one CUDA "
-                             f"device (got {[str(x.device) for x in ts]})")
 
 
 def _check_qkv(name, q, k, v):
@@ -81,9 +73,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, sm_scale=None):
     stream; ``causal`` masks keys after each query. Any Sq <= Skv."""
     name = "flash_attention_fwd"
     _no_grad_asked(name, q, k, v)
-    if q.device.type == "cpu":
+    if on_cpu(name, q, k, v):
         return flash_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale)
-    _check_cuda(name, q, k, v)
     _check_qkv(name, q, k, v)
     _check_gqa(name, q, k, v)
     b, h, sq, d = q.shape
@@ -111,9 +102,8 @@ def flash_delta(do, o):
     """delta = rowsum(do * o) in f32: do, o (B, H, Sq, D) -> (B, H, Sq)."""
     name = "flash_delta"
     _no_grad_asked(name, do, o)
-    if do.device.type == "cpu":
+    if on_cpu(name, do, o):
         return flash_delta_ref(do, o)
-    _check_cuda(name, do, o)
     if do.shape != o.shape or do.dim() != 4:
         raise ValueError(f"{name}: do {tuple(do.shape)} and o "
                          f"{tuple(o.shape)} must be one (B, H, Sq, D) shape")
@@ -140,10 +130,9 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
     contributes nothing)."""
     name = "flash_bwd"
     _no_grad_asked(name, q, k, v, do)
-    if q.device.type == "cpu":
+    if on_cpu(name, q, k, v, do, lse, delta):
         return flash_bwd_ref(q, k, v, do, lse, delta, causal=causal,
                              sm_scale=sm_scale)
-    _check_cuda(name, q, k, v, do, lse, delta)
     _check_qkv(name, q, k, v)
     _check_gqa(name, q, k, v)
     b, h, sq, d = q.shape
@@ -222,12 +211,11 @@ def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
     query at position kv_len - 1; ``pos_pages`` (P, page) i32 holds each
     pool slot's absolute position (-1 = empty). A slot is visible when
     0 <= pos <= kv_len - 1. Returns (B, H, 1, D) in q's dtype."""
-    if q.device.type == "cpu":
+    name = "paged_decode_attention"
+    if on_cpu(name, q, k_pages, v_pages, block_table, kv_len, pos_pages):
         return paged_decode_ref(q, k_pages, v_pages, block_table=block_table,
                                 kv_len=kv_len, pos_pages=pos_pages,
                                 sm_scale=sm_scale)
-    name = "paged_decode_attention"
-    _check_cuda(name, q, k_pages, v_pages, block_table, kv_len, pos_pages)
     _check_qkv(name, q, k_pages, v_pages)
     b, h, one, d = q.shape
     npages, hk, page, _ = k_pages.shape

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from .._build import check, load, ptr, stream
+from .._build import check, load, on_cpu, ptr, stream
 from .ref import lm_head_bwd_ref, lm_head_ce_stats_ref, lm_head_logits_ref
 
 __all__ = ["lm_head_logits", "lm_head_ce", "lm_head_bwd"]
@@ -34,10 +34,8 @@ _CE_SIG = {"lm_head_ce_splits": ([_I], _I),
 
 
 def _check_head(name, x, w):
-    """Checks shared by the LM-head kernels; returns (R, d, V)."""
-    if not x.is_cuda or not w.is_cuda or x.device != w.device:
-        raise ValueError(f"{name}: x on {x.device}, w on {w.device}; both "
-                         "must be on one CUDA device (or x on the CPU)")
+    """Checks shared by the LM-head kernels on the card; returns (R, d,
+    V)."""
     if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
         raise ValueError(f"{name}: dtypes {x.dtype}/{w.dtype}; both must be "
                          "float32 or bfloat16")
@@ -74,7 +72,7 @@ def _raw(x, w, *, vocab=None):
         raise RuntimeError(
             f"{name} has no backward (nor has the JAX op): call it under "
             "torch.no_grad(), or train through lm_head_ce")
-    if x.device.type == "cpu":
+    if on_cpu(name, x, w):
         return lm_head_logits_ref(x, w, vocab=vocab)
     R, d, V = _check_head(name, x, w)
     vocab = _vocab(name, vocab, V, R)
@@ -109,7 +107,7 @@ def _ce_raw(x, w, labels, *, vocab=None):
     (R, 1) f32 = each row's label logit). ``w`` may be any strided view
     (the tied head ``embed.T`` is read in place); labels (R, 1) int32."""
     name = "lm_head_ce"
-    if x.device.type == "cpu":
+    if on_cpu(name, x, w):
         return lm_head_ce_stats_ref(x, w, labels, vocab=vocab)
     R, d, V = _check_head(name, x, w)
     vocab = _vocab(name, vocab, V, R)
@@ -135,7 +133,7 @@ def lm_head_bwd(x, w, labels, lse, g, *, vocab=None):
     ``embed.T`` it is the transposed view of an (V, d) tensor, so the
     embedding's gradient needs no transpose copy."""
     name = "lm_head_bwd"
-    if x.device.type == "cpu":
+    if on_cpu(name, x, w):
         return lm_head_bwd_ref(x, w, labels, lse, g, vocab=vocab)
     R, d, V = _check_head(name, x, w)
     vocab = _vocab(name, vocab, V, R)

@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from .._build import on_cpu
 from . import kernel
 from .ref import rmsnorm_ref
 
@@ -23,11 +24,8 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _forward(x, w, eps):
-    if x.device.type == "cpu":
+    if on_cpu("rmsnorm", x, w):
         return rmsnorm_ref(x, w, eps=eps)
-    if not x.is_cuda or not w.is_cuda or x.device != w.device:
-        raise ValueError(f"rmsnorm: x on {x.device}, w on {w.device}; both "
-                         "must be on one CUDA device (or x on the CPU)")
     d = x.shape[-1]
     if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
         raise ValueError(f"rmsnorm: dtypes {x.dtype}/{w.dtype} not in "

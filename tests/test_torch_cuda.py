@@ -1,15 +1,22 @@
 """The port's Hopper kernels against their plain PyTorch versions on the
 card, at small f32 shapes and their edge cases (tolerance 1e-4: f32 math
-with sums in another order). Marked ``cuda``; without a card every test
+with sums in another order; the app kernels use the app tests' 2e-5 for the
+FD step and 2e-4 of the largest magnitude for the SEM and DG contractions). Marked ``cuda``; without a card every test
 skips. Run them on the card with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.apps import dg_swe, fd2d as fd_app, sem as sem_app
+from repro_torch.apps.numerics import fd_second_derivative_weights
 from repro_torch.kernels import KERNELS, launch_counts, reset_launches
+from repro_torch.kernels.apps import (apply_ref, dg_surface, dg_volume, fd2d,
+                                      fd2d_ref, sem_apply, surface_ref,
+                                      volume_ref)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_fwd,
                                                  flash_bwd, flash_bwd_ref,
@@ -203,5 +210,134 @@ def test_each_launch_counts_once(dev):
     w = _rnd(dev, 64, 128)
     lse2, _ = lm_head_ce.raw(x, w, lab)
     lm_head_bwd(x, w, lab, lse2, torch.ones((2, 1), device=dev))
+    fd2d(x, x, weights=(1.0, -2.0, 1.0), dx=0.5, dt=0.1)
+    u = _rnd(dev, 2, 3, 3, 3)
+    sem_apply(u, _rnd(dev, 2, 7, 3, 3, 3), _rnd(dev, 3, 3))
+    q = _rnd(dev, 2, 3, 3).abs() + 1
+    dg_volume(q, _rnd(dev, 2, 4), _rnd(dev, 2, 3, 2), _rnd(dev, 3, 3),
+              _rnd(dev, 3, 3))
+    qf = _rnd(dev, 2, 6, 3).abs() + 1
+    dg_surface(qf, qf, qf, _rnd(dev, 3, 6))
     assert launch_counts() == {name: 0 if name == "paged_decode" else 1
                                for name in KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# the paper apps' kernels
+# ---------------------------------------------------------------------------
+
+APP_REL = 2e-4
+
+
+def _close_rel(got, ref, rel):
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(got, ref, atol=rel * scale, rtol=rel)
+
+
+@pytest.mark.parametrize("h,w,r,block", [(37, 53, 1, (16, 32)),
+                                         (50, 29, 2, (8, 16)),
+                                         (61, 45, 4, (32, 256)),
+                                         (20, 300, 8, (32, 256)),
+                                         (33, 70, 3, (0, 0))])
+def test_fd2d_kernel(dev, h, w, r, block):
+    """h != w, neither a multiple of the tile; r up to 8 (wider than some
+    tiles); block (0, 0) is one tile over the whole field."""
+    weights = tuple(float(x) for x in fd_second_derivative_weights(r))
+    u1, u2 = _rnd(dev, h, w), _rnd(dev, h, w, seed=1)
+    dx = 2.0 / w
+    dt = 0.3 * dx / 2 ** 0.5
+    out = torch.empty_like(u1)
+    got = fd2d(u1, u2, weights=weights, dx=dx, dt=dt, block=block, out=out)
+    assert got is out
+    torch.testing.assert_close(got, fd2d_ref(u1, u2, weights, dx, dt),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("E,nq,eb", [(7, 2, 4), (13, 5, 4), (37, 8, 32),
+                                     (5, 8, 1), (3, 11, 2)])
+def test_sem_apply_kernel(dev, E, nq, eb):
+    """E not a multiple of eb; nq = 11 needs more than 48 KB of shared
+    memory."""
+    u = _rnd(dev, E, nq, nq, nq)
+    geo, dmat = _rnd(dev, E, 7, nq, nq, nq, seed=1), _rnd(dev, nq, nq, seed=2)
+    _close_rel(sem_apply(u, geo, dmat, eb=eb), apply_ref(u, geo, dmat),
+               APP_REL)
+
+
+@pytest.mark.parametrize("n,E,eb", [(1, 37, 8), (3, 50, 16), (5, 131, 64),
+                                    (5, 10, 64)])
+def test_dg_kernels(dev, n, E, eb):
+    np_, nfp3 = (n + 1) * (n + 2) // 2, 3 * (n + 1)
+    q = 0.1 * _rnd(dev, E, np_, 3)
+    q[..., 0] += 1.5                                   # positive depth
+    geom, db = _rnd(dev, E, 4, seed=1), _rnd(dev, E, np_, 2, seed=2)
+    dr, ds = _rnd(dev, np_, np_, seed=3), _rnd(dev, np_, np_, seed=4)
+    _close_rel(dg_volume(q, geom, db, dr, ds, eb=eb),
+               volume_ref(q, geom, db, dr, ds), APP_REL)
+    qm, qp = 0.1 * _rnd(dev, E, nfp3, 3, seed=5), 0.1 * _rnd(dev, E, nfp3, 3,
+                                                             seed=6)
+    qm[..., 0] += 1.5
+    qp[..., 0] += 1.5
+    theta = _rnd(dev, E, nfp3, seed=7)
+    nrm = torch.stack([theta.cos(), theta.sin(),
+                       _rnd(dev, E, nfp3, seed=8).abs()], -1).contiguous()
+    lift = _rnd(dev, np_, nfp3, seed=9)
+    _close_rel(dg_surface(qm, qp, nrm, lift, eb=eb),
+               surface_ref(qm, qp, nrm, lift), APP_REL)
+
+
+def test_app_wrappers_raise_on_bad_input(dev):
+    w3 = dict(weights=(1.0, -2.0, 1.0), dx=0.1, dt=0.01)
+    u = _rnd(dev, 16, 24)
+    for bad, match in (((u.double(), u.double()), "float32"),
+                       ((u, u.cpu()), "CUDA device"),
+                       ((u[:, :16].T, u[:, :16]), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            fd2d(*bad, **w3)
+    with pytest.raises(ValueError, match="alias"):
+        fd2d(u, u, out=u, **w3)
+    s, g, d = _rnd(dev, 2, 4, 4, 4), _rnd(dev, 2, 7, 4, 4, 4), _rnd(dev, 4, 4)
+    for bad, match in (((s, g, d.double()), "float32"),
+                       ((s, g.cpu(), d), "CUDA device"),
+                       ((s.transpose(1, 2), g, d), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            sem_apply(*bad)
+    big = _rnd(dev, 1, 25, 25, 25)
+    with pytest.raises(ValueError, match="nq <= 24"):
+        sem_apply(big, _rnd(dev, 1, 7, 25, 25, 25), _rnd(dev, 25, 25))
+    q, ge, db = _rnd(dev, 4, 3, 3).abs() + 1, _rnd(dev, 4, 4), _rnd(dev, 4, 3, 2)
+    dr = _rnd(dev, 3, 3)
+    for bad, match in (((q.double(), ge, db, dr, dr), "float32"),
+                       ((q, ge, db.cpu(), dr, dr), "CUDA device"),
+                       ((q, ge, db, dr.T, dr), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            dg_volume(*bad)
+    qf, lift = _rnd(dev, 4, 6, 3).abs() + 1, _rnd(dev, 3, 6)
+    for bad, match in (((qf, qf, qf, lift.double()), "float32"),
+                       ((qf, qf.cpu(), qf, lift), "CUDA device"),
+                       ((qf, qf, qf, _rnd(dev, 6, 3).T), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            dg_surface(*bad)
+
+
+def test_app_drivers_on_card_match_cpu(dev):
+    fd_g = fd_app.FDWave(width=40, height=56, radius=2, block=(16, 32)).run(20)
+    fd_c = fd_app.FDWave(width=40, height=56, radius=2, device="cpu").run(20)
+    torch.testing.assert_close(torch.from_numpy(fd_g.solution),
+                               torch.from_numpy(fd_c.solution),
+                               atol=1e-4, rtol=1e-4)
+    kw = dict(ex=3, ey=2, ez=2, n=4, eb=5)
+    op_g, op_c = sem_app.SEMOperator(**kw), sem_app.SEMOperator(
+        device="cpu", **kw)
+    u = torch.randn(op_c.nglob, generator=torch.Generator().manual_seed(0))
+    _close_rel(op_g.apply_global(u.to(dev)).cpu(), op_c.apply_global(u),
+               APP_REL)
+    kw = dict(nx=4, ny=4, n=3, jitter=0.1, eb=7)
+    sw_g, sw_c = dg_swe.SWESolver(**kw), dg_swe.SWESolver(device="cpu", **kw)
+    x, y = sw_c.mesh["x"], sw_c.mesh["y"]
+    h0 = torch.from_numpy(1.0 + 0.1 * np.exp(-20 * (x ** 2 + y ** 2))).float()
+    Q = torch.stack([h0, 0 * h0, 0 * h0], -1)
+    Qg, Qc = Q.to(dev), Q
+    for _ in range(10):
+        Qg, Qc = sw_g.step(Qg, 2e-4), sw_c.step(Qc, 2e-4)
+    _close_rel(Qg.cpu(), Qc, APP_REL)

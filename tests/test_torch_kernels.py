@@ -23,6 +23,7 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
 from repro.kernels.rmsnorm.ref import rmsnorm_ref as jax_rmsnorm_ref
 
 from repro_torch.kernels import KERNELS, launch_counts, reset_launches
+from repro_torch.kernels._build import on_cpu
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_fwd,
                                                  flash_bwd, flash_delta,
@@ -207,6 +208,14 @@ def test_cpu_calls_do_not_count_as_launches():
     q = torch.randn(1, 2, 3, 32)
     flash_attention_fwd(q, q, q)
     assert launch_counts() == {name: 0 for name in KERNELS}
+
+
+def test_on_cpu_routes_every_wrapper_by_device():
+    cpu, meta = torch.zeros(2), torch.empty(2, device="meta")
+    assert on_cpu("op", cpu, cpu, None) is True
+    for ts in ((meta,), (cpu, meta), (meta, cpu)):
+        with pytest.raises(ValueError, match="one CUDA device"):
+            on_cpu("op", *ts)
 
 
 def test_non_cuda_devices_raise_instead_of_falling_back():
