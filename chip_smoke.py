@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: builds the port's twelve hand-written Hopper kernels from ``src/``,
+GPU: builds the port's fourteen hand-written Hopper kernels from ``src/``,
 holds each against its plain PyTorch version, serves ``llama3_2_1b``
 through the continuous-batching engine, trains it through ``TrainLoop``,
-runs the paper's FD, SEM and DG apps at full size, and times each kernel.
+runs the paper's FD, SEM and DG apps at full size, serves
+``musicgen_medium`` and ``falcon_mamba_7b`` through the static-batch path,
+and times each kernel.
 
   python3 chip_smoke.py
 
@@ -13,14 +15,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rmsnorm and flash-delta kernels;
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
-   max|ref| for SEM/DG), bf16 at the main paths' full-width shapes and f32
+   max|ref| for SEM/DG; flash_decode on positional and rotated caches,
+   ssm_scan at ragged L and dm, flash_fwd with a window and at head dim
+   128, paged decode at 128), bf16 at the main paths' full-width shapes and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
    DG kernels also on the apps path's own state, both versions against the
    f64 result within the f32 rounding bound of their summed terms);
 3. llama3_2_1b at full width with 2 layers in f32, one set of weights on
    the card (kernels) and on the CPU (plain versions): prefill logits and
    the first 8 greedy tokens must agree; the training loss and every
-   parameter's gradient must agree;
+   parameter's gradient must agree; musicgen_medium, falcon_mamba_7b and a
+   windowed (64) llama3_2_1b through ``generate`` on the static path
+   (200-token prompt, 80 new tokens across the wrap): equal tokens, close
+   logits; llama's static tokens equal its engine tokens; internlm2_1_8b
+   (head_dim 128) through prefill and the engine, card vs CPU;
 4. the serving path: the full 16-layer bf16 llama3_2_1b through ``Engine``
    (8 slots, max_len 2048, page 512, 16 requests of 33-1000 prompt tokens
    and 32-64 new tokens). Launch counts are zeroed just before and read just
@@ -51,7 +59,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (0.9, 1.2), water mass conserved to 1e-5 relative, summed in f64);
 10. where the apps' time goes: an LSERK step on the host clock and under
     ``torch.profiler``, and ``apply_global`` split into gather, kernel and
-    ``index_add_`` scatter on CUDA events, beside two other scatter calls.
+    ``index_add_`` scatter on CUDA events, beside two other scatter calls;
+11. the static path: the full 48-layer bf16 musicgen_medium through
+    ``generate`` (8 prompts of 512 tokens, 64 new; launch counts zeroed
+    just before and read just after, flash_decode exactly 48 x 64), where
+    its decode step's time goes (host clock, profiler), and prefill with 16
+    conditioning frames + decode_step against forward (5% of the largest
+    logit);
+12. the full 64-layer bf16 falcon_mamba_7b through ``generate`` (4 prompts
+    of 512 tokens, 32 new; ssm_scan exactly 64, once per layer of the
+    prefill), its decode step's profile, and ``forward`` on B = 1, S = 2048
+    (ssm_scan exactly 64) with its last logits against ``prefill``'s.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -102,6 +120,10 @@ KERNEL_INFO = {
                   "src/repro/apps/dg_swe.py:26"),
     "dg_surface": ("cuda", "src/repro_torch/csrc/dg.cu",
                    "src/repro/apps/dg_swe.py:276"),
+    "flash_decode": ("cuda", "src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:356"),
+    "ssm_scan": ("cuda", "src/repro_torch/csrc/ssm_scan.cu",
+                 "src/repro/kernels/ssm_scan/kernel.py:26"),
 }
 SERVE_KERNELS = ("rmsnorm", "flash_fwd", "paged_decode", "lm_head")
 TRAIN_KERNELS = ("lm_head_ce", "lm_head_bwd", "flash_delta", "flash_bwd")
@@ -114,6 +136,11 @@ APP_KERNELS = ("fd2d", "sem_apply", "dg_volume", "dg_surface")
 FD_SIZE, FD_RADIUS, FD_STEPS = 8192, 4, 200
 SEM_ELEMS, SEM_N, SEM_REPEATS = 32, 7, 5
 DG_NX, DG_N, DG_STEPS = 256, 5, 100
+# the static path: musicgen_medium on 8 prompts of 512 tokens, 64 new;
+# falcon_mamba_7b on 4 prompts of 512 tokens, 32 new, and a forward of
+# B = 1, S = 2048
+MG_BATCH, MG_PROMPT, MG_GEN = 8, 512, 64
+FM_BATCH, FM_PROMPT, FM_GEN, FM_FWD_SEQ = 4, 512, 32, 2048
 
 
 def log(msg):
@@ -248,6 +275,101 @@ def small_f32_checks(dev):
     x20 = rnd(20, 64)                                   # R > 16: row passes
     check_close("lm_head f32 R=20", lm_head_logits(x20, w, vocab=299),
                 lm_head_logits_ref(x20, w, vocab=299)[0], **tol)
+    torch.cuda.synchronize()
+
+
+def small_f32_static_checks(dev):
+    """The static path's kernels against their plain versions in f32 at
+    small ragged shapes, tolerance 1e-4: ``flash_decode`` on positional and
+    rotated caches (skv off the 32-slot chunk, a window under a chunk,
+    before and after the wrap, kv_len < skv, the clamped last slot, g of 1,
+    4 and 8, d of 32, 64 and 128, a strided q); ``ssm_scan`` (y and hT) at
+    ragged L and dm with h0; ``flash_fwd`` with a window and at d = 128;
+    ``paged_decode`` at d = 128."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (decode_ref, flash_decode,
+                                                     flash_attention_fwd,
+                                                     flash_fwd_ref,
+                                                     paged_decode_attention,
+                                                     paged_decode_ref,
+                                                     rolling_slot_pos)
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
+
+    tol = dict(atol=1e-4, rtol=1e-4)
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # (skv, kv_len, window, slot_pos after t tokens or None, g, d)
+    cases = [(77, 77, None, None, 1, 64), (77, 40, None, None, 4, 64),
+             (200, 150, 5, None, 4, 128), (200, 200, None, None, 8, 128),
+             (33, 1, None, None, 8, 32), (64, 50, 64, 50, 1, 64),
+             (64, 64, 64, 64, 4, 64), (64, 100, 64, 100, 8, 128),
+             (40, 173, 64, 173, 4, 64), (24, 31, 24, 31, 1, 32),
+             (200, 1000, 200, 1000, 4, 64)]
+    for skv, kv_len, window, t, gq, d in cases:
+        b, hk = 3, 2
+        q = rnd(b, 1, hk * gq, d).transpose(1, 2)          # strided view
+        k, v = rnd(b, hk, skv, d), rnd(b, hk, skv, d)
+        sp = (None if t is None else
+              rolling_slot_pos(skv, t).to(dev))
+        o = flash_decode(q, k, v, kv_len=kv_len, slot_pos=sp, window=window)
+        ro = decode_ref(q, k, v, kv_len=kv_len, slot_pos=sp, window=window)
+        check_close(f"flash_decode f32 skv={skv} kv_len={kv_len} "
+                    f"window={window} rotated={t is not None} g={gq} d={d}",
+                    o, ro, **tol)
+    # a row that sees no slot gives exactly 0
+    k = rnd(1, 2, 40, 64)
+    o = flash_decode(rnd(1, 4, 1, 64), k, k, kv_len=10,
+                     slot_pos=torch.full((40,), -1, dtype=torch.int32,
+                                         device=dev))
+    if not (o == 0).all():
+        fail("flash_decode: a row with no live slot must give exactly 0")
+
+    for bt, L, dm, n in ((3, 77, 100, 16), (1, 200, 64, 8), (2, 5, 33, 4)):
+        x, dA = rnd(bt, L, dm), rnd(bt, L, dm)
+        delta = torch.nn.functional.softplus(dA) * 0.1
+        A = -(rnd(dm, n).abs() + 0.1)
+        B, C, D = rnd(bt, L, n), rnd(bt, L, n), rnd(dm)
+        h0 = rnd(bt, dm, n)
+        y, hT = ssm_scan_fwd(x, delta, A, B, C, D, h0=h0)
+        ry, rhT = selective_scan_ref(x, delta, A, B, C, D, h0=h0)
+        tag = f"ssm_scan f32 bt={bt} L={L} dm={dm} n={n}"
+        check_close(tag + " y", y, ry, **tol)
+        check_close(tag + " hT", hT, rhT, **tol)
+
+    for sq, skv, h, hk, d, causal, window in (
+            (130, 130, 4, 2, 64, True, 40), (70, 200, 4, 2, 64, True, 33),
+            (130, 130, 8, 2, 64, False, 7), (70, 70, 4, 2, 128, True, None),
+            (130, 200, 8, 8, 128, True, 50), (9, 9, 4, 1, 128, False, None)):
+        q = rnd(2, sq, h, d).transpose(1, 2)
+        k, v = rnd(2, hk, skv, d), rnd(2, hk, skv, d)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ro, rlse = flash_fwd_ref(q, k, v, causal=causal, window=window)
+        tag = (f"flash f32 sq={sq} skv={skv} h={h}/{hk} d={d} c={causal} "
+               f"window={window}")
+        check_close(tag + " o", o, ro, **tol)
+        check_close(tag + " lse", lse, rlse, **tol)
+
+    for gq, page in ((8, 16), (2, 5)):
+        b, hk, d, nsp = 3, 2, 128, 4
+        npages = b * nsp + 1
+        q = rnd(b, hk * gq, 1, d)
+        kp, vp = rnd(npages, hk, page, d), rnd(npages, hk, page, d)
+        table = (torch.arange(b * nsp, dtype=torch.int32) + 1).reshape(b, nsp)
+        kv_len = torch.tensor([3 * page + 2, page, 1], dtype=torch.int32)
+        pos = torch.full((npages, page), -1, dtype=torch.int32)
+        for bi in range(b):
+            for j in range(nsp):
+                p = torch.arange(j * page, (j + 1) * page, dtype=torch.int32)
+                pos[table[bi, j]] = torch.where(p < kv_len[bi], p, -1)
+        kw = dict(block_table=table.to(dev), kv_len=kv_len.to(dev),
+                  pos_pages=pos.to(dev))
+        check_close(f"paged f32 g={gq} page={page} d=128",
+                    paged_decode_attention(q, kp, vp, **kw),
+                    paged_decode_ref(q, kp, vp, **kw), **tol)
     torch.cuda.synchronize()
 
 
@@ -1516,6 +1638,436 @@ def time_app_kernels(state):
 
 
 # ---------------------------------------------------------------------------
+# the static path: windowed caches, musicgen_medium and falcon_mamba_7b
+# ---------------------------------------------------------------------------
+
+def _two_layer_pair(arch, **changes):
+    """(CPU model, its params, card model, the same params on the card) of
+    ``arch`` at full width with 2 layers in f32."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, tree_to
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32",
+                              **changes)
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg)
+    p_cpu = cpu.init(torch.Generator().manual_seed(12))
+    return cpu, p_cpu, gpu, tree_to(p_cpu, gpu.device)
+
+
+def two_layer_static_f32_checks():
+    """2-layer f32 models at full width, one set of weights on the card
+    (kernels) and on the CPU (plain versions): ``generate`` must give the
+    same tokens on both and the prefill and decode logits agree within
+    1e-3 (f32 sums in other orders over d <= 8192 terms). musicgen_medium
+    and falcon_mamba_7b take the static path; llama3_2_1b with a window of
+    64 decodes 80 tokens after a 200-token prompt (the rolling cache wraps),
+    and without a window its static tokens must equal the engine's;
+    internlm2_1_8b (head_dim 128) runs prefill and the engine."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import generate
+
+    tol = dict(atol=1e-3, rtol=1e-3)
+    runs = (("musicgen_medium", {}, 2, 32, 16),
+            ("falcon_mamba_7b", {}, 2, 32, 16),
+            ("llama3_2_1b", dict(window=64), 2, 200, 80))
+    for arch, changes, b, plen, ngen in runs:
+        cpu, p_cpu, gpu, p_gpu = _two_layer_pair(arch, **changes)
+        vocab = cpu.cfg.vocab_size
+        prompts = np.random.RandomState(7).randint(1, vocab, (b, plen))
+        tag = f"2-layer f32 {arch} {changes or ''}".strip()
+        if cpu.pageable or gpu.pageable:
+            fail(f"{tag}: expected an unpageable model")
+        toks = torch.from_numpy(prompts)
+        lc, cc = cpu.prefill(p_cpu, toks, max_len=plen + ngen)
+        lg, cg = gpu.prefill(p_gpu, toks.to(gpu.device), max_len=plen + ngen)
+        check_close(f"{tag} prefill logits, card vs CPU", lg.cpu(), lc, **tol)
+        nxt = cpu.greedy_token(lc)[:, None]
+        lc, _ = cpu.decode_step(p_cpu, nxt, cc)
+        lg, _ = gpu.decode_step(p_gpu, nxt.to(gpu.device), cg)
+        check_close(f"{tag} decode logits, card vs CPU", lg.cpu(), lc, **tol)
+        outs = [generate(m, p, prompts, gen_tokens=ngen)
+                for m, p in ((cpu, p_cpu), (gpu, p_gpu))]
+        if outs[1][1]["engine"] or not np.array_equal(outs[0][0],
+                                                      outs[1][0]):
+            fail(f"{tag}: static tokens CPU {outs[0][0].tolist()} != card "
+                 f"{outs[1][0].tolist()}")
+        log(f"[2-layer f32] {tag}: {ngen} static tokens agree, card == CPU "
+            f"(first row {outs[1][0][0, :12].tolist()})")
+        del cpu, p_cpu, gpu, p_gpu, cc, cg
+
+    cpu, p_cpu, gpu, p_gpu = _two_layer_pair("llama3_2_1b")
+    prompts = np.random.RandomState(8).randint(1, cpu.cfg.vocab_size, (2, 40))
+    static, _ = generate(gpu, p_gpu, prompts, gen_tokens=8, engine="static")
+    paged, _ = generate(gpu, p_gpu, prompts, gen_tokens=8, engine="paged",
+                        page_size=16)
+    if not np.array_equal(static, paged):
+        fail(f"llama3_2_1b 2-layer f32: static tokens {static.tolist()} != "
+             f"engine tokens {paged.tolist()}")
+    log(f"[2-layer f32] llama3_2_1b: static tokens == engine tokens on the "
+        f"card ({static[0].tolist()})")
+    del cpu, p_cpu, gpu, p_gpu
+
+    # head_dim 128 on the card: prefill (flash_fwd) and the engine
+    # (paged_decode), card vs CPU
+    cpu, p_cpu, gpu, p_gpu = _two_layer_pair("internlm2_1_8b")
+    prompts = np.random.RandomState(9).randint(1, cpu.cfg.vocab_size, (2, 40))
+    toks = torch.from_numpy(prompts)
+    lc, _ = cpu.prefill(p_cpu, toks)
+    lg, _ = gpu.prefill(p_gpu, toks.to(gpu.device))
+    check_close("2-layer f32 internlm2_1_8b (head_dim 128) prefill logits, "
+                "card vs CPU", lg.cpu(), lc, **tol)
+    outs = [generate(m, p, prompts, gen_tokens=8, page_size=16)[0]
+            for m, p in ((cpu, p_cpu), (gpu, p_gpu))]
+    if not np.array_equal(*outs):
+        fail(f"internlm2_1_8b engine tokens: CPU {outs[0].tolist()} != card "
+             f"{outs[1].tolist()}")
+    log(f"[2-layer f32] internlm2_1_8b (head_dim 128): engine tokens agree, "
+        f"card == CPU ({outs[1][0].tolist()})")
+
+
+def _full_model(arch, seed):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    model = LM(get_config(arch))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=model.device).manual_seed(seed))
+    torch.cuda.synchronize()
+    log(f"[model] {arch} bf16: {model.param_count(params)} parameters, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    return model, params
+
+
+def _static_run(model, params, prompts, ngen):
+    """``generate`` once, launch counts zeroed just before and read just
+    after; every token in the vocab, and the path static."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.serve import generate
+
+    torch.cuda.synchronize()
+    reset_launches()
+    out, stats = generate(model, params, prompts, gen_tokens=ngen)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if stats["engine"] or out.shape != (prompts.shape[0], ngen):
+        fail(f"{model.cfg.name}: generate took the engine or returned "
+             f"{out.shape}")
+    if not ((out >= 0) & (out < model.cfg.vocab_size)).all():
+        fail(f"{model.cfg.name}: tokens out of vocab")
+    return out, stats, counts
+
+
+def profile_static_step(model, params, prompts, nsteps=8):
+    """Where a static decode step's time goes: prefill, two warm
+    ``greedy_step``s, then ``nsteps`` on the host clock and under
+    ``torch.profiler`` (device-side events only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = model.device
+    toks = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, toks,
+                                      max_len=toks.shape[1] + 4 * nsteps)
+        tok = model.greedy_token(logits)[:, None]
+
+        def run():
+            nonlocal tok, cache
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(nsteps):
+                nxt, _, cache = model.greedy_step(params, tok, cache)
+                tok = nxt[:, None]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / nsteps
+
+        for _ in range(2):
+            model.greedy_step(params, tok, cache)
+        step_ms = run()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_ms = run()
+    rows = device_rows(prof, nsteps)
+    busy_ms = sum(r[0] for r in rows)
+    name = model.cfg.name
+    log(f"[profile {name}] decode step (B={prompts.shape[0]}, "
+        f"{model.cfg.n_layers} layers): host {step_ms:.3f} ms/step "
+        f"({prof_ms:.3f} under the profiler); device busy {busy_ms:.3f} "
+        f"ms/step = {100 * busy_ms / step_ms:.1f}% of the unprofiled step, "
+        f"idle {100 * (1 - busy_ms / step_ms):.1f}%")
+    for ms, n, key in rows[:12]:
+        log(f"[profile {name}]   {ms:8.4f} ms/step  {n:4d} calls/step  "
+            f"{key[:90]}")
+    return step_ms, busy_ms
+
+
+def musicgen_main_path():
+    """musicgen_medium in bf16 at full width through ``generate`` (the
+    static path: sinusoidal positions are not pageable): 8 prompts of 512
+    tokens, 64 new tokens. flash_decode must launch 48 x 64 times. Then
+    where a decode step's time goes, and prefill with 16 conditioning
+    frames + decode_step against forward. Returns (counts, model, params,
+    stats)."""
+    import numpy as np
+    import torch
+
+    model, params = _full_model("musicgen_medium", 21)
+    cfg = model.cfg
+    b, plen, ngen = MG_BATCH, MG_PROMPT, MG_GEN
+    prompts = np.random.RandomState(21).randint(0, cfg.vocab_size, (b, plen))
+    out, stats, counts = _static_run(model, params, prompts, ngen)
+    want = cfg.n_layers * ngen
+    if counts["flash_decode"] != want or counts["flash_fwd"] != cfg.n_layers:
+        fail(f"musicgen: flash_decode launched {counts['flash_decode']} "
+             f"times (want {cfg.n_layers} x {ngen} = {want}), flash_fwd "
+             f"{counts['flash_fwd']} (want {cfg.n_layers})")
+    for name in ("rmsnorm", "lm_head"):
+        if counts[name] <= 0:
+            fail(f"musicgen: kernel {name} never launched")
+    log("musicgen static path kernels: " + ", ".join(
+        f"{k}={counts[k]}" for k in ("flash_decode", "flash_fwd", "rmsnorm",
+                                     "lm_head")))
+    log(f"[musicgen] generate B={b} prompt={plen} new={ngen}: prefill "
+        f"{stats['prefill_s'] * 1e3:.3f} ms, decode {stats['decode_s']:.3f}s"
+        f" = {stats['decode_s'] * 1e3 / ngen:.3f} ms/step, "
+        f"{stats['tokens_per_s']:.1f} tok/s; first row {out[0, :12].tolist()}")
+    step_ms, busy_ms = profile_static_step(model, params, prompts)
+
+    # the audio-conditioning prefix: prefill + one decode step against the
+    # full forward over the same sequence. Both paths round the residual
+    # stream to bf16 at every layer but attend with different kernels
+    # (flash_fwd vs flash_decode), so 48 layers of bf16 rounding separate
+    # them: held to 5% of the largest logit (atol) and 5% relative
+    gen = torch.Generator(device=model.device).manual_seed(22)
+    pre = torch.randn((2, cfg.num_prefix_embeddings, cfg.d_model),
+                      generator=gen, device=model.device).to(model.dtype)
+    toks = torch.from_numpy(prompts[:2, :65]).to(model.device)
+    with torch.no_grad():
+        full, _ = model.forward(params, toks, prefix_embeddings=pre)
+        lp, cache = model.prefill(params, toks[:, :64], prefix_embeddings=pre,
+                                  max_len=96)
+        ld, cache = model.decode_step(params, toks[:, 64:], cache)
+    if cache["pos"] != cfg.num_prefix_embeddings + 65:
+        fail(f"musicgen prefix: cache pos {cache['pos']}")
+    rel = 0.05
+    check_rel("musicgen bf16 prefill(prefix) logits vs forward", lp,
+              full[:, -2], rel)
+    check_rel("musicgen bf16 prefill(prefix) + decode_step logits vs "
+              "forward", ld, full[:, -1], rel)
+    stats.update(step_ms=step_ms, busy_ms=busy_ms)
+    return counts, model, params, stats
+
+
+def falcon_main_path():
+    """falcon_mamba_7b in bf16 at full width: ``generate`` (static) on 4
+    prompts of 512 tokens, 32 new tokens, with ssm_scan launched once per
+    layer by the prefill; ``forward`` on B = 1, S = 2048 (64 launches), and
+    its last-position logits against ``prefill``'s on the same tokens (the
+    stateless and state-returning forms of the scan). Returns (counts,
+    model, params, stats)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    model, params = _full_model("falcon_mamba_7b", 31)
+    cfg = model.cfg
+    b, plen, ngen = FM_BATCH, FM_PROMPT, FM_GEN
+    prompts = np.random.RandomState(31).randint(0, cfg.vocab_size, (b, plen))
+    out, stats, counts = _static_run(model, params, prompts, ngen)
+    if counts["ssm_scan"] != cfg.n_layers:
+        fail(f"falcon: ssm_scan launched {counts['ssm_scan']} times in "
+             f"generate (want one per layer of the prefill, {cfg.n_layers})")
+    log("falcon static path kernels: " + ", ".join(
+        f"{k}={counts[k]}" for k in ("ssm_scan", "rmsnorm", "lm_head")))
+    log(f"[falcon] generate B={b} prompt={plen} new={ngen}: prefill "
+        f"{stats['prefill_s'] * 1e3:.3f} ms, decode {stats['decode_s']:.3f}s"
+        f" = {stats['decode_s'] * 1e3 / ngen:.3f} ms/step, "
+        f"{stats['tokens_per_s']:.1f} tok/s; first row {out[0, :12].tolist()}")
+    step_ms, busy_ms = profile_static_step(model, params, prompts)
+
+    toks = torch.from_numpy(np.random.RandomState(32).randint(
+        0, cfg.vocab_size, (1, FM_FWD_SEQ))).to(model.device)
+    with torch.no_grad():
+        model.forward(params, toks[:, :64])                  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        full, _ = model.forward(params, toks)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fcounts = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, _ = model.prefill(params, toks)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    if fcounts["ssm_scan"] != cfg.n_layers:
+        fail(f"falcon forward: ssm_scan launched {fcounts['ssm_scan']} "
+             f"times (want {cfg.n_layers})")
+    if not torch.isfinite(full).all():
+        fail("falcon forward: non-finite logits")
+    # the same kernel and the same bf16 ops on both sides: equal up to the
+    # LM head's row count (1e-3 covers its f32 sums in another order)
+    check_close("falcon bf16 forward vs prefill last-position logits",
+                lp, full[:, -1], atol=1e-3, rtol=1e-3)
+    log(f"[falcon] forward B=1 S={FM_FWD_SEQ}: {fwd_ms:.3f} ms "
+        f"(ssm_scan x{fcounts['ssm_scan']}); prefill of the same tokens "
+        f"{prefill_ms:.3f} ms")
+    stats.update(step_ms=step_ms, busy_ms=busy_ms, fwd_ms=fwd_ms,
+                 prefill_ms=prefill_ms)
+    return counts, model, params, stats
+
+
+def full_width_static_checks(dev):
+    """flash_decode at musicgen's decode shape and ssm_scan at falcon's
+    forward shape, in bf16 (delta f32, as the model feeds it), against
+    their plain versions. Returns {kernel: max |err|}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import decode_ref, flash_decode
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    errs = {}
+    q, k, v, kv_len = _decode_inputs(dev, gen, 1)
+    k, v = k[0], v[0]
+    # o averages hundreds of randn rows, so |o| <~ 0.3: both sides round o
+    # to bf16 (one ulp apart at most, <= 2^-7 relative); the plain version
+    # also rounds p to bf16 before p @ v (2^-9 relative per term, ~1e-4 in
+    # o), which the absolute 1% of max|o| covers
+    sp = torch.arange(k.shape[2], dtype=torch.int32, device=dev)
+    sp = torch.roll(sp, 100)                 # a rotated window of 576
+    for tag, kw in ((f"flash_decode bf16 {tuple(q.shape)} vs cache "
+                     f"{tuple(k.shape)} kv_len={kv_len}", dict(kv_len=kv_len)),
+                    ("flash_decode bf16 rotated, window 400",
+                     dict(kv_len=700, slot_pos=sp, window=400))):
+        ref = decode_ref(q, k, v, **kw)
+        err = check_close(tag, flash_decode(q, k, v, **kw), ref,
+                          atol=0.01 * float(ref.float().abs().max()),
+                          rtol=2 ** -7)
+        errs.setdefault("flash_decode", err)
+
+    args = _scan_inputs(dev, gen, get_config("falcon_mamba_7b"))
+    y, hT = ssm_scan_fwd(*args)
+    ry, rhT = selective_scan_ref(*args)
+    # y: one bf16 rounding each side (2^-8 relative) over f32 sums in
+    # another order; hT f32: 1e-3 of its largest magnitude
+    errs["ssm_scan"] = check_close(
+        f"ssm_scan bf16 y {tuple(y.shape)}", y, ry, atol=1e-2, rtol=2 ** -7)
+    check_rel("ssm_scan bf16 hT (f32)", hT, rhT, 1e-3)
+    torch.cuda.synchronize()
+    return errs
+
+
+def _decode_inputs(dev, gen, nlayers):
+    """q (B, H, 1, d) and ``nlayers`` caches k, v (B, H, m, d) in bf16 at
+    musicgen's decode shape, with kv_len = m (the last step of the run)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("musicgen_medium")
+    b, h, d = MG_BATCH, cfg.n_heads, cfg.resolved_head_dim
+    m = MG_PROMPT + MG_GEN
+    bf = torch.bfloat16
+    q = torch.randn((b, h, 1, d), generator=gen, device=dev).to(bf)
+    k = [torch.randn((b, h, m, d), generator=gen, device=dev).to(bf)
+         for _ in range(nlayers)]
+    v = [torch.randn((b, h, m, d), generator=gen, device=dev).to(bf)
+         for _ in range(nlayers)]
+    return q, k, v, m
+
+
+def _scan_inputs(dev, gen, cfg):
+    """The scan's inputs at falcon's forward shape (B = 1, S = 2048): x, B,
+    C bf16, delta f32 softplus-sized, A = -exp(log(1..n)), D = 1."""
+    import torch
+
+    bf = torch.bfloat16
+    L, dm, n = FM_FWD_SEQ, cfg.resolved_d_inner, cfg.ssm_state
+    x = torch.randn((1, L, dm), generator=gen, device=dev).to(bf)
+    delta = torch.nn.functional.softplus(
+        torch.randn((1, L, dm), generator=gen, device=dev) - 4)
+    A = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=dev).expand(dm, n).contiguous()
+    B = torch.randn((1, L, n), generator=gen, device=dev).to(bf)
+    C = torch.randn((1, L, n), generator=gen, device=dev).to(bf)
+    D = torch.ones(dm, device=dev)
+    return x, delta, A, B, C, D
+
+
+def time_static_kernels(dev):
+    """flash_decode at musicgen's decode shape (one step's 48 layers cycle
+    through 8 caches, 113 MB, so L2 does not hold them) and ssm_scan at
+    falcon's forward shape, beside their bounds, plain versions and
+    library calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import decode_ref, flash_decode
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    out = {}
+    nl = 8
+    q, ks, vs, kv_len = _decode_inputs(dev, gen, nl)
+    b, h, _, d = q.shape
+    m = ks[0].shape[2]
+    it = iter(range(1 << 30))
+    mask = (torch.arange(m, device=dev) < kv_len)[None, None, None]
+
+    def cycle(fn):
+        def run():
+            i = next(it) % nl
+            return fn(ks[i], vs[i])
+        return run
+
+    out["flash_decode"] = dict(
+        ms=cuda_ms(cycle(lambda k, v: flash_decode(q, k, v, kv_len=kv_len)),
+                   iters=96),
+        plain_ms=cuda_ms(cycle(lambda k, v: decode_ref(q, k, v,
+                                                       kv_len=kv_len)),
+                         iters=24),
+        library_ms=cuda_ms(cycle(lambda k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)), iters=96),
+        library="F.scaled_dot_product_attention(attn_mask bool)",
+        shape=f"q ({b},{h},1,{d}), k/v ({b},{h},{m},{d}) bf16, "
+              f"kv_len {kv_len}")
+    out["flash_decode"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * b * h * kv_len * d * 2 + 2 * b * h * d * 2,
+        4 * b * h * kv_len * d, "bfloat16")))
+    del ks, vs
+
+    cfg = get_config("falcon_mamba_7b")
+    args = _scan_inputs(dev, gen, cfg)
+    x, delta = args[0], args[1]
+    bt, L, dm = x.shape
+    n = cfg.ssm_state
+    out["ssm_scan"] = dict(
+        ms=cuda_ms(lambda: ssm_scan_fwd(*args), iters=10, warmup=2),
+        plain_ms=cuda_ms(lambda: selective_scan_ref(*args), iters=2,
+                         warmup=1),
+        library_ms=None, library="none: no single PyTorch call computes it",
+        shape=f"x ({bt},{L},{dm}) bf16, delta f32, B/C ({bt},{L},{n}) bf16")
+    nbytes = (bt * L * dm * (2 + 4 + 2) + 2 * bt * L * n * 2
+              + 2 * dm * n * 4 + dm * 4 + bt * dm * n * 4)
+    out["ssm_scan"].update(zip(("bound_ms", "bound_by"), bound(
+        nbytes, bt * L * dm * n * 6, "float32")))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -1550,9 +2102,14 @@ def main():
     t0 = time.perf_counter()
     logs = _build.build_all()
     for name, text in logs.items():
+        fn = spill = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"[nvcc {name}] {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line or "error" in line:
+                log(f"[nvcc {name}] {fn}: {line.strip()}; {spill}")
     rms_kernel.build()
     delta_kernel.build()
     log(f"[build] {len(logs)} CUDA sources compiled in "
@@ -1562,6 +2119,7 @@ def main():
     small_f32_checks(dev)
     small_f32_train_checks(dev)
     small_f32_app_checks(dev)
+    small_f32_static_checks(dev)
 
     cfg = get_config("llama3_2_1b")
     page, num_pages, slots = 512, 8 * 4 + 1, 8
@@ -1572,6 +2130,7 @@ def main():
     # 3. 2-layer f32: card vs CPU, serving and training
     two_layer_f32_check(cfg)
     two_layer_f32_train_check(cfg)
+    two_layer_static_f32_checks()
 
     # 4. the serving path: full llama3_2_1b in bf16 through the engine
     model = LM(cfg)
@@ -1634,6 +2193,23 @@ def main():
     errs.update(full_size_app_checks(astate))
     times.update(time_app_kernels(astate))
     del astate, swe
+
+    # 11. the static path: musicgen_medium through generate, where its
+    # decode step's time goes, the conditioning prefix
+    mcounts, model, params, mstats = musicgen_main_path()
+    counts["flash_decode"] = mcounts["flash_decode"]
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 12. falcon_mamba_7b through generate, forward vs prefill
+    fcounts, model, params, fstats = falcon_main_path()
+    counts["ssm_scan"] = fcounts["ssm_scan"]
+    del model, params
+    torch.cuda.empty_cache()
+
+    # 2b and 8 for the static path's kernels
+    errs.update(full_width_static_checks(dev))
+    times.update(time_static_kernels(dev))
     for name, t in times.items():
         lib = ("null" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")

@@ -4,8 +4,10 @@
 // (reached through pl.pallas_call at src/repro/core/lang.py:1076).
 //
 // Computes o = softmax(q k^T * sm_scale + mask) v and lse (b, h, sq) in f32,
-// with queries aligned to the end of the kv stream (q_offset = skv - sq) and
-// an optional causal mask. GQA: query head hh reads kv head hh / (h / hk).
+// with queries aligned to the end of the kv stream (q_offset = skv - sq), an
+// optional causal mask and an optional sliding window (a key is visible
+// when q_pos - k_pos < window). GQA: query head hh reads kv head
+// hh / (h / hk).
 //
 // Bound on the H100: at prefill lengths (hundreds to a few thousand tokens)
 // the work is 4 * sq * skv * d / 2 FLOPs per head against O((sq + skv) * d)
@@ -14,8 +16,10 @@
 // design; the FLOPs over the f32 CUDA-core rate are what it is held to.
 // What the design does about it: one block per (q-tile of 64 rows, head,
 // batch); K/V tiles of 32 keys staged in shared memory as f32 and read by all
-// 64 rows; the kv loop stops at the block's causal diagonal, so the masked
-// upper triangle is never loaded or computed. Ragged sequence lengths are
+// 64 rows; the kv loop stops at the block's causal diagonal and, with a
+// window, starts at the tile holding the block's oldest visible key (the
+// TPU kernel's _run_cond whole-block skip), so masked tiles are never
+// loaded or computed. Ragged sequence lengths are
 // masked in the kernel (the TPU version degrades its blocks with fit_block).
 #include "common.cuh"
 
@@ -29,7 +33,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int h, int hk, int sq, int skv,
-    int causal, float sm_scale, long long qsb, long long qsh, long long qss,
+    int causal, int window, float sm_scale, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss) {
   __shared__ float ks[BK][D + 1];  // +1: rows read by 4 lanes hit 4 banks
@@ -53,16 +57,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   for (int c = 0; c < D / 4; ++c) acc[c] = 0.f;
   float m = -CUDART_INF_F, l = 0.f;
 
-  int kv_end = skv;
+  int kv_end = skv, kv_begin = 0;
   if (causal) {
     const int last = min(qt * BQ + BQ - 1, sq - 1) + q_offset;
     kv_end = min(skv, last + 1);  // stop at the block's diagonal
   }
+  if (window > 0)  // start at the tile of the block's oldest visible key
+    kv_begin = max(0, qt * BQ + q_offset - window + 1) / BK * BK;
   const T* kb = k + bi * ksb + kh * ksh;
   const T* vb = v + bi * vsb + kh * vsh;
   const int base = lane & ~3;
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
     for (int e = t; e < BK * D; e += NT) {
       const int j = e / D, dd = e % D, kpos = k0 + j;
@@ -82,7 +88,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) {
       const int j = sub + 4 * i, kpos = k0 + j;
-      const bool ok = kpos < skv && (!causal || kpos <= q_pos);
+      const bool ok = kpos < skv && (!causal || kpos <= q_pos) &&
+                      (window <= 0 || q_pos - kpos < window);
       float dot = 0.f;
 #pragma unroll
       for (int dd = 0; dd < D; ++dd) dot += qr[dd] * ks[j][dd];
@@ -130,38 +137,39 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
 template <typename T, int D>
 void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int b, int h, int hk, int sq, int skv, int causal, float sm_scale,
-            const long long* st, cudaStream_t stream) {
+            int b, int h, int hk, int sq, int skv, int causal, int window,
+            float sm_scale, const long long* st, cudaStream_t stream) {
   dim3 grid((sq + BQ - 1) / BQ, h, b);
   flash_fwd_kernel<T, D><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, h, hk, sq, skv, causal, sm_scale, st[0], st[1],
+      static_cast<T*>(o), lse, h, hk, sq, skv, causal, window, sm_scale, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. d in {32, 64}. o is contiguous
-// (b, h, sq, d), lse contiguous (b, h, sq); q/k/v take element strides for
-// their batch, head and sequence axes (the last axis is contiguous).
+// dtype: 0 = float32, 1 = bfloat16. d in {32, 64, 128}; window <= 0 means
+// no window. o is contiguous (b, h, sq, d), lse contiguous (b, h, sq);
+// q/k/v take element strides for their batch, head and sequence axes (the
+// last axis is contiguous).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int b, int h, int hk, int sq, int skv,
-                         int d, int dtype, int causal, float sm_scale,
-                         long long qsb, long long qsh, long long qss,
-                         long long ksb, long long ksh, long long kss,
-                         long long vsb, long long vsh, long long vss,
-                         void* stream) {
+                         int d, int dtype, int causal, int window,
+                         float sm_scale, long long qsb, long long qsh,
+                         long long qss, long long ksb, long long ksh,
+                         long long kss, long long vsb, long long vsh,
+                         long long vss, void* stream) {
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && d == 32)
-    launch<float, 32>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
-  else if (dtype == 0 && d == 64)
-    launch<float, 64>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
-  else if (dtype == 1 && d == 32)
-    launch<__nv_bfloat16, 32>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
-  else if (dtype == 1 && d == 64)
-    launch<__nv_bfloat16, 64>(q, k, v, o, lse, b, h, hk, sq, skv, causal, sm_scale, st, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_FWD(T, D) \
+  launch<T, D>(q, k, v, o, lse, b, h, hk, sq, skv, causal, window, sm_scale, st, s)
+  if (dtype == 0 && d == 32) REPRO_FWD(float, 32);
+  else if (dtype == 0 && d == 64) REPRO_FWD(float, 64);
+  else if (dtype == 0 && d == 128) REPRO_FWD(float, 128);
+  else if (dtype == 1 && d == 32) REPRO_FWD(__nv_bfloat16, 32);
+  else if (dtype == 1 && d == 64) REPRO_FWD(__nv_bfloat16, 64);
+  else if (dtype == 1 && d == 128) REPRO_FWD(__nv_bfloat16, 128);
+  else return static_cast<int>(cudaErrorInvalidValue);
+#undef REPRO_FWD
   return static_cast<int>(cudaGetLastError());
 }

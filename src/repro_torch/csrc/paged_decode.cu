@@ -149,9 +149,10 @@ void launch(const void* q, const void* kp, const void* vp, const int* table,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64}; h / hk <= 16. Pools,
-// table (b, nsp), kv_len (b,), pos_pages (P, page) and o (b, h, 1, d) are
-// contiguous; q takes element strides for its batch and head axes.
+// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}; h / hk <= 16 and
+// (h / hk) * d <= NT * PER = 1024. Pools, table (b, nsp), kv_len (b,),
+// pos_pages (P, page) and o (b, h, 1, d) are contiguous; q takes element
+// strides for its batch and head axes.
 extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
                             const int* table, const int* kv_len,
                             const int* pos_pages, void* o, int b, int h,
@@ -161,15 +162,16 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (h % hk != 0 || h / hk > MAXG || (h / hk) * d > NT * PER)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && d == 32)
-    launch<float, 32>(q, kp, vp, table, kv_len, pos_pages, o, b, h, hk, page, nsp, sm_scale, qsb, qsh, s);
-  else if (dtype == 0 && d == 64)
-    launch<float, 64>(q, kp, vp, table, kv_len, pos_pages, o, b, h, hk, page, nsp, sm_scale, qsb, qsh, s);
-  else if (dtype == 1 && d == 32)
-    launch<__nv_bfloat16, 32>(q, kp, vp, table, kv_len, pos_pages, o, b, h, hk, page, nsp, sm_scale, qsb, qsh, s);
-  else if (dtype == 1 && d == 64)
-    launch<__nv_bfloat16, 64>(q, kp, vp, table, kv_len, pos_pages, o, b, h, hk, page, nsp, sm_scale, qsb, qsh, s);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+#define REPRO_PAGED(T, D)                                                   \
+  launch<T, D>(q, kp, vp, table, kv_len, pos_pages, o, b, h, hk, page, nsp, \
+               sm_scale, qsb, qsh, s)
+  if (dtype == 0 && d == 32) REPRO_PAGED(float, 32);
+  else if (dtype == 0 && d == 64) REPRO_PAGED(float, 64);
+  else if (dtype == 0 && d == 128) REPRO_PAGED(float, 128);
+  else if (dtype == 1 && d == 32) REPRO_PAGED(__nv_bfloat16, 32);
+  else if (dtype == 1 && d == 64) REPRO_PAGED(__nv_bfloat16, 64);
+  else if (dtype == 1 && d == 128) REPRO_PAGED(__nv_bfloat16, 128);
+  else return static_cast<int>(cudaErrorInvalidValue);
+#undef REPRO_PAGED
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,10 +11,11 @@ them.
 from __future__ import annotations
 
 from .apps import dg_surface, dg_volume, fd2d, sem_apply
-from .flash_attention import (flash_attention_fwd, flash_bwd, flash_delta,
-                              paged_decode_attention)
+from .flash_attention import (flash_attention_fwd, flash_bwd, flash_decode,
+                              flash_delta, paged_decode_attention)
 from .lm_head import lm_head_bwd, lm_head_ce, lm_head_logits
 from .rmsnorm import rmsnorm
+from .ssm_scan import ssm_scan_fwd
 
 __all__ = ["KERNELS", "launch_counts", "reset_launches"]
 
@@ -32,6 +33,8 @@ KERNELS = {
     "sem_apply": sem_apply,
     "dg_volume": dg_volume,
     "dg_surface": dg_surface,
+    "flash_decode": flash_decode,
+    "ssm_scan": ssm_scan_fwd,
 }
 
 

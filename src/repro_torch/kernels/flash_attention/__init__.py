@@ -1,9 +1,11 @@
 from .ops import (flash_attention, flash_attention_bwd, flash_attention_fwd,
-                  flash_bwd, flash_delta, paged_decode_attention)
-from .ref import (flash_bwd_ref, flash_delta_ref, flash_fwd_ref, mha_ref,
-                  paged_decode_ref)
+                  flash_bwd, flash_decode, flash_delta,
+                  paged_decode_attention)
+from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
+                  mha_ref, paged_decode_ref, rolling_slot_pos)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_delta", "flash_bwd", "paged_decode_attention",
-           "flash_fwd_ref", "flash_delta_ref", "flash_bwd_ref", "mha_ref",
-           "paged_decode_ref"]
+           "flash_delta", "flash_bwd", "flash_decode",
+           "paged_decode_attention", "flash_fwd_ref", "flash_delta_ref",
+           "flash_bwd_ref", "mha_ref", "decode_ref", "paged_decode_ref",
+           "rolling_slot_pos"]

@@ -2,12 +2,19 @@
 on the CPU (counterparts of ``repro.kernels.flash_attention.ops``).
 
 ``flash_attention_fwd`` launches ``csrc/flash_fwd.cu`` (prefill: o and
-lse). ``flash_attention`` is the differentiable op: a
-``torch.autograd.Function`` whose forward is ``flash_attention_fwd`` and
-whose backward (``flash_attention_bwd``) runs ``flash_delta`` (Triton,
-``delta.py``) and then ``flash_bwd`` (``csrc/flash_bwd.cu``), as the JAX
-op's ``_bwd`` runs the delta and fused backward kernels. Both devices go
-through the same Function; on the CPU each step is its plain version.
+lse; causal and/or a sliding window). ``flash_attention`` is the
+differentiable op: a ``torch.autograd.Function`` whose forward is
+``flash_attention_fwd`` and whose backward (``flash_attention_bwd``) runs
+``flash_delta`` (Triton, ``delta.py``) and then ``flash_bwd``
+(``csrc/flash_bwd.cu``), as the JAX op's ``_bwd`` runs the delta and fused
+backward kernels. Both devices go through the same Function; on the CPU
+each step is its plain version. The backward kernel has no window mask and
+takes head dims up to 64, so on a CUDA tensor ``flash_attention`` raises
+when a gradient is asked of a windowed or d = 128 call (it would otherwise
+be silently wrong or fail late). ``flash_decode`` launches
+``csrc/flash_decode.cu`` (one-token decode against a contiguous or rotated
+rolling cache: the JAX package's ``flash_decode`` op and its
+``decode_attention`` entry) and
 ``paged_decode_attention`` launches ``csrc/paged_decode.cu`` (one-token
 decode through a block table).
 """
@@ -20,31 +27,36 @@ import torch
 
 from .._build import check, load, on_cpu, ptr, stream
 from . import delta as delta_kernel
-from .ref import (flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
+from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
                   paged_decode_ref)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_delta", "flash_bwd", "paged_decode_attention"]
+           "flash_delta", "flash_bwd", "flash_decode",
+           "paged_decode_attention"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
-_MAX_GROUP = 16                # paged decode: query heads per kv head
+_HEAD_DIMS = (32, 64, 128)     # flash_fwd, flash_decode, paged_decode
+_BWD_HEAD_DIMS = (32, 64)      # flash_bwd
+_MAX_GROUP = 16                # decode kernels: query heads per kv head
+_MAX_GROUP_DIM = 1024          # decode kernels: (query heads per kv head) * d
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 9 + [_P], _I)}
+_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I)}
 _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I)}
+_DECODE_SIG = {"flash_decode": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 6 + [_P],
+                                _I)}
 _PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
 
 
-def _check_qkv(name, q, k, v):
+def _check_qkv(name, q, k, v, head_dims=_HEAD_DIMS):
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "all three must be float32 or bfloat16")
     d = q.shape[-1]
-    if d not in _HEAD_DIMS or k.shape[-1] != d or v.shape[-1] != d:
+    if d not in head_dims or k.shape[-1] != d or v.shape[-1] != d:
         raise ValueError(f"{name}: head dims q {d}, k {k.shape[-1]}, "
                          f"v {v.shape[-1]}; the kernel takes equal head dims "
-                         f"in {_HEAD_DIMS}")
+                         f"in {head_dims}")
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last axis of {n} must be "
@@ -60,21 +72,44 @@ def _check_gqa(name, q, k, v):
                          "(GQA needs H a multiple of Hk)")
 
 
+def _check_group(name, h, hk, d):
+    if h % hk or h // hk > _MAX_GROUP or (h // hk) * d > _MAX_GROUP_DIM:
+        raise ValueError(f"{name}: {h} query heads over {hk} kv heads at "
+                         f"head dim {d}; the kernel takes groups of at most "
+                         f"{_MAX_GROUP} heads with group * d <= "
+                         f"{_MAX_GROUP_DIM}")
+
+
+def _grad_asked(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _no_grad_asked(name, *ts):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+    if _grad_asked(*ts):
         raise RuntimeError(
             f"{name} records no autograd graph; call it under "
             "torch.no_grad() or use the differentiable op")
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, sm_scale=None):
+def _window(name, window):
+    if window is None:
+        return 0
+    if int(window) <= 0:
+        raise ValueError(f"{name}: window must be positive, got {window}")
+    return int(window)
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
     """q (B, H, Sq, D); k, v (B, Hk, Skv, D) -> (o (B, H, Sq, D) in q's
     dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the kv
-    stream; ``causal`` masks keys after each query. Any Sq <= Skv."""
+    stream; ``causal`` masks keys after each query, ``window`` keys at
+    q_pos - k_pos >= window. Any Sq <= Skv."""
     name = "flash_attention_fwd"
     _no_grad_asked(name, q, k, v)
     if on_cpu(name, q, k, v):
-        return flash_fwd_ref(q, k, v, causal=causal, sm_scale=sm_scale)
+        return flash_fwd_ref(q, k, v, causal=causal, window=window,
+                             sm_scale=sm_scale)
+    win = _window(name, window)
     _check_qkv(name, q, k, v)
     _check_gqa(name, q, k, v)
     b, h, sq, d = q.shape
@@ -88,7 +123,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, sm_scale=None):
     lib = load("flash_fwd", _FLASH_SIG)
     err = lib.flash_fwd(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, hk,
                         sq, skv, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-                        float(sm_scale), *q.stride()[:3], *k.stride()[:3],
+                        win, float(sm_scale), *q.stride()[:3], *k.stride()[:3],
                         *v.stride()[:3], stream())
     check(lib, err, "flash_fwd")
     flash_attention_fwd.launches += 1
@@ -133,7 +168,7 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
     if on_cpu(name, q, k, v, do, lse, delta):
         return flash_bwd_ref(q, k, v, do, lse, delta, causal=causal,
                              sm_scale=sm_scale)
-    _check_qkv(name, q, k, v)
+    _check_qkv(name, q, k, v, _BWD_HEAD_DIMS)
     _check_gqa(name, q, k, v)
     b, h, sq, d = q.shape
     _, hk, skv, _ = k.shape
@@ -198,10 +233,84 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, *, causal=True, sm_scale=None):
+def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
     """Differentiable attention: the o of :func:`flash_attention_fwd`, with
-    the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`."""
-    return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`. With a
+    window the CPU differentiates the plain version; on the card the
+    backward kernel has no window mask (nor head dim 128), so asking for a
+    gradient there raises instead of returning a wrong one."""
+    if window is None and (q.device.type == "cpu"
+                           or q.shape[-1] in _BWD_HEAD_DIMS):
+        return _FlashAttention.apply(q, k, v, causal, sm_scale)
+    if on_cpu("flash_attention", q, k, v):
+        return flash_fwd_ref(q, k, v, causal=causal, window=window,
+                             sm_scale=sm_scale)[0]
+    if _grad_asked(q, k, v):
+        raise NotImplementedError(
+            f"flash_attention: no backward kernel for window={window}, head "
+            f"dim {q.shape[-1]} on the card (flash_bwd.cu takes head dims "
+            f"{_BWD_HEAD_DIMS} and no window); call it under torch.no_grad()")
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               sm_scale=sm_scale)[0]
+
+
+def _decode_check(name, q, k, v, kv_len, slot_pos):
+    """The wrapper's checks for flash_decode on the card; returns kv_len."""
+    _check_qkv(name, q, k, v)
+    _check_gqa(name, q, k, v)
+    b, h, one, d = q.shape
+    _, hk, skv, _ = k.shape
+    if one != 1:
+        raise ValueError(f"{name}: expected one query token, got q "
+                         f"{tuple(q.shape)}")
+    _check_group(name, h, hk, d)
+    for t, n in ((k, "k"), (v, "v")):
+        if (t.stride(-2) != d or t.data_ptr() % 16
+                or (t.stride(0) * t.element_size()) % 16
+                or (t.stride(1) * t.element_size()) % 16):
+            raise ValueError(f"{name}: the (skv, d) rows of {n} must be "
+                             "contiguous and 16-byte aligned")
+    if slot_pos is not None and (
+            tuple(slot_pos.shape) != (skv,) or slot_pos.dtype != torch.int32
+            or not slot_pos.is_contiguous()):
+        raise ValueError(f"{name}: slot_pos must be contiguous int32 "
+                         f"({skv},), got {tuple(slot_pos.shape)} "
+                         f"{slot_pos.dtype}")
+    return skv if kv_len is None else int(kv_len)
+
+
+def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
+                 sm_scale=None):
+    """q (B, H, 1, D) against a contiguous cache k, v (B, Hk, S, D) ->
+    (B, H, 1, D) in q's dtype. ``kv_len`` (an int, default S) puts the
+    query at position kv_len - 1; ``slot_pos`` ((S,) int32, -1 = empty)
+    holds each slot's absolute position (rotated rolling-window caches;
+    omitted, slot i holds position i). A slot is visible when 0 <= pos <=
+    kv_len - 1 and kv_len - 1 - pos < ``window``; a row that sees no slot
+    gives 0 (:func:`decode_ref`)."""
+    name = "flash_decode"
+    if on_cpu(name, q, k, v, slot_pos):
+        return decode_ref(q, k, v, window=window, sm_scale=sm_scale,
+                          kv_len=kv_len, slot_pos=slot_pos)
+    win = _window(name, window)
+    n = _decode_check(name, q, k, v, kv_len, slot_pos)
+    b, h, _, d = q.shape
+    _, hk, skv, _ = k.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    o = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    lib = load("flash_decode", _DECODE_SIG)
+    sp = ptr(slot_pos) if slot_pos is not None else None
+    err = lib.flash_decode(ptr(q), ptr(k), ptr(v), sp, ptr(o), b, h, hk, skv,
+                           d, _DTYPE_CODE[q.dtype], n, win, float(sm_scale),
+                           q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                           v.stride(0), v.stride(1), stream())
+    check(lib, err, name)
+    flash_decode.launches += 1
+    return o
+
+
+flash_decode.launches = 0
 
 
 def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
@@ -225,9 +334,7 @@ def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
     if tuple(v_pages.shape) != tuple(k_pages.shape):
         raise ValueError(f"{name}: v pool {tuple(v_pages.shape)} != k pool "
                          f"{tuple(k_pages.shape)}")
-    if h % hk or h // hk > _MAX_GROUP:
-        raise ValueError(f"{name}: {h} query heads over {hk} kv heads; the "
-                         f"kernel takes groups of at most {_MAX_GROUP}")
+    _check_group(name, h, hk, d)
     if block_table.dim() != 2 or block_table.shape[0] != b:
         raise ValueError(f"{name}: block_table {tuple(block_table.shape)} "
                          f"must be ({b}, n_seq_pages)")

@@ -1,5 +1,5 @@
-"""Plain PyTorch attention: the functions the prefill, paged-decode and
-backward kernels compute (counterparts of
+"""Plain PyTorch attention: the functions the prefill, decode, paged-decode
+and backward kernels compute (counterparts of
 ``repro.kernels.flash_attention.ref`` and of the TPU backward kernels'
 arithmetic in ``repro.kernels.flash_attention.kernel``).
 
@@ -12,8 +12,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mha_ref", "flash_fwd_ref", "paged_decode_ref", "flash_delta_ref",
-           "flash_bwd_ref"]
+__all__ = ["mha_ref", "flash_fwd_ref", "decode_ref", "paged_decode_ref",
+           "flash_delta_ref", "flash_bwd_ref", "rolling_slot_pos"]
+
+
+def rolling_slot_pos(window: int, t: int):
+    """The slot -> absolute-position map of a rolling cache of ``window``
+    slots after ``t`` tokens (slot = pos % window; -1 = never written), as
+    an int32 tensor on the CPU: the layout contract of rolling caches."""
+    sp = torch.full((window,), -1, dtype=torch.int32)
+    for p in range(max(t - window, 0), t):
+        sp[p % window] = p
+    return sp
 
 
 def _mask(sq, skv, *, causal, window, prefix_len, device):
@@ -66,6 +76,36 @@ def mha_ref(q, k, v, *, causal=True, window=None, sm_scale=None,
     """The attention output of :func:`flash_fwd_ref`."""
     return flash_fwd_ref(q, k, v, causal=causal, window=window,
                          sm_scale=sm_scale, prefix_len=prefix_len)[0]
+
+
+def decode_ref(q, k, v, *, window=None, sm_scale=None, kv_len=None,
+               slot_pos=None):
+    """One query token per (batch, head): q (B, H, 1, D) against a
+    contiguous cache k (B, Hk, S, D), v (B, Hk, S, Dv) -> (B, H, 1, Dv) in
+    q's dtype. The query sits at position ``kv_len - 1`` (``kv_len`` an int;
+    default: the newest slot position, or S without ``slot_pos``). ``slot_pos`` ((S,) int32, -1 = empty) gives each slot's
+    absolute position, so rotated rolling-window caches mask correctly;
+    omitted, slot i holds position i. A slot is visible when 0 <= pos <=
+    q_pos and q_pos - pos < window; a row that sees no slot gives 0."""
+    b, h, _, d = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    if slot_pos is None:
+        sp = torch.arange(m, device=q.device)
+    else:
+        sp = slot_pos.reshape(-1).long()
+    q_pos = (int(kv_len) if kv_len is not None
+             else int(sp.max()) + 1 if slot_pos is not None else m) - 1
+    mask = (sp >= 0) & (sp <= q_pos)
+    if window is not None:
+        mask &= (q_pos - sp) < window
+    qg = q.reshape(b, hk, g, 1, d).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * sm_scale
+    o, _ = _softmax_av(s, mask, v[:, :, None])
+    return o.reshape(b, h, 1, dv).to(q.dtype)
 
 
 def paged_decode_ref(q, k_pages, v_pages, *, block_table, kv_len=None,

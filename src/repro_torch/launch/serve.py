@@ -1,13 +1,16 @@
-"""Batched greedy serving through the continuous-batching engine (the
-counterpart of ``repro.launch.serve``).
+"""Batched serving: continuous batching over paged KV caches, or a static
+batch over contiguous caches (the counterpart of ``repro.launch.serve``).
 
-``generate`` is a thin wrapper over :class:`repro_torch.serving.Engine`.
-The static-batch loop of the JAX package needs the contiguous-cache decode
-kernel (``flash_decode``), which is not ported yet, so models the paged path
-cannot serve (rolling windows) raise here.
+``generate`` serves through :class:`repro_torch.serving.Engine` whenever
+the model is pageable; models the paged path cannot serve (rolling windows,
+sinusoidal positions, SSM stacks) go down ``_generate_static``: one prefill,
+then one decode step per token over a contiguous cache, every sequence in
+lockstep (decode attention on the ``flash_decode`` kernel). The static loop
+has no mesh and adopts no tuned block sizes (neither is ported).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b \
-      --reduced --batch 4 --prompt-len 16 --gen 32 [--device cpu]
+      --reduced --batch 4 --prompt-len 16 --gen 32 [--device cpu] \
+      [--engine auto|paged|static] [--temperature T]
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.models import LM
-from repro_torch.serving import Engine
+from repro_torch.serving import Engine, sample
 
 __all__ = ["generate", "main"]
 
@@ -34,22 +37,33 @@ def _pad_token(eos_id, pad_id):
 
 
 def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
-             eos_id: int | None = None, max_len: int | None = None,
-             pad_id: int | None = None, page_size: int | None = None,
-             num_pages: int | None = None):
-    """prompts: (B, P) int -> ((B, <=gen_tokens) int32 greedy tokens, stats).
+             eos_id: int | None = None, greedy: bool = True, rng=None,
+             max_len: int | None = None, temperature: float = 1.0,
+             pad_id: int | None = None, engine: str = "auto",
+             page_size: int | None = None, num_pages: int | None = None):
+    """prompts: (B, P) int -> ((B, <=gen_tokens) int32 tokens, stats).
 
     Rows that finish early are padded with ``pad_id`` (default: ``eos_id``
-    when set, else 0). ``max_len`` sizes the caches (default: prompt +
-    generation); ``page_size``/``num_pages`` pass through to the engine."""
-    if not model.pageable:
-        raise NotImplementedError(
-            "generate: this model cannot decode from a paged cache, and the "
-            "static-batch path (flash_decode) is not ported yet")
+    when set, else 0). ``greedy=False`` samples from ``softmax(logits /
+    temperature)`` with ``rng``, a ``torch.Generator`` on the model's device
+    (default: seed 0). ``engine="auto"`` takes the engine when the model is
+    pageable, ``"static"`` forces the static loop and ``"paged"`` the engine
+    (which raises for an unpageable model). ``max_len`` sizes the caches on
+    both paths (default: prompt + generation); ``page_size``/``num_pages``
+    pass through to the engine."""
+    if engine not in ("auto", "paged", "static"):
+        raise ValueError(f"engine must be auto|paged|static, got {engine!r}")
     b, plen = prompts.shape
     max_len = max_len or (plen + gen_tokens)
+    use_engine = model.pageable if engine == "auto" else engine == "paged"
+    if not use_engine:
+        return _generate_static(model, params, prompts,
+                                gen_tokens=gen_tokens, eos_id=eos_id,
+                                greedy=greedy, rng=rng, max_len=max_len,
+                                temperature=temperature, pad_id=pad_id)
     eng = Engine(model, params, batch=b, max_len=max_len, page_size=page_size,
-                 num_pages=num_pages, eos_id=eos_id)
+                 num_pages=num_pages, eos_id=eos_id, greedy=greedy,
+                 temperature=temperature, rng=rng)
     t0 = time.perf_counter()
     rids = [eng.submit(prompts[i].tolist(), gen_tokens) for i in range(b)]
     results = eng.drain(max_steps=8 * (b * gen_tokens + b))
@@ -67,10 +81,66 @@ def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
         out[i, :len(r)] = r
         n_gen += len(r)
     preempted = sum(req.preempted for req in eng._requests.values())
-    return out, {"decode_s": decode_s,
+    return out, {"prefill_s": 0.0, "decode_s": decode_s,
                  "tokens_per_s": n_gen / max(decode_s, 1e-9),
                  "engine": True, "preempted": preempted,
                  "page_size": eng.page_size, "device": str(model.device)}
+
+
+def _generate_static(model: LM, params, prompts: np.ndarray, *,
+                     gen_tokens: int, eos_id: int | None = None,
+                     greedy: bool = True, rng=None,
+                     max_len: int | None = None, temperature: float = 1.0,
+                     pad_id: int | None = None):
+    """Static batching: one prefill, then ``greedy_step`` (or
+    ``decode_step`` + :func:`sample`) over a contiguous cache, every row in
+    lockstep. The first token comes from the prefill's greedy argmax, as in
+    the JAX loop. The serving path for models the engine cannot page."""
+    cfg = model.cfg
+    b, plen = prompts.shape
+    max_len = max_len or (plen + gen_tokens)
+    if model.has_positional_cache and plen + gen_tokens > max_len:
+        raise ValueError(
+            f"kv cache overflow: prompt_len {plen} + gen_tokens {gen_tokens} "
+            f"= {plen + gen_tokens} tokens but max_len={max_len}; raise "
+            "max_len (rolling-window archs are exempt: their caches rotate)")
+    if temperature <= 0:
+        raise ValueError(f"temperature must be > 0, got {temperature}")
+    if not greedy and rng is None:
+        rng = torch.Generator(device=model.device).manual_seed(0)
+    pad = _pad_token(eos_id, pad_id)
+    toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                           device=model.device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, toks, max_len=max_len)
+        tok = model.greedy_token(logits).cpu().numpy()
+    prefill_s = time.perf_counter() - t0
+
+    out = np.zeros((b, gen_tokens), np.int32)
+    done = np.zeros((b,), bool)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(gen_tokens):
+            out[:, t] = np.where(done, pad, tok)
+            if eos_id is not None:
+                done |= tok == eos_id
+                if done.all():
+                    out = out[:, :t + 1]
+                    break
+            step_in = torch.from_numpy(tok.reshape(b, 1).astype(np.int64))
+            step_in = step_in.to(model.device)
+            if greedy:
+                nxt, _, cache = model.greedy_step(params, step_in, cache)
+            else:
+                logits, cache = model.decode_step(params, step_in, cache)
+                nxt = sample(logits, cfg.vocab_size, temperature, rng)
+            tok = nxt.cpu().numpy()
+    decode_s = time.perf_counter() - t0
+    n_gen = out.shape[1] * b
+    return out, {"prefill_s": prefill_s, "decode_s": decode_s,
+                 "tokens_per_s": n_gen / max(decode_s, 1e-9),
+                 "engine": False, "device": str(model.device)}
 
 
 def main(argv=None):
@@ -83,6 +153,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch versions)")
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "paged", "static"))
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="sample at this temperature (default: greedy)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -93,10 +167,16 @@ def main(argv=None):
     params = model.init(gen)
     prompts = np.random.RandomState(args.seed).randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
-    out, stats = generate(model, params, prompts, gen_tokens=args.gen)
-    print(f"[serve] paged-engine on {stats['device']} batch={args.batch} "
-          f"prompt={args.prompt_len} gen={out.shape[1]}: "
-          f"{stats['tokens_per_s']:.1f} tok/s")
+    greedy = args.temperature is None
+    rng = (None if greedy else
+           torch.Generator(device=model.device).manual_seed(args.seed))
+    out, stats = generate(model, params, prompts, gen_tokens=args.gen,
+                          engine=args.engine, greedy=greedy, rng=rng,
+                          temperature=1.0 if greedy else args.temperature)
+    path = "paged-engine" if stats["engine"] else "static"
+    print(f"[serve] {path} on {stats['device']} batch={args.batch} "
+          f"prompt={args.prompt_len} gen={out.shape[1]}: prefill "
+          f"{stats['prefill_s']:.3f}s, {stats['tokens_per_s']:.1f} tok/s")
     print("[serve] first row:", out[0, :16].tolist())
     return out
 

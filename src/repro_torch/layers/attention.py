@@ -1,11 +1,16 @@
-"""GQA attention (covers MHA/MQA): init, full-sequence forward, the
-contiguous prefill cache, and one-token decode over a paged KV pool.
+"""GQA attention (covers MHA/MQA/SWA): init, full-sequence forward, the
+contiguous (and rolling-window) cache, one-token decode against it, and
+one-token decode over a paged KV pool.
 
 Counterpart of the GQA half of ``repro.layers.attention``. Prefill runs
-``flash_attention`` and paged decode ``paged_decode_attention``; each is the
-CUDA kernel on a CUDA tensor and the plain version on the CPU. Sliding
-windows and prefix-LM masks are not ported yet (a later slice, with
-``flash_decode``); ``gqa_forward`` raises for them.
+``flash_attention`` (causal, optional sliding window), static decode
+``flash_decode`` (on positional and rotated caches alike) and paged decode ``paged_decode_attention``; each is
+the CUDA kernel on a CUDA tensor and the plain version on the CPU.
+Prefix-LM masks are not ported yet; ``gqa_forward`` raises for them.
+
+Decode takes the position ``pos`` as a host int (the model's ``cache["pos"]``)
+and writes the cache IN PLACE (JAX returns a new one), so a step never
+reads the device to place its write.
 """
 
 from __future__ import annotations
@@ -13,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_decode,
                                                  paged_decode_attention)
 
 from .common import dense_init
@@ -20,7 +26,7 @@ from .rope import apply_rope
 
 __all__ = [
     "gqa_init", "gqa_forward", "gqa_cache_init", "gqa_prefill_cache",
-    "gqa_paged_cache_init", "gqa_paged_decode",
+    "gqa_decode", "gqa_paged_cache_init", "gqa_paged_decode",
 ]
 
 
@@ -47,18 +53,19 @@ def _qkv(params, x, cfg):
 
 
 def gqa_forward(params, x, cfg, *, return_kv=False):
-    """Causal full-sequence (prefill) attention. x: (B, S, d_model)."""
-    if cfg.window or cfg.prefix_lm:
+    """Causal full-sequence (prefill) attention, windowed when
+    ``cfg.window``. x: (B, S, d_model)."""
+    if cfg.prefix_lm:
         raise NotImplementedError(
-            "gqa_forward: sliding-window and prefix-LM masks are not ported "
-            "to the Hopper prefill kernel yet")
+            "gqa_forward: prefix-LM masks are not ported to the Hopper "
+            "prefill kernel yet")
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     if cfg.pos_embed == "rope":
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True)
+    o = flash_attention(q, k, v, causal=True, window=cfg.window or None)
     y = o.transpose(1, 2).reshape(b, s, -1) @ params["wo"]
     if return_kv:
         return y, (k, v)
@@ -66,22 +73,69 @@ def gqa_forward(params, x, cfg, *, return_kv=False):
 
 
 def gqa_cache_init(cfg, batch, max_len, dtype, device):
+    """A contiguous cache of ``max_len`` slots (``min(max_len, window)`` for
+    a rolling window, whose ``slot_pos`` (m,) i32 maps slots to absolute
+    positions, -1 = empty)."""
     hk, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
-        "k": torch.zeros((batch, hk, max_len, hd), dtype=dtype, device=device),
-        "v": torch.zeros((batch, hk, max_len, hd), dtype=dtype, device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    m = min(max_len, cfg.window) if cfg.window else max_len
+    cache = {
+        "k": torch.zeros((batch, hk, m, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, hk, m, hd), dtype=dtype, device=device),
     }
+    if cfg.window:
+        cache["slot_pos"] = torch.full((m,), -1, dtype=torch.int32,
+                                       device=device)
+    return cache
 
 
 def gqa_prefill_cache(cache, k, v, cfg):
-    """Fill ``cache`` (updated in place) from prefill k/v (B, Hk, S, hd)."""
+    """Fill ``cache`` (updated in place) from prefill k/v (B, Hk, S, hd). A
+    rolling window shorter than S keeps the last m tokens at slot pos % m."""
     s = k.shape[2]
-    n = min(s, cache["k"].shape[2])
+    m = cache["k"].shape[2]
+    if cfg.window and s > m:
+        last_pos = torch.arange(s - m, s, device=k.device)
+        slots = last_pos % m
+        cache["k"][:, :, slots] = k[:, :, -m:].to(cache["k"].dtype)
+        cache["v"][:, :, slots] = v[:, :, -m:].to(cache["v"].dtype)
+        cache["slot_pos"][slots] = last_pos.to(torch.int32)
+        return cache
+    n = min(s, m)
     cache["k"][:, :, :n] = k[:, :, :n]
     cache["v"][:, :, :n] = v[:, :, :n]
-    cache["pos"].fill_(s)
+    if cfg.window:
+        cache["slot_pos"][:n] = torch.arange(n, dtype=torch.int32,
+                                             device=k.device)
     return cache
+
+
+def gqa_decode(params, x, cache, cfg, *, pos: int):
+    """One-token decode at position ``pos`` (a host int: the tokens already
+    in the cache). x: (B, 1, d_model). Writes the new k/v into ``cache`` in
+    place: at slot ``pos % m`` of a rolling window (stamping ``slot_pos``),
+    else at ``min(pos, m - 1)`` (decoding past the cache is rejected by the
+    model before it gets here). Returns (y, cache)."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k1, v1 = _qkv(params, x, cfg)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k1 = apply_rope(k1, pos, cfg.rope_theta)
+    m = cache["k"].shape[2]
+    if cfg.window:
+        write = pos % m
+        cache["slot_pos"][write] = pos
+        kv_len, slot_pos = pos + 1, cache["slot_pos"]
+    else:
+        write = min(pos, m - 1)
+        kv_len, slot_pos = write + 1, None
+    cache["k"][:, :, write] = k1[:, :, 0]
+    cache["v"][:, :, write] = v1[:, :, 0]
+    o = flash_decode(q, cache["k"], cache["v"], kv_len=kv_len,
+                     window=cfg.window or None, slot_pos=slot_pos,
+                     sm_scale=hd ** -0.5)
+    y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+    return y, cache
 
 
 def gqa_paged_cache_init(cfg, num_pages, page_size, dtype, device):

@@ -1,4 +1,4 @@
-"""Shared layer utilities: init, RMSNorm, SiLU.
+"""Shared layer utilities: init, RMSNorm, SiLU, softplus.
 
 ``rmsnorm`` is the kernel wrapper itself, which picks the Triton kernel for
 a CUDA tensor and the plain version for a CPU tensor; there is no backend
@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.kernels.rmsnorm import rmsnorm
 
-__all__ = ["dense_init", "rmsnorm", "silu"]
+__all__ = ["dense_init", "rmsnorm", "silu", "softplus"]
 
 
 def dense_init(gen, shape, dtype, device, *, n=None, scale=None):
@@ -28,3 +28,8 @@ def dense_init(gen, shape, dtype, device, *, n=None, scale=None):
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def softplus(x):
+    """log(1 + exp(x)) as ``jax.nn.softplus`` computes it (no threshold)."""
+    return torch.log1p(torch.exp(-x.abs())) + x.clamp_min(0)

@@ -1,10 +1,11 @@
-"""Rotary position embedding (split-half rotation, f32 math)."""
+"""Rotary (split-half rotation, f32 math) and sinusoidal position
+embeddings."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["rope_freqs", "apply_rope"]
+__all__ = ["rope_freqs", "apply_rope", "sinusoidal_embedding"]
 
 
 def rope_freqs(head_dim: int, theta: float, device=None):
@@ -23,3 +24,14 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_embedding(positions, d_model: int):
+    """(S,) positions -> (S, d_model) f32: sin over the first half of the
+    features, cos over the second (the classic transformer sinusoids)."""
+    pos = torch.as_tensor(positions).to(torch.float32)[..., None]
+    half = d_model // 2
+    freqs = torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
+        half, dtype=torch.float32) / half).to(pos.device)
+    ang = pos * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

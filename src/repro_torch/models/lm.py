@@ -1,11 +1,15 @@
-"""Decoder LM, the dense GQA subset of ``repro.models.lm``.
+"""Decoder LM: the dense GQA (rope or sinusoidal positions, optional
+sliding window, optional audio-conditioning prefix) and mamba1 subsets of
+``repro.models.lm``.
 
 Parameters are a plain dict of tensors with the JAX package's tree paths and
 shapes: ``embed`` (Vpad, d), ``final_norm`` (d,), ``head`` (d, Vpad) when
 untied, and ``stacks`` (one per program entry) whose leaves carry the
 stacked ``(n, ...)`` layer axis. The layer loop is a Python loop over that
-axis (JAX scans it). Caches are dicts of tensors too; the paged decode step
-updates its cache IN PLACE and returns it (JAX returns a new one).
+axis (JAX scans it). Caches are dicts of tensors too; the decode steps
+update their cache IN PLACE and return it (JAX returns a new one). A static
+cache's ``"pos"`` is a host int, so a decode step checks its capacity and
+places its writes without reading the device.
 
 Every model runs on the CUDA card unless ``device="cpu"`` is asked for; on
 the card the norms, attention and LM head go through the Hopper kernels, on
@@ -28,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.lm_head import lm_head_ce, lm_head_logits
 from repro_torch.layers import blocks
 from repro_torch.layers.common import dense_init, rmsnorm
+from repro_torch.layers.rope import sinusoidal_embedding
 
 __all__ = ["LM", "StackSpec", "build_program", "pad_vocab"]
 
@@ -39,18 +44,28 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class StackSpec:
-    kind: str           # dense (the only kind ported so far)
+    kind: str           # dense | mamba1 (the kinds ported so far)
     n: int
 
 
 def build_program(cfg: ArchConfig) -> list[StackSpec]:
+    if cfg.ssm_type == "mamba1" and not cfg.shared_attn_every:
+        return [StackSpec("mamba1", cfg.n_layers)]
     if (cfg.shared_attn_every or cfg.ssm_type or cfg.n_experts
-            or cfg.attn_type != "gqa" or cfg.frontend
-            or cfg.pos_embed != "rope" or cfg.embed_scale):
+            or cfg.attn_type != "gqa" or cfg.frontend not in ("", "audio_stub")
+            or cfg.pos_embed not in ("rope", "sinusoidal") or cfg.prefix_lm
+            or cfg.embed_scale):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA rope models are ported to PyTorch "
-            "so far (MoE, MLA, SSM, hybrids and frontends come later)")
+            f"{cfg.name}: only dense GQA models (rope or sinusoidal "
+            "positions, optional sliding window and audio prefix) and mamba1 "
+            "stacks are ported to PyTorch so far (MoE, MLA, mamba2, hybrids, "
+            "prefix-LM and embed scaling come later)")
     return [StackSpec("dense", cfg.n_layers)]
+
+
+_INIT = {"dense": blocks.tblock_init, "mamba1": blocks.mamba_block_init}
+_FORWARD = {"dense": blocks.tblock_forward,
+            "mamba1": blocks.mamba_block_forward}
 
 
 def _layer(tree, i):
@@ -97,7 +112,7 @@ class LM:
         if not cfg.tie_embeddings:
             params["head"] = dense_init(gen, (cfg.d_model, self.vpad), dtype,
                                         dev)
-        params["stacks"] = [blocks.tblock_init(gen, cfg, dtype, dev, n=s.n)
+        params["stacks"] = [_INIT[s.kind](gen, cfg, dtype, dev, n=s.n)
                             for s in self.program]
         return params
 
@@ -111,8 +126,19 @@ class LM:
         return count(params)
 
     # ----------------------------------------------------------- embed/head
-    def _embed(self, params, tokens):
-        return params["embed"][tokens.long()]
+    def _embed(self, params, tokens, prefix_embeddings=None, pos0=0):
+        """Token embeddings, after ``prefix_embeddings`` (B, P, d) when given
+        (the frontend stub's conditioning frames), plus sinusoidal positions
+        from ``pos0`` when the config asks for them."""
+        x = params["embed"][tokens.long()]
+        if prefix_embeddings is not None:
+            x = torch.cat([prefix_embeddings.to(x.dtype), x], dim=1)
+        if self.cfg.pos_embed == "sinusoidal":
+            pos = sinusoidal_embedding(
+                torch.arange(pos0, pos0 + x.shape[1], device=x.device),
+                self.cfg.d_model)
+            x = x + pos[None].to(x.dtype)
+        return x
 
     def _head(self, params):
         """The (d_model, Vpad) head matrix: for tied embeddings the view
@@ -128,22 +154,22 @@ class LM:
         return logits.reshape(b, s, self.vpad)
 
     # ------------------------------------------------------------- training
-    def _hidden_states(self, params, tokens):
+    def _hidden_states(self, params, tokens, prefix_embeddings=None):
         """Embed -> layer stacks -> final norm: the shared forward trunk.
-        Returns (hidden (B, S, d), aux (2,) f32); the dense program has no
-        MoE auxiliary losses, so aux is zero."""
+        Returns (hidden (B, P + S, d), aux (2,) f32); the ported programs
+        have no MoE auxiliary losses, so aux is zero."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, prefix_embeddings)
         for spec, sp in zip(self.program, params["stacks"]):
             for lp in _unstack(sp, spec.n):
-                x = blocks.tblock_forward(lp, x, cfg)
+                x = _FORWARD[spec.kind](lp, x, cfg)
         aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), aux
 
-    def forward(self, params, tokens):
-        """Full-sequence forward: (logits (B, S, Vpad) f32, aux). The LM-head
-        kernel has no backward, so the logits carry no gradient."""
-        x, aux = self._hidden_states(params, tokens)
+    def forward(self, params, tokens, prefix_embeddings=None):
+        """Full-sequence forward: (logits (B, P + S, Vpad) f32, aux). The
+        LM-head kernel has no backward, so the logits carry no gradient."""
+        x, aux = self._hidden_states(params, tokens, prefix_embeddings)
         with torch.no_grad():
             return self._logits(params, x), aux
 
@@ -171,37 +197,87 @@ class LM:
                 "silently train on padded-vocab logits; clean the batch")
 
     def loss(self, params, batch):
-        """Next-token CE of ``batch["tokens"]`` (B, S): (total, {"ce",
-        "moe_lb", "moe_z"}); for the dense program total == ce."""
+        """Next-token CE of ``batch["tokens"]`` (B, S) after the optional
+        ``batch["prefix_embeddings"]`` (B, P, d): (total, {"ce", "moe_lb",
+        "moe_z"}); for the ported programs total == ce."""
         tokens = batch["tokens"]
+        prefix = batch.get("prefix_embeddings")
+        p = prefix.shape[1] if prefix is not None else 0
         labels = tokens[:, 1:]
         self._check_labels(labels)
-        x, aux = self._hidden_states(params, tokens)
-        pred_x = x[:, :-1] if x.shape[1] > 1 else x
+        x, aux = self._hidden_states(params, tokens, prefix)
+        pred_x = x[:, p:-1] if x.shape[1] > p + 1 else x[:, p:]
         ce = self._fused_ce(params, pred_x, labels)
         lb, z = aux[0], aux[1]
         nl = max(sum(s.n for s in self.program), 1)
         total = ce + (0.02 * lb + 1e-3 * z) / nl
         return total, {"ce": ce, "moe_lb": lb, "moe_z": z}
 
+    # ---------------------------------------------------------------- cache
+    def init_cache(self, batch, max_len, dtype=None):
+        """Empty static caches for ``batch`` sequences of up to ``max_len``
+        tokens: per stack, k/v (n, B, Hk, m, hd) (m = min(max_len, window)
+        for a rolling window, with slot_pos (n, m)), or the mamba conv tail
+        (n, B, K-1, di) and state (n, B, di, N) f32."""
+        dtype = dtype or self.dtype
+        stacks = []
+        for spec in self.program:
+            if spec.kind == "mamba1":
+                single = blocks.mamba_block_cache_init(self.cfg, batch, dtype,
+                                                       "meta")
+            else:
+                single = blocks.tblock_cache_init(self.cfg, batch, max_len,
+                                                  dtype, "meta")
+            stacks.append({k: (torch.full((spec.n, *v.shape), -1,
+                                          dtype=v.dtype, device=self.device)
+                               if k == "slot_pos" else
+                               torch.zeros((spec.n, *v.shape), dtype=v.dtype,
+                                           device=self.device))
+                           for k, v in single.items()})
+        return {"pos": 0, "stacks": stacks}
+
+    @property
+    def has_positional_cache(self) -> bool:
+        """True when decode positions are bounded by the cache's max_len:
+        attention stacks without a rolling window (rolling caches rotate and
+        never overflow; SSM stacks carry O(1) state)."""
+        return (not self.cfg.window
+                and any(s.kind == "dense" for s in self.program))
+
+    def cache_capacity(self, cache) -> int | None:
+        """Token positions the attention caches can hold, or None when
+        unbounded (rolling-window or attention-free programs)."""
+        if not self.has_positional_cache:
+            return None
+        caps = [sc["k"].shape[3] for spec, sc in
+                zip(self.program, cache["stacks"]) if spec.kind == "dense"]
+        return min(caps) if caps else None
+
     # -------------------------------------------------------------- prefill
-    def prefill(self, params, tokens, max_len=None):
-        """tokens (B, S) -> (last-token logits (B, Vpad) f32, cache) with a
-        contiguous cache per stack: k/v (n, B, Hk, max_len, hd)."""
+    def prefill(self, params, tokens, prefix_embeddings=None, max_len=None):
+        """tokens (B, S) after optional ``prefix_embeddings`` (B, P, d) ->
+        (last-token logits (B, Vpad) f32, cache): per stack a contiguous
+        cache k/v (n, B, Hk, m, hd) of m = max_len slots (a rolling window's
+        m = min(max_len, window), with slot_pos), or the mamba conv tail and
+        final state. ``cache["pos"]`` = P + S, a host int."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, prefix_embeddings)
         s = x.shape[1]
         max_len = max_len or s
-        if s > max_len:
+        if self.has_positional_cache and s > max_len:
             raise ValueError(
                 f"kv cache overflow: prefilling {s} tokens into a cache of "
-                f"max_len={max_len}; raise max_len")
+                f"max_len={max_len}; decode would attend truncated history, "
+                "raise max_len")
         caches = []
         for spec, sp in zip(self.program, params["stacks"]):
             layer_caches = []
             for i in range(spec.n):
-                x, c = blocks.tblock_prefill(_layer(sp, i), x, cfg,
-                                             max_len=max_len)
+                if spec.kind == "mamba1":
+                    x, c = blocks.mamba_block_prefill(_layer(sp, i), x, cfg)
+                else:
+                    x, c = blocks.tblock_prefill(_layer(sp, i), x, cfg,
+                                                 max_len=max_len)
                 layer_caches.append(c)
             caches.append(_stack(layer_caches))
         x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
@@ -211,6 +287,51 @@ class LM:
     def greedy_token(self, logits):
         return torch.argmax(logits[..., :self.cfg.vocab_size], dim=-1)
 
+    # ------------------------------------------------------- static decoding
+    def _decode_hidden(self, params, tokens, cache):
+        """One decode step up to the final norm: tokens (B, 1) -> hidden
+        (B, 1, d); ``cache`` is updated in place and its ``pos`` advanced.
+        Decoding past a positional cache is an error, not a silent
+        overwrite of the last slot."""
+        cfg = self.cfg
+        pos = int(cache["pos"])
+        cap = self.cache_capacity(cache)
+        if cap is not None and pos >= cap:
+            raise ValueError(
+                f"kv cache overflow: decode at position {pos} but the cache "
+                f"holds {cap} tokens; grow max_len at prefill/init_cache (the "
+                "write would overwrite the last slot and attend corrupted "
+                "history)")
+        x = self._embed(params, tokens, pos0=pos)
+        for spec, sp, sc in zip(self.program, params["stacks"],
+                                cache["stacks"]):
+            for i in range(spec.n):
+                if spec.kind == "mamba1":
+                    x, _ = blocks.mamba_block_decode(_layer(sp, i), x,
+                                                     _layer(sc, i), cfg)
+                else:
+                    x, _ = blocks.tblock_decode(_layer(sp, i), x,
+                                                _layer(sc, i), cfg, pos=pos)
+        cache["pos"] = pos + 1
+        return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), cache
+
+    def decode_step(self, params, tokens, cache):
+        """One token for every sequence. tokens: (B, 1). Returns (logits
+        (B, Vpad) f32, cache)."""
+        x, cache = self._decode_hidden(params, tokens, cache)
+        return self._logits(params, x)[:, 0], cache
+
+    def greedy_step(self, params, tokens, cache):
+        """One greedy decode step: tokens (B, 1) -> (next (B,) i32, logits
+        (B, Vpad) f32, cache); the argmax comes out of the fused LM-head
+        pass."""
+        x, cache = self._decode_hidden(params, tokens, cache)
+        b, _, d = x.shape
+        logits, _m, arg = lm_head_logits.raw(
+            x.reshape(b, d), self._head(params).to(x.dtype),
+            vocab=self.cfg.vocab_size)
+        return arg[:, 0], logits, cache
+
     # -------------------------------------------------------- paged decoding
     @property
     def pageable(self) -> bool:
@@ -218,7 +339,7 @@ class LM:
         GQA stacks with rope positions and no rolling window."""
         cfg = self.cfg
         return (all(s.kind == "dense" for s in self.program)
-                and cfg.attn_type == "gqa" and not cfg.window
+                and cfg.attn_type != "mla" and not cfg.window
                 and cfg.pos_embed == "rope")
 
     def init_paged_cache(self, batch, num_pages, page_size, nseq_pages):

@@ -1,8 +1,8 @@
-"""Continuous-batching serving: page allocator, scheduler and the greedy
-:class:`Engine` over paged KV pools."""
+"""Continuous-batching serving: page allocator, scheduler and the
+:class:`Engine` over paged KV pools (greedy or sampled)."""
 
-from .engine import Engine
+from .engine import Engine, sample
 from .pages import PageAllocator
 from .scheduler import Request, Scheduler
 
-__all__ = ["Engine", "PageAllocator", "Request", "Scheduler"]
+__all__ = ["Engine", "PageAllocator", "Request", "Scheduler", "sample"]

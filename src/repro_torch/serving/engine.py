@@ -1,5 +1,5 @@
-"""Continuous-batching greedy decode engine over paged KV caches (the
-counterpart of ``repro.serving.engine``).
+"""Continuous-batching decode engine over paged KV caches (the counterpart
+of ``repro.serving.engine``).
 
 One ``LM.paged_greedy_step`` runs over ``batch`` SLOTS every step, whatever
 mix of sequences occupies them; the :class:`Scheduler` retires finished
@@ -12,7 +12,9 @@ a jitted scatter instead).
 Token semantics match ``repro.serving.Engine``: the first emitted token
 comes from the prefill logits, every decode step emits the next, the EOS
 token itself is emitted before the sequence retires, and a sequence emits
-at most ``max_new`` tokens. Greedy only; sampling comes in a later slice.
+at most ``max_new`` tokens. ``greedy=False`` samples every token (the
+admission's too) from ``softmax(logits / temperature)`` with ``rng``, a
+``torch.Generator`` on the model's device.
 """
 
 from __future__ import annotations
@@ -24,16 +26,32 @@ from repro_torch.device import fit_block
 
 from .scheduler import Scheduler
 
-__all__ = ["Engine"]
+__all__ = ["Engine", "sample"]
+
+
+def sample(logits, vocab: int, temperature: float, rng: torch.Generator):
+    """One token per row drawn from ``softmax(logits[..., :vocab] / T)``
+    (what ``jax.random.categorical`` draws from), with the generator
+    ``rng`` on the logits' device. Returns a (rows,) int64 tensor."""
+    probs = torch.softmax(logits[..., :vocab].float() / temperature, dim=-1)
+    return torch.multinomial(probs.reshape(-1, vocab), 1,
+                             generator=rng).reshape(probs.shape[:-1])
 
 
 class Engine:
     def __init__(self, model, params, *, batch: int, max_len: int,
                  num_pages: int | None = None, page_size: int | None = None,
-                 eos_id: int | None = None):
+                 eos_id: int | None = None, greedy: bool = True,
+                 temperature: float = 1.0, rng=None):
         if not model.pageable:
             raise ValueError("Engine needs a pageable model (see LM.pageable)")
+        if temperature <= 0:
+            raise ValueError(f"temperature must be > 0, got {temperature}")
         self.model = model
+        self.greedy = greedy
+        self.temperature = float(temperature)
+        self._rng = (rng if rng is not None else
+                     torch.Generator(device=model.device).manual_seed(0))
         self.params = params
         self.batch = batch
         self.max_len = max_len
@@ -124,6 +142,10 @@ class Engine:
         self._slot_pages[slot] = list(pages)
 
     # ----------------------------------------------------------------- step
+    def _sample(self, logits):
+        return sample(logits, self.model.cfg.vocab_size, self.temperature,
+                      self._rng).cpu().numpy()
+
     def _emit(self, slot: int, tok: int, emitted: dict):
         req = self.sched.slots[slot]
         req.tokens.append(tok)
@@ -138,7 +160,10 @@ class Engine:
                             device=self.device)   # prompt + generated so far
         logits, pcache = self.model.prefill(self.params, toks)
         self._scatter_prefill(pcache, self.sched.pages.owned(req.rid), slot)
-        tok = int(self.model.greedy_token(logits[0]))
+        if self.greedy:
+            tok = int(self.model.greedy_token(logits[0]))
+        else:
+            tok = int(self._sample(logits)[0])
         self._pending[slot] = tok
         self._emit(slot, tok, emitted)
 
@@ -168,9 +193,9 @@ class Engine:
                     "too small for the front request")
             return emitted
         toks = torch.from_numpy(self._pending.reshape(-1, 1)).to(self.device)
-        nxt, _logits, self.cache = self.model.paged_greedy_step(
+        nxt, logits, self.cache = self.model.paged_greedy_step(
             self.params, toks, self.cache)
-        nxt = nxt.cpu().numpy()
+        nxt = nxt.cpu().numpy() if self.greedy else self._sample(logits)
         for slot in running:
             tok = int(nxt[slot])
             self._pending[slot] = tok

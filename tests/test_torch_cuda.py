@@ -1,11 +1,16 @@
 """The port's Hopper kernels against their plain PyTorch versions on the
 card, at small f32 shapes and their edge cases (tolerance 1e-4: f32 math
-with sums in another order; the app kernels use the app tests' 2e-5 for the
-FD step and 2e-4 of the largest magnitude for the SEM and DG contractions). Marked ``cuda``; without a card every test
-skips. Run them on the card with
+with sums in another order; bf16 cases 2e-2, one bf16 rounding of outputs
+near 1 plus the plain version's bf16 probabilities; the app kernels use the
+app tests' 2e-5 for the FD step and 2e-4 of the largest magnitude for the
+SEM and DG contractions), and the models that run them, card against CPU.
+Marked ``cuda``; without a card every test skips. Run them on the card
+with
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -17,17 +22,24 @@ from repro_torch.kernels import KERNELS, launch_counts, reset_launches
 from repro_torch.kernels.apps import (apply_ref, dg_surface, dg_volume, fd2d,
                                       fd2d_ref, sem_apply, surface_ref,
                                       volume_ref)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.configs import get_config, reduced
+from repro_torch.kernels.flash_attention import (decode_ref, flash_attention,
                                                  flash_attention_fwd,
                                                  flash_bwd, flash_bwd_ref,
-                                                 flash_delta, flash_delta_ref,
+                                                 flash_decode, flash_delta,
+                                                 flash_delta_ref,
                                                  flash_fwd_ref, mha_ref,
                                                  paged_decode_attention,
-                                                 paged_decode_ref)
+                                                 paged_decode_ref,
+                                                 rolling_slot_pos)
 from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
                                          lm_head_ce, lm_head_ce_stats_ref,
                                          lm_head_logits, lm_head_logits_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+from repro_torch.kernels.ssm_scan import (selective_scan_ref, ssm_scan,
+                                          ssm_scan_fwd, ssm_scan_state)
+from repro_torch.launch.serve import generate
+from repro_torch.models import LM, tree_to
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -218,6 +230,11 @@ def test_each_launch_counts_once(dev):
               _rnd(dev, 3, 3))
     qf = _rnd(dev, 2, 6, 3).abs() + 1
     dg_surface(qf, qf, qf, _rnd(dev, 3, 6))
+    k = _rnd(dev, 1, 2, 5, 32)
+    flash_decode(_rnd(dev, 1, 4, 1, 32), k, k, kv_len=3)
+    x = _rnd(dev, 1, 4, 8)
+    ssm_scan_fwd(x, x.abs(), -_rnd(dev, 8, 4).abs(), _rnd(dev, 1, 4, 4),
+                 _rnd(dev, 1, 4, 4), _rnd(dev, 8))
     assert launch_counts() == {name: 0 if name == "paged_decode" else 1
                                for name in KERNELS}
 
@@ -341,3 +358,214 @@ def test_app_drivers_on_card_match_cpu(dev):
     for _ in range(10):
         Qg, Qc = sw_g.step(Qg, 2e-4), sw_c.step(Qc, 2e-4)
     _close_rel(Qg.cpu(), Qc, APP_REL)
+
+
+# ---------------------------------------------------------------------------
+# the static path: flash_decode, ssm_scan, windowed prefill, head dim 128
+# ---------------------------------------------------------------------------
+
+def _tol(dtype, ref):
+    """f32: TOL. bf16: both sides round o to bf16 (one ulp apart, <= 2^-7
+    relative); the plain version rounds p to bf16 before p @ v, which 1%
+    of max|o| covers (o averages randn rows, so it is small)."""
+    if dtype == torch.float32:
+        return TOL
+    return dict(atol=0.01 * float(ref.float().abs().max()), rtol=2 ** -7)
+
+
+# (skv, kv_len, window, rotated after t tokens or None, g, d)
+@pytest.mark.parametrize("skv,kv_len,window,t,g,d", [
+    (77, 77, None, None, 1, 64), (77, 40, None, None, 4, 64),
+    (200, 150, 5, None, 4, 128), (33, 1, None, None, 8, 32),
+    (64, 50, 64, 50, 1, 64), (64, 100, 64, 100, 8, 128),
+    (40, 173, 64, 173, 4, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel(dev, skv, kv_len, window, t, g, d, dtype):
+    b, hk = 3, 2
+    q = _rnd(dev, b, 1, hk * g, d).transpose(1, 2).to(dtype)  # strided
+    k = _rnd(dev, b, hk, skv, d, seed=1).to(dtype)
+    v = _rnd(dev, b, hk, skv, d, seed=2).to(dtype)
+    sp = None if t is None else rolling_slot_pos(skv, t).to(dev)
+    kw = dict(kv_len=kv_len, window=window, slot_pos=sp)
+    ref = decode_ref(q, k, v, **kw)
+    torch.testing.assert_close(flash_decode(q, k, v, **kw), ref,
+                               **_tol(dtype, ref))
+
+
+def test_flash_decode_rejects_what_it_cannot_take(dev):
+    k = _rnd(dev, 1, 1, 8, 128)
+    with pytest.raises(ValueError, match="group"):
+        flash_decode(_rnd(dev, 1, 16, 1, 128), k, k)       # g * d > 1024
+    k48 = _rnd(dev, 1, 1, 8, 48)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_decode(_rnd(dev, 1, 2, 1, 48), k48, k48)
+    ks = _rnd(dev, 1, 1, 8, 128)[..., :64]                 # rows of 128
+    with pytest.raises(ValueError, match="rows"):
+        flash_decode(_rnd(dev, 1, 2, 1, 64), ks, ks)
+    sp = torch.zeros(5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="slot_pos"):
+        flash_decode(_rnd(dev, 1, 2, 1, 32), k[..., :32].contiguous(),
+                     k[..., :32].contiguous(), slot_pos=sp)
+    assert (flash_decode(_rnd(dev, 1, 4, 1, 32), k[..., :32].contiguous(),
+                         k[..., :32].contiguous(), kv_len=4,
+                         slot_pos=torch.full((8,), -1, dtype=torch.int32,
+                                             device=dev)) == 0).all()
+
+
+@pytest.mark.parametrize("bt,L,dm,n", [(3, 77, 100, 16), (1, 200, 64, 8),
+                                       (2, 5, 33, 4)])
+def test_ssm_scan_kernel(dev, bt, L, dm, n):
+    x = _rnd(dev, bt, L, dm)
+    delta = torch.nn.functional.softplus(_rnd(dev, bt, L, dm, seed=1)) * 0.1
+    A = -(_rnd(dev, dm, n, seed=2).abs() + 0.1)
+    B, C = _rnd(dev, bt, L, n, seed=3), _rnd(dev, bt, L, n, seed=4)
+    D, h0 = _rnd(dev, dm, seed=5), _rnd(dev, bt, dm, n, seed=6)
+    for h in (h0, None):
+        y, hT = ssm_scan_fwd(x, delta, A, B, C, D, h0=h)
+        ry, rhT = selective_scan_ref(x, delta, A, B, C, D, h0=h)
+        torch.testing.assert_close(y, ry, **TOL)
+        torch.testing.assert_close(hT, rhT, **TOL)
+
+
+def test_ssm_scan_kernel_bf16_with_f32_delta(dev):
+    """bf16 x, B, C with the f32 delta mamba1 feeds it: y rounds to bf16
+    once (2^-7 relative), hT stays f32; a bf16 delta is refused."""
+    bf = torch.bfloat16
+    x = _rnd(dev, 2, 70, 96).to(bf)
+    delta = torch.nn.functional.softplus(_rnd(dev, 2, 70, 96, seed=1) - 3)
+    A = -torch.arange(1, 17, dtype=torch.float32, device=dev).expand(
+        96, 16).contiguous()
+    B = _rnd(dev, 2, 70, 16, seed=2).to(bf)
+    C = _rnd(dev, 2, 70, 16, seed=3).to(bf)
+    D = torch.ones(96, device=dev)
+    y, hT = ssm_scan_fwd(x, delta, A, B, C, D)
+    ry, rhT = selective_scan_ref(x, delta, A, B, C, D)
+    assert y.dtype == bf and hT.dtype == torch.float32
+    torch.testing.assert_close(y, ry, atol=1e-2, rtol=2 ** -7)
+    torch.testing.assert_close(hT, rhT, atol=1e-3, rtol=1e-3)
+    with pytest.raises(ValueError, match="delta must be float32"):
+        ssm_scan_fwd(x, delta.to(bf), A, B, C, D)
+    with pytest.raises(ValueError, match="state size"):
+        ssm_scan_fwd(x, delta, A[:, :5].contiguous(), B[..., :5].contiguous(),
+                     C[..., :5].contiguous(), D)
+
+
+@pytest.mark.parametrize("sq,skv,h,hk,d,causal,window", [
+    (130, 130, 4, 2, 64, True, 40), (70, 200, 4, 2, 64, True, 33),
+    (130, 130, 8, 2, 64, False, 7), (70, 70, 4, 2, 128, True, None),
+    (130, 200, 8, 8, 128, True, 50)])
+def test_flash_fwd_kernel_window_and_head_dim_128(dev, sq, skv, h, hk, d,
+                                                  causal, window):
+    q = _rnd(dev, 2, sq, h, d).transpose(1, 2)
+    k, v = _rnd(dev, 2, hk, skv, d, seed=1), _rnd(dev, 2, hk, skv, d, seed=2)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    ro, rlse = flash_fwd_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o, ro, **TOL)
+    torch.testing.assert_close(lse, rlse, **TOL)
+
+
+@pytest.mark.parametrize("g,page", [(8, 16), (2, 5)])
+def test_paged_decode_kernel_head_dim_128(dev, g, page):
+    b, hk, d, nsp = 3, 2, 128, 4
+    npages = b * nsp + 1
+    q = _rnd(dev, b, hk * g, 1, d)
+    kp, vp = _rnd(dev, npages, hk, page, d, seed=1), \
+        _rnd(dev, npages, hk, page, d, seed=2)
+    table = (torch.arange(b * nsp, dtype=torch.int32) + 1).reshape(b, nsp)
+    kv_len = torch.tensor([3 * page + 2, page, 1], dtype=torch.int32)
+    pos = torch.full((npages, page), -1, dtype=torch.int32)
+    for bi in range(b):
+        for j in range(nsp):
+            p = torch.arange(j * page, (j + 1) * page, dtype=torch.int32)
+            pos[table[bi, j]] = torch.where(p < kv_len[bi], p, -1)
+    kw = dict(block_table=table.to(dev), kv_len=kv_len.to(dev),
+              pos_pages=pos.to(dev))
+    torch.testing.assert_close(paged_decode_attention(q, kp, vp, **kw),
+                               paged_decode_ref(q, kp, vp, **kw), **TOL)
+
+
+def test_attention_without_backward_kernel_refuses_gradients(dev):
+    """flash_bwd.cu has no window mask and takes head dims <= 64: on the
+    card a gradient through a windowed or d = 128 ``flash_attention`` raises
+    instead of coming out wrong; without a gradient both run the kernel."""
+    for window, d in ((4, 32), (None, 128)):
+        q = _rnd(dev, 1, 4, 9, d).requires_grad_()
+        k = _rnd(dev, 1, 2, 9, d, seed=1).requires_grad_()
+        with pytest.raises(NotImplementedError, match="backward"):
+            flash_attention(q, k, k, window=window)
+        with torch.no_grad():
+            o = flash_attention(q, k, k, window=window)
+        torch.testing.assert_close(o, mha_ref(q, k, k, window=window)
+                                   .detach(), **TOL)
+
+
+def test_ssm_scan_gradients_on_cuda_match_cpu(dev):
+    """On the card ``ssm_scan`` runs the kernel forward and differentiates
+    its plain version: gradients equal the CPU's."""
+    x = _rnd(dev, 2, 20, 8)
+    delta = torch.nn.functional.softplus(_rnd(dev, 2, 20, 8, seed=1)) * 0.1
+    args = [x, delta, -(_rnd(dev, 8, 4, seed=2).abs() + 0.1),
+            _rnd(dev, 2, 20, 4, seed=3), _rnd(dev, 2, 20, 4, seed=4),
+            _rnd(dev, 8, seed=5)]
+    gy = _rnd(dev, 2, 20, 8, seed=6)
+    leaves = [a.clone().requires_grad_() for a in args]
+    reset_launches()
+    got = torch.autograd.grad(ssm_scan(*leaves), leaves, gy)
+    assert launch_counts()["ssm_scan"] == 1
+    cpu = [a.detach().cpu().requires_grad_() for a in args]
+    want = torch.autograd.grad(ssm_scan(*cpu), cpu, gy.cpu())
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b_, **TOL)
+    # the state-returning form a prefill uses, from a given h0
+    h0, ghT = _rnd(dev, 2, 8, 4, seed=7), _rnd(dev, 2, 8, 4, seed=8)
+    leaves.append(h0.clone().requires_grad_())
+    got = torch.autograd.grad(ssm_scan_state(*leaves[:6], h0=leaves[6]),
+                              leaves, (gy, ghT))
+    cpu.append(h0.cpu().requires_grad_())
+    want = torch.autograd.grad(ssm_scan_state(*cpu[:6], h0=cpu[6]), cpu,
+                               (gy.cpu(), ghT.cpu()))
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b_, **TOL)
+
+
+def _card_and_cpu(cfg, seed=0):
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg)
+    p = cpu.init(torch.Generator().manual_seed(seed))
+    return cpu, p, gpu, tree_to(p, gpu.device)
+
+
+def test_internlm2_head_dim_128_serves_on_card_like_cpu(dev):
+    """A 2-layer internlm2_1_8b at its widths (head_dim 128) in f32:
+    prefill logits and the engine's tokens on the card match the CPU."""
+    cfg = dataclasses.replace(get_config("internlm2_1_8b"), n_layers=2,
+                              dtype="float32")
+    cpu, pc, gpu, pg = _card_and_cpu(cfg)
+    prompts = np.random.RandomState(0).randint(1, cfg.vocab_size, (2, 20))
+    toks = torch.from_numpy(prompts)
+    lc, _ = cpu.prefill(pc, toks)
+    lg, _ = gpu.prefill(pg, toks.to(dev))
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+    reset_launches()
+    out_g, stats = generate(gpu, pg, prompts, gen_tokens=6, page_size=8)
+    assert stats["engine"] and launch_counts()["paged_decode"] > 0
+    out_c, _ = generate(cpu, pc, prompts, gen_tokens=6, page_size=8)
+    np.testing.assert_array_equal(out_g, out_c)
+
+
+@pytest.mark.parametrize("arch,changes", [("musicgen_medium", {}),
+                                          ("falcon_mamba_7b", {}),
+                                          ("llama3_2_1b", dict(window=8))])
+def test_static_generate_on_card_matches_cpu(dev, arch, changes):
+    """The reduced unpageable models through ``generate`` on the card (the
+    static path, flash_decode or ssm_scan launched) give the CPU's tokens."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), **changes)
+    cpu, pc, gpu, pg = _card_and_cpu(cfg, seed=1)
+    prompts = np.random.RandomState(1).randint(0, cfg.vocab_size, (3, 12))
+    reset_launches()
+    out_g, stats = generate(gpu, pg, prompts, gen_tokens=10)
+    counts = launch_counts()
+    assert not stats["engine"]
+    kernel = "ssm_scan" if cfg.ssm_type else "flash_decode"
+    assert counts[kernel] == cfg.n_layers * (1 if cfg.ssm_type else 10)
+    out_c, _ = generate(cpu, pc, prompts, gen_tokens=10)
+    np.testing.assert_array_equal(out_g, out_c)

@@ -204,8 +204,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v2_lite",
-                                  "falcon_mamba_7b", "zamba2_7b",
-                                  "musicgen_medium", "paligemma_3b"])
+                                  "zamba2_7b", "paligemma_3b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="dense GQA"):
         LM(reduced(get_config(arch)), device="cpu")
+
+
+@pytest.mark.parametrize("arch,kinds,pageable", [
+    ("llama3_2_1b", ["dense"], True), ("internlm2_20b", ["dense"], True),
+    ("granite_3_8b", ["dense"], True), ("musicgen_medium", ["dense"], False),
+    ("falcon_mamba_7b", ["mamba1"], False)])
+def test_build_program_admits_the_ported_architectures(arch, kinds,
+                                                       pageable):
+    """The program equals the JAX package's, and the paged engine takes
+    exactly the models the JAX ``LM.pageable`` admits."""
+    tm, jm = LM(reduced(get_config(arch)), device="cpu"), JaxLM(
+        jax_reduced(jax_get_config(arch)))
+    assert [s.kind for s in tm.program] == kinds == [
+        s.kind for s in jm.program]
+    assert [s.n for s in tm.program] == [s.n for s in jm.program]
+    assert tm.pageable == jm.pageable == pageable

@@ -108,6 +108,8 @@ def test_engine_default_page_size(pair):
 # ---------------------------------------------------------------------------
 
 def test_generate_pads_after_eos_and_raises_for_unpageable(pair):
+    """EOS padding on the engine; a windowed model (unpageable) is served
+    by the static path instead, and forcing the engine on it raises."""
     tm, tp, _, _ = pair
     prompts = np.random.RandomState(4).randint(
         0, tm.cfg.vocab_size, (2, 5)).astype(np.int32)
@@ -119,8 +121,11 @@ def test_generate_pads_after_eos_and_raises_for_unpageable(pair):
     assert out[0, stop] == eos and (out[0, stop + 1:] == 0).all()
     windowed = LM(dataclasses.replace(tm.cfg, window=8), device="cpu")
     assert not windowed.pageable
-    with pytest.raises(NotImplementedError, match="paged"):
-        generate(windowed, tp, prompts, gen_tokens=2)
+    out, stats = generate(windowed, tp, prompts, gen_tokens=12)
+    assert not stats["engine"] and out.shape == (2, 12)
+    assert ((out >= 0) & (out < tm.cfg.vocab_size)).all()
+    with pytest.raises(ValueError, match="pageable"):
+        generate(windowed, tp, prompts, gen_tokens=2, engine="paged")
 
 
 # ---------------------------------------------------------------------------
@@ -213,6 +218,14 @@ def test_cpu_step_loads_no_jax_module():
         "out = main(['--reduced', '--device', 'cpu', '--steps', '2', "
         "'--global-batch', '2', '--seq-len', '8'])\n"
         "assert len(out['history']) == 2\n"
+        "for arch in ('musicgen_medium', 'falcon_mamba_7b'):\n"
+        "    m = LM(reduced(get_config(arch)), device='cpu')\n"
+        "    p = m.init(torch.Generator().manual_seed(0))\n"
+        "    _, c = m.prefill(p, torch.ones((2, 5), dtype=torch.long), "
+        "max_len=8)\n"
+        "    nxt, _, c = m.greedy_step(p, torch.ones((2, 1), "
+        "dtype=torch.long), c)\n"
+        "    assert c['pos'] == 6 and nxt.shape == (2,)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
