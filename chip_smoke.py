@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-GPU: builds the port's fourteen hand-written Hopper kernels from ``src/``,
-holds each against its plain PyTorch version, serves ``llama3_2_1b``
-through the continuous-batching engine, trains it through ``TrainLoop``,
-runs the paper's FD, SEM and DG apps at full size, serves
+GPU: builds the port's seventeen hand-written Hopper kernels from
+``src/``, holds each against its plain PyTorch version, serves
+``llama3_2_1b`` through the continuous-batching engine, trains it through
+``TrainLoop``, runs the paper's FD, SEM and DG apps at full size, serves
 ``musicgen_medium`` and ``falcon_mamba_7b`` through the static-batch path,
-and times each kernel.
+runs sequence-parallel ring attention at ``llama3_2_1b``'s widths and the
+blocked matmul op, and times each kernel.
 
   python3 chip_smoke.py
 
@@ -17,7 +18,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
    max|ref| for SEM/DG; flash_decode on positional and rotated caches,
    ssm_scan at ragged L and dm, flash_fwd with a window and at head dim
-   128, paged decode at 128), bf16 at the main paths' full-width shapes and f32
+   128, paged decode at 128; the ring step forward and backward at ragged
+   shard and chunk lengths, GQA, window and prefix masks and a chunk wholly
+   after its shard; matmul at ragged M/N/K, out_dtype and K == 0), bf16 at
+   the main paths' full-width shapes (the ring kernels at every launch
+   shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
    DG kernels also on the apps path's own state, both versions against the
    f64 result within the f32 rounding bound of their summed terms);
@@ -69,7 +74,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 12. the full 64-layer bf16 falcon_mamba_7b through ``generate`` (4 prompts
     of 512 tokens, 32 new; ssm_scan exactly 64, once per layer of the
     prefill), its decode step's profile, and ``forward`` on B = 1, S = 2048
-    (ssm_scan exactly 64) with its last logits against ``prefill``'s.
+    (ssm_scan exactly 64) with its last logits against ``prefill``'s;
+13. the ring path at llama3_2_1b's attention widths (B = 1, H = 32,
+    Hk = 8, d = 64, S = 16384, bf16): the local ``ring_flash_attention``
+    over 4 steps and the distributed schedule replayed rank by rank for 4
+    ranks (``ring_schedule_replay``), forward and gradients, both against
+    the port's ``flash_attention`` (each step kernel launched exactly
+    4 + 16 times); then ``matmul`` at 4096 x 2048 @ 2048 x 8192 in bf16
+    (one launch) against its plain version. The multi-rank ring over
+    ``torch.distributed`` needs two cards and is held on the CPU only
+    (``tests/test_torch_ring.py``, gloo).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -124,12 +138,19 @@ KERNEL_INFO = {
                      "src/repro/kernels/flash_attention/kernel.py:356"),
     "ssm_scan": ("cuda", "src/repro_torch/csrc/ssm_scan.cu",
                  "src/repro/kernels/ssm_scan/kernel.py:26"),
+    "ring_flash_fwd": ("cuda", "src/repro_torch/csrc/ring_flash.cu",
+                       "src/repro/kernels/flash_attention/kernel.py:577"),
+    "ring_flash_bwd": ("cuda", "src/repro_torch/csrc/ring_flash.cu",
+                       "src/repro/kernels/flash_attention/kernel.py:690"),
+    "matmul": ("cuda", "src/repro_torch/csrc/matmul.cu",
+               "src/repro/kernels/matmul/kernel.py:20"),
 }
 SERVE_KERNELS = ("rmsnorm", "flash_fwd", "paged_decode", "lm_head")
 TRAIN_KERNELS = ("lm_head_ce", "lm_head_bwd", "flash_delta", "flash_bwd")
 # the training main path: llama3_2_1b at global batch 4 x seq_len 1024
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
 APP_KERNELS = ("fd2d", "sem_apply", "dg_volume", "dg_surface")
+RING_KERNELS = ("ring_flash_fwd", "ring_flash_bwd", "matmul")
 # the apps main path: the FD wave on 8192^2 (radius 4, 200 steps), the SEM
 # operator on 32^3 elements of N = 7 (each apply timed over SEM_REPEATS
 # calls), the DG solver on 2 x 256^2 triangles of N = 5 (100 LSERK steps)
@@ -141,6 +162,11 @@ DG_NX, DG_N, DG_STEPS = 256, 5, 100
 # B = 1, S = 2048
 MG_BATCH, MG_PROMPT, MG_GEN = 8, 512, 64
 FM_BATCH, FM_PROMPT, FM_GEN, FM_FWD_SEQ = 4, 512, 32, 2048
+# the ring path: llama3_2_1b's attention (B = 1, H = 32, Hk = 8, d = 64)
+# over 16384 tokens in 4 steps (4 ranks when replayed); matmul at the MLP's
+# up projection of 4096 tokens (d 2048 -> d_ff 8192)
+RING_SEQ, RING_STEPS = 16384, 4
+MM_SHAPE = (4096, 2048, 8192)
 
 
 def log(msg):
@@ -151,7 +177,7 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def check_close(name, got, ref, *, atol, rtol):
+def check_close(name, got, ref, *, atol, rtol, quiet=False):
     import torch
 
     got, ref = got.float(), ref.float()
@@ -165,15 +191,46 @@ def check_close(name, got, ref, *, atol, rtol):
     if bad.any():
         fail(f"{name}: {int(bad.sum())} of {err.numel()} elements outside "
              f"atol={atol} rtol={rtol} (max |err| {worst:.3e})")
-    log(f"[check] {name}: max|err| {worst:.3e} (atol {atol}, rtol {rtol})")
+    if not quiet:
+        log(f"[check] {name}: max|err| {worst:.3e} (atol {atol}, "
+            f"rtol {rtol})")
     return worst
 
 
-def check_rel(name, got, ref, rel):
+def check_rel(name, got, ref, rel, quiet=False):
     """check_close with atol = rel * max|ref| and rtol = rel: for outputs
     whose error is a sum-order effect that scales with their magnitude."""
     scale = float(ref.float().abs().max())
-    return check_close(name, got, ref, atol=rel * scale, rtol=rel)
+    return check_close(name, got, ref, atol=rel * scale, rtol=rel,
+                       quiet=quiet)
+
+
+def check_rows(name, got, ref, rel, quiet=False):
+    """Each element within ``rel`` times the largest |ref| of its row (the
+    last dim): for attention's o, whose rows differ in scale with the keys
+    they see (|o| ~ sqrt(e / keys) for randn inputs) and round to bf16 each
+    on its own scale. Returns (max |err|, max err / row max)."""
+    import torch
+
+    got, ref = got.float(), ref.float()
+    if got.shape != ref.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{name}: non-finite values")
+    err = (got - ref).abs()
+    scale = ref.abs().amax(-1, keepdim=True)
+    worst = float(err.max()) if err.numel() else 0.0
+    ratio = (float(torch.where(err == 0, 0.0, err / scale).max())
+             if err.numel() else 0.0)
+    bad = err > rel * scale
+    if bad.any():
+        fail(f"{name}: {int(bad.sum())} of {err.numel()} elements outside "
+             f"{rel:.4g} x their row's max|ref| (max |err| {worst:.3e}, "
+             f"max err / row max {ratio:.3e})")
+    if not quiet:
+        log(f"[check] {name}: max|err| {worst:.3e}, max err / row max "
+            f"{ratio:.3e} (limit {rel:.4g})")
+    return worst, ratio
 
 
 def check_argmax(name, arg, logits_ref, vocab, gap_tol):
@@ -2068,6 +2125,419 @@ def time_static_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# the ring and matmul: phases 2a, 13 and 8 for ring_flash_fwd/bwd and matmul
+# ---------------------------------------------------------------------------
+
+def check_lse(name, got, ref, *, atol, rtol, quiet=False):
+    """lse with rows that saw no key: -inf in exactly the same rows, the
+    finite rest within the tolerance."""
+    import torch
+
+    dead, rdead = torch.isneginf(got), torch.isneginf(ref)
+    if not torch.equal(dead, rdead):
+        fail(f"{name}: -inf rows differ ({int(dead.sum())} vs "
+             f"{int(rdead.sum())})")
+    return check_close(name, torch.where(dead, 0.0, got),
+                       torch.where(rdead, 0.0, ref), atol=atol, rtol=rtol,
+                       quiet=quiet)
+
+
+def _offsets(dev, qs, ks):
+    import torch
+
+    return (torch.tensor([[qs]], dtype=torch.int32, device=dev),
+            torch.tensor([[ks]], dtype=torch.int32, device=dev))
+
+
+def small_f32_ring_checks(dev):
+    """ring_flash_fwd/bwd and matmul against their plain versions in f32 at
+    small shapes, tolerance 1e-4: ragged shard and chunk lengths, GQA
+    groups of 1-4, d 32/64 (128 forward only), chunks before, across and
+    wholly after the shard (every row masked: lse = -inf, o = 0 and zero
+    gradients), window and prefix masks; matmul at ragged M/N/K, with
+    out_dtype, and K == 0 (zeros, no launch)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.flash_attention import (flash_delta,
+                                                     ring_bwd_ref,
+                                                     ring_flash_bwd,
+                                                     ring_flash_fwd,
+                                                     ring_fwd_ref)
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+
+    tol = dict(atol=1e-4, rtol=1e-4)
+    g = torch.Generator(device=dev).manual_seed(40)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    # (sq, skv, h, hk, d, q_start, k_start, masks)
+    cases = ((70, 45, 4, 2, 32, 30, 50, {}),          # crosses the diagonal
+             (33, 40, 4, 4, 64, 100, 0, {}),          # wholly before
+             (33, 40, 8, 2, 64, 0, 64, {}),           # wholly after: dead
+             (97, 32, 8, 2, 64, 64, 96, {}),          # ragged, 5 x 32 chunks
+             (70, 45, 4, 1, 64, 60, 20, dict(window=30)),
+             (70, 45, 8, 2, 32, 10, 30, dict(prefix_len=35)),
+             (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
+             (70, 45, 8, 2, 128, 30, 50, dict(window=40)))
+    for sq, skv, h, hk, d, qs, ks, kw in cases:
+        q = rnd(2, sq, h, d).transpose(1, 2)          # strided, as projected
+        k, v = rnd(2, hk, skv, d), rnd(2, hk, skv, d)
+        qst, kst = _offsets(dev, qs, ks)
+        tag = (f"ring f32 sq={sq} skv={skv} h={h}/{hk} d={d} q0={qs} "
+               f"k0={ks} {kw}")
+        o, lse = ring_flash_fwd(q, k, v, qst, kst, **kw)
+        ro, rlse = ring_fwd_ref(q, k, v, qst, kst, **kw)
+        check_close(tag + " o", o, ro, **tol)
+        check_lse(tag + " lse", lse, rlse, **tol)
+        dead = ks > qs + sq - 1 and kw.get("causal", True)
+        if dead and not (torch.isneginf(lse).all() and (o == 0).all()):
+            fail(f"{tag}: a chunk after the shard must give lse = -inf, o = 0")
+        if d == 128:
+            continue
+        do = rnd(2, sq, h, d).transpose(1, 2)
+        delta = flash_delta(do, o) - rnd(2, h, sq)    # delta' = delta - g_lse
+        got = ring_flash_bwd(q, k, v, do, lse, delta, qst, kst, **kw)
+        want = ring_bwd_ref(q, k, v, do, rlse, delta, qst, kst, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check_close(f"{tag} {name}", a, b, **tol)
+        if dead and not all((t == 0).all() for t in got):
+            fail(f"{tag}: a dead chunk must give zero gradients")
+
+    for m, k, n, od in ((1, 1, 1, None), (100, 70, 130, None),
+                        (129, 257, 65, torch.bfloat16), (5, 1000, 3, None)):
+        a, b = rnd(m, k), rnd(k, n)
+        check_close(f"matmul f32 {m}x{k}x{n} out {od}", matmul(a, b,
+                    out_dtype=od), matmul_ref(a, b, out_dtype=od),
+                    atol=1e-4 if od is None else 2e-2,
+                    rtol=1e-4 if od is None else 2 ** -8)
+    before = launch_counts()["matmul"]
+    z = matmul(rnd(4, 0), rnd(0, 6), out_dtype=torch.bfloat16)
+    if (launch_counts()["matmul"] != before or z.dtype != torch.bfloat16
+            or tuple(z.shape) != (4, 6) or (z != 0).any()):
+        fail("matmul: K == 0 must give bf16 zeros without a launch")
+    torch.cuda.synchronize()
+
+
+def _ring_inputs(dev, gen, seq):
+    """llama3_2_1b's attention at B = 1 and ``seq`` tokens, bf16: q as the
+    projection's strided view, k, v and the output cotangent do."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("llama3_2_1b")
+    h, hk, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    q = rnd(1, seq, h, d).transpose(1, 2)
+    return q, rnd(1, hk, seq, d), rnd(1, hk, seq, d), rnd(1, h, seq, d)
+
+
+def _grads(fn, q, k, v, do):
+    import torch
+
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    o = fn(q, k, v)
+    return [o.detach()] + list(torch.autograd.grad(o, (q, k, v), do))
+
+
+def _replay_pairs(n, a, c):
+    """The (rank, step) pairs of an n-rank ring whose ranks hold a queries
+    and c keys each: (i, t, j, q_start, k_start), rank i meeting chunk
+    j = (i + t) % n at step t at the distributed form's offsets."""
+    from repro_torch.kernels.flash_attention.ring import _shard_offsets
+
+    return [(i, t, (i + t) % n, *_shard_offsets(i, t, n, a, c))
+            for i in range(n) for t in range(n)]
+
+
+def ring_schedule_replay(q, k, v, *, n, causal=True, window=None,
+                         sm_scale=None, prefix_len=0):
+    """The distributed ring of n ranks replayed rank by rank in one process
+    (one card cannot hold n NCCL ranks): q (B, H, Sq, D) and k, v
+    (B, Hk, Skv, D) are the GLOBAL tensors, rank i's shard is the i-th of n
+    sequence slices, and its steps and merges are the distributed form's
+    (the ring module's ``_ring`` at ``_replay_pairs``' offsets), with no
+    communication. Returns the ranks' o shards concatenated along the
+    sequence; differentiable, so a backward replays the reversed ring."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ring import _ring
+
+    sq, skv = q.shape[2], k.shape[2]
+    if sq % n or skv % n:
+        raise ValueError(f"ring_schedule_replay: n={n} does not divide the "
+                         f"lengths ({sq}, {skv})")
+    a, c = sq // n, skv // n
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale,
+              prefix_len=prefix_len)
+    steps = [[] for _ in range(n)]
+    for i, _, j, qs, ks in _replay_pairs(n, a, c):
+        steps[i].append((k[:, :, j * c:(j + 1) * c],
+                         v[:, :, j * c:(j + 1) * c], qs, ks))
+    return torch.cat([_ring(q[:, :, i * a:(i + 1) * a], steps[i], kw)
+                      for i in range(n)], dim=2)
+
+
+def ring_main_path(dev):
+    """Phase 13: the ring at llama3_2_1b's attention widths (B = 1, H = 32,
+    Hk = 8, d = 64) over RING_SEQ tokens in RING_STEPS steps, bf16: (a) the
+    local ring_flash_attention and its gradients, (b) the distributed
+    schedule replayed rank by rank (ring_schedule_replay), both against the
+    port's flash_attention (kernels 2-4); then matmul at the MLP's up
+    projection. Launch counts are zeroed before and read after each path.
+    Returns (counts, matmul's max |err| against its plain version)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     ring_flash_attention)
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+
+    n = RING_STEPS
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, k, v, do = _ring_inputs(dev, gen, RING_SEQ)
+    t0 = time.perf_counter()
+    ref = _grads(lambda *a: flash_attention(*a, causal=True), q, k, v, do)
+    torch.cuda.synchronize()
+    t_flash = time.perf_counter() - t0
+
+    reset_launches()
+    t0 = time.perf_counter()
+    local = _grads(lambda *a: ring_flash_attention(*a, ring_steps=n,
+                                                   causal=True), q, k, v, do)
+    torch.cuda.synchronize()
+    t_local = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replay = _grads(lambda *a: ring_schedule_replay(*a, n=n, causal=True),
+                    q, k, v, do)
+    torch.cuda.synchronize()
+    t_replay = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"[ring] S={RING_SEQ} h=32/8 d=64 bf16, {n} steps, forward + "
+        f"backward: flash_attention {t_flash * 1e3:.3f} ms, local ring "
+        f"{t_local * 1e3:.3f} ms, rank-by-rank replay of {n} ranks "
+        f"{t_replay * 1e3:.3f} ms (host clock, first calls)")
+    want = n + n * n                      # local steps + replayed steps
+    for name in ("ring_flash_fwd", "ring_flash_bwd"):
+        if counts[name] != want:
+            fail(f"ring path: {name} launched {counts[name]} times, "
+                 f"expected {want}")
+    # limits: o row by row (check_rows), 2^-5 of the row's largest |o|:
+    # flash_attention rounds its f32 o to bf16 once, the ring rounds each
+    # of its n steps' o and each of its n - 1 merges' to bf16, 2n roundings
+    # of at most 2^-8 of rows about as large as o's (read on an H100:
+    # err / row max 1.342e-02 local, 1.099e-02 replay, 1.481e-02 replay vs
+    # local, all below 2^-6).
+    # Gradients are bf16 here (cast to q's, k's, v's dtype as JAX does), so
+    # flash's 1e-3 f32 limit for dk/dv cannot apply: each side rounds once
+    # and the ring's dq (and the replay's dk/dv) sum n bf16 partials in bf16
+    # (autograd accumulates in the leaf's dtype): 2^-6 of the largest
+    # magnitude, rtol 2^-6.
+    for form, got in (("local", local), ("replay", replay)):
+        check_rows(f"ring {form} o vs flash_attention", got[0], ref[0],
+                   2 ** -5)
+        for nm, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+            check_rel(f"ring {form} {nm} vs flash_attention", a, b, 2 ** -6)
+    check_rows("ring replay o vs local ring o", replay[0], local[0], 2 ** -5)
+    del ref, local, replay
+
+    bf = torch.bfloat16
+    m, kk, nn = MM_SHAPE
+    a = torch.randn((m, kk), generator=gen, device=dev).to(bf)
+    b = (torch.randn((kk, nn), generator=gen, device=dev) * kk ** -0.5).to(bf)
+    reset_launches()
+    t0 = time.perf_counter()
+    c = matmul(a, b)
+    torch.cuda.synchronize()
+    log(f"[matmul] {m}x{kk} @ {kk}x{nn} bf16 -> bf16: "
+        f"{(time.perf_counter() - t0) * 1e3:.3f} ms (host clock, first call)")
+    counts["matmul"] = launch_counts()["matmul"]
+    if counts["matmul"] != 1:
+        fail(f"matmul path: {counts['matmul']} launches, expected 1")
+    # bf16 products are exact in f32; both sum K of them in f32 and round
+    # once to bf16: one ulp, 2^-8 relative
+    err = check_rel(f"matmul bf16 {m}x{kk}x{nn}", c, matmul_ref(a, b),
+                    2 ** -7)
+    torch.cuda.synchronize()
+    return counts, err
+
+
+def ring_kernel_checks(dev):
+    """Phase 2b for the ring kernels: each against its plain version at
+    every launch shape and offset of phase 13, bf16: the RING_STEPS local
+    steps (all RING_SEQ queries against each chunk) and the RING_STEPS^2
+    replayed (rank, step) pairs (a shard against one chunk at the
+    distributed offsets). The plain versions run in blocks of one shard's
+    query rows, dk/dv summed over the blocks, so that their f32 scores fit
+    the card. Returns ({kernel: max |err|}, the replayed pairs' inputs
+    (tag, q, k, v, do, q_start, k_start) for time_ring_kernels)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_delta,
+                                                     ring_bwd_ref,
+                                                     ring_flash_bwd,
+                                                     ring_flash_fwd,
+                                                     ring_fwd_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    n = RING_STEPS
+    c = RING_SEQ // n
+    q, k, v, do = _ring_inputs(dev, gen, RING_SEQ)
+
+    def part(x, j):
+        return x[:, :, j * c:(j + 1) * c]
+
+    local = [(f"local step {t}", q, part(k, t), part(v, t), do, 0, t * c)
+             for t in range(n)]
+    replay = [(f"rank {i} step {t}", part(q, i), part(k, j), part(v, j),
+               part(do, i).contiguous(), qs, ks)
+              for i, t, j, qs, ks in _replay_pairs(n, c, c)]
+    worst = dict.fromkeys(("o", "o/row", "lse", "dq", "dk", "dv"), 0.0)
+    for tag, qq, kc, vc, dd, qs, ks in local + replay:
+        tag = f"ring bf16 S={RING_SEQ} {tag}"
+        o, lse = ring_flash_fwd(qq, kc, vc, *_offsets(dev, qs, ks))
+        g_lse = torch.randn(lse.shape, generator=gen, device=dev)
+        delta = flash_delta(dd, o) - torch.where(torch.isneginf(lse), 0.0,
+                                                 g_lse)
+        got = ring_flash_bwd(qq, kc, vc, dd, lse, delta,
+                             *_offsets(dev, qs, ks))
+        ro, rlse, rdq, rdk, rdv = [], [], [], 0.0, 0.0
+        for r in range(0, qq.shape[2], c):
+            rows = slice(r, r + c)
+            o_r, lse_r = ring_fwd_ref(qq[:, :, rows], kc, vc, qs + r, ks)
+            dq_r, dk_r, dv_r = ring_bwd_ref(
+                qq[:, :, rows], kc, vc, dd[:, :, rows], lse[:, :, rows],
+                delta[:, :, rows], qs + r, ks)
+            ro.append(o_r)
+            rlse.append(lse_r)
+            rdq.append(dq_r)
+            rdk, rdv = rdk + dk_r, rdv + dv_r
+        ro, rlse, rdq = (torch.cat(x, dim=2) for x in (ro, rlse, rdq))
+        # o: both keep p in f32 and round the same f32 o once to bf16, at
+        # most one ulp apart (<= 2^-7 of the row's largest |o|); lse f32;
+        # dq rounded to bf16 (flash bwd's 2^-7), dk/dv f32 (1e-3)
+        err_o, ratio = check_rows(tag + " o", o, ro, 2 ** -7, quiet=True)
+        for key, e in (("o", err_o), ("o/row", ratio),
+                       ("lse", check_lse(tag + " lse", lse, rlse, atol=1e-3,
+                                         rtol=1e-4, quiet=True)),
+                       ("dq", check_rel(tag + " dq", got[0], rdq, 2 ** -7,
+                                        quiet=True)),
+                       ("dk", check_rel(tag + " dk", got[1], rdk, 1e-3,
+                                        quiet=True)),
+                       ("dv", check_rel(tag + " dv", got[2], rdv, 1e-3,
+                                        quiet=True))):
+            worst[key] = max(worst[key], e)
+    torch.cuda.synchronize()
+    log(f"[check] ring bf16 kernels vs plain at S={RING_SEQ}, {n} local "
+        f"steps + {len(replay)} replayed (rank, step) pairs: max|err| o "
+        f"{worst['o']:.3e} (err/row-max {worst['o/row']:.3e}, limit 2^-7), "
+        f"lse {worst['lse']:.3e} (1e-3), dq {worst['dq']:.3e} (2^-7 of "
+        f"max), dk {worst['dk']:.3e}, dv {worst['dv']:.3e} (1e-3 of max)")
+    return ({"ring_flash_fwd": max(worst["o"], worst["lse"]),
+             "ring_flash_bwd": max(worst["dq"], worst["dk"], worst["dv"])},
+            replay)
+
+
+def time_ring_kernels(dev, pairs):
+    """The ring kernels at the distributed form's per-rank shape on the
+    main path, over the replayed (rank, step) pairs of ring_kernel_checks:
+    ms per launch; the bound counts the keys each pair's rows see. matmul
+    at MM_SHAPE."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_delta,
+                                                     ring_bwd_ref,
+                                                     ring_flash_bwd,
+                                                     ring_flash_fwd,
+                                                     ring_fwd_ref)
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+
+    gen = torch.Generator(device=dev).manual_seed(43)
+    _, q, k, _, _, _, _ = pairs[0]
+    _, h, a, d = q.shape
+    hk, c = k.shape[1], k.shape[2]
+    runs, visible = [], 0
+    for _, q, k, v, do, qs, ks in pairs:
+        qpos = qs + torch.arange(a, device=dev)
+        kpos = ks + torch.arange(c, device=dev)
+        mask = qpos[:, None] >= kpos[None, :]
+        visible += int(mask.sum())
+        offs = _offsets(dev, qs, ks)
+        o, lse = ring_flash_fwd(q, k, v, *offs)
+        runs.append(dict(qkv=(q, k, v), offs=offs, do=do, mask=mask, lse=lse,
+                         delta=flash_delta(do, o)))
+    npairs = len(runs)
+
+    def per_launch(fn, iters):
+        def go():
+            for r in runs:
+                fn(r)
+        return cuda_ms(go, iters=iters, warmup=1) / npairs
+
+    def sdpa(r):
+        return F.scaled_dot_product_attention(*r["qkv"], attn_mask=r["mask"],
+                                              enable_gqa=True)
+
+    def sdpa_fwd_bwd(r):
+        ins = [t.detach().requires_grad_(True) for t in r["qkv"]]
+        torch.autograd.grad(sdpa(dict(r, qkv=ins)), ins, r["do"])
+
+    def bwd_args(r):
+        return (*r["qkv"], r["do"], r["lse"], r["delta"], *r["offs"])
+
+    out = {}
+    shape = (f"{npairs} (rank, step) pairs of q (1,{h},{a},{d}) vs a chunk "
+             f"(1,{hk},{c},{d}) bf16, causal, {visible} visible (q, k) "
+             "pairs per head in all")
+    flops = 4 * d * h * visible / npairs
+    io = (h * a * d + 2 * hk * c * d) * 2
+    out["ring_flash_fwd"] = dict(
+        ms=per_launch(lambda r: ring_flash_fwd(*r["qkv"], *r["offs"]), 2),
+        plain_ms=per_launch(lambda r: ring_fwd_ref(*r["qkv"], *r["offs"]),
+                            1),
+        library_ms=per_launch(sdpa, 2),
+        library="F.scaled_dot_product_attention(attn_mask bool, enable_gqa)",
+        shape=shape)
+    out["ring_flash_fwd"].update(zip(("bound_ms", "bound_by"), bound(
+        io + h * a * d * 2 + h * a * 4, flops, "bfloat16")))
+    # SDPA's backward alone: its forward + backward less its forward (one
+    # graph alive at a time)
+    out["ring_flash_bwd"] = dict(
+        ms=per_launch(lambda r: ring_flash_bwd(*bwd_args(r)), 2),
+        plain_ms=per_launch(lambda r: ring_bwd_ref(*bwd_args(r)), 1),
+        library_ms=per_launch(sdpa_fwd_bwd, 2)
+        - out["ring_flash_fwd"]["library_ms"],
+        library="backward of F.scaled_dot_product_attention(attn_mask bool, "
+                "enable_gqa): forward + backward - forward",
+        shape=shape)
+    out["ring_flash_bwd"].update(zip(("bound_ms", "bound_by"), bound(
+        io + h * a * d * 2 + 2 * h * a * 4 + h * a * d * 2
+        + 2 * hk * c * d * 4, 2.5 * flops, "bfloat16")))
+    del runs
+
+    bf = torch.bfloat16
+    m, kk, nn = MM_SHAPE
+    x = torch.randn((m, kk), generator=gen, device=dev).to(bf)
+    w = (torch.randn((kk, nn), generator=gen, device=dev) * kk ** -0.5).to(bf)
+    out["matmul"] = dict(
+        ms=cuda_ms(lambda: matmul(x, w), iters=5, warmup=1),
+        plain_ms=cuda_ms(lambda: matmul_ref(x, w), iters=5, warmup=1),
+        library_ms=cuda_ms(lambda: torch.matmul(x, w), iters=20),
+        library="torch.matmul (bf16 in and out)",
+        shape=f"a ({m},{kk}) @ b ({kk},{nn}) bf16 -> bf16")
+    out["matmul"].update(zip(("bound_ms", "bound_by"), bound(
+        (m * kk + kk * nn + m * nn) * 2, 2 * m * kk * nn, "bfloat16")))
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import torch
@@ -2120,6 +2590,7 @@ def main():
     small_f32_train_checks(dev)
     small_f32_app_checks(dev)
     small_f32_static_checks(dev)
+    small_f32_ring_checks(dev)
 
     cfg = get_config("llama3_2_1b")
     page, num_pages, slots = 512, 8 * 4 + 1, 8
@@ -2210,6 +2681,17 @@ def main():
     # 2b and 8 for the static path's kernels
     errs.update(full_width_static_checks(dev))
     times.update(time_static_kernels(dev))
+    torch.cuda.empty_cache()
+
+    # 13. the ring (local and replayed rank by rank) and matmul; 2b and 8
+    # for their kernels
+    rcounts, errs["matmul"] = ring_main_path(dev)
+    counts.update({k: rcounts[k] for k in RING_KERNELS})
+    ring_errs, pairs = ring_kernel_checks(dev)
+    errs.update(ring_errs)
+    torch.cuda.empty_cache()
+    times.update(time_ring_kernels(dev, pairs))
+    del pairs
     for name, t in times.items():
         lib = ("null" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")

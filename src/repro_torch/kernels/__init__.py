@@ -12,8 +12,10 @@ from __future__ import annotations
 
 from .apps import dg_surface, dg_volume, fd2d, sem_apply
 from .flash_attention import (flash_attention_fwd, flash_bwd, flash_decode,
-                              flash_delta, paged_decode_attention)
+                              flash_delta, paged_decode_attention,
+                              ring_flash_bwd, ring_flash_fwd)
 from .lm_head import lm_head_bwd, lm_head_ce, lm_head_logits
+from .matmul import matmul
 from .rmsnorm import rmsnorm
 from .ssm_scan import ssm_scan_fwd
 
@@ -35,6 +37,9 @@ KERNELS = {
     "dg_surface": dg_surface,
     "flash_decode": flash_decode,
     "ssm_scan": ssm_scan_fwd,
+    "ring_flash_fwd": ring_flash_fwd,
+    "ring_flash_bwd": ring_flash_bwd,
+    "matmul": matmul,
 }
 
 

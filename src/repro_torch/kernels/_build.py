@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
-           "flash_bwd", "fd2d", "sem", "dg", "flash_decode", "ssm_scan")
+           "flash_bwd", "fd2d", "sem", "dg", "flash_decode", "ssm_scan",
+           "ring_flash", "matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

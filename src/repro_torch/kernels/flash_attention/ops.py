@@ -16,7 +16,10 @@ be silently wrong or fail late). ``flash_decode`` launches
 rolling cache: the JAX package's ``flash_decode`` op and its
 ``decode_attention`` entry) and
 ``paged_decode_attention`` launches ``csrc/paged_decode.cu`` (one-token
-decode through a block table).
+decode through a block table). ``ring_flash_fwd`` and ``ring_flash_bwd``
+launch ``csrc/ring_flash.cu``: one step of ring attention (a query shard
+against one kv chunk at absolute offsets read on the device) and its
+backward; ``ring.py`` builds the ring schedule on them.
 """
 
 from __future__ import annotations
@@ -28,11 +31,11 @@ import torch
 from .._build import check, load, on_cpu, ptr, stream
 from . import delta as delta_kernel
 from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
-                  paged_decode_ref)
+                  paged_decode_ref, ring_bwd_ref, ring_fwd_ref)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_delta", "flash_bwd", "flash_decode",
-           "paged_decode_attention"]
+           "paged_decode_attention", "ring_flash_fwd", "ring_flash_bwd"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)     # flash_fwd, flash_decode, paged_decode
@@ -46,6 +49,10 @@ _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I)}
 _DECODE_SIG = {"flash_decode": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 6 + [_P],
                                 _I)}
 _PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
+_RING_SIG = {
+    "ring_flash_fwd": ([_P] * 7 + [_I] * 10 + [_F] + [_L] * 9 + [_P], _I),
+    "ring_flash_bwd": ([_P] * 11 + [_I] * 10 + [_F] + [_L] * 12 + [_P], _I),
+}
 
 
 def _check_qkv(name, q, k, v, head_dims=_HEAD_DIMS):
@@ -366,3 +373,109 @@ def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
 
 
 paged_decode_attention.launches = 0
+
+
+def _check_offsets(name, q_start, k_start):
+    for x, n in ((q_start, "q_start"), (k_start, "k_start")):
+        if x.numel() != 1 or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(f"{name}: {n} must be one contiguous int32 "
+                             f"element, got {tuple(x.shape)} {x.dtype}")
+
+
+def _ring_masks(name, q, k, window, prefix_len):
+    """The kernel's (window, prefix) ints, after the shape checks."""
+    if q.shape[2] == 0 or k.shape[2] == 0:
+        raise ValueError(f"{name}: empty shard or chunk (Sq {q.shape[2]}, "
+                         f"Skv {k.shape[2]})")
+    if int(prefix_len) < 0:
+        raise ValueError(f"{name}: prefix_len must be >= 0, got {prefix_len}")
+    return _window(name, window), int(prefix_len)
+
+
+def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,
+                   sm_scale=None, prefix_len=0):
+    """One ring step: q (B, H, Sq, D) at absolute positions ``q_start + i``
+    against one kv chunk k, v (B, Hk, Skv, D) at ``k_start + j`` -> (o
+    (B, H, Sq, D) in q's dtype, normalised by the chunk's softmax sum; lse
+    (B, H, Sq) f32). The offsets are (1, 1) int32 tensors on q's device
+    (read there, so no launch waits for the host). Masks: causal,
+    ``window``, ``prefix_len`` (keys below it always visible). A row that
+    sees no key gives o = 0, lse = -inf."""
+    name = "ring_flash_fwd"
+    _no_grad_asked(name, q, k, v)
+    _check_offsets(name, q_start, k_start)
+    if on_cpu(name, q, k, v, q_start, k_start):
+        return ring_fwd_ref(q, k, v, q_start, k_start, causal=causal,
+                            window=window, sm_scale=sm_scale,
+                            prefix_len=prefix_len)
+    _check_qkv(name, q, k, v)
+    _check_gqa(name, q, k, v)
+    win, prefix = _ring_masks(name, q, k, window, prefix_len)
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = load("ring_flash", _RING_SIG)
+    err = lib.ring_flash_fwd(ptr(q), ptr(k), ptr(v), ptr(q_start),
+                             ptr(k_start), ptr(o), ptr(lse), b, h, hk, sq,
+                             skv, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
+                             win, prefix, float(sm_scale), *q.stride()[:3],
+                             *k.stride()[:3], *v.stride()[:3], stream())
+    check(lib, err, name)
+    ring_flash_fwd.launches += 1
+    return o, lse
+
+
+ring_flash_fwd.launches = 0
+
+
+def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,
+                   window=None, sm_scale=None, prefix_len=0):
+    """The backward of one ring step at its offsets, from the step's own
+    lse and ``delta = rowsum(do * o) - g_lse`` (both (B, H, Sq) f32): dq
+    (B, H, Sq, D) in q's dtype and dk, dv (B, Hk, Skv, D) f32 summed over
+    each kv head's query-head group. Rows with lse = -inf give nothing."""
+    name = "ring_flash_bwd"
+    _no_grad_asked(name, q, k, v, do)
+    _check_offsets(name, q_start, k_start)
+    if on_cpu(name, q, k, v, do, lse, delta, q_start, k_start):
+        return ring_bwd_ref(q, k, v, do, lse, delta, q_start, k_start,
+                            causal=causal, window=window, sm_scale=sm_scale,
+                            prefix_len=prefix_len)
+    _check_qkv(name, q, k, v, _BWD_HEAD_DIMS)
+    _check_gqa(name, q, k, v)
+    win, prefix = _ring_masks(name, q, k, window, prefix_len)
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
+                         f"match q {tuple(q.shape)} {q.dtype}, last axis "
+                         "contiguous")
+    for t, n in ((lse, "lse"), (delta, "delta")):
+        if (tuple(t.shape) != (b, h, sq) or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {n} must be contiguous f32 "
+                             f"({b}, {h}, {sq}), got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    dev = q.device
+    dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
+    dv = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
+    lib = load("ring_flash", _RING_SIG)
+    err = lib.ring_flash_bwd(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
+                             ptr(delta), ptr(q_start), ptr(k_start), ptr(dq),
+                             ptr(dk), ptr(dv), b, h, hk, sq, skv, d,
+                             _DTYPE_CODE[q.dtype], int(bool(causal)), win,
+                             prefix, float(sm_scale), *q.stride()[:3],
+                             *k.stride()[:3], *v.stride()[:3],
+                             *do.stride()[:3], stream())
+    check(lib, err, name)
+    ring_flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+ring_flash_bwd.launches = 0

@@ -1,7 +1,7 @@
-"""Plain PyTorch attention: the functions the prefill, decode, paged-decode
-and backward kernels compute (counterparts of
-``repro.kernels.flash_attention.ref`` and of the TPU backward kernels'
-arithmetic in ``repro.kernels.flash_attention.kernel``).
+"""Plain PyTorch attention: the functions the prefill, decode, paged-decode,
+backward and ring-step kernels compute (counterparts of
+``repro.kernels.flash_attention.ref``, of ``ring.py::ring_step_ref`` and of
+the TPU kernels' arithmetic in ``repro.kernels.flash_attention.kernel``).
 
 Scores and the softmax are f32; as in the JAX oracle, the probabilities are
 cast to v's dtype before the product with v, and the output to q's dtype.
@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mha_ref", "flash_fwd_ref", "decode_ref", "paged_decode_ref",
-           "flash_delta_ref", "flash_bwd_ref", "rolling_slot_pos"]
+           "flash_delta_ref", "flash_bwd_ref", "rolling_slot_pos",
+           "ring_step_ref", "ring_fwd_ref", "ring_bwd_ref"]
 
 
 def rolling_slot_pos(window: int, t: int):
@@ -26,9 +27,15 @@ def rolling_slot_pos(window: int, t: int):
     return sp
 
 
-def _mask(sq, skv, *, causal, window, prefix_len, device):
-    q_pos = torch.arange(sq, device=device) + (skv - sq)
-    k_pos = torch.arange(skv, device=device)
+def _mask(sq, skv, *, causal, window, prefix_len, device, q_start=None,
+          k_start=0):
+    """(sq, skv) visibility of keys at ``k_start + j`` to queries at
+    ``q_start + i`` (default: queries aligned to the end of the kv stream).
+    The offsets may be ints or one-element int tensors on ``device``."""
+    if q_start is None:
+        q_start = skv - sq
+    q_pos = torch.arange(sq, device=device) + _offset(q_start)
+    k_pos = torch.arange(skv, device=device) + _offset(k_start)
     mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
         mask &= q_pos[:, None] >= k_pos[None, :]
@@ -37,6 +44,12 @@ def _mask(sq, skv, *, causal, window, prefix_len, device):
     if prefix_len:
         mask |= k_pos[None, :] < prefix_len
     return mask
+
+
+def _offset(x):
+    """An int, or a one-element int tensor as a 0-d int64 tensor (read on
+    the tensor's device, never synchronised to the host)."""
+    return x.reshape(()).long() if torch.is_tensor(x) else int(x)
 
 
 def _softmax_av(s, mask, v):
@@ -172,6 +185,72 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
     mask = _mask(sq, skv, causal=causal, window=None, prefix_len=0,
                  device=q.device)
     p = torch.where(mask, torch.exp(s - lse.reshape(b, hk, g, sq, 1)), 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - delta.reshape(b, hk, g, sq, 1)) * sm_scale
+    dq = torch.matmul(ds, kf).reshape(b, h, sq, d)
+    dk = torch.matmul(ds.transpose(-1, -2), qf).sum(2)
+    dv = torch.matmul(p.transpose(-1, -2), dof).sum(2)
+    return dq.to(q.dtype), dk, dv
+
+
+def ring_fwd_ref(q, k, v, q_start=0, k_start=0, *, causal=True, window=None,
+                 sm_scale=None, prefix_len=0):
+    """One ring step: q (B, H, Sq, D) at absolute positions ``q_start + i``
+    against one kv chunk k (B, Hk, Skv, D), v (B, Hk, Skv, Dv) at
+    ``k_start + j`` -> (o (B, H, Sq, Dv) in q's dtype, normalised by the
+    chunk's own softmax sum, and lse (B, H, Sq) f32). Masks as in the JAX
+    ``_mask_block``: causal, ``window`` (q_pos - k_pos < window) and
+    ``prefix_len`` (keys below it always visible). A row that sees no key of
+    the chunk gives o = 0, lse = -inf (the merge's identity). As the TPU
+    step kernel, p stays f32 in the product with v."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    qg = q.reshape(b, hk, g, sq, d).float()
+    s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * sm_scale
+    mask = _mask(sq, skv, causal=causal, window=window, prefix_len=prefix_len,
+                 device=q.device, q_start=q_start, k_start=k_start)
+    o, lse = _softmax_av(s, mask, v.float()[:, :, None])
+    return o.reshape(b, h, sq, dv).to(q.dtype), lse.reshape(b, h, sq)
+
+
+def ring_step_ref(q, k, v, *, q_start=None, k_start=None, causal=True,
+                  window=None, sm_scale=None, prefix_len=0):
+    """The o of :func:`ring_fwd_ref` (counterpart of the JAX
+    ``ring.py::ring_step_ref``; offsets default to 0)."""
+    return ring_fwd_ref(q, k, v, 0 if q_start is None else q_start,
+                        0 if k_start is None else k_start, causal=causal,
+                        window=window, sm_scale=sm_scale,
+                        prefix_len=prefix_len)[0]
+
+
+def ring_bwd_ref(q, k, v, do, lse, delta, q_start=0, k_start=0, *,
+                 causal=True, window=None, sm_scale=None, prefix_len=0):
+    """The backward of one ring step at its offsets, in f32 as the TPU
+    kernel computes it: ``p = exp(s - lse)`` on visible keys from the step's
+    own lse (0 elsewhere and on rows with lse = -inf, never NaN),
+    ``ds = p * (do v^T - delta) * sm_scale`` with ``delta`` the caller's
+    (``rowsum(do * o) - g_lse``). Returns dq (B, H, Sq, D) in q's dtype and
+    dk, dv (B, Hk, Skv, D) f32 summed over each kv head's query-head
+    group."""
+    b, h, sq, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    dv_dim = v.shape[-1]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    qf = q.float().reshape(b, hk, g, sq, d)
+    dof = do.float().reshape(b, hk, g, sq, dv_dim)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+    mask = _mask(sq, skv, causal=causal, window=window, prefix_len=prefix_len,
+                 device=q.device, q_start=q_start, k_start=k_start)
+    lse = lse.reshape(b, hk, g, sq, 1)
+    live = mask & (lse != float("-inf"))
+    p = torch.where(live, torch.exp(torch.where(live, s - lse, 0.0)), 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - delta.reshape(b, hk, g, sq, 1)) * sm_scale
     dq = torch.matmul(ds, kf).reshape(b, h, sq, d)

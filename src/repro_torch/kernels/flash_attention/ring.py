@@ -1,0 +1,203 @@
+"""Sequence-parallel ring flash attention (counterpart of
+``repro.kernels.flash_attention.ring``).
+
+A ring STEP is flash attention of a query shard against one kv chunk at
+absolute offsets (``ring_flash_fwd``: ``csrc/ring_flash.cu`` on the card,
+its plain version on the CPU), emitting the chunk-local ``(o, lse)``.
+``_RingStep`` makes it differentiable: its backward runs ``flash_delta``,
+folds the lse cotangent into delta (``delta' = rowsum(do o) - g_lse``, the
+JAX ``_ring_step_bwd``) and runs ``ring_flash_bwd``. Steps are combined by
+:func:`ring_merge`, the exact logsumexp reweighting.
+
+:func:`ring_flash_attention` runs the schedule in two forms:
+
+* without ``mesh`` (the local form): the kv stream is split into
+  ``ring_steps`` chunks in one process and every chunk is one step against
+  all of q, queries aligned to the end of the stream;
+* with ``mesh`` (a ``torch.distributed`` ``DeviceMesh``): q, k and v are
+  this rank's sequence shards; at step t rank i holds kv chunk
+  ``(i + t) % n`` and k/v rotate one rank along the ring between steps by
+  ``batch_isend_irecv`` (``_Rotate``; gloo on CPU tensors, NCCL on CUDA
+  tensors). Autograd retraces the ring: ``_Rotate``'s backward sends the
+  gradients the other way, as JAX's transpose of ``ppermute`` does, so dk
+  and dv arrive at the rank that owns their chunk.
+
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from .ops import flash_delta, ring_flash_bwd, ring_flash_fwd
+
+__all__ = ["ring_flash_attention", "ring_merge"]
+
+_NEG_INF = float("-inf")
+
+
+def ring_merge(a, b):
+    """Exactly merge two chunk-local softmax partials ``(o, lse)``: the
+    logsumexp reweighting, guarded twice so that a partial with lse = -inf
+    (a row that saw no key) contributes an exact 0 with clean gradients, no
+    ``-inf - -inf`` NaN forward or backward. o is cast to ``o_a``'s dtype
+    after the merge, as JAX does."""
+    o_a, lse_a = a
+    o_b, lse_b = b
+    m = torch.maximum(lse_a, lse_b)
+    m_s = torch.where(m == _NEG_INF, 0.0, m)
+    dead_a, dead_b = lse_a == _NEG_INF, lse_b == _NEG_INF
+    ea = torch.where(dead_a, 0.0, torch.exp(torch.where(dead_a, 0.0,
+                                                        lse_a - m_s)))
+    eb = torch.where(dead_b, 0.0, torch.exp(torch.where(dead_b, 0.0,
+                                                        lse_b - m_s)))
+    tot = ea + eb
+    den = torch.where(tot == 0.0, 1.0, tot)
+    o = (o_a.float() * (ea / den)[..., None]
+         + o_b.float() * (eb / den)[..., None]).to(o_a.dtype)
+    lse = torch.where(tot == 0.0, _NEG_INF, m_s + torch.log(den))
+    return o, lse
+
+
+class _RingStep(torch.autograd.Function):
+    """One differentiable ring step ``(o, lse)`` at the given offsets."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_start, k_start, causal, window, sm_scale,
+                prefix_len):
+        kw = dict(causal=causal, window=window, sm_scale=sm_scale,
+                  prefix_len=prefix_len)
+        o, lse = ring_flash_fwd(q, k, v, q_start, k_start, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, q_start, k_start)
+        ctx.kw = kw
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        q, k, v, o, lse, q_start, k_start = ctx.saved_tensors
+        do = torch.zeros_like(q) if g_o is None else g_o.to(q.dtype)
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = flash_delta(do, o)
+        # lse is an output the merge consumes, so its cotangent enters the
+        # softmax jacobian: ds = p (dp - delta + g_lse)
+        if g_lse is not None:
+            delta = delta - g_lse
+        dq, dk, dv = ring_flash_bwd(q, k, v, do, lse, delta, q_start,
+                                    k_start, **ctx.kw)
+        return (dq, dk.to(k.dtype), dv.to(v.dtype), None, None, None, None,
+                None, None)
+
+
+def _offset(value, device):
+    return torch.full((1, 1), int(value), dtype=torch.int32, device=device)
+
+
+def _shard_offsets(i, t, n, sq, skv):
+    """(q_start, k_start) of rank i at step t of an n-rank ring with shards
+    of sq queries and chunks of skv keys: queries sit at the end of the
+    global kv stream and rank i holds chunk (i + t) % n (``_ring_shard_step``
+    of the JAX package)."""
+    return n * skv - n * sq + i * sq, ((i + t) % n) * skv
+
+
+def _ring(q, steps, kw):
+    """Merge the steps ``(k, v, q_start, k_start)`` yielded by ``steps``."""
+    acc = None
+    for k, v, qs, ks in steps:
+        part = _RingStep.apply(q, k, v, _offset(qs, q.device),
+                               _offset(ks, q.device), kw["causal"],
+                               kw["window"], kw["sm_scale"],
+                               kw["prefix_len"])
+        acc = part if acc is None else ring_merge(acc, part)
+    return acc[0]
+
+
+def _shift(group, tensors, step):
+    """Send each tensor to the rank ``step`` places on along ``group`` and
+    receive its like from the rank ``step`` places back."""
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (i + step) % n)
+    src = dist.get_global_rank(group, (i - step) % n)
+    sent = [t.contiguous() for t in tensors]
+    got = [torch.empty_like(t) for t in sent]
+    ops = []
+    for s, g in zip(sent, got):
+        ops.append(dist.P2POp(dist.isend, s, dst, group))
+        ops.append(dist.P2POp(dist.irecv, g, src, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return got
+
+
+class _Rotate(torch.autograd.Function):
+    """k, v move one rank back along the ring (rank i receives what rank
+    i + 1 held); the backward carries their gradients one rank forward."""
+
+    @staticmethod
+    def forward(ctx, group, k, v):
+        ctx.group = group
+        return tuple(_shift(group, (k, v), -1))
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        gk, gv = _shift(ctx.group, (gk, gv), 1)
+        return None, gk, gv
+
+
+def _mesh_dim(mesh, mesh_axis):
+    names = mesh.mesh_dim_names or ()
+    if mesh_axis not in names:
+        raise ValueError(f"ring_flash_attention: mesh has no axis "
+                         f"{mesh_axis!r} (axes {names})")
+    return names.index(mesh_axis)
+
+
+def _distributed(q, k, v, mesh, mesh_axis, kw):
+    dim = _mesh_dim(mesh, mesh_axis)
+    n, i = mesh.size(dim), mesh.get_local_rank(dim)
+    group = mesh.get_group(dim)
+    sq, skv = q.shape[2], k.shape[2]
+
+    def steps():
+        kt, vt = k, v
+        for t in range(n):
+            if t:
+                kt, vt = _Rotate.apply(group, kt, vt)
+            yield (kt, vt, *_shard_offsets(i, t, n, sq, skv))
+
+    return _ring(q, steps(), kw)
+
+
+def ring_flash_attention(q, k, v, *, mesh=None, mesh_axis="model",
+                         ring_steps=None, causal=True, window=None,
+                         sm_scale=None, prefix_len=0):
+    """Sequence-parallel ring flash attention, differentiable in both forms.
+
+    With ``mesh`` (a ``DeviceMesh`` whose ``mesh_axis`` holds the ring),
+    q (B, H, Sq, D) and k, v (B, Hk, Skv, D) are this rank's sequence
+    shards and the result is this rank's o shard; ``ring_steps``, if given,
+    must equal the axis size. Without ``mesh`` the same steps and merge run
+    in one process over ``ring_steps`` (default 1) chunks of the kv stream,
+    which must divide its length. Queries are aligned to the end of the
+    global kv stream (the ``flash_attention`` convention)."""
+    kw = dict(causal=causal, window=window, sm_scale=sm_scale,
+              prefix_len=prefix_len)
+    if mesh is not None:
+        n = mesh.size(_mesh_dim(mesh, mesh_axis))
+        if ring_steps is not None and int(ring_steps) != n:
+            raise ValueError(
+                f"ring_flash_attention: ring_steps={ring_steps} contradicts "
+                f"mesh axis {mesh_axis!r} of size {n}")
+        return _distributed(q, k, v, mesh, mesh_axis, kw)
+    n = 1 if ring_steps is None else int(ring_steps)
+    sq, skv = q.shape[2], k.shape[2]
+    if n < 1 or skv % n:
+        raise ValueError(
+            f"ring_flash_attention: ring_steps={n} does not divide the kv "
+            f"length {skv}")
+    c = skv // n
+    return _ring(q, ((k[:, :, t * c:(t + 1) * c], v[:, :, t * c:(t + 1) * c],
+                      skv - sq, t * c) for t in range(n)), kw)
+

@@ -8,6 +8,15 @@ Counterpart of the GQA half of ``repro.layers.attention``. Prefill runs
 the CUDA kernel on a CUDA tensor and the plain version on the CPU.
 Prefix-LM masks are not ported yet; ``gqa_forward`` raises for them.
 
+Under ``parallel.use_rules(Rules(mesh=..., ring_axis=...))`` full-sequence
+attention runs the sequence-parallel ring (``ring_flash_attention`` with
+``mesh``) when the sequence divides the ring: q/k/v are computed on the full,
+replicated x at global positions, each rank runs the ring on its sequence
+slice, and o is all-gathered along the sequence. This is what GSPMD makes of
+the JAX package's replicated x and sequence-sharded q/k/v; the weights stay
+replicated. Both steps are autograd Functions whose backward is the other
+(slice <-> all-gather), so gradients are the single-device ones on every rank.
+
 Decode takes the position ``pos`` as a host int (the model's ``cache["pos"]``)
 and writes the cache IN PLACE (JAX returns a new one), so a step never
 reads the device to place its write.
@@ -16,10 +25,14 @@ reads the device to place its write.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_decode,
-                                                 paged_decode_attention)
+                                                 paged_decode_attention,
+                                                 ring_flash_attention)
+from repro_torch.parallel.context import current_rules
+from repro_torch.parallel.rules import ring_axis_for
 
 from .common import dense_init
 from .rope import apply_rope
@@ -28,6 +41,68 @@ __all__ = [
     "gqa_init", "gqa_forward", "gqa_cache_init", "gqa_prefill_cache",
     "gqa_decode", "gqa_paged_cache_init", "gqa_paged_decode",
 ]
+
+
+def _ring_target(seq_len):
+    """(mesh, axis) when the ambient rules declare sequence-parallel ring
+    attention for this sequence length, else (None, None). Callers opt in
+    via ``Rules(ring_axis=...)`` (e.g. ``build_prefill_step(ring=True)``);
+    the divisibility guard keeps ragged lengths on the one-device path."""
+    rules = current_rules()
+    if rules is None or rules.ring_axis is None or rules.mesh is None:
+        return None, None
+    ax = ring_axis_for(rules.mesh, seq_len, model_axis=rules.ring_axis)
+    if ax is None:
+        return None, None
+    return rules.mesh, ax
+
+
+def _gather_seq(group, x):
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=2)
+
+
+def _slice_seq(group, x):
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    c = x.shape[2] // n
+    return x[:, :, i * c:(i + 1) * c]
+
+
+class _SeqShard(torch.autograd.Function):
+    """This rank's slice of a replicated (B, H, S, D) tensor; the backward
+    all-gathers the slices' gradients into the full one."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return _slice_seq(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _gather_seq(ctx.group, g)
+
+
+class _SeqGather(torch.autograd.Function):
+    """The ranks' (B, H, S/n, D) slices all-gathered along the sequence; the
+    backward keeps this rank's slice of the (replicated) gradient."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return _gather_seq(group, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _slice_seq(ctx.group, g)
+
+
+def _ring_attention(q, k, v, mesh, axis, window):
+    group = mesh.get_group(axis)
+    qs, ks, vs = (_SeqShard.apply(group, t) for t in (q, k, v))
+    o = ring_flash_attention(qs, ks, vs, mesh=mesh, mesh_axis=axis,
+                             causal=True, window=window)
+    return _SeqGather.apply(group, o)
 
 
 def gqa_init(gen, cfg, dtype, device, *, n=None):
@@ -54,7 +129,7 @@ def _qkv(params, x, cfg):
 
 def gqa_forward(params, x, cfg, *, return_kv=False):
     """Causal full-sequence (prefill) attention, windowed when
-    ``cfg.window``. x: (B, S, d_model)."""
+    ``cfg.window``; the ring schedule under ring rules. x: (B, S, d_model)."""
     if cfg.prefix_lm:
         raise NotImplementedError(
             "gqa_forward: prefix-LM masks are not ported to the Hopper "
@@ -65,7 +140,11 @@ def gqa_forward(params, x, cfg, *, return_kv=False):
         positions = torch.arange(s, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q, k, v, causal=True, window=cfg.window or None)
+    ring_mesh, ring_ax = _ring_target(s)
+    if ring_mesh is not None:
+        o = _ring_attention(q, k, v, ring_mesh, ring_ax, cfg.window or None)
+    else:
+        o = flash_attention(q, k, v, causal=True, window=cfg.window or None)
     y = o.transpose(1, 2).reshape(b, s, -1) @ params["wo"]
     if return_kv:
         return y, (k, v)

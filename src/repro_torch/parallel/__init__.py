@@ -1,0 +1,6 @@
+from .context import Rules, current_rules, use_rules
+from .rules import ring_axis_for
+from .steps import build_prefill_step, make_shardings
+
+__all__ = ["Rules", "current_rules", "use_rules", "ring_axis_for",
+           "build_prefill_step", "make_shardings"]

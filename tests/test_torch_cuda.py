@@ -31,7 +31,12 @@ from repro_torch.kernels.flash_attention import (decode_ref, flash_attention,
                                                  flash_fwd_ref, mha_ref,
                                                  paged_decode_attention,
                                                  paged_decode_ref,
+                                                 ring_bwd_ref,
+                                                 ring_flash_attention,
+                                                 ring_flash_bwd,
+                                                 ring_flash_fwd, ring_fwd_ref,
                                                  rolling_slot_pos)
+from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
                                          lm_head_ce, lm_head_ce_stats_ref,
                                          lm_head_logits, lm_head_logits_ref)
@@ -235,6 +240,11 @@ def test_each_launch_counts_once(dev):
     x = _rnd(dev, 1, 4, 8)
     ssm_scan_fwd(x, x.abs(), -_rnd(dev, 8, 4).abs(), _rnd(dev, 1, 4, 4),
                  _rnd(dev, 1, 4, 4), _rnd(dev, 8))
+    q = _rnd(dev, 1, 2, 3, 32)
+    o, lse = ring_flash_fwd(q, q, q, *_offsets(dev, 0, 0))
+    ring_flash_bwd(q, q, q, q, lse, lse, *_offsets(dev, 0, 0))
+    matmul(x[0], x[0].T.contiguous())
+    matmul(x[0, :, :0], x[0, :0])                       # K == 0: no launch
     assert launch_counts() == {name: 0 if name == "paged_decode" else 1
                                for name in KERNELS}
 
@@ -569,3 +579,141 @@ def test_static_generate_on_card_matches_cpu(dev, arch, changes):
     assert counts[kernel] == cfg.n_layers * (1 if cfg.ssm_type else 10)
     out_c, _ = generate(cpu, pc, prompts, gen_tokens=10)
     np.testing.assert_array_equal(out_g, out_c)
+
+
+# ---------------------------------------------------------------------------
+# the ring step kernels and matmul
+# ---------------------------------------------------------------------------
+
+def _offsets(dev, q_start, k_start):
+    return (torch.tensor([[q_start]], dtype=torch.int32, device=dev),
+            torch.tensor([[k_start]], dtype=torch.int32, device=dev))
+
+
+RING_CASES = [  # sq, skv, h, hk, d, q_start, k_start, masks
+    (70, 45, 4, 2, 32, 30, 50, {}),                  # across the diagonal
+    (33, 40, 4, 4, 64, 100, 0, {}),                  # chunk wholly before
+    (33, 40, 8, 2, 64, 0, 64, {}),                   # wholly after: dead
+    (97, 32, 8, 2, 64, 64, 96, {}),
+    (70, 45, 4, 1, 64, 60, 20, dict(window=30)),
+    (70, 45, 8, 2, 32, 10, 30, dict(prefix_len=35)),
+    (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
+    (70, 45, 8, 2, 128, 30, 50, dict(window=40)),    # d = 128: forward only
+]
+
+
+@pytest.mark.parametrize("case", RING_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_flash_kernels(dev, case, dtype):
+    """The step forward and backward against their plain versions: strided
+    q and do, GQA, ragged lengths, all three masks; a chunk after the shard
+    gives lse = -inf, o = 0 and zero gradients."""
+    sq, skv, h, hk, d, qs, ks, kw = case
+    q = _rnd(dev, 2, sq, h, d).transpose(1, 2).to(dtype)
+    k = _rnd(dev, 2, hk, skv, d, seed=1).to(dtype)
+    v = _rnd(dev, 2, hk, skv, d, seed=2).to(dtype)
+    off = _offsets(dev, qs, ks)
+    o, lse = ring_flash_fwd(q, k, v, *off, **kw)
+    ro, rlse = ring_fwd_ref(q, k, v, *off, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, **TOL)
+    else:   # the same f32 o rounded once to bf16: one ulp, <= 2^-7 of a row
+        err = (o.float() - ro.float()).abs()
+        row_max = ro.float().abs().amax(-1, keepdim=True)
+        assert (err <= 2 ** -7 * row_max).all(), float(err.max())
+    torch.testing.assert_close(lse, rlse, atol=1e-4 if dtype ==
+                               torch.float32 else 1e-3, rtol=1e-4)
+    dead = ks > qs + sq - 1 and kw.get("causal", True)
+    if dead:
+        assert torch.isneginf(lse).all() and (o == 0).all()
+    if d == 128:
+        return
+    do = _rnd(dev, 2, sq, h, d, seed=3).transpose(1, 2).to(dtype)
+    delta = flash_delta(do, o) - _rnd(dev, 2, h, sq, seed=4)
+    got = ring_flash_bwd(q, k, v, do, lse, delta, *off, **kw)
+    want = ring_bwd_ref(q, k, v, do, rlse, delta, *off, **kw)
+    for a, b_ in zip(got, want):
+        assert torch.isfinite(a).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b_, **TOL)
+        else:   # dq rounded to bf16 once; dk/dv f32 sums in another order
+            _close_rel(a, b_, 2 ** -7 if a.dtype == torch.bfloat16 else 1e-3)
+        if dead:
+            assert (a == 0).all()
+
+
+def test_ring_flash_wrappers_reject_what_the_kernels_cannot_take(dev):
+    q = _rnd(dev, 1, 4, 9, 64)
+    k = _rnd(dev, 1, 2, 9, 64, seed=1)
+    off = _offsets(dev, 0, 0)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ring_flash_fwd(q, k, k, off[0].cpu(), off[1])
+    with pytest.raises(ValueError, match="int32"):
+        ring_flash_fwd(q, k, k, off[0].long(), off[1])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ring_flash_fwd(q.half(), k.half(), k.half(), *off)
+    q128, k128 = _rnd(dev, 1, 4, 9, 128), _rnd(dev, 1, 2, 9, 128, seed=1)
+    o, lse = ring_flash_fwd(q128, k128, k128, *off)
+    with pytest.raises(ValueError, match="head dims"):
+        ring_flash_bwd(q128, k128, k128, o, lse, lse, *off)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        ring_flash_fwd(q.requires_grad_(), k, k, *off)
+
+
+@pytest.mark.parametrize("n,kw", [(4, {}), (5, {}), (4, dict(window=48)),
+                                  (4, dict(prefix_len=24))])
+def test_ring_attention_on_card_matches_cpu(dev, n, kw):
+    """The local ring's output and q/k/v gradients, card (kernels) against
+    CPU (plain versions), each step kernel launched once per step."""
+    s = 160 if n == 5 else 128
+    ins = [_rnd(dev, 1, h, s, 32, seed=i) for i, h in enumerate((4, 2, 2))]
+    go = _rnd(dev, 1, 4, s, 32, seed=5)
+
+    def run(ts, g):
+        ts = [t.detach().requires_grad_() for t in ts]
+        o = ring_flash_attention(*ts, ring_steps=n, **kw)
+        return [o] + list(torch.autograd.grad(o, ts, g))
+
+    reset_launches()
+    got = run(ins, go)
+    counts = launch_counts()
+    assert counts["ring_flash_fwd"] == counts["ring_flash_bwd"] == n
+    want = run([t.cpu() for t in ins], go.cpu())
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b_, **TOL)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (100, 70, 130), (129, 257, 65),
+                                   (5, 1000, 3), (256, 128, 384)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, None),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, None),
+                                    (torch.bfloat16, torch.float32)])
+def test_matmul_kernel(dev, m, k, n, dtypes):
+    dtype, out_dtype = dtypes
+    a = _rnd(dev, m, k).to(dtype)
+    b = _rnd(dev, k, n, seed=1).to(dtype)
+    got = matmul(a, b, out_dtype=out_dtype)
+    want = matmul_ref(a, b, out_dtype=out_dtype)
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **TOL)
+    else:       # one rounding of the same f32 sum to bf16
+        _close_rel(got, want, 2 ** -7)
+    # a transposed-rows view (leading stride != K) takes the same path
+    wide = _rnd(dev, m, k + 3, seed=2).to(dtype)[:, :k]
+    torch.testing.assert_close(matmul(wide, b, out_dtype=torch.float32),
+                               matmul_ref(wide, b, out_dtype=torch.float32),
+                               **TOL)
+
+
+def test_matmul_rejects_what_the_kernel_cannot_take(dev):
+    a = _rnd(dev, 4, 8)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        matmul(a.half(), a.half().T)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        matmul(a, a.T, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        matmul(a, a.T.cpu())
+    with pytest.raises(ValueError, match="rows"):
+        matmul(a.T, a)                          # column-major a
