@@ -13,14 +13,17 @@ blocked matmul op, and times each kernel.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build: one nvcc per CUDA source, all in parallel, plus the Triton
-   rmsnorm and flash-delta kernels;
+   rmsnorm and flash-delta kernels; the SASS of the matmul and CE-head
+   libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads);
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
    max|ref| for SEM/DG; flash_decode on positional and rotated caches,
    ssm_scan at ragged L and dm, flash_fwd with a window and at head dim
    128, paged decode at 128; the ring step forward and backward at ragged
    shard and chunk lengths, GQA, window and prefix masks and a chunk wholly
-   after its shard; matmul at ragged M/N/K, out_dtype and K == 0), bf16 at
+   after its shard; matmul at ragged M/N/K, out_dtype and K == 0; the
+   tensor-core routes of matmul and the CE backward in bf16 at ragged
+   shapes, tied and untied heads, each launch's route counted), bf16 at
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
@@ -45,14 +48,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 6. the training path: the full 16-layer bf16 llama3_2_1b through
    ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, a checkpoint every
    3 steps). Launch counts are zeroed just before and read just after;
-   every training kernel (and rmsnorm, flash_fwd) must have launched, every
-   loss be finite, and the latest checkpoint must restore bit-equal to the
+   every training kernel (and rmsnorm, flash_fwd) must have launched, the
+   bf16 CE backward on its tensor-core route every time, every loss be
+   finite, and the latest checkpoint must restore bit-equal to the
    parameters and optimizer state saved;
 7. where the training time goes: one train step on the host clock and
-   under ``torch.profiler``;
+   under ``torch.profiler`` (the tensor-core CE backward's three launches
+   among its device rows, each with its TFLOP/s);
 8. per-kernel times at the main paths' shapes beside their bound, the
    plain version's time and one library call's time (null where no single
-   PyTorch call computes the function);
+   PyTorch call computes the function); the tensor-core kernels' TFLOP/s;
 9. the apps path, launch counts zeroed just before and read just after,
    each app kernel launched exactly as often as its calls say: ``FDWave``
    on 8192^2 at radius 4 for 200 steps (MNodes/s, analytic error) and
@@ -81,9 +86,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     ranks (``ring_schedule_replay``), forward and gradients, both against
     the port's ``flash_attention`` (each step kernel launched exactly
     4 + 16 times); then ``matmul`` at 4096 x 2048 @ 2048 x 8192 in bf16
-    (one launch) against its plain version. The multi-rank ring over
-    ``torch.distributed`` needs two cards and is held on the CPU only
-    (``tests/test_torch_ring.py``, gloo).
+    (one launch, on the tensor-core route) against its plain version. The
+    multi-rank ring over ``torch.distributed`` needs two cards and is held
+    on the CPU only (``tests/test_torch_ring.py``, gloo).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -964,7 +969,10 @@ def full_width_train_checks(dev, cfg, embed):
         check_close("CE bf16 gold", gold, rgold, atol=1e-3, rtol=0))
     # CE backward: f32 outputs that sum 128256 (dx) or 4092 (dw) terms in
     # another order: 1e-3 of the largest magnitude
+    before = lm_head_bwd.routes["wgmma"]
     dx, dw = lm_head_bwd(x, w, lab, lse, gr, vocab=vocab)
+    if lm_head_bwd.routes["wgmma"] != before + 1:
+        fail("CE bwd bf16 at full width did not take the tensor-core route")
     rdx, rdw = lm_head_bwd_ref(x, w, lab, lse, gr, vocab=vocab)
     errs["lm_head_bwd"] = max(check_rel("CE bwd bf16 dx", dx, rdx, 1e-3),
                               check_rel("CE bwd bf16 dw", dw, rdw, 1e-3))
@@ -1047,6 +1055,7 @@ def train_main_path(cfg):
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.lm_head import lm_head_bwd
     from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
     from repro_torch.tree import leaves, tree_map
@@ -1076,6 +1085,7 @@ def train_main_path(cfg):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        bwd_routes = dict(lm_head_bwd.routes)
     finally:
         train_mod.train_step = step_fn
     hist = out["history"]
@@ -1086,6 +1096,9 @@ def train_main_path(cfg):
     for name in TRAIN_KERNELS + ("rmsnorm", "flash_fwd"):
         if counts[name] <= 0:
             fail(f"kernel {name} never launched on the training path")
+    if bwd_routes != {"wgmma": counts["lm_head_bwd"], "simt": 0}:
+        fail(f"training path: CE backward routes {bwd_routes}; every bf16 "
+             "backward must take the tensor-core route")
 
     # the latest checkpoint (step 6) restores bit-equal into a fresh tree
     t0 = time.perf_counter()
@@ -1147,7 +1160,27 @@ def profile_train_step(model, params, opt_state):
         f"unprofiled step, idle {100 * (1 - busy_ms / step_ms):.1f}%")
     for ms, n, key in rows[:15]:
         log(f"[profile train]   {ms:9.3f} ms  {n:5d} calls  {key[:90]}")
+    cfg = model.cfg
+    log_ce_bwd_passes(rows, 2 * TRAIN_BATCH * (TRAIN_SEQ - 1) * cfg.d_model
+                      * params["embed"].shape[0])
     return step_ms, busy_ms
+
+
+def log_ce_bwd_passes(rows, flops):
+    """The tensor-core CE backward's three launches among a train step's
+    device rows (``device_rows``): (a) the logits recompute with the dl
+    planes in its epilogue, 2 R d V FLOPs; (b) dx and (c) dw, 2 x 2 R d V
+    issued each (the hi and lo planes)."""
+    passes = (("(a) s = x w, dl -> hi/lo planes", "DlEpi", 1),
+              ("(b) dx = (hi + lo) w^T", ", 2, 128, 4,", 2),
+              ("(c) dw^T = (hi + lo)^T x", "<true, true, 2,", 2))
+    for label, tag, units in passes:
+        ms = sum(r[0] for r in rows if "gemm_kernel" in r[2] and tag in r[2])
+        if ms <= 0:
+            fail(f"train step profile: no device time for the CE backward's "
+                 f"pass {label}")
+        log(f"[profile train] CE backward {label}: {ms:.4f} ms, "
+            f"{units * flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s issued")
 
 
 def time_train_kernels(dev, cfg, embed):
@@ -1160,6 +1193,7 @@ def time_train_kernels(dev, cfg, embed):
                                                      flash_bwd, flash_bwd_ref,
                                                      flash_delta,
                                                      flash_delta_ref)
+    from repro_torch.kernels import reset_launches
     from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
                                              lm_head_ce, lm_head_ce_stats_ref)
 
@@ -1198,8 +1232,14 @@ def time_train_kernels(dev, cfg, embed):
     logits = torch.matmul(xl, wl).float()[:, :vocab]
     lib_loss = torch.logsumexp(logits, -1) - logits.gather(
         1, lab.long())[:, 0]
+    reset_launches()
+    bwd_ms = cuda_ms(lambda: lm_head_bwd(x, w, lab, lse, gr, vocab=vocab), 2,
+                     1)
+    if lm_head_bwd.routes != {"wgmma": 3, "simt": 0}:
+        fail(f"timed CE backward routes {lm_head_bwd.routes}: expected the "
+             "tensor-core route on every call")
     out["lm_head_bwd"] = dict(
-        ms=cuda_ms(lambda: lm_head_bwd(x, w, lab, lse, gr, vocab=vocab), 2, 1),
+        ms=bwd_ms, flops=3 * ce_flops, tc_flops=5 * ce_flops,
         plain_ms=cuda_ms(lambda: lm_head_bwd_ref(x, w, lab, lse, gr,
                                                  vocab=vocab), 2, 1),
         library_ms=cuda_ms(library_bwd, 3, 1),
@@ -2125,6 +2165,90 @@ def time_static_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core routes of matmul and the CE backward
+# ---------------------------------------------------------------------------
+
+TC_LIBS = ("matmul", "lm_head_ce")
+
+
+def tc_sass_check():
+    """The matmul and CE-head libraries as built must hold HGMMA (wgmma) and
+    UTMALDG (TMA tensor loads) in their SASS: the design reached the tensor
+    cores and TMA."""
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name in TC_LIBS:
+        sass = subprocess.run([tool, "--dump-sass", _build._lib_path(name)],
+                              check=True, capture_output=True, text=True,
+                              timeout=300).stdout
+        found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        if not all(found.values()):
+            fail(f"SASS of lib{name}: {found}; the tensor-core route must "
+                 "issue HGMMA and UTMALDG")
+        log(f"[sass] lib{name}: " + ", ".join(f"{op} x{n}"
+                                              for op, n in found.items()))
+
+
+def small_tc_checks(dev):
+    """The tensor-core routes against their plain versions in bf16 at small
+    ragged shapes: matmul against matmul_ref (the products are exact in f32
+    on both sides; f32 out differs by the order of K f32 additions, 2^-16
+    of the largest |c|; bf16 out by one rounding, 2^-7 of the largest); the
+    CE backward tied and untied with
+    vocab < V against lm_head_bwd_ref (1e-3 of the largest magnitude, the
+    full-width limit). Each call's route is counted and must be wgmma."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
+                                             lm_head_ce)
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    reset_launches()
+    calls = 0
+    for m, k, n in ((128, 64, 256), (129, 200, 72), (300, 136, 264),
+                    (7, 2056, 520)):
+        a, b = rnd(m, k).to(bf), rnd(k, n).to(bf)
+        for od in (torch.float32, torch.bfloat16):
+            tag = f"matmul tc bf16 {m}x{k}x{n} out {od}"
+            got, want = matmul(a, b, out_dtype=od), matmul_ref(a, b,
+                                                              out_dtype=od)
+            check_rel(tag, got, want,
+                      2 ** -16 if od == torch.float32 else 2 ** -7)
+            calls += 1
+    if matmul.routes != {"wgmma": calls, "simt": 0}:
+        fail(f"matmul routes {matmul.routes}: expected {calls} on wgmma")
+    calls = 0
+    for R, V, vocab, d in ((67, 200, 190, 96), (130, 1104, 1000, 64)):
+        for tied in (True, False):
+            x = rnd(R, d).to(bf)
+            w = (rnd(V, d).T if tied else rnd(d, V)).to(bf)
+            lab = torch.randint(0, vocab, (R, 1), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(R))
+            lab = lab.to(dev)
+            lse, _ = lm_head_ce.raw(x, w, lab, vocab=vocab)
+            gr = rnd(R, 1)
+            tag = f"CE bwd tc bf16 R={R} V={V} vocab={vocab} d={d} tied={tied}"
+            dx, dw = lm_head_bwd(x, w, lab, lse, gr, vocab=vocab)
+            rdx, rdw = lm_head_bwd_ref(x, w, lab, lse, gr, vocab=vocab)
+            check_rel(tag + " dx", dx, rdx, 1e-3)
+            check_rel(tag + " dw", dw, rdw, 1e-3)
+            if not (dw[:, vocab:] == 0).all():
+                fail(tag + ": dw must be 0 on the padded columns")
+            calls += 1
+    if lm_head_bwd.routes != {"wgmma": calls, "simt": 0}:
+        fail(f"CE bwd routes {lm_head_bwd.routes}: expected {calls} on wgmma")
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
 # the ring and matmul: phases 2a, 13 and 8 for ring_flash_fwd/bwd and matmul
 # ---------------------------------------------------------------------------
 
@@ -2360,6 +2484,9 @@ def ring_main_path(dev):
     counts["matmul"] = launch_counts()["matmul"]
     if counts["matmul"] != 1:
         fail(f"matmul path: {counts['matmul']} launches, expected 1")
+    if matmul.routes != {"wgmma": 1, "simt": 0}:
+        fail(f"matmul path: routes {matmul.routes}; the bf16 call must take "
+             "the tensor-core kernel")
     # bf16 products are exact in f32; both sum K of them in f32 and round
     # once to bf16: one ulp, 2^-8 relative
     err = check_rel(f"matmul bf16 {m}x{kk}x{nn}", c, matmul_ref(a, b),
@@ -2528,6 +2655,7 @@ def time_ring_kernels(dev, pairs):
     w = (torch.randn((kk, nn), generator=gen, device=dev) * kk ** -0.5).to(bf)
     out["matmul"] = dict(
         ms=cuda_ms(lambda: matmul(x, w), iters=5, warmup=1),
+        flops=2 * m * kk * nn,
         plain_ms=cuda_ms(lambda: matmul_ref(x, w), iters=5, warmup=1),
         library_ms=cuda_ms(lambda: torch.matmul(x, w), iters=20),
         library="torch.matmul (bf16 in and out)",
@@ -2584,6 +2712,7 @@ def main():
     delta_kernel.build()
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f}s")
+    tc_sass_check()
 
     # 2a. kernels vs plain, f32 small shapes
     small_f32_checks(dev)
@@ -2591,6 +2720,7 @@ def main():
     small_f32_app_checks(dev)
     small_f32_static_checks(dev)
     small_f32_ring_checks(dev)
+    small_tc_checks(dev)
 
     cfg = get_config("llama3_2_1b")
     page, num_pages, slots = 512, 8 * 4 + 1, 8
@@ -2698,6 +2828,15 @@ def main():
         log(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, library {lib} [{t['library']}]")
+    for name in ("matmul", "lm_head_bwd"):
+        t = times[name]
+        rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
+        issued = ("" if "tc_flops" not in t else
+                  f"; {t['tc_flops'] / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s "
+                  "issued on the tensor cores (hi and lo planes: 5 products "
+                  "of 2 R d V)")
+        log(f"[tflops] {name}: {rate:.1f} TFLOP/s of the function's "
+            f"{t['flops'] / 1e12:.4f} TFLOP in {t['ms']:.4f} ms{issued}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

@@ -8,30 +8,60 @@
 // Forward: x (R, d) @ w (d, V) -> lse (R,) over the true vocab (columns
 // >= vocab excluded) and gold (R,), each row's label logit; the (R, V)
 // logits never reach device memory. Backward: dl = g * (exp(s - lse) -
-// onehot) recomputed from the saved lse, dx = dl w^T (R, d) f32 and
-// dw = x^T dl f32, written in w's own layout (for the tied head embed.T that
-// is embed's (V, d) layout, so no transpose of the 1 GB f32 gradient).
+// onehot) recomputed from the saved lse, formed in f32 as the TPU kernel
+// forms it, dx = dl w^T (R, d) f32 and dw = x^T dl f32, written in w's own
+// layout (for the tied head embed.T that is embed's (V, d) layout, so no
+// transpose of the 1 GB f32 gradient).
 //
 // Bound on the H100: operations. At the training shapes (R = 4092, d = 2048,
-// V = 128256) the forward is 2 R d V = 2.1 TFLOP against 0.5 GB of w, and the
-// backward three times that. This first version keeps the math in f32 on the
-// CUDA cores (no tensor cores): the simple, exact design, held to the FLOPs
-// over the f32 CUDA-core rate. What the design does about it: every product
-// is one 64 x 64 output tile per block, staged through shared memory 16 deep,
-// each thread holding 4 x 4 accumulators; w is read with its strides, so
-// embed.T is read in place with loads along d.
+// V = 128256) the forward is 2 R d V = 2.15 TFLOP against 0.5 GB of w, and
+// the backward three such products, 3 * 2 R d V = 6.4 TFLOP: 6.5 ms at the
+// bf16 tensor-core peak of 989 TFLOP/s.
 //
+// The forward keeps the math in f32 on the CUDA cores (the simple, exact
+// design): every product is one 64 x 64 output tile per block, staged
+// through shared memory 16 deep, each thread holding 4 x 4 accumulators; w
+// is read with its strides, so embed.T is read in place with loads along d.
 // The TPU grid carries its online-softmax state from one vocab block to the
 // next in scratch; Hopper blocks run in no order, so the forward splits the
 // vocab into at most 16 chunks, one block per (chunk, 64-row tile) keeps the
 // online softmax over its chunk, and a second kernel merges the per-chunk
-// (max, sum, gold) partials. The TPU backward accumulates dx over vocab
-// blocks and dw over row blocks in one grid; here dx's block would hold
-// 64 x 2048 f32 accumulators, so instead one kernel writes dl (R, V) f32
-// (recomputing p from lse) and two plain tiled products read it: dx sweeps
-// the vocab per output tile, dw sweeps the rows per output tile. No atomics:
-// every output element is summed by one thread in a fixed order.
+// (max, sum, gold) partials.
+//
+// The backward has two routes, chosen by the wrapper up front:
+// * lm_head_ce_bwd_tc, the tensor-core route (bf16 x and w with TMA-aligned
+//   rows), three launches of the gemm_sm90.cuh mainloop:
+//   (a) s = x w (A = x K-major; B = w K-major for the tied head, N-major
+//       for a (d, V) one), whose epilogue forms dl = g (p - onehot) in f32
+//       from the row's lse, g and label (0 on columns >= vocab) and stores
+//       it as two bf16 planes, hi = bf16(dl) and lo = bf16(dl - hi) (the
+//       same 4 bytes an element as an f32 dl);
+//   (b) dx = hi w^T + lo w^T (A = the planes K-major, B = w read as w^T),
+//       in 128 x 128 tiles whose wgmma accumulator is folded into an f32
+//       one every 4 k-tiles: the tensor cores add each k16 step with
+//       truncation, and over V = 128256 terms one accumulator drifts by up
+//       to an ulp a step (6.4e-4 of the largest dx at the training shapes
+//       on an H100 before the fold, chip_smoke.py's full-width check);
+//   (c) dw^T (V, d) = hi^T x + lo^T x (A = the planes M-major through the
+//       transpose bit, B = x N-major), stored through dw's strides.
+//   x and w are exact in bf16, so the two planes' products summed in f32
+//   reproduce the f32-dl products to ~2^-16 relative; rounding dl once to
+//   bf16 would put a 2^-9 error on the label column's g (p - 1), the
+//   largest term of the largest dx and dw entries. Where the split pays:
+//   (b) and (c) issue both planes against the same B tile, so the backward
+//   issues 5 GEMM units of 2 R d V on the tensor cores against the bound's
+//   3 (10.7 TFLOP: 10.9 ms at peak), and writes the planes once and reads
+//   them twice (~6.3 GB, ~2 ms of memory time under the products).
+//   What the design does about the bound: every product runs on wgmma with
+//   TMA loads, and no f32 dl is formed in device memory.
+// * lm_head_ce_bwd, the CUDA-core route (f32 inputs, which keep exact f32
+//   products, and bf16 inputs TMA cannot read): one kernel writes dl (R, V)
+//   f32 and two tiled SIMT products read it, dx sweeping the vocab per
+//   output tile, dw the rows per output tile.
+// No atomics on either route: every output element is summed in one fixed
+// order.
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -320,4 +350,114 @@ extern "C" int lm_head_ce_bwd(const void* x, const void* w, const int* labels,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+constexpr int DX_TN = 128, DX_PROMOTE = 4;  // pass (b): tile width, k-tiles a chunk
+
+// The epilogue of pass (a): dl = g (exp(s - lse) - onehot) in f32 on the
+// true vocab (0 on columns >= vocab and for a row with lse = -inf's p),
+// stored as hi = bf16(dl), lo = bf16(dl - hi) into (R, ld) planes.
+struct DlEpi {
+  const float* lse;
+  const float* g;
+  const int* labels;
+  __nv_bfloat16* hi;
+  __nv_bfloat16* lo;
+  long long ld;
+  int R, V, vocab;
+
+  template <int NF>
+  __device__ __forceinline__ void operator()(const float (&acc)[NF], int r0, int c0) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r >= R) continue;
+      const float lr = lse[r], gr = g[r];
+      const int lab = labels[r];
+      const bool dead = lr == -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < NF / 4; ++j) {
+        const int col = c0 + 8 * j;
+        if (col >= V) continue;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = col + e;
+          v[e] = 0.f;
+          if (c < vocab) {
+            const float p = dead ? 0.f : expf(acc[4 * j + 2 * h + e] - lr);
+            v[e] = gr * (p - (c == lab ? 1.f : 0.f));
+          }
+        }
+        const __nv_bfloat162 vh = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 vl = __floats2bfloat162_rn(v[0] - __low2float(vh),
+                                                        v[1] - __high2float(vh));
+        const long long off = r * ld + col;
+        if (col + 1 < V) {
+          *reinterpret_cast<__nv_bfloat162*>(hi + off) = vh;
+          *reinterpret_cast<__nv_bfloat162*>(lo + off) = vl;
+        } else {
+          hi[off] = __low2bfloat16(vh);
+          lo[off] = __low2bfloat16(vl);
+        }
+      }
+    }
+  }
+};
+
+}  // namespace
+
+// The tensor-core route of the backward, bf16 x and w. x (R, d) rows
+// contiguous, stride xs_r; w (d, V) at w[k * ws_k + v * ws_v] with ws_k == 1
+// (the tied head embed.T, (V, d) memory) or ws_v == 1 ((d, V) memory); every
+// row stride a multiple of 8 elements and every base 16-byte aligned. hi and
+// lo are (R, ld) bf16 scratch, ld >= V a multiple of 8. dx (R, d) f32
+// contiguous; dw (d, V) f32 at dw[k * dws_k + v * dws_v].
+extern "C" int lm_head_ce_bwd_tc(const void* x, const void* w, const int* labels,
+                                 const float* lse, const float* g, void* hi, void* lo,
+                                 float* dx, float* dw, int R, int d, int V, int vocab,
+                                 long long ld, long long xs_r, long long ws_k, long long ws_v,
+                                 long long dws_k, long long dws_v, void* stream) {
+  namespace sm = repro::sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tied = ws_v != 1;  // (V, d) memory: w^T rows are embed's rows
+  if (tied && ws_k != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // x as pass (a)'s K-major A and as pass (c)'s N-major B
+  CUtensorMap x_a, x_b, w_a, w_b, hi_k, lo_k, hi_m, lo_m;
+  cudaError_t e = sm::operand_map(&x_a, x, d, R, xs_r, false, sm::BM);
+  if (e == cudaSuccess) e = sm::operand_map(&x_b, x, d, R, xs_r, true, sm::BN);
+  // w as pass (a)'s B (K = d, N = V) and pass (b)'s B (K = V, N = d)
+  if (tied) {  // memory (V rows of d): (a) K-major, (b) N-major
+    if (e == cudaSuccess) e = sm::operand_map(&w_a, w, d, V, ws_v, false, sm::BN);
+    if (e == cudaSuccess) e = sm::operand_map(&w_b, w, d, V, ws_v, true, sm::BN);
+  } else {  // memory (d rows of V): (a) N-major, (b) K-major
+    if (e == cudaSuccess) e = sm::operand_map(&w_a, w, V, d, ws_k, true, sm::BN);
+    if (e == cudaSuccess) e = sm::operand_map(&w_b, w, V, d, ws_k, false, DX_TN);
+  }
+  // the planes (R rows of V) as pass (b)'s K-major A and pass (c)'s M-major A
+  if (e == cudaSuccess) e = sm::operand_map(&hi_k, hi, V, R, ld, false, sm::BM);
+  if (e == cudaSuccess) e = sm::operand_map(&lo_k, lo, V, R, ld, false, sm::BM);
+  if (e == cudaSuccess) e = sm::operand_map(&hi_m, hi, V, R, ld, true, sm::BM);
+  if (e == cudaSuccess) e = sm::operand_map(&lo_m, lo, V, R, ld, true, sm::BM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const DlEpi dl{lse, g, labels, static_cast<__nv_bfloat16*>(hi),
+                 static_cast<__nv_bfloat16*>(lo), ld, R, V, vocab};
+  const sm::StoreEpi<float> to_dx{dx, d, 1, R, d};
+  const sm::StoreEpi<float> to_dw{dw, dws_v, dws_k, V, d};  // dw^T (V, d)
+  // dx sums V = 128256 products a column: 128-wide tiles with the
+  // accumulator promoted every DX_PROMOTE k-tiles (gemm_sm90.cuh)
+  if (tied) {
+    e = sm::gemm<false, false, 1>(x_a, x_a, w_a, R, V, d, dl, s);
+    if (e == cudaSuccess)
+      e = sm::gemm<false, true, 2, DX_TN, DX_PROMOTE>(hi_k, lo_k, w_b, R, d, V, to_dx, s);
+  } else {
+    e = sm::gemm<false, true, 1>(x_a, x_a, w_a, R, V, d, dl, s);
+    if (e == cudaSuccess)
+      e = sm::gemm<false, false, 2, DX_TN, DX_PROMOTE>(hi_k, lo_k, w_b, R, d, V, to_dx, s);
+  }
+  if (e == cudaSuccess) e = sm::gemm<true, true, 2>(hi_m, lo_m, x_b, V, d, R, to_dw, s);
+  return static_cast<int>(e);
 }

@@ -8,19 +8,30 @@
 // sum is rounded once to c's type, as the TPU kernel's f32 scratch
 // accumulator is flushed on the last K step.
 //
-// Bound on the H100: operations at the shapes it is used at (2 M N K FLOPs
-// against (M K + K N) * 2 + M N * 2 bytes: 4096 x 2048 @ 2048 x 8192 in bf16
-// does ~1400 operations a byte). This first version is the classic
-// shared-memory SGEMM on the CUDA cores (no tensor cores), held to 2 M N K
-// over the bf16 tensor-core peak. What the design does about it: the TPU
-// grid's sequential K axis becomes a loop inside the block; one block of 256
-// threads owns a 128 x 128 tile of C and walks K in slices of 8, staging the
-// A slice (transposed) and the B slice in shared memory as f32; each thread
-// keeps an 8 x 8 block of C in registers (rows ty + 16 i, columns tx + 16 j,
-// so a warp reads consecutive shared-memory words), which gives 64 FMAs for
-// every 16 shared-memory loads. Ragged M, N and K are masked on load and
-// store (the TPU version fits its blocks to divisors instead).
+// Bound on the H100: operations, 2 M N K FLOPs at the bf16 tensor-core peak
+// (989 TFLOP/s): 4096 x 2048 @ 2048 x 8192 in bf16 is 137 GFLOP against
+// 0.1 GB of operands and result, ~1400 operations a byte, so 0.139 ms.
+//
+// Two routes, chosen by the wrapper up front from dtype and layout:
+// * matmul_tc, the tensor-core route (bf16 a and b with TMA-aligned rows):
+//   the mainloop of gemm_sm90.cuh, a K-major and b N-major (wgmma reads b
+//   through its transpose bit), 128 x 256 output tiles, a ring of 4 stages of
+//   64-deep TMA loads, two consumer warpgroups on wgmma.m64n256k16; the
+//   epilogue rounds the f32 accumulator once into c. What the design does
+//   about the bound: every FLOP runs on the tensor cores, the loads are
+//   TMA's (no thread spends an instruction on an address), and the blocks in
+//   flight share their operand panels through L2.
+// * matmul, the CUDA-core route (f32 operands: TF32 would change an f32
+//   product's numbers; and bf16 operands TMA cannot read): the classic
+//   shared-memory SGEMM. The TPU grid's sequential K axis becomes a loop
+//   inside the block; one block of 256 threads owns a 128 x 128 tile of C
+//   and walks K in slices of 8, staging the A slice (transposed) and the B
+//   slice in shared memory as f32; each thread keeps an 8 x 8 block of C in
+//   registers (rows ty + 16 i, columns tx + 16 j), 64 FMAs for every 16
+//   shared-memory loads. Ragged M, N and K are masked on load and store
+//   (the TPU version fits its blocks to divisors instead).
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -115,4 +126,27 @@ extern "C" int matmul(const void* a, const void* b, void* c, int M, int N, int K
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: a (M, K) and b (K, N) bf16, rows contiguous with
+// leading strides lda and ldb (multiples of 8 elements, 16-byte aligned
+// bases); c contiguous (M, N), out_dtype 0 = float32, 1 = bfloat16.
+extern "C" int matmul_tc(const void* a, const void* b, void* c, int M, int N, int K,
+                         int out_dtype, long long lda, long long ldb, void* stream) {
+  namespace g = repro::sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap ta, tb;
+  cudaError_t e = g::operand_map(&ta, a, K, M, lda, false, g::BM);
+  if (e == cudaSuccess) e = g::operand_map(&tb, b, N, K, ldb, true, g::BN);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (out_dtype == 0)
+    e = g::gemm<false, true, 1>(ta, ta, tb, M, N, K,
+                                g::StoreEpi<float>{static_cast<float*>(c), N, 1, M, N}, s);
+  else if (out_dtype == 1)
+    e = g::gemm<false, true, 1>(
+        ta, ta, tb, M, N, K,
+        g::StoreEpi<__nv_bfloat16>{static_cast<__nv_bfloat16*>(c), N, 1, M, N}, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }

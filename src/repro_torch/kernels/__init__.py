@@ -5,7 +5,9 @@ its plain PyTorch version only for a tensor on the CPU. Every wrapper keeps
 a launch count (``wrapper.launches``) that rises by one where the kernel is
 launched and nowhere else, so a run can show that it went through the
 kernels: :func:`reset_launches` zeroes them, :func:`launch_counts` reads
-them.
+them. A wrapper with two kernels (``matmul``, ``lm_head_bwd``: a
+tensor-core and a CUDA-core route) also counts its launches by route in
+``wrapper.routes``, which :func:`reset_launches` zeroes too.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ KERNELS = {
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
+        for path in getattr(fn, "routes", ()):
+            fn.routes[path] = 0
 
 
 def launch_counts() -> dict[str, int]:

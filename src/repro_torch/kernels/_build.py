@@ -2,12 +2,14 @@
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on first
 use into ``_build/lib<name>-<hash>.so`` beside the package (the directory is
-git-ignored; a hash of the flags, the source and ``common.cuh`` names the
-library, so an edited source is rebuilt and a stale library never loaded).
+git-ignored; a hash of the flags, the source and the shared headers
+``common.cuh`` and ``gemm_sm90.cuh`` names the library, so an edited source
+or header is rebuilt and a stale library never loaded).
 :func:`build_all` starts one ``nvcc`` per source, all at once, so a cold
 start pays for the slowest file only. Nothing here runs at import time.
 :func:`on_cpu` is the one rule every wrapper follows to choose between its
-kernel and its plain version.
+kernel and its plain version; :func:`tma_ok` is the layout rule of the
+tensor-core routes (their operands are read by TMA).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["SOURCES", "build_all", "load", "check", "on_cpu"]
+__all__ = ["SOURCES", "build_all", "load", "check", "on_cpu", "tma_ok"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -27,6 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
            "flash_bwd", "fd2d", "sem", "dg", "flash_decode", "ssm_scan",
            "ring_flash", "matmul")
+HEADERS = ("common.cuh", "gemm_sm90.cuh")    # included by the sources
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,7 +47,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu", "common.cuh"):
+    for src in (f"{name}.cu", *HEADERS):
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
@@ -116,6 +119,17 @@ def on_cpu(name: str, *tensors) -> bool:
                          "every tensor must be on one CUDA device (or all "
                          "on the CPU)")
     return False
+
+
+def tma_ok(t) -> bool:
+    """True when TMA can read the 2-D bf16 tensor ``t`` row by row: rows
+    contiguous, the base address 16-byte aligned and the row stride a
+    multiple of 8 elements (16 bytes) no shorter than a row."""
+    import torch
+
+    return (t.dtype == torch.bfloat16 and t.stride(1) == 1
+            and t.data_ptr() % 16 == 0 and t.stride(0) % 8 == 0
+            and t.stride(0) >= max(t.shape[1], 1))
 
 
 def check(lib: ctypes.CDLL, code: int, what: str):

@@ -40,6 +40,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)     # flash_fwd, flash_decode, paged_decode
 _BWD_HEAD_DIMS = (32, 64)      # flash_bwd
+RING_BWD_HEAD_DIMS = _BWD_HEAD_DIMS   # ring_flash_bwd (ring.py reads it)
 _MAX_GROUP = 16                # decode kernels: query heads per kv head
 _MAX_GROUP_DIM = 1024          # decode kernels: (query heads per kv head) * d
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -444,7 +445,7 @@ def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,
         return ring_bwd_ref(q, k, v, do, lse, delta, q_start, k_start,
                             causal=causal, window=window, sm_scale=sm_scale,
                             prefix_len=prefix_len)
-    _check_qkv(name, q, k, v, _BWD_HEAD_DIMS)
+    _check_qkv(name, q, k, v, RING_BWD_HEAD_DIMS)
     _check_gqa(name, q, k, v)
     win, prefix = _ring_masks(name, q, k, window, prefix_len)
     b, h, sq, d = q.shape

@@ -22,6 +22,10 @@ JAX ``_ring_step_bwd``) and runs ``ring_flash_bwd``. Steps are combined by
   gradients the other way, as JAX's transpose of ``ppermute`` does, so dk
   and dv arrive at the rank that owns their chunk.
 
+On the card a gradient needs ``ring_flash_bwd``, which takes the head dims
+``RING_BWD_HEAD_DIMS``; asked for at another head dim,
+:func:`ring_flash_attention` raises before its first launch (as
+``flash_attention`` does) instead of failing inside ``backward``.
 """
 
 from __future__ import annotations
@@ -29,7 +33,9 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from .ops import flash_delta, ring_flash_bwd, ring_flash_fwd
+from .._build import on_cpu
+from .ops import (RING_BWD_HEAD_DIMS, _grad_asked, flash_delta,
+                  ring_flash_bwd, ring_flash_fwd)
 
 __all__ = ["ring_flash_attention", "ring_merge"]
 
@@ -181,7 +187,16 @@ def ring_flash_attention(q, k, v, *, mesh=None, mesh_axis="model",
     must equal the axis size. Without ``mesh`` the same steps and merge run
     in one process over ``ring_steps`` (default 1) chunks of the kv stream,
     which must divide its length. Queries are aligned to the end of the
-    global kv stream (the ``flash_attention`` convention)."""
+    global kv stream (the ``flash_attention`` convention). On the card a
+    gradient at a head dim outside ``RING_BWD_HEAD_DIMS`` raises up front;
+    the CPU differentiates the plain versions at any head dim."""
+    d = q.shape[-1]
+    if (d not in RING_BWD_HEAD_DIMS and _grad_asked(q, k, v)
+            and not on_cpu("ring_flash_attention", q, k, v)):
+        raise NotImplementedError(
+            f"ring_flash_attention: no backward kernel for head dim {d} on "
+            f"the card (ring_flash.cu's ring_flash_bwd takes head dims "
+            f"{RING_BWD_HEAD_DIMS}); call it under torch.no_grad()")
     kw = dict(causal=causal, window=window, sm_scale=sm_scale,
               prefix_len=prefix_len)
     if mesh is not None:

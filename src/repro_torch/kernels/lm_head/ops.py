@@ -10,7 +10,13 @@ backward (nor has the JAX op) and raises when asked for a gradient.
 a ``torch.autograd.Function`` on both devices: the forward
 (``lm_head_ce.raw``) streams each row's lse and label logit out of the
 product without keeping the (R, V) logits, the backward
-(``lm_head_bwd``) recomputes ``softmax - onehot`` from the saved lse.
+(``lm_head_bwd``) recomputes ``softmax - onehot`` from the saved lse. On
+the card the backward picks one of two kernels up front by
+:func:`bwd_route` (dtype and layout alone): the tensor-core route
+(``lm_head_ce_bwd_tc``: three TMA + ``wgmma`` products, dl kept as hi/lo
+bf16 planes) or the CUDA-core route (``lm_head_ce_bwd``, dl in f32).
+``lm_head_bwd.launches`` counts every call and ``lm_head_bwd.routes`` counts
+them by route.
 """
 
 from __future__ import annotations
@@ -19,10 +25,10 @@ import ctypes
 
 import torch
 
-from .._build import check, load, on_cpu, ptr, stream
+from .._build import check, load, on_cpu, ptr, stream, tma_ok
 from .ref import lm_head_bwd_ref, lm_head_ce_stats_ref, lm_head_logits_ref
 
-__all__ = ["lm_head_logits", "lm_head_ce", "lm_head_bwd"]
+__all__ = ["lm_head_logits", "lm_head_ce", "lm_head_bwd", "bwd_route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -30,7 +36,8 @@ _SIG = {"lm_head": ([_P] * 7 + [_I] * 5 + [_L] * 3 + [_P], _I),
         "lm_head_partials": ([_I], _I)}
 _CE_SIG = {"lm_head_ce_splits": ([_I], _I),
            "lm_head_ce_fwd": ([_P] * 6 + [_I] * 5 + [_L] * 3 + [_P], _I),
-           "lm_head_ce_bwd": ([_P] * 8 + [_I] * 5 + [_L] * 5 + [_P], _I)}
+           "lm_head_ce_bwd": ([_P] * 8 + [_I] * 5 + [_L] * 5 + [_P], _I),
+           "lm_head_ce_bwd_tc": ([_P] * 9 + [_I] * 4 + [_L] * 6 + [_P], _I)}
 
 
 def _check_head(name, x, w):
@@ -126,12 +133,26 @@ def _ce_raw(x, w, labels, *, vocab=None):
     return lse, gold
 
 
+def bwd_route(x, w) -> str:
+    """The kernel a CUDA call of :func:`lm_head_bwd` launches, from dtype
+    and layout alone: ``"wgmma"`` (the tensor-core route) when x and w are
+    bf16, TMA can read x row by row and w either as the tied head's
+    transposed view (``w.T`` rows contiguous) or by its own contiguous rows
+    (``tma_ok``); else ``"simt"`` (the CUDA-core route: f32 inputs, whose
+    exact f32 products it keeps, and bf16 views with unaligned rows)."""
+    rows = w if w.stride(1) == 1 else w.T
+    return "wgmma" if tma_ok(x) and tma_ok(rows) else "simt"
+
+
 def lm_head_bwd(x, w, labels, lse, g, *, vocab=None):
     """The CE backward: (dx (R, d) f32, dw (d, V) f32) for the per-row NLL
     cotangent ``g`` (R, 1) f32, recomputed from the forward's ``lse``. On
     the card dw is written in w's memory layout: for the tied head
     ``embed.T`` it is the transposed view of an (V, d) tensor, so the
-    embedding's gradient needs no transpose copy."""
+    embedding's gradient needs no transpose copy. The route
+    (:func:`bwd_route`) is fixed before any launch: the tensor-core route
+    keeps dl = g (p - onehot) as two bf16 planes hi + lo (the function of
+    :func:`.ref.lm_head_bwd_split_ref`), the CUDA-core route as f32."""
     name = "lm_head_bwd"
     if on_cpu(name, x, w):
         return lm_head_bwd_ref(x, w, labels, lse, g, vocab=vocab)
@@ -144,23 +165,37 @@ def lm_head_bwd(x, w, labels, lse, g, *, vocab=None):
             raise ValueError(f"{name}: {n} must be contiguous f32 ({R}, 1) "
                              f"on {x.device}")
     dev = x.device
-    dl = torch.empty((R, V), dtype=torch.float32, device=dev)
     dx = torch.empty((R, d), dtype=torch.float32, device=dev)
     if w.stride(0) == 1 and w.stride(1) != 1:
         dw = torch.empty((V, d), dtype=torch.float32, device=dev).T
     else:
         dw = torch.empty((d, V), dtype=torch.float32, device=dev)
     lib = load("lm_head_ce", _CE_SIG)
-    err = lib.lm_head_ce_bwd(ptr(x), ptr(w), ptr(labels), ptr(lse), ptr(g),
-                             ptr(dl), ptr(dx), ptr(dw), R, d, V, vocab,
-                             _DTYPE_CODE[x.dtype], x.stride(0), w.stride(0),
-                             w.stride(1), dw.stride(0), dw.stride(1), stream())
-    check(lib, err, "lm_head_ce_bwd")
+    path = bwd_route(x, w)
+    if path == "wgmma":
+        ld = -(-V // 8) * 8                 # TMA: rows 16-byte aligned
+        planes = torch.empty((2, R, ld), dtype=torch.bfloat16, device=dev)
+        err = lib.lm_head_ce_bwd_tc(
+            ptr(x), ptr(w), ptr(labels), ptr(lse), ptr(g), ptr(planes[0]),
+            ptr(planes[1]), ptr(dx), ptr(dw), R, d, V, vocab, ld,
+            x.stride(0), w.stride(0), w.stride(1), dw.stride(0),
+            dw.stride(1), stream())
+        check(lib, err, "lm_head_ce_bwd_tc")
+    else:
+        dl = torch.empty((R, V), dtype=torch.float32, device=dev)
+        err = lib.lm_head_ce_bwd(ptr(x), ptr(w), ptr(labels), ptr(lse),
+                                 ptr(g), ptr(dl), ptr(dx), ptr(dw), R, d, V,
+                                 vocab, _DTYPE_CODE[x.dtype], x.stride(0),
+                                 w.stride(0), w.stride(1), dw.stride(0),
+                                 dw.stride(1), stream())
+        check(lib, err, "lm_head_ce_bwd")
     lm_head_bwd.launches += 1
+    lm_head_bwd.routes[path] += 1
     return dx, dw
 
 
 lm_head_bwd.launches = 0
+lm_head_bwd.routes = {"wgmma": 0, "simt": 0}
 
 
 class _LMHeadCE(torch.autograd.Function):

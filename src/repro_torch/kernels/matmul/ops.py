@@ -1,6 +1,12 @@
-"""Public blocked-matmul op: the ``csrc/matmul.cu`` kernel on CUDA tensors,
+"""Public blocked-matmul op: the ``csrc/matmul.cu`` kernels on CUDA tensors,
 the plain version on the CPU (counterpart of
 ``repro.kernels.matmul.ops``).
+
+On the card the wrapper picks one of two kernels up front, by
+:func:`route` (dtype and layout alone, never after a failure): the
+tensor-core kernel (``matmul_tc``: TMA + ``wgmma``, ``csrc/gemm_sm90.cuh``)
+or the CUDA-core SGEMM (``matmul``). ``matmul.launches`` counts every launch
+and ``matmul.routes`` counts them by route.
 
 The JAX op's host path fits its TPU blocks to divisors of the shapes and
 raises when that degrades them into a grid too large to build ("degraded
@@ -14,21 +20,32 @@ import ctypes
 
 import torch
 
-from .._build import check, load, on_cpu, ptr, stream
+from .._build import check, load, on_cpu, ptr, stream, tma_ok
 from .ref import matmul_ref
 
-__all__ = ["matmul"]
+__all__ = ["matmul", "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIG = {"matmul": ([_P] * 3 + [_I] * 5 + [_L, _L, _P], _I)}
+_SIG = {"matmul": ([_P] * 3 + [_I] * 5 + [_L, _L, _P], _I),
+        "matmul_tc": ([_P] * 3 + [_I] * 4 + [_L, _L, _P], _I)}
+
+
+def route(a, b) -> str:
+    """The kernel a CUDA call of :func:`matmul` launches, from dtype and
+    layout alone: ``"wgmma"`` (the tensor-core kernel) when a and b are
+    bf16 and TMA can read both (:func:`tma_ok`), else ``"simt"`` (the
+    CUDA-core kernel: f32 operands, whose exact f32 products TF32 would
+    change, and bf16 views with unaligned rows)."""
+    return "wgmma" if tma_ok(a) and tma_ok(b) else "simt"
 
 
 def matmul(a, b, *, out_dtype=None):
     """a (M, K) @ b (K, N) -> (M, N) in ``out_dtype`` (default a's dtype),
     products summed in f32. a and b share one dtype (float32 or bfloat16 on
     the card). K == 0 or an empty M or N gives zeros without a launch. Records
-    no autograd graph, as the JAX op has no VJP."""
+    no autograd graph, as the JAX op has no VJP. On the card bf16 operands
+    run on the tensor cores when :func:`route` says so."""
     name = "matmul"
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"{name}: expected 2-D operands, got "
@@ -54,12 +71,20 @@ def matmul(a, b, *, out_dtype=None):
         raise ValueError(f"{name}: the rows of a and b must be contiguous")
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     lib = load("matmul", _SIG)
-    err = lib.matmul(ptr(a), ptr(b), ptr(c), m, n, k, _DTYPE_CODE[a.dtype],
-                     _DTYPE_CODE[out_dtype], a.stride(0), b.stride(0),
-                     stream())
-    check(lib, err, name)
+    path = route(a, b)
+    if path == "wgmma":
+        err = lib.matmul_tc(ptr(a), ptr(b), ptr(c), m, n, k,
+                            _DTYPE_CODE[out_dtype], a.stride(0), b.stride(0),
+                            stream())
+    else:
+        err = lib.matmul(ptr(a), ptr(b), ptr(c), m, n, k,
+                         _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype],
+                         a.stride(0), b.stride(0), stream())
+    check(lib, err, f"{name} ({path})")
     matmul.launches += 1
+    matmul.routes[path] += 1
     return c
 
 
 matmul.launches = 0
+matmul.routes = {"wgmma": 0, "simt": 0}

@@ -37,7 +37,9 @@ from repro_torch.kernels.flash_attention import (decode_ref, flash_attention,
                                                  ring_flash_fwd, ring_fwd_ref,
                                                  rolling_slot_pos)
 from repro_torch.kernels.matmul import matmul, matmul_ref
-from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
+from repro_torch.kernels.matmul.ops import route as matmul_route
+from repro_torch.kernels.lm_head import (bwd_route, lm_head_bwd,
+                                         lm_head_bwd_ref,
                                          lm_head_ce, lm_head_ce_stats_ref,
                                          lm_head_logits, lm_head_logits_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
@@ -717,3 +719,129 @@ def test_matmul_rejects_what_the_kernel_cannot_take(dev):
         matmul(a, a.T.cpu())
     with pytest.raises(ValueError, match="rows"):
         matmul(a.T, a)                          # column-major a
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of matmul and the CE backward; the ring's up-front
+# refusal of gradients at head dim 128
+# ---------------------------------------------------------------------------
+
+def test_ring_attention_refuses_d128_gradients_before_launch(dev):
+    """At d = 128 (the step forward takes it, ring_flash_bwd does not) a
+    gradient asked of the local ring raises before the first launch; under
+    torch.no_grad() the forward runs."""
+    q, k, v = (_rnd(dev, 1, h, 64, 128, seed=i)
+               for i, h in enumerate((4, 2, 2)))
+    reset_launches()
+    with pytest.raises(NotImplementedError, match="head dim 128"):
+        ring_flash_attention(q.requires_grad_(), k, v, ring_steps=2)
+    assert launch_counts()["ring_flash_fwd"] == 0
+    with torch.no_grad():
+        o = ring_flash_attention(q, k, v, ring_steps=2)
+    assert launch_counts()["ring_flash_fwd"] == 2 and torch.isfinite(o).all()
+
+
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A ("data", "model") mesh of one gloo rank in this process."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}",
+                            rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gqa_ring_branch_refuses_d128_gradients_before_launch(
+        dev, one_rank_mesh, monkeypatch):
+    """gqa_forward's ring branch (forced onto the one-rank model axis) at
+    head dim 128: asking for a gradient raises before any ring launch."""
+    from repro_torch.layers import attention as attn
+    from repro_torch.parallel import Rules, use_rules
+
+    monkeypatch.setattr(attn, "ring_axis_for",
+                        lambda mesh, s, model_axis="model": model_axis)
+    cfg = dataclasses.replace(reduced(get_config("llama3_2_1b")),
+                              head_dim=128)
+    params = attn.gqa_init(torch.Generator(device=dev).manual_seed(0), cfg,
+                           torch.float32, dev)
+    x = _rnd(dev, 1, 32, cfg.d_model).requires_grad_()
+    reset_launches()
+    with use_rules(Rules(mesh=one_rank_mesh, ring_axis="model")):
+        with pytest.raises(NotImplementedError, match="head dim 128"):
+            attn.gqa_forward(params, x, cfg)
+    assert launch_counts()["ring_flash_fwd"] == 0
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 64, 256), (129, 200, 72),
+                                   (300, 136, 264), (7, 2056, 520),
+                                   (512, 1024, 768)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_tensor_core_route(dev, m, k, n, out_dtype):
+    """bf16 operands with TMA-aligned rows take the wgmma kernel: ragged M,
+    N and K against the 128 x 256 x 64 tiles. The products are exact in f32
+    on both sides; f32 out differs by the order of K f32 additions (at K =
+    2056 ~ sqrt(K) half-ulps of partial sums near the largest |c|): 2^-16
+    of the largest magnitude. bf16 out within one rounding (2^-7)."""
+    a = _rnd(dev, m, k).to(torch.bfloat16)
+    b = _rnd(dev, k, n, seed=1).to(torch.bfloat16)
+    assert matmul_route(a, b) == "wgmma"
+    reset_launches()
+    got = matmul(a, b, out_dtype=out_dtype)
+    assert matmul.routes == {"wgmma": 1, "simt": 0}
+    want = matmul_ref(a, b, out_dtype=out_dtype)
+    _close_rel(got, want, 2 ** -16 if out_dtype == torch.float32
+               else 2 ** -7)
+
+
+def test_matmul_routes_by_layout(dev):
+    """f32 operands and bf16 views TMA cannot read take the SIMT kernel; a
+    view of wider, aligned rows still takes wgmma."""
+    a = _rnd(dev, 96, 136).to(torch.bfloat16)
+    b = _rnd(dev, 136, 80, seed=1).to(torch.bfloat16)
+    cases = [(a.float(), b.float(), "simt"),
+             (a[:, :130].contiguous(), b[:130], "simt"),  # rows of 130
+             (a[:, 1:129], b[:128], "simt"),          # base 2 bytes off
+             (a[:, :128], b[:128], "wgmma")]
+    for x, y, want in cases:
+        reset_launches()
+        got = matmul(x, y, out_dtype=torch.float32)
+        assert matmul.routes[want] == 1 == matmul.launches, want
+        torch.testing.assert_close(
+            got, matmul_ref(x, y, out_dtype=torch.float32), **TOL)
+
+
+@pytest.mark.parametrize("R,V,vocab,d", [(67, 200, 190, 96), (5, 96, 70, 48),
+                                         (130, 1104, 1000, 64),
+                                         (300, 520, 520, 256)])
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_head_bwd_tensor_core_route(dev, R, V, vocab, d, tied):
+    """bf16 x and w take the tensor-core backward (dl as hi/lo bf16
+    planes): dx and dw within 1e-3 of the largest magnitude of the f32-dl
+    plain version (as at full width), dw in w's own layout, zero on the
+    padded columns."""
+    bf = torch.bfloat16
+    x = _rnd(dev, R, d).to(bf)
+    w = (_rnd(dev, V, d, seed=1).T if tied else _rnd(dev, d, V, seed=1)).to(bf)
+    lab = torch.randint(0, vocab, (R, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(R)).to(dev)
+    lse, _ = lm_head_ce.raw(x, w, lab, vocab=vocab)
+    g = _rnd(dev, R, 1, seed=2)
+    assert bwd_route(x, w) == "wgmma"
+    reset_launches()
+    dx, dw = lm_head_bwd(x, w, lab, lse, g, vocab=vocab)
+    assert lm_head_bwd.routes == {"wgmma": 1, "simt": 0}
+    rdx, rdw = lm_head_bwd_ref(x, w, lab, lse, g, vocab=vocab)
+    _close_rel(dx, rdx, 1e-3)
+    _close_rel(dw, rdw, 1e-3)
+    assert dw.stride() == ((1, d) if tied else (V, 1))
+    assert (dw[:, vocab:] == 0).all()
+    # f32 and unaligned bf16 keep the CUDA-core backward
+    for xx, ww in ((x.float(), w.float()),
+                   (x[:, :d - 2].contiguous(), w[:d - 2])):  # rows of d - 2
+        reset_launches()
+        lm_head_bwd(xx, ww, lab, lse, g, vocab=vocab)
+        assert lm_head_bwd.routes == {"wgmma": 0, "simt": 1}
