@@ -14,7 +14,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build: one nvcc per CUDA source, all in parallel, plus the Triton
    rmsnorm and flash-delta kernels; the SASS of the matmul and CE-head
-   libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads);
+   libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads), that of the
+   flash_fwd and ring_flash libraries HGMMA and LDGSTS (cp.async);
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
    max|ref| for SEM/DG; flash_decode on positional and rotated caches,
@@ -23,7 +24,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    shard and chunk lengths, GQA, window and prefix masks and a chunk wholly
    after its shard; matmul at ragged M/N/K, out_dtype and K == 0; the
    tensor-core routes of matmul and the CE backward in bf16 at ragged
-   shapes, tied and untied heads, each launch's route counted), bf16 at
+   shapes, tied and untied heads, of flash_fwd at ragged Sq != Skv,
+   windows, d 32/64/128, GQA groups 1/4 and the projection's strided q,
+   and of the ring step backward at ring offsets with dead rows, windows, a
+   prefix and d 32/64/128, each launch's route counted), bf16 at
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
@@ -49,7 +53,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, a checkpoint every
    3 steps). Launch counts are zeroed just before and read just after;
    every training kernel (and rmsnorm, flash_fwd) must have launched, the
-   bf16 CE backward on its tensor-core route every time, every loss be
+   bf16 CE backward and flash_fwd on their tensor-core routes every time,
+   every loss be
    finite, and the latest checkpoint must restore bit-equal to the
    parameters and optimizer state saved;
 7. where the training time goes: one train step on the host clock and
@@ -57,7 +62,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    among its device rows, each with its TFLOP/s);
 8. per-kernel times at the main paths' shapes beside their bound, the
    plain version's time and one library call's time (null where no single
-   PyTorch call computes the function); the tensor-core kernels' TFLOP/s;
+   PyTorch call computes the function), flash_fwd also at the train step's
+   shape; the tensor-core kernels' TFLOP/s;
 9. the apps path, launch counts zeroed just before and read just after,
    each app kernel launched exactly as often as its calls say: ``FDWave``
    on 8192^2 at radius 4 for 200 steps (MNodes/s, analytic error) and
@@ -85,7 +91,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     over 4 steps and the distributed schedule replayed rank by rank for 4
     ranks (``ring_schedule_replay``), forward and gradients, both against
     the port's ``flash_attention`` (each step kernel launched exactly
-    4 + 16 times); then ``matmul`` at 4096 x 2048 @ 2048 x 8192 in bf16
+    4 + 16 times, the backward on its tensor-core route each time); then
+    ``matmul`` at 4096 x 2048 @ 2048 x 8192 in bf16
     (one launch, on the tensor-core route) against its plain version. The
     multi-rank ring over ``torch.distributed`` needs two cards and is held
     on the CPU only (``tests/test_torch_ring.py``, gloo).
@@ -476,15 +483,45 @@ def paged_state(dev, cfg, lens, page, num_pages, nlayers, dtype, gen):
     return pools, table.to(dev), kv_len.to(dev), pos.to(dev)
 
 
+def _proj(gen, b, s, heads, hd):
+    """A bf16 (b, heads, s, hd) tensor laid out as the attention layer's
+    projections give it: the (b, s, heads, hd) -> (b, heads, s, hd) view,
+    strides (s heads hd, hd, heads hd, 1)."""
+    import torch
+
+    t = torch.randn((b, s, heads, hd), generator=gen, device=gen.device)
+    return t.to(torch.bfloat16).transpose(1, 2)
+
+
+def check_flash_tc(tag, q, k, v, quiet=False, **kw):
+    """One bf16 flash_attention_fwd call against flash_fwd_ref, on the
+    tensor-core route (counted). o within 2e-2 absolute + relative (the
+    plain version rounds the normalised p to bf16 before p@v, the kernel
+    the unnormalised one; both round o once) and, row by row, within 2^-6
+    of the row's largest |o| (the rounding model reads 2^-7, one bf16 ulp of
+    o: a tile dropped or counted twice misses by far more); lse within
+    1e-3 / 1e-4. Returns max |err| of o."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_fwd_ref)
+
+    before = flash_attention_fwd.routes["wgmma"]
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    if flash_attention_fwd.routes["wgmma"] != before + 1:
+        fail(f"{tag}: did not take the tensor-core route")
+    ro, rlse = flash_fwd_ref(q, k, v, **kw)
+    err = check_close(tag + " o", o, ro, atol=2e-2, rtol=2e-2, quiet=quiet)
+    check_rows(tag + " o", o, ro, 2 ** -6, quiet=quiet)
+    check_close(tag + " lse", lse, rlse, atol=1e-3, rtol=1e-4, quiet=quiet)
+    return err
+
+
 def full_width_bf16_checks(dev, cfg, params, sq, lens, page, num_pages):
     """Each kernel against its plain version at the main path's shapes, in
     bf16: a prefill of ``sq`` tokens, a decode step over slots holding
     ``lens`` tokens. Returns {kernel: max |err|}."""
     import torch
 
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_fwd_ref,
-                                                     paged_decode_attention,
+    from repro_torch.kernels.flash_attention import (paged_decode_attention,
                                                      paged_decode_ref)
     from repro_torch.kernels.lm_head import lm_head_logits, lm_head_logits_ref
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
@@ -505,18 +542,15 @@ def full_width_bf16_checks(dev, cfg, params, sq, lens, page, num_pages):
             f"rmsnorm bf16 ({rows},1,{d})", rmsnorm(x, w, eps=cfg.norm_eps),
             rmsnorm_ref(x, w, eps=cfg.norm_eps), atol=1e-6, rtol=2 ** -7))
 
-    # attention: the plain version rounds p to bf16 before p@v (2^-9
-    # relative per term), the kernels keep p in f32, and both round the
-    # output to bf16: 2e-2 absolute + relative covers both at |o| <~ 4
-    q = torch.randn((1, sq, h, hd), generator=gen, device=dev).to(bf)
-    q = q.transpose(1, 2)                  # the projection's strided view
-    k = torch.randn((1, hk, sq, hd), generator=gen, device=dev).to(bf)
-    v = torch.randn((1, hk, sq, hd), generator=gen, device=dev).to(bf)
-    o, lse = flash_attention_fwd(q, k, v, causal=True)
-    ro, rlse = flash_fwd_ref(q, k, v, causal=True)
-    errs["flash_fwd"] = check_close(f"flash bf16 sq={sq} h={h}/{hk}", o, ro,
-                                    atol=2e-2, rtol=2e-2)
-    check_close("flash bf16 lse", lse, rlse, atol=1e-3, rtol=1e-4)
+    # attention: q, k, v as the projections' strided views (the main
+    # path's layout) and k, v contiguous besides; limits as check_flash_tc
+    q, k, v = (_proj(gen, 1, sq, n, hd) for n in (h, hk, hk))
+    errs["flash_fwd"] = 0.0
+    for layout, kk, vv in (("k/v views", k, v),
+                           ("k/v contiguous", k.contiguous(), v.contiguous())):
+        errs["flash_fwd"] = max(errs["flash_fwd"], check_flash_tc(
+            f"flash bf16 sq={sq} h={h}/{hk} {layout}", q, kk, vv,
+            causal=True))
 
     pools, table, kv_len, pos = paged_state(dev, cfg, lens, page, num_pages,
                                             1, bf, gen)
@@ -591,6 +625,7 @@ def serve_main_path(cfg, model, params, reqs):
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.serving import Engine
 
     eng = Engine(model, params, batch=8, max_len=2048)
@@ -622,6 +657,7 @@ def serve_main_path(cfg, model, params, reqs):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        fwd_routes = dict(flash_attention_fwd.routes)
     finally:
         del model.prefill, model.paged_greedy_step
     for rid, (p, m) in zip(rids, reqs):
@@ -633,6 +669,7 @@ def serve_main_path(cfg, model, params, reqs):
     for name in SERVE_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} never launched on the serving path")
+    check_tc_routes("serving path: flash_fwd", fwd_routes, counts["flash_fwd"])
     ntok = sum(len(res[r]) for r in rids)
     stats = dict(wall_s=wall, tokens=ntok, tok_s=ntok / wall,
                  prefill_calls=calls["prefill"],
@@ -729,9 +766,59 @@ def cuda_ms(fn, iters=30, warmup=3):
     return s.elapsed_time(e) / iters
 
 
+def device_ms(fn, kernel, n=20):
+    """The device time of one call's launches of ``kernel`` (a substring of
+    the CUDA kernel's name), from ``torch.profiler``'s device rows over n
+    calls: the kernel alone, without the host gaps that cuda_ms's
+    back-to-back calls measure when a call is shorter than its wrapper's
+    Python."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ms = sum(r[0] for r in device_rows(prof, n) if kernel in r[2])
+    if ms <= 0:
+        fail(f"profiler: no device time for {kernel}")
+    return ms
+
+
 def bound(bytes_, flops, dtype):
     tb, tf = bytes_ / HBM_BPS, flops / PEAK_FLOPS[dtype]
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+
+
+def flash_times(q, k, v, iters, plain_iters):
+    """Causal flash_attention_fwd on q, k, v (the projections' views): the
+    call's time back to back (cuda_ms), the kernel's device time alone on
+    these inputs and on contiguous copies of k and v (the layout is the
+    only difference), the plain version's time and SDPA's on contiguous
+    copies of all three."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_fwd_ref)
+
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+
+    def run(kk, vv):
+        return lambda: flash_attention_fwd(q, kk, vv, causal=True)
+
+    return dict(
+        ms=cuda_ms(run(k, v), iters),
+        device_ms=device_ms(run(k, v), "flash_fwd_tc_kernel"),
+        device_ms_contig=device_ms(run(kc, vc), "flash_fwd_tc_kernel"),
+        plain_ms=cuda_ms(lambda: flash_fwd_ref(q, k, v, causal=True),
+                         plain_iters, 1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True, enable_gqa=True), iters),
+        library="F.scaled_dot_product_attention(is_causal, enable_gqa) on "
+                "contiguous q, k, v")
 
 
 def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
@@ -741,9 +828,7 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_fwd_ref,
-                                                     paged_decode_attention,
+    from repro_torch.kernels.flash_attention import (paged_decode_attention,
                                                      paged_decode_ref)
     from repro_torch.kernels.lm_head import lm_head_logits, lm_head_logits_ref
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
@@ -768,20 +853,15 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
     out["rmsnorm"].update(zip(("bound_ms", "bound_by"), bound(
         2 * b * d * 2 + d * 4, 4 * b * d, "bfloat16")))
 
-    q = torch.randn((1, sq, h, hd), generator=gen, device=dev).to(bf)
-    q = q.transpose(1, 2)
-    k = torch.randn((1, hk, sq, hd), generator=gen, device=dev).to(bf)
-    v = torch.randn((1, hk, sq, hd), generator=gen, device=dev).to(bf)
-    qc = q.contiguous()
+    # q, k, v as the projections' views (the admission's layout); SDPA on
+    # contiguous copies
+    q, k, v = (_proj(gen, 1, sq, n, hd) for n in (h, hk, hk))
     pairs = sq * (sq + 1) // 2
     out["flash_fwd"] = dict(
-        ms=cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
-        plain_ms=cuda_ms(lambda: flash_fwd_ref(q, k, v, causal=True),
-                         iters=10),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qc, k, v, is_causal=True, enable_gqa=True)),
-        library="F.scaled_dot_product_attention(is_causal, enable_gqa)",
-        shape=f"q (1,{h},{sq},{hd}), k/v (1,{hk},{sq},{hd}) bf16, causal")
+        **flash_times(q, k, v, iters=30, plain_iters=10),
+        flops=4 * h * hd * pairs,
+        shape=f"q (1,{h},{sq},{hd}), k/v (1,{hk},{sq},{hd}) bf16 views, "
+              "causal")
     out["flash_fwd"].update(zip(("bound_ms", "bound_by"), bound(
         2 * (2 * h + 2 * hk) * sq * hd + 4 * h * sq,
         4 * h * hd * pairs, "bfloat16")))
@@ -933,12 +1013,10 @@ def _train_inputs(dev, cfg, embed, gen):
                         device=dev, dtype=torch.int32)
     gr = torch.full((R, 1), 1.0 / R, device=dev)      # d(mean NLL)/d(nll)
 
-    def proj(heads, scale=1.0):
-        t = torch.randn((b, s, heads, hd), generator=gen, device=dev) * scale
-        return t.to(bf).transpose(1, 2)
-
-    return dict(x=x, w=embed.T, lab=lab, g=gr, q=proj(h), k=proj(hk),
-                v=proj(hk), do=proj(h, 0.1))
+    q, k, v = (_proj(gen, b, s, n, hd) for n in (h, hk, hk))
+    do = torch.randn((b, s, h, hd), generator=gen, device=dev) * 0.1
+    return dict(x=x, w=embed.T, lab=lab, g=gr, q=q, k=k, v=v,
+                do=do.to(bf).transpose(1, 2))
 
 
 def full_width_train_checks(dev, cfg, embed):
@@ -978,6 +1056,10 @@ def full_width_train_checks(dev, cfg, embed):
                               check_rel("CE bwd bf16 dw", dw, rdw, 1e-3))
     del dx, dw, rdx, rdw
     q, k, v, do = t["q"], t["k"], t["v"], t["do"]
+    # flash_fwd at the train step's shape and layout (q, k, v all views)
+    errs["flash_fwd@train"] = check_flash_tc(
+        f"flash bf16 train {tuple(q.shape)} k/v {tuple(k.shape)} views", q,
+        k, v, causal=True)
     with torch.no_grad():
         o, lse = flash_attention_fwd(q, k, v, causal=True)
     # delta: 64 exact products summed in f32
@@ -1055,6 +1137,7 @@ def train_main_path(cfg):
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.lm_head import lm_head_bwd
     from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
@@ -1086,6 +1169,7 @@ def train_main_path(cfg):
         wall = time.perf_counter() - t0
         counts = launch_counts()
         bwd_routes = dict(lm_head_bwd.routes)
+        fwd_routes = dict(flash_attention_fwd.routes)
     finally:
         train_mod.train_step = step_fn
     hist = out["history"]
@@ -1099,6 +1183,7 @@ def train_main_path(cfg):
     if bwd_routes != {"wgmma": counts["lm_head_bwd"], "simt": 0}:
         fail(f"training path: CE backward routes {bwd_routes}; every bf16 "
              "backward must take the tensor-core route")
+    check_tc_routes("training path: flash_fwd", fwd_routes, counts["flash_fwd"])
 
     # the latest checkpoint (step 6) restores bit-equal into a fresh tree
     t0 = time.perf_counter()
@@ -1253,6 +1338,17 @@ def time_train_kernels(dev, cfg, embed):
     q, k, v, do = t["q"], t["k"], t["v"], t["do"]
     b, h, s, hd = q.shape
     hk = k.shape[1]
+    pairs = s * (s + 1) // 2
+    # flash_fwd at the train step's shape and layout (the projections'
+    # views)
+    out["flash_fwd@train"] = dict(
+        **flash_times(q, k, v, iters=20, plain_iters=3),
+        flops=4 * b * h * hd * pairs,
+        shape=f"q ({b},{h},{s},{hd}), k/v ({b},{hk},{s},{hd}) bf16 views, "
+              "causal (the train step's)")
+    out["flash_fwd@train"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * (2 * b * h * s * hd + 2 * b * hk * s * hd) + 4 * b * h * s,
+        4 * b * h * hd * pairs, "bfloat16")))
     with torch.no_grad():
         o, lse = flash_attention_fwd(q, k, v, causal=True)
     delta = flash_delta(do, o)
@@ -1269,7 +1365,6 @@ def time_train_kernels(dev, cfg, embed):
                   for t_ in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                           enable_gqa=True)
-    pairs = s * (s + 1) // 2
     out["flash_bwd"] = dict(
         ms=cuda_ms(lambda: flash_bwd(q, k, v, do, lse, delta, causal=True),
                    5, 1),
@@ -1847,6 +1942,7 @@ def _static_run(model, params, prompts, ngen):
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.launch.serve import generate
 
     torch.cuda.synchronize()
@@ -1854,6 +1950,8 @@ def _static_run(model, params, prompts, ngen):
     out, stats = generate(model, params, prompts, gen_tokens=ngen)
     torch.cuda.synchronize()
     counts = launch_counts()
+    check_tc_routes(f"{model.cfg.name} static path: flash_fwd",
+                    flash_attention_fwd.routes, counts["flash_fwd"])
     if stats["engine"] or out.shape != (prompts.shape[0], ngen):
         fail(f"{model.cfg.name}: generate took the engine or returned "
              f"{out.shape}")
@@ -2165,29 +2263,40 @@ def time_static_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
-# the tensor-core routes of matmul and the CE backward
+# the tensor-core routes of matmul, the CE backward, flash_fwd and the ring
+# step backward
 # ---------------------------------------------------------------------------
 
-TC_LIBS = ("matmul", "lm_head_ce")
+# library -> the SASS ops its tensor-core kernels must issue: wgmma (HGMMA)
+# everywhere; TMA tensor loads (UTMALDG) in the GEMM mainloop's libraries,
+# cp.async copies (LDGSTS) in the attention kernels'
+TC_LIBS = {"matmul": ("HGMMA", "UTMALDG"), "lm_head_ce": ("HGMMA", "UTMALDG"),
+           "flash_fwd": ("HGMMA", "LDGSTS"), "ring_flash": ("HGMMA", "LDGSTS")}
 
 
 def tc_sass_check():
-    """The matmul and CE-head libraries as built must hold HGMMA (wgmma) and
-    UTMALDG (TMA tensor loads) in their SASS: the design reached the tensor
-    cores and TMA."""
+    """The tensor-core libraries as built must hold the ops of TC_LIBS in
+    their SASS: the design reached the tensor cores and its copy engine."""
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in TC_LIBS:
+    for name, ops in TC_LIBS.items():
         sass = subprocess.run([tool, "--dump-sass", _build._lib_path(name)],
                               check=True, capture_output=True, text=True,
                               timeout=300).stdout
-        found = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+        found = {op: sass.count(op) for op in ops}
         if not all(found.values()):
             fail(f"SASS of lib{name}: {found}; the tensor-core route must "
-                 "issue HGMMA and UTMALDG")
+                 f"issue {' and '.join(ops)}")
         log(f"[sass] lib{name}: " + ", ".join(f"{op} x{n}"
                                               for op, n in found.items()))
+
+
+def check_tc_routes(what, routes, launches):
+    """Every one of ``launches`` bf16 launches took the tensor-core route."""
+    if dict(routes) != {"wgmma": launches, "simt": 0}:
+        fail(f"{what}: routes {dict(routes)}; all {launches} bf16 launches "
+             "must take the tensor-core kernel")
 
 
 def small_tc_checks(dev):
@@ -2197,7 +2306,8 @@ def small_tc_checks(dev):
     of the largest |c|; bf16 out by one rounding, 2^-7 of the largest); the
     CE backward tied and untied with
     vocab < V against lm_head_bwd_ref (1e-3 of the largest magnitude, the
-    full-width limit). Each call's route is counted and must be wgmma."""
+    full-width limit); then small_tc_attn_checks. Each call's route is
+    counted and must be wgmma."""
     import torch
 
     from repro_torch.kernels import reset_launches
@@ -2245,6 +2355,90 @@ def small_tc_checks(dev):
             calls += 1
     if lm_head_bwd.routes != {"wgmma": calls, "simt": 0}:
         fail(f"CE bwd routes {lm_head_bwd.routes}: expected {calls} on wgmma")
+    small_tc_attn_checks(dev)
+
+
+def small_tc_attn_checks(dev):
+    """The tensor-core routes of flash_fwd and the ring step backward
+    against their plain versions in bf16 at small ragged shapes, each case
+    with k and v (and do) both as the projections' views (the main path's
+    layout) and contiguous; limits beside each; every call's route counted,
+    all wgmma."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_delta,
+                                                     ring_bwd_ref,
+                                                     ring_flash_bwd,
+                                                     ring_flash_fwd)
+
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def layouts(b, s, h, hk, d):
+        """q (a view), then (tag, k, v, do) as views and contiguous."""
+        q, k, v, do = (_proj(g, b, s_, n, d)
+                       for s_, n in ((s[0], h), (s[1], hk), (s[1], hk),
+                                     (s[0], h)))
+        return q, (("views", k, v, do),
+                   ("contiguous", k.contiguous(), v.contiguous(),
+                    do.contiguous()))
+
+    reset_launches()
+    # flash_fwd: check_flash_tc's limits (the full-width ones)
+    calls = 0
+    for sq, skv, h, hk, d, causal, window in (
+            (5, 5, 4, 4, 32, True, None), (70, 200, 8, 2, 64, True, None),
+            (130, 130, 4, 1, 64, True, 40), (200, 333, 8, 2, 128, True, 50),
+            (129, 129, 4, 4, 128, False, None), (1, 77, 8, 2, 64, True, None),
+            (300, 300, 8, 2, 32, False, 64), (64, 64, 4, 1, 64, True, 1),
+            (1000, 1000, 8, 2, 64, True, None)):
+        q, lays = layouts(2, (sq, skv), h, hk, d)
+        for lay, k, v, _ in lays:
+            check_flash_tc(f"flash tc bf16 sq={sq} skv={skv} h={h}/{hk} d={d} "
+                           f"c={causal} window={window} k/v {lay}", q, k, v,
+                           causal=causal, window=window)
+            calls += 1
+    check_tc_routes("small flash_fwd cases", flash_attention_fwd.routes, calls)
+
+    # the ring step backward: dq within 2^-7 of its largest (rounded to
+    # bf16), dk/dv 1e-3 (f32), the full-width limits
+    calls = 0
+    # (sq, skv, h, hk, d, q_start, k_start, masks)
+    cases = ((70, 45, 4, 1, 32, 30, 50, {}),          # crosses the diagonal
+             (33, 40, 4, 4, 64, 100, 0, {}),          # wholly before
+             (33, 40, 8, 2, 64, 0, 64, {}),           # wholly after: dead
+             (197, 160, 8, 2, 64, 64, 96, {}),        # ragged, dead rows
+             (130, 200, 4, 1, 64, 60, 20, dict(window=30)),
+             (150, 145, 8, 2, 32, 10, 30, dict(prefix_len=35)),
+             (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
+             (130, 300, 8, 2, 128, 30, 50, dict(window=40)),
+             (256, 256, 8, 2, 128, 0, 0, {}),
+             (1024, 1024, 8, 2, 64, 1024, 0, {}))     # a whole chunk before
+    for sq, skv, h, hk, d, qs, ks, kw in cases:
+        q, lays = layouts(2, (sq, skv), h, hk, d)
+        qst, kst = _offsets(dev, qs, ks)
+        g_lse = torch.randn((2, h, sq), generator=g, device=dev)
+        for lay, k, v, do in lays:
+            o, lse = ring_flash_fwd(q, k, v, qst, kst, **kw)
+            delta = flash_delta(do, o) - torch.where(torch.isneginf(lse), 0.0,
+                                                     g_lse)
+            args = (q, k, v, do, lse, delta, qst, kst)
+            got = ring_flash_bwd(*args, **kw)
+            want = ring_bwd_ref(*args, **kw)
+            tag = (f"ring bwd tc bf16 sq={sq} skv={skv} h={h}/{hk} d={d} "
+                   f"q0={qs} k0={ks} {kw} k/v/do {lay}")
+            check_rel(tag + " dq", got[0], want[0], 2 ** -7)
+            check_rel(tag + " dk", got[1], want[1], 1e-3)
+            check_rel(tag + " dv", got[2], want[2], 1e-3)
+            dead = ks > qs + sq - 1 and kw.get("causal", True)
+            if dead and not all((t_ == 0).all() for t_ in got):
+                fail(f"{tag}: a dead chunk must give zero gradients")
+            rows = torch.isneginf(lse)
+            if rows.any() and not (got[0][rows] == 0).all():
+                fail(f"{tag}: rows with lse = -inf must give dq = 0")
+            calls += 1
+    check_tc_routes("small ring_flash_bwd cases", ring_flash_bwd.routes, calls)
     torch.cuda.synchronize()
 
 
@@ -2420,7 +2614,8 @@ def ring_main_path(dev):
 
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     ring_flash_attention)
+                                                     ring_flash_attention,
+                                                     ring_flash_bwd)
     from repro_torch.kernels.matmul import matmul, matmul_ref
 
     n = RING_STEPS
@@ -2443,6 +2638,7 @@ def ring_main_path(dev):
     torch.cuda.synchronize()
     t_replay = time.perf_counter() - t0
     counts = launch_counts()
+    bwd_routes = dict(ring_flash_bwd.routes)
     log(f"[ring] S={RING_SEQ} h=32/8 d=64 bf16, {n} steps, forward + "
         f"backward: flash_attention {t_flash * 1e3:.3f} ms, local ring "
         f"{t_local * 1e3:.3f} ms, rank-by-rank replay of {n} ranks "
@@ -2452,6 +2648,7 @@ def ring_main_path(dev):
         if counts[name] != want:
             fail(f"ring path: {name} launched {counts[name]} times, "
                  f"expected {want}")
+    check_tc_routes("ring path: ring_flash_bwd", bwd_routes, want)
     # limits: o row by row (check_rows), 2^-5 of the row's largest |o|:
     # flash_attention rounds its f32 o to bf16 once, the ring rounds each
     # of its n steps' o and each of its n - 1 merges' to bf16, 2n roundings
@@ -2538,9 +2735,9 @@ def ring_kernel_checks(dev):
         for r in range(0, qq.shape[2], c):
             rows = slice(r, r + c)
             o_r, lse_r = ring_fwd_ref(qq[:, :, rows], kc, vc, qs + r, ks)
-            dq_r, dk_r, dv_r = ring_bwd_ref(
-                qq[:, :, rows], kc, vc, dd[:, :, rows], lse[:, :, rows],
-                delta[:, :, rows], qs + r, ks)
+            part = (qq[:, :, rows], kc, vc, dd[:, :, rows], lse[:, :, rows],
+                    delta[:, :, rows], qs + r, ks)
+            dq_r, dk_r, dv_r = ring_bwd_ref(*part)
             ro.append(o_r)
             rlse.append(lse_r)
             rdq.append(dq_r)
@@ -2638,6 +2835,7 @@ def time_ring_kernels(dev, pairs):
     # graph alive at a time)
     out["ring_flash_bwd"] = dict(
         ms=per_launch(lambda r: ring_flash_bwd(*bwd_args(r)), 2),
+        flops=2.5 * flops, tc_flops=4.5 * flops,
         plain_ms=per_launch(lambda r: ring_bwd_ref(*bwd_args(r)), 1),
         library_ms=per_launch(sdpa_fwd_bwd, 2)
         - out["ring_flash_fwd"]["library_ms"],
@@ -2778,6 +2976,7 @@ def main():
 
     # 2b (training kernels) and 8. times
     errs.update(full_width_train_checks(dev, cfg, embed))
+    errs["flash_fwd"] = max(errs["flash_fwd"], errs.pop("flash_fwd@train"))
     times.update(time_train_kernels(dev, cfg, embed))
     del model, embed
 
@@ -2825,16 +3024,27 @@ def main():
     for name, t in times.items():
         lib = ("null" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        log(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms, bound "
+        dev_only = ("" if "device_ms" not in t else
+                    f" (device time alone {t['device_ms']:.4f} ms; with k, "
+                    f"v contiguous {t['device_ms_contig']:.4f} ms)")
+        log(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms{dev_only}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, library {lib} [{t['library']}]")
-    for name in ("matmul", "lm_head_bwd"):
+    issued_as = {
+        "lm_head_bwd": "hi and lo planes: 5 products of 2 R d V",
+        "ring_flash_bwd": "visible pairs; S and dP twice, dV and dK as hi "
+                          "and lo planes: 9 products of 2 d per pair"}
+    for name in ("matmul", "lm_head_bwd", "flash_fwd", "flash_fwd@train",
+                 "ring_flash_bwd"):
         t = times[name]
         rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
         issued = ("" if "tc_flops" not in t else
                   f"; {t['tc_flops'] / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s "
-                  "issued on the tensor cores (hi and lo planes: 5 products "
-                  "of 2 R d V)")
+                  f"issued on the tensor cores ({issued_as[name]})")
+        if "device_ms" in t:
+            issued += (f"; {t['flops'] / (t['device_ms'] * 1e-3) / 1e12:.1f} "
+                       f"TFLOP/s in the kernel's device time alone, "
+                       f"{t['device_ms']:.4f} ms")
         log(f"[tflops] {name}: {rate:.1f} TFLOP/s of the function's "
             f"{t['flops'] / 1e12:.4f} TFLOP in {t['ms']:.4f} ms{issued}")
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

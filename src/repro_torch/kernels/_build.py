@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on first
 use into ``_build/lib<name>-<hash>.so`` beside the package (the directory is
 git-ignored; a hash of the flags, the source and the shared headers
-``common.cuh`` and ``gemm_sm90.cuh`` names the library, so an edited source
-or header is rebuilt and a stale library never loaded).
+``common.cuh``, ``gemm_sm90.cuh`` and ``attn_sm90.cuh`` names the library,
+so an edited source or header is rebuilt and a stale library never
+loaded).
 :func:`build_all` starts one ``nvcc`` per source, all at once, so a cold
 start pays for the slowest file only. Nothing here runs at import time.
 :func:`on_cpu` is the one rule every wrapper follows to choose between its
@@ -29,7 +30,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
            "flash_bwd", "fd2d", "sem", "dg", "flash_decode", "ssm_scan",
            "ring_flash", "matmul")
-HEADERS = ("common.cuh", "gemm_sm90.cuh")    # included by the sources
+HEADERS = ("common.cuh", "gemm_sm90.cuh",     # included by the sources
+           "attn_sm90.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

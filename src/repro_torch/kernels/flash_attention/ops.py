@@ -20,6 +20,13 @@ decode through a block table). ``ring_flash_fwd`` and ``ring_flash_bwd``
 launch ``csrc/ring_flash.cu``: one step of ring attention (a query shard
 against one kv chunk at absolute offsets read on the device) and its
 backward; ``ring.py`` builds the ring schedule on them.
+
+``flash_attention_fwd`` and ``ring_flash_bwd`` each have two kernels on the
+card and pick one up front, by :func:`route` (dtype and layout alone,
+never after a failure): ``"wgmma"``, the tensor-core kernel
+(``flash_fwd_tc``, ``ring_flash_bwd_tc``: bf16 operands copied with
+cp.async into swizzled shared memory, products on wgmma), or ``"simt"``,
+the CUDA-core kernel. ``wrapper.routes`` counts the launches by route.
 """
 
 from __future__ import annotations
@@ -35,17 +42,21 @@ from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_delta", "flash_bwd", "flash_decode",
-           "paged_decode_attention", "ring_flash_fwd", "ring_flash_bwd"]
+           "paged_decode_attention", "ring_flash_fwd", "ring_flash_bwd",
+           "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)     # flash_fwd, flash_decode, paged_decode
 _BWD_HEAD_DIMS = (32, 64)      # flash_bwd
-RING_BWD_HEAD_DIMS = _BWD_HEAD_DIMS   # ring_flash_bwd (ring.py reads it)
+# ring_flash_bwd by route (ring.py reads it)
+RING_BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": _BWD_HEAD_DIMS}
 _MAX_GROUP = 16                # decode kernels: query heads per kv head
 _MAX_GROUP_DIM = 1024          # decode kernels: (query heads per kv head) * d
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I)}
+_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
+              "flash_fwd_tc": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 9 + [_P],
+                               _I)}
 _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I)}
 _DECODE_SIG = {"flash_decode": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 6 + [_P],
                                 _I)}
@@ -53,7 +64,26 @@ _PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
 _RING_SIG = {
     "ring_flash_fwd": ([_P] * 7 + [_I] * 10 + [_F] + [_L] * 9 + [_P], _I),
     "ring_flash_bwd": ([_P] * 11 + [_I] * 10 + [_F] + [_L] * 12 + [_P], _I),
+    "ring_flash_bwd_tc": ([_P] * 11 + [_I] * 9 + [_F] + [_L] * 12 + [_P],
+                          _I),
 }
+
+
+def route(*ts) -> str:
+    """The kernel a CUDA call of :func:`flash_attention_fwd` (on q, k, v)
+    or :func:`ring_flash_bwd` (on q, k, v, do) launches, from dtype and
+    layout alone: ``"wgmma"`` (the tensor-core kernel) when every tensor is
+    bf16 with its last axis contiguous, its base 16-byte aligned and every
+    other stride a multiple of 8 elements (each row a whole number of the
+    16-byte copies the kernel issues), else ``"simt"`` (the CUDA-core
+    kernel: f32 inputs and other bf16 layouts)."""
+    return "wgmma" if all(map(_copyable, ts)) else "simt"
+
+
+def _copyable(t):
+    st = t.stride()
+    return (t.dtype == torch.bfloat16 and st[-1] == 1
+            and t.data_ptr() % 16 == 0 and not any(x % 8 for x in st[:-1]))
 
 
 def _check_qkv(name, q, k, v, head_dims=_HEAD_DIMS):
@@ -111,7 +141,8 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
     """q (B, H, Sq, D); k, v (B, Hk, Skv, D) -> (o (B, H, Sq, D) in q's
     dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the kv
     stream; ``causal`` masks keys after each query, ``window`` keys at
-    q_pos - k_pos >= window. Any Sq <= Skv."""
+    q_pos - k_pos >= window. Any Sq <= Skv. On the card the kernel is
+    the tensor-core one when :func:`route` says ``"wgmma"``."""
     name = "flash_attention_fwd"
     _no_grad_asked(name, q, k, v)
     if on_cpu(name, q, k, v):
@@ -129,16 +160,24 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = load("flash_fwd", _FLASH_SIG)
-    err = lib.flash_fwd(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), b, h, hk,
-                        sq, skv, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-                        win, float(sm_scale), *q.stride()[:3], *k.stride()[:3],
-                        *v.stride()[:3], stream())
-    check(lib, err, "flash_fwd")
+    path = route(q, k, v)
+    args = (b, h, hk, sq, skv, d)
+    tail = (int(bool(causal)), win, float(sm_scale), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], stream())
+    if path == "wgmma":
+        err = lib.flash_fwd_tc(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
+                               *args, *tail)
+    else:
+        err = lib.flash_fwd(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), *args,
+                            _DTYPE_CODE[q.dtype], *tail)
+    check(lib, err, f"flash_fwd ({path})")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.routes[path] += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.routes = {"wgmma": 0, "simt": 0}
 
 
 def flash_delta(do, o):
@@ -437,7 +476,9 @@ def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,
     """The backward of one ring step at its offsets, from the step's own
     lse and ``delta = rowsum(do * o) - g_lse`` (both (B, H, Sq) f32): dq
     (B, H, Sq, D) in q's dtype and dk, dv (B, Hk, Skv, D) f32 summed over
-    each kv head's query-head group. Rows with lse = -inf give nothing."""
+    each kv head's query-head group. Rows with lse = -inf give nothing.
+    On the card :func:`route` (of q, k, v, do) picks the kernel, whose head
+    dims are ``RING_BWD_HEAD_DIMS[route]``."""
     name = "ring_flash_bwd"
     _no_grad_asked(name, q, k, v, do)
     _check_offsets(name, q_start, k_start)
@@ -445,15 +486,16 @@ def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,
         return ring_bwd_ref(q, k, v, do, lse, delta, q_start, k_start,
                             causal=causal, window=window, sm_scale=sm_scale,
                             prefix_len=prefix_len)
-    _check_qkv(name, q, k, v, RING_BWD_HEAD_DIMS)
-    _check_gqa(name, q, k, v)
-    win, prefix = _ring_masks(name, q, k, window, prefix_len)
-    b, h, sq, d = q.shape
-    _, hk, skv, _ = k.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
         raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
                          f"match q {tuple(q.shape)} {q.dtype}, last axis "
                          "contiguous")
+    path = route(q, k, v, do)
+    _check_qkv(name, q, k, v, RING_BWD_HEAD_DIMS[path])
+    _check_gqa(name, q, k, v)
+    win, prefix = _ring_masks(name, q, k, window, prefix_len)
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
     for t, n in ((lse, "lse"), (delta, "delta")):
         if (tuple(t.shape) != (b, h, sq) or t.dtype != torch.float32
                 or not t.is_contiguous()):
@@ -467,16 +509,20 @@ def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,
     dk = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
     dv = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
     lib = load("ring_flash", _RING_SIG)
-    err = lib.ring_flash_bwd(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
-                             ptr(delta), ptr(q_start), ptr(k_start), ptr(dq),
-                             ptr(dk), ptr(dv), b, h, hk, sq, skv, d,
-                             _DTYPE_CODE[q.dtype], int(bool(causal)), win,
-                             prefix, float(sm_scale), *q.stride()[:3],
-                             *k.stride()[:3], *v.stride()[:3],
-                             *do.stride()[:3], stream())
-    check(lib, err, name)
+    ptrs = (ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+            ptr(q_start), ptr(k_start), ptr(dq), ptr(dk), ptr(dv), b, h, hk,
+            sq, skv, d)
+    tail = (int(bool(causal)), win, prefix, float(sm_scale), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], stream())
+    if path == "wgmma":
+        err = lib.ring_flash_bwd_tc(*ptrs, *tail)
+    else:
+        err = lib.ring_flash_bwd(*ptrs, _DTYPE_CODE[q.dtype], *tail)
+    check(lib, err, f"{name} ({path})")
     ring_flash_bwd.launches += 1
+    ring_flash_bwd.routes[path] += 1
     return dq, dk, dv
 
 
 ring_flash_bwd.launches = 0
+ring_flash_bwd.routes = {"wgmma": 0, "simt": 0}

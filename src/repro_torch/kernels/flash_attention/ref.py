@@ -14,7 +14,8 @@ import torch
 
 __all__ = ["mha_ref", "flash_fwd_ref", "decode_ref", "paged_decode_ref",
            "flash_delta_ref", "flash_bwd_ref", "rolling_slot_pos",
-           "ring_step_ref", "ring_fwd_ref", "ring_bwd_ref"]
+           "ring_step_ref", "ring_fwd_ref", "ring_bwd_ref",
+           "ring_bwd_tc_ref"]
 
 
 def rolling_slot_pos(window: int, t: int):
@@ -227,15 +228,10 @@ def ring_step_ref(q, k, v, *, q_start=None, k_start=None, causal=True,
                         prefix_len=prefix_len)[0]
 
 
-def ring_bwd_ref(q, k, v, do, lse, delta, q_start=0, k_start=0, *,
-                 causal=True, window=None, sm_scale=None, prefix_len=0):
-    """The backward of one ring step at its offsets, in f32 as the TPU
-    kernel computes it: ``p = exp(s - lse)`` on visible keys from the step's
-    own lse (0 elsewhere and on rows with lse = -inf, never NaN),
-    ``ds = p * (do v^T - delta) * sm_scale`` with ``delta`` the caller's
-    (``rowsum(do * o) - g_lse``). Returns dq (B, H, Sq, D) in q's dtype and
-    dk, dv (B, Hk, Skv, D) f32 summed over each kv head's query-head
-    group."""
+def _ring_p_ds(q, k, v, do, lse, delta, q_start, k_start, *, causal,
+               window, sm_scale, prefix_len):
+    """The f32 terms of a ring step's backward: (qf, kf, dof (grouped as
+    (B, Hk, G, ...)), p, ds)."""
     b, h, sq, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
     dv_dim = v.shape[-1]
@@ -253,7 +249,46 @@ def ring_bwd_ref(q, k, v, do, lse, delta, q_start=0, k_start=0, *,
     p = torch.where(live, torch.exp(torch.where(live, s - lse, 0.0)), 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - delta.reshape(b, hk, g, sq, 1)) * sm_scale
-    dq = torch.matmul(ds, kf).reshape(b, h, sq, d)
+    return qf, kf, dof, p, ds
+
+
+def ring_bwd_ref(q, k, v, do, lse, delta, q_start=0, k_start=0, *,
+                 causal=True, window=None, sm_scale=None, prefix_len=0):
+    """The backward of one ring step at its offsets, in f32 as the TPU
+    kernel computes it: ``p = exp(s - lse)`` on visible keys from the step's
+    own lse (0 elsewhere and on rows with lse = -inf, never NaN),
+    ``ds = p * (do v^T - delta) * sm_scale`` with ``delta`` the caller's
+    (``rowsum(do * o) - g_lse``). Returns dq (B, H, Sq, D) in q's dtype and
+    dk, dv (B, Hk, Skv, D) f32 summed over each kv head's query-head
+    group."""
+    qf, kf, dof, p, ds = _ring_p_ds(
+        q, k, v, do, lse, delta, q_start, k_start, causal=causal,
+        window=window, sm_scale=sm_scale, prefix_len=prefix_len)
+    dq = torch.matmul(ds, kf).reshape(q.shape)
     dk = torch.matmul(ds.transpose(-1, -2), qf).sum(2)
     dv = torch.matmul(p.transpose(-1, -2), dof).sum(2)
+    return dq.to(q.dtype), dk, dv
+
+
+def _hi_lo(x):
+    """x as the sum of two bf16 roundings, in f32: hi = bf16(x) and lo =
+    bf16(x - hi)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def ring_bwd_tc_ref(q, k, v, do, lse, delta, q_start=0, k_start=0, *,
+                    causal=True, window=None, sm_scale=None, prefix_len=0):
+    """:func:`ring_bwd_ref` with the roundings of the tensor-core backward
+    (``ring_flash_bwd_tc``), whose products take bf16 operands: dq = ds k
+    with ds rounded once to bf16; dk = ds^T q and dv = p^T do with ds and p
+    as hi/lo bf16 planes. Products of bf16 values are exact in f32, so this
+    is the kernel's arithmetic up to the order of its f32 sums. Not the CPU
+    path of ``ring_flash_bwd``: a model of the card's, for tests."""
+    qf, kf, dof, p, ds = _ring_p_ds(
+        q, k, v, do, lse, delta, q_start, k_start, causal=causal,
+        window=window, sm_scale=sm_scale, prefix_len=prefix_len)
+    dq = torch.matmul(ds.to(torch.bfloat16).float(), kf).reshape(q.shape)
+    dk = torch.matmul(_hi_lo(ds).transpose(-1, -2), qf).sum(2)
+    dv = torch.matmul(_hi_lo(p).transpose(-1, -2), dof).sum(2)
     return dq.to(q.dtype), dk, dv

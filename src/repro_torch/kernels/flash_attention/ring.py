@@ -23,7 +23,9 @@ JAX ``_ring_step_bwd``) and runs ``ring_flash_bwd``. Steps are combined by
   and dv arrive at the rank that owns their chunk.
 
 On the card a gradient needs ``ring_flash_bwd``, which takes the head dims
-``RING_BWD_HEAD_DIMS``; asked for at another head dim,
+``RING_BWD_HEAD_DIMS[route(q, k, v)]``: 32, 64 and 128 on the tensor-core
+route (bf16 whose rows the kernel's 16-byte copies can read), 32 and 64 on
+the CUDA-core route (f32). Asked for at another head dim,
 :func:`ring_flash_attention` raises before its first launch (as
 ``flash_attention`` does) instead of failing inside ``backward``.
 """
@@ -35,7 +37,7 @@ import torch.distributed as dist
 
 from .._build import on_cpu
 from .ops import (RING_BWD_HEAD_DIMS, _grad_asked, flash_delta,
-                  ring_flash_bwd, ring_flash_fwd)
+                  ring_flash_bwd, ring_flash_fwd, route)
 
 __all__ = ["ring_flash_attention", "ring_merge"]
 
@@ -83,7 +85,9 @@ class _RingStep(torch.autograd.Function):
     def backward(ctx, g_o, g_lse):
         q, k, v, o, lse, q_start, k_start = ctx.saved_tensors
         do = torch.zeros_like(q) if g_o is None else g_o.to(q.dtype)
-        if do.stride(-1) != 1:
+        # a cotangent laid out unlike q, k, v must not change the kernel
+        # ring_flash_attention promised: a copy reads as well as q does
+        if do.stride(-1) != 1 or route(q, k, v, do) != route(q, k, v):
             do = do.contiguous()
         delta = flash_delta(do, o)
         # lse is an output the merge consumes, so its cotangent enters the
@@ -188,15 +192,19 @@ def ring_flash_attention(q, k, v, *, mesh=None, mesh_axis="model",
     in one process over ``ring_steps`` (default 1) chunks of the kv stream,
     which must divide its length. Queries are aligned to the end of the
     global kv stream (the ``flash_attention`` convention). On the card a
-    gradient at a head dim outside ``RING_BWD_HEAD_DIMS`` raises up front;
+    gradient at a head dim that ``ring_flash_bwd`` does not take for these
+    inputs (``RING_BWD_HEAD_DIMS``) raises up front;
     the CPU differentiates the plain versions at any head dim."""
     d = q.shape[-1]
-    if (d not in RING_BWD_HEAD_DIMS and _grad_asked(q, k, v)
-            and not on_cpu("ring_flash_attention", q, k, v)):
-        raise NotImplementedError(
-            f"ring_flash_attention: no backward kernel for head dim {d} on "
-            f"the card (ring_flash.cu's ring_flash_bwd takes head dims "
-            f"{RING_BWD_HEAD_DIMS}); call it under torch.no_grad()")
+    if _grad_asked(q, k, v) and not on_cpu("ring_flash_attention", q, k, v):
+        path = route(q, k, v)
+        if d not in RING_BWD_HEAD_DIMS[path]:
+            raise NotImplementedError(
+                f"ring_flash_attention: no backward kernel for head dim {d} "
+                f"of {q.dtype} inputs on the card (ring_flash.cu's "
+                f"ring_flash_bwd takes head dims {RING_BWD_HEAD_DIMS[path]} "
+                f"on its {path!r} route, {RING_BWD_HEAD_DIMS['wgmma']} for "
+                "bf16 with 16-byte rows); call it under torch.no_grad()")
     kw = dict(causal=causal, window=window, sm_scale=sm_scale,
               prefix_len=prefix_len)
     if mesh is not None:

@@ -845,3 +845,150 @@ def test_lm_head_bwd_tensor_core_route(dev, R, V, vocab, d, tied):
         reset_launches()
         lm_head_bwd(xx, ww, lab, lse, g, vocab=vocab)
         assert lm_head_bwd.routes == {"wgmma": 0, "simt": 1}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of flash_fwd and the ring step backward; the bf16
+# ring gradient at head dim 128
+# ---------------------------------------------------------------------------
+
+FLASH_TC_CASES = [  # sq, skv, h, hk, d, causal, window
+    (5, 5, 4, 4, 32, True, None), (70, 200, 8, 2, 64, True, None),
+    (130, 130, 4, 1, 64, True, 40), (200, 333, 8, 2, 128, True, 50),
+    (129, 129, 4, 4, 128, False, None), (1, 77, 8, 2, 64, True, None),
+    (300, 300, 8, 2, 32, False, 64), (64, 64, 4, 1, 64, True, 1),
+]
+
+
+def _view(dev, b, s, heads, d, seed):
+    """bf16 (b, heads, s, d) as the attention layer's projections give it:
+    the (b, s, heads, d) -> (b, heads, s, d) view."""
+    return _rnd(dev, b, s, heads, d, seed=seed).to(torch.bfloat16) \
+        .transpose(1, 2)
+
+
+def _layout(t, layout):
+    return t.contiguous() if layout == "contiguous" else t
+
+
+def _close_rows(got, ref, rel):
+    """Each element within rel times the largest |ref| of its row."""
+    err = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().amax(-1, keepdim=True)
+    assert (err <= rel * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("case", FLASH_TC_CASES)
+def test_flash_fwd_tensor_core_route(dev, case, layout):
+    """bf16 q (the projection's strided view), k and v (views as the
+    projections give them, or contiguous) take the wgmma kernel: ragged
+    Sq != Skv, windows, d 32/64/128, GQA groups 1 and 4. o within 2e-2
+    (absolute + relative: the plain version rounds the normalised p to
+    bf16, the kernel the unnormalised one) and within 2^-6 of its row's
+    largest |o|, lse within 1e-3 / 1e-4: the full-width limits."""
+    sq, skv, h, hk, d, causal, window = case
+    q = _view(dev, 2, sq, h, d, 0)
+    k = _layout(_view(dev, 2, skv, hk, d, 1), layout)
+    v = _layout(_view(dev, 2, skv, hk, d, 2), layout)
+    reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    assert flash_attention_fwd.routes == {"wgmma": 1, "simt": 0}
+    ro, rlse = flash_fwd_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    _close_rows(o, ro, 2 ** -6)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+def test_flash_fwd_routes_by_dtype_and_layout(dev):
+    """f32 inputs and bf16 rows the 16-byte copies cannot read keep the
+    CUDA-core kernel; both routes agree with the plain version."""
+    bf = torch.bfloat16
+    q = _rnd(dev, 1, 4, 40, 64).to(bf)
+    k = _rnd(dev, 1, 2, 40, 64, seed=1).to(bf)
+    kw = _rnd(dev, 1, 2, 40, 72, seed=1).to(bf)[..., 4:68]   # rows 8 B in
+    for qq, kk, want in ((q, k, "wgmma"), (q.float(), k.float(), "simt"),
+                         (q, kw, "simt")):
+        reset_launches()
+        o, lse = flash_attention_fwd(qq, kk, kk)
+        assert flash_attention_fwd.routes[want] == 1 == \
+            flash_attention_fwd.launches, want
+        ro, rlse = flash_fwd_ref(qq, kk, kk)
+        torch.testing.assert_close(o.float(), ro.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+RING_TC_CASES = [  # sq, skv, h, hk, d, q_start, k_start, masks
+    (70, 45, 4, 1, 32, 30, 50, {}),                  # across the diagonal
+    (33, 40, 4, 4, 64, 100, 0, {}),                  # wholly before
+    (33, 40, 8, 2, 64, 0, 64, {}),                   # wholly after: dead
+    (197, 160, 8, 2, 64, 64, 96, {}),                # ragged, dead rows
+    (130, 200, 4, 1, 64, 60, 20, dict(window=30)),
+    (150, 145, 8, 2, 32, 10, 30, dict(prefix_len=35)),
+    (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
+    (130, 300, 8, 2, 128, 30, 50, dict(window=40)),  # d = 128
+    (256, 256, 8, 2, 128, 0, 0, {}),
+]
+
+
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("case", RING_TC_CASES)
+def test_ring_flash_bwd_tensor_core_route(dev, case, layout):
+    """bf16 takes the wgmma backward at head dims 32, 64 and 128, with k, v
+    and do as the projections' views or contiguous: dq within 2^-7 of its
+    largest magnitude (rounded to bf16), dk/dv within 1e-3 (f32, p and ds
+    as hi/lo bf16 planes), rows with lse = -inf give nothing."""
+    sq, skv, h, hk, d, qs, ks, kw = case
+    q = _view(dev, 2, sq, h, d, 0)
+    k = _layout(_view(dev, 2, skv, hk, d, 1), layout)
+    v = _layout(_view(dev, 2, skv, hk, d, 2), layout)
+    do = _layout(_view(dev, 2, sq, h, d, 3), layout)
+    off = _offsets(dev, qs, ks)
+    o, lse = ring_flash_fwd(q, k, v, *off, **kw)
+    delta = flash_delta(do, o) - torch.where(torch.isneginf(lse), 0.0,
+                                             _rnd(dev, 2, h, sq, seed=4))
+    reset_launches()
+    got = ring_flash_bwd(q, k, v, do, lse, delta, *off, **kw)
+    assert ring_flash_bwd.routes == {"wgmma": 1, "simt": 0}
+    want = ring_bwd_ref(q, k, v, do, lse, delta, *off, **kw)
+    for a, b_, rel in zip(got, want, (2 ** -7, 1e-3, 1e-3)):
+        assert torch.isfinite(a).all()
+        _close_rel(a.float(), b_.float(), rel)
+    dead = torch.isneginf(lse)
+    assert (got[0][dead] == 0).all()
+    if ks > qs + sq - 1 and kw.get("causal", True):
+        assert all((a == 0).all() for a in got)
+
+
+def test_ring_attention_bf16_d128_gradients_on_card(dev):
+    """A bf16 d = 128 gradient of the local ring runs on the card (the
+    tensor-core backward takes d = 128; f32 is refused up front, above): each
+    step backward on the wgmma route, the step kernel against ring_bwd_ref
+    under the limits above, and the ring's gradients against the CPU's plain
+    versions on the same bf16 values in f32 within 2^-6 of the largest
+    magnitude (each side rounds its bf16 gradients, the card's sums its two
+    steps' partials in bf16, as phase 13 of chip_smoke.py holds the ring)."""
+    bf = torch.bfloat16
+    ins = [_rnd(dev, 1, h, 128, 128, seed=i).to(bf)
+           for i, h in enumerate((4, 2, 2))]
+    go = _rnd(dev, 1, 4, 128, 128, seed=5).to(bf)
+    ts = [t.detach().requires_grad_() for t in ins]
+    reset_launches()
+    o = ring_flash_attention(*ts, ring_steps=2)
+    got = torch.autograd.grad(o, ts, go)
+    assert ring_flash_bwd.routes == {"wgmma": 2, "simt": 0}
+    cpu = [t.detach().cpu().float().requires_grad_() for t in ins]
+    o_cpu = ring_flash_attention(*cpu, ring_steps=2)
+    want = torch.autograd.grad(o_cpu, cpu, go.cpu().float())
+    for a, b_ in zip(got, want):
+        _close_rel(a.float().cpu(), b_, 2 ** -6)
+
+    q, k, v = ins
+    off = _offsets(dev, 64, 0)
+    o1, lse = ring_flash_fwd(q, k[:, :, :64], v[:, :, :64], *off)
+    delta = flash_delta(go, o1)
+    got = ring_flash_bwd(q, k[:, :, :64], v[:, :, :64], go, lse, delta, *off)
+    want = ring_bwd_ref(q, k[:, :, :64], v[:, :, :64], go, lse, delta, *off)
+    for a, b_, rel in zip(got, want, (2 ** -7, 1e-3, 1e-3)):
+        _close_rel(a.float(), b_.float(), rel)

@@ -11,8 +11,9 @@ ring's up-front refusal of gradients it has no kernel for, on the CPU.
   ``tests/test_torch_train.py`` runs it) on the same seeded inputs rounded to
   bf16.
 * ``ring_flash_attention`` still differentiates on the CPU at head dim 128
-  (against the JAX local ring), and its refusal on the card comes before any
-  launch (the device test stubbed out).
+  (against the JAX local ring), and its refusal of an f32 d = 128 gradient
+  on the card comes before any launch (the device test stubbed out); a bf16
+  one is not refused (the tensor-core backward takes d = 128).
 """
 
 import jax
@@ -207,14 +208,21 @@ def card_stub(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
 @pytest.mark.parametrize("grad,d,refused", [(True, 128, True),
                                             (False, 128, False),
                                             (True, 64, False)])
 def test_ring_refuses_card_gradients_before_launch(card_stub, grad, d,
-                                                   refused):
-    q, k, v = (torch.randn(1, h, 32, d, requires_grad=grad)
+                                                   refused, dtype):
+    """f32 inputs take the CUDA-core backward (head dims 32, 64): a d = 128
+    gradient is refused before any launch. bf16 inputs with 16-byte rows
+    take the tensor-core backward, which has d = 128 too: never refused."""
+    q, k, v = (torch.randn(1, h, 32, d).to(dtype).requires_grad_(grad)
                for h in (4, 2, 2))
-    assert 128 not in RING_BWD_HEAD_DIMS and 64 in RING_BWD_HEAD_DIMS
+    assert 128 not in RING_BWD_HEAD_DIMS["simt"]
+    assert 64 in RING_BWD_HEAD_DIMS["simt"]
+    assert {64, 128} <= set(RING_BWD_HEAD_DIMS["wgmma"])
+    refused = refused and dtype == torch.float32
     if refused:
         with pytest.raises(NotImplementedError, match="head dim 128"):
             ring_flash_attention(q, k, v, ring_steps=2)
