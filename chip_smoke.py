@@ -14,8 +14,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build: one nvcc per CUDA source, all in parallel, plus the Triton
    rmsnorm and flash-delta kernels; the SASS of the matmul and CE-head
-   libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads), that of the
-   flash_fwd and ring_flash libraries HGMMA and LDGSTS (cp.async);
+   libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads), the CE
+   forward's own tensor-core kernel HGMMA, that of the flash_fwd,
+   flash_bwd and ring_flash libraries HGMMA and LDGSTS (cp.async);
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
    max|ref| for SEM/DG; flash_decode on positional and rotated caches,
@@ -23,10 +24,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    128, paged decode at 128; the ring step forward and backward at ragged
    shard and chunk lengths, GQA, window and prefix masks and a chunk wholly
    after its shard; matmul at ragged M/N/K, out_dtype and K == 0; the
-   tensor-core routes of matmul and the CE backward in bf16 at ragged
-   shapes, tied and untied heads, of flash_fwd at ragged Sq != Skv,
-   windows, d 32/64/128, GQA groups 1/4 and the projection's strided q,
-   and of the ring step backward at ring offsets with dead rows, windows, a
+   tensor-core routes of matmul and the CE forward and backward in bf16 at
+   ragged shapes, tied and untied heads, of flash_fwd and flash_bwd at
+   ragged Sq != Skv, windows, d 32/64/128, GQA groups 1/4 and the
+   projections' strided q, k, v, do (flash_bwd also with rows that see no
+   key, and through a windowed and a d = 128 flash_attention gradient), and
+   of the ring step backward at ring offsets with dead rows, windows, a
    prefix and d 32/64/128, each launch's route counted), bf16 at
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
@@ -53,17 +56,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, a checkpoint every
    3 steps). Launch counts are zeroed just before and read just after;
    every training kernel (and rmsnorm, flash_fwd) must have launched, the
-   bf16 CE backward and flash_fwd on their tensor-core routes every time,
-   every loss be
+   bf16 CE forward and backward, flash_fwd and flash_bwd on their
+   tensor-core routes every time, every loss be
    finite, and the latest checkpoint must restore bit-equal to the
    parameters and optimizer state saved;
-7. where the training time goes: one train step on the host clock and
-   under ``torch.profiler`` (the tensor-core CE backward's three launches
-   among its device rows, each with its TFLOP/s);
+7. where the training time goes: the host's enqueue time (until
+   ``train_step`` returns, before the synchronize), one train step on the
+   host clock and under ``torch.profiler`` (the tensor-core CE forward's
+   and backward's launches and flash_bwd's two kernels among its device
+   rows, each with its TFLOP/s);
 8. per-kernel times at the main paths' shapes beside their bound, the
    plain version's time and one library call's time (null where no single
    PyTorch call computes the function), flash_fwd also at the train step's
-   shape; the tensor-core kernels' TFLOP/s;
+   shape; the CE forward and flash_bwd also on their CUDA-core kernels on
+   the same inputs (a copy 2 bytes off the alignment the tensor-core route
+   needs), their bf16 outputs held to the full-width limits; the
+   tensor-core kernels' TFLOP/s;
 9. the apps path, launch counts zeroed just before and read just after,
    each app kernel launched exactly as often as its calls say: ``FDWave``
    on 8192^2 at radius 4 for 200 steps (MNodes/s, analytic error) and
@@ -1039,7 +1047,10 @@ def full_width_train_checks(dev, cfg, embed):
     # CE: bf16 products are exact in f32; the kernel and the plain version
     # sum d = 2048 of them (|s| ~ 1) and then 128256 exponentials in other
     # orders: |err| of lse and gold well under 1e-3
+    before = lm_head_ce.routes["wgmma"]
     lse, gold = lm_head_ce.raw(x, w, lab, vocab=vocab)
+    if lm_head_ce.routes["wgmma"] != before + 1:
+        fail("CE fwd bf16 at full width did not take the tensor-core route")
     rlse, rgold = lm_head_ce_stats_ref(x, w, lab, vocab=vocab)
     errs["lm_head_ce"] = max(
         check_close(f"CE bf16 lse R={x.shape[0]} V={w.shape[1]}", lse, rlse,
@@ -1069,8 +1080,13 @@ def full_width_train_checks(dev, cfg, embed):
         atol=1e-4, rtol=1e-4)
     # flash bwd: both compute in f32 from the same bf16 inputs; dq is
     # rounded to bf16 (one ulp, 2^-7 relative), dk/dv stay f32 (1e-3 of the
-    # largest magnitude covers the sum order over 1024 queries x 4 heads)
+    # largest magnitude covers the sum order over 1024 queries x 4 heads
+    # and the kernel's hi/lo bf16 planes of p and ds)
+    before = flash_bwd.routes["wgmma"]
     got = flash_bwd(q, k, v, do, lse, delta, causal=True)
+    if flash_bwd.routes["wgmma"] != before + 1:
+        fail("flash bwd bf16 at the train shape did not take the tensor-core "
+             "route")
     want = flash_bwd_ref(q, k, v, do, lse, delta, causal=True)
     errs["flash_bwd"] = max(
         check_rel("flash bwd bf16 dq", got[0], want[0], 2 ** -7),
@@ -1137,8 +1153,9 @@ def train_main_path(cfg):
 
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.lm_head import lm_head_bwd
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_bwd)
+    from repro_torch.kernels.lm_head import lm_head_bwd, lm_head_ce
     from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
     from repro_torch.tree import leaves, tree_map
@@ -1170,6 +1187,8 @@ def train_main_path(cfg):
         counts = launch_counts()
         bwd_routes = dict(lm_head_bwd.routes)
         fwd_routes = dict(flash_attention_fwd.routes)
+        ce_routes = dict(lm_head_ce.routes)
+        fbwd_routes = dict(flash_bwd.routes)
     finally:
         train_mod.train_step = step_fn
     hist = out["history"]
@@ -1184,6 +1203,10 @@ def train_main_path(cfg):
         fail(f"training path: CE backward routes {bwd_routes}; every bf16 "
              "backward must take the tensor-core route")
     check_tc_routes("training path: flash_fwd", fwd_routes, counts["flash_fwd"])
+    check_tc_routes("training path: CE forward", ce_routes,
+                    counts["lm_head_ce"])
+    check_tc_routes("training path: flash_bwd", fbwd_routes,
+                    counts["flash_bwd"])
 
     # the latest checkpoint (step 6) restores bit-equal into a fresh tree
     t0 = time.perf_counter()
@@ -1209,8 +1232,9 @@ def train_main_path(cfg):
 
 
 def profile_train_step(model, params, opt_state):
-    """Where a train step's time goes: two steps on the host clock, then one
-    under ``torch.profiler`` (device-side events only)."""
+    """Where a train step's time goes: the host's enqueue time (until
+    ``train_step`` returns) against the step's, two steps on the host clock,
+    then one under ``torch.profiler`` (device-side events only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1232,6 +1256,17 @@ def profile_train_step(model, params, opt_state):
         return (time.perf_counter() - t0) * 1e3 / n
 
     run(1)                                     # warm
+    enq = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(model, opt, params, opt_state, batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enq.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    log("[profile train] host enqueue (train_step returns, before the "
+        "synchronize) / step: " + "; ".join(f"{a:.3f} / {b:.3f} ms"
+                                            for a, b in enq))
     step_ms = run(2)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1246,9 +1281,47 @@ def profile_train_step(model, params, opt_state):
     for ms, n, key in rows[:15]:
         log(f"[profile train]   {ms:9.3f} ms  {n:5d} calls  {key[:90]}")
     cfg = model.cfg
-    log_ce_bwd_passes(rows, 2 * TRAIN_BATCH * (TRAIN_SEQ - 1) * cfg.d_model
-                      * params["embed"].shape[0])
+    ce_flops = (2 * TRAIN_BATCH * (TRAIN_SEQ - 1) * cfg.d_model
+                * params["embed"].shape[0])
+    log_ce_fwd(rows, ce_flops)
+    log_ce_bwd_passes(rows, ce_flops)
+    hd = cfg.resolved_head_dim
+    log_flash_bwd(rows, 2.5 * 4 * TRAIN_BATCH * cfg.n_heads * hd
+                  * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2, cfg.n_layers)
     return step_ms, busy_ms
+
+
+def log_ce_fwd(rows, flops):
+    """The tensor-core CE forward among a train step's device rows: its
+    product with the stats epilogue (2 R d V FLOPs) and the merge."""
+    gemm = sum(r[0] for r in rows if "gemm_kernel" in r[2]
+               and "CeStatsEpi" in r[2])
+    merge = sum(r[0] for r in rows if "ce_merge_kernel" in r[2])
+    if gemm <= 0:
+        fail("train step profile: no device time for the CE forward's "
+             "tensor-core kernel")
+    log(f"[profile train] CE forward: {gemm + merge:.4f} ms = product + "
+        f"stats {gemm:.4f} ms ({flops / (gemm * 1e-3) / 1e12:.1f} TFLOP/s) "
+        f"+ merge {merge:.4f} ms")
+
+
+def log_flash_bwd(rows, flops, layers):
+    """flash_bwd's two tensor-core kernels among a train step's device
+    rows (one launch of each per layer): dq and dk/dv, against the
+    function's FLOPs (4 d per visible pair forward, 2.5 times that
+    backward). The ring's instantiations (DeviceOffsets) share the kernels'
+    names and are not counted."""
+    dq = sum(r[0] for r in rows if "dq_tc_kernel" in r[2]
+             and "ValueOffsets" in r[2])
+    dkv = sum(r[0] for r in rows if "dkv_tc_kernel" in r[2]
+              and "ValueOffsets" in r[2])
+    if dq <= 0 or dkv <= 0:
+        fail("train step profile: no device time for flash_bwd's tensor-core "
+             "kernels")
+    log(f"[profile train] flash_bwd: dq {dq:.4f} ms + dk/dv {dkv:.4f} ms "
+        f"over {layers} launches = {(dq + dkv) / layers:.4f} ms a launch, "
+        f"{flops * layers / ((dq + dkv) * 1e-3) / 1e12:.1f} TFLOP/s of the "
+        "function")
 
 
 def log_ce_bwd_passes(rows, flops):
@@ -1268,9 +1341,35 @@ def log_ce_bwd_passes(rows, flops):
             f"{units * flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s issued")
 
 
+def _unaligned(t):
+    """A copy of ``t`` with its strides whose base lies one element past
+    the alignment of t's own: the tensor-core routes refuse it by layout,
+    so a wrapper launches its CUDA-core kernel on the same values."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].as_strided(t.shape, t.stride())
+    out.copy_(t)
+    return out
+
+
+def _timed_routes(fn, wrapper, path, iters, warmup=1):
+    """cuda_ms of fn, every launch of ``wrapper`` in it on ``path``."""
+    from repro_torch.kernels import reset_launches
+
+    reset_launches()
+    ms = cuda_ms(fn, iters, warmup)
+    if dict(wrapper.routes) != {"wgmma": 0, "simt": 0, path: iters + warmup}:
+        fail(f"timed {wrapper.__name__}: routes {dict(wrapper.routes)}, "
+             f"expected all {iters + warmup} on {path}")
+    return ms
+
+
 def time_train_kernels(dev, cfg, embed):
     """{kernel: dict(ms, plain_ms, bound_ms, bound_by, library_ms)} for the
-    training kernels at the main path's shapes."""
+    training kernels at the main path's shapes; the CE forward and
+    flash_bwd also on their CUDA-core kernels (simt_ms) on the same values,
+    whose bf16 outputs are held to full_width_train_checks' limits."""
     import torch
     import torch.nn.functional as F
 
@@ -1296,8 +1395,16 @@ def time_train_kernels(dev, cfg, embed):
         return (torch.logsumexp(logits, -1)
                 - logits.gather(1, lab.long())[:, 0])
 
+    x_simt, simt = _unaligned(x), []
+
+    def ce_simt():
+        simt[:] = lm_head_ce.raw(x_simt, w, lab, vocab=vocab)
+
     out["lm_head_ce"] = dict(
-        ms=cuda_ms(lambda: lm_head_ce.raw(x, w, lab, vocab=vocab), 3, 1),
+        ms=_timed_routes(lambda: lm_head_ce.raw(x, w, lab, vocab=vocab),
+                         lm_head_ce, "wgmma", 10),
+        simt_ms=_timed_routes(ce_simt, lm_head_ce, "simt", 2),
+        flops=ce_flops,
         plain_ms=cuda_ms(lambda: lm_head_ce_stats_ref(x, w, lab, vocab=vocab),
                          3, 1),
         library_ms=cuda_ms(library_ce, 3, 1),
@@ -1305,6 +1412,13 @@ def time_train_kernels(dev, cfg, embed):
         shape=f"x ({R},{d}) @ embed.T ({d},{V}) bf16, labels ({R},1)")
     out["lm_head_ce"].update(zip(("bound_ms", "bound_by"), bound(
         R * d * 2 + d * V * 2 + R * 4 + 2 * R * 4, ce_flops, "bfloat16")))
+    # the CUDA-core kernel's bf16 instantiation (the route of bf16 the
+    # copies cannot read) at the limits of full_width_train_checks
+    rlse, rgold = lm_head_ce_stats_ref(x, w, lab, vocab=vocab)
+    check_close(f"CE bf16 CUDA-core lse R={R} V={V}", simt[0], rlse,
+                atol=1e-3, rtol=0)
+    check_close("CE bf16 CUDA-core gold", simt[1], rgold, atol=1e-3, rtol=0)
+    del x_simt, simt, rlse, rgold
     lse, _ = lm_head_ce.raw(x, w, lab, vocab=vocab)
     xl = x.detach().requires_grad_()
     wl = w.detach().requires_grad_()
@@ -1365,9 +1479,18 @@ def time_train_kernels(dev, cfg, embed):
                   for t_ in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                           enable_gqa=True)
+    q_simt, simt = _unaligned(q), []
+
+    def fbwd_simt():
+        simt[:] = flash_bwd(q_simt, k, v, do, lse, delta, causal=True)
+
     out["flash_bwd"] = dict(
-        ms=cuda_ms(lambda: flash_bwd(q, k, v, do, lse, delta, causal=True),
-                   5, 1),
+        ms=_timed_routes(lambda: flash_bwd(q, k, v, do, lse, delta,
+                                           causal=True),
+                         flash_bwd, "wgmma", 20),
+        simt_ms=_timed_routes(fbwd_simt, flash_bwd, "simt", 3),
+        flops=2.5 * 4 * b * h * hd * pairs,
+        tc_flops=4.5 * 4 * b * h * hd * pairs,
         plain_ms=cuda_ms(lambda: flash_bwd_ref(q, k, v, do, lse, delta,
                                                causal=True), 3, 1),
         library_ms=cuda_ms(lambda: torch.autograd.grad(
@@ -1379,6 +1502,12 @@ def time_train_kernels(dev, cfg, embed):
         2 * (2 * b * h * s * hd + 2 * b * hk * s * hd) + 2 * b * h * s * 4
         + 2 * b * h * s * hd + 2 * 4 * b * hk * s * hd,
         2.5 * 4 * b * h * hd * pairs, "bfloat16")))
+    # the CUDA-core kernel's bf16 instantiation at full_width_train_checks'
+    # limits: dq 2^-7, dk and dv 1e-3, each of the largest magnitude
+    want = flash_bwd_ref(q, k, v, do, lse, delta, causal=True)
+    check_rel("flash bwd bf16 CUDA-core dq", simt[0], want[0], 2 ** -7)
+    check_rel("flash bwd bf16 CUDA-core dk", simt[1], want[1], 1e-3)
+    check_rel("flash bwd bf16 CUDA-core dv", simt[2], want[2], 1e-3)
     return out
 
 
@@ -2271,25 +2400,55 @@ def time_static_kernels(dev):
 # everywhere; TMA tensor loads (UTMALDG) in the GEMM mainloop's libraries,
 # cp.async copies (LDGSTS) in the attention kernels'
 TC_LIBS = {"matmul": ("HGMMA", "UTMALDG"), "lm_head_ce": ("HGMMA", "UTMALDG"),
-           "flash_fwd": ("HGMMA", "LDGSTS"), "ring_flash": ("HGMMA", "LDGSTS")}
+           "flash_fwd": ("HGMMA", "LDGSTS"), "flash_bwd": ("HGMMA", "LDGSTS"),
+           "ring_flash": ("HGMMA", "LDGSTS")}
+# (library, a name in the kernel's mangled symbol) -> the ops that kernel
+# alone must issue: the CE forward's tensor-core kernel (its epilogue's
+# name), in a library whose backward has HGMMA anyway
+TC_FUNCS = {("lm_head_ce", "CeStatsEpi"): ("HGMMA", "UTMALDG")}
+
+
+def _sass_functions(sass):
+    """{mangled name: its SASS} of cuobjdump --dump-sass output."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            out[name] = []
+        elif name is not None:
+            out[name].append(line)
+    return {k: "\n".join(v) for k, v in out.items()}
 
 
 def tc_sass_check():
     """The tensor-core libraries as built must hold the ops of TC_LIBS in
-    their SASS: the design reached the tensor cores and its copy engine."""
+    their SASS, and the kernels of TC_FUNCS theirs in their own: the design
+    reached the tensor cores and its copy engine."""
     from repro_torch.kernels import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = {name: subprocess.run(
+        [tool, "--dump-sass", _build._lib_path(name)], check=True,
+        capture_output=True, text=True, timeout=300).stdout
+        for name in TC_LIBS}
     for name, ops in TC_LIBS.items():
-        sass = subprocess.run([tool, "--dump-sass", _build._lib_path(name)],
-                              check=True, capture_output=True, text=True,
-                              timeout=300).stdout
-        found = {op: sass.count(op) for op in ops}
+        found = {op: sass[name].count(op) for op in ops}
         if not all(found.values()):
             fail(f"SASS of lib{name}: {found}; the tensor-core route must "
                  f"issue {' and '.join(ops)}")
         log(f"[sass] lib{name}: " + ", ".join(f"{op} x{n}"
                                               for op, n in found.items()))
+    for (name, tag), ops in TC_FUNCS.items():
+        funcs = {k: v for k, v in _sass_functions(sass[name]).items()
+                 if tag in k}
+        if not funcs:
+            fail(f"SASS of lib{name}: no function named *{tag}*")
+        found = {op: sum(v.count(op) for v in funcs.values()) for op in ops}
+        if not all(found.values()):
+            fail(f"SASS of lib{name}'s {tag} kernel: {found}; it must issue "
+                 f"{' and '.join(ops)}")
+        log(f"[sass] lib{name} {tag} kernel ({len(funcs)} instance(s)): "
+            + ", ".join(f"{op} x{n}" for op, n in found.items()))
 
 
 def check_tc_routes(what, routes, launches):
@@ -2304,15 +2463,18 @@ def small_tc_checks(dev):
     ragged shapes: matmul against matmul_ref (the products are exact in f32
     on both sides; f32 out differs by the order of K f32 additions, 2^-16
     of the largest |c|; bf16 out by one rounding, 2^-7 of the largest); the
-    CE backward tied and untied with
-    vocab < V against lm_head_bwd_ref (1e-3 of the largest magnitude, the
-    full-width limit); then small_tc_attn_checks. Each call's route is
-    counted and must be wgmma."""
+    CE forward at ragged R (1, 5, 70, 130), tied and untied, V = 1104 in
+    256-column tiles of which the last two lie wholly past vocab = 600 and
+    a label in the last true column, against lm_head_ce_stats_ref (lse and
+    gold within 1e-3 absolute, the full-width limit); the CE backward tied
+    and untied with vocab < V against lm_head_bwd_ref (1e-3 of the largest
+    magnitude, the full-width limit); then small_tc_attn_checks. Each
+    call's route is counted and must be wgmma."""
     import torch
 
     from repro_torch.kernels import reset_launches
     from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
-                                             lm_head_ce)
+                                             lm_head_ce, lm_head_ce_stats_ref)
     from repro_torch.kernels.matmul import matmul, matmul_ref
 
     bf = torch.bfloat16
@@ -2335,6 +2497,23 @@ def small_tc_checks(dev):
             calls += 1
     if matmul.routes != {"wgmma": calls, "simt": 0}:
         fail(f"matmul routes {matmul.routes}: expected {calls} on wgmma")
+    calls = 0
+    V, vocab, d = 1104, 600, 64
+    for R in (1, 5, 70, 130):
+        for tied in (True, False):
+            x = rnd(R, d).to(bf)
+            w = (rnd(V, d).T if tied else rnd(d, V)).to(bf)
+            lab = torch.randint(0, vocab, (R, 1), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(R))
+            lab[-1] = vocab - 1
+            lab = lab.to(dev)
+            tag = f"CE fwd tc bf16 R={R} V={V} vocab={vocab} d={d} tied={tied}"
+            lse, gold = lm_head_ce.raw(x, w, lab, vocab=vocab)
+            rlse, rgold = lm_head_ce_stats_ref(x, w, lab, vocab=vocab)
+            check_close(tag + " lse", lse, rlse, atol=1e-3, rtol=0)
+            check_close(tag + " gold", gold, rgold, atol=1e-3, rtol=0)
+            calls += 1
+    check_tc_routes("small CE forward cases", lm_head_ce.routes, calls)
     calls = 0
     for R, V, vocab, d in ((67, 200, 190, 96), (130, 1104, 1000, 64)):
         for tied in (True, False):
@@ -2359,16 +2538,21 @@ def small_tc_checks(dev):
 
 
 def small_tc_attn_checks(dev):
-    """The tensor-core routes of flash_fwd and the ring step backward
-    against their plain versions in bf16 at small ragged shapes, each case
-    with k and v (and do) both as the projections' views (the main path's
-    layout) and contiguous; limits beside each; every call's route counted,
-    all wgmma."""
+    """The tensor-core routes of flash_fwd, flash_bwd and the ring step
+    backward against their plain versions in bf16 at small ragged shapes,
+    each case with k and v (and do) both as the projections' views (the
+    main path's layout) and contiguous; limits beside each; every call's
+    route counted, all wgmma. Then bf16 gradients through a windowed and a
+    d = 128 flash_attention, and the up-front refusal of an f32 one."""
     import torch
 
     from repro_torch.kernels import reset_launches
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_fwd,
+                                                     flash_bwd, flash_bwd_ref,
                                                      flash_delta,
+                                                     flash_delta_ref,
+                                                     flash_fwd_ref,
                                                      ring_bwd_ref,
                                                      ring_flash_bwd,
                                                      ring_flash_fwd)
@@ -2387,12 +2571,15 @@ def small_tc_attn_checks(dev):
     reset_launches()
     # flash_fwd: check_flash_tc's limits (the full-width ones)
     calls = 0
-    for sq, skv, h, hk, d, causal, window in (
-            (5, 5, 4, 4, 32, True, None), (70, 200, 8, 2, 64, True, None),
-            (130, 130, 4, 1, 64, True, 40), (200, 333, 8, 2, 128, True, 50),
-            (129, 129, 4, 4, 128, False, None), (1, 77, 8, 2, 64, True, None),
-            (300, 300, 8, 2, 32, False, 64), (64, 64, 4, 1, 64, True, 1),
-            (1000, 1000, 8, 2, 64, True, None)):
+    # (sq, skv, h, hk, d, causal, window): tests/test_torch_cuda.py's
+    # FLASH_TC_CASES and one at the length of an admission prefill
+    flash_cases = (
+        (5, 5, 4, 4, 32, True, None), (70, 200, 8, 2, 64, True, None),
+        (130, 130, 4, 1, 64, True, 40), (200, 333, 8, 2, 128, True, 50),
+        (129, 129, 4, 4, 128, False, None), (1, 77, 8, 2, 64, True, None),
+        (300, 300, 8, 2, 32, False, 64), (64, 64, 4, 1, 64, True, 1),
+        (1000, 1000, 8, 2, 64, True, None))
+    for sq, skv, h, hk, d, causal, window in flash_cases:
         q, lays = layouts(2, (sq, skv), h, hk, d)
         for lay, k, v, _ in lays:
             check_flash_tc(f"flash tc bf16 sq={sq} skv={skv} h={h}/{hk} d={d} "
@@ -2400,6 +2587,68 @@ def small_tc_attn_checks(dev):
                            causal=causal, window=window)
             calls += 1
     check_tc_routes("small flash_fwd cases", flash_attention_fwd.routes, calls)
+
+    # flash_bwd on the plain o and lse: dq within 2^-7 of its largest
+    # (rounded to bf16), dk/dv 1e-3 (f32), the full-width limits; rows that
+    # see no key (sq > skv, causal) give dq = 0. delta = rowsum(do o) plus
+    # noise, as the ring passes it: with delta exactly rowsum(do o), window
+    # 1 makes dq and dk zero in exact arithmetic (p = 1 on one key), and a
+    # limit relative to their largest magnitude would measure only the two
+    # sides' f32 cancellation
+    calls = 0
+    for sq, skv, h, hk, d, causal, window in flash_cases + (
+            (90, 40, 8, 2, 64, True, None), (70, 33, 4, 1, 128, True, 16)):
+        q, lays = layouts(2, (sq, skv), h, hk, d)
+        o, lse = flash_fwd_ref(q, lays[0][1], lays[0][2], causal=causal,
+                               window=window)
+        dead = torch.isneginf(lse)
+        noise = torch.randn((2, h, sq), generator=g, device=dev)
+        for lay, k, v, do in lays:
+            kw = dict(causal=causal, window=window)
+            delta = flash_delta(do, o) + noise
+            got = flash_bwd(q, k, v, do, lse, delta, **kw)
+            want = flash_bwd_ref(q, k, v, do, lse, delta, **kw)
+            tag = (f"flash bwd tc bf16 sq={sq} skv={skv} h={h}/{hk} d={d} "
+                   f"c={causal} window={window} k/v/do {lay}")
+            check_rel(tag + " dq", got[0], want[0], 2 ** -7)
+            check_rel(tag + " dk", got[1], want[1], 1e-3)
+            check_rel(tag + " dv", got[2], want[2], 1e-3)
+            if dead.any() and not (got[0][dead] == 0).all():
+                fail(f"{tag}: rows that see no key must give dq = 0")
+            calls += 1
+    check_tc_routes("small flash_bwd cases", flash_bwd.routes, calls)
+
+    # gradients through flash_attention: bf16 with a window and at d = 128
+    # on the tensor-core backward, each within 2^-7 of its largest against
+    # the plain backward on the same o and lse (both round dq, dk, dv to
+    # bf16 once); an f32 windowed one is refused before any launch
+    for d, window in ((64, 40), (128, None), (128, 24)):
+        q, k, v, go = (_proj(g, 2, 200, n, d) for n in (8, 2, 2, 8))
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        reset_launches()
+        o = flash_attention(q, k, v, causal=True, window=window)
+        got = torch.autograd.grad(o, (q, k, v), go)
+        check_tc_routes(f"flash_attention grad d={d} window={window}: "
+                        "flash_bwd", flash_bwd.routes, 1)
+        with torch.no_grad():
+            o2, lse = flash_attention_fwd(q, k, v, causal=True, window=window)
+            want = flash_bwd_ref(q, k, v, go, lse, flash_delta_ref(go, o2),
+                                 causal=True, window=window)
+        for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+            check_rel(f"flash_attention bf16 grad d={d} window={window} "
+                      f"{name}", a, b_.to(a.dtype), 2 ** -7)
+    q = torch.randn((1, 4, 64, 64), generator=g, device=dev,
+                    requires_grad=True)
+    reset_launches()
+    try:
+        flash_attention(q, q.detach(), q.detach(), window=16)
+        fail("an f32 windowed flash_attention gradient was not refused")
+    except NotImplementedError:
+        pass
+    if flash_attention_fwd.launches:
+        fail("the f32 refusal came after the forward's launch")
+    log("[check] f32 windowed flash_attention gradient refused before any "
+        "launch")
 
     # the ring step backward: dq within 2^-7 of its largest (rounded to
     # bf16), dk/dv 1e-3 (f32), the full-width limits
@@ -3030,12 +3279,17 @@ def main():
         log(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms{dev_only}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
             f"{t['plain_ms']:.4f} ms, library {lib} [{t['library']}]")
+        if "simt_ms" in t:
+            log(f"[time] {name}: tensor-core route {t['ms']:.4f} ms, the "
+                f"CUDA-core kernel on the same values {t['simt_ms']:.4f} ms "
+                f"({t['simt_ms'] / t['ms']:.1f}x)")
+    pairs_bwd = ("visible pairs; S and dP twice, dV and dK as hi and lo "
+                 "planes: 9 products of 2 d per pair")
     issued_as = {
         "lm_head_bwd": "hi and lo planes: 5 products of 2 R d V",
-        "ring_flash_bwd": "visible pairs; S and dP twice, dV and dK as hi "
-                          "and lo planes: 9 products of 2 d per pair"}
-    for name in ("matmul", "lm_head_bwd", "flash_fwd", "flash_fwd@train",
-                 "ring_flash_bwd"):
+        "flash_bwd": pairs_bwd, "ring_flash_bwd": pairs_bwd}
+    for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
+                 "flash_fwd@train", "flash_bwd", "ring_flash_bwd"):
         t = times[name]
         rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
         issued = ("" if "tc_flops" not in t else

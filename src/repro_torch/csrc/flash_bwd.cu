@@ -8,26 +8,38 @@
 // From q, k, v, do, the forward's lse and delta = rowsum(do * o):
 //   p  = exp(q k^T * sm_scale - lse) on visible keys, 0 elsewhere
 //   dv = p^T do, ds = p * (do v^T - delta) * sm_scale, dk = ds^T q, dq = ds k
-// with queries aligned to the end of the kv stream (q_offset = skv - sq) and
-// an optional causal mask. A query that sees no key (lse = -inf) gives p = 0,
-// never NaN.
+// with queries aligned to the end of the kv stream (q_offset = skv - sq), an
+// optional causal mask and (on the tensor-core route) an optional sliding
+// window. A query that sees no key (lse = -inf) gives p = 0, never NaN.
 //
 // Bound on the H100: operations. At the training shapes (B = 4, H = 32,
 // S = 1024, D = 64) the backward is about 2.5 times the causal forward's
-// FLOPs against O(S D) bytes per head. This first version keeps the math in
-// f32 on the CUDA cores (no tensor cores), the simple and exact design, held
-// to the FLOPs over the f32 CUDA-core rate.
+// FLOPs (43 GFLOP) against O(S D) bytes per head, held to the FLOPs over
+// the bf16 tensor-core peak. The TPU kernel runs one grid with both block
+// axes sequential, carrying dq in scratch across the kv sweep and
+// accumulating dk/dv in revisited output blocks across the q sweep. Hopper
+// blocks run in no order, so the work is split FA2-style into a dq kernel
+// (one block per (64-query tile, head, batch), sweeping the kv tiles up to
+// its causal diagonal) and a dk/dv kernel (one block per (64-key tile, kv
+// head, batch), sweeping the g query heads of its group and the query tiles
+// from its diagonal on), both recomputing p from lse, so dk and dv come out
+// summed over the group in a fixed order with no atomics (the TPU path sums
+// on the host). q, k, v and do are read with their strides (the
+// projections' transposed views). Two routes, picked by the wrapper from
+// dtype and layout before any launch:
 //
-// The TPU kernel runs one grid with both block axes sequential, carrying dq
-// in scratch across the kv sweep and accumulating dk/dv in revisited output
-// blocks across the q sweep. Hopper blocks run in no order, so the work is
-// split FA2-style into two kernels that both recompute p from lse, with no
-// atomics: dq_kernel, one block per (64-query tile, head, batch), sweeps the
-// kv tiles up to its causal diagonal; dkv_kernel, one block per (64-key tile,
-// kv head, batch), sweeps the g query heads of its group and the query tiles
-// from its diagonal on, so dk and dv come out summed over the group in a
-// fixed order (deterministic; the TPU path sums on the host). q, k, v and do
-// are read with their strides (the projections' transposed views).
+// flash_bwd_tc (bf16 whose rows the 16-byte copies can read; head dims 32,
+// 64, 128; causal and window masks): the tensor-core kernels of
+// attn_bwd_sm90.cuh, which the ring backward shares, at q_start = skv - sq
+// and k_start = 0 passed as ints. Every product on wgmma, dk/dv as hi/lo
+// bf16 planes folded into f32 every 16 query tiles; the blocks of both
+// kernels start from the tile with the most visible pairs.
+//
+// flash_bwd (f32, and bf16 the copies cannot read; head dims 32, 64; no
+// window): the first design, f32 math on the CUDA cores. dq_kernel holds
+// 4 threads per query row and stages k and v through shared memory as f32,
+// 32 keys deep; dkv_kernel holds 64 keys a block and sweeps 32-query tiles.
+#include "attn_bwd_sm90.cuh"
 #include "common.cuh"
 
 namespace {
@@ -38,9 +50,7 @@ constexpr int BK = 32;    // dq kernel: keys per shared-memory tile
 constexpr int BKV = 64;   // dkv kernel: keys per block
 constexpr int BQT = 32;   // dkv kernel: queries per shared-memory tile
 
-struct Strides {  // element strides of the batch, head and sequence axes
-  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
-};
+using repro::attn::Strides;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) dq_kernel(
@@ -256,7 +266,7 @@ void launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. d in {32, 64}. q, k, v and do take
+// The CUDA-core route. dtype: 0 = float32, 1 = bfloat16. d in {32, 64}. q, k, v and do take
 // element strides for their batch, head and sequence axes (the last axis is
 // contiguous); lse and delta are contiguous (b, h, sq) f32. dq is contiguous
 // (b, h, sq, d) in the input dtype; dk and dv are contiguous (b, hk, skv, d)
@@ -285,4 +295,31 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: bf16 q, k, v and do with 16-byte aligned bases and
+// strides (elements) that are multiples of 8; d in {32, 64, 128}; window
+// <= 0: no window; otherwise as flash_bwd.
+extern "C" int flash_bwd_tc(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dq, float* dk,
+                            float* dv, int b, int h, int hk, int sq, int skv, int d,
+                            int causal, int window, float sm_scale, long long qsb,
+                            long long qsh, long long qss, long long ksb, long long ksh,
+                            long long kss, long long vsb, long long vsh, long long vss,
+                            long long osb, long long osh, long long oss, void* stream) {
+  namespace attn = repro::attn;
+  const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
+  const attn::Masks mk{causal, window, 0};
+  const attn::ValueOffsets off{skv - sq, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FLASH_BWD_TC(D)                                                            \
+  attn::bwd::launch<D>(q, k, v, dout, lse, delta, off, dq, dk, dv, b, h, hk, sq, skv, mk, \
+                       sm_scale, st, s)
+  cudaError_t e;
+  if (d == 32) e = REPRO_FLASH_BWD_TC(32);
+  else if (d == 64) e = REPRO_FLASH_BWD_TC(64);
+  else if (d == 128) e = REPRO_FLASH_BWD_TC(128);
+  else e = cudaErrorInvalidValue;
+#undef REPRO_FLASH_BWD_TC
+  return static_cast<int>(e);
 }

@@ -18,15 +18,28 @@
 // the backward three such products, 3 * 2 R d V = 6.4 TFLOP: 6.5 ms at the
 // bf16 tensor-core peak of 989 TFLOP/s.
 //
-// The forward keeps the math in f32 on the CUDA cores (the simple, exact
-// design): every product is one 64 x 64 output tile per block, staged
-// through shared memory 16 deep, each thread holding 4 x 4 accumulators; w
-// is read with its strides, so embed.T is read in place with loads along d.
-// The TPU grid carries its online-softmax state from one vocab block to the
-// next in scratch; Hopper blocks run in no order, so the forward splits the
-// vocab into at most 16 chunks, one block per (chunk, 64-row tile) keeps the
-// online softmax over its chunk, and a second kernel merges the per-chunk
-// (max, sum, gold) partials.
+// The forward has two routes, chosen by the wrapper up front:
+// * lm_head_ce_fwd_tc, the tensor-core route (bf16 x and w with TMA-aligned
+//   rows): one launch of the gemm_sm90.cuh mainloop over (M = R, N = V,
+//   K = d) with the operand maps of the backward's pass (a), so the lse the
+//   backward subtracts comes from the same products, summed in the same
+//   order, as the s it subtracts it from. Its epilogue (CeStatsEpi) reduces
+//   each row of the 128 x 256 tile in registers: the four lanes of a quad
+//   hold one row's 64 columns, take the row max over the true vocab, then
+//   sum exp(s - max) and pick the label's logit, and one lane writes the
+//   tile's (max, sum, gold) into part[3][nt][R]; ce_merge_kernel folds the
+//   nt = ceil(V / 256) partials. A tile wholly past vocab gives (-inf, 0, 0),
+//   which the merge skips. The (R, V) logits never leave registers.
+// * lm_head_ce_fwd, the CUDA-core route (f32 inputs, which keep exact f32
+//   products, and bf16 inputs TMA cannot read): every product is one 64 x
+//   64 output tile per block, staged through shared memory 16 deep, each
+//   thread holding 4 x 4 accumulators; w is read with its strides, so
+//   embed.T is read in place with loads along d. The TPU grid carries its
+//   online-softmax state from one vocab block to the next in scratch;
+//   Hopper blocks run in no order, so this route splits the vocab into at
+//   most 16 chunks, one block per (chunk, 64-row tile) keeps the online
+//   softmax over its chunk, and ce_merge_kernel merges the per-chunk
+//   partials.
 //
 // The backward has two routes, chosen by the wrapper up front:
 // * lm_head_ce_bwd_tc, the tensor-core route (bf16 x and w with TMA-aligned
@@ -407,6 +420,59 @@ struct DlEpi {
   }
 };
 
+// The epilogue of the forward's tensor-core route: for each of the thread's
+// two rows, the tile's (max, sum of exp(s - max), label logit) over the
+// columns < vocab, reduced across the quad of lanes that holds the row and
+// written by its first lane into part[3][nt][R] at the tile's index. Every
+// lane reaches the shuffles, rows >= R too. A tile with no column < vocab
+// gives max = -inf and sums of 0 (no exp of an infinite argument).
+struct CeStatsEpi {
+  const int* labels;
+  float* part;
+  int R, vocab, nt;
+
+  template <int NF>
+  __device__ __forceinline__ void operator()(const float (&acc)[NF], int r0, int c0) const {
+    const int tile = c0 / (2 * NF);  // the tile is 2 NF columns wide
+    const bool writer = threadIdx.x % 4 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const int lab = r < R ? labels[r] : -1;
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < NF / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c0 + 8 * j + e < vocab) m = fmaxf(m, acc[4 * j + 2 * h + e]);
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float l = 0.f, gold = 0.f;
+#pragma unroll
+      for (int j = 0; j < NF / 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * j + e;
+          const float sv = acc[4 * j + 2 * h + e];
+          if (c < vocab) {
+            l += expf(sv - m);
+            if (c == lab) gold += sv;
+          }
+        }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, o);
+        gold += __shfl_xor_sync(0xffffffffu, gold, o);
+      }
+      if (writer && r < R) {
+        part[((long long)0 * nt + tile) * R + r] = m;
+        part[((long long)1 * nt + tile) * R + r] = l;
+        part[((long long)2 * nt + tile) * R + r] = gold;
+      }
+    }
+  }
+};
+
 }  // namespace
 
 // The tensor-core route of the backward, bf16 x and w. x (R, d) rows
@@ -460,4 +526,36 @@ extern "C" int lm_head_ce_bwd_tc(const void* x, const void* w, const int* labels
   }
   if (e == cudaSuccess) e = sm::gemm<true, true, 2>(hi_m, lo_m, x_b, V, d, R, to_dw, s);
   return static_cast<int>(e);
+}
+
+// Number of column tiles the forward's tensor-core route splits V into (the
+// caller allocates 3 * tiles * R floats of scratch for the partials).
+extern "C" int lm_head_ce_tc_tiles(int V) { return (V + repro::sm90::BN - 1) / repro::sm90::BN; }
+
+// The tensor-core route of the forward, bf16 x and w, with the layouts of
+// lm_head_ce_bwd_tc: x (R, d) rows contiguous, stride xs_r; w (d, V) at
+// w[k * ws_k + v * ws_v] with ws_k == 1 (the tied head embed.T) or ws_v == 1;
+// every row stride a multiple of 8 elements and every base 16-byte aligned.
+// labels (R,) int32, lse and gold (R,) f32 contiguous, part 3 * tiles * R f32.
+extern "C" int lm_head_ce_fwd_tc(const void* x, const void* w, const int* labels, float* lse,
+                                 float* gold, float* part, int R, int d, int V, int vocab,
+                                 long long xs_r, long long ws_k, long long ws_v,
+                                 void* stream) {
+  namespace sm = repro::sm90;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tied = ws_v != 1;  // (V, d) memory: w^T rows are embed's rows
+  if (tied && ws_k != 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x_a, w_a;  // pass (a)'s maps: x K-major; w K-major if tied
+  cudaError_t e = sm::operand_map(&x_a, x, d, R, xs_r, false, sm::BM);
+  if (e == cudaSuccess)
+    e = tied ? sm::operand_map(&w_a, w, d, V, ws_v, false, sm::BN)
+             : sm::operand_map(&w_a, w, V, d, ws_k, true, sm::BN);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nt = lm_head_ce_tc_tiles(V);
+  const CeStatsEpi stats{labels, part, R, vocab, nt};
+  e = tied ? sm::gemm<false, false, 1>(x_a, x_a, w_a, R, V, d, stats, s)
+           : sm::gemm<false, true, 1>(x_a, x_a, w_a, R, V, d, stats, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ce_merge_kernel<<<(R + 255) / 256, 256, 0, s>>>(part, lse, gold, nt, R);
+  return static_cast<int>(cudaGetLastError());
 }

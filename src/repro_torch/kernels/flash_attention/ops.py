@@ -8,10 +8,12 @@ differentiable op: a ``torch.autograd.Function`` whose forward is
 ``flash_delta`` (Triton, ``delta.py``) and then ``flash_bwd``
 (``csrc/flash_bwd.cu``), as the JAX op's ``_bwd`` runs the delta and fused
 backward kernels. Both devices go through the same Function; on the CPU
-each step is its plain version. The backward kernel has no window mask and
-takes head dims up to 64, so on a CUDA tensor ``flash_attention`` raises
-when a gradient is asked of a windowed or d = 128 call (it would otherwise
-be silently wrong or fail late). ``flash_decode`` launches
+each step is its plain version. On the card the backward's CUDA-core
+kernel has no window mask and takes head dims up to 64, so
+``flash_attention`` raises before the forward when a gradient is asked of
+a windowed or d = 128 call whose inputs would take that kernel (f32, or
+bf16 the 16-byte copies cannot read); the tensor-core backward takes both.
+``flash_decode`` launches
 ``csrc/flash_decode.cu`` (one-token decode against a contiguous or rotated
 rolling cache: the JAX package's ``flash_decode`` op and its
 ``decode_attention`` entry) and
@@ -21,12 +23,14 @@ launch ``csrc/ring_flash.cu``: one step of ring attention (a query shard
 against one kv chunk at absolute offsets read on the device) and its
 backward; ``ring.py`` builds the ring schedule on them.
 
-``flash_attention_fwd`` and ``ring_flash_bwd`` each have two kernels on the
-card and pick one up front, by :func:`route` (dtype and layout alone,
-never after a failure): ``"wgmma"``, the tensor-core kernel
-(``flash_fwd_tc``, ``ring_flash_bwd_tc``: bf16 operands copied with
-cp.async into swizzled shared memory, products on wgmma), or ``"simt"``,
-the CUDA-core kernel. ``wrapper.routes`` counts the launches by route.
+``flash_attention_fwd``, ``flash_bwd`` and ``ring_flash_bwd`` each have two
+kernels on the card and pick one up front, by :func:`route` (dtype and
+layout alone, never after a failure): ``"wgmma"``, the tensor-core kernel
+(``flash_fwd_tc``, ``flash_bwd_tc``, ``ring_flash_bwd_tc``: bf16 operands
+copied with cp.async into swizzled shared memory, products on wgmma; the
+two backwards share their kernels, ``csrc/attn_bwd_sm90.cuh``), or
+``"simt"``, the CUDA-core kernel. ``wrapper.routes`` counts the launches by
+route.
 """
 
 from __future__ import annotations
@@ -47,9 +51,10 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)     # flash_fwd, flash_decode, paged_decode
-_BWD_HEAD_DIMS = (32, 64)      # flash_bwd
-# ring_flash_bwd by route (ring.py reads it)
-RING_BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": _BWD_HEAD_DIMS}
+# flash_bwd by route
+_BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": (32, 64)}
+# ring_flash_bwd by route (ring.py reads it): the same kernels' head dims
+RING_BWD_HEAD_DIMS = _BWD_HEAD_DIMS
 _MAX_GROUP = 16                # decode kernels: query heads per kv head
 _MAX_GROUP_DIM = 1024          # decode kernels: (query heads per kv head) * d
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -57,7 +62,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlon
 _FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
               "flash_fwd_tc": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 9 + [_P],
                                _I)}
-_BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I)}
+_BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I),
+            "flash_bwd_tc": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
+                             _I)}
 _DECODE_SIG = {"flash_decode": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 6 + [_P],
                                 _I)}
 _PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
@@ -70,13 +77,13 @@ _RING_SIG = {
 
 
 def route(*ts) -> str:
-    """The kernel a CUDA call of :func:`flash_attention_fwd` (on q, k, v)
-    or :func:`ring_flash_bwd` (on q, k, v, do) launches, from dtype and
-    layout alone: ``"wgmma"`` (the tensor-core kernel) when every tensor is
-    bf16 with its last axis contiguous, its base 16-byte aligned and every
-    other stride a multiple of 8 elements (each row a whole number of the
-    16-byte copies the kernel issues), else ``"simt"`` (the CUDA-core
-    kernel: f32 inputs and other bf16 layouts)."""
+    """The kernel a CUDA call of :func:`flash_attention_fwd` (on q, k, v),
+    :func:`flash_bwd` or :func:`ring_flash_bwd` (on q, k, v, do) launches,
+    from dtype and layout alone: ``"wgmma"`` (the tensor-core kernel) when
+    every tensor is bf16 with its last axis contiguous, its base 16-byte
+    aligned and every other stride a multiple of 8 elements (each row a
+    whole number of the 16-byte copies the kernel issues), else ``"simt"``
+    (the CUDA-core kernel: f32 inputs and other bf16 layouts)."""
     return "wgmma" if all(map(_copyable, ts)) else "simt"
 
 
@@ -204,25 +211,35 @@ def flash_delta(do, o):
 flash_delta.launches = 0
 
 
-def flash_bwd(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
+def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=None,
+              sm_scale=None):
     """dq (B, H, Sq, D) in q's dtype and dk, dv (B, Hk, Skv, D) f32, summed
     over each kv head's query-head group, from the forward's lse and
     :func:`flash_delta`'s delta (both (B, H, Sq) f32). Queries are aligned
     to the end of the kv stream; any Sq and Skv (a query that sees no key
-    contributes nothing)."""
+    contributes nothing); ``causal`` and ``window`` as in
+    :func:`flash_attention_fwd`. On the card :func:`route` (of q, k, v, do)
+    picks the kernel: head dims ``_BWD_HEAD_DIMS[route]``, and a window
+    only on the tensor-core route."""
     name = "flash_bwd"
     _no_grad_asked(name, q, k, v, do)
     if on_cpu(name, q, k, v, do, lse, delta):
         return flash_bwd_ref(q, k, v, do, lse, delta, causal=causal,
-                             sm_scale=sm_scale)
-    _check_qkv(name, q, k, v, _BWD_HEAD_DIMS)
-    _check_gqa(name, q, k, v)
-    b, h, sq, d = q.shape
-    _, hk, skv, _ = k.shape
+                             window=window, sm_scale=sm_scale)
+    win = _window(name, window)
     if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
         raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
                          f"match q {tuple(q.shape)} {q.dtype}, last axis "
                          "contiguous")
+    path = route(q, k, v, do)
+    _check_qkv(name, q, k, v, _BWD_HEAD_DIMS[path])
+    if win and path == "simt":
+        raise ValueError(f"{name}: window={window} on the CUDA-core kernel "
+                         "(f32, or bf16 rows the 16-byte copies cannot "
+                         "read), which has no window mask")
+    _check_gqa(name, q, k, v)
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
     for t, n in ((lse, "lse"), (delta, "delta")):
         if (tuple(t.shape) != (b, h, sq) or t.dtype != torch.float32
                 or not t.is_contiguous()):
@@ -236,39 +253,54 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, sm_scale=None):
     dk = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
     dv = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
     lib = load("flash_bwd", _BWD_SIG)
-    err = lib.flash_bwd(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                        ptr(dq), ptr(dk), ptr(dv), b, h, hk, sq, skv, d,
-                        _DTYPE_CODE[q.dtype], int(bool(causal)),
-                        float(sm_scale), *q.stride()[:3], *k.stride()[:3],
-                        *v.stride()[:3], *do.stride()[:3], stream())
-    check(lib, err, "flash_bwd")
+    ptrs = (ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
+            ptr(dk), ptr(dv), b, h, hk, sq, skv, d)
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *do.stride()[:3])
+    if path == "wgmma":
+        err = lib.flash_bwd_tc(*ptrs, int(bool(causal)), win,
+                               float(sm_scale), *strides, stream())
+    else:
+        err = lib.flash_bwd(*ptrs, _DTYPE_CODE[q.dtype], int(bool(causal)),
+                            float(sm_scale), *strides, stream())
+    check(lib, err, f"{name} ({path})")
     flash_bwd.launches += 1
+    flash_bwd.routes[path] += 1
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.routes = {"wgmma": 0, "simt": 0}
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, sm_scale=None):
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None,
+                        sm_scale=None):
     """The backward host path (``kernel.py:317`` of the JAX package): delta,
     then dq/dk/dv; dk and dv come group-summed out of :func:`flash_bwd` and
-    are cast to k's and v's dtypes here. Returns (dq, dk, dv)."""
+    are cast to k's and v's dtypes here. The cotangent is taken in q's
+    dtype with its last axis contiguous; on the card, where q, k and v take
+    the tensor-core route, a cotangent the 16-byte copies cannot read is
+    copied first, so the backward's route is theirs (the one
+    :func:`flash_attention` checked before the forward). Returns (dq, dk,
+    dv)."""
     do = do.to(q.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
+    if q.is_cuda and route(q, k, v) == "wgmma" and route(do) == "simt":
+        do = do.clone(memory_format=torch.contiguous_format)
     delta = flash_delta(do, o)
     dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, causal=causal,
-                           sm_scale=sm_scale)
+                           window=window, sm_scale=sm_scale)
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+    def forward(ctx, q, k, v, causal, window, sm_scale):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
                                      sm_scale=sm_scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.window, ctx.sm_scale = causal, window, sm_scale
         return o
 
     @staticmethod
@@ -276,29 +308,34 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse,
                                          causal=ctx.causal,
+                                         window=ctx.window,
                                          sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
     """Differentiable attention: the o of :func:`flash_attention_fwd`, with
-    the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`. With a
-    window the CPU differentiates the plain version; on the card the
-    backward kernel has no window mask (nor head dim 128), so asking for a
-    gradient there raises instead of returning a wrong one."""
-    if window is None and (q.device.type == "cpu"
-                           or q.shape[-1] in _BWD_HEAD_DIMS):
-        return _FlashAttention.apply(q, k, v, causal, sm_scale)
-    if on_cpu("flash_attention", q, k, v):
-        return flash_fwd_ref(q, k, v, causal=causal, window=window,
-                             sm_scale=sm_scale)[0]
-    if _grad_asked(q, k, v):
-        raise NotImplementedError(
-            f"flash_attention: no backward kernel for window={window}, head "
-            f"dim {q.shape[-1]} on the card (flash_bwd.cu takes head dims "
-            f"{_BWD_HEAD_DIMS} and no window); call it under torch.no_grad()")
-    return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                               sm_scale=sm_scale)[0]
+    the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`. On the
+    card the backward's route is :func:`route` of q, k and v: when a
+    gradient is asked and that route's kernel cannot take the call (the
+    CUDA-core backward: head dims 32 and 64, no window), this raises before
+    the forward runs instead of returning a wrong gradient or failing late.
+    """
+    if not _grad_asked(q, k, v):
+        return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   sm_scale=sm_scale)[0]
+    if not on_cpu("flash_attention", q, k, v):
+        path, d = route(q, k, v), q.shape[-1]
+        if d not in _BWD_HEAD_DIMS[path] or (window is not None
+                                             and path == "simt"):
+            raise NotImplementedError(
+                f"flash_attention: no backward kernel for window={window}, "
+                f"head dim {d} on the {path!r} route (flash_bwd takes head "
+                f"dims {_BWD_HEAD_DIMS['simt']} and no window on the "
+                f"CUDA-core route, head dims {_BWD_HEAD_DIMS['wgmma']} and "
+                "windows for bf16 inputs with 16-byte rows); call it under "
+                "torch.no_grad()")
+    return _FlashAttention.apply(q, k, v, causal, window, sm_scale)
 
 
 def _decode_check(name, q, k, v, kv_len, slot_pos):

@@ -11,12 +11,14 @@ a ``torch.autograd.Function`` on both devices: the forward
 (``lm_head_ce.raw``) streams each row's lse and label logit out of the
 product without keeping the (R, V) logits, the backward
 (``lm_head_bwd``) recomputes ``softmax - onehot`` from the saved lse. On
-the card the backward picks one of two kernels up front by
-:func:`bwd_route` (dtype and layout alone): the tensor-core route
-(``lm_head_ce_bwd_tc``: three TMA + ``wgmma`` products, dl kept as hi/lo
-bf16 planes) or the CUDA-core route (``lm_head_ce_bwd``, dl in f32).
-``lm_head_bwd.launches`` counts every call and ``lm_head_bwd.routes`` counts
-them by route.
+the card each picks one of two kernels up front by :func:`bwd_route`
+(dtype and layout alone): the tensor-core route (``lm_head_ce_fwd_tc``: one
+TMA + ``wgmma`` product whose epilogue reduces each tile's rows to (max,
+sum, gold) partials; ``lm_head_ce_bwd_tc``: three such products, dl kept as
+hi/lo bf16 planes) or the CUDA-core route (``lm_head_ce_fwd``,
+``lm_head_ce_bwd``: f32 products, dl in f32). ``lm_head_ce.launches`` and
+``lm_head_bwd.launches`` count every call, ``.routes`` counts them by
+route.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"lm_head": ([_P] * 7 + [_I] * 5 + [_L] * 3 + [_P], _I),
         "lm_head_partials": ([_I], _I)}
 _CE_SIG = {"lm_head_ce_splits": ([_I], _I),
+           "lm_head_ce_tc_tiles": ([_I], _I),
            "lm_head_ce_fwd": ([_P] * 6 + [_I] * 5 + [_L] * 3 + [_P], _I),
+           "lm_head_ce_fwd_tc": ([_P] * 6 + [_I] * 4 + [_L] * 3 + [_P], _I),
            "lm_head_ce_bwd": ([_P] * 8 + [_I] * 5 + [_L] * 5 + [_P], _I),
            "lm_head_ce_bwd_tc": ([_P] * 9 + [_I] * 4 + [_L] * 6 + [_P], _I)}
 
@@ -112,7 +116,9 @@ lm_head_logits.launches = 0
 def _ce_raw(x, w, labels, *, vocab=None):
     """x (R, d) @ w (d, V) -> (lse (R, 1) f32 over the true vocab, gold
     (R, 1) f32 = each row's label logit). ``w`` may be any strided view
-    (the tied head ``embed.T`` is read in place); labels (R, 1) int32."""
+    (the tied head ``embed.T`` is read in place); labels (R, 1) int32. On
+    the card the route is :func:`bwd_route`'s, fixed before any launch: the
+    tensor-core route reads x and w as the backward's logits pass does."""
     name = "lm_head_ce"
     if on_cpu(name, x, w):
         return lm_head_ce_stats_ref(x, w, labels, vocab=vocab)
@@ -120,22 +126,32 @@ def _ce_raw(x, w, labels, *, vocab=None):
     vocab = _vocab(name, vocab, V, R)
     _check_labels(name, labels, x)
     lib = load("lm_head_ce", _CE_SIG)
-    nsplit = lib.lm_head_ce_splits(V)
+    path = bwd_route(x, w)
     dev = x.device
     lse = torch.empty((R, 1), dtype=torch.float32, device=dev)
     gold = torch.empty((R, 1), dtype=torch.float32, device=dev)
-    part = torch.empty((3, nsplit, R), dtype=torch.float32, device=dev)
-    err = lib.lm_head_ce_fwd(ptr(x), ptr(w), ptr(labels), ptr(lse), ptr(gold),
-                             ptr(part), R, d, V, vocab, _DTYPE_CODE[x.dtype],
-                             x.stride(0), w.stride(0), w.stride(1), stream())
-    check(lib, err, "lm_head_ce_fwd")
+    args = (R, d, V, vocab)
+    strides = (x.stride(0), w.stride(0), w.stride(1), stream())
+    if path == "wgmma":                 # partials per 256-column tile
+        part = torch.empty((3, lib.lm_head_ce_tc_tiles(V), R),
+                           dtype=torch.float32, device=dev)
+        err = lib.lm_head_ce_fwd_tc(ptr(x), ptr(w), ptr(labels), ptr(lse),
+                                    ptr(gold), ptr(part), *args, *strides)
+    else:                               # partials per vocab chunk
+        part = torch.empty((3, lib.lm_head_ce_splits(V), R),
+                           dtype=torch.float32, device=dev)
+        err = lib.lm_head_ce_fwd(ptr(x), ptr(w), ptr(labels), ptr(lse),
+                                 ptr(gold), ptr(part), *args,
+                                 _DTYPE_CODE[x.dtype], *strides)
+    check(lib, err, f"lm_head_ce_fwd ({path})")
     lm_head_ce.launches += 1
+    lm_head_ce.routes[path] += 1
     return lse, gold
 
 
 def bwd_route(x, w) -> str:
-    """The kernel a CUDA call of :func:`lm_head_bwd` launches, from dtype
-    and layout alone: ``"wgmma"`` (the tensor-core route) when x and w are
+    """The kernel a CUDA call of :func:`lm_head_bwd` (and of the forward,
+    ``lm_head_ce.raw``) launches, from dtype and layout alone: ``"wgmma"`` (the tensor-core route) when x and w are
     bf16, TMA can read x row by row and w either as the tied head's
     transposed view (``w.T`` rows contiguous) or by its own contiguous rows
     (``tma_ok``); else ``"simt"`` (the CUDA-core route: f32 inputs, whose
@@ -224,3 +240,4 @@ def lm_head_ce(x, w, labels, *, vocab=None):
 
 lm_head_ce.raw = _ce_raw
 lm_head_ce.launches = 0
+lm_head_ce.routes = {"wgmma": 0, "simt": 0}

@@ -497,9 +497,11 @@ def test_paged_decode_kernel_head_dim_128(dev, g, page):
 
 
 def test_attention_without_backward_kernel_refuses_gradients(dev):
-    """flash_bwd.cu has no window mask and takes head dims <= 64: on the
-    card a gradient through a windowed or d = 128 ``flash_attention`` raises
-    instead of coming out wrong; without a gradient both run the kernel."""
+    """f32 inputs take flash_bwd.cu's CUDA-core backward, which has no
+    window mask and takes head dims <= 64: on the card a gradient through a
+    windowed or d = 128 f32 ``flash_attention`` raises before any launch
+    instead of coming out wrong; without a gradient both run the kernel.
+    (bf16 takes the tensor-core backward, which has both: below.)"""
     for window, d in ((4, 32), (None, 128)):
         q = _rnd(dev, 1, 4, 9, d).requires_grad_()
         k = _rnd(dev, 1, 2, 9, d, seed=1).requires_grad_()
@@ -992,3 +994,117 @@ def test_ring_attention_bf16_d128_gradients_on_card(dev):
     want = ring_bwd_ref(q, k[:, :, :64], v[:, :, :64], go, lse, delta, *off)
     for a, b_, rel in zip(got, want, (2 ** -7, 1e-3, 1e-3)):
         _close_rel(a.float(), b_.float(), rel)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of the CE forward and flash_bwd; bf16 gradients
+# through a windowed and a d = 128 flash_attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("R", [1, 5, 70, 130])
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_head_ce_tensor_core_route(dev, R, tied):
+    """bf16 x and w with TMA-readable rows take the tensor-core forward:
+    ragged R against the 128-row tiles, V = 1104 in 256-column tiles of
+    which the last two lie wholly past vocab = 600, a label in the last
+    true column. lse and gold within 1e-3 absolute of the plain version
+    (the full-width limit: both sum exact bf16 products in f32, in another
+    order)."""
+    bf = torch.bfloat16
+    V, vocab, d = 1104, 600, 64
+    x = _rnd(dev, R, d).to(bf)
+    w = (_rnd(dev, V, d, seed=1).T if tied else _rnd(dev, d, V, seed=1)).to(bf)
+    lab = torch.randint(0, vocab, (R, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(R)).to(dev)
+    lab[-1] = vocab - 1
+    assert bwd_route(x, w) == "wgmma"
+    reset_launches()
+    lse, gold = lm_head_ce.raw(x, w, lab, vocab=vocab)
+    assert lm_head_ce.routes == {"wgmma": 1, "simt": 0}
+    rlse, rgold = lm_head_ce_stats_ref(x, w, lab, vocab=vocab)
+    assert torch.isfinite(lse).all() and torch.isfinite(gold).all()
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(gold, rgold, atol=1e-3, rtol=0)
+
+
+def test_lm_head_ce_forward_routes_by_layout(dev):
+    """f32 and bf16 rows TMA cannot read keep the CUDA-core forward; both
+    routes agree with the plain version (f32 1e-4; bf16 1e-3 absolute)."""
+    bf = torch.bfloat16
+    x = _rnd(dev, 33, 96).to(bf)
+    w = _rnd(dev, 300, 96, seed=1).to(bf).T
+    lab = torch.randint(0, 290, (33, 1), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    for xx, ww, want, tol in (
+            (x, w, "wgmma", dict(atol=1e-3, rtol=0)),
+            (x.float(), w.float(), "simt", TOL),
+            (x[:, :90].contiguous(), w[:90], "simt",   # rows of 180 bytes
+             dict(atol=1e-3, rtol=0))):
+        reset_launches()
+        got = lm_head_ce.raw(xx, ww, lab, vocab=290)
+        assert lm_head_ce.routes[want] == 1 == lm_head_ce.launches, want
+        for a, b_ in zip(got, lm_head_ce_stats_ref(xx, ww, lab, vocab=290)):
+            torch.testing.assert_close(a, b_, **tol)
+
+
+FLASH_BWD_TC_CASES = FLASH_TC_CASES + [
+    (90, 40, 8, 2, 64, True, None),    # rows 0-49 see no key
+    (70, 33, 4, 1, 128, True, 16),     # and with a window at d = 128
+]
+
+
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("case", FLASH_BWD_TC_CASES)
+def test_flash_bwd_tensor_core_route(dev, case, layout):
+    """bf16 q (a view) with k, v and do as the projections' views or
+    contiguous take the wgmma backward at head dims 32, 64 and 128, with
+    windows, GQA groups 1 and 4 and Sq != Skv: dq within 2^-7 of its
+    largest magnitude (rounded to bf16), dk and dv within 1e-3 (f32, p and
+    ds as hi/lo bf16 planes), the full-width limits; a row that sees no key
+    gives dq = 0. delta is rowsum(do o) plus noise, as the ring passes it
+    (rowsum(do o) - g_lse) through the same kernels: with delta exactly
+    rowsum(do o), window 1 (each query sees one key, p = 1) makes dq and dk
+    zero in exact arithmetic, and a limit relative to their largest
+    magnitude would measure only the two sides' f32 cancellation."""
+    sq, skv, h, hk, d, causal, window = case
+    q = _view(dev, 2, sq, h, d, 0)
+    k = _layout(_view(dev, 2, skv, hk, d, 1), layout)
+    v = _layout(_view(dev, 2, skv, hk, d, 2), layout)
+    do = _layout(_view(dev, 2, sq, h, d, 3), layout)
+    o, lse = flash_fwd_ref(q, k, v, causal=causal, window=window)
+    delta = flash_delta(do, o) + _rnd(dev, 2, h, sq, seed=4)
+    reset_launches()
+    got = flash_bwd(q, k, v, do, lse, delta, causal=causal, window=window)
+    assert flash_bwd.routes == {"wgmma": 1, "simt": 0}
+    want = flash_bwd_ref(q, k, v, do, lse, delta, causal=causal,
+                         window=window)
+    for a, b_, rel in zip(got, want, (2 ** -7, 1e-3, 1e-3)):
+        assert torch.isfinite(a).all()
+        _close_rel(a.float(), b_.float(), rel)
+    dead = torch.isneginf(lse)
+    assert (got[0][dead] == 0).all()
+
+
+@pytest.mark.parametrize("d,window", [(64, 40), (128, None), (128, 24)])
+def test_flash_attention_bf16_window_and_d128_gradients(dev, d, window):
+    """A bf16 gradient through a windowed or d = 128 ``flash_attention``
+    runs on the card, the backward on the tensor-core route, and matches
+    the plain backward on the same o and lse: each gradient within 2^-7 of
+    its largest magnitude (both round dq, dk and dv to bf16 once; the
+    kernel's dk/dv sit within 1e-3 of the f32 plain ones before that)."""
+    q = _view(dev, 2, 200, 8, d, 0).detach().requires_grad_()
+    k = _view(dev, 2, 200, 2, d, 1).detach().requires_grad_()
+    v = _view(dev, 2, 200, 2, d, 2).detach().requires_grad_()
+    go = _view(dev, 2, 200, 8, d, 3)
+    reset_launches()
+    o = flash_attention(q, k, v, causal=True, window=window)
+    got = torch.autograd.grad(o, (q, k, v), go)
+    assert flash_bwd.routes == {"wgmma": 1, "simt": 0}
+    assert flash_attention_fwd.routes == {"wgmma": 1, "simt": 0}
+    with torch.no_grad():
+        o2, lse = flash_attention_fwd(q, k, v, causal=True, window=window)
+        dq, dk, dv = flash_bwd_ref(q, k, v, go, lse, flash_delta_ref(go, o2),
+                                   causal=True, window=window)
+    for a, b_ in zip(got, (dq, dk.to(k.dtype), dv.to(v.dtype))):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        _close_rel(a.float(), b_.float(), 2 ** -7)
