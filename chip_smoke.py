@@ -13,10 +13,11 @@ blocked matmul op, and times each kernel.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build: one nvcc per CUDA source, all in parallel, plus the Triton
-   rmsnorm and flash-delta kernels; the SASS of the matmul and CE-head
-   libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads), the CE
-   forward's own tensor-core kernel HGMMA, that of the flash_fwd,
-   flash_bwd and ring_flash libraries HGMMA and LDGSTS (cp.async);
+   rmsnorm and flash-delta kernels; the SASS of the matmul, CE-head and
+   decode-head libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads),
+   the CE forward's own tensor-core kernel HGMMA, that of the flash_fwd,
+   flash_bwd and ring_flash libraries HGMMA and LDGSTS (cp.async), the
+   ring step forward's own tensor-core kernel too;
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
    max|ref| for SEM/DG; flash_decode on positional and rotated caches,
@@ -28,9 +29,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ragged shapes, tied and untied heads, of flash_fwd and flash_bwd at
    ragged Sq != Skv, windows, d 32/64/128, GQA groups 1/4 and the
    projections' strided q, k, v, do (flash_bwd also with rows that see no
-   key, and through a windowed and a d = 128 flash_attention gradient), and
-   of the ring step backward at ring offsets with dead rows, windows, a
-   prefix and d 32/64/128, each launch's route counted), bf16 at
+   key, and through a windowed and a d = 128 flash_attention gradient), of
+   the ring step forward and backward at ring offsets with dead rows,
+   windows, a prefix and d 32/64/128, and of the decode head at R = 1-300,
+   tied and untied, each launch's route counted), bf16 at
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
@@ -47,8 +49,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 4. the serving path: the full 16-layer bf16 llama3_2_1b through ``Engine``
    (8 slots, max_len 2048, page 512, 16 requests of 33-1000 prompt tokens
    and 32-64 new tokens). Launch counts are zeroed just before and read just
-   after; every serving kernel must have launched, every request complete,
-   every logit be finite;
+   after; every serving kernel must have launched, flash_fwd and the
+   decode head on their tensor-core routes every time, every request
+   complete, every logit be finite;
 5. where the serving time goes: eight decode steps of a full engine on the
    host clock and under ``torch.profiler`` (device busy share, top device
    ops), and one admission prefill;
@@ -68,10 +71,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 8. per-kernel times at the main paths' shapes beside their bound, the
    plain version's time and one library call's time (null where no single
    PyTorch call computes the function), flash_fwd also at the train step's
-   shape; the CE forward and flash_bwd also on their CUDA-core kernels on
-   the same inputs (a copy 2 bytes off the alignment the tensor-core route
-   needs), their bf16 outputs held to the full-width limits; the
-   tensor-core kernels' TFLOP/s;
+   shape; the decode head, the CE forward, flash_bwd and the ring step
+   forward also on their CUDA-core kernels on the same inputs (a copy 2
+   bytes off the alignment the tensor-core route needs), their bf16 outputs
+   held to the full-width limits; the tensor-core kernels' TFLOP/s, the
+   decode head's GB/s;
 9. the apps path, launch counts zeroed just before and read just after,
    each app kernel launched exactly as often as its calls say: ``FDWave``
    on 8192^2 at radius 4 for 200 steps (MNodes/s, analytic error) and
@@ -99,7 +103,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     over 4 steps and the distributed schedule replayed rank by rank for 4
     ranks (``ring_schedule_replay``), forward and gradients, both against
     the port's ``flash_attention`` (each step kernel launched exactly
-    4 + 16 times, the backward on its tensor-core route each time); then
+    4 + 16 times, both on their tensor-core routes each time); then
     ``matmul`` at 4096 x 2048 @ 2048 x 8192 in bf16
     (one launch, on the tensor-core route) against its plain version. The
     multi-rank ring over ``torch.distributed`` needs two cards and is held
@@ -572,13 +576,18 @@ def full_width_bf16_checks(dev, cfg, params, sq, lens, page, num_pages):
         f"paged bf16 b={len(lens)} page={page} lens={lens}", o, ro,
         atol=2e-2, rtol=2e-2)
 
-    # LM head: bf16 products are exact in f32; the two sum d=2048 of them
-    # in different orders: |err| <= d * 2^-24 * sum|x w| ~ 4e-3 at these
-    # magnitudes
+    # LM head (the tensor-core route): bf16 products are exact in f32; the
+    # two sum d=2048 of them in different orders, the tensor cores
+    # truncating each k16 step: |err| <= d * 2^-24 * sum|x w| ~ 4e-3 at
+    # these magnitudes
     x = rmsnorm_ref(torch.randn((len(lens), d), generator=gen, device=dev),
                     torch.ones(d, device=dev), eps=cfg.norm_eps).to(bf)
     head = params["embed"].T
+    before = lm_head_logits.routes["wgmma"]
     lg, m, arg = lm_head_logits.raw(x, head, vocab=cfg.vocab_size)
+    if lm_head_logits.routes["wgmma"] != before + 1:
+        fail("lm_head bf16 at the decode step's shape did not take the "
+             "tensor-core route")
     rlg, rm, rarg = lm_head_logits_ref(x, head, vocab=cfg.vocab_size)
     errs["lm_head"] = check_close(
         f"lm_head bf16 ({len(lens)},{d})x({d},{head.shape[1]})", lg, rlg,
@@ -634,6 +643,7 @@ def serve_main_path(cfg, model, params, reqs):
 
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.lm_head import lm_head_logits
     from repro_torch.serving import Engine
 
     eng = Engine(model, params, batch=8, max_len=2048)
@@ -666,6 +676,7 @@ def serve_main_path(cfg, model, params, reqs):
         wall = time.perf_counter() - t0
         counts = launch_counts()
         fwd_routes = dict(flash_attention_fwd.routes)
+        head_routes = dict(lm_head_logits.routes)
     finally:
         del model.prefill, model.paged_greedy_step
     for rid, (p, m) in zip(rids, reqs):
@@ -678,6 +689,7 @@ def serve_main_path(cfg, model, params, reqs):
         if counts[name] <= 0:
             fail(f"kernel {name} never launched on the serving path")
     check_tc_routes("serving path: flash_fwd", fwd_routes, counts["flash_fwd"])
+    check_tc_routes("serving path: lm_head", head_routes, counts["lm_head"])
     ntok = sum(len(res[r]) for r in rids)
     stats = dict(wall_s=wall, tokens=ntok, tok_s=ntok / wall,
                  prefill_calls=calls["prefill"],
@@ -790,9 +802,11 @@ def device_ms(fn, kernel, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    ms = sum(r[0] for r in device_rows(prof, n) if kernel in r[2])
+    rows = device_rows(prof, n)
+    ms = sum(r[0] for r in rows if kernel in r[2])
     if ms <= 0:
-        fail(f"profiler: no device time for {kernel}")
+        fail(f"profiler: no device time for {kernel}; device rows: "
+             f"{[r[2][:120] for r in rows]}")
     return ms
 
 
@@ -819,8 +833,8 @@ def flash_times(q, k, v, iters, plain_iters):
 
     return dict(
         ms=cuda_ms(run(k, v), iters),
-        device_ms=device_ms(run(k, v), "flash_fwd_tc_kernel"),
-        device_ms_contig=device_ms(run(kc, vc), "flash_fwd_tc_kernel"),
+        device_ms=device_ms(run(k, v), "fwd_tc_kernel"),
+        device_ms_contig=device_ms(run(kc, vc), "fwd_tc_kernel"),
         plain_ms=cuda_ms(lambda: flash_fwd_ref(q, k, v, causal=True),
                          plain_iters, 1),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -923,16 +937,32 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
         lg = torch.matmul(xh, head)
         return lg[:, :vocab].max(dim=-1)
 
+    x_simt, simt = _unaligned(xh), []
+
+    def head_simt():
+        simt[:] = lm_head_logits.raw(x_simt, head, vocab=vocab)
+
+    head_bytes = d * V * 2 + b * d * 2 + b * V * 4 + b * 8
     out["lm_head"] = dict(
-        ms=cuda_ms(lambda: lm_head_logits.raw(xh, head, vocab=vocab)),
+        ms=_timed_routes(lambda: lm_head_logits.raw(xh, head, vocab=vocab),
+                         lm_head_logits, "wgmma", 30),
+        simt_ms=_timed_routes(head_simt, lm_head_logits, "simt", 10),
+        bytes=head_bytes,
         plain_ms=cuda_ms(lambda: lm_head_logits_ref(xh, head, vocab=vocab),
                          iters=10),
         library_ms=cuda_ms(library_head),
         library="torch.matmul (bf16 out) + max/argmax",
         shape=f"x ({b},{d}) @ embed.T ({d},{V}) bf16")
     out["lm_head"].update(zip(("bound_ms", "bound_by"), bound(
-        d * V * 2 + b * d * 2 + b * V * 4 + b * 8, 2 * b * d * V,
-        "bfloat16")))
+        head_bytes, 2 * b * d * V, "bfloat16")))
+    # the CUDA-core kernel's bf16 instantiation (the route of bf16 TMA
+    # cannot read) on the same values, at full_width_bf16_checks' limits
+    rlg, rm, _ = lm_head_logits_ref(xh, head, vocab=vocab)
+    check_close(f"lm_head bf16 CUDA-core ({b},{d})x({d},{V})", simt[0], rlg,
+                atol=4e-3, rtol=0)
+    check_close("lm_head bf16 CUDA-core row max", simt[1], rm, atol=4e-3,
+                rtol=0)
+    check_argmax("lm_head bf16 CUDA-core", simt[2], rlg, vocab, gap_tol=8e-3)
     return out
 
 
@@ -2400,12 +2430,16 @@ def time_static_kernels(dev):
 # everywhere; TMA tensor loads (UTMALDG) in the GEMM mainloop's libraries,
 # cp.async copies (LDGSTS) in the attention kernels'
 TC_LIBS = {"matmul": ("HGMMA", "UTMALDG"), "lm_head_ce": ("HGMMA", "UTMALDG"),
+           "lm_head": ("HGMMA", "UTMALDG"),
            "flash_fwd": ("HGMMA", "LDGSTS"), "flash_bwd": ("HGMMA", "LDGSTS"),
            "ring_flash": ("HGMMA", "LDGSTS")}
 # (library, a name in the kernel's mangled symbol) -> the ops that kernel
 # alone must issue: the CE forward's tensor-core kernel (its epilogue's
-# name), in a library whose backward has HGMMA anyway
-TC_FUNCS = {("lm_head_ce", "CeStatsEpi"): ("HGMMA", "UTMALDG")}
+# name), in a library whose backward has HGMMA anyway; the ring step's
+# tensor-core forward (the shared forward of attn_fwd_sm90.cuh), beside the
+# ring's tensor-core backward
+TC_FUNCS = {("lm_head_ce", "CeStatsEpi"): ("HGMMA", "UTMALDG"),
+            ("ring_flash", "fwd_tc_kernel"): ("HGMMA", "LDGSTS")}
 
 
 def _sass_functions(sass):
@@ -2474,7 +2508,9 @@ def small_tc_checks(dev):
 
     from repro_torch.kernels import reset_launches
     from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
-                                             lm_head_ce, lm_head_ce_stats_ref)
+                                             lm_head_ce, lm_head_ce_stats_ref,
+                                             lm_head_logits,
+                                             lm_head_logits_ref)
     from repro_torch.kernels.matmul import matmul, matmul_ref
 
     bf = torch.bfloat16
@@ -2534,6 +2570,25 @@ def small_tc_checks(dev):
             calls += 1
     if lm_head_bwd.routes != {"wgmma": calls, "simt": 0}:
         fail(f"CE bwd routes {lm_head_bwd.routes}: expected {calls} on wgmma")
+    # the decode head at R = 1 .. 300 (row tiles of 8, 16, 64 and 256),
+    # tied and untied, V = 1104 past vocab = 1000, d = 256: logits and row
+    # max within 1e-3 (bf16 products exact in f32, d = 256 of them summed in
+    # other orders), argmax by check_argmax's rule
+    calls = 0
+    V, vocab, d = 1104, 1000, 256
+    for R in (1, 5, 8, 16, 20, 70, 300):
+        for tied in (True, False):
+            x = rnd(R, d).to(bf)
+            w = (0.5 * (rnd(V, d).T if tied else rnd(d, V))).to(bf)
+            tag = f"decode head tc bf16 R={R} V={V} vocab={vocab} tied={tied}"
+            lg, m, arg = lm_head_logits.raw(x, w, vocab=vocab)
+            rlg, rm, _ = lm_head_logits_ref(x, w, vocab=vocab)
+            check_close(tag + " logits", lg, rlg, atol=1e-3, rtol=0,
+                        quiet=True)
+            check_close(tag + " max", m, rm, atol=1e-3, rtol=0, quiet=True)
+            check_argmax(tag, arg, rlg, vocab, gap_tol=2e-3)
+            calls += 1
+    check_tc_routes("small decode head cases", lm_head_logits.routes, calls)
     small_tc_attn_checks(dev)
 
 
@@ -2555,7 +2610,8 @@ def small_tc_attn_checks(dev):
                                                      flash_fwd_ref,
                                                      ring_bwd_ref,
                                                      ring_flash_bwd,
-                                                     ring_flash_fwd)
+                                                     ring_flash_fwd,
+                                                     ring_fwd_ref)
 
     g = torch.Generator(device=dev).manual_seed(9)
 
@@ -2650,8 +2706,10 @@ def small_tc_attn_checks(dev):
     log("[check] f32 windowed flash_attention gradient refused before any "
         "launch")
 
-    # the ring step backward: dq within 2^-7 of its largest (rounded to
-    # bf16), dk/dv 1e-3 (f32), the full-width limits
+    # the ring step forward at check_flash_tc's limits (o 2e-2 and 2^-6 of
+    # its row, lse 1e-3 / 1e-4, -inf on the same rows) and, on its o and
+    # lse, the backward: dq within 2^-7 of its largest (rounded to bf16),
+    # dk/dv 1e-3 (f32), the full-width limits
     calls = 0
     # (sq, skv, h, hk, d, q_start, k_start, masks)
     cases = ((70, 45, 4, 1, 32, 30, 50, {}),          # crosses the diagonal
@@ -2660,8 +2718,10 @@ def small_tc_attn_checks(dev):
              (197, 160, 8, 2, 64, 64, 96, {}),        # ragged, dead rows
              (130, 200, 4, 1, 64, 60, 20, dict(window=30)),
              (150, 145, 8, 2, 32, 10, 30, dict(prefix_len=35)),
+             (150, 400, 8, 2, 64, 200, 0, dict(window=40, prefix_len=70)),
              (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
              (130, 300, 8, 2, 128, 30, 50, dict(window=40)),
+             (200, 333, 8, 2, 128, 0, 120, dict(prefix_len=140)),
              (256, 256, 8, 2, 128, 0, 0, {}),
              (1024, 1024, 8, 2, 64, 1024, 0, {}))     # a whole chunk before
     for sq, skv, h, hk, d, qs, ks, kw in cases:
@@ -2669,14 +2729,19 @@ def small_tc_attn_checks(dev):
         qst, kst = _offsets(dev, qs, ks)
         g_lse = torch.randn((2, h, sq), generator=g, device=dev)
         for lay, k, v, do in lays:
+            tag = (f"ring tc bf16 sq={sq} skv={skv} h={h}/{hk} d={d} "
+                   f"q0={qs} k0={ks} {kw} k/v/do {lay}")
             o, lse = ring_flash_fwd(q, k, v, qst, kst, **kw)
+            ro, rlse = ring_fwd_ref(q, k, v, qst, kst, **kw)
+            check_close(tag + " o", o, ro, atol=2e-2, rtol=2e-2, quiet=True)
+            check_rows(tag + " o", o, ro, 2 ** -6, quiet=True)
+            check_lse(tag + " lse", lse, rlse, atol=1e-3, rtol=1e-4,
+                      quiet=True)
             delta = flash_delta(do, o) - torch.where(torch.isneginf(lse), 0.0,
                                                      g_lse)
             args = (q, k, v, do, lse, delta, qst, kst)
             got = ring_flash_bwd(*args, **kw)
             want = ring_bwd_ref(*args, **kw)
-            tag = (f"ring bwd tc bf16 sq={sq} skv={skv} h={h}/{hk} d={d} "
-                   f"q0={qs} k0={ks} {kw} k/v/do {lay}")
             check_rel(tag + " dq", got[0], want[0], 2 ** -7)
             check_rel(tag + " dk", got[1], want[1], 1e-3)
             check_rel(tag + " dv", got[2], want[2], 1e-3)
@@ -2687,7 +2752,10 @@ def small_tc_attn_checks(dev):
             if rows.any() and not (got[0][rows] == 0).all():
                 fail(f"{tag}: rows with lse = -inf must give dq = 0")
             calls += 1
+    check_tc_routes("small ring_flash_fwd cases", ring_flash_fwd.routes, calls)
     check_tc_routes("small ring_flash_bwd cases", ring_flash_bwd.routes, calls)
+    log(f"[check] ring step forward and backward, tensor-core routes: {calls} "
+        "small bf16 cases within their limits")
     torch.cuda.synchronize()
 
 
@@ -2864,7 +2932,8 @@ def ring_main_path(dev):
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      ring_flash_attention,
-                                                     ring_flash_bwd)
+                                                     ring_flash_bwd,
+                                                     ring_flash_fwd)
     from repro_torch.kernels.matmul import matmul, matmul_ref
 
     n = RING_STEPS
@@ -2887,6 +2956,7 @@ def ring_main_path(dev):
     torch.cuda.synchronize()
     t_replay = time.perf_counter() - t0
     counts = launch_counts()
+    fwd_routes = dict(ring_flash_fwd.routes)
     bwd_routes = dict(ring_flash_bwd.routes)
     log(f"[ring] S={RING_SEQ} h=32/8 d=64 bf16, {n} steps, forward + "
         f"backward: flash_attention {t_flash * 1e3:.3f} ms, local ring "
@@ -2897,6 +2967,7 @@ def ring_main_path(dev):
         if counts[name] != want:
             fail(f"ring path: {name} launched {counts[name]} times, "
                  f"expected {want}")
+    check_tc_routes("ring path: ring_flash_fwd", fwd_routes, want)
     check_tc_routes("ring path: ring_flash_bwd", bwd_routes, want)
     # limits: o row by row (check_rows), 2^-5 of the row's largest |o|:
     # flash_attention rounds its f32 o to bf16 once, the ring rounds each
@@ -2952,6 +3023,7 @@ def ring_kernel_checks(dev):
     (tag, q, k, v, do, q_start, k_start) for time_ring_kernels)."""
     import torch
 
+    from repro_torch.kernels import reset_launches
     from repro_torch.kernels.flash_attention import (flash_delta,
                                                      ring_bwd_ref,
                                                      ring_flash_bwd,
@@ -2972,6 +3044,7 @@ def ring_kernel_checks(dev):
                part(do, i).contiguous(), qs, ks)
               for i, t, j, qs, ks in _replay_pairs(n, c, c)]
     worst = dict.fromkeys(("o", "o/row", "lse", "dq", "dk", "dv"), 0.0)
+    reset_launches()
     for tag, qq, kc, vc, dd, qs, ks in local + replay:
         tag = f"ring bf16 S={RING_SEQ} {tag}"
         o, lse = ring_flash_fwd(qq, kc, vc, *_offsets(dev, qs, ks))
@@ -2992,10 +3065,14 @@ def ring_kernel_checks(dev):
             rdq.append(dq_r)
             rdk, rdv = rdk + dk_r, rdv + dv_r
         ro, rlse, rdq = (torch.cat(x, dim=2) for x in (ro, rlse, rdq))
-        # o: both keep p in f32 and round the same f32 o once to bf16, at
-        # most one ulp apart (<= 2^-7 of the row's largest |o|); lse f32;
-        # dq rounded to bf16 (flash bwd's 2^-7), dk/dv f32 (1e-3)
-        err_o, ratio = check_rows(tag + " o", o, ro, 2 ** -7, quiet=True)
+        # o at check_flash_tc's limits (the tensor-core forward rounds p
+        # to bf16 before P V, the plain version keeps it f32; both round o
+        # once): 2e-2 absolute + relative and 2^-6 of the row's largest
+        # |o|; lse f32; dq rounded to bf16 (flash bwd's 2^-7), dk/dv f32
+        # (1e-3)
+        err_o = check_close(tag + " o", o, ro, atol=2e-2, rtol=2e-2,
+                            quiet=True)
+        _, ratio = check_rows(tag + " o", o, ro, 2 ** -6, quiet=True)
         for key, e in (("o", err_o), ("o/row", ratio),
                        ("lse", check_lse(tag + " lse", lse, rlse, atol=1e-3,
                                          rtol=1e-4, quiet=True)),
@@ -3007,9 +3084,14 @@ def ring_kernel_checks(dev):
                                         quiet=True))):
             worst[key] = max(worst[key], e)
     torch.cuda.synchronize()
+    for fn in (ring_flash_fwd, ring_flash_bwd):
+        check_tc_routes(f"ring kernel checks: {fn.__name__}", fn.routes,
+                        len(local) + len(replay))
     log(f"[check] ring bf16 kernels vs plain at S={RING_SEQ}, {n} local "
-        f"steps + {len(replay)} replayed (rank, step) pairs: max|err| o "
-        f"{worst['o']:.3e} (err/row-max {worst['o/row']:.3e}, limit 2^-7), "
+        f"steps + {len(replay)} replayed (rank, step) pairs, all on the "
+        f"tensor-core routes: max|err| o "
+        f"{worst['o']:.3e} (err/row-max {worst['o/row']:.3e}, limits 2e-2 "
+        f"and 2^-6 of the row), "
         f"lse {worst['lse']:.3e} (1e-3), dq {worst['dq']:.3e} (2^-7 of "
         f"max), dk {worst['dk']:.3e}, dv {worst['dv']:.3e} (1e-3 of max)")
     return ({"ring_flash_fwd": max(worst["o"], worst["lse"]),
@@ -3025,6 +3107,7 @@ def time_ring_kernels(dev, pairs):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import reset_launches
     from repro_torch.kernels.flash_attention import (flash_delta,
                                                      ring_bwd_ref,
                                                      ring_flash_bwd,
@@ -3045,7 +3128,7 @@ def time_ring_kernels(dev, pairs):
         offs = _offsets(dev, qs, ks)
         o, lse = ring_flash_fwd(q, k, v, *offs)
         runs.append(dict(qkv=(q, k, v), offs=offs, do=do, mask=mask, lse=lse,
-                         delta=flash_delta(do, o)))
+                         delta=flash_delta(do, o), q_simt=_unaligned(q)))
     npairs = len(runs)
 
     def per_launch(fn, iters):
@@ -3053,6 +3136,16 @@ def time_ring_kernels(dev, pairs):
             for r in runs:
                 fn(r)
         return cuda_ms(go, iters=iters, warmup=1) / npairs
+
+    def per_launch_on(path, wrapper, fn, iters):
+        """per_launch, every launch of ``wrapper`` in it on ``path``."""
+        reset_launches()
+        ms = per_launch(fn, iters)
+        want = {"wgmma": 0, "simt": 0, path: (iters + 1) * npairs}
+        if dict(wrapper.routes) != want:
+            fail(f"timed {wrapper.__name__}: routes {dict(wrapper.routes)}, "
+                 f"expected {want}")
+        return ms
 
     def sdpa(r):
         return F.scaled_dot_product_attention(*r["qkv"], attn_mask=r["mask"],
@@ -3072,7 +3165,11 @@ def time_ring_kernels(dev, pairs):
     flops = 4 * d * h * visible / npairs
     io = (h * a * d + 2 * hk * c * d) * 2
     out["ring_flash_fwd"] = dict(
-        ms=per_launch(lambda r: ring_flash_fwd(*r["qkv"], *r["offs"]), 2),
+        ms=per_launch_on("wgmma", ring_flash_fwd,
+                         lambda r: ring_flash_fwd(*r["qkv"], *r["offs"]), 2),
+        simt_ms=per_launch_on("simt", ring_flash_fwd, lambda r: ring_flash_fwd(
+            r["q_simt"], *r["qkv"][1:], *r["offs"]), 1),
+        flops=flops,
         plain_ms=per_launch(lambda r: ring_fwd_ref(*r["qkv"], *r["offs"]),
                             1),
         library_ms=per_launch(sdpa, 2),
@@ -3080,6 +3177,24 @@ def time_ring_kernels(dev, pairs):
         shape=shape)
     out["ring_flash_fwd"].update(zip(("bound_ms", "bound_by"), bound(
         io + h * a * d * 2 + h * a * 4, flops, "bfloat16")))
+    # the CUDA-core forward's bf16 instantiation (the route of bf16 the
+    # copies cannot read) on the same values: it keeps p in f32 and rounds
+    # the same f32 o once, so o within one ulp, 2^-7 of its row; lse f32
+    worst = [0.0, 0.0]
+    for r in runs:
+        o, lse = ring_flash_fwd(r["q_simt"], *r["qkv"][1:], *r["offs"])
+        ro, rlse = ring_fwd_ref(*r["qkv"], *r["offs"])
+        worst[0] = max(worst[0], check_rows("ring fwd bf16 CUDA-core o", o,
+                                            ro, 2 ** -7, quiet=True)[1])
+        worst[1] = max(worst[1], check_lse("ring fwd bf16 CUDA-core lse",
+                                           lse, rlse, atol=1e-3, rtol=1e-4,
+                                           quiet=True))
+        del o, lse, ro, rlse
+    log(f"[check] ring fwd bf16 CUDA-core kernel vs plain over the "
+        f"{npairs} pairs: o err/row-max {worst[0]:.3e} (limit 2^-7), lse "
+        f"{worst[1]:.3e} (1e-3)")
+    for r in runs:
+        del r["q_simt"]
     # SDPA's backward alone: its forward + backward less its forward (one
     # graph alive at a time)
     out["ring_flash_bwd"] = dict(
@@ -3288,8 +3403,14 @@ def main():
     issued_as = {
         "lm_head_bwd": "hi and lo planes: 5 products of 2 R d V",
         "flash_bwd": pairs_bwd, "ring_flash_bwd": pairs_bwd}
+    t = times["lm_head"]
+    log(f"[gbps] lm_head: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} GB/s of "
+        f"the function's {t['bytes'] / 1e9:.4f} GB in {t['ms']:.4f} ms, "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound "
+        f"({HBM_BPS / 1e12:.2f} TB/s)")
     for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
-                 "flash_fwd@train", "flash_bwd", "ring_flash_bwd"):
+                 "flash_fwd@train", "flash_bwd", "ring_flash_fwd",
+                 "ring_flash_bwd"):
         t = times[name]
         rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
         issued = ("" if "tc_flops" not in t else

@@ -32,7 +32,8 @@
 //    into the f32 outputs (round to nearest) and restarted: a partial drifts
 //    over at most FOLD x 4 x 2 steps.
 // Where the offsets come from is a template parameter (DeviceOffsets,
-// ValueOffsets), so the flash backward allocates no device tensor for them.
+// ValueOffsets, attn_sm90.cuh), so the flash backward allocates no device
+// tensor for them.
 // Block order (both callers): the tile index is the slowest axis of the
 // launch (the grid's linear index divided by heads x batches), walked from
 // the tile that sees the most pairs under a causal mask with q_start >=
@@ -44,54 +45,6 @@
 
 namespace repro {
 namespace attn {
-
-struct Strides {  // element strides of the batch, head and sequence axes
-  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
-};
-
-struct Masks {
-  int causal, window, prefix;  // window <= 0: none; prefix <= 0: none
-};
-
-__device__ __forceinline__ bool visible(const Masks& mk, int q_pos, int k_pos) {
-  if (mk.prefix > 0 && k_pos < mk.prefix) return true;
-  return (!mk.causal || k_pos <= q_pos) && (mk.window <= 0 || q_pos - k_pos < mk.window);
-}
-
-// The TPU kernel's whole-tile run predicate: may any key in
-// [k_first, k_first + nk) be visible to any query in [q_first, q_first + nq)?
-__device__ __forceinline__ bool tile_runs(const Masks& mk, int q_first, int nq, int k_first,
-                                          int nk) {
-  bool run = true;
-  if (mk.causal) run &= k_first <= q_first + nq - 1;
-  if (mk.window > 0) run &= q_first - (k_first + nk - 1) < mk.window;
-  if (mk.prefix > 0) run |= k_first < mk.prefix;
-  return run;
-}
-
-// May every key in [k_first, k_first + nk) be seen by every query in
-// [q_first, q_first + nq)? Then a tile needs no per-element mask.
-__device__ __forceinline__ bool tile_full(const Masks& mk, int q_first, int nq, int k_first,
-                                          int nk) {
-  const int q_last = q_first + nq - 1, k_last = k_first + nk - 1;
-  if (mk.prefix > 0 && k_last < mk.prefix) return true;
-  return (!mk.causal || k_last <= q_first) && (mk.window <= 0 || q_last - k_first < mk.window);
-}
-
-// A ring step's offsets: one int32 each on the device
-struct DeviceOffsets {
-  const int* q;
-  const int* k;
-  __device__ __forceinline__ int q_start() const { return *q; }
-  __device__ __forceinline__ int k_start() const { return *k; }
-};
-
-// Offsets known on the host (flash_bwd: skv - sq and 0), passed by value
-struct ValueOffsets {
-  int q, k;
-  __device__ __forceinline__ int q_start() const { return q; }
-  __device__ __forceinline__ int k_start() const { return k; }
-};
 
 namespace bwd {
 

@@ -1,7 +1,9 @@
-// Shared pieces of the tensor-core attention kernels: flash_fwd.cu's
-// flash_fwd_tc_kernel and ring_flash.cu's ring_dq_tc_kernel and
-// ring_dkv_tc_kernel. bf16 operands, f32 accumulators, every product on
-// wgmma.
+// Shared pieces of the tensor-core attention kernels: the forward of
+// attn_fwd_sm90.cuh (flash_fwd.cu's flash_fwd_tc, ring_flash.cu's
+// ring_flash_fwd_tc) and the backward of attn_bwd_sm90.cuh (flash_bwd.cu's
+// flash_bwd_tc, ring_flash.cu's ring_flash_bwd_tc), with the masks and the
+// offset types they share. bf16 operands, f32 accumulators, every product
+// on wgmma.
 //
 // Tiles: a tile of ROWS rows x D bf16 columns (one row of q, k, v or do per
 // sequence position) sits in shared memory as DP / 64 boxes of ROWS x 64
@@ -270,6 +272,60 @@ __device__ __forceinline__ int frag_row(int i) { return (i >> 1) & 1; }
 __device__ __forceinline__ int frag_col(int i, int lane) {
   return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
 }
+
+// ---------------------------------------------------------------------------
+// positions and masks (the JAX _mask_block, kernel.py:145), shared by the
+// forward (attn_fwd_sm90.cuh) and the backward (attn_bwd_sm90.cuh)
+// ---------------------------------------------------------------------------
+
+struct Strides {  // element strides of the batch, head and sequence axes
+  long long qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os;
+};
+
+struct Masks {
+  int causal, window, prefix;  // window <= 0: none; prefix <= 0: none
+};
+
+__device__ __forceinline__ bool visible(const Masks& mk, int q_pos, int k_pos) {
+  if (mk.prefix > 0 && k_pos < mk.prefix) return true;
+  return (!mk.causal || k_pos <= q_pos) && (mk.window <= 0 || q_pos - k_pos < mk.window);
+}
+
+// The TPU kernel's whole-tile run predicate: may any key in
+// [k_first, k_first + nk) be visible to any query in [q_first, q_first + nq)?
+__device__ __forceinline__ bool tile_runs(const Masks& mk, int q_first, int nq, int k_first,
+                                          int nk) {
+  bool run = true;
+  if (mk.causal) run &= k_first <= q_first + nq - 1;
+  if (mk.window > 0) run &= q_first - (k_first + nk - 1) < mk.window;
+  if (mk.prefix > 0) run |= k_first < mk.prefix;
+  return run;
+}
+
+// May every key in [k_first, k_first + nk) be seen by every query in
+// [q_first, q_first + nq)? Then a tile needs no per-element mask.
+__device__ __forceinline__ bool tile_full(const Masks& mk, int q_first, int nq, int k_first,
+                                          int nk) {
+  const int q_last = q_first + nq - 1, k_last = k_first + nk - 1;
+  if (mk.prefix > 0 && k_last < mk.prefix) return true;
+  return (!mk.causal || k_last <= q_first) && (mk.window <= 0 || q_last - k_first < mk.window);
+}
+
+// A ring step's offsets: one int32 each on the device
+struct DeviceOffsets {
+  const int* q;
+  const int* k;
+  __device__ __forceinline__ int q_start() const { return *q; }
+  __device__ __forceinline__ int k_start() const { return *k; }
+};
+
+// Offsets known on the host (flash_fwd_tc, flash_bwd_tc: skv - sq and 0),
+// passed by value
+struct ValueOffsets {
+  int q, k;
+  __device__ __forceinline__ int q_start() const { return q; }
+  __device__ __forceinline__ int k_start() const { return k; }
+};
 
 }  // namespace attn
 }  // namespace repro

@@ -3,16 +3,19 @@
 //
 // C (M, N) = sum over planes p of A_p (M, K) . B (K, N), handed to an
 // epilogue functor as each thread's accumulator fragment. Used by matmul.cu
-// (one plane) and by lm_head_ce.cu's backward (one plane for the logits
-// recompute, two for the hi/lo bf16 split of the f32 dl).
+// (one plane), by lm_head_ce.cu (one plane for the forward and the
+// backward's logits recompute, two for the hi/lo bf16 split of the f32 dl)
+// and by lm_head.cu's decode head (one plane, A = the head's vocab rows,
+// B = the few decode rows in a narrow tile).
 //
 // Block: 3 warpgroups. Warpgroups 0 and 1 each own 64 rows of the
 // BM x TN = 128 x 256 output tile and issue wgmma.m64n256k16 (128 f32
 // accumulators a thread; TN = 128 and m64n128k16 where the accumulator is
-// promoted, see gemm_kernel); one thread of warpgroup 2 keeps the ring of
-// 3-4 stages full with cp.async.bulk.tensor loads, 64 deep in K, behind a
-// full and an empty mbarrier per stage. setmaxnreg moves registers from the
-// loader to the two consumers.
+// promoted, see gemm_kernel; TN = 64, 16 or 8 for narrow products); one
+// thread of warpgroup 2 keeps the ring of 3-4 stages (up to 8 for TN <= 64)
+// full with cp.async.bulk.tensor loads, 64 deep in K, behind a full and an
+// empty mbarrier per stage. setmaxnreg moves registers from the loader to
+// the two consumers.
 //
 // Operand layouts are template parameters. A K-major operand (K contiguous
 // in memory) is loaded as one box of 64 K x rows; an MN-major operand (M or
@@ -47,12 +50,15 @@ constexpr int A_TILE = BM * BK * 2;          // bytes of one A plane's stage
 constexpr int BOX = 64 * 64 * 2;             // one MN-major box, 64 x 64
 
 // A stage holds PLANES A tiles and one B tile of TN columns; as many stages
-// as fit in 220 KB of shared memory, at most 4.
+// as fit in 220 KB of shared memory, at most 4, or 8 for a narrow B tile
+// (TN <= 64: the LM head's decode rows), where a block's products are too
+// few to hide a load and only bytes in flight keep HBM streaming.
 template <int PLANES, int TN>
 struct Ring {
   static constexpr int STAGE_BYTES = PLANES * A_TILE + TN * BK * 2;
   static constexpr int FIT = 220 * 1024 / STAGE_BYTES;
-  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int CAP = TN <= 64 ? 8 : 4;
+  static constexpr int STAGES = FIT < CAP ? FIT : CAP;
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;  // + alignment
 };
 
@@ -192,13 +198,64 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// d (64 x TN) += A (64 x 16) . B (16 x TN) for a tile width of 256 or 128.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// The tile widths the mainloop takes: 256 and 128 for the products of
+// matmul and the CE head, 64, 16 and 8 for the decode LM head's rows.
+template <int TN>
+constexpr bool tile_width_ok() {
+  return TN == 256 || TN == 128 || TN == 64 || TN == 16 || TN == 8;
+}
+
+// d (64 x TN) += A (64 x 16) . B (16 x TN) for a tile width of tile_width_ok.
 template <int TN, int TA, int TB>
 __device__ __forceinline__ void wgmma_tile(float (&d)[TN / 2], uint64_t da, uint64_t db) {
   if constexpr (TN == 256)
     wgmma_m64n256k16<TA, TB>(d, da, db);
-  else
+  else if constexpr (TN == 128)
     wgmma_m64n128k16<TA, TB>(d, da, db);
+  else if constexpr (TN == 64)
+    wgmma_m64n64k16<TA, TB>(d, da, db);
+  else if constexpr (TN == 16)
+    wgmma_m64n16k16<TA, TB>(d, da, db);
+  else
+    wgmma_m64n8k16<TA, TB>(d, da, db);
 }
 
 // ---------------------------------------------------------------------------
@@ -410,7 +467,8 @@ inline cudaError_t operand_map(CUtensorMap* map, const void* ptr, long long cols
 template <bool A_MN, bool B_MN, int PLANES, int TN = BN, int PROMOTE = 0, class Epi>
 cudaError_t gemm(const CUtensorMap& a0, const CUtensorMap& a1, const CUtensorMap& b, int M,
                  int N, int K, const Epi& epi, cudaStream_t s) {
-  static_assert(TN == 256 || TN == 128, "tiles are 128 x 256 or 128 x 128");
+  static_assert(tile_width_ok<TN>(), "tiles are 128 x 256, 128, 64, 16 or 8");
+  static_assert(!B_MN || TN >= 64, "an MN-major B tile is boxes of 64 columns");
   static_assert(PROMOTE == 0 || TN == 128, "a promoted accumulator fits only TN = 128");
   auto kern = gemm_kernel<A_MN, B_MN, PLANES, TN, PROMOTE, Epi>;
   const int smem = Ring<PLANES, TN>::SMEM;

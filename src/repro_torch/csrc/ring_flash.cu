@@ -23,8 +23,11 @@
 // Bound on the H100: operations. A step is 4 * d FLOPs per visible
 // (query, key) pair per head forward (2.5 times that backward) against
 // O((sq + skv) * d) bytes per head, held to the visible-pair FLOPs over the
-// bf16 tensor-core peak. The forward and the f32 backward are the designs
-// of flash_fwd.cu and flash_bwd.cu (f32 math on the CUDA cores).
+// bf16 tensor-core peak. Each direction has two kernels, picked by the
+// wrapper from dtype and layout before any launch: for bf16 inputs the
+// 16-byte copies can read, the tensor-core kernels (below); for f32 and
+// other layouts ring_fwd_kernel and the ring_dq/ring_dkv kernels, the
+// designs of flash_fwd.cu and flash_bwd.cu (f32 math on the CUDA cores).
 // What the design does about it: a tile of keys (or, in the dk/dv kernels,
 // of queries) is skipped whole when the TPU kernel's run predicate
 // (kernel.py:620-626, :730-736) says no key of it is visible to any row of
@@ -36,10 +39,16 @@
 // (the TPU kernel writes per-head dk/dv and the host sums). Ragged chunk and
 // shard lengths are masked in the kernel.
 //
-// The bf16 backward (ring_flash_bwd_tc) runs that split on the tensor cores:
-// the kernels of attn_bwd_sm90.cuh (shared with flash_bwd.cu's
-// flash_bwd_tc), with the offsets read on the device.
+// The bf16 forward (ring_flash_fwd_tc) is flash_fwd_tc's kernel,
+// attn_fwd_sm90.cuh, with the offsets read on the device and the prefix
+// mask: S and P V on wgmma, the walk over key tiles skipping those tile_runs
+// rules out, a dead block (a chunk wholly after its queries) writing o = 0,
+// lse = -inf after one read of the offsets. The bf16 backward
+// (ring_flash_bwd_tc) runs the FA2 split on the tensor cores: the kernels
+// of attn_bwd_sm90.cuh (shared with flash_bwd.cu's flash_bwd_tc), with the
+// offsets read on the device.
 #include "attn_bwd_sm90.cuh"
+#include "attn_fwd_sm90.cuh"
 #include "common.cuh"
 
 namespace {
@@ -399,6 +408,31 @@ extern "C" int ring_flash_fwd(const void* q, const void* k, const void* v,
   else return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_RING_FWD
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core forward: bf16 q, k and v with 16-byte aligned bases and
+// strides (elements) that are multiples of 8; d in {32, 64, 128};
+// otherwise as ring_flash_fwd.
+extern "C" int ring_flash_fwd_tc(const void* q, const void* k, const void* v,
+                                 const int* q_start, const int* k_start, void* o,
+                                 float* lse, int b, int h, int hk, int sq, int skv, int d,
+                                 int causal, int window, int prefix_len, float sm_scale,
+                                 long long qsb, long long qsh, long long qss, long long ksb,
+                                 long long ksh, long long kss, long long vsb, long long vsh,
+                                 long long vss, void* stream) {
+  const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, 0, 0, 0};
+  const Masks mk{causal, window, prefix_len};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::attn::DeviceOffsets off{q_start, k_start};
+#define REPRO_RING_FWD_TC(D) \
+  repro::attn::fwd::launch<D>(q, k, v, off, o, lse, b, h, hk, sq, skv, mk, sm_scale, st, s)
+  cudaError_t e;
+  if (d == 32) e = REPRO_RING_FWD_TC(32);
+  else if (d == 64) e = REPRO_RING_FWD_TC(64);
+  else if (d == 128) e = REPRO_RING_FWD_TC(128);
+  else e = cudaErrorInvalidValue;
+#undef REPRO_RING_FWD_TC
+  return static_cast<int>(e);
 }
 
 // dtype: 0 = float32, 1 = bfloat16; d in {32, 64}. q, k, v and do take

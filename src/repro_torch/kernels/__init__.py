@@ -5,9 +5,10 @@ its plain PyTorch version only for a tensor on the CPU. Every wrapper keeps
 a launch count (``wrapper.launches``) that rises by one where the kernel is
 launched and nowhere else, so a run can show that it went through the
 kernels: :func:`reset_launches` zeroes them, :func:`launch_counts` reads
-them. A wrapper with two kernels (``matmul``, ``lm_head_ce``,
-``lm_head_bwd``, ``flash_attention_fwd``, ``flash_bwd``, ``ring_flash_bwd``:
-a tensor-core and a CUDA-core route) also counts its launches by route in ``wrapper.routes``, which
+them. A wrapper with two kernels (``matmul``, ``lm_head_logits``,
+``lm_head_ce``, ``lm_head_bwd``, ``flash_attention_fwd``, ``flash_bwd``,
+``ring_flash_fwd``, ``ring_flash_bwd``: a tensor-core and a CUDA-core
+route) also counts its launches by route in ``wrapper.routes``, which
 :func:`reset_launches` zeroes too.
 """
 

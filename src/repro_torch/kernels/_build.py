@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled on first
 use into ``_build/lib<name>-<hash>.so`` beside the package (the directory is
 git-ignored; a hash of the flags, the source and the shared headers
-``common.cuh``, ``gemm_sm90.cuh``, ``attn_sm90.cuh`` and
-``attn_bwd_sm90.cuh`` names the library,
+``common.cuh``, ``gemm_sm90.cuh``, ``attn_sm90.cuh``, ``attn_fwd_sm90.cuh``
+and ``attn_bwd_sm90.cuh`` names the library,
 so an edited source or header is rebuilt and a stale library never
 loaded).
 :func:`build_all` starts one ``nvcc`` per source, all at once, so a cold
@@ -32,7 +32,7 @@ SOURCES = ("flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
            "flash_bwd", "fd2d", "sem", "dg", "flash_decode", "ssm_scan",
            "ring_flash", "matmul")
 HEADERS = ("common.cuh", "gemm_sm90.cuh",     # included by the sources
-           "attn_sm90.cuh", "attn_bwd_sm90.cuh")
+           "attn_sm90.cuh", "attn_fwd_sm90.cuh", "attn_bwd_sm90.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

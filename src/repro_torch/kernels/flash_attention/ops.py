@@ -23,14 +23,15 @@ launch ``csrc/ring_flash.cu``: one step of ring attention (a query shard
 against one kv chunk at absolute offsets read on the device) and its
 backward; ``ring.py`` builds the ring schedule on them.
 
-``flash_attention_fwd``, ``flash_bwd`` and ``ring_flash_bwd`` each have two
-kernels on the card and pick one up front, by :func:`route` (dtype and
-layout alone, never after a failure): ``"wgmma"``, the tensor-core kernel
-(``flash_fwd_tc``, ``flash_bwd_tc``, ``ring_flash_bwd_tc``: bf16 operands
-copied with cp.async into swizzled shared memory, products on wgmma; the
-two backwards share their kernels, ``csrc/attn_bwd_sm90.cuh``), or
-``"simt"``, the CUDA-core kernel. ``wrapper.routes`` counts the launches by
-route.
+``flash_attention_fwd``, ``flash_bwd``, ``ring_flash_fwd`` and
+``ring_flash_bwd`` each have two kernels on the card and pick one up front,
+by :func:`route` (dtype and layout alone, never after a failure):
+``"wgmma"``, the tensor-core kernel (``flash_fwd_tc``, ``flash_bwd_tc``,
+``ring_flash_fwd_tc``, ``ring_flash_bwd_tc``: bf16 operands copied with
+cp.async into swizzled shared memory, products on wgmma; the two forwards
+share one kernel, ``csrc/attn_fwd_sm90.cuh``, and the two backwards theirs,
+``csrc/attn_bwd_sm90.cuh``), or ``"simt"``, the CUDA-core kernel.
+``wrapper.routes`` counts the launches by route.
 """
 
 from __future__ import annotations
@@ -70,6 +71,7 @@ _DECODE_SIG = {"flash_decode": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 6 + [_P],
 _PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
 _RING_SIG = {
     "ring_flash_fwd": ([_P] * 7 + [_I] * 10 + [_F] + [_L] * 9 + [_P], _I),
+    "ring_flash_fwd_tc": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
     "ring_flash_bwd": ([_P] * 11 + [_I] * 10 + [_F] + [_L] * 12 + [_P], _I),
     "ring_flash_bwd_tc": ([_P] * 11 + [_I] * 9 + [_F] + [_L] * 12 + [_P],
                           _I),
@@ -77,8 +79,9 @@ _RING_SIG = {
 
 
 def route(*ts) -> str:
-    """The kernel a CUDA call of :func:`flash_attention_fwd` (on q, k, v),
-    :func:`flash_bwd` or :func:`ring_flash_bwd` (on q, k, v, do) launches,
+    """The kernel a CUDA call of :func:`flash_attention_fwd` or
+    :func:`ring_flash_fwd` (on q, k, v), :func:`flash_bwd` or
+    :func:`ring_flash_bwd` (on q, k, v, do) launches,
     from dtype and layout alone: ``"wgmma"`` (the tensor-core kernel) when
     every tensor is bf16 with its last axis contiguous, its base 16-byte
     aligned and every other stride a multiple of 8 elements (each row a
@@ -477,7 +480,8 @@ def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,
     (B, H, Sq) f32). The offsets are (1, 1) int32 tensors on q's device
     (read there, so no launch waits for the host). Masks: causal,
     ``window``, ``prefix_len`` (keys below it always visible). A row that
-    sees no key gives o = 0, lse = -inf."""
+    sees no key gives o = 0, lse = -inf. On the card :func:`route` (of q,
+    k, v) picks the kernel; both take head dims 32, 64 and 128."""
     name = "ring_flash_fwd"
     _no_grad_asked(name, q, k, v)
     _check_offsets(name, q_start, k_start)
@@ -495,17 +499,23 @@ def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = load("ring_flash", _RING_SIG)
-    err = lib.ring_flash_fwd(ptr(q), ptr(k), ptr(v), ptr(q_start),
-                             ptr(k_start), ptr(o), ptr(lse), b, h, hk, sq,
-                             skv, d, _DTYPE_CODE[q.dtype], int(bool(causal)),
-                             win, prefix, float(sm_scale), *q.stride()[:3],
-                             *k.stride()[:3], *v.stride()[:3], stream())
-    check(lib, err, name)
+    path = route(q, k, v)
+    ptrs = (ptr(q), ptr(k), ptr(v), ptr(q_start), ptr(k_start), ptr(o),
+            ptr(lse), b, h, hk, sq, skv, d)
+    tail = (int(bool(causal)), win, prefix, float(sm_scale), *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], stream())
+    if path == "wgmma":
+        err = lib.ring_flash_fwd_tc(*ptrs, *tail)
+    else:
+        err = lib.ring_flash_fwd(*ptrs, _DTYPE_CODE[q.dtype], *tail)
+    check(lib, err, f"{name} ({path})")
     ring_flash_fwd.launches += 1
+    ring_flash_fwd.routes[path] += 1
     return o, lse
 
 
 ring_flash_fwd.launches = 0
+ring_flash_fwd.routes = {"wgmma": 0, "simt": 0}
 
 
 def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,

@@ -4,7 +4,12 @@ versions on the CPU (counterparts of ``repro.kernels.lm_head.ops``).
 ``lm_head_logits(x, w, vocab=)`` (decode, ``csrc/lm_head.cu``) returns the
 masked logits; ``lm_head_logits.raw`` returns (logits, row max,
 first-occurrence argmax), all from one pass of the kernel. It has no
-backward (nor has the JAX op) and raises when asked for a gradient.
+backward (nor has the JAX op) and raises when asked for a gradient. On the
+card it picks one of two kernels up front by :func:`head_route`: the
+tensor-core route (``lm_head_tc``: the product transposed, the vocab rows
+of w as the A operand of the ``gemm_sm90.cuh`` TMA + ``wgmma`` mainloop and
+the decode rows as a narrow B tile) or the CUDA-core route (``lm_head``,
+f32 products); ``lm_head_logits.routes`` counts them.
 
 ``lm_head_ce(x, w, labels, vocab=)`` (training, ``csrc/lm_head_ce.cu``) is
 a ``torch.autograd.Function`` on both devices: the forward
@@ -16,9 +21,10 @@ the card each picks one of two kernels up front by :func:`bwd_route`
 TMA + ``wgmma`` product whose epilogue reduces each tile's rows to (max,
 sum, gold) partials; ``lm_head_ce_bwd_tc``: three such products, dl kept as
 hi/lo bf16 planes) or the CUDA-core route (``lm_head_ce_fwd``,
-``lm_head_ce_bwd``: f32 products, dl in f32). ``lm_head_ce.launches`` and
-``lm_head_bwd.launches`` count every call, ``.routes`` counts them by
-route.
+``lm_head_ce_bwd``: f32 products, dl in f32); :func:`bwd_route` is
+:func:`head_route`, the one layout rule of the three.
+``lm_head_ce.launches`` and ``lm_head_bwd.launches`` count every call,
+``.routes`` counts them by route.
 """
 
 from __future__ import annotations
@@ -30,12 +36,15 @@ import torch
 from .._build import check, load, on_cpu, ptr, stream, tma_ok
 from .ref import lm_head_bwd_ref, lm_head_ce_stats_ref, lm_head_logits_ref
 
-__all__ = ["lm_head_logits", "lm_head_ce", "lm_head_bwd", "bwd_route"]
+__all__ = ["lm_head_logits", "lm_head_ce", "lm_head_bwd", "head_route",
+           "bwd_route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIG = {"lm_head": ([_P] * 7 + [_I] * 5 + [_L] * 3 + [_P], _I),
-        "lm_head_partials": ([_I], _I)}
+        "lm_head_tc": ([_P] * 7 + [_I] * 4 + [_L] * 3 + [_P], _I),
+        "lm_head_partials": ([_I], _I),
+        "lm_head_tc_partials": ([_I], _I)}
 _CE_SIG = {"lm_head_ce_splits": ([_I], _I),
            "lm_head_ce_tc_tiles": ([_I], _I),
            "lm_head_ce_fwd": ([_P] * 6 + [_I] * 5 + [_L] * 3 + [_P], _I),
@@ -77,7 +86,8 @@ def _check_labels(name, labels, x):
 def _raw(x, w, *, vocab=None):
     """x (R, d) @ w (d, V) -> (logits (R, V) f32 with -1e30 on columns
     >= vocab, m (R, 1) f32, arg (R, 1) i32). ``w`` may be any strided view
-    (the tied head ``embed.T`` is read in place)."""
+    (the tied head ``embed.T`` is read in place). On the card the route is
+    :func:`head_route`'s, fixed before any launch."""
     name = "lm_head_logits"
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError(
@@ -88,19 +98,25 @@ def _raw(x, w, *, vocab=None):
     R, d, V = _check_head(name, x, w)
     vocab = _vocab(name, vocab, V, R)
     lib = load("lm_head", _SIG)
-    nblk = lib.lm_head_partials(V)
+    path = head_route(x, w)
+    nblk = (lib.lm_head_tc_partials(V) if path == "wgmma"
+            else lib.lm_head_partials(V))
     dev = x.device
     logits = torch.empty((R, V), dtype=torch.float32, device=dev)
     m = torch.empty((R, 1), dtype=torch.float32, device=dev)
     arg = torch.empty((R, 1), dtype=torch.int32, device=dev)
     part_m = torch.empty((nblk, R), dtype=torch.float32, device=dev)
     part_arg = torch.empty((nblk, R), dtype=torch.int32, device=dev)
-    err = lib.lm_head(ptr(x), ptr(w), ptr(logits), ptr(m), ptr(arg),
-                      ptr(part_m), ptr(part_arg), R, d, V, vocab,
-                      _DTYPE_CODE[x.dtype], x.stride(0), w.stride(0),
-                      w.stride(1), stream())
-    check(lib, err, "lm_head")
+    ptrs = (ptr(x), ptr(w), ptr(logits), ptr(m), ptr(arg), ptr(part_m),
+            ptr(part_arg), R, d, V, vocab)
+    strides = (x.stride(0), w.stride(0), w.stride(1), stream())
+    if path == "wgmma":
+        err = lib.lm_head_tc(*ptrs, *strides)
+    else:
+        err = lib.lm_head(*ptrs, _DTYPE_CODE[x.dtype], *strides)
+    check(lib, err, f"lm_head ({path})")
     lm_head_logits.launches += 1
+    lm_head_logits.routes[path] += 1
     return logits, m, arg
 
 
@@ -111,6 +127,7 @@ def lm_head_logits(x, w, *, vocab=None):
 
 lm_head_logits.raw = _raw
 lm_head_logits.launches = 0
+lm_head_logits.routes = {"wgmma": 0, "simt": 0}
 
 
 def _ce_raw(x, w, labels, *, vocab=None):
@@ -149,15 +166,20 @@ def _ce_raw(x, w, labels, *, vocab=None):
     return lse, gold
 
 
-def bwd_route(x, w) -> str:
-    """The kernel a CUDA call of :func:`lm_head_bwd` (and of the forward,
-    ``lm_head_ce.raw``) launches, from dtype and layout alone: ``"wgmma"`` (the tensor-core route) when x and w are
-    bf16, TMA can read x row by row and w either as the tied head's
+def head_route(x, w) -> str:
+    """The kernel a CUDA call of :func:`lm_head_logits` (and of the CE
+    head's, ``lm_head_ce.raw`` and :func:`lm_head_bwd`) launches, from
+    dtype and layout alone: ``"wgmma"`` (the tensor-core route) when x and
+    w are bf16, TMA can read x row by row and w either as the tied head's
     transposed view (``w.T`` rows contiguous) or by its own contiguous rows
     (``tma_ok``); else ``"simt"`` (the CUDA-core route: f32 inputs, whose
     exact f32 products it keeps, and bf16 views with unaligned rows)."""
     rows = w if w.stride(1) == 1 else w.T
     return "wgmma" if tma_ok(x) and tma_ok(rows) else "simt"
+
+
+# the CE head's forward and backward read x and w as the decode head does
+bwd_route = head_route
 
 
 def lm_head_bwd(x, w, labels, lse, g, *, vocab=None):

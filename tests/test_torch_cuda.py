@@ -589,6 +589,15 @@ def test_static_generate_on_card_matches_cpu(dev, arch, changes):
 # the ring step kernels and matmul
 # ---------------------------------------------------------------------------
 
+def _misaligned(t):
+    """A copy of t with its strides whose base lies one element past the
+    alignment of t's own: the tensor-core routes refuse it by layout."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].as_strided(t.shape, t.stride())
+    out.copy_(t)
+    return out
+
+
 def _offsets(dev, q_start, k_start):
     return (torch.tensor([[q_start]], dtype=torch.int32, device=dev),
             torch.tensor([[k_start]], dtype=torch.int32, device=dev))
@@ -611,13 +620,18 @@ RING_CASES = [  # sq, skv, h, hk, d, q_start, k_start, masks
 def test_ring_flash_kernels(dev, case, dtype):
     """The step forward and backward against their plain versions: strided
     q and do, GQA, ragged lengths, all three masks; a chunk after the shard
-    gives lse = -inf, o = 0 and zero gradients."""
+    gives lse = -inf, o = 0 and zero gradients. The forward is held on its
+    CUDA-core kernel in both dtypes (bf16 through a copy of q one element
+    off the alignment the tensor-core route needs; that route has its own
+    test below)."""
     sq, skv, h, hk, d, qs, ks, kw = case
     q = _rnd(dev, 2, sq, h, d).transpose(1, 2).to(dtype)
     k = _rnd(dev, 2, hk, skv, d, seed=1).to(dtype)
     v = _rnd(dev, 2, hk, skv, d, seed=2).to(dtype)
     off = _offsets(dev, qs, ks)
-    o, lse = ring_flash_fwd(q, k, v, *off, **kw)
+    reset_launches()
+    o, lse = ring_flash_fwd(_misaligned(q), k, v, *off, **kw)
+    assert ring_flash_fwd.routes == {"wgmma": 0, "simt": 1}
     ro, rlse = ring_fwd_ref(q, k, v, *off, **kw)
     if dtype == torch.float32:
         torch.testing.assert_close(o, ro, **TOL)
@@ -1108,3 +1122,150 @@ def test_flash_attention_bf16_window_and_d128_gradients(dev, d, window):
     for a, b_ in zip(got, (dq, dk.to(k.dtype), dv.to(v.dtype))):
         assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
         _close_rel(a.float(), b_.float(), 2 ** -7)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core routes of the ring step forward and the decode LM head
+# ---------------------------------------------------------------------------
+
+RING_FWD_TC_CASES = [  # sq, skv, h, hk, d, q_start, k_start, masks
+    (70, 45, 4, 1, 32, 30, 50, {}),                  # across the diagonal
+    (33, 40, 4, 4, 64, 100, 0, {}),                  # wholly before
+    (33, 40, 8, 2, 64, 0, 64, {}),                   # wholly after: dead
+    (197, 160, 8, 2, 64, 64, 96, {}),                # ragged, dead rows
+    (130, 300, 4, 1, 64, 60, 20, dict(window=30)),
+    (150, 145, 8, 2, 32, 10, 30, dict(prefix_len=35)),
+    (150, 400, 8, 2, 64, 200, 0, dict(window=40, prefix_len=70)),
+    (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
+    (130, 300, 8, 2, 128, 30, 50, dict(window=40)),  # d = 128
+    (200, 333, 8, 2, 128, 0, 120, dict(prefix_len=140)),
+]
+
+
+@pytest.mark.parametrize("layout", ["views", "contiguous"])
+@pytest.mark.parametrize("case", RING_FWD_TC_CASES)
+def test_ring_flash_fwd_tensor_core_route(dev, case, layout):
+    """bf16 q (the projection's view), k and v (views or contiguous) take the
+    wgmma forward at head dims 32, 64 and 128, under the causal, window and
+    prefix masks, at ragged shard and chunk lengths: o within 2e-2 (absolute
+    + relative) and within 2^-6 of its row's largest |o| (the tensor-core
+    kernel rounds p to bf16 before P V, the plain version keeps it f32: the
+    limits chip_smoke.py holds flash_fwd_tc to), lse within 1e-3 / 1e-4,
+    -inf on exactly the rows that see no key, where o = 0."""
+    sq, skv, h, hk, d, qs, ks, kw = case
+    q = _view(dev, 2, sq, h, d, 0)
+    k = _layout(_view(dev, 2, skv, hk, d, 1), layout)
+    v = _layout(_view(dev, 2, skv, hk, d, 2), layout)
+    off = _offsets(dev, qs, ks)
+    reset_launches()
+    o, lse = ring_flash_fwd(q, k, v, *off, **kw)
+    assert ring_flash_fwd.routes == {"wgmma": 1, "simt": 0}
+    ro, rlse = ring_fwd_ref(q, k, v, *off, **kw)
+    dead = torch.isneginf(rlse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert (o[dead] == 0).all()
+    torch.testing.assert_close(o.float(), ro.float(), atol=2e-2, rtol=2e-2)
+    live = ~dead
+    if live.any():
+        _close_rows(o[live], ro[live], 2 ** -6)
+        torch.testing.assert_close(lse[live], rlse[live], atol=1e-3,
+                                   rtol=1e-4)
+    if ks > qs + sq - 1 and kw.get("causal", True) and not kw.get(
+            "prefix_len"):
+        assert dead.all()
+
+
+@pytest.mark.parametrize("case", FLASH_TC_CASES)
+def test_flash_fwd_is_the_ring_forward_at_flash_offsets(dev, case):
+    """flash_attention_fwd's tensor-core kernel is the ring forward's, at
+    q_start = Skv - Sq and k_start = 0 with no prefix: the two wrappers give
+    the same o and lse, bit for bit."""
+    sq, skv, h, hk, d, causal, window = case
+    q = _view(dev, 2, sq, h, d, 0)
+    k, v = _view(dev, 2, skv, hk, d, 1), _view(dev, 2, skv, hk, d, 2)
+    reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+    o2, lse2 = ring_flash_fwd(q, k, v, *_offsets(dev, skv - sq, 0),
+                              causal=causal, window=window)
+    assert flash_attention_fwd.routes["wgmma"] == 1
+    assert ring_flash_fwd.routes["wgmma"] == 1
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_ring_flash_fwd_routes_by_dtype_and_layout(dev):
+    """f32 inputs and bf16 rows the 16-byte copies cannot read keep the
+    CUDA-core forward; both routes agree with the plain version."""
+    bf = torch.bfloat16
+    q = _rnd(dev, 1, 4, 40, 64).to(bf)
+    k = _rnd(dev, 1, 2, 40, 64, seed=1).to(bf)
+    off = _offsets(dev, 20, 0)
+    for qq, kk, want in ((q, k, "wgmma"), (q.float(), k.float(), "simt"),
+                         (_misaligned(q), k, "simt")):
+        reset_launches()
+        o, lse = ring_flash_fwd(qq, kk, kk, *off)
+        assert ring_flash_fwd.routes[want] == 1 == ring_flash_fwd.launches
+        ro, rlse = ring_fwd_ref(qq, kk, kk, *off)
+        torch.testing.assert_close(o.float(), ro.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+def _check_argmax(arg, logits_ref, vocab, gap_tol):
+    """chip_smoke.check_argmax's rule: the kernel's argmax equals the plain
+    one wherever the plain top-2 gap exceeds gap_tol."""
+    live = logits_ref[:, :vocab].float()
+    top2 = torch.topk(live, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > gap_tol
+    wrong = decided & (arg.reshape(-1).long() != live.argmax(-1))
+    assert not wrong.any(), int(wrong.sum())
+
+
+@pytest.mark.parametrize("R", [1, 8, 16, 20, 70])
+@pytest.mark.parametrize("tied", [True, False])
+def test_lm_head_tensor_core_route(dev, R, tied):
+    """bf16 x and a head TMA can read (the tied embed.T view, read in place,
+    or a contiguous (d, V) head) take the wgmma route at decode row counts
+    1 through 20 and beyond (tiles of 8, 16, 64 and 256 rows), V = 1104
+    padded past vocab = 1000: logits and row max within 1e-3 (bf16 products
+    are exact in f32; the two sides sum d = 256 of them in other orders, the
+    tensor cores truncating each k16 step), -1e30 past vocab, argmax equal
+    wherever the plain top-2 gap exceeds 2e-3 (chip_smoke.check_argmax's
+    rule); three equal best columns in different 128-row tiles give the
+    first."""
+    bf = torch.bfloat16
+    V, vocab, d = 1104, 1000, 256
+    x = _rnd(dev, R, d).to(bf)
+    emb = _rnd(dev, V, d, seed=1)
+    emb[:, :] *= 0.5
+    emb[260] = emb[517] = emb[900] = 1.0          # ties across tiles
+    xt = x.clone()
+    xt[: R // 2] = x[: R // 2].abs()              # rows where the ties win
+    emb = emb.to(bf)
+    w = emb.T if tied else emb.T.contiguous()
+    reset_launches()
+    lg, m, arg = lm_head_logits.raw(xt, w, vocab=vocab)
+    assert lm_head_logits.routes == {"wgmma": 1, "simt": 0}
+    rlg, rm, rarg = lm_head_logits_ref(xt, w, vocab=vocab)
+    torch.testing.assert_close(lg, rlg, atol=1e-3, rtol=0)
+    torch.testing.assert_close(m, rm, atol=1e-3, rtol=0)
+    assert (lg[:, vocab:] <= -1e29).all()
+    _check_argmax(arg, rlg, vocab, gap_tol=2e-3)
+    assert (arg[: R // 2] == 260).all()
+
+
+def test_lm_head_routes_by_dtype_and_layout(dev):
+    """f32 inputs and bf16 rows TMA cannot read keep the CUDA-core decode
+    head; both routes agree with the plain version."""
+    bf = torch.bfloat16
+    x = _rnd(dev, 8, 128).to(bf)
+    emb = _rnd(dev, 300, 128, seed=1).to(bf)
+    for xx, w, want in ((x, emb.T, "wgmma"), (x.float(), emb.float().T,
+                                              "simt"),
+                        (_misaligned(x), emb.T, "simt")):
+        reset_launches()
+        lg, m, arg = lm_head_logits.raw(xx, w, vocab=290)
+        assert lm_head_logits.routes[want] == 1 == lm_head_logits.launches
+        rlg, rm, _ = lm_head_logits_ref(xx, w, vocab=290)
+        torch.testing.assert_close(lg, rlg, atol=1e-3, rtol=0)
+        torch.testing.assert_close(m, rm, atol=1e-3, rtol=0)
+        _check_argmax(arg, rlg, 290, gap_tol=2e-3)
