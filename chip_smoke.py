@@ -12,12 +12,13 @@ blocked matmul op, and times each kernel.
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build: one nvcc per CUDA source, all in parallel, plus the Triton
-   rmsnorm and flash-delta kernels; the SASS of the matmul, CE-head and
-   decode-head libraries must hold HGMMA (wgmma) and UTMALDG (TMA loads),
-   the CE forward's own tensor-core kernel HGMMA, that of the flash_fwd,
-   flash_bwd and ring_flash libraries HGMMA and LDGSTS (cp.async), the
-   ring step forward's own tensor-core kernel too;
+1. build: one nvcc per CUDA source, all in parallel (each kernel's
+   registers and spills printed), plus the Triton flash-delta kernel; the
+   SASS of the matmul, CE-head and decode-head libraries must hold HGMMA
+   (wgmma) and UTMALDG (TMA loads), the CE forward's own tensor-core kernel
+   HGMMA, that of the flash_fwd, flash_bwd and ring_flash libraries HGMMA
+   and LDGSTS (cp.async), the ring step forward's own tensor-core kernel
+   too, that of paged_decode LDGSTS;
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
    max|ref| for SEM/DG; flash_decode on positional and rotated caches,
@@ -50,11 +51,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (8 slots, max_len 2048, page 512, 16 requests of 33-1000 prompt tokens
    and 32-64 new tokens). Launch counts are zeroed just before and read just
    after; every serving kernel must have launched, flash_fwd and the
-   decode head on their tensor-core routes every time, every request
-   complete, every logit be finite;
+   decode head on their tensor-core routes every time, rmsnorm on its
+   16-byte vector route every time, every request complete, every logit be
+   finite;
 5. where the serving time goes: eight decode steps of a full engine on the
    host clock and under ``torch.profiler`` (device busy share, top device
-   ops), and one admission prefill;
+   ops, the rmsnorm and paged decode kernels' rows), and one admission
+   prefill;
 6. the training path: the full 16-layer bf16 llama3_2_1b through
    ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, a checkpoint every
    3 steps). Launch counts are zeroed just before and read just after;
@@ -70,8 +73,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rows, each with its TFLOP/s);
 8. per-kernel times at the main paths' shapes beside their bound, the
    plain version's time and one library call's time (null where no single
-   PyTorch call computes the function), flash_fwd also at the train step's
-   shape; the decode head, the CE forward, flash_bwd and the ring step
+   PyTorch call computes the function), flash_fwd and rmsnorm also at the
+   train step's shape; the device time alone of flash_fwd, rmsnorm and
+   paged decode, their GB/s, and the host cost of the pieces of one
+   rmsnorm call; the decode head, the CE forward, flash_bwd and the ring step
    forward also on their CUDA-core kernels on the same inputs (a copy 2
    bytes off the alignment the tensor-core route needs), their bf16 outputs
    held to the full-width limits; the tensor-core kernels' TFLOP/s, the
@@ -133,7 +138,7 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 KERNEL_INFO = {
-    "rmsnorm": ("triton", "src/repro_torch/kernels/rmsnorm/kernel.py",
+    "rmsnorm": ("cuda", "src/repro_torch/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:21"),
     "flash_fwd": ("cuda", "src/repro_torch/csrc/flash_fwd.cu",
                   "src/repro/kernels/flash_attention/kernel.py:51"),
@@ -644,6 +649,7 @@ def serve_main_path(cfg, model, params, reqs):
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.lm_head import lm_head_logits
+    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.serving import Engine
 
     eng = Engine(model, params, batch=8, max_len=2048)
@@ -677,6 +683,7 @@ def serve_main_path(cfg, model, params, reqs):
         counts = launch_counts()
         fwd_routes = dict(flash_attention_fwd.routes)
         head_routes = dict(lm_head_logits.routes)
+        rms_routes = dict(rmsnorm.routes)
     finally:
         del model.prefill, model.paged_greedy_step
     for rid, (p, m) in zip(rids, reqs):
@@ -690,6 +697,9 @@ def serve_main_path(cfg, model, params, reqs):
             fail(f"kernel {name} never launched on the serving path")
     check_tc_routes("serving path: flash_fwd", fwd_routes, counts["flash_fwd"])
     check_tc_routes("serving path: lm_head", head_routes, counts["lm_head"])
+    if rms_routes != {"vec": counts["rmsnorm"], "elem": 0}:
+        fail(f"serving path: rmsnorm routes {rms_routes}; all "
+             f"{counts['rmsnorm']} launches must take the vector kernel")
     ntok = sum(len(res[r]) for r in rids)
     stats = dict(wall_s=wall, tokens=ntok, tok_s=ntok / wall,
                  prefill_calls=calls["prefill"],
@@ -752,6 +762,14 @@ def profile_decode(model, params, reqs, nsteps=8):
         f"unprofiled step, idle {100 * (1 - busy_ms / step_ms):.1f}%")
     for ms, n, key in rows[:12]:
         log(f"[profile]   {ms:8.4f} ms/step  {n:4d} calls/step  {key[:90]}")
+    for name in ("paged_decode", "rmsnorm"):
+        mine = [r for r in rows if name in r[2]]
+        if not mine:
+            fail(f"profile: no {name} kernel among the decode step's device "
+                 "rows")
+        for ms, n, key in mine:
+            log(f"[profile] {name}: {ms:8.4f} ms/step  {n:4d} calls/step  "
+                f"{key[:80]}")
 
     toks = torch.tensor([max((p for p, _ in reqs), key=len)],
                         device=model.device)
@@ -843,6 +861,53 @@ def flash_times(q, k, v, iters, plain_iters):
                 "contiguous q, k, v")
 
 
+def rmsnorm_host_split(x, w, wb, eps, n=2000):
+    """Host microseconds of one rmsnorm call on x (rows, 1, d) and of its
+    pieces, each run n times back to back on the host clock: the checks
+    and route (what the wrapper reads before it allocates), torch.empty,
+    the stream handle, the ctypes call refused before its launch (rows =
+    0), the ctypes call that launches; beside them F.rms_norm's whole
+    call."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import ops, rmsnorm
+
+    d = x.shape[-1]
+    rows = x.numel() // d
+    lib, fn = ops._entry()
+    o = torch.empty_like(x)
+    xp, wp, op, st = x.data_ptr(), w.data_ptr(), o.data_ptr(), _build.stream()
+
+    def checks():
+        return (_build.on_cpu("rmsnorm", x, w), ops._CODE.get(x.dtype),
+                ops._CODE.get(w.dtype), w.shape != (d,), w.is_contiguous(),
+                x.numel(), x.is_contiguous(),
+                ops._vec(d, d, x.data_ptr(), w.data_ptr(), 2, 4))
+
+    def per_call(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        dt = (time.perf_counter() - t0) * 1e6 / n
+        torch.cuda.synchronize()
+        return dt
+
+    if fn(1, xp, wp, op, 0, d, d, 1, 0, eps, st) == 0:
+        fail("rmsnorm: the entry point launched with rows = 0")
+    return dict(
+        whole=per_call(lambda: rmsnorm(x, w, eps=eps)),
+        checks=per_call(checks),
+        empty=per_call(lambda: torch.empty_like(x)),
+        stream=per_call(_build.stream),
+        ctypes=per_call(lambda: fn(1, xp, wp, op, 0, d, d, 1, 0, eps, st)),
+        ctypes_launch=per_call(
+            lambda: fn(1, xp, wp, op, rows, d, d, 1, 0, eps, st)),
+        library=per_call(lambda: F.rms_norm(x, (d,), wb, eps)))
+
+
 def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
     """{kernel: dict(ms, plain_ms, bound_ms, bound_by, library_ms)} at the
     main path's shapes: a decode step of len(lens) slots for rmsnorm, paged
@@ -852,6 +917,7 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
 
     from repro_torch.kernels.flash_attention import (paged_decode_attention,
                                                      paged_decode_ref)
+    from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.lm_head import lm_head_logits, lm_head_logits_ref
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 
@@ -862,18 +928,26 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
 
-    x = torch.randn((b, 1, d), generator=gen, device=dev).to(bf)
     w = torch.ones(d, device=dev)
     wb = w.to(bf)
     eps = cfg.norm_eps
-    out["rmsnorm"] = dict(
-        ms=cuda_ms(lambda: rmsnorm(x, w, eps=eps), iters=200),
-        plain_ms=cuda_ms(lambda: rmsnorm_ref(x, w, eps=eps), iters=200),
-        library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), wb, eps), iters=200),
-        library="F.rms_norm (bf16 weight)",
-        shape=f"x ({b},1,{d}) bf16, w f32")
-    out["rmsnorm"].update(zip(("bound_ms", "bound_by"), bound(
-        2 * b * d * 2 + d * 4, 4 * b * d, "bfloat16")))
+    # the decode step's rows and the train step's
+    for name, rows in (("rmsnorm", b), ("rmsnorm@train",
+                                        TRAIN_BATCH * TRAIN_SEQ)):
+        x = torch.randn((rows, 1, d), generator=gen, device=dev).to(bf)
+        nbytes = 2 * rows * d * 2 + d * 4
+        out[name] = dict(
+            ms=cuda_ms(lambda: rmsnorm(x, w, eps=eps), iters=200),
+            device_ms=device_ms(lambda: rmsnorm(x, w, eps=eps), "rmsnorm"),
+            plain_ms=cuda_ms(lambda: rmsnorm_ref(x, w, eps=eps), iters=50),
+            library_ms=cuda_ms(lambda: F.rms_norm(x, (d,), wb, eps),
+                               iters=200),
+            bytes=nbytes, library="F.rms_norm (bf16 weight)",
+            shape=f"x ({rows},1,{d}) bf16, w f32")
+        out[name].update(zip(("bound_ms", "bound_by"), bound(
+            nbytes, 4 * rows * d, "bfloat16")))
+    x = torch.randn((b, 1, d), generator=gen, device=dev).to(bf)
+    out["rmsnorm"]["host_us"] = rmsnorm_host_split(x, w, wb, eps)
 
     # q, k, v as the projections' views (the admission's layout); SDPA on
     # contiguous copies
@@ -918,15 +992,20 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
 
     ntok = sum(lens)
     pages_read = sum(-(-n // page) for n in lens)
+    nbytes = (2 * ntok * hk * hd * 2 + 2 * 2 * b * h * hd
+              + pages_read * page * 4 + table.numel() * 4 + b * 4)
     out["paged_decode"] = dict(
-        ms=cuda_ms(kernel, iters=64), plain_ms=cuda_ms(plain, iters=16),
-        library_ms=cuda_ms(library, iters=16),
+        ms=cuda_ms(kernel, iters=64),
+        device_ms=device_ms(kernel, "paged_decode"),
+        plain_ms=cuda_ms(plain, iters=16),
+        library_ms=cuda_ms(library, iters=16), bytes=nbytes,
         library="gather pages + F.scaled_dot_product_attention(attn_mask)",
         shape=f"q ({b},{h},1,{hd}) bf16, pools ({num_pages},{hk},{page},"
               f"{hd}), kv_len {lens}")
     out["paged_decode"].update(zip(("bound_ms", "bound_by"), bound(
-        2 * ntok * hk * hd * 2 + 2 * 2 * b * h * hd + pages_read * page * 4
-        + table.numel() * 4 + b * 4, 4 * h * hd * ntok, "bfloat16")))
+        nbytes, 4 * h * hd * ntok, "bfloat16")))
+    out["paged_decode"]["split"] = attn_ops.paged_split(b, hk, table.shape[1],
+                                                        page)
 
     xh = torch.randn((b, d), generator=gen, device=dev).to(bf)
     head = params["embed"].T
@@ -2432,7 +2511,7 @@ def time_static_kernels(dev):
 TC_LIBS = {"matmul": ("HGMMA", "UTMALDG"), "lm_head_ce": ("HGMMA", "UTMALDG"),
            "lm_head": ("HGMMA", "UTMALDG"),
            "flash_fwd": ("HGMMA", "LDGSTS"), "flash_bwd": ("HGMMA", "LDGSTS"),
-           "ring_flash": ("HGMMA", "LDGSTS")}
+           "ring_flash": ("HGMMA", "LDGSTS"), "paged_decode": ("LDGSTS",)}
 # (library, a name in the kernel's mangled symbol) -> the ops that kernel
 # alone must issue: the CE forward's tensor-core kernel (its epilogue's
 # name), in a library whose backward has HGMMA anyway; the ring step's
@@ -3229,6 +3308,69 @@ def time_ring_kernels(dev, pairs):
 
 # ---------------------------------------------------------------------------
 
+def log_times(times):
+    """Phase 8's report: a [time] line for each entry of ``times``, the
+    [gbps] and [tflops] lines and the rmsnorm host split."""
+    for name, t in times.items():
+        lib = ("null" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        dev_only = ("" if "device_ms" not in t else
+                    f" (device time alone {t['device_ms']:.4f} ms" + (
+                        "" if "device_ms_contig" not in t else
+                        f"; with k, v contiguous "
+                        f"{t['device_ms_contig']:.4f} ms") + ")")
+        log(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms{dev_only}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
+            f"{t['plain_ms']:.4f} ms, library {lib} [{t['library']}]")
+        if "simt_ms" in t:
+            log(f"[time] {name}: tensor-core route {t['ms']:.4f} ms, the "
+                f"CUDA-core kernel on the same values {t['simt_ms']:.4f} ms "
+                f"({t['simt_ms'] / t['ms']:.1f}x)")
+    pairs_bwd = ("visible pairs; S and dP twice, dV and dK as hi and lo "
+                 "planes: 9 products of 2 d per pair")
+    issued_as = {
+        "lm_head_bwd": "hi and lo planes: 5 products of 2 R d V",
+        "flash_bwd": pairs_bwd, "ring_flash_bwd": pairs_bwd}
+    t = times["lm_head"]
+    log(f"[gbps] lm_head: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} GB/s of "
+        f"the function's {t['bytes'] / 1e9:.4f} GB in {t['ms']:.4f} ms, "
+        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound "
+        f"({HBM_BPS / 1e12:.2f} TB/s)")
+    for name in ("rmsnorm", "rmsnorm@train", "paged_decode"):
+        t = times[name]
+        log(f"[gbps] {name}: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} "
+            f"GB/s of the function's {t['bytes'] / 1e9:.6f} GB in "
+            f"{t['ms']:.4f} ms on the call's clock, "
+            f"{t['bytes'] / (t['device_ms'] * 1e-3) / 1e9:.1f} GB/s in the "
+            f"device time alone ({t['device_ms']:.4f} ms), "
+            f"{100 * t['bound_ms'] / t['device_ms']:.1f}% of its bound")
+    t = times["paged_decode"]
+    log(f"[paged] split-KV: {t['split'][0]} slots a block, "
+        f"{t['split'][1]} ranges a (sequence, kv head)")
+    u = times["rmsnorm"]["host_us"]
+    log(f"[host] rmsnorm {times['rmsnorm']['shape']}: one call "
+        f"{u['whole']:.2f} us on the host = checks and route "
+        f"{u['checks']:.2f} + torch.empty {u['empty']:.2f} + stream handle "
+        f"{u['stream']:.2f} + the ctypes call {u['ctypes']:.2f} + the launch "
+        f"{u['ctypes_launch'] - u['ctypes']:.2f} + the rest "
+        f"{u['whole'] - u['checks'] - u['empty'] - u['stream'] - u['ctypes_launch']:.2f}"
+        f"; F.rms_norm {u['library']:.2f} us")
+    for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
+                 "flash_fwd@train", "flash_bwd", "ring_flash_fwd",
+                 "ring_flash_bwd"):
+        t = times[name]
+        rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
+        issued = ("" if "tc_flops" not in t else
+                  f"; {t['tc_flops'] / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s "
+                  f"issued on the tensor cores ({issued_as[name]})")
+        if "device_ms" in t:
+            issued += (f"; {t['flops'] / (t['device_ms'] * 1e-3) / 1e12:.1f} "
+                       f"TFLOP/s in the kernel's device time alone, "
+                       f"{t['device_ms']:.4f} ms")
+        log(f"[tflops] {name}: {rate:.1f} TFLOP/s of the function's "
+            f"{t['flops'] / 1e12:.4f} TFLOP in {t['ms']:.4f} ms{issued}")
+
+
 def main():
     import torch
 
@@ -3247,7 +3389,6 @@ def main():
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import delta as delta_kernel
-    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.models import LM
 
     card = subprocess.run(
@@ -3270,7 +3411,6 @@ def main():
                 spill = line.strip()
             elif "registers" in line or "error" in line:
                 log(f"[nvcc {name}] {fn}: {line.strip()}; {spill}")
-    rms_kernel.build()
     delta_kernel.build()
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -3385,43 +3525,7 @@ def main():
     torch.cuda.empty_cache()
     times.update(time_ring_kernels(dev, pairs))
     del pairs
-    for name, t in times.items():
-        lib = ("null" if t["library_ms"] is None
-               else f"{t['library_ms']:.4f} ms")
-        dev_only = ("" if "device_ms" not in t else
-                    f" (device time alone {t['device_ms']:.4f} ms; with k, "
-                    f"v contiguous {t['device_ms_contig']:.4f} ms)")
-        log(f"[time] {name} {t['shape']}: kernel {t['ms']:.4f} ms{dev_only}, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), plain "
-            f"{t['plain_ms']:.4f} ms, library {lib} [{t['library']}]")
-        if "simt_ms" in t:
-            log(f"[time] {name}: tensor-core route {t['ms']:.4f} ms, the "
-                f"CUDA-core kernel on the same values {t['simt_ms']:.4f} ms "
-                f"({t['simt_ms'] / t['ms']:.1f}x)")
-    pairs_bwd = ("visible pairs; S and dP twice, dV and dK as hi and lo "
-                 "planes: 9 products of 2 d per pair")
-    issued_as = {
-        "lm_head_bwd": "hi and lo planes: 5 products of 2 R d V",
-        "flash_bwd": pairs_bwd, "ring_flash_bwd": pairs_bwd}
-    t = times["lm_head"]
-    log(f"[gbps] lm_head: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} GB/s of "
-        f"the function's {t['bytes'] / 1e9:.4f} GB in {t['ms']:.4f} ms, "
-        f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound "
-        f"({HBM_BPS / 1e12:.2f} TB/s)")
-    for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
-                 "flash_fwd@train", "flash_bwd", "ring_flash_fwd",
-                 "ring_flash_bwd"):
-        t = times[name]
-        rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
-        issued = ("" if "tc_flops" not in t else
-                  f"; {t['tc_flops'] / (t['ms'] * 1e-3) / 1e12:.1f} TFLOP/s "
-                  f"issued on the tensor cores ({issued_as[name]})")
-        if "device_ms" in t:
-            issued += (f"; {t['flops'] / (t['device_ms'] * 1e-3) / 1e12:.1f} "
-                       f"TFLOP/s in the kernel's device time alone, "
-                       f"{t['device_ms']:.4f} ms")
-        log(f"[tflops] {name}: {rate:.1f} TFLOP/s of the function's "
-            f"{t['flops'] / 1e12:.4f} TFLOP in {t['ms']:.4f} ms{issued}")
+    log_times(times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

@@ -34,6 +34,43 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// a 16-byte vector of T: N elements, unpacked to / packed from f32
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  static constexpr int N = 4;    // elements a 16-byte vector
+  __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack2(uint32_t u, float* f) {
+    f[0] = __uint_as_float(u << 16);
+    f[1] = __uint_as_float(u & 0xffff0000u);
+  }
+  __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
+    unpack2(r.x, f);
+    unpack2(r.y, f + 2);
+    unpack2(r.z, f + 4);
+    unpack2(r.w, f + 6);
+  }
+  __device__ __forceinline__ static uint32_t pack2(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+};
+
 }  // namespace repro
 
 extern "C" const char* kernel_error_string(int code) {

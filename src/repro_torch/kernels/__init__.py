@@ -8,7 +8,8 @@ kernels: :func:`reset_launches` zeroes them, :func:`launch_counts` reads
 them. A wrapper with two kernels (``matmul``, ``lm_head_logits``,
 ``lm_head_ce``, ``lm_head_bwd``, ``flash_attention_fwd``, ``flash_bwd``,
 ``ring_flash_fwd``, ``ring_flash_bwd``: a tensor-core and a CUDA-core
-route) also counts its launches by route in ``wrapper.routes``, which
+route; ``rmsnorm``: a 16-byte-vector and a per-element variant) also
+counts its launches by route in ``wrapper.routes``, which
 :func:`reset_launches` zeroes too.
 """
 

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "load", "check", "on_cpu", "tma_ok"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
+SOURCES = ("rmsnorm", "flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
            "flash_bwd", "fd2d", "sem", "dg", "flash_decode", "ssm_scan",
            "ring_flash", "matmul")
 HEADERS = ("common.cuh", "gemm_sm90.cuh",     # included by the sources
@@ -147,7 +147,11 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
+def stream() -> int:
+    """The current CUDA stream's handle as an int (an entry point's
+    ``ctypes.c_void_p`` argument takes it as it is), read without making a
+    ``torch.cuda.Stream`` object: the wrappers of the decode step's small
+    kernels pay for each microsecond on the host."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

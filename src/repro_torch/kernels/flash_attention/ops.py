@@ -18,7 +18,9 @@ bf16 the 16-byte copies cannot read); the tensor-core backward takes both.
 rolling cache: the JAX package's ``flash_decode`` op and its
 ``decode_attention`` entry) and
 ``paged_decode_attention`` launches ``csrc/paged_decode.cu`` (one-token
-decode through a block table). ``ring_flash_fwd`` and ``ring_flash_bwd``
+decode through a block table, split-KV: the slots cut into ranges by
+:func:`paged_split`, a split kernel and a merge kernel from one entry
+point). ``ring_flash_fwd`` and ``ring_flash_bwd``
 launch ``csrc/ring_flash.cu``: one step of ring attention (a query shard
 against one kv chunk at absolute offsets read on the device) and its
 backward; ``ring.py`` builds the ring schedule on them.
@@ -37,6 +39,7 @@ share one kernel, ``csrc/attn_fwd_sm90.cuh``, and the two backwards theirs,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,8 +50,8 @@ from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_delta", "flash_bwd", "flash_decode",
-           "paged_decode_attention", "ring_flash_fwd", "ring_flash_bwd",
-           "route"]
+           "paged_decode_attention", "paged_split", "ring_flash_fwd",
+           "ring_flash_bwd", "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)     # flash_fwd, flash_decode, paged_decode
@@ -68,7 +71,13 @@ _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I),
                              _I)}
 _DECODE_SIG = {"flash_decode": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 6 + [_P],
                                 _I)}
-_PAGED_SIG = {"paged_decode": ([_P] * 7 + [_I] * 7 + [_F, _L, _L, _P], _I)}
+_PAGED_SIG = {"paged_decode": ([_P] * 8 + [_I] * 8 + [_F, _L, _L, _P], _I)}
+# paged decode's split rule (csrc/paged_decode.cu: KT slots a tile, MAXL a
+# split): enough blocks for several on each of the H100's 132 SMs, since a
+# decode step's ragged sequences leave the splits past their ends empty
+# (16 x 132 gives the serving path's 8 x 8 splits of 64 slots, the fastest
+# of 32-512 on the card)
+_PAGED_TILE, _PAGED_MAX_SPLIT, _PAGED_BLOCKS = 32, 512, 16 * 132
 _RING_SIG = {
     "ring_flash_fwd": ([_P] * 7 + [_I] * 10 + [_F] + [_L] * 9 + [_P], _I),
     "ring_flash_fwd_tc": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
@@ -400,13 +409,34 @@ def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
 flash_decode.launches = 0
 
 
+@functools.lru_cache(maxsize=64)
+def paged_split(b, hk, nsp, page):
+    """(split, nsplit) of paged decode at these shapes: each block of the
+    kernel takes ``split`` consecutive logical slots of one (sequence, kv
+    head), a multiple of the 32-slot tile in [32, 512], and the
+    ``nsp * page`` slots of a block table make ``nsplit`` ranges. Read from
+    the shapes alone (never from ``kv_len`` or the table, which stay on the
+    device): ~16 x 132 blocks in all, since the ranges past each
+    sequence's end exit at once. The workspace holds ``b * h * nsplit * (d + 2)`` f32:
+    (m, l) and ``acc[d]`` for each query head of each range."""
+    cap = nsp * page
+    want = -(-_PAGED_BLOCKS // (b * hk))
+    split = -(-cap // want)
+    split = -(-split // _PAGED_TILE) * _PAGED_TILE
+    split = min(max(split, _PAGED_TILE), _PAGED_MAX_SPLIT)
+    return split, -(-cap // split)
+
+
 def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
                            pos_pages, sm_scale=None):
     """q (B, H, 1, D) against page pools k/v (P, Hk, page, D), read through
     ``block_table`` (B, n_seq_pages) i32; ``kv_len`` (B,) i32 puts each
     query at position kv_len - 1; ``pos_pages`` (P, page) i32 holds each
     pool slot's absolute position (-1 = empty). A slot is visible when
-    0 <= pos <= kv_len - 1. Returns (B, H, 1, D) in q's dtype."""
+    0 <= pos <= kv_len - 1. Returns (B, H, 1, D) in q's dtype. On the card
+    the kernel splits each sequence's slots by :func:`paged_split` and
+    merges the splits' partials (:func:`paged_decode_split_ref` is its
+    plain model)."""
     name = "paged_decode_attention"
     if on_cpu(name, q, k_pages, v_pages, block_table, kv_len, pos_pages):
         return paged_decode_ref(q, k_pages, v_pages, block_table=block_table,
@@ -418,7 +448,7 @@ def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
     if one != 1:
         raise ValueError(f"{name}: expected one query token, got q "
                          f"{tuple(q.shape)}")
-    if tuple(v_pages.shape) != tuple(k_pages.shape):
+    if v_pages.shape != k_pages.shape:
         raise ValueError(f"{name}: v pool {tuple(v_pages.shape)} != k pool "
                          f"{tuple(k_pages.shape)}")
     _check_group(name, h, hk, d)
@@ -440,12 +470,17 @@ def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
             raise ValueError(f"{name}: {n} must be contiguous")
     if sm_scale is None:
         sm_scale = 1.0 / d ** 0.5
+    nsp = block_table.shape[1]
+    split, nsplit = paged_split(b, hk, nsp, page)
     o = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
+                     device=q.device)
     lib = load("paged_decode", _PAGED_SIG)
-    err = lib.paged_decode(ptr(q), ptr(k_pages), ptr(v_pages),
-                           ptr(block_table), ptr(kv_len), ptr(pos_pages),
-                           ptr(o), b, h, hk, page, block_table.shape[1], d,
-                           _DTYPE_CODE[q.dtype], float(sm_scale),
+    err = lib.paged_decode(q.data_ptr(), k_pages.data_ptr(),
+                           v_pages.data_ptr(), block_table.data_ptr(),
+                           kv_len.data_ptr(), pos_pages.data_ptr(),
+                           o.data_ptr(), ws.data_ptr(), b, h, hk, page, nsp,
+                           split, d, _DTYPE_CODE[q.dtype], sm_scale,
                            q.stride(0), q.stride(1), stream())
     check(lib, err, "paged_decode")
     paged_decode_attention.launches += 1

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["mha_ref", "flash_fwd_ref", "decode_ref", "paged_decode_ref",
+           "paged_decode_split_ref",
            "flash_delta_ref", "flash_bwd_ref", "rolling_slot_pos",
            "ring_step_ref", "ring_fwd_ref", "ring_bwd_ref",
            "ring_bwd_tc_ref"]
@@ -158,6 +159,60 @@ def paged_decode_ref(q, k_pages, v_pages, *, block_table, kv_len=None,
     s = torch.matmul(qg, kb.float()[:, :, None].transpose(-1, -2)) * sm_scale
     o, _ = _softmax_av(s, mask[:, None, None, None, :], vb[:, :, None])
     return o.reshape(b, h, 1, dv).to(q.dtype)
+
+
+def paged_decode_split_ref(q, k_pages, v_pages, *, block_table, kv_len,
+                           pos_pages, split, sm_scale=None):
+    """The split-KV form of :func:`paged_decode_ref` that
+    ``csrc/paged_decode.cu`` computes: each sequence's ``nsp * page``
+    logical slots are cut into ranges of ``split`` slots; each range gives
+    f32 partials over its visible slots (m = max score, l = sum of
+    exp(s - m), acc = sum of exp(s - m) v, p kept in f32), a range that
+    starts past q_pos while the cache is unwrapped (q_pos < nsp * page), or
+    holds no visible slot, is empty (m = -inf, l = 0); a masked slot adds
+    nothing, whatever its k and v hold; the partials merge as
+    sum exp(m_s - M) acc_s / sum exp(m_s - M) l_s, and a query that sees no
+    slot gives exactly 0."""
+    b, h, _, d = q.shape
+    _, hk, page, _ = k_pages.shape
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    tab = block_table.reshape(b, -1).long()
+    cap = tab.shape[1] * page
+    nsplit = -(-cap // split)
+    pad = nsplit * split - cap
+    kb = k_pages[tab].transpose(1, 2).reshape(b, hk, cap, d).float()
+    vb = v_pages[tab].transpose(1, 2).reshape(b, hk, cap, d).float()
+    sp = pos_pages.long()[tab].reshape(b, cap)
+    q_pos = torch.as_tensor(kv_len, device=q.device).reshape(b, 1).long() - 1
+    mask = (sp >= 0) & (sp <= q_pos)
+    start = torch.arange(nsplit, device=q.device) * split
+    live = (q_pos >= cap) | (start[None, :] <= q_pos)         # (b, nsplit)
+    mask = torch.nn.functional.pad(mask, (0, pad)).reshape(b, nsplit, split)
+    mask &= live[:, :, None]
+    kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
+    vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
+    kb = kb.reshape(b, hk, 1, nsplit, split, d)
+    vb = vb.reshape(b, hk, 1, nsplit, split, d)
+    qg = q.reshape(b, hk, g, 1, 1, d).float()
+    s = (qg * kb).sum(-1) * sm_scale                # (b, hk, g, nsplit, split)
+    mk = mask[:, None, None]
+    s = s.masked_fill(~mk, float("-inf"))
+    m = s.amax(-1)                                  # (b, hk, g, nsplit)
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+    p = p.masked_fill(~mk, 0.0)
+    l = p.sum(-1)
+    vb = torch.where(mk[..., None], vb, 0.0)        # a masked v adds 0
+    acc = (p[..., None] * vb).sum(-2)               # (b, hk, g, nsplit, d)
+    big = m.amax(-1, keepdim=True)
+    wgt = torch.exp(m - torch.where(big == float("-inf"), 0.0, big))
+    wgt = wgt.masked_fill(m == float("-inf"), 0.0)
+    den = (wgt * l).sum(-1)
+    num = (wgt[..., None] * acc).sum(-2)
+    o = torch.where(den[..., None] > 0, num / torch.where(
+        den > 0, den, 1.0)[..., None], 0.0)
+    return o.reshape(b, h, 1, d).to(q.dtype)
 
 
 def flash_delta_ref(do, o):

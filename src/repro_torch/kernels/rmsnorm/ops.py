@@ -1,47 +1,99 @@
-"""Public RMSNorm: the Triton kernel on a CUDA tensor, the plain version on
-the CPU (the counterpart of ``repro.kernels.rmsnorm.ops.rmsnorm``).
+"""Public RMSNorm: the CUDA kernel (``csrc/rmsnorm.cu``) on a CUDA tensor,
+the plain version on the CPU (the counterpart of
+``repro.kernels.rmsnorm.ops.rmsnorm``).
 
-``rmsnorm`` is a ``torch.autograd.Function`` on both devices: the forward
-is the kernel (or the plain version), the backward is autograd through the
-plain :func:`rmsnorm_ref` for x and w, as the JAX op's
+The card has two variants of one kernel, picked up front by :func:`route`
+from dtype and layout, never after a failure, and counted in
+``rmsnorm.routes``: ``"vec"`` (each row in registers, 16-byte loads and
+stores) and ``"elem"`` (one element a lane, for rows that 16-byte accesses
+cannot serve or that the registers cannot hold).
+
+A decode step calls rmsnorm 33 times on 8 rows, where the host's cost of a
+call is the kernel's whole cost, so the card path is lean: the C function
+is looked up once and kept, pointers and the stream go as Python ints, the
+checks read attributes only, and ``torch.autograd.Function`` runs only
+when a gradient is asked. Its backward is autograd through the plain
+:func:`rmsnorm_ref` for x and w, as the JAX op's
 ``vjp=oracle_vjp(rmsnorm_ref, ...)`` is (the JAX package has no rmsnorm
 backward kernel).
 """
 
 from __future__ import annotations
 
-import math
+import ctypes
 
 import torch
 
-from .._build import on_cpu
-from . import kernel
+from .._build import check, load, on_cpu, stream
 from .ref import rmsnorm_ref
 
-__all__ = ["rmsnorm"]
+__all__ = ["rmsnorm", "route"]
 
-_DTYPES = (torch.float32, torch.bfloat16)
+_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ESIZE = (4, 2)         # bytes of an element, by code
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_SIG = {"rmsnorm": ([_I, _P, _P, _P, _I, _I, _L, _I, _I, _F, _P], _I)}
+_MAX_VECS = 32          # csrc/rmsnorm.cu: MAX_NV, 16-byte vectors a lane
+_ENTRY = None           # (library, its rmsnorm function), bound on first use
+
+
+def _vec(d, sx, xp, wp, xes, wes):
+    n = 16 // xes                                  # elements a vector of x
+    return (d % n == 0 and sx % n == 0 and d <= 32 * n * _MAX_VECS
+            and xp % 16 == 0 and wp % min(16, n * wes) == 0)
+
+
+def route(x2, w) -> str:
+    """The variant a CUDA call launches for x2 (rows, d) and w (d,):
+    ``"vec"`` when d and x2's row stride are whole 16-byte vectors of x,
+    x2 and w start 16-byte aligned (8-byte for a bf16 w under f32 x) and a
+    row is at most 32 vectors a lane; ``"elem"`` otherwise."""
+    return "vec" if _vec(x2.shape[1], x2.stride(0), x2.data_ptr(),
+                         w.data_ptr(), x2.element_size(),
+                         w.element_size()) else "elem"
+
+
+def _entry():
+    global _ENTRY
+    if _ENTRY is None:
+        lib = load("rmsnorm", _SIG)
+        _ENTRY = (lib, lib.rmsnorm)
+    return _ENTRY
 
 
 def _forward(x, w, eps):
     if on_cpu("rmsnorm", x, w):
         return rmsnorm_ref(x, w, eps=eps)
     d = x.shape[-1]
-    if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
+    xc, wc = _CODE.get(x.dtype), _CODE.get(w.dtype)
+    if xc is None or wc is None:
         raise ValueError(f"rmsnorm: dtypes {x.dtype}/{w.dtype} not in "
-                         f"{_DTYPES}")
-    if tuple(w.shape) != (d,) or not w.is_contiguous():
+                         f"{tuple(_CODE)}")
+    if w.shape != (d,) or not w.is_contiguous():
         raise ValueError(f"rmsnorm: w shape {tuple(w.shape)} (contiguous) "
                          f"must be ({d},)")
-    if x.numel() == 0:
+    numel = x.numel()
+    if numel == 0:
         return torch.empty_like(x)
-    x2 = x.reshape(math.prod(x.shape[:-1]), d)
-    if x2.stride(1) != 1:
-        raise ValueError("rmsnorm: the last axis of x must be contiguous")
-    out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
-    kernel.launch(x2, w, out, eps)
+    if x.is_contiguous():                          # (..., d) rows as they are
+        x2, sx = x, d
+        out = torch.empty_like(x)
+    else:
+        x2 = x.reshape(-1, d)
+        if x2.stride(1) != 1:
+            raise ValueError("rmsnorm: the last axis of x must be contiguous")
+        sx = x2.stride(0)
+        out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
+    xp, wp = x2.data_ptr(), w.data_ptr()
+    vec = _vec(d, sx, xp, wp, _ESIZE[xc], _ESIZE[wc])
+    lib, fn = _entry()
+    err = fn(vec, xp, wp, out.data_ptr(), numel // d, d, sx, xc, wc, eps,
+             stream())
+    if err:
+        check(lib, err, "rmsnorm")
     rmsnorm.launches += 1
-    return out.reshape(x.shape)
+    rmsnorm.routes["vec" if vec else "elem"] += 1
+    return out if x2 is x else out.view(x.shape)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -65,7 +117,10 @@ class _RMSNorm(torch.autograd.Function):
 def rmsnorm(x, w, *, eps=1e-6):
     """x: (..., d) f32/bf16; w: (d,). Normalizes the last axis; the output
     has x's dtype and shape. Differentiable in x and w."""
-    return _RMSNorm.apply(x, w, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
+    return _forward(x, w, eps)
 
 
 rmsnorm.launches = 0
+rmsnorm.routes = {"vec": 0, "elem": 0}

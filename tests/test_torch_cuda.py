@@ -43,6 +43,7 @@ from repro_torch.kernels.lm_head import (bwd_route, lm_head_bwd,
                                          lm_head_ce, lm_head_ce_stats_ref,
                                          lm_head_logits, lm_head_logits_ref)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
+from repro_torch.kernels.rmsnorm import route as rms_route
 from repro_torch.kernels.ssm_scan import (selective_scan_ref, ssm_scan,
                                           ssm_scan_fwd, ssm_scan_state)
 from repro_torch.launch.serve import generate
@@ -1269,3 +1270,108 @@ def test_lm_head_routes_by_dtype_and_layout(dev):
         torch.testing.assert_close(lg, rlg, atol=1e-3, rtol=0)
         torch.testing.assert_close(m, rm, atol=1e-3, rtol=0)
         _check_argmax(arg, rlg, 290, gap_tol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm (csrc/rmsnorm.cu) and split-KV paged decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [47, 48, 1000, 1536, 2048, 3584, 4096, 6144])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_routes(dev, d, xdt, wdt):
+    """Every width of configs/ and the tests' small and odd ones, each dtype
+    pair, on a contiguous x and on row-strided views (a stride of d + 8
+    keeps 16-byte rows, d + 1 does not): the route is the layout's (16-byte
+    vectors of x in d and the stride, at most 32 vectors a lane), counted
+    once a call, and o matches the plain version (f32 out: TOL; bf16 out:
+    both sides round one f32 result, one ulp, rtol 2^-7)."""
+    rows = 70
+    w = (1 + 0.1 * _rnd(dev, d, seed=1)).to(wdt)
+    tol = TOL if xdt == torch.float32 else dict(atol=1e-6, rtol=2 ** -7)
+    n = 16 // torch.tensor([], dtype=xdt).element_size()
+    for pad in (0, 8, 1):
+        x = (_rnd(dev, rows, d + pad, seed=d + pad) * 3).to(xdt)[:, :d]
+        want = ("vec" if d % n == 0 and (d + pad) % n == 0
+                and -(-d // (32 * n)) <= 32 else "elem")
+        assert rms_route(x, w) == want
+        reset_launches()
+        got = rmsnorm(x, w, eps=1e-5)
+        assert rmsnorm.routes[want] == 1 == rmsnorm.launches
+        torch.testing.assert_close(got, rmsnorm_ref(x, w, eps=1e-5), **tol)
+        x3 = x.reshape(7, 10, d)                 # (..., d): one launch
+        torch.testing.assert_close(rmsnorm(x3, w, eps=1e-5),
+                                   rmsnorm_ref(x3, w, eps=1e-5), **tol)
+
+
+def _paged_inputs(dev, lens, page, nsp, hk, g, d, dtype, seed):
+    """Pools with each sequence of ``lens`` on shuffled pages; a length of 0
+    is an idle slot (table of zeros, the null page at -1); a length past
+    nsp * page is a wrapped cache (slot l holds the newest position equal
+    to l mod nsp * page)."""
+    b, cap = len(lens), nsp * page
+    npages = b * nsp + 1
+    gen = torch.Generator().manual_seed(seed)
+    table = (torch.randperm(npages - 1, generator=gen) + 1)[:b * nsp]
+    table = table.reshape(b, nsp).to(torch.int32)
+    pos = torch.full((npages, page), -1, dtype=torch.int32)
+    for bi, n in enumerate(lens):
+        if n == 0:
+            table[bi] = 0
+            continue
+        for j in range(nsp):
+            ar = torch.arange(j * page, (j + 1) * page)
+            p = ar + torch.clamp((n - 1 - ar) // cap, min=0) * cap
+            pos[table[bi, j]] = torch.where(p < n, p, -1).to(torch.int32)
+    q = _rnd(dev, b, hk * g, 1, d, seed=seed).to(dtype)
+    kp = _rnd(dev, npages, hk, page, d, seed=seed + 1).to(dtype)
+    vp = _rnd(dev, npages, hk, page, d, seed=seed + 2).to(dtype)
+    kw = dict(block_table=table.to(dev),
+              kv_len=torch.tensor(lens, dtype=torch.int32, device=dev),
+              pos_pages=pos.to(dev))
+    return q, kp, vp, kw
+
+
+PAGED_CASES = [  # lens, page, nsp, hk, g, d
+    ([64, 1, 0, 37], 4, 16, 2, 1, 32),
+    ([80, 7, 0, 33], 5, 16, 2, 4, 64),
+    ([1408, 353, 0, 40], 352, 4, 2, 8, 128),
+    ([2048, 600, 0, 1], 512, 4, 1, 16, 64),
+    ([23, 57, 0, 20], 5, 4, 2, 4, 32),               # wrapped caches
+    ([1016, 241, 700, 0, 33, 512, 999, 64], 16, 128, 8, 4, 64),
+    ([130, 9], 16, 16, 2, 1, 128),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_split_kernel(dev, case, dtype):
+    """Ragged lengths whose later splits are wholly masked, idle slots
+    (exactly 0), wrapped caches, pages of 4, 5, 16, 352 and 512, d 32, 64
+    and 128, groups 1 to 16, splits of 32 slots (b * hk small) and of 64
+    (8 x 8): against paged_decode_ref (f32: TOL; bf16: 2e-2, the plain
+    version rounds p to bf16 before p @ v), one launch counted a call."""
+    lens, page, nsp, hk, g, d = case
+    q, kp, vp, kw = _paged_inputs(dev, lens, page, nsp, hk, g, d, dtype,
+                                  seed=sum(lens) % 97)
+    reset_launches()
+    o = paged_decode_attention(q, kp, vp, **kw)
+    assert paged_decode_attention.launches == 1
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o, paged_decode_ref(q, kp, vp, **kw), **tol)
+    for bi, n in enumerate(lens):
+        if n == 0:
+            assert (o[bi] == 0).all()
+
+
+def test_paged_decode_takes_unaligned_pools(dev):
+    """Contiguous pools whose base lies 2 bytes off 16 (the kernel's plain
+    loads in place of cp.async) and a strided q give the same bits."""
+    bf = torch.bfloat16
+    q, kp, vp, kw = _paged_inputs(dev, [80, 7, 0, 33], 5, 16, 2, 4, 64, bf,
+                                  seed=3)
+    ko, vo = (_misaligned(t) for t in (kp, vp))
+    assert ko.is_contiguous() and ko.data_ptr() % 16
+    qs = _misaligned(q.transpose(1, 2).contiguous()).transpose(1, 2)
+    want = paged_decode_attention(q, kp, vp, **kw)
+    assert torch.equal(paged_decode_attention(qs, ko, vo, **kw), want)

@@ -195,6 +195,10 @@ def _imports(path):
 
 def test_port_sources_import_no_jax_or_repro():
     files = [os.path.join(ROOT, "chip_smoke.py")]
+    tools = os.path.join(ROOT, "tools")           # the port's A/B scripts
+    files += [os.path.join(tools, n) for n in sorted(os.listdir(tools))
+              if n.endswith(".py")]
+    assert os.path.join(tools, "ab_norm_paged.py") in files
     for d, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     bad = [(f, m) for f in files for m in _imports(f)
