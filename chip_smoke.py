@@ -18,11 +18,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (wgmma) and UTMALDG (TMA loads), the CE forward's own tensor-core kernel
    HGMMA, that of the flash_fwd, flash_bwd and ring_flash libraries HGMMA
    and LDGSTS (cp.async), the ring step forward's own tensor-core kernel
-   too, that of paged_decode LDGSTS;
+   too, those of paged_decode and flash_decode LDGSTS;
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
    max|ref| for SEM/DG; flash_decode on positional and rotated caches,
-   ssm_scan at ragged L and dm, flash_fwd with a window and at head dim
+   with kv_len as a device tensor and as an int (identical bits), at
+   d = 256 with g = 8 and d = 112, with ranges wholly past q_pos or below
+   the window, wrapped caches, NaN in masked slots, rows with no live slot
+   and every split length forced; ssm_scan at L and dm off its tile, n
+   4/8/16, with and without h0, and at falcon's prefill shape in bf16;
+   flash_fwd with a window and at head dim
    128, paged decode at 128; the ring step forward and backward at ragged
    shard and chunk lengths, GQA, window and prefix masks and a chunk wholly
    after its shard; matmul at ragged M/N/K, out_dtype and K == 0; the
@@ -74,9 +79,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 8. per-kernel times at the main paths' shapes beside their bound, the
    plain version's time and one library call's time (null where no single
    PyTorch call computes the function), flash_fwd and rmsnorm also at the
-   train step's shape; the device time alone of flash_fwd, rmsnorm and
-   paged decode, their GB/s, and the host cost of the pieces of one
-   rmsnorm call; the decode head, the CE forward, flash_bwd and the ring step
+   train step's shape, flash_decode also at paligemma's d = 256, g = 8 and
+   ssm_scan at falcon's prefill shape; the device time alone of flash_fwd,
+   rmsnorm, paged decode, flash_decode and ssm_scan, their GB/s (the
+   scan's exponentials/s), and the host cost of the pieces of one rmsnorm
+   and one flash_decode call; the decode head, the CE forward, flash_bwd and the ring step
    forward also on their CUDA-core kernels on the same inputs (a copy 2
    bytes off the alignment the tensor-core route needs), their bf16 outputs
    held to the full-width limits; the tensor-core kernels' TFLOP/s, the
@@ -459,6 +466,135 @@ def small_f32_static_checks(dev):
     torch.cuda.synchronize()
 
 
+def small_decode_scan_checks(dev):
+    """The split-KV flash_decode and the time-parallel ssm_scan against
+    their plain versions at the edges of their designs. flash_decode:
+    kv_len as a one-element int32 device tensor and as an int (identical
+    outputs), d = 256 with g = 8 and d = 112 in f32 and bf16, ranges wholly
+    past q_pos and wholly below the window, wrapped rotated caches, NaN in
+    masked k and v slots (the same bits as without), rows with no live
+    slot (exactly 0), and every split length of 32-512 forced; f32 within
+    1e-4, bf16 within 1% of max|o| and 2^-7 (both sides round o to bf16;
+    the plain version also rounds p). ssm_scan: L and dm off its 128-step,
+    32-channel tile, n 4/8/16, with and without h0 (f32, 1e-4), and at
+    falcon_mamba_7b's prefill shape (bf16 x, B, C, f32 delta; y within
+    1e-2 and 2^-7, hT within 1e-3 of its largest magnitude)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (decode_ref, flash_decode,
+                                                     ops as attn_ops,
+                                                     rolling_slot_pos)
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
+
+    tol = dict(atol=1e-4, rtol=1e-4)
+    g = torch.Generator(device=dev).manual_seed(16)
+    i32 = torch.int32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def kv_tol(dtype, ref):
+        if dtype == torch.float32:
+            return tol
+        return dict(atol=0.01 * float(ref.float().abs().max()), rtol=2 ** -7)
+
+    # (b, hk, g, d, skv, kv_len, window, rotated after t tokens or None)
+    cases = [(3, 1, 8, 256, 200, 150, None, None),   # paligemma's MQA
+             (2, 2, 8, 256, 96, 500, 96, 500),       # d 256, wrapped
+             (3, 2, 4, 112, 200, 130, None, None),
+             (2, 4, 1, 112, 64, 100, 40, 100),       # d 112, wrapped
+             (2, 2, 4, 64, 1000, 40, None, None),    # ranges past q_pos
+             (2, 2, 4, 64, 1000, 900, 50, None),     # ranges below the window
+             (3, 2, 2, 128, 96, 517, 40, 517),       # window < cache, wrapped
+             (1, 3, 16, 128, 300, 300, None, None)]  # g * d = 2048
+    for b, hk, gq, d, skv, kv_len, window, t in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = rnd(b, 1, hk * gq, d).transpose(1, 2).to(dtype)
+            k, v = rnd(b, hk, skv, d).to(dtype), rnd(b, hk, skv, d).to(dtype)
+            sp = None if t is None else rolling_slot_pos(skv, t).to(dev)
+            kw = dict(slot_pos=sp, window=window)
+            ref = decode_ref(q, k, v, kv_len=kv_len, **kw)
+            o = flash_decode(q, k, v, kv_len=kv_len, **kw)
+            tag = (f"flash_decode {str(dtype)[6:]} b={b} hk={hk} g={gq} d={d} "
+                   f"skv={skv} kv_len={kv_len} window={window} "
+                   f"rotated={t is not None} split="
+                   f"{attn_ops.decode_split(b, hk, skv)[0]}")
+            check_close(tag, o, ref, **kv_tol(dtype, ref))
+            kl = torch.tensor([kv_len], dtype=i32, device=dev)
+            if not torch.equal(flash_decode(q, k, v, kv_len=kl, **kw), o):
+                fail(f"{tag}: kv_len as a device tensor gave other bits "
+                     "than kv_len as an int")
+    log("[check] flash_decode: kv_len as an int32 device tensor gives the "
+        "int's bits in every case above")
+
+    # NaN in masked slots: slots past q_pos (positional) and an empty slot
+    # of a rotated cache; the kernel gives the bits it gives without them
+    for sp in (None, rolling_slot_pos(64, 40).to(dev)):
+        q = rnd(2, 4, 1, 64).to(torch.bfloat16)
+        k = rnd(2, 2, 64, 64).to(torch.bfloat16)
+        v = rnd(2, 2, 64, 64).to(torch.bfloat16)
+        want = flash_decode(q, k, v, kv_len=40, slot_pos=sp, window=64)
+        kn, vn = k.clone(), v.clone()
+        kn[:, :, 45], vn[:, :, 45] = float("nan"), float("nan")
+        kn[:, :, 63], vn[:, :, 63] = float("nan"), float("nan")
+        got = flash_decode(q, kn, vn, kv_len=40, slot_pos=sp, window=64)
+        if not torch.equal(got, want):
+            fail(f"flash_decode: NaN in masked slots (rotated="
+                 f"{sp is not None}) moved the output")
+    # rows with no live slot give exactly 0
+    k = rnd(2, 2, 70, 256)
+    for kw in (dict(kv_len=torch.zeros(1, dtype=i32, device=dev)),
+               dict(kv_len=30, slot_pos=torch.full((70,), -1, dtype=i32,
+                                                   device=dev))):
+        if not (flash_decode(rnd(2, 16, 1, 256), k, k, **kw) == 0).all():
+            fail(f"flash_decode: a row with no live slot must give exactly "
+                 f"0 ({kw})")
+    log("[check] flash_decode: NaN in masked k/v slots changes no bit; rows "
+        "with no live slot give exactly 0")
+
+    # every split length, forced
+    rule = attn_ops.decode_split
+    q, k, v = rnd(2, 8, 1, 64), rnd(2, 2, 777, 64), rnd(2, 2, 777, 64)
+    sp = rolling_slot_pos(777, 900).to(dev)
+    try:
+        for split in (32, 64, 128, 256, 512):
+            attn_ops.decode_split = (lambda b, hk, skv, s=split:
+                                     (s, -(-skv // s)))
+            for kw in (dict(kv_len=600, window=100), dict(kv_len=777),
+                       dict(kv_len=900, slot_pos=sp, window=300)):
+                check_close(f"flash_decode f32 split={split} {sorted(kw)}",
+                            flash_decode(q, k, v, **kw),
+                            decode_ref(q, k, v, **kw), **tol, quiet=True)
+    finally:
+        attn_ops.decode_split = rule
+    log("[check] flash_decode f32: splits of 32, 64, 128, 256, 512 slots "
+        "forced, each within 1e-4 of the plain version")
+
+    for bt, L, dm, n in ((2, 129, 17, 4), (1, 300, 40, 8), (3, 77, 100, 16),
+                         (1, 128, 32, 16), (2, 1, 5, 16), (1, 1000, 33, 16)):
+        x = rnd(bt, L, dm)
+        delta = torch.nn.functional.softplus(rnd(bt, L, dm)) * 0.1
+        A = -(rnd(dm, n).abs() + 0.1)
+        B, C, D = rnd(bt, L, n), rnd(bt, L, n), rnd(dm)
+        for h0 in (rnd(bt, dm, n), None):
+            y, hT = ssm_scan_fwd(x, delta, A, B, C, D, h0=h0)
+            ry, rhT = selective_scan_ref(x, delta, A, B, C, D, h0=h0)
+            tag = (f"ssm_scan f32 bt={bt} L={L} dm={dm} n={n} "
+                   f"h0={h0 is not None}")
+            check_close(tag + " y", y, ry, **tol)
+            check_close(tag + " hT", hT, rhT, **tol)
+
+    args = _scan_inputs(dev, g, get_config("falcon_mamba_7b"), FM_BATCH,
+                        FM_PROMPT)
+    y, hT = ssm_scan_fwd(*args)
+    ry, rhT = selective_scan_ref(*args)
+    check_close(f"ssm_scan bf16 y at falcon's prefill {tuple(y.shape)}", y,
+                ry, atol=1e-2, rtol=2 ** -7)
+    check_rel("ssm_scan bf16 hT (f32) at falcon's prefill", hT, rhT, 1e-3)
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # the main path's shapes
 # ---------------------------------------------------------------------------
@@ -804,23 +940,66 @@ def cuda_ms(fn, iters=30, warmup=3):
     return s.elapsed_time(e) / iters
 
 
+def event_ms(fn, n=20):
+    """The device time of one call of fn from CUDA events around n calls
+    queued behind a sleep kernel: the card starts the first call only once
+    the host has enqueued all n, so no host gap between calls is timed
+    (unlike cuda_ms). It counts every launch of fn and the ~1 us between
+    them, so it reads a little above a profiler row. The sleep must outlast
+    the host's enqueueing; it is lengthened until it does."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 2_000_000
+    for _ in range(6):
+        s0, s, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s0.record()
+        torch.cuda._sleep(cycles)
+        s.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e.record()
+        e.synchronize()
+        if s0.elapsed_time(s) > 1.25 * host_ms + 0.05:
+            return s.elapsed_time(e) / n
+        cycles *= 4
+    fail(f"event_ms: the host enqueued {n} calls in {host_ms:.3f} ms, "
+         f"longer than a {cycles // 4} cycle sleep")
+
+
 def device_ms(fn, kernel, n=20):
     """The device time of one call's launches of ``kernel`` (a substring of
     the CUDA kernel's name), from ``torch.profiler``'s device rows over n
     calls: the kernel alone, without the host gaps that cuda_ms's
     back-to-back calls measure when a call is shorter than its wrapper's
-    Python."""
+    Python. A session that records no device event at all (the profiler
+    does so now and then late in a long run, and then goes on doing so) is
+    run again, up to three times, and then the call is timed by event_ms
+    instead, with a line that says so; a session whose device rows lack
+    ``kernel`` fails at once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof, n)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof, n)
+        if rows:
+            break
+    else:
+        ms = event_ms(fn, n)
+        log(f"[time] {kernel}: the profiler recorded no device event in 3 "
+            f"sessions; device time {ms:.4f} ms from CUDA events behind a "
+            "queued sleep (event_ms)")
+        return ms
     ms = sum(r[0] for r in rows if kernel in r[2])
     if ms <= 0:
         fail(f"profiler: no device time for {kernel}; device rows: "
@@ -2421,82 +2600,191 @@ def _decode_inputs(dev, gen, nlayers):
     return q, k, v, m
 
 
-def _scan_inputs(dev, gen, cfg):
-    """The scan's inputs at falcon's forward shape (B = 1, S = 2048): x, B,
-    C bf16, delta f32 softplus-sized, A = -exp(log(1..n)), D = 1."""
+def _scan_inputs(dev, gen, cfg, bt=1, L=FM_FWD_SEQ):
+    """The scan's inputs at falcon's forward shape (B = 1, S = 2048; or bt
+    rows of L steps): x, B, C bf16, delta f32 softplus-sized,
+    A = -exp(log(1..n)), D = 1."""
     import torch
 
     bf = torch.bfloat16
-    L, dm, n = FM_FWD_SEQ, cfg.resolved_d_inner, cfg.ssm_state
-    x = torch.randn((1, L, dm), generator=gen, device=dev).to(bf)
+    dm, n = cfg.resolved_d_inner, cfg.ssm_state
+    x = torch.randn((bt, L, dm), generator=gen, device=dev).to(bf)
     delta = torch.nn.functional.softplus(
-        torch.randn((1, L, dm), generator=gen, device=dev) - 4)
+        torch.randn((bt, L, dm), generator=gen, device=dev) - 4)
     A = -torch.arange(1, n + 1, dtype=torch.float32,
                       device=dev).expand(dm, n).contiguous()
-    B = torch.randn((1, L, n), generator=gen, device=dev).to(bf)
-    C = torch.randn((1, L, n), generator=gen, device=dev).to(bf)
+    B = torch.randn((bt, L, n), generator=gen, device=dev).to(bf)
+    C = torch.randn((bt, L, n), generator=gen, device=dev).to(bf)
     D = torch.ones(dm, device=dev)
     return x, delta, A, B, C, D
 
 
+def _paligemma_decode_inputs(dev, gen, nlayers):
+    """q (B, 8, 1, 256) and ``nlayers`` caches k, v (B, 1, m, 256) in bf16:
+    paligemma_3b's MQA decode at musicgen's batch and cache length."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("paligemma_3b")
+    b, h, hk, d = MG_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    m = MG_PROMPT + MG_GEN
+    bf = torch.bfloat16
+    q = torch.randn((b, h, 1, d), generator=gen, device=dev).to(bf)
+    k = [torch.randn((b, hk, m, d), generator=gen, device=dev).to(bf)
+         for _ in range(nlayers)]
+    v = [torch.randn((b, hk, m, d), generator=gen, device=dev).to(bf)
+         for _ in range(nlayers)]
+    return q, k, v, m
+
+
+def decode_host_split(q, k, v, kv_len, n=2000):
+    """Host microseconds of one flash_decode call and of its pieces, each
+    run n times back to back on the host clock, as rmsnorm_host_split
+    splits rmsnorm's: the checks (what the wrapper reads before it
+    allocates), the split rule, the two torch.empty (o and the workspace),
+    the stream handle, the ctypes call refused before its launch (b = 0),
+    the ctypes call that launches both kernels; beside them SDPA's whole
+    call on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_decode, ops
+
+    b, h, _, d = q.shape
+    hk, skv = k.shape[1], k.shape[2]
+    split, nsplit = ops.decode_split(b, hk, skv)
+    lib, fn = ops._decode_entry()
+    o = torch.empty_like(q)
+    ws = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    st = _build.stream()
+    mask = (torch.arange(skv, device=q.device) < kv_len)[None, None, None]
+
+    def call(nb):
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+                  o.data_ptr(), ws.data_ptr(), nb, h, hk, skv, d, 1, kv_len,
+                  0, split, d ** -0.5, q.stride(0), q.stride(1), k.stride(0),
+                  k.stride(1), v.stride(0), v.stride(1), st)
+
+    def checks():
+        _build.on_cpu("flash_decode", q, k, v, None, None)
+        ops._window("flash_decode", None)
+        ops._decode_check("flash_decode", q, k, v, kv_len, None)
+
+    def empties():
+        torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+        torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
+                    device=q.device)
+
+    def per_call(f):
+        return _host_ms(f, n) * 1e3
+
+    if call(0) == 0:
+        fail("flash_decode: the entry point launched with b = 0")
+    return dict(
+        whole=per_call(lambda: flash_decode(q, k, v, kv_len=kv_len)),
+        checks=per_call(checks),
+        split=per_call(lambda: ops.decode_split(b, hk, skv)),
+        empty=per_call(empties),
+        stream=per_call(_build.stream),
+        ctypes=per_call(lambda: call(0)),
+        ctypes_launch=per_call(lambda: call(b)),
+        library=per_call(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask)))
+
+
+# Hopper's special-function unit: 16 MUFU.EX2 a clock per SM, at the H100
+# SXM's 1.98 GHz boost clock on 132 SMs (ssm_scan's exponentials)
+EX2_PER_S = 16 * 132 * 1.98e9
+
+
+def scan_bound(bt, L, dm, n, xbytes):
+    """(bound ms, "bytes" or "operations") of ssm_scan: x, delta, y, B, C,
+    A, D and hT once each, against its bt * L * dm * n exponentials at
+    EX2_PER_S."""
+    nbytes = (bt * L * dm * (2 * xbytes + 4) + 2 * bt * L * n * xbytes
+              + dm * n * 4 + dm * 4 + bt * dm * n * 4)
+    tb, te = nbytes / HBM_BPS, bt * L * dm * n / EX2_PER_S
+    return max(tb, te) * 1e3, "bytes" if tb >= te else "operations"
+
+
 def time_static_kernels(dev):
     """flash_decode at musicgen's decode shape (one step's 48 layers cycle
-    through 8 caches, 113 MB, so L2 does not hold them) and ssm_scan at
-    falcon's forward shape, beside their bounds, plain versions and
-    library calls."""
+    through 8 caches, 226 MB, so L2 does not hold them) and at paligemma's
+    (d = 256, g = 8; 24 caches, 113 MB), ssm_scan at falcon's forward and
+    prefill shapes, beside their bounds, plain versions and library calls,
+    with the device time alone of each and the host split of one
+    flash_decode call."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import decode_ref, flash_decode
+    from repro_torch.kernels.flash_attention import (decode_ref, decode_split,
+                                                     flash_decode)
     from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
 
     gen = torch.Generator(device=dev).manual_seed(24)
     out = {}
-    nl = 8
-    q, ks, vs, kv_len = _decode_inputs(dev, gen, nl)
-    b, h, _, d = q.shape
-    m = ks[0].shape[2]
-    it = iter(range(1 << 30))
-    mask = (torch.arange(m, device=dev) < kv_len)[None, None, None]
+    for name, nl, inputs in (("flash_decode", 8, _decode_inputs),
+                             ("flash_decode@d256", 24,
+                              _paligemma_decode_inputs)):
+        q, ks, vs, kv_len = inputs(dev, gen, nl)
+        b, h, _, d = q.shape
+        hk, m = ks[0].shape[1], ks[0].shape[2]
+        it = iter(range(1 << 30))
+        mask = (torch.arange(m, device=dev) < kv_len)[None, None, None]
+        kl_dev = torch.tensor([kv_len], dtype=torch.int32, device=dev)
 
-    def cycle(fn):
-        def run():
-            i = next(it) % nl
-            return fn(ks[i], vs[i])
-        return run
+        def cycle(fn):
+            def run():
+                i = next(it) % nl
+                return fn(ks[i], vs[i])
+            return run
 
-    out["flash_decode"] = dict(
-        ms=cuda_ms(cycle(lambda k, v: flash_decode(q, k, v, kv_len=kv_len)),
-                   iters=96),
-        plain_ms=cuda_ms(cycle(lambda k, v: decode_ref(q, k, v,
-                                                       kv_len=kv_len)),
-                         iters=24),
-        library_ms=cuda_ms(cycle(lambda k, v: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask)), iters=96),
-        library="F.scaled_dot_product_attention(attn_mask bool)",
-        shape=f"q ({b},{h},1,{d}), k/v ({b},{h},{m},{d}) bf16, "
-              f"kv_len {kv_len}")
-    out["flash_decode"].update(zip(("bound_ms", "bound_by"), bound(
-        2 * b * h * kv_len * d * 2 + 2 * b * h * d * 2,
-        4 * b * h * kv_len * d, "bfloat16")))
-    del ks, vs
+        kernel = cycle(lambda k, v: flash_decode(q, k, v, kv_len=kv_len))
+        nbytes = 2 * b * hk * kv_len * d * 2 + 2 * b * h * d * 2
+        out[name] = dict(
+            ms=cuda_ms(kernel, iters=96),
+            device_ms=device_ms(kernel, "flash_decode"),
+            ms_dev_len=cuda_ms(cycle(lambda k, v: flash_decode(
+                q, k, v, kv_len=kl_dev)), iters=96),
+            plain_ms=cuda_ms(cycle(lambda k, v: decode_ref(q, k, v,
+                                                           kv_len=kv_len)),
+                             iters=24),
+            library_ms=cuda_ms(cycle(
+                lambda k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=hk != h)), iters=96),
+            library="F.scaled_dot_product_attention(attn_mask bool)",
+            bytes=nbytes, split=decode_split(b, hk, m),
+            shape=f"q ({b},{h},1,{d}), k/v ({b},{hk},{m},{d}) bf16, "
+                  f"kv_len {kv_len}")
+        out[name].update(zip(("bound_ms", "bound_by"), bound(
+            nbytes, 4 * b * h * kv_len * d, "bfloat16")))
+        if name == "flash_decode":
+            out[name]["host_us"] = decode_host_split(q, ks[0], vs[0], kv_len)
+        del ks, vs
 
     cfg = get_config("falcon_mamba_7b")
-    args = _scan_inputs(dev, gen, cfg)
-    x, delta = args[0], args[1]
-    bt, L, dm = x.shape
-    n = cfg.ssm_state
-    out["ssm_scan"] = dict(
-        ms=cuda_ms(lambda: ssm_scan_fwd(*args), iters=10, warmup=2),
-        plain_ms=cuda_ms(lambda: selective_scan_ref(*args), iters=2,
-                         warmup=1),
-        library_ms=None, library="none: no single PyTorch call computes it",
-        shape=f"x ({bt},{L},{dm}) bf16, delta f32, B/C ({bt},{L},{n}) bf16")
-    nbytes = (bt * L * dm * (2 + 4 + 2) + 2 * bt * L * n * 2
-              + 2 * dm * n * 4 + dm * 4 + bt * dm * n * 4)
-    out["ssm_scan"].update(zip(("bound_ms", "bound_by"), bound(
-        nbytes, bt * L * dm * n * 6, "float32")))
+    for name, bt, L in (("ssm_scan", 1, FM_FWD_SEQ),
+                        ("ssm_scan@prefill", FM_BATCH, FM_PROMPT)):
+        args = _scan_inputs(dev, gen, cfg, bt, L)
+        dm, n = args[0].shape[2], cfg.ssm_state
+        out[name] = dict(
+            ms=cuda_ms(lambda: ssm_scan_fwd(*args), iters=10, warmup=2),
+            device_ms=device_ms(lambda: ssm_scan_fwd(*args), "ssm_scan",
+                                n=10),
+            plain_ms=cuda_ms(lambda: selective_scan_ref(*args), iters=2,
+                             warmup=1),
+            library_ms=None,
+            library="none: no single PyTorch call computes it",
+            exps=bt * L * dm * n,
+            shape=f"x ({bt},{L},{dm}) bf16, delta f32, B/C ({bt},{L},{n}) "
+                  "bf16")
+        out[name].update(zip(("bound_ms", "bound_by"),
+                             scan_bound(bt, L, dm, n, 2)))
+        del args
     return out
 
 
@@ -2511,7 +2799,8 @@ def time_static_kernels(dev):
 TC_LIBS = {"matmul": ("HGMMA", "UTMALDG"), "lm_head_ce": ("HGMMA", "UTMALDG"),
            "lm_head": ("HGMMA", "UTMALDG"),
            "flash_fwd": ("HGMMA", "LDGSTS"), "flash_bwd": ("HGMMA", "LDGSTS"),
-           "ring_flash": ("HGMMA", "LDGSTS"), "paged_decode": ("LDGSTS",)}
+           "ring_flash": ("HGMMA", "LDGSTS"), "paged_decode": ("LDGSTS",),
+           "flash_decode": ("LDGSTS",)}
 # (library, a name in the kernel's mangled symbol) -> the ops that kernel
 # alone must issue: the CE forward's tensor-core kernel (its epilogue's
 # name), in a library whose backward has HGMMA anyway; the ring step's
@@ -3336,7 +3625,8 @@ def log_times(times):
         f"the function's {t['bytes'] / 1e9:.4f} GB in {t['ms']:.4f} ms, "
         f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound "
         f"({HBM_BPS / 1e12:.2f} TB/s)")
-    for name in ("rmsnorm", "rmsnorm@train", "paged_decode"):
+    for name in ("rmsnorm", "rmsnorm@train", "paged_decode", "flash_decode",
+                 "flash_decode@d256"):
         t = times[name]
         log(f"[gbps] {name}: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} "
             f"GB/s of the function's {t['bytes'] / 1e9:.6f} GB in "
@@ -3347,6 +3637,27 @@ def log_times(times):
     t = times["paged_decode"]
     log(f"[paged] split-KV: {t['split'][0]} slots a block, "
         f"{t['split'][1]} ranges a (sequence, kv head)")
+    for name in ("flash_decode", "flash_decode@d256"):
+        t = times[name]
+        log(f"[decode] {name} split-KV: {t['split'][0]} slots a block, "
+            f"{t['split'][1]} ranges a (sequence, kv head); kv_len as an "
+            f"int32 device tensor {t['ms_dev_len']:.4f} ms on the call's "
+            f"clock (as an int {t['ms']:.4f})")
+    for name in ("ssm_scan", "ssm_scan@prefill"):
+        t = times[name]
+        log(f"[scan] {name}: {t['exps'] / (t['device_ms'] * 1e-3) / 1e12:.3f}"
+            f"e12 exponentials/s in the device time alone "
+            f"({t['device_ms']:.4f} ms), {100 * t['bound_ms'] / t['device_ms']:.1f}%"
+            f" of its bound ({t['bound_by']}; {EX2_PER_S / 1e12:.2f}e12 "
+            f"MUFU.EX2/s at 16 a clock per SM, 1.98 GHz, 132 SMs)")
+    u = times["flash_decode"]["host_us"]
+    log(f"[host] flash_decode {times['flash_decode']['shape']}: one call "
+        f"{u['whole']:.2f} us on the host = checks {u['checks']:.2f} + split "
+        f"rule {u['split']:.2f} + two torch.empty {u['empty']:.2f} + stream "
+        f"handle {u['stream']:.2f} + the ctypes call {u['ctypes']:.2f} + the "
+        f"two launches {u['ctypes_launch'] - u['ctypes']:.2f} + the rest "
+        f"{u['whole'] - u['checks'] - u['split'] - u['empty'] - u['stream'] - u['ctypes_launch']:.2f}"
+        f"; SDPA {u['library']:.2f} us")
     u = times["rmsnorm"]["host_us"]
     log(f"[host] rmsnorm {times['rmsnorm']['shape']}: one call "
         f"{u['whole']:.2f} us on the host = checks and route "
@@ -3421,6 +3732,7 @@ def main():
     small_f32_train_checks(dev)
     small_f32_app_checks(dev)
     small_f32_static_checks(dev)
+    small_decode_scan_checks(dev)
     small_f32_ring_checks(dev)
     small_tc_checks(dev)
 

@@ -16,11 +16,12 @@ bf16 the 16-byte copies cannot read); the tensor-core backward takes both.
 ``flash_decode`` launches
 ``csrc/flash_decode.cu`` (one-token decode against a contiguous or rotated
 rolling cache: the JAX package's ``flash_decode`` op and its
-``decode_attention`` entry) and
+``decode_attention`` entry; ``kv_len`` an int or a one-element int32 tensor
+read on the device) and
 ``paged_decode_attention`` launches ``csrc/paged_decode.cu`` (one-token
-decode through a block table, split-KV: the slots cut into ranges by
-:func:`paged_split`, a split kernel and a merge kernel from one entry
-point). ``ring_flash_fwd`` and ``ring_flash_bwd``
+decode through a block table). Both are split-KV: the slots cut into
+ranges by :func:`decode_split` (:func:`paged_split` for a block table), a
+split kernel and a merge kernel from one entry point. ``ring_flash_fwd`` and ``ring_flash_bwd``
 launch ``csrc/ring_flash.cu``: one step of ring attention (a query shard
 against one kv chunk at absolute offsets read on the device) and its
 backward; ``ring.py`` builds the ring schedule on them.
@@ -49,18 +50,20 @@ from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
                   paged_decode_ref, ring_bwd_ref, ring_fwd_ref)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "flash_delta", "flash_bwd", "flash_decode",
+           "flash_delta", "flash_bwd", "flash_decode", "decode_split",
            "paged_decode_attention", "paged_split", "ring_flash_fwd",
            "ring_flash_bwd", "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)     # flash_fwd, flash_decode, paged_decode
+_HEAD_DIMS = (32, 64, 128)     # flash_fwd, paged_decode
+_DECODE_HEAD_DIMS = (32, 64, 112, 128, 256)    # flash_decode
 # flash_bwd by route
 _BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": (32, 64)}
 # ring_flash_bwd by route (ring.py reads it): the same kernels' head dims
 RING_BWD_HEAD_DIMS = _BWD_HEAD_DIMS
 _MAX_GROUP = 16                # decode kernels: query heads per kv head
-_MAX_GROUP_DIM = 1024          # decode kernels: (query heads per kv head) * d
+_MAX_GROUP_DIM = 1024          # paged decode: (query heads per kv head) * d
+_DECODE_MAX_GROUP_DIM = 2048   # flash_decode: the same
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 _FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
@@ -69,8 +72,9 @@ _FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
 _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I),
             "flash_bwd_tc": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
                              _I)}
-_DECODE_SIG = {"flash_decode": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 6 + [_P],
+_DECODE_SIG = {"flash_decode": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 6 + [_P],
                                 _I)}
+_DECODE_ENTRY = None           # (library, its flash_decode), bound on first use
 _PAGED_SIG = {"paged_decode": ([_P] * 8 + [_I] * 8 + [_F, _L, _L, _P], _I)}
 # paged decode's split rule (csrc/paged_decode.cu: KT slots a tile, MAXL a
 # split): enough blocks for several on each of the H100's 132 SMs, since a
@@ -78,6 +82,11 @@ _PAGED_SIG = {"paged_decode": ([_P] * 8 + [_I] * 8 + [_F, _L, _L, _P], _I)}
 # (16 x 132 gives the serving path's 8 x 8 splits of 64 slots, the fastest
 # of 32-512 on the card)
 _PAGED_TILE, _PAGED_MAX_SPLIT, _PAGED_BLOCKS = 32, 512, 16 * 132
+# flash_decode's (csrc/flash_decode.cu: at most 512 slots a split): ~8 x 132
+# blocks, a power of two of at least 64 slots (tools/ab_decode_scan.py
+# --splits on the H100: musicgen's 8 x 24 x 576 ran fastest at 128 and 256,
+# paligemma's 8 x 1 x 576 at 64; 96 and 192 ran slower than 128)
+_DECODE_BLOCKS, _DECODE_MIN_SPLIT, _DECODE_MAX_SPLIT = 8 * 132, 64, 512
 _RING_SIG = {
     "ring_flash_fwd": ([_P] * 7 + [_I] * 10 + [_F] + [_L] * 9 + [_P], _I),
     "ring_flash_fwd_tc": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
@@ -129,12 +138,11 @@ def _check_gqa(name, q, k, v):
                          "(GQA needs H a multiple of Hk)")
 
 
-def _check_group(name, h, hk, d):
-    if h % hk or h // hk > _MAX_GROUP or (h // hk) * d > _MAX_GROUP_DIM:
+def _check_group(name, h, hk, d, max_gd=_MAX_GROUP_DIM):
+    if h % hk or h // hk > _MAX_GROUP or (h // hk) * d > max_gd:
         raise ValueError(f"{name}: {h} query heads over {hk} kv heads at "
                          f"head dim {d}; the kernel takes groups of at most "
-                         f"{_MAX_GROUP} heads with group * d <= "
-                         f"{_MAX_GROUP_DIM}")
+                         f"{_MAX_GROUP} heads with group * d <= {max_gd}")
 
 
 def _grad_asked(*ts):
@@ -351,15 +359,15 @@ def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
 
 
 def _decode_check(name, q, k, v, kv_len, slot_pos):
-    """The wrapper's checks for flash_decode on the card; returns kv_len."""
-    _check_qkv(name, q, k, v)
+    """The wrapper's checks for flash_decode on the card."""
+    _check_qkv(name, q, k, v, _DECODE_HEAD_DIMS)
     _check_gqa(name, q, k, v)
     b, h, one, d = q.shape
     _, hk, skv, _ = k.shape
     if one != 1:
         raise ValueError(f"{name}: expected one query token, got q "
                          f"{tuple(q.shape)}")
-    _check_group(name, h, hk, d)
+    _check_group(name, h, hk, d, _DECODE_MAX_GROUP_DIM)
     for t, n in ((k, "k"), (v, "v")):
         if (t.stride(-2) != d or t.data_ptr() % 16
                 or (t.stride(0) * t.element_size()) % 16
@@ -372,41 +380,79 @@ def _decode_check(name, q, k, v, kv_len, slot_pos):
         raise ValueError(f"{name}: slot_pos must be contiguous int32 "
                          f"({skv},), got {tuple(slot_pos.shape)} "
                          f"{slot_pos.dtype}")
-    return skv if kv_len is None else int(kv_len)
+    if torch.is_tensor(kv_len) and (kv_len.numel() != 1
+                                    or kv_len.dtype != torch.int32):
+        raise ValueError(f"{name}: a kv_len tensor must be one int32 "
+                         f"element, got {tuple(kv_len.shape)} {kv_len.dtype}")
+
+
+def _decode_entry():
+    global _DECODE_ENTRY
+    if _DECODE_ENTRY is None:
+        lib = load("flash_decode", _DECODE_SIG)
+        _DECODE_ENTRY = (lib, lib.flash_decode)
+    return _DECODE_ENTRY
 
 
 def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
                  sm_scale=None):
     """q (B, H, 1, D) against a contiguous cache k, v (B, Hk, S, D) ->
-    (B, H, 1, D) in q's dtype. ``kv_len`` (an int, default S) puts the
-    query at position kv_len - 1; ``slot_pos`` ((S,) int32, -1 = empty)
-    holds each slot's absolute position (rotated rolling-window caches;
-    omitted, slot i holds position i). A slot is visible when 0 <= pos <=
-    kv_len - 1 and kv_len - 1 - pos < ``window``; a row that sees no slot
-    gives 0 (:func:`decode_ref`)."""
+    (B, H, 1, D) in q's dtype. ``kv_len`` (default S) puts the query at
+    position kv_len - 1: an int, or a one-element int32 tensor on q's
+    device, as the JAX op takes a traced scalar, which the kernel reads on
+    the device (the wrapper never reads it on the host). ``slot_pos``
+    ((S,) int32, -1 = empty) holds each slot's absolute position (rotated
+    rolling-window caches; omitted, slot i holds position i). A slot is
+    visible when 0 <= pos <= kv_len - 1 and kv_len - 1 - pos < ``window``;
+    a row that sees no slot gives 0 (:func:`decode_ref`). On the card the
+    kernel splits the slots by :func:`decode_split` and merges the splits'
+    partials (:func:`decode_split_ref` is its plain model). Head dims 32,
+    64, 112, 128 and 256, groups of up to 16 query heads with group * d <=
+    2048."""
     name = "flash_decode"
-    if on_cpu(name, q, k, v, slot_pos):
+    dev_len = torch.is_tensor(kv_len)
+    if on_cpu(name, q, k, v, slot_pos, kv_len if dev_len else None):
         return decode_ref(q, k, v, window=window, sm_scale=sm_scale,
                           kv_len=kv_len, slot_pos=slot_pos)
     win = _window(name, window)
-    n = _decode_check(name, q, k, v, kv_len, slot_pos)
+    _decode_check(name, q, k, v, kv_len, slot_pos)
     b, h, _, d = q.shape
-    _, hk, skv, _ = k.shape
-    if sm_scale is None:
-        sm_scale = 1.0 / d ** 0.5
+    hk, skv = k.shape[1], k.shape[2]
+    split, nsplit = decode_split(b, hk, skv)
     o = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
-    lib = load("flash_decode", _DECODE_SIG)
-    sp = ptr(slot_pos) if slot_pos is not None else None
-    err = lib.flash_decode(ptr(q), ptr(k), ptr(v), sp, ptr(o), b, h, hk, skv,
-                           d, _DTYPE_CODE[q.dtype], n, win, float(sm_scale),
-                           q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                           v.stride(0), v.stride(1), stream())
-    check(lib, err, name)
+    ws = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    lib, fn = _decode_entry()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if slot_pos is None else slot_pos.data_ptr(),
+             kv_len.data_ptr() if dev_len else None, o.data_ptr(),
+             ws.data_ptr(), b, h, hk, skv, d, _DTYPE_CODE[q.dtype],
+             0 if dev_len else skv if kv_len is None else int(kv_len), win,
+             split, d ** -0.5 if sm_scale is None else sm_scale,
+             q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
+             v.stride(1), stream())
+    if err:
+        check(lib, err, name)
     flash_decode.launches += 1
     return o
 
 
 flash_decode.launches = 0
+
+
+@functools.lru_cache(maxsize=64)
+def decode_split(b, hk, skv):
+    """(split, nsplit) of flash_decode over ``skv`` slots of each
+    (sequence, kv head): each block takes ``split`` consecutive slots, a
+    power of two in [64, 512], and the slots make ``nsplit`` ranges. Read
+    from the shapes alone (never from ``kv_len``, which may stay on the
+    device): ~8 x 132 blocks in all, since the ranges past the query exit
+    at once. The workspace holds ``b * h * nsplit * (d + 2)`` f32: (m, l)
+    and ``acc[d]`` for each query head of each range."""
+    want = -(-_DECODE_BLOCKS // (b * hk))
+    split = max(-(-skv // want), _DECODE_MIN_SPLIT)
+    split = min(1 << (split - 1).bit_length(), _DECODE_MAX_SPLIT)
+    return split, -(-skv // split)
 
 
 @functools.lru_cache(maxsize=64)

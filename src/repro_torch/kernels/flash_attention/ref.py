@@ -12,8 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["mha_ref", "flash_fwd_ref", "decode_ref", "paged_decode_ref",
-           "paged_decode_split_ref",
+__all__ = ["mha_ref", "flash_fwd_ref", "decode_ref", "decode_split_ref",
+           "paged_decode_ref", "paged_decode_split_ref",
            "flash_delta_ref", "flash_bwd_ref", "rolling_slot_pos",
            "ring_step_ref", "ring_fwd_ref", "ring_bwd_ref",
            "ring_bwd_tc_ref"]
@@ -97,8 +97,10 @@ def decode_ref(q, k, v, *, window=None, sm_scale=None, kv_len=None,
                slot_pos=None):
     """One query token per (batch, head): q (B, H, 1, D) against a
     contiguous cache k (B, Hk, S, D), v (B, Hk, S, Dv) -> (B, H, 1, Dv) in
-    q's dtype. The query sits at position ``kv_len - 1`` (``kv_len`` an int;
-    default: the newest slot position, or S without ``slot_pos``). ``slot_pos`` ((S,) int32, -1 = empty) gives each slot's
+    q's dtype. The query sits at position ``kv_len - 1`` (``kv_len`` an int
+    or a one-element int tensor, read where it lies; default: the newest
+    slot position, or S without ``slot_pos``). ``slot_pos`` ((S,) int32,
+    -1 = empty) gives each slot's
     absolute position, so rotated rolling-window caches mask correctly;
     omitted, slot i holds position i. A slot is visible when 0 <= pos <=
     q_pos and q_pos - pos < window; a row that sees no slot gives 0."""
@@ -112,8 +114,8 @@ def decode_ref(q, k, v, *, window=None, sm_scale=None, kv_len=None,
         sp = torch.arange(m, device=q.device)
     else:
         sp = slot_pos.reshape(-1).long()
-    q_pos = (int(kv_len) if kv_len is not None
-             else int(sp.max()) + 1 if slot_pos is not None else m) - 1
+    q_pos = (_offset(kv_len) - 1 if kv_len is not None
+             else sp.max() if slot_pos is not None else m - 1)
     mask = (sp >= 0) & (sp <= q_pos)
     if window is not None:
         mask &= (q_pos - sp) < window
@@ -121,6 +123,75 @@ def decode_ref(q, k, v, *, window=None, sm_scale=None, kv_len=None,
     s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * sm_scale
     o, _ = _softmax_av(s, mask, v[:, :, None])
     return o.reshape(b, h, 1, dv).to(q.dtype)
+
+
+def _split_merge(q, kb, vb, mask, split, sm_scale, dtype):
+    """The split kernels' arithmetic: q (b, hk, g, d) against kb, vb
+    (b, hk, cap, d) f32 under mask (b, nsplit, split), the slots padded to
+    nsplit * split; f32 partials (m, l, acc) per range, merged by their
+    maxima. -> (b, hk * g, 1, d) in ``dtype``."""
+    b, hk, g, d = q.shape
+    cap = kb.shape[2]
+    nsplit = mask.shape[1]
+    pad = nsplit * split - cap
+    kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
+    vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
+    kb = kb.reshape(b, hk, 1, nsplit, split, d)
+    vb = vb.reshape(b, hk, 1, nsplit, split, d)
+    qg = q.reshape(b, hk, g, 1, 1, d).float()
+    s = (qg * kb).sum(-1) * sm_scale                # (b, hk, g, nsplit, split)
+    mk = mask[:, None, None]
+    s = s.masked_fill(~mk, float("-inf"))
+    m = s.amax(-1)                                  # (b, hk, g, nsplit)
+    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+    p = p.masked_fill(~mk, 0.0)
+    l = p.sum(-1)
+    vb = torch.where(mk[..., None], vb, 0.0)        # a masked v adds 0
+    acc = (p[..., None] * vb).sum(-2)               # (b, hk, g, nsplit, d)
+    big = m.amax(-1, keepdim=True)
+    wgt = torch.exp(m - torch.where(big == float("-inf"), 0.0, big))
+    wgt = wgt.masked_fill(m == float("-inf"), 0.0)
+    den = (wgt * l).sum(-1)
+    num = (wgt[..., None] * acc).sum(-2)
+    o = torch.where(den[..., None] > 0, num / torch.where(
+        den > 0, den, 1.0)[..., None], 0.0)
+    return o.reshape(b, hk * g, 1, d).to(dtype)
+
+
+def decode_split_ref(q, k, v, *, split, kv_len=None, slot_pos=None,
+                     window=None, sm_scale=None):
+    """The split-KV form of :func:`decode_ref` that ``csrc/flash_decode.cu``
+    computes: the S slots of each (sequence, kv head) are cut into ranges
+    of ``split``; while the cache is unwrapped (q_pos < S, so slot i holds
+    position i or nothing) a range wholly past q_pos or wholly below the
+    window is skipped, as the TPU kernel skips whole blocks, and once
+    wrapped every range runs; each range gives f32 partials over its live
+    slots (m = max score, l = sum of exp(s - m), acc = sum of exp(s - m) v,
+    p kept in f32), a range with no live slot is empty (m = -inf, l = 0), a
+    masked slot adds nothing, whatever its k and v hold; the partials merge
+    as sum exp(m_s - M) acc_s / sum exp(m_s - M) l_s, and a query that sees
+    no slot gives exactly 0. ``kv_len`` defaults to S."""
+    b, h, _, d = q.shape
+    hk, m = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    sp = (torch.arange(m, device=q.device) if slot_pos is None
+          else slot_pos.reshape(-1).long())
+    q_pos = _offset(m if kv_len is None else kv_len) - 1
+    mask = (sp >= 0) & (sp <= q_pos)
+    if window is not None:
+        mask &= (q_pos - sp) < window
+    nsplit = -(-m // split)
+    start = torch.arange(nsplit, device=q.device) * split
+    last = torch.clamp(start + split, max=m) - 1       # each range's last slot
+    live = start <= q_pos
+    if window is not None:
+        live &= (q_pos - last) < window
+    live |= torch.as_tensor(q_pos >= m, device=q.device)
+    mask = torch.nn.functional.pad(mask, (0, nsplit * split - m))
+    mask = (mask.reshape(nsplit, split) & live[:, None]).expand(b, -1, -1)
+    return _split_merge(q.reshape(b, hk, h // hk, d), k.float(), v.float(),
+                        mask, split, sm_scale, q.dtype)
 
 
 def paged_decode_ref(q, k_pages, v_pages, *, block_table, kv_len=None,
@@ -175,13 +246,11 @@ def paged_decode_split_ref(q, k_pages, v_pages, *, block_table, kv_len,
     slot gives exactly 0."""
     b, h, _, d = q.shape
     _, hk, page, _ = k_pages.shape
-    g = h // hk
     if sm_scale is None:
         sm_scale = 1.0 / d ** 0.5
     tab = block_table.reshape(b, -1).long()
     cap = tab.shape[1] * page
     nsplit = -(-cap // split)
-    pad = nsplit * split - cap
     kb = k_pages[tab].transpose(1, 2).reshape(b, hk, cap, d).float()
     vb = v_pages[tab].transpose(1, 2).reshape(b, hk, cap, d).float()
     sp = pos_pages.long()[tab].reshape(b, cap)
@@ -189,30 +258,10 @@ def paged_decode_split_ref(q, k_pages, v_pages, *, block_table, kv_len,
     mask = (sp >= 0) & (sp <= q_pos)
     start = torch.arange(nsplit, device=q.device) * split
     live = (q_pos >= cap) | (start[None, :] <= q_pos)         # (b, nsplit)
-    mask = torch.nn.functional.pad(mask, (0, pad)).reshape(b, nsplit, split)
-    mask &= live[:, :, None]
-    kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
-    vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
-    kb = kb.reshape(b, hk, 1, nsplit, split, d)
-    vb = vb.reshape(b, hk, 1, nsplit, split, d)
-    qg = q.reshape(b, hk, g, 1, 1, d).float()
-    s = (qg * kb).sum(-1) * sm_scale                # (b, hk, g, nsplit, split)
-    mk = mask[:, None, None]
-    s = s.masked_fill(~mk, float("-inf"))
-    m = s.amax(-1)                                  # (b, hk, g, nsplit)
-    p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
-    p = p.masked_fill(~mk, 0.0)
-    l = p.sum(-1)
-    vb = torch.where(mk[..., None], vb, 0.0)        # a masked v adds 0
-    acc = (p[..., None] * vb).sum(-2)               # (b, hk, g, nsplit, d)
-    big = m.amax(-1, keepdim=True)
-    wgt = torch.exp(m - torch.where(big == float("-inf"), 0.0, big))
-    wgt = wgt.masked_fill(m == float("-inf"), 0.0)
-    den = (wgt * l).sum(-1)
-    num = (wgt[..., None] * acc).sum(-2)
-    o = torch.where(den[..., None] > 0, num / torch.where(
-        den > 0, den, 1.0)[..., None], 0.0)
-    return o.reshape(b, h, 1, d).to(q.dtype)
+    mask = torch.nn.functional.pad(mask, (0, nsplit * split - cap))
+    mask = mask.reshape(b, nsplit, split) & live[:, :, None]
+    return _split_merge(q.reshape(b, hk, h // hk, d), kb, vb, mask, split,
+                        sm_scale, q.dtype)
 
 
 def flash_delta_ref(do, o):

@@ -407,8 +407,12 @@ def test_flash_decode_kernel(dev, skv, kv_len, window, t, g, d, dtype):
 
 def test_flash_decode_rejects_what_it_cannot_take(dev):
     k = _rnd(dev, 1, 1, 8, 128)
+    k256 = _rnd(dev, 1, 1, 8, 256)
     with pytest.raises(ValueError, match="group"):
-        flash_decode(_rnd(dev, 1, 16, 1, 128), k, k)       # g * d > 1024
+        flash_decode(_rnd(dev, 1, 16, 1, 256), k256, k256)  # g * d > 2048
+    with pytest.raises(ValueError, match="group"):
+        flash_decode(_rnd(dev, 1, 32, 1, 32), k[..., :32].contiguous(),
+                     k[..., :32].contiguous())             # g > 16
     k48 = _rnd(dev, 1, 1, 8, 48)
     with pytest.raises(ValueError, match="head dims"):
         flash_decode(_rnd(dev, 1, 2, 1, 48), k48, k48)
@@ -1375,3 +1379,108 @@ def test_paged_decode_takes_unaligned_pools(dev):
     qs = _misaligned(q.transpose(1, 2).contiguous()).transpose(1, 2)
     want = paged_decode_attention(q, kp, vp, **kw)
     assert torch.equal(paged_decode_attention(qs, ko, vo, **kw), want)
+
+
+# ---------------------------------------------------------------------------
+# the split-KV flash_decode and the time-parallel ssm_scan
+# ---------------------------------------------------------------------------
+
+DECODE_SPLIT_CASES = [  # b, hk, g, d, skv, kv_len, window, rotated after t
+    (3, 1, 8, 256, 200, 150, None, None),
+    (2, 2, 8, 256, 96, 500, 96, 500),
+    (3, 2, 4, 112, 200, 130, None, None),
+    (2, 4, 1, 112, 64, 100, 40, 100),
+    (2, 2, 4, 64, 1000, 40, None, None),
+    (2, 2, 4, 64, 1000, 900, 50, None),
+    (1, 3, 16, 128, 300, 300, None, None),
+]
+
+
+@pytest.mark.parametrize("split", [None, 32, 64, 512])
+@pytest.mark.parametrize("case", DECODE_SPLIT_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_kernel(dev, monkeypatch, case, split, dtype):
+    """d 256 (g 8, and g * d = 2048) and 112, ranges wholly past q_pos or
+    below the window, wrapped rotated caches, each split length forced (None:
+    the rule's), against decode_ref; kv_len as a device tensor gives the
+    int's bits; one launch counted a call."""
+    from repro_torch.kernels.flash_attention import ops
+
+    if split is not None:
+        monkeypatch.setattr(ops, "decode_split",
+                            lambda b, hk, skv: (split, -(-skv // split)))
+    b, hk, g, d, skv, kv_len, window, t = case
+    q = _rnd(dev, b, 1, hk * g, d).transpose(1, 2).to(dtype)
+    k = _rnd(dev, b, hk, skv, d, seed=1).to(dtype)
+    v = _rnd(dev, b, hk, skv, d, seed=2).to(dtype)
+    sp = None if t is None else rolling_slot_pos(skv, t).to(dev)
+    kw = dict(window=window, slot_pos=sp)
+    ref = decode_ref(q, k, v, kv_len=kv_len, **kw)
+    reset_launches()
+    o = flash_decode(q, k, v, kv_len=kv_len, **kw)
+    assert flash_decode.launches == 1
+    torch.testing.assert_close(o, ref, **_tol(dtype, ref))
+    kl = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    assert torch.equal(flash_decode(q, k, v, kv_len=kl, **kw), o)
+
+
+def test_flash_decode_masked_slots_and_empty_rows(dev):
+    """NaN in masked k and v slots changes no bit; a row with no live slot
+    (kv_len 0 as a tensor, or every slot empty) gives exactly 0."""
+    bf = torch.bfloat16
+    q = _rnd(dev, 2, 4, 1, 64).to(bf)
+    k, v = _rnd(dev, 2, 2, 64, 64, seed=1).to(bf), _rnd(dev, 2, 2, 64, 64,
+                                                          seed=2).to(bf)
+    for sp in (None, rolling_slot_pos(64, 40).to(dev)):
+        want = flash_decode(q, k, v, kv_len=40, slot_pos=sp, window=64)
+        kn, vn = k.clone(), v.clone()
+        kn[:, :, [45, 63]] = float("nan")
+        vn[:, :, [45, 63]] = float("nan")
+        assert torch.equal(flash_decode(q, kn, vn, kv_len=40, slot_pos=sp,
+                                        window=64), want)
+    k = _rnd(dev, 2, 2, 70, 256)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    assert (flash_decode(_rnd(dev, 2, 16, 1, 256), k, k, kv_len=zero)
+            == 0).all()
+    empty = torch.full((70,), -1, dtype=torch.int32, device=dev)
+    assert (flash_decode(_rnd(dev, 2, 16, 1, 256), k, k, kv_len=30,
+                         slot_pos=empty) == 0).all()
+
+
+@pytest.mark.parametrize("bt,L,dm", [(1, 2048, 8192), (4, 512, 8192)])
+def test_ssm_scan_kernel_at_falcon_shapes(dev, bt, L, dm):
+    """falcon_mamba_7b's forward (1 x 2048) and prefill (4 x 512) at its
+    d_inner 8192 and state 16: bf16 x, B, C, f32 delta, against the plain
+    version (y one bf16 rounding, 1e-2 and 2^-7; hT 1e-3 of its largest
+    magnitude)."""
+    bf = torch.bfloat16
+    x = _rnd(dev, bt, L, dm).to(bf)
+    delta = torch.nn.functional.softplus(_rnd(dev, bt, L, dm, seed=1) - 4)
+    A = -torch.arange(1, 17, dtype=torch.float32, device=dev).expand(
+        dm, 16).contiguous()
+    B = _rnd(dev, bt, L, 16, seed=2).to(bf)
+    C = _rnd(dev, bt, L, 16, seed=3).to(bf)
+    D = torch.ones(dm, device=dev)
+    y, hT = ssm_scan_fwd(x, delta, A, B, C, D)
+    ry, rhT = selective_scan_ref(x, delta, A, B, C, D)
+    torch.testing.assert_close(y, ry, atol=1e-2, rtol=2 ** -7)
+    scale = float(rhT.abs().max())
+    torch.testing.assert_close(hT, rhT, atol=1e-3 * scale, rtol=1e-3)
+
+
+@pytest.mark.parametrize("bt,L,dm,n", [(2, 129, 17, 4), (1, 300, 40, 8),
+                                       (1, 128, 32, 16), (2, 1, 5, 16),
+                                       (1, 1000, 33, 16)])
+def test_ssm_scan_kernel_off_its_tile(dev, bt, L, dm, n):
+    """L and dm off the kernel's 128-step, 32-channel tile, n 4/8/16, with
+    and without h0, in f32 (TOL)."""
+    x = _rnd(dev, bt, L, dm)
+    delta = torch.nn.functional.softplus(_rnd(dev, bt, L, dm, seed=1)) * 0.1
+    A = -(_rnd(dev, dm, n, seed=2).abs() + 0.1)
+    B, C = _rnd(dev, bt, L, n, seed=3), _rnd(dev, bt, L, n, seed=4)
+    D, h0 = _rnd(dev, dm, seed=5), _rnd(dev, bt, dm, n, seed=6)
+    for h in (h0, None):
+        y, hT = ssm_scan_fwd(x, delta, A, B, C, D, h0=h)
+        ry, rhT = selective_scan_ref(x, delta, A, B, C, D, h0=h)
+        torch.testing.assert_close(y, ry, **TOL)
+        torch.testing.assert_close(hT, rhT, **TOL)
