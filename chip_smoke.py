@@ -970,7 +970,7 @@ def event_ms(fn, n=20):
          f"longer than a {cycles // 4} cycle sleep")
 
 
-def device_ms(fn, kernel, n=20):
+def device_ms(fn, kernel, n=20, launches=None):
     """The device time of one call's launches of ``kernel`` (a substring of
     the CUDA kernel's name), from ``torch.profiler``'s device rows over n
     calls: the kernel alone, without the host gaps that cuda_ms's
@@ -979,8 +979,12 @@ def device_ms(fn, kernel, n=20):
     does so now and then late in a long run, and then goes on doing so) is
     run again, up to three times, and then the call is timed by event_ms
     instead, with a line that says so; a session whose device rows lack
-    ``kernel`` fails at once."""
+    ``kernel`` fails at once. Given ``launches`` (the kernel's launches a
+    call), a session that recorded fewer than launches * n of them is not
+    trusted either: the call is timed by event_ms, with a line that says
+    how many the profiler saw."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1004,6 +1008,16 @@ def device_ms(fn, kernel, n=20):
     if ms <= 0:
         fail(f"profiler: no device time for {kernel}; device rows: "
              f"{[r[2][:120] for r in rows]}")
+    if launches is not None:
+        seen = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and kernel in e.key)
+        if seen != launches * n:
+            ev = event_ms(fn, n)
+            log(f"[time] {kernel}: the profiler recorded {seen} of the "
+                f"{launches * n} launches ({ms:.4f} ms a call from them); "
+                f"device time {ev:.4f} ms from CUDA events behind a queued "
+                "sleep (event_ms)")
+            return ev
     return ms
 
 
@@ -1808,7 +1822,8 @@ def small_f32_app_checks(dev):
     shapes: FD with h != w, neither a multiple of the tile, r in {1, 2, 4}
     (tolerance 2e-5); SEM with E not a multiple of eb, nq in {2, 5, 8}, and
     DG with N in {1, 3, 5}, E not a multiple of eb (2e-4 of max|ref|: f32
-    contractions summed in another order)."""
+    contractions summed in another order). Then the two routes of each
+    redesigned kernel (small_fd2d_route_checks, small_dg_volume_checks)."""
     import torch
 
     from repro_torch.apps.numerics import fd_second_derivative_weights
@@ -1854,7 +1869,92 @@ def small_f32_app_checks(dev):
         check_rel(f"dg_surface f32 N={n} E={E} eb={eb}",
                   dg_surface(qm, qp, nrm, lift, eb=eb),
                   surface_ref(qm, qp, nrm, lift), 2e-4)
+    small_fd2d_route_checks(rnd)
+    small_dg_volume_checks(rnd)
     torch.cuda.synchronize()
+
+
+def check_routes(what, wrapper, want):
+    """``wrapper.routes`` since the last reset_launches is exactly want."""
+    if dict(wrapper.routes) != want:
+        fail(f"{what}: routes {dict(wrapper.routes)}, expected {want}")
+
+
+def small_fd2d_route_checks(rnd):
+    """fd2d at every r 1..8 on fields whose tiles' windows wrap on each
+    side: on the "vec" route (w and bw multiples of 4), within 2e-5 of the
+    plain version and bit-equal to fd2d_stream_ref (the kernel's own chain
+    of f32 roundings) and to the "scalar" route on a copy one float off
+    alignment; fields with w % 4 != 0 and a field narrower than the
+    stencil on the "scalar" route. Every launch's route is counted."""
+    import torch
+
+    from repro_torch.apps.numerics import fd_second_derivative_weights
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.apps import fd2d, fd2d_ref, fd2d_stream_ref
+
+    reset_launches()
+    nvec = nscalar = 0
+    for r in range(1, 9):
+        wts = tuple(float(x) for x in fd_second_derivative_weights(r))
+        for h, w, block in ((40 + r, 64, (16, 32)), (21 + r, 61 + 2 * r,
+                                                     (8, 20)),
+                            (2 * r + 1, 12, (0, 0)), (5, 3 + r, (4, 0))):
+            u1, u2 = rnd(h, w), rnd(h, w)
+            dx = 2.0 / w
+            dt = 0.3 * dx / 2 ** 0.5
+            tag = f"fd2d f32 ({h},{w}) r={r} tile {block}"
+            got = fd2d(u1, u2, weights=wts, dx=dx, dt=dt, block=block)
+            check_close(tag, got, fd2d_ref(u1, u2, wts, dx, dt), atol=2e-5,
+                        rtol=2e-5, quiet=True)
+            vec = w % 4 == 0 and min(block[1] or w, w) % 4 == 0
+            nvec, nscalar = nvec + vec, nscalar + (not vec)
+            if not torch.equal(got, fd2d_stream_ref(u1, u2, wts, dx, dt)):
+                fail(f"{tag}: not bit-equal to fd2d_stream_ref")
+            if vec:
+                other = fd2d(_unaligned(u1), u2, weights=wts, dx=dx, dt=dt,
+                             block=block)
+                nscalar += 1
+                if not torch.equal(got, other):
+                    fail(f"{tag}: the vec and scalar routes differ")
+    check_routes("fd2d route checks", fd2d, {"vec": nvec, "scalar": nscalar})
+    log(f"[check] fd2d r = 1..8, windows wrapping on each side: {nvec} vec "
+        f"and {nscalar} scalar launches, each within 2e-5 of the plain "
+        "version and bit-equal to fd2d_stream_ref; vec == scalar on the "
+        "same values")
+
+
+def small_dg_volume_checks(rnd):
+    """dg_volume at N = 1..8 (np 3..45; N = 8 on the generic instance, and
+    np = 4 too), E not a multiple of eb, eb = 1 and eb past a chunk of 128
+    elements (at N = 7 and 8 a chunk smaller still, to fit shared memory), q one float off alignment, against volume_ref within 2e-4 of
+    max|ref| and volume_folded_ref (the kernel's order) within 2e-5;
+    every launch's instance counted."""
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.apps import (dg_volume, volume_folded_ref,
+                                          volume_ref)
+
+    reset_launches()
+    want = {"templated": 0, "generic": 0}
+    cases = [(n, E, eb) for n in range(1, 9)
+             for E, eb in ((37, 8), (13, 1), (300, 200))]
+    for n, E, eb in cases + [(None, 29, 4)]:
+        np_ = 4 if n is None else (n + 1) * (n + 2) // 2
+        q = 0.1 * rnd(E, np_, 3)
+        q[..., 0] += 1.5
+        args = (q, rnd(E, 4), rnd(E, np_, 2), rnd(np_, np_), rnd(np_, np_))
+        for qq in (q, _unaligned(q)):
+            got = dg_volume(qq, *args[1:], eb=eb)
+            want["templated" if n is not None and n <= 7 else "generic"] += 1
+            tag = f"dg_volume f32 np={np_} E={E} eb={eb}" + (
+                "" if qq is q else " (q off alignment)")
+            check_rel(tag, got, volume_ref(*args), 2e-4, quiet=True)
+            check_rel(tag + " vs the folded model", got,
+                      volume_folded_ref(*args), 2e-5, quiet=True)
+    check_routes("dg_volume checks", dg_volume, want)
+    log(f"[check] dg_volume N = 1..8 and np = 4, ragged E, eb 1..200, q "
+        f"aligned and not: {want}, each within 2e-4 of volume_ref and 2e-5 "
+        "of volume_folded_ref")
 
 
 def _host_ms(fn, n, warmup=0):
@@ -1903,7 +2003,9 @@ def apps_main_path(dev):
         f"{1e3 * wall / FD_STEPS:.4f} ms/step, "
         f"{n2 * FD_STEPS / wall / 1e6:.1f} MNodes/s, "
         f"{fd_flops_per_step(FD_SIZE, FD_SIZE, FD_RADIUS) * FD_STEPS / wall / 1e9:.1f}"
-        f" GFLOP/s; max|u - analytic| {err:.3e} (setup {setup_s:.1f}s)")
+        f" GFLOP/s; max|u - analytic| {err:.3e} (setup {setup_s:.1f}s; the "
+        "window-staging kernel read 0.5072 ms/step, 132310 MNodes/s on an "
+        "H100 80GB HBM3 at 700 W)")
     if not err < 5e-2:
         fail(f"FD wave at full size diverged: max|err| {err:.3e}")
     apps.fd_wave(size=256, steps=200, log=log)
@@ -1949,6 +2051,11 @@ def apps_main_path(dev):
         if counts[name] != want:
             fail(f"kernel {name} launched {counts[name]} times on the apps "
                  f"path, expected {want}")
+    from repro_torch.kernels.apps import dg_volume, fd2d
+    check_routes("fd2d on the apps path", fd2d,
+                 {"vec": expected["fd2d"], "scalar": 0})
+    check_routes("dg_volume on the apps path", dg_volume,
+                 {"templated": expected["dg_volume"], "generic": 0})
     return counts, dict(fd=fd, op=op, u_loc=u_loc, u_glob=u_glob, swe=swe)
 
 
@@ -2005,6 +2112,10 @@ def profile_swe_step(sol, Q, dt, nsteps=5):
     for ms, n, key in rows[:12]:
         log(f"[profile swe]   {ms:8.4f} ms/step  {n:4d} calls/step  "
             f"{key[:90]}")
+    vol = sum(r[0] for r in rows if "dg_volume_kernel" in r[2])
+    log(f"[profile swe] dg_volume {vol:.4f} ms of the {step_ms:.4f} ms step "
+        f"({100 * vol / step_ms:.1f}%; the unfolded kernel read 0.3965 of "
+        "3.33 ms on an H100 80GB HBM3 at 700 W)")
     return step_ms, busy_ms
 
 
@@ -2165,6 +2276,56 @@ def full_size_app_checks(state):
     return errs
 
 
+def dg_volume_host_split(q, geom, db, dr, ds, *, eb, n=200):
+    """Host microseconds of one dg_volume call on the main path's inputs and
+    of its pieces, each run n times back to back on the host clock, as
+    rmsnorm_host_split splits rmsnorm's: the checks and route (what the
+    wrapper reads before it allocates), torch.empty, the stream handle,
+    the ctypes call refused before its launch (E = 0), the ctypes call
+    that launches. n stays small enough that the launches never fill the
+    card's queue, where the host would wait for the kernels and time
+    them instead of itself."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apps import dg as dg_ops
+    from repro_torch.kernels.apps import dg_volume
+
+    E, np_ = q.shape[0], q.shape[1]
+    lib, fn = dg_ops._volume_entry()
+    o = torch.empty_like(q)
+    ptrs = [t.data_ptr() for t in (q, geom, db, dr, ds, o)]
+    st = _build.stream()
+
+    def checks():
+        dg_ops.app_on_cpu("dg_volume", q, geom, db, dr, ds)
+        path = dg_ops.volume_route(np_)
+        dg_ops._check_eb("dg_volume", E, eb,
+                         dg_ops._volume_smem(np_, eb, path == "generic"))
+        return (tuple(q.shape), tuple(geom.shape), tuple(db.shape),
+                tuple(dr.shape), tuple(ds.shape))
+
+    def per_call(f):                 # the host's time, the card's queue not waited on
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f()
+        dt = (time.perf_counter() - t0) * 1e6 / n
+        torch.cuda.synchronize()
+        return dt
+
+    if fn(1, *ptrs, 0, np_, eb, dg_ops.GRAV, st) == 0:
+        fail("dg_volume: the entry point launched with E = 0")
+    return dict(
+        whole=per_call(lambda: dg_volume(q, geom, db, dr, ds, eb=eb)),
+        checks=per_call(checks),
+        empty=per_call(lambda: torch.empty_like(q)),
+        stream=per_call(_build.stream),
+        ctypes=per_call(lambda: fn(1, *ptrs, 0, np_, eb, dg_ops.GRAV, st)),
+        ctypes_launch=per_call(
+            lambda: fn(1, *ptrs, E, np_, eb, dg_ops.GRAV, st)))
+
+
 def time_app_kernels(state):
     """{kernel: dict(ms, plain_ms, bound_ms, bound_by, library_ms)} for the
     app kernels at the main path's shapes (f32)."""
@@ -2198,13 +2359,17 @@ def time_app_kernels(state):
         pad = F.pad(u1[None, None], (r, r, r, r), mode="circular")
         return 2.0 * u1 - u2 + scale * F.conv2d(pad, cross)[0, 0]
 
+    def kernel_fd():
+        return fd2d(u1, u2, weights=wts, dx=dx, dt=dt, block=block, out=u3)
+
     out["fd2d"] = dict(
-        ms=cuda_ms(lambda: fd2d(u1, u2, weights=wts, dx=dx, dt=dt,
-                                block=block, out=u3), 50),
+        ms=cuda_ms(kernel_fd, 50),
+        device_ms=device_ms(kernel_fd, "fd2d_rows_kernel", launches=1),
         plain_ms=cuda_ms(lambda: fd2d_ref(u1, u2, wts, dx, dt), 5, 1),
         library_ms=cuda_ms(library_fd, 10),
         library="F.conv2d of the circular-padded field with the cross "
                 "filter (cuDNN, TF32 off) + the update",
+        bytes=3 * h * w * 4,
         shape=f"u1/u2/u3 ({h},{w}) f32, r={r}, tile {block}")
     out["fd2d"].update(zip(("bound_ms", "bound_by"), bound(
         3 * h * w * 4, fd_flops_per_step(w, h, r), "float32")))
@@ -2225,8 +2390,12 @@ def time_app_kernels(state):
     E, np_ = args[0].shape[0], args[0].shape[1]
     out["dg_volume"] = dict(
         ms=cuda_ms(lambda: dg_volume(*args, eb=eb), 50),
+        device_ms=device_ms(lambda: dg_volume(*args, eb=eb),
+                            "dg_volume_kernel", launches=1),
         plain_ms=cuda_ms(lambda: volume_ref(*args), 10),
         library_ms=None, library=none,
+        bytes=dg_bytes_per_element(np_, 4) * E,
+        host_us=dg_volume_host_split(*args, eb=eb),
         shape=f"q ({E},{np_},3), geom ({E},4), db ({E},{np_},2) f32, "
               f"eb={eb}")
     out["dg_volume"].update(zip(("bound_ms", "bound_by"), bound(
@@ -2795,12 +2964,13 @@ def time_static_kernels(dev):
 
 # library -> the SASS ops its tensor-core kernels must issue: wgmma (HGMMA)
 # everywhere; TMA tensor loads (UTMALDG) in the GEMM mainloop's libraries,
-# cp.async copies (LDGSTS) in the attention kernels'
+# cp.async copies (LDGSTS) in the attention kernels' and the app kernels'
 TC_LIBS = {"matmul": ("HGMMA", "UTMALDG"), "lm_head_ce": ("HGMMA", "UTMALDG"),
            "lm_head": ("HGMMA", "UTMALDG"),
            "flash_fwd": ("HGMMA", "LDGSTS"), "flash_bwd": ("HGMMA", "LDGSTS"),
            "ring_flash": ("HGMMA", "LDGSTS"), "paged_decode": ("LDGSTS",),
-           "flash_decode": ("LDGSTS",)}
+           "flash_decode": ("LDGSTS",), "fd2d": ("LDGSTS",),
+           "dg": ("LDGSTS",)}
 # (library, a name in the kernel's mangled symbol) -> the ops that kernel
 # alone must issue: the CE forward's tensor-core kernel (its epilogue's
 # name), in a library whose backward has HGMMA anyway; the ring step's
@@ -3650,6 +3820,22 @@ def log_times(times):
             f"({t['device_ms']:.4f} ms), {100 * t['bound_ms'] / t['device_ms']:.1f}%"
             f" of its bound ({t['bound_by']}; {EX2_PER_S / 1e12:.2f}e12 "
             f"MUFU.EX2/s at 16 a clock per SM, 1.98 GHz, 132 SMs)")
+    for name in ("fd2d", "dg_volume"):
+        t = times[name]
+        log(f"[gbps] {name}: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} "
+            f"GB/s of the function's {t['bytes'] / 1e9:.6f} GB in "
+            f"{t['ms']:.4f} ms on the call's clock, "
+            f"{t['bytes'] / (t['device_ms'] * 1e-3) / 1e9:.1f} GB/s in the "
+            f"device time alone ({t['device_ms']:.4f} ms), "
+            f"{100 * t['bound_ms'] / t['device_ms']:.1f}% of its bound")
+    u = times["dg_volume"]["host_us"]
+    log(f"[host] dg_volume {times['dg_volume']['shape']}: one call "
+        f"{u['whole']:.2f} us on the host = checks and route "
+        f"{u['checks']:.2f} + torch.empty {u['empty']:.2f} + stream handle "
+        f"{u['stream']:.2f} + the ctypes call {u['ctypes']:.2f} + the launch "
+        f"{u['ctypes_launch'] - u['ctypes']:.2f} + the rest "
+        f"{u['whole'] - u['checks'] - u['empty'] - u['stream'] - u['ctypes_launch']:.2f}"
+        f"; the kernel's device time {1e3 * times['dg_volume']['device_ms']:.2f} us")
     u = times["flash_decode"]["host_us"]
     log(f"[host] flash_decode {times['flash_decode']['shape']}: one call "
         f"{u['whole']:.2f} us on the host = checks {u['checks']:.2f} + split "

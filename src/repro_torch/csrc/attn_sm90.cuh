@@ -43,6 +43,10 @@ using sm90::smem_u32;
 using sm90::wgmma_commit;
 using sm90::wgmma_fence;
 using sm90::wgmma_wait;
+using repro::cp16;       // the cp.async copies live in common.cuh
+using repro::cp4;
+using repro::cp_commit;
+using repro::cp_wait;
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -63,33 +67,6 @@ struct Tile {
   static constexpr int BOX = ROWS * 128;       // bytes of one 64-column box
   static constexpr int BYTES = (DP / 64) * BOX;
 };
-
-// ---------------------------------------------------------------------------
-// copies
-// ---------------------------------------------------------------------------
-
-// 16 bytes from global to shared memory; nothing read and zeros written
-// when !ok (src must still be a valid address).
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // make this thread's completed cp.async writes visible to wgmma's (async
 // proxy) reads; a barrier after it publishes every thread's

@@ -71,6 +71,33 @@ template <> struct Vec16<__nv_bfloat16> {
   }
 };
 
+// ---------------------------------------------------------------------------
+// cp.async copies (global -> shared), completed by cp_commit / cp_wait groups
+// ---------------------------------------------------------------------------
+
+// 16 bytes from global to shared memory; nothing read and zeros written
+// when !ok (src must still be a valid address).
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace repro
 
 extern "C" const char* kernel_error_string(int code) {

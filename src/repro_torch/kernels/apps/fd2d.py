@@ -6,6 +6,14 @@ on CUDA tensors, the plain version on the CPU (the counterpart of
 ``u3 = 2 u1 - u2 + dt^2 (u_xx + u_yy)`` on the periodic (h, w) f32 field,
 with the order-2r central stencil ``weights``. ``out=`` writes into a
 preallocated tensor (FDWave's swap chain), so a step allocates nothing.
+
+The kernel streams rows: a block walks its (bh, bw) tile top to bottom,
+u1's rows arriving in a shared ring. It has two routes of one source,
+picked up front by :func:`route` and counted in ``fd2d.routes``:
+``"vec"`` (16-byte copies and accesses) when the width and the tile's
+width are multiples of 4 floats and the three bases are 16-byte aligned,
+``"scalar"`` (4-byte ones) otherwise. Both give every output the same
+chain of f32 roundings, :func:`fd2d_stream_ref`'s.
 """
 
 from __future__ import annotations
@@ -14,15 +22,45 @@ import ctypes
 
 import torch
 
-from .._build import check, load, ptr, stream
+from .._build import check, load, stream
 from ._common import SMEM_MAX, app_on_cpu
 
-__all__ = ["fd2d", "fd2d_ref", "DEFAULT_BLOCK", "MAX_RADIUS"]
+__all__ = ["fd2d", "fd2d_ref", "fd2d_stream_ref", "route", "DEFAULT_BLOCK",
+           "MAX_RADIUS"]
 
 DEFAULT_BLOCK = (32, 256)  # (bh, bw): the JAX op's defaults
 MAX_RADIUS = 8
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIG = {"fd2d": ([_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _I, _P], _I)}
+_SIG = {"fd2d": ([_I] + [_P] * 3 + [_I] * 3 + [_P, _F, _F, _I, _I, _P], _I)}
+_STAGES, _MAX_NT = 4, 256   # csrc/fd2d.cu: rows in flight, threads a block
+_ENTRY = None               # (library, its fd2d function), bound on first use
+
+
+def _smem(r, bw):
+    """Shared bytes of a block of the kernel for radius r and a tile bw
+    columns wide: u1's ring of r + 1 + 4 rows, each a strip of 4 columns a
+    thread plus r halo columns a side rounded up to 4, and u2's of 5 rows
+    of the strip."""
+    nt = min(_MAX_NT, (bw + 127) // 128 * 32)     # a thread per 4 columns
+    return 4 * ((r + 1 + _STAGES) * (4 * nt + 2 * ((r + 3) & ~3))
+                + (_STAGES + 1) * 4 * nt)
+
+
+def route(u1, u2, out, bw) -> str:
+    """The route a CUDA call launches: ``"vec"`` when the width and the
+    tile's width ``bw`` are multiples of 4 floats and u1, u2 and out start
+    16-byte aligned, ``"scalar"`` otherwise."""
+    ok = (u1.shape[1] % 4 == 0 and bw % 4 == 0
+          and all(t.data_ptr() % 16 == 0 for t in (u1, u2, out)))
+    return "vec" if ok else "scalar"
+
+
+def _entry():
+    global _ENTRY
+    if _ENTRY is None:
+        lib = load("fd2d", _SIG)
+        _ENTRY = (lib, lib.fd2d)
+    return _ENTRY
 
 
 def fd2d_ref(u1, u2, weights, dx, dt):
@@ -35,6 +73,24 @@ def fd2d_ref(u1, u2, weights, dx, dt):
         lap = lap + wk * (torch.roll(u1, -k, 0) + torch.roll(u1, -k, 1))
     lap = lap / (dx * dx)
     return 2.0 * u1 - u2 + dt * dt * lap
+
+
+def fd2d_stream_ref(u1, u2, weights, dx, dt):
+    """Plain model of the kernel's arithmetic, for the tests: f32 with a
+    rounding after every operation, per k the vertical term and then the
+    horizontal one, lap times 1/dx^2 and dt^2 each rounded to f32 (as the
+    wrapper passes them). On the same f32 values the kernel gives these
+    bits on either route."""
+    f32 = torch.float32
+    inv_dx2 = float(torch.tensor(1.0 / (dx * dx), dtype=f32))
+    dt2 = float(torch.tensor(dt * dt, dtype=f32))
+    lap = torch.zeros_like(u1)
+    r = (len(weights) - 1) // 2
+    for k in range(-r, r + 1):
+        wk = float(torch.tensor(weights[k + r], dtype=f32))
+        lap = lap + wk * torch.roll(u1, -k, 0)       # vertical
+        lap = lap + wk * torch.roll(u1, -k, 1)       # horizontal
+    return (2.0 * u1 - u2) + dt2 * (lap * inv_dx2)
 
 
 def fd2d(u1, u2, *, weights, dx, dt, block=DEFAULT_BLOCK, out=None):
@@ -60,7 +116,7 @@ def fd2d(u1, u2, *, weights, dx, dt, block=DEFAULT_BLOCK, out=None):
                             f", out {tuple(out.shape)} too"))
     h, w = u1.shape
     bh, bw = min(block[0] or h, h), min(block[1] or w, w)
-    smem = 4 * (bh + 2 * r) * (bw + 2 * r)
+    smem = _smem(r, bw)
     if bh < 1 or bw < 1 or smem > SMEM_MAX:
         raise ValueError(f"{name}: tile ({bh}, {bw}) with radius {r} needs "
                          f"{smem} B of shared memory (at most {SMEM_MAX})")
@@ -68,13 +124,17 @@ def fd2d(u1, u2, *, weights, dx, dt, block=DEFAULT_BLOCK, out=None):
         out = torch.empty_like(u1)
     elif out.data_ptr() == u1.data_ptr():
         raise ValueError(f"{name}: out must not alias u1")
-    lib = load("fd2d", _SIG)
+    path = route(u1, u2, out, bw)
+    lib, fn = _entry()
     wts = (ctypes.c_float * len(weights))(*weights)
-    err = lib.fd2d(ptr(u1), ptr(u2), ptr(out), h, w, r, wts,
-                   1.0 / (dx * dx), dt * dt, bh, bw, stream())
-    check(lib, err, name)
+    err = fn(path == "vec", u1.data_ptr(), u2.data_ptr(), out.data_ptr(), h,
+             w, r, wts, 1.0 / (dx * dx), dt * dt, bh, bw, stream())
+    if err:
+        check(lib, err, name)
     fd2d.launches += 1
+    fd2d.routes[path] += 1
     return out
 
 
 fd2d.launches = 0
+fd2d.routes = {"vec": 0, "scalar": 0}

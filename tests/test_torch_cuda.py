@@ -1484,3 +1484,84 @@ def test_ssm_scan_kernel_off_its_tile(dev, bt, L, dm, n):
         ry, rhT = selective_scan_ref(x, delta, A, B, C, D, h0=h)
         torch.testing.assert_close(y, ry, **TOL)
         torch.testing.assert_close(hT, rhT, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the row-streaming fd2d and the folded dg_volume: routes and instances
+# ---------------------------------------------------------------------------
+
+def _off(t, lead=1):
+    """A contiguous copy of t starting ``lead`` floats past t's alignment."""
+    buf = torch.empty(t.numel() + lead, dtype=t.dtype, device=t.device)
+    out = buf[lead:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("r", range(1, 9))
+def test_fd2d_routes_at_every_radius(dev, r):
+    """At each r the windows of the edge tiles wrap on every side (and the
+    (2r + 1)-row and 5-row fields are narrower than the stencil): the "vec"
+    route where w and bw are multiples of 4, the "scalar" one for w % 4 !=
+    0, a tile width of 18 and bases one to three floats off alignment;
+    every output within 2e-5 of fd2d_ref, bit-equal to fd2d_stream_ref,
+    and the two routes bit-equal on the same values; each launch's route
+    counted."""
+    from repro_torch.kernels.apps import fd2d_stream_ref
+
+    wts = tuple(float(x) for x in fd_second_derivative_weights(r))
+    reset_launches()
+    want = {"vec": 0, "scalar": 0}
+    for i, (h, w, block) in enumerate(((40 + r, 64, (16, 32)),
+                                       (21 + r, 61 + 2 * r, (8, 20)),
+                                       (2 * r + 1, 12, (0, 0)),
+                                       (5, 44, (4, 0)),
+                                       (30, 72, (7, 18)),
+                                       (64, 1100, (16, 0)))):
+        u1, u2 = _rnd(dev, h, w, seed=i), _rnd(dev, h, w, seed=i + 10)
+        dx = 2.0 / w
+        dt = 0.3 * dx / 2 ** 0.5
+        bw = min(block[1] or w, w)
+        route = "vec" if w % 4 == 0 and bw % 4 == 0 else "scalar"
+        got = fd2d(u1, u2, weights=wts, dx=dx, dt=dt, block=block)
+        want[route] += 1
+        torch.testing.assert_close(got, fd2d_ref(u1, u2, wts, dx, dt),
+                                   atol=2e-5, rtol=2e-5)
+        assert torch.equal(got, fd2d_stream_ref(u1, u2, wts, dx, dt))
+        for lead, which in ((1, 0), (2, 1), (3, 2)):
+            ins = [u1, u2, torch.empty_like(u1)]
+            ins[which] = _off(ins[which], lead)
+            other = fd2d(ins[0], ins[1], weights=wts, dx=dx, dt=dt,
+                         block=block, out=ins[2])
+            want["scalar"] += 1
+            assert torch.equal(other, got)
+    assert dict(fd2d.routes) == want and fd2d.launches == sum(want.values())
+
+
+@pytest.mark.parametrize("n", range(1, 9))
+def test_dg_volume_instances(dev, n):
+    """N = 1..7 on their templated instances, N = 8 (np 45) on the generic
+    one, at E not a multiple of eb, eb = 1 and eb past one chunk of 128
+    elements (at N = 7 and 8 a smaller chunk still, to fit shared memory),
+    q and out's runs off 16-byte alignment: within APP_REL of volume_ref (as test_dg_kernels) and 2e-5
+    of volume_folded_ref; each launch's instance counted."""
+    from repro_torch.kernels.apps import volume_folded_ref
+
+    np_ = (n + 1) * (n + 2) // 2
+    reset_launches()
+    calls = 0
+    for E, eb in ((37, 8), (13, 1), (300, 200), (5, 64)):
+        q = 0.1 * _rnd(dev, E, np_, 3)
+        q[..., 0] += 1.5
+        args = (q, _rnd(dev, E, 4, seed=1), _rnd(dev, E, np_, 2, seed=2),
+                _rnd(dev, np_, np_, seed=3), _rnd(dev, np_, np_, seed=4))
+        ref = volume_ref(*args)
+        for qq in (q, _off(q, 1), _off(q, 3)):
+            got = dg_volume(qq, *args[1:], eb=eb)
+            calls += 1
+            _close_rel(got, ref, APP_REL)
+            _close_rel(got, volume_folded_ref(*args), 2e-5)
+    route = "templated" if n <= 7 else "generic"
+    assert dict(dg_volume.routes) == {"templated": 0, "generic": 0,
+                                      route: calls}
+    assert dg_volume.launches == calls
