@@ -13,15 +13,14 @@ blocked matmul op, and times each kernel.
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build: one nvcc per CUDA source, all in parallel (each kernel's
-   registers and spills printed), plus the Triton flash-delta kernel; the
-   SASS of the matmul, CE-head and decode-head libraries must hold HGMMA
+   registers and spills printed); the SASS of the matmul, CE-head and decode-head libraries must hold HGMMA
    (wgmma) and UTMALDG (TMA loads), the CE forward's own tensor-core kernel
    HGMMA, that of the flash_fwd, flash_bwd and ring_flash libraries HGMMA
    and LDGSTS (cp.async), the ring step forward's own tensor-core kernel
    too, those of paged_decode and flash_decode LDGSTS;
 2. kernels vs plain versions on the card: f32 at small shapes (tolerance
    1e-4; the app kernels at ragged shapes, 2e-5 for FD and 2e-4 of
-   max|ref| for SEM/DG; flash_decode on positional and rotated caches,
+   max|ref| for SEM/DG, SEM on both routes; flash_decode on positional and rotated caches,
    with kv_len as a device tensor and as an int (identical bits), at
    d = 256 with g = 8 and d = 112, with ranges wholly past q_pos or below
    the window, wrapped caches, NaN in masked slots, rows with no live slot
@@ -42,8 +41,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
-   DG kernels also on the apps path's own state, both versions against the
-   f64 result within the f32 rounding bound of their summed terms);
+   DG kernels and SEM also on the apps path's own state, both versions
+   against the f64 result within the f32 rounding bound of their summed
+   terms);
 3. llama3_2_1b at full width with 2 layers in f32, one set of weights on
    the card (kernels) and on the CPU (plain versions): prefill logits and
    the first 8 greedy tokens must agree; the training loss and every
@@ -68,7 +68,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    3 steps). Launch counts are zeroed just before and read just after;
    every training kernel (and rmsnorm, flash_fwd) must have launched, the
    bf16 CE forward and backward, flash_fwd and flash_bwd on their
-   tensor-core routes every time, every loss be
+   tensor-core routes every time, flash_delta on its 16-byte vector route
+   every time, every loss be
    finite, and the latest checkpoint must restore bit-equal to the
    parameters and optimizer state saved;
 7. where the training time goes: the host's enqueue time (until
@@ -81,7 +82,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    PyTorch call computes the function), flash_fwd and rmsnorm also at the
    train step's shape, flash_decode also at paligemma's d = 256, g = 8 and
    ssm_scan at falcon's prefill shape; the device time alone of flash_fwd,
-   rmsnorm, paged decode, flash_decode and ssm_scan, their GB/s (the
+   rmsnorm, paged decode, flash_decode, ssm_scan, flash_delta and the app
+   kernels fd2d, sem_apply and dg_volume, their GB/s (the
    scan's exponentials/s), and the host cost of the pieces of one rmsnorm
    and one flash_decode call; the decode head, the CE forward, flash_bwd and the ring step
    forward also on their CUDA-core kernels on the same inputs (a copy 2
@@ -89,7 +91,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    held to the full-width limits; the tensor-core kernels' TFLOP/s, the
    decode head's GB/s;
 9. the apps path, launch counts zeroed just before and read just after,
-   each app kernel launched exactly as often as its calls say: ``FDWave``
+   each app kernel launched exactly as often as its calls say (sem_apply
+   on its templated instance every time): ``FDWave``
    on 8192^2 at radius 4 for 200 steps (MNodes/s, analytic error) and
    ``launch.apps.fd_wave`` at the example's settings (error < 5e-2); the
    SEM operator on 32^3 elements of N = 7 (``apply_local`` and
@@ -157,8 +160,7 @@ KERNEL_INFO = {
                    "src/repro/kernels/lm_head/kernel.py:64"),
     "lm_head_bwd": ("cuda", "src/repro_torch/csrc/lm_head_ce.cu",
                     "src/repro/kernels/lm_head/kernel.py:185"),
-    "flash_delta": ("triton",
-                    "src/repro_torch/kernels/flash_attention/delta.py",
+    "flash_delta": ("cuda", "src/repro_torch/csrc/flash_delta.cu",
                     "src/repro/kernels/flash_attention/kernel.py:180"),
     "flash_bwd": ("cuda", "src/repro_torch/csrc/flash_bwd.cu",
                   "src/repro/kernels/flash_attention/kernel.py:210"),
@@ -1456,7 +1458,7 @@ def train_main_path(cfg):
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_bwd)
+                                                     flash_bwd, flash_delta)
     from repro_torch.kernels.lm_head import lm_head_bwd, lm_head_ce
     from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
@@ -1491,6 +1493,7 @@ def train_main_path(cfg):
         fwd_routes = dict(flash_attention_fwd.routes)
         ce_routes = dict(lm_head_ce.routes)
         fbwd_routes = dict(flash_bwd.routes)
+        delta_routes = dict(flash_delta.routes)
     finally:
         train_mod.train_step = step_fn
     hist = out["history"]
@@ -1509,6 +1512,9 @@ def train_main_path(cfg):
                     counts["lm_head_ce"])
     check_tc_routes("training path: flash_bwd", fbwd_routes,
                     counts["flash_bwd"])
+    if delta_routes != {"vec": counts["flash_delta"], "scalar": 0}:
+        fail(f"training path: flash_delta routes {delta_routes}; every "
+             "launch must take the 16-byte vector route")
 
     # the latest checkpoint (step 6) restores bit-equal into a fresh tree
     t0 = time.perf_counter()
@@ -1768,11 +1774,17 @@ def time_train_kernels(dev, cfg, embed):
     with torch.no_grad():
         o, lse = flash_attention_fwd(q, k, v, causal=True)
     delta = flash_delta(do, o)
+    reset_launches()
+    delta_ms = cuda_ms(lambda: flash_delta(do, o), 100)
+    check_routes("timed flash_delta", flash_delta, {"vec": 103, "scalar": 0})
     out["flash_delta"] = dict(
-        ms=cuda_ms(lambda: flash_delta(do, o), 100),
+        ms=delta_ms,
+        device_ms=device_ms(lambda: flash_delta(do, o), "delta_vec_kernel",
+                            launches=1),
         plain_ms=cuda_ms(lambda: flash_delta_ref(do, o), 100),
         library_ms=cuda_ms(lambda: (do * o).sum(-1), 100),
         library="(do * o).sum(-1) in bf16",
+        bytes=2 * b * h * s * hd * 2 + b * h * s * 4,
         shape=f"do (strided), o ({b},{h},{s},{hd}) bf16")
     out["flash_delta"].update(zip(("bound_ms", "bound_by"), bound(
         2 * b * h * s * hd * 2 + b * h * s * 4, 2 * b * h * s * hd,
@@ -1820,7 +1832,8 @@ def time_train_kernels(dev, cfg, embed):
 def small_f32_app_checks(dev):
     """The app kernels against their plain versions in f32 at small ragged
     shapes: FD with h != w, neither a multiple of the tile, r in {1, 2, 4}
-    (tolerance 2e-5); SEM with E not a multiple of eb, nq in {2, 5, 8}, and
+    (tolerance 2e-5); SEM with E not a multiple of eb, nq in {2, 5, 8} (the
+    templated instances) and 11 (the generic kernel), and
     DG with N in {1, 3, 5}, E not a multiple of eb (2e-4 of max|ref|: f32
     contractions summed in another order). Then the two routes of each
     redesigned kernel (small_fd2d_route_checks, small_dg_volume_checks)."""
@@ -1845,7 +1858,8 @@ def small_f32_app_checks(dev):
         check_close(f"fd2d f32 ({h},{w}) r={r} tile {block}",
                     fd2d(u1, u2, weights=wts, dx=dx, dt=dt, block=block),
                     fd2d_ref(u1, u2, wts, dx, dt), atol=2e-5, rtol=2e-5)
-    for E, nq, eb in ((7, 2, 4), (13, 5, 4), (37, 8, 32), (70, 8, 32)):
+    for E, nq, eb in ((7, 2, 4), (13, 5, 4), (37, 8, 32), (70, 8, 32),
+                      (9, 11, 2)):
         u, geo, dmat = rnd(E, nq, nq, nq), rnd(E, 7, nq, nq, nq), rnd(nq, nq)
         check_rel(f"sem_apply f32 E={E} nq={nq} eb={eb}",
                   sem_apply(u, geo, dmat, eb=eb), apply_ref(u, geo, dmat),
@@ -2051,7 +2065,9 @@ def apps_main_path(dev):
         if counts[name] != want:
             fail(f"kernel {name} launched {counts[name]} times on the apps "
                  f"path, expected {want}")
-    from repro_torch.kernels.apps import dg_volume, fd2d
+    from repro_torch.kernels.apps import dg_volume, fd2d, sem_apply
+    check_routes("sem_apply on the apps path", sem_apply,
+                 {"templated": expected["sem_apply"], "generic": 0})
     check_routes("fd2d on the apps path", fd2d,
                  {"vec": expected["fd2d"], "scalar": 0})
     check_routes("dg_volume on the apps path", dg_volume,
@@ -2084,7 +2100,9 @@ def sem_global_breakdown(op, u_glob):
         index_put_=cuda_ms(lambda: zeros().index_put_((gid,), flat,
                                                       accumulate=True), 10))
     log(f"[sem] apply_global (E={op.E}, N={op.n}) on CUDA events: "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()))
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        + " (the parent kernel read 0.4722 ms, apply_global 0.7706, on an "
+        "H100 80GB HBM3 at 700 W)")
     return parts
 
 
@@ -2227,7 +2245,8 @@ def full_size_app_checks(state):
     (|ref| < 4) is the cancelling sum of terms near 1e5 (rx ~ 256 times Dr
     F), so there both the kernel and the plain version are held against
     the plain version in f64, within the f32 rounding bound of the summed
-    |terms| (``check_rounding``)."""
+    |terms| (``check_rounding``); so is sem_apply on the main path's field,
+    its summed |terms| apply_ref of the absolute values."""
     import torch
 
     from repro_torch.kernels.apps import (GRAV, apply_ref, dg_surface,
@@ -2256,6 +2275,14 @@ def full_size_app_checks(state):
                                    surface_ref(*args), 2e-4)
 
     m = _app_inputs(state)
+    u, geo, dmat, eb = m["sem"]
+    nq = u.shape[1]
+    a64 = [t.double() for t in (u, geo, dmat)]
+    check_rounding(f"sem_apply {tuple(u.shape)} (main path state)",
+                   dict(kernel=sem_apply(u, geo, dmat, eb=eb),
+                        plain=apply_ref(u, geo, dmat)),
+                   apply_ref(*a64), apply_ref(*(t.abs() for t in a64)),
+                   (2 * nq + 16) * 2.0 ** -24)
     *args, eb = m["vol"]
     np_ = args[0].shape[1]
     a64 = [t.double() for t in args]
@@ -2339,6 +2366,7 @@ def time_app_kernels(state):
     from repro_torch.apps.fd2d import fd_flops_per_step
     from repro_torch.apps.sem import (sem_bytes_per_element,
                                       sem_flops_per_element)
+    from repro_torch.kernels import reset_launches
     from repro_torch.kernels.apps import (apply_ref, dg_surface, dg_volume,
                                           fd2d, fd2d_ref, sem_apply,
                                           surface_ref, volume_ref)
@@ -2377,10 +2405,17 @@ def time_app_kernels(state):
     none = "none: no single PyTorch call computes it"
     u, geo, dmat, eb = a["sem"]
     E, nq = u.shape[0], u.shape[1]
+    reset_launches()
+    sem_ms = cuda_ms(lambda: sem_apply(u, geo, dmat, eb=eb), 20)
+    check_routes("timed sem_apply", sem_apply,
+                 {"templated": 23, "generic": 0})
     out["sem_apply"] = dict(
-        ms=cuda_ms(lambda: sem_apply(u, geo, dmat, eb=eb), 20),
+        ms=sem_ms,
+        device_ms=device_ms(lambda: sem_apply(u, geo, dmat, eb=eb),
+                            "sem_templated_kernel", launches=1),
         plain_ms=cuda_ms(lambda: apply_ref(u, geo, dmat), 5, 1),
         library_ms=None, library=none,
+        bytes=sem_bytes_per_element(nq, 4) * E,
         shape=f"u ({E},{nq},{nq},{nq}), geo ({E},7,...) f32, eb={eb}")
     out["sem_apply"].update(zip(("bound_ms", "bound_by"), bound(
         sem_bytes_per_element(nq, 4) * E, sem_flops_per_element(nq) * E,
@@ -3820,7 +3855,7 @@ def log_times(times):
             f"({t['device_ms']:.4f} ms), {100 * t['bound_ms'] / t['device_ms']:.1f}%"
             f" of its bound ({t['bound_by']}; {EX2_PER_S / 1e12:.2f}e12 "
             f"MUFU.EX2/s at 16 a clock per SM, 1.98 GHz, 132 SMs)")
-    for name in ("fd2d", "dg_volume"):
+    for name in ("fd2d", "sem_apply", "dg_volume", "flash_delta"):
         t = times[name]
         log(f"[gbps] {name}: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} "
             f"GB/s of the function's {t['bytes'] / 1e9:.6f} GB in "
@@ -3885,7 +3920,6 @@ def main():
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import delta as delta_kernel
     from repro_torch.models import LM
 
     card = subprocess.run(
@@ -3908,7 +3942,6 @@ def main():
                 spill = line.strip()
             elif "registers" in line or "error" in line:
                 log(f"[nvcc {name}] {fn}: {line.strip()}; {spill}")
-    delta_kernel.build()
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f}s")
     tc_sass_check()

@@ -8,8 +8,10 @@ kernels: :func:`reset_launches` zeroes them, :func:`launch_counts` reads
 them. A wrapper with two kernels (``matmul``, ``lm_head_logits``,
 ``lm_head_ce``, ``lm_head_bwd``, ``flash_attention_fwd``, ``flash_bwd``,
 ``ring_flash_fwd``, ``ring_flash_bwd``: a tensor-core and a CUDA-core
-route; ``rmsnorm`` and ``fd2d``: a 16-byte-vector and a narrower variant;
-``dg_volume``: an instance per np of N = 1..7 and a generic one) also
+route; ``rmsnorm``, ``fd2d`` and ``flash_delta``: a 16-byte-vector and a
+narrower variant; ``dg_volume``: an instance per np of N = 1..7 and a
+generic one; ``sem_apply``: an instance per nq of N = 1..9 and a generic
+one) also
 counts its launches by route in ``wrapper.routes``, which
 :func:`reset_launches` zeroes too.
 """

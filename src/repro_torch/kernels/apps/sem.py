@@ -6,6 +6,12 @@ counterpart of ``repro.kernels.apps.ops.sem_apply``).
 dofs: ``u`` (E, nq, nq, nq), ``geo`` (E, 7, nq, nq, nq) the symmetric
 geometric factors and lumped mass, ``dmat`` (nq, nq) the 1-D GLL
 derivative matrix; all f32.
+
+On the card the kernel has an instance for each nq of N = 1..9 (nq
+2..10: thread (b, c) of an element owns its column in registers, several
+elements side by side, the next element's loads in flight while one
+computes) and a generic one for any other nq <= 24, picked up front by
+:func:`sem_route` and counted in ``sem_apply.routes``.
 """
 
 from __future__ import annotations
@@ -14,17 +20,39 @@ import ctypes
 
 import torch
 
-from .._build import check, load, ptr, stream
+from .._build import check, load, stream
 from ._common import app_on_cpu
 
-__all__ = ["sem_apply", "apply_ref", "DEFAULT_EB", "MAX_NQ"]
+__all__ = ["sem_apply", "apply_ref", "sem_route", "DEFAULT_EB", "MAX_NQ",
+           "TEMPLATED_NQ"]
 
-DEFAULT_EB = 32  # elements per block: the JAX op's default
-# csrc/sem.cu's limit: (nq^2 + 4 nq^3) * 4 B of shared memory fits the
-# 227 KB a block can have up to nq = 24
+# elements per block: the fastest of 8..128 on the H100 at the SEM app's
+# E = 32768 (by 0.5%) and at the PCG solve's E = 512 (3.5x eb = 32, whose
+# 16 blocks leave most SMs idle); tools/ab_sem_delta.py --ebs. The JAX
+# op's default is 32.
+DEFAULT_EB = 8
+# csrc/sem.cu's limit: the generic kernel's (nq^2 + 4 nq^3) * 4 B of shared
+# memory fits the 227 KB a block can have up to nq = 24
 MAX_NQ = 24
+# csrc/sem.cu: the nq of the templated instances (N = 1..9)
+TEMPLATED_NQ = tuple(range(2, 11))
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = {"sem_apply": ([_P] * 4 + [_I] * 3 + [_P], _I)}
+_SIG = {"sem_apply": ([_I] + [_P] * 4 + [_I] * 3 + [_P], _I)}
+_ENTRY = None   # (library, its sem_apply function), bound on first use
+
+
+def sem_route(nq) -> str:
+    """``"templated"`` for nq 2..10 (an instance with the element's columns
+    in registers, loops unrolled), ``"generic"`` for any other nq."""
+    return "templated" if nq in TEMPLATED_NQ else "generic"
+
+
+def _entry():
+    global _ENTRY
+    if _ENTRY is None:
+        lib = load("sem", _SIG)
+        _ENTRY = (lib, lib.sem_apply)
+    return _ENTRY
 
 
 def apply_ref(u, geo, dmat):
@@ -59,13 +87,17 @@ def sem_apply(u, geo, dmat, *, eb=DEFAULT_EB):
     if E < 1 or eb < 1 or not 1 <= nq <= MAX_NQ:
         raise ValueError(f"{name}: E={E}, eb={eb}, nq={nq}: need E, eb >= 1 "
                          f"and nq <= {MAX_NQ}")
+    path = sem_route(nq)
     out = torch.empty_like(u)
-    lib = load("sem", _SIG)
-    err = lib.sem_apply(ptr(u), ptr(geo), ptr(dmat), ptr(out), E, nq, int(eb),
-                        stream())
-    check(lib, err, name)
+    lib, fn = _entry()
+    err = fn(path == "templated", u.data_ptr(), geo.data_ptr(),
+             dmat.data_ptr(), out.data_ptr(), E, nq, int(eb), stream())
+    if err:
+        check(lib, err, name)
     sem_apply.launches += 1
+    sem_apply.routes[path] += 1
     return out
 
 
 sem_apply.launches = 0
+sem_apply.routes = {"templated": 0, "generic": 0}

@@ -5,7 +5,7 @@ on the CPU (counterparts of ``repro.kernels.flash_attention.ops``).
 lse; causal and/or a sliding window). ``flash_attention`` is the
 differentiable op: a ``torch.autograd.Function`` whose forward is
 ``flash_attention_fwd`` and whose backward (``flash_attention_bwd``) runs
-``flash_delta`` (Triton, ``delta.py``) and then ``flash_bwd``
+``flash_delta`` (``csrc/flash_delta.cu``) and then ``flash_bwd``
 (``csrc/flash_bwd.cu``), as the JAX op's ``_bwd`` runs the delta and fused
 backward kernels. Both devices go through the same Function; on the CPU
 each step is its plain version. On the card the backward's CUDA-core
@@ -34,7 +34,9 @@ by :func:`route` (dtype and layout alone, never after a failure):
 cp.async into swizzled shared memory, products on wgmma; the two forwards
 share one kernel, ``csrc/attn_fwd_sm90.cuh``, and the two backwards theirs,
 ``csrc/attn_bwd_sm90.cuh``), or ``"simt"``, the CUDA-core kernel.
-``wrapper.routes`` counts the launches by route.
+``wrapper.routes`` counts the launches by route. ``flash_delta`` picks
+``"vec"`` (16-byte loads) or ``"scalar"`` by the same kind of rule,
+``flash_delta.route``.
 """
 
 from __future__ import annotations
@@ -45,7 +47,6 @@ import functools
 import torch
 
 from .._build import check, load, on_cpu, ptr, stream
-from . import delta as delta_kernel
 from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
                   paged_decode_ref, ring_bwd_ref, ring_fwd_ref)
 
@@ -55,6 +56,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "ring_flash_bwd", "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VEC_ELEMS = (4, 8)            # elements a 16-byte vector, by dtype code
 _HEAD_DIMS = (32, 64, 128)     # flash_fwd, paged_decode
 _DECODE_HEAD_DIMS = (32, 64, 112, 128, 256)    # flash_decode
 # flash_bwd by route
@@ -75,6 +77,9 @@ _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I),
 _DECODE_SIG = {"flash_decode": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 6 + [_P],
                                 _I)}
 _DECODE_ENTRY = None           # (library, its flash_decode), bound on first use
+_DELTA_SIG = {"flash_delta": ([_I] + [_P] * 3 + [_I] * 6 + [_L] * 6 + [_P],
+                              _I)}
+_DELTA_ENTRY = None            # (library, its flash_delta), bound on first use
 _PAGED_SIG = {"paged_decode": ([_P] * 8 + [_I] * 8 + [_F, _L, _L, _P], _I)}
 # paged decode's split rule (csrc/paged_decode.cu: KT slots a tile, MAXL a
 # split): enough blocks for several on each of the H100's 132 SMs, since a
@@ -207,28 +212,75 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.routes = {"wgmma": 0, "simt": 0}
 
 
+def _delta_vec(d, sd, so, dp, op, dc, oc):
+    n = _VEC_ELEMS[dc]                          # elements a 16-byte vector
+    return (dc == oc and not (d | sd[0] | sd[1] | sd[2] | so[0] | so[1]
+                              | so[2]) % n and not (dp | op) % 16)
+
+
+def _delta_route(do, o) -> str:
+    """The kernel a CUDA call of :func:`flash_delta` launches, from dtype
+    and layout alone: ``"vec"`` (a row read as 16-byte vectors by a group
+    of lanes) when do and o share a dtype, d and every (b, h, s) stride are
+    whole 16-byte vectors and both bases are 16-byte aligned; ``"scalar"``
+    (a warp a row, element by element) otherwise."""
+    return "vec" if _delta_vec(
+        do.shape[-1], do.stride(), o.stride(), do.data_ptr(), o.data_ptr(),
+        _DTYPE_CODE[do.dtype], _DTYPE_CODE[o.dtype]) else "scalar"
+
+
+def _delta_entry():
+    global _DELTA_ENTRY
+    if _DELTA_ENTRY is None:
+        lib = load("flash_delta", _DELTA_SIG)
+        _DELTA_ENTRY = (lib, lib.flash_delta)
+    return _DELTA_ENTRY
+
+
 def flash_delta(do, o):
-    """delta = rowsum(do * o) in f32: do, o (B, H, Sq, D) -> (B, H, Sq)."""
+    """delta = rowsum(do * o) in f32: do, o (B, H, Sq, D) -> (B, H, Sq).
+    On the card any (b, h, s) strides are read in place (the last axis
+    contiguous); the route is :func:`flash_delta.route`'s. The train step
+    calls it 16 times, so its card path reads attributes only, binds the C
+    function once and passes ints."""
     name = "flash_delta"
-    _no_grad_asked(name, do, o)
-    if on_cpu(name, do, o):
-        return flash_delta_ref(do, o)
-    if do.shape != o.shape or do.dim() != 4:
-        raise ValueError(f"{name}: do {tuple(do.shape)} and o "
+    if torch.is_grad_enabled() and (do.requires_grad or o.requires_grad):
+        _no_grad_asked(name, do, o)
+    if not (do.is_cuda and o.is_cuda and do.get_device() == o.get_device()):
+        if on_cpu(name, do, o):
+            return flash_delta_ref(do, o)
+    shape, sd, so = do.shape, do.stride(), o.stride()
+    if shape != o.shape or len(shape) != 4:
+        raise ValueError(f"{name}: do {tuple(shape)} and o "
                          f"{tuple(o.shape)} must be one (B, H, Sq, D) shape")
-    if do.dtype not in _DTYPE_CODE or o.dtype not in _DTYPE_CODE:
+    dc, oc = _DTYPE_CODE.get(do.dtype), _DTYPE_CODE.get(o.dtype)
+    if dc is None or oc is None:
         raise ValueError(f"{name}: dtypes {do.dtype}/{o.dtype} must be "
                          "float32 or bfloat16")
-    if do.stride(-1) != 1 or o.stride(-1) != 1:
+    if sd[3] != 1 or so[3] != 1:
         raise ValueError(f"{name}: the last axes must be contiguous")
-    b, h, sq, _ = do.shape
+    b, h, sq, d = shape
+    if b > 65535 or h > 65535:
+        raise ValueError(f"{name}: B = {b}, H = {h}; the grid takes at "
+                         "most 65535 of each")
+    if not (b and h and sq and d):
+        return torch.zeros((b, h, sq), dtype=torch.float32, device=do.device)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=do.device)
-    delta_kernel.launch(do, o, delta)
+    dp, op = do.data_ptr(), o.data_ptr()
+    vec = _delta_vec(d, sd, so, dp, op, dc, oc)
+    lib, fn = _delta_entry()
+    err = fn(vec, dp, op, delta.data_ptr(), b, h, sq, d, dc, oc, sd[0], sd[1],
+             sd[2], so[0], so[1], so[2], stream())
+    if err:
+        check(lib, err, name)
     flash_delta.launches += 1
+    flash_delta.routes["vec" if vec else "scalar"] += 1
     return delta
 
 
 flash_delta.launches = 0
+flash_delta.routes = {"vec": 0, "scalar": 0}
+flash_delta.route = _delta_route
 
 
 def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=None,

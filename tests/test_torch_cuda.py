@@ -1565,3 +1565,51 @@ def test_dg_volume_instances(dev, n):
     assert dict(dg_volume.routes) == {"templated": 0, "generic": 0,
                                       route: calls}
     assert dg_volume.launches == calls
+
+
+@pytest.mark.parametrize("nq", [2, 5, 8, 9, 10, 11, 24])
+def test_sem_apply_routes(dev, nq):
+    """nq 2, 5, 8, 9, 10 on their templated instances (9 and 10 one
+    element a block; 4-byte copies at odd nq), 11 and 24 on the generic
+    kernel, at E not a multiple of eb, eb = 1 and eb past one round of
+    elements side by side: within APP_REL of apply_ref; each launch's route
+    counted."""
+    from repro_torch.kernels.apps import sem_route
+
+    reset_launches()
+    cases = ((37, 8), (13, 1), (5, 64)) if nq <= 11 else ((3, 2), (2, 1))
+    for i, (E, eb) in enumerate(cases):
+        u = _rnd(dev, E, nq, nq, nq, seed=i)
+        geo = _rnd(dev, E, 7, nq, nq, nq, seed=i + 1)
+        dmat = _rnd(dev, nq, nq, seed=i + 2)
+        _close_rel(sem_apply(u, geo, dmat, eb=eb), apply_ref(u, geo, dmat),
+                   APP_REL)
+    route = sem_route(nq)
+    assert route == ("templated" if nq <= 10 else "generic")
+    assert dict(sem_apply.routes) == {"templated": 0, "generic": 0,
+                                      route: len(cases)}
+    assert sem_apply.launches == len(cases)
+
+
+@pytest.mark.parametrize("d", [32, 64, 112, 128, 256])
+def test_flash_delta_routes(dev, d):
+    """Both routes of flash_delta at Sq = 37 (not a multiple of a block's
+    rows), bf16 and f32, do contiguous and as a transposed view (the train
+    step's), all-zero rows, and a copy one element off alignment (the
+    "scalar" route): within TOL of flash_delta_ref; routes counted."""
+    reset_launches()
+    want = {"vec": 0, "scalar": 0}
+    b, h, sq = 2, 3, 37
+    for dtype in (torch.bfloat16, torch.float32):
+        o = _rnd(dev, b, h, sq, d, seed=1).to(dtype)
+        o[1, 2, 5:9] = 0
+        for do in (_rnd(dev, b, h, sq, d, seed=2).to(dtype),
+                   _rnd(dev, b, sq, h, d, seed=3).to(dtype).transpose(1, 2)):
+            for dd, route in ((do, "vec"), (_misaligned(do), "scalar")):
+                assert flash_delta.route(dd, o) == route
+                got = flash_delta(dd, o)
+                want[route] += 1
+                torch.testing.assert_close(got, flash_delta_ref(dd, o), **TOL)
+                assert (got[1, 2, 5:9] == 0).all()
+    assert dict(flash_delta.routes) == want
+    assert flash_delta.launches == sum(want.values())
