@@ -6,7 +6,9 @@ GPU: builds the port's seventeen hand-written Hopper kernels from
 ``TrainLoop``, runs the paper's FD, SEM and DG apps at full size, serves
 ``musicgen_medium`` and ``falcon_mamba_7b`` through the static-batch path,
 runs sequence-parallel ring attention at ``llama3_2_1b``'s widths and the
-blocked matmul op, and times each kernel.
+blocked matmul op, serves the whole ``deepseek_v2_lite`` (MLA + MoE) and
+``mixtral_8x22b`` at 4 of its 56 layers (MoE, window) through the static
+path, and times each kernel.
 
   python3 chip_smoke.py
 
@@ -37,7 +39,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    key, and through a windowed and a d = 128 flash_attention gradient), of
    the ring step forward and backward at ring offsets with dead rows,
    windows, a prefix and d 32/64/128, and of the decode head at R = 1-300,
-   tied and untied, each launch's route counted), bf16 at
+   tied and untied, each launch's route counted; flash_fwd at d_qk 192 /
+   d_v 128 on both kernels at ragged Sq != Skv, Sq off the 64-row tile, v
+   the projection's strided view, flash_fwd with a window and flash_decode
+   at mixtral's group of 6 query heads, d = 128, and the refusal of a
+   d_qk != d_v gradient before any launch; MLA's absorbed decode in bf16
+   at deepseek's widths, its products' f32 results and its output against
+   the CPU's), bf16 at
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
@@ -52,6 +60,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (200-token prompt, 80 new tokens across the wrap): equal tokens, close
    logits; llama's static tokens equal its engine tokens; internlm2_1_8b
    (head_dim 128) through prefill and the engine, card vs CPU;
+   deepseek_v2_lite with 2 layers (the dense one and one MoE layer) and
+   mixtral_8x22b with 1 layer, weights drawn on the card and copied to the
+   CPU: prefill logits of 2 x 64 tokens within 1e-3 of the largest logit
+   and the first 8 greedy tokens equal, with the smallest gap between the
+   k-th and (k+1)-th router probability printed;
 4. the serving path: the full 16-layer bf16 llama3_2_1b through ``Engine``
    (8 slots, max_len 2048, page 512, 16 requests of 33-1000 prompt tokens
    and 32-64 new tokens). Launch counts are zeroed just before and read just
@@ -122,7 +135,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     ``matmul`` at 4096 x 2048 @ 2048 x 8192 in bf16
     (one launch, on the tensor-core route) against its plain version. The
     multi-rank ring over ``torch.distributed`` needs two cards and is held
-    on the CPU only (``tests/test_torch_ring.py``, gloo).
+    on the CPU only (``tests/test_torch_ring.py``, gloo);
+14. the whole 27-layer bf16 deepseek_v2_lite through ``generate`` (4
+    prompts of 512 tokens, 32 new; launch counts zeroed just before and
+    read just after): flash_fwd exactly 27, all on the tensor cores,
+    flash_decode 0 (the absorbed decode is matmuls), rmsnorm 33 x (3 x 27
+    + 1) and the decode head 33; its decode step's profile beside the
+    bytes of weights the step reads; prefill's last logits against
+    forward's (5% of the largest logit), every logit finite, and the gather
+    dispatch against the einsum's at every MoE layer, teacher forced (both
+    fed the einsum model's input to that layer; MOE_TWIN_REL of each
+    token's largest output);
+15. the same for mixtral_8x22b at 4 of its 56 layers (every width as
+    published): flash_fwd exactly 4, flash_decode 4 x 32, rmsnorm
+    33 x (2 x 4 + 1); then (8) flash_fwd at deepseek's prefill shape (d_qk
+    192, d_v 128) and at mixtral's, and flash_decode at mixtral's decode
+    shape, each held against its plain version and timed.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -205,6 +233,16 @@ FM_BATCH, FM_PROMPT, FM_GEN, FM_FWD_SEQ = 4, 512, 32, 2048
 # up projection of 4096 tokens (d 2048 -> d_ff 8192)
 RING_SEQ, RING_STEPS = 16384, 4
 MM_SHAPE = (4096, 2048, 8192)
+# the MoE and MLA paths: deepseek_v2_lite whole (27 layers) and
+# mixtral_8x22b at 4 of its 56 layers, every width as published, each on 4
+# prompts of 512 tokens, 32 new
+MOE_BATCH, MOE_PROMPT, MOE_GEN, MIXTRAL_LAYERS = 4, 512, 32, 4
+# gather vs einsum dispatch on one MoE layer's same input: the limit on
+# max |gather - einsum| over the largest |einsum| of the token's row. The
+# H100 read 1.29-1.67% at deepseek_v2_lite's 26 MoE layers and 0.78% (one
+# bf16 step) at mixtral's (the einsum rounds its combine once, the gather
+# each of k index_add_ steps); a gather that drops a choice reads ~100%
+MOE_TWIN_REL = 0.04
 
 
 def log(msg):
@@ -1046,8 +1084,9 @@ def flash_times(q, k, v, iters, plain_iters):
 
     return dict(
         ms=cuda_ms(run(k, v), iters),
-        device_ms=device_ms(run(k, v), "fwd_tc_kernel"),
-        device_ms_contig=device_ms(run(kc, vc), "fwd_tc_kernel"),
+        device_ms=device_ms(run(k, v), "fwd_tc_kernel", launches=1),
+        device_ms_contig=device_ms(run(kc, vc), "fwd_tc_kernel",
+                                   launches=1),
         plain_ms=cuda_ms(lambda: flash_fwd_ref(q, k, v, causal=True),
                          plain_iters, 1),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -2542,18 +2581,20 @@ def two_layer_static_f32_checks():
         f"card == CPU ({outs[1][0].tolist()})")
 
 
-def _full_model(arch, seed):
+def _full_model(arch, seed, **changes):
+    """``arch`` in bf16 at full width (``changes`` to its config, e.g. a cut
+    depth) and its parameters drawn on the card from ``seed``."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import LM
 
-    model = LM(get_config(arch))
+    model = LM(dataclasses.replace(get_config(arch), **changes))
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=model.device).manual_seed(seed))
     torch.cuda.synchronize()
-    log(f"[model] {arch} bf16: {model.param_count(params)} parameters, init "
-        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[model] {arch} bf16 {changes or ''}: {model.param_count(params)} "
+        f"parameters, init {time.perf_counter() - t0:.1f}s")
     return model, params
 
 
@@ -3802,6 +3843,515 @@ def time_ring_kernels(dev, pairs):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# MoE and MLA: flash_fwd at d_qk 192 / d_v 128 and at mixtral's group of 6;
+# deepseek_v2_lite and mixtral_8x22b through the static path
+# ---------------------------------------------------------------------------
+
+def _mla_inputs(gen, b, s, h, dtype):
+    """q, k (b, h, s, 192) and v (b, h, s, 128) as deepseek_v2_lite's
+    prefill gives them: q and k concatenated (nope 128 + rope 64), v the
+    strided view (b, s, h, 256) -> (b, h, s, 256)[..., 128:] of the
+    latent's expansion."""
+    import torch
+
+    dev = gen.device
+    q = torch.randn((b, h, s, 192), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, h, s, 192), generator=gen, device=dev).to(dtype)
+    kv = torch.randn((b, s, h, 256), generator=gen, device=dev).to(dtype)
+    return q, k, kv.transpose(1, 2)[..., 128:]
+
+
+def small_mla_moe_attn_checks(dev):
+    """The attention kernels at the new paths' shapes, against their plain
+    versions at small sizes: flash_fwd at d_qk 192 / d_v 128 in f32 (the
+    CUDA-core kernel; 1e-4) and bf16 (the tensor-core kernel, v the
+    projection's strided view; check_flash_tc's limits) at ragged Sq != Skv
+    and Sq off the 64-row tile, causal and not; flash_fwd with a window at
+    mixtral's group of 6 query heads and d = 128 on both kernels; the same
+    group through flash_decode on a rotated rolling cache (f32 1e-4, bf16
+    1% of max|o| and 2^-7), kv_len as an int and as a device tensor; and
+    the refusal of a d_qk != d_v gradient before any launch. Each launch's
+    route counted. Returns max |err| of flash_fwd's o."""
+    import torch
+
+    from repro_torch.kernels import reset_launches
+    from repro_torch.kernels.flash_attention import (decode_ref,
+                                                     flash_attention,
+                                                     flash_attention_fwd,
+                                                     flash_decode,
+                                                     flash_fwd_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    f32, bf = torch.float32, torch.bfloat16
+    tol = dict(atol=1e-4, rtol=1e-4)
+    reset_launches()
+    err, ncase = 0.0, 0
+    for sq, skv, causal in ((5, 5, True), (70, 70, True), (130, 200, True),
+                            (100, 100, False), (1, 77, True)):
+        tag = f"flash_fwd d_qk 192 / d_v 128 sq={sq} skv={skv} causal={causal}"
+        q, k, v = _mla_inputs(gen, 2, skv, 4, f32)
+        q = q[:, :, skv - sq:]
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        ro, rlse = flash_fwd_ref(q, k, v, causal=causal)
+        check_close(tag + " f32 o", o, ro, **tol, quiet=True)
+        check_close(tag + " f32 lse", lse, rlse, **tol, quiet=True)
+        q, k, v = _mla_inputs(gen, 2, skv, 4, bf)
+        err = max(err, check_flash_tc(tag + " bf16", q[:, :, skv - sq:], k,
+                                      v, quiet=True, causal=causal))
+        ncase += 1
+    # mixtral's attention: 48 query heads over 8 kv heads, here 12 over 2
+    for sq, skv, window in ((130, 130, 40), (64, 300, 100)):
+        tag = f"flash_fwd group 6 d=128 sq={sq} skv={skv} window={window}"
+        q, k, v = (_proj(gen, 2, s, n, 128) for s, n in ((sq, 12), (skv, 2),
+                                                         (skv, 2)))
+        err = max(err, check_flash_tc(tag + " bf16", q, k, v, quiet=True,
+                                      window=window))
+        qf, kf, vf = q.float(), k.float(), v.float()
+        o, lse = flash_attention_fwd(qf, kf, vf, window=window)
+        ro, rlse = flash_fwd_ref(qf, kf, vf, window=window)
+        check_close(tag + " f32 o", o, ro, **tol, quiet=True)
+        check_close(tag + " f32 lse", lse, rlse, **tol, quiet=True)
+        ncase += 1
+    want = {"wgmma": ncase, "simt": ncase}
+    if flash_attention_fwd.routes != want:
+        fail(f"flash_fwd routes {flash_attention_fwd.routes}, want {want}")
+    m, kv_len, window = 300, 450, 200
+    sp = torch.roll(torch.arange(kv_len - m, kv_len, dtype=torch.int32,
+                                 device=dev), 17)    # a rotated window
+    kl_dev = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    for dtype in (f32, bf):
+        q = torch.randn((3, 12, 1, 128), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((3, 2, m, 128), generator=gen, device=dev).to(
+            dtype) for _ in range(2))
+        ref = decode_ref(q, k, v, kv_len=kv_len, slot_pos=sp, window=window)
+        lim = (tol if dtype == f32 else
+               dict(atol=0.01 * float(ref.float().abs().max()),
+                    rtol=2 ** -7))
+        for kl in (kv_len, kl_dev):
+            o = flash_decode(q, k, v, kv_len=kl, slot_pos=sp, window=window)
+            check_close(f"flash_decode group 6 d=128 {dtype} kv_len "
+                        f"{'tensor' if torch.is_tensor(kl) else 'int'}",
+                        o, ref, **lim, quiet=True)
+    if flash_decode.launches != 4:
+        fail(f"flash_decode launched {flash_decode.launches} times, want 4")
+    q, k, v = _mla_inputs(gen, 1, 40, 2, bf)
+    q.requires_grad_()
+    before = flash_attention_fwd.launches
+    try:
+        flash_attention(q, k, v)
+    except NotImplementedError as e:
+        log(f"[mla] a d_qk 192 / d_v 128 gradient on the card is refused "
+            f"before any launch: {str(e)[:90]}")
+    else:
+        fail("flash_attention: a d_qk != d_v gradient was not refused")
+    if flash_attention_fwd.launches != before:
+        fail("flash_attention launched the forward before refusing the "
+             "d_qk != d_v gradient")
+    torch.cuda.synchronize()
+    log(f"[check] flash_fwd at d_qk 192 / d_v 128 and group 6 / d 128: "
+        f"{ncase} cases on each route agree (bf16 max|err| of o {err:.3e}); "
+        "flash_decode at group 6 / d 128 on a rotated cache agrees")
+    return err
+
+
+def mla_decode_bf16_check(dev):
+    """MLA's absorbed decode in bf16 at deepseek_v2_lite's widths (16 heads,
+    lora 512, nope 128, rope 64, v 128), MOE_BATCH sequences at position
+    MOE_PROMPT + 1 of a cache of random latents. Its products at those
+    shapes (bf16 operands, f32 results by ``out_dtype``) each within 1e-4
+    of the largest |ref| of the same product of f32 copies (an f32 sum in
+    another order; a bf16 result would miss by ~2^-9), and the layer's
+    output and cache writes on the card within 1e-2 of the largest value
+    of the same call on the CPU (f32 copies there). Returns the output's
+    max |err|."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.layers import attention as attn
+    from repro_torch.models import tree_to
+
+    cfg = get_config("deepseek_v2_lite")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(43)
+    b, m, pos = MOE_BATCH, MOE_PROMPT + MOE_GEN, MOE_PROMPT + 1
+    h, nope, rope, dv, lora = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                               cfg.v_head_dim, cfg.kv_lora_rank)
+    params = attn.mla_init(gen, cfg, bf, dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+
+    cache = {"ckv": rnd(b, m, lora), "krope": rnd(b, m, rope)}
+    x = rnd(b, 1, cfg.d_model)
+    wkv_b = params["wkv_b"].reshape(lora, h, nope + dv)
+    for tag, a, w in (
+            ("q_nope @ W_uk", rnd(h, b, nope),
+             wkv_b[..., :nope].permute(1, 2, 0)),
+            ("q_lat @ ckv^T", rnd(b, h, lora), cache["ckv"].transpose(1, 2)),
+            ("q_rope @ krope^T", rnd(b, h, rope),
+             cache["krope"].transpose(1, 2)),
+            ("p @ ckv", torch.softmax(rnd(b, h, m).float(), -1).to(bf),
+             cache["ckv"]),
+            ("o_lat @ W_uv", rnd(h, b, lora),
+             wkv_b[..., nope:].permute(1, 0, 2))):
+        got = attn._bmm_f32(a, w)
+        if got.dtype != torch.float32:
+            fail(f"mla_decode {tag}: result {got.dtype}, want float32")
+        check_rel(f"mla_decode bf16 {tag} {tuple(got.shape)}, f32 result",
+                  got, torch.bmm(a.float(), w.float()), 1e-4)
+    c_cpu = tree_to(cache, "cpu")
+    y, _ = attn.mla_decode(params, x, cache, cfg, pos=pos)
+    y_cpu, _ = attn.mla_decode(tree_to(params, "cpu"), x.cpu(), c_cpu, cfg,
+                               pos=pos)
+    err = check_rel(f"mla_decode bf16 B={b} m={m} pos={pos}, card vs CPU",
+                    y.cpu(), y_cpu, 1e-2)
+    for k in ("ckv", "krope"):
+        check_rel(f"mla_decode bf16 cache write {k}, card vs CPU",
+                  cache[k][:, pos].cpu(), c_cpu[k][:, pos], 1e-2)
+    return err
+
+
+class _DispatchTwin:
+    """While active, each einsum-dispatch MoE layer also runs the gather
+    dispatch on the same input (teacher forcing: the model goes on with the
+    einsum's output) and records, layer by layer, the largest |gather -
+    einsum| over the largest |einsum| of its token's row (a row both leave
+    at zero counts 0; one only the gather fills, inf) and over the largest
+    |einsum| of the layer. ``blocks.moe_forward`` is wrapped and restored
+    on exit."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.layers import blocks
+
+        self.row, self.whole = [], []
+        self._blocks, self._orig = blocks, blocks.moe_forward
+
+        def twin(params, x, cfg, *, dispatch="einsum"):
+            y, aux = self._orig(params, x, cfg, dispatch=dispatch)
+            if dispatch == "einsum":
+                with torch.no_grad():
+                    yg, _ = self._orig(params, x, cfg, dispatch="gather")
+                    err = (yg.float() - y.float()).abs()
+                    ref = y.float().abs()
+                    rows = err.amax(-1)
+                    self.row.append(float(torch.where(
+                        rows == 0, 0.0, rows / ref.amax(-1)).max()))
+                    self.whole.append(float(err.max() / ref.max()))
+            return y, aux
+
+        blocks.moe_forward = twin
+        return self
+
+    def __exit__(self, *exc):
+        self._blocks.moe_forward = self._orig
+
+
+class _RouterGaps:
+    """Records, while active, the smallest gap between the k-th and the
+    (k+1)-th router probability of any token routed (the margin by which
+    its expert choice stood) and each call's expert choices, layer by
+    layer. ``repro_torch.layers.moe._router`` is wrapped (``moe_forward``
+    looks it up at each call) and restored on exit."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.layers import moe
+
+        self.gap, self.idx = float("inf"), []
+        self._moe, self._orig = moe, moe._router
+
+        def rec(params, x, cfg):
+            out = self._orig(params, x, cfg)
+            with torch.no_grad():
+                p = torch.softmax(x.float() @ params["router"], dim=-1)
+                top = torch.topk(p, cfg.n_experts_per_tok + 1, dim=-1).values
+                self.gap = min(self.gap, float((top[..., -2]
+                                                - top[..., -1]).min()))
+                self.idx.append(out[1])
+            return out
+
+        moe._router = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._router = self._orig
+
+
+def two_layer_moe_f32_checks():
+    """deepseek_v2_lite with 2 layers (the dense one and one MoE layer: MLA
+    attention, 64 routed and 2 shared experts) and mixtral_8x22b with 1
+    layer (8 experts, window 4096), f32 at full width; one set of weights,
+    drawn on the card and copied to the CPU (mixtral's expert leaves are
+    9.7 GB), runs on the card (kernels) and on the CPU (plain versions).
+    Prefill logits of 2 x 64 tokens within 1e-3 of the largest logit (f32
+    sums in other orders), and ``generate``'s first 8 greedy tokens equal.
+    Prints the smallest gap between the k-th and (k+1)-th router
+    probability the card saw: an expert choice that flips across devices
+    at such a near-tie is a tie, not a kernel fault (a failure names it)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LM, tree_to
+
+    for arch, nl in (("deepseek_v2_lite", 2), ("mixtral_8x22b", 1)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=nl,
+                                  dtype="float32")
+        cpu, gpu = LM(cfg, device="cpu"), LM(cfg)
+        t0 = time.perf_counter()
+        p_gpu = gpu.init(torch.Generator(device=gpu.device).manual_seed(13))
+        p_cpu = tree_to(p_gpu, "cpu")
+        tag = f"{nl}-layer f32 {arch} {[s.kind for s in gpu.program]}"
+        log(f"[moe f32] {tag}: {gpu.param_count(p_gpu)} parameters, drawn "
+            f"on the card and copied in {time.perf_counter() - t0:.1f}s")
+        prompts = np.random.RandomState(14).randint(1, cfg.vocab_size,
+                                                    (2, 64))
+        toks = torch.from_numpy(prompts)
+        with _RouterGaps() as gaps, torch.no_grad():
+            lg, _ = gpu.prefill(p_gpu, toks.to(gpu.device))
+            out_g, st = generate(gpu, p_gpu, prompts, gen_tokens=8)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lc, _ = cpu.prefill(p_cpu, toks)
+            out_c, _ = generate(cpu, p_cpu, prompts, gen_tokens=8)
+        cpu_s = time.perf_counter() - t0
+        log(f"[moe f32] {tag}: smallest gap between the k-th and (k+1)-th "
+            f"router probability on the card {gaps.gap:.3e}")
+        check_rel(f"{tag} prefill logits, card vs CPU (gap {gaps.gap:.1e})",
+                  lg.cpu(), lc, 1e-3)
+        if st["engine"] or not np.array_equal(out_c, out_g):
+            fail(f"{tag}: greedy tokens CPU {out_c.tolist()} != card "
+                 f"{out_g.tolist()} (smallest router gap {gaps.gap:.3e})")
+        log(f"[moe f32] {tag}: 8 static tokens agree, card == CPU (first "
+            f"row {out_g[0].tolist()}; the CPU side took {cpu_s:.1f}s)")
+        del cpu, gpu, p_gpu, p_cpu
+        torch.cuda.empty_cache()
+
+
+def _decode_weight_bytes(model, params):
+    """Bytes of the weights one decode step reads, counted once: every
+    parameter but the embedding table (of which it reads a row a
+    sequence), and of those the routed experts' alone (the einsum
+    dispatch runs every expert on its slots, so each is read)."""
+    from repro_torch.tree import leaves_with_path
+
+    total = experts = 0
+    for path, t in leaves_with_path(params):
+        if path == "['embed']":
+            continue
+        n = t.numel() * t.element_size()
+        total += n
+        if "['moe']['w_" in path:
+            experts += n
+    return total, experts
+
+
+def moe_main_path(arch, seed, **changes):
+    """``arch`` in bf16 at full width (``changes`` cut its depth) through
+    ``generate`` (the static path: mixtral's window and deepseek's MLA are
+    not pageable): MOE_BATCH prompts of MOE_PROMPT tokens, MOE_GEN new,
+    launch counts zeroed just before and read just after. flash_fwd must
+    launch once per layer, on the tensor cores; flash_decode once per GQA
+    layer and decode step (none for MLA: its absorbed decode is matmuls);
+    rmsnorm three times a layer for MLA (norm1, kv_norm, norm2) and twice
+    for GQA, plus the final norm, per prefill and decode step; the decode
+    head once per pass. Then where a decode step's time goes, beside the
+    bytes of weights it reads; prefill's last logits against forward's on
+    the same tokens (the same MoE groups), every logit finite; and the
+    gather dispatch against the einsum's. Their bf16 roundings differ
+    (JAX's too: a bf16 gate product and adds against one f32 sum), and a
+    token whose k-th and (k+1)-th router probabilities nearly tie can then
+    pick another expert in a later layer, which moves its output by O(1):
+    through the whole model the two prefills' logits are compared and
+    their expert choices counted layer by layer, but not gated. The gate
+    is teacher forced: in the einsum model's forward every MoE layer also
+    runs the gather dispatch on the same input, and each layer's outputs
+    must agree within MOE_TWIN_REL of the largest |output| of each token.
+    Returns (counts, stats)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models import LM
+
+    model, params = _full_model(arch, seed, **changes)
+    cfg = model.cfg
+    b, plen, ngen = MOE_BATCH, MOE_PROMPT, MOE_GEN
+    prompts = np.random.RandomState(seed).randint(0, cfg.vocab_size,
+                                                  (b, plen))
+    out, stats, counts = _static_run(model, params, prompts, ngen)
+    nl, passes, mla = cfg.n_layers, ngen + 1, cfg.attn_type == "mla"
+    want = {"flash_fwd": nl, "flash_decode": 0 if mla else nl * ngen,
+            "rmsnorm": passes * ((3 if mla else 2) * nl + 1),
+            "lm_head": passes}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"{arch}: {name} launched {counts[name]} times in "
+                 f"generate, want {n}")
+    log(f"{arch} static path kernels: " + ", ".join(
+        f"{k}={counts[k]}" for k in want) + f" (rmsnorm routes "
+        f"{rmsnorm.routes})")
+    log(f"[{arch}] generate B={b} prompt={plen} new={ngen} ({nl} layers): "
+        f"prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{stats['decode_s']:.3f}s = {stats['decode_s'] * 1e3 / ngen:.3f} "
+        f"ms/step, {stats['tokens_per_s']:.1f} tok/s; first row "
+        f"{out[0, :12].tolist()}")
+    step_ms, busy_ms = profile_static_step(model, params, prompts)
+    wbytes, ebytes = _decode_weight_bytes(model, params)
+    log(f"[{arch}] decode step bound: the routed experts' "
+        f"{ebytes / 1e9:.2f} GB over {HBM_BPS / 1e12:.2f} TB/s = "
+        f"{ebytes / HBM_BPS * 1e3:.3f} ms; every weight the step reads, "
+        f"{wbytes / 1e9:.2f} GB = {wbytes / HBM_BPS * 1e3:.3f} ms; the step "
+        f"took {step_ms:.3f} ms on the host clock, {busy_ms:.3f} ms busy")
+
+    toks = torch.from_numpy(prompts).to(model.device)
+    gm = LM(cfg, moe_dispatch="gather")
+    with torch.no_grad():
+        with _DispatchTwin() as twin:
+            full, aux = model.forward(params, toks)
+        with _RouterGaps() as ein:
+            lp, cache = model.prefill(params, toks, max_len=plen + 1)
+        nxt = model.greedy_token(lp)[:, None]
+        ld, _ = model.decode_step(params, nxt, cache)
+        with _RouterGaps() as gat:
+            lg, _ = gm.prefill(params, toks)
+    for what, t in (("forward", full), ("prefill", lp), ("decode_step", ld),
+                    ("gather prefill", lg), ("forward aux", aux)):
+        if not torch.isfinite(t).all():
+            fail(f"{arch} bf16 {what}: non-finite values")
+    check_rel(f"{arch} bf16 prefill vs forward last-position logits", lp,
+              full[:, -1], 0.05)
+    moved = [float((a != b).float().mean()) for a, b in zip(ein.idx, gat.idx)]
+    err = (lg.float() - lp.float()).abs()
+    scale = float(lp.float().abs().max())
+    log(f"[{arch}] whole model, gather vs einsum dispatch prefill logits: "
+        f"max|err| {float(err.max()):.3e} of max|logit| {scale:.3e}, "
+        f"{100 * float((err <= 0.05 * scale).float().mean()):.1f}% within 5%"
+        f"; same argmax {int((lg.argmax(-1) == lp.argmax(-1)).sum())} of "
+        f"{lp.shape[0]}; share of expert choices that differ, layer by "
+        f"layer: {[round(m, 4) for m in moved]} (smallest router gap "
+        f"{ein.gap:.3e})")
+    nmoe = sum(sp.n for sp in model.program if sp.kind == "moe")
+    if len(twin.row) != nmoe:
+        fail(f"{arch}: {len(twin.row)} MoE layers held gather against "
+             f"einsum, want {nmoe}")
+    log(f"[{arch}] gather vs einsum dispatch, teacher forced (each MoE "
+        f"layer's same input): max|err| over the largest |output| of its "
+        f"token, layer by layer {[f'{r:.3e}' for r in twin.row]}; over the "
+        f"layer's largest |output| {[f'{r:.3e}' for r in twin.whole]}")
+    worst = max(twin.row)
+    if not worst <= MOE_TWIN_REL:
+        fail(f"{arch}: gather vs einsum dispatch on a MoE layer's same "
+             f"input differ by {worst:.3e} of a token's largest |output| "
+             f"at layer {twin.row.index(worst)} (limit {MOE_TWIN_REL})")
+    log(f"[{arch}] forward aux (moe_lb, moe_z summed over the layers) "
+        f"{[round(float(a), 4) for a in aux]}")
+    stats.update(step_ms=step_ms, busy_ms=busy_ms, bound_bytes=wbytes,
+                 expert_bytes=ebytes)
+    del model, params, full
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def time_moe_mla_kernels(dev):
+    """flash_fwd at deepseek_v2_lite's prefill shape (q, k (4, 16, 512,
+    192), v (4, 16, 512, 128), v the projection's view) and at mixtral's
+    (q (4, 48, 512, 128), k/v (4, 8, 512, 128), window 4096), and
+    flash_decode at mixtral's decode shape (q (4, 48, 1, 128) against 8
+    rolling caches (4, 8, 544, 128), cycled as a step cycles its layers),
+    each held against its plain version at that shape (flash_fwd at
+    check_flash_tc's limits, flash_decode at 1% of max|o| and 2^-7), then
+    timed beside its bound, the plain version and SDPA. The bound counts
+    2 (d_qk + d_v) FLOPs a visible (query, key) pair and head, and each
+    input and output byte once. Returns (times, max |err| of each)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (decode_ref,
+                                                     flash_decode)
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    bf = torch.bfloat16
+    b, s = MOE_BATCH, MOE_PROMPT
+    out, errs = {}, {}
+    pairs = b * s * (s + 1) // 2
+    q, k, v = _mla_inputs(gen, b, s, 16, bf)
+    errs["flash_fwd@mla"] = check_flash_tc(
+        f"flash_fwd bf16 at deepseek's prefill q {tuple(q.shape)}, v "
+        f"{tuple(v.shape)}", q, k, v, causal=True)
+    out["flash_fwd@mla"] = dict(
+        **flash_times(q, k, v, iters=30, plain_iters=5),
+        flops=2 * 16 * (192 + 128) * pairs,
+        shape=f"q/k ({b},16,{s},192), v ({b},16,{s},128) view bf16, causal")
+    out["flash_fwd@mla"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * b * 16 * s * (192 * 2 + 128 * 2) + 4 * b * 16 * s,
+        2 * 16 * (192 + 128) * pairs, "bfloat16")))
+    del q, k, v
+
+    h, hk, d, win = 48, 8, 128, 4096
+    q, k, v = (_proj(gen, b, s, n, d) for n in (h, hk, hk))
+    errs["flash_fwd@mixtral"] = check_flash_tc(
+        f"flash_fwd bf16 at mixtral's prefill q {tuple(q.shape)}, window "
+        f"{win}", q, k, v, causal=True, window=win)
+    out["flash_fwd@mixtral"] = dict(
+        **flash_times(q, k, v, iters=30, plain_iters=5),
+        flops=4 * h * d * pairs,
+        shape=f"q ({b},{h},{s},{d}), k/v ({b},{hk},{s},{d}) views bf16, "
+              f"causal (window {win} >= S: SDPA's is_causal is the same "
+              "function)")
+    out["flash_fwd@mixtral"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * b * (2 * h + 2 * hk) * s * d + 4 * b * h * s,
+        4 * h * d * pairs, "bfloat16")))
+    del q, k, v
+
+    m, nl = s + MOE_GEN, 8
+    qd = torch.randn((b, h, 1, d), generator=gen, device=dev).to(bf)
+    ks = [torch.randn((b, hk, m, d), generator=gen, device=dev).to(bf)
+          for _ in range(nl)]
+    vs = [torch.randn((b, hk, m, d), generator=gen, device=dev).to(bf)
+          for _ in range(nl)]
+    sp = torch.arange(m, dtype=torch.int32, device=dev)
+    kw = dict(kv_len=m, slot_pos=sp, window=win)
+    ref = decode_ref(qd, ks[0], vs[0], **kw)
+    errs["flash_decode@mixtral"] = check_close(
+        f"flash_decode bf16 at mixtral's decode q {tuple(qd.shape)}, cache "
+        f"{tuple(ks[0].shape)}", flash_decode(qd, ks[0], vs[0], **kw), ref,
+        atol=0.01 * float(ref.float().abs().max()), rtol=2 ** -7)
+    it = iter(range(1 << 30))
+
+    def cycle(fn):
+        def run():
+            i = next(it) % nl
+            return fn(ks[i], vs[i])
+        return run
+
+    kernel = cycle(lambda kk, vv: flash_decode(qd, kk, vv, **kw))
+    nbytes = 2 * b * hk * m * d * 2 + 2 * b * h * d * 2 + 4 * m
+    out["flash_decode@mixtral"] = dict(
+        ms=cuda_ms(kernel, iters=96),
+        device_ms=device_ms(kernel, "flash_decode", launches=2),
+        plain_ms=cuda_ms(cycle(lambda kk, vv: decode_ref(qd, kk, vv, **kw)),
+                         iters=24),
+        library_ms=cuda_ms(cycle(
+            lambda kk, vv: F.scaled_dot_product_attention(
+                qd, kk, vv, enable_gqa=True)), iters=96),
+        library="F.scaled_dot_product_attention(enable_gqa): every slot "
+                "visible, the same function at kv_len = m < window",
+        bytes=nbytes,
+        shape=f"q ({b},{h},1,{d}), k/v ({b},{hk},{m},{d}) bf16, kv_len {m}, "
+              f"slot_pos, window {win}")
+    out["flash_decode@mixtral"].update(zip(("bound_ms", "bound_by"), bound(
+        nbytes, 4 * b * h * m * d, "bfloat16")))
+    del ks, vs
+    torch.cuda.empty_cache()
+    return out, errs
+
+
 def log_times(times):
     """Phase 8's report: a [time] line for each entry of ``times``, the
     [gbps] and [tflops] lines and the rmsnorm host split."""
@@ -3831,7 +4381,7 @@ def log_times(times):
         f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound "
         f"({HBM_BPS / 1e12:.2f} TB/s)")
     for name in ("rmsnorm", "rmsnorm@train", "paged_decode", "flash_decode",
-                 "flash_decode@d256"):
+                 "flash_decode@d256", "flash_decode@mixtral"):
         t = times[name]
         log(f"[gbps] {name}: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} "
             f"GB/s of the function's {t['bytes'] / 1e9:.6f} GB in "
@@ -3888,8 +4438,8 @@ def log_times(times):
         f"{u['whole'] - u['checks'] - u['empty'] - u['stream'] - u['ctypes_launch']:.2f}"
         f"; F.rms_norm {u['library']:.2f} us")
     for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
-                 "flash_fwd@train", "flash_bwd", "ring_flash_fwd",
-                 "ring_flash_bwd"):
+                 "flash_fwd@train", "flash_fwd@mla", "flash_fwd@mixtral",
+                 "flash_bwd", "ring_flash_fwd", "ring_flash_bwd"):
         t = times[name]
         rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
         issued = ("" if "tc_flops" not in t else
@@ -3954,6 +4504,8 @@ def main():
     small_decode_scan_checks(dev)
     small_f32_ring_checks(dev)
     small_tc_checks(dev)
+    mla_err = small_mla_moe_attn_checks(dev)
+    mla_decode_bf16_check(dev)
 
     cfg = get_config("llama3_2_1b")
     page, num_pages, slots = 512, 8 * 4 + 1, 8
@@ -3965,6 +4517,7 @@ def main():
     two_layer_f32_check(cfg)
     two_layer_f32_train_check(cfg)
     two_layer_static_f32_checks()
+    two_layer_moe_f32_checks()
 
     # 4. the serving path: full llama3_2_1b in bf16 through the engine
     model = LM(cfg)
@@ -4056,6 +4609,19 @@ def main():
     torch.cuda.empty_cache()
     times.update(time_ring_kernels(dev, pairs))
     del pairs
+
+    # 14. deepseek_v2_lite whole and 15. mixtral_8x22b at 4 layers through
+    # generate (the static path); 2b and 8 for their attention shapes
+    for arch, changes in (("deepseek_v2_lite", {}),
+                          ("mixtral_8x22b", dict(n_layers=MIXTRAL_LAYERS))):
+        moe_main_path(arch, 51, **changes)
+    moe_times, moe_errs = time_moe_mla_kernels(dev)
+    times.update(moe_times)
+    errs["flash_fwd"] = max(errs["flash_fwd"], mla_err,
+                            moe_errs["flash_fwd@mla"],
+                            moe_errs["flash_fwd@mixtral"])
+    errs["flash_decode"] = max(errs["flash_decode"],
+                               moe_errs["flash_decode@mixtral"])
     log_times(times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 

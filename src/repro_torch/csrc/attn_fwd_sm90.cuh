@@ -13,7 +13,7 @@
 // last query tiles, which see the most keys under a causal mask with
 // q_start >= k_start, start first. Q is copied once into 128-byte-swizzled
 // shared memory (attn_sm90.cuh); K and V stream through two stages of 128
-// keys (64 at d = 128), the next running tile's cp.async copies in flight
+// keys (64 at d_qk >= 128), the next running tile's cp.async copies in flight
 // while the current one is computed. S = Q K^T is a wgmma.m64n128k16
 // (m64n64k16) with both operands K-major; the online softmax (running
 // max, sum, rescale, in base 2) runs on S's accumulator fragment in
@@ -34,6 +34,12 @@
 // reads its offsets, writes o = 0 and lse = -inf and loads nothing.
 // Where the offsets come from is a template parameter (DeviceOffsets,
 // ValueOffsets), so the flash forward allocates no device tensor for them.
+//
+// Head dims: DQK for q and k, DV for v and o. The ring takes DQK = DV in
+// {32, 64, 128}; flash_fwd_tc also MLA's DQK = 192, DV = 128: S = Q K^T
+// runs 12 k16 steps over three 64-column boxes of Q and K, O = P V, its
+// accumulator and the epilogue are DV wide, and shared memory at 64 keys a
+// stage holds Q (24 KB) and two stages of K (24 KB) and V (16 KB).
 #pragma once
 
 #include "attn_sm90.cuh"
@@ -49,23 +55,24 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
-template <int D>
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int BKV = D == 128 ? 64 : 128;  // keys per stage
-  using TQ = Tile<BQ, D>;
-  using TK = Tile<BKV, D>;
-  static constexpr int DP = TQ::DP;
-  static constexpr int STAGE = 2 * TK::BYTES;  // K, then V
+  static constexpr int BKV = DQK >= 128 ? 64 : 128;  // keys per stage
+  using TQ = Tile<BQ, DQK>;
+  using TK = Tile<BKV, DQK>;
+  using TV = Tile<BKV, DV>;
+  static constexpr int DP = TV::DP;  // accumulator columns
+  static constexpr int STAGE = TK::BYTES + TV::BYTES;  // K, then V
   static constexpr int BYTES = TQ::BYTES + 2 * STAGE + 1024;  // + alignment
 };
 
-template <int D, class Off>
-__global__ void __launch_bounds__(NT, D == 128 ? 1 : 2) fwd_tc_kernel(
+template <int DQK, int DV, class Off>
+__global__ void __launch_bounds__(NT, DQK >= 128 ? 1 : 2) fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, Off off, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int h, int hk, int sq, int skv, Masks mk, float sm_scale,
     Strides st) {
-  using F = Smem<D>;
+  using F = Smem<DQK, DV>;
   constexpr int DP = F::DP, BKV = F::BKV;
   extern __shared__ uint8_t smem_raw[];
   // tiles start on 1024-byte boundaries, the period of the swizzle
@@ -94,9 +101,9 @@ __global__ void __launch_bounds__(NT, D == 128 ? 1 : 2) fwd_tc_kernel(
   const long long rowb = ((long long)bi * h + hh) * sq;
   int j = next(0);
   if (j >= nk) {  // no key of the chunk is visible to any row of the block
-    for (int e = tid; e < nq * (D / 8); e += NT) {
-      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(o + (rowb + q0 + r) * D + c) = make_uint4(0, 0, 0, 0);
+    for (int e = tid; e < nq * (DV / 8); e += NT) {
+      const int r = e / (DV / 8), c = (e % (DV / 8)) * 8;
+      *reinterpret_cast<uint4*>(o + (rowb + q0 + r) * DV + c) = make_uint4(0, 0, 0, 0);
     }
     if (tid < nq) lse[rowb + q0 + tid] = -CUDART_INF_F;
     return;
@@ -107,10 +114,10 @@ __global__ void __launch_bounds__(NT, D == 128 ? 1 : 2) fwd_tc_kernel(
   auto load_kv = [&](int jt, int stage) {  // key tile jt into the stage
     const int k0 = jt * BKV;
     const uint32_t s = sKV + stage * F::STAGE;
-    load_tile<BKV, D, NT>(s, kb + k0 * st.ks, st.ks, skv - k0, tid);
-    load_tile<BKV, D, NT>(s + F::TK::BYTES, vb + k0 * st.vs, st.vs, skv - k0, tid);
+    load_tile<BKV, DQK, NT>(s, kb + k0 * st.ks, st.ks, skv - k0, tid);
+    load_tile<BKV, DV, NT>(s + F::TK::BYTES, vb + k0 * st.vs, st.vs, skv - k0, tid);
   };
-  load_tile<BQ, D, NT>(sQ, q + bi * st.qb + hh * st.qh + q0 * st.qs, st.qs, nq, tid);
+  load_tile<BQ, DQK, NT>(sQ, q + bi * st.qb + hh * st.qh + q0 * st.qs, st.qs, nq, tid);
   load_kv(j, 0);
   cp_commit();
 
@@ -147,8 +154,8 @@ __global__ void __launch_bounds__(NT, D == 128 ? 1 : 2) fwd_tc_kernel(
     for (int i = 0; i < BKV / 2; ++i) s[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<BKV>(s, kmajor<BQ, D>(sQ, 0, kk), kmajor<BKV, D>(sK, 0, kk));
+    for (int kk = 0; kk < DQK / 16; ++kk)
+      wgmma_ss<BKV>(s, kmajor<BQ, DQK>(sQ, 0, kk), kmajor<BKV, DQK>(sK, 0, kk));
     wgmma_commit();
     wgmma_wait<0>();
     hold(s);
@@ -191,7 +198,7 @@ __global__ void __launch_bounds__(NT, D == 128 ? 1 : 2) fwd_tc_kernel(
     to_frags<BKV>(s, pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) wgmma_rs<DP>(acc, pa[kk], mnmajor<BKV, D>(sV, kk));
+    for (int kk = 0; kk < BKV / 16; ++kk) wgmma_rs<DP>(acc, pa[kk], mnmajor<BKV, DV>(sV, kk));
     wgmma_commit();
     wgmma_wait<0>();
     hold(acc);
@@ -207,11 +214,11 @@ __global__ void __launch_bounds__(NT, D == 128 ? 1 : 2) fwd_tc_kernel(
     const int qi = q0 + wrow + 8 * r;
     if (qi >= sq) continue;
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* op = o + (rowb + qi) * D;
+    __nv_bfloat16* op = o + (rowb + qi) * DV;
 #pragma unroll
     for (int i = 2 * r; i < DP / 2; i += 4) {
       const int c = frag_col(i, lane);
-      if (c < D)
+      if (c < DV)
         *reinterpret_cast<__nv_bfloat162*>(op + c) =
             __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
     }
@@ -220,14 +227,14 @@ __global__ void __launch_bounds__(NT, D == 128 ? 1 : 2) fwd_tc_kernel(
   }
 }
 
-// The kernel on stream s: o (b, h, sq, d) bf16 and lse (b, h, sq) f32,
+// The kernel on stream s: o (b, h, sq, dv) bf16 and lse (b, h, sq) f32,
 // both contiguous.
-template <int D, class Off>
+template <int DQK, int DV, class Off>
 cudaError_t launch(const void* q, const void* k, const void* v, Off off, void* o, float* lse,
                    int b, int h, int hk, int sq, int skv, Masks mk, float sm_scale,
                    const Strides& st, cudaStream_t s) {
-  auto kern = fwd_tc_kernel<D, Off>;
-  const int smem = Smem<D>::BYTES;
+  auto kern = fwd_tc_kernel<DQK, DV, Off>;
+  const int smem = Smem<DQK, DV>::BYTES;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   kern<<<dim3((sq + BQ - 1) / BQ, h, b), NT, smem, s>>>(

@@ -7,7 +7,9 @@
 // with queries aligned to the end of the kv stream (q_offset = skv - sq), an
 // optional causal mask and an optional sliding window (a key is visible
 // when q_pos - k_pos < window). GQA: query head hh reads kv head
-// hh / (h / hk).
+// hh / (h / hk). Head dims: q and k DQK, v and o DV, equal in {32, 64,
+// 128}, or MLA's DQK = 192 with DV = 128 (deepseek-v2's prefill: nope 128 +
+// rope 64 against v_head_dim 128), on both kernels.
 //
 // Bound on the H100: at prefill lengths (hundreds to a few thousand tokens)
 // the work is 4 * sq * skv * d / 2 FLOPs per head against O((sq + skv) * d)
@@ -20,7 +22,7 @@
 // of one warpgroup per (64-row q tile, head, batch), several blocks an SM,
 // so one block's softmax overlaps another's products. Q is copied once into
 // 128-byte-swizzled shared memory (attn_sm90.cuh); K and V stream through
-// two stages of 128 keys (64 at d = 128), the next tile's cp.async copies
+// two stages of 128 keys (64 at d_qk >= 128), the next tile's cp.async copies
 // in flight while the current one is computed. S = Q K^T is a
 // wgmma.m64n128k16 (m64n64k16) with both operands K-major; the online
 // softmax (running max, sum, rescale, in base 2) runs on S's accumulator
@@ -48,15 +50,15 @@ constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 32;   // keys per shared-memory tile
 constexpr int NT = 256;  // 4 threads per query row
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int h, int hk, int sq, int skv,
     int causal, int window, float sm_scale, long long qsb, long long qsh, long long qss,
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss) {
-  __shared__ float ks[BK][D + 1];  // +1: rows read by 4 lanes hit 4 banks
-  __shared__ float vs[BK][D];
+  __shared__ float ks[BK][DQK + 1];  // +1: rows read by 4 lanes hit 4 banks
+  __shared__ float vs[BK][DV];
   const int t = threadIdx.x, lane = t & 31;
   const int r = t >> 2, sub = t & 3;  // row of the tile, lane within the row
   const int qt = blockIdx.x, hh = blockIdx.y, bi = blockIdx.z;
@@ -66,14 +68,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
   const bool row_ok = qi < sq;
   const int q_pos = qi + q_offset;
 
-  float qr[D];
+  float qr[DQK];
   const T* qp = q + bi * qsb + hh * qsh + (long long)(row_ok ? qi : 0) * qss;
 #pragma unroll
-  for (int dd = 0; dd < D; ++dd) qr[dd] = row_ok ? repro::to_f32(qp[dd]) : 0.f;
+  for (int dd = 0; dd < DQK; ++dd) qr[dd] = row_ok ? repro::to_f32(qp[dd]) : 0.f;
 
-  float acc[D / 4];
+  float acc[DV / 4];
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DV / 4; ++c) acc[c] = 0.f;
   float m = -CUDART_INF_F, l = 0.f;
 
   int kv_end = skv, kv_begin = 0;
@@ -89,15 +91,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 
   for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    for (int e = t; e < BK * D; e += NT) {
-      const int j = e / D, dd = e % D, kpos = k0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (kpos < skv) {
-        kv = repro::to_f32(kb[kpos * kss + dd]);
-        vv = repro::to_f32(vb[kpos * vss + dd]);
-      }
-      ks[j][dd] = kv;
-      vs[j][dd] = vv;
+    for (int e = t; e < BK * DQK; e += NT) {
+      const int j = e / DQK, dd = e % DQK, kpos = k0 + j;
+      ks[j][dd] = kpos < skv ? repro::to_f32(kb[kpos * kss + dd]) : 0.f;
+    }
+    for (int e = t; e < BK * DV; e += NT) {
+      const int j = e / DV, dd = e % DV, kpos = k0 + j;
+      vs[j][dd] = kpos < skv ? repro::to_f32(vb[kpos * vss + dd]) : 0.f;
     }
     __syncthreads();
 
@@ -111,7 +111,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
                       (window <= 0 || q_pos - kpos < window);
       float dot = 0.f;
 #pragma unroll
-      for (int dd = 0; dd < D; ++dd) dot += qr[dd] * ks[j][dd];
+      for (int dd = 0; dd < DQK; ++dd) dot += qr[dd] * ks[j][dd];
       s[i] = ok ? dot * sm_scale : -CUDART_INF_F;
       tmax = fmaxf(tmax, s[i]);
     }
@@ -131,7 +131,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     l = l * corr + psum;
     m = m_new;
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) acc[c] *= corr;
+    for (int c = 0; c < DV / 4; ++c) acc[c] *= corr;
     // acc[c] (column sub + 4c) += sum_j p_j v[j]; p_j sits in lane base|(j%4)
 #pragma unroll
     for (int i = 0; i < BK / 4; ++i) {
@@ -140,26 +140,26 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
         const float p = __shfl_sync(0xffffffffu, s[i], base | s4);
         const int j = s4 + 4 * i;
 #pragma unroll
-        for (int c = 0; c < D / 4; ++c) acc[c] += p * vs[j][sub + 4 * c];
+        for (int c = 0; c < DV / 4; ++c) acc[c] += p * vs[j][sub + 4 * c];
       }
     }
   }
 
   if (row_ok) {
     const float lsafe = (l == 0.f) ? 1.f : l;
-    T* op = o + (((long long)bi * gridDim.y + hh) * sq + qi) * D;
+    T* op = o + (((long long)bi * gridDim.y + hh) * sq + qi) * DV;
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) op[sub + 4 * c] = repro::from_f32<T>(acc[c] / lsafe);
+    for (int c = 0; c < DV / 4; ++c) op[sub + 4 * c] = repro::from_f32<T>(acc[c] / lsafe);
     if (sub == 0) lse[((long long)bi * gridDim.y + hh) * sq + qi] = m + logf(lsafe);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 void launch(const void* q, const void* k, const void* v, void* o, float* lse,
             int b, int h, int hk, int sq, int skv, int causal, int window,
             float sm_scale, const long long* st, cudaStream_t stream) {
   dim3 grid((sq + BQ - 1) / BQ, h, b);
-  flash_fwd_kernel<T, D><<<grid, NT, 0, stream>>>(
+  flash_fwd_kernel<T, DQK, DV><<<grid, NT, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, h, hk, sq, skv, causal, window, sm_scale, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8]);
@@ -168,27 +168,29 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 
-// dtype: 0 = float32, 1 = bfloat16. d in {32, 64, 128}; window <= 0 means
-// no window. o is contiguous (b, h, sq, d), lse contiguous (b, h, sq);
-// q/k/v take element strides for their batch, head and sequence axes (the
-// last axis is contiguous).
+// dtype: 0 = float32, 1 = bfloat16. (d, dv) = (d, d) with d in {32, 64,
+// 128}, or (192, 128); window <= 0 means no window. o is contiguous
+// (b, h, sq, dv), lse contiguous (b, h, sq); q/k/v take element strides for
+// their batch, head and sequence axes (the last axis is contiguous).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
                          float* lse, int b, int h, int hk, int sq, int skv,
-                         int d, int dtype, int causal, int window,
+                         int d, int dv, int dtype, int causal, int window,
                          float sm_scale, long long qsb, long long qsh,
                          long long qss, long long ksb, long long ksh,
                          long long kss, long long vsb, long long vsh,
                          long long vss, void* stream) {
   const long long st[9] = {qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FWD(T, D) \
-  launch<T, D>(q, k, v, o, lse, b, h, hk, sq, skv, causal, window, sm_scale, st, s)
-  if (dtype == 0 && d == 32) REPRO_FWD(float, 32);
-  else if (dtype == 0 && d == 64) REPRO_FWD(float, 64);
-  else if (dtype == 0 && d == 128) REPRO_FWD(float, 128);
-  else if (dtype == 1 && d == 32) REPRO_FWD(__nv_bfloat16, 32);
-  else if (dtype == 1 && d == 64) REPRO_FWD(__nv_bfloat16, 64);
-  else if (dtype == 1 && d == 128) REPRO_FWD(__nv_bfloat16, 128);
+#define REPRO_FWD(T, D, DV) \
+  launch<T, D, DV>(q, k, v, o, lse, b, h, hk, sq, skv, causal, window, sm_scale, st, s)
+  if (dtype == 0 && d == 32 && dv == 32) REPRO_FWD(float, 32, 32);
+  else if (dtype == 0 && d == 64 && dv == 64) REPRO_FWD(float, 64, 64);
+  else if (dtype == 0 && d == 128 && dv == 128) REPRO_FWD(float, 128, 128);
+  else if (dtype == 0 && d == 192 && dv == 128) REPRO_FWD(float, 192, 128);
+  else if (dtype == 1 && d == 32 && dv == 32) REPRO_FWD(__nv_bfloat16, 32, 32);
+  else if (dtype == 1 && d == 64 && dv == 64) REPRO_FWD(__nv_bfloat16, 64, 64);
+  else if (dtype == 1 && d == 128 && dv == 128) REPRO_FWD(__nv_bfloat16, 128, 128);
+  else if (dtype == 1 && d == 192 && dv == 128) REPRO_FWD(__nv_bfloat16, 192, 128);
   else return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_FWD
   return static_cast<int>(cudaGetLastError());
@@ -198,7 +200,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
 // strides (elements) that are multiples of 8; otherwise as flash_fwd.
 extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, void* o,
                             float* lse, int b, int h, int hk, int sq, int skv, int d,
-                            int causal, int window, float sm_scale, long long qsb,
+                            int dv, int causal, int window, float sm_scale, long long qsb,
                             long long qsh, long long qss, long long ksb, long long ksh,
                             long long kss, long long vsb, long long vsh, long long vss,
                             void* stream) {
@@ -207,12 +209,13 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, void* o
   const at::Masks mk{causal, window, 0};
   const at::ValueOffsets off{skv - sq, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FWD_TC(D) \
-  at::fwd::launch<D>(q, k, v, off, o, lse, b, h, hk, sq, skv, mk, sm_scale, st, s)
+#define REPRO_FWD_TC(D, DV) \
+  at::fwd::launch<D, DV>(q, k, v, off, o, lse, b, h, hk, sq, skv, mk, sm_scale, st, s)
   cudaError_t e;
-  if (d == 32) e = REPRO_FWD_TC(32);
-  else if (d == 64) e = REPRO_FWD_TC(64);
-  else if (d == 128) e = REPRO_FWD_TC(128);
+  if (d == 32 && dv == 32) e = REPRO_FWD_TC(32, 32);
+  else if (d == 64 && dv == 64) e = REPRO_FWD_TC(64, 64);
+  else if (d == 128 && dv == 128) e = REPRO_FWD_TC(128, 128);
+  else if (d == 192 && dv == 128) e = REPRO_FWD_TC(192, 128);
   else e = cudaErrorInvalidValue;
 #undef REPRO_FWD_TC
   return static_cast<int>(e);

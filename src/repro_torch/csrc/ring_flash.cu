@@ -425,7 +425,7 @@ extern "C" int ring_flash_fwd_tc(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const repro::attn::DeviceOffsets off{q_start, k_start};
 #define REPRO_RING_FWD_TC(D) \
-  repro::attn::fwd::launch<D>(q, k, v, off, o, lse, b, h, hk, sq, skv, mk, sm_scale, st, s)
+  repro::attn::fwd::launch<D, D>(q, k, v, off, o, lse, b, h, hk, sq, skv, mk, sm_scale, st, s)
   cudaError_t e;
   if (d == 32) e = REPRO_RING_FWD_TC(32);
   else if (d == 64) e = REPRO_RING_FWD_TC(64);

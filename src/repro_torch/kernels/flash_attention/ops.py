@@ -2,7 +2,8 @@
 on the CPU (counterparts of ``repro.kernels.flash_attention.ops``).
 
 ``flash_attention_fwd`` launches ``csrc/flash_fwd.cu`` (prefill: o and
-lse; causal and/or a sliding window). ``flash_attention`` is the
+lse; causal and/or a sliding window; equal head dims, or MLA's d_qk = 192
+with d_v = 128). ``flash_attention`` is the
 differentiable op: a ``torch.autograd.Function`` whose forward is
 ``flash_attention_fwd`` and whose backward (``flash_attention_bwd``) runs
 ``flash_delta`` (``csrc/flash_delta.cu``) and then ``flash_bwd``
@@ -13,6 +14,8 @@ kernel has no window mask and takes head dims up to 64, so
 ``flash_attention`` raises before the forward when a gradient is asked of
 a windowed or d = 128 call whose inputs would take that kernel (f32, or
 bf16 the 16-byte copies cannot read); the tensor-core backward takes both.
+No backward kernel takes d_v != d_qk, so a card gradient at MLA's shape
+is refused before the forward too.
 ``flash_decode`` launches
 ``csrc/flash_decode.cu`` (one-token decode against a contiguous or rotated
 rolling cache: the JAX package's ``flash_decode`` op and its
@@ -58,6 +61,7 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_ELEMS = (4, 8)            # elements a 16-byte vector, by dtype code
 _HEAD_DIMS = (32, 64, 128)     # flash_fwd, paged_decode
+_FWD_DIM_PAIRS = ((192, 128),)  # flash_fwd: (d_qk, d_v) besides equal dims
 _DECODE_HEAD_DIMS = (32, 64, 112, 128, 256)    # flash_decode
 # flash_bwd by route
 _BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": (32, 64)}
@@ -68,8 +72,9 @@ _MAX_GROUP_DIM = 1024          # paged decode: (query heads per kv head) * d
 _DECODE_MAX_GROUP_DIM = 2048   # flash_decode: the same
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P], _I),
-              "flash_fwd_tc": ([_P] * 5 + [_I] * 8 + [_F] + [_L] * 9 + [_P],
+_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 10 + [_F] + [_L] * 9 + [_P],
+                            _I),
+              "flash_fwd_tc": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P],
                                _I)}
 _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I),
             "flash_bwd_tc": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
@@ -119,15 +124,19 @@ def _copyable(t):
             and t.data_ptr() % 16 == 0 and not any(x % 8 for x in st[:-1]))
 
 
-def _check_qkv(name, q, k, v, head_dims=_HEAD_DIMS):
+def _check_qkv(name, q, k, v, head_dims=_HEAD_DIMS, dim_pairs=()):
+    """dtypes, head dims (equal ones in ``head_dims``, or a (d_qk, d_v)
+    pair of ``dim_pairs``) and contiguous last axes."""
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "all three must be float32 or bfloat16")
-    d = q.shape[-1]
-    if d not in head_dims or k.shape[-1] != d or v.shape[-1] != d:
+    d, dv = q.shape[-1], v.shape[-1]
+    if k.shape[-1] != d or not ((d in head_dims and dv == d)
+                                or (d, dv) in dim_pairs):
+        pairs = f" or (d_qk, d_v) in {dim_pairs}" if dim_pairs else ""
         raise ValueError(f"{name}: head dims q {d}, k {k.shape[-1]}, "
-                         f"v {v.shape[-1]}; the kernel takes equal head dims "
-                         f"in {head_dims}")
+                         f"v {dv}; the kernel takes equal head dims "
+                         f"in {head_dims}{pairs}")
     for t, n in ((q, "q"), (k, "k"), (v, "v")):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last axis of {n} must be "
@@ -170,30 +179,32 @@ def _window(name, window):
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
-    """q (B, H, Sq, D); k, v (B, Hk, Skv, D) -> (o (B, H, Sq, D) in q's
-    dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the kv
-    stream; ``causal`` masks keys after each query, ``window`` keys at
-    q_pos - k_pos >= window. Any Sq <= Skv. On the card the kernel is
-    the tensor-core one when :func:`route` says ``"wgmma"``."""
+    """q (B, H, Sq, D); k (B, Hk, Skv, D); v (B, Hk, Skv, Dv) -> (o (B, H,
+    Sq, Dv) in q's dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the
+    kv stream; ``causal`` masks keys after each query, ``window`` keys at
+    q_pos - k_pos >= window. Any Sq <= Skv. On the card D = Dv in
+    {32, 64, 128} or (D, Dv) = (192, 128) (MLA), and the kernel is the
+    tensor-core one when :func:`route` says ``"wgmma"``."""
     name = "flash_attention_fwd"
     _no_grad_asked(name, q, k, v)
     if on_cpu(name, q, k, v):
         return flash_fwd_ref(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
     win = _window(name, window)
-    _check_qkv(name, q, k, v)
+    _check_qkv(name, q, k, v, dim_pairs=_FWD_DIM_PAIRS)
     _check_gqa(name, q, k, v)
     b, h, sq, d = q.shape
     _, hk, skv, _ = k.shape
+    dv = v.shape[-1]
     if sq > skv or sq == 0:
         raise ValueError(f"{name}: need 0 < Sq <= Skv, got {sq}, {skv}")
     if sm_scale is None:
         sm_scale = 1.0 / d ** 0.5
-    o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = load("flash_fwd", _FLASH_SIG)
     path = route(q, k, v)
-    args = (b, h, hk, sq, skv, d)
+    args = (b, h, hk, sq, skv, d, dv)
     tail = (int(bool(causal)), win, float(sm_scale), *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], stream())
     if path == "wgmma":
@@ -390,14 +401,21 @@ def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
     the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`. On the
     card the backward's route is :func:`route` of q, k and v: when a
     gradient is asked and that route's kernel cannot take the call (the
-    CUDA-core backward: head dims 32 and 64, no window), this raises before
-    the forward runs instead of returning a wrong gradient or failing late.
+    CUDA-core backward: head dims 32 and 64, no window; neither backward:
+    d_v != d_qk), this raises before the forward runs instead of returning
+    a wrong gradient or failing late. On the CPU the plain backward takes
+    every shape.
     """
     if not _grad_asked(q, k, v):
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    sm_scale=sm_scale)[0]
     if not on_cpu("flash_attention", q, k, v):
         path, d = route(q, k, v), q.shape[-1]
+        if v.shape[-1] != d:
+            raise NotImplementedError(
+                f"flash_attention: no backward kernel for d_qk {d} != d_v "
+                f"{v.shape[-1]} (flash_bwd takes equal head dims); call it "
+                "under torch.no_grad()")
         if d not in _BWD_HEAD_DIMS[path] or (window is not None
                                              and path == "simt"):
             raise NotImplementedError(

@@ -1,4 +1,4 @@
-"""Plain PyTorch RMSNorm: the function the Triton kernel computes."""
+"""Plain PyTorch RMSNorm: the function the CUDA C++ kernel computes."""
 
 from __future__ import annotations
 

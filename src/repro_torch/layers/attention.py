@@ -1,8 +1,10 @@
 """GQA attention (covers MHA/MQA/SWA): init, full-sequence forward, the
 contiguous (and rolling-window) cache, one-token decode against it, and
-one-token decode over a paged KV pool.
+one-token decode over a paged KV pool; and MLA (deepseek-v2: a latent KV
+cache, prefill through ``flash_attention`` at d_qk = nope + rope, d_v =
+v_head_dim, and the absorbed decode).
 
-Counterpart of the GQA half of ``repro.layers.attention``. Prefill runs
+Counterpart of ``repro.layers.attention``. Prefill runs
 ``flash_attention`` (causal, optional sliding window), static decode
 ``flash_decode`` (on positional and rotated caches alike) and paged decode ``paged_decode_attention``; each is
 the CUDA kernel on a CUDA tensor and the plain version on the CPU.
@@ -34,12 +36,14 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.parallel.context import current_rules
 from repro_torch.parallel.rules import ring_axis_for
 
-from .common import dense_init
+from .common import dense_init, rmsnorm
 from .rope import apply_rope
 
 __all__ = [
     "gqa_init", "gqa_forward", "gqa_cache_init", "gqa_prefill_cache",
     "gqa_decode", "gqa_paged_cache_init", "gqa_paged_decode",
+    "mla_init", "mla_forward", "mla_cache_init", "mla_prefill_cache",
+    "mla_decode",
 ]
 
 
@@ -248,4 +252,130 @@ def gqa_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
     o = paged_decode_attention(q, kp, vp, block_table=table, kv_len=lens + 1,
                                pos_pages=pos_pages)
     y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): latent-compressed KV; absorbed decode
+# ---------------------------------------------------------------------------
+
+def mla_init(gen, cfg, dtype, device, *, n=None):
+    d, h = cfg.d_model, cfg.n_heads
+    nope, rope, dv, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                            cfg.kv_lora_rank)
+    lead = () if n is None else (n,)
+    return {
+        "wq": dense_init(gen, (d, h * (nope + rope)), dtype, device, n=n),
+        "wkv_a": dense_init(gen, (d, lora + rope), dtype, device, n=n),
+        "kv_norm": torch.ones((*lead, lora), dtype=torch.float32,
+                              device=device),
+        "wkv_b": dense_init(gen, (lora, h * (nope + dv)), dtype, device, n=n),
+        "wo": dense_init(gen, (h * dv, d), dtype, device, n=n),
+    }
+
+
+def _mla_qkr(params, x, cfg, positions):
+    """Project to per-head q (nope and rope parts, (B, H, S, .)) and the
+    shared latent: c_kv (B, S, lora), normalised by rmsnorm on the strided
+    view of the projection, and k_rope (B, 1, S, rope)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, lora = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.kv_lora_rank
+    q = (x @ params["wq"]).reshape(b, s, h, nope + rope).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv_a = x @ params["wkv_a"]                          # (B, S, lora + rope)
+    c_kv = rmsnorm(kv_a[..., :lora], params["kv_norm"], eps=cfg.norm_eps)
+    k_rope = kv_a[..., None, lora:].transpose(1, 2)    # (B, 1, S, rope)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_forward(params, x, cfg, *, return_latent=False):
+    """Causal full-sequence MLA: per-head k and v expanded from the latent,
+    attention through ``flash_attention`` at d_qk = nope + rope and d_v =
+    v_head_dim (v a strided view of the expansion). x: (B, S, d_model).
+    ``return_latent`` also returns (c_kv (B, S, lora), k_rope (B, S, rope))
+    for the cache."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    positions = torch.arange(s, device=x.device)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, positions)
+    kv = (c_kv @ params["wkv_b"]).reshape(b, s, h, nope + dv).transpose(1, 2)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    q = torch.cat([q_nope, q_rope], dim=-1)             # (B, H, S, nope+rope)
+    k = torch.cat([k_nope, k_rope.expand(b, h, s, rope)], dim=-1)
+    o = flash_attention(q, k, v, causal=True)
+    y = o.transpose(1, 2).reshape(b, s, -1) @ params["wo"]
+    if return_latent:
+        return y, (c_kv, k_rope[:, 0])
+    return y
+
+
+def mla_cache_init(cfg, batch, max_len, dtype, device):
+    """The latent cache of ``max_len`` slots: ckv (B, m, lora) and krope
+    (B, m, rope); the position is the model's host int."""
+    return {
+        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                             device=device),
+    }
+
+
+def mla_prefill_cache(cache, latent, cfg):
+    """Write the prefill's latent (c_kv, k_rope) into slots [0, S) of
+    ``cache``, in place."""
+    c_kv, k_rope = latent
+    s = c_kv.shape[1]
+    cache["ckv"][:, :s] = c_kv
+    cache["krope"][:, :s] = k_rope
+    return cache
+
+
+def _bmm_f32(a, b):
+    """Batched ``a @ b`` with an f32 result, the JAX op's
+    ``preferred_element_type=jnp.float32``. On the card, bf16 or f16
+    operands are multiplied as stored (``out_dtype``: no f32 copy of the
+    latent cache or the weights); the CPU's matmul has no ``out_dtype`` and
+    multiplies f32 copies (the same products, exact in f32; only the sums'
+    order differs)."""
+    if a.is_cuda and a.dtype == b.dtype and a.dtype in (torch.bfloat16,
+                                                        torch.float16):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def mla_decode(params, x, cache, cfg, *, pos: int):
+    """Absorbed-matmul decode at host position ``pos``: scores and outputs
+    in latent space (W_uk folded into q, W_uv into the output), so the cache
+    stays (lora + rope) wide. x: (B, 1, d_model). The new latent goes into
+    slot ``min(pos, m - 1)`` of ``cache`` in place; the products have f32
+    results and are cast where the JAX layer casts. Returns (y, cache)."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    nope, rope, dv, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
+                            cfg.kv_lora_rank)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, pos)
+    ckv, krope = cache["ckv"], cache["krope"]
+    m = ckv.shape[1]
+    write = min(pos, m - 1)
+    ckv[:, write] = c_kv[:, 0]
+    krope[:, write] = k_rope[:, 0, 0]
+    wkv_b = params["wkv_b"].reshape(lora, h, nope + dv)
+    w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
+    cdt = ckv.dtype
+    # (B, H, nope) @ W_uk per head -> q_lat (B, H, lora)
+    q_lat = _bmm_f32(q_nope[:, :, 0].transpose(0, 1),
+                     w_uk.permute(1, 2, 0)).transpose(0, 1)
+    s = (_bmm_f32(q_lat.to(cdt), ckv.transpose(1, 2))
+         + _bmm_f32(q_rope[:, :, 0].to(cdt), krope.transpose(1, 2)))
+    s = s * (nope + rope) ** -0.5
+    s = s.masked_fill(torch.arange(m, device=x.device) > write, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    o_lat = _bmm_f32(p.to(cdt), ckv)                         # (B, H, lora)
+    o = _bmm_f32(o_lat.to(x.dtype).transpose(0, 1),
+                 w_uv.permute(1, 0, 2)).transpose(0, 1)      # (B, H, dv)
+    y = o.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"]
     return y, cache

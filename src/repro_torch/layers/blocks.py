@@ -1,11 +1,15 @@
-"""Pre-norm dense transformer blocks (GQA attention + SwiGLU MLP) with
-init / forward / prefill / decode / paged-decode entry points, and mamba1
-blocks (RMSNorm + mixer) with init / forward / prefill / decode: the dense
-``tblock_*`` and the mamba1 ``mamba_block_*`` halves of
-``repro.layers.blocks``. MoE, MLA and mamba2 blocks come in later slices.
+"""Pre-norm transformer blocks (GQA or MLA attention + a SwiGLU MLP or a
+MoE layer) with init / forward / prefill / decode / paged-decode entry
+points, and mamba1 blocks (RMSNorm + mixer) with init / forward / prefill /
+decode: the ``tblock_*`` and the mamba1 ``mamba_block_*`` halves of
+``repro.layers.blocks``. mamba2 blocks come in a later slice.
 
 Parameters of ``n`` stacked layers carry a leading ``(n, ...)`` axis, as the
 JAX package's scanned stacks do; these functions take ONE layer's slice.
+The attention kind follows ``cfg.attn_type``; ``moe=True`` swaps the MLP
+for :func:`repro_torch.layers.moe.moe_forward` with ``dispatch``. A MoE
+layer's auxiliary losses come out as the (2,) f32 vector [moe_lb_loss,
+moe_z_loss] (zeros for a dense layer), as the JAX blocks return them.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from . import attention as attn
 from . import mamba as mb
 from .common import rmsnorm, silu
 from .mlp import mlp_forward, mlp_init
+from .moe import moe_forward, moe_init
 
 __all__ = [
     "tblock_init", "tblock_forward", "tblock_prefill", "tblock_cache_init",
@@ -27,64 +32,106 @@ __all__ = [
 ]
 
 
-def tblock_init(gen, cfg, dtype, device, *, n):
-    """Parameters of ``n`` stacked dense blocks."""
-    return {
+def tblock_init(gen, cfg, dtype, device, *, n, moe=False):
+    """Parameters of ``n`` stacked transformer blocks (MoE when ``moe``)."""
+    params = {
         "norm1": torch.ones((n, cfg.d_model), dtype=torch.float32,
                             device=device),
         "norm2": torch.ones((n, cfg.d_model), dtype=torch.float32,
                             device=device),
-        "attn": attn.gqa_init(gen, cfg, dtype, device, n=n),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device, n=n),
     }
+    if cfg.attn_type == "mla":
+        params["attn"] = attn.mla_init(gen, cfg, dtype, device, n=n)
+    else:
+        params["attn"] = attn.gqa_init(gen, cfg, dtype, device, n=n)
+    if moe:
+        params["moe"] = moe_init(gen, cfg, dtype, device, n=n)
+    else:
+        params["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                                 n=n)
+    return params
 
 
-def _ffn(params, x, cfg):
+def _aux_vec(aux, device):
+    if not aux:
+        return torch.zeros((2,), dtype=torch.float32, device=device)
+    return torch.stack([aux["moe_lb_loss"], aux["moe_z_loss"]]).float()
+
+
+def _ffn(params, x, cfg, moe, dispatch):
+    """The block's second half on the residual x: (y, the MoE layer's aux
+    dict, or None for the MLP). The decode paths drop the aux, so a dense
+    step allocates no zeros for it."""
     h = rmsnorm(x, params["norm2"], eps=cfg.norm_eps)
-    return mlp_forward(params["mlp"], h)
+    if moe:
+        return moe_forward(params["moe"], h, cfg, dispatch=dispatch)
+    return mlp_forward(params["mlp"], h), None
 
 
-def tblock_forward(params, x, cfg):
+def tblock_forward(params, x, cfg, *, moe=False, dispatch="einsum"):
+    """The block over a full sequence: (y, the auxiliary-loss vector)."""
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
-    x = x + attn.gqa_forward(params["attn"], h, cfg)
-    return x + _ffn(params, x, cfg)
+    if cfg.attn_type == "mla":
+        x = x + attn.mla_forward(params["attn"], h, cfg)
+    else:
+        x = x + attn.gqa_forward(params["attn"], h, cfg)
+    y, aux = _ffn(params, x, cfg, moe, dispatch)
+    return x + y, _aux_vec(aux, x.device)
 
 
 def tblock_cache_init(cfg, batch, max_len, dtype, device):
+    if cfg.attn_type == "mla":
+        return attn.mla_cache_init(cfg, batch, max_len, dtype, device)
     return attn.gqa_cache_init(cfg, batch, max_len, dtype, device)
 
 
-def tblock_prefill(params, x, cfg, *, max_len=None):
-    """Forward + this layer's contiguous cache of ``max_len`` (default: the
-    sequence length) slots, a rolling window of ``min(max_len, window)``
-    slots when ``cfg.window``, in x's dtype: (y, cache)."""
+def tblock_prefill(params, x, cfg, *, moe=False, dispatch="einsum",
+                   max_len=None):
+    """Forward + this layer's cache of ``max_len`` (default: the sequence
+    length) slots in x's dtype: GQA's contiguous k/v (a rolling window of
+    ``min(max_len, window)`` slots when ``cfg.window``) or MLA's latent.
+    Returns (y, cache)."""
     max_len = max_len or x.shape[1]
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
-    a, (k, v) = attn.gqa_forward(params["attn"], h, cfg, return_kv=True)
-    cache = attn.gqa_cache_init(cfg, x.shape[0], max_len, x.dtype, x.device)
-    cache = attn.gqa_prefill_cache(cache, k, v, cfg)
+    if cfg.attn_type == "mla":
+        a, latent = attn.mla_forward(params["attn"], h, cfg,
+                                     return_latent=True)
+        cache = attn.mla_cache_init(cfg, x.shape[0], max_len, x.dtype,
+                                    x.device)
+        cache = attn.mla_prefill_cache(cache, latent, cfg)
+    else:
+        a, (k, v) = attn.gqa_forward(params["attn"], h, cfg, return_kv=True)
+        cache = attn.gqa_cache_init(cfg, x.shape[0], max_len, x.dtype,
+                                    x.device)
+        cache = attn.gqa_prefill_cache(cache, k, v, cfg)
     x = x + a
-    return x + _ffn(params, x, cfg), cache
+    return x + _ffn(params, x, cfg, moe, dispatch)[0], cache
 
 
-def tblock_decode(params, x, cache, cfg, *, pos: int):
+def tblock_decode(params, x, cache, cfg, *, pos: int, moe=False,
+                  dispatch="einsum"):
     """One-token decode at host position ``pos``; ``cache`` is updated in
     place. Returns (y, cache)."""
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
-    a, cache = attn.gqa_decode(params["attn"], h, cache, cfg, pos=pos)
+    if cfg.attn_type == "mla":
+        a, cache = attn.mla_decode(params["attn"], h, cache, cfg, pos=pos)
+    else:
+        a, cache = attn.gqa_decode(params["attn"], h, cache, cfg, pos=pos)
     x = x + a
-    return x + _ffn(params, x, cfg), cache
+    return x + _ffn(params, x, cfg, moe, dispatch)[0], cache
 
 
 def tblock_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
-                        page_ids, offs):
+                        page_ids, offs, moe=False, dispatch="einsum"):
+    """``tblock_decode`` over a paged KV pool (GQA only: MLA's latent cache
+    is not pageable, ``LM.pageable``)."""
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
     a, cache = attn.gqa_paged_decode(params["attn"], h, cache, cfg,
                                      table=table, lens=lens,
                                      pos_pages=pos_pages, page_ids=page_ids,
                                      offs=offs)
     x = x + a
-    return x + _ffn(params, x, cfg), cache
+    return x + _ffn(params, x, cfg, moe, dispatch)[0], cache
 
 
 def tblock_paged_cache_init(cfg, num_pages, page_size, dtype, device):

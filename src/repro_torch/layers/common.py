@@ -1,8 +1,8 @@
 """Shared layer utilities: init, RMSNorm, SiLU, softplus.
 
-``rmsnorm`` is the kernel wrapper itself, which picks the Triton kernel for
-a CUDA tensor and the plain version for a CPU tensor; there is no backend
-switch as in ``repro.layers.common``.
+``rmsnorm`` is the kernel wrapper itself, which launches the CUDA C++ kernel
+for a CUDA tensor and takes the plain version for a CPU tensor; there is no
+backend switch as in ``repro.layers.common``.
 """
 
 from __future__ import annotations
@@ -14,12 +14,23 @@ from repro_torch.kernels.rmsnorm import rmsnorm
 __all__ = ["dense_init", "rmsnorm", "silu", "softplus"]
 
 
-def dense_init(gen, shape, dtype, device, *, n=None, scale=None):
+def dense_init(gen, shape, dtype, device, *, n=None, scale=None,
+               per_layer=False):
     """Truncated-normal (+-3 std) fan-in init, drawn from the explicit
     ``torch.Generator`` ``gen`` (on ``device``). ``n`` stacks that many
-    layers on a leading axis; the fan-in is the per-layer ``shape[0]``."""
+    layers on a leading axis; the fan-in is the per-layer ``shape[0]``.
+    ``per_layer`` draws the ``n`` layers one at a time into a stack
+    allocated in ``dtype`` (other values than one draw of the whole stack):
+    the f32 temporaries are then one layer's, not the stack's."""
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
+    if per_layer and n is not None:
+        out = torch.empty((n, *shape), dtype=dtype, device=device)
+        t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+        for i in range(n):
+            torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+            out[i].copy_(t.mul_(std))
+        return out
     full = tuple(shape) if n is None else (n, *shape)
     t = torch.empty(full, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)

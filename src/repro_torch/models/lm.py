@@ -1,6 +1,6 @@
-"""Decoder LM: the dense GQA (rope or sinusoidal positions, optional
-sliding window, optional audio-conditioning prefix) and mamba1 subsets of
-``repro.models.lm``.
+"""Decoder LM: the dense and MoE transformer (GQA with rope or sinusoidal
+positions, optional sliding window and audio-conditioning prefix, or MLA)
+and mamba1 subsets of ``repro.models.lm``.
 
 Parameters are a plain dict of tensors with the JAX package's tree paths and
 shapes: ``embed`` (Vpad, d), ``final_norm`` (d,), ``head`` (d, Vpad) when
@@ -24,6 +24,7 @@ parameter tree's leaves.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -44,28 +45,35 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class StackSpec:
-    kind: str           # dense | mamba1 (the kinds ported so far)
+    kind: str           # dense | moe | mamba1 (the kinds ported so far)
     n: int
 
 
 def build_program(cfg: ArchConfig) -> list[StackSpec]:
     if cfg.ssm_type == "mamba1" and not cfg.shared_attn_every:
         return [StackSpec("mamba1", cfg.n_layers)]
-    if (cfg.shared_attn_every or cfg.ssm_type or cfg.n_experts
-            or cfg.attn_type != "gqa" or cfg.frontend not in ("", "audio_stub")
+    if (cfg.shared_attn_every or cfg.ssm_type
+            or cfg.attn_type not in ("gqa", "mla")
+            or cfg.frontend not in ("", "audio_stub")
             or cfg.pos_embed not in ("rope", "sinusoidal") or cfg.prefix_lm
             or cfg.embed_scale):
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA models (rope or sinusoidal "
-            "positions, optional sliding window and audio prefix) and mamba1 "
-            "stacks are ported to PyTorch so far (MoE, MLA, mamba2, hybrids, "
-            "prefix-LM and embed scaling come later)")
+            "positions, optional sliding window and audio prefix), MoE and "
+            "MLA models and mamba1 stacks are ported to PyTorch so far "
+            "(mamba2, hybrids, prefix-LM and embed scaling come later)")
+    if cfg.n_experts:
+        prog = []
+        if cfg.first_dense_layers:
+            prog.append(StackSpec("dense", cfg.first_dense_layers))
+        prog.append(StackSpec("moe", cfg.n_layers - cfg.first_dense_layers))
+        return prog
     return [StackSpec("dense", cfg.n_layers)]
 
 
-_INIT = {"dense": blocks.tblock_init, "mamba1": blocks.mamba_block_init}
-_FORWARD = {"dense": blocks.tblock_forward,
-            "mamba1": blocks.mamba_block_forward}
+_INIT = {"dense": blocks.tblock_init,
+         "moe": functools.partial(blocks.tblock_init, moe=True),
+         "mamba1": blocks.mamba_block_init}
 
 
 def _layer(tree, i):
@@ -91,12 +99,17 @@ def _stack(trees):
 
 
 class LM:
-    def __init__(self, cfg: ArchConfig, *, device=None):
+    def __init__(self, cfg: ArchConfig, *, device=None,
+                 moe_dispatch: str = "einsum"):
+        if moe_dispatch not in ("einsum", "gather"):
+            raise ValueError(f"moe_dispatch must be einsum|gather, got "
+                             f"{moe_dispatch!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.program = build_program(cfg)
         self.vpad = pad_vocab(cfg.vocab_size)
+        self.moe_dispatch = moe_dispatch
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator):
@@ -124,6 +137,22 @@ class LM:
                 return sum(count(v) for v in t)
             return t.numel()
         return count(params)
+
+    def active_param_count(self, params) -> int:
+        """Parameters touched per token (MoE: only top-k experts count)."""
+        cfg = self.cfg
+        total = self.param_count(params)
+        if not cfg.n_experts:
+            return total
+        stack = params["stacks"][-1]
+        expert_params = sum(stack["moe"][k].numel()
+                            for k in ("w_gate", "w_up", "w_down"))
+        inactive = expert_params * (1 - cfg.n_experts_per_tok / cfg.n_experts)
+        return int(total - inactive)
+
+    def _block_kw(self, spec):
+        """The transformer block's MoE arguments for a stack of ``spec``."""
+        return dict(moe=spec.kind == "moe", dispatch=self.moe_dispatch)
 
     # ----------------------------------------------------------- embed/head
     def _embed(self, params, tokens, prefix_embeddings=None, pos0=0):
@@ -156,14 +185,20 @@ class LM:
     # ------------------------------------------------------------- training
     def _hidden_states(self, params, tokens, prefix_embeddings=None):
         """Embed -> layer stacks -> final norm: the shared forward trunk.
-        Returns (hidden (B, P + S, d), aux (2,) f32); the ported programs
-        have no MoE auxiliary losses, so aux is zero."""
+        Returns (hidden (B, P + S, d), aux (2,) f32): the MoE layers'
+        [moe_lb_loss, moe_z_loss] summed over the layers (zero without
+        MoE layers)."""
         cfg = self.cfg
         x = self._embed(params, tokens, prefix_embeddings)
+        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for spec, sp in zip(self.program, params["stacks"]):
             for lp in _unstack(sp, spec.n):
-                x = _FORWARD[spec.kind](lp, x, cfg)
-        aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
+                if spec.kind == "mamba1":
+                    x = blocks.mamba_block_forward(lp, x, cfg)
+                    continue
+                x, a = blocks.tblock_forward(lp, x, cfg,
+                                             **self._block_kw(spec))
+                aux = aux + a
         return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), aux
 
     def forward(self, params, tokens, prefix_embeddings=None):
@@ -199,7 +234,8 @@ class LM:
     def loss(self, params, batch):
         """Next-token CE of ``batch["tokens"]`` (B, S) after the optional
         ``batch["prefix_embeddings"]`` (B, P, d): (total, {"ce", "moe_lb",
-        "moe_z"}); for the ported programs total == ce."""
+        "moe_z"}), total = ce + (0.02 moe_lb + 1e-3 moe_z) / layers (== ce
+        without MoE layers)."""
         tokens = batch["tokens"]
         prefix = batch.get("prefix_embeddings")
         p = prefix.shape[1] if prefix is not None else 0
@@ -217,7 +253,8 @@ class LM:
     def init_cache(self, batch, max_len, dtype=None):
         """Empty static caches for ``batch`` sequences of up to ``max_len``
         tokens: per stack, k/v (n, B, Hk, m, hd) (m = min(max_len, window)
-        for a rolling window, with slot_pos (n, m)), or the mamba conv tail
+        for a rolling window, with slot_pos (n, m)), MLA's latent ckv
+        (n, B, m, lora) and krope (n, B, m, rope), or the mamba conv tail
         (n, B, K-1, di) and state (n, B, di, N) f32."""
         dtype = dtype or self.dtype
         stacks = []
@@ -242,15 +279,17 @@ class LM:
         attention stacks without a rolling window (rolling caches rotate and
         never overflow; SSM stacks carry O(1) state)."""
         return (not self.cfg.window
-                and any(s.kind == "dense" for s in self.program))
+                and any(s.kind in ("dense", "moe") for s in self.program))
 
     def cache_capacity(self, cache) -> int | None:
         """Token positions the attention caches can hold, or None when
-        unbounded (rolling-window or attention-free programs)."""
+        unbounded (rolling-window or attention-free programs). Stacked
+        leaves: ckv (n, B, m, lora), k (n, B, Hk, m, hd)."""
         if not self.has_positional_cache:
             return None
-        caps = [sc["k"].shape[3] for spec, sc in
-                zip(self.program, cache["stacks"]) if spec.kind == "dense"]
+        caps = [sc["ckv"].shape[2] if "ckv" in sc else sc["k"].shape[3]
+                for spec, sc in zip(self.program, cache["stacks"])
+                if spec.kind in ("dense", "moe")]
         return min(caps) if caps else None
 
     # -------------------------------------------------------------- prefill
@@ -259,7 +298,8 @@ class LM:
         (last-token logits (B, Vpad) f32, cache): per stack a contiguous
         cache k/v (n, B, Hk, m, hd) of m = max_len slots (a rolling window's
         m = min(max_len, window), with slot_pos), or the mamba conv tail and
-        final state. ``cache["pos"]`` = P + S, a host int."""
+        final state; MLA's latent ckv/krope (n, B, m, .) of m = max_len
+        slots. ``cache["pos"]`` = P + S, a host int."""
         cfg = self.cfg
         x = self._embed(params, tokens, prefix_embeddings)
         s = x.shape[1]
@@ -277,7 +317,8 @@ class LM:
                     x, c = blocks.mamba_block_prefill(_layer(sp, i), x, cfg)
                 else:
                     x, c = blocks.tblock_prefill(_layer(sp, i), x, cfg,
-                                                 max_len=max_len)
+                                                 max_len=max_len,
+                                                 **self._block_kw(spec))
                 layer_caches.append(c)
             caches.append(_stack(layer_caches))
         x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
@@ -311,7 +352,8 @@ class LM:
                                                      _layer(sc, i), cfg)
                 else:
                     x, _ = blocks.tblock_decode(_layer(sp, i), x,
-                                                _layer(sc, i), cfg, pos=pos)
+                                                _layer(sc, i), cfg, pos=pos,
+                                                **self._block_kw(spec))
         cache["pos"] = pos + 1
         return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), cache
 
@@ -336,9 +378,9 @@ class LM:
     @property
     def pageable(self) -> bool:
         """True when the program can decode against a paged KV pool: dense
-        GQA stacks with rope positions and no rolling window."""
+        or MoE GQA stacks with rope positions and no rolling window."""
         cfg = self.cfg
-        return (all(s.kind == "dense" for s in self.program)
+        return (all(s.kind in ("dense", "moe") for s in self.program)
                 and cfg.attn_type != "mla" and not cfg.window
                 and cfg.pos_embed == "rope")
 
@@ -350,7 +392,8 @@ class LM:
         if not self.pageable:
             raise ValueError(
                 "paged decode needs an attention-only GQA program with rope "
-                f"positions and no rolling window (window={self.cfg.window})")
+                f"positions and no rolling window (attn_type="
+                f"{self.cfg.attn_type}, window={self.cfg.window})")
         dev = self.device
 
         def stacked(n, single):
@@ -393,7 +436,7 @@ class LM:
                 x, _ = blocks.tblock_paged_decode(
                     _layer(sp, i), x, _layer(sc, i), cfg, table=table,
                     lens=lens, pos_pages=pos_pages, page_ids=page_ids,
-                    offs=offs)
+                    offs=offs, **self._block_kw(spec))
         x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
         lens += 1
         return x, cache

@@ -1613,3 +1613,88 @@ def test_flash_delta_routes(dev, d):
                 assert (got[1, 2, 5:9] == 0).all()
     assert dict(flash_delta.routes) == want
     assert flash_delta.launches == sum(want.values())
+
+
+# ---------------------------------------------------------------------------
+# flash_fwd at MLA's head dims (d_qk 192, d_v 128) on both routes; its
+# gradient refused before any launch
+# ---------------------------------------------------------------------------
+
+def _mla_qkv(dev, b, s, h, dtype, seed):
+    """q, k (b, h, s, 192) and v (b, h, s, 128) as MLA's prefill gives
+    them: q and k concatenated (nope 128 + rope 64), v the strided view of
+    the latent's expansion (b, s, h, 128 + 128)[..., 128:]."""
+    q = _rnd(dev, b, h, s, 192, seed=seed).to(dtype)
+    k = _rnd(dev, b, h, s, 192, seed=seed + 1).to(dtype)
+    kv = _rnd(dev, b, s, h, 256, seed=seed + 2).to(dtype).transpose(1, 2)
+    return q, k, kv[..., 128:]
+
+
+@pytest.mark.parametrize("sq,skv,causal", [(5, 5, True), (70, 70, True),
+                                           (130, 200, True), (64, 64, False),
+                                           (1, 77, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_mla_head_dims(dev, sq, skv, causal, dtype):
+    """d_qk 192 / d_v 128 on the CUDA-core kernel (f32) and the tensor-core
+    one (bf16, v the projection's strided view), ragged Sq != Skv and Sq
+    off the 64-row tile: f32 within 1e-4; bf16 o within 2e-2 and 2^-6 of
+    its row's largest |o|, lse within 1e-3 / 1e-4."""
+    q, k, v = _mla_qkv(dev, 2, skv, 4, dtype, 3)
+    q = q[:, :, skv - sq:]
+    reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash_attention_fwd.routes[want] == 1 == flash_attention_fwd.launches
+    assert o.shape == (2, 4, sq, 128)
+    ro, rlse = flash_fwd_ref(q, k, v, causal=causal)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, **TOL)
+        torch.testing.assert_close(lse, rlse, **TOL)
+    else:
+        torch.testing.assert_close(o.float(), ro.float(), atol=2e-2,
+                                   rtol=2e-2)
+        _close_rows(o, ro, 2 ** -6)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_mla_gradient_before_launch(dev, dtype):
+    """No backward kernel takes d_v != d_qk: a gradient at MLA's shape
+    raises before the forward launches; without one the forward runs."""
+    q, k, v = _mla_qkv(dev, 1, 40, 2, dtype, 5)
+    q.requires_grad_()
+    reset_launches()
+    with pytest.raises(NotImplementedError, match="d_qk 192 != d_v 128"):
+        flash_attention(q, k, v)
+    assert flash_attention_fwd.launches == 0
+    with torch.no_grad():
+        assert flash_attention(q, k, v).shape == (1, 2, 40, 128)
+    assert flash_attention_fwd.launches == 1
+
+
+def test_mla_decode_products_keep_f32_results_in_bf16(dev):
+    """MLA's absorbed decode multiplies the bf16 latent cache and weights
+    as stored with f32 results (the JAX op's preferred_element_type):
+    each product within 1e-4 of the same product of f32 copies, and the
+    layer's bf16 output within 1e-2 of the same call on the CPU."""
+    from repro_torch.layers import attention as attn
+
+    cfg = dataclasses.replace(reduced(get_config("deepseek_v2_lite")),
+                              dtype="bfloat16")
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, m, pos = 3, 40, 33
+    params = attn.mla_init(gen, cfg, bf, dev)
+    a = _rnd(dev, b, cfg.n_heads, cfg.kv_lora_rank, seed=1).to(bf)
+    ckv = _rnd(dev, b, m, cfg.kv_lora_rank, seed=2).to(bf)
+    got = attn._bmm_f32(a, ckv.transpose(1, 2))
+    assert got.dtype == torch.float32
+    _close_rel(got, torch.bmm(a.float(), ckv.float().transpose(1, 2)), 1e-4)
+    cache = {"ckv": ckv, "krope": _rnd(dev, b, m, cfg.qk_rope_dim,
+                                       seed=3).to(bf)}
+    c_cpu = tree_to(cache, "cpu")
+    x = _rnd(dev, b, 1, cfg.d_model, seed=4).to(bf)
+    y, _ = attn.mla_decode(params, x, cache, cfg, pos=pos)
+    y_cpu, _ = attn.mla_decode(tree_to(params, "cpu"), x.cpu(), c_cpu, cfg,
+                               pos=pos)
+    _close_rel(y.cpu().float(), y_cpu.float(), 1e-2)

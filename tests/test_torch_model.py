@@ -128,8 +128,8 @@ def test_tblock_forward_matches_jax(pair):
                                                  np.float32)
     lp = jax.tree.map(lambda a: a[0], jp["stacks"][0])
     want, _ = jax_blocks.tblock_forward(lp, jnp.asarray(x), jm.cfg)
-    got = blocks.tblock_forward(_layer(tp["stacks"][0], 0),
-                                torch.from_numpy(x), tm.cfg)
+    got, _ = blocks.tblock_forward(_layer(tp["stacks"][0], 0),
+                                   torch.from_numpy(x), tm.cfg)
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
 
 
@@ -203,23 +203,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LM(cfg, device="cuda")
 
 
-@pytest.mark.parametrize("arch", ["mixtral_8x22b", "deepseek_v2_lite",
-                                  "zamba2_7b", "paligemma_3b"])
+@pytest.mark.parametrize("arch", ["zamba2_7b", "paligemma_3b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="dense GQA"):
         LM(reduced(get_config(arch)), device="cpu")
 
 
-@pytest.mark.parametrize("arch,kinds,pageable", [
-    ("llama3_2_1b", ["dense"], True), ("internlm2_20b", ["dense"], True),
-    ("granite_3_8b", ["dense"], True), ("musicgen_medium", ["dense"], False),
-    ("falcon_mamba_7b", ["mamba1"], False)])
-def test_build_program_admits_the_ported_architectures(arch, kinds,
+@pytest.mark.parametrize("arch,changes,kinds,pageable", [
+    ("llama3_2_1b", {}, ["dense"], True),
+    ("internlm2_20b", {}, ["dense"], True),
+    ("granite_3_8b", {}, ["dense"], True),
+    ("musicgen_medium", {}, ["dense"], False),
+    ("falcon_mamba_7b", {}, ["mamba1"], False),
+    ("mixtral_8x22b", {}, ["moe"], False),                  # its window
+    ("mixtral_8x22b", dict(window=None), ["moe"], True),
+    ("deepseek_v2_lite", {}, ["dense", "moe"], False)])     # MLA
+def test_build_program_admits_the_ported_architectures(arch, changes, kinds,
                                                        pageable):
     """The program equals the JAX package's, and the paged engine takes
     exactly the models the JAX ``LM.pageable`` admits."""
-    tm, jm = LM(reduced(get_config(arch)), device="cpu"), JaxLM(
-        jax_reduced(jax_get_config(arch)))
+    tm = LM(dataclasses.replace(reduced(get_config(arch)), **changes),
+            device="cpu")
+    jm = JaxLM(dataclasses.replace(jax_reduced(jax_get_config(arch)),
+                                   **changes))
     assert [s.kind for s in tm.program] == kinds == [
         s.kind for s in jm.program]
     assert [s.n for s in tm.program] == [s.n for s in jm.program]
