@@ -7,8 +7,9 @@ GPU: builds the port's seventeen hand-written Hopper kernels from
 ``musicgen_medium`` and ``falcon_mamba_7b`` through the static-batch path,
 runs sequence-parallel ring attention at ``llama3_2_1b``'s widths and the
 blocked matmul op, serves the whole ``deepseek_v2_lite`` (MLA + MoE) and
-``mixtral_8x22b`` at 4 of its 56 layers (MoE, window) through the static
-path, and times each kernel.
+``mixtral_8x22b`` at 4 of its 56 layers (MoE, window) and the whole
+``zamba2_7b`` (mamba2 + a shared attention block) through the static path,
+and times each kernel.
 
   python3 chip_smoke.py
 
@@ -45,7 +46,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at mixtral's group of 6 query heads, d = 128, and the refusal of a
    d_qk != d_v gradient before any launch; MLA's absorbed decode in bf16
    at deepseek's widths, its products' f32 results and its output against
-   the CPU's), bf16 at
+   the CPU's; ssm_scan at n = 64 in f32 at L and dm off its tile, with and
+   without h0 and with a per-head-broadcast A, and in bf16 at zamba2's
+   prefill shape (4 x 512 x 7168); flash_fwd at d = 112 on both kernels at
+   ragged Sq != Skv, q, k and v the projections' views, and the refusal
+   of a d = 112 gradient before any launch), bf16 at
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
@@ -64,7 +69,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    mixtral_8x22b with 1 layer, weights drawn on the card and copied to the
    CPU: prefill logits of 2 x 64 tokens within 1e-3 of the largest logit
    and the first 8 greedy tokens equal, with the smallest gap between the
-   k-th and (k+1)-th router probability printed;
+   k-th and (k+1)-th router probability printed; zamba2 at full width with
+   3 layers (one group of 2 and the shared block, a tail of 1) the same
+   way (1e-3 of the largest logit, 8 tokens equal);
 4. the serving path: the full 16-layer bf16 llama3_2_1b through ``Engine``
    (8 slots, max_len 2048, page 512, 16 requests of 33-1000 prompt tokens
    and 32-64 new tokens). Launch counts are zeroed just before and read just
@@ -150,7 +157,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     published): flash_fwd exactly 4, flash_decode 4 x 32, rmsnorm
     33 x (2 x 4 + 1); then (8) flash_fwd at deepseek's prefill shape (d_qk
     192, d_v 128) and at mixtral's, and flash_decode at mixtral's decode
-    shape, each held against its plain version and timed.
+    shape, each held against its plain version and timed;
+16. the whole 81-layer bf16 zamba2_7b through ``generate`` (4 prompts of
+    512 tokens, 32 new; launch counts zeroed just before and read just
+    after): ssm_scan exactly 81 (n = 64), flash_fwd exactly 13 (d = 112,
+    all on the tensor cores), flash_decode 13 x 32, rmsnorm 33 x (81 + 2 x
+    13 + 1), the decode head 33; its decode step's profile; on three
+    prompt sets, each mamba2 mixer's and each shared-attention
+    application's decode against its forward, teacher forced (3% of the
+    token's largest output), with planted cache faults reading above that
+    at every layer, every logit finite; ``forward`` on B = 1, S = 2048 (ssm_scan exactly 81) against
+    prefill's last logits; then (8) ssm_scan at its forward and prefill
+    shapes and flash_fwd at its prefill shape, held and timed.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -243,6 +261,19 @@ MOE_BATCH, MOE_PROMPT, MOE_GEN, MIXTRAL_LAYERS = 4, 512, 32, 4
 # bf16 step) at mixtral's (the einsum rounds its combine once, the gather
 # each of k index_add_ steps); a gather that drops a choice reads ~100%
 MOE_TWIN_REL = 0.04
+# the hybrid path: zamba2_7b whole (81 mamba2 layers, the shared attention
+# block 13 times) on 4 prompts of 512 tokens, 32 new, and a forward of
+# B = 1, S = 2048
+ZB_BATCH, ZB_PROMPT, ZB_GEN, ZB_FWD_SEQ = 4, 512, 32, 2048
+# decode against the forward, teacher forced at each mamba2 mixer and each
+# application of the shared attention (``_DecodeTwin``), on ZB_TWIN_SEEDS
+# prompt sets of 2 x 64 tokens and one decode step: the limit on max
+# |decode - forward| over the largest |forward| of the token's row. Each
+# planted cache fault must read above it at every layer. The H100 read at
+# most 0.50% (mixers) and 0.76% (attention) on five prompt sets, and the
+# planted faults at least 10.25% (SSD state zeroed), 67.5% (conv tail one
+# row late) and 10.65% (attention one position early)
+ZB_TWIN_REL, ZB_TWIN_SEEDS = 0.03, (71, 74, 75)
 
 
 def log(msg):
@@ -2659,7 +2690,8 @@ def profile_static_step(model, params, prompts, nsteps=8):
         f"{model.cfg.n_layers} layers): host {step_ms:.3f} ms/step "
         f"({prof_ms:.3f} under the profiler); device busy {busy_ms:.3f} "
         f"ms/step = {100 * busy_ms / step_ms:.1f}% of the unprofiled step, "
-        f"idle {100 * (1 - busy_ms / step_ms):.1f}%")
+        f"idle {100 * (1 - busy_ms / step_ms):.1f}%; "
+        f"{sum(r[1] for r in rows)} device events/step recorded")
     for ms, n, key in rows[:12]:
         log(f"[profile {name}]   {ms:8.4f} ms/step  {n:4d} calls/step  "
             f"{key[:90]}")
@@ -2945,14 +2977,30 @@ def decode_host_split(q, k, v, kv_len, n=2000):
 EX2_PER_S = 16 * 132 * 1.98e9
 
 
+def _scan_bytes(bt, L, dm, n, xbytes):
+    """x, delta, y, B, C, A (dm, n), D and hT of ssm_scan once each."""
+    return (bt * L * dm * (2 * xbytes + 4) + 2 * bt * L * n * xbytes
+            + dm * n * 4 + dm * 4 + bt * dm * n * 4)
+
+
 def scan_bound(bt, L, dm, n, xbytes):
-    """(bound ms, "bytes" or "operations") of ssm_scan: x, delta, y, B, C,
-    A, D and hT once each, against its bt * L * dm * n exponentials at
-    EX2_PER_S."""
-    nbytes = (bt * L * dm * (2 * xbytes + 4) + 2 * bt * L * n * xbytes
-              + dm * n * 4 + dm * 4 + bt * dm * n * 4)
-    tb, te = nbytes / HBM_BPS, bt * L * dm * n / EX2_PER_S
+    """(bound ms, "bytes" or "operations") of ssm_scan: its bytes against
+    its bt * L * dm * n exponentials at EX2_PER_S."""
+    tb = _scan_bytes(bt, L, dm, n, xbytes) / HBM_BPS
+    te = bt * L * dm * n / EX2_PER_S
     return max(tb, te) * 1e3, "bytes" if tb >= te else "operations"
+
+
+def scan_head_bound(bt, L, dm, n, xbytes):
+    """(bound ms, "bytes" or "operations") of the same scan where A is
+    constant along n, as mamba2's per-head A is: one exponential a (t, c)
+    at EX2_PER_S and two f32 FMAs a state and step (the update and C's
+    sum) at the f32 peak, the larger of the two, against the same
+    bytes."""
+    tb = _scan_bytes(bt, L, dm, n, xbytes) / HBM_BPS
+    to = max(bt * L * dm / EX2_PER_S,
+             4 * bt * L * dm * n / PEAK_FLOPS["float32"])
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def time_static_kernels(dev):
@@ -4352,6 +4400,460 @@ def time_moe_mla_kernels(dev):
     return out, errs
 
 
+# ---------------------------------------------------------------------------
+# zamba2: ssm_scan at state size 64, flash_fwd at head dim 112, the hybrid
+# ---------------------------------------------------------------------------
+
+def _zamba_scan_inputs(dev, gen, bt, L, dtype):
+    """The scan's inputs as mamba2 hands them over at zamba2_7b's widths
+    (d_inner 7168, 112 heads of 64 channels, state 64): x, B, C in
+    ``dtype``, delta f32 (a softplus-sized dt a head, repeated over its
+    channels), A one negative value a head, repeated and broadcast along
+    n (a contiguous copy, as the layer passes it), D = 1."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("zamba2_7b")
+    dm, n, p = cfg.resolved_d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    x = torch.randn((bt, L, dm), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bt, L, dm // p), generator=gen, device=dev) - 4)
+    delta = dt.repeat_interleave(p, dim=-1)
+    a = -(1 + 15 * torch.rand((dm // p,), generator=gen, device=dev))
+    A = a.repeat_interleave(p)[:, None].expand(dm, n).contiguous()
+    B = torch.randn((bt, L, n), generator=gen, device=dev).to(dtype)
+    C = torch.randn((bt, L, n), generator=gen, device=dev).to(dtype)
+    D = torch.ones(dm, device=dev)
+    return x, delta, A, B, C, D
+
+
+def small_zamba_kernel_checks(dev):
+    """ssm_scan at n = 64 in f32 (1e-4) at L and dm off its tile, with and
+    without h0, and with a per-head-broadcast A; in bf16 at zamba2's
+    prefill shape (4 x 512 x 7168; y one bf16 rounding, hT 1e-3 of its
+    largest). flash_fwd at d = 112 on both kernels at ragged Sq != Skv,
+    causal: the tensor-core one on bf16 q, k and v laid out as the
+    projections' strided views, at check_flash_tc's limits, the CUDA-core
+    one on f32 copies of the same values within 1e-4; a d = 112 gradient
+    refused before any launch.
+    Returns (max |err| of ssm_scan, of flash_fwd)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_fwd,
+                                                     flash_fwd_ref)
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
+
+    g = torch.Generator(device=dev).manual_seed(61)
+    tol = dict(atol=1e-4, rtol=1e-4)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    n, serr, ferr = 64, 0.0, 0.0
+    for bt, L, dm, head in ((2, 129, 17, 0), (1, 300, 40, 0), (2, 1, 5, 0),
+                            (1, 1000, 33, 0), (1, 200, 96, 32)):
+        x = rnd(bt, L, dm)
+        delta = torch.nn.functional.softplus(rnd(bt, L, dm)) * 0.1
+        if head:
+            a = -(rnd(dm // head).abs() + 0.5)
+            A = a.repeat_interleave(head)[:, None].expand(dm, n).contiguous()
+        else:
+            A = -(rnd(dm, n).abs() + 0.1)
+        B, C, D = rnd(bt, L, n), rnd(bt, L, n), rnd(dm)
+        for h0 in (rnd(bt, dm, n), None):
+            y, hT = ssm_scan_fwd(x, delta, A, B, C, D, h0=h0)
+            ry, rhT = selective_scan_ref(x, delta, A, B, C, D, h0=h0)
+            tag = (f"ssm_scan f32 bt={bt} L={L} dm={dm} n={n} "
+                   f"h0={h0 is not None} A {'a head' if head else 'free'}")
+            serr = max(serr, check_close(tag + " y", y, ry, **tol))
+            check_close(tag + " hT", hT, rhT, **tol)
+    args = _zamba_scan_inputs(dev, g, ZB_BATCH, ZB_PROMPT, torch.bfloat16)
+    y, hT = ssm_scan_fwd(*args)
+    ry, rhT = selective_scan_ref(*args)
+    serr = max(serr, check_close(
+        f"ssm_scan bf16 y at zamba2's prefill {tuple(y.shape)}, n 64", y, ry,
+        atol=1e-2, rtol=2 ** -7))
+    check_rel("ssm_scan bf16 hT (f32) at zamba2's prefill", hT, rhT, 1e-3)
+    del args, y, hT, ry, rhT
+
+    d = 112
+    for sq, skv in ((5, 5), (70, 70), (130, 200), (1, 77), (200, 333)):
+        q = _proj(g, 2, skv, 4, d)[:, :, skv - sq:]
+        k, v = _proj(g, 2, skv, 4, d), _proj(g, 2, skv, 4, d)
+        ferr = max(ferr, check_flash_tc(
+            f"flash_fwd bf16 d=112 sq={sq} skv={skv} (views)", q, k, v,
+            causal=True))
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        before = flash_attention_fwd.routes["simt"]
+        o, lse = flash_attention_fwd(qf, kf, vf, causal=True)
+        if flash_attention_fwd.routes["simt"] != before + 1:
+            fail("flash_fwd f32 d=112: did not take the CUDA-core route")
+        ro, rlse = flash_fwd_ref(qf, kf, vf, causal=True)
+        ferr = max(ferr, check_close(
+            f"flash_fwd f32 d=112 sq={sq} skv={skv} o", o, ro, **tol))
+        check_close(f"flash_fwd f32 d=112 sq={sq} skv={skv} lse", lse, rlse,
+                    **tol)
+    for dt in (torch.bfloat16, torch.float32):
+        q = rnd(1, 2, 40, d).to(dt).requires_grad_()
+        before = flash_attention_fwd.launches
+        try:
+            flash_attention(q, q, q)
+        except NotImplementedError as e:
+            if "head dim 112" not in str(e):
+                fail(f"flash_attention d=112 {dt}: refused with {e}")
+        else:
+            fail(f"flash_attention d=112 {dt}: a gradient was not refused")
+        if flash_attention_fwd.launches != before:
+            fail(f"flash_attention d=112 {dt}: the forward launched before "
+                 "the refusal")
+    log("[check] flash_attention d=112: a gradient is refused before any "
+        "launch (bf16 and f32)")
+    torch.cuda.synchronize()
+    return serr, ferr
+
+
+def _zamba_cfg(**changes):
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("zamba2_7b"), **changes)
+
+
+def two_layer_zamba_f32_checks():
+    """zamba2 at full width with 3 layers in f32: one group of 2 mamba2
+    layers and the shared attention block (shared_attn_every = 2), then a
+    tail of 1; one set of weights, drawn on the card and copied to the CPU,
+    runs on the card (kernels) and on the CPU (plain versions). Prefill
+    logits of 2 x 64 tokens within 1e-3 of the largest logit (f32 sums in
+    other orders), and ``generate``'s first 8 greedy tokens equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LM, tree_to
+
+    cfg = _zamba_cfg(n_layers=3, shared_attn_every=2, dtype="float32")
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg)
+    t0 = time.perf_counter()
+    p_gpu = gpu.init(torch.Generator(device=gpu.device).manual_seed(15))
+    p_cpu = tree_to(p_gpu, "cpu")
+    kinds = [(s.kind, s.n, s.group) for s in gpu.program]
+    tag = f"3-layer f32 zamba2 {kinds}"
+    if kinds != [("zamba_group", 1, 2), ("mamba2", 1, 0)]:
+        fail(f"{tag}: unexpected program")
+    log(f"[zamba f32] {tag}: {gpu.param_count(p_gpu)} parameters, drawn on "
+        f"the card and copied in {time.perf_counter() - t0:.1f}s")
+    prompts = np.random.RandomState(16).randint(1, cfg.vocab_size, (2, 64))
+    toks = torch.from_numpy(prompts)
+    with torch.no_grad():
+        lg, _ = gpu.prefill(p_gpu, toks.to(gpu.device))
+        lc, _ = cpu.prefill(p_cpu, toks)
+    out_g, st = generate(gpu, p_gpu, prompts, gen_tokens=8)
+    out_c, _ = generate(cpu, p_cpu, prompts, gen_tokens=8)
+    check_rel(f"{tag} prefill logits, card vs CPU", lg.cpu(), lc, 1e-3)
+    if st["engine"] or not np.array_equal(out_c, out_g):
+        fail(f"{tag}: greedy tokens CPU {out_c.tolist()} != card "
+             f"{out_g.tolist()}")
+    log(f"[zamba f32] {tag}: 8 static tokens agree, card == CPU (first row "
+        f"{out_g[0].tolist()})")
+    del cpu, gpu, p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+class _DecodeTwin:
+    """While active, each mamba2 mixer's and each GQA attention's decode is
+    held against its full-sequence forward, teacher forced: the input the
+    prefill gave the mixer (or the attention) is recorded, and at the i-th
+    decode call the forward runs over it with the decode's own input
+    appended; the model goes on with the decode's output. Recorded, call
+    by call: the largest |decode - forward's last row| over the largest
+    |forward's last row| of the same token. The mixer's output is compared
+    before the block's residual add, whose bf16 rounding at the residual's
+    scale would hide it. Each mamba2 decode also runs on copies of its
+    cache with a planted fault (the SSD state zeroed; the conv tail one
+    row late), and each attention decode on a copy written one position
+    early (the prompt's last key overwritten). ``mamba._mamba2_scan``,
+    ``mamba.mamba2_decode``, ``attention.gqa_forward`` and
+    ``attention.gqa_decode`` are wrapped and restored on exit."""
+
+    FAULTS = ("SSD state zeroed", "conv tail one row late",
+              "attention one position early")
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.layers import attention, mamba
+
+        self.err = {"mamba2": [], "attention": []}
+        self.fault = {f: [] for f in self.FAULTS}
+        pre = {"mamba2": [], "attention": []}
+        ndec = {"mamba2": 0, "attention": 0}
+        self._mods = (mamba, attention)
+        self._orig = (mamba._mamba2_scan, mamba.mamba2_decode,
+                      attention.gqa_forward, attention.gqa_decode)
+        scan, m_dec, fwd, a_dec = self._orig
+
+        def rel(y, ref):
+            err = (y.float() - ref.float()).abs().amax(-1)
+            return float((err / ref.float().abs().amax(-1)).max())
+
+        def forward_row(kind, f, x):
+            i = ndec[kind]
+            ndec[kind] += 1
+            return f(torch.cat([pre[kind][i], x], dim=1))[:, -1:]
+
+        def rec_scan(params, x, cfg):
+            pre["mamba2"].append(x.detach().clone())
+            return scan(params, x, cfg)
+
+        def twin_m(params, x, cache, cfg):
+            with torch.no_grad():
+                ref = forward_row("mamba2",
+                                  lambda xs: scan(params, xs, cfg)[0], x)
+                conv = cache["conv"]
+                for name, c in (
+                        ("SSD state zeroed",
+                         {"conv": conv.clone(),
+                          "h": torch.zeros_like(cache["h"])}),
+                        ("conv tail one row late",
+                         {"conv": torch.cat([conv[:, :1], conv[:, :-1]], 1),
+                          "h": cache["h"].clone()})):
+                    self.fault[name].append(rel(m_dec(params, x, c, cfg)[0],
+                                                ref))
+            y, cache = m_dec(params, x, cache, cfg)
+            self.err["mamba2"].append(rel(y, ref))
+            return y, cache
+
+        def rec_fwd(params, x, cfg, *, return_kv=False):
+            if return_kv:
+                pre["attention"].append(x.detach().clone())
+            return fwd(params, x, cfg, return_kv=return_kv)
+
+        def twin_a(params, x, cache, cfg, *, pos):
+            with torch.no_grad():
+                ref = forward_row("attention",
+                                  lambda xs: fwd(params, xs, cfg), x)
+                c = {k: v.clone() for k, v in cache.items()}
+                self.fault["attention one position early"].append(
+                    rel(a_dec(params, x, c, cfg, pos=pos - 1)[0], ref))
+            y, cache = a_dec(params, x, cache, cfg, pos=pos)
+            self.err["attention"].append(rel(y, ref))
+            return y, cache
+
+        (mamba._mamba2_scan, mamba.mamba2_decode, attention.gqa_forward,
+         attention.gqa_decode) = rec_scan, twin_m, rec_fwd, twin_a
+        return self
+
+    def __exit__(self, *exc):
+        mamba, attention = self._mods
+        (mamba._mamba2_scan, mamba.mamba2_decode, attention.gqa_forward,
+         attention.gqa_decode) = self._orig
+
+
+def zamba_decode_twin(model, params, seed):
+    """Prefill 2 x 64 tokens and one decode step with ``_DecodeTwin``
+    active: every mamba2 mixer and shared-attention application within
+    ZB_TWIN_REL of its forward, and every planted fault above it. Also
+    prints, not gated, the whole model's prefill + decode_step logits
+    against ``forward`` over the same 65 tokens (81 layers of bf16
+    rounding apart: products of other shapes, the recurrence against the
+    scan). Returns (the largest reading, the smallest fault reading)."""
+    import numpy as np
+    import torch
+
+    cfg = model.cfg
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (2, 65))).to(model.device)
+    with torch.no_grad():
+        full, _ = model.forward(params, toks)
+        with _DecodeTwin() as tw:
+            lp, cache = model.prefill(params, toks[:, :64], max_len=96)
+            ld, _ = model.decode_step(params, toks[:, 64:], cache)
+    for what, t in (("forward", full), ("prefill", lp), ("decode_step", ld)):
+        if not torch.isfinite(t).all():
+            fail(f"zamba2_7b bf16 seed {seed} {what}: non-finite logits")
+    napp = cfg.n_layers // cfg.shared_attn_every
+    for kind, n in (("mamba2", cfg.n_layers), ("attention", napp)):
+        if len(tw.err[kind]) != n:
+            fail(f"zamba2_7b decode twin seed {seed}: {len(tw.err[kind])} "
+                 f"{kind} decodes held, want {n}")
+    worst = max(max(v) for v in tw.err.values())
+    least = min(min(v) for v in tw.fault.values())
+    whole = float((ld.float() - full[:, -1].float()).abs().max()
+                  / full[:, -1].float().abs().max())
+    log(f"[zamba twin] seed {seed}: decode vs forward, teacher forced, "
+        f"largest over a row's largest: mamba2 mixers max "
+        f"{max(tw.err['mamba2']):.4%} (median "
+        f"{float(np.median(tw.err['mamba2'])):.4%}), attention max "
+        f"{max(tw.err['attention']):.4%} (limit {ZB_TWIN_REL:.0%}); planted "
+        "faults, smallest / median over the layers: " + "; ".join(
+            f"{k} {min(v):.2%} / {float(np.median(v)):.2%}"
+            for k, v in tw.fault.items())
+        + f"; whole model prefill + decode_step vs forward (not gated) "
+        f"{whole:.4%} of the largest logit")
+    if worst > ZB_TWIN_REL:
+        fail(f"zamba2_7b decode twin seed {seed}: a decode reads "
+             f"{worst:.4%} off its forward (limit {ZB_TWIN_REL:.0%})")
+    if least <= ZB_TWIN_REL:
+        fail(f"zamba2_7b decode twin seed {seed}: a planted fault reads "
+             f"{least:.4%}, within the limit {ZB_TWIN_REL:.0%}")
+    return worst, least
+
+
+def zamba_main_path():
+    """The whole zamba2_7b in bf16 (81 mamba2 layers; the shared attention
+    block after every 6, 13 applications, each with its own KV cache; a
+    tail of 3) through ``generate`` (the static path: a zamba group is not
+    pageable): ZB_BATCH prompts of ZB_PROMPT tokens, ZB_GEN new, launch
+    counts zeroed just before and read just after. ssm_scan must launch 81
+    times (once per mamba2 layer of the prefill), flash_fwd 13 (once per
+    application, on the tensor cores), flash_decode 13 per decode step,
+    rmsnorm (81 + 2 x 13 + 1) per pass and the decode head once per pass.
+    Then where a decode step's time goes; each mamba2 mixer's and each
+    shared-attention application's decode against its forward, teacher
+    forced, on ZB_TWIN_SEEDS prompt sets (``zamba_decode_twin``), every
+    logit finite; ``forward`` on 1 x ZB_FWD_SEQ tokens (ssm_scan 81
+    times) against prefill's last logits. Returns (counts, stats)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    model, params = _full_model("zamba2_7b", 71)
+    cfg = model.cfg
+    prog = [(s.kind, s.n, s.group) for s in model.program]
+    if prog != [("zamba_group", 13, 6), ("mamba2", 3, 0)] or model.pageable:
+        fail(f"zamba2_7b: program {prog}, pageable {model.pageable}")
+    b, plen, ngen = ZB_BATCH, ZB_PROMPT, ZB_GEN
+    prompts = np.random.RandomState(71).randint(0, cfg.vocab_size,
+                                                (b, plen))
+    out, stats, counts = _static_run(model, params, prompts, ngen)
+    napp, passes = cfg.n_layers // cfg.shared_attn_every, ngen + 1
+    want = {"ssm_scan": cfg.n_layers, "flash_fwd": napp,
+            "flash_decode": napp * ngen,
+            "rmsnorm": passes * (cfg.n_layers + 2 * napp + 1),
+            "lm_head": passes}
+    for name, n in want.items():
+        if counts[name] != n:
+            fail(f"zamba2_7b: {name} launched {counts[name]} times in "
+                 f"generate, want {n}")
+    log("zamba2_7b static path kernels: " + ", ".join(
+        f"{k}={counts[k]}" for k in want) + f" (rmsnorm routes "
+        f"{rmsnorm.routes})")
+    log(f"[zamba2_7b] generate B={b} prompt={plen} new={ngen} "
+        f"({cfg.n_layers} mamba2 layers, {napp} shared-attention "
+        f"applications): prefill {stats['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{stats['decode_s']:.3f}s = {stats['decode_s'] * 1e3 / ngen:.3f} "
+        f"ms/step, {stats['tokens_per_s']:.1f} tok/s; first row "
+        f"{out[0, :12].tolist()}")
+    step_ms, busy_ms = profile_static_step(model, params, prompts)
+    wbytes, _ = _decode_weight_bytes(model, params)
+    log(f"[zamba2_7b] decode step bound: every weight the step reads, "
+        f"{wbytes / 1e9:.2f} GB over {HBM_BPS / 1e12:.2f} TB/s = "
+        f"{wbytes / HBM_BPS * 1e3:.3f} ms; the step took {step_ms:.3f} ms "
+        f"on the host clock, {busy_ms:.3f} ms busy")
+
+    twin = [zamba_decode_twin(model, params, seed)
+            for seed in ZB_TWIN_SEEDS]
+    log(f"[zamba twin] over {len(twin)} prompt sets: decode vs forward at "
+        f"most {max(w for w, _ in twin):.4%}, planted faults at least "
+        f"{min(f for _, f in twin):.2%} (limit {ZB_TWIN_REL:.0%})")
+
+    toks = torch.from_numpy(np.random.RandomState(72).randint(
+        0, cfg.vocab_size, (1, ZB_FWD_SEQ))).to(model.device)
+    with torch.no_grad():
+        model.forward(params, toks[:, :64])                  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        full, _ = model.forward(params, toks)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fcounts = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, _ = model.prefill(params, toks)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    if fcounts["ssm_scan"] != cfg.n_layers or fcounts["flash_fwd"] != napp:
+        fail(f"zamba2_7b forward: ssm_scan launched {fcounts['ssm_scan']} "
+             f"times (want {cfg.n_layers}), flash_fwd "
+             f"{fcounts['flash_fwd']} (want {napp})")
+    if not (torch.isfinite(full).all() and torch.isfinite(lp).all()):
+        fail("zamba2_7b forward/prefill: non-finite logits")
+    # the same kernels and the same bf16 ops on both sides: equal up to the
+    # LM head's row count (1e-3 covers its f32 sums in another order)
+    check_close("zamba2_7b bf16 forward vs prefill last-position logits",
+                lp, full[:, -1], atol=1e-3, rtol=1e-3)
+    log(f"[zamba2_7b] forward B=1 S={ZB_FWD_SEQ}: {fwd_ms:.3f} ms "
+        f"(ssm_scan x{fcounts['ssm_scan']}, flash_fwd "
+        f"x{fcounts['flash_fwd']}); prefill of the same tokens "
+        f"{prefill_ms:.3f} ms")
+    stats.update(step_ms=step_ms, busy_ms=busy_ms, fwd_ms=fwd_ms,
+                 prefill_ms=prefill_ms)
+    del model, params, full
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def time_zamba_kernels(dev):
+    """ssm_scan at zamba2's forward (1 x 2048) and prefill (4 x 512)
+    shapes, d_inner 7168, state 64 (library: none), and flash_fwd at its
+    prefill shape (q, k, v (4, 32, 512, 112), the projections' views,
+    causal; held at check_flash_tc's limits first; library: SDPA causal),
+    each beside its bound and its plain version's time. The scan's bound
+    counts L dm n exponentials (the TPU op's contract: A is (dm, n)); its
+    per-head bound, beside it, what A constant along n needs
+    (``scan_head_bound``);
+    flash_fwd's 4 d H FLOPs a visible pair and each byte once. Returns
+    (times, max |err| of flash_fwd)."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
+
+    gen = torch.Generator(device=dev).manual_seed(73)
+    out = {}
+    for name, bt, L in (("ssm_scan@zamba", 1, ZB_FWD_SEQ),
+                        ("ssm_scan@zamba_prefill", ZB_BATCH, ZB_PROMPT)):
+        args = _zamba_scan_inputs(dev, gen, bt, L, torch.bfloat16)
+        dm, n = args[0].shape[2], args[2].shape[1]
+        out[name] = dict(
+            ms=cuda_ms(lambda: ssm_scan_fwd(*args), iters=10, warmup=2),
+            device_ms=device_ms(lambda: ssm_scan_fwd(*args), "ssm_scan",
+                                n=10, launches=1),
+            plain_ms=cuda_ms(lambda: selective_scan_ref(*args), iters=2,
+                             warmup=1),
+            library_ms=None,
+            library="none: no single PyTorch call computes it",
+            exps=bt * L * dm * n,
+            shape=f"x ({bt},{L},{dm}) bf16, delta f32, A a head, B/C "
+                  f"({bt},{L},{n}) bf16")
+        out[name].update(zip(("bound_ms", "bound_by"),
+                             scan_bound(bt, L, dm, n, 2)))
+        out[name].update(zip(("head_bound_ms", "head_bound_by"),
+                             scan_head_bound(bt, L, dm, n, 2)))
+        del args
+
+    cfg = _zamba_cfg()
+    b, s, h, d = ZB_BATCH, ZB_PROMPT, cfg.n_heads, cfg.resolved_head_dim
+    q, k, v = (_proj(gen, b, s, h, d) for _ in range(3))
+    err = check_flash_tc(f"flash_fwd bf16 at zamba2's prefill q "
+                         f"{tuple(q.shape)}", q, k, v, causal=True)
+    pairs = b * s * (s + 1) // 2
+    out["flash_fwd@zamba"] = dict(
+        **flash_times(q, k, v, iters=30, plain_iters=5),
+        flops=4 * h * d * pairs,
+        shape=f"q/k/v ({b},{h},{s},{d}) views bf16, causal")
+    out["flash_fwd@zamba"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * b * 4 * h * s * d + 4 * b * h * s, 4 * h * d * pairs,
+        "bfloat16")))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out, err
+
+
 def log_times(times):
     """Phase 8's report: a [time] line for each entry of ``times``, the
     [gbps] and [tflops] lines and the rmsnorm host split."""
@@ -4398,13 +4900,21 @@ def log_times(times):
             f"{t['split'][1]} ranges a (sequence, kv head); kv_len as an "
             f"int32 device tensor {t['ms_dev_len']:.4f} ms on the call's "
             f"clock (as an int {t['ms']:.4f})")
-    for name in ("ssm_scan", "ssm_scan@prefill"):
+    for name in ("ssm_scan", "ssm_scan@prefill", "ssm_scan@zamba",
+                 "ssm_scan@zamba_prefill"):
         t = times[name]
         log(f"[scan] {name}: {t['exps'] / (t['device_ms'] * 1e-3) / 1e12:.3f}"
             f"e12 exponentials/s in the device time alone "
             f"({t['device_ms']:.4f} ms), {100 * t['bound_ms'] / t['device_ms']:.1f}%"
             f" of its bound ({t['bound_by']}; {EX2_PER_S / 1e12:.2f}e12 "
             f"MUFU.EX2/s at 16 a clock per SM, 1.98 GHz, 132 SMs)")
+        if "head_bound_ms" in t:
+            log(f"[scan] {name}: per-head bound (A constant along n: one "
+                f"exponential a (t, c), two f32 FMAs a state and step at "
+                f"{PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s) "
+                f"{t['head_bound_ms']:.4f} ms ({t['head_bound_by']}), "
+                f"{100 * t['head_bound_ms'] / t['device_ms']:.1f}% of it in "
+                f"the device time alone")
     for name in ("fd2d", "sem_apply", "dg_volume", "flash_delta"):
         t = times[name]
         log(f"[gbps] {name}: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} "
@@ -4439,7 +4949,8 @@ def log_times(times):
         f"; F.rms_norm {u['library']:.2f} us")
     for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
                  "flash_fwd@train", "flash_fwd@mla", "flash_fwd@mixtral",
-                 "flash_bwd", "ring_flash_fwd", "ring_flash_bwd"):
+                 "flash_fwd@zamba", "flash_bwd", "ring_flash_fwd",
+                 "ring_flash_bwd"):
         t = times[name]
         rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
         issued = ("" if "tc_flops" not in t else
@@ -4506,6 +5017,7 @@ def main():
     small_tc_checks(dev)
     mla_err = small_mla_moe_attn_checks(dev)
     mla_decode_bf16_check(dev)
+    zscan_err, zflash_err = small_zamba_kernel_checks(dev)
 
     cfg = get_config("llama3_2_1b")
     page, num_pages, slots = 512, 8 * 4 + 1, 8
@@ -4518,6 +5030,7 @@ def main():
     two_layer_f32_train_check(cfg)
     two_layer_static_f32_checks()
     two_layer_moe_f32_checks()
+    two_layer_zamba_f32_checks()
 
     # 4. the serving path: full llama3_2_1b in bf16 through the engine
     model = LM(cfg)
@@ -4622,6 +5135,17 @@ def main():
                             moe_errs["flash_fwd@mixtral"])
     errs["flash_decode"] = max(errs["flash_decode"],
                                moe_errs["flash_decode@mixtral"])
+
+    # 16. zamba2_7b whole through generate (the static path); 2b and 8 for
+    # its scan and attention shapes
+    zcounts, _ = zamba_main_path()
+    log("zamba2_7b kernels: " + ", ".join(
+        f"{k}={zcounts[k]}" for k in ("ssm_scan", "flash_fwd",
+                                      "flash_decode", "rmsnorm", "lm_head")))
+    z_times, z_err = time_zamba_kernels(dev)
+    times.update(z_times)
+    errs["flash_fwd"] = max(errs["flash_fwd"], zflash_err, z_err)
+    errs["ssm_scan"] = max(errs["ssm_scan"], zscan_err)
     log_times(times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 

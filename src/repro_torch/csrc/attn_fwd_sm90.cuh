@@ -13,7 +13,7 @@
 // last query tiles, which see the most keys under a causal mask with
 // q_start >= k_start, start first. Q is copied once into 128-byte-swizzled
 // shared memory (attn_sm90.cuh); K and V stream through two stages of 128
-// keys (64 at d_qk >= 128), the next running tile's cp.async copies in flight
+// keys (64 at d_qk > 64), the next running tile's cp.async copies in flight
 // while the current one is computed. S = Q K^T is a wgmma.m64n128k16
 // (m64n64k16) with both operands K-major; the online softmax (running
 // max, sum, rescale, in base 2) runs on S's accumulator fragment in
@@ -39,7 +39,10 @@
 // {32, 64, 128}; flash_fwd_tc also MLA's DQK = 192, DV = 128: S = Q K^T
 // runs 12 k16 steps over three 64-column boxes of Q and K, O = P V, its
 // accumulator and the epilogue are DV wide, and shared memory at 64 keys a
-// stage holds Q (24 KB) and two stages of K (24 KB) and V (16 KB).
+// stage holds Q (24 KB) and two stages of K (24 KB) and V (16 KB); and
+// zamba2's DQK = DV = 112: rows padded to two boxes with zeros
+// (attn_sm90.cuh), S takes 7 k16 steps, O = P V runs at N = 128 and the
+// epilogue stores 112 columns; 64 keys a stage, as at 128.
 #pragma once
 
 #include "attn_sm90.cuh"
@@ -57,7 +60,7 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 
 template <int DQK, int DV>
 struct Smem {
-  static constexpr int BKV = DQK >= 128 ? 64 : 128;  // keys per stage
+  static constexpr int BKV = DQK > 64 ? 64 : 128;  // keys per stage
   using TQ = Tile<BQ, DQK>;
   using TK = Tile<BKV, DQK>;
   using TV = Tile<BKV, DV>;
@@ -67,7 +70,7 @@ struct Smem {
 };
 
 template <int DQK, int DV, class Off>
-__global__ void __launch_bounds__(NT, DQK >= 128 ? 1 : 2) fwd_tc_kernel(
+__global__ void __launch_bounds__(NT, DQK > 64 ? 1 : 2) fwd_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, Off off, __nv_bfloat16* __restrict__ o,
     float* __restrict__ lse, int h, int hk, int sq, int skv, Masks mk, float sm_scale,

@@ -22,7 +22,11 @@
 // without a copy (the wrappers route anything else to the CUDA-core
 // kernels). Rows past the sequence are zero-filled. At D = 32 the boxes
 // are half used: a K-major read stops at K = D, and an MN-major B read
-// over N = 64 fills accumulator columns D..63 that nobody stores.
+// over N = 64 fills accumulator columns D..63 that nobody stores. At
+// D = 112 (zamba2) a row is 14 chunks: the tile is two boxes (DP = 128)
+// and each load zero-fills the row's last two chunks, so an MN-major B
+// read over N = 128 adds zeros into accumulator columns 112..127, which
+// nobody stores either.
 //
 // Register fragments: wgmma's f32 accumulator of m64nNk16 puts element i of
 // a thread at row 16 warp + lane / 4 + 8 ((i >> 1) & 1), column
@@ -63,7 +67,7 @@ __device__ __forceinline__ float ex2(float x) {
 
 template <int ROWS, int D>
 struct Tile {
-  static constexpr int DP = D < 64 ? 64 : D;   // columns as stored
+  static constexpr int DP = (D + 63) / 64 * 64;  // columns as stored
   static constexpr int BOX = ROWS * 128;       // bytes of one 64-column box
   static constexpr int BYTES = (DP / 64) * BOX;
 };
@@ -76,7 +80,8 @@ __device__ __forceinline__ void fence_async_smem() {
 
 // Rows [0, ROWS) of a bf16 matrix whose row r starts at base + r * stride
 // (elements, D contiguous) into the swizzled tile at s; rows >= nvalid are
-// zero-filled. NT threads take 16-byte chunks in turn.
+// zero-filled, and so are the chunks past D of a box a row fills in part
+// (D = 112). NT threads take 16-byte chunks in turn.
 template <int ROWS, int D, int NT>
 __device__ __forceinline__ void load_tile(uint32_t s, const __nv_bfloat16* base,
                                           long long stride, int nvalid, int tid) {
@@ -88,6 +93,16 @@ __device__ __forceinline__ void load_tile(uint32_t s, const __nv_bfloat16* base,
     const bool ok = r < nvalid;
     const __nv_bfloat16* src = ok ? base + r * stride + c * 8 : base;
     cp16(s + (c >> 3) * Tile<ROWS, D>::BOX + r * 128 + (((c & 7) ^ (r & 7)) << 4), src, ok);
+  }
+  if constexpr (D > 64 && D % 64 != 0) {
+    constexpr int PAD = Tile<ROWS, D>::DP / 8 - CPR;  // chunks of zeros a row
+    static_assert(ROWS * PAD % NT == 0, "every thread zeroes as many chunks");
+#pragma unroll
+    for (int j = 0; j < ROWS * PAD / NT; ++j) {
+      const int e = tid + j * NT, r = e / PAD, c = CPR + e % PAD;
+      cp16(s + (c >> 3) * Tile<ROWS, D>::BOX + r * 128 + (((c & 7) ^ (r & 7)) << 4), base,
+           false);
+    }
   }
 }
 

@@ -8,8 +8,9 @@
 // optional causal mask and an optional sliding window (a key is visible
 // when q_pos - k_pos < window). GQA: query head hh reads kv head
 // hh / (h / hk). Head dims: q and k DQK, v and o DV, equal in {32, 64,
-// 128}, or MLA's DQK = 192 with DV = 128 (deepseek-v2's prefill: nope 128 +
-// rope 64 against v_head_dim 128), on both kernels.
+// 112, 128} (112: zamba2's shared attention), or MLA's DQK = 192 with
+// DV = 128 (deepseek-v2's prefill: nope 128 + rope 64 against v_head_dim
+// 128), on both kernels.
 //
 // Bound on the H100: at prefill lengths (hundreds to a few thousand tokens)
 // the work is 4 * sq * skv * d / 2 FLOPs per head against O((sq + skv) * d)
@@ -22,7 +23,7 @@
 // of one warpgroup per (64-row q tile, head, batch), several blocks an SM,
 // so one block's softmax overlaps another's products. Q is copied once into
 // 128-byte-swizzled shared memory (attn_sm90.cuh); K and V stream through
-// two stages of 128 keys (64 at d_qk >= 128), the next tile's cp.async copies
+// two stages of 128 keys (64 at d_qk > 64), the next tile's cp.async copies
 // in flight while the current one is computed. S = Q K^T is a
 // wgmma.m64n128k16 (m64n64k16) with both operands K-major; the online
 // softmax (running max, sum, rescale, in base 2) runs on S's accumulator
@@ -169,7 +170,7 @@ void launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 
 // dtype: 0 = float32, 1 = bfloat16. (d, dv) = (d, d) with d in {32, 64,
-// 128}, or (192, 128); window <= 0 means no window. o is contiguous
+// 112, 128}, or (192, 128); window <= 0 means no window. o is contiguous
 // (b, h, sq, dv), lse contiguous (b, h, sq); q/k/v take element strides for
 // their batch, head and sequence axes (the last axis is contiguous).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -185,10 +186,12 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   launch<T, D, DV>(q, k, v, o, lse, b, h, hk, sq, skv, causal, window, sm_scale, st, s)
   if (dtype == 0 && d == 32 && dv == 32) REPRO_FWD(float, 32, 32);
   else if (dtype == 0 && d == 64 && dv == 64) REPRO_FWD(float, 64, 64);
+  else if (dtype == 0 && d == 112 && dv == 112) REPRO_FWD(float, 112, 112);
   else if (dtype == 0 && d == 128 && dv == 128) REPRO_FWD(float, 128, 128);
   else if (dtype == 0 && d == 192 && dv == 128) REPRO_FWD(float, 192, 128);
   else if (dtype == 1 && d == 32 && dv == 32) REPRO_FWD(__nv_bfloat16, 32, 32);
   else if (dtype == 1 && d == 64 && dv == 64) REPRO_FWD(__nv_bfloat16, 64, 64);
+  else if (dtype == 1 && d == 112 && dv == 112) REPRO_FWD(__nv_bfloat16, 112, 112);
   else if (dtype == 1 && d == 128 && dv == 128) REPRO_FWD(__nv_bfloat16, 128, 128);
   else if (dtype == 1 && d == 192 && dv == 128) REPRO_FWD(__nv_bfloat16, 192, 128);
   else return static_cast<int>(cudaErrorInvalidValue);
@@ -214,6 +217,7 @@ extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, void* o
   cudaError_t e;
   if (d == 32 && dv == 32) e = REPRO_FWD_TC(32, 32);
   else if (d == 64 && dv == 64) e = REPRO_FWD_TC(64, 64);
+  else if (d == 112 && dv == 112) e = REPRO_FWD_TC(112, 112);
   else if (d == 128 && dv == 128) e = REPRO_FWD_TC(128, 128);
   else if (d == 192 && dv == 128) e = REPRO_FWD_TC(192, 128);
   else e = cudaErrorInvalidValue;

@@ -37,6 +37,17 @@
 // (delta = 0, x = 0) and channels past dm compute zeros; neither is stored.
 // At falcon-mamba's forward (bt = 1, dm = 8192) that is 256 blocks of 8
 // warps, two a SM by registers: one wave.
+//
+// State size 64 (zamba2's mamba2 layers, whose per-head dt, A and D reach
+// the kernel repeated over each head's channels): the same design, with
+// 142,336 bytes of shared memory a block (the B and C tiles are 64 rows),
+// so one block of 256 threads an SM, which may then take up to 255
+// registers a thread; the loop over the states is unrolled 4 deep rather
+// than whole, to keep the code within the instruction cache. The bound is
+// the L * dm * 64 exponentials: 0.225 ms at zamba2's 2048 x 7168 forward
+// (its bytes take 0.036 ms). mamba2's A is constant along n, so one
+// exponential per (t, c) would do; this kernel takes A as the TPU op's
+// contract gives it, (dm, n), and computes each.
 #include "common.cuh"
 
 namespace {
@@ -78,7 +89,7 @@ __device__ __forceinline__ void load_run(const float* p, float* out) {
 }
 
 template <typename T_, int N>
-__global__ void __launch_bounds__(NT, 2) ssm_scan_kernel(
+__global__ void __launch_bounds__(NT, N <= 16 ? 2 : 1) ssm_scan_kernel(
     const T_* __restrict__ x, const float* __restrict__ delta,
     const float* __restrict__ A, const T_* __restrict__ B,
     const T_* __restrict__ C, const float* __restrict__ Dskip,
@@ -142,7 +153,7 @@ __global__ void __launch_bounds__(NT, 2) ssm_scan_kernel(
     // P_t is the product of its a up to t and g_t the state reached from
     // zero: the walk adds C_t g_t to y_t at once and keeps w_t = C_t P_t,
     // and once the scan has given h_in, y_t += w_t h_in
-#pragma unroll
+#pragma unroll (N <= 16 ? N : 4)
     for (int i = 0; i < N; ++i) {
       const float* bi_s = bs + i * S + p * RS;
       const float* ci_s = cs + i * S + p * RS;
@@ -226,6 +237,7 @@ int dispatch_n(const void* x, const float* delta, const float* A,
   if (n == 4) err = launch<T_, 4>(x, delta, A, B, C, D, h0, y, hT, bt, L, dm, s);
   else if (n == 8) err = launch<T_, 8>(x, delta, A, B, C, D, h0, y, hT, bt, L, dm, s);
   else if (n == 16) err = launch<T_, 16>(x, delta, A, B, C, D, h0, y, hT, bt, L, dm, s);
+  else if (n == 64) err = launch<T_, 64>(x, delta, A, B, C, D, h0, y, hT, bt, L, dm, s);
   else return static_cast<int>(cudaErrorInvalidValue);
   return err ? err : static_cast<int>(cudaGetLastError());
 }
@@ -233,7 +245,7 @@ int dispatch_n(const void* x, const float* delta, const float* A,
 }  // namespace
 
 // dtype (of x, B, C and y): 0 = float32, 1 = bfloat16; delta is float32;
-// n in {4, 8, 16}. Every array is contiguous; h0 may be null (zeros).
+// n in {4, 8, 16, 64}. Every array is contiguous; h0 may be null (zeros).
 extern "C" int ssm_scan(const void* x, const float* delta, const float* A,
                         const void* B, const void* C, const float* D,
                         const float* h0, void* y, float* hT, int bt, int L,

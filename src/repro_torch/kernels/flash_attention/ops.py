@@ -2,8 +2,8 @@
 on the CPU (counterparts of ``repro.kernels.flash_attention.ops``).
 
 ``flash_attention_fwd`` launches ``csrc/flash_fwd.cu`` (prefill: o and
-lse; causal and/or a sliding window; equal head dims, or MLA's d_qk = 192
-with d_v = 128). ``flash_attention`` is the
+lse; causal and/or a sliding window; equal head dims 32, 64, 112 or 128,
+or MLA's d_qk = 192 with d_v = 128). ``flash_attention`` is the
 differentiable op: a ``torch.autograd.Function`` whose forward is
 ``flash_attention_fwd`` and whose backward (``flash_attention_bwd``) runs
 ``flash_delta`` (``csrc/flash_delta.cu``) and then ``flash_bwd``
@@ -14,8 +14,8 @@ kernel has no window mask and takes head dims up to 64, so
 ``flash_attention`` raises before the forward when a gradient is asked of
 a windowed or d = 128 call whose inputs would take that kernel (f32, or
 bf16 the 16-byte copies cannot read); the tensor-core backward takes both.
-No backward kernel takes d_v != d_qk, so a card gradient at MLA's shape
-is refused before the forward too.
+No backward kernel takes d_v != d_qk or d = 112, so a card gradient at
+MLA's or zamba2's shape is refused before the forward too.
 ``flash_decode`` launches
 ``csrc/flash_decode.cu`` (one-token decode against a contiguous or rotated
 rolling cache: the JAX package's ``flash_decode`` op and its
@@ -60,7 +60,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_ELEMS = (4, 8)            # elements a 16-byte vector, by dtype code
-_HEAD_DIMS = (32, 64, 128)     # flash_fwd, paged_decode
+_HEAD_DIMS = (32, 64, 128)     # paged_decode, the ring step kernels
+_FWD_HEAD_DIMS = (32, 64, 112, 128)  # flash_fwd (112: zamba2)
 _FWD_DIM_PAIRS = ((192, 128),)  # flash_fwd: (d_qk, d_v) besides equal dims
 _DECODE_HEAD_DIMS = (32, 64, 112, 128, 256)    # flash_decode
 # flash_bwd by route
@@ -183,7 +184,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
     Sq, Dv) in q's dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the
     kv stream; ``causal`` masks keys after each query, ``window`` keys at
     q_pos - k_pos >= window. Any Sq <= Skv. On the card D = Dv in
-    {32, 64, 128} or (D, Dv) = (192, 128) (MLA), and the kernel is the
+    {32, 64, 112, 128} or (D, Dv) = (192, 128) (MLA), and the kernel is the
     tensor-core one when :func:`route` says ``"wgmma"``."""
     name = "flash_attention_fwd"
     _no_grad_asked(name, q, k, v)
@@ -191,7 +192,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
         return flash_fwd_ref(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
     win = _window(name, window)
-    _check_qkv(name, q, k, v, dim_pairs=_FWD_DIM_PAIRS)
+    _check_qkv(name, q, k, v, _FWD_HEAD_DIMS, _FWD_DIM_PAIRS)
     _check_gqa(name, q, k, v)
     b, h, sq, d = q.shape
     _, hk, skv, _ = k.shape

@@ -23,7 +23,7 @@ from .ref import selective_scan_ref
 __all__ = ["ssm_scan", "ssm_scan_fwd", "ssm_scan_state"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_STATES = (4, 8, 16)
+_STATES = (4, 8, 16, 64)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"ssm_scan": ([_P] * 9 + [_I] * 5 + [_P], _I)}
 

@@ -3,8 +3,8 @@ batch over contiguous caches (the counterpart of ``repro.launch.serve``).
 
 ``generate`` serves through :class:`repro_torch.serving.Engine` whenever
 the model is pageable; models the paged path cannot serve (rolling windows,
-sinusoidal positions, SSM stacks, MLA's latent cache) go down
-``_generate_static``: one prefill,
+sinusoidal positions, SSM stacks, the zamba2 hybrid, MLA's latent cache) go
+down ``_generate_static``: one prefill,
 then one decode step per token over a contiguous cache, every sequence in
 lockstep (decode attention on the ``flash_decode`` kernel). The static loop
 has no mesh and adopts no tuned block sizes (neither is ported).

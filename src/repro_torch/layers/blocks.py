@@ -1,8 +1,8 @@
 """Pre-norm transformer blocks (GQA or MLA attention + a SwiGLU MLP or a
 MoE layer) with init / forward / prefill / decode / paged-decode entry
-points, and mamba1 blocks (RMSNorm + mixer) with init / forward / prefill /
-decode: the ``tblock_*`` and the mamba1 ``mamba_block_*`` halves of
-``repro.layers.blocks``. mamba2 blocks come in a later slice.
+points, and mamba blocks (RMSNorm + a mamba1 or mamba2 mixer, by
+``cfg.ssm_type``) with init / forward / prefill / decode: the counterpart
+of ``repro.layers.blocks``.
 
 Parameters of ``n`` stacked layers carry a leading ``(n, ...)`` axis, as the
 JAX package's scanned stacks do; these functions take ONE layer's slice.
@@ -139,51 +139,75 @@ def tblock_paged_cache_init(cfg, num_pages, page_size, dtype, device):
 
 
 # ---------------------------------------------------------------------------
-# mamba1 blocks
+# mamba blocks (mamba1 / mamba2)
 # ---------------------------------------------------------------------------
 
+def _mamba2(cfg):
+    return cfg.ssm_type == "mamba2"
+
+
 def mamba_block_init(gen, cfg, dtype, device, *, n):
-    """Parameters of ``n`` stacked mamba1 blocks."""
+    """Parameters of ``n`` stacked mamba blocks."""
+    init = mb.mamba2_init if _mamba2(cfg) else mb.mamba1_init
     return {
         "norm": torch.ones((n, cfg.d_model), dtype=torch.float32,
                            device=device),
-        "mixer": mb.mamba1_init(gen, cfg, dtype, device, n=n),
+        "mixer": init(gen, cfg, dtype, device, n=n),
     }
 
 
 def mamba_block_forward(params, x, cfg):
     h = rmsnorm(x, params["norm"], eps=cfg.norm_eps)
-    return x + mb.mamba1_forward(params["mixer"], h, cfg)
+    fwd = mb.mamba2_forward if _mamba2(cfg) else mb.mamba1_forward
+    return x + fwd(params["mixer"], h, cfg)
 
 
 def mamba_block_cache_init(cfg, batch, dtype, device):
-    return mb.mamba1_cache_init(cfg, batch, dtype, device)
+    init = mb.mamba2_cache_init if _mamba2(cfg) else mb.mamba1_cache_init
+    return init(cfg, batch, dtype, device)
+
+
+def _conv_tail(raw, kc, dtype):
+    """The last K - 1 pre-conv rows a decode's conv window starts from;
+    a prompt shorter than that leaves zeros in front, as the causal conv
+    pads."""
+    tail = raw[:, -(kc - 1):]
+    if tail.shape[1] < kc - 1:
+        tail = torch.nn.functional.pad(tail, (0, 0, kc - 1 - tail.shape[1], 0))
+    return tail.to(dtype).contiguous()
 
 
 def mamba_block_prefill(params, x, cfg):
-    """Forward + cache (the final SSM state and the conv tail): (y, cache).
-    The scan is the state-returning ``ssm_scan_state``: the kernel on the
-    card, the plain chunked scan on the CPU (the function the JAX block's
-    ``_chunked_scan_jnp`` computes), differentiable on both."""
+    """Forward + cache (the final SSM state and the conv tail of the raw
+    pre-conv projection, in x's dtype): (y, cache). The scan is the
+    state-returning ``ssm_scan_state``: the kernel on the card, the plain
+    chunked scan on the CPU, differentiable on both. For mamba1 that is the
+    function the JAX block's ``_chunked_scan_jnp`` computes. For mamba2 the
+    JAX block's ``_mamba2_forward_with_state`` takes the SSD form; the
+    scan's final state (B, di, N) viewed as (B, H, P, N) is the SSD state
+    (channel h P + p), and the mixer hands back its pre-conv xBC for the
+    tail."""
     h = rmsnorm(x, params["norm"], eps=cfg.norm_eps)
     p = params["mixer"]
     kc = cfg.ssm_conv
+    if _mamba2(cfg):
+        y, state, raw = mb._mamba2_scan(p, h, cfg)
+        return x + y, {"conv": _conv_tail(raw, kc, x.dtype), "h": state}
     xi = h @ p["in_x"]
     z = h @ p["in_z"]
-    tail = xi[:, -(kc - 1):]
-    if tail.shape[1] < kc - 1:             # shorter than the conv: zeros
-        tail = torch.nn.functional.pad(tail, (0, 0, kc - 1 - tail.shape[1], 0))
+    tail = _conv_tail(xi, kc, x.dtype)
     xi = silu(mb._causal_conv(xi, p["conv_w"], p["conv_b"]).to(xi.dtype))
     dt, Bm, Cm = mb._mamba1_dtbc(p, xi, cfg)
     A = -torch.exp(p["A_log"])
     y, hT = ssm_scan_state(xi, dt, A, Bm, Cm, p["D"])
     y = y * silu(z)
     out = x + (y @ p["out_proj"])
-    return out, {"conv": tail.to(x.dtype).contiguous(), "h": hT}
+    return out, {"conv": tail, "h": hT}
 
 
 def mamba_block_decode(params, x, cache, cfg):
     """One-token decode; ``cache`` is updated in place. Returns (y, cache)."""
     h = rmsnorm(x, params["norm"], eps=cfg.norm_eps)
-    y, cache = mb.mamba1_decode(params["mixer"], h, cache, cfg)
+    dec = mb.mamba2_decode if _mamba2(cfg) else mb.mamba1_decode
+    y, cache = dec(params["mixer"], h, cache, cfg)
     return x + y, cache

@@ -1,13 +1,17 @@
 """Decoder LM: the dense and MoE transformer (GQA with rope or sinusoidal
-positions, optional sliding window and audio-conditioning prefix, or MLA)
-and mamba1 subsets of ``repro.models.lm``.
+positions, optional sliding window and audio-conditioning prefix, or MLA),
+mamba1 and mamba2 stacks, and the zamba2 hybrid (groups of mamba2 layers,
+each followed by one shared attention block with its own KV cache per
+application): the subsets of ``repro.models.lm`` ported so far.
 
 Parameters are a plain dict of tensors with the JAX package's tree paths and
 shapes: ``embed`` (Vpad, d), ``final_norm`` (d,), ``head`` (d, Vpad) when
 untied, and ``stacks`` (one per program entry) whose leaves carry the
-stacked ``(n, ...)`` layer axis. The layer loop is a Python loop over that
-axis (JAX scans it). Caches are dicts of tensors too; the decode steps
-update their cache IN PLACE and return it (JAX returns a new one). A static
+stacked ``(n, ...)`` layer axis (a ``zamba_group`` stack's leaves carry
+``(n, group, ...)``, and ``shared_attn`` holds the one shared block). The
+layer loop is a Python loop over that axis (JAX scans it). Caches are
+dicts of tensors too; the decode steps update their cache IN PLACE and
+return it (JAX returns a new one). A static
 cache's ``"pos"`` is a host int, so a decode step checks its capacity and
 places its writes without reading the device.
 
@@ -45,23 +49,33 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class StackSpec:
-    kind: str           # dense | moe | mamba1 (the kinds ported so far)
+    kind: str           # dense | moe | mamba1 | mamba2 | zamba_group
     n: int
+    group: int = 0      # zamba_group: mamba layers per shared-attn application
 
 
 def build_program(cfg: ArchConfig) -> list[StackSpec]:
-    if cfg.ssm_type == "mamba1" and not cfg.shared_attn_every:
-        return [StackSpec("mamba1", cfg.n_layers)]
-    if (cfg.shared_attn_every or cfg.ssm_type
-            or cfg.attn_type not in ("gqa", "mla")
-            or cfg.frontend not in ("", "audio_stub")
+    if (cfg.frontend not in ("", "audio_stub")
             or cfg.pos_embed not in ("rope", "sinusoidal") or cfg.prefix_lm
-            or cfg.embed_scale):
+            or cfg.embed_scale
+            or (cfg.shared_attn_every and cfg.ssm_type != "mamba2")
+            or (not cfg.ssm_type and cfg.attn_type not in ("gqa", "mla"))):
         raise NotImplementedError(
             f"{cfg.name}: only dense GQA models (rope or sinusoidal "
             "positions, optional sliding window and audio prefix), MoE and "
-            "MLA models and mamba1 stacks are ported to PyTorch so far "
-            "(mamba2, hybrids, prefix-LM and embed scaling come later)")
+            "MLA models, mamba1 and mamba2 stacks and the zamba2 hybrid are "
+            "ported to PyTorch so far (prefix-LM, embed scaling and the "
+            "vision prefix come later)")
+    if cfg.shared_attn_every:                       # zamba2 hybrid
+        g = cfg.shared_attn_every
+        ngroups = cfg.n_layers // g
+        tail = cfg.n_layers - ngroups * g
+        prog = [StackSpec("zamba_group", ngroups, group=g)]
+        if tail:
+            prog.append(StackSpec("mamba2", tail))
+        return prog
+    if cfg.ssm_type in ("mamba1", "mamba2"):
+        return [StackSpec(cfg.ssm_type, cfg.n_layers)]
     if cfg.n_experts:
         prog = []
         if cfg.first_dense_layers:
@@ -73,7 +87,9 @@ def build_program(cfg: ArchConfig) -> list[StackSpec]:
 
 _INIT = {"dense": blocks.tblock_init,
          "moe": functools.partial(blocks.tblock_init, moe=True),
-         "mamba1": blocks.mamba_block_init}
+         "mamba1": blocks.mamba_block_init,
+         "mamba2": blocks.mamba_block_init}
+_MAMBA = ("mamba1", "mamba2")
 
 
 def _layer(tree, i):
@@ -96,6 +112,24 @@ def _stack(trees):
     return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
                 else torch.stack([t[k] for t in trees]))
             for k, v in first.items()}
+
+
+def _regroup(tree, n, group):
+    """A stack of ``n * group`` layers as ``n`` groups: leaves (n, group,
+    ...), views of the same storage."""
+    return {k: (_regroup(v, n, group) if isinstance(v, dict)
+                else v.view(n, group, *v.shape[1:]))
+            for k, v in tree.items()}
+
+
+def _zeros(lead, single, device):
+    """A stacked cache of ``single``'s (meta) leaves with leading axes
+    ``lead``: zeros, except a rolling window's slot positions, -1."""
+    return {k: (torch.full((*lead, *v.shape), -1, dtype=v.dtype,
+                           device=device)
+                if k == "slot_pos" else
+                torch.zeros((*lead, *v.shape), dtype=v.dtype, device=device))
+            for k, v in single.items()}
 
 
 class LM:
@@ -125,8 +159,15 @@ class LM:
         if not cfg.tie_embeddings:
             params["head"] = dense_init(gen, (cfg.d_model, self.vpad), dtype,
                                         dev)
-        params["stacks"] = [_INIT[s.kind](gen, cfg, dtype, dev, n=s.n)
-                            for s in self.program]
+        if cfg.shared_attn_every:
+            params["shared_attn"] = _layer(
+                blocks.tblock_init(gen, cfg, dtype, dev, n=1), 0)
+        params["stacks"] = [
+            _regroup(blocks.mamba_block_init(gen, cfg, dtype, dev,
+                                             n=s.n * s.group), s.n, s.group)
+            if s.kind == "zamba_group" else
+            _INIT[s.kind](gen, cfg, dtype, dev, n=s.n)
+            for s in self.program]
         return params
 
     def param_count(self, params) -> int:
@@ -192,8 +233,16 @@ class LM:
         x = self._embed(params, tokens, prefix_embeddings)
         aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for spec, sp in zip(self.program, params["stacks"]):
+            if spec.kind == "zamba_group":
+                for gp in _unstack(sp, spec.n):
+                    for lp in _unstack(gp, spec.group):
+                        x = blocks.mamba_block_forward(lp, x, cfg)
+                    x, a = blocks.tblock_forward(params["shared_attn"], x,
+                                                 cfg)
+                    aux = aux + a
+                continue
             for lp in _unstack(sp, spec.n):
-                if spec.kind == "mamba1":
+                if spec.kind in _MAMBA:
                     x = blocks.mamba_block_forward(lp, x, cfg)
                     continue
                 x, a = blocks.tblock_forward(lp, x, cfg,
@@ -245,7 +294,7 @@ class LM:
         pred_x = x[:, p:-1] if x.shape[1] > p + 1 else x[:, p:]
         ce = self._fused_ce(params, pred_x, labels)
         lb, z = aux[0], aux[1]
-        nl = max(sum(s.n for s in self.program), 1)
+        nl = max(sum(s.n * max(s.group, 1) for s in self.program), 1)
         total = ce + (0.02 * lb + 1e-3 * z) / nl
         return total, {"ce": ce, "moe_lb": lb, "moe_z": z}
 
@@ -255,22 +304,27 @@ class LM:
         tokens: per stack, k/v (n, B, Hk, m, hd) (m = min(max_len, window)
         for a rolling window, with slot_pos (n, m)), MLA's latent ckv
         (n, B, m, lora) and krope (n, B, m, rope), or the mamba conv tail
-        (n, B, K-1, di) and state (n, B, di, N) f32."""
+        (n, B, K-1, C) and state (n, B, di, N) (mamba1) or (n, B, H, P, N)
+        (mamba2) f32; a zamba group stack {"mamba": those leaves with
+        (n, group, ...), "attn": the shared block's k/v, one per
+        application (n, ...)}."""
+        cfg, dev = self.cfg, self.device
         dtype = dtype or self.dtype
         stacks = []
+        def ssm():
+            return blocks.mamba_block_cache_init(cfg, batch, dtype, "meta")
+
+        def att():
+            return blocks.tblock_cache_init(cfg, batch, max_len, dtype, "meta")
+
         for spec in self.program:
-            if spec.kind == "mamba1":
-                single = blocks.mamba_block_cache_init(self.cfg, batch, dtype,
-                                                       "meta")
+            if spec.kind == "zamba_group":
+                stacks.append({"mamba": _zeros((spec.n, spec.group), ssm(),
+                                               dev),
+                               "attn": _zeros((spec.n,), att(), dev)})
             else:
-                single = blocks.tblock_cache_init(self.cfg, batch, max_len,
-                                                  dtype, "meta")
-            stacks.append({k: (torch.full((spec.n, *v.shape), -1,
-                                          dtype=v.dtype, device=self.device)
-                               if k == "slot_pos" else
-                               torch.zeros((spec.n, *v.shape), dtype=v.dtype,
-                                           device=self.device))
-                           for k, v in single.items()})
+                stacks.append(_zeros((spec.n,), ssm() if spec.kind in _MAMBA
+                                     else att(), dev))
         return {"pos": 0, "stacks": stacks}
 
     @property
@@ -279,7 +333,8 @@ class LM:
         attention stacks without a rolling window (rolling caches rotate and
         never overflow; SSM stacks carry O(1) state)."""
         return (not self.cfg.window
-                and any(s.kind in ("dense", "moe") for s in self.program))
+                and any(s.kind in ("dense", "moe", "zamba_group")
+                        for s in self.program))
 
     def cache_capacity(self, cache) -> int | None:
         """Token positions the attention caches can hold, or None when
@@ -287,9 +342,13 @@ class LM:
         leaves: ckv (n, B, m, lora), k (n, B, Hk, m, hd)."""
         if not self.has_positional_cache:
             return None
-        caps = [sc["ckv"].shape[2] if "ckv" in sc else sc["k"].shape[3]
-                for spec, sc in zip(self.program, cache["stacks"])
-                if spec.kind in ("dense", "moe")]
+        caps = []
+        for spec, sc in zip(self.program, cache["stacks"]):
+            if spec.kind == "zamba_group":
+                sc = sc["attn"]
+            elif spec.kind not in ("dense", "moe"):
+                continue
+            caps.append(sc["ckv"].shape[2] if "ckv" in sc else sc["k"].shape[3])
         return min(caps) if caps else None
 
     # -------------------------------------------------------------- prefill
@@ -311,9 +370,13 @@ class LM:
                 "raise max_len")
         caches = []
         for spec, sp in zip(self.program, params["stacks"]):
+            if spec.kind == "zamba_group":
+                x, c = self._zamba_prefill(params, sp, spec, x, max_len)
+                caches.append(c)
+                continue
             layer_caches = []
             for i in range(spec.n):
-                if spec.kind == "mamba1":
+                if spec.kind in _MAMBA:
                     x, c = blocks.mamba_block_prefill(_layer(sp, i), x, cfg)
                 else:
                     x, c = blocks.tblock_prefill(_layer(sp, i), x, cfg,
@@ -324,6 +387,23 @@ class LM:
         x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
         logits = self._logits(params, x[:, -1:])[:, 0]
         return logits, {"pos": s, "stacks": caches}
+
+    def _zamba_prefill(self, params, sp, spec, x, max_len):
+        """A zamba group stack's prefill: each group's mamba2 layers, then
+        the shared block with a fresh KV cache of ``max_len`` slots.
+        Returns (x, {"mamba": (n, group, ...) leaves, "attn": (n, ...)})."""
+        cfg = self.cfg
+        mamba, attn = [], []
+        for i in range(spec.n):
+            gp, group = _layer(sp, i), []
+            for j in range(spec.group):
+                x, c = blocks.mamba_block_prefill(_layer(gp, j), x, cfg)
+                group.append(c)
+            mamba.append(_stack(group))
+            x, c = blocks.tblock_prefill(params["shared_attn"], x, cfg,
+                                         max_len=max_len)
+            attn.append(c)
+        return x, {"mamba": _stack(mamba), "attn": _stack(attn)}
 
     def greedy_token(self, logits):
         return torch.argmax(logits[..., :self.cfg.vocab_size], dim=-1)
@@ -346,8 +426,18 @@ class LM:
         x = self._embed(params, tokens, pos0=pos)
         for spec, sp, sc in zip(self.program, params["stacks"],
                                 cache["stacks"]):
+            if spec.kind == "zamba_group":
+                for i in range(spec.n):
+                    gp, gc = _layer(sp, i), _layer(sc["mamba"], i)
+                    for j in range(spec.group):
+                        x, _ = blocks.mamba_block_decode(
+                            _layer(gp, j), x, _layer(gc, j), cfg)
+                    x, _ = blocks.tblock_decode(params["shared_attn"], x,
+                                                _layer(sc["attn"], i), cfg,
+                                                pos=pos)
+                continue
             for i in range(spec.n):
-                if spec.kind == "mamba1":
+                if spec.kind in _MAMBA:
                     x, _ = blocks.mamba_block_decode(_layer(sp, i), x,
                                                      _layer(sc, i), cfg)
                 else:

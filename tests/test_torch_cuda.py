@@ -1698,3 +1698,131 @@ def test_mla_decode_products_keep_f32_results_in_bf16(dev):
     y_cpu, _ = attn.mla_decode(tree_to(params, "cpu"), x.cpu(), c_cpu, cfg,
                                pos=pos)
     _close_rel(y.cpu().float(), y_cpu.float(), 1e-2)
+
+
+# ---------------------------------------------------------------------------
+# zamba2: ssm_scan at state size 64, flash_fwd at head dim 112
+# ---------------------------------------------------------------------------
+
+def _head_broadcast_A(dev, dm, n, p, seed):
+    """mamba2's A reaching the kernel: one value a head of p channels,
+    repeated over the channels and broadcast along n (a contiguous copy)."""
+    a = -(_rnd(dev, dm // p, seed=seed).abs() + 0.5)
+    return a.repeat_interleave(p)[:, None].expand(dm, n).contiguous()
+
+
+@pytest.mark.parametrize("bt,L,dm,head_A", [(2, 129, 17, False),
+                                            (1, 300, 40, False),
+                                            (2, 1, 5, False),
+                                            (1, 200, 96, True)])
+def test_ssm_scan_kernel_state_64(dev, bt, L, dm, head_A):
+    """n = 64 in f32 at L and dm off the kernel's 128-step, 32-channel
+    tile, with and without h0, and with a per-head-broadcast A (heads of
+    32 channels), against the plain version (TOL)."""
+    n = 64
+    x = _rnd(dev, bt, L, dm)
+    delta = torch.nn.functional.softplus(_rnd(dev, bt, L, dm, seed=1)) * 0.1
+    A = (_head_broadcast_A(dev, dm, n, 32, 2) if head_A
+         else -(_rnd(dev, dm, n, seed=2).abs() + 0.1))
+    B, C = _rnd(dev, bt, L, n, seed=3), _rnd(dev, bt, L, n, seed=4)
+    D, h0 = _rnd(dev, dm, seed=5), _rnd(dev, bt, dm, n, seed=6)
+    for h in (h0, None):
+        reset_launches()
+        y, hT = ssm_scan_fwd(x, delta, A, B, C, D, h0=h)
+        assert ssm_scan_fwd.launches == 1
+        ry, rhT = selective_scan_ref(x, delta, A, B, C, D, h0=h)
+        torch.testing.assert_close(y, ry, **TOL)
+        torch.testing.assert_close(hT, rhT, **TOL)
+
+
+@pytest.mark.parametrize("bt,L", [(4, 512), (1, 2048)])
+def test_ssm_scan_kernel_at_zamba2_shapes(dev, bt, L):
+    """zamba2_7b's prefill (4 x 512) and forward (1 x 2048) at d_inner
+    7168 and state 64, inputs as mamba2 hands them over: bf16 x, B, C, f32
+    delta and A repeated over each head's 64 channels. y within one bf16
+    rounding (1e-2 and 2^-7), hT within 1e-3 of its largest magnitude."""
+    bf, dm, n, p = torch.bfloat16, 7168, 64, 64
+    x = _rnd(dev, bt, L, dm).to(bf)
+    dt = torch.nn.functional.softplus(_rnd(dev, bt, L, dm // p, seed=1) - 4)
+    delta = dt.repeat_interleave(p, dim=-1)
+    A = _head_broadcast_A(dev, dm, n, p, 2)
+    B = _rnd(dev, bt, L, n, seed=3).to(bf)
+    C = _rnd(dev, bt, L, n, seed=4).to(bf)
+    D = torch.ones(dm, device=dev)
+    y, hT = ssm_scan_fwd(x, delta, A, B, C, D)
+    ry, rhT = selective_scan_ref(x, delta, A, B, C, D)
+    torch.testing.assert_close(y, ry, atol=1e-2, rtol=2 ** -7)
+    scale = float(rhT.abs().max())
+    torch.testing.assert_close(hT, rhT, atol=1e-3 * scale, rtol=1e-3)
+
+
+@pytest.mark.parametrize("sq,skv,causal", [(5, 5, True), (70, 70, True),
+                                           (130, 200, True), (64, 64, False),
+                                           (1, 77, True), (512, 512, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_head_dim_112(dev, sq, skv, causal, dtype):
+    """d = 112 on the CUDA-core kernel (f32) and the tensor-core one (bf16,
+    q, k, v the projections' strided views), ragged Sq != Skv and Sq off
+    the 64-row tile, sm_scale 1/sqrt(112): f32 within 1e-4; bf16 o within
+    2e-2 and 2^-6 of its row's largest |o|, lse within 1e-3 / 1e-4."""
+    d = 112
+    if dtype == torch.bfloat16:
+        q = _view(dev, 2, skv, 4, d, 1)[:, :, skv - sq:]
+        k, v = _view(dev, 2, skv, 4, d, 2), _view(dev, 2, skv, 4, d, 3)
+    else:
+        q = _rnd(dev, 2, 4, sq, d, seed=1)
+        k, v = _rnd(dev, 2, 4, skv, d, seed=2), _rnd(dev, 2, 4, skv, d, seed=3)
+    reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash_attention_fwd.routes[want] == 1 == flash_attention_fwd.launches
+    assert o.shape == (2, 4, sq, d)
+    ro, rlse = flash_fwd_ref(q, k, v, causal=causal, sm_scale=d ** -0.5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, **TOL)
+        torch.testing.assert_close(lse, rlse, **TOL)
+    else:
+        torch.testing.assert_close(o.float(), ro.float(), atol=2e-2,
+                                   rtol=2e-2)
+        _close_rows(o, ro, 2 ** -6)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_d112_gradient_before_launch(dev, dtype):
+    """No backward kernel takes d = 112: a gradient raises before the
+    forward launches; without one the forward runs."""
+    q = _rnd(dev, 1, 2, 40, 112).to(dtype).requires_grad_()
+    reset_launches()
+    with pytest.raises(NotImplementedError, match="head dim 112"):
+        flash_attention(q, q, q)
+    assert flash_attention_fwd.launches == 0
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == (1, 2, 40, 112)
+    assert flash_attention_fwd.launches == 1
+
+
+def test_zamba2_serves_on_card_like_cpu(dev):
+    """Reduced zamba2 (two groups of two mamba2 layers and the shared
+    block, a mamba2 tail) at state 64 and head dim 112, one set of f32
+    weights on the card and the CPU: prefill logits within 1e-3 of the
+    largest, 8 greedy tokens equal, every scan and prefill attention on
+    its kernel."""
+    cfg = dataclasses.replace(reduced(get_config("zamba2_7b")), n_layers=5,
+                              ssm_state=64, head_dim=112)
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(3))
+    cpu = LM(cfg, device="cpu")
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 40))
+    reset_launches()
+    out, _ = generate(model, params, prompts, gen_tokens=8)
+    counts = launch_counts()
+    assert counts["ssm_scan"] == 5 and counts["flash_fwd"] == 2
+    assert counts["flash_decode"] == 2 * 8
+    ref, _ = generate(cpu, tree_to(params, "cpu"), prompts, gen_tokens=8)
+    np.testing.assert_array_equal(out, ref)
+    toks = torch.as_tensor(prompts, device=dev)
+    with torch.no_grad():
+        lg, _ = model.prefill(params, toks)
+        lc, _ = cpu.prefill(tree_to(params, "cpu"), toks.cpu())
+    _close_rel(lg.cpu(), lc, 1e-3)

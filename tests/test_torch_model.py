@@ -203,7 +203,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LM(cfg, device="cuda")
 
 
-@pytest.mark.parametrize("arch", ["zamba2_7b", "paligemma_3b"])
+@pytest.mark.parametrize("arch", ["paligemma_3b"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="dense GQA"):
         LM(reduced(get_config(arch)), device="cpu")
@@ -217,7 +217,10 @@ def test_unported_architectures_raise(arch):
     ("falcon_mamba_7b", {}, ["mamba1"], False),
     ("mixtral_8x22b", {}, ["moe"], False),                  # its window
     ("mixtral_8x22b", dict(window=None), ["moe"], True),
-    ("deepseek_v2_lite", {}, ["dense", "moe"], False)])     # MLA
+    ("deepseek_v2_lite", {}, ["dense", "moe"], False),      # MLA
+    ("zamba2_7b", {}, ["zamba_group"], False),
+    ("zamba2_7b", dict(n_layers=5), ["zamba_group", "mamba2"], False),
+    ("zamba2_7b", dict(shared_attn_every=0), ["mamba2"], False)])
 def test_build_program_admits_the_ported_architectures(arch, changes, kinds,
                                                        pageable):
     """The program equals the JAX package's, and the paged engine takes
@@ -229,4 +232,5 @@ def test_build_program_admits_the_ported_architectures(arch, changes, kinds,
     assert [s.kind for s in tm.program] == kinds == [
         s.kind for s in jm.program]
     assert [s.n for s in tm.program] == [s.n for s in jm.program]
+    assert [s.group for s in tm.program] == [s.group for s in jm.program]
     assert tm.pageable == jm.pageable == pageable
