@@ -9,7 +9,9 @@ runs sequence-parallel ring attention at ``llama3_2_1b``'s widths and the
 blocked matmul op, serves the whole ``deepseek_v2_lite`` (MLA + MoE) and
 ``mixtral_8x22b`` at 4 of its 56 layers (MoE, window) and the whole
 ``zamba2_7b`` (mamba2 + a shared attention block) through the static path,
-and times each kernel.
+serves the whole ``paligemma_3b`` (MQA at head dim 256, a vision-stub
+prefix under the prefix-LM mask) through the engine, the static path and
+a prefix prefill, and times each kernel.
 
   python3 chip_smoke.py
 
@@ -168,7 +170,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     token's largest output), with planted cache faults reading above that
     at every layer, every logit finite; ``forward`` on B = 1, S = 2048 (ssm_scan exactly 81) against
     prefill's last logits; then (8) ssm_scan at its forward and prefill
-    shapes and flash_fwd at its prefill shape, held and timed.
+    shapes and flash_fwd at its prefill shape, held and timed;
+17. the whole 18-layer bf16 paligemma_3b (launch counts zeroed just before
+    each run and read just after, each exact; flash_fwd and the decode
+    head on their tensor-core routes every time): the engine on phase 4's
+    traffic (8 slots, page 512; flash_fwd 18 a prefill, paged_decode 18 a
+    step at d = 256, g = 8) and its decode step's profile; ``generate``
+    on the static path (4 prompts of 512 tokens, 32 new; flash_decode
+    18 x 32) and its profile; a prefill of 4 x (256 vision-stub prefix
+    embeddings + 512 tokens), one decode step and 16 greedy steps
+    (flash_fwd 18, flash_decode 18 x 17), the prefill against forward over
+    the same sequence (1e-3) and the decode step against forward one token
+    longer (5% of the largest logit); tokens/s, host ms a step against
+    busy ms, prefill ms, parameters and peak memory; then (8) flash_fwd at
+    its prefix-LM prefill shape and paged decode at d = 256 over the
+    serving step's lengths, held and timed. Phase 2a holds flash_fwd at
+    d = 256 and under the prefix mask (prefix 0, off the tile, a whole
+    tile, past Sq; with and without a window; d 64/128/256) on both
+    kernels, shows that a prefix held against the causal-only plain
+    version fails, holds paged decode at d = 256, g = 8 in f32 and bf16
+    at every split length, and wants a d = 256 and a prefix gradient
+    refused before any launch; phase 3 runs paligemma at full width with
+    2 layers in f32, card vs CPU (prefill over 256 prefix embeddings
+    within 1e-3 of the largest logit; 8 greedy tokens equal on the engine
+    and the static path, and engine == static).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -274,6 +299,12 @@ ZB_BATCH, ZB_PROMPT, ZB_GEN, ZB_FWD_SEQ = 4, 512, 32, 2048
 # planted faults at least 10.25% (SSD state zeroed), 67.5% (conv tail one
 # row late) and 10.65% (attention one position early)
 ZB_TWIN_REL, ZB_TWIN_SEEDS = 0.03, (71, 74, 75)
+# the vision-language path: paligemma_3b whole (18 layers, 8 query heads of
+# 256 over one kv head, vocab 257216) on the engine's serving traffic, on
+# the static path (4 prompts of 512 tokens, 32 new) and through a prefill
+# of 4 x (256 vision-stub prefix embeddings + 512 tokens) with 16 greedy
+# steps after it
+PG_BATCH, PG_PROMPT, PG_GEN, PG_STEPS = 4, 512, 32, 16
 
 
 def log(msg):
@@ -937,7 +968,8 @@ def profile_decode(model, params, reqs, nsteps=8):
     """Where the time of the main path goes: a fresh engine fills its 8
     slots (no slot retires inside the window), then ``nsteps`` decode steps
     run once on the host clock and once under ``torch.profiler``; also the
-    host time of one B=1 prefill of the longest prompt."""
+    host time of one B=1 prefill of the longest prompt. Returns (host ms,
+    device busy ms) a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -963,7 +995,8 @@ def profile_decode(model, params, reqs, nsteps=8):
         prof_step_ms = run()
     rows = device_rows(prof, nsteps)
     busy_ms = sum(r[0] for r in rows)
-    log(f"[profile] decode step (8 slots, 16 layers): host {step_ms:.3f} "
+    log(f"[profile] {model.cfg.name} decode step (8 slots, "
+        f"{model.cfg.n_layers} layers): host {step_ms:.3f} "
         f"ms/step ({prof_step_ms:.3f} under the profiler); device busy "
         f"{busy_ms:.3f} ms/step = {100 * busy_ms / step_ms:.1f}% of the "
         f"unprofiled step, idle {100 * (1 - busy_ms / step_ms):.1f}%")
@@ -989,6 +1022,7 @@ def profile_decode(model, params, reqs, nsteps=8):
         times.append((time.perf_counter() - t0) * 1e3)
     log(f"[profile] B=1 prefill of {toks.shape[1]} tokens: host "
         f"{min(times):.3f} ms (best of 3)")
+    return step_ms, busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1173,6 +1207,80 @@ def rmsnorm_host_split(x, w, wb, eps, n=2000):
         library=per_call(lambda: F.rms_norm(x, (d,), wb, eps)))
 
 
+def paged_times(dev, cfg, lens, page, num_pages, gen):
+    """paged_decode at a decode step of ``cfg`` over slots holding ``lens``
+    tokens (each layer's pools on shuffled pages, cycled as a step cycles
+    them, so L2 does not hold them), held against its plain version first:
+    the call's time, the kernel's device time alone, the plain version's
+    and the library's (the pages gathered, then SDPA with the mask),
+    beside its bound (the live K and V, q and o, the pages' positions and
+    the table once each), and the kernel's max |err| (``"err"``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (paged_decode_attention,
+                                                     paged_decode_ref)
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    bf = torch.bfloat16
+    h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b = len(lens)
+    nl = cfg.n_layers          # cycle the layers' pools, as a step does
+    pools, table, kv_len, pos = paged_state(dev, cfg, lens, page, num_pages,
+                                            nl, bf, gen)
+    qd = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(bf)
+    it = iter(range(1 << 30))
+
+    def kernel():
+        kp, vp = pools[next(it) % nl]
+        return paged_decode_attention(qd, kp, vp, block_table=table,
+                                      kv_len=kv_len, pos_pages=pos)
+
+    def plain():
+        kp, vp = pools[next(it) % nl]
+        return paged_decode_ref(qd, kp, vp, block_table=table,
+                                kv_len=kv_len, pos_pages=pos)
+
+    # held first at full_width_bf16_checks' limits, on the first layer's
+    # pools
+    kw = dict(block_table=table, kv_len=kv_len, pos_pages=pos)
+    err = check_close(
+        f"paged bf16 {cfg.name} q ({b},{h},1,{hd}) lens={lens}",
+        paged_decode_attention(qd, *pools[0], **kw),
+        paged_decode_ref(qd, *pools[0], **kw), atol=2e-2, rtol=2e-2)
+
+    tab = table.long()
+    m = tab.shape[1] * page
+    mask = ((pos.long()[tab].reshape(b, m) >= 0)
+            & (pos.long()[tab].reshape(b, m) < kv_len[:, None]))[:, None, None]
+
+    def library():
+        kp, vp = pools[next(it) % nl]
+        kb = kp[tab].transpose(1, 2).reshape(b, hk, m, hd)
+        vb = vp[tab].transpose(1, 2).reshape(b, hk, m, hd)
+        return F.scaled_dot_product_attention(qd, kb, vb, attn_mask=mask,
+                                              enable_gqa=True)
+
+    ntok = sum(lens)
+    pages_read = sum(-(-n // page) for n in lens)
+    nbytes = (2 * ntok * hk * hd * 2 + 2 * 2 * b * h * hd
+              + pages_read * page * 4 + table.numel() * 4 + b * 4)
+    out = dict(
+        ms=cuda_ms(kernel, iters=64),
+        device_ms=device_ms(kernel, "paged_decode", launches=2),
+        plain_ms=cuda_ms(plain, iters=16),
+        library_ms=cuda_ms(library, iters=16), bytes=nbytes,
+        library="gather pages + F.scaled_dot_product_attention(attn_mask)",
+        shape=f"q ({b},{h},1,{hd}) bf16, pools ({num_pages},{hk},{page},"
+              f"{hd}), kv_len {lens}")
+    out.update(zip(("bound_ms", "bound_by"), bound(
+        nbytes, 4 * h * hd * ntok, "bfloat16")))
+    out["split"] = attn_ops.paged_split(b, hk, table.shape[1], page)
+    out["err"] = err
+    del pools
+    return out
+
+
 def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
     """{kernel: dict(ms, plain_ms, bound_ms, bound_by, library_ms)} at the
     main path's shapes: a decode step of len(lens) slots for rmsnorm, paged
@@ -1180,9 +1288,6 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (paged_decode_attention,
-                                                     paged_decode_ref)
-    from repro_torch.kernels.flash_attention import ops as attn_ops
     from repro_torch.kernels.lm_head import lm_head_logits, lm_head_logits_ref
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 
@@ -1227,50 +1332,7 @@ def time_kernels(dev, cfg, params, sq, lens, page, num_pages):
         2 * (2 * h + 2 * hk) * sq * hd + 4 * h * sq,
         4 * h * hd * pairs, "bfloat16")))
 
-    nl = cfg.n_layers          # cycle the layers' pools, as a step does
-    pools, table, kv_len, pos = paged_state(dev, cfg, lens, page, num_pages,
-                                            nl, bf, gen)
-    qd = torch.randn((b, h, 1, hd), generator=gen, device=dev).to(bf)
-    it = iter(range(1 << 30))
-
-    def kernel():
-        kp, vp = pools[next(it) % nl]
-        return paged_decode_attention(qd, kp, vp, block_table=table,
-                                      kv_len=kv_len, pos_pages=pos)
-
-    def plain():
-        kp, vp = pools[next(it) % nl]
-        return paged_decode_ref(qd, kp, vp, block_table=table,
-                                kv_len=kv_len, pos_pages=pos)
-
-    tab = table.long()
-    m = tab.shape[1] * page
-    mask = ((pos.long()[tab].reshape(b, m) >= 0)
-            & (pos.long()[tab].reshape(b, m) < kv_len[:, None]))[:, None, None]
-
-    def library():
-        kp, vp = pools[next(it) % nl]
-        kb = kp[tab].transpose(1, 2).reshape(b, hk, m, hd)
-        vb = vp[tab].transpose(1, 2).reshape(b, hk, m, hd)
-        return F.scaled_dot_product_attention(qd, kb, vb, attn_mask=mask,
-                                              enable_gqa=True)
-
-    ntok = sum(lens)
-    pages_read = sum(-(-n // page) for n in lens)
-    nbytes = (2 * ntok * hk * hd * 2 + 2 * 2 * b * h * hd
-              + pages_read * page * 4 + table.numel() * 4 + b * 4)
-    out["paged_decode"] = dict(
-        ms=cuda_ms(kernel, iters=64),
-        device_ms=device_ms(kernel, "paged_decode"),
-        plain_ms=cuda_ms(plain, iters=16),
-        library_ms=cuda_ms(library, iters=16), bytes=nbytes,
-        library="gather pages + F.scaled_dot_product_attention(attn_mask)",
-        shape=f"q ({b},{h},1,{hd}) bf16, pools ({num_pages},{hk},{page},"
-              f"{hd}), kv_len {lens}")
-    out["paged_decode"].update(zip(("bound_ms", "bound_by"), bound(
-        nbytes, 4 * h * hd * ntok, "bfloat16")))
-    out["paged_decode"]["split"] = attn_ops.paged_split(b, hk, table.shape[1],
-                                                        page)
+    out["paged_decode"] = paged_times(dev, cfg, lens, page, num_pages, gen)
 
     xh = torch.randn((b, d), generator=gen, device=dev).to(bf)
     head = params["embed"].T
@@ -2640,7 +2702,8 @@ def _static_run(model, params, prompts, ngen):
 
     torch.cuda.synchronize()
     reset_launches()
-    out, stats = generate(model, params, prompts, gen_tokens=ngen)
+    out, stats = generate(model, params, prompts, gen_tokens=ngen,
+                          engine="static")
     torch.cuda.synchronize()
     counts = launch_counts()
     check_tc_routes(f"{model.cfg.name} static path: flash_fwd",
@@ -4625,10 +4688,10 @@ class _DecodeTwin:
             self.err["mamba2"].append(rel(y, ref))
             return y, cache
 
-        def rec_fwd(params, x, cfg, *, return_kv=False):
-            if return_kv:
+        def rec_fwd(params, x, cfg, **kw):
+            if kw.get("return_kv"):
                 pre["attention"].append(x.detach().clone())
-            return fwd(params, x, cfg, return_kv=return_kv)
+            return fwd(params, x, cfg, **kw)
 
         def twin_a(params, x, cache, cfg, *, pos):
             with torch.no_grad():
@@ -4854,6 +4917,416 @@ def time_zamba_kernels(dev):
     return out, err
 
 
+# ---------------------------------------------------------------------------
+# paligemma: phases 2a, 3, 17 and 8 for flash_fwd at d = 256 under the
+# prefix-LM mask and paged decode at d = 256 with 8 query heads a kv head
+# ---------------------------------------------------------------------------
+
+def _rows_ratio(got, ref):
+    """max |got - ref| over the largest |ref| of its row (the last dim)."""
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).abs()
+                  / ref.abs().amax(-1, keepdim=True)).max())
+
+
+def small_paligemma_kernel_checks(dev):
+    """flash_fwd at d = 256 on both kernels at ragged Sq != Skv, groups 1,
+    2 and 8: bf16 q, k and v laid out as the projections' strided views on
+    the tensor cores (check_flash_tc's limits), f32 copies of the same
+    values on the CUDA cores (1e-4); the prefix-LM mask with prefix_len 0,
+    off the tile (37), a whole 64-row tile and past Sq, with and without a
+    window of 24, at d 64, 128 and 256, on both kernels; a planted
+    comparison: a prefix launch held against the causal-only plain version
+    must read above the limit (a kernel that treated the prefix as causal
+    would pass only there); paged decode at d = 256 with 8 query heads a
+    kv head (g d = 2048) in f32 (1e-4) and bf16 (2e-2) with the split rule's
+    length and every length it may take (32, 64, ..., 512) forced, on
+    block tables laid out as the engine lays them (logical slot l holds
+    position l or -1); a d = 256 and a prefix gradient refused before any
+    launch. Returns (max |err| of flash_fwd, of paged_decode)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_fwd,
+                                                     flash_fwd_ref,
+                                                     paged_decode_attention,
+                                                     paged_decode_ref)
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+
+    g = torch.Generator(device=dev).manual_seed(81)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    err = {"flash_fwd": 0.0, "paged_decode": 0.0}
+
+    def both(tag, q, k, v, **kw):
+        """bf16 views on the tensor cores, f32 copies on the CUDA cores."""
+        e = check_flash_tc(f"{tag} bf16", q, k, v, quiet=True, **kw)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        before = flash_attention_fwd.routes["simt"]
+        o, lse = flash_attention_fwd(qf, kf, vf, **kw)
+        if flash_attention_fwd.routes["simt"] != before + 1:
+            fail(f"{tag} f32: did not take the CUDA-core route")
+        ro, rlse = flash_fwd_ref(qf, kf, vf, **kw)
+        e = max(e, check_close(f"{tag} f32 o", o, ro, quiet=True, **tol))
+        check_close(f"{tag} f32 lse", lse, rlse, quiet=True, **tol)
+        err["flash_fwd"] = max(err["flash_fwd"], e)
+
+    shapes = ((5, 5, 8, 1), (70, 70, 8, 1), (130, 200, 8, 1), (1, 77, 4, 4),
+              (200, 333, 8, 2), (64, 64, 4, 4))
+    for sq, skv, h, hk in shapes:
+        q = _proj(g, 2, skv, h, 256)[:, :, skv - sq:]
+        k, v = _proj(g, 2, skv, hk, 256), _proj(g, 2, skv, hk, 256)
+        both(f"flash_fwd d=256 sq={sq} skv={skv} h={h}/{hk}", q, k, v,
+             causal=True)
+    log(f"[check] flash_fwd d=256: {len(shapes)} shapes on both kernels "
+        f"(bf16 views at check_flash_tc's limits, f32 within 1e-4), "
+        f"max|err| {err['flash_fwd']:.3e}")
+
+    n = 0
+    for d in (64, 128, 256):
+        for sq, skv in ((150, 150), (100, 230)):
+            q = _proj(g, 2, skv, 8, d)[:, :, skv - sq:]
+            k, v = _proj(g, 2, skv, 1, d), _proj(g, 2, skv, 1, d)
+            for prefix in (0, 37, 64, sq + 40):
+                for window in (None, 24):
+                    both(f"flash_fwd d={d} sq={sq} skv={skv} prefix="
+                         f"{prefix} window={window}", q, k, v, causal=True,
+                         window=window, prefix_len=prefix)
+                    n += 1
+    log(f"[check] flash_fwd prefix-LM mask: {n} cases on both kernels "
+        f"(prefix 0, 37, a whole tile, past Sq; window none and 24; d 64, "
+        f"128 and 256; group 8), max|err| {err['flash_fwd']:.3e}")
+
+    q = _proj(g, 2, 300, 8, 256)
+    k, v = _proj(g, 2, 300, 1, 256), _proj(g, 2, 300, 1, 256)
+    o, _ = flash_attention_fwd(q, k, v, causal=True, prefix_len=256)
+    planted = _rows_ratio(o, flash_fwd_ref(q, k, v, causal=True)[0])
+    if planted <= 2 ** -6:
+        fail(f"flash_fwd prefix 256 against the causal-only plain version: "
+             f"{planted:.3e} of a row's largest |o|, within the 2^-6 limit: "
+             "the check cannot tell a prefix treated as causal")
+    log(f"[check] planted: flash_fwd with prefix 256 against the "
+        f"causal-only plain version reads {planted:.3e} of a row's largest "
+        f"|o|, above the 2^-6 = {2 ** -6:.3e} limit: a kernel that treated "
+        "the prefix as causal fails the check")
+
+    cfg = get_config("paligemma_3b")
+    lens = [1000, 241, 0, 700, 33, 512, 999, 64]
+    splits = (None, *range(32, 513, 32))    # the rule's, then every length
+    rule = attn_ops.paged_split
+    for dtype, ptol in ((torch.float32, tol),
+                        (torch.bfloat16, dict(atol=2e-2, rtol=2e-2))):
+        pools, table, kv_len, pos = paged_state(dev, cfg, lens, 512, 33, 1,
+                                                dtype, g)
+        qd = torch.randn((len(lens), 8, 1, 256), generator=g,
+                         device=dev).to(dtype)
+        kw = dict(block_table=table, kv_len=kv_len, pos_pages=pos)
+        ro = paged_decode_ref(qd, *pools[0], **kw)
+        for split in splits:
+            if split is not None:
+                attn_ops.paged_split = (lambda b, hk, nsp, page, sp=split:
+                                        (sp, -(-nsp * page // sp)))
+            try:
+                o = paged_decode_attention(qd, *pools[0], **kw)
+            finally:
+                attn_ops.paged_split = rule
+            err["paged_decode"] = max(err["paged_decode"], check_close(
+                f"paged_decode {dtype} d=256 g=8 split={split}", o, ro,
+                quiet=True, **ptol))
+            if not (o[2] == 0).all():
+                fail("paged_decode d=256: the idle slot must give exactly 0")
+        del pools
+    log(f"[check] paged_decode d=256 g=8 (g d 2048) in f32 and bf16, split "
+        f"the rule's and each of 32, 64, ..., 512, lens {lens}: max|err| "
+        f"{err['paged_decode']:.3e}")
+
+    for what, d, kw in (("head dim 256", 256, {}),
+                        ("prefix_len", 64, dict(prefix_len=8))):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((1, 2, 40, d), generator=g, device=dev).to(dt)
+            x.requires_grad_()
+            before = flash_attention_fwd.launches
+            try:
+                flash_attention(x, x, x, **kw)
+            except NotImplementedError as e:
+                if what not in str(e):
+                    fail(f"flash_attention {what} {dt}: refused with {e}")
+            else:
+                fail(f"flash_attention {what} {dt}: a gradient was not "
+                     "refused")
+            if flash_attention_fwd.launches != before:
+                fail(f"flash_attention {what} {dt}: the forward launched "
+                     "before the refusal")
+    log("[check] flash_attention: a d = 256 and a prefix gradient are "
+        "refused before any launch (bf16 and f32)")
+    torch.cuda.synchronize()
+    return err["flash_fwd"], err["paged_decode"]
+
+
+def two_layer_paligemma_f32_checks():
+    """paligemma_3b at full width with 2 layers in f32, one set of weights
+    drawn on the card and copied to the CPU, run on the card (kernels) and
+    on the CPU (plain versions): prefill logits over 256 seeded prefix
+    embeddings and 64 tokens (2 rows) within 1e-3 of the largest logit
+    (f32 sums in other orders); the first 8 greedy tokens equal, card vs
+    CPU, through ``generate`` on the engine (the default: paligemma is
+    pageable; pages of 16) and on the static path; and the engine's tokens
+    equal the static path's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import LM, tree_to
+
+    cfg = dataclasses.replace(get_config("paligemma_3b"), n_layers=2,
+                              dtype="float32")
+    cpu, gpu = LM(cfg, device="cpu"), LM(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=gpu.device).manual_seed(17)
+    p_gpu = gpu.init(gen)
+    p_cpu = tree_to(p_gpu, "cpu")
+    tag = "2-layer f32 paligemma_3b"
+    log(f"[paligemma f32] {tag}: {gpu.param_count(p_gpu)} parameters, "
+        f"drawn on the card and copied in {time.perf_counter() - t0:.1f}s")
+    prompts = np.random.RandomState(18).randint(1, cfg.vocab_size, (2, 64))
+    toks = torch.from_numpy(prompts)
+    pre = torch.randn((2, cfg.num_prefix_embeddings, cfg.d_model),
+                      generator=gen, device=gpu.device)
+    with torch.no_grad():
+        lg, cg = gpu.prefill(p_gpu, toks.to(gpu.device),
+                             prefix_embeddings=pre)
+        lc, _ = cpu.prefill(p_cpu, toks, prefix_embeddings=pre.cpu())
+    if cg["pos"] != cfg.num_prefix_embeddings + 64:
+        fail(f"{tag}: prefill cache pos {cg['pos']}")
+    v = cfg.vocab_size                  # past it, the padded vocab's -1e30
+    check_rel(f"{tag} prefill logits (256 prefix embeddings + 64 tokens), "
+              "card vs CPU", lg.cpu()[:, :v], lc[:, :v], 1e-3)
+    outs = {}
+    for path in ("auto", "static"):
+        out_g, st = generate(gpu, p_gpu, prompts, gen_tokens=8, engine=path,
+                             page_size=16)
+        out_c, _ = generate(cpu, p_cpu, prompts, gen_tokens=8, engine=path,
+                            page_size=16)
+        if st["engine"] != (path == "auto") or not np.array_equal(out_c,
+                                                                  out_g):
+            fail(f"{tag} {path}: engine {st['engine']}, greedy tokens CPU "
+                 f"{out_c.tolist()} != card {out_g.tolist()}")
+        outs[path] = out_g
+    if not np.array_equal(outs["auto"], outs["static"]):
+        fail(f"{tag}: engine tokens {outs['auto'].tolist()} != static "
+             f"tokens {outs['static'].tolist()}")
+    log(f"[paligemma f32] {tag}: 8 greedy tokens agree, card == CPU, on the "
+        f"engine and the static path, engine == static (first row "
+        f"{outs['auto'][0].tolist()})")
+    del cpu, gpu, p_gpu, p_cpu
+    torch.cuda.empty_cache()
+
+
+def paligemma_main_path():
+    """The whole paligemma_3b in bf16 (18 layers, 8 query heads of 256 over
+    one kv head, d_ff 16384, vocab 257216 with an untied head), launch
+    counts zeroed just before each run and read just after, each exact:
+
+    (a) the engine (paligemma is pageable) on the serving traffic: 8 slots,
+        page 512, 16 requests of 33-1000 prompt and 32-64 new tokens
+        (``serve_main_path``): flash_fwd 18 a prefill, paged_decode 18 a
+        decode step, rmsnorm 37 and the head once a pass; then where a
+        decode step's time goes (``profile_decode``);
+    (b) ``generate(engine="static")`` on PG_BATCH prompts of PG_PROMPT
+        tokens, PG_GEN new: flash_fwd 18, flash_decode 18 x PG_GEN (row
+        5d's first model path), rmsnorm 37 and the head once a pass; its
+        decode step's profile;
+    (c) ``prefill`` of PG_BATCH x (256 vision-stub prefix embeddings +
+        PG_PROMPT tokens), one ``decode_step`` and PG_STEPS greedy steps:
+        flash_fwd 18, flash_decode 18 a step. The prefill's last logits
+        against ``forward`` over the same sequence (equal shapes, the same
+        kernels: 1e-3), and prefill + decode_step against ``forward`` over
+        the sequence one token longer (5% of the largest logit, as phase
+        11 holds musicgen: other kernels and product shapes round bf16
+        elsewhere over 18 layers).
+
+    flash_fwd and the decode head take their tensor-core routes every
+    time; every logit is finite. Returns {run: counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.lm_head import lm_head_logits
+
+    torch.cuda.reset_peak_memory_stats()
+    model, params = _full_model("paligemma_3b", 91)
+    cfg = model.cfg
+    prog = [(s.kind, s.n) for s in model.program]
+    if prog != [("dense", 18)] or not model.pageable:
+        fail(f"paligemma_3b: program {prog}, pageable {model.pageable}")
+    nl, per_pass = cfg.n_layers, 2 * cfg.n_layers + 1
+    runs = {}
+
+    def exact(what, counts, want):
+        for name, n in want.items():
+            if counts[name] != n:
+                fail(f"paligemma_3b {what}: {name} launched {counts[name]} "
+                     f"times, want {n}")
+        log(f"paligemma_3b {what} kernels: " + ", ".join(
+            f"{k}={counts[k]}" for k in want))
+
+    # (a) the engine
+    reqs = traffic(0, 16, cfg.vocab_size)
+    counts, st = serve_main_path(cfg, model, params, reqs)
+    npf, nst = st["prefill_calls"], st["decode_steps"]
+    exact("engine", counts, {
+        "flash_fwd": nl * npf, "paged_decode": nl * nst,
+        "rmsnorm": per_pass * (npf + nst), "lm_head": npf + nst,
+        "flash_decode": 0})
+    runs["engine"] = counts
+    log(f"[paligemma_3b] engine: {st['tokens']} tokens for {len(reqs)} "
+        f"requests in {st['wall_s']:.3f}s = {st['tok_s']:.1f} tok/s "
+        f"(prefills {npf}, decode steps {nst}, preempted {st['preempted']})")
+    eng_ms, eng_busy = profile_decode(model, params, reqs)
+
+    # (b) the static path
+    b, plen, ngen = PG_BATCH, PG_PROMPT, PG_GEN
+    prompts = np.random.RandomState(92).randint(0, cfg.vocab_size,
+                                                (b, plen))
+    out, sst, counts = _static_run(model, params, prompts, ngen)
+    check_tc_routes("paligemma_3b static path: lm_head",
+                    lm_head_logits.routes, counts["lm_head"])
+    exact("static path", counts, {
+        "flash_fwd": nl, "flash_decode": nl * ngen, "paged_decode": 0,
+        "rmsnorm": per_pass * (ngen + 1), "lm_head": ngen + 1})
+    runs["static"] = counts
+    log(f"[paligemma_3b] generate(engine='static') B={b} prompt={plen} "
+        f"new={ngen}: prefill {sst['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{sst['decode_s']:.3f}s = {sst['decode_s'] * 1e3 / ngen:.3f} "
+        f"ms/step, {sst['tokens_per_s']:.1f} tok/s; first row "
+        f"{out[0, :12].tolist()}")
+    step_ms, busy_ms = profile_static_step(model, params, prompts)
+
+    # (c) the vision-stub prefix: prefill, one decode step, greedy steps
+    dev, pn = model.device, cfg.num_prefix_embeddings
+    gen = torch.Generator(device=dev).manual_seed(93)
+    pre = torch.randn((b, pn, cfg.d_model), generator=gen,
+                      device=dev).to(model.dtype)
+    toks = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad():
+        model.prefill(params, toks[:, :16], prefix_embeddings=pre)  # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        lp, cache = model.prefill(params, toks, prefix_embeddings=pre,
+                                  max_len=pn + plen + 1 + PG_STEPS)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        nxt = model.greedy_token(lp)[:, None]
+        ld, cache = model.decode_step(params, nxt, cache)
+        tok = model.greedy_token(ld)[:, None]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PG_STEPS):
+            nt, lg, cache = model.greedy_step(params, tok, cache)
+            tok = nt[:, None]
+        torch.cuda.synchronize()
+        steps_ms = (time.perf_counter() - t0) * 1e3 / PG_STEPS
+        counts = launch_counts()
+        fwd_routes = dict(flash_attention_fwd.routes)
+        if cache["pos"] != pn + plen + 1 + PG_STEPS:
+            fail(f"paligemma_3b prefix: cache pos {cache['pos']}")
+        if not all(torch.isfinite(t).all() for t in (lp, ld, lg)):
+            fail("paligemma_3b prefix: non-finite logits")
+        if not ((tok >= 0) & (tok < cfg.vocab_size)).all():
+            fail("paligemma_3b prefix: tokens out of vocab")
+        full, _ = model.forward(params, toks, prefix_embeddings=pre)
+        # equal shapes and kernels: equal up to the LM head's row count
+        check_close(f"paligemma_3b bf16 prefill ({pn} prefix embeddings + "
+                    f"{plen} tokens) last logits vs forward over the same "
+                    "sequence", lp, full[:, -1], atol=1e-3, rtol=1e-3)
+        del full
+        full, _ = model.forward(params, torch.cat([toks, nxt], dim=1),
+                                prefix_embeddings=pre)
+        if not torch.isfinite(full).all():
+            fail("paligemma_3b forward: non-finite logits")
+        check_rel("paligemma_3b bf16 prefill + decode_step logits vs "
+                  "forward over the sequence one token longer",
+                  ld[:, :cfg.vocab_size], full[:, -1, :cfg.vocab_size], 0.05)
+        del full
+    check_tc_routes("paligemma_3b prefix prefill: flash_fwd", fwd_routes,
+                    counts["flash_fwd"])
+    exact("prefix prefill + decode", counts, {
+        "flash_fwd": nl, "flash_decode": nl * (1 + PG_STEPS),
+        "rmsnorm": per_pass * (2 + PG_STEPS), "lm_head": 2 + PG_STEPS,
+        "paged_decode": 0})
+    runs["prefix"] = counts
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[paligemma_3b] {model.param_count(params)} parameters; prefill of "
+        f"{b} x ({pn} prefix embeddings + {plen} tokens) {prefill_ms:.3f} "
+        f"ms, then {steps_ms:.3f} ms a greedy step (B={b}); engine "
+        f"{st['tok_s']:.1f} tok/s, step {eng_ms:.3f} ms host at "
+        f"{eng_busy:.3f} busy; static {sst['tokens_per_s']:.1f} tok/s, step "
+        f"{step_ms:.3f} ms host at {busy_ms:.3f} busy; peak device memory "
+        f"{peak:.2f} GB")
+    log(f"[paligemma_3b] row 5d: flash_decode launched "
+        f"{runs['static']['flash_decode']} times on the static path "
+        f"({nl} x {ngen})")
+    del model, params, cache
+    torch.cuda.empty_cache()
+    return runs
+
+
+def time_paligemma_kernels(dev, lens):
+    """flash_fwd at paligemma's prefix-LM prefill (q PG_BATCH x 8 x (256 +
+    PG_PROMPT) x 256, one kv head, the projections' views, causal with a
+    256-token prefix; held at check_flash_tc's limits first; library: SDPA
+    with the boolean mask), its bound 4 d H FLOPs a visible pair, and paged
+    decode at d = 256, g = 8 over the serving step's ``lens`` (library: the
+    pages gathered + SDPA; bound by bytes). Returns (times, max |err| of
+    flash_fwd, of paged_decode)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_fwd_ref)
+
+    cfg = get_config("paligemma_3b")
+    gen = torch.Generator(device=dev).manual_seed(94)
+    p = cfg.num_prefix_embeddings
+    b, s, h, hk, d = (PG_BATCH, p + PG_PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                      cfg.resolved_head_dim)
+    q, k, v = (_proj(gen, b, s, n, d) for n in (h, hk, hk))
+    kw = dict(causal=True, prefix_len=p)
+    ferr = check_flash_tc(f"flash_fwd bf16 at paligemma's prefix-LM prefill "
+                          f"q {tuple(q.shape)}, prefix {p}", q, k, v, **kw)
+    qc, kc, vc = (t.contiguous() for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    mask = (pos[:, None] >= pos[None, :]) | (pos[None, :] < p)
+    pairs = sum(max(i + 1, p) for i in range(s))     # visible, a (b, h) row
+
+    def run(kk, vv):
+        return lambda: flash_attention_fwd(q, kk, vv, **kw)
+
+    out = {"flash_fwd@paligemma": dict(
+        ms=cuda_ms(run(k, v), iters=30),
+        device_ms=device_ms(run(k, v), "fwd_tc_kernel", launches=1),
+        device_ms_contig=device_ms(run(kc, vc), "fwd_tc_kernel", launches=1),
+        plain_ms=cuda_ms(lambda: flash_fwd_ref(q, k, v, **kw), 5, 1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=mask, enable_gqa=True), iters=30),
+        library="F.scaled_dot_product_attention(attn_mask bool causal | "
+                "prefix, enable_gqa) on contiguous q, k, v",
+        flops=4 * b * h * d * pairs, pairs=pairs,
+        shape=f"q ({b},{h},{s},{d}), k/v ({b},{hk},{s},{d}) bf16 views, "
+              f"causal, prefix {p}")}
+    out["flash_fwd@paligemma"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * b * (2 * h + 2 * hk) * s * d + 4 * b * h * s,
+        4 * b * h * d * pairs, "bfloat16")))
+    del q, k, v, qc, kc, vc
+    out["paged_decode@paligemma"] = paged_times(dev, cfg, lens, 512, 33, gen)
+    torch.cuda.empty_cache()
+    return out, ferr, out["paged_decode@paligemma"]["err"]
+
+
 def log_times(times):
     """Phase 8's report: a [time] line for each entry of ``times``, the
     [gbps] and [tflops] lines and the rmsnorm host split."""
@@ -4882,7 +5355,8 @@ def log_times(times):
         f"the function's {t['bytes'] / 1e9:.4f} GB in {t['ms']:.4f} ms, "
         f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound "
         f"({HBM_BPS / 1e12:.2f} TB/s)")
-    for name in ("rmsnorm", "rmsnorm@train", "paged_decode", "flash_decode",
+    for name in ("rmsnorm", "rmsnorm@train", "paged_decode",
+                 "paged_decode@paligemma", "flash_decode",
                  "flash_decode@d256", "flash_decode@mixtral"):
         t = times[name]
         log(f"[gbps] {name}: {t['bytes'] / (t['ms'] * 1e-3) / 1e9:.1f} "
@@ -4891,9 +5365,10 @@ def log_times(times):
             f"{t['bytes'] / (t['device_ms'] * 1e-3) / 1e9:.1f} GB/s in the "
             f"device time alone ({t['device_ms']:.4f} ms), "
             f"{100 * t['bound_ms'] / t['device_ms']:.1f}% of its bound")
-    t = times["paged_decode"]
-    log(f"[paged] split-KV: {t['split'][0]} slots a block, "
-        f"{t['split'][1]} ranges a (sequence, kv head)")
+    for name in ("paged_decode", "paged_decode@paligemma"):
+        t = times[name]
+        log(f"[paged] {name} split-KV: {t['split'][0]} slots a block, "
+            f"{t['split'][1]} ranges a (sequence, kv head)")
     for name in ("flash_decode", "flash_decode@d256"):
         t = times[name]
         log(f"[decode] {name} split-KV: {t['split'][0]} slots a block, "
@@ -4949,7 +5424,8 @@ def log_times(times):
         f"; F.rms_norm {u['library']:.2f} us")
     for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
                  "flash_fwd@train", "flash_fwd@mla", "flash_fwd@mixtral",
-                 "flash_fwd@zamba", "flash_bwd", "ring_flash_fwd",
+                 "flash_fwd@zamba", "flash_fwd@paligemma", "flash_bwd",
+                 "ring_flash_fwd",
                  "ring_flash_bwd"):
         t = times[name]
         rate = t["flops"] / (t["ms"] * 1e-3) / 1e12
@@ -5005,6 +5481,9 @@ def main():
                 log(f"[nvcc {name}] {fn}: {line.strip()}; {spill}")
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f}s")
+
+    def elapsed(what):
+        log(f"[elapsed] {what}: {time.perf_counter() - t_start:.1f}s")
     tc_sass_check()
 
     # 2a. kernels vs plain, f32 small shapes
@@ -5018,6 +5497,8 @@ def main():
     mla_err = small_mla_moe_attn_checks(dev)
     mla_decode_bf16_check(dev)
     zscan_err, zflash_err = small_zamba_kernel_checks(dev)
+    pflash_err, ppaged_err = small_paligemma_kernel_checks(dev)
+    elapsed("phase 2a")
 
     cfg = get_config("llama3_2_1b")
     page, num_pages, slots = 512, 8 * 4 + 1, 8
@@ -5031,6 +5512,8 @@ def main():
     two_layer_static_f32_checks()
     two_layer_moe_f32_checks()
     two_layer_zamba_f32_checks()
+    two_layer_paligemma_f32_checks()
+    elapsed("phase 3")
 
     # 4. the serving path: full llama3_2_1b in bf16 through the engine
     model = LM(cfg)
@@ -5049,6 +5532,7 @@ def main():
         f"preempted {stats['preempted']})")
 
     profile_decode(model, params, reqs)
+    elapsed("phase 4-5")
 
     # 2b. kernels vs plain at the main path's full-width shapes, bf16
     errs = full_width_bf16_checks(dev, cfg, params, sq, lens, page,
@@ -5056,6 +5540,7 @@ def main():
 
     times = time_kernels(dev, cfg, params, sq, lens, page, num_pages)
     del model, params
+    elapsed("phase 2b, 8 serving")
 
     # 6. the training path: full llama3_2_1b in bf16 through TrainLoop
     model, tcounts, tstats, out = train_main_path(cfg)
@@ -5080,6 +5565,7 @@ def main():
     errs["flash_fwd"] = max(errs["flash_fwd"], errs.pop("flash_fwd@train"))
     times.update(time_train_kernels(dev, cfg, embed))
     del model, embed
+    elapsed("phase 6-8 training")
 
     # 9. the apps path: FD, SEM and DG at full size through their entry
     # points
@@ -5094,6 +5580,7 @@ def main():
     errs.update(full_size_app_checks(astate))
     times.update(time_app_kernels(astate))
     del astate, swe
+    elapsed("phase 9-10 apps")
 
     # 11. the static path: musicgen_medium through generate, where its
     # decode step's time goes, the conditioning prefix
@@ -5112,6 +5599,7 @@ def main():
     errs.update(full_width_static_checks(dev))
     times.update(time_static_kernels(dev))
     torch.cuda.empty_cache()
+    elapsed("phase 11-12 static")
 
     # 13. the ring (local and replayed rank by rank) and matmul; 2b and 8
     # for their kernels
@@ -5122,6 +5610,7 @@ def main():
     torch.cuda.empty_cache()
     times.update(time_ring_kernels(dev, pairs))
     del pairs
+    elapsed("phase 13 ring")
 
     # 14. deepseek_v2_lite whole and 15. mixtral_8x22b at 4 layers through
     # generate (the static path); 2b and 8 for their attention shapes
@@ -5135,6 +5624,7 @@ def main():
                             moe_errs["flash_fwd@mixtral"])
     errs["flash_decode"] = max(errs["flash_decode"],
                                moe_errs["flash_decode@mixtral"])
+    elapsed("phase 14-15 moe")
 
     # 16. zamba2_7b whole through generate (the static path); 2b and 8 for
     # its scan and attention shapes
@@ -5146,6 +5636,16 @@ def main():
     times.update(z_times)
     errs["flash_fwd"] = max(errs["flash_fwd"], zflash_err, z_err)
     errs["ssm_scan"] = max(errs["ssm_scan"], zscan_err)
+    elapsed("phase 16 zamba2")
+
+    # 17. paligemma_3b whole on the engine, the static path and a
+    # vision-stub prefix prefill; 2b and 8 for its attention shapes
+    paligemma_main_path()
+    p_times, p_flash, p_paged = time_paligemma_kernels(dev, lens)
+    times.update(p_times)
+    errs["flash_fwd"] = max(errs["flash_fwd"], pflash_err, p_flash)
+    errs["paged_decode"] = max(errs["paged_decode"], ppaged_err, p_paged)
+    elapsed("phase 17 paligemma")
     log_times(times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 

@@ -13,13 +13,13 @@
 // last query tiles, which see the most keys under a causal mask with
 // q_start >= k_start, start first. Q is copied once into 128-byte-swizzled
 // shared memory (attn_sm90.cuh); K and V stream through two stages of 128
-// keys (64 at d_qk > 64), the next running tile's cp.async copies in flight
-// while the current one is computed. S = Q K^T is a wgmma.m64n128k16
-// (m64n64k16) with both operands K-major; the online softmax (running
-// max, sum, rescale, in base 2) runs on S's accumulator fragment in
-// registers; O += P V is a wgmma whose A operand is P, rounded to bf16,
-// straight from those registers, with V read MN-major through the
-// transpose bit.
+// keys (64 at d_qk > 64, 32 at 256), the next running tile's cp.async
+// copies in flight while the current one is computed. S = Q K^T is a
+// wgmma.m64n128k16 (m64n64k16, m64n32k16) with both operands K-major;
+// the online softmax (running max, sum, rescale, in base 2) runs on S's
+// accumulator fragment in registers; O += P V is a wgmma whose A operand
+// is P, rounded to bf16, straight from those registers, with V read
+// MN-major through the transpose bit.
 //
 // Masks: a key tile no row of the block can see is skipped whole (the TPU
 // kernel's run predicate, tile_runs: the causal diagonal, the window's
@@ -42,7 +42,16 @@
 // stage holds Q (24 KB) and two stages of K (24 KB) and V (16 KB); and
 // zamba2's DQK = DV = 112: rows padded to two boxes with zeros
 // (attn_sm90.cuh), S takes 7 k16 steps, O = P V runs at N = 128 and the
-// epilogue stores 112 columns; 64 keys a stage, as at 128.
+// epilogue stores 112 columns; 64 keys a stage, as at 128; and
+// paligemma's DQK = DV = 256: O's 64 x 256 f32 accumulator is 128
+// registers a thread, and O += P V runs as two m64n128k16 products a k16
+// step, over columns 0..127 and over 128..255 (two boxes into V), on the
+// two halves of that accumulator; S takes 16 k16 steps over four boxes.
+// At 64 keys a stage S and P's fragments took 48 more registers and
+// ptxas spilled one (255 registers, an H100 build); at 32 keys a stage
+// (S = Q K^T a wgmma.m64n32k16) they take 24, and shared memory holds Q
+// (32 KB) and two stages of K and V (16 KB each), 97 KB, so two blocks
+// share an SM where 64 keys (161 KB) left one.
 #pragma once
 
 #include "attn_sm90.cuh"
@@ -60,7 +69,8 @@ __device__ __forceinline__ int floor_div(int a, int b) {
 
 template <int DQK, int DV>
 struct Smem {
-  static constexpr int BKV = DQK > 64 ? 64 : 128;  // keys per stage
+  // keys per stage
+  static constexpr int BKV = DQK == 256 ? 32 : DQK > 64 ? 64 : 128;
   using TQ = Tile<BQ, DQK>;
   using TK = Tile<BKV, DQK>;
   using TV = Tile<BKV, DV>;
@@ -201,7 +211,16 @@ __global__ void __launch_bounds__(NT, DQK > 64 ? 1 : 2) fwd_tc_kernel(
     to_frags<BKV>(s, pa);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) wgmma_rs<DP>(acc, pa[kk], mnmajor<BKV, DV>(sV, kk));
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      if constexpr (DP == 256) {  // two N = 128 halves, the second two boxes in
+        auto& lo = *reinterpret_cast<float(*)[64]>(acc);
+        auto& hi = *reinterpret_cast<float(*)[64]>(acc + 64);
+        wgmma_rs<128>(lo, pa[kk], mnmajor<BKV, DV>(sV, kk));
+        wgmma_rs<128>(hi, pa[kk], mnmajor<BKV, DV>(sV + 2 * F::TV::BOX, kk));
+      } else {
+        wgmma_rs<DP>(acc, pa[kk], mnmajor<BKV, DV>(sV, kk));
+      }
+    }
     wgmma_commit();
     wgmma_wait<0>();
     hold(acc);

@@ -126,6 +126,20 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t s, int kk) {
 // wgmma
 // ---------------------------------------------------------------------------
 
+// d (64 x 32 f32) += A (64 x 16) . B (16 x 32), both from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d (64 x 64 f32) += A (64 x 16) . B (16 x 64), both from shared memory,
 // both K-major.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db) {
@@ -189,13 +203,16 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x N) += A (64 x 16) . B (16 x N), both K-major, for N = 64 or 128
+// d (64 x N) += A (64 x 16) . B (16 x N), both K-major, for N = 32, 64 or
+// 128
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
   if constexpr (N == 128)
     sm90::wgmma_m64n128k16<0, 0>(d, da, db);
-  else
+  else if constexpr (N == 64)
     wgmma_ss_n64(d, da, db);
+  else
+    wgmma_ss_n32(d, da, db);
 }
 
 // d (64 x N) += A (64 x 16, registers) . B (16 x N, MN-major) for N = DP

@@ -26,20 +26,23 @@
 //  - The block first reads its range's block-table entries and positions
 //    (two dependent loads), marks the 32-slot tiles that hold a visible
 //    slot, and then streams only those: K and V stay in their dtype in
-//    shared memory, arriving by 16-byte cp.async into a 3-stage ring, so
-//    the next tiles' loads are in flight during this tile's math. Pools
+//    shared memory, arriving by 16-byte cp.async into a multi-stage ring
+//    (3 stages; 2 when a stage passes 32 KB: f32 at d = 256), so the next
+//    tiles' loads are in flight during this tile's math. Pools
 //    whose base is not 16-byte aligned take the same kernel with plain
 //    loads (ALIGNED = false), chosen up front by the entry point.
 //  - Scores: 4 lanes a slot, each holding a quarter of the key row in f32
-//    registers, q (pre-scaled by sm_scale * log2 e) from shared memory,
-//    two shuffles to finish each dot; rows' 16-byte pieces are XOR-swizzled
-//    so those reads are free of bank conflicts. The online softmax runs one
-//    warp per head in base 2. P.V: each thread owns 8 outputs of one head
-//    and a share of the tile's slots; the shares are summed once, at the
-//    end.
+//    registers, q (pre-scaled by sm_scale * log2 e, held as f32 in shared
+//    memory sized at launch: 8 KB at g * d = 2048, paligemma's 8 heads of
+//    256) read as float4, two shuffles to finish each dot; rows' 16-byte
+//    pieces are XOR-swizzled so those reads are free of bank conflicts.
+//    The online softmax runs one warp per head in base 2. P.V: each thread
+//    owns 8 outputs of one head (two such chunks when g * d > 1024) and a
+//    share of the tile's slots; the shares are summed once, at the end.
+//    The design is flash_decode.cu's, over a block table.
 //  - Merge: each split writes (m, l, acc[g * d]) in f32 into a workspace
 //    the wrapper allocates; paged_decode_combine_kernel, launched by the
-//    same entry point, rescales and sums them. A range with no visible
+//    same entry point, rescales and sums them, 256 outputs a block. A range with no visible
 //    slot writes m = -inf, l = 0, acc = 0: an exact no-op. Idle slots (len
 //    0, table of zeros) give exact 0.
 #include "attn_sm90.cuh"  // cp16, cp_commit, cp_wait, ex2, LOG2E, smem_u32
@@ -54,24 +57,32 @@ using repro::Vec16;
 
 constexpr int NT = 128;      // threads a block (4 warps), both kernels
 constexpr int KT = 32;       // slots a tile: one lane each in the softmax
-constexpr int STAGES = 3;    // the cp.async ring
 constexpr int MAXG = 16;     // query heads per kv head
-constexpr int MAXGD = 1024;  // g * d
+constexpr int MAXGD = 2048;  // g * d (q as f32 in shared memory: 8 KB)
 constexpr int MAXL = 512;    // slots a split
 constexpr float NEG_INF = -std::numeric_limits<float>::infinity();
 
 template <typename T, int D>
 struct Geo {
   static constexpr int VEC = Vec16<T>::N;        // elements a 16-byte piece
-  static constexpr int PR = D / VEC;             // pieces a row: 4 .. 32
+  static constexpr int PR = D / VEC;             // pieces a row: 4 .. 64
   static constexpr int SWZ = PR >= 8 ? 4 : 0;    // odd rows' pieces XOR 4
+  static constexpr int OUT = D / 8;              // 8-column output chunks a head
   static constexpr int TILE = KT * D;            // elements of a K (or V) tile
-  static constexpr int KV_BYTES = STAGES * 2 * TILE * static_cast<int>(sizeof(T));
-  // kv ring | row_s (i64) | qs | ss | vis_s | m_s, l_s, corr_s | tile_ok
-  static constexpr int SMEM = KV_BYTES + MAXL * 8 + (MAXGD + MAXG * KT) * 4 +
-                              MAXL * 4 + 3 * MAXG * 4 + (MAXL / KT) * 4;
+  static constexpr int STAGE_BYTES = 2 * TILE * static_cast<int>(sizeof(T));
+  static constexpr int STAGES = STAGE_BYTES > 32768 ? 2 : 3;
+  static constexpr int KV_BYTES = STAGES * STAGE_BYTES;
   static_assert(KV_BYTES >= NT * 8 * 4, "the ring holds the final reduction");
 };
+
+// shared memory of a launch: kv ring | row_s (split i64) | qs (g * D f32) |
+// ss (g * KT f32) | vis_s (split ints) | m_s, l_s, corr_s (g f32 each) |
+// tile_ok (split / KT)
+template <typename T, int D>
+__host__ __device__ constexpr int smem_bytes(int g, int split) {
+  return Geo<T, D>::KV_BYTES + split * 8 + (g * D + g * KT + 3 * g) * 4 + split * 4 +
+         (split / KT) * 4;
+}
 
 // the position of piece p of tile row j
 template <typename T, int D>
@@ -87,17 +98,17 @@ __global__ void __launch_bounds__(NT) paged_decode_split_kernel(
     int page, int nsp, int split, float scale2, long long qsb, long long qsh) {
   using G = Geo<T, D>;
   extern __shared__ __align__(16) unsigned char smem[];
+  const int g = h / hk;
   T* kv = reinterpret_cast<T*>(smem);
   long long* row_s = reinterpret_cast<long long*>(smem + G::KV_BYTES);
-  float* qs = reinterpret_cast<float*>(row_s + MAXL);
-  float* ss = qs + MAXGD;
-  int* vis_s = reinterpret_cast<int*>(ss + MAXG * KT);
-  float* m_s = reinterpret_cast<float*>(vis_s + MAXL);
-  float* l_s = m_s + MAXG;
-  float* corr_s = l_s + MAXG;
-  int* tile_ok = reinterpret_cast<int*>(corr_s + MAXG);
+  float* qs = reinterpret_cast<float*>(row_s + split);
+  float* ss = qs + g * D;
+  int* vis_s = reinterpret_cast<int*>(ss + g * KT);
+  float* m_s = reinterpret_cast<float*>(vis_s + split);
+  float* l_s = m_s + g;
+  float* corr_s = l_s + g;
+  int* tile_ok = reinterpret_cast<int*>(corr_s + g);
 
-  const int g = h / hk;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int sp = blockIdx.x, kh = blockIdx.y, bi = blockIdx.z;
   const int nsplit = gridDim.x;
@@ -120,7 +131,7 @@ __global__ void __launch_bounds__(NT) paged_decode_split_kernel(
     const int gi = e / D, dd = e - gi * D;
     qs[e] = repro::to_f32(q[bi * qsb + (kh * g + gi) * qsh + dd]) * scale2;
   }
-  if (t < ntiles) tile_ok[t] = 0;
+  for (int i = t; i < ntiles; i += NT) tile_ok[i] = 0;
   if (t < g) {
     m_s[t] = NEG_INF;
     l_s[t] = 0.f;
@@ -175,19 +186,31 @@ __global__ void __launch_bounds__(NT) paged_decode_split_kernel(
 
   // scores: slot qj of the tile, quarter qc of its key row
   const int qj = warp * 8 + (lane >> 2), qc = lane & 3;
-  // P.V: 8 outputs (chunk ch: head pgi, columns d0..d0+7), slots sg, sg +
-  // ngroups, ... of each tile
-  const int nchunk = g * D / 8;
-  const int ngroups = NT / nchunk;
+  // P.V: chunks of 8 outputs (head pgi, columns d0..d0+7); with fewer
+  // chunks than threads, slot groups sg, sg + ngroups, ... of each tile;
+  // with more (g * d > 1024), two chunks a thread
+  const int nchunk = g * G::OUT;
+  const int ngroups = nchunk >= NT ? 1 : NT / nchunk;
+  const int sg = t / nchunk;
   const bool pv = t < ngroups * nchunk;
-  const int sg = t / nchunk, ch = t - sg * nchunk;
-  const int pgi = ch / (D / 8), d0 = (ch - pgi * (D / 8)) * 8;
-  float acc[8];
+  int pgi[2], d0[2];
+  bool own[2];
 #pragma unroll
-  for (int u = 0; u < 8; ++u) acc[u] = 0.f;
+  for (int c = 0; c < 2; ++c) {
+    const int ch = ngroups > 1 ? t - sg * nchunk : t + c * NT;
+    own[c] = pv && (c == 0 || ngroups == 1) && ch < nchunk;
+    const int hh = own[c] ? ch / G::OUT : 0;
+    pgi[c] = hh;
+    d0[c] = own[c] ? (ch - hh * G::OUT) * 8 : 0;
+  }
+  float acc[2][8];
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc[c][u] = 0.f;
 
   int issue = cur;
-  for (int st = 0; st < STAGES - 1; ++st) {
+  for (int st = 0; st < G::STAGES - 1; ++st) {
     if (issue < ntiles) {
       load(issue, st);
       issue = next(issue + 1);
@@ -195,14 +218,14 @@ __global__ void __launch_bounds__(NT) paged_decode_split_kernel(
     ra::cp_commit();
   }
   for (int it = 0; cur < ntiles; ++it, cur = next(cur + 1)) {
-    ra::cp_wait<STAGES - 2>();
+    ra::cp_wait<G::STAGES - 2>();
     __syncthreads();  // tile `it` has landed; tile it - 1 is consumed
     if (issue < ntiles) {
-      load(issue, (it + STAGES - 1) % STAGES);
+      load(issue, (it + G::STAGES - 1) % G::STAGES);
       issue = next(issue + 1);
     }
     ra::cp_commit();
-    const T* ks = kv + (it % STAGES) * 2 * G::TILE;
+    const T* ks = kv + (it % G::STAGES) * 2 * G::TILE;
     const T* vs = ks + G::TILE;
     const int base = cur * KT;
     {
@@ -251,46 +274,63 @@ __global__ void __launch_bounds__(NT) paged_decode_split_kernel(
       }
     }
     __syncthreads();
-    if (pv) {
-      const float cr = corr_s[pgi];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) acc[u] *= cr;
+    for (int c = 0; c < 2; ++c) {
+      if (!own[c]) continue;
+      const float cr = corr_s[pgi[c]];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[c][u] *= cr;
 #pragma unroll 4
       for (int jj = sg; jj < KT; jj += ngroups) {
-        const float p = ss[pgi * KT + jj];
+        const float p = ss[pgi[c] * KT + jj];
         float vf[8];
 #pragma unroll
         for (int w = 0; w < 8 / G::VEC; ++w)
           Vec16<T>::unpack(*reinterpret_cast<const uint4*>(
-                               vs + jj * D + piece<T, D>(jj, d0 / G::VEC + w) * G::VEC),
+                               vs + jj * D + piece<T, D>(jj, d0[c] / G::VEC + w) * G::VEC),
                            vf + w * G::VEC);
         // a masked slot (p = 0) adds nothing, whatever v holds
 #pragma unroll
-        for (int u = 0; u < 8; ++u) acc[u] = p != 0.f ? fmaf(p, vf[u], acc[u]) : acc[u];
+        for (int u = 0; u < 8; ++u) acc[c][u] = p != 0.f ? fmaf(p, vf[u], acc[c][u]) : acc[c][u];
       }
     }
   }
 
   ra::cp_wait<0>();
   __syncthreads();  // the ring is free: sum the slot groups' shares there
+  if (t < g) ml[t] = make_float2(m_s[t], l_s[t]);
+  if (ngroups == 1) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (!own[c]) continue;
+      float* out = acc_out + pgi[c] * D + d0[c];  // 8-byte aligned
+#pragma unroll
+      for (int u = 0; u < 8; u += 2)
+        *reinterpret_cast<float2*>(out + u) = make_float2(acc[c][u], acc[c][u + 1]);
+    }
+    return;
+  }
   float* red = reinterpret_cast<float*>(kv);
   if (pv) {
+    const int ch = t - sg * nchunk;
 #pragma unroll
-    for (int u = 0; u < 8; ++u) red[sg * g * D + ch * 8 + u] = acc[u];
+    for (int u = 0; u < 8; ++u) red[(sg * nchunk + ch) * 8 + u] = acc[0][u];
   }
-  if (t < g) ml[t] = make_float2(m_s[t], l_s[t]);
   __syncthreads();
-  for (int e = t; e < g * D; e += NT) {
+  for (int e = t; e < g * D; e += NT) {  // e = chunk * 8 + u = gi * D + col
     float a = 0.f;
-    for (int s = 0; s < ngroups; ++s) a += red[s * g * D + e];
+    for (int s = 0; s < ngroups; ++s) a += red[s * nchunk * 8 + e];
     acc_out[e] = a;
   }
 }
 
-// one block per (kv head, sequence): o = sum_s 2^(m_s - M) acc_s / sum_s
-// 2^(m_s - M) l_s over the ranges s that start at or before q_pos (all of
-// them once the cache is wrapped), the ranges the split kernel wrote; 0
-// when none holds a visible slot
+// one block per (256 outputs, kv head, sequence): o = sum_s 2^(m_s - M)
+// acc_s / sum_s 2^(m_s - M) l_s over the ranges s that start at or before
+// q_pos (all of them once the cache is wrapped), the ranges the split
+// kernel wrote; 0 when none holds a visible slot. Wide groups (g * d up to
+// 2048) spread over several blocks, as flash_decode.cu's merge: one block
+// a (kv head, sequence) left paligemma's 8 x 1 merges on 8 SMs, the
+// larger half of the step's paged_decode time on an H100.
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) paged_decode_combine_kernel(
     const float* __restrict__ ws, const int* __restrict__ kv_len,
@@ -298,13 +338,14 @@ __global__ void __launch_bounds__(NT) paged_decode_combine_kernel(
   __shared__ float mm[MAXG], ll[MAXG];
   const int g = h / hk;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int kh = blockIdx.x, bi = blockIdx.y;
+  const int e0 = blockIdx.x * 2 * NT, kh = blockIdx.y, bi = blockIdx.z;
+  const int g0 = e0 / D, g1 = min(g, (e0 + 2 * NT - 1) / D + 1);  // its heads
   const int q_pos = kv_len[bi] - 1;
   const int nlive = q_pos >= cap ? nsplit : q_pos < 0 ? 0 : min(nsplit, q_pos / split + 1);
   const long long unit = static_cast<long long>(bi * hk + kh) * nsplit;
   const float2* ml = reinterpret_cast<const float2*>(ws) + unit * g;
-  const float* acc = ws + 2LL * gridDim.y * hk * nsplit * g + unit * g * D;
-  for (int gi = warp; gi < g; gi += NT / 32) {
+  const float* acc = ws + 2LL * gridDim.z * hk * nsplit * g + unit * g * D;
+  for (int gi = g0 + warp; gi < g1; gi += NT / 32) {
     float m = NEG_INF;
     for (int s = lane; s < nlive; s += 32) m = fmaxf(m, ml[s * g + gi].x);
     m = repro::warp_max(m);
@@ -317,39 +358,39 @@ __global__ void __launch_bounds__(NT) paged_decode_combine_kernel(
     }
     l = repro::warp_sum(l);
     if (lane == 0) {
-      mm[gi] = m;
-      ll[gi] = l;
+      mm[gi - g0] = m;
+      ll[gi - g0] = l;
     }
   }
   __syncthreads();
-  for (int e = 2 * t; e < g * D; e += 2 * NT) {  // two outputs a thread
-    const int gi = e / D;
-    const float m = mm[gi], l = ll[gi];
-    float2 a = make_float2(0.f, 0.f);
-    if (m != NEG_INF && l > 0.f) {
+  const int e = e0 + 2 * t;  // two outputs a thread
+  if (e >= g * D) return;
+  const int gi = e / D;
+  const float m = mm[gi - g0], l = ll[gi - g0];
+  float2 a = make_float2(0.f, 0.f);
+  if (m != NEG_INF && l > 0.f) {
 #pragma unroll 8
-      for (int s = 0; s < nlive; ++s) {
-        const float ms = ml[s * g + gi].x;
-        const float w = ms == NEG_INF ? 0.f : ra::ex2(ms - m);
-        const float2 v = *reinterpret_cast<const float2*>(
-            acc + static_cast<long long>(s) * g * D + e);
-        a.x += w * v.x;
-        a.y += w * v.y;
-      }
-      a.x /= l;
-      a.y /= l;
+    for (int s = 0; s < nlive; ++s) {
+      const float ms = ml[s * g + gi].x;
+      const float w = ms == NEG_INF ? 0.f : ra::ex2(ms - m);
+      const float2 v = *reinterpret_cast<const float2*>(
+          acc + static_cast<long long>(s) * g * D + e);
+      a.x += w * v.x;
+      a.y += w * v.y;
     }
-    T* out = o + (static_cast<long long>(bi) * h + kh * g) * D + e;
-    out[0] = repro::from_f32<T>(a.x);
-    out[1] = repro::from_f32<T>(a.y);
+    a.x /= l;
+    a.y /= l;
   }
+  T* out = o + (static_cast<long long>(bi) * h + kh * g) * D + e;
+  out[0] = repro::from_f32<T>(a.x);
+  out[1] = repro::from_f32<T>(a.y);
 }
 
 template <typename T, int D, bool ALIGNED>
 int split_smem_attr() {  // once per kernel: its shared memory may pass 48 KB
   static const int err = static_cast<int>(cudaFuncSetAttribute(
       paged_decode_split_kernel<T, D, ALIGNED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, Geo<T, D>::SMEM));
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T, D>(MAXG, MAXL)));
   return err;
 }
 
@@ -361,12 +402,13 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
   if (const int err = split_smem_attr<T, D, ALIGNED>()) return err;
   const int nsplit = (nsp * page + split - 1) / split;
   paged_decode_split_kernel<T, D, ALIGNED>
-      <<<dim3(nsplit, hk, b), NT, Geo<T, D>::SMEM, s>>>(
+      <<<dim3(nsplit, hk, b), NT, smem_bytes<T, D>(h / hk, split), s>>>(
           static_cast<const T*>(q), static_cast<const T*>(kp),
           static_cast<const T*>(vp), table, kv_len, pos, ws, h, hk, page, nsp,
           split, sm_scale * ra::LOG2E, qsb, qsh);
-  paged_decode_combine_kernel<T, D><<<dim3(hk, b), NT, 0, s>>>(
-      ws, kv_len, static_cast<T*>(o), h, hk, nsplit, split, nsp * page);
+  paged_decode_combine_kernel<T, D>
+      <<<dim3(((h / hk) * D + 2 * NT - 1) / (2 * NT), hk, b), NT, 0, s>>>(
+          ws, kv_len, static_cast<T*>(o), h, hk, nsplit, split, nsp * page);
   return 0;
 }
 
@@ -383,8 +425,8 @@ int launch_any(bool aligned, const void* q, const void* kp, const void* vp,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128}; h / hk <= 16 and
-// (h / hk) * d <= 1024. Pools, table (b, nsp), kv_len (b,), pos_pages
+// dtype: 0 = float32, 1 = bfloat16; d in {32, 64, 128, 256}; h / hk <= 16
+// and (h / hk) * d <= 2048. Pools, table (b, nsp), kv_len (b,), pos_pages
 // (P, page) and o (b, h, 1, d) are contiguous; q takes element strides for
 // its batch and head axes. split: slots a block, a multiple of 32 in
 // [32, 512]; ws: b * h * ceil(nsp * page / split) * (d + 2) f32 of
@@ -409,9 +451,11 @@ extern "C" int paged_decode(const void* q, const void* kp, const void* vp,
   if (dtype == 0 && d == 32) REPRO_PAGED(float, 32);
   else if (dtype == 0 && d == 64) REPRO_PAGED(float, 64);
   else if (dtype == 0 && d == 128) REPRO_PAGED(float, 128);
+  else if (dtype == 0 && d == 256) REPRO_PAGED(float, 256);
   else if (dtype == 1 && d == 32) REPRO_PAGED(__nv_bfloat16, 32);
   else if (dtype == 1 && d == 64) REPRO_PAGED(__nv_bfloat16, 64);
   else if (dtype == 1 && d == 128) REPRO_PAGED(__nv_bfloat16, 128);
+  else if (dtype == 1 && d == 256) REPRO_PAGED(__nv_bfloat16, 256);
   else return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_PAGED
   return err ? err : static_cast<int>(cudaGetLastError());

@@ -2,8 +2,9 @@
 on the CPU (counterparts of ``repro.kernels.flash_attention.ops``).
 
 ``flash_attention_fwd`` launches ``csrc/flash_fwd.cu`` (prefill: o and
-lse; causal and/or a sliding window; equal head dims 32, 64, 112 or 128,
-or MLA's d_qk = 192 with d_v = 128). ``flash_attention`` is the
+lse; causal and/or a sliding window and/or a prefix-LM prefix; equal head
+dims 32, 64, 112, 128 or 256, or MLA's d_qk = 192 with d_v = 128).
+``flash_attention`` is the
 differentiable op: a ``torch.autograd.Function`` whose forward is
 ``flash_attention_fwd`` and whose backward (``flash_attention_bwd``) runs
 ``flash_delta`` (``csrc/flash_delta.cu``) and then ``flash_bwd``
@@ -14,8 +15,9 @@ kernel has no window mask and takes head dims up to 64, so
 ``flash_attention`` raises before the forward when a gradient is asked of
 a windowed or d = 128 call whose inputs would take that kernel (f32, or
 bf16 the 16-byte copies cannot read); the tensor-core backward takes both.
-No backward kernel takes d_v != d_qk or d = 112, so a card gradient at
-MLA's or zamba2's shape is refused before the forward too.
+No backward kernel takes d_v != d_qk, d = 112 or 256, or a prefix, so a
+card gradient at MLA's, zamba2's or paligemma's shape is refused before the
+forward too.
 ``flash_decode`` launches
 ``csrc/flash_decode.cu`` (one-token decode against a contiguous or rotated
 rolling cache: the JAX package's ``flash_decode`` op and its
@@ -60,22 +62,22 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_ELEMS = (4, 8)            # elements a 16-byte vector, by dtype code
-_HEAD_DIMS = (32, 64, 128)     # paged_decode, the ring step kernels
-_FWD_HEAD_DIMS = (32, 64, 112, 128)  # flash_fwd (112: zamba2)
+_HEAD_DIMS = (32, 64, 128)     # the ring step kernels
+_FWD_HEAD_DIMS = (32, 64, 112, 128, 256)  # 112: zamba2, 256: paligemma
 _FWD_DIM_PAIRS = ((192, 128),)  # flash_fwd: (d_qk, d_v) besides equal dims
 _DECODE_HEAD_DIMS = (32, 64, 112, 128, 256)    # flash_decode
+_PAGED_HEAD_DIMS = (32, 64, 128, 256)          # paged_decode
 # flash_bwd by route
 _BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": (32, 64)}
 # ring_flash_bwd by route (ring.py reads it): the same kernels' head dims
 RING_BWD_HEAD_DIMS = _BWD_HEAD_DIMS
 _MAX_GROUP = 16                # decode kernels: query heads per kv head
-_MAX_GROUP_DIM = 1024          # paged decode: (query heads per kv head) * d
-_DECODE_MAX_GROUP_DIM = 2048   # flash_decode: the same
+_MAX_GROUP_DIM = 2048          # decode kernels: (query heads per kv head) * d
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
-_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 10 + [_F] + [_L] * 9 + [_P],
+_FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 11 + [_F] + [_L] * 9 + [_P],
                             _I),
-              "flash_fwd_tc": ([_P] * 5 + [_I] * 9 + [_F] + [_L] * 9 + [_P],
+              "flash_fwd_tc": ([_P] * 5 + [_I] * 10 + [_F] + [_L] * 9 + [_P],
                                _I)}
 _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I),
             "flash_bwd_tc": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
@@ -153,11 +155,12 @@ def _check_gqa(name, q, k, v):
                          "(GQA needs H a multiple of Hk)")
 
 
-def _check_group(name, h, hk, d, max_gd=_MAX_GROUP_DIM):
-    if h % hk or h // hk > _MAX_GROUP or (h // hk) * d > max_gd:
+def _check_group(name, h, hk, d):
+    if h % hk or h // hk > _MAX_GROUP or (h // hk) * d > _MAX_GROUP_DIM:
         raise ValueError(f"{name}: {h} query heads over {hk} kv heads at "
                          f"head dim {d}; the kernel takes groups of at most "
-                         f"{_MAX_GROUP} heads with group * d <= {max_gd}")
+                         f"{_MAX_GROUP} heads with group * d <= "
+                         f"{_MAX_GROUP_DIM}")
 
 
 def _grad_asked(*ts):
@@ -179,18 +182,31 @@ def _window(name, window):
     return int(window)
 
 
-def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
+def _prefix(name, prefix_len):
+    """The kernel's prefix int: keys at positions below it are visible to
+    every query (the prefix-LM mask); 0 = none."""
+    if int(prefix_len) < 0:
+        raise ValueError(f"{name}: prefix_len must be >= 0, got {prefix_len}")
+    return int(prefix_len)
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None,
+                        prefix_len=0):
     """q (B, H, Sq, D); k (B, Hk, Skv, D); v (B, Hk, Skv, Dv) -> (o (B, H,
     Sq, Dv) in q's dtype, lse (B, H, Sq) f32). Queries are aligned to the end of the
     kv stream; ``causal`` masks keys after each query, ``window`` keys at
-    q_pos - k_pos >= window. Any Sq <= Skv. On the card D = Dv in
-    {32, 64, 112, 128} or (D, Dv) = (192, 128) (MLA), and the kernel is the
-    tensor-core one when :func:`route` says ``"wgmma"``."""
+    q_pos - k_pos >= window, and keys at positions below ``prefix_len``
+    are visible to every query whatever those two say (the prefix-LM mask:
+    (causal and window) or k_pos < prefix_len). Any Sq <= Skv. On the card
+    D = Dv in {32, 64, 112, 128, 256} or (D, Dv) = (192, 128) (MLA), and
+    the kernel is the tensor-core one when :func:`route` says
+    ``"wgmma"``."""
     name = "flash_attention_fwd"
     _no_grad_asked(name, q, k, v)
+    prefix = _prefix(name, prefix_len)
     if on_cpu(name, q, k, v):
         return flash_fwd_ref(q, k, v, causal=causal, window=window,
-                             sm_scale=sm_scale)
+                             sm_scale=sm_scale, prefix_len=prefix)
     win = _window(name, window)
     _check_qkv(name, q, k, v, _FWD_HEAD_DIMS, _FWD_DIM_PAIRS)
     _check_gqa(name, q, k, v)
@@ -206,7 +222,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, sm_scale=None):
     lib = load("flash_fwd", _FLASH_SIG)
     path = route(q, k, v)
     args = (b, h, hk, sq, skv, d, dv)
-    tail = (int(bool(causal)), win, float(sm_scale), *q.stride()[:3],
+    tail = (int(bool(causal)), win, prefix, float(sm_scale), *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], stream())
     if path == "wgmma":
         err = lib.flash_fwd_tc(ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
@@ -296,20 +312,26 @@ flash_delta.route = _delta_route
 
 
 def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=None,
-              sm_scale=None):
+              sm_scale=None, prefix_len=0):
     """dq (B, H, Sq, D) in q's dtype and dk, dv (B, Hk, Skv, D) f32, summed
     over each kv head's query-head group, from the forward's lse and
     :func:`flash_delta`'s delta (both (B, H, Sq) f32). Queries are aligned
     to the end of the kv stream; any Sq and Skv (a query that sees no key
     contributes nothing); ``causal`` and ``window`` as in
-    :func:`flash_attention_fwd`. On the card :func:`route` (of q, k, v, do)
-    picks the kernel: head dims ``_BWD_HEAD_DIMS[route]``, and a window
-    only on the tensor-core route."""
+    :func:`flash_attention_fwd`, and ``prefix_len`` on the CPU only. On the
+    card :func:`route` (of q, k, v, do) picks the kernel: head dims
+    ``_BWD_HEAD_DIMS[route]``, and a window only on the tensor-core
+    route."""
     name = "flash_bwd"
     _no_grad_asked(name, q, k, v, do)
+    prefix = _prefix(name, prefix_len)
     if on_cpu(name, q, k, v, do, lse, delta):
         return flash_bwd_ref(q, k, v, do, lse, delta, causal=causal,
-                             window=window, sm_scale=sm_scale)
+                             window=window, sm_scale=sm_scale,
+                             prefix_len=prefix)
+    if prefix:
+        raise ValueError(f"{name}: prefix_len={prefix_len}; no backward "
+                         "kernel takes the prefix-LM mask")
     win = _window(name, window)
     if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
         raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
@@ -358,7 +380,7 @@ flash_bwd.routes = {"wgmma": 0, "simt": 0}
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None,
-                        sm_scale=None):
+                        sm_scale=None, prefix_len=0):
     """The backward host path (``kernel.py:317`` of the JAX package): delta,
     then dq/dk/dv; dk and dv come group-summed out of :func:`flash_bwd` and
     are cast to k's and v's dtypes here. The cotangent is taken in q's
@@ -374,17 +396,19 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None,
         do = do.clone(memory_format=torch.contiguous_format)
     delta = flash_delta(do, o)
     dq, dk, dv = flash_bwd(q, k, v, do, lse, delta, causal=causal,
-                           window=window, sm_scale=sm_scale)
+                           window=window, sm_scale=sm_scale,
+                           prefix_len=prefix_len)
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, sm_scale):
+    def forward(ctx, q, k, v, causal, window, sm_scale, prefix_len):
         o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     sm_scale=sm_scale)
+                                     sm_scale=sm_scale, prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.window, ctx.sm_scale = causal, window, sm_scale
+        ctx.prefix_len = prefix_len
         return o
 
     @staticmethod
@@ -393,25 +417,33 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse,
                                          causal=ctx.causal,
                                          window=ctx.window,
-                                         sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+                                         sm_scale=ctx.sm_scale,
+                                         prefix_len=ctx.prefix_len)
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
+def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
+                    prefix_len=0):
     """Differentiable attention: the o of :func:`flash_attention_fwd`, with
     the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`. On the
     card the backward's route is :func:`route` of q, k and v: when a
     gradient is asked and that route's kernel cannot take the call (the
     CUDA-core backward: head dims 32 and 64, no window; neither backward:
-    d_v != d_qk), this raises before the forward runs instead of returning
-    a wrong gradient or failing late. On the CPU the plain backward takes
-    every shape.
+    d_v != d_qk, d = 112 or 256, a prefix), this raises before the forward
+    runs instead of returning a wrong gradient or failing late. On the CPU
+    the plain backward takes every shape and mask.
     """
+    prefix = _prefix("flash_attention", prefix_len)
     if not _grad_asked(q, k, v):
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   sm_scale=sm_scale)[0]
+                                   sm_scale=sm_scale, prefix_len=prefix)[0]
     if not on_cpu("flash_attention", q, k, v):
         path, d = route(q, k, v), q.shape[-1]
+        if prefix:
+            raise NotImplementedError(
+                f"flash_attention: no backward kernel for prefix_len="
+                f"{prefix} (flash_bwd has no prefix-LM mask); call it under "
+                "torch.no_grad()")
         if v.shape[-1] != d:
             raise NotImplementedError(
                 f"flash_attention: no backward kernel for d_qk {d} != d_v "
@@ -426,7 +458,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None):
                 f"CUDA-core route, head dims {_BWD_HEAD_DIMS['wgmma']} and "
                 "windows for bf16 inputs with 16-byte rows); call it under "
                 "torch.no_grad()")
-    return _FlashAttention.apply(q, k, v, causal, window, sm_scale)
+    return _FlashAttention.apply(q, k, v, causal, window, sm_scale, prefix)
 
 
 def _decode_check(name, q, k, v, kv_len, slot_pos):
@@ -438,7 +470,7 @@ def _decode_check(name, q, k, v, kv_len, slot_pos):
     if one != 1:
         raise ValueError(f"{name}: expected one query token, got q "
                          f"{tuple(q.shape)}")
-    _check_group(name, h, hk, d, _DECODE_MAX_GROUP_DIM)
+    _check_group(name, h, hk, d)
     for t, n in ((k, "k"), (v, "v")):
         if (t.stride(-2) != d or t.data_ptr() % 16
                 or (t.stride(0) * t.element_size()) % 16
@@ -553,13 +585,14 @@ def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
     0 <= pos <= kv_len - 1. Returns (B, H, 1, D) in q's dtype. On the card
     the kernel splits each sequence's slots by :func:`paged_split` and
     merges the splits' partials (:func:`paged_decode_split_ref` is its
-    plain model)."""
+    plain model). Head dims 32, 64, 128 and 256, groups of up to 16 query
+    heads with group * d <= 2048."""
     name = "paged_decode_attention"
     if on_cpu(name, q, k_pages, v_pages, block_table, kv_len, pos_pages):
         return paged_decode_ref(q, k_pages, v_pages, block_table=block_table,
                                 kv_len=kv_len, pos_pages=pos_pages,
                                 sm_scale=sm_scale)
-    _check_qkv(name, q, k_pages, v_pages)
+    _check_qkv(name, q, k_pages, v_pages, _PAGED_HEAD_DIMS)
     b, h, one, d = q.shape
     npages, hk, page, _ = k_pages.shape
     if one != 1:
@@ -619,9 +652,7 @@ def _ring_masks(name, q, k, window, prefix_len):
     if q.shape[2] == 0 or k.shape[2] == 0:
         raise ValueError(f"{name}: empty shard or chunk (Sq {q.shape[2]}, "
                          f"Skv {k.shape[2]})")
-    if int(prefix_len) < 0:
-        raise ValueError(f"{name}: prefix_len must be >= 0, got {prefix_len}")
-    return _window(name, window), int(prefix_len)
+    return _window(name, window), _prefix(name, prefix_len)
 
 
 def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,

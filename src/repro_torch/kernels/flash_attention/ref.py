@@ -270,9 +270,10 @@ def flash_delta_ref(do, o):
 
 
 def flash_bwd_ref(q, k, v, do, lse, delta, *, causal=True, window=None,
-                  sm_scale=None):
+                  sm_scale=None, prefix_len=0):
     """dq, dk, dv of causal (or full) attention, optionally under a sliding
-    ``window`` (q_pos - k_pos < window), from the forward's lse and
+    ``window`` (q_pos - k_pos < window) and a prefix-LM prefix (keys below
+    ``prefix_len`` visible to every query), from the forward's lse and
     :func:`flash_delta_ref`'s delta, all in f32 as the TPU backward kernel
     computes them: ``p = exp(s - lse)`` on visible keys (0 elsewhere, so a
     row that sees no key, lse = -inf, contributes nothing),
@@ -289,7 +290,7 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, causal=True, window=None,
     dof = do.float().reshape(b, hk, g, sq, dv_dim)
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
-    mask = _mask(sq, skv, causal=causal, window=window, prefix_len=0,
+    mask = _mask(sq, skv, causal=causal, window=window, prefix_len=prefix_len,
                  device=q.device)
     p = torch.where(mask, torch.exp(s - lse.reshape(b, hk, g, sq, 1)), 0.0)
     dp = torch.matmul(dof, vf.transpose(-1, -2))

@@ -5,10 +5,10 @@ cache, prefill through ``flash_attention`` at d_qk = nope + rope, d_v =
 v_head_dim, and the absorbed decode).
 
 Counterpart of ``repro.layers.attention``. Prefill runs
-``flash_attention`` (causal, optional sliding window), static decode
-``flash_decode`` (on positional and rotated caches alike) and paged decode ``paged_decode_attention``; each is
-the CUDA kernel on a CUDA tensor and the plain version on the CPU.
-Prefix-LM masks are not ported yet; ``gqa_forward`` raises for them.
+``flash_attention`` (causal, optional sliding window and prefix-LM
+prefix), static decode ``flash_decode`` (on positional and rotated caches
+alike) and paged decode ``paged_decode_attention``; each is the CUDA
+kernel on a CUDA tensor and the plain version on the CPU.
 
 Under ``parallel.use_rules(Rules(mesh=..., ring_axis=...))`` full-sequence
 attention runs the sequence-parallel ring (``ring_flash_attention`` with
@@ -101,11 +101,12 @@ class _SeqGather(torch.autograd.Function):
         return None, _slice_seq(ctx.group, g)
 
 
-def _ring_attention(q, k, v, mesh, axis, window):
+def _ring_attention(q, k, v, mesh, axis, window, prefix_len):
     group = mesh.get_group(axis)
     qs, ks, vs = (_SeqShard.apply(group, t) for t in (q, k, v))
     o = ring_flash_attention(qs, ks, vs, mesh=mesh, mesh_axis=axis,
-                             causal=True, window=window)
+                             causal=True, window=window,
+                             prefix_len=prefix_len)
     return _SeqGather.apply(group, o)
 
 
@@ -131,13 +132,11 @@ def _qkv(params, x, cfg):
     return q, k, v
 
 
-def gqa_forward(params, x, cfg, *, return_kv=False):
+def gqa_forward(params, x, cfg, *, prefix_len=0, return_kv=False):
     """Causal full-sequence (prefill) attention, windowed when
-    ``cfg.window``; the ring schedule under ring rules. x: (B, S, d_model)."""
-    if cfg.prefix_lm:
-        raise NotImplementedError(
-            "gqa_forward: prefix-LM masks are not ported to the Hopper "
-            "prefill kernel yet")
+    ``cfg.window``, with the first ``prefix_len`` positions visible to every
+    query (the prefix-LM mask); the ring schedule under ring rules.
+    x: (B, S, d_model)."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     if cfg.pos_embed == "rope":
@@ -146,9 +145,11 @@ def gqa_forward(params, x, cfg, *, return_kv=False):
         k = apply_rope(k, positions, cfg.rope_theta)
     ring_mesh, ring_ax = _ring_target(s)
     if ring_mesh is not None:
-        o = _ring_attention(q, k, v, ring_mesh, ring_ax, cfg.window or None)
+        o = _ring_attention(q, k, v, ring_mesh, ring_ax, cfg.window or None,
+                            prefix_len)
     else:
-        o = flash_attention(q, k, v, causal=True, window=cfg.window or None)
+        o = flash_attention(q, k, v, causal=True, window=cfg.window or None,
+                            prefix_len=prefix_len)
     y = o.transpose(1, 2).reshape(b, s, -1) @ params["wo"]
     if return_kv:
         return y, (k, v)

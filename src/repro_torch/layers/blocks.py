@@ -68,13 +68,16 @@ def _ffn(params, x, cfg, moe, dispatch):
     return mlp_forward(params["mlp"], h), None
 
 
-def tblock_forward(params, x, cfg, *, moe=False, dispatch="einsum"):
-    """The block over a full sequence: (y, the auxiliary-loss vector)."""
+def tblock_forward(params, x, cfg, *, moe=False, prefix_len=0,
+                   dispatch="einsum"):
+    """The block over a full sequence, its first ``prefix_len`` positions
+    visible to every query: (y, the auxiliary-loss vector)."""
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
     if cfg.attn_type == "mla":
         x = x + attn.mla_forward(params["attn"], h, cfg)
     else:
-        x = x + attn.gqa_forward(params["attn"], h, cfg)
+        x = x + attn.gqa_forward(params["attn"], h, cfg,
+                                 prefix_len=prefix_len)
     y, aux = _ffn(params, x, cfg, moe, dispatch)
     return x + y, _aux_vec(aux, x.device)
 
@@ -86,9 +89,10 @@ def tblock_cache_init(cfg, batch, max_len, dtype, device):
 
 
 def tblock_prefill(params, x, cfg, *, moe=False, dispatch="einsum",
-                   max_len=None):
-    """Forward + this layer's cache of ``max_len`` (default: the sequence
-    length) slots in x's dtype: GQA's contiguous k/v (a rolling window of
+                   max_len=None, prefix_len=0):
+    """Forward (the first ``prefix_len`` positions visible to every query)
+    + this layer's cache of ``max_len`` (default: the sequence length)
+    slots in x's dtype: GQA's contiguous k/v (a rolling window of
     ``min(max_len, window)`` slots when ``cfg.window``) or MLA's latent.
     Returns (y, cache)."""
     max_len = max_len or x.shape[1]
@@ -100,7 +104,8 @@ def tblock_prefill(params, x, cfg, *, moe=False, dispatch="einsum",
                                     x.device)
         cache = attn.mla_prefill_cache(cache, latent, cfg)
     else:
-        a, (k, v) = attn.gqa_forward(params["attn"], h, cfg, return_kv=True)
+        a, (k, v) = attn.gqa_forward(params["attn"], h, cfg,
+                                     prefix_len=prefix_len, return_kv=True)
         cache = attn.gqa_cache_init(cfg, x.shape[0], max_len, x.dtype,
                                     x.device)
         cache = attn.gqa_prefill_cache(cache, k, v, cfg)

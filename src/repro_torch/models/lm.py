@@ -1,8 +1,9 @@
 """Decoder LM: the dense and MoE transformer (GQA with rope or sinusoidal
-positions, optional sliding window and audio-conditioning prefix, or MLA),
-mamba1 and mamba2 stacks, and the zamba2 hybrid (groups of mamba2 layers,
-each followed by one shared attention block with its own KV cache per
-application): the subsets of ``repro.models.lm`` ported so far.
+positions, optional sliding window, audio-conditioning or vision prefix
+with the prefix-LM mask and gemma's sqrt(d_model) embedding scale, or
+MLA), mamba1 and mamba2 stacks, and the zamba2 hybrid (groups of mamba2
+layers, each followed by one shared attention block with its own KV cache
+per application): the counterpart of ``repro.models.lm``.
 
 Parameters are a plain dict of tensors with the JAX package's tree paths and
 shapes: ``embed`` (Vpad, d), ``final_norm`` (d,), ``head`` (d, Vpad) when
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 
@@ -55,17 +57,15 @@ class StackSpec:
 
 
 def build_program(cfg: ArchConfig) -> list[StackSpec]:
-    if (cfg.frontend not in ("", "audio_stub")
-            or cfg.pos_embed not in ("rope", "sinusoidal") or cfg.prefix_lm
-            or cfg.embed_scale
+    if (cfg.frontend not in ("", "audio_stub", "vision_stub")
+            or cfg.pos_embed not in ("rope", "sinusoidal")
             or (cfg.shared_attn_every and cfg.ssm_type != "mamba2")
             or (not cfg.ssm_type and cfg.attn_type not in ("gqa", "mla"))):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA models (rope or sinusoidal "
-            "positions, optional sliding window and audio prefix), MoE and "
-            "MLA models, mamba1 and mamba2 stacks and the zamba2 hybrid are "
-            "ported to PyTorch so far (prefix-LM, embed scaling and the "
-            "vision prefix come later)")
+            f"{cfg.name}: frontend {cfg.frontend!r}, pos_embed "
+            f"{cfg.pos_embed!r}, attn_type {cfg.attn_type!r}, "
+            f"shared_attn_every {cfg.shared_attn_every} with ssm_type "
+            f"{cfg.ssm_type!r}: no ported program takes this combination")
     if cfg.shared_attn_every:                       # zamba2 hybrid
         g = cfg.shared_attn_every
         ngroups = cfg.n_layers // g
@@ -144,6 +144,12 @@ class LM:
         self.program = build_program(cfg)
         self.vpad = pad_vocab(cfg.vocab_size)
         self.moe_dispatch = moe_dispatch
+        # gemma's sqrt(d_model), rounded to the embedding's dtype first as
+        # JAX rounds a Python scalar against a bf16 array (45.25 at d 2048);
+        # the product is then rounded once, as JAX's bf16 multiply does
+        self.embed_scale = (float(torch.tensor(math.sqrt(cfg.d_model),
+                                               dtype=self.dtype))
+                            if cfg.embed_scale else None)
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator):
@@ -197,10 +203,13 @@ class LM:
 
     # ----------------------------------------------------------- embed/head
     def _embed(self, params, tokens, prefix_embeddings=None, pos0=0):
-        """Token embeddings, after ``prefix_embeddings`` (B, P, d) when given
-        (the frontend stub's conditioning frames), plus sinusoidal positions
-        from ``pos0`` when the config asks for them."""
+        """Token embeddings (times sqrt(d_model) with ``cfg.embed_scale``),
+        after ``prefix_embeddings`` (B, P, d) when given (the frontend stub's
+        conditioning frames or image patches, unscaled), plus sinusoidal
+        positions from ``pos0`` when the config asks for them."""
         x = params["embed"][tokens.long()]
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
         if prefix_embeddings is not None:
             x = torch.cat([prefix_embeddings.to(x.dtype), x], dim=1)
         if self.cfg.pos_embed == "sinusoidal":
@@ -209,6 +218,13 @@ class LM:
                 self.cfg.d_model)
             x = x + pos[None].to(x.dtype)
         return x
+
+    def _prefix_len(self, prefix_embeddings):
+        """The prefix every query sees (the prefix-LM mask): P when prefix
+        embeddings are given and ``cfg.prefix_lm`` is set, else 0."""
+        if prefix_embeddings is None or not self.cfg.prefix_lm:
+            return 0
+        return prefix_embeddings.shape[1]
 
     def _head(self, params):
         """The (d_model, Vpad) head matrix: for tied embeddings the view
@@ -231,6 +247,7 @@ class LM:
         MoE layers)."""
         cfg = self.cfg
         x = self._embed(params, tokens, prefix_embeddings)
+        prefix_len = self._prefix_len(prefix_embeddings)
         aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for spec, sp in zip(self.program, params["stacks"]):
             if spec.kind == "zamba_group":
@@ -245,7 +262,7 @@ class LM:
                 if spec.kind in _MAMBA:
                     x = blocks.mamba_block_forward(lp, x, cfg)
                     continue
-                x, a = blocks.tblock_forward(lp, x, cfg,
+                x, a = blocks.tblock_forward(lp, x, cfg, prefix_len=prefix_len,
                                              **self._block_kw(spec))
                 aux = aux + a
         return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), aux
@@ -368,6 +385,7 @@ class LM:
                 f"kv cache overflow: prefilling {s} tokens into a cache of "
                 f"max_len={max_len}; decode would attend truncated history, "
                 "raise max_len")
+        prefix_len = self._prefix_len(prefix_embeddings)
         caches = []
         for spec, sp in zip(self.program, params["stacks"]):
             if spec.kind == "zamba_group":
@@ -381,6 +399,7 @@ class LM:
                 else:
                     x, c = blocks.tblock_prefill(_layer(sp, i), x, cfg,
                                                  max_len=max_len,
+                                                 prefix_len=prefix_len,
                                                  **self._block_kw(spec))
                 layer_caches.append(c)
             caches.append(_stack(layer_caches))

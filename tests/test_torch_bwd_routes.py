@@ -388,4 +388,5 @@ def test_card_refuses_a_gradient_only_on_the_simt_route(monkeypatch, case):
         assert len(calls) == 1
         return
     flash_attention(q, k, v, window=window)
-    assert calls == [dict(causal=True, window=window, sm_scale=None)]
+    assert calls == [dict(causal=True, window=window, sm_scale=None,
+                          prefix_len=0)]

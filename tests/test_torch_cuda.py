@@ -1826,3 +1826,147 @@ def test_zamba2_serves_on_card_like_cpu(dev):
         lg, _ = model.prefill(params, toks)
         lc, _ = cpu.prefill(tree_to(params, "cpu"), toks.cpu())
     _close_rel(lg.cpu(), lc, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# paligemma: flash_fwd at d = 256 and under the prefix-LM mask, paged
+# decode at d = 256 with 8 query heads a kv head
+# ---------------------------------------------------------------------------
+
+PREFIX_CASES = [  # sq, skv, h, hk, d, prefix_len, window
+    (70, 70, 8, 1, 256, 0, None),
+    (130, 200, 8, 1, 256, 100, None),       # Sq != Skv, off the tiles
+    (64, 64, 4, 4, 256, 64, None),          # a whole 64-row tile, group 1
+    (40, 90, 8, 1, 256, 300, None),         # past Sq and Skv: all visible
+    (150, 150, 8, 1, 256, 37, 20),          # a window, the prefix before it
+    (200, 333, 8, 2, 128, 160, None),
+    (100, 100, 4, 2, 64, 64, 16),
+    (96, 96, 4, 1, 64, 200, None),
+]
+
+
+def _prefix_qkv(dev, sq, skv, h, hk, d, dtype, seed):
+    if dtype == torch.bfloat16:                  # the projections' views
+        q = _view(dev, 2, skv, h, d, seed)[:, :, skv - sq:]
+        return q, _view(dev, 2, skv, hk, d, seed + 1), \
+            _view(dev, 2, skv, hk, d, seed + 2)
+    return (_rnd(dev, 2, h, sq, d, seed=seed),
+            _rnd(dev, 2, hk, skv, d, seed=seed + 1),
+            _rnd(dev, 2, hk, skv, d, seed=seed + 2))
+
+
+@pytest.mark.parametrize("case", PREFIX_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_head_dim_256_and_prefix(dev, case, dtype):
+    """d = 256 (groups 1 and 8) and the prefix-LM mask (none, off the
+    tile, a whole tile, past Sq and Skv, with a window) on the CUDA-core
+    kernel (f32, within 1e-4) and the tensor-core one (bf16 q, k, v the
+    projections' strided views: o within 2e-2 and 2^-6 of its row's
+    largest |o|, lse within 1e-3 / 1e-4), against flash_fwd_ref with the
+    same prefix; the causal-only plain version differs on the prefix's
+    rows."""
+    sq, skv, h, hk, d, prefix, window = case
+    q, k, v = _prefix_qkv(dev, sq, skv, h, hk, d, dtype, seed=sq + prefix)
+    kw = dict(causal=True, window=window, prefix_len=prefix)
+    reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    want = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash_attention_fwd.routes[want] == 1 == flash_attention_fwd.launches
+    ro, rlse = flash_fwd_ref(q, k, v, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, **TOL)
+        torch.testing.assert_close(lse, rlse, **TOL)
+    else:
+        torch.testing.assert_close(o.float(), ro.float(), atol=2e-2,
+                                   rtol=2e-2)
+        _close_rows(o, ro, 2 ** -6)
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+    if prefix > skv - sq + 1:           # some query sees a key past itself
+        causal, _ = flash_fwd_ref(q, k, v, causal=True, window=window)
+        assert not torch.allclose(o.float(), causal.float(), atol=2e-2,
+                                  rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_refuses_d256_and_prefix_gradients(dev, dtype):
+    """No backward kernel takes d = 256 or the prefix mask: a gradient
+    raises before the forward launches; under no_grad both run."""
+    q = _rnd(dev, 1, 2, 40, 256).to(dtype).requires_grad_()
+    p = _rnd(dev, 1, 2, 40, 64).to(dtype).requires_grad_()
+    reset_launches()
+    with pytest.raises(NotImplementedError, match="head dim 256"):
+        flash_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match="prefix_len"):
+        flash_attention(p, p, p, prefix_len=8)
+    assert flash_attention_fwd.launches == 0
+    with torch.no_grad():
+        assert flash_attention(q, q, q, prefix_len=8).shape == q.shape
+    assert flash_attention_fwd.launches == 1
+
+
+PAGED_256_CASES = [  # lens, page, nsp, hk, g, d
+    ([1016, 241, 0, 700, 33, 512, 999, 64], 512, 4, 1, 8, 256),
+    ([300, 17, 0, 130], 16, 32, 1, 8, 256),
+    ([90, 40, 0], 16, 4, 1, 8, 256),                 # wrapped caches
+    ([200, 5, 0], 32, 8, 2, 4, 256),
+]
+
+
+@pytest.mark.parametrize("split", [None, 32, 64, 512])
+@pytest.mark.parametrize("case", PAGED_256_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_head_dim_256_group_8(dev, monkeypatch, case, split,
+                                           dtype):
+    """d = 256 with 8 query heads a kv head (g d = 2048: two output chunks
+    a thread; f32 takes a 2-stage ring) on layouts that keep the engine's
+    invariant, each split length forced (None: the rule's), idle slots
+    exactly 0, against paged_decode_ref; one launch a call."""
+    from repro_torch.kernels.flash_attention import ops
+
+    lens, page, nsp, hk, g, d = case
+    if split is not None:
+        monkeypatch.setattr(ops, "paged_split",
+                            lambda b, hk, nsp, page: (
+                                split, -(-nsp * page // split)))
+    q, kp, vp, kw = _paged_inputs(dev, lens, page, nsp, hk, g, d, dtype,
+                                  seed=sum(lens) % 89)
+    reset_launches()
+    o = paged_decode_attention(q, kp, vp, **kw)
+    assert paged_decode_attention.launches == 1
+    ref = paged_decode_ref(q, kp, vp, **kw)
+    torch.testing.assert_close(o, ref, **_tol(dtype, ref))
+    for bi, n in enumerate(lens):
+        if n == 0:
+            assert (o[bi] == 0).all()
+
+
+def test_paligemma_serves_on_card_like_cpu(dev):
+    """Reduced paligemma at the published attention shape (8 heads of 256
+    over 1 kv head), one set of f32 weights on the card and the CPU:
+    ``LM(get_config("paligemma_3b"))`` is no longer refused; prefill
+    logits over 8 prefix embeddings within 1e-3 of the largest; 8 greedy
+    tokens equal on the engine and on the static path; every prefill
+    attention on flash_fwd, every engine decode on paged_decode."""
+    assert LM(get_config("paligemma_3b"), device=dev).pageable
+    cfg = dataclasses.replace(reduced(get_config("paligemma_3b")),
+                              n_heads=8, n_kv_heads=1, head_dim=256)
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(5))
+    cpu, p_cpu = LM(cfg, device="cpu"), tree_to(params, "cpu")
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab_size, (2, 40))
+    reset_launches()
+    paged, st = generate(model, params, prompts, gen_tokens=8, page_size=16)
+    counts = launch_counts()
+    assert st["engine"] and counts["flash_fwd"] == 2 * 2
+    assert counts["paged_decode"] == 2 * 7
+    static, _ = generate(model, params, prompts, gen_tokens=8,
+                         engine="static")
+    ref, _ = generate(cpu, p_cpu, prompts, gen_tokens=8, engine="static")
+    np.testing.assert_array_equal(paged, ref)
+    np.testing.assert_array_equal(static, ref)
+    pre = _rnd(dev, 2, 8, cfg.d_model, seed=7)
+    toks = torch.as_tensor(prompts, device=dev)
+    with torch.no_grad():
+        lg, _ = model.prefill(params, toks, prefix_embeddings=pre)
+        lc, _ = cpu.prefill(p_cpu, toks.cpu(), prefix_embeddings=pre.cpu())
+    _close_rel(lg.cpu(), lc, 1e-3)

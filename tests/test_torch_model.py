@@ -203,12 +203,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         LM(cfg, device="cuda")
 
 
-@pytest.mark.parametrize("arch", ["paligemma_3b"])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="dense GQA"):
-        LM(reduced(get_config(arch)), device="cpu")
-
-
 @pytest.mark.parametrize("arch,changes,kinds,pageable", [
     ("llama3_2_1b", {}, ["dense"], True),
     ("internlm2_20b", {}, ["dense"], True),
@@ -220,7 +214,8 @@ def test_unported_architectures_raise(arch):
     ("deepseek_v2_lite", {}, ["dense", "moe"], False),      # MLA
     ("zamba2_7b", {}, ["zamba_group"], False),
     ("zamba2_7b", dict(n_layers=5), ["zamba_group", "mamba2"], False),
-    ("zamba2_7b", dict(shared_attn_every=0), ["mamba2"], False)])
+    ("zamba2_7b", dict(shared_attn_every=0), ["mamba2"], False),
+    ("paligemma_3b", {}, ["dense"], True)])
 def test_build_program_admits_the_ported_architectures(arch, changes, kinds,
                                                        pageable):
     """The program equals the JAX package's, and the paged engine takes

@@ -2,7 +2,7 @@
 """The tensor-core attention forward's time in several checkouts, side by
 side on one card.
 
-    python3 tools/ab_attn_fwd.py ROOT [ROOT ...]
+    python3 tools/ab_attn_fwd.py [--paligemma] ROOT [ROOT ...]
 
 Each ROOT is a tree that holds ``chip_smoke.py`` and ``src/repro_torch``
 (this checkout, or another commit unpacked with ``git archive``). The
@@ -14,7 +14,12 @@ process of its own, with ``chip_smoke.py``'s own inputs:
   the train step's shape (q 4x32x1024x64, k/v 4x8x1024x64), the
   projections' views, causal;
 - ``ring_flash_fwd`` over the 16 (rank, step) pairs of the replayed 4-rank
-  ring (q 1x32x4096x64 against a chunk 1x8x4096x64, bf16, causal).
+  ring (q 1x32x4096x64 against a chunk 1x8x4096x64, bf16, causal);
+
+or, with ``--paligemma``, only ``flash_attention_fwd`` at paligemma_3b's
+prefix-LM prefill (q 4x8x768x256 over one kv head, the projections'
+views, causal with a 256-token prefix), which trees from before head dim
+256 and the prefix do not take.
 
 It prints one JSON line per ROOT: ms per launch from CUDA events around
 back-to-back calls (``ms``), the sum of ``torch.profiler``'s device rows per
@@ -63,7 +68,7 @@ def _time(fn, per):
     return dict(ms=ms, device_ms=sum(r[0] for r in rows), rows=rows)
 
 
-def _one(root):
+def _one(root, paligemma=False):
     sys.path[:0] = [root, os.path.join(root, "src")]
     import chip_smoke as cs
     import torch
@@ -74,6 +79,19 @@ def _one(root):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(42)
+    out = {"root": root}
+    if paligemma:
+        cfg = get_config("paligemma_3b")
+        p, b = cfg.num_prefix_embeddings, cs.PG_BATCH
+        s, d = p + cs.PG_PROMPT, cfg.resolved_head_dim
+        fq, fk, fv = (cs._proj(gen, b, s, heads, d)
+                      for heads in (cfg.n_heads, 1, 1))
+        with torch.no_grad():
+            out["flash_fwd@paligemma"] = _time(
+                lambda: flash_attention_fwd(fq, fk, fv, causal=True,
+                                            prefix_len=p), 1)
+        print(json.dumps(out), flush=True)
+        return
     n = cs.RING_STEPS
     c = cs.RING_SEQ // n
     q, k, v, _ = cs._ring_inputs(dev, gen, cs.RING_SEQ)
@@ -88,7 +106,6 @@ def _one(root):
     h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     shapes = {"flash_fwd@prefill": (1, 1000),
               "flash_fwd@train": (cs.TRAIN_BATCH, cs.TRAIN_SEQ)}
-    out = {"root": root}
     with torch.no_grad():
         for name, (b, s) in shapes.items():
             fq, fk, fv = (cs._proj(gen, b, s, heads, hd)
@@ -105,9 +122,11 @@ def _one(root):
 
 
 def main(argv):
-    if len(argv) == 2 and argv[0] == "--one":
-        _one(os.path.abspath(argv[1]))
+    if argv[:1] == ["--one"]:
+        _one(os.path.abspath(argv[1]), argv[2:] == ["--paligemma"])
         return 0
+    flags = ["--paligemma"] if argv[:1] == ["--paligemma"] else []
+    argv = argv[len(flags):]
     if not argv or argv[0].startswith("-"):
         print(__doc__, file=sys.stderr)
         return 2
@@ -120,7 +139,7 @@ def main(argv):
     _build(roots)
     for root in roots:
         subprocess.run([sys.executable, os.path.abspath(__file__), "--one",
-                        root], check=True)
+                        root, *flags], check=True)
     return 0
 
 
