@@ -11,7 +11,9 @@ blocked matmul op, serves the whole ``deepseek_v2_lite`` (MLA + MoE) and
 ``zamba2_7b`` (mamba2 + a shared attention block) through the static path,
 serves the whole ``paligemma_3b`` (MQA at head dim 256, a vision-stub
 prefix under the prefix-LM mask) through the engine, the static path and
-a prefix prefill, and times each kernel.
+a prefix prefill, trains the whole ``paligemma_3b`` and
+``deepseek_v2_lite`` and ``zamba2_7b`` at reduced depth through
+``TrainLoop``, and times each kernel.
 
   python3 chip_smoke.py
 
@@ -45,14 +47,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    tied and untied, each launch's route counted; flash_fwd at d_qk 192 /
    d_v 128 on both kernels at ragged Sq != Skv, Sq off the 64-row tile, v
    the projection's strided view, flash_fwd with a window and flash_decode
-   at mixtral's group of 6 query heads, d = 128, and the refusal of a
-   d_qk != d_v gradient before any launch; MLA's absorbed decode in bf16
+   at mixtral's group of 6 query heads, d = 128; MLA's absorbed decode in bf16
    at deepseek's widths, its products' f32 results and its output against
    the CPU's; ssm_scan at n = 64 in f32 at L and dm off its tile, with and
    without h0 and with a per-head-broadcast A, and in bf16 at zamba2's
    prefill shape (4 x 512 x 7168); flash_fwd at d = 112 on both kernels at
-   ragged Sq != Skv, q, k and v the projections' views, and the refusal
-   of a d = 112 gradient before any launch), bf16 at
+   ragged Sq != Skv, q, k and v the projections' views), bf16 at
    the main paths' full-width shapes (the ring kernels at every launch
    shape and offset of phase 13: 4 local steps, 16 replayed pairs) and f32
    at the apps' full-size shapes (tolerances stated beside each check; the
@@ -86,14 +86,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ops, the rmsnorm and paged decode kernels' rows), and one admission
    prefill;
 6. the training path: the full 16-layer bf16 llama3_2_1b through
-   ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, a checkpoint every
-   3 steps). Launch counts are zeroed just before and read just after;
+   ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, no checkpoints).
+   Launch counts are zeroed just before and read just after;
    every training kernel (and rmsnorm, flash_fwd) must have launched, the
    bf16 CE forward and backward, flash_fwd and flash_bwd on their
    tensor-core routes every time, flash_delta on its 16-byte vector route
    every time, every loss be
-   finite, and the latest checkpoint must restore bit-equal to the
-   parameters and optimizer state saved;
+   finite; then a 2-layer copy through ``TrainLoop`` with checkpoints at
+   steps 2 and 3, whose latest must restore bit-equal to the parameters
+   and optimizer state saved;
 7. where the training time goes: the host's enqueue time (until
    ``train_step`` returns, before the synchronize), one train step on the
    host clock and under ``torch.profiler`` (the tensor-core CE forward's
@@ -188,12 +189,34 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     d = 256 and under the prefix mask (prefix 0, off the tile, a whole
     tile, past Sq; with and without a window; d 64/128/256) on both
     kernels, shows that a prefix held against the causal-only plain
-    version fails, holds paged decode at d = 256, g = 8 in f32 and bf16
-    at every split length, and wants a d = 256 and a prefix gradient
-    refused before any launch; phase 3 runs paligemma at full width with
+    version fails and holds paged decode at d = 256, g = 8 in f32 and
+    bf16 at every split length; phase 3 runs paligemma at full width with
     2 layers in f32, card vs CPU (prefill over 256 prefix embeddings
     within 1e-3 of the largest logit; 8 greedy tokens equal on the engine
-    and the static path, and engine == static).
+    and the static path, and engine == static);
+18. training the wide architectures in bf16 through ``TrainLoop`` (4
+    steps each, no checkpoints; launch counts zeroed just before each run
+    and read just after, each exact: flash_fwd, flash_delta and flash_bwd
+    once an attention layer a step, on the tensor cores and the vector
+    route; the CE head once a step; ssm_scan once a mamba2 layer a step;
+    every loss and gradient norm finite; tokens/s, step ms, peak memory
+    and a profiled step's split): the whole paligemma_3b (B = 4, 256
+    prefix embeddings + 512 tokens), deepseek_v2_lite at 4 layers (1
+    dense + 3 MoE; B = 4 x 512), zamba2_7b at 7 (6 mamba2 layers with the
+    shared block, a tail of 1; B = 2 x 512); then (8) flash_bwd at their
+    training shapes, held (dq 2^-7 of its largest, dk and dv 1e-3 of each
+    row's largest) and timed beside autograd of SDPA. Phase 2a holds
+    flash_bwd and the flash_attention gradient at d 112, 128, 256 and
+    (192, 128), groups 8 and 1, ragged Sq != Skv, prefix 0 / off the tile
+    / a tile / past Sq with and without a window, and dead rows, on both
+    routes (bf16 views on the tensor cores at 2^-7 / 1e-3, f32 on the
+    CUDA cores at 1e-4 of the largest), shows a prefix gradient held
+    against the causal-only plain backward failing, and wants the ring
+    to refuse d = 112 and 256 gradients before any launch; phase 3 holds
+    the f32 training loss (1e-4) and every gradient (1e-3 of its largest)
+    card vs CPU for 2-layer paligemma, deepseek (its CPU MoE layers
+    routed as the card's, teacher forced; the smallest router gap
+    printed) and 3-layer zamba2.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -305,6 +328,19 @@ ZB_TWIN_REL, ZB_TWIN_SEEDS = 0.03, (71, 74, 75)
 # of 4 x (256 vision-stub prefix embeddings + 512 tokens) with 16 greedy
 # steps after it
 PG_BATCH, PG_PROMPT, PG_GEN, PG_STEPS = 4, 512, 32, 16
+# phase 18, training the wide architectures through TrainLoop in bf16:
+# (arch, config changes, global batch, attention layers, mamba2 layers);
+# seq_len WT_SEQ tokens (paligemma's 256 prefix embeddings come on top),
+# WT_STEPS steps each
+WIDE_TRAIN = (("paligemma_3b", {}, 4, 18, 0),
+              ("deepseek_v2_lite", dict(n_layers=4), 4, 4, 0),
+              ("zamba2_7b", dict(n_layers=7), 2, 1, 7))
+WT_SEQ, WT_STEPS = 512, 4
+# phase 8's flash_bwd rows at those models' training shapes: (row, B, S,
+# H, Hk, d_qk, d_v, prefix_len)
+WIDE_BWD_SHAPES = (("flash_bwd@paligemma", 4, 768, 8, 1, 256, 256, 256),
+                   ("flash_bwd@mla", 4, 512, 16, 16, 192, 128, 0),
+                   ("flash_bwd@zamba", 2, 512, 32, 32, 112, 112, 0))
 
 
 def log(msg):
@@ -1581,26 +1617,58 @@ def _ckpt_root():
     return best
 
 
-def train_main_path(cfg):
-    """Drive ``TrainLoop`` once on the full bf16 model (global batch 4,
-    seq_len 1024, 6 steps, checkpoints every 3 steps). Returns (launch
-    counts, stats, the loop's result)."""
+def checkpoint_round_trip(cfg):
+    """``TrainLoop``'s checkpoints on a 2-layer bf16 model of ``cfg`` (the
+    full model's ~12 GB checkpoints took half of the training phase's
+    wall time): 3 steps of 4 x 1024 tokens, a checkpoint at step 2 and the
+    final one at 3, then the latest restored into a fresh tree must be
+    bit-equal to the parameters and optimizer state the loop returned.
+    Returns the restore's seconds."""
     import torch
 
     from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import LM
+    from repro_torch.tree import leaves, tree_map
+
+    model = LM(dataclasses.replace(cfg, n_layers=2))
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=_ckpt_root())
+    out = train_mod.TrainLoop(model=model, global_batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, steps=3, ckpt_dir=ckpt,
+                              ckpt_every=2, verbose=False).run()
+    t0 = time.perf_counter()
+    saved = (out["params"], out["opt"])
+    template = tree_map(lambda t: torch.empty_like(t, device="meta"), saved)
+    step, restored, _ = CheckpointManager(ckpt).restore(template,
+                                                        device=model.device)
+    if step != 3:
+        fail(f"latest checkpoint is step {step}, not 3")
+    for a, b_ in zip(leaves(restored), leaves(saved)):
+        if a.dtype != b_.dtype or not torch.equal(a, b_.detach()):
+            fail("checkpoint restore is not bit-equal to the saved state")
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return restore_s
+
+
+def train_main_path(cfg):
+    """Drive ``TrainLoop`` once on the full bf16 model (global batch 4,
+    seq_len 1024, 6 steps, no checkpoints: checkpoint_round_trip holds
+    them on 2 layers). Returns (launch counts, stats, the loop's
+    result)."""
+    import torch
+
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_bwd, flash_delta)
     from repro_torch.kernels.lm_head import lm_head_bwd, lm_head_ce
     from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
-    from repro_torch.tree import leaves, tree_map
 
     model = LM(cfg)
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=_ckpt_root())
     loop = train_mod.TrainLoop(model=model, global_batch=TRAIN_BATCH,
                                seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
-                               ckpt_dir=ckpt, ckpt_every=3, log_every=1)
+                               log_every=1)
     step_fn, step_ms = train_mod.train_step, []
 
     def timed_step(*args):
@@ -1648,26 +1716,11 @@ def train_main_path(cfg):
         fail(f"training path: flash_delta routes {delta_routes}; every "
              "launch must take the 16-byte vector route")
 
-    # the latest checkpoint (step 6) restores bit-equal into a fresh tree
-    t0 = time.perf_counter()
-    saved = (out["params"], out["opt"])
-    template = tree_map(lambda t: torch.empty_like(t, device="meta"), saved)
-    step, restored, _ = CheckpointManager(ckpt).restore(template,
-                                                        device=model.device)
-    if step != TRAIN_STEPS:
-        fail(f"latest checkpoint is step {step}, not {TRAIN_STEPS}")
-    for a, b_ in zip(leaves(restored), leaves(saved)):
-        if a.dtype != b_.dtype or not torch.equal(a, b_.detach()):
-            fail("checkpoint restore is not bit-equal to the saved state")
-    restore_s = time.perf_counter() - t0
-    del restored
-    shutil.rmtree(ckpt, ignore_errors=True)
     steady = step_ms[1:]
     stats = dict(wall_s=wall, history=hist, step_ms=step_ms,
                  tok_s=TRAIN_BATCH * TRAIN_SEQ * len(steady) / (
                      sum(steady) / 1e3),
-                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 restore_s=restore_s)
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     return model, counts, stats, out
 
 
@@ -3323,7 +3376,8 @@ def small_tc_attn_checks(dev):
     each case with k and v (and do) both as the projections' views (the
     main path's layout) and contiguous; limits beside each; every call's
     route counted, all wgmma. Then bf16 gradients through a windowed and a
-    d = 128 flash_attention, and the up-front refusal of an f32 one."""
+    d = 128 flash_attention (f32 ones, on the CUDA cores, are held in
+    small_wide_bwd_checks)."""
     import torch
 
     from repro_torch.kernels import reset_launches
@@ -3402,7 +3456,7 @@ def small_tc_attn_checks(dev):
     # gradients through flash_attention: bf16 with a window and at d = 128
     # on the tensor-core backward, each within 2^-7 of its largest against
     # the plain backward on the same o and lse (both round dq, dk, dv to
-    # bf16 once); an f32 windowed one is refused before any launch
+    # bf16 once)
     for d, window in ((64, 40), (128, None), (128, 24)):
         q, k, v, go = (_proj(g, 2, 200, n, d) for n in (8, 2, 2, 8))
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
@@ -3418,18 +3472,6 @@ def small_tc_attn_checks(dev):
         for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
             check_rel(f"flash_attention bf16 grad d={d} window={window} "
                       f"{name}", a, b_.to(a.dtype), 2 ** -7)
-    q = torch.randn((1, 4, 64, 64), generator=g, device=dev,
-                    requires_grad=True)
-    reset_launches()
-    try:
-        flash_attention(q, q.detach(), q.detach(), window=16)
-        fail("an f32 windowed flash_attention gradient was not refused")
-    except NotImplementedError:
-        pass
-    if flash_attention_fwd.launches:
-        fail("the f32 refusal came after the forward's launch")
-    log("[check] f32 windowed flash_attention gradient refused before any "
-        "launch")
 
     # the ring step forward at check_flash_tc's limits (o 2e-2 and 2^-6 of
     # its row, lse 1e-3 / 1e-4, -inf on the same rows) and, on its o and
@@ -3981,14 +4023,12 @@ def small_mla_moe_attn_checks(dev):
     and Sq off the 64-row tile, causal and not; flash_fwd with a window at
     mixtral's group of 6 query heads and d = 128 on both kernels; the same
     group through flash_decode on a rotated rolling cache (f32 1e-4, bf16
-    1% of max|o| and 2^-7), kv_len as an int and as a device tensor; and
-    the refusal of a d_qk != d_v gradient before any launch. Each launch's
-    route counted. Returns max |err| of flash_fwd's o."""
+    1% of max|o| and 2^-7), kv_len as an int and as a device tensor. Each
+    launch's route counted. Returns max |err| of flash_fwd's o."""
     import torch
 
     from repro_torch.kernels import reset_launches
     from repro_torch.kernels.flash_attention import (decode_ref,
-                                                     flash_attention,
                                                      flash_attention_fwd,
                                                      flash_decode,
                                                      flash_fwd_ref)
@@ -4046,19 +4086,6 @@ def small_mla_moe_attn_checks(dev):
                         o, ref, **lim, quiet=True)
     if flash_decode.launches != 4:
         fail(f"flash_decode launched {flash_decode.launches} times, want 4")
-    q, k, v = _mla_inputs(gen, 1, 40, 2, bf)
-    q.requires_grad_()
-    before = flash_attention_fwd.launches
-    try:
-        flash_attention(q, k, v)
-    except NotImplementedError as e:
-        log(f"[mla] a d_qk 192 / d_v 128 gradient on the card is refused "
-            f"before any launch: {str(e)[:90]}")
-    else:
-        fail("flash_attention: a d_qk != d_v gradient was not refused")
-    if flash_attention_fwd.launches != before:
-        fail("flash_attention launched the forward before refusing the "
-             "d_qk != d_v gradient")
     torch.cuda.synchronize()
     log(f"[check] flash_fwd at d_qk 192 / d_v 128 and group 6 / d 128: "
         f"{ncase} cases on each route agree (bf16 max|err| of o {err:.3e}); "
@@ -4202,7 +4229,10 @@ def two_layer_moe_f32_checks():
     sums in other orders), and ``generate``'s first 8 greedy tokens equal.
     Prints the smallest gap between the k-th and (k+1)-th router
     probability the card saw: an expert choice that flips across devices
-    at such a near-tie is a tie, not a kernel fault (a failure names it)."""
+    at such a near-tie is a tie, not a kernel fault (a failure names it).
+    deepseek's training loss and every gradient on the same tokens, card
+    vs CPU (_train_card_vs_cpu), with the CPU's MoE layers routed as the
+    card's (_ForcedRoutes, teacher forced)."""
     import numpy as np
     import torch
 
@@ -4240,6 +4270,15 @@ def two_layer_moe_f32_checks():
                  f"{out_g.tolist()} (smallest router gap {gaps.gap:.3e})")
         log(f"[moe f32] {tag}: 8 static tokens agree, card == CPU (first "
             f"row {out_g[0].tolist()}; the CPU side took {cpu_s:.1f}s)")
+        if arch == "deepseek_v2_lite":
+            routes = _ForcedRoutes()
+            _train_card_vs_cpu(tag, cpu, gpu, p_cpu, p_gpu, {"tokens": toks},
+                               routes)
+            log(f"[moe f32] {tag} train: smallest gap between the k-th and "
+                f"(k+1)-th router probability on the card {routes.gap:.3e}; "
+                f"the CPU's own top-k would route {routes.flips} tokens "
+                "otherwise (its MoE layers take the card's choices, teacher "
+                "forced)")
         del cpu, gpu, p_gpu, p_cpu
         torch.cuda.empty_cache()
 
@@ -4498,13 +4537,11 @@ def small_zamba_kernel_checks(dev):
     largest). flash_fwd at d = 112 on both kernels at ragged Sq != Skv,
     causal: the tensor-core one on bf16 q, k and v laid out as the
     projections' strided views, at check_flash_tc's limits, the CUDA-core
-    one on f32 copies of the same values within 1e-4; a d = 112 gradient
-    refused before any launch.
+    one on f32 copies of the same values within 1e-4.
     Returns (max |err| of ssm_scan, of flash_fwd)."""
     import torch
 
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_fwd,
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_fwd_ref)
     from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
 
@@ -4558,21 +4595,6 @@ def small_zamba_kernel_checks(dev):
             f"flash_fwd f32 d=112 sq={sq} skv={skv} o", o, ro, **tol))
         check_close(f"flash_fwd f32 d=112 sq={sq} skv={skv} lse", lse, rlse,
                     **tol)
-    for dt in (torch.bfloat16, torch.float32):
-        q = rnd(1, 2, 40, d).to(dt).requires_grad_()
-        before = flash_attention_fwd.launches
-        try:
-            flash_attention(q, q, q)
-        except NotImplementedError as e:
-            if "head dim 112" not in str(e):
-                fail(f"flash_attention d=112 {dt}: refused with {e}")
-        else:
-            fail(f"flash_attention d=112 {dt}: a gradient was not refused")
-        if flash_attention_fwd.launches != before:
-            fail(f"flash_attention d=112 {dt}: the forward launched before "
-                 "the refusal")
-    log("[check] flash_attention d=112: a gradient is refused before any "
-        "launch (bf16 and f32)")
     torch.cuda.synchronize()
     return serr, ferr
 
@@ -4589,7 +4611,9 @@ def two_layer_zamba_f32_checks():
     tail of 1; one set of weights, drawn on the card and copied to the CPU,
     runs on the card (kernels) and on the CPU (plain versions). Prefill
     logits of 2 x 64 tokens within 1e-3 of the largest logit (f32 sums in
-    other orders), and ``generate``'s first 8 greedy tokens equal."""
+    other orders), and ``generate``'s first 8 greedy tokens equal; the
+    training loss and every gradient on the same tokens
+    (_train_card_vs_cpu: the shared block's d = 112 backward)."""
     import numpy as np
     import torch
 
@@ -4620,6 +4644,7 @@ def two_layer_zamba_f32_checks():
              f"{out_g.tolist()}")
     log(f"[zamba f32] {tag}: 8 static tokens agree, card == CPU (first row "
         f"{out_g[0].tolist()})")
+    _train_card_vs_cpu(tag, cpu, gpu, p_cpu, p_gpu, {"tokens": toks})
     del cpu, gpu, p_gpu, p_cpu
     torch.cuda.empty_cache()
 
@@ -4942,13 +4967,11 @@ def small_paligemma_kernel_checks(dev):
     kv head (g d = 2048) in f32 (1e-4) and bf16 (2e-2) with the split rule's
     length and every length it may take (32, 64, ..., 512) forced, on
     block tables laid out as the engine lays them (logical slot l holds
-    position l or -1); a d = 256 and a prefix gradient refused before any
-    launch. Returns (max |err| of flash_fwd, of paged_decode)."""
+    position l or -1). Returns (max |err| of flash_fwd, of paged_decode)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_fwd,
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_fwd_ref,
                                                      paged_decode_attention,
                                                      paged_decode_ref)
@@ -5040,25 +5063,6 @@ def small_paligemma_kernel_checks(dev):
         f"the rule's and each of 32, 64, ..., 512, lens {lens}: max|err| "
         f"{err['paged_decode']:.3e}")
 
-    for what, d, kw in (("head dim 256", 256, {}),
-                        ("prefix_len", 64, dict(prefix_len=8))):
-        for dt in (torch.bfloat16, torch.float32):
-            x = torch.randn((1, 2, 40, d), generator=g, device=dev).to(dt)
-            x.requires_grad_()
-            before = flash_attention_fwd.launches
-            try:
-                flash_attention(x, x, x, **kw)
-            except NotImplementedError as e:
-                if what not in str(e):
-                    fail(f"flash_attention {what} {dt}: refused with {e}")
-            else:
-                fail(f"flash_attention {what} {dt}: a gradient was not "
-                     "refused")
-            if flash_attention_fwd.launches != before:
-                fail(f"flash_attention {what} {dt}: the forward launched "
-                     "before the refusal")
-    log("[check] flash_attention: a d = 256 and a prefix gradient are "
-        "refused before any launch (bf16 and f32)")
     torch.cuda.synchronize()
     return err["flash_fwd"], err["paged_decode"]
 
@@ -5070,8 +5074,10 @@ def two_layer_paligemma_f32_checks():
     embeddings and 64 tokens (2 rows) within 1e-3 of the largest logit
     (f32 sums in other orders); the first 8 greedy tokens equal, card vs
     CPU, through ``generate`` on the engine (the default: paligemma is
-    pageable; pages of 16) and on the static path; and the engine's tokens
-    equal the static path's."""
+    pageable; pages of 16) and on the static path; the engine's tokens
+    equal the static path's; and the training loss and every gradient over
+    the same prefix and tokens (_train_card_vs_cpu: d = 256 under the
+    prefix-LM mask on the backward too)."""
     import numpy as np
     import torch
 
@@ -5119,6 +5125,8 @@ def two_layer_paligemma_f32_checks():
     log(f"[paligemma f32] {tag}: 8 greedy tokens agree, card == CPU, on the "
         f"engine and the static path, engine == static (first row "
         f"{outs['auto'][0].tolist()})")
+    _train_card_vs_cpu(tag, cpu, gpu, p_cpu, p_gpu,
+                       {"tokens": toks, "prefix_embeddings": pre.cpu()})
     del cpu, gpu, p_gpu, p_cpu
     torch.cuda.empty_cache()
 
@@ -5327,6 +5335,493 @@ def time_paligemma_kernels(dev, lens):
     return out, ferr, out["paged_decode@paligemma"]["err"]
 
 
+# ---------------------------------------------------------------------------
+# training the wide architectures: flash_bwd at d 112, 128 (CUDA cores),
+# 256 with the prefix, and (192, 128); phases 2a, 3, 18 and 8
+# ---------------------------------------------------------------------------
+
+# (d_qk, d_v) of the new flash_bwd domains: zamba2's shared attention, the
+# CUDA-core route's d = 128, paligemma's MQA and deepseek's MLA
+WIDE_DIMS = ((112, 112), (128, 128), (256, 256), (192, 128))
+
+
+def _wide_inputs(g, sq, skv, h, hk, d, dv):
+    """q, k, v, do as the projections give them (bf16 views; q and do the
+    last sq rows of projections of max(sq, skv) rows)."""
+    n = max(sq, skv)
+    return (_proj(g, 2, n, h, d)[:, :, n - sq:], _proj(g, 2, skv, hk, d),
+            _proj(g, 2, skv, hk, dv), _proj(g, 2, n, h, dv)[:, :, n - sq:])
+
+
+class _ForcedRoutes:
+    """Routes the CPU's MoE layers as the card's: while recording (the card
+    run), ``moe._router`` keeps each call's expert choices; while replaying
+    (the CPU run, the same calls in the same order), each call takes the
+    recorded choices instead of its own top-k, with its own probabilities
+    at those experts as the gates (renormalised) and its own aux losses.
+    A choice that flips between the devices at a near-tie of router
+    probabilities is then a routing fact kept out of the comparison (the
+    count of choices the CPU's own top-k would have made otherwise is
+    kept), not a kernel fault. ``moe._router`` is restored on exit."""
+
+    def __init__(self):
+        self.idx, self.flips, self.gap = [], 0, float("inf")
+
+    def _wrap(self, replay):
+        import torch
+
+        from repro_torch.layers import moe
+
+        orig = moe._router
+        calls = iter(list(self.idx)) if replay else None
+
+        def router(params, x, cfg):
+            gate, idx, aux = orig(params, x, cfg)
+            if not replay:
+                with torch.no_grad():
+                    p = torch.softmax(x.float() @ params["router"], dim=-1)
+                    top = torch.topk(p, cfg.n_experts_per_tok + 1,
+                                     dim=-1).values
+                    self.gap = min(self.gap, float((top[..., -2]
+                                                    - top[..., -1]).min()))
+                self.idx.append(idx.detach().cpu())
+                return gate, idx, aux
+            forced = next(calls).to(idx.device)
+            self.flips += int((torch.sort(forced, -1).values
+                               != torch.sort(idx, -1).values).any(-1).sum())
+            logits = x.float() @ params["router"]
+            probs = torch.softmax(logits, dim=-1)
+            g = probs.gather(-1, forced)
+            g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+            e = cfg.n_experts
+            me = probs.mean(dim=(0, 1))
+            top1 = (forced[..., 0, None] == torch.arange(
+                e, device=x.device)).float().mean(dim=(0, 1))
+            return g, forced, {
+                "moe_lb_loss": e * torch.sum(me * top1),
+                "moe_z_loss": torch.mean(torch.logsumexp(logits, -1) ** 2)}
+
+        return moe, orig, router
+
+    def run(self, replay, fn):
+        moe, orig, router = self._wrap(replay)
+        moe._router = router
+        try:
+            return fn()
+        finally:
+            moe._router = orig
+
+
+def _train_card_vs_cpu(tag, cpu, gpu, p_cpu, p_gpu, batch, routes=None):
+    """The loss and every parameter's gradient of one batch on the card
+    (kernels) and on the CPU (plain versions), one set of weights: the loss
+    within 1e-4, each gradient within 1e-3 of its largest magnitude (f32
+    with sums in other orders). ``routes`` (a _ForcedRoutes) records the
+    card's expert choices and replays them on the CPU. Returns the worst
+    gradient's max |err| over its largest magnitude."""
+    import torch
+
+    from repro_torch.tree import leaves, leaves_with_path, unflatten
+
+    out = []
+    for model, params, replay in ((gpu, p_gpu, False), (cpu, p_cpu, True)):
+        ps = [p.detach().requires_grad_() for p in leaves(params)]
+        tree = unflatten(params, ps)
+        b = {k: v.to(model.device) for k, v in batch.items()}
+
+        def step():
+            loss, _ = model.loss(tree, b)
+            return loss.detach(), torch.autograd.grad(loss, ps)
+
+        t0 = time.perf_counter()
+        out.append(routes.run(replay, step) if routes else step())
+        if model.device.type == "cuda":
+            torch.cuda.synchronize()
+        log(f"[{tag} train] loss + grads on {model.device}: "
+            f"{time.perf_counter() - t0:.1f}s")
+    (lg, gg), (lc, gc) = out
+    check_close(f"{tag} loss, card vs CPU", lg.cpu(), lc, atol=1e-4, rtol=0)
+    worst, which = 0.0, ""
+    for (key, _), a, b_ in zip(leaves_with_path(p_cpu), gg, gc):
+        e = check_rel(f"{tag} grad {key}", a.cpu(), b_, 1e-3, quiet=True)
+        r = e / max(float(b_.abs().max()), 1e-30)
+        if r >= worst:
+            worst, which = r, key
+    log(f"[{tag} train] loss {float(lg):.6f} (card) vs {float(lc):.6f} "
+        f"(CPU); {len(gg)} gradients each within 1e-3 of its largest "
+        f"magnitude, the worst {worst:.3e} ({which})")
+    return worst
+
+
+def small_wide_bwd_checks(dev):
+    """flash_bwd against flash_bwd_ref at d 112, 128, 256 and (192, 128),
+    groups 8 and 1, ragged Sq != Skv, prefix_len 0, off the tile (37), a
+    whole 64-row tile and past Sq, each with and without a window of 24,
+    and rows that see no key: bf16 q, k, v, do as the projections' strided
+    views on the tensor cores (dq within 2^-7 of its largest magnitude, dk
+    and dv within 1e-3: the full-width limits), the same values in f32 on
+    the CUDA cores (1e-4 of the largest: f32 with sums in another order)
+    and, one case a shape, bf16 with do 2 bytes off alignment on the CUDA
+    cores (the tensor-core limits); every launch's route counted. delta is
+    rowsum(do o) plus noise, as for the d <= 128 cases. Then the gradient
+    through flash_attention at each shape, with and without a prefix, on
+    both routes against the plain backward on the kernel forward's o and
+    lse; a planted check (a prefix gradient held against the causal-only
+    plain backward must read above the limit); and the ring's refusal of
+    d = 112 and 256 gradients before any launch. Returns max |err| of
+    flash_bwd's dk and dv (f32) over the tensor-core cases."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_fwd,
+                                                     flash_bwd, flash_bwd_ref,
+                                                     flash_delta,
+                                                     flash_delta_ref,
+                                                     flash_fwd_ref,
+                                                     ring_flash_attention)
+
+    g = torch.Generator(device=dev).manual_seed(91)
+    err, n, routes = 0.0, 0, {"wgmma": 0, "simt": 0}
+    reset_launches()
+    for d, dv in WIDE_DIMS:
+        shapes = [(sq, skv, h, hk, prefix, window)
+                  for sq, skv, h, hk in ((150, 150, 8, 1), (100, 230, 4, 4))
+                  for prefix in (0, 37, 64, sq + 40)
+                  for window in (None, 24)]
+        shapes.append((90, 40, 8, 1, 0, None))       # rows 0-49 see no key
+        for i, (sq, skv, h, hk, prefix, window) in enumerate(shapes):
+            q, k, v, do = _wide_inputs(g, sq, skv, h, hk, d, dv)
+            kw = dict(causal=True, window=window, prefix_len=prefix)
+            tag = (f"flash_bwd d={d}/{dv} sq={sq} skv={skv} h={h}/{hk} "
+                   f"prefix={prefix} window={window}")
+            o, lse = flash_fwd_ref(q, k, v, **kw)
+            delta = flash_delta(do, o) + torch.randn(
+                (2, h, sq), generator=g, device=dev)
+            dead = torch.isneginf(lse)
+            runs = [("bf16 tc", (q, k, v, do), "wgmma")]
+            runs.append(("f32 cuda-core", tuple(t.float() for t in
+                                                (q, k, v, do)), "simt"))
+            if i == 0:
+                runs.append(("bf16 do unaligned, cuda-core",
+                             (q, k, v, _unaligned(do)), "simt"))
+            for what, args, path in runs:
+                got = flash_bwd(*args, lse, delta, **kw)
+                want = flash_bwd_ref(*args, lse, delta, **kw)
+                rels = ((1e-4,) * 3 if what.startswith("f32")
+                        else (2 ** -7, 1e-3, 1e-3))
+                for name, a, b_, rel in zip(("dq", "dk", "dv"), got, want,
+                                            rels):
+                    e = check_rel(f"{tag} {what} {name}", a, b_, rel,
+                                  quiet=True)
+                    if path == "wgmma" and name != "dq":
+                        err = max(err, e)
+                if dead.any() and not (got[0][dead] == 0).all():
+                    fail(f"{tag} {what}: rows that see no key must give "
+                         "dq = 0")
+                routes[path] += 1
+                n += 1
+    if dict(flash_bwd.routes) != routes:
+        fail(f"small wide flash_bwd cases: routes {dict(flash_bwd.routes)}, "
+             f"expected {routes}")
+    log(f"[check] flash_bwd at d 112/128/256 and 192/128 (prefix 0, 37, a "
+        f"tile, past Sq; window none and 24; groups 8 and 1; dead rows): "
+        f"{n} cases within their limits, routes {routes}; dk/dv max|err| "
+        f"{err:.3e} on the tensor cores")
+
+    # gradients through flash_attention on both routes
+    for d, dv in WIDE_DIMS:
+        for prefix, window in ((0, None), (40, None), (24, 16)):
+            q, k, v, go = _wide_inputs(g, 120, 120, 8, 1, d, dv)
+            for dt, path in ((torch.bfloat16, "wgmma"),
+                             (torch.float32, "simt")):
+                qq, kk, vv = (t.detach().to(dt).requires_grad_()
+                              for t in (q, k, v))
+                gg = go.to(dt)
+                kw = dict(causal=True, window=window, prefix_len=prefix)
+                reset_launches()
+                o = flash_attention(qq, kk, vv, **kw)
+                got = torch.autograd.grad(o, (qq, kk, vv), gg)
+                if (flash_bwd.routes[path] != 1 or flash_bwd.launches != 1
+                        or flash_attention_fwd.routes[path] != 1):
+                    fail(f"flash_attention grad d={d}/{dv} {dt}: routes "
+                         f"fwd {dict(flash_attention_fwd.routes)} bwd "
+                         f"{dict(flash_bwd.routes)}, expected {path}")
+                with torch.no_grad():
+                    o2, lse = flash_attention_fwd(qq, kk, vv, **kw)
+                    want = flash_bwd_ref(qq, kk, vv, gg, lse,
+                                         flash_delta_ref(gg, o2), **kw)
+                rel = 2 ** -7 if dt == torch.bfloat16 else 1e-4
+                for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+                    check_rel(f"flash_attention grad d={d}/{dv} {dt} prefix="
+                              f"{prefix} window={window} {name}", a,
+                              b_.to(a.dtype), rel, quiet=True)
+    log("[check] flash_attention gradients at d 112/128/256 and 192/128, "
+        "prefix 0/40/24 (window 16), bf16 on the tensor cores (2^-7 of the "
+        "largest) and f32 on the CUDA cores (1e-4): all within their limits")
+
+    # planted: the prefix gradient against the causal-only plain backward
+    q, k, v, do = _wide_inputs(g, 300, 300, 8, 1, 256, 256)
+    o, lse = flash_fwd_ref(q, k, v, prefix_len=256)
+    delta = flash_delta(do, o)
+    got = flash_bwd(q, k, v, do, lse, delta, prefix_len=256)
+    check_rel("flash_bwd d=256 prefix 256 dq", got[0], flash_bwd_ref(
+        q, k, v, do, lse, delta, prefix_len=256)[0], 2 ** -7)
+    causal = flash_bwd_ref(q, k, v, do, lse, delta)[0].float()
+    planted = float((got[0].float() - causal).abs().max()
+                    / causal.abs().max())
+    if planted <= 2 ** -7:
+        fail(f"flash_bwd prefix 256 against the causal-only plain backward: "
+             f"{planted:.3e} of the largest |dq|, within the 2^-7 limit: the "
+             "check cannot tell a prefix treated as causal")
+    log(f"[check] planted: flash_bwd's dq with prefix 256 against the "
+        f"causal-only plain backward reads {planted:.3e} of the largest "
+        f"|dq|, above the 2^-7 = {2 ** -7:.3e} limit: a kernel that treated "
+        "the prefix as causal fails the check")
+
+    # the ring's step kernels take head dims up to 128: refused up front
+    for d in (112, 256):
+        for dt in (torch.bfloat16, torch.float32):
+            q = torch.randn((1, 4, 64, d), generator=g, device=dev).to(dt)
+            k = torch.randn((1, 2, 64, d), generator=g, device=dev).to(dt)
+            reset_launches()
+            try:
+                ring_flash_attention(q.requires_grad_(), k, k, ring_steps=2)
+            except NotImplementedError as e:
+                if f"head dim {d}" not in str(e):
+                    fail(f"ring d={d} {dt}: refused with {e}")
+            else:
+                fail(f"ring d={d} {dt}: a gradient was not refused")
+            if any(launch_counts().values()):
+                fail(f"ring d={d} {dt}: a kernel launched before the refusal")
+    log("[check] ring_flash_attention: d = 112 and d = 256 gradients refused "
+        "before any launch (bf16 and f32)")
+    torch.cuda.synchronize()
+    return err
+
+
+def _profile_wide_step(tag, model, params, opt_state, batch):
+    """One train step of the phase 18 model on the host clock (after a
+    warm one) and one under ``torch.profiler``: the device busy share and
+    the top device rows, flash_bwd's two kernels among them. Returns
+    (host ms, busy ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import train_step
+    from repro_torch.optim import AdamW
+
+    opt = AdamW()
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(model, opt, params, opt_state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run()                                          # warm
+    step_ms = run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_ms = run()
+    rows = device_rows(prof, 1)
+    busy_ms = sum(r[0] for r in rows)
+    log(f"[profile {tag}] train step: host {step_ms:.3f} ms ({prof_ms:.3f} "
+        f"under the profiler); device busy {busy_ms:.3f} ms = "
+        f"{100 * busy_ms / step_ms:.1f}% of the unprofiled step, idle "
+        f"{100 * (1 - busy_ms / step_ms):.1f}%")
+    for ms, n, key in rows[:10]:
+        log(f"[profile {tag}]   {ms:9.3f} ms  {n:5d} calls  {key[:90]}")
+    for part in ("dq_tc_kernel", "dkv_tc_kernel"):
+        ms = sum(r[0] for r in rows if part in r[2] and "ValueOffsets" in r[2])
+        n = sum(r[1] for r in rows if part in r[2] and "ValueOffsets" in r[2])
+        log(f"[profile {tag}] flash_bwd {part}: {ms:.4f} ms in {n} launches "
+            f"({100 * ms / busy_ms:.1f}% of the busy time)")
+    return step_ms, busy_ms
+
+
+def wide_train_main_path():
+    """Phase 18: the three architectures the port serves but could not
+    train, trained on the card in bf16 through ``TrainLoop`` (no
+    checkpoints): the whole paligemma_3b (B = 4, 256 vision-stub prefix
+    embeddings + 512 tokens, the prefix-LM mask), deepseek_v2_lite at 4 of
+    its 27 layers (1 dense + 3 MoE, every width as published; B = 4 x 512)
+    and zamba2_7b at 7 of its 81 layers (one group of 6 mamba2 layers with
+    the shared block, a tail of 1; B = 2 x 512), WT_STEPS steps each.
+    Launch counts zeroed just before each run and read just after, each
+    exact: flash_fwd, flash_delta and flash_bwd once an attention layer a
+    step, flash_fwd and flash_bwd on their tensor-core routes every time,
+    flash_delta on its vector route; the CE head's forward and backward
+    once a step; ssm_scan once a mamba2 layer a step. Every loss and
+    gradient norm finite. Prints tokens/s, step ms, peak memory and one
+    profiled step's split."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_bwd, flash_delta)
+    from repro_torch.kernels.lm_head import lm_head_bwd, lm_head_ce
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import LM
+
+    out_counts = {}
+    for arch, changes, batch, attn, mamba in WIDE_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), **changes)
+        model = LM(cfg)
+        loop = train_mod.TrainLoop(model=model, global_batch=batch,
+                                   seq_len=WT_SEQ, steps=WT_STEPS,
+                                   log_every=1)
+        step_fn, step_ms, gnorms = train_mod.train_step, [], []
+
+        def timed_step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step_fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            gnorms.append(float(res[3]["grad_norm"]))
+            return res
+
+        train_mod.train_step = timed_step
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            out = loop.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            routes = {w.__name__: dict(w.routes) for w in (
+                flash_attention_fwd, flash_bwd, flash_delta, lm_head_ce,
+                lm_head_bwd)}
+        finally:
+            train_mod.train_step = step_fn
+        tag = f"{arch} {[(s_.kind, s_.n, s_.group) for s_ in model.program]}"
+        hist = out["history"]
+        if len(hist) != WT_STEPS:
+            fail(f"{tag}: training ran {len(hist)} steps")
+        if not all(map(lambda x: x == x and abs(x) != float("inf"),
+                       hist + gnorms)):
+            fail(f"{tag}: non-finite loss or gradient norm: losses {hist}, "
+                 f"gradient norms {gnorms}")
+        want = {"flash_fwd": attn * WT_STEPS, "flash_delta": attn * WT_STEPS,
+                "flash_bwd": attn * WT_STEPS, "lm_head_ce": WT_STEPS,
+                "lm_head_bwd": WT_STEPS, "ssm_scan": mamba * WT_STEPS}
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"{tag}: launch counts {got}, expected {want}")
+        check_tc_routes(f"{tag} training: flash_fwd",
+                        routes["flash_attention_fwd"], want["flash_fwd"])
+        check_tc_routes(f"{tag} training: flash_bwd", routes["flash_bwd"],
+                        want["flash_bwd"])
+        check_tc_routes(f"{tag} training: CE forward", routes["lm_head_ce"],
+                        WT_STEPS)
+        check_tc_routes(f"{tag} training: CE backward",
+                        routes["lm_head_bwd"], WT_STEPS)
+        if routes["flash_delta"] != {"vec": want["flash_delta"], "scalar": 0}:
+            fail(f"{tag} training: flash_delta routes "
+                 f"{routes['flash_delta']}, all on the vector route wanted")
+        ntok = batch * WT_SEQ
+        steady = step_ms[1:]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[train {arch}] {model.param_count(out['params'])} parameters; "
+            f"kernels " + ", ".join(f"{k}={v}" for k, v in counts.items()
+                                   if v) + " (each as expected)")
+        log(f"[train {arch}] losses {hist}; gradient norms {gnorms}")
+        log(f"[train {arch}] {WT_STEPS} steps of {batch}x{WT_SEQ} tokens"
+            + (f" + {cfg.num_prefix_embeddings} prefix embeddings"
+               if cfg.frontend else "")
+            + f" in {wall:.3f}s wall (init included); step ms "
+            f"{[round(t_, 3) for t_ in step_ms]}; steps 2-{WT_STEPS}: "
+            f"{ntok * len(steady) / (sum(steady) / 1e3):.1f} tokens/s; peak "
+            f"device memory {peak:.2f} GB")
+        bt = {"tokens": torch.from_numpy(SyntheticLMData(
+            vocab_size=cfg.vocab_size, seq_len=WT_SEQ, global_batch=batch,
+            seed=9).batch(0)).to(model.device)}
+        if cfg.frontend:
+            bt["prefix_embeddings"] = train_mod.prefix_embeddings(
+                9, 0, batch, cfg).to(model.device)
+        _profile_wide_step(arch, model, out["params"], out["opt"], bt)
+        out_counts[arch] = counts
+        del model, out, loop, bt
+        torch.cuda.empty_cache()
+    return out_counts
+
+
+def time_wide_bwd(dev):
+    """flash_bwd at the three phase 18 models' training shapes, bf16 q, k,
+    v, do as the projections give them: the kernel (tensor-core route)
+    against the plain version on the same inputs, dq within 2^-7 of its
+    largest magnitude and dk, dv within 1e-3 of each row's largest; its time beside the
+    bound (the larger of its bytes and 2.5 times the forward's operations
+    over the visible pairs), the plain version's and autograd of SDPA's
+    (the boolean causal-or-prefix mask for paligemma; E_v != E for MLA).
+    Returns ({row: times}, max |err| of dk and dv)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_bwd, flash_bwd_ref,
+                                                     flash_delta)
+
+    g = torch.Generator(device=dev).manual_seed(93)
+    times, err = {}, 0.0
+    for name, b, s, h, hk, d, dv, prefix in WIDE_BWD_SHAPES:
+        q, k, v, do = _wide_inputs(g, s, s, h, hk, d, dv)
+        with torch.no_grad():
+            o, lse = flash_attention_fwd(q, k, v, prefix_len=prefix)
+        delta = flash_delta(do, o)
+        got = flash_bwd(q, k, v, do, lse, delta, prefix_len=prefix)
+        want = flash_bwd_ref(q, k, v, do, lse, delta, prefix_len=prefix)
+        tag = f"{name} ({b},{h},{s},{d}/{dv}) prefix {prefix}"
+        # dq by its largest magnitude: a row whose p sits on one key (a
+        # causal row 0) cancels to ~0 in both, and a row's own scale would
+        # measure only that cancellation; dk and dv by each row's
+        check_rel(tag + " dq", got[0], want[0], 2 ** -7)
+        for i, n_ in ((1, "dk"), (2, "dv")):
+            err = max(err, check_rows(f"{tag} {n_}", got[i], want[i],
+                                      1e-3)[0])
+        del got, want
+        qi = torch.arange(s, device=dev)
+        mask = (qi[:, None] >= qi[None, :]) | (qi[None, :] < prefix)
+        pairs = int(mask.sum())
+        fwd_flops = 2 * b * h * pairs * (d + dv)
+        qs, ks, vs = (t_.detach().contiguous().requires_grad_()
+                      for t_ in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask if prefix else None,
+            is_causal=not prefix, enable_gqa=True)
+        times[name] = dict(
+            ms=_timed_routes(lambda: flash_bwd(q, k, v, do, lse, delta,
+                                               prefix_len=prefix),
+                             flash_bwd, "wgmma", 10),
+            flops=2.5 * fwd_flops,
+            plain_ms=cuda_ms(lambda: flash_bwd_ref(q, k, v, do, lse, delta,
+                                                   prefix_len=prefix), 3, 1),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                sdpa, (qs, ks, vs), do, retain_graph=True), 5),
+            library=("autograd of F.scaled_dot_product_attention("
+                     + ("the boolean causal-or-prefix mask"
+                        if prefix else "is_causal") + ", enable_gqa)"),
+            shape=f"q ({b},{h},{s},{d}), k ({b},{hk},{s},{d}), v "
+                  f"({b},{hk},{s},{dv}) bf16 views"
+                  + (f", prefix {prefix}" if prefix else "") + ", causal")
+        times[name].update(zip(("bound_ms", "bound_by"), bound(
+            # q, do, k, v read in bf16, lse and delta in f32; dq written
+            # in bf16, dk and dv in f32
+            2 * (b * h + b * hk) * s * (d + dv) + 2 * b * h * s * 4
+            + 2 * b * h * s * d + 4 * b * hk * s * (d + dv),
+            2.5 * fwd_flops, "bfloat16")))
+        del sdpa, qs, ks, vs
+    torch.cuda.synchronize()
+    return times, err
+
+
 def log_times(times):
     """Phase 8's report: a [time] line for each entry of ``times``, the
     [gbps] and [tflops] lines and the rmsnorm host split."""
@@ -5425,6 +5920,7 @@ def log_times(times):
     for name in ("matmul", "lm_head_ce", "lm_head_bwd", "flash_fwd",
                  "flash_fwd@train", "flash_fwd@mla", "flash_fwd@mixtral",
                  "flash_fwd@zamba", "flash_fwd@paligemma", "flash_bwd",
+                 "flash_bwd@paligemma", "flash_bwd@mla", "flash_bwd@zamba",
                  "ring_flash_fwd",
                  "ring_flash_bwd"):
         t = times[name]
@@ -5481,6 +5977,9 @@ def main():
                 log(f"[nvcc {name}] {fn}: {line.strip()}; {spill}")
     log(f"[build] {len(logs)} CUDA sources compiled in "
         f"{time.perf_counter() - t0:.1f}s")
+    log("[build] each source's nvcc, seconds from the start: " + ", ".join(
+        f"{n} {t:.1f}" for n, t in sorted(_build.BUILD_SECONDS.items(),
+                                          key=lambda x: -x[1])))
 
     def elapsed(what):
         log(f"[elapsed] {what}: {time.perf_counter() - t_start:.1f}s")
@@ -5498,6 +5997,7 @@ def main():
     mla_decode_bf16_check(dev)
     zscan_err, zflash_err = small_zamba_kernel_checks(dev)
     pflash_err, ppaged_err = small_paligemma_kernel_checks(dev)
+    wbwd_err = small_wide_bwd_checks(dev)
     elapsed("phase 2a")
 
     cfg = get_config("llama3_2_1b")
@@ -5548,11 +6048,10 @@ def main():
         f"{k}={tcounts[k]}" for k in TRAIN_KERNELS + ("rmsnorm", "flash_fwd")))
     log(f"[train] loss history {tstats['history']}")
     log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
-        f"{tstats['wall_s']:.3f}s wall (init and checkpoints included); "
+        f"{tstats['wall_s']:.3f}s wall (init included, no checkpoints); "
         f"step ms {[round(t, 3) for t in tstats['step_ms']]}; steps 2-"
         f"{TRAIN_STEPS}: {tstats['tok_s']:.1f} tokens/s; peak device "
-        f"memory {tstats['peak_gb']:.2f} GB; checkpoint restored bit-equal "
-        f"in {tstats['restore_s']:.1f}s")
+        f"memory {tstats['peak_gb']:.2f} GB")
     counts.update({k: tcounts[k] for k in TRAIN_KERNELS})
 
     # 7. where a train step's time goes
@@ -5565,6 +6064,10 @@ def main():
     errs["flash_fwd"] = max(errs["flash_fwd"], errs.pop("flash_fwd@train"))
     times.update(time_train_kernels(dev, cfg, embed))
     del model, embed
+    torch.cuda.empty_cache()
+    log(f"[train] checkpoints of a 2-layer model (3 steps, saved at 2 and "
+        f"3): the latest restored bit-equal in "
+        f"{checkpoint_round_trip(cfg):.1f}s")
     elapsed("phase 6-8 training")
 
     # 9. the apps path: FD, SEM and DG at full size through their entry
@@ -5646,6 +6149,17 @@ def main():
     errs["flash_fwd"] = max(errs["flash_fwd"], pflash_err, p_flash)
     errs["paged_decode"] = max(errs["paged_decode"], ppaged_err, p_paged)
     elapsed("phase 17 paligemma")
+
+    # 18. paligemma_3b whole, deepseek_v2_lite and zamba2_7b at reduced
+    # depth trained through TrainLoop; 2b and 8 for flash_bwd at their
+    # shapes
+    wcounts = wide_train_main_path()
+    w_times, w_err = time_wide_bwd(dev)
+    times.update(w_times)
+    errs["flash_bwd"] = max(errs["flash_bwd"], wbwd_err, w_err)
+    log("[train] phase 18 flash_bwd launches (printed, not summed in): "
+        + ", ".join(f"{a} {c['flash_bwd']}" for a, c in wcounts.items()))
+    elapsed("phase 18 wide training")
     log_times(times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 

@@ -483,8 +483,8 @@ extern "C" int ring_flash_bwd_tc(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const repro::attn::DeviceOffsets off{q_start, k_start};
 #define REPRO_RING_BWD_TC(D)                                                                \
-  repro::attn::bwd::launch<D>(q, k, v, dout, lse, delta, off, dq, dk, dv, b, h, hk, sq, skv, \
-                              mk, sm_scale, st, s)
+  repro::attn::bwd::launch<D, D>(q, k, v, dout, lse, delta, off, dq, dk, dv, b, h, hk, sq, \
+                                 skv, mk, sm_scale, st, s)
   cudaError_t e;
   if (d == 32) e = REPRO_RING_BWD_TC(32);
   else if (d == 64) e = REPRO_RING_BWD_TC(64);

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 __all__ = ["SOURCES", "build_all", "load", "check", "on_cpu", "tma_ok"]
 
@@ -37,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
+BUILD_SECONDS: dict[str, float] = {}   # source -> nvcc wall s (build_all)
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -73,13 +75,26 @@ def _start(name: str):
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every source that has no library yet, one nvcc each, all in
     parallel. Returns {name: nvcc output} for the sources it compiled
-    (``-Xptxas -v``: registers, shared memory and spills per kernel).
-    Raises with the compiler's output if any build fails."""
+    (``-Xptxas -v``: registers, shared memory and spills per kernel), and
+    records each source's wall seconds from the start in
+    ``BUILD_SECONDS``. Raises with the compiler's output if any build
+    fails."""
+    t0 = time.perf_counter()
     jobs = {n: j for n in names if (j := _start(n)) is not None}
     logs, failed = {}, []
+
+    def wait(name, proc):
+        logs[name] = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+
+    waits = [threading.Thread(target=wait, args=(n, j[2]))
+             for n, j in jobs.items()]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     for name, (out, tmp, proc) in jobs.items():
-        text, _ = proc.communicate()
-        logs[name] = text
+        text = logs[name]
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{text}")
             continue

@@ -10,14 +10,10 @@ differentiable op: a ``torch.autograd.Function`` whose forward is
 ``flash_delta`` (``csrc/flash_delta.cu``) and then ``flash_bwd``
 (``csrc/flash_bwd.cu``), as the JAX op's ``_bwd`` runs the delta and fused
 backward kernels. Both devices go through the same Function; on the CPU
-each step is its plain version. On the card the backward's CUDA-core
-kernel has no window mask and takes head dims up to 64, so
-``flash_attention`` raises before the forward when a gradient is asked of
-a windowed or d = 128 call whose inputs would take that kernel (f32, or
-bf16 the 16-byte copies cannot read); the tensor-core backward takes both.
-No backward kernel takes d_v != d_qk, d = 112 or 256, or a prefix, so a
-card gradient at MLA's, zamba2's or paligemma's shape is refused before the
-forward too.
+each step is its plain version. Both backward kernels take every shape
+and mask the forward takes (equal head dims 32-256 or MLA's (192, 128);
+causal, window, prefix), so every gradient the forward admits runs on the
+card.
 ``flash_decode`` launches
 ``csrc/flash_decode.cu`` (one-token decode against a contiguous or rotated
 rolling cache: the JAX package's ``flash_decode`` op and its
@@ -67,10 +63,9 @@ _FWD_HEAD_DIMS = (32, 64, 112, 128, 256)  # 112: zamba2, 256: paligemma
 _FWD_DIM_PAIRS = ((192, 128),)  # flash_fwd: (d_qk, d_v) besides equal dims
 _DECODE_HEAD_DIMS = (32, 64, 112, 128, 256)    # flash_decode
 _PAGED_HEAD_DIMS = (32, 64, 128, 256)          # paged_decode
-# flash_bwd by route
-_BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": (32, 64)}
-# ring_flash_bwd by route (ring.py reads it): the same kernels' head dims
-RING_BWD_HEAD_DIMS = _BWD_HEAD_DIMS
+# ring_flash_bwd by route (ring.py reads it): ring_flash.cu's instances
+# (flash_bwd takes _FWD_HEAD_DIMS and _FWD_DIM_PAIRS on both routes)
+RING_BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": (32, 64)}
 _MAX_GROUP = 16                # decode kernels: query heads per kv head
 _MAX_GROUP_DIM = 2048          # decode kernels: (query heads per kv head) * d
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -79,8 +74,9 @@ _FLASH_SIG = {"flash_fwd": ([_P] * 5 + [_I] * 11 + [_F] + [_L] * 9 + [_P],
                             _I),
               "flash_fwd_tc": ([_P] * 5 + [_I] * 10 + [_F] + [_L] * 9 + [_P],
                                _I)}
-_BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P], _I),
-            "flash_bwd_tc": ([_P] * 9 + [_I] * 8 + [_F] + [_L] * 12 + [_P],
+_BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 11 + [_F] + [_L] * 12 + [_P],
+                          _I),
+            "flash_bwd_tc": ([_P] * 9 + [_I] * 10 + [_F] + [_L] * 12 + [_P],
                              _I)}
 _DECODE_SIG = {"flash_decode": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 6 + [_P],
                                 _I)}
@@ -313,15 +309,15 @@ flash_delta.route = _delta_route
 
 def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=None,
               sm_scale=None, prefix_len=0):
-    """dq (B, H, Sq, D) in q's dtype and dk, dv (B, Hk, Skv, D) f32, summed
-    over each kv head's query-head group, from the forward's lse and
-    :func:`flash_delta`'s delta (both (B, H, Sq) f32). Queries are aligned
-    to the end of the kv stream; any Sq and Skv (a query that sees no key
-    contributes nothing); ``causal`` and ``window`` as in
-    :func:`flash_attention_fwd`, and ``prefix_len`` on the CPU only. On the
-    card :func:`route` (of q, k, v, do) picks the kernel: head dims
-    ``_BWD_HEAD_DIMS[route]``, and a window only on the tensor-core
-    route."""
+    """q (B, H, Sq, D), k (B, Hk, Skv, D), v (B, Hk, Skv, Dv) and the
+    cotangent do (B, H, Sq, Dv) of o -> dq (B, H, Sq, D) in q's dtype and
+    dk (B, Hk, Skv, D), dv (B, Hk, Skv, Dv) f32, summed over each kv head's
+    query-head group, from the forward's lse and :func:`flash_delta`'s
+    delta (both (B, H, Sq) f32). Queries are aligned to the end of the kv
+    stream; any Sq and Skv (a query that sees no key contributes nothing);
+    ``causal``, ``window`` and ``prefix_len`` as in
+    :func:`flash_attention_fwd`. On the card :func:`route` (of q, k, v, do)
+    picks the kernel; both take the forward's head dims and masks."""
     name = "flash_bwd"
     _no_grad_asked(name, q, k, v, do)
     prefix = _prefix(name, prefix_len)
@@ -329,23 +325,17 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=None,
         return flash_bwd_ref(q, k, v, do, lse, delta, causal=causal,
                              window=window, sm_scale=sm_scale,
                              prefix_len=prefix)
-    if prefix:
-        raise ValueError(f"{name}: prefix_len={prefix_len}; no backward "
-                         "kernel takes the prefix-LM mask")
     win = _window(name, window)
-    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
-        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
-                         f"match q {tuple(q.shape)} {q.dtype}, last axis "
-                         "contiguous")
-    path = route(q, k, v, do)
-    _check_qkv(name, q, k, v, _BWD_HEAD_DIMS[path])
-    if win and path == "simt":
-        raise ValueError(f"{name}: window={window} on the CUDA-core kernel "
-                         "(f32, or bf16 rows the 16-byte copies cannot "
-                         "read), which has no window mask")
+    _check_qkv(name, q, k, v, _FWD_HEAD_DIMS, _FWD_DIM_PAIRS)
     _check_gqa(name, q, k, v)
     b, h, sq, d = q.shape
     _, hk, skv, _ = k.shape
+    dv_dim = v.shape[-1]
+    if (tuple(do.shape) != (b, h, sq, dv_dim) or do.dtype != q.dtype
+            or do.stride(-1) != 1):
+        raise ValueError(f"{name}: do {tuple(do.shape)} {do.dtype} must "
+                         f"match o ({b}, {h}, {sq}, {dv_dim}) {q.dtype}, "
+                         "last axis contiguous")
     for t, n in ((lse, "lse"), (delta, "delta")):
         if (tuple(t.shape) != (b, h, sq) or t.dtype != torch.float32
                 or not t.is_contiguous()):
@@ -357,18 +347,19 @@ def flash_bwd(q, k, v, do, lse, delta, *, causal=True, window=None,
     dev = q.device
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
-    dv = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
+    dv = torch.empty((b, hk, skv, dv_dim), dtype=torch.float32, device=dev)
     lib = load("flash_bwd", _BWD_SIG)
+    path = route(q, k, v, do)
     ptrs = (ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta), ptr(dq),
-            ptr(dk), ptr(dv), b, h, hk, sq, skv, d)
+            ptr(dk), ptr(dv), b, h, hk, sq, skv, d, dv_dim)
+    masks = (int(bool(causal)), win, prefix, float(sm_scale))
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *do.stride()[:3])
     if path == "wgmma":
-        err = lib.flash_bwd_tc(*ptrs, int(bool(causal)), win,
-                               float(sm_scale), *strides, stream())
+        err = lib.flash_bwd_tc(*ptrs, *masks, *strides, stream())
     else:
-        err = lib.flash_bwd(*ptrs, _DTYPE_CODE[q.dtype], int(bool(causal)),
-                            float(sm_scale), *strides, stream())
+        err = lib.flash_bwd(*ptrs, _DTYPE_CODE[q.dtype], *masks, *strides,
+                            stream())
     check(lib, err, f"{name} ({path})")
     flash_bwd.launches += 1
     flash_bwd.routes[path] += 1
@@ -386,8 +377,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal=True, window=None,
     are cast to k's and v's dtypes here. The cotangent is taken in q's
     dtype with its last axis contiguous; on the card, where q, k and v take
     the tensor-core route, a cotangent the 16-byte copies cannot read is
-    copied first, so the backward's route is theirs (the one
-    :func:`flash_attention` checked before the forward). Returns (dq, dk,
+    copied first, so the backward's route is theirs. Returns (dq, dk,
     dv)."""
     do = do.to(q.dtype)
     if do.stride(-1) != 1:
@@ -426,38 +416,13 @@ def flash_attention(q, k, v, *, causal=True, window=None, sm_scale=None,
                     prefix_len=0):
     """Differentiable attention: the o of :func:`flash_attention_fwd`, with
     the saved (q, k, v, o, lse) feeding :func:`flash_attention_bwd`. On the
-    card the backward's route is :func:`route` of q, k and v: when a
-    gradient is asked and that route's kernel cannot take the call (the
-    CUDA-core backward: head dims 32 and 64, no window; neither backward:
-    d_v != d_qk, d = 112 or 256, a prefix), this raises before the forward
-    runs instead of returning a wrong gradient or failing late. On the CPU
-    the plain backward takes every shape and mask.
-    """
+    card the backward's route is :func:`route` of q, k and v, and both
+    routes take every shape and mask the forward takes; on the CPU each
+    step is its plain version."""
     prefix = _prefix("flash_attention", prefix_len)
     if not _grad_asked(q, k, v):
         return flash_attention_fwd(q, k, v, causal=causal, window=window,
                                    sm_scale=sm_scale, prefix_len=prefix)[0]
-    if not on_cpu("flash_attention", q, k, v):
-        path, d = route(q, k, v), q.shape[-1]
-        if prefix:
-            raise NotImplementedError(
-                f"flash_attention: no backward kernel for prefix_len="
-                f"{prefix} (flash_bwd has no prefix-LM mask); call it under "
-                "torch.no_grad()")
-        if v.shape[-1] != d:
-            raise NotImplementedError(
-                f"flash_attention: no backward kernel for d_qk {d} != d_v "
-                f"{v.shape[-1]} (flash_bwd takes equal head dims); call it "
-                "under torch.no_grad()")
-        if d not in _BWD_HEAD_DIMS[path] or (window is not None
-                                             and path == "simt"):
-            raise NotImplementedError(
-                f"flash_attention: no backward kernel for window={window}, "
-                f"head dim {d} on the {path!r} route (flash_bwd takes head "
-                f"dims {_BWD_HEAD_DIMS['simt']} and no window on the "
-                f"CUDA-core route, head dims {_BWD_HEAD_DIMS['wgmma']} and "
-                "windows for bf16 inputs with 16-byte rows); call it under "
-                "torch.no_grad()")
     return _FlashAttention.apply(q, k, v, causal, window, sm_scale, prefix)
 
 

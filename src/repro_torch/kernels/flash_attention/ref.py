@@ -278,8 +278,8 @@ def flash_bwd_ref(q, k, v, do, lse, delta, *, causal=True, window=None,
     computes them: ``p = exp(s - lse)`` on visible keys (0 elsewhere, so a
     row that sees no key, lse = -inf, contributes nothing),
     ``ds = p * (do v^T - delta) * sm_scale``. Returns dq (B, H, Sq, D) in
-    q's dtype and dk, dv (B, Hk, Skv, D) f32 summed over each kv head's
-    query-head group."""
+    q's dtype, dk (B, Hk, Skv, D) and dv (B, Hk, Skv, Dv) f32 summed over
+    each kv head's query-head group (do is (B, H, Sq, Dv), as o)."""
     b, h, sq, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
     dv_dim = v.shape[-1]

@@ -37,8 +37,10 @@ def selective_scan_ref(x, delta, A, B, C, D, *, h0=None):
         dA = torch.exp(dc[..., None] * A)                       # (Bt,c,Dm,N)
         dBx = dc[..., None] * bc[:, :, None, :].float() * xc[..., None].float()
         hs = []
-        for t in range(xc.shape[1]):
-            h = dA[:, t] * h + dBx[:, t]
+        # unbind, not dA[:, t]: autograd then stacks the steps' gradients
+        # once, where indexing fills a zero (Bt, c, Dm, N) tensor a step
+        for a, b in zip(dA.unbind(1), dBx.unbind(1)):
+            h = a * h + b
             hs.append(h)
         hs = torch.stack(hs, dim=1)
         y = torch.einsum("bldn,bln->bld", hs, cc.float()) + D * xc.float()

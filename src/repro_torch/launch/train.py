@@ -2,8 +2,10 @@
 ``repro.launch.train`` without a mesh).
 
 Integrates: the eager train step (``LM.loss`` -> ``torch.autograd.grad``
--> ``AdamW.update``), deterministic synthetic data with prefetch, async
-atomic checkpointing + resume, the straggler watchdog, and failure
+-> ``AdamW.update``), deterministic synthetic data with prefetch (and,
+for a model with a frontend stub, its prefix embeddings, drawn for each
+data step as the JAX loop draws them), async atomic checkpointing +
+resume, the straggler watchdog, and failure
 injection with automatic restore-retry. Autotune adoption, rematerializing
 layers, gradient accumulation and sharded (zero1/fsdp) optimizer state are
 not ported yet.
@@ -31,7 +33,8 @@ from repro_torch.optim import AdamW, WarmupCosine
 from repro_torch.runtime import ChaosError, FailureInjector, StepWatchdog
 from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["TrainLoop", "main", "train_step", "validate_host_batch"]
+__all__ = ["TrainLoop", "main", "prefix_embeddings", "train_step",
+           "validate_host_batch"]
 
 
 def validate_host_batch(tokens, vocab_size: int):
@@ -47,6 +50,19 @@ def validate_host_batch(tokens, vocab_size: int):
             f"batch tokens out of range [{lo}, {hi}] for vocab_size="
             f"{vocab_size}: the CE would silently train on padded-"
             "vocab logits; fix the data pipeline")
+
+
+def prefix_embeddings(seed: int, step: int, global_batch: int, cfg):
+    """The frontend stub's input for data step ``step``: (global_batch,
+    num_prefix_embeddings, d_model) standard normals from numpy's Philox
+    keyed on (seed * 2654435761 + 7, step), drawn in f32 and cast to
+    ``cfg.dtype``, as ``repro.launch.train`` draws them, so both packages
+    train one function on one batch."""
+    rs = np.random.Generator(np.random.Philox(
+        key=[seed * 2654435761 + 7, step]))
+    x = rs.standard_normal((global_batch, cfg.num_prefix_embeddings,
+                            cfg.d_model), np.float32)
+    return torch.from_numpy(x).to(getattr(torch, cfg.dtype))
 
 
 def train_step(model: LM, optimizer: AdamW, params, opt_state, batch):
@@ -130,9 +146,12 @@ class TrainLoop:
                 try:
                     if self.injector:
                         self.injector.maybe_fail(step)
-                    _, host_batch = prefetch.next()
+                    dstep, host_batch = prefetch.next()
                     validate_host_batch(host_batch, cfg.vocab_size)
                     batch = {"tokens": torch.from_numpy(host_batch).to(dev)}
+                    if cfg.frontend:
+                        batch["prefix_embeddings"] = prefix_embeddings(
+                            self.seed, dstep, self.global_batch, cfg).to(dev)
                     watchdog.start()
                     params, opt_state, loss, metrics = train_step(
                         model, optimizer, params, opt_state, batch)

@@ -5,10 +5,9 @@ of ``flash_bwd``, on the CPU.
   wrappers' choice of entry point is held here with the library stubbed
   (``load`` returns a recorder, ``on_cpu`` says "card"): bf16 with 16-byte
   rows takes the tensor-core entry (``lm_head_ce_fwd_tc``,
-  ``flash_bwd_tc``), f32 and unaligned bf16 the CUDA-core one; each call
-  counts its route, and a window or head dim 128 on the CUDA-core backward
-  raises before any launch. CPU calls run the plain versions and count
-  nothing.
+  ``flash_bwd_tc``), f32 and unaligned bf16 the CUDA-core one, windows
+  and head dim 128 included; each call counts its route. CPU calls run the
+  plain versions and count nothing.
 * The tensor-core CE forward reduces each 256-column tile of a row to (max,
   sum of exp, label logit) and merges the tiles, skipping those wholly past
   ``vocab``: a plain model of that (``_tiled_ce_stats``) is held against
@@ -17,8 +16,8 @@ of ``flash_bwd``, on the CPU.
 * ``flash_bwd_ref`` with a window, at head dims 64 and 128, against the JAX
   ``flash_attention_bwd(window=...)`` (Pallas, interpret mode); a windowed
   ``flash_attention`` differentiates on the CPU like the JAX oracle; on the
-  card (stubbed) its gradient is refused before the forward exactly when
-  q, k, v take the CUDA-core backward.
+  card (stubbed) its forward runs once and its backward reaches the entry
+  point of the route q, k, v take, on either route.
 
 Tolerances: f32 throughout; 1e-5 where both sides compute the same sums in
 another order at these sizes (d <= 128, V <= 1100), 1e-4 for the backward's
@@ -157,18 +156,18 @@ FLASH_BWD_ROUTES = {
     "bf16 views d 32, window": (32, BF, True, False, 5, "wgmma"),
     "f32 d 64": (64, torch.float32, True, False, None, "simt"),
     "bf16 do 2 bytes off, d 64": (64, BF, True, True, None, "simt"),
-    "f32 d 128": (128, torch.float32, True, False, None, "head dims"),
-    "f32 d 64, window": (64, torch.float32, True, False, 8, "no window"),
-    "bf16 do 2 bytes off, window": (64, BF, True, True, 8, "no window"),
+    "f32 d 128": (128, torch.float32, True, False, None, "simt"),
+    "f32 d 64, window": (64, torch.float32, True, False, 8, "simt"),
+    "bf16 do 2 bytes off, window": (64, BF, True, True, 8, "simt"),
 }
 
 
 @pytest.mark.parametrize("case", list(FLASH_BWD_ROUTES))
 def test_flash_bwd_route_and_entry(stub, case):
     """``flash_bwd`` launches the entry point of ``route(q, k, v, do)``:
-    ``flash_bwd_tc`` with the window and the strides of all four inputs,
-    or the CUDA-core ``flash_bwd``; the CUDA-core kernel's missing window
-    mask and head dim 128 raise before any launch."""
+    ``flash_bwd_tc`` or the CUDA-core ``flash_bwd``, each with the head
+    dims, the masks (the window too, on both routes since the CUDA-core
+    kernel has one) and the strides of all four inputs."""
     d, dtype, views, shift, window, want = FLASH_BWD_ROUTES[case]
     q, k, v, do = _qkv(d, dtype, views=views)
     if shift:
@@ -189,11 +188,12 @@ def test_flash_bwd_route_and_entry(stub, case):
                *do.stride()[:3])
     if want == "wgmma":
         assert name == "flash_bwd_tc"
-        assert args[9:17] == (1, 4, 2, 40, 40, d, 1, window or 0)
-        assert args[18:30] == strides
+        assert args[9:19] == (1, 4, 2, 40, 40, d, d, 1, window or 0, 0)
+        assert args[20:32] == strides
     else:
         assert name == "flash_bwd"
-        assert args[9:15] == (1, 4, 2, 40, 40, d)
+        assert args[9:20] == (1, 4, 2, 40, 40, d, d, int(dtype == BF), 1,
+                              window or 0, 0)
         assert args[-13:-1] == strides
     assert flash_bwd.launches == 1
     assert flash_bwd.routes == {"wgmma": int(want == "wgmma"),
@@ -346,25 +346,29 @@ def test_windowed_flash_attention_differentiates_like_jax(d, window):
 
 
 REFUSALS = {
-    # (dtype, d, window, q's base shifted, refused)
-    "f32 window": (torch.float32, 64, 8, False, True),
-    "f32 d 128": (torch.float32, 128, None, False, True),
-    "f32 d 64": (torch.float32, 64, None, False, False),
-    "bf16 window": (BF, 64, 8, False, False),
-    "bf16 d 128, window": (BF, 128, 8, False, False),
-    "bf16 q 2 bytes off, window": (BF, 64, 8, True, True),
-    "bf16 q 2 bytes off, d 64": (BF, 64, None, True, False),
+    # (dtype, d, window, q's base shifted): a window and head dim 128 on
+    # the CUDA-core backward, and their tensor-core twins
+    "f32 window": (torch.float32, 64, 8, False),
+    "f32 d 128": (torch.float32, 128, None, False),
+    "f32 d 64": (torch.float32, 64, None, False),
+    "bf16 window": (BF, 64, 8, False),
+    "bf16 d 128, window": (BF, 128, 8, False),
+    "bf16 q 2 bytes off, window": (BF, 64, 8, True),
+    "bf16 q 2 bytes off, d 64": (BF, 64, None, True),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
 def test_card_refuses_a_gradient_only_on_the_simt_route(monkeypatch, case):
-    """On the card (stubbed: the forward kernel records its call) a
-    gradient through ``flash_attention`` is refused before the forward
-    runs exactly when ``route(q, k, v)`` is "simt" and the CUDA-core
-    backward cannot take the call (a window, or head dim 128)."""
-    dtype, d, window, shifted, refused = REFUSALS[case]
+    """On the card (stubbed: the forward kernel records its call, the delta
+    and backward libraries are recorders) a gradient through
+    ``flash_attention`` is refused for none of the cases the CUDA-core
+    backward once could not take (a window, head dim 128): the forward runs
+    once, and the backward reaches the entry point of ``route(q, k, v)``
+    with the window, on either route."""
+    dtype, d, window, shifted = REFUSALS[case]
     calls = []
+    libs = {"flash_bwd": _Lib(), "flash_delta": _Lib()}
 
     def fwd(*args, **kwargs):
         calls.append(kwargs)
@@ -372,21 +376,27 @@ def test_card_refuses_a_gradient_only_on_the_simt_route(monkeypatch, case):
 
     monkeypatch.setattr(attn_ops, "on_cpu", lambda name, *ts: False)
     monkeypatch.setattr(attn_ops, "flash_attention_fwd", fwd)
-    q, k, v, _ = _attn_arrays(d, d)
+    monkeypatch.setattr(attn_ops, "load", lambda name, sig: libs[name])
+    monkeypatch.setattr(attn_ops, "stream", lambda: 0)
+    monkeypatch.setattr(attn_ops, "_DELTA_ENTRY", None)
+    reset_launches()
+    q, k, v, do = _attn_arrays(d, d)
     q, k, v = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
     if shifted:
         q = torch.cat([torch.zeros(1, dtype=dtype), q.reshape(-1)])[1:] \
             .view(q.shape)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    assert (route(q, k, v) == "simt") == (dtype == torch.float32 or shifted)
-    if refused:
-        with pytest.raises(NotImplementedError, match="backward"):
-            flash_attention(q, k, v, window=window)
-        assert calls == []
-        with torch.no_grad():               # no gradient: the forward runs
-            flash_attention(q, k, v, window=window)
-        assert len(calls) == 1
-        return
-    flash_attention(q, k, v, window=window)
+    path = route(q, k, v)
+    assert (path == "simt") == (dtype == torch.float32 or shifted)
+    o = flash_attention(q, k, v, window=window)
     assert calls == [dict(causal=True, window=window, sm_scale=None,
                           prefix_len=0)]
+    grads = torch.autograd.grad(o, (q, k, v), torch.from_numpy(do).to(dtype))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert len(libs["flash_delta"].calls) == 1
+    (name, args), = libs["flash_bwd"].calls
+    assert name == {"wgmma": "flash_bwd_tc", "simt": "flash_bwd"}[path]
+    masks = args[16:19] if path == "wgmma" else args[17:20]
+    assert args[14:16] == (d, d) and masks == (1, window or 0, 0)
+    assert flash_bwd.routes == {"wgmma": int(path == "wgmma"),
+                                "simt": int(path == "simt")}

@@ -501,21 +501,25 @@ def test_paged_decode_kernel_head_dim_128(dev, g, page):
                                paged_decode_ref(q, kp, vp, **kw), **TOL)
 
 
-def test_attention_without_backward_kernel_refuses_gradients(dev):
-    """f32 inputs take flash_bwd.cu's CUDA-core backward, which has no
-    window mask and takes head dims <= 64: on the card a gradient through a
-    windowed or d = 128 f32 ``flash_attention`` raises before any launch
-    instead of coming out wrong; without a gradient both run the kernel.
-    (bf16 takes the tensor-core backward, which has both: below.)"""
-    for window, d in ((4, 32), (None, 128)):
+def test_f32_windowed_and_d128_gradients_take_the_cuda_core_backward(dev):
+    """f32 inputs take flash_bwd.cu's CUDA-core backward, which has the
+    window mask and every head dim the forward takes: a gradient through a
+    windowed or d = 128 f32 ``flash_attention`` runs on the card and
+    matches autograd through the plain version (1e-4)."""
+    for window, d in ((4, 32), (None, 128), (7, 128)):
         q = _rnd(dev, 1, 4, 9, d).requires_grad_()
         k = _rnd(dev, 1, 2, 9, d, seed=1).requires_grad_()
-        with pytest.raises(NotImplementedError, match="backward"):
-            flash_attention(q, k, k, window=window)
-        with torch.no_grad():
-            o = flash_attention(q, k, k, window=window)
+        go = _rnd(dev, 1, 4, 9, d, seed=2)
+        reset_launches()
+        o = flash_attention(q, k, k, window=window)
+        got = torch.autograd.grad(o, (q, k), go)
+        assert flash_bwd.routes == {"wgmma": 0, "simt": 1}
+        want = torch.autograd.grad(mha_ref(q, k, k, window=window), (q, k),
+                                   go)
         torch.testing.assert_close(o, mha_ref(q, k, k, window=window)
                                    .detach(), **TOL)
+        for a, b_ in zip(got, want):
+            torch.testing.assert_close(a, b_, **TOL)
 
 
 def test_ssm_scan_gradients_on_cuda_match_cpu(dev):
@@ -1616,8 +1620,8 @@ def test_flash_delta_routes(dev, d):
 
 
 # ---------------------------------------------------------------------------
-# flash_fwd at MLA's head dims (d_qk 192, d_v 128) on both routes; its
-# gradient refused before any launch
+# flash_fwd at MLA's head dims (d_qk 192, d_v 128) on both routes, and its
+# gradient
 # ---------------------------------------------------------------------------
 
 def _mla_qkv(dev, b, s, h, dtype, seed):
@@ -1657,19 +1661,40 @@ def test_flash_fwd_mla_head_dims(dev, sq, skv, causal, dtype):
         torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_refuses_mla_gradient_before_launch(dev, dtype):
-    """No backward kernel takes d_v != d_qk: a gradient at MLA's shape
-    raises before the forward launches; without one the forward runs."""
-    q, k, v = _mla_qkv(dev, 1, 40, 2, dtype, 5)
-    q.requires_grad_()
+def _grads_against_plain(q, k, v, go, dtype, **kw):
+    """The q, k, v gradients of <flash_attention(q, k, v), go> on the card
+    against the plain backward on the kernel forward's o and lse: f32
+    within 1e-4, bf16 (the tensor-core route) each within 2^-7 of its
+    largest magnitude (both round dq, dk and dv to bf16 once)."""
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
     reset_launches()
-    with pytest.raises(NotImplementedError, match="d_qk 192 != d_v 128"):
-        flash_attention(q, k, v)
-    assert flash_attention_fwd.launches == 0
+    o = flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(o, (q, k, v), go)
+    want_route = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert flash_bwd.routes[want_route] == 1 == flash_bwd.launches
+    assert flash_attention_fwd.routes[want_route] == 1
     with torch.no_grad():
-        assert flash_attention(q, k, v).shape == (1, 2, 40, 128)
-    assert flash_attention_fwd.launches == 1
+        o2, lse = flash_attention_fwd(q, k, v, **kw)
+        dq, dk, dv = flash_bwd_ref(q, k, v, go, lse, flash_delta_ref(go, o2),
+                                   **kw)
+    for a, b_ in zip(got, (dq, dk.to(k.dtype), dv.to(v.dtype))):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b_, **TOL)
+        else:
+            _close_rel(a.float(), b_.float(), 2 ** -7)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_gradient_on_card(dev, dtype):
+    """d_qk 192 / d_v 128 (MLA's prefill, v the latent expansion's strided
+    view): the gradient runs on the card on the dtype's route and matches
+    the plain backward; dv is 128 wide."""
+    q, k, v = _mla_qkv(dev, 1, 40, 2, dtype, 5)
+    go = _rnd(dev, 1, 2, 40, 128, seed=9).to(dtype)
+    dq, dk, dv = _grads_against_plain(q, k, v, go, dtype)
+    assert dq.shape == q.shape and dv.shape == v.shape
 
 
 def test_mla_decode_products_keep_f32_results_in_bf16(dev):
@@ -1789,17 +1814,12 @@ def test_flash_fwd_head_dim_112(dev, sq, skv, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_refuses_d112_gradient_before_launch(dev, dtype):
-    """No backward kernel takes d = 112: a gradient raises before the
-    forward launches; without one the forward runs."""
-    q = _rnd(dev, 1, 2, 40, 112).to(dtype).requires_grad_()
-    reset_launches()
-    with pytest.raises(NotImplementedError, match="head dim 112"):
-        flash_attention(q, q, q)
-    assert flash_attention_fwd.launches == 0
-    with torch.no_grad():
-        assert flash_attention(q, q, q).shape == (1, 2, 40, 112)
-    assert flash_attention_fwd.launches == 1
+def test_flash_attention_d112_gradient_on_card(dev, dtype):
+    """d = 112 (zamba2's shared attention): the gradient runs on the card
+    on the dtype's route and matches the plain backward."""
+    q, k, v, go = (_rnd(dev, 1, 2, 40, 112, seed=i).to(dtype)
+                   for i in range(4))
+    _grads_against_plain(q, k, v, go, dtype)
 
 
 def test_zamba2_serves_on_card_like_cpu(dev):
@@ -1888,20 +1908,100 @@ def test_flash_fwd_head_dim_256_and_prefix(dev, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_refuses_d256_and_prefix_gradients(dev, dtype):
-    """No backward kernel takes d = 256 or the prefix mask: a gradient
-    raises before the forward launches; under no_grad both run."""
-    q = _rnd(dev, 1, 2, 40, 256).to(dtype).requires_grad_()
-    p = _rnd(dev, 1, 2, 40, 64).to(dtype).requires_grad_()
+def test_flash_attention_d256_and_prefix_gradients_on_card(dev, dtype):
+    """d = 256 and the prefix-LM mask (at d = 64 and 256): each gradient
+    runs on the card on the dtype's route and matches the plain backward
+    with the same prefix; the prefix changes the gradient."""
+    q, k, v, go = (_rnd(dev, 1, 2, 40, 256, seed=i).to(dtype)
+                   for i in range(4))
+    p, pk, pv, gp = (_rnd(dev, 1, 2, 40, 64, seed=4 + i).to(dtype)
+                     for i in range(4))
+    _grads_against_plain(q, k, v, go, dtype)
+    got = _grads_against_plain(p, pk, pv, gp, dtype, prefix_len=8)
+    causal = _grads_against_plain(p, pk, pv, gp, dtype)
+    assert not torch.allclose(got[0].float(), causal[0].float(), atol=2e-2)
+    _grads_against_plain(q, k, v, go, dtype, prefix_len=24, window=5)
+
+
+WIDE_BWD_CASES = [  # sq, skv, h, hk, d, dv, prefix_len, window
+    (70, 70, 8, 1, 256, 256, 0, None),
+    (130, 200, 8, 1, 256, 256, 100, None),   # Sq != Skv, off the tiles
+    (64, 64, 4, 4, 256, 256, 64, None),      # one whole 64-row tile
+    (40, 90, 8, 1, 256, 256, 300, None),     # past Sq and Skv
+    (150, 150, 8, 1, 256, 256, 37, 20),      # a window, the prefix before it
+    (90, 40, 8, 1, 256, 256, 0, None),       # rows 0-49 see no key
+    (200, 333, 8, 2, 128, 128, 160, 50),
+    (100, 100, 4, 2, 112, 112, 0, None),
+    (130, 200, 8, 1, 112, 112, 70, 33),
+    (70, 70, 4, 4, 192, 128, 0, None),
+    (130, 200, 16, 2, 192, 128, 0, None),    # group 8
+    (90, 40, 4, 1, 192, 128, 10, 16),        # dead rows, prefix, window
+]
+
+
+@pytest.mark.parametrize("layout", ["tc", "simt"])
+@pytest.mark.parametrize("case", WIDE_BWD_CASES)
+def test_flash_bwd_wide_domains_on_both_routes(dev, case, layout):
+    """flash_bwd at d 112/128/256 and (192, 128), groups 1-8, ragged Sq !=
+    Skv, the prefix (none, off the tile, a tile, past Sq) with and without
+    a window, rows that see no key: bf16 q, k, v, do as the projections'
+    views on the tensor-core route (dq within 2^-7 of its largest
+    magnitude, dk and dv within 1e-3: the full-width limits), and the same
+    values as f32 on the CUDA-core route (1e-4); a dead row's dq is 0.
+    delta is rowsum(do o) plus noise, as for the d <= 128 cases."""
+    sq, skv, h, hk, d, dv, prefix, window = case
+    q = _view(dev, 2, sq, h, d, 0)
+    k = _view(dev, 2, skv, hk, d, 1)
+    v = _view(dev, 2, skv, hk, dv, 2)
+    do = _view(dev, 2, sq, h, dv, 3)
+    if layout == "simt":
+        q, k, v, do = (t.float() for t in (q, k, v, do))
+    kw = dict(causal=True, window=window, prefix_len=prefix)
+    o, lse = flash_fwd_ref(q, k, v, **kw)
+    delta = flash_delta(do, o) + _rnd(dev, 2, h, sq, seed=4)
     reset_launches()
-    with pytest.raises(NotImplementedError, match="head dim 256"):
-        flash_attention(q, q, q)
-    with pytest.raises(NotImplementedError, match="prefix_len"):
-        flash_attention(p, p, p, prefix_len=8)
-    assert flash_attention_fwd.launches == 0
-    with torch.no_grad():
-        assert flash_attention(q, q, q, prefix_len=8).shape == q.shape
-    assert flash_attention_fwd.launches == 1
+    got = flash_bwd(q, k, v, do, lse, delta, **kw)
+    path = "wgmma" if layout == "tc" else "simt"
+    assert flash_bwd.routes[path] == 1 == flash_bwd.launches
+    want = flash_bwd_ref(q, k, v, do, lse, delta, **kw)
+    for a, b_, rel in zip(got, want, (2 ** -7, 1e-3, 1e-3)):
+        assert a.shape == b_.shape and torch.isfinite(a).all()
+        if layout == "simt":
+            torch.testing.assert_close(a, b_, **TOL)
+        else:
+            _close_rel(a.float(), b_.float(), rel)
+    assert (got[0][torch.isneginf(lse)] == 0).all()
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_bwd_prefix_against_causal_plain_fails(dev, d):
+    """A planted check: the prefix kernel's gradient held against the
+    causal-only plain backward is far outside the limit on the rows the
+    prefix lets see past their diagonal."""
+    sq = skv = 96
+    q, k, v, do = (_view(dev, 1, sq, 2, d, i) for i in range(4))
+    o, lse = flash_fwd_ref(q, k, v, prefix_len=40)
+    delta = flash_delta(do, o)
+    got = flash_bwd(q, k, v, do, lse, delta, prefix_len=40)
+    want = flash_bwd_ref(q, k, v, do, lse, delta, prefix_len=40)
+    causal = flash_bwd_ref(q, k, v, do, lse, delta)
+    _close_rel(got[0].float(), want[0].float(), 2 ** -7)
+    err = (got[0].float() - causal[0].float()).abs().max()
+    assert err > 2 ** -7 * causal[0].float().abs().max()
+
+
+@pytest.mark.parametrize("d", [112, 256])
+def test_ring_refuses_wide_gradients_before_launch(dev, d):
+    """The ring's step kernels take head dims up to 128: a gradient at
+    d = 112 or 256 through the local ring raises before the first launch,
+    on either route."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (_rnd(dev, 1, h, 64, d, seed=i).to(dtype)
+                   for i, h in enumerate((4, 2, 2)))
+        reset_launches()
+        with pytest.raises(NotImplementedError, match=f"head dim {d}"):
+            ring_flash_attention(q.requires_grad_(), k, v, ring_steps=2)
+        assert launch_counts()["ring_flash_fwd"] == 0
 
 
 PAGED_256_CASES = [  # lens, page, nsp, hk, g, d
