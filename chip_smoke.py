@@ -13,7 +13,12 @@ serves the whole ``paligemma_3b`` (MQA at head dim 256, a vision-stub
 prefix under the prefix-LM mask) through the engine, the static path and
 a prefix prefill, trains the whole ``paligemma_3b`` and
 ``deepseek_v2_lite`` and ``zamba2_7b`` at reduced depth through
-``TrainLoop``, and times each kernel.
+``TrainLoop``, and times each kernel. Every decode step of the engine and
+the static path after the first of a run is a CUDA graph's replay
+(``parallel.build_serve_step``/``build_paged_serve_step``), held against
+the eager step and timed beside it; each captured graph's kernel nodes
+must hold every hand-written kernel as often as its capture counted the
+kernel's wrapper (``keep_graphs``, ``check_graph_kernels``).
 
   python3 chip_smoke.py
 
@@ -73,18 +78,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and the first 8 greedy tokens equal, with the smallest gap between the
    k-th and (k+1)-th router probability printed; zamba2 at full width with
    3 layers (one group of 2 and the shared block, a tail of 1) the same
-   way (1e-3 of the largest logit, 8 tokens equal);
+   way (1e-3 of the largest logit, 8 tokens equal); the compiled decode
+   steps (``parallel.build_serve_step``/``build_paged_serve_step``: CUDA
+   graphs) in bf16 at llama3_2_1b's width with 2 layers against the eager
+   steps, tokens and launch and route counts equal, logits compared: the
+   engine's step with sequences admitted and retired between replays, a
+   window-64 step whose cache wraps during the replays, one step that
+   refuses a second cache, and the sampled static loop and engine (the
+   same generator seed each way, equal tokens);
 4. the serving path: the full 16-layer bf16 llama3_2_1b through ``Engine``
    (8 slots, max_len 2048, page 512, 16 requests of 33-1000 prompt tokens
-   and 32-64 new tokens). Launch counts are zeroed just before and read just
-   after; every serving kernel must have launched, flash_fwd and the
-   decode head on their tensor-core routes every time, rmsnorm on its
-   16-byte vector route every time, every request complete, every logit be
-   finite;
+   and 32-64 new tokens; its decode step compiled, captured once and
+   replayed). Launch counts (a replay adds the captured step's) are zeroed
+   just before and read just after; every serving kernel must have
+   launched, flash_fwd and the decode head on their tensor-core routes
+   every time, rmsnorm on its 16-byte vector route every time, every
+   request complete, every logit of the compiled step's outputs finite;
 5. where the serving time goes: eight decode steps of a full engine on the
-   host clock and under ``torch.profiler`` (device busy share, top device
-   ops, the rmsnorm and paged decode kernels' rows), and one admission
-   prefill;
+   host clock and under ``torch.profiler``, with the eager step and then
+   the compiled one in one call (device busy share, top device ops, the
+   rmsnorm and paged decode kernels' rows from the eager profile; the
+   graph's device time from CUDA events around back-to-back replays), and
+   one admission prefill;
 6. the training path: the full 16-layer bf16 llama3_2_1b through
    ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, no checkpoints).
    Launch counts are zeroed just before and read just after;
@@ -127,9 +142,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     ``torch.profiler``, and ``apply_global`` split into gather, kernel and
     ``index_add_`` scatter on CUDA events, beside two other scatter calls;
 11. the static path: the full 48-layer bf16 musicgen_medium through
-    ``generate`` (8 prompts of 512 tokens, 64 new; launch counts zeroed
-    just before and read just after, flash_decode exactly 48 x 64), where
-    its decode step's time goes (host clock, profiler), and prefill with 16
+    ``generate`` (8 prompts of 512 tokens, 64 new, its decode step a CUDA
+    graph; launch counts zeroed just before and read just after,
+    flash_decode exactly 48 x 64), where its decode step's time goes (host
+    clock, profiler), its decode step eager and compiled on the same
+    prompts (``compiled_static_pair``, as for every static model below:
+    16 greedy steps each way, tokens and launch counts equal, logits
+    compared bit for bit; eager and compiled host ms, the graph's device
+    ms, busy share, tokens/s and the capture's time), and prefill with 16
     conditioning frames + decode_step against forward (5% of the largest
     logit);
 12. the full 64-layer bf16 falcon_mamba_7b through ``generate`` (4 prompts
@@ -328,6 +348,24 @@ ZB_TWIN_REL, ZB_TWIN_SEEDS = 0.03, (71, 74, 75)
 # of 4 x (256 vision-stub prefix embeddings + 512 tokens) with 16 greedy
 # steps after it
 PG_BATCH, PG_PROMPT, PG_GEN, PG_STEPS = 4, 512, 32, 16
+# each static model's decode step eager and compiled on the same prompts
+# (compiled_static_pair): STEP_PAIR_STEPS greedy steps each way. The logits
+# are compared bit for bit; were they not equal (cuBLAS may pick another
+# kernel on the capture's stream), a difference past STEP_PAIR_REL of the
+# largest |logit| fails. The H100 gave equal bits at every reduced program
+# of the card tests
+STEP_PAIR_STEPS, STEP_PAIR_REL = 16, 1e-3
+# the device kernel that a wrapper of the decode steps runs once a launch
+# (substrings of its mangled name; the split-K decode kernels and the LM
+# head also run a combine or reduce kernel after it): a compiled step's
+# CUDA graph must hold each wrapper's kernel as often as its capture
+# counted the wrapper (check_graph_kernels)
+LAUNCH_KERNEL = {
+    "rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_elem_kernel"),
+    "paged_decode": ("paged_decode_split_kernel",),
+    "flash_decode": ("flash_decode_split_kernel",),
+    "lm_head": ("lm_head_reduce",),
+}
 # phase 18, training the wide architectures through TrainLoop in bf16:
 # (arch, config changes, global batch, attention layers, mamba2 layers);
 # seq_len WT_SEQ tokens (paligemma's 256 prefix embeddings come on top),
@@ -924,14 +962,18 @@ def serve_main_path(cfg, model, params, reqs):
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.lm_head import lm_head_logits
     from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.parallel import GraphStep
     from repro_torch.serving import Engine
 
     eng = Engine(model, params, batch=8, max_len=2048)
     if eng.page_size != 512:
         fail(f"engine page size {eng.page_size} != 512")
+    step = eng._step
+    if not isinstance(step, GraphStep):
+        fail(f"engine step {type(step).__name__}: want the compiled step")
     bad = torch.zeros((), dtype=torch.int64, device=model.device)
     calls = {"prefill": 0, "decode": 0}
-    prefill, step = model.prefill, model.paged_greedy_step
+    prefill = model.prefill
 
     def checked_prefill(p, t, max_len=None):
         logits, cache = prefill(p, t, max_len)
@@ -939,13 +981,15 @@ def serve_main_path(cfg, model, params, reqs):
         calls["prefill"] += 1
         return logits, cache
 
-    def checked_step(p, t, c):
-        nxt, logits, c = step(p, t, c)
+    def checked_step(p, c, t):
+        # the compiled step's outputs, read after each replay (the next
+        # one overwrites them)
+        nxt, logits, c = step(p, c, t)
         bad.add_((~torch.isfinite(logits)).sum())
         calls["decode"] += 1
         return nxt, logits, c
 
-    model.prefill, model.paged_greedy_step = checked_prefill, checked_step
+    model.prefill, eng._step = checked_prefill, checked_step
     try:
         torch.cuda.synchronize()
         reset_launches()
@@ -959,7 +1003,10 @@ def serve_main_path(cfg, model, params, reqs):
         head_routes = dict(lm_head_logits.routes)
         rms_routes = dict(rmsnorm.routes)
     finally:
-        del model.prefill, model.paged_greedy_step
+        del model.prefill
+    if step.captures != 1:
+        fail(f"engine step captured {step.captures} times, want once")
+    check_graph_kernels("serving path: engine step", step.counts)
     for rid, (p, m) in zip(rids, reqs):
         toks = res[rid]
         if len(toks) != m or not all(0 <= t < cfg.vocab_size for t in toks):
@@ -1001,51 +1048,92 @@ def device_rows(prof, nsteps):
 
 
 def profile_decode(model, params, reqs, nsteps=8):
-    """Where the time of the main path goes: a fresh engine fills its 8
-    slots (no slot retires inside the window), then ``nsteps`` decode steps
-    run once on the host clock and once under ``torch.profiler``; also the
-    host time of one B=1 prefill of the longest prompt. Returns (host ms,
-    device busy ms) a step."""
+    """Where the time of the main path goes, for the eager and the compiled
+    engine step side by side in one call: a fresh engine fills its 8 slots
+    (no slot retires inside the window), then ``nsteps`` decode steps run
+    once on the host clock and once under ``torch.profiler``, first with
+    the eager ``paged_greedy_step`` in the engine, then with the engine's
+    own compiled step (captured at its second step). The compiled step's
+    device time comes from CUDA events around ``nsteps`` back-to-back
+    replays (``replay_ms``; the profiler's count of a replay's device
+    events is printed beside the eager step's), its per-kernel breakdown
+    from the eager profile; its graph must hold each hand-written kernel
+    as often as the capture counted it (``check_graph_kernels``). Also
+    the host time of one B=1 prefill of the longest prompt. Returns
+    {"eager_ms", "eager_busy_ms", "graph_ms", "graph_dev_ms"}: host and
+    device ms a step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import Engine
 
-    eng = Engine(model, params, batch=8, max_len=2048)
-    for p, _ in reqs[:8]:
-        eng.submit(p, 64)
-    for _ in range(3):                         # admissions, then warm steps
-        eng.step()
-
-    def run():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(nsteps):
+    name, out, events = model.cfg.name, {}, {}
+    for mode in ("eager", "compiled"):
+        eng = Engine(model, params, batch=8, max_len=2048)
+        if mode == "eager":
+            eng._step = lambda p, c, t: model.paged_greedy_step(p, t, c)
+        for p, _ in reqs[:8]:
+            eng.submit(p, 64)
+        for _ in range(3):                     # admissions, then warm steps
             eng.step()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / nsteps
 
-    step_ms = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_step_ms = run()
-    rows = device_rows(prof, nsteps)
-    busy_ms = sum(r[0] for r in rows)
-    log(f"[profile] {model.cfg.name} decode step (8 slots, "
-        f"{model.cfg.n_layers} layers): host {step_ms:.3f} "
-        f"ms/step ({prof_step_ms:.3f} under the profiler); device busy "
-        f"{busy_ms:.3f} ms/step = {100 * busy_ms / step_ms:.1f}% of the "
-        f"unprofiled step, idle {100 * (1 - busy_ms / step_ms):.1f}%")
-    for ms, n, key in rows[:12]:
-        log(f"[profile]   {ms:8.4f} ms/step  {n:4d} calls/step  {key[:90]}")
-    for name in ("paged_decode", "rmsnorm"):
-        mine = [r for r in rows if name in r[2]]
-        if not mine:
-            fail(f"profile: no {name} kernel among the decode step's device "
-                 "rows")
-        for ms, n, key in mine:
-            log(f"[profile] {name}: {ms:8.4f} ms/step  {n:4d} calls/step  "
-                f"{key[:80]}")
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(nsteps):
+                eng.step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / nsteps
+
+        step_ms = run()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_step_ms = run()
+        rows = device_rows(prof, nsteps)
+        busy_ms = sum(r[0] for r in rows)
+        events[mode] = (sum(r[1] for r in rows), busy_ms)
+        if mode == "eager":
+            log(f"[profile] {name} decode step (8 slots, "
+                f"{model.cfg.n_layers} layers), eager: host {step_ms:.3f} "
+                f"ms/step ({prof_step_ms:.3f} under the profiler); device "
+                f"busy {busy_ms:.3f} ms/step = "
+                f"{100 * busy_ms / step_ms:.1f}% of the unprofiled step, "
+                f"idle {100 * (1 - busy_ms / step_ms):.1f}%")
+            for ms, n, key in rows[:12]:
+                log(f"[profile]   {ms:8.4f} ms/step  {n:4d} calls/step  "
+                    f"{key[:90]}")
+            for kern in ("paged_decode", "rmsnorm"):
+                mine = [r for r in rows if kern in r[2]]
+                if not mine:
+                    fail(f"profile: no {kern} kernel among the decode step's "
+                         "device rows")
+                for ms, n, key in mine:
+                    log(f"[profile] {kern}: {ms:8.4f} ms/step  {n:4d} "
+                        f"calls/step  {key[:80]}")
+            out.update(eager_ms=step_ms, eager_busy_ms=busy_ms)
+        else:
+            if eng._step.captures != 1:
+                fail(f"profile: the engine step captured "
+                     f"{eng._step.captures} times, want once")
+            check_graph_kernels(f"{name} engine step", eng._step.counts)
+            tok = torch.from_numpy(eng._pending.reshape(-1, 1)).to(
+                model.device)
+            dev_ms = replay_ms(eng._step, eng.params, eng.cache, tok, nsteps)
+            eager_ms = out["eager_ms"]
+            log(f"[profile] {name} decode step (8 slots), compiled: host "
+                f"{step_ms:.3f} ms/step ({prof_step_ms:.3f} under the "
+                f"profiler) against eager {eager_ms:.3f}; graph device "
+                f"{dev_ms:.3f} ms/replay (CUDA events around {nsteps} "
+                f"back-to-back replays) = {100 * dev_ms / step_ms:.1f}% of "
+                f"the compiled host step, idle "
+                f"{100 * (1 - dev_ms / step_ms):.1f}%; "
+                f"{8e3 / step_ms:.1f} tok/s against eager "
+                f"{8e3 / eager_ms:.1f}; the profiler recorded "
+                f"{events[mode][0]} device events/step ({busy_ms:.3f} ms) "
+                f"against eager's {events['eager'][0]} "
+                f"({events['eager'][1]:.3f} ms)")
+            out.update(graph_ms=step_ms, graph_dev_ms=dev_ms)
+        del eng
 
     toks = torch.tensor([max((p for p, _ in reqs), key=len)],
                         device=model.device)
@@ -1058,7 +1146,88 @@ def profile_decode(model, params, reqs, nsteps=8):
         times.append((time.perf_counter() - t0) * 1e3)
     log(f"[profile] B=1 prefill of {toks.shape[1]} tokens: host "
         f"{min(times):.3f} ms (best of 3)")
-    return step_ms, busy_ms
+    return out
+
+
+def replay_ms(step, params, cache, tok, n):
+    """The device time of one call of a compiled step (a CUDA graph's
+    replay) from CUDA events around ``n`` back-to-back calls, each fed the
+    last call's tokens with no host read between them: the host enqueues
+    a replay in far less than the graph runs, so the events time the
+    device. Each call advances the cache, as serving would."""
+    import torch
+
+    tok = step(params, cache, tok)[0][:, None]
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(n):
+        tok = step(params, cache, tok)[0][:, None]
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+_GRAPH = [None]   # a weak reference to the last graph steps.capture made
+
+
+def keep_graphs():
+    """Route ``parallel.steps.capture`` through a CUDA graph that keeps its
+    description (``keep_graph=True``, instantiated right after the capture
+    as the default graph is), so ``check_graph_kernels`` can list the
+    nodes of the last one; the graph is held by a weak reference only."""
+    import weakref
+
+    import torch
+
+    from repro_torch.parallel import steps
+
+    def capture(fn):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.instantiate()
+        _GRAPH[0] = weakref.ref(graph)
+        return graph.replay, out
+
+    steps.capture = capture
+
+
+def check_graph_kernels(tag, counts):
+    """Hold a compiled step's launch counts against its CUDA graph, the
+    last one captured: its kernel nodes (``debug_dump``, one label line a
+    node, ``ID | n (topoId: m) | <mangled name><<<grid, block, smem>>>``)
+    must hold each wrapper's once-a-launch kernel (LAUNCH_KERNEL) as often
+    as the capture counted the wrapper (``counts``, ``GraphStep.counts``:
+    what a replay adds to the counts), and no other wrapper's kernel. A
+    replay runs every node once, so the replayed counts are read off the
+    graph, not only carried over from the capture's Python. (The profiler
+    cannot count them: it drops device records, eager ones too.)"""
+    import re
+
+    want = {name: k for name, (k, _) in counts.items()}
+    unknown = set(want) - set(LAUNCH_KERNEL)
+    if unknown:
+        fail(f"{tag}: no device kernel known for {sorted(unknown)}")
+    graph = _GRAPH[0]() if _GRAPH[0] is not None else None
+    if graph is None:
+        fail(f"{tag}: no kept CUDA graph to read")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            names = re.findall(r"ID \| \d+ \(topoId: \d+\) \| ([^\s|}]+)",
+                               f.read())
+    seen = {}
+    for name, keys in LAUNCH_KERNEL.items():
+        k = sum(any(key in n for key in keys) for n in names)
+        if k:
+            seen[name] = k
+    if seen != want:
+        fail(f"{tag}: the CUDA graph's {len(names)} kernel nodes hold "
+             f"{seen} hand-written kernels; the capture counted {want}")
+    log(f"[compiled] {tag}: the graph's {len(names)} kernel nodes hold "
+        f"the captured launches, {dict(sorted(seen.items()))} a replay")
 
 
 # ---------------------------------------------------------------------------
@@ -2811,7 +2980,100 @@ def profile_static_step(model, params, prompts, nsteps=8):
     for ms, n, key in rows[:12]:
         log(f"[profile {name}]   {ms:8.4f} ms/step  {n:4d} calls/step  "
             f"{key[:90]}")
+    compiled_static_pair(model, params, prompts, step_ms, busy_ms)
     return step_ms, busy_ms
+
+
+def route_counts():
+    """Every wrapper's launches by route (the wrappers with routes)."""
+    from repro_torch.kernels import KERNELS
+
+    return {n: dict(fn.routes) for n, fn in KERNELS.items()
+            if hasattr(fn, "routes")}
+
+
+def compiled_static_pair(model, params, prompts, prof_ms, prof_busy_ms,
+                         nsteps=STEP_PAIR_STEPS, replays=8):
+    """The static decode step eager and compiled on the same prompts, in
+    one call: two prefills of ``prompts``, then ``nsteps`` greedy steps on
+    each cache, eagerly through ``model.greedy_step`` and through
+    ``build_serve_step``'s CUDA graph (one eager step, one capture, then
+    replays), each step timed on the host clock up to its tokens' read, as
+    the serving loop reads them. The tokens must be equal and the launch
+    and route counts too; the logits are compared bit for bit, and a
+    difference, printed, must stay within STEP_PAIR_REL of the largest
+    |logit|. The graph must hold each hand-written kernel as often as the
+    capture counted it (``check_graph_kernels``). Then the graph's device
+    time (``replay_ms``). Prints eager and
+    compiled host ms a step (the mean past the first two steps), the
+    graph's device ms and busy share, tokens/s both ways and the capture's
+    own time, beside ``prof_ms``/``prof_busy_ms``, the eager step's
+    profile."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.parallel import GraphStep, build_serve_step
+
+    b, plen = prompts.shape
+    max_len = plen + nsteps + replays + 2
+    toks = torch.from_numpy(prompts).to(model.device)
+    runs = {}
+    for mode in ("eager", "compiled"):
+        with torch.no_grad():
+            logits, cache = model.prefill(params, toks, max_len=max_len)
+            tok = model.greedy_token(logits)[:, None]
+        if mode == "eager":
+            def step(p, c, t):
+                return model.greedy_step(p, t, c)
+        else:
+            step, _ = build_serve_step(model, batch=b)
+            if not isinstance(step, GraphStep):
+                fail(f"{model.cfg.name}: the static step is not compiled")
+        torch.cuda.synchronize()
+        reset_launches()
+        out, lgs, host = [], [], []
+        with torch.no_grad():
+            for _ in range(nsteps):
+                t0 = time.perf_counter()
+                nxt, lg, cache = step(params, cache, tok)
+                out.append(nxt.to("cpu", copy=True))
+                host.append((time.perf_counter() - t0) * 1e3)
+                lgs.append(lg.clone())
+                tok = nxt[:, None]
+        torch.cuda.synchronize()
+        runs[mode] = (torch.stack(out), torch.stack(lgs), launch_counts(),
+                      route_counts(), sum(host[2:]) / (nsteps - 2))
+        if mode == "compiled":
+            check_graph_kernels(f"{model.cfg.name} static step",
+                                step.counts)
+            dev_ms = replay_ms(step, params, cache, tok, replays)
+            capture_ms = step.capture_s * 1e3
+        del cache
+    (te, le, ce, re_, eager_ms), (tg, lg_, cg, rg, graph_ms) = (
+        runs["eager"], runs["compiled"])
+    name = model.cfg.name
+    if not torch.equal(te, tg):
+        fail(f"{name}: compiled static tokens {tg.tolist()} != eager "
+             f"{te.tolist()}")
+    if ce != cg or re_ != rg:
+        fail(f"{name}: compiled step launch counts {cg} routes {rg} != "
+             f"eager {ce} {re_}")
+    diff = float((lg_ - le).abs().max())
+    scale = float(le.abs().max())
+    same = "bit for bit" if torch.equal(lg_, le) else (
+        f"max|diff| {diff:.3e} of max|logit| {scale:.3e}")
+    if diff > STEP_PAIR_REL * scale:
+        fail(f"{name}: compiled logits differ from eager by {diff:.3e}, "
+             f"past {STEP_PAIR_REL} of max|logit| {scale:.3e}")
+    log(f"[compiled {name}] static decode step B={b}: eager host "
+        f"{eager_ms:.3f} ms/step ({prof_ms:.3f} in the profiled loop, "
+        f"{prof_busy_ms:.3f} busy); compiled host {graph_ms:.3f} ms/step, "
+        f"graph device {dev_ms:.3f} ms/replay = "
+        f"{100 * dev_ms / graph_ms:.1f}% busy; {b * 1e3 / eager_ms:.1f} -> "
+        f"{b * 1e3 / graph_ms:.1f} tok/s; capture {capture_ms:.1f} ms; "
+        f"{nsteps} tokens a row equal, logits {same}; launch counts equal")
+    return dict(eager_ms=eager_ms, graph_ms=graph_ms, graph_dev_ms=dev_ms,
+                capture_ms=capture_ms)
 
 
 def musicgen_main_path():
@@ -4190,16 +4452,20 @@ class _DispatchTwin:
 class _RouterGaps:
     """Records, while active, the smallest gap between the k-th and the
     (k+1)-th router probability of any token routed (the margin by which
-    its expert choice stood) and each call's expert choices, layer by
-    layer. ``repro_torch.layers.moe._router`` is wrapped (``moe_forward``
-    looks it up at each call) and restored on exit."""
+    its expert choice stood; ``gap``, read on exit) and each eager call's
+    expert choices, layer by layer. ``repro_torch.layers.moe._router`` is
+    wrapped (``moe_forward`` looks it up at each call) and restored on
+    exit. The gap is kept on the device by an in-place minimum, so a
+    compiled decode step's replays record theirs too (a replay runs no
+    Python); the first call must be eager (a prefill), which makes the
+    running minimum."""
 
     def __enter__(self):
         import torch
 
         from repro_torch.layers import moe
 
-        self.gap, self.idx = float("inf"), []
+        self.gap, self.idx, self._gap = float("inf"), [], None
         self._moe, self._orig = moe, moe._router
 
         def rec(params, x, cfg):
@@ -4207,8 +4473,11 @@ class _RouterGaps:
             with torch.no_grad():
                 p = torch.softmax(x.float() @ params["router"], dim=-1)
                 top = torch.topk(p, cfg.n_experts_per_tok + 1, dim=-1).values
-                self.gap = min(self.gap, float((top[..., -2]
-                                                - top[..., -1]).min()))
+                gap = (top[..., -2] - top[..., -1]).min()
+                if self._gap is None:
+                    self._gap = gap.clone()
+                else:
+                    torch.minimum(self._gap, gap, out=self._gap)
                 self.idx.append(out[1])
             return out
 
@@ -4217,6 +4486,8 @@ class _RouterGaps:
 
     def __exit__(self, *exc):
         self._moe._router = self._orig
+        if self._gap is not None:
+            self.gap = float(self._gap)
 
 
 def two_layer_moe_f32_checks():
@@ -4943,6 +5214,194 @@ def time_zamba_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2a: the compiled decode steps against the eager ones
+# ---------------------------------------------------------------------------
+
+def greedy_steps(model, params, prompts, nsteps, max_len, step=None):
+    """(tokens (nsteps, B), logits (nsteps, B, Vpad), launch counts, route
+    counts) of ``nsteps`` greedy steps after a prefill of ``prompts``:
+    through ``step`` (a built serve step), else ``model.greedy_step``
+    eagerly; the counts cover the steps alone."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    toks = torch.as_tensor(prompts, device=model.device)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, toks, max_len=max_len)
+        tok = model.greedy_token(logits)[:, None]
+        if step is None:
+            def step(p, c, t):
+                return model.greedy_step(p, t, c)
+        torch.cuda.synchronize()
+        reset_launches()
+        out, lgs = [], []
+        for _ in range(nsteps):
+            nxt, lg, cache = step(params, cache, tok)
+            out.append(nxt.clone())
+            lgs.append(lg.clone())
+            tok = nxt[:, None]
+    torch.cuda.synchronize()
+    return (torch.stack(out), torch.stack(lgs), launch_counts(),
+            route_counts())
+
+
+def _same_steps(tag, eager, graph):
+    """Fail unless the compiled run's tokens and counts are the eager
+    run's; returns how its logits compare."""
+    import torch
+
+    if not torch.equal(graph[0], eager[0]):
+        fail(f"{tag}: compiled tokens {graph[0].tolist()} != eager "
+             f"{eager[0].tolist()}")
+    if graph[2:] != eager[2:]:
+        fail(f"{tag}: compiled launch/route counts {graph[2:]} != eager "
+             f"{eager[2:]}")
+    if torch.equal(graph[1], eager[1]):
+        return "bit for bit"
+    return f"max|diff| {float((graph[1] - eager[1]).abs().max()):.3e}"
+
+
+def small_compiled_step_checks(dev):
+    """The compiled steps in bf16 at llama3_2_1b's full width with 2
+    layers, each against the eager step on the same inputs (tokens, launch
+    and route counts equal; logits compared and printed): (a) the engine's
+    paged step on traffic that admits and retires sequences between
+    replays (6 requests, 2 slots); (b) a window of 64 whose rolling cache
+    wraps during the replays (40-token prompts, 60 steps); (c) one static
+    step serving a cache, then handed the cache of a second prefill, which
+    it refuses (it never replays onto the first cache's addresses); (d)
+    the sampled paths, with the same generator seed each way: ``generate``
+    on the static path and an engine, both with ``greedy=False``, their
+    tokens and launch counts equal eager code's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.parallel import GraphStep, build_serve_step
+    from repro_torch.serving import Engine
+
+    def model_of(**changes):
+        cfg = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2,
+                                  **changes)
+        model = LM(cfg)
+        return model, model.init(
+            torch.Generator(device=dev).manual_seed(13))
+
+    model, params = model_of()
+    vocab = model.cfg.vocab_size
+    rng = np.random.RandomState(14)
+    traffic = [(rng.randint(0, vocab, n).tolist(), g)
+               for n, g in ((5, 9), (70, 4), (3, 12), (130, 6), (8, 7),
+                            (40, 5))]
+    runs = []
+    for compiled in (False, True):
+        eng = Engine(model, params, batch=2, max_len=256, page_size=64)
+        if not compiled:
+            eng._step = lambda p, c, t: model.paged_greedy_step(p, t, c)
+        torch.cuda.synchronize()
+        reset_launches()
+        rids = [eng.submit(p, g) for p, g in traffic]
+        res = eng.drain()
+        torch.cuda.synchronize()
+        runs.append(([res[r] for r in rids], launch_counts(),
+                     route_counts()))
+    if not isinstance(eng._step, GraphStep) or eng._step.captures != 1:
+        fail("compiled engine step: not a GraphStep captured once")
+    if runs[1] != runs[0]:
+        fail(f"compiled engine step: tokens/counts {runs[1]} != eager "
+             f"{runs[0]}")
+    log(f"[compiled] engine step (2 layers bf16, 2 slots, {len(traffic)} "
+        f"requests admitted and retired between replays): tokens and "
+        f"launch counts equal eager ({sum(map(len, runs[1][0]))} tokens, "
+        f"paged_decode {runs[1][1]['paged_decode']})")
+
+    wmodel, wparams = model_of(window=64)
+    prompts = np.random.RandomState(15).randint(0, vocab, (2, 40))
+    step, _ = build_serve_step(wmodel, batch=2)
+    eager = greedy_steps(wmodel, wparams, prompts, 60, 101)
+    graph = greedy_steps(wmodel, wparams, prompts, 60, 101, step)
+    same = _same_steps("compiled window step", eager, graph)
+    log(f"[compiled] window 64 step across the wrap (40 + 60 positions): "
+        f"tokens and launch counts equal eager, logits {same}")
+
+    step, _ = build_serve_step(model, batch=2)
+    rng = np.random.RandomState(16)
+    prompts = rng.randint(0, vocab, (2, 10))
+    eager = greedy_steps(model, params, prompts, 6, 24)
+    graph = greedy_steps(model, params, prompts, 6, 24, step)
+    same = _same_steps("compiled step", eager, graph)
+    with torch.no_grad():
+        _, other = model.prefill(
+            params, torch.as_tensor(rng.randint(0, vocab, (2, 10)),
+                                    device=dev), max_len=24)
+    tok = torch.zeros((2, 1), dtype=torch.long, device=dev)
+    try:
+        step(params, other, tok)
+        fail("compiled step: replayed onto a second cache")
+    except ValueError as e:
+        if "first call" not in str(e):
+            raise
+    if step.captures != 1:
+        fail(f"compiled step: {step.captures} captures, want one")
+    log(f"[compiled] static step: tokens and launch counts equal eager, "
+        f"logits {same}; the cache of a second prefill refused")
+
+    def eager_builder(model, *, batch, greedy=True):
+        method = model.greedy_step if greedy else model.decode_step
+        return (lambda p, c, t: method(p, t, c)), {"greedy": greedy,
+                                                   "cuda_graph": False}
+
+    prompts = rng.randint(0, vocab, (2, 24))
+    runs = []
+    for compiled in (False, True):
+        serve.build_serve_step = build_serve_step if compiled else (
+            eager_builder)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            out, stats = serve.generate(
+                model, params, prompts, gen_tokens=12, engine="static",
+                greedy=False, temperature=0.8,
+                rng=torch.Generator(device=dev).manual_seed(17))
+            torch.cuda.synchronize()
+        finally:
+            serve.build_serve_step = build_serve_step
+        runs.append((out.tolist(), launch_counts(), route_counts()))
+    if stats["engine"] or runs[1] != runs[0]:
+        fail(f"compiled sampled static path: tokens/counts {runs[1]} != "
+             f"eager {runs[0]}")
+    sruns = []
+    for compiled in (False, True):
+        eng = Engine(model, params, batch=2, max_len=256, page_size=64,
+                     greedy=False, temperature=0.8,
+                     rng=torch.Generator(device=dev).manual_seed(18))
+        if not compiled:
+            eng._step = lambda p, c, t: model.paged_decode_step(p, t, c)
+        torch.cuda.synchronize()
+        reset_launches()
+        rids = [eng.submit(p, g) for p, g in traffic]
+        res = eng.drain()
+        torch.cuda.synchronize()
+        sruns.append(([res[r] for r in rids], launch_counts(),
+                      route_counts()))
+    if not isinstance(eng._step, GraphStep) or eng._step.captures != 1:
+        fail("compiled sampling engine step: not a GraphStep captured once")
+    if sruns[1] != sruns[0]:
+        fail(f"compiled sampling engine: tokens/counts {sruns[1]} != eager "
+             f"{sruns[0]}")
+    log(f"[compiled] sampled paths (temperature 0.8, seeded): the static "
+        f"loop's {12 * len(prompts)} tokens and the engine's "
+        f"{sum(map(len, sruns[1][0]))} equal eager code's, launch counts "
+        f"equal")
+    del model, params, wmodel, wparams, step, eng, other
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # paligemma: phases 2a, 3, 17 and 8 for flash_fwd at d = 256 under the
 # prefix-LM mask and paged decode at d = 256 with 8 query heads a kv head
 # ---------------------------------------------------------------------------
@@ -5192,7 +5651,7 @@ def paligemma_main_path():
     log(f"[paligemma_3b] engine: {st['tokens']} tokens for {len(reqs)} "
         f"requests in {st['wall_s']:.3f}s = {st['tok_s']:.1f} tok/s "
         f"(prefills {npf}, decode steps {nst}, preempted {st['preempted']})")
-    eng_ms, eng_busy = profile_decode(model, params, reqs)
+    eng = profile_decode(model, params, reqs)
 
     # (b) the static path
     b, plen, ngen = PG_BATCH, PG_PROMPT, PG_GEN
@@ -5269,11 +5728,12 @@ def paligemma_main_path():
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"[paligemma_3b] {model.param_count(params)} parameters; prefill of "
         f"{b} x ({pn} prefix embeddings + {plen} tokens) {prefill_ms:.3f} "
-        f"ms, then {steps_ms:.3f} ms a greedy step (B={b}); engine "
-        f"{st['tok_s']:.1f} tok/s, step {eng_ms:.3f} ms host at "
-        f"{eng_busy:.3f} busy; static {sst['tokens_per_s']:.1f} tok/s, step "
-        f"{step_ms:.3f} ms host at {busy_ms:.3f} busy; peak device memory "
-        f"{peak:.2f} GB")
+        f"ms, then {steps_ms:.3f} ms an eager greedy step (B={b}); engine "
+        f"{st['tok_s']:.1f} tok/s, compiled step {eng['graph_ms']:.3f} ms "
+        f"host at {eng['graph_dev_ms']:.3f} device (eager "
+        f"{eng['eager_ms']:.3f} at {eng['eager_busy_ms']:.3f} busy); static "
+        f"{sst['tokens_per_s']:.1f} tok/s, eager step {step_ms:.3f} ms host "
+        f"at {busy_ms:.3f} busy; peak device memory {peak:.2f} GB")
     log(f"[paligemma_3b] row 5d: flash_decode launched "
         f"{runs['static']['flash_decode']} times on the static path "
         f"({nl} x {ngen})")
@@ -5950,6 +6410,7 @@ def main():
     sys.path.insert(0, SRC)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    keep_graphs()
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -5997,6 +6458,7 @@ def main():
     mla_decode_bf16_check(dev)
     zscan_err, zflash_err = small_zamba_kernel_checks(dev)
     pflash_err, ppaged_err = small_paligemma_kernel_checks(dev)
+    small_compiled_step_checks(dev)
     wbwd_err = small_wide_bwd_checks(dev)
     elapsed("phase 2a")
 

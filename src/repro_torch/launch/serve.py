@@ -4,10 +4,13 @@ batch over contiguous caches (the counterpart of ``repro.launch.serve``).
 ``generate`` serves through :class:`repro_torch.serving.Engine` whenever
 the model is pageable; models the paged path cannot serve (rolling windows,
 sinusoidal positions, SSM stacks, the zamba2 hybrid, MLA's latent cache) go
-down ``_generate_static``: one prefill,
-then one decode step per token over a contiguous cache, every sequence in
-lockstep (decode attention on the ``flash_decode`` kernel). The static loop
-has no mesh and adopts no tuned block sizes (neither is ported).
+down ``_generate_static``: one prefill, then one decode step per token over
+a contiguous cache, every sequence in lockstep (decode attention on the
+``flash_decode`` kernel). The step comes from
+``parallel.build_serve_step``, built after the prefill: on the card a CUDA
+graph captured at the second step and replayed after it, dropped when the
+call returns. The prefill and sampling stay eager. The static loop has no
+mesh and adopts no tuned block sizes (neither is ported).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b \
       --reduced --batch 4 --prompt-len 16 --gen 32 [--device cpu] \
@@ -24,6 +27,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.models import LM
+from repro_torch.parallel.steps import build_serve_step
 from repro_torch.serving import Engine, sample
 
 __all__ = ["generate", "main"]
@@ -93,10 +97,11 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
                      greedy: bool = True, rng=None,
                      max_len: int | None = None, temperature: float = 1.0,
                      pad_id: int | None = None):
-    """Static batching: one prefill, then ``greedy_step`` (or
-    ``decode_step`` + :func:`sample`) over a contiguous cache, every row in
-    lockstep. The first token comes from the prefill's greedy argmax, as in
-    the JAX loop. The serving path for models the engine cannot page."""
+    """Static batching: one prefill, then ``build_serve_step``'s step over
+    ``greedy_step`` (or ``decode_step`` + :func:`sample`) on a contiguous
+    cache, every row in lockstep. The first token comes from the prefill's
+    greedy argmax, as in the JAX loop. The serving path for models the
+    engine cannot page."""
     cfg = model.cfg
     b, plen = prompts.shape
     max_len = max_len or (plen + gen_tokens)
@@ -117,6 +122,7 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
         logits, cache = model.prefill(params, toks, max_len=max_len)
         tok = model.greedy_token(logits).cpu().numpy()
     prefill_s = time.perf_counter() - t0
+    step, _ = build_serve_step(model, batch=b, greedy=greedy)
 
     out = np.zeros((b, gen_tokens), np.int32)
     done = np.zeros((b,), bool)
@@ -132,9 +138,9 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
             step_in = torch.from_numpy(tok.reshape(b, 1).astype(np.int64))
             step_in = step_in.to(model.device)
             if greedy:
-                nxt, _, cache = model.greedy_step(params, step_in, cache)
+                nxt, _, cache = step(params, cache, step_in)
             else:
-                logits, cache = model.decode_step(params, step_in, cache)
+                logits, cache = step(params, cache, step_in)
                 nxt = sample(logits, cfg.vocab_size, temperature, rng)
             tok = nxt.cpu().numpy()
     decode_s = time.perf_counter() - t0

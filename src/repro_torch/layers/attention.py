@@ -19,9 +19,11 @@ the JAX package's replicated x and sequence-sharded q/k/v; the weights stay
 replicated. Both steps are autograd Functions whose backward is the other
 (slice <-> all-gather), so gradients are the single-device ones on every rank.
 
-Decode takes the position ``pos`` as a host int (the model's ``cache["pos"]``)
-and writes the cache IN PLACE (JAX returns a new one), so a step never
-reads the device to place its write.
+Decode takes the position ``pos`` as the model's ``cache["pos"]``, a 0-dim
+int32 tensor on the cache's device (a host int is copied there), and
+writes the cache IN PLACE (JAX returns a new one) through index writes at
+a slot computed on the device: a step never reads the device, so it can
+be captured into a CUDA graph and replayed at the next position.
 """
 
 from __future__ import annotations
@@ -193,29 +195,42 @@ def gqa_prefill_cache(cache, k, v, cfg):
     return cache
 
 
-def gqa_decode(params, x, cache, cfg, *, pos: int):
-    """One-token decode at position ``pos`` (a host int: the tokens already
-    in the cache). x: (B, 1, d_model). Writes the new k/v into ``cache`` in
-    place: at slot ``pos % m`` of a rolling window (stamping ``slot_pos``),
-    else at ``min(pos, m - 1)`` (decoding past the cache is rejected by the
-    model before it gets here). Returns (y, cache)."""
+def _position(pos, device):
+    """The decode position as a 0-dim int32 tensor on ``device``: the
+    model's ``cache["pos"]`` as it is, or a host int copied there."""
+    if torch.is_tensor(pos):
+        return pos.to(torch.int32)
+    return torch.full((), pos, dtype=torch.int32, device=device)
+
+
+def gqa_decode(params, x, cache, cfg, *, pos):
+    """One-token decode at position ``pos`` (the tokens already in the
+    cache: a 0-dim int32 tensor on x's device, or a host int). x: (B, 1,
+    d_model). Writes the new k/v into ``cache`` in place: at slot
+    ``pos % m`` of a rolling window (stamping ``slot_pos``), else at
+    ``min(pos, m - 1)`` (decoding past the cache is rejected by the model
+    before it gets here); the slot and ``kv_len`` stay on the device.
+    Returns (y, cache)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
+    pos = _position(pos, x.device)
     q, k1, v1 = _qkv(params, x, cfg)
     if cfg.pos_embed == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
         k1 = apply_rope(k1, pos, cfg.rope_theta)
     m = cache["k"].shape[2]
     if cfg.window:
-        write = pos % m
-        cache["slot_pos"][write] = pos
+        write = torch.remainder(pos, m)
         kv_len, slot_pos = pos + 1, cache["slot_pos"]
     else:
-        write = min(pos, m - 1)
+        write = torch.clamp(pos, max=m - 1)
         kv_len, slot_pos = write + 1, None
-    cache["k"][:, :, write] = k1[:, :, 0]
-    cache["v"][:, :, write] = v1[:, :, 0]
-    o = flash_decode(q, cache["k"], cache["v"], kv_len=kv_len,
+    idx = write.reshape(1).long()
+    if slot_pos is not None:
+        slot_pos.index_copy_(0, idx, pos.reshape(1))
+    cache["k"].index_copy_(2, idx, k1.to(cache["k"].dtype))
+    cache["v"].index_copy_(2, idx, v1.to(cache["v"].dtype))
+    o = flash_decode(q, cache["k"], cache["v"], kv_len=kv_len.reshape(1),
                      window=cfg.window or None, slot_pos=slot_pos,
                      sm_scale=hd ** -0.5)
     y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
@@ -316,7 +331,7 @@ def mla_forward(params, x, cfg, *, return_latent=False):
 
 def mla_cache_init(cfg, batch, max_len, dtype, device):
     """The latent cache of ``max_len`` slots: ckv (B, m, lora) and krope
-    (B, m, rope); the position is the model's host int."""
+    (B, m, rope); the position is the model's ``cache["pos"]``."""
     return {
         "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
                            device=device),
@@ -348,22 +363,26 @@ def _bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-def mla_decode(params, x, cache, cfg, *, pos: int):
-    """Absorbed-matmul decode at host position ``pos``: scores and outputs
-    in latent space (W_uk folded into q, W_uv into the output), so the cache
-    stays (lora + rope) wide. x: (B, 1, d_model). The new latent goes into
-    slot ``min(pos, m - 1)`` of ``cache`` in place; the products have f32
-    results and are cast where the JAX layer casts. Returns (y, cache)."""
+def mla_decode(params, x, cache, cfg, *, pos):
+    """Absorbed-matmul decode at position ``pos`` (as :func:`gqa_decode`
+    takes it): scores and outputs in latent space (W_uk folded into q, W_uv
+    into the output), so the cache stays (lora + rope) wide. x: (B, 1,
+    d_model). The new latent goes into slot ``min(pos, m - 1)`` of
+    ``cache`` in place, the slot and the mask computed on the device; the
+    products have f32 results and are cast where the JAX layer casts.
+    Returns (y, cache)."""
     b = x.shape[0]
     h = cfg.n_heads
     nope, rope, dv, lora = (cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim,
                             cfg.kv_lora_rank)
+    pos = _position(pos, x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkr(params, x, cfg, pos)
     ckv, krope = cache["ckv"], cache["krope"]
     m = ckv.shape[1]
-    write = min(pos, m - 1)
-    ckv[:, write] = c_kv[:, 0]
-    krope[:, write] = k_rope[:, 0, 0]
+    write = torch.clamp(pos, max=m - 1)
+    idx = write.reshape(1).long()
+    ckv.index_copy_(1, idx, c_kv.to(ckv.dtype))
+    krope.index_copy_(1, idx, k_rope[:, 0].to(krope.dtype))
     wkv_b = params["wkv_b"].reshape(lora, h, nope + dv)
     w_uk, w_uv = wkv_b[..., :nope], wkv_b[..., nope:]
     cdt = ckv.dtype

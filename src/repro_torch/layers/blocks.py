@@ -113,10 +113,10 @@ def tblock_prefill(params, x, cfg, *, moe=False, dispatch="einsum",
     return x + _ffn(params, x, cfg, moe, dispatch)[0], cache
 
 
-def tblock_decode(params, x, cache, cfg, *, pos: int, moe=False,
+def tblock_decode(params, x, cache, cfg, *, pos, moe=False,
                   dispatch="einsum"):
-    """One-token decode at host position ``pos``; ``cache`` is updated in
-    place. Returns (y, cache)."""
+    """One-token decode at position ``pos`` (the model's 0-dim device
+    ``cache["pos"]``); ``cache`` is updated in place. Returns (y, cache)."""
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, cache = attn.mla_decode(params["attn"], h, cache, cfg, pos=pos)

@@ -26,12 +26,18 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+# -log(10000) rounded to f32, as JAX's ``-jnp.log(10000.0)``
+_NEG_LOG_1E4 = -float(torch.log(torch.tensor(10000.0)))
+
+
 def sinusoidal_embedding(positions, d_model: int):
     """(S,) positions -> (S, d_model) f32: sin over the first half of the
-    features, cos over the second (the classic transformer sinusoids)."""
+    features, cos over the second (the classic transformer sinusoids).
+    Computed on the positions' device from no host tensor, so a decode step
+    at a device position can be captured into a CUDA graph."""
     pos = torch.as_tensor(positions).to(torch.float32)[..., None]
     half = d_model // 2
-    freqs = torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
-        half, dtype=torch.float32) / half).to(pos.device)
+    freqs = torch.exp(_NEG_LOG_1E4 * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / half)
     ang = pos * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -12,9 +12,12 @@ stacked ``(n, ...)`` layer axis (a ``zamba_group`` stack's leaves carry
 ``(n, group, ...)``, and ``shared_attn`` holds the one shared block). The
 layer loop is a Python loop over that axis (JAX scans it). Caches are
 dicts of tensors too; the decode steps update their cache IN PLACE and
-return it (JAX returns a new one). A static
-cache's ``"pos"`` is a host int, so a decode step checks its capacity and
-places its writes without reading the device.
+return it (JAX returns a new one). A static cache's ``"pos"`` is a 0-dim
+int32 tensor on the model's device, as JAX's is, advanced in place: the
+layers place their writes from it on the device, so a decode step reads
+nothing back and can be captured into a CUDA graph
+(``repro_torch.parallel.build_serve_step``). An eager step still checks
+the cache's capacity with one read of it.
 
 Every model runs on the CUDA card unless ``device="cpu"`` is asked for; on
 the card the norms, attention and LM head go through the Hopper kernels, on
@@ -40,6 +43,7 @@ from repro_torch.kernels.lm_head import lm_head_ce, lm_head_logits
 from repro_torch.layers import blocks
 from repro_torch.layers.common import dense_init, rmsnorm
 from repro_torch.layers.rope import sinusoidal_embedding
+from repro_torch.parallel.steps import cache_overflow
 
 __all__ = ["LM", "StackSpec", "build_program", "pad_vocab"]
 
@@ -120,6 +124,12 @@ def _regroup(tree, n, group):
     return {k: (_regroup(v, n, group) if isinstance(v, dict)
                 else v.view(n, group, *v.shape[1:]))
             for k, v in tree.items()}
+
+
+def _capturing(t) -> bool:
+    """True while ``t``'s stream is being captured into a CUDA graph
+    (nothing runs then, so nothing may be read back)."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
 def _zeros(lead, single, device):
@@ -206,7 +216,8 @@ class LM:
         """Token embeddings (times sqrt(d_model) with ``cfg.embed_scale``),
         after ``prefix_embeddings`` (B, P, d) when given (the frontend stub's
         conditioning frames or image patches, unscaled), plus sinusoidal
-        positions from ``pos0`` when the config asks for them."""
+        positions from ``pos0`` (an int, or the cache's 0-dim device
+        position) when the config asks for them."""
         x = params["embed"][tokens.long()]
         if self.embed_scale is not None:
             x = x * self.embed_scale
@@ -214,7 +225,7 @@ class LM:
             x = torch.cat([prefix_embeddings.to(x.dtype), x], dim=1)
         if self.cfg.pos_embed == "sinusoidal":
             pos = sinusoidal_embedding(
-                torch.arange(pos0, pos0 + x.shape[1], device=x.device),
+                pos0 + torch.arange(x.shape[1], device=x.device),
                 self.cfg.d_model)
             x = x + pos[None].to(x.dtype)
         return x
@@ -342,7 +353,8 @@ class LM:
             else:
                 stacks.append(_zeros((spec.n,), ssm() if spec.kind in _MAMBA
                                      else att(), dev))
-        return {"pos": 0, "stacks": stacks}
+        return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+                "stacks": stacks}
 
     @property
     def has_positional_cache(self) -> bool:
@@ -375,7 +387,8 @@ class LM:
         cache k/v (n, B, Hk, m, hd) of m = max_len slots (a rolling window's
         m = min(max_len, window), with slot_pos), or the mamba conv tail and
         final state; MLA's latent ckv/krope (n, B, m, .) of m = max_len
-        slots. ``cache["pos"]`` = P + S, a host int."""
+        slots. ``cache["pos"]`` = P + S, a 0-dim int32 tensor on the
+        model's device."""
         cfg = self.cfg
         x = self._embed(params, tokens, prefix_embeddings)
         s = x.shape[1]
@@ -405,7 +418,8 @@ class LM:
             caches.append(_stack(layer_caches))
         x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
         logits = self._logits(params, x[:, -1:])[:, 0]
-        return logits, {"pos": s, "stacks": caches}
+        pos = torch.full((), s, dtype=torch.int32, device=x.device)
+        return logits, {"pos": pos, "stacks": caches}
 
     def _zamba_prefill(self, params, sp, spec, x, max_len):
         """A zamba group stack's prefill: each group's mamba2 layers, then
@@ -430,18 +444,17 @@ class LM:
     # ------------------------------------------------------- static decoding
     def _decode_hidden(self, params, tokens, cache):
         """One decode step up to the final norm: tokens (B, 1) -> hidden
-        (B, 1, d); ``cache`` is updated in place and its ``pos`` advanced.
-        Decoding past a positional cache is an error, not a silent
-        overwrite of the last slot."""
+        (B, 1, d); ``cache`` is updated in place and its ``pos`` advanced
+        in place. Decoding past a positional cache is an error, not a
+        silent overwrite of the last slot: checked here with one read of
+        ``pos`` unless the step is being captured into a CUDA graph (as JAX
+        checks only a concrete ``pos``), where the compiled step counts
+        positions on the host instead."""
         cfg = self.cfg
-        pos = int(cache["pos"])
+        pos = cache["pos"]
         cap = self.cache_capacity(cache)
-        if cap is not None and pos >= cap:
-            raise ValueError(
-                f"kv cache overflow: decode at position {pos} but the cache "
-                f"holds {cap} tokens; grow max_len at prefill/init_cache (the "
-                "write would overwrite the last slot and attend corrupted "
-                "history)")
+        if cap is not None and not _capturing(pos) and int(pos) >= cap:
+            raise cache_overflow(int(pos), cap)
         x = self._embed(params, tokens, pos0=pos)
         for spec, sp, sc in zip(self.program, params["stacks"],
                                 cache["stacks"]):
@@ -463,7 +476,7 @@ class LM:
                     x, _ = blocks.tblock_decode(_layer(sp, i), x,
                                                 _layer(sc, i), cfg, pos=pos,
                                                 **self._block_kw(spec))
-        cache["pos"] = pos + 1
+        pos.add_(1)
         return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), cache
 
     def decode_step(self, params, tokens, cache):
@@ -549,6 +562,12 @@ class LM:
         x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
         lens += 1
         return x, cache
+
+    def paged_decode_step(self, params, tokens, cache):
+        """One paged token for every slot. tokens: (B, 1). Returns (logits
+        (B, Vpad) f32, cache)."""
+        x, cache = self._paged_decode_hidden(params, tokens, cache)
+        return self._logits(params, x)[:, 0], cache
 
     def paged_greedy_step(self, params, tokens, cache):
         """One paged greedy token for every slot. tokens: (B, 1). Returns

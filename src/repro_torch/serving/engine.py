@@ -1,20 +1,27 @@
 """Continuous-batching decode engine over paged KV caches (the counterpart
 of ``repro.serving.engine``).
 
-One ``LM.paged_greedy_step`` runs over ``batch`` SLOTS every step, whatever
-mix of sequences occupies them; the :class:`Scheduler` retires finished
-sequences, refills slots from the FIFO queue mid-flight, and preempts by
-eviction when the page pool runs dry. Admission prefills the new sequence
-alone (B=1 ``LM.prefill``) and copies its contiguous KV into the sequence's
-pages with ``index_copy_``, IN PLACE in the pools (JAX donates the pools to
-a jitted scatter instead).
+One paged decode step (``LM.paged_greedy_step``, or
+``LM.paged_decode_step`` when sampling, through
+``parallel.build_paged_serve_step``, as the JAX engine jits it) runs over
+``batch`` SLOTS every step, whatever mix of sequences occupies them; the
+:class:`Scheduler` retires finished sequences, refills slots from the FIFO
+queue mid-flight, and preempts by eviction when the page pool runs dry. On
+the card the step is one CUDA graph, captured at the engine's second step
+and replayed after it: the pools, tables, lengths and position rows never
+move, and the host changes them only in place between steps. Admission
+prefills the new sequence alone (B=1 ``LM.prefill``, eager: its length
+varies) and copies its contiguous KV into the sequence's pages with
+``index_copy_``, IN PLACE in the pools (JAX donates the pools to a jitted
+scatter instead).
 
 Token semantics match ``repro.serving.Engine``: the first emitted token
 comes from the prefill logits, every decode step emits the next, the EOS
 token itself is emitted before the sequence retires, and a sequence emits
 at most ``max_new`` tokens. ``greedy=False`` samples every token (the
 admission's too) from ``softmax(logits / temperature)`` with ``rng``, a
-``torch.Generator`` on the model's device.
+``torch.Generator`` on the model's device, eagerly, from the sampling
+step's logits before the next step overwrites them.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import fit_block
+from repro_torch.parallel.steps import build_paged_serve_step
 
 from .scheduler import Scheduler
 
@@ -73,6 +81,8 @@ class Engine:
                                num_pages=num_pages, max_len=max_len)
         self.cache = model.init_paged_cache(batch, num_pages, self.page_size,
                                             nsp)
+        self._step, _ = build_paged_serve_step(model, batch=batch,
+                                               greedy=greedy)
         self._requests = {}
         self._pending = np.zeros((batch,), np.int64)
         self._slot_pages = [[] for _ in range(batch)]
@@ -193,9 +203,10 @@ class Engine:
                     "too small for the front request")
             return emitted
         toks = torch.from_numpy(self._pending.reshape(-1, 1)).to(self.device)
-        nxt, logits, self.cache = self.model.paged_greedy_step(
-            self.params, toks, self.cache)
-        nxt = nxt.cpu().numpy() if self.greedy else self._sample(logits)
+        if self.greedy:
+            nxt = self._step(self.params, self.cache, toks)[0].cpu().numpy()
+        else:
+            nxt = self._sample(self._step(self.params, self.cache, toks)[0])
         for slot in running:
             tok = int(nxt[slot])
             self._pending[slot] = tok

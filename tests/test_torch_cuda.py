@@ -46,8 +46,11 @@ from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.rmsnorm import route as rms_route
 from repro_torch.kernels.ssm_scan import (selective_scan_ref, ssm_scan,
                                           ssm_scan_fwd, ssm_scan_state)
+from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.serve import generate
 from repro_torch.models import LM, tree_to
+from repro_torch.parallel import GraphStep, build_serve_step
+from repro_torch.serving import Engine
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -2070,3 +2073,207 @@ def test_paligemma_serves_on_card_like_cpu(dev):
         lg, _ = model.prefill(params, toks, prefix_embeddings=pre)
         lc, _ = cpu.prefill(p_cpu, toks.cpu(), prefix_embeddings=pre.cpu())
     _close_rel(lg.cpu(), lc, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the compiled decode steps: a CUDA graph's replays against eager steps
+# ---------------------------------------------------------------------------
+
+# reduced bf16 programs of every static kind: (arch, config changes)
+STEP_PROGRAMS = [
+    ("llama3_2_1b", {}),                              # dense GQA
+    ("llama3_2_1b", dict(window=16)),                 # rolling, wraps
+    ("musicgen_medium", {}),                          # sinusoidal positions
+    ("falcon_mamba_7b", {}),                          # mamba1
+    ("zamba2_7b", dict(n_layers=5)),                  # mamba2, shared block
+    ("deepseek_v2_lite", dict(qk_nope_dim=128, qk_rope_dim=64,
+                              v_head_dim=128)),        # MLA, MoE
+]
+
+
+def _route_counts():
+    return {n: dict(fn.routes) for n, fn in KERNELS.items()
+            if hasattr(fn, "routes")}
+
+
+def _greedy_run(model, params, prompts, nsteps, max_len, step=None):
+    """(tokens (nsteps, B), logits (nsteps, B, Vpad), launch counts, route
+    counts) of ``nsteps`` greedy steps after a prefill of ``prompts``:
+    through ``step`` (a built serve step), else ``model.greedy_step``
+    eagerly. The counts cover the steps alone."""
+    toks = torch.as_tensor(prompts, device=model.device)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, toks, max_len=max_len)
+        tok = model.greedy_token(logits)[:, None]
+        if step is None:
+            def step(p, c, t):
+                return model.greedy_step(p, t, c)
+        reset_launches()
+        out, lgs = [], []
+        for _ in range(nsteps):
+            nxt, lg, cache = step(params, cache, tok)
+            out.append(nxt.clone())
+            lgs.append(lg.clone())
+            tok = nxt[:, None]
+    torch.cuda.synchronize()
+    return (torch.stack(out), torch.stack(lgs), launch_counts(),
+            _route_counts())
+
+
+def _bf16_model(dev, arch, seed, **changes):
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="bfloat16",
+                              **changes)
+    model = LM(cfg, device=dev)
+    return model, model.init(torch.Generator(device=dev).manual_seed(seed))
+
+
+@pytest.mark.parametrize("arch,changes", STEP_PROGRAMS,
+                         ids=["dense", "window", "sinusoidal", "mamba1",
+                              "mamba2", "mla_moe"])
+def test_compiled_static_step_equals_eager(dev, arch, changes):
+    """24 greedy steps through ``build_serve_step`` (one eager step, one
+    capture, 23 replays) after a 10-token prompt give the eager steps'
+    tokens and logits bit for bit, with the eager launch and route
+    counts; the window's 16-slot cache wraps during the replays."""
+    model, params = _bf16_model(dev, arch, 5, **changes)
+    prompts = np.random.default_rng(6).integers(0, model.cfg.vocab_size,
+                                                (2, 10))
+    nsteps, max_len = 24, 10 + 24 + 1
+    eager = _greedy_run(model, params, prompts, nsteps, max_len)
+    step, info = build_serve_step(model, batch=2)
+    assert info["cuda_graph"] and isinstance(step, GraphStep)
+    graph = _greedy_run(model, params, prompts, nsteps, max_len, step)
+    assert step.captures == 1
+    torch.testing.assert_close(graph[0], eager[0], atol=0, rtol=0)
+    torch.testing.assert_close(graph[1], eager[1], atol=0, rtol=0)
+    assert graph[2] == eager[2] and graph[3] == eager[3]
+
+
+def test_compiled_paged_step_equals_eager(dev):
+    """The engine's compiled step (captured at its second step) against
+    the eager ``paged_greedy_step`` on traffic that admits and retires
+    sequences between replays (6 requests, 2 slots): equal tokens, equal
+    launch and route counts, one capture."""
+    model, params = _bf16_model(dev, "llama3_2_1b", 7)
+    rng = np.random.default_rng(8)
+    traffic = [(rng.integers(0, model.cfg.vocab_size, n).tolist(), g)
+               for n, g in ((5, 9), (17, 4), (3, 12), (30, 6), (8, 7),
+                            (12, 5))]
+    runs = []
+    for compiled in (False, True):
+        eng = Engine(model, params, batch=2, max_len=48, page_size=16)
+        if not compiled:
+            eng._step = lambda p, c, t: model.paged_greedy_step(p, t, c)
+        reset_launches()
+        rids = [eng.submit(p, g) for p, g in traffic]
+        res = eng.drain()
+        torch.cuda.synchronize()
+        runs.append(([res[r] for r in rids], launch_counts(),
+                     _route_counts()))
+    assert isinstance(eng._step, GraphStep) and eng._step.captures == 1
+    assert runs[1][0] == runs[0][0]
+    assert [len(t) for t in runs[1][0]] == [g for _, g in traffic]
+    assert runs[1][1:] == runs[0][1:]
+
+
+def test_compiled_step_refuses_a_moved_cache(dev):
+    """One built step serves the cache of its first call (its tokens equal
+    the eager ones); handed the cache of another prefill it raises and
+    never replays onto the first cache's addresses, and the first cache
+    still replays. A replay past the cache's capacity raises the overflow
+    error."""
+    model, params = _bf16_model(dev, "llama3_2_1b", 9)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, model.cfg.vocab_size, (2, 10))
+               for _ in range(2)]
+    step, _ = build_serve_step(model, batch=2)
+    eager = _greedy_run(model, params, prompts[0], 6, 24)
+    graph = _greedy_run(model, params, prompts[0], 6, 24, step)
+    assert step.captures == 1
+    torch.testing.assert_close(graph[0], eager[0], atol=0, rtol=0)
+    assert graph[2] == eager[2]
+    tok = graph[0][-1][:, None]
+    with torch.no_grad():
+        _, other = model.prefill(
+            params, torch.as_tensor(prompts[1], device=dev), max_len=24)
+        with pytest.raises(ValueError, match="first call"):
+            step(params, other, tok)
+        assert int(other["pos"]) == 10 and step.captures == 1
+    step, _ = build_serve_step(model, batch=2)
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, torch.as_tensor(prompts[0], device=dev), max_len=13)
+        tok = model.greedy_token(logits)[:, None]
+        for _ in range(3):                       # positions 10, 11, 12
+            nxt, _, cache = step(params, cache, tok)
+            tok = nxt[:, None]
+        with pytest.raises(ValueError, match="cache overflow"):
+            step(params, cache, tok)
+
+
+def _eager_serve_step(model, *, batch, greedy=True):
+    """``build_serve_step``'s eager counterpart: the model's method."""
+    method = model.greedy_step if greedy else model.decode_step
+    return (lambda p, c, t: method(p, t, c)), {"greedy": greedy,
+                                               "cuda_graph": False}
+
+
+@pytest.mark.parametrize("arch,changes", [("llama3_2_1b", {}),
+                                          ("musicgen_medium", {})],
+                         ids=["dense", "sinusoidal"])
+def test_compiled_sampling_static_equals_eager(dev, monkeypatch, arch,
+                                               changes):
+    """``generate(engine="static", greedy=False)`` through the compiled
+    ``decode_step`` (sampling from the replay's logits before the next
+    replay) and eagerly, each with a generator of the same seed: equal
+    tokens and launch counts."""
+    model, params = _bf16_model(dev, arch, 11, **changes)
+    prompts = np.random.default_rng(12).integers(0, model.cfg.vocab_size,
+                                                 (2, 9))
+    built, runs = [], []
+
+    def spy(model_, **kw):
+        step, info = build_serve_step(model_, **kw)
+        built.append(step)
+        return step, info
+
+    for builder in (_eager_serve_step, spy):
+        monkeypatch.setattr(serve_mod, "build_serve_step", builder)
+        reset_launches()
+        out, stats = generate(
+            model, params, prompts, gen_tokens=16, engine="static",
+            greedy=False, temperature=0.8,
+            rng=torch.Generator(device=dev).manual_seed(13))
+        torch.cuda.synchronize()
+        assert not stats["engine"]
+        runs.append((out.tolist(), launch_counts(), _route_counts()))
+    assert isinstance(built[0], GraphStep) and built[0].captures == 1
+    assert runs[1] == runs[0]
+
+
+def test_compiled_sampling_engine_equals_eager(dev):
+    """A sampling engine (``greedy=False``: its compiled step is
+    ``paged_decode_step``'s graph, sampled before the next replay) against
+    the same engine stepping ``paged_decode_step`` eagerly, each with a
+    generator of the same seed, on traffic that admits and retires
+    sequences between replays: equal tokens and launch counts."""
+    model, params = _bf16_model(dev, "llama3_2_1b", 14)
+    rng = np.random.default_rng(15)
+    traffic = [(rng.integers(0, model.cfg.vocab_size, n).tolist(), g)
+               for n, g in ((5, 9), (17, 4), (3, 12), (30, 6))]
+    runs = []
+    for compiled in (False, True):
+        eng = Engine(model, params, batch=2, max_len=48, page_size=16,
+                     greedy=False, temperature=0.8,
+                     rng=torch.Generator(device=dev).manual_seed(16))
+        if not compiled:
+            eng._step = lambda p, c, t: model.paged_decode_step(p, t, c)
+        reset_launches()
+        rids = [eng.submit(p, g) for p, g in traffic]
+        res = eng.drain()
+        torch.cuda.synchronize()
+        runs.append(([res[r] for r in rids], launch_counts(),
+                     _route_counts()))
+    assert isinstance(eng._step, GraphStep) and eng._step.captures == 1
+    assert runs[1] == runs[0]
+    assert [len(t) for t in runs[1][0]] == [g for _, g in traffic]
