@@ -14,11 +14,13 @@ prefix under the prefix-LM mask) through the engine, the static path and
 a prefix prefill, trains the whole ``paligemma_3b`` and
 ``deepseek_v2_lite`` and ``zamba2_7b`` at reduced depth through
 ``TrainLoop``, and times each kernel. Every decode step of the engine and
-the static path after the first of a run is a CUDA graph's replay
-(``parallel.build_serve_step``/``build_paged_serve_step``), held against
-the eager step and timed beside it; each captured graph's kernel nodes
-must hold every hand-written kernel as often as its capture counted the
-kernel's wrapper (``keep_graphs``, ``check_graph_kernels``).
+the static path after the first of a run, and every train step of
+``TrainLoop`` after its first, is a CUDA graph's replay
+(``parallel.build_serve_step``/``build_paged_serve_step``/
+``build_train_step``), held against the eager step and timed beside it;
+each captured graph's kernel nodes must hold every hand-written kernel as
+often as its capture counted the kernel's wrapper (``keep_graphs``,
+``check_graph_kernels``).
 
   python3 chip_smoke.py
 
@@ -101,20 +103,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    graph's device time from CUDA events around back-to-back replays), and
    one admission prefill;
 6. the training path: the full 16-layer bf16 llama3_2_1b through
-   ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, no checkpoints).
-   Launch counts are zeroed just before and read just after;
+   ``TrainLoop`` (global batch 4, seq_len 1024, 6 steps, no checkpoints)
+   through the compiled train step (``build_train_step``: one eager step,
+   one capture, replays), beside two eager runs of the same loop from the
+   same initial state (``train_three_ways``). Launch counts are zeroed just
+   before the compiled run and read just after;
    every training kernel (and rmsnorm, flash_fwd) must have launched, the
    bf16 CE forward and backward, flash_fwd and flash_bwd on their
    tensor-core routes every time, flash_delta on its 16-byte vector route
    every time, every loss be
-   finite; then a 2-layer copy through ``TrainLoop`` with checkpoints at
-   steps 2 and 3, whose latest must restore bit-equal to the parameters
-   and optimizer state saved;
+   finite; its losses, gradient norms and final parameters equal the eager
+   runs' bit for bit where those are (else within their own difference);
+   its graph's kernel nodes hold every launch its capture counted, the
+   backward's too; then a 2-layer copy through ``TrainLoop`` with
+   checkpoints at steps 2 and 3, whose latest must restore bit-equal to the
+   parameters and optimizer state saved; then the 2-layer copy with
+   ``accum_steps=2`` eager twice and compiled from one state (held the
+   same way, its graph checked), and its loss through the einsum head
+   (``fused_head=False``) with ``ce_chunks=4`` and without, within
+   UNFUSED_REL of the fused head's;
 7. where the training time goes: the host's enqueue time (until
-   ``train_step`` returns, before the synchronize), one train step on the
-   host clock and under ``torch.profiler`` (the tensor-core CE forward's
-   and backward's launches and flash_bwd's two kernels among its device
-   rows, each with its TFLOP/s);
+   ``train_step`` returns, before the synchronize), one eager train step
+   on the host clock and under ``torch.profiler`` (the tensor-core CE
+   forward's and backward's launches and flash_bwd's two kernels among its
+   device rows, each with its TFLOP/s); the ``[train compiled]`` line:
+   the capture's seconds, host ms a step eager and compiled, the graph's
+   device ms (CUDA events around back-to-back replays), busy share,
+   tokens/s, peak allocated and reserved memory eager and compiled; one
+   eager step with ``remat`` "none" (twice), "full" and "dots" at the
+   learning rate 0 (peak memory, ms, launch counts; the loss and gradient
+   norm within the "none" steps' difference);
 8. per-kernel times at the main paths' shapes beside their bound, the
    plain version's time and one library call's time (null where no single
    PyTorch call computes the function), flash_fwd and rmsnorm also at the
@@ -215,12 +233,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     within 1e-3 of the largest logit; 8 greedy tokens equal on the engine
     and the static path, and engine == static);
 18. training the wide architectures in bf16 through ``TrainLoop`` (4
-    steps each, no checkpoints; launch counts zeroed just before each run
-    and read just after, each exact: flash_fwd, flash_delta and flash_bwd
+    steps each, no checkpoints, through the compiled train step beside
+    two eager runs, held and checked as in phase 6; launch counts zeroed
+    just before each compiled run and read just after, each exact:
+    flash_fwd, flash_delta and flash_bwd
     once an attention layer a step, on the tensor cores and the vector
     route; the CE head once a step; ssm_scan once a mamba2 layer a step;
-    every loss and gradient norm finite; tokens/s, step ms, peak memory
-    and a profiled step's split): the whole paligemma_3b (B = 4, 256
+    every loss and gradient norm finite; tokens/s, step ms, peak memory,
+    a profiled eager step's split and the ``[train compiled]`` line): the
+    whole paligemma_3b (B = 4, 256
     prefix embeddings + 512 tokens), deepseek_v2_lite at 4 layers (1
     dense + 3 MoE; B = 4 x 512), zamba2_7b at 7 (6 mamba2 layers with the
     shared block, a tail of 1; B = 2 x 512); then (8) flash_bwd at their
@@ -301,6 +322,14 @@ SERVE_KERNELS = ("rmsnorm", "flash_fwd", "paged_decode", "lm_head")
 TRAIN_KERNELS = ("lm_head_ce", "lm_head_bwd", "flash_delta", "flash_bwd")
 # the training main path: llama3_2_1b at global batch 4 x seq_len 1024
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6
+# the compiled train step's graph device time: CUDA events around this many
+# back-to-back replays
+TRAIN_REPLAYS = 2
+# the einsum head's loss (fused_head=False, f32 products of the bf16 hidden
+# states and head) against the fused CE head's on a 2-layer llama3_2_1b:
+# the same products summed in another order (the tensor cores truncate each
+# k16 step's add), ~1e-6 of the loss expected
+UNFUSED_REL = 1e-4
 APP_KERNELS = ("fd2d", "sem_apply", "dg_volume", "dg_surface")
 RING_KERNELS = ("ring_flash_fwd", "ring_flash_bwd", "matmul")
 # the apps main path: the FD wave on 8192^2 (radius 4, 200 steps), the SEM
@@ -365,6 +394,17 @@ LAUNCH_KERNEL = {
     "paged_decode": ("paged_decode_split_kernel",),
     "flash_decode": ("flash_decode_split_kernel",),
     "lm_head": ("lm_head_reduce",),
+    # the train steps' wrappers: flash_fwd's forward on either route (the
+    # ring's shares fwd_tc_kernel, but no compiled step runs the ring),
+    # flash_bwd's dq kernel, the CE forward's merge (both routes), the CE
+    # backward's first product (its dl epilogue) or CUDA-core dlogits
+    "flash_fwd": ("fwd_tc_kernel", "flash_fwd_kernel",
+                  "flash_fwd_wide_kernel"),
+    "flash_delta": ("delta_vec_kernel", "delta_scalar_kernel"),
+    "flash_bwd": ("dq_tc_kernel", "dq_kernel"),
+    "lm_head_ce": ("ce_merge_kernel",),
+    "lm_head_bwd": ("DlEpi", "ce_dlogits_kernel"),
+    "ssm_scan": ("ssm_scan_kernel",),
 }
 # phase 18, training the wide architectures through TrainLoop in bf16:
 # (arch, config changes, global batch, attention layers, mamba2 layers);
@@ -1198,11 +1238,12 @@ def check_graph_kernels(tag, counts):
     last one captured: its kernel nodes (``debug_dump``, one label line a
     node, ``ID | n (topoId: m) | <mangled name><<<grid, block, smem>>>``)
     must hold each wrapper's once-a-launch kernel (LAUNCH_KERNEL) as often
-    as the capture counted the wrapper (``counts``, ``GraphStep.counts``:
-    what a replay adds to the counts), and no other wrapper's kernel. A
-    replay runs every node once, so the replayed counts are read off the
-    graph, not only carried over from the capture's Python. (The profiler
-    cannot count them: it drops device records, eager ones too.)"""
+    as the capture counted the wrapper (``counts``, a compiled step's
+    ``counts``: what a replay adds to the counts), and no other wrapper's
+    kernel. A replay runs every node once, so the replayed counts are read
+    off the graph, not only carried over from the capture's Python. (The
+    profiler cannot count them: it drops device records, eager ones too.)
+    Returns the number of kernel nodes."""
     import re
 
     want = {name: k for name, (k, _) in counts.items()}
@@ -1228,6 +1269,7 @@ def check_graph_kernels(tag, counts):
              f"{seen} hand-written kernels; the capture counted {want}")
     log(f"[compiled] {tag}: the graph's {len(names)} kernel nodes hold "
         f"the captured launches, {dict(sorted(seen.items()))} a replay")
+    return len(names)
 
 
 # ---------------------------------------------------------------------------
@@ -1820,83 +1862,417 @@ def checkpoint_round_trip(cfg):
     return restore_s
 
 
-def train_main_path(cfg):
-    """Drive ``TrainLoop`` once on the full bf16 model (global batch 4,
-    seq_len 1024, 6 steps, no checkpoints: checkpoint_round_trip holds
-    them on 2 layers). Returns (launch counts, stats, the loop's
-    result)."""
+def run_train_loop(loop, compiled):
+    """``loop.run()`` with ``TrainLoop``'s ``build_train_step`` routed
+    through a recorder: the compiled step (``compiled``; it must be a CUDA
+    graph step) or the eager ``train_step``, each call timed on the host
+    clock to a synchronize, with its peak allocated and reserved memory
+    (peaks reset just before) and its gradient norm. Returns (the loop's
+    result, {"ms", "peak", "gnorm": one entry a step, "step": the built
+    step, "batch": the last step's batch})."""
+    import torch
+
+    from repro_torch.launch import train as train_mod
+    from repro_torch.parallel import steps
+
+    real = train_mod.build_train_step
+    rec = dict(ms=[], peak=[], gnorm=[], step=None, batch=None)
+
+    def build(model, optimizer, **kw):
+        step, info = real(model, optimizer, **kw)
+        if not info["cuda_graph"]:
+            fail(f"{model.cfg.name}: the train step is not compiled")
+        if not compiled:
+            def step(params, opt_state, batch):
+                return steps.train_step(model, optimizer, params,
+                                        opt_state, batch, **kw)
+        rec["step"] = step
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            if compiled and len(rec["ms"]) == 1:
+                # the capture's call empties the cache first (as the step
+                # does): its reserved peak is the state and the graph's pool
+                torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["peak"].append((torch.cuda.max_memory_allocated() / 1e9,
+                                torch.cuda.max_memory_reserved() / 1e9))
+            rec["gnorm"].append(float(out[3]["grad_norm"]))
+            rec["batch"] = batch
+            return out
+        return timed, info
+
+    train_mod.build_train_step = build
+    try:
+        out = loop.run()
+    finally:
+        train_mod.build_train_step = real
+    return out, rec
+
+
+def _digest(params):
+    """Two sums of each leaf's bits, computed on the card in chunks: plain
+    and weighted by position (int64, wrapping). Equal digests mean equal
+    bits but for a collision; copying a whole model's parameters to the
+    host to compare them took seconds a run."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    out, chunk = [], 1 << 26
+    for p in leaves(params):
+        bits = p.detach().reshape(-1).view(
+            {2: torch.int16, 4: torch.int32}[p.element_size()])
+        plain = weighted = 0
+        for i in range(0, bits.numel(), chunk):
+            c = bits[i:i + chunk].to(torch.int64)
+            plain += int(c.sum())
+            weighted += int((c * torch.arange(i + 1, i + 1 + c.numel(),
+                                              device=c.device)).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def _held_by_eager(tag, eager, compiled):
+    """The yardstick for "compiled equals eager": two eager runs from one
+    state, ``eager`` = [(losses, gradient norms, params' ``_digest``)] x 2,
+    and one compiled run from it, ``compiled`` likewise. Where the eager
+    runs are bit-equal, the compiled one must be too; otherwise its losses
+    and norms must stay as close to the nearer eager run's as the eager
+    runs are to each other (the embedding backward's atomics may reorder
+    sums; a digest gives no distance, so the parameters are then not
+    compared). Returns the line's description."""
+    def diff(x, y):
+        return max(abs(u - v) for u, v in zip(x[0] + x[1], y[0] + y[1]))
+
+    if eager[0] == eager[1]:
+        if compiled != eager[0]:
+            fail(f"{tag}: the eager steps are bit-equal run to run, the "
+                 f"compiled ones differ (losses and norms by "
+                 f"{diff(compiled, eager[0]):.3e}, parameters' digests "
+                 f"{'equal' if compiled[2] == eager[0][2] else 'differ'})")
+        return ("compiled = eager bit for bit (the eager runs bit-equal; "
+                "parameters by digest)")
+    yard = diff(*eager)
+    near = min(diff(compiled, e) for e in eager)
+    if near > yard:
+        fail(f"{tag}: compiled losses and norms differ from eager by "
+             f"{near:.3e}, past the eager runs' own {yard:.3e}")
+    return (f"compiled within {near:.3e} of eager (losses and norms), eager "
+            f"run to run {yard:.3e}")
+
+
+def train_replay_ms(step, params, opt_state, batch, n=TRAIN_REPLAYS):
+    """The device time of one compiled train step: CUDA events around
+    ``n`` back-to-back replays with no host read between them (each copies
+    the batch in and trains on, as the loop would; the loop's own replays
+    warmed the graph)."""
+    import torch
+
+    torch.cuda.synchronize()
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    for _ in range(n):
+        step(params, opt_state, batch)
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def train_three_ways(tag, make_loop, *, eager_first=2):
+    """A model's training main path: ``make_loop()``'s ``TrainLoop`` run
+    twice eagerly (the eager step's run-to-run difference, the yardstick)
+    and once through the compiled step, each from the seed's initial state
+    on the same data: ``eager_first`` eager runs before the compiled one,
+    the rest after it, and only if the compiled run is not bit-equal to
+    the first eager run (a run equal to one eager run passes whatever the
+    second gives, so the verdict is the same). Launch counts are zeroed
+    just before the compiled run and read just after. Its losses, gradient
+    norms and final parameters (by ``_digest``) are held against the eager
+    runs' (``_held_by_eager``); its
+    graph must hold each captured kernel launch (``check_graph_kernels``:
+    the backward's among them); then its graph's device time
+    (``train_replay_ms``). The eager runs' state is dropped, the compiled
+    run's step with its graph after the timing. Returns (the compiled
+    loop's result, its counts, routes, and stats: "eager" / "compiled"
+    records (``run_train_loop``), "hold", "capture_s", "dev_ms", "wall_s",
+    "nodes": the graph's kernel nodes)."""
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_bwd, flash_delta)
-    from repro_torch.kernels.lm_head import lm_head_bwd, lm_head_ce
+
+    def eager_run():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out, rec = run_train_loop(make_loop(), compiled=False)
+        # the final parameters by digest: the compiled run needs the card's
+        # memory for the state and the graph's pool
+        eager.append((out["history"], rec["gnorm"], _digest(out["params"]),
+                      rec))
+
+    t_start = time.perf_counter()
+    eager = []
+    for _ in range(eager_first):
+        eager_run()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, rec = run_train_loop(make_loop(), compiled=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, routes = launch_counts(), route_counts()
+    hist = out["history"]
+    if not all(map(lambda v: v == v and abs(v) != float("inf"),
+                   hist + rec["gnorm"])):
+        fail(f"{tag}: non-finite loss or gradient norm: {hist}, "
+             f"{rec['gnorm']}")
+    t1 = time.perf_counter()
+    ran = (hist, rec["gnorm"], _digest(out["params"]))
+    if len(eager) == 1 and ran != eager[0][:3]:
+        eager_run()
+    hold = (_held_by_eager(tag, [e[:3] for e in eager], ran)
+            if len(eager) == 2 else
+            "compiled = the eager run bit for bit (parameters by digest; the "
+            "second eager run not needed)")
+    step = rec["step"]
+    if step.captures != 1:
+        fail(f"{tag}: {step.captures} captures, wanted 1")
+    t2 = time.perf_counter()
+    nodes = check_graph_kernels(f"{tag} train step", step.counts)
+    t3 = time.perf_counter()
+    dev_ms = train_replay_ms(step, out["params"], out["opt"], rec["batch"])
+    stats = dict(eager=eager[0][3], compiled=rec, hold=hold, wall_s=wall,
+                 capture_s=step.capture_s, dev_ms=dev_ms, nodes=nodes)
+    n_eager = len(eager)
+    del eager, step
+    rec["step"] = rec["batch"] = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[train compiled] {tag}: seconds: {n_eager} eager runs "
+        f"{t0 - t_start + t2 - t1:.1f} with the comparison, compiled run "
+        f"{wall:.1f}, the graph's "
+        f"nodes {t3 - t2:.1f}, replays {time.perf_counter() - t3:.1f}")
+    return out, counts, routes, stats
+
+
+def log_train_compiled(tag, stats, tokens, eager_busy_ms):
+    """The ``[train compiled]`` line: the capture's seconds, host ms a step
+    eager (the eager loop's steps after its first) and compiled (the
+    replays after the capture's step), the graph's device ms, its busy
+    share of the compiled host step and the eager profile's, tokens/s both
+    ways, and peak allocated / reserved memory of an eager step and of the
+    capture's step (the graph's private pool beside the state). Returns
+    (eager ms, compiled ms)."""
+    e, c = stats["eager"], stats["compiled"]
+    eager_ms = sum(e["ms"][1:]) / len(e["ms"][1:])
+    graph_ms = sum(c["ms"][2:]) / len(c["ms"][2:])
+    pe = max(p[0] for p in e["peak"]), max(p[1] for p in e["peak"])
+    pc = c["peak"][1]
+    log(f"[train compiled] {tag}: capture {stats['capture_s']:.3f} s "
+        f"({stats['nodes']} kernel nodes); host ms a step eager "
+        f"{eager_ms:.3f} -> compiled {graph_ms:.3f}; graph device "
+        f"{stats['dev_ms']:.3f} ms = {100 * stats['dev_ms'] / graph_ms:.1f}% "
+        f"busy (eager profile {eager_busy_ms:.3f} ms = "
+        f"{100 * eager_busy_ms / eager_ms:.1f}%); {tokens * 1e3 / eager_ms:.1f}"
+        f" -> {tokens * 1e3 / graph_ms:.1f} tokens/s; peak allocated / "
+        f"reserved eager {pe[0]:.2f} / {pe[1]:.2f} GB, compiled "
+        f"{pc[0]:.2f} / {pc[1]:.2f} GB; {stats['hold']}")
+    return eager_ms, graph_ms
+
+
+def two_layer_train_options(cfg):
+    """The train step's other options on a 2-layer bf16 copy of ``cfg``
+    (B = TRAIN_BATCH x TRAIN_SEQ, seeded weights): ``accum_steps=2`` run
+    eagerly twice and through the compiled step (its first call eager, then
+    the capture's replay) from one state (a snapshot on the card restored
+    before each), held by ``_held_by_eager``, its graph's kernel nodes
+    against the capture's counts (every kernel twice: two micro-batches);
+    then the einsum head (``fused_head=False``) with ``ce_chunks=4`` (1023
+    labels a row: 3 chunks) and with the full logits, each loss within
+    UNFUSED_REL of the fused head's (the same bf16 products, summed in
+    another order), the gradient norms and peak memory printed."""
+    import torch
+
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, global_norm
+    from repro_torch.parallel import build_train_step
+    from repro_torch.parallel.steps import train_step
+    from repro_torch.tree import leaves
+
+    t_setup = time.perf_counter()
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = LM(cfg2)
+    params = model.init(torch.Generator(device=model.device).manual_seed(5))
+    for p in leaves(params):
+        p.requires_grad_()
+    opt = AdamW()
+    state = opt.init(params)
+    batch = {"tokens": torch.from_numpy(SyntheticLMData(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=5).batch(0)).to(model.device)}
+    snap = [t.detach().clone() for t in leaves((params, state))]
+
+    def restore():
+        with torch.no_grad():
+            for t, c in zip(leaves((params, state)), snap, strict=True):
+                t.copy_(c)
+
+    t0 = time.perf_counter()
+    log(f"[train options] seconds: {t0 - t_setup:.1f} to draw the 2-layer "
+        "model and its batch")
+    eager = []
+    for _ in range(2):
+        restore()
+        _, _, loss, met = train_step(model, opt, params, state, batch,
+                                     accum_steps=2)
+        eager.append(([float(loss)], [float(met["grad_norm"])],
+                      _digest(params)))
+    restore()
+    step, info = build_train_step(model, opt, accum_steps=2)
+    if not info["cuda_graph"]:
+        fail("2-layer accum_steps=2: the train step is not compiled")
+    step(params, state, batch)
+    restore()
+    _, _, loss, met = step(params, state, batch)
+    hold = _held_by_eager("2-layer accum_steps=2", eager, (
+        [float(loss)], [float(met["grad_norm"])], _digest(params)))
+    check_graph_kernels("2-layer accum_steps=2 train step", step.counts)
+    log(f"[train options] {cfg.name} 2 layers accum_steps=2 (2 micro-"
+        f"batches of {TRAIN_BATCH // 2}x{TRAIN_SEQ}): loss {float(loss)!r}, "
+        f"gradient norm {float(met['grad_norm'])!r}; {hold}")
+    log(f"[train options] seconds: {time.perf_counter() - t0:.1f} for the "
+        "accumulation's eager and compiled steps")
+    del step, eager, snap, state
+
+    heads = {}
+    for name, m in (("fused", model),
+                    ("einsum ce_chunks=4", LM(cfg2, fused_head=False,
+                                              ce_chunks=4)),
+                    ("einsum", LM(cfg2, fused_head=False))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        loss, _ = m.loss(params, batch)
+        gn = float(global_norm(torch.autograd.grad(loss, leaves(params))))
+        torch.cuda.synchronize()
+        heads[name] = (float(loss.detach()), gn,
+                       torch.cuda.max_memory_allocated() / 1e9,
+                       (time.perf_counter() - t1) * 1e3)
+    ref = heads["fused"][0]
+    for name, (loss, gn, peak, ms) in heads.items():
+        if abs(loss - ref) > UNFUSED_REL * abs(ref):
+            fail(f"2-layer {name} head: loss {loss} differs from the fused "
+                 f"head's {ref} by more than {UNFUSED_REL} of it")
+        log(f"[train options] {cfg.name} 2 layers, {name} head: loss "
+            f"{loss!r} ({abs(loss - ref) / abs(ref):.2e} of the fused "
+            f"head's), gradient norm {gn!r}, peak allocated {peak:.2f} GB, "
+            f"loss and gradients {ms:.1f} ms")
+    del params
+    torch.cuda.empty_cache()
+
+
+def train_main_path(cfg):
+    """Drive ``TrainLoop`` on the full bf16 model (global batch 4, seq_len
+    1024, TRAIN_STEPS steps, no checkpoints: checkpoint_round_trip holds
+    them on 2 layers) through the compiled step, beside two eager runs
+    (``train_three_ways``). Returns (model, launch counts, stats, the
+    compiled loop's result)."""
     from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
 
     model = LM(cfg)
-    loop = train_mod.TrainLoop(model=model, global_batch=TRAIN_BATCH,
-                               seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
-                               log_every=1)
-    step_fn, step_ms = train_mod.train_step, []
 
-    def timed_step(*args):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = step_fn(*args)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        return res
+    def make_loop():
+        return train_mod.TrainLoop(model=model, global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, steps=TRAIN_STEPS,
+                                   log_every=1)
 
-    train_mod.train_step = timed_step
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        t0 = time.perf_counter()
-        out = loop.run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts()
-        bwd_routes = dict(lm_head_bwd.routes)
-        fwd_routes = dict(flash_attention_fwd.routes)
-        ce_routes = dict(lm_head_ce.routes)
-        fbwd_routes = dict(flash_bwd.routes)
-        delta_routes = dict(flash_delta.routes)
-    finally:
-        train_mod.train_step = step_fn
+    out, counts, routes, stats = train_three_ways(cfg.name, make_loop)
     hist = out["history"]
     if len(hist) != TRAIN_STEPS or out["final_step"] != TRAIN_STEPS:
         fail(f"training ran {len(hist)} steps to {out['final_step']}")
-    if not all(map(lambda v: v == v and abs(v) != float("inf"), hist)):
-        fail(f"non-finite training loss: {hist}")
     for name in TRAIN_KERNELS + ("rmsnorm", "flash_fwd"):
         if counts[name] <= 0:
             fail(f"kernel {name} never launched on the training path")
-    if bwd_routes != {"wgmma": counts["lm_head_bwd"], "simt": 0}:
-        fail(f"training path: CE backward routes {bwd_routes}; every bf16 "
-             "backward must take the tensor-core route")
-    check_tc_routes("training path: flash_fwd", fwd_routes, counts["flash_fwd"])
-    check_tc_routes("training path: CE forward", ce_routes,
+    if routes["lm_head_bwd"] != {"wgmma": counts["lm_head_bwd"], "simt": 0}:
+        fail(f"training path: CE backward routes {routes['lm_head_bwd']}; "
+             "every bf16 backward must take the tensor-core route")
+    check_tc_routes("training path: flash_fwd", routes["flash_fwd"],
+                    counts["flash_fwd"])
+    check_tc_routes("training path: CE forward", routes["lm_head_ce"],
                     counts["lm_head_ce"])
-    check_tc_routes("training path: flash_bwd", fbwd_routes,
+    check_tc_routes("training path: flash_bwd", routes["flash_bwd"],
                     counts["flash_bwd"])
-    if delta_routes != {"vec": counts["flash_delta"], "scalar": 0}:
-        fail(f"training path: flash_delta routes {delta_routes}; every "
-             "launch must take the 16-byte vector route")
-
-    steady = step_ms[1:]
-    stats = dict(wall_s=wall, history=hist, step_ms=step_ms,
+    if routes["flash_delta"] != {"vec": counts["flash_delta"], "scalar": 0}:
+        fail(f"training path: flash_delta routes {routes['flash_delta']}; "
+             "every launch must take the 16-byte vector route")
+    steady = stats["compiled"]["ms"][2:]
+    stats.update(history=hist, step_ms=stats["compiled"]["ms"],
                  tok_s=TRAIN_BATCH * TRAIN_SEQ * len(steady) / (
                      sum(steady) / 1e3),
-                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+                 peak_gb=max(p[0] for p in stats["compiled"]["peak"]))
     return model, counts, stats, out
 
 
+def remat_steps(cfg, params, opt_state, batch):
+    """One eager train step of the full model with each ``remat`` ("none"
+    twice: the yardstick) on one state, the AdamW learning rate 0 so that
+    the parameters stay as they are (the moments move; the step computes
+    all the same): peak allocated and reserved memory (the allocator's
+    cache emptied and the peaks reset before each), host ms to a
+    synchronize, the step's launch counts (a recomputed layer launches its
+    kernels again), and the loss and gradient norm, held by the two "none"
+    steps' difference (bit-equal where theirs is)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamW, WarmupCosine
+    from repro_torch.parallel.steps import train_step
+
+    opt = AdamW(schedule=WarmupCosine(peak_lr=0.0))
+    runs = []
+    for remat in ("none", "none", "full", "dots"):
+        model = LM(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, _, loss, met = train_step(model, opt, params, opt_state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs.append((remat, float(loss), float(met["grad_norm"]), ms,
+                     torch.cuda.max_memory_allocated() / 1e9,
+                     torch.cuda.max_memory_reserved() / 1e9,
+                     {k: v for k, v in launch_counts().items() if v}))
+    yard = max(abs(runs[0][1] - runs[1][1]), abs(runs[0][2] - runs[1][2]))
+    for remat, loss, gn, ms, pa, pr, cnt in runs:
+        d = max(abs(loss - runs[0][1]), abs(gn - runs[0][2]))
+        if d > yard:
+            fail(f"remat {remat}: loss {loss} / gradient norm {gn} differ "
+                 f"from none's by {d:.3e}, past none's run to run "
+                 f"{yard:.3e}")
+        log(f"[remat] {cfg.name} B={TRAIN_BATCH} S={TRAIN_SEQ} remat="
+            f"{remat}: one eager step {ms:.3f} ms, peak allocated / reserved"
+            f" {pa:.2f} / {pr:.2f} GB; loss {loss!r}, gradient norm {gn!r} "
+            f"(within none's run to run {yard:.3e}); launches {cnt}")
+    return runs
+
+
 def profile_train_step(model, params, opt_state):
-    """Where a train step's time goes: the host's enqueue time (until
-    ``train_step`` returns) against the step's, two steps on the host clock,
-    then one under ``torch.profiler`` (device-side events only)."""
+    """Where an eager train step's time goes (the device work the compiled
+    step replays): the host's enqueue time (until ``train_step`` returns)
+    against the step's for two steps, then one step under
+    ``torch.profiler`` (device-side events only). Returns (host ms, busy
+    ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1917,7 +2293,6 @@ def profile_train_step(model, params, opt_state):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / n
 
-    run(1)                                     # warm
     enq = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -1929,7 +2304,7 @@ def profile_train_step(model, params, opt_state):
     log("[profile train] host enqueue (train_step returns, before the "
         "synchronize) / step: " + "; ".join(f"{a:.3f} / {b:.3f} ms"
                                             for a, b in enq))
-    step_ms = run(2)
+    step_ms = sum(b for _, b in enq) / len(enq)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         prof_ms = run(1)
@@ -6061,10 +6436,10 @@ def small_wide_bwd_checks(dev):
 
 
 def _profile_wide_step(tag, model, params, opt_state, batch):
-    """One train step of the phase 18 model on the host clock (after a
-    warm one) and one under ``torch.profiler``: the device busy share and
-    the top device rows, flash_bwd's two kernels among them. Returns
-    (host ms, busy ms)."""
+    """One eager train step of the phase 18 model under
+    ``torch.profiler`` (the device work its compiled step replays): the
+    device busy time and the top device rows, flash_bwd's two kernels
+    among them. Returns busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -6072,25 +6447,17 @@ def _profile_wide_step(tag, model, params, opt_state, batch):
     from repro_torch.optim import AdamW
 
     opt = AdamW()
-
-    def run():
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         train_step(model, opt, params, opt_state, batch)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    run()                                          # warm
-    step_ms = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        prof_ms = run()
+        prof_ms = (time.perf_counter() - t0) * 1e3
     rows = device_rows(prof, 1)
     busy_ms = sum(r[0] for r in rows)
-    log(f"[profile {tag}] train step: host {step_ms:.3f} ms ({prof_ms:.3f} "
-        f"under the profiler); device busy {busy_ms:.3f} ms = "
-        f"{100 * busy_ms / step_ms:.1f}% of the unprofiled step, idle "
-        f"{100 * (1 - busy_ms / step_ms):.1f}%")
+    log(f"[profile {tag}] eager train step under the profiler: host "
+        f"{prof_ms:.3f} ms, device busy {busy_ms:.3f} ms")
     for ms, n, key in rows[:10]:
         log(f"[profile {tag}]   {ms:9.3f} ms  {n:5d} calls  {key[:90]}")
     for part in ("dq_tc_kernel", "dkv_tc_kernel"):
@@ -6098,7 +6465,7 @@ def _profile_wide_step(tag, model, params, opt_state, batch):
         n = sum(r[1] for r in rows if part in r[2] and "ValueOffsets" in r[2])
         log(f"[profile {tag}] flash_bwd {part}: {ms:.4f} ms in {n} launches "
             f"({100 * ms / busy_ms:.1f}% of the busy time)")
-    return step_ms, busy_ms
+    return busy_ms
 
 
 def wide_train_main_path():
@@ -6108,22 +6475,20 @@ def wide_train_main_path():
     embeddings + 512 tokens, the prefix-LM mask), deepseek_v2_lite at 4 of
     its 27 layers (1 dense + 3 MoE, every width as published; B = 4 x 512)
     and zamba2_7b at 7 of its 81 layers (one group of 6 mamba2 layers with
-    the shared block, a tail of 1; B = 2 x 512), WT_STEPS steps each.
-    Launch counts zeroed just before each run and read just after, each
-    exact: flash_fwd, flash_delta and flash_bwd once an attention layer a
-    step, flash_fwd and flash_bwd on their tensor-core routes every time,
-    flash_delta on its vector route; the CE head's forward and backward
-    once a step; ssm_scan once a mamba2 layer a step. Every loss and
-    gradient norm finite. Prints tokens/s, step ms, peak memory and one
-    profiled step's split."""
+    the shared block, a tail of 1; B = 2 x 512), WT_STEPS steps each,
+    through the compiled step beside two eager runs
+    (``train_three_ways``). Launch counts zeroed just before the compiled
+    run and read just after, each exact: flash_fwd, flash_delta and
+    flash_bwd once an attention layer a step, flash_fwd and flash_bwd on
+    their tensor-core routes every time, flash_delta on its vector route;
+    the CE head's forward and backward once a step; ssm_scan once a mamba2
+    layer a step. Every loss and gradient norm finite. Prints the
+    ``[train compiled]`` line, tokens/s, step ms, peak memory and one
+    profiled eager step's split."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
-    from repro_torch.kernels import launch_counts, reset_launches
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_bwd, flash_delta)
-    from repro_torch.kernels.lm_head import lm_head_bwd, lm_head_ce
     from repro_torch.launch import train as train_mod
     from repro_torch.models import LM
 
@@ -6131,64 +6496,40 @@ def wide_train_main_path():
     for arch, changes, batch, attn, mamba in WIDE_TRAIN:
         cfg = dataclasses.replace(get_config(arch), **changes)
         model = LM(cfg)
-        loop = train_mod.TrainLoop(model=model, global_batch=batch,
-                                   seq_len=WT_SEQ, steps=WT_STEPS,
-                                   log_every=1)
-        step_fn, step_ms, gnorms = train_mod.train_step, [], []
 
-        def timed_step(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = step_fn(*args)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t0) * 1e3)
-            gnorms.append(float(res[3]["grad_norm"]))
-            return res
+        def make_loop():
+            return train_mod.TrainLoop(model=model, global_batch=batch,
+                                       seq_len=WT_SEQ, steps=WT_STEPS,
+                                       log_every=1)
 
-        train_mod.train_step = timed_step
-        try:
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launches()
-            t0 = time.perf_counter()
-            out = loop.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = launch_counts()
-            routes = {w.__name__: dict(w.routes) for w in (
-                flash_attention_fwd, flash_bwd, flash_delta, lm_head_ce,
-                lm_head_bwd)}
-        finally:
-            train_mod.train_step = step_fn
         tag = f"{arch} {[(s_.kind, s_.n, s_.group) for s_ in model.program]}"
-        hist = out["history"]
+        out, counts, routes, stats = train_three_ways(tag, make_loop,
+                                                      eager_first=1)
+        hist, gnorms = out["history"], stats["compiled"]["gnorm"]
         if len(hist) != WT_STEPS:
             fail(f"{tag}: training ran {len(hist)} steps")
-        if not all(map(lambda x: x == x and abs(x) != float("inf"),
-                       hist + gnorms)):
-            fail(f"{tag}: non-finite loss or gradient norm: losses {hist}, "
-                 f"gradient norms {gnorms}")
         want = {"flash_fwd": attn * WT_STEPS, "flash_delta": attn * WT_STEPS,
                 "flash_bwd": attn * WT_STEPS, "lm_head_ce": WT_STEPS,
                 "lm_head_bwd": WT_STEPS, "ssm_scan": mamba * WT_STEPS}
         got = {k: counts[k] for k in want}
         if got != want:
             fail(f"{tag}: launch counts {got}, expected {want}")
-        check_tc_routes(f"{tag} training: flash_fwd",
-                        routes["flash_attention_fwd"], want["flash_fwd"])
+        check_tc_routes(f"{tag} training: flash_fwd", routes["flash_fwd"],
+                        want["flash_fwd"])
         check_tc_routes(f"{tag} training: flash_bwd", routes["flash_bwd"],
                         want["flash_bwd"])
         check_tc_routes(f"{tag} training: CE forward", routes["lm_head_ce"],
                         WT_STEPS)
         check_tc_routes(f"{tag} training: CE backward",
                         routes["lm_head_bwd"], WT_STEPS)
-        if routes["flash_delta"] != {"vec": want["flash_delta"], "scalar": 0}:
+        if routes["flash_delta"] != {"vec": want["flash_delta"],
+                                     "scalar": 0}:
             fail(f"{tag} training: flash_delta routes "
                  f"{routes['flash_delta']}, all on the vector route wanted")
         ntok = batch * WT_SEQ
-        steady = step_ms[1:]
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = stats["compiled"]["ms"]
+        steady = step_ms[2:]
+        peak = max(p[0] for p in stats["compiled"]["peak"])
         log(f"[train {arch}] {model.param_count(out['params'])} parameters; "
             f"kernels " + ", ".join(f"{k}={v}" for k, v in counts.items()
                                    if v) + " (each as expected)")
@@ -6196,19 +6537,20 @@ def wide_train_main_path():
         log(f"[train {arch}] {WT_STEPS} steps of {batch}x{WT_SEQ} tokens"
             + (f" + {cfg.num_prefix_embeddings} prefix embeddings"
                if cfg.frontend else "")
-            + f" in {wall:.3f}s wall (init included); step ms "
-            f"{[round(t_, 3) for t_ in step_ms]}; steps 2-{WT_STEPS}: "
-            f"{ntok * len(steady) / (sum(steady) / 1e3):.1f} tokens/s; peak "
-            f"device memory {peak:.2f} GB")
+            + f" in {stats['wall_s']:.3f}s wall (init included), compiled; "
+            f"step ms {[round(t_, 3) for t_ in step_ms]}; replays: "
+            f"{ntok * len(steady) / (sum(steady) / 1e3):.1f} tokens/s; "
+            f"peak device memory {peak:.2f} GB")
         bt = {"tokens": torch.from_numpy(SyntheticLMData(
             vocab_size=cfg.vocab_size, seq_len=WT_SEQ, global_batch=batch,
             seed=9).batch(0)).to(model.device)}
         if cfg.frontend:
             bt["prefix_embeddings"] = train_mod.prefix_embeddings(
                 9, 0, batch, cfg).to(model.device)
-        _profile_wide_step(arch, model, out["params"], out["opt"], bt)
+        busy = _profile_wide_step(arch, model, out["params"], out["opt"], bt)
+        log_train_compiled(arch, stats, ntok, busy)
         out_counts[arch] = counts
-        del model, out, loop, bt
+        del model, out, bt
         torch.cuda.empty_cache()
     return out_counts
 
@@ -6413,6 +6755,7 @@ def main():
     keep_graphs()
 
     from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
     from repro_torch.kernels import _build
     from repro_torch.models import LM
 
@@ -6510,14 +6853,19 @@ def main():
         f"{k}={tcounts[k]}" for k in TRAIN_KERNELS + ("rmsnorm", "flash_fwd")))
     log(f"[train] loss history {tstats['history']}")
     log(f"[train] {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens in "
-        f"{tstats['wall_s']:.3f}s wall (init included, no checkpoints); "
-        f"step ms {[round(t, 3) for t in tstats['step_ms']]}; steps 2-"
-        f"{TRAIN_STEPS}: {tstats['tok_s']:.1f} tokens/s; peak device "
-        f"memory {tstats['peak_gb']:.2f} GB")
+        f"{tstats['wall_s']:.3f}s wall (init included, no checkpoints), "
+        f"compiled; step ms {[round(t, 3) for t in tstats['step_ms']]}; "
+        f"replays: {tstats['tok_s']:.1f} tokens/s; peak device memory "
+        f"{tstats['peak_gb']:.2f} GB")
     counts.update({k: tcounts[k] for k in TRAIN_KERNELS})
 
-    # 7. where a train step's time goes
-    profile_train_step(model, out["params"], out["opt"])
+    # 7. where a train step's time goes: the eager step's profile, the
+    # compiled step against it, remat's peaks
+    _, busy_ms = profile_train_step(model, out["params"], out["opt"])
+    log_train_compiled(cfg.name, tstats, TRAIN_BATCH * TRAIN_SEQ, busy_ms)
+    remat_steps(cfg, out["params"], out["opt"], {"tokens": torch.from_numpy(
+        SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, seed=9).batch(0)).to(dev)})
     embed = out["params"]["embed"].detach()
     del out
 
@@ -6530,6 +6878,7 @@ def main():
     log(f"[train] checkpoints of a 2-layer model (3 steps, saved at 2 and "
         f"3): the latest restored bit-equal in "
         f"{checkpoint_round_trip(cfg):.1f}s")
+    two_layer_train_options(cfg)
     elapsed("phase 6-8 training")
 
     # 9. the apps path: FD, SEM and DG at full size through their entry

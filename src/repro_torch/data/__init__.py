@@ -1,3 +1,3 @@
-from .pipeline import Prefetcher, SyntheticLMData
+from .pipeline import Prefetcher, SyntheticLMData, TextLMData, make_corpus
 
-__all__ = ["SyntheticLMData", "Prefetcher"]
+__all__ = ["SyntheticLMData", "TextLMData", "Prefetcher", "make_corpus"]

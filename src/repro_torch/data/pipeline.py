@@ -1,7 +1,7 @@
-"""Deterministic, host-sharded synthetic token data with background
-prefetch: ``SyntheticLMData`` and ``Prefetcher`` copied from
-``repro.data.pipeline`` (numpy and threads only; the byte-level corpus
-pipeline is not ported).
+"""Deterministic, host-sharded token data with background prefetch:
+``SyntheticLMData``, the byte-level ``TextLMData`` over a generated
+corpus (``make_corpus``) and ``Prefetcher``, copied from
+``repro.data.pipeline`` (numpy and threads only).
 
 Batches are a pure function of (seed, step, host) through counter-based
 Philox bits, so the port's batches are bit-equal to the JAX package's and
@@ -15,7 +15,7 @@ import threading
 
 import numpy as np
 
-__all__ = ["SyntheticLMData", "Prefetcher"]
+__all__ = ["SyntheticLMData", "TextLMData", "Prefetcher", "make_corpus"]
 
 
 class SyntheticLMData:
@@ -49,6 +49,42 @@ class SyntheticLMData:
             toks[:, t] = np.where(follow[:, t], nxt, rand[:, t])
         return toks
 
+
+def make_corpus(n_chars: int = 200_000, seed: int = 0) -> bytes:
+    """Generates a word-like synthetic corpus (for the byte-level pipeline)."""
+    rs = np.random.RandomState(seed)
+    words = ["occa", "kernel", "device", "memory", "mesh", "pallas", "tile",
+             "lattice", "shard", "stream", "barrier", "vector", "tensor",
+             "spectral", "galerkin", "stencil", "roofline", "pipeline"]
+    out = []
+    size = 0
+    while size < n_chars:
+        w = words[rs.randint(len(words))]
+        out.append(w)
+        size += len(w) + 1
+    return (" ".join(out)).encode()[:n_chars]
+
+
+class TextLMData:
+    """Byte-level windows over a corpus, deterministic per (seed, step, host)."""
+
+    def __init__(self, corpus: bytes, *, seq_len: int, global_batch: int,
+                 seed: int = 0, num_hosts: int = 1, host_id: int = 0):
+        assert global_batch % num_hosts == 0
+        self.data = np.frombuffer(corpus, np.uint8)
+        self.seq = seq_len
+        self.local_batch = global_batch // num_hosts
+        self.seed = seed
+        self.host_id = host_id
+        self.vocab = 256
+
+    def batch(self, step: int) -> np.ndarray:
+        bits = np.random.Generator(np.random.Philox(
+            key=[self.seed * 2654435761 + self.host_id, 2 ** 32 + step]))
+        starts = bits.integers(0, len(self.data) - self.seq - 1,
+                               self.local_batch)
+        return np.stack([self.data[s:s + self.seq]
+                         for s in starts]).astype(np.int32)
 
 
 class Prefetcher:

@@ -1,17 +1,20 @@
 """Fault-tolerant training on one device (the counterpart of
 ``repro.launch.train`` without a mesh).
 
-Integrates: the eager train step (``LM.loss`` -> ``torch.autograd.grad``
--> ``AdamW.update``), deterministic synthetic data with prefetch (and,
-for a model with a frontend stub, its prefix embeddings, drawn for each
-data step as the JAX loop draws them), async atomic checkpointing +
-resume, the straggler watchdog, and failure
-injection with automatic restore-retry. Autotune adoption, rematerializing
-layers, gradient accumulation and sharded (zero1/fsdp) optimizer state are
-not ported yet.
+Integrates: the train step of ``parallel.build_train_step`` (``LM.loss``
+-> ``torch.autograd.grad`` -> ``AdamW.update``; one CUDA graph a step on
+the card after the first, :func:`train_step` eagerly on the CPU),
+deterministic synthetic data with prefetch (and, for a model with a
+frontend stub, its prefix embeddings, drawn for each data step as the JAX
+loop draws them), async atomic checkpointing + resume, the straggler
+watchdog, and failure injection with automatic restore-retry. The model's
+``remat`` option (``--remat``) rematerialises its layers; gradient
+accumulation is ``build_train_step``'s ``accum_steps`` (the loop, as
+JAX's, steps whole batches). Autotune adoption and sharded (zero1/fsdp)
+optimizer state are not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
-      --steps 3
+      --steps 3 [--remat dots]
 """
 
 from __future__ import annotations
@@ -30,8 +33,9 @@ from repro_torch.data import Prefetcher, SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.optim import AdamW, WarmupCosine
+from repro_torch.parallel.steps import build_train_step, train_step
 from repro_torch.runtime import ChaosError, FailureInjector, StepWatchdog
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["TrainLoop", "main", "prefix_embeddings", "train_step",
            "validate_host_batch"]
@@ -65,17 +69,16 @@ def prefix_embeddings(seed: int, step: int, global_batch: int, cfg):
     return torch.from_numpy(x).to(getattr(torch, cfg.dtype))
 
 
-def train_step(model: LM, optimizer: AdamW, params, opt_state, batch):
-    """One step: (params, opt_state, loss, metrics); params and the
-    optimizer state are updated in place."""
-    loss, metrics = model.loss(params, batch)
-    grads = unflatten(params, torch.autograd.grad(loss, leaves(params)))
-    params, opt_state, opt_metrics = optimizer.update(grads, opt_state, params)
-    return params, opt_state, loss.detach(), dict(metrics, **opt_metrics)
-
-
 def _trainable(params):
     return tree_map(lambda p: p.detach().requires_grad_(), params)
+
+
+def _assign(dst, src):
+    """Copy every leaf of ``src`` into the matching leaf of ``dst`` in
+    place."""
+    with torch.no_grad():
+        for a, b in zip(leaves(dst), leaves(src), strict=True):
+            a.copy_(b)
 
 
 def _param_template(model: LM):
@@ -88,7 +91,17 @@ def _param_template(model: LM):
 
 @dataclasses.dataclass
 class TrainLoop:
-    """Restartable training loop with recovery; returns loss history."""
+    """Restartable training loop with recovery; returns loss history.
+
+    It trains through ``build_train_step``, as JAX's loop does: on the card
+    one CUDA graph a step, which holds the addresses of the (params,
+    optimizer state) of its first call. So a restore after a failure (from
+    the latest checkpoint, or the fresh initial state without one) copies
+    the restored values into those leaves in place, and the same step
+    replays on; the checkpoint snapshot is copied to the host before it is
+    written, so an in-place step cannot tear a save. A restore first waits
+    for a save still being written, so it resumes from the latest step
+    saved, whatever the writer's speed."""
 
     model: LM
     global_batch: int
@@ -113,6 +126,7 @@ class TrainLoop:
         optimizer = AdamW(schedule=WarmupCosine(
             peak_lr=self.peak_lr, warmup_steps=max(self.steps // 20, 5),
             total_steps=self.steps))
+        step_fn, _ = build_train_step(model, optimizer)
         data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=self.seq_len,
                                global_batch=self.global_batch, seed=self.seed)
         mgr = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
@@ -153,8 +167,8 @@ class TrainLoop:
                         batch["prefix_embeddings"] = prefix_embeddings(
                             self.seed, dstep, self.global_batch, cfg).to(dev)
                     watchdog.start()
-                    params, opt_state, loss, metrics = train_step(
-                        model, optimizer, params, opt_state, batch)
+                    params, opt_state, loss, metrics = step_fn(
+                        params, opt_state, batch)
                     loss = float(loss)
                     watchdog.stop()
                     history.append(loss)
@@ -174,10 +188,14 @@ class TrainLoop:
                     if retries > self.max_retries:
                         raise
                     prefetch.close()
+                    if mgr:
+                        mgr.wait()      # a save still in flight is the latest
                     if mgr and mgr.latest_step() is not None:
-                        params, opt_state, step = restore_state()
+                        new_params, new_opt, step = restore_state()
                     else:
-                        params, opt_state, step = fresh_state()
+                        new_params, new_opt, step = fresh_state()
+                    _assign((params, opt_state), (new_params, new_opt))
+                    del new_params, new_opt
                     prefetch = Prefetcher(data, start_step=step)
             if mgr:
                 mgr.save(self.steps, (params, opt_state), async_=False,
@@ -200,6 +218,7 @@ def main(argv=None):
     ap.add_argument("--peak-lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--remat", default="none", choices=["none", "full", "dots"])
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch versions)")
@@ -208,7 +227,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
-    model = LM(cfg, device=args.device)
+    model = LM(cfg, device=args.device, remat=args.remat)
     injector = FailureInjector(args.fail_at) if args.fail_at else None
     loop = TrainLoop(model=model, global_batch=args.global_batch,
                      seq_len=args.seq_len, steps=args.steps,

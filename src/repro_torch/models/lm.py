@@ -26,7 +26,11 @@ the CPU through their plain versions.
 Training (``loss``) differentiates through the same wrappers: rmsnorm,
 flash attention and the fused CE head are ``torch.autograd.Function``s on
 both devices, and gradients come from ``torch.autograd.grad`` over the
-parameter tree's leaves.
+parameter tree's leaves. ``LM(remat=, ce_chunks=, fused_head=)`` are JAX's
+options: rematerialised layers (``torch.utils.checkpoint``), the einsum
+head with its pad mask in place of the fused LM-head kernels, and the CE
+over sequence chunks with rematerialised logits. A whole train step runs
+as one CUDA graph on the card through ``parallel.build_train_step``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import functools
 import math
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
@@ -132,6 +138,22 @@ def _capturing(t) -> bool:
     return t.is_cuda and torch.cuda.is_current_stream_capturing()
 
 
+# remat="dots": the outputs of 2-D products (the projections' matmuls) are
+# kept, everything else (batched products such as the experts' einsums, the
+# hand-written kernels, elementwise work) is recomputed in the backward: the
+# counterpart of JAX's ``dots_with_no_batch_dims_saveable``
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _zeros(lead, single, device):
     """A stacked cache of ``single``'s (meta) leaves with leading axes
     ``lead``: zeros, except a rolling window's slot positions, -1."""
@@ -143,17 +165,46 @@ def _zeros(lead, single, device):
 
 
 class LM:
+    """The decoder LM of ``cfg`` on ``device`` (the card unless "cpu").
+
+    - ``moe_dispatch``: "einsum" (JAX's default) or "gather" for MoE
+      layers.
+    - ``remat``: "none", "full" (each layer, or each zamba group with its
+      shared block, recomputed in the backward) or "dots" (only the 2-D
+      products' outputs kept), as JAX's; it changes what is kept and what
+      is launched twice, never a value.
+    - ``fused_head``: True routes the head through the LM-head kernels
+      (``lm_head_ce`` for the loss, ``lm_head_logits`` with its argmax for
+      logits and greedy steps); False is JAX's einsum head, an f32 product
+      plus a -1e30 mask on the padded vocab, differentiable.
+    - ``ce_chunks``: with the einsum head, the loss's CE over this many
+      sequence chunks (reduced until it divides the sequence), each
+      chunk's logits recomputed in the backward.
+
+    JAX's ``scan_layers`` (the dry run's unrolled cost model) and
+    ``head_backend`` (the kernel language's expansion) have no counterpart
+    here: the layer loop is always Python's and the head's kernels are the
+    hand-written ones."""
+
     def __init__(self, cfg: ArchConfig, *, device=None,
-                 moe_dispatch: str = "einsum"):
+                 moe_dispatch: str = "einsum", remat: str = "none",
+                 ce_chunks: int = 1, fused_head: bool = True):
         if moe_dispatch not in ("einsum", "gather"):
             raise ValueError(f"moe_dispatch must be einsum|gather, got "
                              f"{moe_dispatch!r}")
+        if remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be none|full|dots, got {remat!r}")
+        if ce_chunks < 1:
+            raise ValueError(f"ce_chunks must be >= 1, got {ce_chunks}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self.program = build_program(cfg)
         self.vpad = pad_vocab(cfg.vocab_size)
         self.moe_dispatch = moe_dispatch
+        self.remat = remat
+        self.ce_chunks = ce_chunks
+        self.fused_head = fused_head
         # gemma's sqrt(d_model), rounded to the embedding's dtype first as
         # JAX rounds a Python scalar against a bf16 array (45.25 at d 2048);
         # the product is then rounded once, as JAX's bf16 multiply does
@@ -244,43 +295,80 @@ class LM:
                 else params["head"])
 
     def _logits(self, params, x):
+        """(B, S, Vpad) f32 logits of the hidden states ``x``: the fused
+        LM-head kernel, or with ``fused_head=False`` JAX's einsum head, the
+        product in f32 (of the operands' values: bf16 products are exact in
+        f32) with the padded vocab masked to -1e30, differentiable."""
         b, s, d = x.shape
-        logits = lm_head_logits(x.reshape(b * s, d),
-                                self._head(params).to(x.dtype),
+        head = self._head(params)
+        if not self.fused_head:
+            logits = torch.matmul(x.float(), head.float())
+            pad = torch.arange(self.vpad, device=x.device) >= \
+                self.cfg.vocab_size
+            return logits + torch.where(pad, -1e30, 0.0)
+        logits = lm_head_logits(x.reshape(b * s, d), head.to(x.dtype),
                                 vocab=self.cfg.vocab_size)
         return logits.reshape(b, s, self.vpad)
 
     # ------------------------------------------------------------- training
+    def _wrap_remat(self, body):
+        """``body`` as the unit ``remat`` recomputes in the backward: itself
+        with "none", else a non-reentrant checkpoint of it (with "dots" a
+        selective one that keeps the 2-D products' outputs). The model
+        draws no random numbers, so no RNG state is kept (nor read, which
+        a CUDA graph's capture would refuse)."""
+        if self.remat == "none":
+            return body
+        kw = {"context_fn": _dots_context} if self.remat == "dots" else {}
+
+        def unit(*args):
+            return checkpoint(body, *args, use_reentrant=False,
+                              preserve_rng_state=False, **kw)
+        return unit
+
+    def _stack_body(self, params, spec, prefix_len):
+        """``body(x, layer_params) -> (x, aux or None)`` for one unit of a
+        stack of ``spec``, the unit JAX's scan body holds: a layer, or a
+        zamba group (its mamba2 layers, then the shared block)."""
+        cfg = self.cfg
+        if spec.kind == "zamba_group":
+            def body(x, gp):
+                for lp in _unstack(gp, spec.group):
+                    x = blocks.mamba_block_forward(lp, x, cfg)
+                return blocks.tblock_forward(params["shared_attn"], x, cfg)
+        elif spec.kind in _MAMBA:
+            def body(x, lp):
+                return blocks.mamba_block_forward(lp, x, cfg), None
+        else:
+            def body(x, lp):
+                return blocks.tblock_forward(lp, x, cfg,
+                                             prefix_len=prefix_len,
+                                             **self._block_kw(spec))
+        return body
+
     def _hidden_states(self, params, tokens, prefix_embeddings=None):
         """Embed -> layer stacks -> final norm: the shared forward trunk.
         Returns (hidden (B, P + S, d), aux (2,) f32): the MoE layers'
         [moe_lb_loss, moe_z_loss] summed over the layers (zero without
-        MoE layers)."""
+        MoE layers). The aux losses leave each rematerialised unit as its
+        outputs, as in JAX."""
         cfg = self.cfg
         x = self._embed(params, tokens, prefix_embeddings)
         prefix_len = self._prefix_len(prefix_embeddings)
         aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
         for spec, sp in zip(self.program, params["stacks"]):
-            if spec.kind == "zamba_group":
-                for gp in _unstack(sp, spec.n):
-                    for lp in _unstack(gp, spec.group):
-                        x = blocks.mamba_block_forward(lp, x, cfg)
-                    x, a = blocks.tblock_forward(params["shared_attn"], x,
-                                                 cfg)
-                    aux = aux + a
-                continue
+            body = self._wrap_remat(self._stack_body(params, spec,
+                                                     prefix_len))
             for lp in _unstack(sp, spec.n):
-                if spec.kind in _MAMBA:
-                    x = blocks.mamba_block_forward(lp, x, cfg)
-                    continue
-                x, a = blocks.tblock_forward(lp, x, cfg, prefix_len=prefix_len,
-                                             **self._block_kw(spec))
-                aux = aux + a
+                x, a = body(x, lp)
+                if a is not None:
+                    aux = aux + a
         return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), aux
 
     def forward(self, params, tokens, prefix_embeddings=None):
         """Full-sequence forward: (logits (B, P + S, Vpad) f32, aux). The
-        LM-head kernel has no backward, so the logits carry no gradient."""
+        LM-head kernel has no backward, so the logits carry no gradient
+        (``loss`` differentiates either head)."""
         x, aux = self._hidden_states(params, tokens, prefix_embeddings)
         with torch.no_grad():
             return self._logits(params, x), aux
@@ -295,11 +383,38 @@ class LM:
                          vocab=self.cfg.vocab_size)
         return nll.mean()
 
+    def _nll_sum(self, params, x, labels):
+        """Summed NLL of ``labels`` under the einsum head's logits of
+        ``x``."""
+        logits = self._logits(params, x)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        return torch.sum(logz - gold)
+
+    def _ce_from_hidden(self, params, x, labels):
+        """Mean NLL of the einsum head over ``ce_chunks`` sequence chunks
+        (reduced until it divides S), each chunk's (B, S / k, Vpad) logits
+        recomputed in the backward, so no full-sequence logits stay live:
+        JAX's ``_ce_from_hidden``."""
+        b, s, _ = x.shape
+        k = self.ce_chunks
+        while s % k:
+            k -= 1
+        total = 0.0
+        for xc, lc in zip(x.chunk(k, dim=1), labels.chunk(k, dim=1)):
+            total = total + checkpoint(
+                functools.partial(self._nll_sum, params), xc, lc,
+                use_reentrant=False, preserve_rng_state=False)
+        return total / (b * s)
+
     def _check_labels(self, labels):
         """Labels >= vocab_size index padded-vocab columns, which the kernel
         excludes, so training would silently optimize against nothing.
-        Raise on the host (one read of the labels' min and max)."""
-        if labels.numel() == 0:
+        Raise on the host (one read of the labels' min and max), except
+        while the labels' stream is captured into a CUDA graph (nothing
+        runs then; JAX likewise skips traced labels): the train loop checks
+        each host batch before it is copied in."""
+        if labels.numel() == 0 or _capturing(labels):
             return
         lo, hi = int(labels.min()), int(labels.max())
         if lo < 0 or hi >= self.cfg.vocab_size:
@@ -320,7 +435,12 @@ class LM:
         self._check_labels(labels)
         x, aux = self._hidden_states(params, tokens, prefix)
         pred_x = x[:, p:-1] if x.shape[1] > p + 1 else x[:, p:]
-        ce = self._fused_ce(params, pred_x, labels)
+        if self.fused_head:
+            ce = self._fused_ce(params, pred_x, labels)
+        elif self.ce_chunks > 1:
+            ce = self._ce_from_hidden(params, pred_x, labels)
+        else:
+            ce = self._nll_sum(params, pred_x, labels) / labels.numel()
         lb, z = aux[0], aux[1]
         nl = max(sum(s.n * max(s.group, 1) for s in self.program), 1)
         total = ce + (0.02 * lb + 1e-3 * z) / nl
@@ -486,10 +606,13 @@ class LM:
         return self._logits(params, x)[:, 0], cache
 
     def greedy_step(self, params, tokens, cache):
-        """One greedy decode step: tokens (B, 1) -> (next (B,) i32, logits
+        """One greedy decode step: tokens (B, 1) -> (next (B,), logits
         (B, Vpad) f32, cache); the argmax comes out of the fused LM-head
-        pass."""
+        pass, or with ``fused_head=False`` from ``greedy_token``."""
         x, cache = self._decode_hidden(params, tokens, cache)
+        if not self.fused_head:
+            logits = self._logits(params, x)[:, 0]
+            return self.greedy_token(logits), logits, cache
         b, _, d = x.shape
         logits, _m, arg = lm_head_logits.raw(
             x.reshape(b, d), self._head(params).to(x.dtype),
@@ -571,9 +694,13 @@ class LM:
 
     def paged_greedy_step(self, params, tokens, cache):
         """One paged greedy token for every slot. tokens: (B, 1). Returns
-        (next (B,) i32, logits (B, Vpad) f32, cache); the argmax comes out of
-        the fused LM-head pass."""
+        (next (B,), logits (B, Vpad) f32, cache); the argmax comes out of
+        the fused LM-head pass, or with ``fused_head=False`` from
+        ``greedy_token``."""
         x, cache = self._paged_decode_hidden(params, tokens, cache)
+        if not self.fused_head:
+            logits = self._logits(params, x)[:, 0]
+            return self.greedy_token(logits), logits, cache
         b, _, d = x.shape
         logits, _m, arg = lm_head_logits.raw(
             x.reshape(b, d), self._head(params).to(x.dtype),

@@ -5,8 +5,12 @@ The arithmetic is the JAX package's: the learning rate at ``step + 1``,
 bias corrections in f32, one global norm over all leaves for the clip,
 weight decay on every leaf, f32 moments, and the update computed in f32
 and cast back to each parameter's dtype. Unlike JAX, ``update`` writes the
-new parameters and moments into their own storage (in place) instead of
-returning new trees, which saves a copy of each at full size.
+new parameters, moments and step count into their own storage (in place)
+instead of returning new trees, which saves a copy of each at full size
+and lets a CUDA graph replay the update (``parallel.build_train_step``):
+the state's ``"step"`` stays one 0-dim int32 device tensor, and the
+learning rate, bias corrections and clip are derived from it on the
+device.
 """
 
 from __future__ import annotations
@@ -62,9 +66,11 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state, params):
-        """One step; params, m and v are updated IN PLACE. Returns (params,
-        state, {"grad_norm", "lr"}) like the JAX optimizer."""
-        step = state["step"] + 1
+        """One step; params, m, v and the step count are updated IN PLACE.
+        Returns (params, state, {"grad_norm", "lr"}) like the JAX
+        optimizer, ``params`` and ``state`` the objects passed in."""
+        step = state["step"]
+        step.add_(1)
         gnorm = global_norm(grads)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         lr = self.schedule(step)
@@ -80,5 +86,4 @@ class AdamW:
             delta = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) \
                 + self.weight_decay * p.float()
             p.copy_((p.float() - lr * delta).to(p.dtype))
-        return params, {"m": state["m"], "v": state["v"], "step": step}, \
-            {"grad_norm": gnorm, "lr": lr}
+        return params, state, {"grad_norm": gnorm, "lr": lr}

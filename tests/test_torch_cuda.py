@@ -49,8 +49,12 @@ from repro_torch.kernels.ssm_scan import (selective_scan_ref, ssm_scan,
 from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.serve import generate
 from repro_torch.models import LM, tree_to
-from repro_torch.parallel import GraphStep, build_serve_step
+from repro_torch.optim import AdamW, WarmupCosine
+from repro_torch.parallel import (GraphStep, TrainGraphStep, build_serve_step,
+                                  build_train_step)
+from repro_torch.parallel.steps import train_step
 from repro_torch.serving import Engine
+from repro_torch.tree import leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -2277,3 +2281,204 @@ def test_compiled_sampling_engine_equals_eager(dev):
     assert isinstance(eng._step, GraphStep) and eng._step.captures == 1
     assert runs[1] == runs[0]
     assert [len(t) for t in runs[1][0]] == [g for _, g in traffic]
+
+
+# ---------------------------------------------------------------------------
+# the compiled train step: a CUDA graph's replays against eager steps
+# ---------------------------------------------------------------------------
+
+TRAIN_PROGRAMS = [("llama3_2_1b", "float32"), ("llama3_2_1b", "bfloat16"),
+                  ("zamba2_7b", "float32"), ("paligemma_3b", "float32")]
+
+
+def _train_state(dev, arch, dtype, seed=21, **kw):
+    """(model, trainable params, AdamW, its state) on reduced ``arch`` in
+    ``dtype`` with the LM options ``kw``."""
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype=dtype)
+    model = LM(cfg, device=dev, **kw)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    for p in leaves(params):
+        p.requires_grad_()
+    opt = AdamW(schedule=WarmupCosine(peak_lr=3e-3, warmup_steps=2,
+                                      total_steps=6))
+    return model, params, opt, opt.init(params)
+
+
+def _train_batches(model, n, b=4, s=32, seed=22):
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        bt = {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, (b, s)), device=dev)}
+        if cfg.frontend:
+            bt["prefix_embeddings"] = torch.as_tensor(rng.standard_normal(
+                (b, cfg.num_prefix_embeddings, cfg.d_model)),
+                dtype=getattr(torch, cfg.dtype), device=dev)
+        out.append(bt)
+    return out
+
+
+def _train_run(dev, arch, dtype, step_of, nsteps, **kw):
+    """``nsteps`` train steps from the seeded state through ``step_of(model,
+    opt)``: (losses, gradient norms, final params, launch counts, route
+    counts, the step)."""
+    model, params, opt, state = _train_state(dev, arch, dtype, **kw)
+    step = step_of(model, opt)
+    reset_launches()
+    losses, norms = [], []
+    for bt in _train_batches(model, nsteps):
+        _, _, loss, met = step(params, state, bt)
+        losses.append(float(loss))
+        norms.append(float(met["grad_norm"]))
+    torch.cuda.synchronize()
+    return (losses, norms, [p.detach() for p in leaves(params)],
+            launch_counts(), _route_counts(), step)
+
+
+def _assert_held_by_eager(e1, e2, c):
+    """Compiled ``c`` against two eager runs ``e1``, ``e2`` from one state:
+    bit-equal where the eager runs are, else each difference within theirs
+    (the yardstick of run-to-run nondeterminism)."""
+    def diff(x, y):
+        d = max(abs(u - v) for u, v in zip(x[0] + x[1], y[0] + y[1]))
+        p = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(x[2], y[2]))
+        return d, p
+
+    yard = diff(e1, e2)
+    got = min(diff(c, e1), diff(c, e2))
+    if yard == (0.0, 0.0):
+        assert got == (0.0, 0.0), got
+        for a, b in zip(c[2], e1[2]):
+            assert torch.equal(a, b)
+    else:
+        assert got[0] <= yard[0] and got[1] <= yard[1], (got, yard)
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("arch,dtype", TRAIN_PROGRAMS,
+                         ids=["llama_f32", "llama_bf16", "zamba2", "paligemma"])
+def test_compiled_train_step_equals_eager(dev, arch, dtype, accum, remat):
+    """Five steps through ``build_train_step`` (one eager, one capture, four
+    replays) against five eager ``train_step``s, twice, from the same
+    state: the losses, gradient norms and parameters within the eager runs'
+    own difference (bit-equal where they are), the launch and route counts
+    equal (remat's recomputed kernels counted in both)."""
+    def eager(model, opt):
+        return lambda p, s, b: train_step(model, opt, p, s, b,
+                                          accum_steps=accum)
+
+    def compiled(model, opt):
+        step, info = build_train_step(model, opt, accum_steps=accum)
+        assert info == {"accum_steps": accum, "cuda_graph": True}
+        return step
+
+    runs = [_train_run(dev, arch, dtype, fn, 5, remat=remat)
+            for fn in (eager, eager, compiled)]
+    _assert_held_by_eager(*[r[:3] for r in runs])
+    assert runs[2][3] == runs[0][3] and runs[2][4] == runs[0][4]
+    step = runs[2][5]
+    assert isinstance(step, TrainGraphStep) and step.captures == 1
+    assert all(np.isfinite(runs[2][0]))
+
+
+def test_compiled_train_step_refuses_another_pair(dev):
+    """The step serves the (params, opt_state) of its first call: another
+    params or optimizer state object, or a batch of another shape, raises
+    and runs nothing; the first pair still replays."""
+    model, params, opt, state = _train_state(dev, "llama3_2_1b", "float32")
+    step, _ = build_train_step(model, opt)
+    bts = _train_batches(model, 3)
+    for bt in bts[:2]:
+        step(params, state, bt)
+    other_p = tree_map(lambda p: p.detach().clone().requires_grad_(), params)
+    for p, s in ((other_p, state), (params, opt.init(params))):
+        with pytest.raises(ValueError, match="first call"):
+            step(p, s, bts[2])
+    with pytest.raises(ValueError, match="captured for"):
+        step(params, state, {"tokens": bts[2]["tokens"][:2]})
+    assert int(state["step"]) == 2
+    step(params, state, bts[2])
+    assert int(state["step"]) == 3 and step.captures == 1
+
+
+def test_compiled_trainloop_restore_continues_eager_history(dev, tmp_path,
+                                                            monkeypatch):
+    """``TrainLoop`` through the compiled step with a failure at step 3:
+    the checkpoint of step 2 is copied into the step's leaves in place and
+    the replays go on; the history and the final parameters are the eager
+    loop's (the same failure, ``train_step`` eagerly) within the eager
+    loops' own difference."""
+    from repro_torch.launch import train as train_mod
+    from repro_torch.runtime import FailureInjector
+
+    cfg = dataclasses.replace(reduced(get_config("llama3_2_1b")),
+                              dtype="bfloat16")
+    real = train_mod.build_train_step
+    steps = []
+
+    def build(model, optimizer, eager):
+        step, info = real(model, optimizer)
+        steps.append(step)
+        if eager:
+            return (lambda p, s, b: train_step(model, optimizer, p, s, b),
+                    info)
+        return step, info
+
+    runs = []
+    for i, eager in enumerate((True, True, False)):
+        monkeypatch.setattr(train_mod, "build_train_step",
+                            lambda m, o, e=eager: build(m, o, e))
+        out = train_mod.TrainLoop(
+            model=LM(cfg, device=dev), global_batch=4, seq_len=32, steps=6,
+            ckpt_dir=str(tmp_path / str(i)), ckpt_every=2, verbose=False,
+            injector=FailureInjector([3])).run()
+        runs.append((out["history"], [], [p.detach() for p in
+                                          leaves(out["params"])]))
+    assert len(runs[2][0]) == 7
+    _assert_held_by_eager(*runs)
+    assert isinstance(steps[2], TrainGraphStep) and steps[2].captures == 1
+
+
+def test_compiled_train_graph_holds_the_backward_kernels(dev, monkeypatch):
+    """The captured graph of a bf16 train step holds, as kernel nodes, each
+    hand-written kernel as often as the capture counted its wrapper: the
+    forward's (rmsnorm, flash_fwd, the CE head) and the backward's
+    (flash_delta, flash_bwd's dq kernel, the CE backward's first product)."""
+    import re
+    import tempfile
+
+    from repro_torch.parallel import steps as steps_mod
+
+    graphs = []
+
+    def capture(fn):
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            out = fn()
+        graph.instantiate()
+        graphs.append(graph)
+        return graph.replay, out
+
+    monkeypatch.setattr(steps_mod, "capture", capture)
+    model, params, opt, state = _train_state(dev, "llama3_2_1b", "bfloat16")
+    step, _ = build_train_step(model, opt)
+    for bt in _train_batches(model, 3):
+        step(params, state, bt)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/g.dot"
+        graphs[0].debug_dump(path)
+        names = re.findall(r"ID \| \d+ \(topoId: \d+\) \| ([^\s|}]+)",
+                           open(path).read())
+    kernels = {"rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_elem_kernel"),
+               "flash_fwd": ("fwd_tc_kernel",),
+               "flash_delta": ("delta_vec_kernel",),
+               "flash_bwd": ("dq_tc_kernel",),
+               "lm_head_ce": ("ce_merge_kernel",),
+               "lm_head_bwd": ("DlEpi",)}
+    seen = {k: sum(any(key in n for key in keys) for n in names)
+            for k, keys in kernels.items()}
+    assert seen == {k: n for k, (n, _) in step.counts.items()}
+    assert seen["flash_bwd"] == seen["flash_fwd"] == model.cfg.n_layers
