@@ -336,8 +336,33 @@ RING_KERNELS = ("ring_flash_fwd", "ring_flash_bwd", "matmul")
 # operator on 32^3 elements of N = 7 (each apply timed over SEM_REPEATS
 # calls), the DG solver on 2 x 256^2 triangles of N = 5 (100 LSERK steps)
 FD_SIZE, FD_RADIUS, FD_STEPS = 8192, 4, 200
-SEM_ELEMS, SEM_N, SEM_REPEATS = 32, 7, 5
+SEM_ELEMS, SEM_N, SEM_REPEATS, SEM_SOLVE_ELEMS = 32, 7, 5, 8
 DG_NX, DG_N, DG_STEPS = 256, 5, 100
+# autotuning: REPRO_CACHE_DIR is a fresh directory of this run, so every
+# phase before 9a runs on the ops' rules and defaults. Phase 9a tunes the
+# apps at the apps path's shapes (FD 8192^2 radius 4, SEM 32^3 and the
+# PCG's 8^3 at N = 7, DG 2 x 256^2 at N = 5), phase 19 the ops of a
+# granite_3_8b engine (8 slots, max_len 2048)
+APPS_TUNE_ARGV = ["--apps", "--fd-size", str(FD_SIZE), "--fd-radius",
+                  str(FD_RADIUS), "--sem-elems", str(SEM_ELEMS),
+                  str(SEM_SOLVE_ELEMS), "--sem-n", str(SEM_N), "--dg-nx",
+                  str(DG_NX), "--dg-n", str(DG_N)]
+GRANITE_SLOTS, GRANITE_MAX_LEN = 8, 2048
+# the decode probe's live lengths come from the untuned run's traffic
+# (--paged-lens: the step whose live lengths sum to the median of all steps)
+GRANITE_TUNE_ARGV = ["--arch", "granite_3_8b", "--serve", "--batch",
+                     str(GRANITE_SLOTS), "--max-len", str(GRANITE_MAX_LEN),
+                     "--prompt-len", "1000"]
+# granite's engine on the tuned split against the untuned one, each decode
+# row of a request whose tokens still agree: the limit on max |logit
+# difference| over the row's largest |logit|. A split changes the order of
+# paged decode's merge, so bf16 rounds differently through 40 layers: that
+# read at most 2.370e-02 on the H100; a faulty split, the merge of the
+# first range dropped, read at least 3.392e-01 (PERF.md). The limit sits
+# near their geometric middle, and the control runs in every smoke and must
+# fail it. A token may differ only at a near tie: where the untuned top-2
+# gap is within the same limit of the row's largest |logit|
+GRANITE_REL = 0.1
 # the static path: musicgen_medium on 8 prompts of 512 tokens, 64 new;
 # falcon_mamba_7b on 4 prompts of 512 tokens, 32 new, and a forward of
 # B = 1, S = 2048
@@ -2715,18 +2740,149 @@ def _host_ms(fn, n, warmup=0):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def apps_main_path(dev):
-    """Drive the three apps once through their entry points at full size.
-    Launch counts are zeroed just before and read just after. Returns
-    (counts, expected counts, state for the later phases)."""
+class _LaunchArgs:
+    """Records the arguments of each call of the named C entry points (the
+    launch arguments the wrappers pass, tuned knobs among them) while it is
+    active: the kernel modules' ``load`` hands out a recording view of each
+    library, and the entries the wrappers bind once are unbound before and
+    after, so they bind through it."""
+
+    MODULES = {"repro_torch.kernels.apps.fd2d": ("_ENTRY",),
+               "repro_torch.kernels.apps.sem": ("_ENTRY",),
+               "repro_torch.kernels.apps.dg": ("_VOL_ENTRY",),
+               "repro_torch.kernels.flash_attention.ops": ("_DECODE_ENTRY",)}
+
+    def __init__(self, *names):
+        self.names, self.calls, self._saved = set(names), [], []
+
+    def __enter__(self):
+        rec = self
+
+        class View:
+            def __init__(self, lib):
+                self._lib = lib
+
+            def __getattr__(self, name):
+                fn = getattr(self._lib, name)
+                if name not in rec.names:
+                    return fn
+
+                def entry(*args):
+                    rec.calls.append((name, args))
+                    return fn(*args)
+                return entry
+
+        for mod, entries in self.MODULES.items():
+            m = sys.modules[mod]
+            self._saved.append((m, m.load))
+            m.load = lambda name, sig, real=m.load: View(real(name, sig))
+            for e in entries:
+                setattr(m, e, None)
+        return self
+
+    def __exit__(self, *exc):
+        for m, load in self._saved:
+            m.load = load
+            for e in self.MODULES[m.__name__]:
+                setattr(m, e, None)
+        self._saved = []
+
+    def args(self, name):
+        return [a for n, a in self.calls if n == name]
+
+
+def _default_knobs(name, r):
+    """The knobs an untuned driver takes at the shapes of tune result
+    ``r``: the op's default fitted by ``fit_block``."""
+    from repro_torch.core import get_op
+    from repro_torch.device import fit_block
+
+    d = get_op(name).defaults
+    if name == "fd2d":
+        return {"bh": fit_block(d["bh"], r["h"]),
+                "bw": fit_block(d["bw"], r["w"])}
+    return {"eb": fit_block(d["eb"], r["E"])}
+
+
+def log_tune_table(results):
+    """A ``[tune table]`` line per tuned probe: the default knobs and the
+    winner with the sweep's time for each (device ms a launch: CUDA events
+    around launches queued behind a sleep), candidates timed, pruned and
+    skipped, and the sweep's seconds."""
+    from repro_torch.core import get_op
+
+    for name, r in results:
+        knobs = sorted(get_op(name).sweep)
+        ms = {tuple(c[k] for k in knobs): sec * 1e3 for c, sec in r.trials}
+        win = {k: r[k] for k in knobs}
+        shape = {k: v for k, v in r.items() if k not in knobs}
+        dflt = _default_knobs(name, r) if name in APP_KERNELS else None
+        d_ms = ms.get(tuple(dflt[k] for k in knobs)) if dflt else None
+        log(f"[tune table] {name} {shape}: "
+            + (f"default {dflt} {d_ms:.4f} ms, " if d_ms is not None else "")
+            + f"winner {win} {ms[tuple(win[k] for k in knobs)]:.4f} ms; "
+            f"{len(r.trials)} timed, {len(r.pruned)} pruned, "
+            f"{len(r.skipped) - len(r.pruned)} skipped; sweep "
+            f"{r.seconds:.2f} s")
+
+
+def tune_twice(argv, tag):
+    """``tune_cli`` with ``argv`` twice: the first run must time every
+    candidate left after pruning (a candidate the wrapper refuses may be
+    skipped; one whose outputs miss the plain version's fails the smoke),
+    the second must be all cache hits with nothing timed. Returns the
+    first run's [(op, TuneResult)]."""
+    from repro_torch import tune_cli
+
+    t0 = time.perf_counter()
+    code, res = tune_cli.run(argv + ["--repeats", "20"])
+    first_s = time.perf_counter() - t0
+    if code or not res:
+        fail(f"tune_cli {tag}: exit {code}, {len(res)} results")
+    for name, r in res:
+        bad = [(c, why) for c, why in r.skipped if why.startswith(
+            "validation")]
+        if r.cached or not r.trials or bad:
+            fail(f"tune_cli {tag}: {name} cached {r.cached}, "
+                 f"{len(r.trials)} trials, failing candidates {bad}")
+    t0 = time.perf_counter()
+    code, again = tune_cli.run(argv)
+    if code or len(again) != len(res) or any(
+            not r.cached or r.trials for _, r in again):
+        fail(f"tune_cli {tag}: the second run was not all cache hits")
+    log(f"[tune] {tag}: the first run {first_s:.1f}s; the second "
+        f"{time.perf_counter() - t0:.2f}s, {len(again)} cache hits, 0 timed "
+        "trials")
+    log_tune_table(res)
+    return res
+
+
+def apps_main_path(dev, tuned):
+    """Drive the three apps once through their entry points at full size,
+    their drivers built with ``block=None`` / ``eb=None``: they adopt the
+    winners ``tuned`` ({(op, E or (h, w)): knobs}, phase 9a). Launch counts
+    are zeroed just before and read just after. Then one more call of each
+    driver runs under the launch-argument recorder, apart from the timed
+    runs (it wraps every C entry in Python): its launch arguments must
+    show the adopted knobs. Then the same runs on the default knobs
+    from the same states: bit-equal outputs (the knobs of these kernels
+    change no output's arithmetic: ``Op.exact_knobs``), the PCG solve
+    (``index_add_``'s atomics sum in no fixed order) within 2e-4 of its
+    largest value. Returns (counts, state for the later phases)."""
+    import copy
+
     import numpy as np
     import torch
 
     from repro_torch.apps.fd2d import FDWave, fd_flops_per_step
     from repro_torch.apps.sem import SEMOperator, sem_flops_per_element
+    from repro_torch.core import get_op
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch import apps
 
+    for name in APP_KERNELS:
+        if not get_op(name).exact_knobs:
+            fail(f"{name}: its knobs are declared to change its arithmetic")
     torch.cuda.synchronize()
     reset_launches()
     t_phase = time.perf_counter()
@@ -2735,13 +2891,15 @@ def apps_main_path(dev):
     t0 = time.perf_counter()
     fd = FDWave(width=FD_SIZE, height=FD_SIZE, radius=FD_RADIUS)
     setup_s = time.perf_counter() - t0
+    fd_start = (fd.u1.clone(), fd.u2.clone())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fd.run(FD_STEPS)                      # synchronizes the card
     wall = time.perf_counter() - t0
     err = float(np.abs(fd.solution - fd.analytic()).max())
     n2 = FD_SIZE * FD_SIZE
-    log(f"[fd] {FD_SIZE}x{FD_SIZE}, radius {FD_RADIUS}, tile {fd.block}, "
+    log(f"[fd] {FD_SIZE}x{FD_SIZE}, radius {FD_RADIUS}, tile {fd.block} "
+        f"(tuned: {fd.tuned}), "
         f"{FD_STEPS} steps to t={fd.current_time:.5f}: {wall:.3f}s = "
         f"{1e3 * wall / FD_STEPS:.4f} ms/step, "
         f"{n2 * FD_STEPS / wall / 1e6:.1f} MNodes/s, "
@@ -2767,12 +2925,13 @@ def apps_main_path(dev):
     au = op.apply_global(u_glob)
     if not bool(torch.isfinite(au).all()):
         fail("SEM apply_global gave non-finite values")
-    log(f"[sem] E={op.E} ({SEM_ELEMS}^3), N={SEM_N}, eb={op.eb}, dofs={op.nglob}: "
+    log(f"[sem] E={op.E} ({SEM_ELEMS}^3), N={SEM_N}, eb={op.eb} (tuned: "
+        f"{op.tuned}), dofs={op.nglob}: "
         f"apply_local {local_ms:.4f} ms = {flops / local_ms / 1e6:.1f} "
         f"GFLOP/s, apply_global {global_ms:.4f} ms = "
         f"{flops / global_ms / 1e6:.1f} GFLOP/s (host clock, mean of "
         f"{SEM_REPEATS} after one warm call; setup {setup_s:.1f}s)")
-    solve = apps.sem_solve(n=SEM_N, elems=8, log=log)
+    solve = apps.sem_solve(n=SEM_N, elems=SEM_SOLVE_ELEMS, log=log)
     solve["global_ms"] = _host_ms(lambda: solve["op"].apply_global(
         solve["u"]), SEM_REPEATS, 1)
     log(f"[sem] apply_global at the solve's size (E={solve['op'].E}): "
@@ -2801,7 +2960,84 @@ def apps_main_path(dev):
                  {"vec": expected["fd2d"], "scalar": 0})
     check_routes("dg_volume on the apps path", dg_volume,
                  {"templated": expected["dg_volume"], "generic": 0})
+
+    # the tuned knobs, as the drivers took them and as launched: one more
+    # call of each driver, recorded (after the counts)
+    sol = swe["solver"]
+    fd_once = copy.copy(fd)
+    fd_once.u1, fd_once.u2, fd_once.u3 = (fd.u1.clone(), fd.u2.clone(),
+                                          torch.empty_like(fd.u3))
+    with _LaunchArgs(*APP_KERNELS) as rec:
+        fd_once.timestep()
+        op.apply_local(u_loc)
+        solve["op"].apply_global(solve["u"])
+        sol.step(swe["Q"], swe["dt"])
+        torch.cuda.synchronize()
+    del fd_once
+    took = {("fd2d", (FD_SIZE, FD_SIZE)): (fd.tuned, fd.block),
+            ("sem_apply", op.E): (op.tuned, op.eb),
+            ("sem_apply", solve["op"].E): (solve["op"].tuned,
+                                           solve["op"].eb),
+            ("dg_volume", sol.E): (sol.tuned, sol.eb),
+            ("dg_surface", sol.E): (sol.surf_tuned, sol.surf_eb)}
+    launched = {}
+    for a in rec.args("fd2d"):
+        launched.setdefault(("fd2d", (a[4], a[5])), set()).add((a[10], a[11]))
+    for name, e_at, k_at in (("sem_apply", 5, 7), ("dg_volume", 7, 9),
+                             ("dg_surface", 5, 8)):
+        for a in rec.args(name):
+            launched.setdefault((name, a[e_at]), set()).add(a[k_at])
+    for key, (won, knob) in took.items():
+        want = tuned.get(key)
+        if won != want:
+            fail(f"{key}: the driver took {won}, the tuned winner is {want}")
+        knob_want = (want["bh"], want["bw"]) if key[0] == "fd2d" else \
+            want["eb"]
+        if knob != knob_want or launched.get(key) != {knob_want}:
+            fail(f"{key}: launched with {launched.get(key)}, driver knob "
+                 f"{knob}, winner {want}")
+    log("[tune] apps path on the tuned knobs, as launched: " + ", ".join(
+        f"{k[0]}@{k[1]} {sorted(v)}" for k, v in sorted(
+            launched.items(), key=str)))
+
+    # the same runs on the default knobs (after the counts: comparisons)
+    twin = copy.copy(fd)
+    twin.u1, twin.u2 = fd_start
+    twin.u3, twin.current_time = torch.empty_like(fd.u3), 0.0
+    twin.block = tuple(_default_knobs("fd2d", dict(h=FD_SIZE, w=FD_SIZE))[
+        k] for k in ("bh", "bw"))
+    twin.run(FD_STEPS)
+    _bit_equal(f"fd2d: {FD_STEPS} steps on the tile {fd.block} and on "
+               f"{twin.block}", fd.u1, twin.u1)
+    del twin, fd_start
+    sem_twin = copy.copy(op)
+    sem_twin.eb = _default_knobs("sem_apply", dict(E=op.E))["eb"]
+    _bit_equal(f"sem_apply E={op.E}: eb {op.eb} and {sem_twin.eb}",
+               op.apply_local(u_loc), sem_twin.apply_local(u_loc))
+    plain = apps.sem_solve(n=SEM_N, elems=SEM_SOLVE_ELEMS, eb=_default_knobs(
+        "sem_apply", dict(E=solve["op"].E))["eb"], log=log)
+    check_rel(f"PCG solve E={solve['op'].E}: eb {solve['op'].eb} against "
+              f"{plain['op'].eb} (iterations {solve['iters']}, "
+              f"{plain['iters']})", solve["u"], plain["u"], 2e-4)
+    dg_twin = copy.copy(sol)
+    dg_twin.eb = _default_knobs("dg_volume", dict(E=sol.E))["eb"]
+    dg_twin.surf_eb = _default_knobs("dg_surface", dict(E=sol.E))["eb"]
+    Q = apps.hump_state(sol)
+    for _ in range(DG_STEPS):
+        Q = dg_twin.step(Q, swe["dt"])
+    _bit_equal(f"SWE: {DG_STEPS} LSERK steps on eb {sol.eb}/{sol.surf_eb} "
+               f"and {dg_twin.eb}/{dg_twin.surf_eb}", swe["Q"], Q)
+    del dg_twin, Q, plain
     return counts, dict(fd=fd, op=op, u_loc=u_loc, u_glob=u_glob, swe=swe)
+
+
+def _bit_equal(what, got, want):
+    import torch
+
+    if not torch.equal(got, want):
+        fail(f"{what}: not bit-equal (max |diff| "
+             f"{float((got - want).abs().max()):.3e})")
+    log(f"[tune check] {what}: bit-equal")
 
 
 def sem_global_breakdown(op, u_glob):
@@ -2888,7 +3124,7 @@ def _app_inputs(state, *, perturbed=False):
     return dict(fd=(fd.u1, fd.u2, fd.weights, fd.dx, fd.dt, fd.block),
                 sem=(state["u_loc"], op.geo, op.dmat, op.eb),
                 vol=(Q, sol.geom, db, sol.dr, sol.ds, sol.eb),
-                surf=(QM, QP, sol.nrm, sol.lift, sol.eb))
+                surf=(QM, QP, sol.nrm, sol.lift, sol.surf_eb))
 
 
 def _volume_terms_abs(Q, geom, dB, Dr, Ds, g):
@@ -3055,9 +3291,9 @@ def dg_volume_host_split(q, geom, db, dr, ds, *, eb, n=200):
 
     def checks():
         dg_ops.app_on_cpu("dg_volume", q, geom, db, dr, ds)
-        path = dg_ops.volume_route(np_)
-        dg_ops._check_eb("dg_volume", E, eb,
-                         dg_ops._volume_smem(np_, eb, path == "generic"))
+        dg_ops.volume_route(np_)
+        if dg_ops.volume_refusal(E, np_, eb):
+            fail("dg_volume: the main path's eb refused")
         return (tuple(q.shape), tuple(geom.shape), tuple(db.shape),
                 tuple(dr.shape), tuple(ds.shape))
 
@@ -5364,14 +5600,15 @@ class _DecodeTwin:
                 pre["attention"].append(x.detach().clone())
             return fwd(params, x, cfg, **kw)
 
-        def twin_a(params, x, cache, cfg, *, pos):
+        def twin_a(params, x, cache, cfg, *, pos, split=None):
             with torch.no_grad():
                 ref = forward_row("attention",
                                   lambda xs: fwd(params, xs, cfg), x)
                 c = {k: v.clone() for k, v in cache.items()}
                 self.fault["attention one position early"].append(
-                    rel(a_dec(params, x, c, cfg, pos=pos - 1)[0], ref))
-            y, cache = a_dec(params, x, cache, cfg, pos=pos)
+                    rel(a_dec(params, x, c, cfg, pos=pos - 1,
+                              split=split)[0], ref))
+            y, cache = a_dec(params, x, cache, cfg, pos=pos, split=split)
             self.err["attention"].append(rel(y, ref))
             return y, cache
 
@@ -5725,10 +5962,10 @@ def small_compiled_step_checks(dev):
     log(f"[compiled] static step: tokens and launch counts equal eager, "
         f"logits {same}; the cache of a second prefill refused")
 
-    def eager_builder(model, *, batch, greedy=True):
+    def eager_builder(model, *, batch, greedy=True, split=None):
         method = model.greedy_step if greedy else model.decode_step
-        return (lambda p, c, t: method(p, t, c)), {"greedy": greedy,
-                                                   "cuda_graph": False}
+        return (lambda p, c, t: method(p, t, c, split=split)), {
+            "greedy": greedy, "cuda_graph": False}
 
     prompts = rng.randint(0, vocab, (2, 24))
     runs = []
@@ -6555,6 +6792,21 @@ def wide_train_main_path():
     return out_counts
 
 
+def sdpa_bwd_ms(name, fn, readings=5):
+    """SDPA's backward at a ``time_wide_bwd`` shape, by its device time:
+    CUDA events around 10 calls queued behind a sleep (``event_ms``), so
+    no host gap is timed. Its host path (autograd over a few kernels) is
+    long beside its kernels: ``readings`` host-clock timings of 10
+    back-to-back calls (``cuda_ms``, after 3 warm calls) are printed
+    beside it: single host-clock readings of 5 calls have disagreed by
+    2.3-3.9x at these shapes."""
+    got = sorted(cuda_ms(fn, 10, 3) for _ in range(readings))
+    dev = event_ms(fn, 10)
+    log(f"[sdpa bwd] {name}: device {dev:.4f} ms (event_ms, kept); "
+        f"back-to-back host-clock readings {[round(x, 4) for x in got]} ms")
+    return dev
+
+
 def time_wide_bwd(dev):
     """flash_bwd at the three phase 18 models' training shapes, bf16 q, k,
     v, do as the projections give them: the kernel (tensor-core route)
@@ -6598,15 +6850,16 @@ def time_wide_bwd(dev):
         sdpa = F.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask if prefix else None,
             is_causal=not prefix, enable_gqa=True)
+        kernel = (lambda: flash_bwd(q, k, v, do, lse, delta,
+                                    prefix_len=prefix))
         times[name] = dict(
-            ms=_timed_routes(lambda: flash_bwd(q, k, v, do, lse, delta,
-                                               prefix_len=prefix),
-                             flash_bwd, "wgmma", 10),
+            ms=_timed_routes(kernel, flash_bwd, "wgmma", 10),
+            device_ms=event_ms(kernel, 10),
             flops=2.5 * fwd_flops,
             plain_ms=cuda_ms(lambda: flash_bwd_ref(q, k, v, do, lse, delta,
                                                    prefix_len=prefix), 3, 1),
-            library_ms=cuda_ms(lambda: torch.autograd.grad(
-                sdpa, (qs, ks, vs), do, retain_graph=True), 5),
+            library_ms=sdpa_bwd_ms(name, lambda: torch.autograd.grad(
+                sdpa, (qs, ks, vs), do, retain_graph=True)),
             library=("autograd of F.scaled_dot_product_attention("
                      + ("the boolean causal-or-prefix mask"
                         if prefix else "is_causal") + ", enable_gqa)"),
@@ -6622,6 +6875,216 @@ def time_wide_bwd(dev):
         del sdpa, qs, ks, vs
     torch.cuda.synchronize()
     return times, err
+
+
+def _granite_held(plain, other):
+    """``other``'s decode rows held against the untuned run's, row by row
+    while a request's tokens agree: (each row's max |diff| over the row's
+    largest |logit|, near ties where tokens part as (rid, pos, top-2 gap
+    over the row's largest), rows over GRANITE_REL or tokens parting at
+    more than a near tie)."""
+    import torch
+
+    rels, flips, bad, diverged = [], [], [], set()
+    for key in sorted(plain):
+        rid, pos = key
+        if rid in diverged or key not in other:
+            continue
+        (a, ta), (b, tb) = plain[key], other[key]
+        top = float(a.abs().max())
+        rel = float((a - b).abs().max()) / top
+        rels.append(rel)
+        if rel > GRANITE_REL:
+            bad.append((rid, pos, f"logits {rel:.3e} of the row's largest"))
+        if int(ta) != int(tb):
+            top2 = torch.topk(a, 2).values
+            gap = float(top2[0] - top2[1]) / top
+            if gap > GRANITE_REL:
+                bad.append((rid, pos, f"token {int(tb)} != {int(ta)} with "
+                                      f"the top-2 gap {gap:.3e} of the row's "
+                                      "largest"))
+            flips.append((rid, pos, round(gap, 5)))
+            diverged.add(rid)
+    return rels, flips, bad
+
+
+def granite_main_path():
+    """Phase 19: the whole granite_3_8b in bf16 (40 layers, d 4096, 32
+    query heads of 128 over 8 kv heads, d_ff 12800, vocab 49155 padded to
+    49408; seeded weights) on the engine (8 slots, max_len 2048, page 512)
+    with phase 4's 16-request traffic. First untuned (``use_tuned=False``:
+    the kernel's rule), recording each decode step's live lengths; then
+    ``tune_cli --arch granite_3_8b`` at the engine's shape, its paged
+    probe at the step whose live lengths sum to the median of the run's
+    (twice: the second all cache hits); then on the adopted
+    ``flash_decode_paged`` split, which the engine passes to its step and
+    the paged kernel's launch arguments must show. Each decode row of a
+    request whose tokens still agree is held against the untuned run's
+    (GRANITE_REL of the row's largest |logit| over the first 49155
+    columns: the padded ones hold -1e30); a token may differ only at a
+    near tie. A control run, the merge of the winner's first range of
+    slots dropped (those slots masked out of the positions the kernel
+    reads), must fail that check. The untuned run is repeated after the
+    tuned one (its tokens equal the first's), so speed is compared both
+    ways round: tokens/s (admission prefills included) and the median
+    host ms of a replayed decode step to its tokens. Then ``generate`` on
+    8 prompts of 64 tokens through the same engine shape reports the
+    adopted split in its stats."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels.flash_attention.ops import paged_split
+    from repro_torch.launch.serve import generate
+    from repro_torch.layers import attention
+    from repro_torch.serving import Engine
+
+    model, params = _full_model("granite_3_8b", 61)
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    reqs = traffic(0, 16, vocab)
+    nsp = GRANITE_MAX_LEN // 512
+    rule = paged_split(GRANITE_SLOTS, cfg.n_kv_heads, nsp, 512)[0]
+
+    def run(tag, *, use_tuned, lens=None):
+        eng = Engine(model, params, batch=GRANITE_SLOTS,
+                     max_len=GRANITE_MAX_LEN, use_tuned=use_tuned)
+        step, rows, step_ms = eng._step, {}, []
+
+        def recording(p, c, t):
+            live = {s: eng.sched.slots[s] for s in eng.sched.running}
+            if lens is not None:        # the kv_len each slot's query sees
+                lens.append([len(live[s].prompt) + len(live[s].tokens)
+                             if s in live else 0
+                             for s in range(GRANITE_SLOTS)])
+            t0 = time.perf_counter()
+            nxt, logits, c = step(p, c, t)
+            torch.cuda.synchronize()      # the engine reads the tokens next
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for s_, req in live.items():
+                rows[(req.rid, len(req.tokens))] = (
+                    logits[s_, :vocab].clone(), nxt[s_].clone())
+            return nxt, logits, c
+
+        eng._step = recording
+        torch.cuda.synchronize()
+        reset_launches()
+        with _LaunchArgs("paged_decode") as rec:
+            t0 = time.perf_counter()
+            rids = [eng.submit(p, m) for p, m in reqs]
+            res = eng.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if step.captures != 1:
+            fail(f"granite {tag}: the engine step captured {step.captures} "
+                 "times")
+        check_graph_kernels(f"granite {tag}: engine step", step.counts)
+        splits = {a[13] for a in rec.args("paged_decode")}
+        toks = [res[r] for r in rids]
+        if [len(t) for t in toks] != [m for _, m in reqs] or not all(
+                0 <= x < vocab for t in toks for x in t):
+            fail(f"granite {tag}: tokens short or out of vocab")
+        bad = sum(int((~torch.isfinite(r)).sum()) for r, _ in rows.values())
+        if bad:
+            fail(f"granite {tag}: {bad} non-finite logits")
+        ntok = sum(len(t) for t in toks)
+        replays = sorted(step_ms[2:])         # after the eager and capture
+        med = replays[len(replays) // 2]
+        log(f"[granite] {tag}: {eng.tuned.report()}; paged_decode "
+            f"launched with split {sorted(splits)} (rule {rule}); {ntok} "
+            f"tokens for {len(reqs)} requests in {wall:.3f}s = "
+            f"{ntok / wall:.1f} tok/s (admission prefills included); "
+            f"{len(step_ms)} decode steps, host ms a replayed step to its "
+            f"tokens: median {med:.3f}, min {replays[0]:.3f}, max "
+            f"{replays[-1]:.3f}; paged_decode {counts['paged_decode']}, "
+            f"flash_fwd {counts['flash_fwd']}, lm_head {counts['lm_head']} "
+            "launches")
+        return dict(tuned=eng.tuned, rows=rows, toks=dict(zip(rids, toks)),
+                    splits=splits, tok_s=ntok / wall, step_ms=med)
+
+    lens = []
+    plain = run("untuned", use_tuned=False, lens=lens)
+    if plain["tuned"] or plain["splits"] != {rule}:
+        fail(f"granite untuned: adopted {dict(plain['tuned'])}, "
+             f"splits {plain['splits']}")
+    live = sorted(x for step_lens in lens for x in step_lens if x)
+    probe = sorted(lens, key=sum)[len(lens) // 2]
+    log(f"[granite] the traffic's live lengths over {len(lens)} decode "
+        f"steps ({len(live)} slot-steps): min {live[0]}, median "
+        f"{live[len(live) // 2]}, max {live[-1]} of {GRANITE_MAX_LEN} slots; "
+        f"live slots a step: min {min(sum(map(bool, x)) for x in lens)}, "
+        f"max {max(sum(map(bool, x)) for x in lens)}; the probe step (its "
+        f"sum the median of the steps'): {probe}")
+    res = tune_twice(GRANITE_TUNE_ARGV + [
+        "--paged-lens", ",".join(map(str, probe))], "--arch granite_3_8b")
+    won = dict(res)["flash_decode_paged"]["split"]
+    tuned = run("tuned", use_tuned=True)
+    if (tuned["tuned"].get("flash_decode_paged") != {"split": won}
+            or tuned["splits"] != {won}):
+        fail(f"granite tuned: adopted {dict(tuned['tuned'])}, launched "
+             f"{tuned['splits']}, winner {won}")
+    # the untuned run again, after the tuned one (the first run of a
+    # process pays cuBLAS's first calls at granite's shapes)
+    again = run("untuned, again", use_tuned=False)
+    if again["tuned"] or again["toks"] != plain["toks"]:
+        fail("granite: the second untuned run differs from the first")
+    del again["rows"]
+
+    # the control: the merge of the winner's first range dropped
+    real = attention.paged_decode_attention
+
+    def dropped(q, kp, vp, *, pos_pages, **kw):
+        return real(q, kp, vp, pos_pages=torch.where(pos_pages < won, -1,
+                                                     pos_pages), **kw)
+
+    attention.paged_decode_attention = dropped
+    try:
+        faulty = run(f"control, range 0 of {won} slots dropped",
+                     use_tuned=True)
+    finally:
+        attention.paged_decode_attention = real
+    c_rels, c_flips, c_bad = _granite_held(plain["rows"], faulty["rows"])
+    c_sorted = sorted(c_rels)
+    n_tok = sum(why.startswith("token") for _, _, why in c_bad)
+    log(f"[granite] control (range 0 of {won} slots dropped) vs untuned: "
+        f"{len(c_rels)} decode rows held, max |diff| / row max: min "
+        f"{c_sorted[0]:.3e}, median {c_sorted[len(c_sorted) // 2]:.3e}, max "
+        f"{c_sorted[-1]:.3e}; {len(c_bad) - n_tok} rows over the limit "
+        f"{GRANITE_REL}, {n_tok} tokens parting at more than a near tie; "
+        f"where tokens part (top-2 gap / row max): {c_flips}")
+    if not c_bad:
+        fail("granite: the check passed the control, a dropped range")
+    del faulty
+
+    # tuned against untuned
+    rels, flips, bad = _granite_held(plain["rows"], tuned["rows"])
+    if bad:
+        fail(f"granite: tuned against untuned: {bad[:4]}")
+    same = sum(plain["toks"][r] == tuned["toks"][r] for r in plain["toks"])
+    log(f"[granite] tuned (split {won}) vs untuned (split {rule}): "
+        f"{len(rels)} decode rows held, max |diff| / row max {max(rels):.3e}"
+        f" (limit {GRANITE_REL}; the control's least {c_sorted[0]:.3e}); "
+        f"{same} of {len(reqs)} requests' tokens equal; near ties where "
+        f"they part (top-2 gap / row max): {flips}")
+    log(f"[granite] untuned, tuned, untuned again: tokens/s "
+        f"{plain['tok_s']:.1f}, {tuned['tok_s']:.1f}, {again['tok_s']:.1f};"
+        f" median host ms a decode step {plain['step_ms']:.3f}, "
+        f"{tuned['step_ms']:.3f}, {again['step_ms']:.3f}")
+    del plain, tuned, again
+    # generate adopts the tuned winners from the cache again
+
+    prompts = np.random.RandomState(62).randint(1, vocab, (GRANITE_SLOTS, 64))
+    out, stats = generate(model, params, prompts, gen_tokens=16,
+                          max_len=GRANITE_MAX_LEN)
+    if (stats["tuned"].get("flash_decode_paged") != {"split": won}
+            or out.shape != (GRANITE_SLOTS, 16)):
+        fail(f"granite generate: tuned {dict(stats['tuned'])}, tokens "
+             f"{out.shape}")
+    log(f"[granite] generate: {stats['tuned'].report()}; "
+        f"{stats['tokens_per_s']:.1f} tok/s on 8 x 64-token prompts, 16 new")
+    del model, params
+    torch.cuda.empty_cache()
 
 
 def log_times(times):
@@ -6753,6 +7216,19 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     keep_graphs()
+    # autotune winners of this run only: every phase before 9a runs on the
+    # ops' rules and defaults
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    os.environ["REPRO_CACHE_DIR"] = cache_dir
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def run_phases():
+    """Phases 1-19 and the last three lines (see the module docstring)."""
+    import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLMData
@@ -6881,9 +7357,15 @@ def main():
     two_layer_train_options(cfg)
     elapsed("phase 6-8 training")
 
-    # 9. the apps path: FD, SEM and DG at full size through their entry
-    # points
-    acounts, astate = apps_main_path(dev)
+    # 9a. tune_cli --apps at the apps path's shapes, twice (the second all
+    # cache hits); 9. the apps path: FD, SEM and DG at full size through
+    # their entry points, on the winners, then again on the defaults
+    app_tuned = {}
+    for name, r in tune_twice(APPS_TUNE_ARGV, "--apps"):
+        where = (r["h"], r["w"]) if name == "fd2d" else r["E"]
+        app_tuned[(name, where)] = {k: r[k] for k in (
+            ("bh", "bw") if name == "fd2d" else ("eb",))}
+    acounts, astate = apps_main_path(dev, app_tuned)
     log("app kernels: " + ", ".join(f"{k}={acounts[k]}" for k in APP_KERNELS))
     counts.update({k: acounts[k] for k in APP_KERNELS})
 
@@ -6971,6 +7453,10 @@ def main():
     log("[train] phase 18 flash_bwd launches (printed, not summed in): "
         + ", ".join(f"{a} {c['flash_bwd']}" for a, c in wcounts.items()))
     elapsed("phase 18 wide training")
+
+    # 19. granite_3_8b whole on the engine, untuned and on its tuned split
+    granite_main_path()
+    elapsed("phase 19 granite")
     log_times(times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 

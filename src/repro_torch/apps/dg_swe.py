@@ -15,16 +15,42 @@ import numpy as np
 import torch
 
 from ..device import fit_block, resolve_device
-from ..kernels.apps.dg import (DEFAULT_EB, GRAV, dg_surface, dg_volume,
-                               surface_ref, volume_ref)
+from ..kernels.apps.dg import (DEFAULT_EB, GRAV, dg_surface, dg_surface_op,
+                               dg_volume, dg_volume_op, surface_ref,
+                               volume_ref)
 from .numerics import dmatrices_2d, face_mask, lift_matrix, triangle_nodes
 
 __all__ = [
     "DGVolume", "SWESolver", "make_tri_mesh", "build_connectivity",
     "volume_ref", "surface_ref", "dg_flops_per_element",
     "dg_bytes_per_element", "dg_surface_flops_per_element",
-    "dg_surface_bytes_per_element", "GRAV", "stable_dt",
+    "dg_surface_bytes_per_element", "GRAV", "stable_dt", "volume_probe",
+    "surface_probe",
 ]
+
+
+def _meta(*shape):
+    return torch.empty(shape, dtype=torch.float32, device="meta")
+
+
+def volume_probe(E: int, np_: int):
+    """The ``dg_volume`` op's probe at E elements of np nodes: ((q, geom,
+    db, dr, ds) as meta tensors, params), as :class:`DGVolume` looks its
+    winner up."""
+    return (_meta(E, np_, 3), _meta(E, 4), _meta(E, np_, 2), _meta(np_, np_),
+            _meta(np_, np_)), {}
+
+
+def surface_probe(E: int, np_: int, nfp3: int):
+    """The ``dg_surface`` op's probe: ((qm, qp, nrm, lift) as meta
+    tensors, params), as :class:`SWESolver` looks its winner up."""
+    return (_meta(E, nfp3, 3), _meta(E, nfp3, 3), _meta(E, nfp3, 3),
+            _meta(np_, nfp3)), {}
+
+
+def _winner(op, probe, device):
+    args, params = probe
+    return op.cached_winner(args, device=device, **params)
 
 
 def dg_flops_per_element(np_: int) -> int:
@@ -167,9 +193,12 @@ _LSERK_B = (1432997174477 / 9575080441755, 5161836677717 / 13612068292357,
 class DGVolume:
     """Host driver for the DG SWE volume kernel.
 
-    ``eb=None`` takes the op's default block (64 elements) fitted to E with
-    ``fit_block``; an explicit ``eb`` pins it (E need not be a multiple).
-    Runs on the CUDA card unless ``device="cpu"``."""
+    ``eb=None`` takes the ``dg_volume`` op's persisted tune winner for E
+    and np on this device (``dg_volume_op.cached_winner``), else the op's
+    default (64 elements a block) fitted to E with ``fit_block``; an
+    explicit ``eb`` pins it (E need not be a multiple). ``self.tuned`` is
+    the winner taken, or None. Runs on the CUDA card unless
+    ``device="cpu"``."""
 
     def __init__(self, *, nx: int = 8, ny: int = 8, n: int = 3,
                  eb: int | None = None, bathymetry=None, jitter: float = 0.2,
@@ -195,6 +224,11 @@ class DGVolume:
         self.db = self._put(self.dB)
         self.dr = self._put(m["Dr"])
         self.ds = self._put(m["Ds"])
+        self._eb_arg = eb
+        self.tuned = (_winner(dg_volume_op, volume_probe(self.E, self.np_),
+                              self.device) if eb is None else None)
+        if self.tuned:
+            eb = self.tuned["eb"]
         self.eb = fit_block(DEFAULT_EB, self.E) if eb is None else eb
 
     def _put(self, a):
@@ -206,7 +240,12 @@ class DGVolume:
 
 
 class SWESolver(DGVolume):
-    """Full shallow-water solver: volume + surface kernels + LSERK."""
+    """Full shallow-water solver: volume + surface kernels + LSERK.
+
+    The surface kernel's ``surf_eb``: an explicit ``eb`` pins it as it pins
+    the volume kernel's; ``eb=None`` takes the ``dg_surface`` op's
+    persisted tune winner for its shapes (``self.surf_tuned``), else the
+    op's default fitted to E."""
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -215,6 +254,14 @@ class SWESolver(DGVolume):
         self.conn = build_connectivity(nx, nx, self.n, m)
         nfp3 = 3 * (self.n + 1)
         self.nfp3 = nfp3
+        surf_eb, self.surf_tuned = self._eb_arg, None
+        if surf_eb is None:
+            self.surf_tuned = _winner(dg_surface_op, surface_probe(
+                self.E, self.np_, nfp3), self.device)
+        if self.surf_tuned:
+            surf_eb = self.surf_tuned["eb"]
+        self.surf_eb = (fit_block(DEFAULT_EB, self.E) if surf_eb is None
+                        else surf_eb)
         nrm = np.repeat(self.conn["normals"], self.n + 1, axis=1)  # (E,3nfp,2)
         fsc = np.repeat(self.conn["fscale"], self.n + 1, axis=1)   # (E,3nfp)
         self.nrm = self._put(np.concatenate([nrm, fsc[..., None]], -1))
@@ -249,7 +296,7 @@ class SWESolver(DGVolume):
 
     def rhs(self, Q):
         QM, QP = self.traces(Q)
-        surf = dg_surface(QM, QP, self.nrm, self.lift, eb=self.eb)
+        surf = dg_surface(QM, QP, self.nrm, self.lift, eb=self.surf_eb)
         return self.rhs_volume(Q) + surf
 
     def step(self, Q, dt):

@@ -4,7 +4,9 @@ the ``fd2d`` kernel: the counterpart of ``repro.apps.fd2d``.
 u_tt = u_xx + u_yy on the periodic square [-1,1]^2; leapfrog in time with
 an order-2r central stencil in space. ``FDWave`` keeps the paper's host
 code (setup, timestep, swap chain) with explicit tensors where the JAX
-driver uses the OCCA host API.
+driver uses the OCCA host API. With ``block=None`` it adopts the ``fd2d``
+op's persisted tune winner for its field (:func:`fd_probe` is the shape
+``tune_cli --apps`` tunes).
 """
 
 from __future__ import annotations
@@ -13,11 +15,20 @@ import numpy as np
 import torch
 
 from ..device import fit_block, resolve_device
-from ..kernels.apps.fd2d import DEFAULT_BLOCK, fd2d
+from ..kernels.apps.fd2d import DEFAULT_BLOCK, fd2d, fd2d_op
 from ..kernels.apps.fd2d import fd2d_ref as reference_step
 from .numerics import fd_second_derivative_weights
 
-__all__ = ["FDWave", "reference_step", "fd_flops_per_step"]
+__all__ = ["FDWave", "reference_step", "fd_flops_per_step", "fd_probe"]
+
+
+def fd_probe(width: int, height: int, radius: int, cfl: float = 0.5):
+    """The ``fd2d`` op's probe at an FD wave's shapes: ((u1, u2) as meta
+    tensors, params), as :class:`FDWave` looks its winner up."""
+    u = torch.empty((height, width), dtype=torch.float32, device="meta")
+    dx = 2.0 / width
+    weights = tuple(float(x) for x in fd_second_derivative_weights(radius))
+    return (u, u), dict(weights=weights, dx=dx, dt=cfl * dx / np.sqrt(2.0))
 
 
 def fd_flops_per_step(w: int, h: int, r: int) -> int:
@@ -28,10 +39,12 @@ def fd_flops_per_step(w: int, h: int, r: int) -> int:
 class FDWave:
     """Host driver mirroring the paper's listing 9.
 
-    ``block=None`` takes the op's default tile (32, 256) fitted to the
-    field with ``fit_block``; an explicit ``block=(bh, bw)`` pins the
-    kernel's tile (0 means the full extent; the kernel masks a ragged
-    edge). Runs on the CUDA card unless ``device="cpu"``."""
+    ``block=None`` takes the ``fd2d`` op's persisted tune winner for this
+    field on this device (``fd2d_op.cached_winner``), else the default tile
+    (32, 256) fitted to the field with ``fit_block``; an explicit
+    ``block=(bh, bw)`` pins the kernel's tile (0 means the full extent;
+    the kernel masks a ragged edge). ``self.tuned`` is the winner taken,
+    or None. Runs on the CUDA card unless ``device="cpu"``."""
 
     def __init__(self, *, width: int = 128, height: int = 128,
                  radius: int = 1, cfl: float = 0.5,
@@ -41,7 +54,14 @@ class FDWave:
         self.dx = 2.0 / width
         self.dt = cfl * self.dx / np.sqrt(2.0)
         self.dtype = np.dtype("float32")
+        self.tuned = None
         if block is None:
+            args, params = fd_probe(width, height, radius, cfl)
+            self.tuned = fd2d_op.cached_winner(args, device=self.device,
+                                               **params)
+        if self.tuned:
+            self.block = (self.tuned["bh"], self.tuned["bw"])
+        elif block is None:
             self.block = (fit_block(DEFAULT_BLOCK[0], height),
                           fit_block(DEFAULT_BLOCK[1], width))
         else:

@@ -6,6 +6,9 @@ tensor-product bases:  K u = D_r^T (G . D u)  with per-node symmetric
 geometric factors G (kappa * J * w * (grad r_p . grad r_q)) and lumped mass
 M = J * w. The mesh and the factors are host-side numpy (float64, then cast),
 copied from the JAX package; C0 assembly is a gather and an ``index_add_``.
+With ``eb=None`` the operator adopts the ``sem_apply`` op's persisted tune
+winner for its mesh (:func:`sem_probe` is the shape ``tune_cli --apps``
+tunes).
 """
 
 from __future__ import annotations
@@ -14,13 +17,24 @@ import numpy as np
 import torch
 
 from ..device import fit_block, resolve_device
-from ..kernels.apps.sem import DEFAULT_EB, apply_ref, sem_apply
+from ..kernels.apps.sem import DEFAULT_EB, apply_ref, sem_apply, sem_apply_op
 from .numerics import dmatrix_1d, gll_nodes_weights
 
 __all__ = [
     "SEMOperator", "make_box_mesh", "geometric_factors", "apply_ref",
     "sem_flops_per_element", "sem_bytes_per_element", "gather", "scatter_add",
+    "sem_probe",
 ]
+
+
+def sem_probe(E: int, nq: int):
+    """The ``sem_apply`` op's probe at E elements of nq^3 nodes: ((u, geo,
+    dmat) as meta tensors, params), as :class:`SEMOperator` looks its
+    winner up."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    return (meta(E, nq, nq, nq), meta(E, 7, nq, nq, nq), meta(nq, nq)), {}
 
 
 def sem_flops_per_element(nq: int) -> int:
@@ -150,9 +164,12 @@ class SEMOperator:
     """Host driver: the operator's factors on the device and the assembled
     (gather-scatter) operator on global dof vectors.
 
-    ``eb=None`` takes the op's default block (32 elements) fitted to E with
+    ``eb=None`` takes the ``sem_apply`` op's persisted tune winner for E
+    and nq on this device (``sem_apply_op.cached_winner``), else the op's
+    default (``DEFAULT_EB`` = 8 elements a block) fitted to E with
     ``fit_block``; an explicit ``eb`` pins it (E need not be a multiple).
-    Runs on the CUDA card unless ``device="cpu"``."""
+    ``self.tuned`` is the winner taken, or None. Runs on the CUDA card
+    unless ``device="cpu"``."""
 
     def __init__(self, *, ex: int = 2, ey: int = 2, ez: int = 2, n: int = 4,
                  eb: int | None = None, deform: float = 0.15,
@@ -167,6 +184,13 @@ class SEMOperator:
         self.geo = torch.from_numpy(G.astype(self.dtype)).to(self.device)
         self.dmat = torch.from_numpy(
             dmatrix_1d(n).astype(self.dtype)).to(self.device)
+        self.tuned = None
+        if eb is None:
+            args, params = sem_probe(self.E, self.nq)
+            self.tuned = sem_apply_op.cached_winner(args, device=self.device,
+                                                    **params)
+        if self.tuned:
+            eb = self.tuned["eb"]
         self.eb = fit_block(DEFAULT_EB, self.E) if eb is None else eb
         self.gid_t = torch.from_numpy(self.gid.astype(np.int64)).to(self.device)
 

@@ -24,7 +24,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["SOURCES", "build_all", "load", "check", "on_cpu", "tma_ok"]
+__all__ = ["SOURCES", "build_all", "load", "check", "on_cpu", "tma_ok",
+           "source_hash"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -50,12 +51,21 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def source_hash(*names: str) -> str:
+    """The build hash of the sources ``names`` (``csrc/<name>.cu``): the
+    nvcc flags, each source and the shared headers. It names each built
+    library, and it keys the autotune cache (``core.tune``), so an edited
+    source or header neither loads a stale library nor answers with a
+    winner timed on the old one."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in (f"{name}.cu", *HEADERS):
+    for src in (*(f"{n}.cu" for n in names), *HEADERS):
         with open(os.path.join(CSRC, src), "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+    return h.hexdigest()[:12]
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}-{source_hash(name)}.so")
 
 
 def _start(name: str):

@@ -19,7 +19,12 @@ of a group of an element's nodes, for all three fields, in registers. It has an 
 N = 1..7 and a generic one, picked up front by :func:`volume_route` and
 counted in ``dg_volume.routes``. Its wrapper binds the C function once
 and passes ints for pointers: at E = 131072 the kernel takes a few tens of
-microseconds, and the LSERK step calls it five times.
+microseconds, and the LSERK step calls it five times. ``eb``
+(elements a block) assigns elements to blocks and does not change any
+element's arithmetic in either kernel.
+
+``dg_volume_op`` and ``dg_surface_op`` declare them for the op front end
+(``repro_torch.core``) under the JAX ops' names, tuned over ``eb``.
 """
 
 from __future__ import annotations
@@ -28,11 +33,14 @@ import ctypes
 
 import torch
 
+from ...core.op import define_op
+from ...core.tune import Tolerance
 from .._build import check, load, ptr, stream
 from ._common import SMEM_MAX, app_on_cpu
 
-__all__ = ["dg_volume", "dg_surface", "volume_ref", "volume_folded_ref",
-           "volume_route", "surface_ref", "GRAV", "DEFAULT_EB"]
+__all__ = ["dg_volume", "dg_surface", "dg_volume_op", "dg_surface_op",
+           "volume_ref", "volume_folded_ref", "volume_route", "surface_ref",
+           "GRAV", "DEFAULT_EB", "volume_refusal", "surface_refusal"]
 
 GRAV = 9.81
 DEFAULT_EB = 64  # elements per block: the JAX ops' default
@@ -82,6 +90,30 @@ def _volume_entry():
         lib = load("dg", _SIG)
         _VOL_ENTRY = (lib, lib.dg_volume)
     return _VOL_ENTRY
+
+
+def _surface_smem(np_, nfp3, eb):
+    """Shared bytes of a block of the surface kernel: LIFT and a chunk of
+    eb elements' three face fluxes."""
+    return 4 * (np_ * nfp3 + 3 * eb * nfp3)
+
+
+def _eb_refusal(E, eb, smem):
+    if E < 1 or eb < 1 or smem > SMEM_MAX:
+        return (f"E={E}, eb={eb}: need E, eb >= 1 and {smem} B of shared "
+                f"memory <= {SMEM_MAX}")
+    return None
+
+
+def volume_refusal(E, np_, eb):
+    """Why the volume kernel refuses ``eb`` at (E, np), or None."""
+    return _eb_refusal(E, eb, _volume_smem(np_, eb,
+                                           volume_route(np_) == "generic"))
+
+
+def surface_refusal(E, np_, nfp3, eb):
+    """Why the surface kernel refuses ``eb`` at (E, np, 3nfp), or None."""
+    return _eb_refusal(E, eb, _surface_smem(np_, nfp3, eb))
 
 
 def volume_ref(Q, geom, dB, Dr, Ds, g=GRAV):
@@ -141,12 +173,6 @@ def surface_ref(QM, QP, nrm, lift, g=GRAV):
     return torch.einsum("nf,efq->enq", lift, dflux)
 
 
-def _check_eb(name, E, eb, smem):
-    if E < 1 or eb < 1 or smem > SMEM_MAX:
-        raise ValueError(f"{name}: E={E}, eb={eb}: need E, eb >= 1 and "
-                         f"{smem} B of shared memory <= {SMEM_MAX}")
-
-
 def dg_volume(q, geom, db, dr, ds, *, g=GRAV, eb=DEFAULT_EB):
     """q (E, np, 3), geom (E, 4), db (E, np, 2), dr/ds (np, np) f32 -> the
     volume RHS (E, np, 3). ``eb``: elements per block on the card."""
@@ -162,7 +188,9 @@ def dg_volume(q, geom, db, dr, ds, *, g=GRAV, eb=DEFAULT_EB):
                          f"{tuple(dr.shape)}, ds {tuple(ds.shape)} must be "
                          "(E, np, 3), (E, 4), (E, np, 2), (np, np) x 2")
     path = volume_route(np_)
-    _check_eb(name, E, eb, _volume_smem(np_, eb, path == "generic"))
+    refused = volume_refusal(E, np_, eb)
+    if refused:
+        raise ValueError(f"{name}: {refused}")
     out = torch.empty_like(q)
     lib, fn = _volume_entry()
     err = fn(path == "templated", q.data_ptr(), geom.data_ptr(),
@@ -189,7 +217,9 @@ def dg_surface(qm, qp, nrm, lift, *, g=GRAV, eb=DEFAULT_EB):
                          f"{tuple(qp.shape)}, nrm {tuple(nrm.shape)}, lift "
                          f"{tuple(lift.shape)} must be (E, 3nfp, 3) x 3 and "
                          "(np, 3nfp)")
-    _check_eb(name, E, eb, 4 * (np_ * nfp3 + 3 * eb * nfp3))
+    refused = surface_refusal(E, np_, nfp3, eb)
+    if refused:
+        raise ValueError(f"{name}: {refused}")
     out = torch.empty((E, np_, 3), dtype=qm.dtype, device=qm.device)
     lib = load("dg", _SIG)
     err = lib.dg_surface(ptr(qm), ptr(qp), ptr(nrm), ptr(lift), ptr(out), E,
@@ -202,3 +232,103 @@ def dg_surface(qm, qp, nrm, lift, *, g=GRAV, eb=DEFAULT_EB):
 dg_volume.launches = 0
 dg_volume.routes = {"templated": 0, "generic": 0}
 dg_surface.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the op declarations (repro.kernels.apps.ops.dg_volume / dg_surface)
+# ---------------------------------------------------------------------------
+
+def _dtype(t):
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _dgv_defines(args, params):
+    q, geom, db, dr, ds = args
+    E, np_ = (int(q.shape[0]), int(q.shape[1])) if q.dim() == 3 else (0, 0)
+    if (tuple(q.shape) != (E, np_, 3) or tuple(geom.shape) != (E, 4)
+            or tuple(db.shape) != (E, np_, 2)
+            or tuple(dr.shape) != (np_, np_) or ds.shape != dr.shape):
+        raise ValueError(f"dg_volume: shapes q {tuple(q.shape)}, geom "
+                         f"{tuple(geom.shape)}, db {tuple(db.shape)}, dr "
+                         f"{tuple(dr.shape)}, ds {tuple(ds.shape)}")
+    return dict(E=E, np_=np_, dtype=_dtype(q))
+
+
+def _dgs_defines(args, params):
+    qm, qp, nrm, lift = args
+    E, nfp3 = (int(qm.shape[0]), int(qm.shape[1])) if qm.dim() == 3 else (
+        0, 0)
+    np_ = int(lift.shape[0]) if lift.dim() == 2 else 0
+    if (tuple(qm.shape) != (E, nfp3, 3) or qp.shape != qm.shape
+            or nrm.shape != qm.shape or tuple(lift.shape) != (np_, nfp3)):
+        raise ValueError(f"dg_surface: shapes qm {tuple(qm.shape)}, qp "
+                         f"{tuple(qp.shape)}, nrm {tuple(nrm.shape)}, lift "
+                         f"{tuple(lift.shape)}")
+    return dict(E=E, np_=np_, nfp3=nfp3, dtype=_dtype(qm))
+
+
+def _dgv_example(rng):
+    E, np_ = 16, 6
+    q = rng.standard_normal((E, np_, 3)).astype("float32") * 0.1
+    q[..., 0] += 1.5                          # positive water height
+    geom = rng.standard_normal((E, 4)).astype("float32")
+    db = rng.standard_normal((E, np_, 2)).astype("float32")
+    dr = rng.standard_normal((np_, np_)).astype("float32")
+    ds = rng.standard_normal((np_, np_)).astype("float32")
+    return (q, geom, db, dr, ds), dict(eb=4)
+
+
+def _dgs_example(rng):
+    import numpy as np
+
+    E, np_, nfp3 = 16, 6, 9
+    qm = rng.standard_normal((E, nfp3, 3)).astype("float32") * 0.1
+    qp = rng.standard_normal((E, nfp3, 3)).astype("float32") * 0.1
+    qm[..., 0] += 1.5
+    qp[..., 0] += 1.5
+    theta = rng.standard_normal((E, nfp3)).astype("float32")
+    nrm = np.stack([np.cos(theta), np.sin(theta),
+                    np.abs(rng.standard_normal((E, nfp3))).astype("float32")],
+                   axis=-1).astype("float32")
+    lift = rng.standard_normal((np_, nfp3)).astype("float32")
+    return (qm, qp, nrm, lift), dict(eb=4)
+
+
+_EB_SWEEP = [1, 2, 4, 8, 16, 32, 64]
+
+dg_volume_op = define_op(
+    "dg_volume",
+    kernel=dg_volume,
+    ref=volume_ref,
+    defaults=dict(g=GRAV, eb=DEFAULT_EB),
+    sweep=dict(eb=_EB_SWEEP),
+    derive_defines=_dgv_defines,
+    smem=lambda d: _volume_smem(d["np_"], d["eb"],
+                                volume_route(d["np_"]) == "generic"),
+    refusal=lambda d: volume_refusal(d["E"], d["np_"], d["eb"]),
+    tolerance=Tolerance(f32=(2e-4, 2e-4), scaled=True),
+    sources=("dg",),
+    exact_knobs=True,
+    example=_dgv_example,
+    doc="""DG SWE volume RHS -(dF/dx + dG/dy) + S: q (E, np, 3), geom
+    (E, 4), db (E, np, 2), dr/ds (np, np), f32; ``eb`` elements a
+    block.""",
+)
+
+dg_surface_op = define_op(
+    "dg_surface",
+    kernel=dg_surface,
+    ref=surface_ref,
+    defaults=dict(g=GRAV, eb=DEFAULT_EB),
+    sweep=dict(eb=_EB_SWEEP),
+    derive_defines=_dgs_defines,
+    smem=lambda d: _surface_smem(d["np_"], d["nfp3"], d["eb"]),
+    refusal=lambda d: surface_refusal(d["E"], d["np_"], d["nfp3"], d["eb"]),
+    tolerance=Tolerance(f32=(2e-4, 2e-4), scaled=True),
+    sources=("dg",),
+    exact_knobs=True,
+    example=_dgs_example,
+    doc="""DG SWE surface RHS: the local Lax-Friedrichs flux on face
+    traces qm/qp (E, 3nfp, 3), nrm (E, 3nfp, 3) = (nx, ny, fscale), lifted
+    by lift (np, 3nfp), f32; ``eb`` elements a block.""",
+)

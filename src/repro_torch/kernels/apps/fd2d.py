@@ -13,7 +13,10 @@ picked up front by :func:`route` and counted in ``fd2d.routes``:
 ``"vec"`` (16-byte copies and accesses) when the width and the tile's
 width are multiples of 4 floats and the three bases are 16-byte aligned,
 ``"scalar"`` (4-byte ones) otherwise. Both give every output the same
-chain of f32 roundings, :func:`fd2d_stream_ref`'s.
+chain of f32 roundings, :func:`fd2d_stream_ref`'s, whatever the tile.
+
+``fd2d_op`` declares it for the op front end (``repro_torch.core``) under
+the JAX op's name, tuned over the tile (bh, bw).
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ import ctypes
 
 import torch
 
+from ...core.op import define_op
+from ...core.tune import Tolerance
 from .._build import check, load, stream
 from ._common import SMEM_MAX, app_on_cpu
 
-__all__ = ["fd2d", "fd2d_ref", "fd2d_stream_ref", "route", "DEFAULT_BLOCK",
-           "MAX_RADIUS"]
+__all__ = ["fd2d", "fd2d_op", "fd2d_ref", "fd2d_stream_ref", "route",
+           "DEFAULT_BLOCK", "MAX_RADIUS", "tile_refusal"]
 
 DEFAULT_BLOCK = (32, 256)  # (bh, bw): the JAX op's defaults
 MAX_RADIUS = 8
@@ -44,6 +49,16 @@ def _smem(r, bw):
     nt = min(_MAX_NT, (bw + 127) // 128 * 32)     # a thread per 4 columns
     return 4 * ((r + 1 + _STAGES) * (4 * nt + 2 * ((r + 3) & ~3))
                 + (_STAGES + 1) * 4 * nt)
+
+
+def tile_refusal(r, bh, bw):
+    """Why the kernel refuses the tile (bh, bw) at radius r (after the
+    wrapper clips it to the field), or None."""
+    smem = _smem(r, bw)
+    if bh < 1 or bw < 1 or smem > SMEM_MAX:
+        return (f"tile ({bh}, {bw}) with radius {r} needs {smem} B of "
+                f"shared memory (at most {SMEM_MAX})")
+    return None
 
 
 def route(u1, u2, out, bw) -> str:
@@ -116,10 +131,9 @@ def fd2d(u1, u2, *, weights, dx, dt, block=DEFAULT_BLOCK, out=None):
                             f", out {tuple(out.shape)} too"))
     h, w = u1.shape
     bh, bw = min(block[0] or h, h), min(block[1] or w, w)
-    smem = _smem(r, bw)
-    if bh < 1 or bw < 1 or smem > SMEM_MAX:
-        raise ValueError(f"{name}: tile ({bh}, {bw}) with radius {r} needs "
-                         f"{smem} B of shared memory (at most {SMEM_MAX})")
+    refused = tile_refusal(r, bh, bw)
+    if refused:
+        raise ValueError(f"{name}: {refused}")
     if out is None:
         out = torch.empty_like(u1)
     elif out.data_ptr() == u1.data_ptr():
@@ -138,3 +152,63 @@ def fd2d(u1, u2, *, weights, dx, dt, block=DEFAULT_BLOCK, out=None):
 
 fd2d.launches = 0
 fd2d.routes = {"vec": 0, "scalar": 0}
+
+
+# ---------------------------------------------------------------------------
+# the op declaration (repro.kernels.apps.ops.fd2d)
+# ---------------------------------------------------------------------------
+
+def _fd2d_call(u1, u2, *, weights, dx, dt, bh, bw):
+    return fd2d(u1, u2, weights=weights, dx=dx, dt=dt, block=(bh, bw))
+
+
+def _fd2d_plain(u1, u2, *, weights, dx, dt):
+    return fd2d_ref(u1, u2, weights, float(dx), float(dt))
+
+
+def _fd_defines(args, params):
+    u1, u2 = args
+    if u1.dim() != 2 or tuple(u2.shape) != tuple(u1.shape):
+        raise ValueError(f"fd2d: u1 {tuple(u1.shape)}, u2 "
+                         f"{tuple(u2.shape)} must be one (h, w) shape")
+    h, w = u1.shape
+    return dict(h=int(h), w=int(w), r=(len(params["weights"]) - 1) // 2,
+                dtype=str(u1.dtype).removeprefix("torch."))
+
+
+def _fd_tile(d):
+    return min(d["bh"] or d["h"], d["h"]), min(d["bw"] or d["w"], d["w"])
+
+
+def _fd_smem(d):
+    return _smem(d["r"], _fd_tile(d)[1])
+
+
+def _fd_refusal(d):
+    return tile_refusal(d["r"], *_fd_tile(d))
+
+
+def _fd_example(rng):
+    u1 = rng.standard_normal((32, 32)).astype("float32")
+    u2 = rng.standard_normal((32, 32)).astype("float32")
+    return (u1, u2), dict(weights=(1.0, -2.0, 1.0), dx=2.0 / 32, dt=0.02,
+                          bh=16, bw=32)
+
+
+fd2d_op = define_op(
+    "fd2d",
+    kernel=_fd2d_call,
+    ref=_fd2d_plain,
+    defaults=dict(weights=(1.0, -2.0, 1.0), dx=1.0, dt=0.1,
+                  bh=DEFAULT_BLOCK[0], bw=DEFAULT_BLOCK[1]),
+    sweep=dict(bh=[8, 16, 32, 64, 128], bw=[32, 64, 128, 256]),
+    derive_defines=_fd_defines,
+    smem=_fd_smem,
+    refusal=_fd_refusal,
+    tolerance=Tolerance(f32=(2e-5, 2e-5)),
+    sources=("fd2d",),
+    exact_knobs=True,
+    example=_fd_example,
+    doc="""One leapfrog step u3 = 2 u1 - u2 + dt^2 (u_xx + u_yy) on the
+    periodic (h, w) f32 field; ``bh``/``bw`` the kernel's output tile.""",
+)

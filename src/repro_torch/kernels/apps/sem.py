@@ -11,7 +11,12 @@ On the card the kernel has an instance for each nq of N = 1..9 (nq
 2..10: thread (b, c) of an element owns its column in registers, several
 elements side by side, the next element's loads in flight while one
 computes) and a generic one for any other nq <= 24, picked up front by
-:func:`sem_route` and counted in ``sem_apply.routes``.
+:func:`sem_route` and counted in ``sem_apply.routes``. ``eb`` (elements a
+block) assigns elements to blocks and does not change any element's
+arithmetic.
+
+``sem_apply_op`` declares it for the op front end (``repro_torch.core``)
+under the JAX op's name, tuned over ``eb``.
 """
 
 from __future__ import annotations
@@ -20,11 +25,13 @@ import ctypes
 
 import torch
 
+from ...core.op import define_op
+from ...core.tune import Tolerance
 from .._build import check, load, stream
 from ._common import app_on_cpu
 
-__all__ = ["sem_apply", "apply_ref", "sem_route", "DEFAULT_EB", "MAX_NQ",
-           "TEMPLATED_NQ"]
+__all__ = ["sem_apply", "sem_apply_op", "apply_ref", "sem_route",
+           "DEFAULT_EB", "MAX_NQ", "TEMPLATED_NQ", "eb_refusal"]
 
 # elements per block: the fastest of 8..128 on the H100 at the SEM app's
 # E = 32768 (by 0.5%) and at the PCG solve's E = 512 (3.5x eb = 32, whose
@@ -39,6 +46,15 @@ TEMPLATED_NQ = tuple(range(2, 11))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = {"sem_apply": ([_I] + [_P] * 4 + [_I] * 3 + [_P], _I)}
 _ENTRY = None   # (library, its sem_apply function), bound on first use
+
+
+def eb_refusal(E, nq, eb):
+    """Why the kernel refuses ``eb`` elements a block at (E, nq), or
+    None."""
+    if E < 1 or eb < 1 or not 1 <= nq <= MAX_NQ:
+        return (f"E={E}, eb={eb}, nq={nq}: need E, eb >= 1 and nq <= "
+                f"{MAX_NQ}")
+    return None
 
 
 def sem_route(nq) -> str:
@@ -84,9 +100,9 @@ def sem_apply(u, geo, dmat, *, eb=DEFAULT_EB):
         raise ValueError(f"{name}: shapes u {tuple(u.shape)}, geo "
                          f"{tuple(geo.shape)}, dmat {tuple(dmat.shape)} must "
                          "be (E, nq, nq, nq), (E, 7, nq, nq, nq), (nq, nq)")
-    if E < 1 or eb < 1 or not 1 <= nq <= MAX_NQ:
-        raise ValueError(f"{name}: E={E}, eb={eb}, nq={nq}: need E, eb >= 1 "
-                         f"and nq <= {MAX_NQ}")
+    refused = eb_refusal(E, nq, eb)
+    if refused:
+        raise ValueError(f"{name}: {refused}")
     path = sem_route(nq)
     out = torch.empty_like(u)
     lib, fn = _entry()
@@ -101,3 +117,49 @@ def sem_apply(u, geo, dmat, *, eb=DEFAULT_EB):
 
 sem_apply.launches = 0
 sem_apply.routes = {"templated": 0, "generic": 0}
+
+
+# ---------------------------------------------------------------------------
+# the op declaration (repro.kernels.apps.ops.sem_apply)
+# ---------------------------------------------------------------------------
+
+def _sem_plain(u, geo, dmat):
+    return apply_ref(u, geo, dmat)
+
+
+def _sem_defines(args, params):
+    u, geo, dmat = args
+    E, nq = (int(u.shape[0]), int(u.shape[1])) if u.dim() == 4 else (0, 0)
+    if (tuple(u.shape) != (E, nq, nq, nq)
+            or tuple(geo.shape) != (E, 7, nq, nq, nq)
+            or tuple(dmat.shape) != (nq, nq)):
+        raise ValueError(f"sem_apply: shapes u {tuple(u.shape)}, geo "
+                         f"{tuple(geo.shape)}, dmat {tuple(dmat.shape)}")
+    return dict(E=E, nq=nq, dtype=str(u.dtype).removeprefix("torch."))
+
+
+def _sem_example(rng):
+    E, nq = 8, 3
+    u = rng.standard_normal((E, nq, nq, nq)).astype("float32")
+    geo = rng.standard_normal((E, 7, nq, nq, nq)).astype("float32")
+    dmat = rng.standard_normal((nq, nq)).astype("float32")
+    return (u, geo, dmat), dict(eb=4)
+
+
+sem_apply_op = define_op(
+    "sem_apply",
+    kernel=sem_apply,
+    ref=_sem_plain,
+    defaults=dict(eb=DEFAULT_EB),
+    sweep=dict(eb=[1, 2, 4, 8, 16, 32, 64]),
+    derive_defines=_sem_defines,
+    # the generic kernel's (nq^2 + 4 nq^3) * 4 B; eb does not change it
+    smem=lambda d: (d["nq"] ** 2 + 4 * d["nq"] ** 3) * 4,
+    refusal=lambda d: eb_refusal(d["E"], d["nq"], d["eb"]),
+    tolerance=Tolerance(f32=(2e-4, 2e-4), scaled=True),
+    sources=("sem",),
+    exact_knobs=True,
+    example=_sem_example,
+    doc="""A u = K u + alpha M u on local dofs: u (E, nq, nq, nq), geo
+    (E, 7, nq, nq, nq), dmat (nq, nq), f32; ``eb`` elements a block.""",
+)

@@ -38,6 +38,13 @@ share one kernel, ``csrc/attn_fwd_sm90.cuh``, and the two backwards theirs,
 ``wrapper.routes`` counts the launches by route. ``flash_delta`` picks
 ``"vec"`` (16-byte loads) or ``"scalar"`` by the same kind of rule,
 ``flash_delta.route``.
+
+The op front end (``repro_torch.core``) declares ``flash_attention_op``,
+``flash_decode_op`` and ``flash_decode_paged_op`` under the JAX ops'
+names. The two decode ops are tuned over their split length (``split=``,
+a multiple of the 32-slot tile in [32, 512]), which the serving step
+builders pass on; a decode wrapper called without one takes
+:func:`decode_split` / :func:`paged_split`.
 """
 
 from __future__ import annotations
@@ -47,14 +54,16 @@ import functools
 
 import torch
 
+from ...core.op import define_op
 from .._build import check, load, on_cpu, ptr, stream
 from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
-                  paged_decode_ref, ring_bwd_ref, ring_fwd_ref)
+                  mha_ref, paged_decode_ref, ring_bwd_ref, ring_fwd_ref)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_delta", "flash_bwd", "flash_decode", "decode_split",
            "paged_decode_attention", "paged_split", "ring_flash_fwd",
-           "ring_flash_bwd", "route"]
+           "ring_flash_bwd", "route", "split_refusal", "flash_attention_op",
+           "flash_decode_op", "flash_decode_paged_op"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_ELEMS = (4, 8)            # elements a 16-byte vector, by dtype code
@@ -463,7 +472,7 @@ def _decode_entry():
 
 
 def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
-                 sm_scale=None):
+                 sm_scale=None, split=None):
     """q (B, H, 1, D) against a contiguous cache k, v (B, Hk, S, D) ->
     (B, H, 1, D) in q's dtype. ``kv_len`` (default S) puts the query at
     position kv_len - 1: an int, or a one-element int32 tensor on q's
@@ -473,10 +482,10 @@ def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
     rolling-window caches; omitted, slot i holds position i). A slot is
     visible when 0 <= pos <= kv_len - 1 and kv_len - 1 - pos < ``window``;
     a row that sees no slot gives 0 (:func:`decode_ref`). On the card the
-    kernel splits the slots by :func:`decode_split` and merges the splits'
-    partials (:func:`decode_split_ref` is its plain model). Head dims 32,
-    64, 112, 128 and 256, groups of up to 16 query heads with group * d <=
-    2048."""
+    kernel cuts the slots into ranges of ``split`` slots and merges the
+    ranges' partials (:func:`decode_split_ref` is its plain model);
+    ``split`` defaults to :func:`decode_split`'s. Head dims 32, 64, 112,
+    128 and 256, groups of up to 16 query heads with group * d <= 2048."""
     name = "flash_decode"
     dev_len = torch.is_tensor(kv_len)
     if on_cpu(name, q, k, v, slot_pos, kv_len if dev_len else None):
@@ -486,7 +495,12 @@ def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
     _decode_check(name, q, k, v, kv_len, slot_pos)
     b, h, _, d = q.shape
     hk, skv = k.shape[1], k.shape[2]
-    split, nsplit = decode_split(b, hk, skv)
+    if split is None:
+        split = decode_split(b, hk, skv)[0]
+    refused = split_refusal(split)
+    if refused:
+        raise ValueError(f"{name}: {refused}")
+    nsplit = -(-skv // split)
     o = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     ws = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
                      device=q.device)
@@ -506,6 +520,16 @@ def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
 
 
 flash_decode.launches = 0
+
+
+def split_refusal(split):
+    """Why the decode kernels refuse a split of ``split`` slots (they take
+    a multiple of the 32-slot tile in [32, 512]), or None."""
+    if (not isinstance(split, int) or split % _PAGED_TILE
+            or not _PAGED_TILE <= split <= _PAGED_MAX_SPLIT):
+        return (f"split {split!r}: the kernel takes a multiple of "
+                f"{_PAGED_TILE} slots in [{_PAGED_TILE}, {_PAGED_MAX_SPLIT}]")
+    return None
 
 
 @functools.lru_cache(maxsize=64)
@@ -542,16 +566,17 @@ def paged_split(b, hk, nsp, page):
 
 
 def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
-                           pos_pages, sm_scale=None):
+                           pos_pages, sm_scale=None, split=None):
     """q (B, H, 1, D) against page pools k/v (P, Hk, page, D), read through
     ``block_table`` (B, n_seq_pages) i32; ``kv_len`` (B,) i32 puts each
     query at position kv_len - 1; ``pos_pages`` (P, page) i32 holds each
     pool slot's absolute position (-1 = empty). A slot is visible when
     0 <= pos <= kv_len - 1. Returns (B, H, 1, D) in q's dtype. On the card
-    the kernel splits each sequence's slots by :func:`paged_split` and
-    merges the splits' partials (:func:`paged_decode_split_ref` is its
-    plain model). Head dims 32, 64, 128 and 256, groups of up to 16 query
-    heads with group * d <= 2048."""
+    the kernel cuts each sequence's slots into ranges of ``split`` slots
+    and merges the ranges' partials (:func:`paged_decode_split_ref` is its
+    plain model); ``split`` defaults to :func:`paged_split`'s. Head dims
+    32, 64, 128 and 256, groups of up to 16 query heads with group * d <=
+    2048."""
     name = "paged_decode_attention"
     if on_cpu(name, q, k_pages, v_pages, block_table, kv_len, pos_pages):
         return paged_decode_ref(q, k_pages, v_pages, block_table=block_table,
@@ -586,7 +611,12 @@ def paged_decode_attention(q, k_pages, v_pages, *, block_table, kv_len,
     if sm_scale is None:
         sm_scale = 1.0 / d ** 0.5
     nsp = block_table.shape[1]
-    split, nsplit = paged_split(b, hk, nsp, page)
+    if split is None:
+        split = paged_split(b, hk, nsp, page)[0]
+    refused = split_refusal(split)
+    if refused:
+        raise ValueError(f"{name}: {refused}")
+    nsplit = -(-(nsp * page) // split)
     o = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
     ws = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
                      device=q.device)
@@ -721,3 +751,152 @@ def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,
 
 ring_flash_bwd.launches = 0
 ring_flash_bwd.routes = {"wgmma": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------------------
+# the op declarations (repro.kernels.flash_attention.ops)
+# ---------------------------------------------------------------------------
+
+def _dtype_name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
+def _decode_problem(q_shape, k_shape, dtype, window):
+    """flash_decode's tuning problem (what a split winner depends on)."""
+    b, h, _, d = q_shape
+    return dict(b=int(b), h=int(h), hk=int(k_shape[1]), skv=int(k_shape[2]),
+                d=int(d), dtype=_dtype_name(dtype),
+                window=None if window is None else int(window))
+
+
+def _paged_problem(q_shape, pool_shape, nsp, dtype):
+    """paged decode's tuning problem (the pool's page count aside)."""
+    b, h, _, d = q_shape
+    return dict(b=int(b), h=int(h), hk=int(pool_shape[1]),
+                page=int(pool_shape[2]), nsp=int(nsp), d=int(d),
+                dtype=_dtype_name(dtype))
+
+
+def _check_decode_domain(name, q, k, v, head_dims):
+    if q.dim() != 4 or q.shape[2] != 1:
+        raise ValueError(f"{name}: expected one query token, got q "
+                         f"{tuple(q.shape)}")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                         "all three must be float32 or bfloat16")
+    d = q.shape[-1]
+    if d not in head_dims or k.shape[-1] != d or v.shape[-1] != d:
+        raise ValueError(f"{name}: head dim {d}; the kernel takes "
+                         f"{head_dims}")
+    _check_group(name, q.shape[1], k.shape[1], d)
+
+
+def _decode_defines(args, params):
+    q, k, v = args
+    _check_decode_domain("flash_decode", q, k, v, _DECODE_HEAD_DIMS)
+    if k.shape[0] != q.shape[0] or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_decode: cache k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} for q {tuple(q.shape)}")
+    return _decode_problem(q.shape, k.shape, q.dtype, params["window"])
+
+
+def _paged_defines(args, params):
+    q, kp, vp = args
+    _check_decode_domain("flash_decode_paged", q, kp, vp, _PAGED_HEAD_DIMS)
+    table = params["block_table"]
+    if table is None or table.dim() != 2 or table.shape[0] != q.shape[0]:
+        raise ValueError("flash_decode_paged: block_table= (B, n_seq_pages) "
+                         "is required")
+    return _paged_problem(q.shape, kp.shape, table.shape[1], q.dtype)
+
+
+def _split_refusal(d):
+    return split_refusal(d["split"])
+
+
+def _flash_example(rng):
+    q = rng.standard_normal((1, 4, 64, 32)).astype("float32")
+    k = rng.standard_normal((1, 2, 64, 32)).astype("float32")
+    v = rng.standard_normal((1, 2, 64, 32)).astype("float32")
+    return (q, k, v), dict(causal=True)
+
+
+def _decode_example(rng):
+    q = rng.standard_normal((1, 4, 1, 32)).astype("float32")
+    k = rng.standard_normal((1, 2, 128, 32)).astype("float32")
+    v = rng.standard_normal((1, 2, 128, 32)).astype("float32")
+    return (q, k, v), dict(kv_len=100)
+
+
+def paged_positions(block_table, kv_len, npages, page):
+    """pos_pages (npages, page) int32 for sequences whose logical page j
+    holds positions [j page, (j + 1) page) through ``block_table`` (B,
+    nsp), up to each ``kv_len``; every other slot -1 (numpy; the JAX op's
+    default)."""
+    import numpy as np
+
+    pos = np.full((npages, page), -1, np.int32)
+    for row, n in zip(np.asarray(block_table), np.asarray(kv_len)):
+        for j, p in enumerate(row):
+            if j * page < n:
+                pos[p] = np.arange(j * page, (j + 1) * page, dtype=np.int32)
+    return pos
+
+
+def _paged_example(rng):
+    import numpy as np
+
+    q = rng.standard_normal((1, 4, 1, 32)).astype("float32")
+    k = rng.standard_normal((8, 2, 32, 32)).astype("float32")
+    v = rng.standard_normal((8, 2, 32, 32)).astype("float32")
+    table = np.array([[1, 3, 2, 5]], np.int32)    # non-contiguous pages
+    kv_len = np.array([100], np.int32)
+    return (q, k, v), dict(block_table=table, kv_len=kv_len,
+                           pos_pages=paged_positions(table, kv_len, 8, 32))
+
+
+flash_attention_op = define_op(
+    "flash_attention",
+    kernel=flash_attention,
+    ref=mha_ref,
+    raw=flash_attention_fwd,
+    raw_ref=flash_fwd_ref,
+    defaults=dict(causal=True, window=None, sm_scale=None, prefix_len=0),
+    sources=("flash_fwd",),
+    example=_flash_example,
+    doc="""Differentiable flash attention (``flash_attention``); ``raw`` is
+    the forward's (o, lse). Its tiles are template constants of the
+    kernels, so it declares no sweep.""",
+)
+
+flash_decode_op = define_op(
+    "flash_decode",
+    kernel=flash_decode,
+    ref=decode_ref,
+    defaults=dict(kv_len=None, slot_pos=None, window=None, sm_scale=None,
+                  split=None),
+    sweep=dict(split=[64, 128, 256, 512]),
+    derive_defines=_decode_defines,
+    refusal=_split_refusal,
+    sources=("flash_decode",),
+    example=_decode_example,
+    doc="""One-token decode against a contiguous or rotated cache
+    (``flash_decode``); ``split`` slots a range of the split-KV kernel.""",
+)
+
+flash_decode_paged_op = define_op(
+    "flash_decode_paged",
+    kernel=paged_decode_attention,
+    ref=paged_decode_ref,
+    defaults=dict(block_table=None, kv_len=None, pos_pages=None,
+                  sm_scale=None, split=None),
+    sweep=dict(split=[32, 64, 128, 256, 512]),
+    derive_defines=_paged_defines,
+    refusal=_split_refusal,
+    sources=("paged_decode",),
+    example=_paged_example,
+    doc="""One-token decode through a block table over page pools
+    (``paged_decode_attention``); ``split`` slots a range of the split-KV
+    kernel. The page size stays the pool's layout (the engine's), unlike
+    the JAX op, whose block size is the page.""",
+)

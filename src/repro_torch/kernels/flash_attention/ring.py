@@ -28,6 +28,12 @@ route (bf16 whose rows the kernel's 16-byte copies can read), 32 and 64 on
 the CUDA-core route (f32). Asked for at another head dim,
 :func:`ring_flash_attention` raises before its first launch (as
 ``flash_attention`` does) instead of failing inside ``backward``.
+
+``ring_flash_op`` declares one ring step (o of ``ring_flash_fwd``; ``raw``
+gives (o, lse)) for the op front end (``repro_torch.core``) under the JAX
+op's name. The step kernel's tiles are template constants, so it declares
+no sweep; the JAX op's mesh schedule (``mesh=``) waits for the port's
+mesh.
 """
 
 from __future__ import annotations
@@ -35,11 +41,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ...core.op import define_op
 from .._build import on_cpu
 from .ops import (RING_BWD_HEAD_DIMS, _grad_asked, flash_delta,
                   ring_flash_bwd, ring_flash_fwd, route)
+from .ref import ring_fwd_ref
 
-__all__ = ["ring_flash_attention", "ring_merge"]
+__all__ = ["ring_flash_attention", "ring_merge", "ring_flash_op"]
 
 _NEG_INF = float("-inf")
 
@@ -224,3 +232,43 @@ def ring_flash_attention(q, k, v, *, mesh=None, mesh_axis="model",
     return _ring(q, ((k[:, :, t * c:(t + 1) * c], v[:, :, t * c:(t + 1) * c],
                       skv - sq, t * c) for t in range(n)), kw)
 
+
+
+# ---------------------------------------------------------------------------
+# the op declaration (repro.kernels.flash_attention.ring.ring_flash)
+# ---------------------------------------------------------------------------
+
+def _ring_step_raw(q, k, v, *, q_start, k_start, **kw):
+    return ring_flash_fwd(q, k, v, q_start, k_start, **kw)
+
+
+def _ring_step_raw_ref(q, k, v, *, q_start, k_start, **kw):
+    return ring_fwd_ref(q, k, v, q_start, k_start, **kw)
+
+
+def _ring_example(rng):
+    import numpy as np
+
+    q = rng.standard_normal((1, 4, 64, 32)).astype("float32")
+    k = rng.standard_normal((1, 2, 64, 32)).astype("float32")
+    v = rng.standard_normal((1, 2, 64, 32)).astype("float32")
+    # the query shard at positions 32..95 against the chunk at 0..63: part
+    # of the chunk lies after some of the queries
+    return (q, k, v), dict(q_start=np.full((1, 1), 32, np.int32),
+                           k_start=np.zeros((1, 1), np.int32), causal=True)
+
+
+ring_flash_op = define_op(
+    "ring_flash",
+    kernel=lambda *a, **kw: _ring_step_raw(*a, **kw)[0],
+    ref=lambda *a, **kw: _ring_step_raw_ref(*a, **kw)[0],
+    raw=_ring_step_raw,
+    raw_ref=_ring_step_raw_ref,
+    defaults=dict(q_start=None, k_start=None, causal=True, window=None,
+                  sm_scale=None, prefix_len=0),
+    sources=("ring_flash",),
+    example=_ring_example,
+    doc="""One ring step: q (B, H, Sq, D) at absolute positions q_start + i
+    against one kv chunk at k_start + j ((1, 1) int32 offsets) -> o,
+    normalised by the chunk's own softmax sum.""",
+)

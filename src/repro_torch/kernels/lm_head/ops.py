@@ -25,6 +25,11 @@ hi/lo bf16 planes) or the CUDA-core route (``lm_head_ce_fwd``,
 :func:`head_route`, the one layout rule of the three.
 ``lm_head_ce.launches`` and ``lm_head_bwd.launches`` count every call,
 ``.routes`` counts them by route.
+
+``lm_head_logits_op`` and ``lm_head_ce_op`` declare both for the op front
+end (``repro_torch.core``) under the JAX ops' names. The JAX ops sweep
+their row, vocab and k blocks; the kernels' TMA + wgmma tiles are template
+constants, so they declare no sweep.
 """
 
 from __future__ import annotations
@@ -33,11 +38,13 @@ import ctypes
 
 import torch
 
+from ...core.op import define_op
 from .._build import check, load, on_cpu, ptr, stream, tma_ok
-from .ref import lm_head_bwd_ref, lm_head_ce_stats_ref, lm_head_logits_ref
+from .ref import (lm_head_bwd_ref, lm_head_ce_ref, lm_head_ce_stats_ref,
+                  lm_head_logits_ref, masked_logits_ref)
 
 __all__ = ["lm_head_logits", "lm_head_ce", "lm_head_bwd", "head_route",
-           "bwd_route"]
+           "bwd_route", "lm_head_logits_op", "lm_head_ce_op"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -263,3 +270,48 @@ def lm_head_ce(x, w, labels, *, vocab=None):
 lm_head_ce.raw = _ce_raw
 lm_head_ce.launches = 0
 lm_head_ce.routes = {"wgmma": 0, "simt": 0}
+
+
+# ---------------------------------------------------------------------------
+# the op declarations (repro.kernels.lm_head.ops)
+# ---------------------------------------------------------------------------
+
+def _ce_example(rng):
+    x = rng.standard_normal((24, 16)).astype("float32")
+    w = rng.standard_normal((16, 64)).astype("float32")
+    labels = rng.randint(0, 50, (24, 1)).astype("int32")
+    return (x, w, labels), dict(vocab=50)
+
+
+def _logits_example(rng):
+    x = rng.standard_normal((8, 16)).astype("float32")
+    w = rng.standard_normal((16, 64)).astype("float32")
+    return (x, w), dict(vocab=50)
+
+
+lm_head_ce_op = define_op(
+    "lm_head_ce",
+    kernel=lm_head_ce,
+    ref=lm_head_ce_ref,
+    raw=_ce_raw,
+    raw_ref=lm_head_ce_stats_ref,
+    defaults=dict(vocab=None),
+    sources=("lm_head_ce",),
+    example=_ce_example,
+    doc="""Fused LM-head cross-entropy (``lm_head_ce``): per-row NLL (R,)
+    of x (R, d) @ w (d, V) against labels (R, 1) int32 over the true
+    ``vocab``; ``raw`` gives (lse, gold).""",
+)
+
+lm_head_logits_op = define_op(
+    "lm_head_logits",
+    kernel=lm_head_logits,
+    ref=masked_logits_ref,
+    raw=_raw,
+    raw_ref=lm_head_logits_ref,
+    defaults=dict(vocab=None),
+    sources=("lm_head",),
+    example=_logits_example,
+    doc="""Decode-head logits (``lm_head_logits``): x (R, d) @ w (d, V), f32,
+    columns >= ``vocab`` masked; ``raw`` gives (logits, max, argmax).""",
+)

@@ -12,6 +12,10 @@ The JAX op's host path fits its TPU blocks to divisors of the shapes and
 raises when that degrades them into a grid too large to build ("degraded
 blocks"); that guard belongs to the TPU grid and is not ported: the Hopper
 kernel masks ragged tiles itself and takes any M, N and K.
+
+``matmul_op`` declares it for the op front end (``repro_torch.core``)
+under the JAX op's name. Its tiles are template constants (the JAX op
+sweeps bm, bn, bk), so it declares no sweep.
 """
 
 from __future__ import annotations
@@ -20,10 +24,11 @@ import ctypes
 
 import torch
 
+from ...core.op import define_op
 from .._build import check, load, on_cpu, ptr, stream, tma_ok
 from .ref import matmul_ref
 
-__all__ = ["matmul", "route"]
+__all__ = ["matmul", "matmul_op", "route"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -88,3 +93,20 @@ def matmul(a, b, *, out_dtype=None):
 
 matmul.launches = 0
 matmul.routes = {"wgmma": 0, "simt": 0}
+
+
+def _example(rng):
+    a = rng.standard_normal((48, 64)).astype("float32")
+    b = rng.standard_normal((64, 32)).astype("float32")
+    return (a, b), {}
+
+
+matmul_op = define_op(
+    "matmul",
+    kernel=matmul,
+    ref=matmul_ref,
+    defaults=dict(out_dtype=None),
+    sources=("matmul",),
+    example=_example,
+    doc="a (M, K) @ b (K, N) with f32 sums (``matmul``).",
+)

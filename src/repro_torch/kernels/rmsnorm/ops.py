@@ -16,6 +16,10 @@ when a gradient is asked. Its backward is autograd through the plain
 :func:`rmsnorm_ref` for x and w, as the JAX op's
 ``vjp=oracle_vjp(rmsnorm_ref, ...)`` is (the JAX package has no rmsnorm
 backward kernel).
+
+``rmsnorm_op`` declares it for the op front end (``repro_torch.core``)
+under the JAX op's name. The JAX op sweeps block_rows; here a warp takes a
+row and the variant follows the layout, so it declares no sweep.
 """
 
 from __future__ import annotations
@@ -24,10 +28,11 @@ import ctypes
 
 import torch
 
+from ...core.op import define_op
 from .._build import check, load, on_cpu, stream
 from .ref import rmsnorm_ref
 
-__all__ = ["rmsnorm", "route"]
+__all__ = ["rmsnorm", "rmsnorm_op", "route"]
 
 _CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ESIZE = (4, 2)         # bytes of an element, by code
@@ -124,3 +129,20 @@ def rmsnorm(x, w, *, eps=1e-6):
 
 rmsnorm.launches = 0
 rmsnorm.routes = {"vec": 0, "elem": 0}
+
+
+def _example(rng):
+    x = rng.standard_normal((3, 20, 64)).astype("float32")
+    w = rng.standard_normal((64,)).astype("float32")
+    return (x, w), dict(eps=1e-6)
+
+
+rmsnorm_op = define_op(
+    "rmsnorm",
+    kernel=rmsnorm,
+    ref=rmsnorm_ref,
+    defaults=dict(eps=1e-6),
+    sources=("rmsnorm",),
+    example=_example,
+    doc="x (..., d) normalised over its last axis times w (d,) (``rmsnorm``).",
+)

@@ -9,6 +9,11 @@ needs, and ``ssm_scan`` its y: a ``torch.autograd.Function`` whose forward
 is ``ssm_scan_fwd`` and whose backward is autograd through the plain
 version, as the JAX op's ``OpVJP`` differentiates its oracle. Both devices
 go through the same Function.
+
+``ssm_scan_op`` declares ``ssm_scan`` for the op front end
+(``repro_torch.core``) under the JAX op's name (``raw``: (y, hT)). The
+JAX op sweeps chunk and d_block; the kernel's runs and channel blocks are
+template constants, so it declares no sweep.
 """
 
 from __future__ import annotations
@@ -17,10 +22,11 @@ import ctypes
 
 import torch
 
+from ...core.op import define_op
 from .._build import check, load, on_cpu, ptr, stream
 from .ref import selective_scan_ref
 
-__all__ = ["ssm_scan", "ssm_scan_fwd", "ssm_scan_state"]
+__all__ = ["ssm_scan", "ssm_scan_fwd", "ssm_scan_state", "ssm_scan_op"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _STATES = (4, 8, 16, 64)
@@ -124,3 +130,35 @@ def ssm_scan_state(x, delta, A, B, C, D, *, h0=None):
 def ssm_scan(x, delta, A, B, C, D, *, h0=None):
     """Differentiable selective scan: the y of :func:`ssm_scan_state`."""
     return ssm_scan_state(x, delta, A, B, C, D, h0=h0)[0]
+
+
+def _scan_y_ref(x, delta, A, B, C, D, *, h0=None):
+    return selective_scan_ref(x, delta, A, B, C, D, h0=h0)[0]
+
+
+def _example(rng):
+    import numpy as np
+
+    bt, L, dm, n = 1, 64, 16, 4
+    x = rng.standard_normal((bt, L, dm)).astype("float32")
+    delta = (np.log1p(np.exp(rng.standard_normal((bt, L, dm)))) * 0.1
+             ).astype("float32")
+    A = -(np.abs(rng.standard_normal((dm, n))) + 0.1).astype("float32")
+    B = rng.standard_normal((bt, L, n)).astype("float32")
+    C = rng.standard_normal((bt, L, n)).astype("float32")
+    D = rng.standard_normal((dm,)).astype("float32")
+    return (x, delta, A, B, C, D), {}
+
+
+ssm_scan_op = define_op(
+    "ssm_scan",
+    kernel=ssm_scan,
+    ref=_scan_y_ref,
+    raw=ssm_scan_fwd,
+    raw_ref=selective_scan_ref,
+    defaults=dict(h0=None),
+    sources=("ssm_scan",),
+    example=_example,
+    doc="""Differentiable selective scan y (``ssm_scan``): x, delta (Bt, L,
+    Dm); A (Dm, N); B, C (Bt, L, N); D (Dm,); ``raw`` gives (y, hT).""",
+)

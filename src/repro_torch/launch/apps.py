@@ -10,7 +10,10 @@ Each runs on the CUDA card unless ``--device cpu`` is given, prints the
 examples' lines and asserts what they assert: the FD wave within 5e-2 of
 the analytic standing wave, the SEM solve within 0.05 of the manufactured
 solution, and the SWE run finite, with h in (0.9, 1.2) and the water mass
-conserved to 1e-5 relative.
+conserved to 1e-5 relative. Their kernels' tiles (``block``, ``eb``) are
+the drivers': a persisted tune winner for the app's shapes
+(``python -m repro_torch.tune_cli --apps``), else the ops' defaults; each
+line says which.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..apps.dg_swe import (SWESolver, dg_flops_per_element,
 from ..apps.fd2d import FDWave
 from ..apps.sem import SEMOperator, gather, make_box_mesh, scatter_add
 
-__all__ = ["pcg", "fd_wave", "sem_solve", "swe_run", "main"]
+__all__ = ["pcg", "fd_wave", "sem_solve", "swe_run", "hump_state", "main"]
 
 
 def _sync(device):
@@ -63,31 +66,38 @@ def pcg(apply_A, b, M_inv, *, tol=1e-8, maxiter=200):
     return x, maxiter
 
 
-def fd_wave(*, size=256, steps=200, device=None, log=print):
+def _knob(value, tuned):
+    return f"{value} ({'tuned' if tuned else 'default'})"
+
+
+def fd_wave(*, size=256, steps=200, radius=2, block=None, device=None,
+            log=print):
     """The FD acoustic wave against the analytic standing wave, at the
     example's radius 2 and cfl 0.3 (``examples/fd_wave.py``). Returns the
     app and its numbers."""
-    app = FDWave(width=size, height=size, radius=2, cfl=0.3, device=device)
+    app = FDWave(width=size, height=size, radius=radius, cfl=0.3,
+                 block=block, device=device)
     _sync(app.device)
     t0 = time.perf_counter()
     app.run(steps)
     wall = time.perf_counter() - t0
     err = float(np.abs(app.solution - app.analytic()).max())
     mnodes = size * size * steps / wall / 1e6
-    log(f"[fd] {app.device.type}: {size}x{size}, radius 2, {steps} "
-        f"steps, t={app.current_time:.3f} max|err|={err:.2e}  "
+    log(f"[fd] {app.device.type}: {size}x{size}, radius {radius}, tile "
+        f"{_knob(app.block, app.tuned)}, {steps} steps, "
+        f"t={app.current_time:.3f} max|err|={err:.2e}  "
         f"{mnodes:8.1f} MNodes/s")
     _require(err < 5e-2, f"FD wave diverged from the analytic solution "
              f"({err:.3e})")
     return dict(app=app, err=err, mnodes_s=mnodes, wall_s=wall)
 
 
-def sem_solve(*, n=4, elems=3, device=None, log=print):
+def sem_solve(*, n=4, elems=3, eb=None, device=None, log=print):
     """-div(grad u) + u = f on [-1,1]^3 with homogeneous Neumann BC and the
     manufactured solution u* = cos(pi x) cos(pi y) cos(pi z), solved by PCG
     on the assembled SEM operator (``examples/sem_solve.py``)."""
     e = elems
-    op = SEMOperator(ex=e, ey=e, ez=e, n=n, deform=0.0, alpha=1.0,
+    op = SEMOperator(ex=e, ey=e, ez=e, n=n, deform=0.0, alpha=1.0, eb=eb,
                      device=device)
     dev = op.device
     (x, y, z), _, _ = make_box_mesh(e, e, e, n, deform=0.0)
@@ -109,24 +119,31 @@ def sem_solve(*, n=4, elems=3, device=None, log=print):
     wall = time.perf_counter() - t0
     u_loc = gather(u, op.gid_t).cpu().numpy()
     err = float(np.abs(u_loc - u_star).max())
-    log(f"[sem] {dev.type}: N={n}, E={op.E}, dofs={op.nglob}: PCG converged "
-        f"in {iters} iters, max|u - u*| = {err:.3e} ({wall:.3f}s)")
+    log(f"[sem] {dev.type}: N={n}, E={op.E}, eb {_knob(op.eb, op.tuned)}, "
+        f"dofs={op.nglob}: PCG converged in {iters} iters, max|u - u*| = "
+        f"{err:.3e} ({wall:.3f}s)")
     _require(err < 0.05, "SEM solve did not converge to the manufactured "
              f"solution ({err:.3e})")
     return dict(op=op, u=u, iters=iters, err=err, wall_s=wall)
 
 
-def swe_run(*, nx=8, n=3, steps=50, device=None, log=print):
-    """The DG shallow-water solver from a Gaussian hump at rest, between
-    reflective walls (the state of ``test_swe_timestepping_stable_and_
-    conservative``), stepped by :func:`stable_dt` of the start state.
-    Returns the solver, the final state and its numbers."""
-    sol = SWESolver(nx=nx, ny=nx, n=n, jitter=0.0, device=device)
-    dev = sol.device
+def hump_state(sol):
+    """A Gaussian hump of water at rest on ``sol``'s mesh (the state of
+    ``test_swe_timestepping_stable_and_conservative``), f32 on its
+    device."""
     x, y = sol.mesh["x"], sol.mesh["y"]
     h0 = 1.0 + 0.1 * np.exp(-20 * (x ** 2 + y ** 2))
-    Q = torch.from_numpy(np.stack([h0, 0 * h0, 0 * h0], -1).astype(
-        np.float32)).to(dev)
+    return torch.from_numpy(np.stack([h0, 0 * h0, 0 * h0], -1).astype(
+        np.float32)).to(sol.device)
+
+
+def swe_run(*, nx=8, n=3, steps=50, eb=None, device=None, log=print):
+    """The DG shallow-water solver from :func:`hump_state`, between
+    reflective walls, stepped by :func:`stable_dt` of the start state.
+    Returns the solver, the final state and its numbers."""
+    sol = SWESolver(nx=nx, ny=nx, n=n, jitter=0.0, eb=eb, device=device)
+    dev = sol.device
+    Q = hump_state(sol)
     dt = stable_dt(sol, Q)
     m0 = sol.mass(Q)
     _sync(dev)
@@ -141,7 +158,9 @@ def swe_run(*, nx=8, n=3, steps=50, device=None, log=print):
     flops = 5 * steps * sol.E * (dg_flops_per_element(sol.np_)
                                  + dg_surface_flops_per_element(sol.np_,
                                                                 sol.nfp3))
-    log(f"[swe] {dev.type}: N={n}, E={sol.E}, {steps} LSERK steps of "
+    log(f"[swe] {dev.type}: N={n}, E={sol.E}, eb volume "
+        f"{_knob(sol.eb, sol.tuned)}, surface "
+        f"{_knob(sol.surf_eb, sol.surf_tuned)}, {steps} LSERK steps of "
         f"dt={dt:.4e}: {1e3 * wall / steps:.3f} ms/step, "
         f"{flops / wall / 1e9:.2f} GFLOP/s (kernel FLOPs), mass drift "
         f"{drift:.2e}, h in [{hmin:.4f}, {hmax:.4f}]")

@@ -9,8 +9,11 @@ a contiguous cache, every sequence in lockstep (decode attention on the
 ``flash_decode`` kernel). The step comes from
 ``parallel.build_serve_step``, built after the prefill: on the card a CUDA
 graph captured at the second step and replayed after it, dropped when the
-call returns. The prefill and sampling stay eager. The static loop has no
-mesh and adopts no tuned block sizes (neither is ported).
+call returns. The prefill and sampling stay eager. Both paths adopt the
+persisted tune winner of their decode attention for their shapes (the
+engine its paged decode split, the static loop ``flash_decode``'s;
+``launch.tuning.adopt``), pass it to their step builder and return it as
+``stats["tuned"]``. The static loop has no mesh (not ported).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b \
       --reduced --batch 4 --prompt-len 16 --gen 32 [--device cpu] \
@@ -26,11 +29,22 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
+from repro_torch.launch import tuning
 from repro_torch.models import LM
 from repro_torch.parallel.steps import build_serve_step
 from repro_torch.serving import Engine, sample
 
-__all__ = ["generate", "main"]
+__all__ = ["apply_tuned_winners", "generate", "main"]
+
+
+def apply_tuned_winners(cfg, batch: int, prompt_len: int, max_len: int, *,
+                        device, page_size: int | None = None, ops=None):
+    """The persisted tune winners of a serving config on ``device``
+    (``launch.tuning.adopt``, kind "serve"; ``ops`` the op names to look
+    up, default every probe's): a lookup; the caller passes them on."""
+    return tuning.adopt(cfg, dict(batch=batch, prompt_len=prompt_len,
+                                  max_len=max_len, page_size=page_size),
+                        kind="serve", device=device, ops=ops)
 
 
 def _pad_token(eos_id, pad_id):
@@ -89,7 +103,8 @@ def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
     return out, {"prefill_s": 0.0, "decode_s": decode_s,
                  "tokens_per_s": n_gen / max(decode_s, 1e-9),
                  "engine": True, "preempted": preempted,
-                 "page_size": eng.page_size, "device": str(model.device)}
+                 "page_size": eng.page_size, "tuned": eng.tuned,
+                 "device": str(model.device)}
 
 
 def _generate_static(model: LM, params, prompts: np.ndarray, *,
@@ -122,7 +137,11 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
         logits, cache = model.prefill(params, toks, max_len=max_len)
         tok = model.greedy_token(logits).cpu().numpy()
     prefill_s = time.perf_counter() - t0
-    step, _ = build_serve_step(model, batch=b, greedy=greedy)
+    # the persisted decode split, passed to the step (its graph keeps it)
+    tuned = apply_tuned_winners(cfg, b, plen, max_len, device=model.device,
+                                ops=("flash_decode",))
+    step, _ = build_serve_step(model, batch=b, greedy=greedy,
+                               split=tuned.knob("flash_decode", "split"))
 
     out = np.zeros((b, gen_tokens), np.int32)
     done = np.zeros((b,), bool)
@@ -147,7 +166,7 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
     n_gen = out.shape[1] * b
     return out, {"prefill_s": prefill_s, "decode_s": decode_s,
                  "tokens_per_s": n_gen / max(decode_s, 1e-9),
-                 "engine": False, "device": str(model.device)}
+                 "engine": False, "tuned": tuned, "device": str(model.device)}
 
 
 def main(argv=None):
@@ -180,6 +199,9 @@ def main(argv=None):
     out, stats = generate(model, params, prompts, gen_tokens=args.gen,
                           engine=args.engine, greedy=greedy, rng=rng,
                           temperature=1.0 if greedy else args.temperature)
+    tuned = stats["tuned"]
+    if tuned or tuned.refused or tuned.skipped:
+        print(f"[serve] tune winners: {tuned.report()}")
     path = "paged-engine" if stats["engine"] else "static"
     print(f"[serve] {path} on {stats['device']} batch={args.batch} "
           f"prompt={args.prompt_len} gen={out.shape[1]}: prefill "

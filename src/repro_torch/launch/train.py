@@ -10,8 +10,12 @@ loop draws them), async atomic checkpointing + resume, the straggler
 watchdog, and failure injection with automatic restore-retry. The model's
 ``remat`` option (``--remat``) rematerialises its layers; gradient
 accumulation is ``build_train_step``'s ``accum_steps`` (the loop, as
-JAX's, steps whole batches). Autotune adoption and sharded (zero1/fsdp)
-optimizer state are not ported yet.
+JAX's, steps whole batches). The loop looks up the persisted tune
+winners of its shapes before its step is built (:func:`apply_tuned_winners`;
+``launch.tuning.adopt``, kind "train") and returns them as ``"tuned"``; no
+op of the train step takes a launch-time knob on Hopper yet (their tiles
+are template constants), so none reaches the step.
+Sharded (zero1/fsdp) optimizer state is not ported yet.
 
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 3 [--remat dots]
@@ -31,14 +35,23 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data import Prefetcher, SyntheticLMData
 from repro_torch.device import resolve_device
+from repro_torch.launch import tuning
 from repro_torch.models import LM
 from repro_torch.optim import AdamW, WarmupCosine
 from repro_torch.parallel.steps import build_train_step, train_step
 from repro_torch.runtime import ChaosError, FailureInjector, StepWatchdog
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["TrainLoop", "main", "prefix_embeddings", "train_step",
-           "validate_host_batch"]
+__all__ = ["TrainLoop", "apply_tuned_winners", "main", "prefix_embeddings",
+           "train_step", "validate_host_batch"]
+
+
+def apply_tuned_winners(cfg, global_batch: int, seq_len: int, *, device):
+    """The persisted tune winners of a train step on ``device``
+    (``launch.tuning.adopt``, kind "train"): a lookup."""
+    return tuning.adopt(cfg, dict(global_batch=global_batch,
+                                  seq_len=seq_len),
+                        kind="train", device=device)
 
 
 def validate_host_batch(tokens, vocab_size: int):
@@ -126,6 +139,12 @@ class TrainLoop:
         optimizer = AdamW(schedule=WarmupCosine(
             peak_lr=self.peak_lr, warmup_steps=max(self.steps // 20, 5),
             total_steps=self.steps))
+        # persisted tune winners before the step is built (a graph keeps
+        # the knobs it was captured with)
+        tuned = apply_tuned_winners(cfg, self.global_batch, self.seq_len,
+                                    device=dev)
+        if self.verbose and (tuned or tuned.refused):
+            print(f"[train] tune winners: {tuned.report()}")
         step_fn, _ = build_train_step(model, optimizer)
         data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=self.seq_len,
                                global_batch=self.global_batch, seed=self.seed)
@@ -205,7 +224,7 @@ class TrainLoop:
             prefetch.close()
         return {"history": history, "params": params, "opt": opt_state,
                 "straggler_flags": watchdog.flagged, "final_step": step,
-                "tuned": {}}
+                "tuned": tuned}
 
 
 def main(argv=None):

@@ -203,14 +203,14 @@ def _position(pos, device):
     return torch.full((), pos, dtype=torch.int32, device=device)
 
 
-def gqa_decode(params, x, cache, cfg, *, pos):
+def gqa_decode(params, x, cache, cfg, *, pos, split=None):
     """One-token decode at position ``pos`` (the tokens already in the
     cache: a 0-dim int32 tensor on x's device, or a host int). x: (B, 1,
     d_model). Writes the new k/v into ``cache`` in place: at slot
     ``pos % m`` of a rolling window (stamping ``slot_pos``), else at
     ``min(pos, m - 1)`` (decoding past the cache is rejected by the model
     before it gets here); the slot and ``kv_len`` stay on the device.
-    Returns (y, cache)."""
+    ``split`` goes to ``flash_decode``. Returns (y, cache)."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = _position(pos, x.device)
@@ -232,7 +232,7 @@ def gqa_decode(params, x, cache, cfg, *, pos):
     cache["v"].index_copy_(2, idx, v1.to(cache["v"].dtype))
     o = flash_decode(q, cache["k"], cache["v"], kv_len=kv_len.reshape(1),
                      window=cfg.window or None, slot_pos=slot_pos,
-                     sm_scale=hd ** -0.5)
+                     sm_scale=hd ** -0.5, split=split)
     y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
     return y, cache
 
@@ -247,7 +247,7 @@ def gqa_paged_cache_init(cfg, num_pages, page_size, dtype, device):
 
 
 def gqa_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
-                     page_ids, offs):
+                     page_ids, offs, split=None):
     """One-token decode over a PAGED cache. x: (B, 1, d_model).
 
     ``table`` (B, nsp) i32 names each sequence's pages in logical order,
@@ -255,7 +255,8 @@ def gqa_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
     (P, page) i32 the pool-slot -> position map (already stamped with the
     new token), ``page_ids``/``offs`` (B,) the pool coordinates of this
     step's write. The new k/v are written into the pools IN PLACE (JAX
-    returns new pools); returns (y, cache)."""
+    returns new pools); ``split`` goes to ``paged_decode_attention``.
+    Returns (y, cache)."""
     b = x.shape[0]
     q, k1, v1 = _qkv(params, x, cfg)
     if cfg.pos_embed == "rope":
@@ -266,7 +267,7 @@ def gqa_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
     kp[page_ids, :, offs] = k1[:, :, 0].to(kp.dtype)
     vp[page_ids, :, offs] = v1[:, :, 0].to(vp.dtype)
     o = paged_decode_attention(q, kp, vp, block_table=table, kv_len=lens + 1,
-                               pos_pages=pos_pages)
+                               pos_pages=pos_pages, split=split)
     y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
     return y, cache
 

@@ -114,27 +114,31 @@ def tblock_prefill(params, x, cfg, *, moe=False, dispatch="einsum",
 
 
 def tblock_decode(params, x, cache, cfg, *, pos, moe=False,
-                  dispatch="einsum"):
+                  dispatch="einsum", split=None):
     """One-token decode at position ``pos`` (the model's 0-dim device
-    ``cache["pos"]``); ``cache`` is updated in place. Returns (y, cache)."""
+    ``cache["pos"]``); ``cache`` is updated in place. ``split``: GQA
+    decode's split length (``flash_decode``'s; None its rule). Returns
+    (y, cache)."""
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, cache = attn.mla_decode(params["attn"], h, cache, cfg, pos=pos)
     else:
-        a, cache = attn.gqa_decode(params["attn"], h, cache, cfg, pos=pos)
+        a, cache = attn.gqa_decode(params["attn"], h, cache, cfg, pos=pos,
+                                   split=split)
     x = x + a
     return x + _ffn(params, x, cfg, moe, dispatch)[0], cache
 
 
 def tblock_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
-                        page_ids, offs, moe=False, dispatch="einsum"):
+                        page_ids, offs, moe=False, dispatch="einsum",
+                        split=None):
     """``tblock_decode`` over a paged KV pool (GQA only: MLA's latent cache
     is not pageable, ``LM.pageable``)."""
     h = rmsnorm(x, params["norm1"], eps=cfg.norm_eps)
     a, cache = attn.gqa_paged_decode(params["attn"], h, cache, cfg,
                                      table=table, lens=lens,
                                      pos_pages=pos_pages, page_ids=page_ids,
-                                     offs=offs)
+                                     offs=offs, split=split)
     x = x + a
     return x + _ffn(params, x, cfg, moe, dispatch)[0], cache
 

@@ -562,10 +562,11 @@ class LM:
         return torch.argmax(logits[..., :self.cfg.vocab_size], dim=-1)
 
     # ------------------------------------------------------- static decoding
-    def _decode_hidden(self, params, tokens, cache):
+    def _decode_hidden(self, params, tokens, cache, split=None):
         """One decode step up to the final norm: tokens (B, 1) -> hidden
         (B, 1, d); ``cache`` is updated in place and its ``pos`` advanced
-        in place. Decoding past a positional cache is an error, not a
+        in place. ``split``: ``flash_decode``'s split length in every
+        attention layer (None: its rule). Decoding past a positional cache is an error, not a
         silent overwrite of the last slot: checked here with one read of
         ``pos`` unless the step is being captured into a CUDA graph (as JAX
         checks only a concrete ``pos``), where the compiled step counts
@@ -586,7 +587,7 @@ class LM:
                             _layer(gp, j), x, _layer(gc, j), cfg)
                     x, _ = blocks.tblock_decode(params["shared_attn"], x,
                                                 _layer(sc["attn"], i), cfg,
-                                                pos=pos)
+                                                pos=pos, split=split)
                 continue
             for i in range(spec.n):
                 if spec.kind in _MAMBA:
@@ -595,21 +596,24 @@ class LM:
                 else:
                     x, _ = blocks.tblock_decode(_layer(sp, i), x,
                                                 _layer(sc, i), cfg, pos=pos,
+                                                split=split,
                                                 **self._block_kw(spec))
         pos.add_(1)
         return rmsnorm(x, params["final_norm"], eps=cfg.norm_eps), cache
 
-    def decode_step(self, params, tokens, cache):
+    def decode_step(self, params, tokens, cache, *, split=None):
         """One token for every sequence. tokens: (B, 1). Returns (logits
-        (B, Vpad) f32, cache)."""
-        x, cache = self._decode_hidden(params, tokens, cache)
+        (B, Vpad) f32, cache). ``split``: decode attention's split length
+        (a tune winner; None: the kernel's rule)."""
+        x, cache = self._decode_hidden(params, tokens, cache, split)
         return self._logits(params, x)[:, 0], cache
 
-    def greedy_step(self, params, tokens, cache):
+    def greedy_step(self, params, tokens, cache, *, split=None):
         """One greedy decode step: tokens (B, 1) -> (next (B,), logits
         (B, Vpad) f32, cache); the argmax comes out of the fused LM-head
-        pass, or with ``fused_head=False`` from ``greedy_token``."""
-        x, cache = self._decode_hidden(params, tokens, cache)
+        pass, or with ``fused_head=False`` from ``greedy_token``.
+        ``split`` as :meth:`decode_step`'s."""
+        x, cache = self._decode_hidden(params, tokens, cache, split)
         if not self.fused_head:
             logits = self._logits(params, x)[:, 0]
             return self.greedy_token(logits), logits, cache
@@ -656,10 +660,11 @@ class LM:
                                         dtype=i32, device=dev),
                 "stacks": stacks}
 
-    def _paged_decode_hidden(self, params, tokens, cache):
+    def _paged_decode_hidden(self, params, tokens, cache, split=None):
         """One paged decode step up to the final norm; updates ``cache`` in
         place. Every slot decodes every step: idle slots carry len 0 and a
-        zero block table, writing into and reading from the null page."""
+        zero block table, writing into and reading from the null page.
+        ``split``: paged decode's split length (None: its rule)."""
         cfg = self.cfg
         table, lens = cache["table"], cache["len"]
         pos_pages = cache["pos_pages"]
@@ -681,23 +686,24 @@ class LM:
                 x, _ = blocks.tblock_paged_decode(
                     _layer(sp, i), x, _layer(sc, i), cfg, table=table,
                     lens=lens, pos_pages=pos_pages, page_ids=page_ids,
-                    offs=offs, **self._block_kw(spec))
+                    offs=offs, split=split, **self._block_kw(spec))
         x = rmsnorm(x, params["final_norm"], eps=cfg.norm_eps)
         lens += 1
         return x, cache
 
-    def paged_decode_step(self, params, tokens, cache):
+    def paged_decode_step(self, params, tokens, cache, *, split=None):
         """One paged token for every slot. tokens: (B, 1). Returns (logits
-        (B, Vpad) f32, cache)."""
-        x, cache = self._paged_decode_hidden(params, tokens, cache)
+        (B, Vpad) f32, cache). ``split``: paged decode attention's split
+        length (a tune winner; None: the kernel's rule)."""
+        x, cache = self._paged_decode_hidden(params, tokens, cache, split)
         return self._logits(params, x)[:, 0], cache
 
-    def paged_greedy_step(self, params, tokens, cache):
+    def paged_greedy_step(self, params, tokens, cache, *, split=None):
         """One paged greedy token for every slot. tokens: (B, 1). Returns
         (next (B,), logits (B, Vpad) f32, cache); the argmax comes out of
         the fused LM-head pass, or with ``fused_head=False`` from
-        ``greedy_token``."""
-        x, cache = self._paged_decode_hidden(params, tokens, cache)
+        ``greedy_token``. ``split`` as :meth:`paged_decode_step`'s."""
+        x, cache = self._paged_decode_hidden(params, tokens, cache, split)
         if not self.fused_head:
             logits = self._logits(params, x)[:, 0]
             return self.greedy_token(logits), logits, cache

@@ -15,6 +15,7 @@ length), the engine's admission scatter and sampling stay eager.
 
 from __future__ import annotations
 
+import functools
 import time
 
 import torch
@@ -329,34 +330,43 @@ def _serve(model, method, *, batch, capacity=None):
     return step
 
 
-def build_serve_step(model, *, batch, greedy=True):
+def _with_split(method, split):
+    return method if split is None else functools.partial(method,
+                                                          split=split)
+
+
+def build_serve_step(model, *, batch, greedy=True, split=None):
     """One-token decode step over a static (contiguous) cache:
     ``step(params, cache, tokens (B, 1))`` -> ``model.greedy_step``'s
     (next (B,), logits (B, Vpad), cache) with ``greedy=True``, else
     ``model.decode_step``'s (logits, cache), leaving sampling to the
-    caller. On the card a :class:`GraphStep` that checks the cache's
-    capacity on the host; on the CPU the method, eagerly. Returns (step,
-    info). It takes no mesh: parameter and cache shardings come with
-    tensor parallelism."""
+    caller. ``split``: ``flash_decode``'s split length in every step (a
+    tune winner; None: the kernel's rule); a captured graph keeps it. On
+    the card a :class:`GraphStep` that checks the cache's capacity on the
+    host; on the CPU the method, eagerly. Returns (step, info). It takes
+    no mesh: parameter and cache shardings come with tensor
+    parallelism."""
     method = model.greedy_step if greedy else model.decode_step
-    step = _serve(model, method, batch=batch, capacity=model.cache_capacity)
+    step = _serve(model, _with_split(method, split), batch=batch,
+                  capacity=model.cache_capacity)
     return step, {"greedy": greedy,
                   "cuda_graph": isinstance(step, GraphStep)}
 
 
-def build_paged_serve_step(model, *, batch, greedy=True):
+def build_paged_serve_step(model, *, batch, greedy=True, split=None):
     """One-token decode step over PAGED KV pools (the continuous-batching
     engine's inner loop): ``step(params, cache, tokens (B, 1))`` ->
     ``model.paged_greedy_step``'s (next, logits, cache) with
     ``greedy=True``, else ``model.paged_decode_step``'s (logits, cache).
     The host mutates only the control state (tables, lengths, position
-    rows) between steps, in place, through the serving scheduler. A
-    :class:`GraphStep` on the card; the method, eagerly, on the CPU.
+    rows) between steps, in place, through the serving scheduler.
+    ``split``: paged decode's split length (as :func:`build_serve_step`'s).
+    A :class:`GraphStep` on the card; the method, eagerly, on the CPU.
     Returns (step, info). It takes no mesh, as :func:`build_serve_step`."""
     if not model.pageable:
         raise ValueError("build_paged_serve_step: model is not pageable "
                          "(see LM.pageable)")
     method = model.paged_greedy_step if greedy else model.paged_decode_step
-    step = _serve(model, method, batch=batch)
+    step = _serve(model, _with_split(method, split), batch=batch)
     return step, {"greedy": greedy,
                   "cuda_graph": isinstance(step, GraphStep)}

@@ -22,6 +22,16 @@ at most ``max_new`` tokens. ``greedy=False`` samples every token (the
 admission's too) from ``softmax(logits / temperature)`` with ``rng``, a
 ``torch.Generator`` on the model's device, eagerly, from the sampling
 step's logits before the next step overwrites them.
+
+Autotune adoption (``launch.tuning.adopt``, kind "serve") runs in the
+constructor: the persisted ``flash_decode_paged`` winner for the engine's
+own pool shapes, if any, is the split length its step builder passes to
+every paged decode launch (a CUDA graph keeps the split it was captured
+with). The page size stays the pool's layout (``page_size``, default
+``fit_block(512, max_len)``). That differs from the JAX engine, whose page
+size is ``flash_decode``'s tuned ``block_kv``. ``engine.tuned`` holds what
+was adopted (and what was refused or skipped); ``use_tuned=False`` looks
+nothing up and runs the kernel's rule.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import fit_block
+from repro_torch.launch import tuning
 from repro_torch.parallel.steps import build_paged_serve_step
 
 from .scheduler import Scheduler
@@ -50,7 +61,7 @@ class Engine:
     def __init__(self, model, params, *, batch: int, max_len: int,
                  num_pages: int | None = None, page_size: int | None = None,
                  eos_id: int | None = None, greedy: bool = True,
-                 temperature: float = 1.0, rng=None):
+                 temperature: float = 1.0, rng=None, use_tuned: bool = True):
         if not model.pageable:
             raise ValueError("Engine needs a pageable model (see LM.pageable)")
         if temperature <= 0:
@@ -81,8 +92,15 @@ class Engine:
                                num_pages=num_pages, max_len=max_len)
         self.cache = model.init_paged_cache(batch, num_pages, self.page_size,
                                             nsp)
-        self._step, _ = build_paged_serve_step(model, batch=batch,
-                                               greedy=greedy)
+        # the persisted paged split, passed to the step (its graph keeps it)
+        self.tuned = tuning.adopt(
+            model.cfg, dict(batch=batch, prompt_len=max_len, max_len=max_len,
+                            page_size=self.page_size),
+            kind="serve", device=model.device,
+            ops=("flash_decode_paged",) if use_tuned else ())
+        self._step, _ = build_paged_serve_step(
+            model, batch=batch, greedy=greedy,
+            split=self.tuned.knob("flash_decode_paged", "split"))
         self._requests = {}
         self._pending = np.zeros((batch,), np.int64)
         self._slot_pages = [[] for _ in range(batch)]

@@ -219,7 +219,8 @@ def test_overflow_raises_from_the_step_and_generate():
 
 def test_generate_static_serves_through_the_built_step(monkeypatch):
     """``_generate_static`` builds its step once, after the prefill, with
-    its greedy flag, and calls it once a token."""
+    its greedy flag and the adopted split (none persisted here), and calls
+    it once a token."""
     tm = LM(reduced(get_config("musicgen_medium")), device="cpu")
     tp = tm.init(torch.Generator().manual_seed(6))
     built, calls = [], []
@@ -241,7 +242,7 @@ def test_generate_static_serves_through_the_built_step(monkeypatch):
         out, stats = serve.generate(tm, tp, prompts, gen_tokens=6,
                                     greedy=greedy)
         assert not stats["engine"] and out.shape == (2, 6)
-        assert built == [dict(batch=2, greedy=greedy)]
+        assert built == [dict(batch=2, greedy=greedy, split=None)]
         assert calls == [5, 6, 7, 8, 9, 10]
 
 

@@ -2215,11 +2215,11 @@ def test_compiled_step_refuses_a_moved_cache(dev):
             step(params, cache, tok)
 
 
-def _eager_serve_step(model, *, batch, greedy=True):
+def _eager_serve_step(model, *, batch, greedy=True, split=None):
     """``build_serve_step``'s eager counterpart: the model's method."""
     method = model.greedy_step if greedy else model.decode_step
-    return (lambda p, c, t: method(p, t, c)), {"greedy": greedy,
-                                               "cuda_graph": False}
+    return (lambda p, c, t: method(p, t, c, split=split)), {
+        "greedy": greedy, "cuda_graph": False}
 
 
 @pytest.mark.parametrize("arch,changes", [("llama3_2_1b", {}),
@@ -2482,3 +2482,137 @@ def test_compiled_train_graph_holds_the_backward_kernels(dev, monkeypatch):
             for k, keys in kernels.items()}
     assert seen == {k: n for k, (n, _) in step.counts.items()}
     assert seen["flash_bwd"] == seen["flash_fwd"] == model.cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# autotuning on the card: winners swept, persisted, adopted and launched
+# ---------------------------------------------------------------------------
+
+def _record_launches(monkeypatch, module, names):
+    """Record the arguments of each call of the C entry points ``names``
+    that ``module``'s wrappers make through its ``load``."""
+    calls = []
+
+    class View:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def __getattr__(self, name):
+            fn = getattr(self._lib, name)
+            if name not in names:
+                return fn
+
+            def entry(*args):
+                calls.append((name, args))
+                return fn(*args)
+            return entry
+
+    real = module.load
+    monkeypatch.setattr(module, "load", lambda n, sig: View(real(n, sig)))
+    return calls
+
+
+def test_tuned_split_is_adopted_launched_and_kept_by_the_graph(
+        dev, tmp_path, monkeypatch):
+    """paged decode's sweep runs every split on the card, each held
+    against the plain version; a persisted winner (the sweep pinned to one
+    split off the rule, so adoption shows) is adopted by the engine and
+    passed to its step, and is the split the kernel launches with; the
+    captured step keeps it after another winner is persisted (replays
+    launch nothing from Python), its tokens equal an eager step's on the
+    same split, and an engine built after that adopts the new winner."""
+    from repro_torch.core import get_op
+    from repro_torch.kernels.flash_attention import ops as attn_ops
+    from repro_torch.launch import tuning
+    from repro_torch.tune_cli import _materialize
+
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))
+    model, params = _bf16_model(dev, "llama3_2_1b", 7)
+    b, max_len, page = 2, 48, 16
+    op = get_op("flash_decode_paged")
+    metas, kw = tuning.serving_probes(model.cfg, b, max_len, max_len,
+                                      page_size=page)["flash_decode_paged"]
+    real, kw_real = _materialize(metas, kw, vocab=model.cfg.vocab_size,
+                                 gen=torch.Generator(device=dev).manual_seed(1),
+                                 device=dev)
+    full = op.tune(real, repeats=2, **kw_real)
+    assert len(full.trials) == 5 and full.skipped == []
+    rule = attn_ops.paged_split(b, model.cfg.n_kv_heads, 3, page)[0]
+    pinned = 64 if rule != 64 else 128
+    monkeypatch.setattr(op, "sweep", {"split": [pinned]})
+    assert op.tune(real, repeats=1, **kw_real)["split"] == pinned
+    rng = np.random.default_rng(8)
+    traffic = [(rng.integers(0, model.cfg.vocab_size, n).tolist(), g)
+               for n, g in ((5, 9), (17, 4), (3, 12), (30, 6))]
+    calls = _record_launches(monkeypatch, attn_ops, {"paged_decode"})
+    eng = Engine(model, params, batch=b, max_len=max_len, page_size=page)
+    assert eng.tuned == {"flash_decode_paged": {"split": pinned}}
+    rids = [eng.submit(p, g) for p, g in traffic]
+    for _ in range(3):                       # eager, capture, a replay
+        eng.step()
+    assert eng._step.captures == 1
+    assert {a[13] for _, a in calls} == {pinned}
+    monkeypatch.setattr(op, "sweep", {"split": [32]})
+    assert op.tune(real, repeats=1, **kw_real)["split"] == 32
+    n_launched = len(calls)                  # the sweep's launches too
+    res = eng.drain()
+    assert len(calls) == n_launched          # replays only
+    compiled = [res[r] for r in rids]
+    eager = Engine(model, params, batch=b, max_len=max_len, page_size=page,
+                   use_tuned=False)
+    assert eager.tuned == {}
+    eager._step = lambda p, c, t: model.paged_greedy_step(p, t, c,
+                                                          split=pinned)
+    calls.clear()
+    rids = [eager.submit(p, g) for p, g in traffic]
+    res = eager.drain()
+    assert {a[13] for _, a in calls} == {pinned}
+    assert [res[r] for r in rids] == compiled
+    later = Engine(model, params, batch=b, max_len=max_len, page_size=page)
+    assert later.tuned == {"flash_decode_paged": {"split": 32}}
+    calls.clear()
+    later.submit(traffic[0][0], 2)
+    later.step()                             # the first call runs eagerly
+    assert {a[13] for _, a in calls} == {32}
+
+
+def test_tune_cli_apps_on_the_card(dev, tmp_path, monkeypatch):
+    """``tune_cli --apps`` at small shapes: every candidate launched, timed
+    and held against the plain version; a second run all cache hits; the
+    drivers adopt the winners, and their runs give the bits of runs on the
+    default knobs (the knobs change no output's arithmetic)."""
+    from repro_torch import tune_cli
+    from repro_torch.launch.apps import hump_state
+
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path))
+    argv = ["--apps", "--repeats", "2", "--fd-size", "256", "--fd-radius",
+            "3", "--sem-elems", "4", "--sem-n", "5", "--dg-nx", "8",
+            "--dg-n", "4"]
+    code, res = tune_cli.run(argv)
+    assert code == 0 and len(res) == 4
+    for name, r in res:
+        assert not r.cached and r.skipped == [], (name, r.skipped)
+    code, again = tune_cli.run(argv)
+    assert all(r.cached and r.trials == [] for _, r in again)
+    won = dict(res)
+
+    fd = fd_app.FDWave(width=256, height=256, radius=3)
+    plain = fd_app.FDWave(width=256, height=256, radius=3, block=(32, 256))
+    assert fd.block == (won["fd2d"]["bh"], won["fd2d"]["bw"])
+    fd.run(20), plain.run(20)
+    assert torch.equal(fd.u1, plain.u1)
+
+    op = sem_app.SEMOperator(ex=4, ey=4, ez=4, n=5)
+    assert op.eb == won["sem_apply"]["eb"]
+    u = _rnd(dev, op.E, 6, 6, 6)
+    base = sem_app.SEMOperator(ex=4, ey=4, ez=4, n=5, eb=8)
+    assert torch.equal(op.apply_local(u), base.apply_local(u))
+
+    sol = dg_swe.SWESolver(nx=8, ny=8, n=4, jitter=0.0)
+    assert (sol.eb, sol.surf_eb) == (won["dg_volume"]["eb"],
+                                     won["dg_surface"]["eb"])
+    ref = dg_swe.SWESolver(nx=8, ny=8, n=4, jitter=0.0, eb=64)
+    qa = qb = hump_state(sol)
+    for _ in range(5):
+        qa, qb = sol.step(qa, 1e-4), ref.step(qb, 1e-4)
+    assert torch.equal(qa, qb)
