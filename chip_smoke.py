@@ -146,7 +146,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bytes off the alignment the tensor-core route needs), their bf16 outputs
    held to the full-width limits; the tensor-core kernels' TFLOP/s, the
    decode head's GB/s;
-9. the apps path, launch counts zeroed just before and read just after,
+9. the apps path, its drivers building their kernels through the host
+   API on ``Device("cuda")`` (the bound hand-written kernels), launch
+   counts zeroed just before and read just after,
    each app kernel launched exactly as often as its calls say (sem_apply
    on its templated instance every time): ``FDWave``
    on 8192^2 at radius 4 for 200 steps (MNodes/s, analytic error) and
@@ -258,6 +260,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     card vs CPU for 2-layer paligemma, deepseek (its CPU MoE layers
     routed as the card's, teacher forced; the smallest router gap
     printed) and 3-layer zamba2.
+20. (run after 10) the kernel language and the OCCA host API: the six
+    specs bound to hand-written kernels (fd2d, sem_ax, dg_swe_volume,
+    dg_swe_surface at the apps path's shapes, matmul at 4096 x 2048 @
+    2048 x 8192 bf16, rmsnorm at 8 x 2048 bf16) built on the cuda, torch
+    and loops backends from one builder: each cuda Kernel call launches
+    its wrapper's kernel once and writes its Memory output in place, and
+    matches the torch expansion on the card and the plain version; the
+    loops expansion at a small shape matches the kernel there; an
+    unbound spec and a refused define raise in ``build_kernel``; the host
+    us a call through a Kernel against the wrapper, and of an FD step
+    through the Kernel and swap chain.
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -2874,8 +2887,10 @@ def apps_main_path(dev, tuned):
     import numpy as np
     import torch
 
-    from repro_torch.apps.fd2d import FDWave, fd_flops_per_step
-    from repro_torch.apps.sem import SEMOperator, sem_flops_per_element
+    from repro_torch.apps.dg_swe import dg_surface_builder, dg_volume_builder
+    from repro_torch.apps.fd2d import FDWave, fd2d_builder, fd_flops_per_step
+    from repro_torch.apps.sem import (SEMOperator, sem_builder,
+                                      sem_flops_per_element)
     from repro_torch.core import get_op
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.launch import apps
@@ -2946,6 +2961,10 @@ def apps_main_path(dev, tuned):
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"[apps] main path {time.perf_counter() - t_phase:.1f}s")
+    for what, drv in (("FDWave", fd), ("SEMOperator", op),
+                      ("sem_solve", solve["op"]), ("swe_run", swe["solver"])):
+        if drv.occa.backend != "cuda":
+            fail(f"{what}: built on {drv.occa!r}, not the cuda backend")
     expected = {"fd2d": FD_STEPS + 200,
                 "sem_apply": 3 * (SEM_REPEATS + 1) + 1 + 1 + solve["iters"],
                 "dg_volume": 5 * DG_STEPS, "dg_surface": 5 * DG_STEPS}
@@ -2964,9 +2983,9 @@ def apps_main_path(dev, tuned):
     # the tuned knobs, as the drivers took them and as launched: one more
     # call of each driver, recorded (after the counts)
     sol = swe["solver"]
-    fd_once = copy.copy(fd)
-    fd_once.u1, fd_once.u2, fd_once.u3 = (fd.u1.clone(), fd.u2.clone(),
-                                          torch.empty_like(fd.u3))
+    fd_once = copy.copy(fd)           # its own Memory: swaps stay its own
+    fd_once.o_u1, fd_once.o_u2, fd_once.o_u3 = (
+        fd.occa.malloc(m.data) for m in (fd.o_u1, fd.o_u2, fd.o_u3))
     with _LaunchArgs(*APP_KERNELS) as rec:
         fd_once.timestep()
         op.apply_local(u_loc)
@@ -3002,16 +3021,20 @@ def apps_main_path(dev, tuned):
 
     # the same runs on the default knobs (after the counts: comparisons)
     twin = copy.copy(fd)
-    twin.u1, twin.u2 = fd_start
-    twin.u3, twin.current_time = torch.empty_like(fd.u3), 0.0
-    twin.block = tuple(_default_knobs("fd2d", dict(h=FD_SIZE, w=FD_SIZE))[
-        k] for k in ("bh", "bw"))
+    twin.o_u1, twin.o_u2 = (fd.occa.malloc(t) for t in fd_start)
+    twin.o_u3, twin.current_time = fd.occa.malloc(fd.u3.shape), 0.0
+    dflt = _default_knobs("fd2d", dict(h=FD_SIZE, w=FD_SIZE))
+    twin.block = (dflt["bh"], dflt["bw"])
+    twin.fd2d = fd.occa.build_kernel(fd2d_builder,
+                                     dict(fd.fd2d.defines, **dflt))
     twin.run(FD_STEPS)
     _bit_equal(f"fd2d: {FD_STEPS} steps on the tile {fd.block} and on "
                f"{twin.block}", fd.u1, twin.u1)
     del twin, fd_start
     sem_twin = copy.copy(op)
     sem_twin.eb = _default_knobs("sem_apply", dict(E=op.E))["eb"]
+    sem_twin.kernel = op.occa.build_kernel(
+        sem_builder, dict(op.kernel.defines, eb=sem_twin.eb))
     _bit_equal(f"sem_apply E={op.E}: eb {op.eb} and {sem_twin.eb}",
                op.apply_local(u_loc), sem_twin.apply_local(u_loc))
     plain = apps.sem_solve(n=SEM_N, elems=SEM_SOLVE_ELEMS, eb=_default_knobs(
@@ -3022,6 +3045,10 @@ def apps_main_path(dev, tuned):
     dg_twin = copy.copy(sol)
     dg_twin.eb = _default_knobs("dg_volume", dict(E=sol.E))["eb"]
     dg_twin.surf_eb = _default_knobs("dg_surface", dict(E=sol.E))["eb"]
+    dg_twin.kernel = sol.occa.build_kernel(
+        dg_volume_builder, dict(sol.kernel.defines, eb=dg_twin.eb))
+    dg_twin.surf_kernel = sol.occa.build_kernel(
+        dg_surface_builder, dict(sol.surf_kernel.defines, eb=dg_twin.surf_eb))
     Q = apps.hump_state(sol)
     for _ in range(DG_STEPS):
         Q = dg_twin.step(Q, swe["dt"])
@@ -4397,6 +4424,279 @@ def small_tc_attn_checks(dev):
     log(f"[check] ring step forward and backward, tensor-core routes: {calls} "
         "small bf16 cases within their limits")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the kernel language and the host API on the card
+# ---------------------------------------------------------------------------
+
+def _lang_cases(dev, gen):
+    """The six bound specs: (builder, defines at the main paths' full
+    shapes, defines at a small shape, inputs(defines) on the card, the
+    plain version, its checker, the wrapper). Full shapes: the apps path's
+    (FD 8192^2 at r = 4 on its default tile, SEM 32^3 elements of N = 7,
+    DG 2 x 256^2 triangles of N = 5 with the random state and bathymetry
+    gradient of ``full_size_app_checks``), matmul at the ring path's
+    4096 x 2048 @ 2048 x 8192 bf16, rmsnorm at the decode step's 8 x 2048
+    bf16 (f32 weight)."""
+    import torch
+
+    from repro_torch.apps.dg_swe import dg_surface_builder, dg_volume_builder
+    from repro_torch.apps.fd2d import fd2d_builder
+    from repro_torch.apps.numerics import fd_second_derivative_weights
+    from repro_torch.apps.sem import sem_builder
+    from repro_torch.device import fit_block
+    from repro_torch.kernels.apps import (apply_ref, dg_surface, dg_volume,
+                                          fd2d, fd2d_ref, sem_apply,
+                                          surface_ref, volume_ref)
+    from repro_torch.kernels.matmul import matmul, matmul_builder, matmul_ref
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_builder,
+                                             rmsnorm_ref)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def fd_d(n, r, bh, bw):
+        dx = 2.0 / n
+        return dict(w=n, h=n, r=r, bh=bh, bw=bw, dx=dx,
+                    dt=0.5 * dx / 2 ** 0.5, dtype="float32",
+                    weights=tuple(float(x)
+                                  for x in fd_second_derivative_weights(r)))
+
+    def water(E, n):
+        q = rnd(E, n, 3) * torch.tensor([0.1, 0.3, 0.3], device=dev)
+        q[..., 0] += 1.5
+        return q
+
+    def normals(E, n):
+        theta = rnd(E, n)
+        return torch.stack([theta.cos(), theta.sin(), rnd(E, n).abs()],
+                           -1).contiguous()
+
+    E_sem, nq = SEM_ELEMS ** 3, SEM_N + 1
+    E_dg, np_, nfp3 = 2 * DG_NX ** 2, (DG_N + 1) * (DG_N + 2) // 2, \
+        3 * (DG_N + 1)
+    m, kk, nn = MM_SHAPE
+    fd_tol = lambda tag, g, r: check_close(tag, g, r, atol=2e-5,  # noqa: E731
+                                           rtol=2e-5)
+    rel = lambda x: lambda tag, g, r: check_rel(tag, g, r, x)  # noqa: E731
+    bf16_rows = lambda tag, g, r: check_close(  # noqa: E731
+        tag, g, r, atol=1e-6, rtol=2 ** -7)
+    return {
+        "fd2d": (fd2d_builder,
+                 fd_d(FD_SIZE, FD_RADIUS, fit_block(32, FD_SIZE),
+                      fit_block(256, FD_SIZE)),
+                 fd_d(64, 2, 16, 32),
+                 lambda d: (rnd(d["h"], d["w"]), rnd(d["h"], d["w"])),
+                 lambda d, u1, u2: fd2d_ref(u1, u2, d["weights"], d["dx"],
+                                            d["dt"]), fd_tol, fd2d),
+        "sem_ax": (sem_builder,
+                   dict(E=E_sem, nq=nq, eb=fit_block(8, E_sem),
+                        dtype="float32"),
+                   dict(E=12, nq=4, eb=2, dtype="float32"),
+                   lambda d: (rnd(d["E"], d["nq"], d["nq"], d["nq"]),
+                              rnd(d["E"], 7, d["nq"], d["nq"], d["nq"]),
+                              rnd(d["nq"], d["nq"])),
+                   lambda d, *a: apply_ref(*a), rel(2e-4), sem_apply),
+        "dg_swe_volume": (dg_volume_builder,
+                          dict(E=E_dg, np_=np_, eb=fit_block(64, E_dg),
+                               g=9.81, dtype="float32"),
+                          dict(E=16, np_=10, eb=4, g=9.81, dtype="float32"),
+                          lambda d: (water(d["E"], d["np_"]),
+                                     rnd(d["E"], 4),
+                                     rnd(d["E"], d["np_"], 2, scale=50.0),
+                                     rnd(d["np_"], d["np_"]),
+                                     rnd(d["np_"], d["np_"])),
+                          lambda d, *a: volume_ref(*a, d["g"]), rel(2e-4),
+                          dg_volume),
+        "dg_swe_surface": (dg_surface_builder,
+                           dict(E=E_dg, np_=np_, nfp3=nfp3,
+                                eb=fit_block(64, E_dg), g=9.81,
+                                dtype="float32"),
+                           dict(E=16, np_=6, nfp3=9, eb=4, g=9.81,
+                                dtype="float32"),
+                           lambda d: (water(d["E"], d["nfp3"]),
+                                      water(d["E"], d["nfp3"]),
+                                      normals(d["E"], d["nfp3"]),
+                                      rnd(d["np_"], d["nfp3"])),
+                           lambda d, *a: surface_ref(*a, d["g"]), rel(2e-4),
+                           dg_surface),
+        # bf16 products are exact in f32; both sum K of them in f32 and
+        # round once to bf16 (as ring_main_path holds matmul)
+        "matmul": (matmul_builder,
+                   dict(M=m, K=kk, N=nn, bm=fit_block(256, m),
+                        bk=fit_block(256, kk), bn=fit_block(256, nn),
+                        dtype="bfloat16"),
+                   dict(M=32, K=48, N=24, bm=8, bk=16, bn=8,
+                        dtype="bfloat16"),
+                   lambda d: (rnd(d["M"], d["K"], dtype=torch.bfloat16),
+                              rnd(d["K"], d["N"], scale=d["K"] ** -0.5,
+                                  dtype=torch.bfloat16)),
+                   lambda d, *a: matmul_ref(*a), rel(2 ** -7), matmul),
+        "rmsnorm": (rmsnorm_builder,
+                    dict(rows=8, d=2048, block_rows=1, eps=1e-6,
+                         dtype="bfloat16", wdtype="float32"),
+                    dict(rows=12, d=64, block_rows=4, eps=1e-6,
+                         dtype="bfloat16", wdtype="float32"),
+                    lambda d: (rnd(d["rows"], d["d"], dtype=torch.bfloat16),
+                               rnd(d["d"])),
+                    lambda d, x, w: rmsnorm_ref(x, w, eps=d["eps"]),
+                    bf16_rows, rmsnorm),
+    }
+
+
+def _host_us(fn, n=100):
+    """Host microseconds a call of fn over n back-to-back calls, the card's
+    queue not waited on (n launches stay far below its depth)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / n
+    torch.cuda.synchronize()
+    return us
+
+
+def language_phase(dev):
+    """Phase 20: the kernel language and the OCCA host API on the card.
+
+    Each of the six bound specs (``_lang_cases``) is built by
+    ``Device("cuda")``, ``Device("torch")`` and ``Device("loops")`` from
+    one builder and one set of defines. At the full shapes the cuda
+    Kernel, called on a Memory output, must launch its wrapper's kernel
+    exactly once (no other wrapper's) and write the output in place; it
+    must match the torch expansion on the card (the spec's body, vmapped
+    over the grid) and the plain version at the tolerance stated in
+    ``_lang_cases``. At the small shape the loops expansion is held to the
+    cuda kernel the same way. A spec with no binding and a define the
+    binding refuses must raise inside ``build_kernel``. Then the host's
+    microseconds a call through a Kernel against the wrapper called
+    directly, each kernel on its full-shape inputs, and an FD step through
+    ``FDWave``'s Kernel and swap chain against the wrapper with a Python
+    rotation (host us and device ms a step). Launch counts are not summed
+    into the kernels line."""
+    import torch
+
+    from repro_torch.core import Device, Spec, Tile, defines_namespace
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launches
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    cuda, tor, loops = Device("cuda"), Device("torch"), Device("loops")
+    host = {}
+    cases = _lang_cases(dev, gen)
+    for name, (builder, full, small, make, plain, held, wrapper) in \
+            cases.items():
+        wname = next(k for k, w in KERNELS.items() if w is wrapper)
+        kc = cuda.build_kernel(builder, full)
+        if kc.binding is None or kc.binding.wrapper is not wrapper:
+            fail(f"lang {name}: bound to {kc.binding}, not {wname}")
+        ins = make(full)
+        (t,) = kc.spec.outputs
+        out = cuda.malloc(t.shape, t.dtype)
+        ptr = out.data.data_ptr()
+        torch.cuda.synchronize()
+        reset_launches()
+        kc(*ins, out)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        want = {k: int(k == wname) for k in KERNELS}
+        if got != want or out.data.data_ptr() != ptr:
+            fail(f"lang {name}: a Kernel call launched "
+                 f"{ {k: v for k, v in got.items() if v} }, expected "
+                 f"{wname} once, its output in place")
+        t0 = time.perf_counter()
+        (expanded,) = tor.build_kernel(builder, full).run(*ins)
+        torch.cuda.synchronize()
+        t_exp = time.perf_counter() - t0
+        if launch_counts() != want:
+            fail(f"lang {name}: the torch expansion launched a kernel")
+        shape = "x".join(str(x) for x in t.shape)
+        held(f"lang {name} cuda vs torch expansion ({shape}, "
+             f"{t.dtype})", out.data, expanded)
+        held(f"lang {name} cuda vs plain", out.data, plain(full, *ins))
+        D = defines_namespace(full)
+        host[name] = [(_host_us(lambda: kc(*ins, out), 50),
+                       _host_us(lambda: kc.binding.launch(
+                           D, ins, (out.data,)), 50)) for _ in range(3)]
+        del ins, out, expanded
+        # the loops expansion at a small shape, against the kernel there
+        ins = make(small)
+        (ref,) = cuda.build_kernel(builder, small).run(*ins)
+        (lp,) = loops.build_kernel(builder, small).run(*ins)
+        held(f"lang {name} loops vs cuda (small: {small})", lp, ref)
+        log(f"[lang] {name}: torch expansion at full shape {t_exp:.2f}s")
+        torch.cuda.empty_cache()
+
+    def unbound(D):
+        return Spec("saxpy", grid=(2,),
+                    inputs=[Tile("x", (8,), "float32", block=(4,))],
+                    outputs=[Tile("y", (8,), "float32", block=(4,))],
+                    body=lambda ctx, x, y: y.__setitem__(Ellipsis, x[...]))
+
+    from repro_torch.apps.sem import sem_builder
+    for what, builder, defines in (
+            ("an unbound spec", unbound, {}),
+            ("sem_ax at nq = 25", sem_builder,
+             dict(E=4, nq=25, eb=2, dtype="float32"))):
+        try:
+            cuda.build_kernel(builder, defines)
+        except ValueError as e:
+            log(f"[lang] {what} refused at build_kernel: {e}")
+        else:
+            fail(f"lang: {what} built on the cuda backend")
+    for name, rows in host.items():
+        k_us, w_us = min(r[0] for r in rows), min(r[1] for r in rows)
+        log(f"[lang host] {name}: {k_us:.1f} us a Kernel call, {w_us:.1f} "
+            f"us its binding's launch (the wrapper call; matmul and rmsnorm "
+            f"with their copy), {k_us - w_us:+.1f} us; the least of 3 "
+            f"alternations of 50 calls each "
+            f"{[tuple(round(x, 1) for x in r) for r in rows]}")
+    builder, full, _, make = cases["fd2d"][:4]
+    _fd_step_host(cuda, cuda.build_kernel(builder, full), *make(full))
+    torch.cuda.empty_cache()
+    log(f"[lang] phase {time.perf_counter() - t_phase:.1f}s")
+
+
+def _fd_step_host(cuda, kernel, u1, u2):
+    """An FD step on ``kernel`` (fd2d at 8192^2, r = 4) as ``FDWave.
+    timestep`` takes it (the Kernel on three Memory handles, then two
+    swaps) against the wrapper on three tensors rotated in Python: host us
+    a step (``_host_us``) and device ms a step (``cuda_ms``), alternated
+    three times; the least of each is printed."""
+    import torch
+
+    from repro_torch.kernels.apps import fd2d
+
+    D = kernel.defines
+    o = [cuda.malloc(u1), cuda.malloc(u2), cuda.malloc(u1.shape)]
+    bufs = [o[0].data.clone(), o[1].data.clone(), torch.empty_like(u1)]
+
+    def step():
+        kernel(*o)
+        o[1].swap(o[2])
+        o[0].swap(o[1])
+
+    def direct():
+        a, b, c = bufs
+        fd2d(a, b, weights=D["weights"], dx=D["dx"], dt=D["dt"],
+             block=(D["bh"], D["bw"]), out=c)
+        bufs[:] = [c, a, b]
+
+    rows = []
+    for _ in range(3):
+        rows.append((_host_us(step), _host_us(direct), cuda_ms(step, 50),
+                     cuda_ms(direct, 50)))
+    k_us, w_us = min(r[0] for r in rows), min(r[1] for r in rows)
+    log(f"[lang host] FD step {u1.shape[0]}^2 r = {D['r']}: {k_us:.1f} us "
+        f"through the Kernel and swap chain, {w_us:.1f} us the wrapper and "
+        f"a Python rotation ({k_us - w_us:+.1f} us); device ms a step "
+        f"{min(r[2] for r in rows):.4f} vs {min(r[3] for r in rows):.4f} "
+        f"(each reading {[tuple(round(x, 4) for x in r) for r in rows]})")
+    del o, bufs
 
 
 # ---------------------------------------------------------------------------
@@ -7227,7 +7527,7 @@ def main():
 
 
 def run_phases():
-    """Phases 1-19 and the last three lines (see the module docstring)."""
+    """Phases 1-20 and the last three lines (see the module docstring)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -7377,6 +7677,11 @@ def run_phases():
     times.update(time_app_kernels(astate))
     del astate, swe
     elapsed("phase 9-10 apps")
+
+    # 20. the kernel language and the host API: the six bound specs on
+    # the cuda backend against their torch expansion and plain versions
+    language_phase(dev)
+    elapsed("phase 20 language")
 
     # 11. the static path: musicgen_medium through generate, where its
     # decode step's time goes, the conditioning prefix

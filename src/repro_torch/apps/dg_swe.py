@@ -1,12 +1,13 @@
-"""Discontinuous-Galerkin shallow-water solver (the paper's DG app) through
-the ``dg_volume`` and ``dg_surface`` kernels: the counterpart of
-``repro.apps.dg_swe``.
+"""Discontinuous-Galerkin shallow-water solver (the paper's DG app) in the
+kernel language: the counterpart of ``repro.apps.dg_swe``.
 
 rhs = -(dF/dx + dG/dy) + S on nodal triangles (the volume kernel) plus the
 local Lax-Friedrichs surface flux lifted to the nodes (the surface kernel),
 with affine per-element geometric factors, bathymetry source
 S = (0, -g h B_x, -g h B_y), reflective walls and 5-stage low-storage RK.
-The mesh and connectivity are host-side numpy, copied from the JAX package.
+:func:`dg_volume_builder` and :func:`dg_surface_builder` are the kernels
+(on the card the hand-written ``csrc/dg.cu``). The mesh and connectivity
+are host-side numpy, copied from the JAX package.
 """
 
 from __future__ import annotations
@@ -14,19 +15,124 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import fit_block, resolve_device
-from ..kernels.apps.dg import (DEFAULT_EB, GRAV, dg_surface, dg_surface_op,
-                               dg_volume, dg_volume_op, surface_ref,
-                               volume_ref)
+from ..core import Device, Spec, Tile, as_dtype, resolve_model
+from ..device import fit_block
+from ..kernels.apps.dg import (DEFAULT_EB, GRAV, dg_surface_op, dg_volume_op,
+                               surface_ref, volume_ref)
 from .numerics import dmatrices_2d, face_mask, lift_matrix, triangle_nodes
 
 __all__ = [
-    "DGVolume", "SWESolver", "make_tri_mesh", "build_connectivity",
+    "DGVolume", "SWESolver", "dg_volume_builder", "dg_surface_builder", "make_tri_mesh", "build_connectivity",
     "volume_ref", "surface_ref", "dg_flops_per_element",
     "dg_bytes_per_element", "dg_surface_flops_per_element",
     "dg_surface_bytes_per_element", "GRAV", "stable_dt", "volume_probe",
     "surface_probe",
 ]
+
+
+def dg_volume_builder(D):
+    """The volume kernel. Defines: E, np_ (nodes an element), eb, g,
+    dtype."""
+    dtype = as_dtype(D.dtype)
+    np_, eb, g = D.np_, D.eb, D.g
+
+    def body(ctx, q, geom, db, dr, ds, out):
+        Q = q[...]                          # (eb, np_, 3)
+        Ge = geom[...]                      # (eb, 4): rx, sx, ry, sy
+        dB = db[...]                        # (eb, np_, 2): B_x, B_y
+        Dr = ctx.cache(dr)                  # (np_, np_) shared
+        Ds = ctx.cache(ds)
+        ctx.barrier()
+
+        h, hu, hv = Q[..., 0], Q[..., 1], Q[..., 2]
+        u = hu / h
+        v = hv / h
+        gh2 = 0.5 * g * h * h
+        F = torch.stack([hu, hu * u + gh2, hu * v], dim=-1)
+        G = torch.stack([hv, hu * v, hv * v + gh2], dim=-1)
+
+        DrF = torch.einsum("nm,emf->enf", Dr, F)
+        DsF = torch.einsum("nm,emf->enf", Ds, F)
+        DrG = torch.einsum("nm,emf->enf", Dr, G)
+        DsG = torch.einsum("nm,emf->enf", Ds, G)
+        rx = Ge[:, 0][:, None, None]
+        sx = Ge[:, 1][:, None, None]
+        ry = Ge[:, 2][:, None, None]
+        sy = Ge[:, 3][:, None, None]
+        dFdx = rx * DrF + sx * DsF
+        dGdy = ry * DrG + sy * DsG
+
+        zeros = torch.zeros_like(h)
+        S = torch.stack([zeros, -g * h * dB[..., 0], -g * h * dB[..., 1]],
+                        dim=-1)
+        out[...] = (-(dFdx + dGdy) + S).to(dtype)
+
+    return Spec(
+        "dg_swe_volume",
+        grid=(D.E // eb,),
+        inputs=[
+            Tile("q", (D.E, np_, 3), dtype, block=(eb, np_, 3),
+                 index=lambda e: (e, 0, 0)),
+            Tile("geom", (D.E, 4), dtype, block=(eb, 4), index=lambda e: (e, 0)),
+            Tile("db", (D.E, np_, 2), dtype, block=(eb, np_, 2),
+                 index=lambda e: (e, 0, 0)),
+            Tile("dr", (np_, np_), dtype),
+            Tile("ds", (np_, np_), dtype),
+        ],
+        outputs=[Tile("out", (D.E, np_, 3), dtype, block=(eb, np_, 3),
+                      index=lambda e: (e, 0, 0))],
+        body=body,
+    )
+
+
+def dg_surface_builder(D):
+    """The surface kernel: local Lax-Friedrichs flux on pre-gathered face
+    traces + LIFT (the face-neighbour gather stays outside the kernel).
+    Defines: E, np_, nfp3, eb, g, dtype."""
+    dtype = as_dtype(D.dtype)
+    np_, nfp3, eb, g = D.np_, D.nfp3, D.eb, D.g
+
+    def body(ctx, qm, qp, nrm, lift, out):
+        QM = qm[...]                      # (eb, 3nfp, 3)
+        QP = qp[...]
+        Ge = nrm[...]                     # (eb, 3nfp, 3): nx, ny, fscale
+        L = ctx.cache(lift)               # (np_, 3nfp) shared
+        ctx.barrier()
+        nx_, ny_, fsc = Ge[..., 0], Ge[..., 1], Ge[..., 2]
+
+        def flux(Q):
+            h, hu, hv = Q[..., 0], Q[..., 1], Q[..., 2]
+            u, v = hu / h, hv / h
+            gh2 = 0.5 * g * h * h
+            Fn = torch.stack([hu * nx_ + hv * ny_,
+                              (hu * u + gh2) * nx_ + hu * v * ny_,
+                              hu * v * nx_ + (hv * v + gh2) * ny_], -1)
+            lam = torch.abs(u * nx_ + v * ny_) + torch.sqrt(g * h)
+            return Fn, lam
+
+        FM, lamM = flux(QM)
+        FP, lamP = flux(QP)
+        C = torch.maximum(lamM, lamP)[..., None]
+        fstar = 0.5 * (FM + FP) + 0.5 * C * (QM - QP)
+        dflux = (FM - fstar) * fsc[..., None]              # (eb, 3nfp, 3)
+        out[...] = torch.einsum("nf,efq->enq", L, dflux).to(dtype)
+
+    return Spec(
+        "dg_swe_surface",
+        grid=(D.E // eb,),
+        inputs=[
+            Tile("qm", (D.E, nfp3, 3), dtype, block=(eb, nfp3, 3),
+                 index=lambda e: (e, 0, 0)),
+            Tile("qp", (D.E, nfp3, 3), dtype, block=(eb, nfp3, 3),
+                 index=lambda e: (e, 0, 0)),
+            Tile("nrm", (D.E, nfp3, 3), dtype, block=(eb, nfp3, 3),
+                 index=lambda e: (e, 0, 0)),
+            Tile("lift", (D.np_, nfp3), dtype),
+        ],
+        outputs=[Tile("out", (D.E, D.np_, 3), dtype, block=(eb, D.np_, 3),
+                      index=lambda e: (e, 0, 0))],
+        body=body,
+    )
 
 
 def _meta(*shape):
@@ -193,17 +299,22 @@ _LSERK_B = (1432997174477 / 9575080441755, 5161836677717 / 13612068292357,
 class DGVolume:
     """Host driver for the DG SWE volume kernel.
 
-    ``eb=None`` takes the ``dg_volume`` op's persisted tune winner for E
-    and np on this device (``dg_volume_op.cached_winner``), else the op's
-    default (64 elements a block) fitted to E with ``fit_block``; an
-    explicit ``eb`` pins it (E need not be a multiple). ``self.tuned`` is
-    the winner taken, or None. Runs on the CUDA card unless
-    ``device="cpu"``."""
+    ``model``: the backend (``"cuda"``, ``"torch"``, ``"loops"``); None
+    takes ``"cuda"`` on the card and ``"torch"`` with ``device="cpu"``.
+    Runs on the CUDA card unless ``device="cpu"``. ``eb=None`` takes the
+    ``dg_volume`` op's persisted tune winner for E and np on this device
+    (``dg_volume_op.cached_winner``), else the op's default (64 elements a
+    block); an explicit ``eb`` pins it. The block is fitted to divide E
+    (``fit_block``), as the JAX driver's defines are. ``self.tuned`` is the
+    winner taken, or None."""
 
-    def __init__(self, *, nx: int = 8, ny: int = 8, n: int = 3,
-                 eb: int | None = None, bathymetry=None, jitter: float = 0.2,
-                 seed: int = 0, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, *, model: str | None = None, nx: int = 8,
+                 ny: int = 8, n: int = 3, eb: int | None = None,
+                 bathymetry=None, jitter: float = 0.2, seed: int = 0,
+                 device=None):
+        self.model, dev = resolve_model(model, device)
+        self.occa = Device(self.model, device=dev)
+        self.device = dev
         m = make_tri_mesh(nx, ny, n, seed=seed, jitter=jitter)
         self.mesh = m
         self.n, self.np_, self.E = n, m["np_"], m["E"]
@@ -220,23 +331,35 @@ class DGVolume:
         self.B = B
         self.dB = np.stack([dBdx, dBdy], axis=-1)
 
-        self.geom = self._put(m["geom"])
-        self.db = self._put(self.dB)
-        self.dr = self._put(m["Dr"])
-        self.ds = self._put(m["Ds"])
+        self.o_geom = self._malloc(m["geom"])
+        self.o_db = self._malloc(self.dB)
+        self.o_dr = self._malloc(m["Dr"])
+        self.o_ds = self._malloc(m["Ds"])
         self._eb_arg = eb
         self.tuned = (_winner(dg_volume_op, volume_probe(self.E, self.np_),
-                              self.device) if eb is None else None)
+                              dev) if eb is None else None)
         if self.tuned:
             eb = self.tuned["eb"]
-        self.eb = fit_block(DEFAULT_EB, self.E) if eb is None else eb
+        self.eb = fit_block(DEFAULT_EB if eb is None else eb, self.E)
+        self.kernel = self.occa.build_kernel(dg_volume_builder, dict(
+            E=self.E, np_=self.np_, eb=self.eb, g=GRAV, dtype="float32"))
+
+    def _malloc(self, a):
+        return self.occa.malloc(np.asarray(a, dtype=self.dtype))
 
     def _put(self, a):
         return torch.from_numpy(np.ascontiguousarray(
             a, dtype=self.dtype)).to(self.device)
 
+    geom = property(lambda self: self.o_geom.data)
+    db = property(lambda self: self.o_db.data)
+    dr = property(lambda self: self.o_dr.data)
+    ds = property(lambda self: self.o_ds.data)
+
     def rhs_volume(self, Q):
-        return dg_volume(Q, self.geom, self.db, self.dr, self.ds, eb=self.eb)
+        (out,) = self.kernel.run(Q, self.o_geom, self.o_db, self.o_dr,
+                                 self.o_ds)
+        return out
 
 
 class SWESolver(DGVolume):
@@ -245,7 +368,7 @@ class SWESolver(DGVolume):
     The surface kernel's ``surf_eb``: an explicit ``eb`` pins it as it pins
     the volume kernel's; ``eb=None`` takes the ``dg_surface`` op's
     persisted tune winner for its shapes (``self.surf_tuned``), else the
-    op's default fitted to E."""
+    op's default; fitted to E."""
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -260,13 +383,13 @@ class SWESolver(DGVolume):
                 self.E, self.np_, nfp3), self.device)
         if self.surf_tuned:
             surf_eb = self.surf_tuned["eb"]
-        self.surf_eb = (fit_block(DEFAULT_EB, self.E) if surf_eb is None
-                        else surf_eb)
+        self.surf_eb = fit_block(DEFAULT_EB if surf_eb is None else surf_eb,
+                                 self.E)
         nrm = np.repeat(self.conn["normals"], self.n + 1, axis=1)  # (E,3nfp,2)
         fsc = np.repeat(self.conn["fscale"], self.n + 1, axis=1)   # (E,3nfp)
-        self.nrm = self._put(np.concatenate([nrm, fsc[..., None]], -1))
+        self.o_nrm = self._malloc(np.concatenate([nrm, fsc[..., None]], -1))
+        self.o_lift = self._malloc(self.conn["lift"])
         self.nrm_xy = self._put(nrm)
-        self.lift = self._put(self.conn["lift"])
         dev = self.device
         self.vmapM = torch.from_numpy(
             self.conn["vmapM"].reshape(self.E, nfp3).astype(np.int64)).to(dev)
@@ -279,6 +402,12 @@ class SWESolver(DGVolume):
         w = np.linalg.inv(V @ V.T) @ np.ones(self.np_)
         self._mass_w = torch.from_numpy(w).to(dev)
         self._mass_J = torch.from_numpy(m["J"]).to(dev)
+        self.surf_kernel = self.occa.build_kernel(dg_surface_builder, dict(
+            E=self.E, np_=self.np_, nfp3=nfp3, eb=self.surf_eb, g=GRAV,
+            dtype="float32"))
+
+    nrm = property(lambda self: self.o_nrm.data)
+    lift = property(lambda self: self.o_lift.data)
 
     def traces(self, Q):
         """The surface kernel's inputs: this element's and the neighbour's
@@ -296,7 +425,7 @@ class SWESolver(DGVolume):
 
     def rhs(self, Q):
         QM, QP = self.traces(Q)
-        surf = dg_surface(QM, QP, self.nrm, self.lift, eb=self.surf_eb)
+        (surf,) = self.surf_kernel.run(QM, QP, self.o_nrm, self.o_lift)
         return self.rhs_volume(Q) + surf
 
     def step(self, Q, dt):

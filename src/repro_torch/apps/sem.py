@@ -1,11 +1,13 @@
-"""Spectral-element screened-Coulomb operator (the paper's SEM app) through
-the ``sem_apply`` kernel: the counterpart of ``repro.apps.sem``.
+"""Spectral-element screened-Coulomb operator (the paper's SEM app) in the
+kernel language: the counterpart of ``repro.apps.sem``.
 
 Discrete operator  A u = K u + alpha M u  on hexahedral elements with GLL
 tensor-product bases:  K u = D_r^T (G . D u)  with per-node symmetric
 geometric factors G (kappa * J * w * (grad r_p . grad r_q)) and lumped mass
-M = J * w. The mesh and the factors are host-side numpy (float64, then cast),
-copied from the JAX package; C0 assembly is a gather and an ``index_add_``.
+M = J * w. :func:`sem_builder` is the kernel (one source; torch / loops
+expansions and, on the card, the hand-written ``csrc/sem.cu``). The mesh
+and the factors are host-side numpy (float64, then cast), copied from the
+JAX package; C0 assembly is a gather and an ``index_add_``.
 With ``eb=None`` the operator adopts the ``sem_apply`` op's persisted tune
 winner for its mesh (:func:`sem_probe` is the shape ``tune_cli --apps``
 tunes).
@@ -16,15 +18,57 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import fit_block, resolve_device
-from ..kernels.apps.sem import DEFAULT_EB, apply_ref, sem_apply, sem_apply_op
+from ..core import Device, Spec, Tile, as_dtype, resolve_model
+from ..device import fit_block
+from ..kernels.apps.sem import DEFAULT_EB, apply_ref, sem_apply_op
 from .numerics import dmatrix_1d, gll_nodes_weights
 
 __all__ = [
-    "SEMOperator", "make_box_mesh", "geometric_factors", "apply_ref",
+    "SEMOperator", "sem_builder", "make_box_mesh", "geometric_factors", "apply_ref",
     "sem_flops_per_element", "sem_bytes_per_element", "gather", "scatter_add",
     "sem_probe",
 ]
+
+
+def sem_builder(D):
+    """Defines: E, nq (= N+1), eb (elements a block), dtype."""
+    dtype = as_dtype(D.dtype)
+    nq, eb = D.nq, D.eb
+
+    def body(ctx, u, geo, dmat, out):
+        U = u[...]                     # (eb, nq, nq, nq)
+        G = geo[...]                   # (eb, 7, nq, nq, nq)
+        Dm = ctx.cache(dmat)           # (nq, nq) shared across the block
+        ctx.barrier()
+        # local derivatives (tensor contractions)
+        ur = torch.einsum("am,embc->eabc", Dm, U)
+        us = torch.einsum("bm,eamc->eabc", Dm, U)
+        ut = torch.einsum("cm,eabm->eabc", Dm, U)
+        # geometric factors (symmetric 3x3 per node, kappa*J*w folded in)
+        wr = G[:, 0] * ur + G[:, 1] * us + G[:, 2] * ut
+        ws = G[:, 1] * ur + G[:, 3] * us + G[:, 4] * ut
+        wt = G[:, 2] * ur + G[:, 4] * us + G[:, 5] * ut
+        # weak derivatives (transposed contractions) + lumped mass
+        au = (torch.einsum("ma,embc->eabc", Dm, wr)
+              + torch.einsum("mb,eamc->eabc", Dm, ws)
+              + torch.einsum("mc,eabm->eabc", Dm, wt)
+              + G[:, 6] * U)
+        out[...] = au.to(dtype)
+
+    return Spec(
+        "sem_ax",
+        grid=(D.E // eb,),
+        inputs=[
+            Tile("u", (D.E, nq, nq, nq), dtype, block=(eb, nq, nq, nq),
+                 index=lambda e: (e, 0, 0, 0)),
+            Tile("geo", (D.E, 7, nq, nq, nq), dtype, block=(eb, 7, nq, nq, nq),
+                 index=lambda e: (e, 0, 0, 0, 0)),
+            Tile("dmat", (nq, nq), dtype),               # whole-array (shared)
+        ],
+        outputs=[Tile("out", (D.E, nq, nq, nq), dtype, block=(eb, nq, nq, nq),
+                      index=lambda e: (e, 0, 0, 0))],
+        body=body,
+    )
 
 
 def sem_probe(E: int, nq: int):
@@ -161,41 +205,57 @@ def scatter_add(u_loc, gid, nglob):
 
 
 class SEMOperator:
-    """Host driver: the operator's factors on the device and the assembled
-    (gather-scatter) operator on global dof vectors.
+    """Host driver: the operator's factors in device Memory, its kernel
+    built once from :func:`sem_builder`, and the assembled (gather-scatter)
+    operator on global dof vectors.
 
-    ``eb=None`` takes the ``sem_apply`` op's persisted tune winner for E
-    and nq on this device (``sem_apply_op.cached_winner``), else the op's
-    default (``DEFAULT_EB`` = 8 elements a block) fitted to E with
-    ``fit_block``; an explicit ``eb`` pins it (E need not be a multiple).
-    ``self.tuned`` is the winner taken, or None. Runs on the CUDA card
-    unless ``device="cpu"``."""
+    ``model``: the backend (``"cuda"``, ``"torch"``, ``"loops"``); None
+    takes ``"cuda"`` on the card and ``"torch"`` with ``device="cpu"``.
+    Runs on the CUDA card unless ``device="cpu"``. ``eb=None`` takes the
+    ``sem_apply`` op's persisted tune winner for E and nq on this device
+    (``sem_apply_op.cached_winner``), else the op's default
+    (``DEFAULT_EB`` = 8 elements a block); an explicit ``eb`` pins it. The
+    block is fitted to divide E (``fit_block``), as the JAX driver's
+    defines are. ``self.tuned`` is the winner taken, or None."""
 
-    def __init__(self, *, ex: int = 2, ey: int = 2, ez: int = 2, n: int = 4,
-                 eb: int | None = None, deform: float = 0.15,
-                 alpha: float = 1.0, kappa=None, seed: int = 0, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, *, model: str | None = None, ex: int = 2, ey: int = 2,
+                 ez: int = 2, n: int = 4, eb: int | None = None,
+                 deform: float = 0.15, alpha: float = 1.0, kappa=None,
+                 seed: int = 0, device=None):
+        self.model, dev = resolve_model(model, device)
+        self.occa = Device(self.model, device=dev)
+        self.device = dev
         self.n, self.nq = n, n + 1
         coords, self.gid, self.nglob = make_box_mesh(ex, ey, ez, n,
                                                      deform=deform, seed=seed)
         self.E = self.gid.shape[0]
         G, self.mass = geometric_factors(coords, n, kappa=kappa, alpha=alpha)
         self.dtype = np.dtype("float32")
-        self.geo = torch.from_numpy(G.astype(self.dtype)).to(self.device)
-        self.dmat = torch.from_numpy(
-            dmatrix_1d(n).astype(self.dtype)).to(self.device)
+        self.o_geo = self.occa.malloc(G.astype(self.dtype))
+        self.o_dmat = self.occa.malloc(dmatrix_1d(n).astype(self.dtype))
         self.tuned = None
         if eb is None:
             args, params = sem_probe(self.E, self.nq)
-            self.tuned = sem_apply_op.cached_winner(args, device=self.device,
+            self.tuned = sem_apply_op.cached_winner(args, device=dev,
                                                     **params)
         if self.tuned:
             eb = self.tuned["eb"]
-        self.eb = fit_block(DEFAULT_EB, self.E) if eb is None else eb
-        self.gid_t = torch.from_numpy(self.gid.astype(np.int64)).to(self.device)
+        self.eb = fit_block(DEFAULT_EB if eb is None else eb, self.E)
+        self.kernel = self.occa.build_kernel(sem_builder, dict(
+            E=self.E, nq=self.nq, eb=self.eb, dtype="float32"))
+        self.gid_t = torch.from_numpy(self.gid.astype(np.int64)).to(dev)
+
+    @property
+    def geo(self):
+        return self.o_geo.data
+
+    @property
+    def dmat(self):
+        return self.o_dmat.data
 
     def apply_local(self, u_local):
-        return sem_apply(u_local, self.geo, self.dmat, eb=self.eb)
+        (out,) = self.kernel.run(u_local, self.o_geo, self.o_dmat)
+        return out
 
     def apply_global(self, u_glob):
         u_loc = gather(u_glob, self.gid_t)

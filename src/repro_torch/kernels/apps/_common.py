@@ -6,7 +6,7 @@ import torch
 
 from .._build import on_cpu
 
-__all__ = ["SMEM_MAX", "app_on_cpu"]
+__all__ = ["SMEM_MAX", "app_on_cpu", "out_for"]
 
 # shared memory one block may use on the H100 (227 KB, opt-in above 48 KB)
 SMEM_MAX = 232448
@@ -24,3 +24,18 @@ def app_on_cpu(name, *tensors) -> bool:
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: CUDA inputs must be contiguous")
     return False
+
+
+def out_for(name, out, shape, like, *inputs):
+    """The output tensor of a CUDA call: ``out`` checked (its shape, and
+    that it aliases none of ``inputs``), or a new tensor of ``shape`` with
+    ``like``'s dtype and device. The wrapper has checked out's dtype,
+    device and layout with its inputs (:func:`app_on_cpu`)."""
+    if out is None:
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if tuple(out.shape) != tuple(shape):
+        raise ValueError(f"{name}: out {tuple(out.shape)} must be "
+                         f"{tuple(shape)}")
+    if any(out.data_ptr() == t.data_ptr() for t in inputs):
+        raise ValueError(f"{name}: out must not alias an input")
+    return out

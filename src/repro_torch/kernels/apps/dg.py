@@ -24,7 +24,9 @@ microseconds, and the LSERK step calls it five times. ``eb``
 element's arithmetic in either kernel.
 
 ``dg_volume_op`` and ``dg_surface_op`` declare them for the op front end
-(``repro_torch.core``) under the JAX ops' names, tuned over ``eb``.
+(``repro_torch.core``) under the JAX ops' names, tuned over ``eb``; the
+module also binds the kernel language's ``dg_swe_volume`` and
+``dg_swe_surface`` specs to them for the cuda backend (``core.cuda``).
 """
 
 from __future__ import annotations
@@ -33,10 +35,12 @@ import ctypes
 
 import torch
 
+from ...core.cuda import bind_cuda
+from ...core.lang import as_dtype
 from ...core.op import define_op
 from ...core.tune import Tolerance
 from .._build import check, load, ptr, stream
-from ._common import SMEM_MAX, app_on_cpu
+from ._common import SMEM_MAX, app_on_cpu, out_for
 
 __all__ = ["dg_volume", "dg_surface", "dg_volume_op", "dg_surface_op",
            "volume_ref", "volume_folded_ref", "volume_route", "surface_ref",
@@ -173,12 +177,16 @@ def surface_ref(QM, QP, nrm, lift, g=GRAV):
     return torch.einsum("nf,efq->enq", lift, dflux)
 
 
-def dg_volume(q, geom, db, dr, ds, *, g=GRAV, eb=DEFAULT_EB):
+def dg_volume(q, geom, db, dr, ds, *, g=GRAV, eb=DEFAULT_EB, out=None):
     """q (E, np, 3), geom (E, 4), db (E, np, 2), dr/ds (np, np) f32 -> the
-    volume RHS (E, np, 3). ``eb``: elements per block on the card."""
+    volume RHS (E, np, 3). ``eb``: elements per block on the card.
+    ``out=`` writes into a preallocated tensor (it must not alias q) and
+    returns it."""
     name = "dg_volume"
-    if app_on_cpu(name, q, geom, db, dr, ds):
-        return volume_ref(q, geom, db, dr, ds, g)
+    ts = (q, geom, db, dr, ds) + (() if out is None else (out,))
+    if app_on_cpu(name, *ts):
+        rhs = volume_ref(q, geom, db, dr, ds, g)
+        return rhs if out is None else out.copy_(rhs)
     E, np_ = (q.shape[0], q.shape[1]) if q.dim() == 3 else (0, 0)
     if (tuple(q.shape) != (E, np_, 3) or tuple(geom.shape) != (E, 4)
             or tuple(db.shape) != (E, np_, 2)
@@ -191,7 +199,7 @@ def dg_volume(q, geom, db, dr, ds, *, g=GRAV, eb=DEFAULT_EB):
     refused = volume_refusal(E, np_, eb)
     if refused:
         raise ValueError(f"{name}: {refused}")
-    out = torch.empty_like(q)
+    out = out_for(name, out, q.shape, q, q, db)
     lib, fn = _volume_entry()
     err = fn(path == "templated", q.data_ptr(), geom.data_ptr(),
              db.data_ptr(), dr.data_ptr(), ds.data_ptr(), out.data_ptr(), E,
@@ -203,12 +211,15 @@ def dg_volume(q, geom, db, dr, ds, *, g=GRAV, eb=DEFAULT_EB):
     return out
 
 
-def dg_surface(qm, qp, nrm, lift, *, g=GRAV, eb=DEFAULT_EB):
+def dg_surface(qm, qp, nrm, lift, *, g=GRAV, eb=DEFAULT_EB, out=None):
     """qm, qp, nrm (E, 3nfp, 3), lift (np, 3nfp) f32 -> the surface RHS
-    (E, np, 3). ``eb``: elements per block on the card."""
+    (E, np, 3). ``eb``: elements per block on the card. ``out=`` writes
+    into a preallocated tensor and returns it."""
     name = "dg_surface"
-    if app_on_cpu(name, qm, qp, nrm, lift):
-        return surface_ref(qm, qp, nrm, lift, g)
+    ts = (qm, qp, nrm, lift) + (() if out is None else (out,))
+    if app_on_cpu(name, *ts):
+        rhs = surface_ref(qm, qp, nrm, lift, g)
+        return rhs if out is None else out.copy_(rhs)
     E, nfp3 = (qm.shape[0], qm.shape[1]) if qm.dim() == 3 else (0, 0)
     np_ = lift.shape[0] if lift.dim() == 2 else 0
     if (tuple(qm.shape) != (E, nfp3, 3) or qp.shape != qm.shape
@@ -220,7 +231,7 @@ def dg_surface(qm, qp, nrm, lift, *, g=GRAV, eb=DEFAULT_EB):
     refused = surface_refusal(E, np_, nfp3, eb)
     if refused:
         raise ValueError(f"{name}: {refused}")
-    out = torch.empty((E, np_, 3), dtype=qm.dtype, device=qm.device)
+    out = out_for(name, out, (E, np_, 3), qm, qm, qp, nrm)
     lib = load("dg", _SIG)
     err = lib.dg_surface(ptr(qm), ptr(qp), ptr(nrm), ptr(lift), ptr(out), E,
                          np_, nfp3, int(eb), float(g), stream())
@@ -332,3 +343,28 @@ dg_surface_op = define_op(
     traces qm/qp (E, 3nfp, 3), nrm (E, 3nfp, 3) = (nx, ny, fscale), lifted
     by lift (np, 3nfp), f32; ``eb`` elements a block.""",
 )
+
+
+# ---------------------------------------------------------------------------
+# the cuda bindings of the kernel language's "dg_swe_volume" and
+# "dg_swe_surface" specs (apps/dg_swe.py's builders)
+# ---------------------------------------------------------------------------
+
+def _f32_refusal(D):
+    if as_dtype(D.dtype) != torch.float32:
+        return f"dtype {D.dtype}; the kernels take float32"
+    return None
+
+
+bind_cuda("dg_swe_volume", wrapper=dg_volume,
+          launch=lambda D, ins, outs: dg_volume(*ins, g=D.g, eb=D.eb,
+                                                out=outs[0]),
+          refusal=lambda spec, D: _f32_refusal(D) or volume_refusal(
+              D.E, D.np_, D.eb),
+          launch_defines=("g", "eb"))
+bind_cuda("dg_swe_surface", wrapper=dg_surface,
+          launch=lambda D, ins, outs: dg_surface(*ins, g=D.g, eb=D.eb,
+                                                 out=outs[0]),
+          refusal=lambda spec, D: _f32_refusal(D) or surface_refusal(
+              D.E, D.np_, D.nfp3, D.eb),
+          launch_defines=("g", "eb"))

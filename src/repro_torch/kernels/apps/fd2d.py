@@ -16,7 +16,9 @@ width are multiples of 4 floats and the three bases are 16-byte aligned,
 chain of f32 roundings, :func:`fd2d_stream_ref`'s, whatever the tile.
 
 ``fd2d_op`` declares it for the op front end (``repro_torch.core``) under
-the JAX op's name, tuned over the tile (bh, bw).
+the JAX op's name, tuned over the tile (bh, bw); the module also binds the
+kernel language's ``fd2d`` spec to it for the cuda backend
+(``core.cuda``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import ctypes
 
 import torch
 
+from ...core.cuda import bind_cuda
+from ...core.lang import as_dtype
 from ...core.op import define_op
 from ...core.tune import Tolerance
 from .._build import check, load, stream
@@ -212,3 +216,27 @@ fd2d_op = define_op(
     doc="""One leapfrog step u3 = 2 u1 - u2 + dt^2 (u_xx + u_yy) on the
     periodic (h, w) f32 field; ``bh``/``bw`` the kernel's output tile.""",
 )
+
+
+# ---------------------------------------------------------------------------
+# the cuda binding of the kernel language's "fd2d" spec (apps/fd2d.py's
+# fd2d_builder): the halo tile is the kernel's own row ring
+# ---------------------------------------------------------------------------
+
+def _spec_refusal(spec, D):
+    if as_dtype(D.dtype) != torch.float32:
+        return f"dtype {D.dtype}; the kernel takes float32"
+    r = (len(D.weights) - 1) // 2
+    if len(D.weights) != 2 * r + 1 or r != D.r or not 1 <= r <= MAX_RADIUS:
+        return (f"{len(D.weights)} weights at r = {D.r}; the kernel takes "
+                f"2r + 1 with 1 <= r <= {MAX_RADIUS}")
+    return tile_refusal(r, min(D.bh, D.h), min(D.bw, D.w))
+
+
+def _spec_launch(D, ins, outs):
+    fd2d(ins[0], ins[1], weights=D.weights, dx=D.dx, dt=D.dt,
+         block=(D.bh, D.bw), out=outs[0])
+
+
+bind_cuda("fd2d", wrapper=fd2d, launch=_spec_launch, refusal=_spec_refusal,
+          launch_defines=("weights", "dx", "dt", "bh", "bw"))

@@ -16,7 +16,9 @@ block) assigns elements to blocks and does not change any element's
 arithmetic.
 
 ``sem_apply_op`` declares it for the op front end (``repro_torch.core``)
-under the JAX op's name, tuned over ``eb``.
+under the JAX op's name, tuned over ``eb``; the module also binds the
+kernel language's ``sem_ax`` spec to it for the cuda backend
+(``core.cuda``).
 """
 
 from __future__ import annotations
@@ -25,10 +27,12 @@ import ctypes
 
 import torch
 
+from ...core.cuda import bind_cuda
+from ...core.lang import as_dtype
 from ...core.op import define_op
 from ...core.tune import Tolerance
 from .._build import check, load, stream
-from ._common import app_on_cpu
+from ._common import app_on_cpu, out_for
 
 __all__ = ["sem_apply", "sem_apply_op", "apply_ref", "sem_route",
            "DEFAULT_EB", "MAX_NQ", "TEMPLATED_NQ", "eb_refusal"]
@@ -86,13 +90,16 @@ def apply_ref(u, geo, dmat):
             + geo[:, 6] * u)
 
 
-def sem_apply(u, geo, dmat, *, eb=DEFAULT_EB):
+def sem_apply(u, geo, dmat, *, eb=DEFAULT_EB, out=None):
     """u (E, nq, nq, nq), geo (E, 7, nq, nq, nq), dmat (nq, nq) f32 -> A u
     (E, nq, nq, nq). ``eb``: elements per block on the card (E need not be
-    a multiple)."""
+    a multiple). ``out=`` writes into a preallocated tensor (it must not
+    alias u or geo) and returns it."""
     name = "sem_apply"
-    if app_on_cpu(name, u, geo, dmat):
-        return apply_ref(u, geo, dmat)
+    ts = (u, geo, dmat) if out is None else (u, geo, dmat, out)
+    if app_on_cpu(name, *ts):
+        au = apply_ref(u, geo, dmat)
+        return au if out is None else out.copy_(au)
     E, nq = (u.shape[0], u.shape[1]) if u.dim() == 4 else (0, 0)
     if (tuple(u.shape) != (E, nq, nq, nq)
             or tuple(geo.shape) != (E, 7, nq, nq, nq)
@@ -104,7 +111,7 @@ def sem_apply(u, geo, dmat, *, eb=DEFAULT_EB):
     if refused:
         raise ValueError(f"{name}: {refused}")
     path = sem_route(nq)
-    out = torch.empty_like(u)
+    out = out_for(name, out, u.shape, u, u, geo)
     lib, fn = _entry()
     err = fn(path == "templated", u.data_ptr(), geo.data_ptr(),
              dmat.data_ptr(), out.data_ptr(), E, nq, int(eb), stream())
@@ -163,3 +170,22 @@ sem_apply_op = define_op(
     doc="""A u = K u + alpha M u on local dofs: u (E, nq, nq, nq), geo
     (E, 7, nq, nq, nq), dmat (nq, nq), f32; ``eb`` elements a block.""",
 )
+
+
+# ---------------------------------------------------------------------------
+# the cuda binding of the kernel language's "sem_ax" spec (apps/sem.py's
+# sem_builder)
+# ---------------------------------------------------------------------------
+
+def _spec_refusal(spec, D):
+    if as_dtype(D.dtype) != torch.float32:
+        return f"dtype {D.dtype}; the kernel takes float32"
+    return eb_refusal(D.E, D.nq, D.eb)
+
+
+def _spec_launch(D, ins, outs):
+    sem_apply(*ins, eb=D.eb, out=outs[0])
+
+
+bind_cuda("sem_ax", wrapper=sem_apply, launch=_spec_launch,
+          refusal=_spec_refusal, launch_defines=("eb",))

@@ -15,7 +15,9 @@ kernel masks ragged tiles itself and takes any M, N and K.
 
 ``matmul_op`` declares it for the op front end (``repro_torch.core``)
 under the JAX op's name. Its tiles are template constants (the JAX op
-sweeps bm, bn, bk), so it declares no sweep.
+sweeps bm, bn, bk), so it declares no sweep. The module also binds the
+kernel language's ``matmul`` spec (``kernel.py``) to it for the cuda
+backend (``core.cuda``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import ctypes
 
 import torch
 
+from ...core.cuda import bind_cuda
 from ...core.op import define_op
 from .._build import check, load, on_cpu, ptr, stream, tma_ok
 from .ref import matmul_ref
@@ -110,3 +113,29 @@ matmul_op = define_op(
     example=_example,
     doc="a (M, K) @ b (K, N) with f32 sums (``matmul``).",
 )
+
+
+# ---------------------------------------------------------------------------
+# the cuda binding of the kernel language's "matmul" spec
+# (kernel.py's matmul_builder): the kernel's tiles are template constants,
+# so bm, bn, bk are not launch arguments; it computes into a tensor of its
+# own, copied into the output
+# ---------------------------------------------------------------------------
+
+def _spec_refusal(spec, D):
+    a, b = spec.inputs
+    (c,) = spec.outputs
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE \
+            or c.dtype not in _DTYPE_CODE:
+        return (f"dtypes {a.dtype} @ {b.dtype} -> {c.dtype}; the kernel "
+                f"takes one of {tuple(_DTYPE_CODE)} in and out")
+    return None
+
+
+def _spec_launch(D, ins, outs):
+    outs[0].copy_(matmul(*ins, out_dtype=outs[0].dtype))
+
+
+bind_cuda("matmul", wrapper=matmul, launch=_spec_launch,
+          refusal=_spec_refusal, launch_defines=("out_dtype",),
+          fixed_defines=("bm", "bn", "bk"), copies=True)

@@ -19,7 +19,9 @@ backward kernel).
 
 ``rmsnorm_op`` declares it for the op front end (``repro_torch.core``)
 under the JAX op's name. The JAX op sweeps block_rows; here a warp takes a
-row and the variant follows the layout, so it declares no sweep.
+row and the variant follows the layout, so it declares no sweep. The
+module also binds the kernel language's ``rmsnorm`` spec (``kernel.py``)
+to it for the cuda backend (``core.cuda``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import ctypes
 
 import torch
 
+from ...core.cuda import bind_cuda
 from ...core.op import define_op
 from .._build import check, load, on_cpu, stream
 from .ref import rmsnorm_ref
@@ -146,3 +149,26 @@ rmsnorm_op = define_op(
     example=_example,
     doc="x (..., d) normalised over its last axis times w (d,) (``rmsnorm``).",
 )
+
+
+# ---------------------------------------------------------------------------
+# the cuda binding of the kernel language's "rmsnorm" spec (kernel.py's
+# rmsnorm_builder): a warp takes a row, so block_rows is not a launch
+# argument; the kernel writes a tensor of its own, copied into the output
+# ---------------------------------------------------------------------------
+
+def _spec_refusal(spec, D):
+    x, w = spec.inputs
+    if x.dtype not in _CODE or w.dtype not in _CODE:
+        return (f"dtypes {x.dtype}/{w.dtype}; the kernel takes "
+                f"{tuple(_CODE)}")
+    return None
+
+
+def _spec_launch(D, ins, outs):
+    outs[0].copy_(rmsnorm(*ins, eps=D.eps))
+
+
+bind_cuda("rmsnorm", wrapper=rmsnorm, launch=_spec_launch,
+          refusal=_spec_refusal, launch_defines=("eps",),
+          fixed_defines=("block_rows",), copies=True)

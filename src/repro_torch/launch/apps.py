@@ -2,11 +2,15 @@
 ``examples/fd_wave.py`` and ``examples/sem_solve.py``, and a run of the DG
 shallow-water solver.
 
-  PYTHONPATH=src python -m repro_torch.launch.apps fd  [--size 256] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.apps fd  [--size 256] [--device cpu] [--model torch]
   PYTHONPATH=src python -m repro_torch.launch.apps sem [--n 4 --elems 3] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.apps swe [--nx 8 --n 3] [--device cpu]
 
-Each runs on the CUDA card unless ``--device cpu`` is given, prints the
+Each runs on the CUDA card unless ``--device cpu`` is given. The drivers
+build their kernels through the host API (``repro_torch.core.Device``):
+``--model cuda`` (the default on the card) runs the hand-written kernels,
+``--model torch`` (the default on the CPU) and ``--model loops`` the
+kernel language's expansions of the same builders. Each prints the
 examples' lines and asserts what they assert: the FD wave within 5e-2 of
 the analytic standing wave, the SEM solve within 0.05 of the manufactured
 solution, and the SWE run finite, with h in (0.9, 1.2) and the water mass
@@ -70,21 +74,21 @@ def _knob(value, tuned):
     return f"{value} ({'tuned' if tuned else 'default'})"
 
 
-def fd_wave(*, size=256, steps=200, radius=2, block=None, device=None,
-            log=print):
+def fd_wave(*, size=256, steps=200, radius=2, block=None, model=None,
+            device=None, log=print):
     """The FD acoustic wave against the analytic standing wave, at the
     example's radius 2 and cfl 0.3 (``examples/fd_wave.py``). Returns the
     app and its numbers."""
     app = FDWave(width=size, height=size, radius=radius, cfl=0.3,
-                 block=block, device=device)
+                 block=block, model=model, device=device)
     _sync(app.device)
     t0 = time.perf_counter()
     app.run(steps)
     wall = time.perf_counter() - t0
     err = float(np.abs(app.solution - app.analytic()).max())
     mnodes = size * size * steps / wall / 1e6
-    log(f"[fd] {app.device.type}: {size}x{size}, radius {radius}, tile "
-        f"{_knob(app.block, app.tuned)}, {steps} steps, "
+    log(f"[fd] {app.device.type} ({app.model}): {size}x{size}, radius "
+        f"{radius}, tile {_knob(app.block, app.tuned)}, {steps} steps, "
         f"t={app.current_time:.3f} max|err|={err:.2e}  "
         f"{mnodes:8.1f} MNodes/s")
     _require(err < 5e-2, f"FD wave diverged from the analytic solution "
@@ -92,13 +96,14 @@ def fd_wave(*, size=256, steps=200, radius=2, block=None, device=None,
     return dict(app=app, err=err, mnodes_s=mnodes, wall_s=wall)
 
 
-def sem_solve(*, n=4, elems=3, eb=None, device=None, log=print):
+def sem_solve(*, n=4, elems=3, eb=None, model=None, device=None,
+              log=print):
     """-div(grad u) + u = f on [-1,1]^3 with homogeneous Neumann BC and the
     manufactured solution u* = cos(pi x) cos(pi y) cos(pi z), solved by PCG
     on the assembled SEM operator (``examples/sem_solve.py``)."""
     e = elems
     op = SEMOperator(ex=e, ey=e, ez=e, n=n, deform=0.0, alpha=1.0, eb=eb,
-                     device=device)
+                     model=model, device=device)
     dev = op.device
     (x, y, z), _, _ = make_box_mesh(e, e, e, n, deform=0.0)
     u_star = np.cos(np.pi * x) * np.cos(np.pi * y) * np.cos(np.pi * z)
@@ -119,8 +124,9 @@ def sem_solve(*, n=4, elems=3, eb=None, device=None, log=print):
     wall = time.perf_counter() - t0
     u_loc = gather(u, op.gid_t).cpu().numpy()
     err = float(np.abs(u_loc - u_star).max())
-    log(f"[sem] {dev.type}: N={n}, E={op.E}, eb {_knob(op.eb, op.tuned)}, "
-        f"dofs={op.nglob}: PCG converged in {iters} iters, max|u - u*| = "
+    log(f"[sem] {dev.type} ({op.model}): N={n}, E={op.E}, eb "
+        f"{_knob(op.eb, op.tuned)}, dofs={op.nglob}: PCG converged in "
+        f"{iters} iters, max|u - u*| = "
         f"{err:.3e} ({wall:.3f}s)")
     _require(err < 0.05, "SEM solve did not converge to the manufactured "
              f"solution ({err:.3e})")
@@ -137,11 +143,13 @@ def hump_state(sol):
         np.float32)).to(sol.device)
 
 
-def swe_run(*, nx=8, n=3, steps=50, eb=None, device=None, log=print):
+def swe_run(*, nx=8, n=3, steps=50, eb=None, model=None, device=None,
+            log=print):
     """The DG shallow-water solver from :func:`hump_state`, between
     reflective walls, stepped by :func:`stable_dt` of the start state.
     Returns the solver, the final state and its numbers."""
-    sol = SWESolver(nx=nx, ny=nx, n=n, jitter=0.0, eb=eb, device=device)
+    sol = SWESolver(nx=nx, ny=nx, n=n, jitter=0.0, eb=eb, model=model,
+                    device=device)
     dev = sol.device
     Q = hump_state(sol)
     dt = stable_dt(sol, Q)
@@ -158,7 +166,7 @@ def swe_run(*, nx=8, n=3, steps=50, eb=None, device=None, log=print):
     flops = 5 * steps * sol.E * (dg_flops_per_element(sol.np_)
                                  + dg_surface_flops_per_element(sol.np_,
                                                                 sol.nfp3))
-    log(f"[swe] {dev.type}: N={n}, E={sol.E}, eb volume "
+    log(f"[swe] {dev.type} ({sol.model}): N={n}, E={sol.E}, eb volume "
         f"{_knob(sol.eb, sol.tuned)}, surface "
         f"{_knob(sol.surf_eb, sol.surf_tuned)}, {steps} LSERK steps of "
         f"dt={dt:.4e}: {1e3 * wall / steps:.3f} ms/step, "
@@ -187,15 +195,19 @@ def main(argv=None):
     swe.add_argument("--steps", type=int, default=50)
     for p in (fd, sem, swe):
         p.add_argument("--device", default=None,
-                       help="cpu runs the plain PyTorch versions (default: "
-                            "the CUDA card)")
+                       help="cpu runs on the CPU (default: the CUDA card)")
+        p.add_argument("--model", default=None,
+                       choices=("cuda", "torch", "loops"),
+                       help="the backend the kernels are built for: cuda "
+                            "(the hand-written kernels; the default on the "
+                            "card), torch (the default on the CPU) or loops")
     args = ap.parse_args(argv)
+    kw = dict(model=args.model, device=args.device)
     if args.app == "fd":
-        return fd_wave(size=args.size, steps=args.steps, device=args.device)
+        return fd_wave(size=args.size, steps=args.steps, **kw)
     if args.app == "sem":
-        return sem_solve(n=args.n, elems=args.elems, device=args.device)
-    return swe_run(nx=args.nx, n=args.n, steps=args.steps,
-                   device=args.device)
+        return sem_solve(n=args.n, elems=args.elems, **kw)
+    return swe_run(nx=args.nx, n=args.n, steps=args.steps, **kw)
 
 
 if __name__ == "__main__":

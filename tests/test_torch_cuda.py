@@ -2616,3 +2616,134 @@ def test_tune_cli_apps_on_the_card(dev, tmp_path, monkeypatch):
     for _ in range(5):
         qa, qb = sol.step(qa, 1e-4), ref.step(qb, 1e-4)
     assert torch.equal(qa, qb)
+
+
+# ---------------------------------------------------------------------------
+# the kernel language's cuda backend: the six specs bound to hand-written
+# kernels, through Device("cuda"), against their torch expansion on the
+# card and their plain versions (the app tolerances above; matmul bf16 and
+# rmsnorm bf16 one bf16 rounding, 2^-7)
+# ---------------------------------------------------------------------------
+
+def _lang_cases(dev):
+    from repro_torch.apps.dg_swe import dg_surface_builder, dg_volume_builder
+    from repro_torch.apps.fd2d import fd2d_builder
+    from repro_torch.apps.sem import sem_builder
+    from repro_torch.kernels.matmul import matmul_builder
+    from repro_torch.kernels.rmsnorm import rmsnorm_builder
+
+    def water(E, n, seed):
+        q = _rnd(dev, E, n, 3, seed=seed) * torch.tensor([0.1, 0.3, 0.3],
+                                                         device=dev)
+        q[..., 0] += 1.5
+        return q
+
+    def normals(E, n):
+        t = _rnd(dev, E, n, seed=7)
+        return torch.stack([t.cos(), t.sin(), _rnd(dev, E, n, seed=8).abs()],
+                           -1).contiguous()
+
+    wts = tuple(float(x) for x in fd_second_derivative_weights(2))
+    bf = torch.bfloat16
+    return {
+        "fd2d": (fd2d_builder, dict(w=64, h=48, r=2, bh=16, bw=32, dx=1 / 32,
+                                    dt=0.01, weights=wts, dtype="float32"),
+                 lambda: (_rnd(dev, 48, 64), _rnd(dev, 48, 64, seed=1)),
+                 lambda u1, u2: fd2d_ref(u1, u2, wts, 1 / 32, 0.01),
+                 fd2d, dict(atol=2e-5, rtol=2e-5)),
+        "sem_ax": (sem_builder, dict(E=12, nq=5, eb=4, dtype="float32"),
+                   lambda: (_rnd(dev, 12, 5, 5, 5), _rnd(dev, 12, 7, 5, 5, 5,
+                                                         seed=1),
+                            _rnd(dev, 5, 5, seed=2)),
+                   apply_ref, sem_apply, APP_REL),
+        "dg_swe_volume": (dg_volume_builder,
+                          dict(E=32, np_=10, eb=8, g=9.81, dtype="float32"),
+                          lambda: (water(32, 10, 3), _rnd(dev, 32, 4, seed=4),
+                                   _rnd(dev, 32, 10, 2, seed=5),
+                                   _rnd(dev, 10, 10, seed=6),
+                                   _rnd(dev, 10, 10, seed=9)),
+                          volume_ref, dg_volume, APP_REL),
+        "dg_swe_surface": (dg_surface_builder,
+                           dict(E=32, np_=10, nfp3=12, eb=8, g=9.81,
+                                dtype="float32"),
+                           lambda: (water(32, 12, 3), water(32, 12, 4),
+                                    normals(32, 12),
+                                    _rnd(dev, 10, 12, seed=6)),
+                           surface_ref, dg_surface, APP_REL),
+        "matmul": (matmul_builder, dict(M=64, K=96, N=48, bm=16, bk=32, bn=16,
+                                        dtype="bfloat16"),
+                   lambda: (_rnd(dev, 64, 96).to(bf),
+                            _rnd(dev, 96, 48, seed=1).to(bf)),
+                   matmul_ref, matmul, 2 ** -7),
+        "rmsnorm": (rmsnorm_builder, dict(rows=24, d=256, block_rows=8,
+                                          eps=1e-6, dtype="bfloat16",
+                                          wdtype="float32"),
+                    lambda: (_rnd(dev, 24, 256).to(bf), _rnd(dev, 256, seed=1)),
+                    rmsnorm_ref, rmsnorm, 2 ** -7),
+    }
+
+
+@pytest.mark.parametrize("name", ["fd2d", "sem_ax", "dg_swe_volume",
+                                  "dg_swe_surface", "matmul", "rmsnorm"])
+def test_language_cuda_backend_runs_the_bound_kernel(dev, name):
+    from repro_torch.core import Device
+
+    builder, defines, make, plain, wrapper, tol = _lang_cases(dev)[name]
+    cuda, expanded = Device("cuda"), Device("torch")
+    kc = cuda.build_kernel(builder, defines)
+    assert kc.binding.wrapper is wrapper and cuda.device.type == "cuda"
+    ins = make()
+    (t,) = kc.spec.outputs
+    out = cuda.malloc(t.shape, t.dtype)
+    ptr = out.data.data_ptr()
+    reset_launches()
+    kc(*ins, out)
+    torch.cuda.synchronize()
+    want = {k: int(w is wrapper) for k, w in KERNELS.items()}
+    assert launch_counts() == want and out.data.data_ptr() == ptr
+    (ref,) = expanded.build_kernel(builder, defines).run(*ins)
+    assert launch_counts() == want           # the expansion launches nothing
+    for other in (ref, plain(*ins).to(t.dtype)):
+        if isinstance(tol, dict):
+            torch.testing.assert_close(out.data, other, **tol)
+        else:
+            _close_rel(out.data.float(), other.float(), tol)
+    (fresh,) = kc.run(*ins)
+    assert fresh.data_ptr() != ptr and torch.equal(fresh, out.data)
+
+
+def test_language_cuda_backend_refuses_at_build(dev):
+    from repro_torch.apps.fd2d import fd2d_builder
+    from repro_torch.core import Device, Spec, Tile
+
+    cuda = Device("cuda")
+
+    def unbound(D):
+        return Spec("copy", grid=(2,),
+                    inputs=[Tile("x", (8,), "float32", block=(4,))],
+                    outputs=[Tile("y", (8,), "float32", block=(4,))],
+                    body=lambda ctx, x, y: y.__setitem__(Ellipsis, x[...]))
+
+    with pytest.raises(ValueError, match="no cuda binding"):
+        cuda.build_kernel(unbound, {})
+    with pytest.raises(ValueError, match="refuses these defines"):
+        cuda.build_kernel(fd2d_builder, dict(
+            w=32, h=32, r=1, bh=8, bw=32, dx=0.1, dt=0.01,
+            weights=(1.0, -2.0, 1.0), dtype="float64"))
+    assert Device("torch").device.type == "cuda"
+
+
+def test_app_drivers_build_on_the_cuda_backend(dev):
+    from repro_torch.launch.apps import hump_state
+
+    reset_launches()
+    fd = fd_app.FDWave(width=64, height=64, radius=2)
+    assert fd.model == "cuda" and fd.fd2d.binding.name == "fd2d"
+    fd.run(3)
+    sol = dg_swe.SWESolver(nx=4, ny=4, n=2, jitter=0.0)
+    sol.step(hump_state(sol), 1e-4)
+    op = sem_app.SEMOperator(ex=2, ey=2, ez=1, n=3)
+    op.apply_global(torch.ones(op.nglob, device=dev))
+    counts = launch_counts()
+    assert (counts["fd2d"], counts["dg_volume"], counts["dg_surface"],
+            counts["sem_apply"]) == (3, 5, 5, 1)
