@@ -271,6 +271,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     unbound spec and a refused define raise in ``build_kernel``; the host
     us a call through a Kernel against the wrapper, and of an FD step
     through the Kernel and swap chain.
+21. (run after 20) the ops over their builders: each of the 13
+    registered ops on CUDA tensors (backend auto: its spec's cuda
+    binding) at the main paths' full shapes, its outputs bit-equal to its
+    wrapper's direct call and the wrappers' launch counts moved exactly as
+    that call moves them; flash_attention's o, dq, dk, dv through its
+    OpVJP (the delta and backward builders) and lm_head_ce's loss, dx, dw
+    through its OpVJP (the CE backward builder) bit-equal to the wrappers'
+    autograd; ssm_scan's gradients through ``selective_scan_assoc`` at
+    zamba2's 2 x 512 (dm 7168, n 64) in f32 within 1e-3 of max |g| of
+    autograd through ``selective_scan_ref``. The eleven specs of the
+    attention, head and scan builders built on the cuda backend and held
+    against their torch expansion on the card (f32 1e-4 of max |ref|,
+    bf16 inputs 2^-7), at the full shapes (the torch expansion's tiles
+    chosen large: they do not change its function); a ring backward at
+    d = 112 refused inside ``build_kernel``; ``python -m
+    repro_torch.lint_kernels --strict --cost`` in process (exit 0); each
+    bound spec's cost model at its kernel's row shape (``[lang cost]``,
+    printed at the end beside the row's bound) and the shared memory a
+    block of its kernels really takes, from the profiler's kernel records
+    (``[lang smem]``); the host us of an op call over its wrapper's at the
+    decode shapes (``[lang host]``).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -4609,7 +4630,11 @@ def language_phase(dev):
                  f"{ {k: v for k, v in got.items() if v} }, expected "
                  f"{wname} once, its output in place")
         t0 = time.perf_counter()
-        (expanded,) = tor.build_kernel(builder, full).run(*ins)
+        # the footprint gate prices the spec's tiles for a block's shared
+        # memory, which the torch expansion does not use: off for this
+        # reference (SEM's default tile at nq 8 prices 295,168 B)
+        (expanded,) = tor.build_kernel(builder, full, analyze="off").run(
+            *ins)
         torch.cuda.synchronize()
         t_exp = time.perf_counter() - t0
         if launch_counts() != want:
@@ -4697,6 +4722,583 @@ def _fd_step_host(cuda, kernel, u1, u2):
         f"{min(r[2] for r in rows):.4f} vs {min(r[3] for r in rows):.4f} "
         f"(each reading {[tuple(round(x, 4) for x in r) for r in rows]})")
     del o, bufs
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the ops over their builders
+# ---------------------------------------------------------------------------
+
+# each bound spec -> its kernel's name in the kernels line
+SPEC_KERNEL = {
+    "rmsnorm": "rmsnorm", "matmul": "matmul", "fd2d": "fd2d",
+    "sem_ax": "sem_apply", "dg_swe_volume": "dg_volume",
+    "dg_swe_surface": "dg_surface", "flash_attention_fwd": "flash_fwd",
+    "flash_delta": "flash_delta", "flash_attention_bwd": "flash_bwd",
+    "flash_decode": "flash_decode", "flash_decode_paged": "paged_decode",
+    "ring_flash_fwd": "ring_flash_fwd", "ring_flash_bwd": "ring_flash_bwd",
+    "lm_head_logits": "lm_head", "lm_head_ce": "lm_head_ce",
+    "lm_head_ce_bwd": "lm_head_bwd", "ssm_scan": "ssm_scan"}
+# the ops' full shapes: llama3_2_1b's train attention (B, H, Hk, S, d),
+# musicgen_medium's static decode (B, H, S, d, kv_len), llama's paged
+# decode (B, H, Hk, page, pages a sequence, d), the ring step at llama's
+# widths (H, Hk, S a shard, d), the head (decode rows, train rows, d,
+# vocab), rmsnorm at the train step's rows, and zamba2_7b's mamba2 scan at
+# its train shape (B, L, dm, n), for the scan's gradients
+LANG21_ATTN = (4, 32, 8, 1024, 64)
+LANG21_DECODE = (8, 24, 576, 64, 300)
+LANG21_PAGED = (8, 32, 8, 512, 4, 64)
+LANG21_RING = (32, 8, 4096, 64)
+LANG21_HEAD = (8, 4096, 2048, 128256)
+LANG21_NORM = (4, 1024, 2048)
+ZB_SCAN = (2, 512, 7168, 64)
+LANG21_SCAN = (1, 2048, 8192, 16)     # falcon_mamba_7b's prefill, bf16
+LANG21_GRAD_REL = 1e-3
+
+
+def _op_inputs(dev, gen):
+    """The 13 ops' inputs at the main paths' full shapes: {op name: (args,
+    params, direct)} with ``direct()`` the wrapper's own call on the same
+    inputs (what the op's cuda binding must launch, bit for bit)."""
+    import torch
+
+    from repro_torch.apps.numerics import fd_second_derivative_weights
+    from repro_torch.kernels import (fd2d, flash_attention_fwd, flash_decode,
+                                     lm_head_logits, matmul,
+                                     paged_decode_attention, rmsnorm,
+                                     ring_flash_fwd, sem_apply, ssm_scan_fwd)
+    from repro_torch.kernels.apps import dg_surface, dg_volume
+    from repro_torch.kernels.flash_attention.ops import paged_positions
+    from repro_torch.kernels.lm_head import lm_head_ce
+
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    def water(E, n):
+        q = rnd(E, n, 3) * torch.tensor([0.1, 0.3, 0.3], device=dev)
+        q[..., 0] += 1.5
+        return q
+
+    cases = {}
+    x, w = rnd(*LANG21_NORM, dtype=bf), rnd(LANG21_NORM[-1])
+    cases["rmsnorm"] = ((x, w), dict(eps=1e-5),
+                        lambda: rmsnorm(x, w, eps=1e-5))
+    m, k_, n = MM_SHAPE
+    a, b = rnd(m, k_, dtype=bf), rnd(k_, n, dtype=bf)
+    cases["matmul"] = ((a, b), {}, lambda: matmul(a, b))
+    B, H, Hk, S, d = LANG21_ATTN
+    q = rnd(B, H, S, d, dtype=bf)
+    kk, vv = rnd(B, Hk, S, d, dtype=bf), rnd(B, Hk, S, d, dtype=bf)
+    cases["flash_attention"] = ((q, kk, vv), dict(causal=True),
+                                lambda: flash_attention_fwd(q, kk, vv)[0])
+    B, H, S, d, n_kv = LANG21_DECODE
+    qd = rnd(B, H, 1, d, dtype=bf)
+    kd, vd = rnd(B, H, S, d, dtype=bf), rnd(B, H, S, d, dtype=bf)
+    cases["flash_decode"] = ((qd, kd, vd), dict(kv_len=n_kv),
+                             lambda: flash_decode(qd, kd, vd, kv_len=n_kv))
+    B, H, Hk, page, nsp, d = LANG21_PAGED
+    npages = B * nsp + 1
+    qp = rnd(B, H, 1, d, dtype=bf)
+    kp, vp = (rnd(npages, Hk, page, d, dtype=bf),
+              rnd(npages, Hk, page, d, dtype=bf))
+    perm = torch.randperm(B * nsp,
+                          generator=torch.Generator().manual_seed(21))
+    table = (perm.reshape(B, nsp) + 1).to(torch.int32)
+    cap = nsp * page
+    # ragged live lengths, full to one token
+    lens = torch.tensor([max(1, cap * (B - i) // B - 7 * i)
+                         for i in range(B)], dtype=torch.int32)
+    pos = torch.from_numpy(paged_positions(table.numpy(), lens.numpy(),
+                                           npages, page))
+    paged = dict(block_table=table.to(dev), kv_len=lens.to(dev),
+                 pos_pages=pos.to(dev))
+    cases["flash_decode_paged"] = (
+        (qp, kp, vp), paged,
+        lambda: paged_decode_attention(qp, kp, vp, **paged))
+    H, Hk, S, d = LANG21_RING
+    qr = rnd(1, H, S, d, dtype=bf)
+    kr, vr = rnd(1, Hk, S, d, dtype=bf), rnd(1, Hk, S, d, dtype=bf)
+    # the last shard of a 4-shard ring against its second chunk
+    starts = dict(q_start=torch.full((1, 1), 3 * S, dtype=torch.int32,
+                                     device=dev),
+                  k_start=torch.full((1, 1), S, dtype=torch.int32,
+                                     device=dev))
+    cases["ring_flash"] = ((qr, kr, vr), dict(starts, causal=True),
+                           lambda: ring_flash_fwd(qr, kr, vr, *starts.values(),
+                                                  causal=True)[0])
+    rows, trows, d, vocab = LANG21_HEAD
+    embed = rnd(vocab, d, scale=0.02, dtype=bf)
+    xh = rnd(rows, d, dtype=bf)
+    cases["lm_head_logits"] = ((xh, embed.T), dict(vocab=vocab),
+                               lambda: lm_head_logits(xh, embed.T,
+                                                      vocab=vocab))
+    xc = rnd(trows, d, dtype=bf)
+    labels = torch.randint(0, vocab, (trows, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    cases["lm_head_ce"] = ((xc, embed.T, labels), dict(vocab=vocab),
+                           lambda: lm_head_ce(xc, embed.T, labels,
+                                              vocab=vocab))
+    bt, L, dm, ns = ZB_SCAN
+    sx = rnd(bt, L, dm)
+    sdelta = torch.nn.functional.softplus(rnd(bt, L, dm) - 2.0)
+    sA = -(rnd(dm, ns).abs() + 0.1)
+    sB, sC, sD = rnd(bt, L, ns), rnd(bt, L, ns), rnd(dm)
+    h0 = torch.zeros(bt, dm, ns, device=dev)
+    scan = (sx, sdelta, sA, sB, sC, sD)
+    cases["ssm_scan"] = (scan, {}, lambda: ssm_scan_fwd(*scan, h0=h0)[0])
+    dx = 2.0 / FD_SIZE
+    fd = dict(weights=tuple(float(v) for v in
+                            fd_second_derivative_weights(FD_RADIUS)),
+              dx=dx, dt=0.5 * dx / 2 ** 0.5)
+    u1, u2 = rnd(FD_SIZE, FD_SIZE), rnd(FD_SIZE, FD_SIZE)
+    cases["fd2d"] = ((u1, u2), fd, lambda: fd2d(u1, u2, **fd))
+    E, nq = SEM_ELEMS ** 3, SEM_N + 1
+    su, geo, dmat = rnd(E, nq, nq, nq), rnd(E, 7, nq, nq, nq), rnd(nq, nq)
+    cases["sem_apply"] = ((su, geo, dmat), {},
+                          lambda: sem_apply(su, geo, dmat))
+    E, np_, nfp3 = 2 * DG_NX ** 2, (DG_N + 1) * (DG_N + 2) // 2, \
+        3 * (DG_N + 1)
+    vol = (water(E, np_), rnd(E, 4), rnd(E, np_, 2, scale=0.01),
+           rnd(np_, np_), rnd(np_, np_))
+    cases["dg_volume"] = (vol, {}, lambda: dg_volume(*vol))
+    theta = rnd(E, nfp3)
+    nrm = torch.stack([theta.cos(), theta.sin(), rnd(E, nfp3).abs()],
+                      -1).contiguous()
+    surf = (water(E, nfp3), water(E, nfp3), nrm, rnd(np_, nfp3))
+    cases["dg_surface"] = (surf, {}, lambda: dg_surface(*surf))
+    return cases
+
+
+def _same_bits(name, got, want):
+    import torch
+
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            fail(f"lang21 {name}: output {i} ({tuple(g.shape)} {g.dtype}) "
+                 f"is not bit-equal to the wrapper's ({tuple(w.shape)} "
+                 f"{w.dtype}; max |diff| "
+                 f"{float((g.float() - w.float()).abs().max()):.3e})")
+
+
+def _moved(fn):
+    """(fn's result, the wrappers' launch counts it moved)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts
+
+    torch.cuda.synchronize()
+    before = launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in launch_counts().items()
+                 if v != before[k]}
+
+
+def _ops_bit_equal(cases):
+    """Each op on CUDA tensors against its wrapper's direct call: the same
+    bits and the same launches."""
+    from repro_torch.core import get_op
+
+    for name, (args, params, direct) in cases.items():
+        op = get_op(name)
+        got, moved = _moved(lambda: op(*args, **params))
+        want, wmoved = _moved(direct)
+        _same_bits(name, got, want)
+        if moved != wmoved or not moved:
+            fail(f"lang21 {name}: the op moved the launch counts {moved}, "
+                 f"its wrapper's call {wmoved}")
+        log(f"[lang21] {name}: op (backend auto -> cuda) bit-equal to its "
+            f"wrapper, launches {moved}")
+
+
+def _grads_bit_equal(cases, gen):
+    """flash_attention and lm_head_ce through their OpVJPs against the
+    wrappers' autograd: forward and gradients bit-equal, launches equal."""
+    import torch
+
+    from repro_torch.core import get_op
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lm_head import lm_head_ce
+
+    q, k, v = cases["flash_attention"][0]
+    do = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    x, wt, labels = cases["lm_head_ce"][0]
+    g = torch.randn(x.shape[0], generator=gen, device=x.device)
+    embed = wt.T
+
+    def attn(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        return (o.detach(),) + torch.autograd.grad(o, leaves, do)
+
+    def head(fn):
+        xl, el = x.detach().requires_grad_(), embed.detach().requires_grad_()
+        loss = fn(xl, el.T)
+        return (loss.detach(),) + torch.autograd.grad(loss, (xl, el), g)
+
+    vocab = LANG21_HEAD[-1]
+    op_a, op_h = get_op("flash_attention"), get_op("lm_head_ce")
+    for name, run, via_op, via_wrapper in (
+            ("flash_attention", attn,
+             lambda *t: op_a(*t, causal=True),
+             lambda *t: flash_attention(*t, causal=True)),
+            ("lm_head_ce", head,
+             lambda xl, w: op_h(xl, w, labels, vocab=vocab),
+             lambda xl, w: lm_head_ce(xl, w, labels, vocab=vocab))):
+        got, moved = _moved(lambda: run(via_op))
+        want, wmoved = _moved(lambda: run(via_wrapper))
+        _same_bits(f"{name} forward and gradients", got, want)
+        if moved != wmoved:
+            fail(f"lang21 {name} gradients: launches {moved} through the "
+                 f"OpVJP, {wmoved} through the wrapper's autograd")
+        log(f"[lang21] {name}: forward and gradients through the OpVJP "
+            f"bit-equal to the wrapper's autograd, launches {moved}")
+
+
+def _scan_grads(cases):
+    """ssm_scan's gradients through the op's OpVJP (selective_scan_assoc)
+    against autograd through selective_scan_ref, f32, zamba2's train
+    shape: within LANG21_GRAD_REL of each gradient's max |ref|."""
+    import torch
+
+    from repro_torch.core import get_op
+    from repro_torch.kernels.ssm_scan import selective_scan_ref
+
+    args = cases["ssm_scan"][0]
+    gy = torch.randn(args[0].shape, device=args[0].device,
+                     generator=torch.Generator(args[0].device).manual_seed(3))
+    op = get_op("ssm_scan")
+    leaves = [t.detach().requires_grad_() for t in args]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = torch.autograd.grad(op(*leaves), leaves, gy)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    leaves = [t.detach().requires_grad_() for t in args]
+    t0 = time.perf_counter()
+    want = torch.autograd.grad(selective_scan_ref(*leaves)[0], leaves, gy)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    for nm, a, b in zip(("x", "delta", "A", "B", "C", "D"), got, want):
+        check_rel(f"lang21 ssm_scan d{nm} (assoc vs ref, {ZB_SCAN})", a, b,
+                  LANG21_GRAD_REL)
+    log(f"[lang21] ssm_scan gradients at zamba2's {ZB_SCAN}: op forward + "
+        f"backward {t_op:.3f} s (peak {peak:.2f} GB allocated), autograd "
+        f"through selective_scan_ref {t_ref:.3f} s (host clock)")
+
+
+def _spec_cases(cases, gen):
+    """The eleven specs of the attention, head and scan builders at the
+    full shapes: (builder, the op's defines, the torch expansion's tiles,
+    inputs)."""
+    import torch
+
+    from repro_torch.core import fit_block, get_op
+    from repro_torch.kernels import (flash_attention_fwd, flash_delta,
+                                     ring_flash_fwd)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.lm_head import kernel as lk
+    from repro_torch.kernels.lm_head import lm_head_ce
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    def prep(name, **kw):
+        args, params, _ = cases[name]
+        op = get_op(name)
+        _, p = op._resolve(dict(params, **kw))
+        run_args, defines, _ = op._prepare(args, p)
+        return defines, run_args
+
+    out = {}
+    D, ins = prep("flash_attention")
+    o, lse = flash_attention_fwd(*ins, causal=True)
+    do = torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+    delta = flash_delta(do, o)
+    big = dict(block_q=512, block_kv=512)
+    big = {k: fit_block(v, LANG21_ATTN[3]) for k, v in big.items()}
+    out["flash_attention_fwd"] = (fk.flash_fwd_builder, D, big, ins)
+    out["flash_delta"] = (fk.flash_delta_builder, D, big, (do, o))
+    out["flash_attention_bwd"] = (fk.flash_bwd_builder, D, big,
+                                  (*ins, do, lse, delta))
+    D, ins = prep("flash_decode")
+    out["flash_decode"] = (fk.flash_decode_builder, D, {}, ins)
+    D, ins = prep("flash_decode_paged")
+    out["flash_decode_paged"] = (fk.paged_decode_builder, D, {}, ins)
+    D, ins = prep("ring_flash")
+    rb = fit_block(1024, LANG21_RING[2])
+    out["ring_flash_fwd"] = (fk.ring_flash_fwd_builder, D,
+                             dict(block_q=rb, block_kv=rb), ins)
+    ro, rlse = ring_flash_fwd(*ins, causal=True)
+    rdo = torch.randn(ro.shape, generator=gen, device=ro.device).to(ro.dtype)
+    rdelta = flash_delta(rdo, ro)
+    out["ring_flash_bwd"] = (fk.ring_flash_bwd_builder, D,
+                             dict(block_q=rb, block_kv=rb),
+                             (*ins[:3], rdo, rlse, rdelta, *ins[3:]))
+    rows, trows, d, vocab = LANG21_HEAD
+    D, ins = prep("lm_head_logits")
+    vb = fit_block(vocab // 16, vocab)
+    out["lm_head_logits"] = (lk.lm_head_builder, D,
+                             dict(block_v=vb, block_k=d), ins)
+    D, ins = prep("lm_head_ce")
+    out["lm_head_ce"] = (lk.lm_head_builder, D,
+                         dict(block_r=fit_block(512, trows), block_v=vb,
+                              block_k=d), ins)
+    lse_c, _ = lm_head_ce.raw(*ins, vocab=vocab)
+    gc = torch.randn((ins[0].shape[0], 1), generator=gen,
+                     device=ins[0].device)
+    out["lm_head_ce_bwd"] = (lk.lm_head_bwd_builder, D,
+                             dict(block_r=trows, block_v=vb),
+                             (*ins, lse_c, gc))
+    # the scan's main path in bf16: falcon_mamba_7b's prefill
+    sgen = torch.Generator(device=ins[0].device).manual_seed(13)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=sgen, device=ins[0].device).to(
+            dtype)
+
+    bt, L, dm, n = LANG21_SCAN
+    scan = (rnd(bt, L, dm, dtype=torch.bfloat16),
+            torch.nn.functional.softplus(rnd(bt, L, dm) - 2.0),
+            -(rnd(dm, n).abs() + 0.1), rnd(bt, L, n, dtype=torch.bfloat16),
+            rnd(bt, L, n, dtype=torch.bfloat16), rnd(1, dm),
+            torch.zeros(bt, dm, n, device=ins[0].device))
+    out["ssm_scan"] = (sk.ssm_scan_builder,
+                       dict(bt=bt, L=L, dm=dm, n=n, chunk=fit_block(64, L),
+                            d_block=fit_block(512, dm), dtype="bfloat16"),
+                       dict(chunk=fit_block(256, L), d_block=dm), scan)
+    return out
+
+
+def _specs_vs_torch(specs):
+    """Each spec's cuda build against its torch expansion on the card (the
+    expansion built with large tiles, which change nothing of its
+    function, and without the footprint gate, which prices Pallas-style
+    tiles that the expansion does not keep in shared memory)."""
+    import torch
+
+    from repro_torch.core import Device
+
+    cuda, tor = Device("cuda"), Device("torch")
+    for name, (builder, D, tiles, ins) in specs.items():
+        kc = cuda.build_kernel(builder, D)
+        if kc.spec.name != name or kc.binding is None:
+            fail(f"lang21 {name}: built {kc.spec.name} bound to "
+                 f"{kc.binding}")
+        got = kc.run(*ins)
+        t0 = time.perf_counter()
+        want = tor.build_kernel(builder, dict(D, **tiles),
+                                analyze="off").run(*ins)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        bf16 = ins[0].dtype == torch.bfloat16
+        rel = 2 ** -7 if bf16 else 1e-4
+        for t, g, w in zip(kc.spec.outputs, got, want, strict=True):
+            tag = (f"lang21 {name}.{t.name} cuda vs torch expansion "
+                   f"({'x'.join(map(str, t.shape))} {t.dtype})")
+            if t.dtype == torch.int32:       # the argmax: a maximal logit
+                logits = want[0]
+                at = logits.gather(1, g.long())
+                check_close(tag + " (the logit at the kernel's argmax)",
+                            at, want[1], atol=rel * float(
+                                logits.abs().max()), rtol=0)
+                continue
+            check_close(tag, g, w, atol=rel * float(w.float().abs().max()),
+                        rtol=0)
+        log(f"[lang21] {name}: torch expansion at the full shape "
+            f"{secs:.2f} s (tiles {tiles or 'the op defines'})")
+        del got, want
+        torch.cuda.empty_cache()
+    log("[lang21] cut: none (every spec at its main path's full shape; the "
+        "torch expansion's tiles enlarged, its function unchanged)")
+
+
+def _spec_costs(cases, specs):
+    """The cost model of each bound spec at its kernel's row shape: the
+    op's own defines (the builders' fitting), or for the aux specs the
+    defines their ops build them with."""
+    from repro_torch.core import (bound_specs, defines_namespace,
+                                  estimate_cost, get_op)
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.lm_head import kernel as lk
+
+    rows = {}
+
+    def price(spec_name, builder, D):
+        Dn = defines_namespace(D)
+        rep = estimate_cost(builder(Dn), Dn)
+        rows[spec_name] = rep
+
+    for name, (args, params, _) in cases.items():
+        op = get_op(name)
+        _, p = op._resolve(params)
+        _, D, _ = op._prepare(args, p)
+        price(op.builder(defines_namespace(D)).name, op.builder, D)
+        if name == "flash_attention":
+            price("flash_delta", fk.flash_delta_builder, D)
+            price("flash_attention_bwd", fk.flash_bwd_builder, D)
+        if name == "ring_flash":
+            price("ring_flash_bwd", fk.ring_flash_bwd_builder, D)
+        if name == "lm_head_ce":     # as the OpVJP builds it on cuda
+            price("lm_head_ce_bwd", lk.lm_head_bwd_builder,
+                  {k: D[k] for k in ("R", "d", "V", "vocab", "block_r",
+                                     "block_v", "dtype")})
+    for name, (builder, D, _, _) in specs.items():
+        if name == "ssm_scan":   # the scan's row: falcon's prefill in bf16
+            price(name, builder, D)
+    missing = set(bound_specs()) - set(rows)
+    if missing:
+        fail(f"lang21: no cost for the bound specs {sorted(missing)}")
+    return rows
+
+
+def _kernels_smem(cases, specs):
+    """The shared memory a block of each bound spec's kernels really takes
+    (static + dynamic, as the profiler's kernel records give it), for the
+    footprint table beside the cost model's: the eleven new specs' cuda
+    builds on their inputs, the other six through their ops. A spec whose
+    kernels the profiler did not record prints "not recorded"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import Device, get_op
+
+    cuda = Device("cuda")
+    calls = {name: (lambda b=b, D=D, ins=ins: cuda.build_kernel(b, D).run(
+        *ins)) for name, (b, D, _, ins) in specs.items()}
+    for name, spec in (("rmsnorm", "rmsnorm"), ("matmul", "matmul"),
+                       ("fd2d", "fd2d"), ("sem_apply", "sem_ax"),
+                       ("dg_volume", "dg_swe_volume"),
+                       ("dg_surface", "dg_swe_surface")):
+        args, params, _ = cases[name]
+        calls[spec] = (lambda op=get_op(name), a=args, p=params: op(*a, **p))
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        seen = {}
+        for _ in range(3):      # the profiler drops records now and then
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    events = json.load(f).get("traceEvents", [])
+            for e in events:
+                if e.get("cat") == "kernel":
+                    a = e.get("args", {})
+                    seen[e.get("name", "?")[:72]] = (
+                        a.get("shared memory"), a.get("registers per thread"))
+            if seen:
+                break
+        log(f"[lang smem] {name}: " + ("; ".join(
+            f"{k} {v[0]} B, {v[1]} registers" for k, v in seen.items())
+            or "not recorded"))
+
+
+def _op_host_us(dev, cases):
+    """Host us of an op call over its wrapper's at the decode shapes: the
+    least of 3 alternations of 50 calls each."""
+    import torch
+
+    from repro_torch.core import get_op
+    from repro_torch.kernels import rmsnorm
+
+    rows, _, d, _ = LANG21_HEAD
+    x2 = torch.randn(rows, d, device=dev).to(torch.bfloat16)
+    w2 = torch.randn(d, device=dev)
+    decode = {"flash_decode": cases["flash_decode"],
+              "flash_decode_paged": cases["flash_decode_paged"],
+              "lm_head_logits": cases["lm_head_logits"],
+              "rmsnorm": ((x2, w2), dict(eps=1e-5),
+                          lambda: rmsnorm(x2, w2, eps=1e-5))}
+    for name, (args, params, direct) in decode.items():
+        op = get_op(name)
+        op(*args, **params)
+        rows = [(_host_us(lambda: op(*args, **params), 50),
+                 _host_us(direct, 50)) for _ in range(3)]
+        o_us, w_us = min(r[0] for r in rows), min(r[1] for r in rows)
+        log(f"[lang host] {name} op: {o_us:.1f} us an op call, {w_us:.1f} "
+            f"us the wrapper's, {o_us - w_us:+.1f} us; the least of 3 "
+            f"alternations of 50 calls each "
+            f"{[tuple(round(x, 1) for x in r) for r in rows]}")
+
+
+def lang_ops_phase(dev):
+    """Phase 21 (see the module docstring). Returns the cost model's
+    report of every bound spec at its kernel's row shape, printed beside
+    the rows' bounds once phase 8's are all known."""
+    import torch
+
+    from repro_torch import lint_kernels
+    from repro_torch.core import Device
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    t_phase = time.perf_counter()
+
+    def lap(what):
+        log(f"[lang21] {what}: {time.perf_counter() - t_phase:.1f}s into "
+            "the phase")
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    cases = _op_inputs(dev, gen)
+    _ops_bit_equal(cases)
+    lap("the 13 ops bit-equal")
+    _grads_bit_equal(cases, gen)
+    lap("the OpVJPs bit-equal")
+    _scan_grads(cases)
+    torch.cuda.empty_cache()
+    lap("the scan's gradients")
+    specs = _spec_cases(cases, gen)
+    _specs_vs_torch(specs)
+    lap("the eleven specs against their torch expansion")
+    ring112 = dict(b=1, h=2, hk=1, sq=128, skv=128, d=112, dv=112,
+                   block_q=64, block_kv=64, causal=True, window=None,
+                   prefix_len=0, sm_scale=112 ** -0.5, dtype="bfloat16",
+                   ring_steps=1, mesh_axis="model")
+    try:
+        Device("cuda").build_kernel(fk.ring_flash_bwd_builder, ring112)
+    except ValueError as e:
+        log(f"[lang21] a ring backward at d = 112 refused at build_kernel: "
+            f"{e}")
+    else:
+        fail("lang21: the ring backward built at d = 112")
+    code = lint_kernels.main(["--strict", "--cost"])
+    if code != 0:
+        fail(f"lang21: lint_kernels --strict --cost exited {code}")
+    lap("lint_kernels")
+    costs = _spec_costs(cases, specs)
+    lap("the cost model at the rows' shapes")
+    _kernels_smem(cases, specs)
+    lap("the kernels' shared memory")
+    _op_host_us(dev, cases)
+    del cases, specs
+    torch.cuda.empty_cache()
+    log(f"[lang21] phase {time.perf_counter() - t_phase:.1f}s")
+    return costs
+
+
+def log_spec_costs(costs, times):
+    """The ``[lang cost]`` lines: each bound spec's footprint, device
+    bytes and FLOPs by the cost model at its kernel's row shape, beside
+    the row's bound and time (phase 8's)."""
+    for name, rep in sorted(costs.items()):
+        k = SPEC_KERNEL[name]
+        t = times.get(k, {})
+        fl = "?" if rep.flops is None else f"{rep.flops:,}"
+        log(f"[lang cost] {name} ({k}): grid {rep.grid}, smem footprint "
+            f"{rep.smem_bytes:,} B a block ({rep.smem_frac:.0%} of "
+            f"{rep.smem_budget:,}), hbm {rep.hbm_bytes:,} B, flops {fl}; "
+            f"the row's bound {t.get('bound_ms', float('nan')):.4f} ms by "
+            f"{t.get('bound_by', '?')}, kernel {t.get('ms', float('nan')):.4f}"
+            f" ms")
 
 
 # ---------------------------------------------------------------------------
@@ -7527,7 +8129,7 @@ def main():
 
 
 def run_phases():
-    """Phases 1-20 and the last three lines (see the module docstring)."""
+    """Phases 1-21 and the last three lines (see the module docstring)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -7683,6 +8285,11 @@ def run_phases():
     language_phase(dev)
     elapsed("phase 20 language")
 
+    # 21. the ops over their builders: bit-equal to the wrappers, the
+    # eleven new specs against their torch expansion, lint_kernels
+    spec_costs = lang_ops_phase(dev)
+    elapsed("phase 21 ops over builders")
+
     # 11. the static path: musicgen_medium through generate, where its
     # decode step's time goes, the conditioning prefix
     mcounts, model, params, mstats = musicgen_main_path()
@@ -7763,6 +8370,7 @@ def run_phases():
     granite_main_path()
     elapsed("phase 19 granite")
     log_times(times)
+    log_spec_costs(spec_costs, times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
 
     kernels = []

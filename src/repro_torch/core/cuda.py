@@ -29,14 +29,18 @@ class Binding:
     """How a spec runs on its hand-written kernel.
 
     ``launch(D, ins, outs)`` launches the kernel once on the input tensors
-    and writes the output tensors ``outs`` in place (the defines
-    namespace ``D`` gives its launch arguments). ``launch_defines`` are the
+    and returns its output tensors (the defines namespace ``D`` gives its
+    launch arguments): the wrapper's own, when ``outs`` is None, else
+    ``outs`` written in place. ``launch_defines`` are the
     defines passed to the launch; ``fixed_defines`` those the kernel fixes
     itself (template constants, a layout rule) and ignores; every other
     define follows from the tensors' shapes. ``refusal(spec, D)`` says why
     the kernel cannot run this spec (a dtype, a tile, shared memory), or
-    returns None. ``copies``: the launch computes into a tensor of its own
-    and copies it into ``outs`` (one extra pass over the outputs)."""
+    returns None. ``copies``: the wrapper computes into tensors of its own,
+    so a call into outputs the caller owns (``Kernel(...)(*ins, *outs)``)
+    copies them (one extra pass over the outputs); ``Kernel.run`` hands
+    back the wrapper's tensors and copies nothing. A binding without
+    ``copies`` is given the caller's outputs to write in place."""
 
     name: str
     wrapper: Callable

@@ -7,8 +7,9 @@ the language's expansions. Tensors live on ``resolve_device(device)``: the
 CUDA card unless the caller asks for the CPU, and an error without CUDA
 (the cuda backend runs on the card only). ``build_kernel`` is the paper's
 run-time compilation: the builder is called with the defines (addDefine),
-the Spec's grid pass runs, the spec is expanded for the backend, and the
-kernel is cached by (builder *identity*, defines, backend): two closures
+the Spec's grid pass runs, the analyzer's body pass and footprint gate it
+(``analyze=``, default the process mode), the spec is expanded for the
+backend, and the kernel is cached by (builder *identity*, defines, backend): two closures
 from one factory share a ``__qualname__`` but are different kernels, so
 the cache is keyed on the function object itself (weakly, where possible).
 """
@@ -33,6 +34,9 @@ __all__ = ["Device", "BuildStats", "default_device", "fit_block",
            "resolve_model"]
 
 
+_SCALARS = (int, float, str, bool, type(None))
+
+
 @dataclasses.dataclass
 class BuildStats:
     builds: int = 0
@@ -40,6 +44,8 @@ class BuildStats:
 
 
 def _freeze(v):
+    if type(v) is dict and all(type(x) in _SCALARS for x in v.values()):
+        return tuple(sorted(v.items()))     # the common case: flat defines
     if isinstance(v, (list, tuple)):
         return tuple(_freeze(x) for x in v)
     if isinstance(v, dict):
@@ -146,10 +152,17 @@ class Device:
         return per_fn
 
     # -- run-time kernel compilation -------------------------------------------
-    def build_kernel(self, builder: Callable, defines: dict | None = None) -> Kernel:
-        """Build ``builder`` with ``defines`` for this device's backend:
-        the Spec's grid pass and ``check_semantics`` run here, and on the
-        cuda backend the spec's binding checks the defines; each raises
+    def build_kernel(self, builder: Callable, defines: dict | None = None,
+                     *, analyze: str | None = None) -> Kernel:
+        """Build ``builder`` with ``defines`` for this device's backend.
+        The Spec's grid pass runs when the builder makes it; every
+        cache-miss build then runs the analyzer (``check_built_spec``:
+        semantics, shared-memory footprint, body pass), raising or warning
+        by ``analyze`` (default :func:`analyze.analysis_mode`). On the
+        cuda backend a footprint finding is kept in ``kernel.report`` and
+        never raised (the spec's footprint rule is not the hand-written
+        kernel's; its binding checks the kernel's own limits), and the
+        binding refuses what its wrapper would. Each raises
         ``ValueError`` (``AnalysisError`` for the analyzer's findings)."""
         defines = dict(defines or {})
         key = (_freeze(defines), self.backend, self.device)
@@ -166,7 +179,10 @@ class Device:
         findings = _analyze.check_semantics(spec)
         if findings:
             raise _analyze.AnalysisError(findings)
-        kern = Kernel(self, spec, lang.expand(spec, D, self.backend), defines)
+        report = _analyze.check_built_spec(
+            spec, D, mode=analyze, gate_footprint=self.backend != "cuda")
+        kern = Kernel(self, spec, lang.expand(spec, D, self.backend), defines,
+                      report=report)
 
         with self._lock:
             self._builder_cache(builder)[key] = kern

@@ -14,11 +14,13 @@ class Kernel:
     The call follows the paper's host code (listing 9): the kernel's inputs
     (``Memory`` or tensors), then its outputs, which must be ``Memory``s of
     this kernel's device and are written in place. :meth:`run` takes the
-    inputs only and returns fresh output tensors.
+    inputs only and returns the outputs as the backend makes them (on the
+    cuda backend the wrapper's own tensors, with no copy).
     """
 
-    def __init__(self, device, spec, fn, defines: dict):
+    def __init__(self, device, spec, fn, defines: dict, *, report=None):
         self.device = device
+        self.report = report    # the analyzer's report of the build
         self.spec = spec
         self.defines = dict(defines)
         self._fn = fn
@@ -76,7 +78,7 @@ class Kernel:
         return self._fn(*ins, outs=outs)
 
     def run(self, *inputs):
-        """The kernel on ``inputs`` (Memory or tensors): fresh outputs."""
+        """The kernel on ``inputs`` (Memory or tensors): its outputs."""
         if len(inputs) != self.n_in:
             raise TypeError(f"kernel {self.name!r} expects {self.n_in} "
                             f"inputs, got {len(inputs)}")

@@ -938,11 +938,15 @@ def _expand_cuda(spec: Spec, defines: SimpleNamespace):
                          f"these defines: {why}")
 
     def fn(*arrays, outs=None):
+        # the wrapper's own tensors; only a call into outputs the caller
+        # owns copies, and a binding that writes in place (copies=False)
+        # is handed them
+        res = tuple(b.launch(defines, arrays, None if b.copies else outs))
         if outs is None:
-            dev = _device_of(arrays)
-            outs = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev)
-                         for t in spec.outputs)
-        b.launch(defines, arrays, outs)
+            return res
+        for o, r in zip(outs, res):
+            if r is not o:
+                o.copy_(r)
         return tuple(outs)
 
     fn.binding = b

@@ -9,13 +9,22 @@ Winners persist across processes as JSON under ``$REPRO_CACHE_DIR``
 package's ``autotune/``: neither package's ``tune_cli --lint --evict``
 touches the other's entries. An entry is keyed by the op, the defines its
 knobs do not set (shapes, dtype, masks), the candidate sets, the backend
-(``"cuda"``: the hand-written kernel; ``"torch"``: the plain version), the
-device's name, the torch and CUDA versions and, for ``"cuda"``, the build
+(``"cuda"``: the hand-written kernel; ``"torch"`` or ``"loops"``: the
+spec's expansion), the device's name, the torch and CUDA versions and, for ``"cuda"``, the build
 hash of the op's kernel sources (``kernels._build.source_hash``), so an
 edited ``.cu`` never answers with a winner timed on the old one. A sweep
-on the CPU times the plain versions and is keyed ``backend="torch"``,
-``device="cpu"``: it never answers for the card (the JAX package's rule
-for interpret mode).
+on the CPU times the spec's torch expansion and is keyed
+``backend="torch"``, ``device="cpu"``: it never answers for the card (the
+JAX package's rule for interpret mode).
+
+Candidates are pruned before any build: on ``cuda`` by the hand-written
+kernel's own shared memory (:func:`prune_candidates`, the wrapper's size
+function), on ``torch`` and ``loops``, where the spec's tiles are what
+runs, by the cost model (:func:`prune_by_cost`: the spec's footprint,
+and the candidates another one dominates, the JAX package's rule). The
+spec's byte model does not describe a hand-written kernel (``fd2d.cu``
+streams rows and fetches no halo twice), so dominance never prunes on
+``cuda``.
 
 Entries carry :data:`SCHEMA_VERSION`. A corrupt entry, one of another
 schema, one whose stored key disagrees with its digest, or one whose
@@ -36,12 +45,15 @@ import time
 import torch
 
 __all__ = ["SCHEMA_VERSION", "Tolerance", "TuneResult",
-           "autotune", "cached_winner", "prune_candidates", "target_key",
-           "tune_cache_dir", "tune_cache_key"]
+           "autotune", "cached_winner", "candidates", "prune_by_cost",
+           "prune_candidates",
+           "target_key", "tune_cache_dir", "tune_cache_key"]
 
 # Bump whenever the meaning of an entry changes (payload layout, winner
 # semantics, timing protocol): entries of any other version are evicted.
-SCHEMA_VERSION = 1
+# 2: the defines are the builders' (JAX's fitting policy), and a "torch"
+# winner times the spec's torch expansion, not the plain version.
+SCHEMA_VERSION = 2
 CACHE_SUBDIR = "autotune_torch"
 
 
@@ -55,11 +67,12 @@ def _root() -> pathlib.Path:
 
 
 def target_key(device: torch.device, backend: str, sources=()) -> dict:
-    """What a winner was timed on: ``backend`` ("cuda" or "torch"), the
-    device's name ("cpu" on the CPU), the torch and CUDA versions, and for
-    "cuda" the build hash of the kernel ``sources``."""
-    if backend not in ("cuda", "torch"):
-        raise ValueError(f"backend must be cuda or torch, got {backend!r}")
+    """What a winner was timed on: ``backend`` ("cuda", "torch" or
+    "loops"), the device's name ("cpu" on the CPU), the torch and CUDA
+    versions, and for "cuda" the build hash of the kernel ``sources``."""
+    if backend not in ("cuda", "torch", "loops"):
+        raise ValueError(f"backend must be cuda, torch or loops, got "
+                         f"{backend!r}")
     if device.type == "cuda":
         name = torch.cuda.get_device_name(device)
     elif device.type == "cpu":
@@ -205,26 +218,110 @@ class Tolerance:
         return None
 
 
-def prune_candidates(defines: dict, sweep: dict, smem):
+def prune_candidates(defines: dict, sweep: dict, smem, *, fit=None):
     """Reject up front, without a launch, every candidate whose shared
     memory per block (``smem(candidate defines)``, the wrapper's own size
     function; None: unknown, kept) exceeds the H100's 227 KB a block
-    (``kernels.apps._common.SMEM_MAX``). Returns (kept, pruned), pruned as
-    (candidate, ``prune[SMEM_OVERFLOW]: ...``). The cost model's dominance
-    rule of the JAX package waits for the port's cost model."""
+    (``kernels.apps._common.SMEM_MAX``): the cuda backend's rule. Returns
+    (kept, pruned), pruned as (candidate, ``prune[SMEM_OVERFLOW]: ...``).
+    ``fit`` (see :func:`candidates`) fits each candidate to the shapes."""
     from ..kernels.apps import _common
 
     budget = _common.SMEM_MAX
-    names = sorted(sweep)
     kept, pruned = [], []
-    for combo in itertools.product(*(sweep[n] for n in names)):
-        cand = dict(defines, **dict(zip(names, combo)))
+    for cand in candidates(defines, sweep, fit):
         need = smem(cand) if smem is not None else None
         if need is not None and need > budget:
             pruned.append((cand, f"prune[SMEM_OVERFLOW]: {need} B of shared "
                                  f"memory a block > budget {budget} B"))
         else:
             kept.append(cand)
+    return kept, pruned
+
+
+def candidates(defines, sweep, fit=None) -> list[dict]:
+    """Every combination of the swept knobs over ``defines``, in order;
+    ``fit(candidate) -> defines`` fits each to the shapes (the op's own
+    policy: a tile larger than the field is clipped to it, as the
+    wrappers do), and candidates that fit to the same knobs are kept
+    once."""
+    names = sorted(sweep)
+    out, seen = [], set()
+    for combo in itertools.product(*(sweep[n] for n in names)):
+        cand = dict(defines, **dict(zip(names, combo)))
+        if fit is not None:
+            cand = fit(cand)
+        key = tuple(repr(cand[n]) for n in names)
+        if key not in seen:
+            seen.add(key)
+            out.append(cand)
+    return out
+
+
+def prune_by_cost(builder, defines: dict, sweep: dict, *, budget=None,
+                  dominated: bool = True, fit=None):
+    """The cost model's pass over a sweep (the torch and loops backends'
+    rule; the JAX package's ``prune_candidates``): no candidate is built
+    or run. Returns (kept, pruned), reasons prefixed ``prune[CODE]:``.
+    Both rules fail open (a candidate the model cannot price is kept for
+    the build to judge):
+
+    * ``prune[SMEM_OVERFLOW]``: the spec's footprint exceeds the budget
+      (:func:`analyze.smem_budget`); its build would raise the same.
+    * ``prune[DOMINATED]`` (``dominated=True``): another candidate that
+      fits moves no more device-memory bytes and does no more FLOPs, one
+      of them strictly less. The footprint is not part of the vector
+      (bigger blocks trade it for bytes nearly always); the budget alone
+      polices it.
+
+    ``fit`` (see :func:`candidates`) fits each candidate to the shapes."""
+    from types import SimpleNamespace
+
+    from . import analyze as _analyze
+
+    budget = _analyze.smem_budget() if budget is None else int(budget)
+    names = sorted(sweep)
+    cands = []   # (cand, report | None)
+    for cand in candidates(defines, sweep, fit):
+        try:
+            D = SimpleNamespace(**cand)
+            rep = _analyze.estimate_cost(builder(D), D, budget=budget)
+        except Exception:
+            rep = None   # invalid or unpriceable: the build loop decides
+        cands.append((cand, rep))
+
+    kept, pruned = [], []
+    fitting = [(c, r) for c, r in cands
+               if r is not None and r.smem_bytes <= budget]
+    for cand, rep in cands:
+        if rep is None:
+            kept.append(cand)
+            continue
+        if rep.smem_bytes > budget:
+            pruned.append((cand, (
+                f"prune[SMEM_OVERFLOW]: static footprint {rep.smem_bytes} B "
+                f"> budget {budget} B")))
+            continue
+        dominator = None
+        if dominated and rep.flops is not None:
+            for other, orep in fitting:
+                if other is cand or orep.flops is None:
+                    continue
+                if (orep.hbm_bytes <= rep.hbm_bytes
+                        and orep.flops <= rep.flops
+                        and (orep.hbm_bytes < rep.hbm_bytes
+                             or orep.flops < rep.flops)):
+                    dominator = (other, orep)
+                    break
+        if dominator is not None:
+            other, orep = dominator
+            over = {n: other[n] for n in names}
+            pruned.append((cand, (
+                f"prune[DOMINATED]: {over} moves {orep.hbm_bytes} B vs "
+                f"{rep.hbm_bytes} B and does {orep.flops} vs {rep.flops} "
+                "FLOPs: statically at least as fast")))
+            continue
+        kept.append(cand)
     return kept, pruned
 
 
@@ -272,17 +369,18 @@ def _time(fn, device, *, warmup, repeats):
 
 
 def autotune(run, defines: dict, *, sweep: dict, device, target: dict,
-             name: str, ref, check=None, refusal=None, smem=None,
+             name: str, ref, check=None, refusal=None, prune=None,
              warmup: int = 1, repeats: int = 3, cache: bool = False,
              log=None) -> TuneResult:
     """Grid-search ``sweep`` ({knob: candidates}) for one tuning problem.
 
-    ``run(knobs)`` launches the op once on its fixed tensors with those
-    knobs and returns its outputs. Candidates whose ``smem`` exceeds the
-    card's shared memory are pruned first (:func:`prune_candidates`);
-    those ``refusal`` names a reason for, or whose launch the wrapper
-    refuses (``ValueError``), are skipped with the reason; each one left
-    is timed (:func:`_time`: device time on the card) and its first output
+    ``run(knobs)`` builds and runs the op once on its fixed tensors with
+    those knobs and returns its outputs. ``prune(defines, sweep)`` ->
+    (kept, pruned) rejects candidates first (:func:`prune_candidates`,
+    :func:`prune_by_cost`; None keeps all); those ``refusal`` names a
+    reason for, or whose build or launch raises ``ValueError`` (a binding
+    or the analyzer refusing them), are skipped with the reason; each one
+    left is timed (:func:`_time`: device time on the card) and its outputs
     held against ``ref()`` (the plain version on the same tensors,
     evaluated once, after a cache miss) by ``check`` (a
     :class:`Tolerance`): a candidate that fails is skipped with the
@@ -302,14 +400,15 @@ def autotune(run, defines: dict, *, sweep: dict, device, target: dict,
                               cached=True,
                               seconds=time.perf_counter() - t0)
     check = check or Tolerance()
-    candidates, skipped = prune_candidates(defines, sweep, smem)
-    if not candidates and skipped:
+    cands, skipped = (prune(defines, sweep) if prune is not None
+                      else (candidates(defines, sweep), []))
+    if not cands and skipped:
         raise ValueError(
             f"{name}: every sweep candidate was statically pruned:\n"
             + "\n".join(f"  {c}: {r}" for c, r in skipped))
     reference = None
     trials = []
-    for cand in candidates:
+    for cand in cands:
         knobs = {n: cand[n] for n in names}
         reason = refusal(cand) if refusal is not None else None
         if reason is not None:
@@ -323,7 +422,11 @@ def autotune(run, defines: dict, *, sweep: dict, device, target: dict,
             continue
         if reference is None:
             reference = ref()
-        bad = check(out, reference)
+            reference = (tuple(reference) if isinstance(reference,
+                                                        (tuple, list))
+                         else (reference,))
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        bad = check(tuple(outs)[:len(reference)], reference)
         if bad is not None:
             skipped.append((cand, f"validation: {bad}"))
             continue

@@ -19,10 +19,13 @@ def fit_block(block: int, n: int) -> int:
         raise ValueError(f"fit_block: cannot tile a dimension of size {n}")
     if block <= 0:
         raise ValueError(f"fit_block: block must be positive, got {block}")
-    block = min(int(block), int(n))
-    while n % block:
-        block -= 1
-    return block
+    n = int(n)
+    # the largest n // k <= block: walk k up from the fewest blocks (at most
+    # n / block steps, not block)
+    for k in range(-(-n // min(int(block), n)), n + 1):
+        if n % k == 0:
+            return n // k
+    return 1
 
 
 def resolve_device(device=None) -> torch.device:

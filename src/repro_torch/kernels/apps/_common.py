@@ -6,7 +6,7 @@ import torch
 
 from .._build import on_cpu
 
-__all__ = ["SMEM_MAX", "app_on_cpu", "out_for"]
+__all__ = ["SMEM_MAX", "app_builder", "app_on_cpu", "out_for"]
 
 # shared memory one block may use on the H100 (227 KB, opt-in above 48 KB)
 SMEM_MAX = 232448
@@ -39,3 +39,18 @@ def out_for(name, out, shape, like, *inputs):
     if any(out.data_ptr() == t.data_ptr() for t in inputs):
         raise ValueError(f"{name}: out must not alias an input")
     return out
+
+
+def app_builder(module: str, name: str):
+    """The app builder ``repro_torch.apps.<module>.<name>``, looked up at
+    its first call: the app drivers import these modules, so the op
+    declarations cannot import their builders at import time. One shim a
+    builder, made once, so the Device's kernel cache keys on it."""
+    import importlib
+
+    def builder(D):
+        return getattr(importlib.import_module(f"repro_torch.apps.{module}"),
+                       name)(D)
+
+    builder.__name__ = builder.__qualname__ = name
+    return builder

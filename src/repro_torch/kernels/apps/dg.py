@@ -24,7 +24,8 @@ microseconds, and the LSERK step calls it five times. ``eb``
 element's arithmetic in either kernel.
 
 ``dg_volume_op`` and ``dg_surface_op`` declare them for the op front end
-(``repro_torch.core``) under the JAX ops' names, tuned over ``eb``; the
+(``repro_torch.core``) under the JAX ops' names, over
+``repro_torch.apps.dg_swe``'s builders and tuned over ``eb``; the
 module also binds the kernel language's ``dg_swe_volume`` and
 ``dg_swe_surface`` specs to them for the cuda backend (``core.cuda``).
 """
@@ -36,11 +37,12 @@ import ctypes
 import torch
 
 from ...core.cuda import bind_cuda
+from ...core.device import fit_block
 from ...core.lang import as_dtype
-from ...core.op import define_op
+from ...core.op import define_op, oracle_vjp
 from ...core.tune import Tolerance
 from .._build import check, load, ptr, stream
-from ._common import SMEM_MAX, app_on_cpu, out_for
+from ._common import SMEM_MAX, app_builder, app_on_cpu, out_for
 
 __all__ = ["dg_volume", "dg_surface", "dg_volume_op", "dg_surface_op",
            "volume_ref", "volume_folded_ref", "volume_route", "surface_ref",
@@ -262,7 +264,8 @@ def _dgv_defines(args, params):
         raise ValueError(f"dg_volume: shapes q {tuple(q.shape)}, geom "
                          f"{tuple(geom.shape)}, db {tuple(db.shape)}, dr "
                          f"{tuple(dr.shape)}, ds {tuple(ds.shape)}")
-    return dict(E=E, np_=np_, dtype=_dtype(q))
+    return dict(E=E, np_=np_, eb=fit_block(params["eb"], E),
+                g=float(params["g"]), dtype=_dtype(q))
 
 
 def _dgs_defines(args, params):
@@ -275,7 +278,8 @@ def _dgs_defines(args, params):
         raise ValueError(f"dg_surface: shapes qm {tuple(qm.shape)}, qp "
                          f"{tuple(qp.shape)}, nrm {tuple(nrm.shape)}, lift "
                          f"{tuple(lift.shape)}")
-    return dict(E=E, np_=np_, nfp3=nfp3, dtype=_dtype(qm))
+    return dict(E=E, np_=np_, nfp3=nfp3, eb=fit_block(params["eb"], E),
+                g=float(params["g"]), dtype=_dtype(qm))
 
 
 def _dgv_example(rng):
@@ -309,11 +313,14 @@ _EB_SWEEP = [1, 2, 4, 8, 16, 32, 64]
 
 dg_volume_op = define_op(
     "dg_volume",
-    kernel=dg_volume,
+    builder=app_builder("dg_swe", "dg_volume_builder"),
     ref=volume_ref,
-    defaults=dict(g=GRAV, eb=DEFAULT_EB),
-    sweep=dict(eb=_EB_SWEEP),
     derive_defines=_dgv_defines,
+    vjp=oracle_vjp(volume_ref, params=("g",)),
+    defaults=dict(g=GRAV, eb=DEFAULT_EB),
+    ref_params=("g",),
+    tune_ref=lambda args, params: volume_ref(*args, g=params["g"]),
+    sweep=dict(eb=_EB_SWEEP),
     smem=lambda d: _volume_smem(d["np_"], d["eb"],
                                 volume_route(d["np_"]) == "generic"),
     refusal=lambda d: volume_refusal(d["E"], d["np_"], d["eb"]),
@@ -328,11 +335,14 @@ dg_volume_op = define_op(
 
 dg_surface_op = define_op(
     "dg_surface",
-    kernel=dg_surface,
+    builder=app_builder("dg_swe", "dg_surface_builder"),
     ref=surface_ref,
-    defaults=dict(g=GRAV, eb=DEFAULT_EB),
-    sweep=dict(eb=_EB_SWEEP),
     derive_defines=_dgs_defines,
+    vjp=oracle_vjp(surface_ref, params=("g",)),
+    defaults=dict(g=GRAV, eb=DEFAULT_EB),
+    ref_params=("g",),
+    tune_ref=lambda args, params: surface_ref(*args, g=params["g"]),
+    sweep=dict(eb=_EB_SWEEP),
     smem=lambda d: _surface_smem(d["np_"], d["nfp3"], d["eb"]),
     refusal=lambda d: surface_refusal(d["E"], d["np_"], d["nfp3"], d["eb"]),
     tolerance=Tolerance(f32=(2e-4, 2e-4), scaled=True),
@@ -357,14 +367,14 @@ def _f32_refusal(D):
 
 
 bind_cuda("dg_swe_volume", wrapper=dg_volume,
-          launch=lambda D, ins, outs: dg_volume(*ins, g=D.g, eb=D.eb,
-                                                out=outs[0]),
+          launch=lambda D, ins, outs: (dg_volume(
+              *ins, g=D.g, eb=D.eb, out=None if outs is None else outs[0]),),
           refusal=lambda spec, D: _f32_refusal(D) or volume_refusal(
               D.E, D.np_, D.eb),
           launch_defines=("g", "eb"))
 bind_cuda("dg_swe_surface", wrapper=dg_surface,
-          launch=lambda D, ins, outs: dg_surface(*ins, g=D.g, eb=D.eb,
-                                                 out=outs[0]),
+          launch=lambda D, ins, outs: (dg_surface(
+              *ins, g=D.g, eb=D.eb, out=None if outs is None else outs[0]),),
           refusal=lambda spec, D: _f32_refusal(D) or surface_refusal(
               D.E, D.np_, D.nfp3, D.eb),
           launch_defines=("g", "eb"))

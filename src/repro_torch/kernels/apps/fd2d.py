@@ -16,9 +16,9 @@ width are multiples of 4 floats and the three bases are 16-byte aligned,
 chain of f32 roundings, :func:`fd2d_stream_ref`'s, whatever the tile.
 
 ``fd2d_op`` declares it for the op front end (``repro_torch.core``) under
-the JAX op's name, tuned over the tile (bh, bw); the module also binds the
-kernel language's ``fd2d`` spec to it for the cuda backend
-(``core.cuda``).
+the JAX op's name, over ``repro_torch.apps.fd2d.fd2d_builder`` and tuned
+over the tile (bh, bw); the module also binds the kernel language's
+``fd2d`` spec to it for the cuda backend (``core.cuda``).
 """
 
 from __future__ import annotations
@@ -29,10 +29,11 @@ import torch
 
 from ...core.cuda import bind_cuda
 from ...core.lang import as_dtype
-from ...core.op import define_op
+from ...core.device import fit_block
+from ...core.op import define_op, oracle_vjp
 from ...core.tune import Tolerance
 from .._build import check, load, stream
-from ._common import SMEM_MAX, app_on_cpu
+from ._common import SMEM_MAX, app_builder, app_on_cpu
 
 __all__ = ["fd2d", "fd2d_op", "fd2d_ref", "fd2d_stream_ref", "route",
            "DEFAULT_BLOCK", "MAX_RADIUS", "tile_refusal"]
@@ -162,22 +163,28 @@ fd2d.routes = {"vec": 0, "scalar": 0}
 # the op declaration (repro.kernels.apps.ops.fd2d)
 # ---------------------------------------------------------------------------
 
-def _fd2d_call(u1, u2, *, weights, dx, dt, bh, bw):
-    return fd2d(u1, u2, weights=weights, dx=dx, dt=dt, block=(bh, bw))
-
-
 def _fd2d_plain(u1, u2, *, weights, dx, dt):
     return fd2d_ref(u1, u2, weights, float(dx), float(dt))
 
 
 def _fd_defines(args, params):
+    """JAX's ``_fd_defines``: the tile (bh, bw) fitted to divide the
+    field."""
     u1, u2 = args
     if u1.dim() != 2 or tuple(u2.shape) != tuple(u1.shape):
         raise ValueError(f"fd2d: u1 {tuple(u1.shape)}, u2 "
                          f"{tuple(u2.shape)} must be one (h, w) shape")
-    h, w = u1.shape
-    return dict(h=int(h), w=int(w), r=(len(params["weights"]) - 1) // 2,
+    h, w = (int(n) for n in u1.shape)
+    weights = tuple(float(x) for x in params["weights"])
+    return dict(w=w, h=h, r=(len(weights) - 1) // 2, weights=weights,
+                dt=float(params["dt"]), dx=float(params["dx"]),
+                bh=fit_block(params["bh"], h), bw=fit_block(params["bw"], w),
                 dtype=str(u1.dtype).removeprefix("torch."))
+
+
+def _fd_tune_ref(args, params):
+    return _fd2d_plain(*args, weights=params["weights"], dx=params["dx"],
+                       dt=params["dt"])
 
 
 def _fd_tile(d):
@@ -201,12 +208,15 @@ def _fd_example(rng):
 
 fd2d_op = define_op(
     "fd2d",
-    kernel=_fd2d_call,
+    builder=app_builder("fd2d", "fd2d_builder"),
     ref=_fd2d_plain,
+    derive_defines=_fd_defines,
+    vjp=oracle_vjp(_fd2d_plain, params=("weights", "dx", "dt")),
     defaults=dict(weights=(1.0, -2.0, 1.0), dx=1.0, dt=0.1,
                   bh=DEFAULT_BLOCK[0], bw=DEFAULT_BLOCK[1]),
+    ref_params=("weights", "dx", "dt"),
+    tune_ref=_fd_tune_ref,
     sweep=dict(bh=[8, 16, 32, 64, 128], bw=[32, 64, 128, 256]),
-    derive_defines=_fd_defines,
     smem=_fd_smem,
     refusal=_fd_refusal,
     tolerance=Tolerance(f32=(2e-5, 2e-5)),
@@ -234,8 +244,8 @@ def _spec_refusal(spec, D):
 
 
 def _spec_launch(D, ins, outs):
-    fd2d(ins[0], ins[1], weights=D.weights, dx=D.dx, dt=D.dt,
-         block=(D.bh, D.bw), out=outs[0])
+    return (fd2d(ins[0], ins[1], weights=D.weights, dx=D.dx, dt=D.dt,
+                 block=(D.bh, D.bw), out=None if outs is None else outs[0]),)
 
 
 bind_cuda("fd2d", wrapper=fd2d, launch=_spec_launch, refusal=_spec_refusal,

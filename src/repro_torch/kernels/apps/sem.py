@@ -16,7 +16,8 @@ block) assigns elements to blocks and does not change any element's
 arithmetic.
 
 ``sem_apply_op`` declares it for the op front end (``repro_torch.core``)
-under the JAX op's name, tuned over ``eb``; the module also binds the
+under the JAX op's name, over ``repro_torch.apps.sem.sem_builder`` and
+tuned over ``eb``; the module also binds the
 kernel language's ``sem_ax`` spec to it for the cuda backend
 (``core.cuda``).
 """
@@ -29,10 +30,11 @@ import torch
 
 from ...core.cuda import bind_cuda
 from ...core.lang import as_dtype
-from ...core.op import define_op
+from ...core.device import fit_block
+from ...core.op import define_op, oracle_vjp
 from ...core.tune import Tolerance
 from .._build import check, load, stream
-from ._common import app_on_cpu, out_for
+from ._common import app_builder, app_on_cpu, out_for
 
 __all__ = ["sem_apply", "sem_apply_op", "apply_ref", "sem_route",
            "DEFAULT_EB", "MAX_NQ", "TEMPLATED_NQ", "eb_refusal"]
@@ -135,6 +137,7 @@ def _sem_plain(u, geo, dmat):
 
 
 def _sem_defines(args, params):
+    """JAX's ``_sem_defines``: ``eb`` fitted to divide E."""
     u, geo, dmat = args
     E, nq = (int(u.shape[0]), int(u.shape[1])) if u.dim() == 4 else (0, 0)
     if (tuple(u.shape) != (E, nq, nq, nq)
@@ -142,7 +145,8 @@ def _sem_defines(args, params):
             or tuple(dmat.shape) != (nq, nq)):
         raise ValueError(f"sem_apply: shapes u {tuple(u.shape)}, geo "
                          f"{tuple(geo.shape)}, dmat {tuple(dmat.shape)}")
-    return dict(E=E, nq=nq, dtype=str(u.dtype).removeprefix("torch."))
+    return dict(E=E, nq=nq, eb=fit_block(params["eb"], E),
+                dtype=str(u.dtype).removeprefix("torch."))
 
 
 def _sem_example(rng):
@@ -155,11 +159,13 @@ def _sem_example(rng):
 
 sem_apply_op = define_op(
     "sem_apply",
-    kernel=sem_apply,
+    builder=app_builder("sem", "sem_builder"),
     ref=_sem_plain,
-    defaults=dict(eb=DEFAULT_EB),
-    sweep=dict(eb=[1, 2, 4, 8, 16, 32, 64]),
     derive_defines=_sem_defines,
+    vjp=oracle_vjp(_sem_plain),
+    defaults=dict(eb=DEFAULT_EB),
+    tune_ref=lambda args, params: _sem_plain(*args),
+    sweep=dict(eb=[1, 2, 4, 8, 16, 32, 64]),
     # the generic kernel's (nq^2 + 4 nq^3) * 4 B; eb does not change it
     smem=lambda d: (d["nq"] ** 2 + 4 * d["nq"] ** 3) * 4,
     refusal=lambda d: eb_refusal(d["E"], d["nq"], d["eb"]),
@@ -184,7 +190,7 @@ def _spec_refusal(spec, D):
 
 
 def _spec_launch(D, ins, outs):
-    sem_apply(*ins, eb=D.eb, out=outs[0])
+    return (sem_apply(*ins, eb=D.eb, out=None if outs is None else outs[0]),)
 
 
 bind_cuda("sem_ax", wrapper=sem_apply, launch=_spec_launch,

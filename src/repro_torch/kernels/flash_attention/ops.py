@@ -54,8 +54,13 @@ import functools
 
 import torch
 
-from ...core.op import define_op
+from ...core.cuda import bind_cuda
+from ...core.device import default_device, fit_block
+from ...core.lang import as_dtype
+from ...core.op import OpVJP, define_op
 from .._build import check, load, on_cpu, ptr, stream
+from .kernel import (flash_decode_builder, flash_fwd_builder,
+                     paged_decode_builder)
 from .ref import (decode_ref, flash_bwd_ref, flash_delta_ref, flash_fwd_ref,
                   mha_ref, paged_decode_ref, ring_bwd_ref, ring_fwd_ref)
 
@@ -754,27 +759,144 @@ ring_flash_bwd.routes = {"wgmma": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------------------
-# the op declarations (repro.kernels.flash_attention.ops)
+# the op declarations (repro.kernels.flash_attention.ops), over the
+# builders of kernel.py; the cuda bindings of their specs follow
 # ---------------------------------------------------------------------------
 
 def _dtype_name(dtype):
     return str(dtype).removeprefix("torch.")
 
 
-def _decode_problem(q_shape, k_shape, dtype, window):
-    """flash_decode's tuning problem (what a split winner depends on)."""
-    b, h, _, d = q_shape
-    return dict(b=int(b), h=int(h), hk=int(k_shape[1]), skv=int(k_shape[2]),
-                d=int(d), dtype=_dtype_name(dtype),
-                window=None if window is None else int(window))
+def _blocks(name, sq, skv, block_q, block_kv, ncells_of):
+    """The JAX ops' fitting: the largest dividing blocks, and a loud error
+    when awkward lengths degrade them into a huge grid."""
+    bq, bkv = fit_block(block_q, sq), fit_block(block_kv, skv)
+    degraded = bq < min(block_q, sq) or bkv < min(block_kv, skv)
+    if degraded and ncells_of(bq, bkv) > 1 << 16:
+        raise ValueError(
+            f"{name}: seq lens ({sq}, {skv}) degraded blocks to ({bq}, "
+            f"{bkv}) = {ncells_of(bq, bkv)} grid cells; pad the sequences "
+            "or pass block sizes that divide them")
+    return bq, bkv
 
 
-def _paged_problem(q_shape, pool_shape, nsp, dtype):
-    """paged decode's tuning problem (the pool's page count aside)."""
-    b, h, _, d = q_shape
-    return dict(b=int(b), h=int(h), hk=int(pool_shape[1]),
-                page=int(pool_shape[2]), nsp=int(nsp), d=int(d),
-                dtype=_dtype_name(dtype))
+def _attn_defines(name, q, k, v, params):
+    """The defines of the prefill and ring specs (JAX's ``_defines``)."""
+    b, h, sq, d = q.shape
+    _, hk, skv, _ = k.shape
+    if h % hk:
+        raise ValueError(f"{name}: {h} query heads not a multiple of {hk} "
+                         "kv heads")
+    if q.dtype != k.dtype or q.dtype != v.dtype:
+        raise ValueError(f"{name}: dtypes disagree "
+                         f"({q.dtype}/{k.dtype}/{v.dtype})")
+    bq, bkv = _blocks(name, sq, skv, params["block_q"], params["block_kv"],
+                      lambda bq, bkv: b * h * (sq // bq) * (skv // bkv))
+    sm_scale = params["sm_scale"]
+    window = params["window"]
+    return dict(
+        b=int(b), h=int(h), hk=int(hk), sq=int(sq), skv=int(skv), d=int(d),
+        dv=int(v.shape[-1]), block_q=bq, block_kv=bkv,
+        causal=bool(params["causal"]),
+        window=None if window is None else int(window),
+        prefix_len=int(params["prefix_len"]),
+        sm_scale=float(1.0 / d ** 0.5 if sm_scale is None else sm_scale),
+        dtype=_dtype_name(q.dtype))
+
+
+def _defines(args, params):
+    q, k, v = args
+    return _attn_defines("flash_attention", q, k, v, params)
+
+
+def _residuals(outs, args, params):
+    o, lse = outs
+    q, k, v = args
+    return q, k, v, o, lse
+
+
+def attention_bwd(q, k, v, o, do, lse, *, D, backend, builders=None,
+                  starts=()):
+    """The backward through the kernel language (JAX's
+    ``flash_attention_bwd`` host path): ``flash_delta_builder``, then the
+    fused dq/dk/dv builder (``flash_bwd_builder``, or with ``starts`` =
+    (q_start, k_start) ``ring_flash_bwd_builder`` and ``delta`` less the
+    lse cotangent), built with the forward's defines ``D`` on
+    ``backend``; dk and dv come group-summed, cast to k's and v's dtypes
+    here. The cotangent is taken as :func:`flash_attention_bwd` takes it
+    (q's dtype, last axis contiguous, and on the card a copy the 16-byte
+    loads can read when q, k and v take the tensor-core route), so on
+    ``cuda`` the launches are the wrapper's own."""
+    from .kernel import flash_bwd_builder, flash_delta_builder
+
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    if q.is_cuda and route(q, k, v) == "wgmma" and route(do) == "simt":
+        do = do.clone(memory_format=torch.contiguous_format)
+    dev = default_device(backend, q.device)
+    delta, = dev.build_kernel(flash_delta_builder, dict(
+        b=D["b"], h=D["h"], sq=D["sq"], dv=D["dv"], block_q=D["block_q"],
+        dtype=D["dtype"])).run(do, o)
+    bwd = builders or flash_bwd_builder
+    dq, dk, dv = dev.build_kernel(bwd, D).run(q, k, v, do, lse, delta,
+                                              *starts)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd(params, res, g):
+    q, k, v, o, lse = res
+    # re-derived through _defines: forward and backward share one fitting
+    return attention_bwd(q, k, v, o, g, lse, D=_defines((q, k, v), params),
+                         backend=params["backend"])
+
+
+def _flash_example(rng):
+    q = rng.standard_normal((1, 4, 64, 32)).astype("float32")
+    k = rng.standard_normal((1, 2, 64, 32)).astype("float32")
+    v = rng.standard_normal((1, 2, 64, 32)).astype("float32")
+    return (q, k, v), dict(causal=True)
+
+
+flash_attention_op = define_op(
+    "flash_attention",
+    builder=flash_fwd_builder,
+    ref=mha_ref,
+    derive_defines=_defines,
+    vjp=OpVJP(bwd=_bwd, residuals=_residuals),
+    public_outputs=1,                       # lse is residual-only
+    defaults=dict(causal=True, window=None, sm_scale=None, prefix_len=0,
+                  block_q=128, block_kv=128),
+    ref_params=("causal", "window", "sm_scale", "prefix_len"),
+    sources=("flash_fwd", "flash_delta", "flash_bwd"),
+    example=_flash_example,
+    doc="""Differentiable flash attention: q (B, H, Sq, Dqk), k (B, Hk, Skv,
+    Dqk), v (B, Hk, Skv, Dv); GQA, causal, sliding-window and prefix-LM
+    masks. The forward is ``flash_fwd_builder``, the backward the delta
+    and fused dq/dk/dv builders, on the forward's backend. ``block_q`` and
+    ``block_kv`` tile the torch and loops expansions; the kernels' tiles
+    are template constants, so it declares no sweep.""",
+)
+
+
+# -- single-token decode ------------------------------------------------------
+
+def _decode_pre(args, params):
+    q, k, v = args
+    skv = k.shape[2]
+    kv_len = params.get("kv_len")
+    if kv_len is None:
+        kv_len = skv                         # the full cache valid
+    if torch.is_tensor(kv_len):
+        kv_len = kv_len.to(torch.int32).reshape(1, 1)
+    else:
+        kv_len = torch.full((1, 1), int(kv_len), dtype=torch.int32,
+                            device=q.device)
+    slot_pos = params.get("slot_pos")
+    if slot_pos is None:
+        # positional: slot i holds absolute position i
+        slot_pos = torch.arange(skv, dtype=torch.int32, device=q.device)
+    return q, k, v, kv_len, slot_pos.to(torch.int32).reshape(1, skv)
 
 
 def _check_decode_domain(name, q, k, v, head_dims):
@@ -792,33 +914,43 @@ def _check_decode_domain(name, q, k, v, head_dims):
 
 
 def _decode_defines(args, params):
-    q, k, v = args
+    """JAX's ``_decode_defines`` (``block_kv`` fitted to the cache), within
+    the kernel's domain (the problem a split winner answers for), and the
+    ``split`` knob."""
+    q, k, v, kv_len, slot_pos = args
     _check_decode_domain("flash_decode", q, k, v, _DECODE_HEAD_DIMS)
-    if k.shape[0] != q.shape[0] or tuple(v.shape) != tuple(k.shape):
+    b, h, _, d = q.shape
+    _, hk, skv, _ = k.shape
+    if k.shape[0] != b or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"flash_decode: cache k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} for q {tuple(q.shape)}")
-    return _decode_problem(q.shape, k.shape, q.dtype, params["window"])
+    if tuple(slot_pos.shape) != (1, skv):
+        raise ValueError(f"flash_decode: slot_pos shape "
+                         f"{tuple(slot_pos.shape)} does not match the cache "
+                         f"length ({skv} slots)")
+    want = params["block_kv"]
+    bkv = fit_block(want, skv)
+    if bkv < min(want, skv) and b * h * (skv // bkv) > 1 << 16:
+        raise ValueError(
+            f"flash_decode: cache len {skv} degraded block_kv to {bkv}; pad "
+            "the cache or pass a dividing block_kv")
+    sm_scale, window = params["sm_scale"], params["window"]
+    return dict(b=int(b), h=int(h), hk=int(hk), skv=int(skv), d=int(d),
+                dv=int(v.shape[-1]), block_kv=bkv,
+                window=None if window is None else int(window),
+                sm_scale=float(d ** -0.5 if sm_scale is None else sm_scale),
+                dtype=_dtype_name(q.dtype), split=params["split"])
 
 
-def _paged_defines(args, params):
-    q, kp, vp = args
-    _check_decode_domain("flash_decode_paged", q, kp, vp, _PAGED_HEAD_DIMS)
-    table = params["block_table"]
-    if table is None or table.dim() != 2 or table.shape[0] != q.shape[0]:
-        raise ValueError("flash_decode_paged: block_table= (B, n_seq_pages) "
-                         "is required")
-    return _paged_problem(q.shape, kp.shape, table.shape[1], q.dtype)
+def _decode_tune_ref(args, params):
+    q, k, v, kv_len, slot_pos = args
+    return decode_ref(q, k, v, window=params["window"],
+                      sm_scale=params["sm_scale"], kv_len=kv_len.reshape(()),
+                      slot_pos=slot_pos.reshape(-1))
 
 
 def _split_refusal(d):
     return split_refusal(d["split"])
-
-
-def _flash_example(rng):
-    q = rng.standard_normal((1, 4, 64, 32)).astype("float32")
-    k = rng.standard_normal((1, 2, 64, 32)).astype("float32")
-    v = rng.standard_normal((1, 2, 64, 32)).astype("float32")
-    return (q, k, v), dict(causal=True)
 
 
 def _decode_example(rng):
@@ -826,6 +958,96 @@ def _decode_example(rng):
     k = rng.standard_normal((1, 2, 128, 32)).astype("float32")
     v = rng.standard_normal((1, 2, 128, 32)).astype("float32")
     return (q, k, v), dict(kv_len=100)
+
+
+flash_decode_op = define_op(
+    "flash_decode",
+    builder=flash_decode_builder,
+    ref=decode_ref,
+    derive_defines=_decode_defines,
+    pre=_decode_pre,
+    defaults=dict(window=None, sm_scale=None, block_kv=512, split=None),
+    array_params=("kv_len", "slot_pos"),
+    ref_params=("window", "sm_scale", "kv_len", "slot_pos"),
+    tune_ref=_decode_tune_ref,
+    sweep=dict(split=[64, 128, 256, 512]),
+    refusal=_split_refusal,
+    sources=("flash_decode",),
+    example=_decode_example,
+    doc="""One-token decode against a contiguous or rotated cache:
+    q (B, H, 1, D), k, v (B, Hk, S, D); ``kv_len`` (int or a one-element
+    int32 tensor) puts the query at kv_len - 1, ``slot_pos`` ((S,) int32,
+    -1 empty) gives each slot's absolute position. ``split`` slots a range
+    of the split-KV kernel (its rule when None); ``block_kv`` tiles the
+    torch and loops expansions.""",
+)
+
+
+# -- paged decode -------------------------------------------------------------
+
+def _paged_pre(args, params):
+    q, k, v = args
+    npages, _, page, _ = k.shape
+    b = q.shape[0]
+    table = params.get("block_table")
+    if table is None:
+        raise ValueError(
+            "flash_decode_paged: block_table= is required: per-sequence "
+            "page indices into the pool, shape (B, n_seq_pages) int32")
+    table = table.to(torch.int32).reshape(b, -1)
+    nsp = table.shape[-1]
+    kv_len = params.get("kv_len")
+    if kv_len is None:
+        kv_len = nsp * page                  # the full logical capacity
+    kv_len = (kv_len if torch.is_tensor(kv_len) else torch.tensor(
+        kv_len, device=table.device)).to(torch.int32).reshape(-1)
+    kv_len = torch.broadcast_to(kv_len, (b,)).reshape(b, 1)
+    pos = params.get("pos_pages")
+    if pos is None:
+        # positional: logical page j of a sequence holds [j page, (j+1)
+        # page); pages no sequence's valid prefix reaches stay -1
+        dev = table.device
+        logical = torch.arange(nsp * page, dtype=torch.int32,
+                               device=dev).reshape(nsp, page)
+        valid = (torch.arange(nsp, device=dev) * page)[None, :] < kv_len
+        tgt = torch.where(valid, table, npages).reshape(-1).long()
+        pos = torch.full((npages + 1, page), -1, dtype=torch.int32,
+                         device=dev)
+        pos[tgt] = torch.broadcast_to(logical, (b, nsp, page)).reshape(
+            -1, page)
+        pos = pos[:npages]
+    return q, k, v, table, kv_len, pos.to(torch.int32).reshape(npages, page)
+
+
+def _paged_defines(args, params):
+    """JAX's ``_paged_defines`` within the kernel's domain, and the
+    ``split`` knob."""
+    q, k, v, table, kv_len, pos = args
+    _check_decode_domain("flash_decode_paged", q, k, v, _PAGED_HEAD_DIMS)
+    b, h, _, d = q.shape
+    npages, hk, page, _ = k.shape
+    if tuple(v.shape[:3]) != (npages, hk, page):
+        raise ValueError(f"flash_decode_paged: v pool {tuple(v.shape)} does "
+                         f"not match k pool {tuple(k.shape)}")
+    if tuple(pos.shape) != (npages, page):
+        raise ValueError(f"flash_decode_paged: pos_pages "
+                         f"{tuple(pos.shape)} does not match the pool "
+                         f"({npages} pages of {page} slots)")
+    sm_scale, window = params["sm_scale"], params["window"]
+    return dict(b=int(b), h=int(h), hk=int(hk), d=int(d),
+                dv=int(v.shape[-1]), npages=int(npages), page=int(page),
+                nseq_pages=int(table.shape[-1]),
+                window=None if window is None else int(window),
+                sm_scale=float(1.0 / d ** 0.5 if sm_scale is None
+                               else sm_scale),
+                dtype=_dtype_name(q.dtype), split=params["split"])
+
+
+def _paged_tune_ref(args, params):
+    q, k, v, table, kv_len, pos = args
+    return paged_decode_ref(q, k, v, block_table=table,
+                            kv_len=kv_len.reshape(-1), pos_pages=pos,
+                            sm_scale=params["sm_scale"])
 
 
 def paged_positions(block_table, kv_len, npages, page):
@@ -855,48 +1077,160 @@ def _paged_example(rng):
                            pos_pages=paged_positions(table, kv_len, 8, 32))
 
 
-flash_attention_op = define_op(
-    "flash_attention",
-    kernel=flash_attention,
-    ref=mha_ref,
-    raw=flash_attention_fwd,
-    raw_ref=flash_fwd_ref,
-    defaults=dict(causal=True, window=None, sm_scale=None, prefix_len=0),
-    sources=("flash_fwd",),
-    example=_flash_example,
-    doc="""Differentiable flash attention (``flash_attention``); ``raw`` is
-    the forward's (o, lse). Its tiles are template constants of the
-    kernels, so it declares no sweep.""",
-)
-
-flash_decode_op = define_op(
-    "flash_decode",
-    kernel=flash_decode,
-    ref=decode_ref,
-    defaults=dict(kv_len=None, slot_pos=None, window=None, sm_scale=None,
-                  split=None),
-    sweep=dict(split=[64, 128, 256, 512]),
-    derive_defines=_decode_defines,
-    refusal=_split_refusal,
-    sources=("flash_decode",),
-    example=_decode_example,
-    doc="""One-token decode against a contiguous or rotated cache
-    (``flash_decode``); ``split`` slots a range of the split-KV kernel.""",
-)
-
 flash_decode_paged_op = define_op(
     "flash_decode_paged",
-    kernel=paged_decode_attention,
+    builder=paged_decode_builder,
     ref=paged_decode_ref,
-    defaults=dict(block_table=None, kv_len=None, pos_pages=None,
-                  sm_scale=None, split=None),
-    sweep=dict(split=[32, 64, 128, 256, 512]),
     derive_defines=_paged_defines,
+    pre=_paged_pre,
+    defaults=dict(window=None, sm_scale=None, split=None),
+    array_params=("block_table", "kv_len", "pos_pages"),
+    ref_params=("sm_scale", "block_table", "kv_len", "pos_pages"),
+    tune_ref=_paged_tune_ref,
+    sweep=dict(split=[32, 64, 128, 256, 512]),
     refusal=_split_refusal,
     sources=("paged_decode",),
     example=_paged_example,
-    doc="""One-token decode through a block table over page pools
-    (``paged_decode_attention``); ``split`` slots a range of the split-KV
-    kernel. The page size stays the pool's layout (the engine's), unlike
-    the JAX op, whose block size is the page.""",
+    doc="""One-token decode through a block table over page pools:
+    q (B, H, 1, D), pools k, v (P, Hk, page, D), ``block_table`` (B,
+    n_seq_pages) int32 read by the spec's index maps at run time,
+    ``kv_len`` (B,) int32, ``pos_pages`` (P, page) int32 (-1 empty).
+    ``split`` slots a range of the split-KV kernel; the page size stays
+    the pool's layout (the engine's), as in the JAX op, whose block is the
+    page.""",
 )
+
+
+# ---------------------------------------------------------------------------
+# the cuda bindings: each spec of kernel.py launches through its wrapper.
+# The kernels fix their own tiles (template constants), so the block
+# defines are not launch arguments; the masks and scale are. Each refuses
+# at build time what its wrapper would refuse.
+# ---------------------------------------------------------------------------
+
+def _dtype_refusal(D):
+    if as_dtype(D.dtype) not in _DTYPE_CODE:
+        return f"dtype {D.dtype}; the kernels take float32 or bfloat16"
+    return None
+
+
+def _dims_refusal(D, head_dims, pairs=()):
+    if (D.d in head_dims and D.dv == D.d) or (D.d, D.dv) in pairs:
+        return None
+    more = f" or (d_qk, d_v) in {pairs}" if pairs else ""
+    return (f"head dims ({D.d}, {D.dv}); the kernel takes equal head dims "
+            f"in {head_dims}{more}")
+
+
+def _mask_refusal(D):
+    if D.window is not None and int(D.window) <= 0:
+        return f"window {D.window} must be positive"
+    if int(D.prefix_len) < 0:
+        return f"prefix_len {D.prefix_len} must be >= 0"
+    return None
+
+
+def _group_refusal(D):
+    g = D.h // D.hk
+    if D.h % D.hk or g > _MAX_GROUP or g * D.d > _MAX_GROUP_DIM:
+        return (f"{D.h} query heads over {D.hk} kv heads at head dim "
+                f"{D.d}; the kernel takes groups of at most {_MAX_GROUP} "
+                f"heads with group * d <= {_MAX_GROUP_DIM}")
+    return None
+
+
+def _prefill_refusal(spec, D):
+    if D.sq > D.skv:
+        return f"Sq {D.sq} > Skv {D.skv}; the kernel takes 0 < Sq <= Skv"
+    return (_dtype_refusal(D) or _dims_refusal(D, _FWD_HEAD_DIMS,
+                                               _FWD_DIM_PAIRS)
+            or _mask_refusal(D))
+
+
+def _masks(D):
+    return dict(causal=D.causal, window=D.window, sm_scale=D.sm_scale,
+                prefix_len=D.prefix_len)
+
+
+bind_cuda("flash_attention_fwd", wrapper=flash_attention_fwd,
+          launch=lambda D, ins, outs: flash_attention_fwd(*ins, **_masks(D)),
+          refusal=_prefill_refusal,
+          launch_defines=("causal", "window", "sm_scale", "prefix_len"),
+          fixed_defines=("block_q", "block_kv"), copies=True)
+bind_cuda("flash_delta", wrapper=flash_delta,
+          launch=lambda D, ins, outs: (flash_delta(*ins),),
+          refusal=lambda spec, D: _dtype_refusal(D), launch_defines=(),
+          fixed_defines=("block_q",), copies=True)
+bind_cuda("flash_attention_bwd", wrapper=flash_bwd,
+          launch=lambda D, ins, outs: flash_bwd(*ins, **_masks(D)),
+          refusal=_prefill_refusal,
+          launch_defines=("causal", "window", "sm_scale", "prefix_len"),
+          fixed_defines=("block_q", "block_kv"), copies=True)
+
+
+def _decode_launch(D, ins, outs):
+    q, k, v, kv_len, slot_pos = ins
+    return (flash_decode(q, k, v, kv_len=kv_len, slot_pos=slot_pos.reshape(-1),
+                         window=D.window, sm_scale=D.sm_scale,
+                         split=getattr(D, "split", None)),)
+
+
+def _decode_refusal(spec, D):
+    split = getattr(D, "split", None)
+    return (_dtype_refusal(D) or _dims_refusal(D, _DECODE_HEAD_DIMS)
+            or _group_refusal(D)
+            or (None if split is None else split_refusal(split)))
+
+
+bind_cuda("flash_decode", wrapper=flash_decode, launch=_decode_launch,
+          refusal=_decode_refusal,
+          launch_defines=("window", "sm_scale", "split"),
+          fixed_defines=("block_kv",), copies=True)
+
+
+def _paged_launch(D, ins, outs):
+    q, k, v, table, kv_len, pos = ins
+    return (paged_decode_attention(
+        q, k, v, block_table=table, kv_len=kv_len.reshape(-1),
+        pos_pages=pos, sm_scale=D.sm_scale,
+        split=getattr(D, "split", None)),)
+
+
+def _paged_refusal(spec, D):
+    split = getattr(D, "split", None)
+    if D.window is not None:
+        return "window; the paged kernel masks by position only"
+    return (_dtype_refusal(D) or _dims_refusal(D, _PAGED_HEAD_DIMS)
+            or _group_refusal(D)
+            or (None if split is None else split_refusal(split)))
+
+
+bind_cuda("flash_decode_paged", wrapper=paged_decode_attention,
+          launch=_paged_launch, refusal=_paged_refusal,
+          launch_defines=("sm_scale", "split"), copies=True)
+
+
+def _ring_refusal(spec, D, head_dims):
+    return (_dtype_refusal(D) or _dims_refusal(D, head_dims)
+            or _mask_refusal(D))
+
+
+def _ring_bwd_dims(D):
+    # the route follows the layout at launch; at build time a bf16 spec
+    # may take the tensor-core route's dims, an f32 one the CUDA cores'
+    path = "wgmma" if as_dtype(D.dtype) == torch.bfloat16 else "simt"
+    return RING_BWD_HEAD_DIMS[path]
+
+
+bind_cuda("ring_flash_fwd", wrapper=ring_flash_fwd,
+          launch=lambda D, ins, outs: ring_flash_fwd(*ins, **_masks(D)),
+          refusal=lambda spec, D: _ring_refusal(spec, D, _HEAD_DIMS),
+          launch_defines=("causal", "window", "sm_scale", "prefix_len"),
+          fixed_defines=("block_q", "block_kv", "ring_steps", "mesh_axis"),
+          copies=True)
+bind_cuda("ring_flash_bwd", wrapper=ring_flash_bwd,
+          launch=lambda D, ins, outs: ring_flash_bwd(*ins, **_masks(D)),
+          refusal=lambda spec, D: _ring_refusal(spec, D, _ring_bwd_dims(D)),
+          launch_defines=("causal", "window", "sm_scale", "prefix_len"),
+          fixed_defines=("block_q", "block_kv", "ring_steps", "mesh_axis"),
+          copies=True)

@@ -29,11 +29,11 @@ the CUDA-core route (f32). Asked for at another head dim,
 :func:`ring_flash_attention` raises before its first launch (as
 ``flash_attention`` does) instead of failing inside ``backward``.
 
-``ring_flash_op`` declares one ring step (o of ``ring_flash_fwd``; ``raw``
-gives (o, lse)) for the op front end (``repro_torch.core``) under the JAX
-op's name. The step kernel's tiles are template constants, so it declares
-no sweep; the JAX op's mesh schedule (``mesh=``) waits for the port's
-mesh.
+``ring_flash_op`` declares one ring step over ``ring_flash_fwd_builder``
+(o; ``raw`` gives (o, lse)) for the op front end (``repro_torch.core``)
+under the JAX op's name. The step kernel's tiles are template constants,
+so it declares no sweep; the JAX op's mesh schedule (``mesh=``, its
+``OpShard``) waits for the port's mesh.
 """
 
 from __future__ import annotations
@@ -43,8 +43,9 @@ import torch.distributed as dist
 
 from ...core.op import define_op
 from .._build import on_cpu
-from .ops import (RING_BWD_HEAD_DIMS, _grad_asked, flash_delta,
-                  ring_flash_bwd, ring_flash_fwd, route)
+from .kernel import ring_flash_fwd_builder
+from .ops import (RING_BWD_HEAD_DIMS, _attn_defines, _grad_asked,
+                  flash_delta, ring_flash_bwd, ring_flash_fwd, route)
 from .ref import ring_fwd_ref
 
 __all__ = ["ring_flash_attention", "ring_merge", "ring_flash_op"]
@@ -238,12 +239,34 @@ def ring_flash_attention(q, k, v, *, mesh=None, mesh_axis="model",
 # the op declaration (repro.kernels.flash_attention.ring.ring_flash)
 # ---------------------------------------------------------------------------
 
-def _ring_step_raw(q, k, v, *, q_start, k_start, **kw):
-    return ring_flash_fwd(q, k, v, q_start, k_start, **kw)
+def _ring_pre(args, params):
+    q, k, v = args
+
+    def offset(x):
+        if x is None:
+            x = 0
+        if not torch.is_tensor(x):
+            return torch.full((1, 1), int(x), dtype=torch.int32,
+                              device=q.device)
+        return x.to(torch.int32).reshape(1, 1)
+
+    return q, k, v, offset(params.get("q_start")), \
+        offset(params.get("k_start"))
 
 
-def _ring_step_raw_ref(q, k, v, *, q_start, k_start, **kw):
-    return ring_fwd_ref(q, k, v, q_start, k_start, **kw)
+def _ring_defines(args, params):
+    """JAX's ``_ring_defines``: the prefill's, plus the ring's extent and
+    mesh axis (the spec's ShardAxis)."""
+    q, k, v = args[:3]
+    return dict(_attn_defines("ring_flash", q, k, v, params),
+                ring_steps=int(params["ring_steps"]),
+                mesh_axis=str(params["mesh_axis"]))
+
+
+def _ring_ref(q, k, v, *, q_start=None, k_start=None, **kw):
+    """The step's o (its plain version)."""
+    return ring_fwd_ref(q, k, v, 0 if q_start is None else q_start,
+                        0 if k_start is None else k_start, **kw)[0]
 
 
 def _ring_example(rng):
@@ -260,15 +283,23 @@ def _ring_example(rng):
 
 ring_flash_op = define_op(
     "ring_flash",
-    kernel=lambda *a, **kw: _ring_step_raw(*a, **kw)[0],
-    ref=lambda *a, **kw: _ring_step_raw_ref(*a, **kw)[0],
-    raw=_ring_step_raw,
-    raw_ref=_ring_step_raw_ref,
-    defaults=dict(q_start=None, k_start=None, causal=True, window=None,
-                  sm_scale=None, prefix_len=0),
+    builder=ring_flash_fwd_builder,
+    ref=_ring_ref,
+    derive_defines=_ring_defines,
+    pre=_ring_pre,
+    public_outputs=1,                        # lse is merge/backward-only
+    defaults=dict(causal=True, window=None, sm_scale=None, prefix_len=0,
+                  block_q=128, block_kv=128, ring_steps=1,
+                  mesh_axis="model"),
+    array_params=("q_start", "k_start"),     # dynamic absolute offsets
+    ref_params=("q_start", "k_start", "causal", "window", "sm_scale",
+                "prefix_len"),
     sources=("ring_flash",),
     example=_ring_example,
     doc="""One ring step: q (B, H, Sq, D) at absolute positions q_start + i
     against one kv chunk at k_start + j ((1, 1) int32 offsets) -> o,
-    normalised by the chunk's own softmax sum.""",
+    normalised by the chunk's own softmax sum (``raw``: (o, lse)). The
+    spec declares the ring's mesh binding (``ring_steps`` shards of
+    ``mesh_axis``); its schedule across devices (``mesh=``) waits for the
+    port's mesh.""",
 )

@@ -27,9 +27,10 @@ hi/lo bf16 planes) or the CUDA-core route (``lm_head_ce_fwd``,
 ``.routes`` counts them by route.
 
 ``lm_head_logits_op`` and ``lm_head_ce_op`` declare both for the op front
-end (``repro_torch.core``) under the JAX ops' names. The JAX ops sweep
-their row, vocab and k blocks; the kernels' TMA + wgmma tiles are template
-constants, so they declare no sweep.
+end (``repro_torch.core``) under the JAX ops' names, over
+``kernel.py``'s builders, whose specs this module binds to the wrappers.
+The JAX ops sweep their row, vocab and k blocks; the kernels' TMA + wgmma
+tiles are template constants, so they declare no sweep.
 """
 
 from __future__ import annotations
@@ -38,8 +39,12 @@ import ctypes
 
 import torch
 
-from ...core.op import define_op
+from ...core.cuda import bind_cuda
+from ...core.device import default_device, fit_block
+from ...core.lang import as_dtype, cdiv
+from ...core.op import OpVJP, define_op
 from .._build import check, load, on_cpu, ptr, stream, tma_ok
+from .kernel import lm_head_bwd_builder, lm_head_builder
 from .ref import (lm_head_bwd_ref, lm_head_ce_ref, lm_head_ce_stats_ref,
                   lm_head_logits_ref, masked_logits_ref)
 
@@ -273,8 +278,136 @@ lm_head_ce.routes = {"wgmma": 0, "simt": 0}
 
 
 # ---------------------------------------------------------------------------
-# the op declarations (repro.kernels.lm_head.ops)
+# the op declarations (repro.kernels.lm_head.ops), over kernel.py's
+# builders; the cuda bindings of their specs follow
 # ---------------------------------------------------------------------------
+
+def _row_padding(R: int, block_r) -> int:
+    """Rows to append so the row block tiles exactly (JAX's pre hooks pad
+    R = B (S - 1) up to a block multiple rather than let ``fit_block``
+    degrade to an awkward divisor; the post hooks slice them off)."""
+    br = min(int(block_r), int(R))
+    return (-int(R)) % br if br > 0 else 0
+
+
+def _pad_rows(a, pad: int, fill=0):
+    if pad == 0:
+        return a
+    return torch.cat([a, a.new_full((pad,) + tuple(a.shape[1:]), fill)])
+
+
+def _base_defines(x, w, params, *, op_name):
+    R, d = x.shape
+    d2, V = w.shape
+    if d != d2:
+        raise ValueError(f"{op_name}: inner dims disagree ({d} vs {d2})")
+    if x.dtype != w.dtype:
+        raise ValueError(f"{op_name}: dtypes disagree ({x.dtype} vs "
+                         f"{w.dtype})")
+    vocab = params["vocab"]
+    vocab = V if vocab is None else int(vocab)
+    if not 0 < vocab <= V:
+        raise ValueError(f"{op_name}: vocab={vocab} outside (0, {V}] "
+                         f"(w has {V} padded columns)")
+    want = (params["block_r"], params["block_v"], params["block_k"])
+    br, bv, bk = (fit_block(want[0], R), fit_block(want[1], V),
+                  fit_block(want[2], d))
+    ncells = (R // br) * (V // bv) * (d // bk)
+    # the degradation guard keys on grid blowup, not on any shrink
+    want_cells = (cdiv(R, min(want[0], R)) * cdiv(V, min(want[1], V))
+                  * cdiv(d, min(want[2], d)))
+    if ncells > 1 << 16 and ncells > 8 * want_cells:
+        raise ValueError(
+            f"{op_name}: shapes ({R}x{d}x{V}) degraded the requested blocks "
+            f"to ({br},{bv},{bk}) = {ncells} grid cells "
+            f"(~{want_cells} requested); pad the operands or pass block "
+            "sizes that divide the shapes")
+    return dict(R=int(R), d=int(d), V=int(V), vocab=vocab, block_r=br,
+                block_v=bv, block_k=bk,
+                dtype=str(x.dtype).removeprefix("torch."))
+
+
+def _ce_defines(args, params):
+    x, w, labels = args[:3]
+    D = _base_defines(x, w, params, op_name="lm_head_ce")
+    if tuple(labels.shape) != (D["R"], 1):
+        raise ValueError(
+            f"lm_head_ce: labels shape {tuple(labels.shape)} != "
+            f"({D['R']}, 1): one gold token id per row")
+    if labels.dtype != torch.int32:
+        raise ValueError(f"lm_head_ce: labels must be int32, got "
+                         f"{labels.dtype}")
+    D["emit_logits"] = 0
+    return D
+
+
+def _logits_defines(args, params):
+    x, w = args
+    D = _base_defines(x, w, params, op_name="lm_head_logits")
+    D["emit_logits"] = 1
+    return D
+
+
+def _ce_pre(args, params):
+    # rows padded to a block multiple (labels with 0, a valid id: the
+    # padded rows' NLL is sliced off by the post hook, zeroed in the bwd)
+    x, w, labels = args
+    pad = _row_padding(x.shape[0], params["block_r"])
+    return _pad_rows(x, pad), w, _pad_rows(labels, pad)
+
+
+def _ce_post(outs, args, params):
+    lse, gold = outs                            # padded rows' stats
+    return (lse - gold)[:args[0].shape[0], 0]   # per-row NLL, (R,) f32
+
+
+def _ce_residuals(outs, args, params):
+    lse, _ = outs                               # lse over the padded rows
+    x, w, labels = args
+    return x, w, labels, lse
+
+
+def _fit_bwd_smem(bdef: dict) -> dict:
+    """The backward's working set carries f32 dx and dw blocks beside x
+    and w: shrink the vocab block (largest divisor of V first) until the
+    spec's footprint fits the shared-memory budget, or keep the smallest
+    and let the build report it (JAX's ``_fit_bwd_vmem``). Not on the
+    cuda backend, whose kernel fixes its tiles (and at the train head's
+    d = 2048 no vocab block fits: the search would end at one column)."""
+    from types import SimpleNamespace
+
+    from ...core import analyze as _an
+
+    budget = _an.smem_budget()
+    V, bv = int(bdef["V"]), int(bdef["block_v"])
+    while True:
+        spec = lm_head_bwd_builder(SimpleNamespace(**dict(bdef, block_v=bv)))
+        if _an.smem_footprint(spec)[0] <= budget:
+            break
+        smaller = next((b for b in range(bv // 2, 0, -1) if V % b == 0), None)
+        if smaller is None:
+            break
+        bv = smaller
+    return dict(bdef, block_v=bv)
+
+
+def _ce_bwd(params, res, g):
+    x, w, labels, lse = res
+    R = x.shape[0]
+    # the forward's padding and fitting; padded rows get a zero cotangent
+    pad = _row_padding(R, params["block_r"])
+    xp, labp = _pad_rows(x, pad), _pad_rows(labels, pad)
+    D = _ce_defines((xp, w, labp), params)
+    bdef = {k: D[k] for k in ("R", "d", "V", "vocab", "block_r", "block_v",
+                              "dtype")}
+    if params["backend"] != "cuda":      # the kernel fixes its own tiles
+        bdef = _fit_bwd_smem(bdef)
+    kern = default_device(params["backend"], x.device).build_kernel(
+        lm_head_bwd_builder, bdef)
+    g2 = _pad_rows(g.float().reshape(-1, 1).contiguous(), pad)
+    dx, dw = kern.run(xp, w, labp, lse, g2)
+    return dx[:R].to(x.dtype), dw.to(w.dtype), None
+
 
 def _ce_example(rng):
     x = rng.standard_normal((24, 16)).astype("float32")
@@ -283,35 +416,84 @@ def _ce_example(rng):
     return (x, w, labels), dict(vocab=50)
 
 
+_BLOCKS = dict(block_r=256, block_v=512, block_k=512)
+
+lm_head_ce_op = define_op(
+    "lm_head_ce",
+    builder=lm_head_builder,
+    ref=lm_head_ce_ref,
+    derive_defines=_ce_defines,
+    pre=_ce_pre,
+    post=_ce_post,
+    vjp=OpVJP(bwd=_ce_bwd, residuals=_ce_residuals),
+    defaults=dict(vocab=None, **_BLOCKS),
+    ref_params=("vocab",),
+    sources=("lm_head_ce",),
+    example=_ce_example,
+    doc="""Fused LM-head cross-entropy: per-row NLL (R,) f32 of x (R, d) @
+    w (d, V) against labels (R, 1) int32 over the true ``vocab``, in one
+    pass (``raw``: (lse, gold)); the backward recomputes softmax - onehot
+    through ``lm_head_bwd_builder`` on the forward's backend. The blocks
+    tile the torch and loops expansions; the kernels' TMA + wgmma tiles are
+    template constants, so it declares no sweep.""",
+)
+
+
+def _logits_pre(args, params):
+    x, w = args
+    return _pad_rows(x, _row_padding(x.shape[0], params["block_r"])), w
+
+
+def _logits_post(outs, args, params):
+    logits, = outs                              # the public output
+    return logits[:args[0].shape[0]]
+
+
 def _logits_example(rng):
     x = rng.standard_normal((8, 16)).astype("float32")
     w = rng.standard_normal((16, 64)).astype("float32")
     return (x, w), dict(vocab=50)
 
 
-lm_head_ce_op = define_op(
-    "lm_head_ce",
-    kernel=lm_head_ce,
-    ref=lm_head_ce_ref,
-    raw=_ce_raw,
-    raw_ref=lm_head_ce_stats_ref,
-    defaults=dict(vocab=None),
-    sources=("lm_head_ce",),
-    example=_ce_example,
-    doc="""Fused LM-head cross-entropy (``lm_head_ce``): per-row NLL (R,)
-    of x (R, d) @ w (d, V) against labels (R, 1) int32 over the true
-    ``vocab``; ``raw`` gives (lse, gold).""",
-)
-
 lm_head_logits_op = define_op(
     "lm_head_logits",
-    kernel=lm_head_logits,
+    builder=lm_head_builder,
     ref=masked_logits_ref,
-    raw=_raw,
-    raw_ref=lm_head_logits_ref,
-    defaults=dict(vocab=None),
+    derive_defines=_logits_defines,
+    pre=_logits_pre,
+    post=_logits_post,
+    public_outputs=1,                           # m and arg via .raw
+    defaults=dict(vocab=None, **_BLOCKS),
+    ref_params=("vocab",),
     sources=("lm_head",),
     example=_logits_example,
-    doc="""Decode-head logits (``lm_head_logits``): x (R, d) @ w (d, V), f32,
-    columns >= ``vocab`` masked; ``raw`` gives (logits, max, argmax).""",
+    doc="""Decode-head logits: x (R, d) @ w (d, V), f32, columns >= ``vocab``
+    masked; ``raw`` gives (logits, row max, first-occurrence argmax) from
+    the same pass.""",
 )
+
+
+# ---------------------------------------------------------------------------
+# the cuda bindings: the kernels fix their own tiles (template constants);
+# the true vocab is a launch argument
+# ---------------------------------------------------------------------------
+
+def _head_refusal(spec, D):
+    if as_dtype(D.dtype) not in _DTYPE_CODE:
+        return f"dtype {D.dtype}; the kernels take float32 or bfloat16"
+    return None
+
+
+_TILES = ("block_r", "block_v", "block_k")
+bind_cuda("lm_head_logits", wrapper=lm_head_logits,
+          launch=lambda D, ins, outs: _raw(*ins, vocab=D.vocab),
+          refusal=_head_refusal, launch_defines=("vocab",),
+          fixed_defines=_TILES + ("emit_logits",), copies=True)
+bind_cuda("lm_head_ce", wrapper=lm_head_ce,
+          launch=lambda D, ins, outs: _ce_raw(*ins, vocab=D.vocab),
+          refusal=_head_refusal, launch_defines=("vocab",),
+          fixed_defines=_TILES + ("emit_logits",), copies=True)
+bind_cuda("lm_head_ce_bwd", wrapper=lm_head_bwd,
+          launch=lambda D, ins, outs: lm_head_bwd(*ins, vocab=D.vocab),
+          refusal=_head_refusal, launch_defines=("vocab",),
+          fixed_defines=("block_r", "block_v"), copies=True)

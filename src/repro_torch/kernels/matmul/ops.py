@@ -27,8 +27,11 @@ import ctypes
 import torch
 
 from ...core.cuda import bind_cuda
+from ...core.device import fit_block
+from ...core.lang import as_dtype
 from ...core.op import define_op
 from .._build import check, load, on_cpu, ptr, stream, tma_ok
+from .kernel import matmul_builder
 from .ref import matmul_ref
 
 __all__ = ["matmul", "matmul_op", "route"]
@@ -98,6 +101,45 @@ matmul.launches = 0
 matmul.routes = {"wgmma": 0, "simt": 0}
 
 
+def _early(args, params):
+    a, b = args
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2:
+        raise ValueError(f"matmul: inner dims disagree ({k} vs {k2})")
+    if a.dtype != b.dtype:
+        raise ValueError(f"matmul: dtypes disagree ({a.dtype} vs {b.dtype})")
+    if m == 0 or n == 0 or k == 0:  # nothing to tile; K == 0 contracts to 0
+        return torch.zeros((m, n), dtype=as_dtype(params["out_dtype"]
+                                                  or a.dtype),
+                           device=a.device)
+    return None
+
+
+def _name(dtype):
+    return str(as_dtype(dtype)).removeprefix("torch.")
+
+
+def _defines(args, params):
+    """JAX's ``_defines``: blocks fitted to divide, and a loud error when
+    awkward dims degrade them into a huge grid."""
+    a, b = args
+    (m, k), (_, n) = a.shape, b.shape
+    block_m, block_n, block_k = (params["block_m"], params["block_n"],
+                                 params["block_k"])
+    bm, bk, bn = fit_block(block_m, m), fit_block(block_k, k), \
+        fit_block(block_n, n)
+    degraded = (bm < min(block_m, m) or bk < min(block_k, k)
+                or bn < min(block_n, n))
+    if degraded and (m // bm) * (n // bn) * (k // bk) > 1 << 16:
+        raise ValueError(
+            f"matmul: {m}x{k}x{n} degraded the requested blocks to "
+            f"({bm},{bk},{bn}); pad the operands or pass block sizes that "
+            "divide the shapes")
+    return dict(M=int(m), K=int(k), N=int(n), bm=bm, bk=bk, bn=bn,
+                dtype=_name(a.dtype),
+                out_dtype=_name(params["out_dtype"] or a.dtype))
+
+
 def _example(rng):
     a = rng.standard_normal((48, 64)).astype("float32")
     b = rng.standard_normal((64, 32)).astype("float32")
@@ -106,12 +148,18 @@ def _example(rng):
 
 matmul_op = define_op(
     "matmul",
-    kernel=matmul,
+    builder=matmul_builder,
     ref=matmul_ref,
-    defaults=dict(out_dtype=None),
+    derive_defines=_defines,
+    early=_early,
+    defaults=dict(block_m=128, block_n=128, block_k=128, out_dtype=None),
+    ref_params=("out_dtype",),
     sources=("matmul",),
     example=_example,
-    doc="a (M, K) @ b (K, N) with f32 sums (``matmul``).",
+    doc="""a (M, K) @ b (K, N) with f32 sums over a reduce axis
+    (``matmul_builder``). The blocks tile the torch and loops expansions;
+    the kernel's tiles are template constants, so it declares no
+    sweep.""",
 )
 
 
@@ -133,7 +181,8 @@ def _spec_refusal(spec, D):
 
 
 def _spec_launch(D, ins, outs):
-    outs[0].copy_(matmul(*ins, out_dtype=outs[0].dtype))
+    out_dtype = getattr(D, "out_dtype", None) or D.dtype
+    return (matmul(*ins, out_dtype=as_dtype(out_dtype)),)
 
 
 bind_cuda("matmul", wrapper=matmul, launch=_spec_launch,

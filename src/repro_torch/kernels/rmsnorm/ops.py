@@ -31,8 +31,10 @@ import ctypes
 import torch
 
 from ...core.cuda import bind_cuda
-from ...core.op import define_op
+from ...core.device import fit_block
+from ...core.op import define_op, oracle_vjp
 from .._build import check, load, on_cpu, stream
+from .kernel import rmsnorm_builder
 from .ref import rmsnorm_ref
 
 __all__ = ["rmsnorm", "rmsnorm_op", "route"]
@@ -140,14 +142,49 @@ def _example(rng):
     return (x, w), dict(eps=1e-6)
 
 
+def _early(args, params):
+    x, w = args
+    if x.numel() == 0:
+        return x.clone()               # empty input: nothing to normalise
+    return None
+
+
+def _pre(args, params):
+    x, w = args
+    return x.reshape(-1, x.shape[-1]), w
+
+
+def _defines(args, params):
+    x2, w = args
+    rows, d = x2.shape
+    return dict(rows=int(rows), d=int(d),
+                block_rows=fit_block(params["block_rows"], rows),
+                eps=float(params["eps"]),
+                dtype=str(x2.dtype).removeprefix("torch."),
+                wdtype=str(w.dtype).removeprefix("torch."))
+
+
+def _post(outs, args, params):
+    return outs[0].reshape(args[0].shape)
+
+
 rmsnorm_op = define_op(
     "rmsnorm",
-    kernel=rmsnorm,
+    builder=rmsnorm_builder,
     ref=rmsnorm_ref,
-    defaults=dict(eps=1e-6),
+    derive_defines=_defines,
+    early=_early,
+    pre=_pre,
+    post=_post,
+    vjp=oracle_vjp(rmsnorm_ref, params=("eps",)),
+    defaults=dict(eps=1e-6, block_rows=256),
+    ref_params=("eps",),
     sources=("rmsnorm",),
     example=_example,
-    doc="x (..., d) normalised over its last axis times w (d,) (``rmsnorm``).",
+    doc="""x (..., d) normalised over its last axis times w (d,)
+    (``rmsnorm_builder``), differentiable through its plain version. The
+    block of rows tiles the torch and loops expansions; a warp takes a row
+    in the kernel, so it declares no sweep.""",
 )
 
 
@@ -166,7 +203,7 @@ def _spec_refusal(spec, D):
 
 
 def _spec_launch(D, ins, outs):
-    outs[0].copy_(rmsnorm(*ins, eps=D.eps))
+    return (rmsnorm(*ins, eps=D.eps),)
 
 
 bind_cuda("rmsnorm", wrapper=rmsnorm, launch=_spec_launch,

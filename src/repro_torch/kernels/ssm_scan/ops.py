@@ -7,13 +7,16 @@ outputs, and records no gradient. ``ssm_scan_state`` is the differentiable
 state-returning form (the JAX package's ``ssm_scan_pallas``) a prefill
 needs, and ``ssm_scan`` its y: a ``torch.autograd.Function`` whose forward
 is ``ssm_scan_fwd`` and whose backward is autograd through the plain
-version, as the JAX op's ``OpVJP`` differentiates its oracle. Both devices
-go through the same Function.
+version's time loop (on the card faster than the associative form's
+backward, ``tools/ab_scan_bwd.py``). Both devices go through the same
+Function. The op's ``OpVJP`` differentiates :func:`selective_scan_assoc`,
+as the JAX op's does: the same gradient.
 
-``ssm_scan_op`` declares ``ssm_scan`` for the op front end
-(``repro_torch.core``) under the JAX op's name (``raw``: (y, hT)). The
-JAX op sweeps chunk and d_block; the kernel's runs and channel blocks are
-template constants, so it declares no sweep.
+``ssm_scan_op`` declares the scan for the op front end
+(``repro_torch.core``) under the JAX op's name, over ``kernel.py``'s
+builder, whose spec this module binds to ``ssm_scan_fwd`` (``raw``:
+(y, hT)). The JAX op sweeps chunk and d_block; the kernel's runs and
+channel blocks are template constants, so it declares no sweep.
 """
 
 from __future__ import annotations
@@ -22,9 +25,12 @@ import ctypes
 
 import torch
 
-from ...core.op import define_op
+from ...core.cuda import bind_cuda
+from ...core.device import fit_block
+from ...core.op import OpVJP, define_op
 from .._build import check, load, on_cpu, ptr, stream
-from .ref import selective_scan_ref
+from .kernel import ssm_scan_builder
+from .ref import selective_scan_assoc, selective_scan_ref
 
 __all__ = ["ssm_scan", "ssm_scan_fwd", "ssm_scan_state", "ssm_scan_op"]
 
@@ -132,8 +138,47 @@ def ssm_scan(x, delta, A, B, C, D, *, h0=None):
     return ssm_scan_state(x, delta, A, B, C, D, h0=h0)[0]
 
 
-def _scan_y_ref(x, delta, A, B, C, D, *, h0=None):
-    return selective_scan_ref(x, delta, A, B, C, D, h0=h0)[0]
+# ---------------------------------------------------------------------------
+# the op declaration (repro.kernels.ssm_scan.ops.ssm_scan) over
+# kernel.py's builder, and the cuda binding of its spec
+# ---------------------------------------------------------------------------
+
+def _pre(args, params):
+    x, delta, A, B, C, D = args
+    bt, L, dm = x.shape
+    h0 = params.get("h0")
+    if h0 is None:
+        h0 = torch.zeros((bt, dm, A.shape[1]), dtype=torch.float32,
+                         device=x.device)
+    return x, delta, A, B, C, D.reshape(1, dm), h0
+
+
+def _defines(args, params):
+    """JAX's ``_defines``: chunk and d_block fitted to divide."""
+    x, delta, A, B, C, D2, h0 = args
+    bt, L, dm = x.shape
+    n = A.shape[1]
+    want_chunk = params["chunk"]
+    want_dblk = params["d_block"] or min(dm, 512)
+    chunk, d_block = fit_block(want_chunk, L), fit_block(want_dblk, dm)
+    degraded = chunk < min(want_chunk, L) or d_block < min(want_dblk, dm)
+    if degraded and bt * (dm // d_block) * (L // chunk) > 1 << 16:
+        raise ValueError(
+            f"ssm_scan: (L={L}, dm={dm}) degraded blocks to (chunk={chunk}, "
+            f"d_block={d_block}); pad the operands or pass chunk/d_block "
+            "that divide the shapes")
+    return dict(bt=int(bt), L=int(L), dm=int(dm), n=int(n), chunk=chunk,
+                d_block=d_block, dtype=str(x.dtype).removeprefix("torch."))
+
+
+def _scan_y_ref(x, delta, A, B, C, D):
+    return selective_scan_assoc(x, delta, A, B, C, D)[0]
+
+
+def _bwd(params, res, g):
+    _, pullback = torch.func.vjp(lambda *a: selective_scan_assoc(*a)[0],
+                                 *res)
+    return pullback(g)
 
 
 def _example(rng):
@@ -147,18 +192,44 @@ def _example(rng):
     B = rng.standard_normal((bt, L, n)).astype("float32")
     C = rng.standard_normal((bt, L, n)).astype("float32")
     D = rng.standard_normal((dm,)).astype("float32")
-    return (x, delta, A, B, C, D), {}
+    return (x, delta, A, B, C, D), dict(chunk=16)
 
 
 ssm_scan_op = define_op(
     "ssm_scan",
-    kernel=ssm_scan,
+    builder=ssm_scan_builder,
     ref=_scan_y_ref,
-    raw=ssm_scan_fwd,
-    raw_ref=selective_scan_ref,
-    defaults=dict(h0=None),
+    derive_defines=_defines,
+    pre=_pre,
+    vjp=OpVJP(bwd=_bwd),
+    public_outputs=1,                       # hT via .raw (a prefill's state)
+    defaults=dict(chunk=64, d_block=None),
+    array_params=("h0",),
     sources=("ssm_scan",),
     example=_example,
-    doc="""Differentiable selective scan y (``ssm_scan``): x, delta (Bt, L,
-    Dm); A (Dm, N); B, C (Bt, L, N); D (Dm,); ``raw`` gives (y, hT).""",
+    doc="""Differentiable selective scan y: x, delta (Bt, L, Dm); A (Dm, N);
+    B, C (Bt, L, N); D (Dm,); ``raw`` gives (y, hT) (with ``h0=``). The
+    backward differentiates :func:`selective_scan_assoc`. ``chunk`` and
+    ``d_block`` tile the torch and loops expansions; the kernel's runs
+    and channel blocks are template constants, so it declares no
+    sweep.""",
 )
+
+
+def _spec_refusal(spec, D):
+    x, delta, A, B, C, Dskip, h0 = spec.inputs
+    if x.dtype not in _DTYPE_CODE:
+        return f"x in {x.dtype}; the kernel takes float32 or bfloat16"
+    if D.n not in _STATES:
+        return f"state size {D.n}; the kernel takes {_STATES}"
+    return None
+
+
+def _spec_launch(D, ins, outs):
+    x, delta, A, B, C, Dskip, h0 = ins
+    return ssm_scan_fwd(x, delta, A, B, C, Dskip.reshape(-1), h0=h0)
+
+
+bind_cuda("ssm_scan", wrapper=ssm_scan_fwd, launch=_spec_launch,
+          refusal=_spec_refusal, launch_defines=(),
+          fixed_defines=("chunk", "d_block"), copies=True)

@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["selective_scan_ref", "selective_scan_tiled_ref"]
+__all__ = ["selective_scan_ref", "selective_scan_assoc",
+           "selective_scan_tiled_ref"]
 
 CHUNK = 128    # time steps whose (Bt, c, Dm, N) terms are formed at once
 
@@ -46,6 +47,50 @@ def selective_scan_ref(x, delta, A, B, C, D, *, h0=None):
         y = torch.einsum("bldn,bln->bld", hs, cc.float()) + D * xc.float()
         ys.append(y.to(x.dtype))
     return torch.cat(ys, dim=1), h
+
+
+def _scan_states(a, b):
+    """Every state of h_t = a_t h_{t-1} + b_t from h_0 = 0 along axis 1:
+    the inclusive scan of the maps h -> a h + b under the combine
+    (a1, b1) then (a2, b2) = (a1 a2, a2 b1 + b2), by the work-efficient
+    odd/even recursion of ``jax.lax.associative_scan``: combine each even
+    element with the odd one after it, scan those pairs (half as many),
+    then fill in the even positions from the scanned odd ones. Only the b
+    half of each scanned pair is needed, so the scanned a is never formed;
+    each level allocates its output once and writes odd and even
+    positions into it (no concatenation)."""
+    n = b.shape[1]
+    if n < 2:
+        return b
+    a_odd = a[:, 1::2]
+    pair_b = a_odd * b[:, 0:-1:2] + b[:, 1::2]
+    pair_a = a[:, 0:-1:2] * a_odd if n >= 4 else None
+    odd = _scan_states(pair_a, pair_b)          # the states at 1, 3, 5, ...
+    out = torch.empty_like(b)
+    out[:, 0] = b[:, 0]
+    out[:, 1::2] = odd
+    a_even, b_even = a[:, 2::2], b[:, 2::2]
+    out[:, 2::2] = a_even * odd[:, :a_even.shape[1]] + b_even
+    return out
+
+
+def selective_scan_assoc(x, delta, A, B, C, D, *, h0=None):
+    """:func:`selective_scan_ref`'s function in the parallel associative
+    form (the JAX package's ``selective_scan_assoc``, which its op's
+    backward differentiates): the decays exp(delta A) and inputs
+    delta B x as (Bt, L, Dm, N) f32 terms, h0 folded into the first input
+    term, every state at once by :func:`_scan_states`, then y = C . h +
+    D x. Returns (y in x's dtype, hT (Bt, Dm, N) f32). Autograd through
+    it keeps a few (Bt, L, Dm, N)-shaped tensors, over log2 L levels."""
+    dt = delta.float()[..., None]
+    dA = torch.exp(dt * A)                                  # (Bt,L,Dm,N)
+    dBx = dt * B[:, :, None, :].float() * x[..., None].float()
+    if h0 is not None:
+        dBx = torch.cat([(dBx[:, :1] + dA[:, :1] * h0.float()[:, None]),
+                         dBx[:, 1:]], dim=1)
+    hs = _scan_states(dA, dBx)
+    y = torch.einsum("bldn,bln->bld", hs, C.float()) + D * x.float()
+    return y.to(x.dtype), hs[:, -1]
 
 
 RUN, RUNS = 16, 8  # csrc/ssm_scan.cu: R steps a thread's run, P runs a tile

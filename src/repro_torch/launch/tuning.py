@@ -150,14 +150,35 @@ class Adopted(dict):
         return "; ".join(parts)
 
 
+def _winner_overflows(op, args, params, winner) -> str | None:
+    """Why a persisted winner's spec overflows the shared-memory budget
+    at these probe shapes (``$REPRO_SMEM_BUDGET``; a stale entry tuned
+    under other limits is not adopted: its first torch or loops build
+    would raise SMEM_OVERFLOW), or None. On the card the wrapper's own
+    limits decide (:meth:`Op.refused`)."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.analyze import smem_budget, smem_footprint
+
+    defines = op.derive_defines(args, dict(op.defaults, **params))
+    need = smem_footprint(op.builder(SimpleNamespace(
+        **dict(defines, **winner))))[0]
+    if need > smem_budget():
+        return (f"the winner's spec needs {need} B of shared memory a "
+                f"block > budget {smem_budget()} B")
+    return None
+
+
 def adopt_winners(probes: dict, *, device, ops=None) -> Adopted:
     """The persisted ``op.tune`` winner of every probe with a sweep (of
     the ``ops`` named, default all), as timed on ``device``: a lookup
     alone. A miss adopts nothing. A probe whose shapes the op's own domain
     check refuses (``ValueError`` from its defines) is skipped and named;
-    a winner the wrapper would refuse at these shapes is not adopted and
-    is named; any other error raises."""
+    a winner the wrapper would refuse at these shapes, or (off the card)
+    whose spec overflows the shared-memory budget, is not adopted and is
+    named; any other error raises."""
     registry = registered_ops()
+    device = torch.device(device)
     out = Adopted()
     for name, (args, params) in probes.items():
         op = registry.get(name)
@@ -173,6 +194,8 @@ def adopt_winners(probes: dict, *, device, ops=None) -> Adopted:
         if not winner:
             continue
         reason = op.refused(args, winner, **params)
+        if reason is None and device.type != "cuda":
+            reason = _winner_overflows(op, args, params, winner)
         if reason is not None:
             out.refused[name] = reason
             continue

@@ -7,7 +7,7 @@ Sweeps registered ops' knobs on real shapes and keeps the winners under
 sources adopt them at warmup for free (``launch.tuning.adopt``, the app
 drivers' ``block=None``/``eb=None``): a lookup, nothing built or timed.
 Runs on the CUDA card unless ``--device cpu`` is given (which times the
-plain versions, keyed apart from the card's).
+specs' torch expansions, keyed apart from the card's).
 
   # the ops a serving + training deployment of an arch meets; the decode
   # probes at full caches, the paged one at the live lengths measured on
@@ -25,7 +25,8 @@ plain versions, keyed apart from the card's).
       [--fd-size 256 --fd-radius 2 --sem-elems 3 --sem-n 4 --dg-nx 8 --dg-n 3]
 
   # what is tunable; audit the persisted winners (ops gone from the
-  # registry, winners the wrappers now refuse); --evict drops them
+  # registry, winners the wrappers now refuse or whose specs the analyzer
+  # flags); --evict drops them
   PYTHONPATH=src python -m repro_torch.tune_cli --list
   PYTHONPATH=src python -m repro_torch.tune_cli --lint [--evict]
 """
@@ -131,9 +132,15 @@ def _app_probes(a, gen, device):
 
 def _lint_cache(ops, *, evict: bool) -> int:
     """Audit every persisted winner: flag entries that are corrupt, of
-    another schema, whose op left the registry, or whose winner the op's
-    wrapper now refuses at the entry's shapes. ``evict`` deletes them.
-    Returns an exit code (1 when flagged entries stay on disk)."""
+    another schema, whose op left the registry, whose winner the op's
+    wrapper now refuses at the entry's shapes, or whose spec the analyzer
+    now flags (JAX's ``_lint_cache``: a winner tuned under another
+    ``$REPRO_SMEM_BUDGET`` cannot come back with oversized tiles; a card
+    winner's footprint is the kernel's own, which its refusal checks).
+    ``evict`` deletes them. Returns an exit code (1 when flagged entries
+    stay on disk)."""
+    from repro_torch.core import analyze_spec, defines_namespace
+
     root = tune_cache_dir() / CACHE_SUBDIR
     entries = sorted(root.glob("*.json")) if root.is_dir() else []
     bad = 0
@@ -154,10 +161,22 @@ def _lint_cache(ops, *, evict: bool) -> int:
         if problem is None and (not isinstance(winner, dict) or not all(
                 k in winner for k in entry.get("sweep", {}))):
             problem = "winner lacks a swept knob"
+        cand = dict(entry.get("defines", {}), **(winner or {}))
         if problem is None and op.refusal is not None:
-            problem = op.refusal(dict(entry.get("defines", {}), **winner))
+            problem = op.refusal(cand)
             if problem is not None:
                 problem = f"the wrapper refuses the winner: {problem}"
+        if problem is None:
+            try:
+                D = defines_namespace(cand)
+                found = analyze_spec(
+                    op.builder(D), D,
+                    footprint=entry.get("backend") != "cuda").findings
+            except ValueError as e:        # the defines no longer build
+                found = [e]
+            if found:
+                problem = ("the analyzer flags the winner: "
+                           + "; ".join(str(f) for f in found))
         if problem is None:
             continue
         bad += 1
@@ -197,8 +216,8 @@ def run(argv=None):
     ap.add_argument("--list", action="store_true",
                     help="list registered ops and their sweeps")
     ap.add_argument("--lint", action="store_true",
-                    help="audit persisted winners against the registry and "
-                         "the wrappers' limits")
+                    help="audit persisted winners against the registry, "
+                         "the wrappers' limits and the analyzer")
     ap.add_argument("--evict", action="store_true",
                     help="with --lint: delete the flagged entries")
     ap.add_argument("--op", default=None,
@@ -230,7 +249,8 @@ def run(argv=None):
     ap.add_argument("--train", action="store_true",
                     help="with --arch: the train-step probes only")
     ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu (times the plain versions)")
+                    help="cuda (default) or cpu (times the torch "
+                         "expansions)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--no-cache", action="store_true",
                     help="sweep without persisting winners (a dry run)")

@@ -2747,3 +2747,251 @@ def test_app_drivers_build_on_the_cuda_backend(dev):
     counts = launch_counts()
     assert (counts["fd2d"], counts["dg_volume"], counts["dg_surface"],
             counts["sem_apply"]) == (3, 5, 5, 1)
+
+
+# ---------------------------------------------------------------------------
+# the ops over their builders: each op on CUDA tensors is its wrapper (the
+# same bits, one launch a wrapper call), the attention, head and scan specs'
+# cuda builds against their torch expansion, and a binding's refusal inside
+# build_kernel
+# ---------------------------------------------------------------------------
+
+def _op_cases(dev):
+    """{op name: (args, params, the wrapper's direct call)} at small
+    shapes the kernels take (bf16 attention and heads, f32 apps)."""
+    from repro_torch.kernels.flash_attention.ops import paged_positions
+
+    bf = torch.bfloat16
+
+    def r(*shape, seed=0, dtype=torch.float32, scale=1.0):
+        return (_rnd(dev, *shape, seed=seed) * scale).to(dtype)
+
+    q, k, v = (r(2, 4, 96, 64, seed=1, dtype=bf),
+               r(2, 2, 160, 64, seed=2, dtype=bf),
+               r(2, 2, 160, 64, seed=3, dtype=bf))
+    qd, kd = r(2, 4, 1, 64, seed=4, dtype=bf), r(2, 2, 200, 64, seed=5,
+                                                 dtype=bf)
+    kp = r(9, 2, 32, 64, seed=6, dtype=bf)
+    table = torch.tensor([[3, 1, 8, 2], [5, 4, 7, 6]], dtype=torch.int32)
+    lens = torch.tensor([100, 37], dtype=torch.int32)
+    paged = dict(block_table=table.to(dev), kv_len=lens.to(dev),
+                 pos_pages=torch.from_numpy(paged_positions(
+                     table.numpy(), lens.numpy(), 9, 32)).to(dev))
+    starts = dict(q_start=torch.full((1, 1), 64, dtype=torch.int32,
+                                     device=dev),
+                  k_start=torch.full((1, 1), 32, dtype=torch.int32,
+                                     device=dev))
+    embed = r(300, 64, seed=7, dtype=bf, scale=0.05)
+    x8, xr = r(8, 64, seed=8, dtype=bf), r(40, 64, seed=9, dtype=bf)
+    labels = torch.randint(0, 290, (40, 1), device=dev, dtype=torch.int32)
+    scan = (r(2, 40, 24, seed=10), torch.nn.functional.softplus(
+        r(2, 40, 24, seed=11)), -(r(24, 16, seed=12).abs() + 0.1),
+        r(2, 40, 16, seed=13), r(2, 40, 16, seed=14), r(24, seed=15))
+    h0 = torch.zeros(2, 24, 16, device=dev)
+    w3 = tuple(float(x) for x in fd_second_derivative_weights(2))
+    u1, u2 = r(64, 96, seed=16), r(64, 96, seed=17)
+    su, geo, dm = r(10, 4, 4, 4, seed=18), r(10, 7, 4, 4, 4, seed=19), \
+        r(4, 4, seed=20)
+    qv = r(12, 6, 3, seed=21, scale=0.1)
+    qv[..., 0] += 1.5
+    vol = (qv, r(12, 4, seed=22), r(12, 6, 2, seed=23, scale=0.01),
+           r(6, 6, seed=24), r(6, 6, seed=25))
+    qm, qp = r(12, 9, 3, seed=26, scale=0.1), r(12, 9, 3, seed=27, scale=0.1)
+    qm[..., 0] += 1.5
+    qp[..., 0] += 1.5
+    th = r(12, 9, seed=28)
+    nrm = torch.stack([th.cos(), th.sin(), r(12, 9, seed=29).abs()],
+                      -1).contiguous()
+    surf = (qm, qp, nrm, r(6, 9, seed=30))
+    xn, wn = r(3, 5, 64, seed=31, dtype=bf), r(64, seed=32)
+    a, b = r(96, 64, seed=33, dtype=bf), r(64, 128, seed=34, dtype=bf)
+    return {
+        "rmsnorm": ((xn, wn), dict(eps=1e-5),
+                    lambda: rmsnorm(xn, wn, eps=1e-5)),
+        "matmul": ((a, b), {}, lambda: matmul(a, b)),
+        "flash_attention": ((q, k, v), dict(causal=True, window=50),
+                            lambda: flash_attention_fwd(q, k, v,
+                                                        window=50)[0]),
+        "flash_decode": ((qd, kd, kd), dict(kv_len=150),
+                         lambda: flash_decode(qd, kd, kd, kv_len=150)),
+        "flash_decode_paged": ((qd, kp, kp), paged,
+                               lambda: paged_decode_attention(qd, kp, kp,
+                                                              **paged)),
+        "ring_flash": ((q, k, v), dict(starts, causal=True),
+                       lambda: ring_flash_fwd(q, k, v, *starts.values())[0]),
+        "lm_head_logits": ((x8, embed.T), dict(vocab=290),
+                           lambda: lm_head_logits(x8, embed.T, vocab=290)),
+        "lm_head_ce": ((xr, embed.T, labels), dict(vocab=290),
+                       lambda: lm_head_ce(xr, embed.T, labels, vocab=290)),
+        "ssm_scan": (scan, {}, lambda: ssm_scan_fwd(*scan, h0=h0)[0]),
+        "fd2d": ((u1, u2), dict(weights=w3, dx=0.05, dt=0.01),
+                 lambda: fd2d(u1, u2, weights=w3, dx=0.05, dt=0.01)),
+        "sem_apply": ((su, geo, dm), {}, lambda: sem_apply(su, geo, dm)),
+        "dg_volume": (vol, {}, lambda: dg_volume(*vol)),
+        "dg_surface": (surf, {}, lambda: dg_surface(*surf)),
+    }
+
+
+_OPS = sorted(["rmsnorm", "matmul", "flash_attention", "flash_decode",
+               "flash_decode_paged", "ring_flash", "lm_head_logits",
+               "lm_head_ce", "ssm_scan", "fd2d", "sem_apply", "dg_volume",
+               "dg_surface"])
+
+
+def _counted(fn):
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in launch_counts().items() if v}
+
+
+@pytest.mark.parametrize("name", _OPS)
+def test_op_over_its_builder_is_its_wrapper_on_the_card(dev, name):
+    """backend auto on CUDA tensors runs the spec's cuda binding: the
+    wrapper's bits and launches; ``backend="cuda"`` is the same call."""
+    from repro_torch.core import get_op
+
+    args, params, direct = _op_cases(dev)[name]
+    op = get_op(name)
+    got, moved = _counted(lambda: op(*args, **params))
+    want, wmoved = _counted(direct)
+    assert moved == wmoved and sum(moved.values()) >= 1, (moved, wmoved)
+    assert got.dtype == want.dtype and torch.equal(got, want), name
+    again = op(*args, backend="cuda", **params)
+    assert torch.equal(again, want)
+
+
+def test_op_vjps_are_the_wrappers_backward_on_the_card(dev):
+    """flash_attention's and lm_head_ce's OpVJPs (the delta, fused backward
+    and CE backward builders on the cuda backend) give the wrappers'
+    autograd bits, with the same launches."""
+    from repro_torch.core import get_op
+
+    cases = _op_cases(dev)
+    q, k, v = cases["flash_attention"][0]
+    do = _rnd(dev, *q.shape, seed=40).to(q.dtype)
+    x, wt, labels = cases["lm_head_ce"][0]
+    g = _rnd(dev, x.shape[0], seed=41)
+
+    def attn(fn):
+        ls = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fn(*ls)
+        return (o.detach(),) + torch.autograd.grad(o, ls, do)
+
+    def head(fn):
+        xl, el = x.detach().requires_grad_(), wt.T.detach().requires_grad_()
+        loss = fn(xl, el.T)
+        return (loss.detach(),) + torch.autograd.grad(loss, (xl, el), g)
+
+    op_a, op_h = get_op("flash_attention"), get_op("lm_head_ce")
+    for run, via_op, via_wrapper in (
+            (attn, lambda *t: op_a(*t, causal=True, window=50),
+             lambda *t: flash_attention(*t, causal=True, window=50)),
+            (head, lambda xl, w: op_h(xl, w, labels, vocab=290),
+             lambda xl, w: lm_head_ce(xl, w, labels, vocab=290))):
+        got, moved = _counted(lambda: run(via_op))
+        want, wmoved = _counted(lambda: run(via_wrapper))
+        assert moved == wmoved
+        for a_, b_ in zip(got, want, strict=True):
+            assert a_.dtype == b_.dtype and torch.equal(a_, b_)
+
+
+def _new_specs(dev):
+    """The eleven specs of the attention, head and scan builders: (builder,
+    defines, inputs) from the ops' own defines at the _op_cases shapes."""
+    from repro_torch.core import get_op
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.lm_head import kernel as lk
+    from repro_torch.kernels.ssm_scan import kernel as sk
+
+    cases = _op_cases(dev)
+
+    def prep(name):
+        args, params, _ = cases[name]
+        op = get_op(name)
+        _, p = op._resolve(params)
+        run_args, defines, _ = op._prepare(args, p)
+        return defines, run_args
+
+    out = {}
+    D, ins = prep("flash_attention")
+    o, lse = flash_attention_fwd(*ins, window=50)
+    do = _rnd(dev, *o.shape, seed=42).to(o.dtype)
+    delta = flash_delta(do, o)
+    out["flash_attention_fwd"] = (fk.flash_fwd_builder, D, ins)
+    out["flash_delta"] = (fk.flash_delta_builder, D, (do, o))
+    out["flash_attention_bwd"] = (fk.flash_bwd_builder, D,
+                                  (*ins, do, lse, delta))
+    out["flash_decode"] = (fk.flash_decode_builder, *prep("flash_decode"))
+    out["flash_decode_paged"] = (fk.paged_decode_builder,
+                                 *prep("flash_decode_paged"))
+    D, ins = prep("ring_flash")
+    out["ring_flash_fwd"] = (fk.ring_flash_fwd_builder, D, ins)
+    ro, rlse = ring_flash_fwd(*ins)
+    rdo = _rnd(dev, *ro.shape, seed=43).to(ro.dtype)
+    out["ring_flash_bwd"] = (fk.ring_flash_bwd_builder, D,
+                             (*ins[:3], rdo, rlse, flash_delta(rdo, ro),
+                              *ins[3:]))
+    out["lm_head_logits"] = (lk.lm_head_builder, *prep("lm_head_logits"))
+    D, ins = prep("lm_head_ce")
+    out["lm_head_ce"] = (lk.lm_head_builder, D, ins)
+    lse_c, _ = lm_head_ce.raw(*ins, vocab=290)
+    out["lm_head_ce_bwd"] = (lk.lm_head_bwd_builder, D,
+                             (*ins, lse_c, _rnd(dev, ins[0].shape[0], 1,
+                                                seed=44)))
+    out["ssm_scan"] = (sk.ssm_scan_builder, *prep("ssm_scan"))
+    return out
+
+
+_NEW_SPECS = sorted(["flash_attention_fwd", "flash_delta",
+                     "flash_attention_bwd", "flash_decode",
+                     "flash_decode_paged", "ring_flash_fwd",
+                     "ring_flash_bwd", "lm_head_logits", "lm_head_ce",
+                     "lm_head_ce_bwd", "ssm_scan"])
+
+
+@pytest.mark.parametrize("name", _NEW_SPECS)
+def test_new_spec_cuda_build_matches_its_torch_expansion(dev, name):
+    """The spec's cuda build (its kernel) against its torch expansion on
+    the card: 2^-7 of max |ref| for bf16 inputs (one rounding), 1e-4 for
+    f32 (the scan); an argmax is held by the logit it picks."""
+    from repro_torch.core import Device
+
+    builder, D, ins = _new_specs(dev)[name]
+    kc = Device("cuda").build_kernel(builder, D)
+    assert kc.spec.name == name and kc.binding is not None
+    got = kc.run(*ins)
+    want = Device("torch").build_kernel(builder, D, analyze="off").run(*ins)
+    rel = 2 ** -7 if ins[0].dtype == torch.bfloat16 else 1e-4
+    for t, a_, b_ in zip(kc.spec.outputs, got, want, strict=True):
+        if t.dtype == torch.int32:
+            at = want[0].gather(1, a_.long())
+            _close_abs(at, want[1], rel * float(want[0].abs().max()))
+        else:
+            _close_abs(a_.float(), b_.float(),
+                       rel * float(b_.float().abs().max()))
+
+
+def _close_abs(got, ref, atol):
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0)
+
+
+def test_ring_backward_refuses_head_dim_112_inside_build_kernel(dev):
+    """The ring step's backward kernel takes d 32/64/128 (ROADMAP §B): a
+    spec at d = 112 fails inside build_kernel, before any launch."""
+    from repro_torch.core import Device
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    D = dict(b=1, h=2, hk=1, sq=128, skv=128, d=112, dv=112, block_q=64,
+             block_kv=64, causal=True, window=None, prefix_len=0,
+             sm_scale=112 ** -0.5, dtype="bfloat16", ring_steps=1,
+             mesh_axis="model")
+    reset_launches()
+    with pytest.raises(ValueError, match="refuses these defines"):
+        Device("cuda").build_kernel(fk.ring_flash_bwd_builder, D)
+    # the torch expansion takes it (its tiles overflow the footprint model,
+    # which gates that build by default)
+    Device("torch").build_kernel(fk.ring_flash_bwd_builder, D,
+                                 analyze="off")
+    assert sum(launch_counts().values()) == 0
