@@ -201,15 +201,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     33 x (2 x 4 + 1); then (8) flash_fwd at deepseek's prefill shape (d_qk
     192, d_v 128) and at mixtral's, and flash_decode at mixtral's decode
     shape, each held against its plain version and timed;
-16. the whole 81-layer bf16 zamba2_7b through ``generate`` (4 prompts of
+16. bf16 zamba2_7b at full width and 45 of its 81 layers (7 groups of 6
+    and the tail of 3, as the whole model's 13 groups and tail; cut for
+    the smoke's time) through ``generate`` (4 prompts of
     512 tokens, 32 new; launch counts zeroed just before and read just
-    after): ssm_scan exactly 81 (n = 64), flash_fwd exactly 13 (d = 112,
-    all on the tensor cores), flash_decode 13 x 32, rmsnorm 33 x (81 + 2 x
-    13 + 1), the decode head 33; its decode step's profile; on three
+    after): ssm_scan exactly 45 (n = 64), flash_fwd exactly 7 (d = 112,
+    all on the tensor cores), flash_decode 7 x 32, rmsnorm 33 x (45 + 2 x
+    7 + 1), the decode head 33; its decode step's profile; on three
     prompt sets, each mamba2 mixer's and each shared-attention
     application's decode against its forward, teacher forced (3% of the
     token's largest output), with planted cache faults reading above that
-    at every layer, every logit finite; ``forward`` on B = 1, S = 2048 (ssm_scan exactly 81) against
+    at every layer, every logit finite; ``forward`` on B = 1, S = 2048 (ssm_scan exactly 45) against
     prefill's last logits; then (8) ssm_scan at its forward and prefill
     shapes and flash_fwd at its prefill shape, held and timed;
 17. the whole 18-layer bf16 paligemma_3b (launch counts zeroed just before
@@ -255,7 +257,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     routes (bf16 views on the tensor cores at 2^-7 / 1e-3, f32 on the
     CUDA cores at 1e-4 of the largest), shows a prefix gradient held
     against the causal-only plain backward failing, and wants the ring
-    to refuse d = 112 and 256 gradients before any launch; phase 3 holds
+    to refuse f32 d = 112 and 256 gradients before any launch; phase 3 holds
     the f32 training loss (1e-4) and every gradient (1e-3 of its largest)
     card vs CPU for 2-layer paligemma, deepseek (its CPU MoE layers
     routed as the card's, teacher forced; the smallest router gap
@@ -284,14 +286,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     attention, head and scan builders built on the cuda backend and held
     against their torch expansion on the card (f32 1e-4 of max |ref|,
     bf16 inputs 2^-7), at the full shapes (the torch expansion's tiles
-    chosen large: they do not change its function); a ring backward at
-    d = 112 refused inside ``build_kernel``; ``python -m
+    chosen large: they do not change its function); an f32 ring backward
+    at d = 112 refused inside ``build_kernel``; ``python -m
     repro_torch.lint_kernels --strict --cost`` in process (exit 0); each
     bound spec's cost model at its kernel's row shape (``[lang cost]``,
     printed at the end beside the row's bound) and the shared memory a
     block of its kernels really takes, from the profiler's kernel records
     (``[lang smem]``); the host us of an op call over its wrapper's at the
     decode shapes (``[lang host]``).
+22. (run after 19) the mesh: two ranks spawned on the card, joined over
+    gloo (a file rendezvous; ``nvidia-smi``'s compute mode printed first;
+    the kernels built in phase 1 load in each). They serve the whole bf16
+    llama3_2_1b through ``Engine(mesh=)`` on a (data 1, model 2) mesh (8
+    slots, phase 4's first 8 prompts, 16 new tokens each): both ranks
+    emit the same tokens, the first decode step's gathered logits are
+    held against the one-rank engine's in this process, teacher forced
+    (each within 2^-4 of the largest |logit|; the argmax equal wherever
+    the top-2 gap exceeds twice the largest error). They train llama3_2_1b
+    at full width, 2 layers, f32, global batch 2 x 1024, 3 steps in three
+    layouts, (1, 2), (2, 1) with zero1, (2, 1) with fsdp, each held
+    against the one-rank step on the same init and batches here (losses
+    and gradient norms within 1e-5 relative, each parameter leaf's
+    position-weighted sums within 1e-5 of their size). Each rank's launch
+    counts, zeroed before and read after each run, equal the one-rank
+    run's for rmsnorm, flash_fwd, paged_decode and the decode head
+    (serving) and rmsnorm, flash_fwd, flash_bwd, flash_delta, lm_head_ce
+    and lm_head_bwd (training); every sharded step records its eager run.
+    While the ranks start: the one-rank train reference and the ring
+    step kernels at d = 112 and 256 (bf16, the tensor cores:
+    ``ring_flash_wide.cu``) against their plain versions. After them:
+    paged decode at 4 kv heads, the decode head on a 64128-column vocab
+    shard (two shards' argmaxes combined at the offset), the CE forward
+    and backward on a shard with labels outside it (bf16 and f32), held
+    against their plain versions and timed (``[time] ...@tp`` rows); last
+    a ``[mesh time]``
+    line with the phase's seconds and each rank's step host ms and
+    collective ms (gloo on one host, not NCCL).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -417,10 +447,12 @@ MOE_BATCH, MOE_PROMPT, MOE_GEN, MIXTRAL_LAYERS = 4, 512, 32, 4
 # bf16 step) at mixtral's (the einsum rounds its combine once, the gather
 # each of k index_add_ steps); a gather that drops a choice reads ~100%
 MOE_TWIN_REL = 0.04
-# the hybrid path: zamba2_7b whole (81 mamba2 layers, the shared attention
-# block 13 times) on 4 prompts of 512 tokens, 32 new, and a forward of
-# B = 1, S = 2048
+# the hybrid path: zamba2_7b at 45 of its 81 mamba2 layers (the shared
+# attention block 7 times, a tail of 3: the whole model's structure; cut
+# from 81 by PR 33 to keep the smoke under 600 s on a slow host) on 4
+# prompts of 512 tokens, 32 new, and a forward of B = 1, S = 2048
 ZB_BATCH, ZB_PROMPT, ZB_GEN, ZB_FWD_SEQ = 4, 512, 32, 2048
+ZB_LAYERS = 45
 # decode against the forward, teacher forced at each mamba2 mixer and each
 # application of the shared attention (``_DecodeTwin``), on ZB_TWIN_SEEDS
 # prompt sets of 2 x 64 tokens and one decode step: the limit on max
@@ -4129,7 +4161,8 @@ def time_static_kernels(dev):
 TC_LIBS = {"matmul": ("HGMMA", "UTMALDG"), "lm_head_ce": ("HGMMA", "UTMALDG"),
            "lm_head": ("HGMMA", "UTMALDG"),
            "flash_fwd": ("HGMMA", "LDGSTS"), "flash_bwd": ("HGMMA", "LDGSTS"),
-           "ring_flash": ("HGMMA", "LDGSTS"), "paged_decode": ("LDGSTS",),
+           "ring_flash": ("HGMMA", "LDGSTS"),
+           "ring_flash_wide": ("HGMMA", "LDGSTS"), "paged_decode": ("LDGSTS",),
            "flash_decode": ("LDGSTS",), "fd2d": ("LDGSTS",),
            "dg": ("LDGSTS",)}
 # (library, a name in the kernel's mangled symbol) -> the ops that kernel
@@ -5261,15 +5294,15 @@ def lang_ops_phase(dev):
     lap("the eleven specs against their torch expansion")
     ring112 = dict(b=1, h=2, hk=1, sq=128, skv=128, d=112, dv=112,
                    block_q=64, block_kv=64, causal=True, window=None,
-                   prefix_len=0, sm_scale=112 ** -0.5, dtype="bfloat16",
+                   prefix_len=0, sm_scale=112 ** -0.5, dtype="float32",
                    ring_steps=1, mesh_axis="model")
     try:
         Device("cuda").build_kernel(fk.ring_flash_bwd_builder, ring112)
     except ValueError as e:
-        log(f"[lang21] a ring backward at d = 112 refused at build_kernel: "
-            f"{e}")
+        log(f"[lang21] an f32 ring backward at d = 112 refused at "
+            f"build_kernel: {e}")
     else:
-        fail("lang21: the ring backward built at d = 112")
+        fail("lang21: the f32 ring backward built at d = 112")
     code = lint_kernels.main(["--strict", "--cost"])
     if code != 0:
         fail(f"lang21: lint_kernels --strict --cost exited {code}")
@@ -6528,9 +6561,9 @@ def zamba_decode_twin(model, params, seed):
     """Prefill 2 x 64 tokens and one decode step with ``_DecodeTwin``
     active: every mamba2 mixer and shared-attention application within
     ZB_TWIN_REL of its forward, and every planted fault above it. Also
-    prints, not gated, the whole model's prefill + decode_step logits
-    against ``forward`` over the same 65 tokens (81 layers of bf16
-    rounding apart: products of other shapes, the recurrence against the
+    prints, not gated, the model's prefill + decode_step logits against
+    ``forward`` over the same 65 tokens (a layer's bf16 roundings apart
+    at each layer: products of other shapes, the recurrence against the
     scan). Returns (the largest reading, the smallest fault reading)."""
     import numpy as np
     import torch
@@ -6575,29 +6608,31 @@ def zamba_decode_twin(model, params, seed):
 
 
 def zamba_main_path():
-    """The whole zamba2_7b in bf16 (81 mamba2 layers; the shared attention
-    block after every 6, 13 applications, each with its own KV cache; a
-    tail of 3) through ``generate`` (the static path: a zamba group is not
-    pageable): ZB_BATCH prompts of ZB_PROMPT tokens, ZB_GEN new, launch
-    counts zeroed just before and read just after. ssm_scan must launch 81
-    times (once per mamba2 layer of the prefill), flash_fwd 13 (once per
-    application, on the tensor cores), flash_decode 13 per decode step,
-    rmsnorm (81 + 2 x 13 + 1) per pass and the decode head once per pass.
+    """zamba2_7b in bf16 at full width and ZB_LAYERS mamba2 layers (the
+    shared attention block after every 6, each application with its own
+    KV cache; a tail of 3) through ``generate`` (the static path: a zamba
+    group is not pageable): ZB_BATCH prompts of ZB_PROMPT tokens, ZB_GEN
+    new, launch counts zeroed just before and read just after. ssm_scan
+    must launch once per mamba2 layer of the prefill, flash_fwd once per
+    application (on the tensor cores), flash_decode once per application
+    and decode step, rmsnorm (layers + 2 x applications + 1) per pass and
+    the decode head once per pass.
     Then where a decode step's time goes; each mamba2 mixer's and each
     shared-attention application's decode against its forward, teacher
     forced, on ZB_TWIN_SEEDS prompt sets (``zamba_decode_twin``), every
-    logit finite; ``forward`` on 1 x ZB_FWD_SEQ tokens (ssm_scan 81
-    times) against prefill's last logits. Returns (counts, stats)."""
+    logit finite; ``forward`` on 1 x ZB_FWD_SEQ tokens (ssm_scan once a
+    layer) against prefill's last logits. Returns (counts, stats)."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.kernels.rmsnorm import rmsnorm
 
-    model, params = _full_model("zamba2_7b", 71)
+    model, params = _full_model("zamba2_7b", 71, n_layers=ZB_LAYERS)
     cfg = model.cfg
     prog = [(s.kind, s.n, s.group) for s in model.program]
-    if prog != [("zamba_group", 13, 6), ("mamba2", 3, 0)] or model.pageable:
+    if prog != [("zamba_group", ZB_LAYERS // 6, 6),
+                ("mamba2", 3, 0)] or model.pageable:
         fail(f"zamba2_7b: program {prog}, pageable {model.pageable}")
     b, plen, ngen = ZB_BATCH, ZB_PROMPT, ZB_GEN
     prompts = np.random.RandomState(71).randint(0, cfg.vocab_size,
@@ -7553,9 +7588,10 @@ def small_wide_bwd_checks(dev):
         f"|dq|, above the 2^-7 = {2 ** -7:.3e} limit: a kernel that treated "
         "the prefix as causal fails the check")
 
-    # the ring's step kernels take head dims up to 128: refused up front
+    # the ring's CUDA-core step kernels take head dims up to 128 (64
+    # backward): f32 refused up front (bf16 runs: phase 22's ring checks)
     for d in (112, 256):
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in (torch.float32,):
             q = torch.randn((1, 4, 64, d), generator=g, device=dev).to(dt)
             k = torch.randn((1, 2, 64, d), generator=g, device=dev).to(dt)
             reset_launches()
@@ -7568,8 +7604,8 @@ def small_wide_bwd_checks(dev):
                 fail(f"ring d={d} {dt}: a gradient was not refused")
             if any(launch_counts().values()):
                 fail(f"ring d={d} {dt}: a kernel launched before the refusal")
-    log("[check] ring_flash_attention: d = 112 and d = 256 gradients refused "
-        "before any launch (bf16 and f32)")
+    log("[check] ring_flash_attention: f32 d = 112 and d = 256 gradients "
+        "refused before any launch")
     torch.cuda.synchronize()
     return err
 
@@ -7989,6 +8025,664 @@ def granite_main_path():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the mesh: tensor and data parallelism on two ranks of the card
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS, MESH_NEW = 8, 16                  # the engine on (1, 2)
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS = 2, 3    # the train step, f32
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 2, 1024
+MESH_LAYOUTS = (("(1,2)", (1, 2), {}),
+                ("(2,1) zero1", (2, 1), dict(zero1=True)),
+                ("(2,1) fsdp", (2, 1), dict(fsdp=True)))
+# the sharded f32 train step against the one-rank step: the same function
+# with sums in another order (the data ranks' gradients added, the model
+# ranks' partial products added, an lse combined from two shards): the
+# losses and gradient norms within 1e-5 relative, each parameter leaf's
+# weighted sums (_mesh_digest) within 1e-5 of their magnitude. A step with
+# a gradient off by a factor of 2 moves the sums by ~10% of it.
+MESH_TRAIN_REL = 1e-5
+MESH_TIMEOUT = 300
+MESH_COUNTED = ("rmsnorm", "flash_fwd", "paged_decode", "lm_head")
+MESH_TRAIN_COUNTED = ("rmsnorm", "flash_fwd", "flash_bwd", "flash_delta",
+                      "lm_head_ce", "lm_head_bwd")
+
+
+def _mesh_optimizer():
+    """The phase's AdamW: eps 1e-6, where lr g / (|g| + eps) is continuous
+    enough in g for rounding-sized gradients to move a parameter by at most
+    ~lr 1e-3 (tests/test_torch_train_step.py)."""
+    from repro_torch.optim import AdamW, WarmupCosine
+
+    return AdamW(schedule=WarmupCosine(peak_lr=3e-3, warmup_steps=2,
+                                       total_steps=MESH_TRAIN_STEPS),
+                 eps=1e-6)
+
+
+def _mesh_train_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("llama3_2_1b"),
+                               n_layers=MESH_TRAIN_LAYERS, dtype="float32")
+
+
+def _mesh_batches(cfg):
+    from repro_torch.data import SyntheticLMData
+
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=MESH_TRAIN_SEQ,
+                           global_batch=MESH_TRAIN_BATCH, seed=22)
+    return [data.batch(i) for i in range(MESH_TRAIN_STEPS)]
+
+
+def _mesh_digest(params, placements=None):
+    """Per leaf, three sums in f64 of its values x: sum x w, sum x^2 and
+    sum |x| w, with w a product of one weight per dim, each a function of
+    the element's GLOBAL index on that dim (so the sums see positions).
+    Given ``placements`` the leaves are this rank's shards: each rank sums
+    its shard and the sums are added over the axes the leaf is sharded on
+    (every rank calls it)."""
+    import torch
+
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.rules import mesh_shape
+    from repro_torch.tree import leaves
+
+    ps = (leaves(placements) if placements is not None
+          else [None] * len(leaves(params)))
+    out = []
+    for p, pl in zip(leaves(params), ps):
+        x = p.detach().double()
+        axes, offs = [], [0] * x.dim()
+        if pl is not None:
+            sizes = mesh_shape(pl.mesh)
+            for dim, ax in pl._dims():
+                k, i = pl._slot(ax)
+                offs[dim] = i * x.shape[dim]
+                axes += [a for a in ax if sizes[a] > 1]
+        ws = [1.0 + 0.5 * torch.cos(0.7 * (torch.arange(
+            n, device=x.device, dtype=torch.float64) + o) + d)
+            for d, (n, o) in enumerate(zip(x.shape, offs))]
+        sums = []
+        for t in (x, x.abs()):
+            for w in reversed(ws):
+                t = t @ w
+            sums.append(t)
+        sums = torch.stack([sums[0], (x * x).sum(), sums[1]])
+        for a in axes:
+            sums = comm.all_reduce(sums, "sum", pl.mesh.get_group(a))
+        out.append([float(v) for v in sums])
+    return out
+
+
+def _mesh_serve_rank(mesh, cfg):
+    """This rank's engine run on the (1, 2) mesh: tokens, the first decode
+    step's inputs and (gathered) logits, launch counts, the step's stats."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import LM
+    from repro_torch.parallel import comm
+    from repro_torch.serving import Engine
+
+    t0 = time.perf_counter()
+    model = LM(cfg)
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    eng = Engine(model, params, batch=MESH_SLOTS, max_len=2048,
+                 page_size=512, num_pages=MESH_SLOTS * 4 + 1, mesh=mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step, first = eng._step, {}
+
+    def recorded(p, c, t):
+        nxt, logits, c = step(p, c, t)
+        if not first:
+            first["tokens"] = t.cpu().numpy().copy()
+            first["next"] = nxt.cpu().numpy().copy()
+            group = eng._rules.group("model")
+            first["logits"] = comm.all_gather(logits, -1, group).cpu()
+        return nxt, logits, c
+
+    eng._step = recorded
+    reqs = [(p, MESH_NEW) for p, _ in traffic(0, MESH_SLOTS,
+                                              cfg.vocab_size)]
+    torch.cuda.synchronize()
+    reset_launches()
+    comm.reset_elapsed()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, m) for p, m in reqs]
+    res = eng.drain()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    counts = launch_counts()
+    return dict(tokens=[res[r] for r in rids], first=first, counts=counts,
+                step_stats=dict(step.stats), init_s=init_s, draw_s=draw_s,
+                drain_s=drain_s,
+                collective_s=comm.elapsed["seconds"],
+                pool_heads=int(eng.cache["stacks"][0]["kp"].shape[2]))
+
+
+def _mesh_train_rank(mesh, cfg, options, batches):
+    """One layout's sharded train steps from the seeded init: losses,
+    gradient norms, the final parameters' digest, launch counts, the
+    step's stats."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import LM
+    from repro_torch.parallel import (build_train_step, shard_batch,
+                                      shard_tree)
+    from repro_torch.tree import leaves, unflatten
+
+    model = LM(cfg)
+    dev = model.device
+    opt = _mesh_optimizer()
+    step, info = build_train_step(model, opt, mesh, **options)
+    params = model.init(torch.Generator(device=dev).manual_seed(5))
+    state = opt.init(params)
+    params, state = shard_tree((params, state), (info["params"], info["opt"]))
+    params = unflatten(params, [p.requires_grad_() for p in leaves(params)])
+    torch.cuda.empty_cache()
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for bt in batches:
+        batch = shard_batch({"tokens": torch.from_numpy(bt).to(dev)},
+                            info["rules"])
+        params, state, loss, met = step(params, state, batch)
+        losses.append(float(loss))
+        norms.append(float(met["grad_norm"]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    digest = _mesh_digest(params, info["params"])
+    return dict(losses=losses, norms=norms, digest=digest, counts=counts,
+                step_stats=dict(step.stats))
+
+
+def _mesh_rank(rank, world, rdv, out_dir, t_wall):
+    """A rank of phase 22 (a spawned process on the card): joins the gloo
+    group, serves on (1, 2), trains the three layouts, and pickles its
+    results to ``<out_dir>/rank<r>.pkl`` (a traceback to ``.err``).
+    ``t_wall``: the parent's ``time.time()`` at the spawn, against which
+    the rank stamps its timeline."""
+    import datetime
+    import pickle
+    import traceback
+
+    marks = [("entered", time.time() - t_wall)]
+    sys.path.insert(0, SRC)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_local_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        marks.append(("imported", time.time() - t_wall))
+        dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=120))
+        marks.append(("joined", time.time() - t_wall))
+        t0 = time.perf_counter()
+        out = {"serve": _mesh_serve_rank(
+            make_local_mesh(data=1, model=2, device="cpu"),
+            get_config("llama3_2_1b"))}
+        out["serve_s"] = time.perf_counter() - t0
+        marks.append(("served", time.time() - t_wall))
+        torch.cuda.empty_cache()
+        cfg = _mesh_train_cfg()
+        batches = _mesh_batches(cfg)
+        for tag, (data, model), options in MESH_LAYOUTS:
+            t0 = time.perf_counter()
+            out[tag] = _mesh_train_rank(
+                make_local_mesh(data=data, model=model, device="cpu"), cfg,
+                options, batches)
+            out[tag]["seconds"] = time.perf_counter() - t0
+            marks.append((tag, time.time() - t_wall))
+            torch.cuda.empty_cache()
+        out["marks"] = marks
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+class _MeshRanks:
+    """The phase's running ranks: ``join()`` waits for them (killing them
+    at the deadline) and returns their results."""
+
+    def __init__(self, procs, tmp, deadline):
+        self.procs, self.tmp, self.deadline = procs, tmp, deadline
+
+    def _failed(self):
+        errs = [open(os.path.join(self.tmp, f)).read()
+                for f in sorted(os.listdir(self.tmp)) if f.endswith(".err")]
+        if errs:
+            self._kill()
+            fail("phase 22: a rank failed:\n" + "\n".join(errs))
+
+    def _kill(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def join(self):
+        import pickle
+
+        for p in self.procs:
+            p.join(max(0.0, self.deadline - time.monotonic()))
+        hung = [p for p in self.procs if p.is_alive()]
+        try:
+            self._failed()
+            if hung:
+                fail(f"phase 22: {len(hung)} of {len(self.procs)} ranks "
+                     f"still running after {MESH_TIMEOUT} s")
+            codes = [p.exitcode for p in self.procs]
+            if any(codes):
+                fail(f"phase 22: rank exit codes {codes}")
+            out = []
+            for r in range(len(self.procs)):
+                with open(os.path.join(self.tmp, f"rank{r}.pkl"), "rb") as f:
+                    out.append(pickle.load(f))
+            return out
+        finally:
+            self._kill()
+
+
+def _spawn_mesh_ranks(world=2):
+    """Start the phase's ranks (spawned, each on cuda:0): a
+    :class:`_MeshRanks`."""
+    import multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    ctx = mp.get_context("spawn")
+    t_wall = time.time()
+    procs = [ctx.Process(target=_mesh_rank,
+                         args=(r, world, os.path.join(tmp, "rdv"), tmp,
+                               t_wall))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return _MeshRanks(procs, tmp, time.monotonic() + MESH_TIMEOUT)
+
+
+def _mesh_train_reference(cfg, batches):
+    """The one-rank eager train step on the same init and global batches:
+    losses, norms, digest, launch counts."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import LM
+    from repro_torch.parallel.steps import train_step
+    from repro_torch.tree import leaves, unflatten
+
+    model = LM(cfg)
+    dev = model.device
+    opt = _mesh_optimizer()
+    params = model.init(torch.Generator(device=dev).manual_seed(5))
+    params = unflatten(params, [p.requires_grad_() for p in leaves(params)])
+    state = opt.init(params)
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for bt in batches:
+        _, _, loss, met = train_step(model, opt, params, state, {
+            "tokens": torch.from_numpy(bt).to(dev)})
+        losses.append(float(loss))
+        norms.append(float(met["grad_norm"]))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    out = dict(losses=losses, norms=norms, digest=_mesh_digest(params),
+               counts=counts)
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serve_reference(cfg, first_tokens):
+    """The one-rank engine (eager steps) over the same requests, its first
+    decode step fed the ranks' tokens (teacher forced): that step's logits
+    and the run's launch counts."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models import LM
+    from repro_torch.serving import Engine
+
+    model = LM(cfg)
+    dev = model.device
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    eng = Engine(model, params, batch=MESH_SLOTS, max_len=2048,
+                 page_size=512, num_pages=MESH_SLOTS * 4 + 1)
+    first = {}
+
+    def eager(p, c, t):
+        if not first:
+            t = torch.from_numpy(first_tokens).to(dev)
+        nxt, logits, c = model.paged_greedy_step(p, t, c)
+        if not first:
+            first["logits"] = logits.float().cpu()
+        return nxt, logits, c
+
+    eng._step = eager
+    reqs = [(p, MESH_NEW) for p, _ in traffic(0, MESH_SLOTS,
+                                              cfg.vocab_size)]
+    torch.cuda.synchronize()
+    reset_launches()
+    for p, m in reqs:
+        eng.submit(p, m)
+    eng.drain()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    del eng, params
+    torch.cuda.empty_cache()
+    return first["logits"], counts
+
+
+def _counts_equal(tag, got, want, names):
+    bad = {k: (got[k], want[k]) for k in names if got[k] != want[k]}
+    if bad:
+        fail(f"phase 22 {tag}: launch counts (rank, one card) differ: {bad}")
+    if any(got[k] <= 0 for k in names):
+        fail(f"phase 22 {tag}: a kernel never launched: "
+             f"{ {k: got[k] for k in names} }")
+
+
+def _mesh_shard_kernels(dev, cfg):
+    """Each kernel of the sharded path held against its plain version at
+    the local shard shapes of a (1, 2) mesh, and timed: paged decode at 4
+    kv heads (rows 6tp), the decode head on a 64128-column vocab shard with
+    the two shards' argmaxes combined (9tp), the CE forward (10tp) and
+    backward (11tp) on a shard whose labels lie partly outside it, in bf16
+    (the tensor-core route; timed) and in f32 (the CUDA-core route the
+    phase's f32 train step runs; held only). Returns {row: timing dict}."""
+    import torch
+
+    from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_bwd_ref,
+                                             lm_head_ce, lm_head_ce_stats_ref,
+                                             lm_head_logits,
+                                             lm_head_logits_ref)
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    local = dataclasses.replace(cfg, n_heads=cfg.n_heads // 2,
+                                n_kv_heads=cfg.n_kv_heads // 2)
+    lens = [len(p) + MESH_NEW for p, _ in traffic(0, MESH_SLOTS,
+                                                  cfg.vocab_size)]
+    out["paged_decode@tp"] = paged_times(dev, local, lens, 512,
+                                         MESH_SLOTS * 4 + 1, gen)
+
+    d, vs = cfg.d_model, 128256 // 2
+    embed = (0.02 * torch.randn((2 * vs, d), generator=gen,
+                                device=dev)).to(bf)
+    x = torch.randn((MESH_SLOTS, d), generator=gen, device=dev).to(bf)
+    shards = [embed[r * vs:(r + 1) * vs].T for r in range(2)]
+    raw = [lm_head_logits.raw(x, w, vocab=vs) for w in shards]
+    for r, (lg, m, arg) in enumerate(raw):
+        rlg, rm, rarg = lm_head_logits_ref(x, shards[r], vocab=vs)
+        check_close(f"lm_head bf16 shard {r} ({MESH_SLOTS},{d})x({d},{vs})",
+                    lg, rlg, atol=4e-3, rtol=0)
+        check_close(f"lm_head bf16 shard {r} row max", m, rm, atol=4e-3,
+                    rtol=0)
+    top = torch.maximum(raw[0][1], raw[1][1])
+    big = torch.iinfo(torch.int64).max
+    col = torch.minimum(
+        torch.where(raw[0][1] == top, raw[0][2].long(), big),
+        torch.where(raw[1][1] == top, raw[1][2].long() + vs, big))
+    full, _, _ = lm_head_logits_ref(x, embed.T, vocab=2 * vs)
+    check_argmax("lm_head bf16 two shards, argmaxes combined at offset "
+                 f"{vs}", col, full, 2 * vs, gap_tol=8e-3)
+    w = shards[1]
+    hbytes = d * vs * 2 + MESH_SLOTS * d * 2 + MESH_SLOTS * vs * 4 + \
+        MESH_SLOTS * 8
+
+    def library_head():
+        return torch.matmul(x, w).max(dim=-1)
+
+    out["lm_head@tp"] = dict(
+        ms=cuda_ms(lambda: lm_head_logits.raw(x, w, vocab=vs)),
+        plain_ms=cuda_ms(lambda: lm_head_logits_ref(x, w, vocab=vs),
+                         iters=10),
+        library_ms=cuda_ms(library_head), bytes=hbytes,
+        library="torch.matmul (bf16 out) + max/argmax",
+        shape=f"x ({MESH_SLOTS},{d}) @ embed shard.T ({d},{vs}) bf16")
+    out["lm_head@tp"].update(zip(("bound_ms", "bound_by"), bound(
+        hbytes, 2 * MESH_SLOTS * d * vs, "bfloat16")))
+
+    rows = MESH_TRAIN_BATCH * (MESH_TRAIN_SEQ - 1)
+    labels = torch.randint(0, 2 * vs, (rows, 1), generator=gen,
+                           device=dev).to(torch.int32)
+    local_labels = (labels - vs).contiguous()      # shard 1: half outside
+    outside = int(((local_labels < 0) | (local_labels >= vs)).sum())
+    for dt in (bf, torch.float32):
+        xc = torch.randn((rows, d), generator=gen, device=dev).to(dt)
+        wc = shards[1].to(dt) if dt != bf else shards[1]
+        lse, gold = lm_head_ce.raw(xc, wc, local_labels, vocab=vs)
+        rlse, rgold = lm_head_ce_stats_ref(xc, wc, local_labels, vocab=vs)
+        tag = f"lm_head_ce {str(dt)[6:]} shard ({rows},{d})x({d},{vs}), " \
+              f"{outside} labels outside"
+        check_close(f"{tag}: lse", lse, rlse, atol=1e-3, rtol=0)
+        check_close(f"{tag}: gold", gold, rgold, atol=1e-3, rtol=0)
+        if bool((gold[(local_labels < 0) | (local_labels >= vs)] != 0).any()):
+            fail(f"{tag}: a label outside the shard gave a gold logit")
+        g = torch.rand((rows, 1), generator=gen, device=dev) / rows
+        glse = rlse + 0.5          # a global lse: the other shard's mass
+        dx, dw = lm_head_bwd(xc, wc, local_labels, glse, g, vocab=vs)
+        rdx, rdw = lm_head_bwd_ref(xc, wc, local_labels, glse, g, vocab=vs)
+        check_rel(f"lm_head_bwd {str(dt)[6:]} shard: dx", dx, rdx, 1e-3)
+        check_rel(f"lm_head_bwd {str(dt)[6:]} shard: dw", dw, rdw, 1e-3)
+        if dt != bf:
+            continue
+        cbytes = rows * d * 2 + d * vs * 2 + rows * 4 + rows * 8
+
+        out["lm_head_ce@tp"] = dict(
+            ms=cuda_ms(lambda: lm_head_ce.raw(xc, wc, local_labels,
+                                              vocab=vs), iters=10),
+            plain_ms=cuda_ms(lambda: lm_head_ce_stats_ref(
+                xc, wc, local_labels, vocab=vs), iters=3),
+            library_ms=None, bytes=cbytes,
+            library="none: F.cross_entropy has no label outside its columns "
+                    "(a shard's gold is 0 there)",
+            shape=f"x ({rows},{d}) @ shard ({d},{vs}) bf16, labels (int32) "
+                  f"{outside} outside")
+        out["lm_head_ce@tp"].update(zip(("bound_ms", "bound_by"), bound(
+            cbytes, 2 * rows * d * vs, "bfloat16")))
+        bbytes = rows * d * 2 + d * vs * 2 + rows * 12 + rows * d * 4 + \
+            d * vs * 4
+
+        out["lm_head_bwd@tp"] = dict(
+            ms=cuda_ms(lambda: lm_head_bwd(xc, wc, local_labels, glse, g,
+                                           vocab=vs), iters=5),
+            plain_ms=cuda_ms(lambda: lm_head_bwd_ref(
+                xc, wc, local_labels, glse, g, vocab=vs), iters=3),
+            library_ms=None, bytes=bbytes, library="none (no one call)",
+            shape=f"x ({rows},{d}), shard ({d},{vs}) bf16, global lse")
+        out["lm_head_bwd@tp"].update(zip(("bound_ms", "bound_by"), bound(
+            bbytes, 3 * 2 * rows * d * vs, "bfloat16")))
+    torch.cuda.synchronize()
+    return out
+
+
+def _mesh_ring_wide_checks(dev):
+    """The ring step kernels at the wide head dims (ring_flash_wide.cu, bf16
+    on the tensor cores) against their plain versions: d = 112 (zamba2's
+    shared block) and d = 256 with a prefix (paligemma), at ring offsets,
+    at check_flash_tc's limits (o within 2^-6 of its row) and the backward
+    test's (dq 2^-7, dk/dv 1e-3 of their largest)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (flash_delta,
+                                                     ring_bwd_ref,
+                                                     ring_flash_bwd,
+                                                     ring_flash_fwd,
+                                                     ring_fwd_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    bf = torch.bfloat16
+    for d, h, hk, kw in ((112, 32, 32, {}), (256, 8, 1,
+                                             dict(prefix_len=256))):
+        q = torch.randn((1, h, 512, d), generator=gen, device=dev).to(bf)
+        k, v = (torch.randn((1, hk, 512, d), generator=gen,
+                            device=dev).to(bf) for _ in range(2))
+        do = torch.randn((1, h, 512, d), generator=gen, device=dev).to(bf)
+        off = (torch.full((1, 1), 512, dtype=torch.int32, device=dev),
+               torch.full((1, 1), 256, dtype=torch.int32, device=dev))
+        before = dict(ring_flash_fwd.routes), dict(ring_flash_bwd.routes)
+        o, lse = ring_flash_fwd(q, k, v, *off, **kw)
+        ro, rlse = ring_fwd_ref(q, k, v, *off, **kw)
+        check_rows(f"ring_flash_fwd d={d} bf16 at offsets (512, 256)", o, ro,
+                   2 ** -6)
+        delta = flash_delta(do, o)
+        got = ring_flash_bwd(q, k, v, do, lse, delta, *off, **kw)
+        want = ring_bwd_ref(q, k, v, do, lse, delta, *off, **kw)
+        for name, a, b_, rel in zip(("dq", "dk", "dv"), got, want,
+                                    (2 ** -7, 1e-3, 1e-3)):
+            check_rel(f"ring_flash_bwd d={d} bf16 {name}", a, b_, rel)
+        if (ring_flash_fwd.routes["wgmma"] != before[0]["wgmma"] + 1
+                or ring_flash_bwd.routes["wgmma"] != before[1]["wgmma"] + 1):
+            fail(f"ring d={d}: the step kernels did not take the tensor-core "
+                 "route")
+    torch.cuda.synchronize()
+
+
+def mesh_phase(dev):
+    """Phase 22: two ranks on the card over gloo (see the module
+    docstring). Returns the shard-shape rows for log_times."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,compute_mode",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"[mesh] {mode}")
+    cfg = get_config("llama3_2_1b")
+    tcfg = _mesh_train_cfg()
+    batches = _mesh_batches(tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the ranks (the kernels were built in phase 1: they load the
+    # libraries); while they import (seconds before their first launch)
+    # the one-rank train reference and the ring checks here; after them
+    # the one-rank serve reference (it takes rank 0's first tokens) and
+    # the kernels at shard shapes, timed with the card to themselves
+    running = _spawn_mesh_ranks()
+    marks = [("spawned", time.perf_counter() - t_start)]
+    ref_train = _mesh_train_reference(tcfg, batches)
+    marks.append(("train reference", time.perf_counter() - t_start))
+    _mesh_ring_wide_checks(dev)
+    marks.append(("ring checks", time.perf_counter() - t_start))
+    ranks = running.join()
+    t_ranks = time.perf_counter() - t_start
+    first_tokens = ranks[0]["serve"]["first"]["tokens"]
+    ref_logits, ref_counts = _mesh_serve_reference(cfg, first_tokens)
+    marks.append(("serve reference", time.perf_counter() - t_start))
+    times = _mesh_shard_kernels(dev, cfg)
+    marks.append(("shard kernels", time.perf_counter() - t_start))
+
+    # serving: identical tokens on both ranks; the first decode step's
+    # logits against the one-rank engine's, teacher forced
+    s0, s1 = ranks[0]["serve"], ranks[1]["serve"]
+    if s0["tokens"] != s1["tokens"]:
+        fail("phase 22: the two ranks emitted different tokens")
+    if any(len(t) != MESH_NEW for t in s0["tokens"]):
+        fail(f"phase 22: a request did not get its {MESH_NEW} tokens")
+    if s0["pool_heads"] != cfg.n_kv_heads // 2:
+        fail(f"phase 22: the pools hold {s0['pool_heads']} kv heads a rank")
+    got = s0["first"]["logits"]
+    if not torch.equal(got, s1["first"]["logits"]):
+        fail("phase 22: the ranks' gathered logits differ")
+    err = check_rel("phase 22: the first decode step's logits on (1, 2) "
+                    "against one rank, teacher forced", got, ref_logits,
+                    2 ** -4)
+    check_argmax("phase 22: the sharded step's argmax (two shards' maxima "
+                 "combined)", torch.from_numpy(s0["first"]["next"]),
+                 ref_logits, cfg.vocab_size, gap_tol=2 * err)
+    for r, rk in enumerate(ranks):
+        _counts_equal(f"serving rank {r}", rk["serve"]["counts"],
+                      ref_counts, MESH_COUNTED)
+        if not rk["serve"]["step_stats"]["eager"]:
+            fail("phase 22: the sharded serve step did not record its eager "
+                 "run")
+    log(f"[mesh] serving llama3_2_1b bf16 on (1, 2): {len(s0['tokens'])} "
+        f"requests x {MESH_NEW} tokens, identical on both ranks; counts "
+        + ", ".join(f"{k}={s0['counts'][k]}" for k in MESH_COUNTED)
+        + " on each rank, as on one card")
+
+    # training: each layout against the one-rank step
+    for tag, _, _ in MESH_LAYOUTS:
+        for r, rk in enumerate(ranks):
+            t = rk[tag]
+            for what in ("losses", "norms"):
+                a, b_ = t[what], ref_train[what]
+                worst = max(abs(x - y) / abs(y) for x, y in zip(a, b_))
+                if worst > MESH_TRAIN_REL:
+                    fail(f"phase 22 train {tag} rank {r}: {what} {a} vs one "
+                         f"rank {b_} ({worst:.3e} relative)")
+            worst = 0.0
+            for (sw, sq, sa), (rw, rq, ra) in zip(t["digest"],
+                                                  ref_train["digest"]):
+                worst = max(worst, abs(sw - rw) / ra, abs(sq - rq) / rq)
+            if worst > MESH_TRAIN_REL:
+                fail(f"phase 22 train {tag} rank {r}: the parameters' "
+                     f"weighted sums differ by {worst:.3e} of their size")
+            _counts_equal(f"train {tag} rank {r}", t["counts"],
+                          ref_train["counts"], MESH_TRAIN_COUNTED)
+            if not t["step_stats"]["eager"]:
+                fail("phase 22: the sharded train step did not record its "
+                     "eager run")
+        log(f"[mesh] train {tag}: losses {ranks[0][tag]['losses']} (one rank "
+            f"{ref_train['losses']}), parameters within {worst:.3e}; counts "
+            + ", ".join(f"{k}={ranks[0][tag]['counts'][k]}"
+                        for k in MESH_TRAIN_COUNTED) + " on each rank")
+
+    secs = time.perf_counter() - t_start
+
+    def per_step(stats):
+        n = max(len(stats["host_ms"]), 1)
+        return (sum(stats["host_ms"]) / n, sum(stats["collective_ms"]) / n)
+
+    parts = []
+    for r, rk in enumerate(ranks):
+        h, c = per_step(rk["serve"]["step_stats"])
+        parts.append(f"rank {r} serve step {h:.3f} ms host, {c:.3f} ms in "
+                     "collectives")
+        for tag, _, _ in MESH_LAYOUTS:
+            h, c = per_step(rk[tag]["step_stats"])
+            parts.append(f"train {tag} {h:.3f} / {c:.3f} ms")
+    sv = ranks[0]["serve"]
+    log("[mesh time] timeline s: this process " + ", ".join(
+        f"{k} {v:.1f}" for k, v in marks) + "; rank 0 from its spawn "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["marks"]))
+    log(f"[mesh time] phase 22 {secs:.1f} s (the ranks' end at "
+        f"{t_ranks:.1f} s: serve "
+        f"{ranks[0]['serve_s']:.1f} s = init {sv['init_s']:.1f} (the "
+        f"weights' draw {sv['draw_s']:.1f}) + engine "
+        f"{sv['drain_s']:.1f}, of it {sv['collective_s']:.1f} in "
+        f"collectives, {len(sv['step_stats']['host_ms'])} decode steps; "
+        "train "
+        + ", ".join(f"{tag} {ranks[0][tag]['seconds']:.1f} s"
+                    for tag, _, _ in MESH_LAYOUTS)
+        + "); " + "; ".join(parts)
+        + " (gloo collectives of two processes on one host, CUDA tensors "
+          "through host memory: a figure of gloo, not of NCCL)")
+    return times
+
+
 def log_times(times):
     """Phase 8's report: a [time] line for each entry of ``times``, the
     [gbps] and [tflops] lines and the rmsnorm host split."""
@@ -8104,6 +8798,21 @@ def log_times(times):
 
 
 def main():
+    # the modules this process compiles are cached under a directory of
+    # its own, where phase 22's spawned ranks find them (where the
+    # environment asks for no bytecode, every process compiles torch from
+    # its sources: ~10 s a rank)
+    pyc = tempfile.mkdtemp(prefix="chip_smoke_pyc_")
+    sys.pycache_prefix = pyc
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = pyc
+    try:
+        return _main()
+    finally:
+        shutil.rmtree(pyc, ignore_errors=True)
+
+
+def _main():
     import torch
 
     if not torch.cuda.is_available():
@@ -8334,7 +9043,7 @@ def run_phases():
                                moe_errs["flash_decode@mixtral"])
     elapsed("phase 14-15 moe")
 
-    # 16. zamba2_7b whole through generate (the static path); 2b and 8 for
+    # 16. zamba2_7b at 45 layers through generate (the static path); 2b and 8 for
     # its scan and attention shapes
     zcounts, _ = zamba_main_path()
     log("zamba2_7b kernels: " + ", ".join(
@@ -8369,6 +9078,12 @@ def run_phases():
     # 19. granite_3_8b whole on the engine, untuned and on its tuned split
     granite_main_path()
     elapsed("phase 19 granite")
+
+    # 22. the mesh: llama3_2_1b served on (1, 2) and trained on three
+    # layouts by two ranks on the card over gloo; the kernels at shard
+    # shapes; the ring's wide head dims
+    times.update(mesh_phase(dev))
+    elapsed("phase 22 mesh")
     log_times(times)
     log_spec_costs(spec_costs, times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

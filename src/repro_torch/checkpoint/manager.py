@@ -1,5 +1,5 @@
 """Checkpoints of tensor trees: atomic save, async keep-k manager, resume
-(the counterpart of ``repro.checkpoint.manager``, single device).
+and reshard-on-restore (the counterpart of ``repro.checkpoint.manager``).
 
 The on-disk layout is the JAX package's: ``<dir>/step_<N>/arrays.npz`` keyed
 by ``jax.tree_util.keystr`` leaf paths (``[0]['stacks'][0]['attn']['wq']``)
@@ -8,6 +8,13 @@ mid-save never corrupts the latest checkpoint and an f32 checkpoint crosses
 between the two packages in both directions. numpy has no bfloat16, so a
 bf16 leaf is stored as its 16-bit pattern and ``meta.json`` records each
 leaf's dtype under ``"dtypes"`` (the JAX package ignores the extra key).
+
+On a mesh the arrays on disk are always the full ones: ``save(shardings=)``
+gathers every leaf from the ranks' shards before the writer thread gets
+it (every rank takes part; the first rank writes), and
+``restore(shardings=)`` reads the full arrays and slices each leaf to the
+placement of the mesh it restores onto, which may differ from the one that
+saved (reshard-on-restore).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_path, tree_map, unflatten
+from repro_torch.tree import leaves, leaves_with_path, tree_map, unflatten
 
 __all__ = ["save_tree", "restore_tree", "load_meta", "CheckpointManager"]
 
@@ -62,10 +69,12 @@ def save_tree(tree, directory: str, *, meta: dict | None = None):
     os.rename(tmp, directory)
 
 
-def restore_tree(template, directory: str, *, device=None):
+def restore_tree(template, directory: str, *, device=None, shardings=None):
     """Restore into the structure, shapes and dtypes of ``template`` (a tree
-    of tensors, meta tensors included), placing each leaf on ``device``
-    (default: the template leaf's own device)."""
+    of tensors, meta tensors included, at their full shapes), placing each
+    leaf on ``device`` (default: the template leaf's own device).
+    ``shardings``: a matching tree of ``parallel.Placement`` (or None
+    leaves): each leaf sliced to this rank's shard of it."""
     with np.load(os.path.join(directory, "arrays.npz")) as data:
         arrays = {k: data[k] for k in data.files}
     with open(os.path.join(directory, "meta.json")) as f:
@@ -81,6 +90,9 @@ def restore_tree(template, directory: str, *, device=None):
         t = _from_numpy(arr, dtypes.get(key))
         out.append(t.to(device=leaf.device if device is None else device,
                         dtype=leaf.dtype))
+    if shardings is not None:
+        out = [t if p is None else p.local(t)
+               for t, p in zip(out, leaves(shardings), strict=True)]
     return unflatten(template, out)
 
 
@@ -125,8 +137,17 @@ class CheckpointManager:
             raise err
 
     def save(self, step: int, tree, *, meta: dict | None = None,
-             async_: bool = True):
+             async_: bool = True, shardings=None, write: bool = True):
+        """Save ``tree`` as step ``step``. ``shardings``: a matching tree of
+        ``parallel.Placement``: the leaves are shards, gathered into the
+        full arrays first (every rank calls ``save``); ``write=False``
+        (the ranks but one) takes part in the gather and writes nothing."""
         self.wait()
+        if shardings is not None:
+            tree = tree_map(lambda t, p: p.gather(t.detach()), tree,
+                            shardings)
+        if not write:
+            return
         # snapshot to host BEFORE going async: the caller updates the
         # device tensors in place on the next step
         host_tree = tree_map(lambda t: t.detach().to("cpu", copy=True)
@@ -147,11 +168,13 @@ class CheckpointManager:
             _do()
             self.wait()
 
-    def restore(self, template, *, step: int | None = None, device=None):
+    def restore(self, template, *, step: int | None = None, device=None,
+                shardings=None):
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
-        tree = restore_tree(template, self._step_dir(step), device=device)
+        tree = restore_tree(template, self._step_dir(step), device=device,
+                            shardings=shardings)
         return step, tree, load_meta(self._step_dir(step))
 
     def _gc(self):

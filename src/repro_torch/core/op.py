@@ -21,7 +21,14 @@ and ``"auto"`` is ``"cuda"`` for CUDA tensors and ``"torch"`` for CPU
 ones (the counterpart of JAX's interpret mode). ``op.reference`` is the
 plain version. The JAX package's ``$REPRO_BACKEND`` is not ported: on the
 card it would let an environment variable route the main path around the
-kernels. Nor are its mesh schedule (``OpShard``, ``mesh=``) yet.
+kernels.
+
+An op whose spec binds a ``ShardAxis`` declares its mesh schedule as an
+:class:`OpShard`; ``op(..., mesh=)`` runs it over the ranks of a
+``torch.distributed`` ``DeviceMesh``, each rank passing its shards of the
+args (by ``in_specs``) and getting its shard of the result (by
+``out_specs``), where JAX's ``shard_map`` takes and returns the global
+arrays. An op without one refuses ``mesh=``.
 
 A differentiable op declares an :class:`OpVJP`: its call is a
 ``torch.autograd.Function`` whose backward runs ``vjp.bwd`` on the same
@@ -47,7 +54,7 @@ from . import tune as _tune
 from .device import default_device
 from .lang import BACKENDS
 
-__all__ = ["Op", "OpVJP", "define_op", "get_op", "oracle_vjp",
+__all__ = ["Op", "OpShard", "OpVJP", "define_op", "get_op", "oracle_vjp",
            "registered_ops", "to_tensors"]
 
 _REGISTRY: dict[str, "Op"] = {}
@@ -143,6 +150,41 @@ class _Differentiable(torch.autograd.Function):
         return (None, None, None, None, *grads)
 
 
+class OpShard:
+    """Executable mesh schedule for an op whose spec binds a ShardAxis
+    (JAX's declaration, field for field): ``collective`` is "ppermute" (a
+    ring: the ``rotate`` args hop to the next shard between steps), "psum"
+    or "psum_scatter" (one step a shard, then an all-reduce or a
+    reduce-scatter along ``scatter_axis``); ``in_specs(axis, args)`` and
+    ``out_specs(axis)`` give the args' and the result's specs (tuples);
+    ``extent_param`` names an op param set to the mesh axis size.
+
+    JAX traces ``step``/``merge``/``done`` inside ``shard_map``; the port
+    takes the schedule whole: ``run(op, mesh, axis, args, params)`` drives
+    it over the mesh's ``torch.distributed`` group of ``axis`` on this
+    rank's shards (the ring op's is the port's distributed ring)."""
+
+    def __init__(self, *, mesh_axis: str = "model",
+                 collective: str = "ppermute", in_specs: Callable,
+                 out_specs: Callable, rotate: Sequence[int] = (),
+                 extent_param: str | None = None, scatter_axis: int = 0,
+                 run: Callable):
+        if collective not in ("ppermute", "psum", "psum_scatter"):
+            raise ValueError(f"OpShard collective {collective!r} unknown")
+        if collective == "ppermute" and not rotate:
+            raise ValueError(
+                "OpShard(collective='ppermute') needs rotate= arg indices: "
+                "a ring with nothing rotating cannot reduce across shards")
+        self.mesh_axis = mesh_axis
+        self.collective = collective
+        self.in_specs = in_specs
+        self.out_specs = out_specs
+        self.rotate = tuple(int(i) for i in rotate)
+        self.extent_param = extent_param
+        self.scatter_axis = int(scatter_axis)
+        self.run = run
+
+
 class Op:
     """A declared op: the callable :func:`define_op` returns.
 
@@ -176,8 +218,9 @@ class Op:
                  pre=None, post=None, ref_params=(), tune_ref=None,
                  example=None, doc=None, array_params=(), analyze=None,
                  smem=None, refusal=None, tolerance=None, sources=(),
-                 exact_knobs=False):
+                 exact_knobs=False, shard=None):
         self.name = name
+        self.shard = shard
         self.builder = builder
         self.ref = ref
         self._derive = derive_defines
@@ -265,7 +308,30 @@ class Op:
         outs = self._run_kernel(args, backend, device, params)
         return self._publish(outs, args, params), outs
 
+    def _shard_call(self, mesh, args, kw):
+        """Run the declared :class:`OpShard` schedule over ``mesh``."""
+        from repro_torch.parallel.rules import mesh_shape
+
+        sh = self.shard
+        if sh is None:
+            raise ValueError(
+                f"op {self.name!r} declares no mesh schedule (OpShard); "
+                "mesh= is not supported here")
+        ax = sh.mesh_axis
+        shape = mesh_shape(mesh)
+        if ax not in shape:
+            raise ValueError(f"op {self.name!r}: mesh has no axis {ax!r} "
+                             f"(axes: {tuple(shape)})")
+        params = dict(kw)
+        if sh.extent_param:
+            params.setdefault(sh.extent_param, int(shape[ax]))
+        self._resolve(params)             # unknown params raise
+        return sh.run(self, mesh, ax, args, params)
+
     def __call__(self, *args, **kw):
+        mesh = kw.pop("mesh", None)
+        if mesh is not None:
+            return self._shard_call(mesh, args, kw)
         backend, params = self._resolve(kw)
         if self._early is not None:
             got = self._early(args, dict(params))
@@ -415,7 +481,8 @@ def define_op(name: str, *, builder: Callable, ref: Callable | None,
               ref_params: Sequence[str] = (), tune_ref: Callable | None = None,
               example: Callable | None = None, doc: str | None = None,
               array_params: Sequence[str] = (), register: bool = True,
-              analyze: str | None = None, **tuning) -> Op:
+              analyze: str | None = None, shard: OpShard | None = None,
+              **tuning) -> Op:
     """Declare a public op over the kernel language; see :class:`Op`
     (``tuning``: its ``smem``, ``refusal``, ``tolerance``, ``sources`` and
     ``exact_knobs``). ``example(rng) -> (args, params)`` gives
@@ -423,13 +490,14 @@ def define_op(name: str, *, builder: Callable, ref: Callable | None,
     registry-wide tests, ``lint_kernels`` and ``tune_cli --op``.
     ``array_params`` name params that may hold tensors (a carried state
     ``h0``): legal on ``op.raw`` and ``op.tune``, refused on the
-    differentiable call. Registering a name twice raises;
+    differentiable call. ``shard``: the op's :class:`OpShard` (its
+    ``mesh=`` schedule). Registering a name twice raises;
     ``register=False`` keeps an op out of the registry."""
     op = Op(name, builder, ref, derive_defines, vjp=vjp, sweep=sweep,
             defaults=defaults, public_outputs=public_outputs, early=early,
             pre=pre, post=post, ref_params=ref_params, tune_ref=tune_ref,
             example=example, doc=doc, array_params=array_params,
-            analyze=analyze, **tuning)
+            analyze=analyze, shard=shard, **tuning)
     if register:
         if name in _REGISTRY:
             raise ValueError(

@@ -32,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("rmsnorm", "flash_fwd", "paged_decode", "lm_head", "lm_head_ce",
            "flash_delta", "flash_bwd", "fd2d", "sem", "dg", "flash_decode",
-           "ssm_scan", "ring_flash", "matmul")
+           "ssm_scan", "ring_flash", "ring_flash_wide", "matmul")
 HEADERS = ("common.cuh", "gemm_sm90.cuh",     # included by the sources
            "attn_sm90.cuh", "attn_fwd_sm90.cuh", "attn_bwd_sm90.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -72,14 +72,17 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VEC_ELEMS = (4, 8)            # elements a 16-byte vector, by dtype code
-_HEAD_DIMS = (32, 64, 128)     # the ring step kernels
+_HEAD_DIMS = (32, 64, 128)     # the ring step kernels (ring_flash.cu)
+_WIDE_HEAD_DIMS = (112, 256)   # ... their tensor-core route's (_wide.cu)
 _FWD_HEAD_DIMS = (32, 64, 112, 128, 256)  # 112: zamba2, 256: paligemma
 _FWD_DIM_PAIRS = ((192, 128),)  # flash_fwd: (d_qk, d_v) besides equal dims
 _DECODE_HEAD_DIMS = (32, 64, 112, 128, 256)    # flash_decode
 _PAGED_HEAD_DIMS = (32, 64, 128, 256)          # paged_decode
-# ring_flash_bwd by route (ring.py reads it): ring_flash.cu's instances
+# the ring step kernels by route (ring.py reads them): ring_flash.cu's
+# instances, and ring_flash_wide.cu's at 112 and 256 on the tensor cores
 # (flash_bwd takes _FWD_HEAD_DIMS and _FWD_DIM_PAIRS on both routes)
-RING_BWD_HEAD_DIMS = {"wgmma": (32, 64, 128), "simt": (32, 64)}
+RING_FWD_HEAD_DIMS = {"wgmma": (32, 64, 112, 128, 256), "simt": _HEAD_DIMS}
+RING_BWD_HEAD_DIMS = {"wgmma": (32, 64, 112, 128, 256), "simt": (32, 64)}
 _MAX_GROUP = 16                # decode kernels: query heads per kv head
 _MAX_GROUP_DIM = 2048          # decode kernels: (query heads per kv head) * d
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -117,6 +120,8 @@ _RING_SIG = {
     "ring_flash_bwd_tc": ([_P] * 11 + [_I] * 9 + [_F] + [_L] * 12 + [_P],
                           _I),
 }
+_RING_WIDE_SIG = {k: _RING_SIG[k] for k in ("ring_flash_fwd_tc",
+                                            "ring_flash_bwd_tc")}
 
 
 def route(*ts) -> str:
@@ -655,6 +660,14 @@ def _ring_masks(name, q, k, window, prefix_len):
     return _window(name, window), _prefix(name, prefix_len)
 
 
+def _ring_lib(d):
+    """ring_flash.cu's library, or ring_flash_wide.cu's at d 112 and 256
+    (the tensor-core entries only)."""
+    if d in _WIDE_HEAD_DIMS:
+        return load("ring_flash_wide", _RING_WIDE_SIG)
+    return load("ring_flash", _RING_SIG)
+
+
 def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,
                    sm_scale=None, prefix_len=0):
     """One ring step: q (B, H, Sq, D) at absolute positions ``q_start + i``
@@ -664,7 +677,8 @@ def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,
     (read there, so no launch waits for the host). Masks: causal,
     ``window``, ``prefix_len`` (keys below it always visible). A row that
     sees no key gives o = 0, lse = -inf. On the card :func:`route` (of q,
-    k, v) picks the kernel; both take head dims 32, 64 and 128."""
+    k, v) picks the kernel, whose head dims are ``RING_FWD_HEAD_DIMS[route]``
+    (112 and 256 only on the tensor cores, ``csrc/ring_flash_wide.cu``)."""
     name = "ring_flash_fwd"
     _no_grad_asked(name, q, k, v)
     _check_offsets(name, q_start, k_start)
@@ -672,7 +686,8 @@ def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,
         return ring_fwd_ref(q, k, v, q_start, k_start, causal=causal,
                             window=window, sm_scale=sm_scale,
                             prefix_len=prefix_len)
-    _check_qkv(name, q, k, v)
+    path = route(q, k, v)
+    _check_qkv(name, q, k, v, RING_FWD_HEAD_DIMS[path])
     _check_gqa(name, q, k, v)
     win, prefix = _ring_masks(name, q, k, window, prefix_len)
     b, h, sq, d = q.shape
@@ -681,8 +696,7 @@ def ring_flash_fwd(q, k, v, q_start, k_start, *, causal=True, window=None,
         sm_scale = 1.0 / d ** 0.5
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = load("ring_flash", _RING_SIG)
-    path = route(q, k, v)
+    lib = _ring_lib(d)
     ptrs = (ptr(q), ptr(k), ptr(v), ptr(q_start), ptr(k_start), ptr(o),
             ptr(lse), b, h, hk, sq, skv, d)
     tail = (int(bool(causal)), win, prefix, float(sm_scale), *q.stride()[:3],
@@ -738,7 +752,7 @@ def ring_flash_bwd(q, k, v, do, lse, delta, q_start, k_start, *, causal=True,
     dq = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
     dv = torch.empty((b, hk, skv, d), dtype=torch.float32, device=dev)
-    lib = load("ring_flash", _RING_SIG)
+    lib = _ring_lib(d)
     ptrs = (ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
             ptr(q_start), ptr(k_start), ptr(dq), ptr(dk), ptr(dv), b, h, hk,
             sq, skv, d)
@@ -1215,22 +1229,24 @@ def _ring_refusal(spec, D, head_dims):
             or _mask_refusal(D))
 
 
-def _ring_bwd_dims(D):
+def _ring_dims(D, dims):
     # the route follows the layout at launch; at build time a bf16 spec
     # may take the tensor-core route's dims, an f32 one the CUDA cores'
     path = "wgmma" if as_dtype(D.dtype) == torch.bfloat16 else "simt"
-    return RING_BWD_HEAD_DIMS[path]
+    return dims[path]
 
 
 bind_cuda("ring_flash_fwd", wrapper=ring_flash_fwd,
           launch=lambda D, ins, outs: ring_flash_fwd(*ins, **_masks(D)),
-          refusal=lambda spec, D: _ring_refusal(spec, D, _HEAD_DIMS),
+          refusal=lambda spec, D: _ring_refusal(
+              spec, D, _ring_dims(D, RING_FWD_HEAD_DIMS)),
           launch_defines=("causal", "window", "sm_scale", "prefix_len"),
           fixed_defines=("block_q", "block_kv", "ring_steps", "mesh_axis"),
           copies=True)
 bind_cuda("ring_flash_bwd", wrapper=ring_flash_bwd,
           launch=lambda D, ins, outs: ring_flash_bwd(*ins, **_masks(D)),
-          refusal=lambda spec, D: _ring_refusal(spec, D, _ring_bwd_dims(D)),
+          refusal=lambda spec, D: _ring_refusal(
+              spec, D, _ring_dims(D, RING_BWD_HEAD_DIMS)),
           launch_defines=("causal", "window", "sm_scale", "prefix_len"),
           fixed_defines=("block_q", "block_kv", "ring_steps", "mesh_axis"),
           copies=True)

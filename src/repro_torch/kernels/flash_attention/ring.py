@@ -23,17 +23,18 @@ JAX ``_ring_step_bwd``) and runs ``ring_flash_bwd``. Steps are combined by
   and dv arrive at the rank that owns their chunk.
 
 On the card a gradient needs ``ring_flash_bwd``, which takes the head dims
-``RING_BWD_HEAD_DIMS[route(q, k, v)]``: 32, 64 and 128 on the tensor-core
-route (bf16 whose rows the kernel's 16-byte copies can read), 32 and 64 on
-the CUDA-core route (f32). Asked for at another head dim,
+``RING_BWD_HEAD_DIMS[route(q, k, v)]``: 32, 64, 112, 128 and 256 on the
+tensor-core route (bf16 whose rows the kernel's 16-byte copies can read;
+112 and 256 in ``csrc/ring_flash_wide.cu``), 32 and 64 on the CUDA-core
+route (f32). Asked for at another head dim,
 :func:`ring_flash_attention` raises before its first launch (as
 ``flash_attention`` does) instead of failing inside ``backward``.
 
 ``ring_flash_op`` declares one ring step over ``ring_flash_fwd_builder``
 (o; ``raw`` gives (o, lse)) for the op front end (``repro_torch.core``)
 under the JAX op's name. The step kernel's tiles are template constants,
-so it declares no sweep; the JAX op's mesh schedule (``mesh=``, its
-``OpShard``) waits for the port's mesh.
+so it declares no sweep; its ``OpShard`` runs the distributed ring below
+when the op is called with ``mesh=``.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ...core.op import define_op
+from ...core.op import OpShard, define_op
 from .._build import on_cpu
 from .kernel import ring_flash_fwd_builder
 from .ops import (RING_BWD_HEAD_DIMS, _attn_defines, _grad_asked,
@@ -281,6 +282,25 @@ def _ring_example(rng):
                            k_start=np.zeros((1, 1), np.int32), causal=True)
 
 
+def _ring_in_specs(axis, args):
+    p = (None, None, axis, None)                # q/k/v sharded on seq
+    return (p, p, p)
+
+
+def _ring_out_specs(axis):
+    return (None, None, axis, None)
+
+
+def _ring_run(op, mesh, axis, args, params):
+    """The ring op's mesh schedule: the distributed ring over ``axis`` of
+    ``mesh`` on this rank's sequence shards of q, k, v."""
+    q, k, v = args
+    kw = {n: params[n] for n in ("causal", "window", "sm_scale",
+                                 "prefix_len") if n in params}
+    return ring_flash_attention(q, k, v, mesh=mesh, mesh_axis=axis,
+                                ring_steps=params.get("ring_steps"), **kw)
+
+
 ring_flash_op = define_op(
     "ring_flash",
     builder=ring_flash_fwd_builder,
@@ -294,12 +314,18 @@ ring_flash_op = define_op(
     array_params=("q_start", "k_start"),     # dynamic absolute offsets
     ref_params=("q_start", "k_start", "causal", "window", "sm_scale",
                 "prefix_len"),
-    sources=("ring_flash",),
+    sources=("ring_flash", "ring_flash_wide"),
     example=_ring_example,
+    shard=OpShard(
+        mesh_axis="model", collective="ppermute",
+        in_specs=_ring_in_specs, out_specs=_ring_out_specs,
+        rotate=(1, 2),                       # k, v hop around the ring
+        extent_param="ring_steps",           # defines/tune key track shards
+        run=_ring_run),
     doc="""One ring step: q (B, H, Sq, D) at absolute positions q_start + i
     against one kv chunk at k_start + j ((1, 1) int32 offsets) -> o,
     normalised by the chunk's own softmax sum (``raw``: (o, lse)). The
     spec declares the ring's mesh binding (``ring_steps`` shards of
-    ``mesh_axis``); its schedule across devices (``mesh=``) waits for the
-    port's mesh.""",
+    ``mesh_axis``); with ``mesh=`` the op runs the whole distributed ring
+    on this rank's sequence shards of q, k and v (``OpShard``).""",
 )

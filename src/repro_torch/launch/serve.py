@@ -13,11 +13,17 @@ call returns. The prefill and sampling stay eager. Both paths adopt the
 persisted tune winner of their decode attention for their shapes (the
 engine its paged decode split, the static loop ``flash_decode``'s;
 ``launch.tuning.adopt``), pass it to their step builder and return it as
-``stats["tuned"]``. The static loop has no mesh (not ported).
+``stats["tuned"]``. With ``mesh=`` both paths run on every rank of the
+mesh: the engine as ``Engine(mesh=)``, the static loop over this rank's
+parameter shards and its rows of the prompts (the batch split over the
+data axes, the cache by ``parallel.cache_pspecs``: kv heads over "model"),
+each step eager (``build_serve_step(mesh)``), the rows gathered at the end.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b \
       --reduced --batch 4 --prompt-len 16 --gen 32 [--device cpu] \
       [--engine auto|paged|static] [--temperature T]
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --reduced \
+      --device cpu --model-axis 2            # also --data-axis
 """
 
 from __future__ import annotations
@@ -31,7 +37,10 @@ import torch
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.launch import tuning
 from repro_torch.models import LM
-from repro_torch.parallel.steps import build_serve_step
+from repro_torch.parallel import comm
+from repro_torch.parallel.context import use_rules
+from repro_torch.parallel.steps import (build_serve_step, make_shardings,
+                                        shard_tree)
 from repro_torch.serving import Engine, sample
 
 __all__ = ["apply_tuned_winners", "generate", "main"]
@@ -59,7 +68,8 @@ def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
              eos_id: int | None = None, greedy: bool = True, rng=None,
              max_len: int | None = None, temperature: float = 1.0,
              pad_id: int | None = None, engine: str = "auto",
-             page_size: int | None = None, num_pages: int | None = None):
+             page_size: int | None = None, num_pages: int | None = None,
+             mesh=None, cache_dtype=None):
     """prompts: (B, P) int -> ((B, <=gen_tokens) int32 tokens, stats).
 
     Rows that finish early are padded with ``pad_id`` (default: ``eos_id``
@@ -69,20 +79,25 @@ def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
     pageable, ``"static"`` forces the static loop and ``"paged"`` the engine
     (which raises for an unpageable model). ``max_len`` sizes the caches on
     both paths (default: prompt + generation); ``page_size``/``num_pages``
-    pass through to the engine."""
+    and ``cache_dtype`` pass through to the engine. ``mesh``: serve on every
+    rank of this mesh, each rank calling ``generate`` with the same full
+    ``params`` and prompts; every rank returns the whole output."""
     if engine not in ("auto", "paged", "static"):
         raise ValueError(f"engine must be auto|paged|static, got {engine!r}")
     b, plen = prompts.shape
     max_len = max_len or (plen + gen_tokens)
     use_engine = model.pageable if engine == "auto" else engine == "paged"
     if not use_engine:
-        return _generate_static(model, params, prompts,
-                                gen_tokens=gen_tokens, eos_id=eos_id,
-                                greedy=greedy, rng=rng, max_len=max_len,
-                                temperature=temperature, pad_id=pad_id)
+        kw = dict(gen_tokens=gen_tokens, eos_id=eos_id, greedy=greedy,
+                  rng=rng, max_len=max_len, temperature=temperature,
+                  pad_id=pad_id)
+        if mesh is not None:
+            return _generate_sharded(model, params, prompts, mesh, **kw)
+        return _generate_static(model, params, prompts, **kw)
     eng = Engine(model, params, batch=b, max_len=max_len, page_size=page_size,
                  num_pages=num_pages, eos_id=eos_id, greedy=greedy,
-                 temperature=temperature, rng=rng)
+                 temperature=temperature, rng=rng, mesh=mesh,
+                 cache_dtype=cache_dtype)
     t0 = time.perf_counter()
     rids = [eng.submit(prompts[i].tolist(), gen_tokens) for i in range(b)]
     results = eng.drain(max_steps=8 * (b * gen_tokens + b))
@@ -111,12 +126,15 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
                      gen_tokens: int, eos_id: int | None = None,
                      greedy: bool = True, rng=None,
                      max_len: int | None = None, temperature: float = 1.0,
-                     pad_id: int | None = None):
+                     pad_id: int | None = None, rules=None):
     """Static batching: one prefill, then ``build_serve_step``'s step over
     ``greedy_step`` (or ``decode_step`` + :func:`sample`) on a contiguous
     cache, every row in lockstep. The first token comes from the prefill's
     greedy argmax, as in the JAX loop. The serving path for models the
-    engine cannot page."""
+    engine cannot page. With ``rules`` (from :func:`_generate_sharded`):
+    this rank's shards and rows, the prefill and steps under the rules on
+    their mesh, sampled tokens drawn on the first rank of the "model" group
+    and broadcast over it."""
     cfg = model.cfg
     b, plen = prompts.shape
     max_len = max_len or (plen + gen_tokens)
@@ -132,16 +150,28 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
     pad = _pad_token(eos_id, pad_id)
     toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                            device=model.device)
+
+    def draw(logits):
+        nxt = sample(logits, cfg.vocab_size, temperature, rng)
+        if rules is not None and rules.size(rules.model_axis) > 1:
+            nxt = comm.broadcast(nxt, 0, rules.group(rules.model_axis))
+        return nxt
+
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), use_rules(rules):
         logits, cache = model.prefill(params, toks, max_len=max_len)
         tok = model.greedy_token(logits).cpu().numpy()
     prefill_s = time.perf_counter() - t0
     # the persisted decode split, passed to the step (its graph keeps it)
     tuned = apply_tuned_winners(cfg, b, plen, max_len, device=model.device,
                                 ops=("flash_decode",))
-    step, _ = build_serve_step(model, batch=b, greedy=greedy,
-                               split=tuned.knob("flash_decode", "split"))
+    split = tuned.knob("flash_decode", "split")
+    if rules is None:
+        step, _ = build_serve_step(model, batch=b, greedy=greedy, split=split)
+    else:
+        step, _ = build_serve_step(model, rules.mesh, batch=b,
+                                   max_len=max_len, greedy=greedy,
+                                   split=split)
 
     out = np.zeros((b, gen_tokens), np.int32)
     done = np.zeros((b,), bool)
@@ -160,13 +190,44 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
                 nxt, _, cache = step(params, cache, step_in)
             else:
                 logits, cache = step(params, cache, step_in)
-                nxt = sample(logits, cfg.vocab_size, temperature, rng)
+                nxt = draw(logits)
             tok = nxt.cpu().numpy()
     decode_s = time.perf_counter() - t0
     n_gen = out.shape[1] * b
     return out, {"prefill_s": prefill_s, "decode_s": decode_s,
                  "tokens_per_s": n_gen / max(decode_s, 1e-9),
                  "engine": False, "tuned": tuned, "device": str(model.device)}
+
+
+def _generate_sharded(model, params, prompts, mesh, **kw):
+    """The static loop on ``mesh``: this rank's parameter shards and its
+    rows of the prompts; the data ranks' rows gathered at the end, each
+    padded to the longest (a row stopped early on EOS is padded, as the
+    loop pads it)."""
+    placements, _, rules, _ = make_shardings(model, mesh)
+    n, i = rules.data_size, rules.data_index()
+    b = prompts.shape[0]
+    if b % n:
+        raise NotImplementedError(
+            f"generate(mesh=): a batch of {b} does not split over {n} data "
+            "ranks (the sequence-sharded cache of cache_pspecs is not "
+            "ported)")
+    c = b // n
+    out, stats = _generate_static(model, shard_tree(params, placements),
+                                  prompts[i * c:(i + 1) * c], rules=rules,
+                                  **kw)
+    if n > 1:
+        dev = model.device
+        width = int(comm.all_reduce(torch.tensor([out.shape[1]], device=dev),
+                                    "max")[0])
+        mine = np.full((c, width), _pad_token(kw.get("eos_id"),
+                                              kw.get("pad_id")), np.int32)
+        mine[:, :out.shape[1]] = out
+        full = torch.from_numpy(mine).to(dev)
+        for a in reversed(rules.data_axes):
+            full = comm.all_gather(full, 0, rules.group(a))
+        out = full.cpu().numpy()
+    return out, stats
 
 
 def main(argv=None):
@@ -183,7 +244,13 @@ def main(argv=None):
                     choices=("auto", "paged", "static"))
     ap.add_argument("--temperature", type=float, default=None,
                     help="sample at this temperature (default: greedy)")
+    ap.add_argument("--data-axis", type=int, default=None)
+    ap.add_argument("--model-axis", type=int, default=1)
     args = ap.parse_args(argv)
+
+    from repro_torch.launch.train import start_mesh
+
+    mesh = start_mesh(args.device, data=args.data_axis, model=args.model_axis)
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -198,7 +265,8 @@ def main(argv=None):
            torch.Generator(device=model.device).manual_seed(args.seed))
     out, stats = generate(model, params, prompts, gen_tokens=args.gen,
                           engine=args.engine, greedy=greedy, rng=rng,
-                          temperature=1.0 if greedy else args.temperature)
+                          temperature=1.0 if greedy else args.temperature,
+                          mesh=mesh)
     tuned = stats["tuned"]
     if tuned or tuned.refused or tuned.skipped:
         print(f"[serve] tune winners: {tuned.report()}")

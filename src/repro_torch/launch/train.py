@@ -1,5 +1,5 @@
-"""Fault-tolerant training on one device (the counterpart of
-``repro.launch.train`` without a mesh).
+"""Fault-tolerant training on one device or a mesh (the counterpart of
+``repro.launch.train``).
 
 Integrates: the train step of ``parallel.build_train_step`` (``LM.loss``
 -> ``torch.autograd.grad`` -> ``AdamW.update``; one CUDA graph a step on
@@ -15,17 +15,26 @@ winners of its shapes before its step is built (:func:`apply_tuned_winners`;
 ``launch.tuning.adopt``, kind "train") and returns them as ``"tuned"``; no
 op of the train step takes a launch-time knob on Hopper yet (their tiles
 are template constants), so none reaches the step.
-Sharded (zero1/fsdp) optimizer state is not ported yet.
+
+On a mesh (``TrainLoop(mesh=, zero1=, fsdp=)``) every rank runs the loop:
+the state is its shards (``build_train_step(mesh)``'s placements), it
+feeds its rows of each global batch, and checkpoints hold the full arrays
+(gathered on save, sliced to the restoring mesh on restore). ``main``
+starts the process group itself when ``torchrun`` gives it several ranks:
+NCCL when every rank has a card of its own, gloo otherwise (the choice is
+its first line of output; it never switches on an error).
 
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \\
       --steps 3 [--remat dots]
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --reduced \\
+      --device cpu --model-axis 2 --steps 3
 """
 
 from __future__ import annotations
 
 import argparse
-import copy
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -38,7 +47,9 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import tuning
 from repro_torch.models import LM
 from repro_torch.optim import AdamW, WarmupCosine
-from repro_torch.parallel.steps import build_train_step, train_step
+from repro_torch.parallel import comm
+from repro_torch.parallel.steps import (build_train_step, params_shape,
+                                        shard_batch, shard_tree, train_step)
 from repro_torch.runtime import ChaosError, FailureInjector, StepWatchdog
 from repro_torch.tree import leaves, tree_map
 
@@ -94,14 +105,6 @@ def _assign(dst, src):
             a.copy_(b)
 
 
-def _param_template(model: LM):
-    """The parameter tree as meta tensors (shapes and dtypes, no memory):
-    the counterpart of ``jax.eval_shape(model.init)``."""
-    meta = copy.copy(model)
-    meta.device = torch.device("meta")
-    return meta.init(torch.Generator())
-
-
 @dataclasses.dataclass
 class TrainLoop:
     """Restartable training loop with recovery; returns loss history.
@@ -114,7 +117,14 @@ class TrainLoop:
     replays on; the checkpoint snapshot is copied to the host before it is
     written, so an in-place step cannot tear a save. A restore first waits
     for a save still being written, so it resumes from the latest step
-    saved, whatever the writer's speed."""
+    saved, whatever the writer's speed.
+
+    ``mesh`` (a ``DeviceMesh`` of several ranks; None or one rank: as
+    above): every rank runs the loop with the same arguments, holds its
+    shards of the state, feeds its rows of each global batch and steps
+    through the eager sharded step (``zero1``/``fsdp`` as
+    ``build_train_step``'s). The first rank writes the checkpoints (the
+    full arrays, gathered); every rank restores its shards of them."""
 
     model: LM
     global_batch: int
@@ -129,6 +139,9 @@ class TrainLoop:
     log_every: int = 10
     verbose: bool = True
     device: str | None = None     # None: the model's device
+    mesh: object = None
+    zero1: bool = False
+    fsdp: bool = False
 
     def run(self):
         model, cfg = self.model, self.model.cfg
@@ -145,7 +158,15 @@ class TrainLoop:
                                     device=dev)
         if self.verbose and (tuned or tuned.refused):
             print(f"[train] tune winners: {tuned.report()}")
-        step_fn, _ = build_train_step(model, optimizer)
+        if self.mesh is None:
+            step_fn, info = build_train_step(model, optimizer)
+        else:
+            step_fn, info = build_train_step(model, optimizer, self.mesh,
+                                             zero1=self.zero1, fsdp=self.fsdp)
+        rules = info.get("rules")
+        sharded = rules is not None
+        shardings = (info["params"], info["opt"]) if sharded else None
+        writer = not sharded or torch.distributed.get_rank() == 0
         data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=self.seq_len,
                                global_batch=self.global_batch, seed=self.seed)
         mgr = CheckpointManager(self.ckpt_dir) if self.ckpt_dir else None
@@ -153,16 +174,25 @@ class TrainLoop:
 
         def fresh_state():
             gen = torch.Generator(device=dev).manual_seed(self.seed)
-            params = _trainable(model.init(gen))
-            return params, optimizer.init(params), 0
+            params = model.init(gen)
+            opt = optimizer.init(params)
+            if sharded:
+                params, opt = shard_tree((params, opt), shardings)
+            return _trainable(params), opt, 0
 
         def restore_state():
-            template = _param_template(model)
+            template = params_shape(model)
             opt_t = optimizer.init(template)
             step, (params, opt), _ = mgr.restore((template, opt_t),
-                                                 device=dev)
+                                                 device=dev,
+                                                 shardings=shardings)
             return _trainable(params), opt, step
 
+        def save(step, tree, **kw):
+            mgr.save(step, tree, shardings=shardings, write=writer, **kw)
+
+        if mgr and sharded:
+            comm.barrier()      # every rank sees the same latest step
         if mgr and mgr.latest_step() is not None:
             params, opt_state, start = restore_state()
             if self.verbose:
@@ -185,6 +215,8 @@ class TrainLoop:
                     if cfg.frontend:
                         batch["prefix_embeddings"] = prefix_embeddings(
                             self.seed, dstep, self.global_batch, cfg).to(dev)
+                    if sharded:
+                        batch = shard_batch(batch, rules)
                     watchdog.start()
                     params, opt_state, loss, metrics = step_fn(
                         params, opt_state, batch)
@@ -197,8 +229,7 @@ class TrainLoop:
                               f"gnorm {float(metrics['grad_norm']):.2f}")
                     step += 1
                     if mgr and step % self.ckpt_every == 0:
-                        mgr.save(step, (params, opt_state),
-                                 meta={"loss": loss})
+                        save(step, (params, opt_state), meta={"loss": loss})
                 except ChaosError as e:
                     retries += 1
                     if self.verbose:
@@ -209,6 +240,8 @@ class TrainLoop:
                     prefetch.close()
                     if mgr:
                         mgr.wait()      # a save still in flight is the latest
+                        if sharded:     # ... on the rank that writes it
+                            comm.barrier()
                     if mgr and mgr.latest_step() is not None:
                         new_params, new_opt, step = restore_state()
                     else:
@@ -217,14 +250,44 @@ class TrainLoop:
                     del new_params, new_opt
                     prefetch = Prefetcher(data, start_step=step)
             if mgr:
-                mgr.save(self.steps, (params, opt_state), async_=False,
-                         meta={"loss": history[-1] if history else None})
+                save(self.steps, (params, opt_state), async_=False,
+                     meta={"loss": history[-1] if history else None})
                 mgr.wait()
+                if sharded:
+                    comm.barrier()
         finally:
             prefetch.close()
         return {"history": history, "params": params, "opt": opt_state,
                 "straggler_flags": watchdog.flagged, "final_step": step,
                 "tuned": tuned}
+
+
+def start_mesh(device=None, *, data=None, model=1):
+    """The ("data", "model") mesh of a ``torchrun`` launch: starts the
+    default process group from its environment (NCCL when every rank has a
+    card of its own, else gloo; the choice printed first) and returns
+    ``make_local_mesh(data=, model=)``; None for a single process that
+    asks for no mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1 and (data or 1) * model == 1:
+        return None
+    dev = resolve_device(device)
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if dev.type == "cuda" and torch.cuda.device_count() >= local:
+        backend = "nccl"
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    else:
+        backend = "gloo"
+    print(f"[mesh] process group: {backend}, {world} ranks, "
+          f"{local} on this host, {torch.cuda.device_count()} card(s)",
+          flush=True)
+    if not dist.is_initialized():
+        dist.init_process_group(backend)
+    return make_local_mesh(data=data, model=model, device=device)
 
 
 def main(argv=None):
@@ -241,8 +304,11 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (the plain PyTorch versions)")
+    ap.add_argument("--data-axis", type=int, default=None)
+    ap.add_argument("--model-axis", type=int, default=1)
     args = ap.parse_args(argv)
 
+    mesh = start_mesh(args.device, data=args.data_axis, model=args.model_axis)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
@@ -251,7 +317,7 @@ def main(argv=None):
     loop = TrainLoop(model=model, global_batch=args.global_batch,
                      seq_len=args.seq_len, steps=args.steps,
                      ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                     peak_lr=args.peak_lr, injector=injector)
+                     peak_lr=args.peak_lr, injector=injector, mesh=mesh)
     t0 = time.time()
     out = loop.run()
     h = out["history"]

@@ -16,8 +16,8 @@ Consumers: ``serving.Engine`` (at construction: the paged split goes to
 its step builder, whose CUDA graph keeps it), ``launch.serve.generate``
 (the static loop's ``flash_decode`` split) and ``apply_tuned_winners``,
 ``launch.train.TrainLoop`` and ``apply_tuned_winners``, and ``tune_cli``
-(which makes the probes real and runs the sweeps). The JAX package's
-``mesh_probes`` waits for the port's mesh.
+(which makes the probes real and runs the sweeps). :func:`mesh_probes`
+gives the ring prefill's per-shard probe on a mesh.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ import torch
 from repro_torch.core import registered_ops
 from repro_torch.device import fit_block
 
-__all__ = ["Adopted", "adopt", "adopt_winners", "serving_probes",
-           "train_probes"]
+__all__ = ["Adopted", "adopt", "adopt_winners", "mesh_probes",
+           "serving_probes", "train_probes"]
 
 
 def _meta(shape, dtype):
@@ -126,6 +126,33 @@ def train_probes(cfg, global_batch: int, seq_len: int) -> dict:
     return probes
 
 
+def mesh_probes(cfg, batch: int, prompt_len: int, *, shards: int,
+                mesh_axis: str = "model") -> dict:
+    """Probes for ring-attention prefill over ``shards`` ranks: every rank
+    runs the per-shard kernel (sequence ``prompt_len // shards``), so that
+    is the shape to tune; ``ring_steps`` rides in the params, keeping the
+    persisted key distinct per mesh size."""
+    probes = {}
+    # the attention widths as JAX's probes read them (MLA's included)
+    h = getattr(cfg, "n_heads", 0)
+    hk = getattr(cfg, "n_kv_heads", 0) or h
+    hd = cfg.resolved_head_dim
+    dtype = getattr(torch, cfg.dtype)
+    if shards < 1 or prompt_len % shards:
+        raise ValueError(
+            f"mesh_probes: shards={shards} does not divide prompt_len="
+            f"{prompt_len}")
+    loc = prompt_len // shards
+    if h and hd:
+        probes["ring_flash"] = (
+            (_meta((batch, h, loc, hd), dtype),
+             _meta((batch, hk, loc, hd), dtype),
+             _meta((batch, hk, loc, hd), dtype)),
+            dict(causal=True, window=cfg.window, ring_steps=shards,
+                 mesh_axis=mesh_axis))
+    return probes
+
+
 class Adopted(dict):
     """``{op name: winner}`` found in the cache, with ``.refused``
     ``{op name: reason}`` (a persisted winner the wrapper would refuse at
@@ -210,6 +237,7 @@ def adopt(cfg, shapes: dict, *, kind: str, device, ops=None) -> Adopted:
 
       kind="serve":  batch, prompt_len, max_len [, page_size]
       kind="train":  global_batch, seq_len
+      kind="mesh":   batch, prompt_len, shards [, mesh_axis]
     """
     if kind == "serve":
         probes = serving_probes(cfg, shapes["batch"], shapes["prompt_len"],
@@ -217,6 +245,11 @@ def adopt(cfg, shapes: dict, *, kind: str, device, ops=None) -> Adopted:
                                 page_size=shapes.get("page_size"))
     elif kind == "train":
         probes = train_probes(cfg, shapes["global_batch"], shapes["seq_len"])
+    elif kind == "mesh":
+        probes = mesh_probes(cfg, shapes["batch"], shapes["prompt_len"],
+                             shards=shapes["shards"],
+                             mesh_axis=shapes.get("mesh_axis", "model"))
     else:
-        raise ValueError(f"adopt: kind must be serve or train, got {kind!r}")
+        raise ValueError(f"adopt: kind must be serve|train|mesh, got "
+                         f"{kind!r}")
     return adopt_winners(probes, device=torch.device(device), ops=ops)

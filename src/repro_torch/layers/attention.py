@@ -35,7 +35,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_decode,
                                                  paged_decode_attention,
                                                  ring_flash_attention)
-from repro_torch.parallel.context import current_rules
+from repro_torch.parallel.context import current_rules, shard_activation
 from repro_torch.parallel.rules import ring_axis_for
 
 from .common import dense_init, rmsnorm
@@ -140,6 +140,7 @@ def gqa_forward(params, x, cfg, *, prefix_len=0, return_kv=False):
     query (the prefix-LM mask); the ring schedule under ring rules.
     x: (B, S, d_model)."""
     b, s, _ = x.shape
+    x = shard_activation(x, "act_btd")
     q, k, v = _qkv(params, x, cfg)
     if cfg.pos_embed == "rope":
         positions = torch.arange(s, device=x.device)
@@ -152,7 +153,8 @@ def gqa_forward(params, x, cfg, *, prefix_len=0, return_kv=False):
     else:
         o = flash_attention(q, k, v, causal=True, window=cfg.window or None,
                             prefix_len=prefix_len)
-    y = o.transpose(1, 2).reshape(b, s, -1) @ params["wo"]
+    y = shard_activation(o.transpose(1, 2).reshape(b, s, -1) @ params["wo"],
+                         "act_btd", partial=True)
     if return_kv:
         return y, (k, v)
     return y
@@ -214,6 +216,7 @@ def gqa_decode(params, x, cache, cfg, *, pos, split=None):
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     pos = _position(pos, x.device)
+    x = shard_activation(x, "act_btd")
     q, k1, v1 = _qkv(params, x, cfg)
     if cfg.pos_embed == "rope":
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -233,7 +236,8 @@ def gqa_decode(params, x, cache, cfg, *, pos, split=None):
     o = flash_decode(q, cache["k"], cache["v"], kv_len=kv_len.reshape(1),
                      window=cfg.window or None, slot_pos=slot_pos,
                      sm_scale=hd ** -0.5, split=split)
-    y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+    y = shard_activation(o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"],
+                         "act_btd", partial=True)
     return y, cache
 
 
@@ -258,6 +262,7 @@ def gqa_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
     returns new pools); ``split`` goes to ``paged_decode_attention``.
     Returns (y, cache)."""
     b = x.shape[0]
+    x = shard_activation(x, "act_btd")
     q, k1, v1 = _qkv(params, x, cfg)
     if cfg.pos_embed == "rope":
         p = lens[:, None, None]                   # per-sequence positions
@@ -268,7 +273,8 @@ def gqa_paged_decode(params, x, cache, cfg, *, table, lens, pos_pages,
     vp[page_ids, :, offs] = v1[:, :, 0].to(vp.dtype)
     o = paged_decode_attention(q, kp, vp, block_table=table, kv_len=lens + 1,
                                pos_pages=pos_pages, split=split)
-    y = o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"]
+    y = shard_activation(o.transpose(1, 2).reshape(b, 1, -1) @ params["wo"],
+                         "act_btd", partial=True)
     return y, cache
 
 

@@ -22,6 +22,11 @@ def dense_init(gen, shape, dtype, device, *, n=None, scale=None,
     ``per_layer`` draws the ``n`` layers one at a time into a stack
     allocated in ``dtype`` (other values than one draw of the whole stack):
     the f32 temporaries are then one layer's, not the stack's."""
+    full = tuple(shape) if n is None else (n, *shape)
+    if torch.device(device).type == "meta":
+        # shapes only (parallel.steps.params_shape): no draw, and no meta
+        # arithmetic, which imports torch._dynamo
+        return torch.empty(full, dtype=dtype, device=device)
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     if per_layer and n is not None:
@@ -31,7 +36,6 @@ def dense_init(gen, shape, dtype, device, *, n=None, scale=None,
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
             out[i].copy_(t.mul_(std))
         return out
-    full = tuple(shape) if n is None else (n, *shape)
     t = torch.empty(full, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return (t * std).to(dtype)

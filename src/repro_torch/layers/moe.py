@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.parallel.context import data_mean
+
 from .common import dense_init, silu
 
 __all__ = ["moe_init", "moe_forward"]
@@ -73,10 +75,12 @@ def _router(params, x, cfg):
     srt, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, idx = srt[..., :k], order[..., :k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-    me = probs.mean(dim=(0, 1))                                  # (E,)
-    top1 = _one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
+    # batch means: under data parallelism over the global batch, as one
+    # device takes them (the lb loss is a product of two such means)
+    me = data_mean(probs.mean(dim=(0, 1)))                       # (E,)
+    top1 = data_mean(_one_hot(idx[..., 0], e).float().mean(dim=(0, 1)))
     lb_loss = e * torch.sum(me * top1)
-    z_loss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    z_loss = data_mean(torch.mean(torch.logsumexp(logits, dim=-1) ** 2))
     return gate, idx, {"moe_lb_loss": lb_loss, "moe_z_loss": z_loss}
 
 

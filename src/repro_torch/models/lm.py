@@ -45,10 +45,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels.lm_head import lm_head_ce, lm_head_logits
+from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_ce,
+                                         lm_head_logits)
 from repro_torch.layers import blocks
 from repro_torch.layers.common import dense_init, rmsnorm
 from repro_torch.layers.rope import sinusoidal_embedding
+from repro_torch.parallel import comm
+from repro_torch.parallel.context import (current_rules, data_sum, local_cfg,
+                                          shard_activation, tensor_parallel)
 from repro_torch.parallel.steps import cache_overflow
 
 __all__ = ["LM", "StackSpec", "build_program", "pad_vocab"]
@@ -164,6 +168,46 @@ def _zeros(lead, single, device):
             for k, v in single.items()}
 
 
+def _global_mean(x, count=None):
+    """``x.mean()``, or ``x / count`` for a sum over ``count`` terms, over
+    the global batch: under data parallelism the sum over the data axes
+    over the global count (every rank then holds the global value)."""
+    r = current_rules()
+    n = r.data_size if r is not None and r.mesh is not None else 1
+    if n == 1:
+        return x.mean() if count is None else x / count
+    total = data_sum(x.sum() if count is None else x)
+    return total / ((x.numel() if count is None else count) * n)
+
+
+class _ShardedCE(torch.autograd.Function):
+    """The fused CE over a vocab-sharded head: each rank's (lse, gold) on
+    its shard (``lm_head_ce.raw``; labels shifted to the shard, those
+    outside it matching no column, gold 0), combined over "model" as a
+    logsumexp of the lses and a sum of the golds. The backward runs
+    ``lm_head_bwd`` on the shard with the global lse: dw is this rank's
+    shard, dx a partial sum (the caller's ``shard_activation`` sums it)."""
+
+    @staticmethod
+    def forward(ctx, x, w, labels, vocab, group):
+        lse_l, gold_l = lm_head_ce.raw(x, w, labels, vocab=vocab)
+        top = comm.all_reduce(lse_l, "max", group)
+        lse = top + torch.log(comm.all_reduce(torch.exp(lse_l - top), "sum",
+                                              group))
+        gold = comm.all_reduce(gold_l, "sum", group)
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.vocab = vocab
+        return (lse - gold)[:, 0]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, lse = ctx.saved_tensors
+        dx, dw = lm_head_bwd(x, w, labels, lse,
+                             g.float().reshape(-1, 1).contiguous(),
+                             vocab=ctx.vocab)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
+
+
 class LM:
     """The decoder LM of ``cfg`` on ``device`` (the card unless "cpu").
 
@@ -268,10 +312,21 @@ class LM:
         after ``prefix_embeddings`` (B, P, d) when given (the frontend stub's
         conditioning frames or image patches, unscaled), plus sinusoidal
         positions from ``pos0`` (an int, or the cache's 0-dim device
-        position) when the config asks for them."""
-        x = params["embed"][tokens.long()]
+        position) when the config asks for them. Under tensor parallelism
+        each rank looks up the tokens of its vocab shard (zeros for the
+        others) and the rows are summed over "model"."""
+        vs = self._vocab_shard()
+        if vs is None:
+            x = params["embed"][tokens.long()]
+        else:
+            off, width, _ = vs
+            t = tokens.long() - off
+            hit = ((t >= 0) & (t < width)).to(params["embed"].dtype)
+            x = params["embed"][t.clamp(0, width - 1)] * hit[..., None]
         if self.embed_scale is not None:
             x = x * self.embed_scale
+        if vs is not None:
+            x = shard_activation(x, "act_btd", partial=True)
         if prefix_embeddings is not None:
             x = torch.cat([prefix_embeddings.to(x.dtype), x], dim=1)
         if self.cfg.pos_embed == "sinusoidal":
@@ -290,25 +345,70 @@ class LM:
 
     def _head(self, params):
         """The (d_model, Vpad) head matrix: for tied embeddings the view
-        ``embed.T`` (the LM-head kernel reads it in place)."""
+        ``embed.T`` (the LM-head kernel reads it in place). Under tensor
+        parallelism this rank's (d_model, Vpad / n) vocab shard."""
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["head"])
+
+    def _vocab_shard(self):
+        """(first column, padded width, true columns) of this rank's vocab
+        shard under tensor parallelism, else None (``make_shardings``
+        refuses a mesh whose last shard holds no true column)."""
+        tp = tensor_parallel()
+        if tp is None:
+            return None
+        _, n, r = tp
+        width = self.vpad // n
+        off = r * width
+        return off, width, min(self.cfg.vocab_size - off, width)
 
     def _logits(self, params, x):
         """(B, S, Vpad) f32 logits of the hidden states ``x``: the fused
         LM-head kernel, or with ``fused_head=False`` JAX's einsum head, the
         product in f32 (of the operands' values: bf16 products are exact in
-        f32) with the padded vocab masked to -1e30, differentiable."""
+        f32) with the padded vocab masked to -1e30, differentiable (on one
+        rank). Under tensor parallelism each rank computes its vocab
+        shard's columns and the shards are gathered (exactly)."""
+        vs = self._vocab_shard()
+        if vs is not None:
+            with torch.no_grad():
+                return comm.all_gather(self._local_logits(params, x), -1,
+                                       tensor_parallel()[0])
+        return self._local_logits(params, x)
+
+    def _local_logits(self, params, x):
         b, s, d = x.shape
         head = self._head(params)
+        vs = self._vocab_shard()
+        vocab = self.cfg.vocab_size if vs is None else vs[2]
+        width = head.shape[1]
         if not self.fused_head:
             logits = torch.matmul(x.float(), head.float())
-            pad = torch.arange(self.vpad, device=x.device) >= \
-                self.cfg.vocab_size
+            pad = torch.arange(width, device=x.device) >= vocab
             return logits + torch.where(pad, -1e30, 0.0)
         logits = lm_head_logits(x.reshape(b * s, d), head.to(x.dtype),
-                                vocab=self.cfg.vocab_size)
-        return logits.reshape(b, s, self.vpad)
+                                vocab=vocab)
+        return logits.reshape(b, s, width)
+
+    def _greedy_head(self, params, x):
+        """(next (B,), logits) of the final hidden states x (B, 1, d): the
+        argmax out of the fused LM-head pass. Under tensor parallelism the
+        ranks' row maxima and argmaxes combine into the global argmax (ties
+        to the lowest column, as ``torch.argmax``) and the logits are this
+        rank's vocab shard (B, Vpad / n): the 128k columns are not
+        gathered."""
+        if not self.fused_head:
+            logits = self._logits(params, x)[:, 0]
+            return self.greedy_token(logits), logits
+        b, _, d = x.shape
+        vs = self._vocab_shard()
+        logits, m, arg = lm_head_logits.raw(
+            x.reshape(b, d), self._head(params).to(x.dtype),
+            vocab=self.cfg.vocab_size if vs is None else vs[2])
+        if vs is None:
+            return arg[:, 0], logits
+        _, nxt = comm.argmax_combine(m, arg, vs[0], tensor_parallel()[0])
+        return nxt[:, 0], logits
 
     # ------------------------------------------------------------- training
     def _wrap_remat(self, body):
@@ -330,7 +430,7 @@ class LM:
         """``body(x, layer_params) -> (x, aux or None)`` for one unit of a
         stack of ``spec``, the unit JAX's scan body holds: a layer, or a
         zamba group (its mamba2 layers, then the shared block)."""
-        cfg = self.cfg
+        cfg = local_cfg(self.cfg)
         if spec.kind == "zamba_group":
             def body(x, gp):
                 for lp in _unstack(gp, spec.group):
@@ -375,13 +475,22 @@ class LM:
 
     def _fused_ce(self, params, x, labels):
         """Mean NLL through ``lm_head_ce``: the (B*S, Vpad) logits are never
-        kept, forward or backward."""
+        kept, forward or backward. Under tensor parallelism each rank runs
+        the kernels on its vocab shard (labels outside it match no column)
+        and the ranks' (lse, gold) combine (``_ShardedCE``). Under data
+        parallelism the mean is the global sum over the global count."""
         b, s, d = x.shape
         head = self._head(params).to(x.dtype)
-        nll = lm_head_ce(x.reshape(b * s, d), head,
-                         labels.reshape(b * s, 1).to(torch.int32).contiguous(),
-                         vocab=self.cfg.vocab_size)
-        return nll.mean()
+        lab = labels.reshape(b * s, 1).to(torch.int32)
+        vs = self._vocab_shard()
+        if vs is None:
+            nll = lm_head_ce(x.reshape(b * s, d), head, lab.contiguous(),
+                             vocab=self.cfg.vocab_size)
+        else:
+            xs = shard_activation(x.reshape(b * s, d), "act_btd")
+            nll = _ShardedCE.apply(xs, head, (lab - vs[0]).contiguous(),
+                                   vs[2], tensor_parallel()[0])
+        return _global_mean(nll)
 
     def _nll_sum(self, params, x, labels):
         """Summed NLL of ``labels`` under the einsum head's logits of
@@ -405,7 +514,7 @@ class LM:
             total = total + checkpoint(
                 functools.partial(self._nll_sum, params), xc, lc,
                 use_reentrant=False, preserve_rng_state=False)
-        return total / (b * s)
+        return _global_mean(total, b * s)
 
     def _check_labels(self, labels):
         """Labels >= vocab_size index padded-vocab columns, which the kernel
@@ -435,12 +544,17 @@ class LM:
         self._check_labels(labels)
         x, aux = self._hidden_states(params, tokens, prefix)
         pred_x = x[:, p:-1] if x.shape[1] > p + 1 else x[:, p:]
+        if not self.fused_head and tensor_parallel() is not None:
+            raise NotImplementedError(
+                "LM.loss: tensor parallelism trains through the fused head "
+                "(fused_head=True); the einsum head's loss is one-rank")
         if self.fused_head:
             ce = self._fused_ce(params, pred_x, labels)
         elif self.ce_chunks > 1:
             ce = self._ce_from_hidden(params, pred_x, labels)
         else:
-            ce = self._nll_sum(params, pred_x, labels) / labels.numel()
+            ce = _global_mean(self._nll_sum(params, pred_x, labels),
+                              labels.numel())
         lb, z = aux[0], aux[1]
         nl = max(sum(s.n * max(s.group, 1) for s in self.program), 1)
         total = ce + (0.02 * lb + 1e-3 * z) / nl
@@ -455,8 +569,9 @@ class LM:
         (n, B, K-1, C) and state (n, B, di, N) (mamba1) or (n, B, H, P, N)
         (mamba2) f32; a zamba group stack {"mamba": those leaves with
         (n, group, ...), "attn": the shared block's k/v, one per
-        application (n, ...)}."""
-        cfg, dev = self.cfg, self.device
+        application (n, ...)}. Under tensor parallelism the k/v hold this
+        rank's kv heads."""
+        cfg, dev = local_cfg(self.cfg), self.device
         dtype = dtype or self.dtype
         stacks = []
         def ssm():
@@ -509,7 +624,7 @@ class LM:
         final state; MLA's latent ckv/krope (n, B, m, .) of m = max_len
         slots. ``cache["pos"]`` = P + S, a 0-dim int32 tensor on the
         model's device."""
-        cfg = self.cfg
+        cfg = local_cfg(self.cfg)
         x = self._embed(params, tokens, prefix_embeddings)
         s = x.shape[1]
         max_len = max_len or s
@@ -545,7 +660,7 @@ class LM:
         """A zamba group stack's prefill: each group's mamba2 layers, then
         the shared block with a fresh KV cache of ``max_len`` slots.
         Returns (x, {"mamba": (n, group, ...) leaves, "attn": (n, ...)})."""
-        cfg = self.cfg
+        cfg = local_cfg(self.cfg)
         mamba, attn = [], []
         for i in range(spec.n):
             gp, group = _layer(sp, i), []
@@ -571,7 +686,7 @@ class LM:
         ``pos`` unless the step is being captured into a CUDA graph (as JAX
         checks only a concrete ``pos``), where the compiled step counts
         positions on the host instead."""
-        cfg = self.cfg
+        cfg = local_cfg(self.cfg)
         pos = cache["pos"]
         cap = self.cache_capacity(cache)
         if cap is not None and not _capturing(pos) and int(pos) >= cap:
@@ -612,16 +727,11 @@ class LM:
         """One greedy decode step: tokens (B, 1) -> (next (B,), logits
         (B, Vpad) f32, cache); the argmax comes out of the fused LM-head
         pass, or with ``fused_head=False`` from ``greedy_token``.
-        ``split`` as :meth:`decode_step`'s."""
+        ``split`` as :meth:`decode_step`'s. Under tensor parallelism the
+        fused head's logits are this rank's vocab shard (``_greedy_head``)."""
         x, cache = self._decode_hidden(params, tokens, cache, split)
-        if not self.fused_head:
-            logits = self._logits(params, x)[:, 0]
-            return self.greedy_token(logits), logits, cache
-        b, _, d = x.shape
-        logits, _m, arg = lm_head_logits.raw(
-            x.reshape(b, d), self._head(params).to(x.dtype),
-            vocab=self.cfg.vocab_size)
-        return arg[:, 0], logits, cache
+        nxt, logits = self._greedy_head(params, x)
+        return nxt, logits, cache
 
     # -------------------------------------------------------- paged decoding
     @property
@@ -633,11 +743,14 @@ class LM:
                 and cfg.attn_type != "mla" and not cfg.window
                 and cfg.pos_embed == "rope")
 
-    def init_paged_cache(self, batch, num_pages, page_size, nseq_pages):
+    def init_paged_cache(self, batch, num_pages, page_size, nseq_pages,
+                         dtype=None):
         """Per-layer KV pools of ``num_pages`` pages of ``page_size`` tokens
-        shared by ``batch`` slots, plus per-slot block tables, lengths and
-        the pool-wide slot -> position map. Page 0 is the NULL page (idle
-        slots point at it; its positions stay -1)."""
+        shared by ``batch`` slots, in ``dtype`` (default the model's), plus
+        per-slot block tables, lengths and the pool-wide slot -> position
+        map. Page 0 is the NULL page (idle slots point at it; its positions
+        stay -1). Under tensor parallelism the pools hold this rank's kv
+        heads."""
         if not self.pageable:
             raise ValueError(
                 "paged decode needs an attention-only GQA program with rope "
@@ -649,8 +762,9 @@ class LM:
             return {k: torch.zeros((n, *v.shape), dtype=v.dtype, device=dev)
                     for k, v in single.items()}
 
+        cfg = local_cfg(self.cfg)
         stacks = [stacked(s.n, blocks.tblock_paged_cache_init(
-                      self.cfg, num_pages, page_size, self.dtype, "meta"))
+                      cfg, num_pages, page_size, dtype or self.dtype, "meta"))
                   for s in self.program]
         i32 = torch.int32
         return {"table": torch.zeros((batch, nseq_pages), dtype=i32,
@@ -665,7 +779,7 @@ class LM:
         place. Every slot decodes every step: idle slots carry len 0 and a
         zero block table, writing into and reading from the null page.
         ``split``: paged decode's split length (None: its rule)."""
-        cfg = self.cfg
+        cfg = local_cfg(self.cfg)
         table, lens = cache["table"], cache["len"]
         pos_pages = cache["pos_pages"]
         b, nsp = table.shape
@@ -702,13 +816,9 @@ class LM:
         """One paged greedy token for every slot. tokens: (B, 1). Returns
         (next (B,), logits (B, Vpad) f32, cache); the argmax comes out of
         the fused LM-head pass, or with ``fused_head=False`` from
-        ``greedy_token``. ``split`` as :meth:`paged_decode_step`'s."""
+        ``greedy_token``. ``split`` as :meth:`paged_decode_step`'s. Under
+        tensor parallelism the fused head's logits are this rank's vocab
+        shard (``_greedy_head``)."""
         x, cache = self._paged_decode_hidden(params, tokens, cache, split)
-        if not self.fused_head:
-            logits = self._logits(params, x)[:, 0]
-            return self.greedy_token(logits), logits, cache
-        b, _, d = x.shape
-        logits, _m, arg = lm_head_logits.raw(
-            x.reshape(b, d), self._head(params).to(x.dtype),
-            vocab=self.cfg.vocab_size)
-        return arg[:, 0], logits, cache
+        nxt, logits = self._greedy_head(params, x)
+        return nxt, logits, cache

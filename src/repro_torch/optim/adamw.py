@@ -65,13 +65,19 @@ class AdamW:
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, *, gnorm=None):
         """One step; params, m, v and the step count are updated IN PLACE.
         Returns (params, state, {"grad_norm", "lr"}) like the JAX
-        optimizer, ``params`` and ``state`` the objects passed in."""
+        optimizer, ``params`` and ``state`` the objects passed in.
+        ``gnorm``: the global gradient norm when ``grads`` are shards of
+        it (the sharded train step computes it over the mesh; the
+        arithmetic of every leaf's update is the same), else the norm of
+        ``grads``. ``params`` may be a list of tensors (or views of them)
+        in the moments' leaf order."""
         step = state["step"]
         step.add_(1)
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         lr = self.schedule(step)
         b1, b2 = self.b1, self.b2

@@ -1,62 +1,344 @@
-"""Step builders (counterpart of ``repro.parallel.steps``): the train step,
-a prefill step under sequence-parallel rules, and the serve steps of the
-static and the paged decode loops. There are no parameter shardings:
-weights and optimizer moments stay replicated on every rank until tensor
-parallelism is ported, and the train and serve steps take no mesh.
+"""Distributed step builders (counterpart of ``repro.parallel.steps``):
+the shardings of parameters, optimizer state, batches and caches, and the
+train, prefill and serve steps over a mesh.
 
-Where JAX jits a train or serve step with its state donated, the port runs
-it as one CUDA graph on the card (:class:`TrainGraphStep`,
+A mesh is a ``torch.distributed`` ``DeviceMesh`` with JAX's axis names
+("data", "model", optionally "pod") over the ranks of a process group the
+caller has started (``launch.mesh``). The specs are JAX's, from
+``parallel.rules`` (a spec: a tuple of axis names or None per dim). Each
+rank holds its LOCAL shard of every leaf: :class:`Placement` slices a full
+tensor to it and gathers the shards back (``parallel.comm``), and the
+layers compute on the shards with the collectives ``shard_activation``
+marks (``parallel.context``). Tensor parallelism covers dense GQA blocks
+whose "model"-sharded dims all divide the axis; :func:`make_shardings`
+refuses every other program kind up front. Data parallelism over
+("pod", "data") takes every config: each rank runs its slice of the batch,
+the loss is the global batch's, and the gradients are summed over the data
+axes before AdamW. ``zero1`` keeps each rank's ``zero1_specs`` slice of the
+moments and gathers the updated parameters; ``fsdp`` keeps the parameters
+themselves sliced at rest, gathers them at the step's start and slices
+their reduced gradients (JAX's ZeRO-3 computes the same; its peak memory
+differs: the port holds a whole gathered copy for the step).
+
+Without a mesh, or on a mesh of one rank, the steps are the one-device
+ones: where JAX jits a train or serve step with its state donated, the
+port runs it as one CUDA graph on the card (:class:`TrainGraphStep`,
 :class:`GraphStep`): the first call runs eagerly, the second captures one
 step and replays it, and every later call replays it; a step serves one
 (params, optimizer state) or (params, cache) pair. On the CPU a step is
-run eagerly. The prefill (its prompt length varies; JAX jits it per
-length), the engine's admission scatter and sampling stay eager.
+run eagerly. A step on a mesh of more than one rank runs eagerly on every
+device (:class:`ShardedStep`: a gloo collective cannot be captured into a
+CUDA graph), and records that in its ``stats``. The prefill (its prompt
+length varies; JAX jits it per length), the engine's admission scatter
+and sampling stay eager.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
+import math
 import time
 
 import torch
 
 from repro_torch.kernels import add_launches, launch_state, launches_since
-from repro_torch.tree import leaves, unflatten
+from repro_torch.tree import leaves, tree_map, unflatten
 
+from . import comm
+from . import rules as R
 from .context import Rules, use_rules
 
-__all__ = ["make_shardings", "build_train_step", "build_prefill_step",
+__all__ = ["axis_names", "make_shardings", "cache_pspecs", "batch_pspecs",
+           "paged_cache_pspecs", "build_train_step", "build_prefill_step",
            "build_serve_step", "build_paged_serve_step", "GraphStep",
-           "TrainGraphStep", "capture", "cache_overflow", "train_step"]
+           "TrainGraphStep", "ShardedStep", "Placement", "shard_tree",
+           "gather_tree", "shard_batch", "capture", "cache_overflow",
+           "train_step", "params_shape"]
 
 
-def make_shardings(model, mesh, *, ring=False):
-    """The :class:`Rules` for ``model`` on ``mesh``: ``ring=True`` declares
-    sequence-parallel ring attention over the "model" axis when that axis
-    has more than one rank (``ring_axis`` stays None otherwise)."""
-    del model  # parameter shardings come with tensor parallelism
-    names = mesh.mesh_dim_names or ()
-    size = mesh.size(names.index("model")) if "model" in names else 1
-    return Rules(mesh=mesh, ring_axis="model" if ring and size > 1 else None)
+def _names(mesh) -> tuple:
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
 
 
-def build_prefill_step(model, mesh, *, batch, max_len, ring=False):
-    """``prefill(params, batch)`` -> ``model.prefill``'s (logits, cache)
-    under :func:`make_shardings`'s rules; ``batch`` holds "tokens" (B, S)
-    and optionally "prefix_embeddings". ``ring=True`` sends prefill
-    attention down the ring schedule when S divides the ring (every rank
-    then holds the full logits and cache)."""
-    del batch  # the batch size shards nothing until data parallelism
-    rules = make_shardings(model, mesh, ring=ring)
+def axis_names(mesh):
+    """(batch axes, model axis) of ``mesh``: the batch axes are its "pod"
+    and "data" axes, in order."""
+    batch_axes = tuple(n for n in _names(mesh) if n in ("pod", "data"))
+    return batch_axes, "model"
 
-    def prefill(params, batch_):
-        with use_rules(rules):
-            return model.prefill(
-                params, batch_["tokens"],
-                prefix_embeddings=batch_.get("prefix_embeddings"),
-                max_len=max_len)
 
-    return prefill
+def _multi_rank(mesh) -> bool:
+    return mesh is not None and math.prod(R.mesh_shape(mesh).values()) > 1
+
+
+def params_shape(model):
+    """The parameter tree as meta tensors (shapes and dtypes, no memory):
+    the counterpart of ``jax.eval_shape(model.init)``."""
+    meta = copy.copy(model)
+    meta.device = torch.device("meta")
+    return meta.init(torch.Generator())
+
+
+class Placement:
+    """One leaf's spec on a mesh: :meth:`local` slices a full tensor to
+    this rank's shard, :meth:`gather` rebuilds the full tensor from the
+    ranks' shards (exact; every rank of the mesh calls it)."""
+
+    def __init__(self, mesh, spec):
+        self.mesh = mesh
+        self.spec = tuple(spec)
+
+    def _dims(self):
+        """(dim, axes) of the sharded dims."""
+        out = []
+        for i, e in enumerate(self.spec):
+            if e is not None:
+                out.append((i, e if isinstance(e, tuple) else (e,)))
+        return out
+
+    def _slot(self, axes):
+        sizes = R.mesh_shape(self.mesh)
+        k, i = 1, 0
+        for a in axes:
+            n = sizes[a]
+            c = self.mesh.get_local_rank(a) if n > 1 else 0
+            k, i = k * n, i * n + c
+        return k, i
+
+    def local(self, full):
+        """This rank's shard of ``full`` (a contiguous copy: it keeps no
+        view of the full tensor's memory)."""
+        t = full
+        for dim, axes in self._dims():
+            k, i = self._slot(axes)
+            if t.shape[dim] % k:
+                raise ValueError(f"Placement: dim {dim} of {tuple(t.shape)} "
+                                 f"does not divide {k} shards ({axes})")
+            c = t.shape[dim] // k
+            t = t.narrow(dim, i * c, c)
+        return t.clone(memory_format=torch.contiguous_format)
+
+    def gather(self, local):
+        """The full tensor of the ranks' shards (innermost axis first)."""
+        t = local
+        sizes = R.mesh_shape(self.mesh)
+        for dim, axes in reversed(self._dims()):
+            for a in reversed(axes):
+                if sizes[a] > 1:
+                    t = comm.all_gather(t, dim, self.mesh.get_group(a))
+        return t
+
+    def __repr__(self):
+        return f"Placement({self.spec})"
+
+
+def _placements(mesh, specs, tree):
+    """A tree of :class:`Placement` shaped like ``tree`` (its leaves'
+    specs in leaf order)."""
+    it = iter(R.spec_leaves(specs))
+    return tree_map(lambda _: Placement(mesh, next(it)), tree)
+
+
+def shard_tree(tree, placements):
+    """Every leaf of a full ``tree`` sliced to this rank's shard."""
+    return tree_map(lambda t, p: p.local(t), tree, placements)
+
+
+def gather_tree(tree, placements):
+    """Every leaf of a tree of shards gathered into the full tensor."""
+    return tree_map(lambda t, p: p.gather(t), tree, placements)
+
+
+def shard_batch(batch, rules):
+    """This rank's rows of a global ``batch`` (its leading dim sliced over
+    the data axes of ``rules``)."""
+    n, i = rules.data_size, rules.data_index()
+    if n == 1:
+        return batch
+
+    def rows(t):
+        if t.shape[0] % n:
+            raise ValueError(f"batch of {t.shape[0]} rows does not split "
+                             f"over {n} data ranks")
+        c = t.shape[0] // n
+        return t[i * c:(i + 1) * c]
+    return {k: rows(v) for k, v in batch.items()}
+
+
+# tensor parallelism's scope: the program kinds, attention types and
+# frontends whose layers run on their "model" shards (ROADMAP A.5 lists the
+# rest)
+def _tp_refusal(model, n):
+    cfg = model.cfg
+    kinds = sorted({s.kind for s in model.program} - {"dense"})
+    if kinds:
+        return f"program kind(s) {kinds}"
+    if cfg.attn_type != "gqa":
+        return f"attention type {cfg.attn_type!r}"
+    if cfg.frontend:
+        return f"frontend {cfg.frontend!r}"
+    if cfg.window:
+        return f"sliding window {cfg.window}"
+    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "d_ff": cfg.d_ff, "padded vocab": model.vpad}
+    bad = {k: v for k, v in dims.items() if v % n}
+    if bad:
+        return (f"{bad} not divisible by the model axis (a kv head count "
+                "below the axis needs a sequence-sharded cache)")
+    if cfg.vocab_size <= (n - 1) * (model.vpad // n):
+        return f"no true vocab column on the last of {n} vocab shards"
+    return None
+
+
+def make_shardings(model, mesh, *, fsdp=False, ring=False):
+    """Returns (placements, pspecs, rules, params_shape) for ``model`` on
+    ``mesh``: a tree of :class:`Placement` and one of specs for the
+    parameters, the :class:`Rules` the steps run under, and the parameter
+    tree as meta tensors.
+
+    ``fsdp=True`` additionally shards each param's largest replicated dim
+    over the data axis (``zero1_specs``). ``ring=True`` declares
+    sequence-parallel ring attention over the "model" axis: attention
+    runs the ring schedule when the sequence divides the axis, and the
+    parameters stay replicated over "model" (their "model" entries are
+    dropped; the ring takes the axis for the sequence). Otherwise a
+    "model" axis of more than one rank runs the layers tensor-parallel,
+    which raises ``NotImplementedError`` up front for a model outside its
+    scope (MoE, MLA, mamba, hybrids, frontends, windows, kv heads that do
+    not divide the axis)."""
+    batch_axes, model_axis = axis_names(mesh)
+    names = _names(mesh)
+    shape = params_shape(model)
+    pspecs = R.param_specs(shape, model.cfg, mesh, model_axis=model_axis)
+    if fsdp and "data" in names:
+        pspecs = R.zero1_specs(pspecs, shape, mesh, data_axis="data")
+    msize = R.mesh_shape(mesh).get(model_axis, 1)
+    ring_axis = model_axis if ring and msize > 1 else None
+    if ring_axis is not None:
+        it = iter(R.spec_leaves(pspecs))
+        pspecs = R.spec_map(lambda _n, _l: tuple(
+            None if e == model_axis else e for e in next(it)), shape)
+    tp = msize > 1 and ring_axis is None
+    if tp:
+        why = _tp_refusal(model, msize)
+        if why is not None:
+            raise NotImplementedError(
+                f"tensor parallelism over a model axis of {msize}: "
+                f"{model.cfg.name} has {why}; not ported (ROADMAP A.5)")
+    rules = Rules(batch_axes=batch_axes, model_axis=model_axis, mesh=mesh,
+                  ring_axis=ring_axis, tensor_parallel=tp)
+    return _placements(mesh, pspecs, shape), pspecs, rules, shape
+
+
+# ---------------------------------------------------------------------------
+# cache partition specs (per stack kind; base ranks are kind-specific)
+# ---------------------------------------------------------------------------
+
+def cache_pspecs(model, mesh, batch: int, max_len: int,
+                 kind: str = "decode"):
+    """JAX's static-cache specs, in JAX's cache structure (a per-stack
+    "pos" entry included). kind="decode": layouts for per-token reads (the
+    cache sequence sharded over "model" when the kv heads do not divide
+    it); kind="prefill": the freshly computed k/v's natural layout (head
+    dim sharded). A batch that does not divide the batch axes shards the
+    sequence over them instead."""
+    cfg = model.cfg
+    batch_axes, m = axis_names(mesh)
+    sizes = R.mesh_shape(mesh)
+    bsize = math.prod(sizes[a] for a in batch_axes)
+    b_ax = batch_axes if batch % bsize == 0 else None
+    seq_ax = None if b_ax is not None else batch_axes
+
+    def div(dim, axis):
+        if axis is None:
+            return None
+        axes = axis if isinstance(axis, tuple) else (axis,)
+        return axis if dim % math.prod(sizes[a] for a in axes) == 0 else None
+
+    hk, hd = max(cfg.n_kv_heads, 1), cfg.resolved_head_dim
+    win = min(max_len, cfg.window) if cfg.window else max_len
+    msize = sizes[m]
+
+    def attn_spec():
+        if cfg.attn_type == "mla":
+            lora = cfg.kv_lora_rank
+            return {"ckv": R.spec(b_ax, div(max_len, seq_ax), div(lora, m)),
+                    "krope": R.spec(b_ax, div(max_len, seq_ax), None),
+                    "pos": ()}
+        hd_ax = None
+        if hk % msize == 0:
+            head_ax, kseq_ax = m, div(win, seq_ax)
+        elif kind == "decode":
+            head_ax = None
+            kseq_ax = _join(div(win, seq_ax),
+                            m if win % msize == 0 else None)
+        else:
+            head_ax = None
+            kseq_ax = div(win, seq_ax)
+            hd_ax = m if hd % msize == 0 else None
+        d = {"k": R.spec(b_ax, head_ax, kseq_ax, hd_ax),
+             "v": R.spec(b_ax, head_ax, kseq_ax, hd_ax), "pos": ()}
+        if cfg.window:
+            d["slot_pos"] = R.spec(kseq_ax)
+        return d
+
+    def mamba_spec():
+        if cfg.ssm_type == "mamba1":
+            di = cfg.resolved_d_inner
+            return {"conv": R.spec(b_ax, None, div(di, m)),
+                    "h": R.spec(b_ax, div(di, m), None)}
+        di, n, p = cfg.resolved_d_inner, cfg.ssm_state, cfg.ssm_head_dim
+        return {"conv": R.spec(b_ax, None, div(di + 2 * n, m)),
+                "h": R.spec(b_ax, div(di // p, m), None, None)}
+
+    def prefixed(tree, n_extra):
+        return {k: (prefixed(v, n_extra) if isinstance(v, dict)
+                    else (None,) * n_extra + tuple(v))
+                for k, v in tree.items()}
+
+    stacks = []
+    for spec in model.program:
+        if spec.kind == "zamba_group":
+            stacks.append({"mamba": prefixed(mamba_spec(), 2),
+                           "attn": prefixed(attn_spec(), 1)})
+        elif spec.kind in ("mamba1", "mamba2"):
+            stacks.append(prefixed(mamba_spec(), 1))
+        else:
+            stacks.append(prefixed(attn_spec(), 1))
+    return {"pos": (), "stacks": stacks}
+
+
+def _join(a, b):
+    """Two axis selections for one dim as one spec entry."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    at = a if isinstance(a, tuple) else (a,)
+    bt = b if isinstance(b, tuple) else (b,)
+    return at + bt
+
+
+def batch_pspecs(batch_shapes, mesh):
+    """Every batch leaf's leading dim over the batch axes."""
+    batch_axes, _ = axis_names(mesh)
+    return R.batch_specs(batch_shapes, batch_axes=batch_axes)
+
+
+def paged_cache_pspecs(model, mesh, batch: int):
+    """Specs of a paged decode cache: kv heads over "model" when they
+    divide it, else replicated pools; tables, lengths and the position map
+    replicated (host-managed control state)."""
+    del batch
+    _, m = axis_names(mesh)
+    hk = max(model.cfg.n_kv_heads, 1)
+    head_ax = m if hk % R.mesh_shape(mesh)[m] == 0 else None
+    pool = {"kp": (None, None, head_ax, None, None),
+            "vp": (None, None, head_ax, None, None)}
+    return {"table": (), "len": (), "pos_pages": (),
+            "stacks": [dict(pool) for _ in model.program]}
 
 
 def capture(fn):
@@ -254,17 +536,10 @@ def _micro_batches(batch, k):
     return [{key: v[i] for key, v in split.items()} for i in range(k)]
 
 
-def train_step(model, optimizer, params, opt_state, batch, *,
-               accum_steps=1):
-    """One eager train step: (params, opt_state, loss, metrics); params and
-    the optimizer state are updated in place (and returned). With
-    ``accum_steps = k > 1``, JAX's accumulation: the batch splits into k
-    micro-batches along its batch axis, their gradients are summed into
-    f32 zeros and divided by k, the loss is the mean of the micro-batch
-    totals, and the metrics are {"ce": loss, "moe_lb": 0.0, "moe_z": 0.0}
-    (then the optimizer's "grad_norm" and "lr", as always). Gradients are
-    taken with grad mode on whatever the caller's; the update runs without
-    it."""
+def _loss_and_grads(model, params, batch, accum_steps):
+    """(loss, metrics, grads in ``leaves(params)`` order) of one step, with
+    JAX's micro-batch accumulation when ``accum_steps`` > 1. Gradients are
+    taken with grad mode on whatever the caller's."""
     with torch.enable_grad():
         if accum_steps == 1:
             loss, metrics = model.loss(params, batch)
@@ -283,37 +558,253 @@ def train_step(model, optimizer, params, opt_state, batch, *,
                 acc.div_(accum_steps)
             loss = loss / accum_steps
             metrics = {"ce": loss, "moe_lb": 0.0, "moe_z": 0.0}
+    return loss, metrics, list(grads)
+
+
+def _detached(metrics, opt_metrics):
+    return {k: v.detach() if torch.is_tensor(v) else v
+            for k, v in dict(metrics, **opt_metrics).items()}
+
+
+def train_step(model, optimizer, params, opt_state, batch, *,
+               accum_steps=1):
+    """One eager train step: (params, opt_state, loss, metrics); params and
+    the optimizer state are updated in place (and returned). With
+    ``accum_steps = k > 1``, JAX's accumulation: the batch splits into k
+    micro-batches along its batch axis, their gradients are summed into
+    f32 zeros and divided by k, the loss is the mean of the micro-batch
+    totals, and the metrics are {"ce": loss, "moe_lb": 0.0, "moe_z": 0.0}
+    (then the optimizer's "grad_norm" and "lr", as always). Gradients are
+    taken with grad mode on whatever the caller's; the update runs without
+    it."""
+    loss, metrics, grads = _loss_and_grads(model, params, batch, accum_steps)
     params, opt_state, opt_metrics = optimizer.update(
         unflatten(params, grads), opt_state, params)
-    metrics = {k: v.detach() if torch.is_tensor(v) else v
-               for k, v in dict(metrics, **opt_metrics).items()}
-    return params, opt_state, loss.detach(), metrics
+    return params, opt_state, loss.detach(), _detached(metrics, opt_metrics)
 
 
-def build_train_step(model, optimizer, *, accum_steps=1):
-    """``step(params, opt_state, batch)`` -> (params, opt_state, loss,
-    metrics): :func:`train_step` (``model.loss``, ``torch.autograd.grad``,
-    ``optimizer.update``, with JAX's micro-batch accumulation when
-    ``accum_steps`` > 1), as JAX's jitted step with params and state
-    donated (here updated in place). On the card a
-    :class:`TrainGraphStep` (one CUDA graph a step after the first call);
-    on the CPU the function itself, eagerly. ``batch`` holds "tokens" (B,
-    S) and, for a model with a frontend, "prefix_embeddings" (B, P, d).
-    Returns (step, {"accum_steps", "cuda_graph"}). It takes no mesh:
-    parameter and moment shardings, zero1 and fsdp come with tensor
-    parallelism."""
+def _check_accum(accum_steps):
     if not isinstance(accum_steps, int) or accum_steps < 1:
         raise ValueError(f"accum_steps must be an int >= 1, got "
                          f"{accum_steps!r}")
 
-    def step(params, opt_state, batch):
-        return train_step(model, optimizer, params, opt_state, batch,
-                          accum_steps=accum_steps)
 
-    if model.device.type == "cuda":
-        step = TrainGraphStep(step, device=model.device)
-    return step, {"accum_steps": accum_steps,
-                  "cuda_graph": isinstance(step, TrainGraphStep)}
+class ShardedStep:
+    """A step on a mesh of more than one rank, run eagerly (the collectives
+    over gloo cannot be captured into a CUDA graph; graph capture of the
+    sharded steps waits for NCCL on cards of their own). ``stats``:
+    {"eager": True, "steps", "host_ms" (each call's host wall),
+    "collective_ms" (each call's host ms inside ``parallel.comm``)}."""
+
+    def __init__(self, fn):
+        self._fn = fn
+        self.stats = {"eager": True, "steps": 0, "host_ms": [],
+                      "collective_ms": []}
+
+    def __call__(self, *args):
+        c0 = comm.elapsed["seconds"]
+        t0 = time.perf_counter()
+        out = self._fn(*args)
+        self.stats["steps"] += 1
+        self.stats["host_ms"].append(1e3 * (time.perf_counter() - t0))
+        self.stats["collective_ms"].append(
+            1e3 * (comm.elapsed["seconds"] - c0))
+        return out
+
+
+def _data_slices(pspecs, zspecs, data_axis="data"):
+    """For each leaf (in leaf order), the dim ``zero1_specs`` added the
+    data axis to, or None."""
+    out = []
+    for p, z in zip(R.spec_leaves(pspecs), R.spec_leaves(zspecs)):
+        dims = [i for i, (a, b) in enumerate(zip(p, z))
+                if a != b and b == data_axis]
+        out.append(dims[0] if dims else None)
+    return out
+
+
+def _slice(t, dim, mesh):
+    """This rank's "data" slice of ``t`` along ``dim`` (a view)."""
+    if dim is None:
+        return t
+    c = t.shape[dim] // R.mesh_shape(mesh)["data"]
+    return t.narrow(dim, mesh.get_local_rank("data") * c, c)
+
+
+def _sum_over(tensors, groups):
+    """Each tensor summed over every group, in place (one flat buffer a
+    dtype, so one all-reduce a group)."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for ts in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        for g in groups:
+            comm.all_reduce_(flat, "sum", g)
+        off = 0
+        for t in ts:
+            n = t.numel()
+            t.copy_(flat[off:off + n].view_as(t))
+            off += n
+
+
+def _sharded_norm(grads, specs, mesh):
+    """The global norm of gradient shards laid out by ``specs``: each
+    leaf's squares summed locally, then over the axes it is sharded on."""
+    by_axes = {}
+    for g, spec in zip(grads, specs):
+        axes = []
+        for e in spec:
+            if e is not None:
+                axes += list(e) if isinstance(e, tuple) else [e]
+        key = tuple(a for a in axes if R.mesh_shape(mesh)[a] > 1)
+        by_axes.setdefault(key, []).append(torch.sum(torch.square(
+            g.float())))
+    total = 0.0
+    for axes, sq in by_axes.items():
+        part = torch.sum(torch.stack(sq))
+        for a in axes:
+            part = comm.all_reduce(part, "sum", mesh.get_group(a))
+        total = total + part
+    return torch.sqrt(total)
+
+
+def _sharded_train_fn(model, optimizer, rules, pspecs, zspecs, *, zero1,
+                      fsdp, accum_steps):
+    """The multi-rank train step's function (see :func:`build_train_step`).
+    ``params`` are this rank's shards (by ``zspecs`` under fsdp, else by
+    ``pspecs``), the moments its shards by ``zspecs`` (zero1/fsdp) or
+    ``pspecs``, ``batch`` this rank's rows."""
+    mesh = rules.mesh
+    groups = [rules.group(a) for a in rules.data_axes]
+    sliced = (zero1 or fsdp) and rules.size("data") > 1
+    ddims = (_data_slices(pspecs, zspecs) if sliced
+             else [None] * len(R.spec_leaves(pspecs)))
+    dgroup = mesh.get_group("data") if sliced else None
+
+    def step(params, opt_state, batch):
+        rest = leaves(params)
+        with use_rules(rules):
+            if fsdp:
+                full = [t if d is None else comm.all_gather(t, d, dgroup)
+                        for t, d in zip(rest, ddims)]
+                full = [t.detach().requires_grad_(r.requires_grad)
+                        for t, r in zip(full, rest)]
+                work = unflatten(params, full)
+            else:
+                work = params
+            loss, metrics, grads = _loss_and_grads(model, work, batch,
+                                                   accum_steps)
+        grads = [g.contiguous() for g in grads]
+        # a data-sliced leaf needs only its slice of the sum (a
+        # reduce-scatter over "data", then a sum over "pod"); the others
+        # are summed whole
+        _sum_over([g for g, d in zip(grads, ddims) if d is None], groups)
+        rest_groups = [rules.group(a) for a in rules.data_axes
+                       if a != "data"]
+        for i, d in enumerate(ddims):
+            if d is not None:
+                grads[i] = comm.reduce_scatter(grads[i], d, dgroup)
+                for g in rest_groups:
+                    comm.all_reduce_(grads[i], "sum", g)
+        gnorm = _sharded_norm(grads, R.spec_leaves(zspecs), mesh)
+        if zero1 and not fsdp:
+            targets = [_slice(p, d, mesh) for p, d in zip(rest, ddims)]
+        else:
+            targets = rest
+        _, opt_state, opt_metrics = optimizer.update(
+            grads, opt_state, targets, gnorm=gnorm)
+        if zero1 and not fsdp:
+            with torch.no_grad():
+                for p, t, d in zip(rest, targets, ddims):
+                    if d is not None:
+                        p.copy_(comm.all_gather(t, d, dgroup))
+        return (params, opt_state, loss.detach(),
+                _detached(metrics, opt_metrics))
+
+    return step
+
+
+def build_train_step(model, optimizer, mesh=None, *, zero1=False,
+                     fsdp=False, accum_steps=1):
+    """``step(params, opt_state, batch)`` -> (params, opt_state, loss,
+    metrics): ``model.loss``, ``torch.autograd.grad``, ``optimizer.update``,
+    with JAX's micro-batch accumulation when ``accum_steps`` > 1, params
+    and state updated in place (JAX donates them). ``batch`` holds
+    "tokens" (B, S) and, for a model with a frontend, "prefix_embeddings"
+    (B, P, d). Returns (step, info).
+
+    - No mesh, or a mesh of one rank: :func:`train_step`, on the card as a
+      :class:`TrainGraphStep` (one CUDA graph a step after the first call),
+      on the CPU eagerly. info: {"accum_steps", "cuda_graph"}.
+    - A mesh of more than one rank: a :class:`ShardedStep` (eager). Each
+      rank passes its shards of the params and moments (info["params"],
+      info["opt"]: trees of :class:`Placement`; :func:`shard_tree` makes
+      them from full trees) and its rows of the global batch
+      (:func:`shard_batch`); the loss and metrics are the global batch's
+      on every rank. ``zero1`` shards the moments by ``zero1_specs``;
+      ``fsdp`` the parameters too (at rest). info also holds "pspecs",
+      "moment_pspecs", "rules", "cuda_graph" False, "eager" True."""
+    _check_accum(accum_steps)
+    if not _multi_rank(mesh):
+        def step(params, opt_state, batch):
+            return train_step(model, optimizer, params, opt_state, batch,
+                              accum_steps=accum_steps)
+
+        if model.device.type == "cuda":
+            step = TrainGraphStep(step, device=model.device)
+        return step, {"accum_steps": accum_steps,
+                      "cuda_graph": isinstance(step, TrainGraphStep)}
+    placements, pspecs, rules, shape = make_shardings(model, mesh, fsdp=fsdp)
+    # the tensor-parallel specs; zero1_specs adds the data axis to one dim
+    # of each large leaf (under fsdp make_shardings already did: pspecs)
+    tp_specs = make_shardings(model, mesh)[1] if fsdp else pspecs
+    if (zero1 or fsdp) and "data" in _names(mesh):
+        zspecs = R.zero1_specs(tp_specs, shape, mesh, data_axis="data")
+    else:
+        zspecs = pspecs
+    fn = _sharded_train_fn(model, optimizer, rules, tp_specs, zspecs,
+                           zero1=zero1, fsdp=fsdp, accum_steps=accum_steps)
+    moments = _placements(mesh, zspecs, shape)
+    replicated = Placement(mesh, ())
+    return ShardedStep(fn), {
+        "accum_steps": accum_steps, "cuda_graph": False, "eager": True,
+        "params": placements, "pspecs": pspecs, "moment_pspecs": zspecs,
+        "opt": {"m": moments, "v": moments, "step": replicated},
+        "rules": rules}
+
+
+def build_prefill_step(model, mesh, *, batch, max_len, fsdp=False,
+                       ring=False):
+    """``prefill(params, batch)`` -> ``model.prefill``'s (logits, cache)
+    under :func:`make_shardings`'s rules; ``batch`` holds "tokens" (B, S)
+    and optionally "prefix_embeddings". ``ring=True`` sends prefill
+    attention down the ring schedule when S divides the ring (parameters
+    replicated; every rank then holds the full logits and cache).
+    Otherwise, on a mesh of more than one rank, ``params`` are this rank's
+    shards (``prefill.shardings["params"]``; with ``fsdp`` sliced over
+    "data" too, gathered at the call) and ``batch`` its rows; the logits
+    (B, Vpad) are whole on every rank, the cache holds this rank's kv heads
+    and rows (``prefill.shardings["cache"]``: the "prefill" specs of
+    :func:`cache_pspecs`)."""
+    placements, pspecs, rules, _ = make_shardings(model, mesh, fsdp=fsdp,
+                                                  ring=ring)
+    gather = fsdp and _multi_rank(mesh) and "data" in _names(mesh)
+
+    def prefill(params, batch_):
+        if gather:
+            params = gather_tree(params, placements)
+        with use_rules(rules):
+            return model.prefill(
+                params, batch_["tokens"],
+                prefix_embeddings=batch_.get("prefix_embeddings"),
+                max_len=max_len)
+
+    prefill.shardings = {"params": placements, "pspecs": pspecs,
+                         "rules": rules,
+                         "cache": cache_pspecs(model, mesh, batch, max_len,
+                                               kind="prefill")}
+    return prefill
 
 
 def _serve(model, method, *, batch, capacity=None):
@@ -335,25 +826,51 @@ def _with_split(method, split):
                                                           split=split)
 
 
-def build_serve_step(model, *, batch, greedy=True, split=None):
+def _sharded_serve(model, method, mesh):
+    """The multi-rank serve step: ``method`` eagerly under the mesh's
+    rules; (step, info) with the parameter placements and rules."""
+    placements, pspecs, rules, _ = make_shardings(model, mesh)
+
+    def fn(params, cache, tokens):
+        with torch.no_grad(), use_rules(rules):
+            return method(params, tokens, cache)
+
+    return ShardedStep(fn), {"params": placements, "pspecs": pspecs,
+                             "rules": rules, "cuda_graph": False,
+                             "eager": True}
+
+
+def build_serve_step(model, mesh=None, *, batch, max_len=None, greedy=True,
+                     split=None):
     """One-token decode step over a static (contiguous) cache:
     ``step(params, cache, tokens (B, 1))`` -> ``model.greedy_step``'s
     (next (B,), logits (B, Vpad), cache) with ``greedy=True``, else
     ``model.decode_step``'s (logits, cache), leaving sampling to the
     caller. ``split``: ``flash_decode``'s split length in every step (a
-    tune winner; None: the kernel's rule); a captured graph keeps it. On
-    the card a :class:`GraphStep` that checks the cache's capacity on the
-    host; on the CPU the method, eagerly. Returns (step, info). It takes
-    no mesh: parameter and cache shardings come with tensor
-    parallelism."""
-    method = model.greedy_step if greedy else model.decode_step
-    step = _serve(model, _with_split(method, split), batch=batch,
-                  capacity=model.cache_capacity)
-    return step, {"greedy": greedy,
-                  "cuda_graph": isinstance(step, GraphStep)}
+    tune winner; None: the kernel's rule); a captured graph keeps it.
+
+    Without a mesh (or on one rank): on the card a :class:`GraphStep` that
+    checks the cache's capacity on the host; on the CPU the method,
+    eagerly. On a mesh of more than one rank: a :class:`ShardedStep` over
+    this rank's parameter shards, its cache (kv heads over "model", rows
+    over the batch axes: info["cache_pspecs"], :func:`cache_pspecs` at
+    ``max_len``) and its rows of tokens; the greedy logits are this rank's
+    vocab shard, the next tokens global. Returns (step, info)."""
+    method = _with_split(model.greedy_step if greedy else model.decode_step,
+                         split)
+    if not _multi_rank(mesh):
+        step = _serve(model, method, batch=batch,
+                      capacity=model.cache_capacity)
+        return step, {"greedy": greedy,
+                      "cuda_graph": isinstance(step, GraphStep)}
+    step, info = _sharded_serve(model, method, mesh)
+    info.update(greedy=greedy, cache_pspecs=cache_pspecs(
+        model, mesh, batch, max_len or 0))
+    return step, info
 
 
-def build_paged_serve_step(model, *, batch, greedy=True, split=None):
+def build_paged_serve_step(model, mesh=None, *, batch, greedy=True,
+                           split=None):
     """One-token decode step over PAGED KV pools (the continuous-batching
     engine's inner loop): ``step(params, cache, tokens (B, 1))`` ->
     ``model.paged_greedy_step``'s (next, logits, cache) with
@@ -361,12 +878,21 @@ def build_paged_serve_step(model, *, batch, greedy=True, split=None):
     The host mutates only the control state (tables, lengths, position
     rows) between steps, in place, through the serving scheduler.
     ``split``: paged decode's split length (as :func:`build_serve_step`'s).
-    A :class:`GraphStep` on the card; the method, eagerly, on the CPU.
-    Returns (step, info). It takes no mesh, as :func:`build_serve_step`."""
+    A :class:`GraphStep` on the card, the method eagerly on the CPU; on a
+    mesh of more than one rank a :class:`ShardedStep` over this rank's
+    parameter shards and pools (info["cache_pspecs"]: kv heads over
+    "model"; tables, lengths and positions replicated) with every rank's
+    tokens. Returns (step, info)."""
     if not model.pageable:
         raise ValueError("build_paged_serve_step: model is not pageable "
                          "(see LM.pageable)")
-    method = model.paged_greedy_step if greedy else model.paged_decode_step
-    step = _serve(model, _with_split(method, split), batch=batch)
-    return step, {"greedy": greedy,
-                  "cuda_graph": isinstance(step, GraphStep)}
+    method = _with_split(
+        model.paged_greedy_step if greedy else model.paged_decode_step, split)
+    if not _multi_rank(mesh):
+        step = _serve(model, method, batch=batch)
+        return step, {"greedy": greedy,
+                      "cuda_graph": isinstance(step, GraphStep)}
+    step, info = _sharded_serve(model, method, mesh)
+    info.update(greedy=greedy,
+                cache_pspecs=paged_cache_pspecs(model, mesh, batch))
+    return step, info

@@ -1,8 +1,10 @@
 """Failure injection and straggler detection, copied from
-``repro.runtime`` (pure Python). ``repro.runtime.elastic`` is multi-GPU
-and not ported yet."""
+``repro.runtime`` (pure Python), and elastic rescaling over
+``torch.distributed`` meshes."""
 
+from .elastic import choose_mesh_shape, reshard
 from .failures import ChaosError, FailureInjector
 from .watchdog import StepWatchdog
 
-__all__ = ["ChaosError", "FailureInjector", "StepWatchdog"]
+__all__ = ["ChaosError", "FailureInjector", "StepWatchdog",
+           "choose_mesh_shape", "reshard"]

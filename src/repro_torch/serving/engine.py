@@ -32,6 +32,18 @@ with). The page size stays the pool's layout (``page_size``, default
 size is ``flash_decode``'s tuned ``block_kv``. ``engine.tuned`` holds what
 was adopted (and what was refused or skipped); ``use_tuned=False`` looks
 nothing up and runs the kernel's rule.
+
+``Engine(mesh=)`` serves on a ("data", "model") mesh of several ranks, each
+running the same engine: the parameters are this rank's shards
+(``parallel.shard_tree`` by ``make_shardings``' placements, which the
+engine applies to the full tree it is given), the pools hold this rank's kv
+heads (``paged_cache_pspecs``), and the tables, lengths and position rows
+are replicated. Every rank submits the same requests in the same order, so
+the host schedulers make the same decisions; the admission prefill, the
+decode step (``build_paged_serve_step(mesh)``, eager) and the greedy
+argmax run under the mesh's rules, and the tokens every rank emits are the
+global argmax's (sampled tokens are drawn on the first rank and
+broadcast). ``cache_dtype`` sets the pools' dtype (default the model's).
 """
 
 from __future__ import annotations
@@ -41,7 +53,10 @@ import torch
 
 from repro_torch.device import fit_block
 from repro_torch.launch import tuning
-from repro_torch.parallel.steps import build_paged_serve_step
+from repro_torch.parallel import comm
+from repro_torch.parallel.context import use_rules
+from repro_torch.parallel.steps import (build_paged_serve_step,
+                                        make_shardings, shard_tree)
 
 from .scheduler import Scheduler
 
@@ -61,7 +76,8 @@ class Engine:
     def __init__(self, model, params, *, batch: int, max_len: int,
                  num_pages: int | None = None, page_size: int | None = None,
                  eos_id: int | None = None, greedy: bool = True,
-                 temperature: float = 1.0, rng=None, use_tuned: bool = True):
+                 temperature: float = 1.0, rng=None, use_tuned: bool = True,
+                 mesh=None, cache_dtype=None):
         if not model.pageable:
             raise ValueError("Engine needs a pageable model (see LM.pageable)")
         if temperature <= 0:
@@ -71,6 +87,11 @@ class Engine:
         self.temperature = float(temperature)
         self._rng = (rng if rng is not None else
                      torch.Generator(device=model.device).manual_seed(0))
+        self.mesh = mesh
+        self._rules = None
+        if mesh is not None:
+            placements, _, self._rules, _ = make_shardings(model, mesh)
+            params = shard_tree(params, placements)
         self.params = params
         self.batch = batch
         self.max_len = max_len
@@ -90,8 +111,10 @@ class Engine:
                 f"sequence ({nsp} pages of {self.page_size})")
         self.sched = Scheduler(batch=batch, page_size=self.page_size,
                                num_pages=num_pages, max_len=max_len)
-        self.cache = model.init_paged_cache(batch, num_pages, self.page_size,
-                                            nsp)
+        with use_rules(self._rules):
+            self.cache = model.init_paged_cache(batch, num_pages,
+                                                self.page_size, nsp,
+                                                dtype=cache_dtype)
         # the persisted paged split, passed to the step (its graph keeps it)
         self.tuned = tuning.adopt(
             model.cfg, dict(batch=batch, prompt_len=max_len, max_len=max_len,
@@ -99,7 +122,7 @@ class Engine:
             kind="serve", device=model.device,
             ops=("flash_decode_paged",) if use_tuned else ())
         self._step, _ = build_paged_serve_step(
-            model, batch=batch, greedy=greedy,
+            model, mesh, batch=batch, greedy=greedy,
             split=self.tuned.knob("flash_decode_paged", "split"))
         self._requests = {}
         self._pending = np.zeros((batch,), np.int64)
@@ -171,8 +194,11 @@ class Engine:
 
     # ----------------------------------------------------------------- step
     def _sample(self, logits):
-        return sample(logits, self.model.cfg.vocab_size, self.temperature,
-                      self._rng).cpu().numpy()
+        tok = sample(logits, self.model.cfg.vocab_size, self.temperature,
+                     self._rng)
+        if self.mesh is not None:             # the first rank's draw
+            tok = comm.broadcast(tok, 0)
+        return tok.cpu().numpy()
 
     def _emit(self, slot: int, tok: int, emitted: dict):
         req = self.sched.slots[slot]
@@ -186,7 +212,8 @@ class Engine:
     def _admit(self, slot: int, req, emitted: dict):
         toks = torch.tensor([req.resume_prompt], dtype=torch.long,
                             device=self.device)   # prompt + generated so far
-        logits, pcache = self.model.prefill(self.params, toks)
+        with use_rules(self._rules):
+            logits, pcache = self.model.prefill(self.params, toks)
         self._scatter_prefill(pcache, self.sched.pages.owned(req.rid), slot)
         if self.greedy:
             tok = int(self.model.greedy_token(logits[0]))

@@ -69,14 +69,14 @@ def _layer_job(rank, world, mesh, payload):
     import torch
 
     from repro_torch.layers import attention as attn
-    from repro_torch.parallel import make_shardings, use_rules
+    from repro_torch.parallel import Rules, use_rules
 
     cfg = payload["cfg"]
     params = {k: torch.from_numpy(v) for k, v in payload["params"].items()}
     x = torch.from_numpy(payload["x"])
     out = {"ring_calls": {}}
-    for tag, rules in (("plain", None),
-                       ("ring", make_shardings(None, mesh, ring=True))):
+    ring_rules = Rules(mesh=mesh, ring_axis="model")
+    for tag, rules in (("plain", None), ("ring", ring_rules)):
         leaves = dict(params, x=x.clone())
         for t in leaves.values():
             t.requires_grad_(True)
@@ -86,7 +86,7 @@ def _layer_job(rank, world, mesh, payload):
         grads = torch.autograd.grad((y ** 2).sum(), [xx, *leaves.values()])
         out[tag] = [_np(y)] + [_np(g) for g in grads]
         out["ring_calls"][tag] = calls[0]
-    out["ring_axis"] = make_shardings(None, mesh, ring=True).ring_axis
+    out["ring_axis"] = ring_rules.ring_axis
     return out
 
 
@@ -108,7 +108,7 @@ def _prefill_job(rank, world, mesh, payload):
     sc = cache["stacks"][0]
     return dict(logits=_np(logits), k=_np(sc["k"]), v=_np(sc["v"]),
                 pos=cache["pos"], ring_calls=calls[0],
-                ring_axis=make_shardings(model, mesh, ring=True).ring_axis)
+                ring_axis=make_shardings(model, mesh, ring=True)[2].ring_axis)
 
 
 JOBS = {"ring": _ring_job, "layer": _layer_job, "prefill": _prefill_job}

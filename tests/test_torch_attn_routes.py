@@ -187,7 +187,8 @@ def test_ring_refusal_depends_on_dtype_and_layout(card, case):
     take: d = 128 runs on the tensor-core route (bf16, 16-byte rows) and
     is refused on the CUDA-core one (f32, other layouts)."""
     dtype, d, shifted, refused = REFUSALS[case]
-    assert RING_BWD_HEAD_DIMS == {"wgmma": (32, 64, 128), "simt": (32, 64)}
+    assert RING_BWD_HEAD_DIMS == {"wgmma": (32, 64, 112, 128, 256),
+                                  "simt": (32, 64)}
     rng = np.random.RandomState(d)
     q = torch.from_numpy(rng.randn(1, 4, 32, d).astype("float32")).to(dtype)
     if shifted:

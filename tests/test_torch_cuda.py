@@ -961,6 +961,9 @@ RING_TC_CASES = [  # sq, skv, h, hk, d, q_start, k_start, masks
     (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
     (130, 300, 8, 2, 128, 30, 50, dict(window=40)),  # d = 128
     (256, 256, 8, 2, 128, 0, 0, {}),
+    (130, 150, 4, 1, 112, 30, 50, dict(window=40)),  # ring_flash_wide.cu
+    (150, 145, 4, 1, 256, 10, 30, dict(prefix_len=35)),
+    (96, 128, 2, 2, 256, 0, 0, {}),
 ]
 
 
@@ -1155,6 +1158,8 @@ RING_FWD_TC_CASES = [  # sq, skv, h, hk, d, q_start, k_start, masks
     (70, 45, 4, 4, 64, 0, 0, dict(causal=False)),
     (130, 300, 8, 2, 128, 30, 50, dict(window=40)),  # d = 128
     (200, 333, 8, 2, 128, 0, 120, dict(prefix_len=140)),
+    (130, 150, 4, 1, 112, 30, 50, dict(window=40)),  # ring_flash_wide.cu
+    (200, 333, 8, 1, 256, 0, 120, dict(prefix_len=140)),
 ]
 
 
@@ -1999,16 +2004,34 @@ def test_flash_bwd_prefix_against_causal_plain_fails(dev, d):
 
 @pytest.mark.parametrize("d", [112, 256])
 def test_ring_refuses_wide_gradients_before_launch(dev, d):
-    """The ring's step kernels take head dims up to 128: a gradient at
-    d = 112 or 256 through the local ring raises before the first launch,
-    on either route."""
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (_rnd(dev, 1, h, 64, d, seed=i).to(dtype)
-                   for i, h in enumerate((4, 2, 2)))
-        reset_launches()
-        with pytest.raises(NotImplementedError, match=f"head dim {d}"):
-            ring_flash_attention(q.requires_grad_(), k, v, ring_steps=2)
-        assert launch_counts()["ring_flash_fwd"] == 0
+    """The ring's CUDA-core step kernels take head dims up to 128 (64
+    backward): an f32 gradient at d = 112 or 256 through the local ring
+    raises before the first launch. The tensor-core route takes both widths
+    (``csrc/ring_flash_wide.cu``): a bf16 gradient, with the prefix-LM mask
+    at 256 (paligemma), runs on the wgmma route every step, o and the
+    gradients against the CPU's plain versions on the same bf16 values
+    within 2^-6 of the largest magnitude (as the d = 128 test below)."""
+    q, k, v = (_rnd(dev, 1, h, 64, d, seed=i)
+               for i, h in enumerate((4, 2, 2)))
+    reset_launches()
+    with pytest.raises(NotImplementedError, match=f"head dim {d}"):
+        ring_flash_attention(q.requires_grad_(), k, v, ring_steps=2)
+    assert launch_counts()["ring_flash_fwd"] == 0
+    bf = torch.bfloat16
+    ins = [t.detach().to(bf) for t in (q, k, v)]
+    kw = dict(prefix_len=16) if d == 256 else {}
+    go = _rnd(dev, 1, 4, 64, d, seed=5).to(bf)
+    ts = [t.detach().requires_grad_() for t in ins]
+    reset_launches()
+    o = ring_flash_attention(*ts, ring_steps=2, **kw)
+    got = (o,) + torch.autograd.grad(o, ts, go)
+    assert ring_flash_fwd.routes == {"wgmma": 2, "simt": 0}
+    assert ring_flash_bwd.routes == {"wgmma": 2, "simt": 0}
+    cpu = [t.detach().cpu().float().requires_grad_() for t in ins]
+    o_cpu = ring_flash_attention(*cpu, ring_steps=2, **kw)
+    want = (o_cpu,) + torch.autograd.grad(o_cpu, cpu, go.cpu().float())
+    for a, b_ in zip(got, want):
+        _close_rel(a.detach().float().cpu(), b_.detach(), 2 ** -6)
 
 
 PAGED_256_CASES = [  # lens, page, nsp, hk, g, d
@@ -2978,14 +3001,15 @@ def _close_abs(got, ref, atol):
 
 
 def test_ring_backward_refuses_head_dim_112_inside_build_kernel(dev):
-    """The ring step's backward kernel takes d 32/64/128 (ROADMAP §B): a
-    spec at d = 112 fails inside build_kernel, before any launch."""
+    """The ring step's CUDA-core backward kernel takes d 32/64 (ROADMAP
+    §B; the tensor-core one takes 112 and 256 too): an f32 spec at d = 112
+    fails inside build_kernel, before any launch."""
     from repro_torch.core import Device
     from repro_torch.kernels.flash_attention import kernel as fk
 
     D = dict(b=1, h=2, hk=1, sq=128, skv=128, d=112, dv=112, block_q=64,
              block_kv=64, causal=True, window=None, prefix_len=0,
-             sm_scale=112 ** -0.5, dtype="bfloat16", ring_steps=1,
+             sm_scale=112 ** -0.5, dtype="float32", ring_steps=1,
              mesh_axis="model")
     reset_launches()
     with pytest.raises(ValueError, match="refuses these defines"):
@@ -2995,3 +3019,84 @@ def test_ring_backward_refuses_head_dim_112_inside_build_kernel(dev):
     Device("torch").build_kernel(fk.ring_flash_bwd_builder, D,
                                  analyze="off")
     assert sum(launch_counts().values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# the kernels at the local shard shapes of a (data 1, model 2) mesh
+# (chip_smoke.py phase 22), one rank, no process group
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_at_a_tensor_parallel_shard(dev, dtype):
+    """llama3_2_1b's 32 / 8 query / kv heads on 2 ranks: 16 / 4 a rank
+    (g 4, d 64) over 512-token pages, against paged_decode_ref."""
+    lens = [1016, 241, 700, 33, 512, 999, 64, 1]
+    q, kp, vp, kw = _paged_inputs(dev, lens, 512, 4, 4, 4, 64, dtype,
+                                  seed=41)
+    reset_launches()
+    o = paged_decode_attention(q, kp, vp, **kw)
+    assert paged_decode_attention.launches == 1
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(),
+                               paged_decode_ref(q, kp, vp, **kw).float(),
+                               **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_head_on_vocab_shards_with_the_argmax_combined(dev, dtype):
+    """The decode head on each of two vocab shards of a tied embedding
+    (the view ``shard.T``), held to the plain version on the shard, and
+    the shards' (max, argmax) combined at the second shard's column offset
+    (the larger value, ties to the lower column: ``comm.argmax_combine``'s
+    rule) against the argmax over the whole vocab, where the top-2 gap is
+    past the rounding."""
+    vs, d, rows = 4096, 256, 8
+    embed = (0.05 * _rnd(dev, 2 * vs, d, seed=3)).to(dtype)
+    x = _rnd(dev, rows, d, seed=4).to(dtype)
+    raw = []
+    for r in range(2):
+        w = embed[r * vs:(r + 1) * vs].T
+        lg, m, arg = lm_head_logits.raw(x, w, vocab=vs - 3 * r)
+        rlg, rm, rarg = lm_head_logits_ref(x, w, vocab=vs - 3 * r)
+        atol = 1e-4 if dtype == torch.float32 else 4e-3
+        torch.testing.assert_close(lg, rlg, atol=atol, rtol=0)
+        torch.testing.assert_close(m, rm, atol=atol, rtol=0)
+        raw.append((m, arg))
+    top = torch.maximum(raw[0][0], raw[1][0])
+    big = torch.iinfo(torch.int64).max
+    col = torch.minimum(
+        torch.where(raw[0][0] == top, raw[0][1].long(), big),
+        torch.where(raw[1][0] == top, raw[1][1].long() + vs, big))
+    full, _, farg = lm_head_logits_ref(x, embed.T, vocab=2 * vs - 3)
+    top2 = torch.topk(full[:, :2 * vs - 3], 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 1e-2
+    assert decided.any()
+    assert (col[decided] == farg[decided].long()).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lm_head_ce_on_a_vocab_shard_with_labels_outside(dev, dtype):
+    """The CE forward and backward on the second of two vocab shards:
+    labels shifted by the shard's offset, half of them outside it (negative
+    or past its columns) give gold 0 and no one-hot; lse and gold against
+    the plain version, dx and dw from a global lse (the other shard's mass
+    added) against the plain backward, on both routes."""
+    vs, d, rows = 1536, 256, 70
+    w = (0.05 * _rnd(dev, 2 * vs, d, seed=5)).to(dtype)[vs:].T
+    x = _rnd(dev, rows, d, seed=6).to(dtype)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    labels = (torch.randint(0, 2 * vs, (rows, 1), generator=gen,
+                            device=dev) - vs).to(torch.int32).contiguous()
+    out = (labels < 0) | (labels >= vs)
+    assert out.any() and (~out).any()
+    lse, gold = lm_head_ce.raw(x, w, labels, vocab=vs)
+    rlse, rgold = lm_head_ce_stats_ref(x, w, labels, vocab=vs)
+    torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=0)
+    torch.testing.assert_close(gold, rgold, atol=1e-3, rtol=0)
+    assert (gold[out] == 0).all()
+    g = torch.rand((rows, 1), generator=gen, device=dev) / rows
+    glse = (rlse + 0.5).contiguous()
+    dx, dw = lm_head_bwd(x, w, labels, glse, g, vocab=vs)
+    rdx, rdw = lm_head_bwd_ref(x, w, labels, glse, g, vocab=vs)
+    _close_rel(dx, rdx, 1e-3)
+    _close_rel(dw, rdw, 1e-3)
