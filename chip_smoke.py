@@ -322,6 +322,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
     a ``[mesh time]``
     line with the phase's seconds and each rank's step host ms and
     collective ms (gloo on one host, not NCCL).
+23. (run after 22) every kind on the mesh: two ranks spawned on the card
+    as in 22; while they start this process makes the one-rank f32 train
+    references, then lets them go. On (data 1, model 2) each rank draws
+    the weights leaf by leaf in the one-rank order, keeping its shard
+    (``LM.init(placements=)``), and serves 4 of phase 4's prompts cut to
+    32 tokens, 6 new tokens each: the whole bf16 deepseek_v2_lite through
+    ``generate(mesh=)`` (MLA, 32 experts a rank), the whole paligemma_3b
+    through ``Engine(mesh=)`` (its one kv head replicated in the pools)
+    and through the static path after the 256-embedding prefix (the
+    prefill's cache moved into the decode layout: the sequence split,
+    ``flash_decode`` with lse on each half, merged by lse), falcon_mamba_7b
+    at 8 and zamba2_7b at 13 layers through ``generate(mesh=)``. Both
+    ranks emit the same tokens. Each run's first decode step keeps its
+    input state on the host (the cache it read, whole; its tokens; each
+    block's input; the MoE routing); after the ranks, each model once on
+    one rank (each freed before the next: deepseek's whole one-rank copy
+    never sits beside the ranks) repeats the run (each rank's launch
+    counts equal its: rmsnorm, flash_fwd, flash_decode, paged_decode,
+    ssm_scan, the decode head) and that first step from the ranks' state,
+    teacher forced by layer and routing (bf16 sums in another order move
+    a random-init deepseek's later routers across near ties, and the
+    rounding compounds over 27 layers): each block's output and the
+    whole logits within 2^-4 of the largest |value| (the argmax rule of
+    22). paligemma's merged attention on the real shards is held against
+    one ``flash_decode`` on the gathered cache, with the query past the
+    second shard too. The ranks train deepseek_v2_lite at 2 layers (2 x
+    512) and zamba2_7b at one group (2 x 256), f32, 3 steps, against the
+    one-rank steps (22's limits and counts), and run llama3_2_1b's 4 dense
+    blocks in f32 as 2 pipeline stages (4 microbatches of 1 x 256) against
+    the sequential run (outputs and gradients within 1e-5). Then the
+    kernels at the shard shapes against their plain versions and timed
+    (``[time] flash_decode@sp``, ``paged_decode@ptp``, ``flash_fwd@mtp``,
+    ``ssm_scan@tp``, ``ssm_scan@ztp``); a ``[tp time]`` line gives each
+    rank's step host ms, collective ms, bytes gathered a step and peak
+    memory (gloo on one host, not NCCL).
 
 The last three lines of standard output are the card's name and power
 limit, a JSON object with one entry per kernel, and the result line.
@@ -330,6 +365,7 @@ limit, a JSON object with one entry per kernel, and the result line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -1469,12 +1505,12 @@ def bound(bytes_, flops, dtype):
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
-def flash_times(q, k, v, iters, plain_iters):
+def flash_times(q, k, v, iters, plain_iters, profile=True):
     """Causal flash_attention_fwd on q, k, v (the projections' views): the
     call's time back to back (cuda_ms), the kernel's device time alone on
     these inputs and on contiguous copies of k and v (the layout is the
-    only difference), the plain version's time and SDPA's on contiguous
-    copies of all three."""
+    only difference; ``profile=False`` skips these two profiler runs), the
+    plain version's time and SDPA's on contiguous copies of all three."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
@@ -1485,17 +1521,19 @@ def flash_times(q, k, v, iters, plain_iters):
     def run(kk, vv):
         return lambda: flash_attention_fwd(q, kk, vv, causal=True)
 
-    return dict(
+    out = dict(
         ms=cuda_ms(run(k, v), iters),
-        device_ms=device_ms(run(k, v), "fwd_tc_kernel", launches=1),
-        device_ms_contig=device_ms(run(kc, vc), "fwd_tc_kernel",
-                                   launches=1),
         plain_ms=cuda_ms(lambda: flash_fwd_ref(q, k, v, causal=True),
                          plain_iters, 1),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             qc, kc, vc, is_causal=True, enable_gqa=True), iters),
         library="F.scaled_dot_product_attention(is_causal, enable_gqa) on "
                 "contiguous q, k, v")
+    if profile:
+        out["device_ms"] = device_ms(run(k, v), "fwd_tc_kernel", launches=1)
+        out["device_ms_contig"] = device_ms(run(kc, vc), "fwd_tc_kernel",
+                                            launches=1)
+    return out
 
 
 def rmsnorm_host_split(x, w, wb, eps, n=2000):
@@ -1545,14 +1583,15 @@ def rmsnorm_host_split(x, w, wb, eps, n=2000):
         library=per_call(lambda: F.rms_norm(x, (d,), wb, eps)))
 
 
-def paged_times(dev, cfg, lens, page, num_pages, gen):
+def paged_times(dev, cfg, lens, page, num_pages, gen, profile=True):
     """paged_decode at a decode step of ``cfg`` over slots holding ``lens``
     tokens (each layer's pools on shuffled pages, cycled as a step cycles
     them, so L2 does not hold them), held against its plain version first:
     the call's time, the kernel's device time alone, the plain version's
     and the library's (the pages gathered, then SDPA with the mask),
     beside its bound (the live K and V, q and o, the pages' positions and
-    the table once each), and the kernel's max |err| (``"err"``)."""
+    the table once each), and the kernel's max |err| (``"err"``).
+    ``profile=False`` skips the profiler's device time."""
     import torch
     import torch.nn.functional as F
 
@@ -1605,7 +1644,6 @@ def paged_times(dev, cfg, lens, page, num_pages, gen):
               + pages_read * page * 4 + table.numel() * 4 + b * 4)
     out = dict(
         ms=cuda_ms(kernel, iters=64),
-        device_ms=device_ms(kernel, "paged_decode", launches=2),
         plain_ms=cuda_ms(plain, iters=16),
         library_ms=cuda_ms(library, iters=16), bytes=nbytes,
         library="gather pages + F.scaled_dot_product_attention(attn_mask)",
@@ -1613,6 +1651,8 @@ def paged_times(dev, cfg, lens, page, num_pages, gen):
               f"{hd}), kv_len {lens}")
     out.update(zip(("bound_ms", "bound_by"), bound(
         nbytes, 4 * h * hd * ntok, "bfloat16")))
+    if profile:
+        out["device_ms"] = device_ms(kernel, "paged_decode", launches=2)
     out["split"] = attn_ops.paged_split(b, hk, table.shape[1], page)
     out["err"] = err
     del pools
@@ -4012,7 +4052,7 @@ def decode_host_split(q, k, v, kv_len, n=2000):
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
                   o.data_ptr(), ws.data_ptr(), nb, h, hk, skv, d, 1, kv_len,
                   0, split, d ** -0.5, q.stride(0), q.stride(1), k.stride(0),
-                  k.stride(1), v.stride(0), v.stride(1), st)
+                  k.stride(1), v.stride(0), v.stride(1), st, None)
 
     def checks():
         _build.on_cpu("flash_decode", q, k, v, None, None)
@@ -8257,18 +8297,20 @@ def _mesh_rank(rank, world, rdv, out_dir, t_wall):
 
 
 class _MeshRanks:
-    """The phase's running ranks: ``join()`` waits for them (killing them
+    """A phase's running ranks: ``join()`` waits for them (killing them
     at the deadline) and returns their results."""
 
-    def __init__(self, procs, tmp, deadline):
+    def __init__(self, procs, tmp, deadline, tag="phase 22",
+                 timeout=MESH_TIMEOUT):
         self.procs, self.tmp, self.deadline = procs, tmp, deadline
+        self.tag, self.timeout = tag, timeout
 
     def _failed(self):
         errs = [open(os.path.join(self.tmp, f)).read()
                 for f in sorted(os.listdir(self.tmp)) if f.endswith(".err")]
         if errs:
             self._kill()
-            fail("phase 22: a rank failed:\n" + "\n".join(errs))
+            fail(f"{self.tag}: a rank failed:\n" + "\n".join(errs))
 
     def _kill(self):
         for p in self.procs:
@@ -8286,11 +8328,11 @@ class _MeshRanks:
         try:
             self._failed()
             if hung:
-                fail(f"phase 22: {len(hung)} of {len(self.procs)} ranks "
-                     f"still running after {MESH_TIMEOUT} s")
+                fail(f"{self.tag}: {len(hung)} of {len(self.procs)} ranks "
+                     f"still running after {self.timeout} s")
             codes = [p.exitcode for p in self.procs]
             if any(codes):
-                fail(f"phase 22: rank exit codes {codes}")
+                fail(f"{self.tag}: rank exit codes {codes}")
             out = []
             for r in range(len(self.procs)):
                 with open(os.path.join(self.tmp, f"rank{r}.pkl"), "rb") as f:
@@ -8300,21 +8342,22 @@ class _MeshRanks:
             self._kill()
 
 
-def _spawn_mesh_ranks(world=2):
-    """Start the phase's ranks (spawned, each on cuda:0): a
-    :class:`_MeshRanks`."""
+def _spawn_mesh_ranks(world=2, target=None, tag="phase 22",
+                      timeout=MESH_TIMEOUT):
+    """Start a phase's ranks (spawned, each on cuda:0, running ``target``,
+    phase 22's :func:`_mesh_rank` by default): a :class:`_MeshRanks`."""
     import multiprocessing as mp
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     ctx = mp.get_context("spawn")
     t_wall = time.time()
-    procs = [ctx.Process(target=_mesh_rank,
+    procs = [ctx.Process(target=target or _mesh_rank,
                          args=(r, world, os.path.join(tmp, "rdv"), tmp,
                                t_wall))
              for r in range(world)]
     for p in procs:
         p.start()
-    return _MeshRanks(procs, tmp, time.monotonic() + MESH_TIMEOUT)
+    return _MeshRanks(procs, tmp, time.monotonic() + timeout, tag, timeout)
 
 
 def _mesh_train_reference(cfg, batches):
@@ -8680,6 +8723,976 @@ def mesh_phase(dev):
         + "); " + "; ".join(parts)
         + " (gloo collectives of two processes on one host, CUDA tensors "
           "through host memory: a figure of gloo, not of NCCL)")
+    return times
+
+
+# ---------------------------------------------------------------------------
+# phase 23: every kind on the mesh: tensor parallelism for MoE, MLA, MQA
+# below the axis, frontends, mamba1, mamba2 and the hybrid, and the
+# pipeline, on two ranks of the card
+# ---------------------------------------------------------------------------
+
+# 4 prompts cut to TP_PLEN tokens, TP_NEW new each (cut from 8 to keep the
+# phase within its 45 s)
+TP_PROMPTS, TP_PLEN, TP_NEW = 4, 32, 6
+# (arch, config changes, seed): served on (1, 2) in bf16 at full width
+TP_SERVE = (("deepseek_v2_lite", {}, 61),
+            ("paligemma_3b", {}, 62),
+            ("falcon_mamba_7b", dict(n_layers=8), 63),
+            ("zamba2_7b", dict(n_layers=13), 64))
+# (arch, config changes, batch, seq, seed): trained on (1, 2) in f32
+TP_TRAIN = (("deepseek_v2_lite", dict(n_layers=2), 2, 512, 65),
+            ("zamba2_7b", dict(n_layers=6), 2, 256, 66))
+TP_TRAIN_STEPS = 3
+# llama3_2_1b's dense blocks in f32: layers, stages, microbatches, seq
+TP_PIPE = (4, 2, 4, 256)
+TP_SERVE_COUNTED = ("rmsnorm", "flash_fwd", "flash_decode", "paged_decode",
+                    "ssm_scan", "lm_head")
+TP_TRAIN_COUNTED = ("rmsnorm", "flash_fwd", "flash_bwd", "flash_delta",
+                    "lm_head_ce", "lm_head_bwd", "ssm_scan")
+TP_TIMEOUT = 480
+TP_DEVICE = "cuda"                           # the ranks' device
+# the pipeline against the sequential run (the same kernels a microbatch;
+# the gradients summed over the microbatches in another order)
+TP_PIPE_REL = 1e-5
+
+
+def _tp_cfg(arch, changes, dtype=None):
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def _tp_prompts(vocab):
+    import numpy as np
+
+    return np.array([p[:TP_PLEN] for p, _ in traffic(23, TP_PROMPTS, vocab)],
+                    np.int32)
+
+
+def _tp_prefix(cfg, dev):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(67)
+    return torch.randn((TP_PROMPTS, cfg.num_prefix_embeddings, cfg.d_model),
+                       generator=gen, device=dev).to(torch.bfloat16)
+
+
+def _tp_gathered(logits, rules):
+    """The whole (B, Vpad) logits of a step whose greedy head returned this
+    rank's vocab shard (one rank: as they are)."""
+    from repro_torch.parallel import comm
+
+    if rules is None:
+        return logits.float().cpu()
+    return comm.all_gather(logits, -1, rules.group("model")).float().cpu()
+
+
+def _tp_whole(tree, specs, mesh):
+    """A cache on the host in the one-rank layout: each leaf of ``tree``
+    (laid out by the spec tree ``specs``; a leaf without a spec key, none)
+    gathered whole over the mesh."""
+    from repro_torch.parallel import Placement
+
+    if isinstance(tree, dict):
+        return {k: _tp_whole(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tp_whole(v, s, mesh) for v, s in zip(tree, specs)]
+    return Placement(mesh, specs).gather(tree).cpu().clone()
+
+
+class _TPRoutes:
+    """Within: the MoE layers' routing decisions recorded (``record``, a
+    list the top-k expert indices of each router call are appended to) or
+    replayed (``replay``, such a list: each call takes the next one's
+    experts, their gates recomputed from this rank's router as
+    ``moe._router`` computes them). bf16 sums in another order move a
+    router's probabilities by rounding, and where two experts nearly tie
+    (at random init, from the 7th layer on here) a row takes another
+    expert: the one-rank step replays the ranks' choices, so that the
+    check holds the arithmetic and not the tie."""
+
+    def __init__(self, record=None, replay=None):
+        self.record, self.replay = record, replay
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.layers import moe
+
+        self.real = real = moe._router
+
+        def routed(params, x, cfg):
+            gate, idx, aux = real(params, x, cfg)
+            if self.record is not None:
+                self.record.append(idx.detach().cpu())
+            if self.replay is not None:
+                want = self.replay.pop(0).to(idx.device)
+                self.forced += int((torch.sort(want, -1)[0] != torch.sort(
+                    idx, -1)[0]).any(-1).sum())
+                probs = torch.softmax(x.float() @ params["router"], dim=-1)
+                gate = torch.gather(probs, -1, want)
+                gate = gate / torch.clamp(gate.sum(-1, keepdim=True),
+                                          min=1e-9)
+                idx = want
+            return gate, idx, aux
+
+        self.forced = 0
+        moe._router = routed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe
+
+        moe._router = self.real
+
+
+class _TPLayers:
+    """Within: each decode block's input hidden state (``blocks``'
+    ``tblock_decode``, ``tblock_paged_decode``, ``mamba_block_decode``)
+    recorded (``record``: a list the inputs are appended to, on the host)
+    or replayed (``replay``: such a list; each block takes the next one
+    instead of its own input, and its output is appended to ``outs``):
+    teacher forcing by layer, so that the one-rank step's blocks each see
+    the ranks' input and their outputs differ by one block's arithmetic
+    (bf16 rounding in another order compounds over a deep stack: deepseek's
+    27 layers at random init move the last logits by ~0.4 otherwise)."""
+
+    NAMES = ("tblock_decode", "tblock_paged_decode", "mamba_block_decode")
+
+    def __init__(self, record=None, replay=None):
+        self.record, self.replay, self.outs = record, replay, []
+
+    def __enter__(self):
+        from repro_torch.layers import blocks
+
+        self.real = {n: getattr(blocks, n) for n in self.NAMES}
+
+        def wrap(real):
+            def block(params, x, cache, cfg, **kw):
+                if self.record is not None:
+                    self.record.append(x.detach().cpu().clone())
+                if self.replay is not None:
+                    x = self.replay.pop(0).to(x.device)
+                y, cache = real(params, x, cache, cfg, **kw)
+                if self.replay is not None:
+                    self.outs.append(y.detach().float().cpu())
+                return y, cache
+            return block
+
+        for n, real in self.real.items():
+            setattr(blocks, n, wrap(real))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import blocks
+
+        for n, real in self.real.items():
+            setattr(blocks, n, real)
+
+
+def _tp_recorder(step, rules, rec, snap=None):
+    """``step`` (a serve step: (params, cache, tokens) -> (next, logits,
+    cache)) recording its first call: the tokens it was fed, the cache it
+    read (``snap(cache)``: on the host, in the one-rank layout), its MoE
+    routing (:class:`_TPRoutes`), each block's input (:class:`_TPLayers`),
+    its next tokens and its whole logits."""
+    def recorded(p, c, t):
+        if not rec:
+            if snap is not None:
+                rec["cache"] = snap(c)
+            rec["tokens"] = t.cpu().clone()
+            rec["routes"], rec["inputs"] = [], []
+            with _TPRoutes(record=rec["routes"]), \
+                    _TPLayers(record=rec["inputs"]):
+                nxt, logits, c = step(p, c, t)
+            rec.update(next=nxt.cpu().numpy().copy(),
+                       logits=_tp_gathered(logits, rules))
+            return nxt, logits, c
+        return step(p, c, t)
+
+    return recorded
+
+
+def _tp_static(model, params, toks, *, mesh=None):
+    """``generate(engine="static")`` on ``toks`` for TP_NEW tokens (with a
+    mesh: ``mesh=``, ``params`` this rank's shards), its first decode step
+    recorded (with a mesh, the cache it read too); launch counts over the
+    run. Returns (tokens, first step, counts, the step's stats)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.parallel import cache_pspecs
+
+    rec, made = {}, {}
+    real = serve_mod.build_serve_step
+    b = toks.shape[0]
+    max_len = toks.shape[1] + TP_NEW
+
+    def build(m, *a, **kw):
+        step, info = real(m, *a, **kw)
+        made["step"] = step
+        snap = None
+        if mesh is not None:
+            specs = cache_pspecs(m, mesh, b, max_len)
+            snap = functools.partial(_tp_whole, specs=specs, mesh=mesh)
+        return _tp_recorder(step, info.get("rules"), rec, snap), info
+
+    serve_mod.build_serve_step = build
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        if mesh is None:
+            out, _ = serve_mod.generate(model, params, toks,
+                                        gen_tokens=TP_NEW, engine="static")
+        else:
+            out, _ = serve_mod.generate(model, params, toks,
+                                        gen_tokens=TP_NEW, engine="static",
+                                        mesh=mesh, sharded=True)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        serve_mod.build_serve_step = real
+    stats = getattr(made["step"], "stats", None)
+    return out, rec, counts, (dict(stats) if stats else None)
+
+
+def _tp_prefix_static(model, params, toks, prefix, *, mesh=None):
+    """The static path after the vision prefix, by its steps: the prefill
+    of prefix + prompt (``build_prefill_step`` on a mesh), its cache moved
+    once into the decode layout (``reshard_cache``: paligemma's one kv head
+    under 2 ranks splits the sequence), and TP_NEW greedy steps
+    (``build_serve_step``), the first recorded. Returns (tokens, first
+    step, counts, stats, cache, rules)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.parallel import (build_prefill_step, build_serve_step,
+                                      reshard_cache)
+
+    b = toks.shape[0]
+    max_len = prefix.shape[1] + toks.shape[1] + TP_NEW
+    batch = {"tokens": torch.from_numpy(toks).to(model.device).long(),
+             "prefix_embeddings": prefix}
+    rec, out, snap = {}, [], None
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        if mesh is None:
+            logits, cache = model.prefill(params, batch["tokens"],
+                                          prefix_embeddings=prefix,
+                                          max_len=max_len)
+            rules = None
+
+            def step(p, c, t):
+                return model.greedy_step(p, t, c)
+        else:
+            prefill = build_prefill_step(model, mesh, batch=b,
+                                         max_len=max_len)
+            step, info = build_serve_step(model, mesh, batch=b,
+                                          max_len=max_len)
+            rules = info["rules"]
+            logits, cache = prefill(params, batch)
+            cache = reshard_cache(cache, prefill.shardings["cache"],
+                                  info["cache_pspecs"], mesh)
+            snap = functools.partial(_tp_whole, specs=info["cache_pspecs"],
+                                     mesh=mesh)
+        run = _tp_recorder(step, rules, rec, snap)
+        tok = model.greedy_token(logits)
+        for _ in range(TP_NEW):
+            out.append(tok.cpu().numpy())
+            tok, _, cache = run(params, cache, tok[:, None])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    stats = getattr(step, "stats", None)
+    return (np.stack(out, 1), rec, counts, dict(stats) if stats else None,
+            cache, rules)
+
+
+def _tp_engine(model, params, toks, *, mesh=None):
+    """The engine on TP_PROMPTS requests of ``toks`` (TP_NEW tokens each,
+    as many slots), its steps eager, the first recorded (with a mesh, the
+    pools and tables it read too); counts over the drain. Returns (tokens,
+    first step, counts, the step's stats, the pools' kv heads)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.parallel import paged_cache_pspecs
+    from repro_torch.serving import Engine
+
+    eng = Engine(model, params, batch=TP_PROMPTS, max_len=TP_PLEN + TP_NEW,
+                 mesh=mesh, sharded=mesh is not None)
+    rec, snap = {}, None
+    if mesh is None:
+        def step(p, c, t):
+            return model.paged_greedy_step(p, t, c)
+        stats = None
+    else:
+        step = eng._step
+        stats = step.stats
+        snap = functools.partial(
+            _tp_whole, specs=paged_cache_pspecs(model, mesh, TP_PROMPTS),
+            mesh=mesh)
+    eng._step = _tp_recorder(step, eng._rules, rec, snap)
+    torch.cuda.synchronize()
+    reset_launches()
+    rids = [eng.submit(p.tolist(), TP_NEW) for p in toks]
+    res = eng.drain()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    heads = int(eng.cache["stacks"][0]["kp"].shape[2])
+    return ([res[r] for r in rids], rec, counts,
+            dict(stats) if stats else None, heads)
+
+
+def _tp_train(model, batches, seed, *, mesh=None):
+    """TP_TRAIN_STEPS f32 train steps from the seeded init: losses, norms,
+    the parameters' digest, launch counts (and on a mesh the step's
+    stats)."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.parallel import build_train_step, shard_batch
+    from repro_torch.parallel.steps import train_step
+    from repro_torch.tree import leaves, unflatten
+
+    dev = model.device
+    opt = _mesh_optimizer()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if mesh is None:
+        params, info, step = model.init(gen), None, None
+    else:
+        step, info = build_train_step(model, opt, mesh)
+        params = model.init(gen, placements=info["params"])
+    params = unflatten(params, [p.requires_grad_() for p in leaves(params)])
+    state = opt.init(params)
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    for bt in batches:
+        batch = {"tokens": torch.from_numpy(bt).to(dev)}
+        if mesh is None:
+            _, _, loss, met = train_step(model, opt, params, state, batch)
+        else:
+            params, state, loss, met = step(params, state,
+                                            shard_batch(batch, info["rules"]))
+        losses.append(float(loss))
+        norms.append(float(met["grad_norm"]))
+    torch.cuda.synchronize()
+    out = dict(losses=losses, norms=norms, counts=launch_counts(),
+               digest=_mesh_digest(params, info and info["params"]))
+    if step is not None:
+        out["step_stats"] = dict(step.stats)
+    return out
+
+
+def _tp_batches(cfg, b, s, seed):
+    from repro_torch.data import SyntheticLMData
+
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=s,
+                           global_batch=b, seed=seed)
+    return [data.batch(i) for i in range(TP_TRAIN_STEPS)]
+
+
+def _tp_pipeline(rank, dev):
+    """llama3_2_1b's first TP_PIPE[0] dense blocks in f32 as TP_PIPE[1]
+    stages over a ("pipe",) mesh of the two ranks (``pipeline_apply``), 4
+    microbatches of 1 x 256 hidden states, the loss mean(y^2) and its
+    gradients, against the sequential run of all the blocks on this rank
+    (the same draws): the outputs and this rank's stage's gradients."""
+    import torch
+
+    from repro_torch.launch.mesh import make_pipe_mesh
+    from repro_torch.layers import blocks
+    from repro_torch.parallel.pipeline import pipeline_apply, split_stages
+
+    nl, ns, nm, seq = TP_PIPE
+    cfg = _tp_cfg("llama3_2_1b", dict(n_layers=nl), "float32")
+    gen = torch.Generator(device=dev).manual_seed(68)
+    stacked = blocks.tblock_init(gen, cfg, torch.float32, dev, n=nl)
+    x = torch.randn((nm, 1, seq, cfg.d_model), generator=gen, device=dev)
+
+    def stage_fn(p, h):
+        for i in range(next(iter(_leaves(p))).shape[0]):
+            h = blocks.tblock_forward(_index(p, i), h, cfg)[0]
+        return h
+
+    pipe = make_pipe_mesh(device="cpu")
+    mine = _map(lambda t: t[rank:rank + 1].detach().clone().requires_grad_(),
+                split_stages(stacked, ns))
+    reset = _kernels_reset()
+    y = pipeline_apply(stage_fn, mine, x, mesh=pipe)
+    (y ** 2).mean().backward()
+    torch.cuda.synchronize()
+    counts = reset()
+    full = _map(lambda t: t.detach().clone().requires_grad_(), stacked)
+    ys = torch.stack([stage_fn(full, x[i]) for i in range(nm)])
+    (ys ** 2).mean().backward()
+    per = nl // ns
+    want = _map(lambda t: t.grad[rank * per:(rank + 1) * per], full)
+    got = _map(lambda t: t.grad[0], mine)
+    return dict(y=y.detach().cpu(), y_seq=ys.detach().cpu(),
+                grads=[(g.cpu(), w.cpu()) for g, w in
+                       zip(_leaves(got), _leaves(want))],
+                counts=counts)
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves
+
+    return leaves(tree)
+
+
+def _map(fn, tree):
+    from repro_torch.tree import tree_map
+
+    return tree_map(fn, tree)
+
+
+def _index(tree, i):
+    return _map(lambda t: t[i], tree)
+
+
+def _kernels_reset():
+    """Zero the launch counts; returns a function reading them."""
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    reset_launches()
+    return launch_counts
+
+
+def _tp_merge_check(cache, rules, dev):
+    """paligemma's merged decode attention on this rank's sequence shard of
+    the static run's first layer cache, against one ``flash_decode`` over
+    the whole cache (the shards gathered): with the query at the cache's
+    end and at position 99, where the second shard holds no visible slot
+    (lse -inf, weighed 0 by the merge). Returns the worst row ratio."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_decode
+    from repro_torch.parallel import comm
+    from repro_torch.parallel.context import merge_over_model, use_rules
+
+    k, v = cache["stacks"][0]["k"][0], cache["stacks"][0]["v"][0]
+    group = rules.group("model")
+    whole_k, whole_v = (comm.all_gather(t, 2, group).contiguous()
+                        for t in (k, v))
+    m = k.shape[2]
+    lo = rules.coordinate("model") * m
+    gen = torch.Generator(device=dev).manual_seed(69)
+    q = torch.randn((k.shape[0], 8, 1, k.shape[3]), generator=gen,
+                    device=dev).to(k.dtype)
+    slot_pos = torch.arange(lo, lo + m, dtype=torch.int32, device=dev)
+    worst = 0.0
+    for q_pos in (2 * m - 1, 99):
+        kv_len = torch.full((1,), q_pos + 1, dtype=torch.int32, device=dev)
+        o, lse = flash_decode(q, k, v, kv_len=kv_len, slot_pos=slot_pos,
+                              return_lse=True)
+        if lo > q_pos and not bool((lse == float("-inf")).all()):
+            fail("phase 23: a shard past the query gave a finite lse")
+        with use_rules(rules):
+            merged = merge_over_model(o, lse)
+        whole = flash_decode(q, whole_k, whole_v, kv_len=kv_len)
+        _, r = check_rows(f"phase 23 rank {rules.coordinate('model')}: "
+                          f"merged shards' flash_decode at q_pos {q_pos}",
+                          merged, whole, 2 ** -6, quiet=True)
+        worst = max(worst, r)
+    return worst
+
+
+def _tp_rank(rank, world, rdv, out_dir, t_wall):
+    """A rank of phase 23 (a spawned process on the card): joins the gloo
+    group, waits for the parent's "go" (its train references done), serves
+    the four models on (1, 2) (each first decode step's input state kept
+    on the host for the parent's one-rank step), trains the two, runs the
+    pipeline, and pickles its results to ``<out_dir>/rank<r>.pkl`` (a
+    traceback to ``.err``)."""
+    import datetime
+    import pickle
+    import traceback
+
+    marks = [("entered", time.time() - t_wall)]
+    sys.path.insert(0, SRC)
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.models import LM
+        from repro_torch.parallel import comm, make_shardings
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dev = torch.device(TP_DEVICE)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=300))
+        marks.append(("joined", time.time() - t_wall))
+        # the parent's one-rank train references hold the card's memory
+        # until it writes "go"
+        go, deadline = os.path.join(out_dir, "go"), time.monotonic() + 300
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise TimeoutError("phase 23: the parent never wrote go")
+            time.sleep(0.05)
+        marks.append(("go", time.time() - t_wall))
+        mesh = make_local_mesh(data=1, model=2, device="cpu")
+        out = {}
+        for arch, changes, seed in TP_SERVE:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            model = LM(_tp_cfg(arch, changes))
+            placements = make_shardings(model, mesh)[0]
+            params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                                placements=placements)
+            torch.cuda.synchronize()
+            r = {"draw_s": time.perf_counter() - t0}
+            toks = _tp_prompts(model.cfg.vocab_size)
+            comm.reset_elapsed()
+            if arch == "paligemma_3b":
+                (r["tokens"], r["first"], r["counts"], r["stats"],
+                 r["heads"]) = _tp_engine(model, params, toks, mesh=mesh)
+                e = {}
+                (e["tokens"], e["first"], e["counts"], e["stats"], cache,
+                 rules) = _tp_prefix_static(
+                     model, params, toks, _tp_prefix(model.cfg, dev),
+                     mesh=mesh)
+                e["cache_k"] = tuple(cache["stacks"][0]["k"].shape)
+                e["merge_ratio"] = _tp_merge_check(cache, rules, dev)
+                out[arch + " prefix"] = e
+                del cache
+            else:
+                r["tokens"], r["first"], r["counts"], r["stats"] = \
+                    _tp_static(model, params, toks, mesh=mesh)
+            r["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            r["seconds"] = time.perf_counter() - t0
+            out[arch] = r
+            del model, params, placements
+            torch.cuda.empty_cache()
+            marks.append((arch, time.time() - t_wall))
+        for arch, changes, b, s, seed in TP_TRAIN:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            model = LM(_tp_cfg(arch, changes, "float32"))
+            out["train " + arch] = _tp_train(
+                model, _tp_batches(model.cfg, b, s, seed), seed, mesh=mesh)
+            out["train " + arch]["peak_gb"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+            out["train " + arch]["seconds"] = time.perf_counter() - t0
+            del model
+            torch.cuda.empty_cache()
+            marks.append(("train " + arch, time.time() - t_wall))
+        t0 = time.perf_counter()
+        out["pipeline"] = _tp_pipeline(rank, dev)
+        out["pipeline"]["seconds"] = time.perf_counter() - t0
+        marks.append(("pipeline", time.time() - t_wall))
+        out["marks"] = marks
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _tp_train_references():
+    """The one-rank f32 train steps (run while the ranks start; each model
+    freed before the next). Returns {run: result}."""
+    import torch
+
+    from repro_torch.models import LM
+
+    refs = {}
+    for arch, changes, b, s, seed in TP_TRAIN:
+        model = LM(_tp_cfg(arch, changes, "float32"))
+        refs["train " + arch] = _tp_train(
+            model, _tp_batches(model.cfg, b, s, seed), seed)
+        del model
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _tp_forced_step(model, params, first, paged):
+    """One rank's greedy step from the ranks' first decode step's input
+    state: their tokens, the cache they read, whole, each block's input
+    and their MoE routing (teacher forcing the state, each layer and the
+    discrete choices: each block's output and the logits then differ by
+    one block's arithmetic). Returns (the step's whole logits on the host,
+    the routing decisions it took from the ranks where its own router
+    chose otherwise, each block's output)."""
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    dev = model.device
+    cache = tree_map(lambda t: t.to(dev), first["cache"])
+    tokens = first["tokens"].to(dev)
+    with torch.no_grad(), _TPRoutes(replay=list(first["routes"])) as routes, \
+            _TPLayers(replay=list(first["inputs"])) as layers:
+        step = model.paged_greedy_step if paged else model.greedy_step
+        _, logits, _ = step(params, tokens, cache)
+    return logits.float().cpu(), routes.forced, layers.outs
+
+
+def _tp_serve_references(dev, ranks):
+    """After the ranks: each served model once on one rank (its seeded
+    weights), each model freed before the next, so deepseek's whole
+    one-rank copy never sits beside the ranks: the same runs (their launch
+    counts) and, from rank 0's recorded state, each run's first decode
+    step (:func:`_tp_forced_step`). Returns {run: (counts, logits)}."""
+    import torch
+
+    from repro_torch.models import LM
+
+    refs = {}
+    for arch, changes, seed in TP_SERVE:
+        model = LM(_tp_cfg(arch, changes))
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+        toks = _tp_prompts(model.cfg.vocab_size)
+        if arch == "paligemma_3b":
+            counts = _tp_engine(model, params, toks)[2]
+            refs[arch] = (counts, _tp_forced_step(
+                model, params, ranks[0][arch]["first"], True))
+            name = arch + " prefix"
+            counts = _tp_prefix_static(model, params, toks,
+                                       _tp_prefix(model.cfg, dev))[2]
+            refs[name] = (counts, _tp_forced_step(
+                model, params, ranks[0][name]["first"], False))
+        else:
+            counts = _tp_static(model, params, toks)[2]
+            refs[arch] = (counts, _tp_forced_step(
+                model, params, ranks[0][arch]["first"], False))
+        del model, params
+        torch.cuda.empty_cache()
+    return refs
+
+
+def _tp_serve_checks(name, ranks, ref, vocab):
+    """Both ranks' tokens identical, every request complete, the first
+    decode step's whole logits against one rank's step from the same state
+    (2^-4 of the largest |logit|, and the argmax's gap rule), the counts
+    equal to the one-rank run's."""
+    import torch
+
+    a, b = ranks[0][name], ranks[1][name]
+    same = (a["tokens"] == b["tokens"] if isinstance(a["tokens"], list)
+            else bool((a["tokens"] == b["tokens"]).all()))
+    if not same:
+        fail(f"phase 23 {name}: the two ranks emitted different tokens")
+    for t in a["tokens"]:
+        if len(t) != TP_NEW:
+            fail(f"phase 23 {name}: a request got {len(t)} of {TP_NEW} "
+                 "tokens")
+    got, (want, forced, outs) = a["first"]["logits"], ref[1]
+    # each block's output from the ranks' input against the ranks' next
+    # block's input (the same limit as the logits)
+    worst = 0.0
+    for i, (o, nxt_in) in enumerate(zip(outs, a["first"]["inputs"][1:])):
+        e = check_rel(f"phase 23 {name}: block {i}'s output from the ranks' "
+                      "input", nxt_in, o, 2 ** -4, quiet=True)
+        worst = max(worst, e / max(float(o.abs().max()), 1e-30))
+    if not torch.equal(got, b["first"]["logits"]):
+        fail(f"phase 23 {name}: the ranks' gathered logits differ")
+    err = check_rel(f"phase 23 {name}: the first decode step's logits on "
+                    "(1, 2) against one rank's step from the same state",
+                    got[:, :vocab], want[:, :vocab], 2 ** -4)
+    check_argmax(f"phase 23 {name}: the sharded step's argmax",
+                 torch.from_numpy(a["first"]["next"]), want, vocab,
+                 gap_tol=2 * err)
+    log(f"[check] phase 23 {name}: {len(outs)} blocks, each from the "
+        "ranks' input, within " f"{worst:.3e} of its largest |output| of "
+        "the ranks' next input (limit 2^-4)")
+    if a["first"]["routes"]:
+        n = sum(r.numel() // r.shape[-1] for r in a["first"]["routes"])
+        log(f"[check] phase 23 {name}: one rank's step replayed the ranks' "
+            f"routing, choosing otherwise itself in {forced} of {n} "
+            "(layer, token) decisions")
+    for r, rk in enumerate(ranks):
+        _tp_counts(f"{name} rank {r}", rk[name]["counts"], ref[0],
+                   TP_SERVE_COUNTED)
+    return {k: a["counts"][k] for k in TP_SERVE_COUNTED if a["counts"][k]}
+
+
+def _tp_counts(tag, got, want, names, launched=()):
+    """Each rank's launch counts of ``names`` equal the one-rank run's,
+    and the kernels ``launched`` launched."""
+    bad = {k: (got[k], want[k]) for k in names if got[k] != want[k]}
+    if bad:
+        fail(f"phase 23 {tag}: launch counts differ from one rank's: {bad}")
+    if any(not got[k] for k in launched):
+        fail(f"phase 23 {tag}: a kernel never launched: "
+             f"{ {k: got[k] for k in launched} }")
+
+
+def _tp_shard_kernels(dev):
+    """The kernels at this phase's shard shapes, each against its plain
+    version and timed beside its bound and library call: flash_decode with
+    lse on paligemma's sequence shard (5sp; the shard past the query
+    too), paged_decode at 4 query heads over one kv head, d 256 (6ptp),
+    flash_fwd at deepseek's (192, 128) with 8 heads a rank (2mtp), and
+    ssm_scan at falcon's d_inner shard (13tp) and zamba2's 56 heads
+    (13ztp). Returns {row: timing dict}."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import decode_ref, flash_decode
+    from repro_torch.kernels.ssm_scan import selective_scan_ref, ssm_scan_fwd
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(70)
+    out = {}
+
+    # 5sp: the static path's decode over a rank's half of the slots
+    pg = get_config("paligemma_3b")
+    b, h, d = TP_PROMPTS, pg.n_heads, pg.resolved_head_dim
+    m = (pg.num_prefix_embeddings + TP_PLEN + TP_NEW) // 2
+    q = torch.randn((b, h, 1, d), generator=gen, device=dev).to(bf)
+    k, v = (torch.randn((b, 1, m, d), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    for lo, q_pos in ((m, 2 * m - 1), (m, m - 3), (0, 2 * m - 1)):
+        sp = torch.arange(lo, lo + m, dtype=torch.int32, device=dev)
+        kv_len = torch.full((1,), q_pos + 1, dtype=torch.int32, device=dev)
+        o, lse = flash_decode(q, k, v, kv_len=kv_len, slot_pos=sp,
+                              return_lse=True)
+        ro, rlse = decode_ref(q, k, v, kv_len=kv_len, slot_pos=sp,
+                              return_lse=True)
+        tag = f"flash_decode bf16 lse, shard [{lo}, {lo + m}), q_pos {q_pos}"
+        check_close(tag + ": o", o, ro, atol=2e-2, rtol=2e-2)
+        if lo > q_pos:
+            if not (bool((o == 0).all()) and bool(
+                    (lse == float("-inf")).all())):
+                fail(f"{tag}: an empty shard gave o != 0 or a finite lse")
+            log(f"[check] {tag}: every row o = 0, lse = -inf")
+        else:
+            check_close(tag + ": lse", lse, rlse, atol=1e-3, rtol=1e-4)
+    sp = torch.arange(m, 2 * m, dtype=torch.int32, device=dev)
+    kv_len = torch.full((1,), 2 * m, dtype=torch.int32, device=dev)
+    dbytes = 2 * b * m * d * 2 + 2 * b * h * d * 2 + b * h * 4
+    out["flash_decode@sp"] = dict(
+        ms=cuda_ms(lambda: flash_decode(q, k, v, kv_len=kv_len, slot_pos=sp,
+                                        return_lse=True)),
+        plain_ms=cuda_ms(lambda: decode_ref(q, k, v, kv_len=kv_len,
+                                            slot_pos=sp, return_lse=True),
+                         iters=10),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True)), bytes=dbytes,
+        library="F.scaled_dot_product_attention on the shard (every slot "
+                "visible; no lse)",
+        shape=f"q ({b},{h},1,{d}), shard k/v ({b},1,{m},{d}) bf16, "
+              "slot_pos the shard's positions, lse out")
+    out["flash_decode@sp"].update(zip(("bound_ms", "bound_by"), bound(
+        dbytes, 4 * b * h * m * d, "bfloat16")))
+
+    # 6ptp: the engine's decode at 4 query heads over the replicated head
+    local = dataclasses.replace(pg, n_heads=h // 2)
+    page = fit_page(TP_PLEN + TP_NEW)
+    lens = [TP_PLEN + TP_NEW] * TP_PROMPTS
+    out["paged_decode@ptp"] = paged_times(
+        dev, local, lens, page, TP_PROMPTS * -(-(TP_PLEN + TP_NEW) // page)
+        + 1, gen, profile=False)
+
+    # 2mtp: deepseek's prefill at 8 heads a rank
+    s = TP_PLEN
+    q, k, v = _mla_inputs(gen, b, s, 8, bf)
+    check_flash_tc(f"flash_fwd bf16 at deepseek's prefill shard q "
+                   f"{tuple(q.shape)}, v {tuple(v.shape)}", q, k, v,
+                   causal=True)
+    pairs = b * s * (s + 1) // 2
+    out["flash_fwd@mtp"] = dict(
+        **flash_times(q, k, v, iters=30, plain_iters=5, profile=False),
+        flops=2 * 8 * (192 + 128) * pairs,
+        shape=f"q/k ({b},8,{s},192), v ({b},8,{s},128) view bf16, causal")
+    out["flash_fwd@mtp"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * b * 8 * s * (192 * 2 + 128 * 2) + 4 * b * 8 * s,
+        2 * 8 * (192 + 128) * pairs, "bfloat16")))
+    del q, k, v
+
+    # 13tp / 13ztp: the prefill scans at the ranks' channel shards
+    for row, dm, n, heads in (("ssm_scan@tp", 4096, 16, None),
+                              ("ssm_scan@ztp", 3584, 64, 56)):
+        x = torch.randn((b, s, dm), generator=gen, device=dev).to(bf)
+        if heads:
+            dt = F.softplus(torch.randn((b, s, heads), generator=gen,
+                                        device=dev) - 4)
+            delta = dt.repeat_interleave(dm // heads, dim=-1)
+            a = -(1 + 15 * torch.rand((heads,), generator=gen, device=dev))
+            A = a.repeat_interleave(dm // heads)[:, None].expand(
+                dm, n).contiguous()
+        else:
+            delta = F.softplus(torch.randn((b, s, dm), generator=gen,
+                                           device=dev) - 4)
+            A = -torch.arange(1, n + 1, dtype=torch.float32,
+                              device=dev).expand(dm, n).contiguous()
+        B, C = (torch.randn((b, s, n), generator=gen, device=dev).to(bf)
+                for _ in range(2))
+        D = torch.ones(dm, device=dev)
+        args = (x, delta, A, B, C, D)
+        y, hT = ssm_scan_fwd(*args)
+        ry, rhT = selective_scan_ref(*args)
+        # the earlier phases' limits: y one bf16 rounding each side, hT
+        # (f32) 1e-3 of its largest magnitude
+        check_close(f"ssm_scan bf16 y at {row}'s shard x {tuple(x.shape)}, "
+                    f"n {n}", y, ry, atol=1e-2, rtol=2 ** -7)
+        check_rel(f"ssm_scan bf16 hT (f32) at {row}'s shard", hT, rhT, 1e-3)
+        out[row] = dict(
+            ms=cuda_ms(lambda: ssm_scan_fwd(*args), iters=10, warmup=2),
+            plain_ms=cuda_ms(lambda: selective_scan_ref(*args), iters=2,
+                             warmup=1),
+            library_ms=None, library="none: no single PyTorch call "
+                                     "computes it",
+            shape=f"x ({b},{s},{dm}) bf16, delta f32, B/C ({b},{s},{n}) "
+                  "bf16")
+        out[row].update(zip(("bound_ms", "bound_by"),
+                            scan_bound(b, s, dm, n, 2)))
+    torch.cuda.synchronize()
+    return out
+
+
+def fit_page(max_len):
+    from repro_torch.device import fit_block
+
+    return fit_block(512, max_len)
+
+
+def tp_phase(dev):
+    """Phase 23: the one-rank train references while the two ranks start;
+    then the ranks serve, train and pipeline (see the module docstring);
+    then each served model once on one rank (its counts, and its first
+    decode step from the ranks' state); the parent holds the results and
+    times the kernels at the shard shapes. Returns the rows for
+    log_times."""
+    import torch
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    running = _spawn_mesh_ranks(target=_tp_rank, tag="phase 23",
+                                timeout=TP_TIMEOUT)
+    marks = [("spawned", time.perf_counter() - t_start)]
+    try:
+        refs = _tp_train_references()
+    except BaseException:
+        running._kill()
+        raise
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    open(os.path.join(running.tmp, "go"), "w").close()
+    marks.append(("train references", time.perf_counter() - t_start))
+    ranks = running.join()
+    t_ranks = time.perf_counter() - t_start
+    marks.append(("ranks", t_ranks))
+    refs.update(_tp_serve_references(dev, ranks))
+    marks.append(("serve references", time.perf_counter() - t_start))
+
+    from repro_torch.configs import get_config
+
+    lines = []
+    for arch, changes, _ in TP_SERVE:
+        vocab = get_config(arch).vocab_size
+        names = ([arch, arch + " prefix"] if arch == "paligemma_3b"
+                 else [arch])
+        for name in names:
+            counts = _tp_serve_checks(name, ranks, refs[name], vocab)
+            lines.append(f"{name if name != 'paligemma_3b' else name + ' engine'}"
+                         ": " + ", ".join(f"{k}={v}"
+                                         for k, v in counts.items()))
+    for r, rk in enumerate(ranks):
+        if rk["paligemma_3b"]["heads"] != 1:
+            fail("phase 23: paligemma's pools hold "
+                 f"{rk['paligemma_3b']['heads']} kv heads on rank {r}")
+        pre = rk["paligemma_3b prefix"]
+        if pre["cache_k"][3] * 2 != (get_config("paligemma_3b")
+                                     .num_prefix_embeddings
+                                     + TP_PLEN + TP_NEW):
+            fail(f"phase 23: paligemma's decode cache {pre['cache_k']} is "
+                 "not a sequence shard")
+    log("[tp] served on (1, 2), identical tokens on both ranks, each first "
+        "decode step within 2^-4 of one rank's step from the same state, "
+        "counts each rank's as one rank's: " + "; ".join(lines))
+    log("[tp] paligemma's merged flash_decode over the two sequence shards "
+        "against one call on the whole cache: worst err / row max "
+        + ", ".join(f"{rk['paligemma_3b prefix']['merge_ratio']:.3e}"
+                    for rk in ranks))
+
+    for arch, _, _, _, _ in TP_TRAIN:
+        name = "train " + arch
+        want = refs[name]
+        for r, rk in enumerate(ranks):
+            t = rk[name]
+            for what in ("losses", "norms"):
+                worst = max(abs(x - y) / abs(y)
+                            for x, y in zip(t[what], want[what]))
+                if worst > MESH_TRAIN_REL:
+                    fail(f"phase 23 {name} rank {r}: {what} {t[what]} vs "
+                         f"one rank {want[what]} ({worst:.3e} relative)")
+            worst = 0.0
+            for (sw, sq, sa), (rw, rq, ra) in zip(t["digest"],
+                                                  want["digest"]):
+                worst = max(worst, abs(sw - rw) / ra, abs(sq - rq) / rq)
+            if worst > MESH_TRAIN_REL:
+                fail(f"phase 23 {name} rank {r}: the parameters' weighted "
+                     f"sums differ by {worst:.3e} of their size")
+            _tp_counts(f"{name} rank {r}", t["counts"], want["counts"],
+                       TP_TRAIN_COUNTED, ("flash_bwd", "lm_head_bwd"))
+        log(f"[tp] {name} f32 on (1, 2): losses {ranks[0][name]['losses']} "
+            f"(one rank {want['losses']}), parameters within {worst:.3e}; "
+            "counts " + ", ".join(f"{k}={ranks[0][name]['counts'][k]}"
+                                  for k in TP_TRAIN_COUNTED
+                                  if ranks[0][name]['counts'][k]))
+
+    for r, rk in enumerate(ranks):
+        p = rk["pipeline"]
+        check_rel(f"phase 23 pipeline rank {r}: the outputs against the "
+                  "sequential run", p["y"], p["y_seq"], TP_PIPE_REL)
+        for i, (g, w) in enumerate(p["grads"]):
+            check_rel(f"phase 23 pipeline rank {r}: stage gradient leaf {i}",
+                      g, w, TP_PIPE_REL, quiet=True)
+        _tp_counts(f"pipeline rank {r}", p["counts"], p["counts"], (),
+                   ("flash_fwd", "flash_bwd"))
+    log(f"[tp] pipeline: llama3_2_1b's {TP_PIPE[0]} blocks f32 in "
+        f"{TP_PIPE[1]} stages, {TP_PIPE[2]} microbatches of 1 x "
+        f"{TP_PIPE[3]}: outputs and each stage's "
+        f"{len(ranks[0]['pipeline']['grads'])} gradient leaves within "
+        f"{TP_PIPE_REL} of the sequential run; rank 0 counts flash_fwd="
+        f"{ranks[0]['pipeline']['counts']['flash_fwd']}, flash_bwd="
+        f"{ranks[0]['pipeline']['counts']['flash_bwd']}")
+
+    times = _tp_shard_kernels(dev)
+    marks.append(("shard kernels", time.perf_counter() - t_start))
+    secs = time.perf_counter() - t_start
+    parts = []
+    for r, rk in enumerate(ranks):
+        for name in [a for a, _, _ in TP_SERVE] + ["paligemma_3b prefix"]:
+            st = rk[name]["stats"]
+            n = max(len(st["host_ms"]), 1)
+            parts.append(
+                f"rank {r} {name}: step {sum(st['host_ms']) / n:.3f} ms "
+                f"host, {sum(st['collective_ms']) / n:.3f} ms in "
+                f"collectives, {sum(st['gathered_bytes']) / n:.0f} B "
+                "gathered a step"
+                + (f", peak {rk[name]['peak_gb']:.2f} GiB, draw "
+                   f"{rk[name]['draw_s']:.1f} s" if "peak_gb" in rk[name]
+                   else ""))
+        for arch, _, _, _, _ in TP_TRAIN:
+            t = rk["train " + arch]
+            n = max(len(t["step_stats"]["host_ms"]), 1)
+            parts.append(f"rank {r} train {arch}: step "
+                         f"{sum(t['step_stats']['host_ms']) / n:.3f} ms "
+                         f"host, {sum(t['step_stats']['collective_ms']) / n:.3f}"
+                         f" ms in collectives, peak {t['peak_gb']:.2f} GiB")
+    log("[tp time] timeline s: this process " + ", ".join(
+        f"{k} {v:.1f}" for k, v in marks) + "; rank 0 from its spawn "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["marks"]))
+    log(f"[tp time] phase 23 {secs:.1f} s; " + "; ".join(parts)
+        + " (gloo collectives of two processes on one host, CUDA tensors "
+          "through host memory: figures of gloo, not of NCCL)")
     return times
 
 
@@ -9084,6 +10097,13 @@ def run_phases():
     # shapes; the ring's wide head dims
     times.update(mesh_phase(dev))
     elapsed("phase 22 mesh")
+
+    # 23. every kind on the mesh: deepseek_v2_lite and paligemma_3b whole,
+    # falcon_mamba_7b and zamba2_7b cut, served by two ranks on (1, 2);
+    # deepseek and zamba2 trained; the pipeline; the kernels at the shard
+    # shapes
+    times.update(tp_phase(dev))
+    elapsed("phase 23 every kind on the mesh")
     log_times(times)
     log_spec_costs(spec_costs, times)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")

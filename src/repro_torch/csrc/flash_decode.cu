@@ -51,7 +51,12 @@
 //    entry point, rescales and sums them, 256 outputs a block. A live
 //    range with no live slot writes m = -inf, l = 0, acc = 0: an exact
 //    no-op. A masked slot adds exactly nothing (p = 0 selects), whatever
-//    its k and v hold.
+//    its k and v hold. Asked for, the combine also writes each row's
+//    natural-log softmax normaliser lse = (M + log2 L) ln 2, -inf for a row
+//    with no live slot, so that partials over several slices of a cache
+//    (a sequence-sharded cache's ranks) merge exactly. A slice passes its
+//    slots' absolute positions as slot_pos; those are never below the slot
+//    index, so range_live's skip by index stays sound there.
 #include "attn_sm90.cuh"  // cp16, cp_commit, cp_wait, ex2, LOG2E, smem_u32
 #include "common.cuh"
 
@@ -338,8 +343,8 @@ __global__ void __launch_bounds__(NT) flash_decode_split_kernel(
 template <typename T, int D>
 __global__ void __launch_bounds__(NT) flash_decode_combine_kernel(
     const float* __restrict__ ws, const int* __restrict__ kv_len_dev,
-    T* __restrict__ o, int h, int hk, int skv, int kv_len, int window,
-    int split) {
+    T* __restrict__ o, float* __restrict__ lse, int h, int hk, int skv,
+    int kv_len, int window, int split) {
   __shared__ float mm[MAXG], ll[MAXG];
   const int g = h / hk;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -367,6 +372,11 @@ __global__ void __launch_bounds__(NT) flash_decode_combine_kernel(
     if (lane == 0) {
       mm[gi - g0] = m;
       ll[gi - g0] = l;
+      // blocks that share a head write the same value
+      if (lse)
+        lse[static_cast<long long>(bi) * h + kh * g + gi] =
+            (m == NEG_INF || !(l > 0.f)) ? NEG_INF
+                                         : (m + log2f(l)) * 0.69314718055994531f;
     }
   }
   __syncthreads();
@@ -403,7 +413,8 @@ int split_smem_attr() {  // once per kernel: its shared memory may pass 48 KB
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const int* slot_pos,
-           const int* kv_len_dev, void* o, float* ws, int b, int h, int hk,
+           const int* kv_len_dev, void* o, float* lse, float* ws, int b,
+           int h, int hk,
            int skv, int kv_len, int window, int split, float sm_scale,
            const long long* st, cudaStream_t s) {
   if (const int err = split_smem_attr<T, D>()) return err;
@@ -416,7 +427,8 @@ int launch(const void* q, const void* k, const void* v, const int* slot_pos,
           st[3], st[4], st[5]);
   const int g = h / hk;
   flash_decode_combine_kernel<T, D><<<dim3((g * D + 2 * NT - 1) / (2 * NT), hk, b), NT, 0, s>>>(
-      ws, kv_len_dev, static_cast<T*>(o), h, hk, skv, kv_len, window, split);
+      ws, kv_len_dev, static_cast<T*>(o), lse, h, hk, skv, kv_len, window,
+      split);
   return 0;
 }
 
@@ -429,15 +441,17 @@ int launch(const void* q, const void* k, const void* v, const int* slot_pos,
 // aligned. slot_pos is (skv,) i32 or null (slot i holds position i);
 // kv_len_dev is one i32 on the device or null (kv_len is used); window <= 0
 // means no window. split: slots a block, a multiple of 32 in [32, 512]; ws:
-// b * h * ceil(skv / split) * (d + 2) f32 of workspace. Launches the split
-// kernel and the combine kernel.
+// b * h * ceil(skv / split) * (d + 2) f32 of workspace; lse (the last
+// argument) is (b, h) f32 or null (not written). Launches the split kernel
+// and the combine kernel.
 extern "C" int flash_decode(const void* q, const void* k, const void* v,
                             const int* slot_pos, const int* kv_len_dev,
-                            void* o, void* ws, int b, int h, int hk, int skv,
-                            int d, int dtype, int kv_len, int window,
-                            int split, float sm_scale, long long qsb,
-                            long long qsh, long long ksb, long long ksh,
-                            long long vsb, long long vsh, void* stream) {
+                            void* o, void* ws, int b, int h, int hk,
+                            int skv, int d, int dtype, int kv_len,
+                            int window, int split, float sm_scale,
+                            long long qsb, long long qsh, long long ksb,
+                            long long ksh, long long vsb, long long vsh,
+                            void* stream, void* lse) {
   const long long st[6] = {qsb, qsh, ksb, ksh, vsb, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || hk <= 0 || skv <= 0 || h % hk != 0 || h / hk > MAXG ||
@@ -447,8 +461,9 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v,
   float* w = static_cast<float*>(ws);
   int err;
 #define REPRO_DECODE(T, D)                                                    \
-  err = launch<T, D>(q, k, v, slot_pos, kv_len_dev, o, w, b, h, hk, skv,      \
-                     kv_len, window, split, sm_scale, st, s)
+  err = launch<T, D>(q, k, v, slot_pos, kv_len_dev, o,                     \
+                     static_cast<float*>(lse), w, b, h, hk, skv, kv_len,      \
+                     window, split, sm_scale, st, s)
   if (dtype == 0 && d == 32) REPRO_DECODE(float, 32);
   else if (dtype == 0 && d == 64) REPRO_DECODE(float, 64);
   else if (dtype == 0 && d == 112) REPRO_DECODE(float, 112);

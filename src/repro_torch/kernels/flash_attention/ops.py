@@ -95,8 +95,8 @@ _BWD_SIG = {"flash_bwd": ([_P] * 9 + [_I] * 11 + [_F] + [_L] * 12 + [_P],
                           _I),
             "flash_bwd_tc": ([_P] * 9 + [_I] * 10 + [_F] + [_L] * 12 + [_P],
                              _I)}
-_DECODE_SIG = {"flash_decode": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 6 + [_P],
-                                _I)}
+_DECODE_SIG = {"flash_decode": ([_P] * 7 + [_I] * 9 + [_F] + [_L] * 6
+                                 + [_P] * 2, _I)}
 _DECODE_ENTRY = None           # (library, its flash_decode), bound on first use
 _DELTA_SIG = {"flash_delta": ([_I] + [_P] * 3 + [_I] * 6 + [_L] * 6 + [_P],
                               _I)}
@@ -482,7 +482,7 @@ def _decode_entry():
 
 
 def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
-                 sm_scale=None, split=None):
+                 sm_scale=None, split=None, return_lse=False):
     """q (B, H, 1, D) against a contiguous cache k, v (B, Hk, S, D) ->
     (B, H, 1, D) in q's dtype. ``kv_len`` (default S) puts the query at
     position kv_len - 1: an int, or a one-element int32 tensor on q's
@@ -495,12 +495,18 @@ def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
     kernel cuts the slots into ranges of ``split`` slots and merges the
     ranges' partials (:func:`decode_split_ref` is its plain model);
     ``split`` defaults to :func:`decode_split`'s. Head dims 32, 64, 112,
-    128 and 256, groups of up to 16 query heads with group * d <= 2048."""
+    128 and 256, groups of up to 16 query heads with group * d <= 2048.
+    ``return_lse``: (o, lse (B, H) f32), each row's natural-log softmax
+    normaliser, written by the kernel's merge (-inf for a row that sees no
+    slot, so that an exact merge of several caches' partials weighs it 0:
+    a sequence shard of a cache passes its slots' absolute positions as
+    ``slot_pos``)."""
     name = "flash_decode"
     dev_len = torch.is_tensor(kv_len)
     if on_cpu(name, q, k, v, slot_pos, kv_len if dev_len else None):
         return decode_ref(q, k, v, window=window, sm_scale=sm_scale,
-                          kv_len=kv_len, slot_pos=slot_pos)
+                          kv_len=kv_len, slot_pos=slot_pos,
+                          return_lse=return_lse)
     win = _window(name, window)
     _decode_check(name, q, k, v, kv_len, slot_pos)
     b, h, _, d = q.shape
@@ -512,6 +518,8 @@ def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
         raise ValueError(f"{name}: {refused}")
     nsplit = -(-skv // split)
     o = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     ws = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
                      device=q.device)
     lib, fn = _decode_entry()
@@ -522,11 +530,11 @@ def flash_decode(q, k, v, *, kv_len=None, slot_pos=None, window=None,
              0 if dev_len else skv if kv_len is None else int(kv_len), win,
              split, d ** -0.5 if sm_scale is None else sm_scale,
              q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-             v.stride(1), stream())
+             v.stride(1), stream(), None if lse is None else lse.data_ptr())
     if err:
         check(lib, err, name)
     flash_decode.launches += 1
-    return o
+    return (o, lse) if return_lse else o
 
 
 flash_decode.launches = 0

@@ -94,7 +94,7 @@ def mha_ref(q, k, v, *, causal=True, window=None, sm_scale=None,
 
 
 def decode_ref(q, k, v, *, window=None, sm_scale=None, kv_len=None,
-               slot_pos=None):
+               slot_pos=None, return_lse=False):
     """One query token per (batch, head): q (B, H, 1, D) against a
     contiguous cache k (B, Hk, S, D), v (B, Hk, S, Dv) -> (B, H, 1, Dv) in
     q's dtype. The query sits at position ``kv_len - 1`` (``kv_len`` an int
@@ -103,7 +103,9 @@ def decode_ref(q, k, v, *, window=None, sm_scale=None, kv_len=None,
     -1 = empty) gives each slot's
     absolute position, so rotated rolling-window caches mask correctly;
     omitted, slot i holds position i. A slot is visible when 0 <= pos <=
-    q_pos and q_pos - pos < window; a row that sees no slot gives 0."""
+    q_pos and q_pos - pos < window; a row that sees no slot gives 0.
+    ``return_lse``: (o, lse (B, H) f32), the row's natural-log softmax
+    normaliser (-inf for a row that sees no slot)."""
     b, h, _, d = q.shape
     hk, m = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -121,8 +123,9 @@ def decode_ref(q, k, v, *, window=None, sm_scale=None, kv_len=None,
         mask &= (q_pos - sp) < window
     qg = q.reshape(b, hk, g, 1, d).float()
     s = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * sm_scale
-    o, _ = _softmax_av(s, mask, v[:, :, None])
-    return o.reshape(b, h, 1, dv).to(q.dtype)
+    o, lse = _softmax_av(s, mask, v[:, :, None])
+    o = o.reshape(b, h, 1, dv).to(q.dtype)
+    return (o, lse.reshape(b, h)) if return_lse else o
 
 
 def _split_merge(q, kb, vb, mask, split, sm_scale, dtype):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from repro_torch.device import resolve_device
 
-__all__ = ["make_production_mesh", "make_local_mesh"]
+__all__ = ["make_production_mesh", "make_local_mesh", "make_pipe_mesh"]
 
 
 def _world(what):
@@ -58,3 +58,19 @@ def make_local_mesh(*, data=None, model=1, device=None):
                          f"!= world size {n}")
     return init_device_mesh(dev.type, (data, model),
                             mesh_dim_names=("data", "model"))
+
+
+def make_pipe_mesh(*, stages=None, device=None):
+    """A one-axis ("pipe",) mesh of ``stages`` ranks (default: every rank
+    of the default process group), for ``parallel.pipeline``: JAX's
+    ``jax.make_mesh((S,), ("pipe",))``. Runs on the CUDA card unless
+    ``device="cpu"``."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = _world("make_pipe_mesh")
+    stages = stages or n
+    if stages != n:
+        raise ValueError(f"make_pipe_mesh: {stages} stages != world size "
+                         f"{n}")
+    return init_device_mesh(resolve_device(device).type, (stages,),
+                            mesh_dim_names=("pipe",))

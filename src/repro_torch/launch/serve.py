@@ -39,7 +39,8 @@ from repro_torch.launch import tuning
 from repro_torch.models import LM
 from repro_torch.parallel import comm
 from repro_torch.parallel.context import use_rules
-from repro_torch.parallel.steps import (build_serve_step, make_shardings,
+from repro_torch.parallel.steps import (build_serve_step, cache_pspecs,
+                                        make_shardings, reshard_cache,
                                         shard_tree)
 from repro_torch.serving import Engine, sample
 
@@ -69,7 +70,7 @@ def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
              max_len: int | None = None, temperature: float = 1.0,
              pad_id: int | None = None, engine: str = "auto",
              page_size: int | None = None, num_pages: int | None = None,
-             mesh=None, cache_dtype=None):
+             mesh=None, cache_dtype=None, sharded=False):
     """prompts: (B, P) int -> ((B, <=gen_tokens) int32 tokens, stats).
 
     Rows that finish early are padded with ``pad_id`` (default: ``eos_id``
@@ -81,7 +82,9 @@ def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
     both paths (default: prompt + generation); ``page_size``/``num_pages``
     and ``cache_dtype`` pass through to the engine. ``mesh``: serve on every
     rank of this mesh, each rank calling ``generate`` with the same full
-    ``params`` and prompts; every rank returns the whole output."""
+    ``params`` (or, with ``sharded=True``, its shards of them:
+    ``make_shardings``' placements, e.g. ``LM.init(gen, placements=)``) and
+    prompts; every rank returns the whole output."""
     if engine not in ("auto", "paged", "static"):
         raise ValueError(f"engine must be auto|paged|static, got {engine!r}")
     b, plen = prompts.shape
@@ -92,12 +95,13 @@ def generate(model: LM, params, prompts: np.ndarray, *, gen_tokens: int,
                   rng=rng, max_len=max_len, temperature=temperature,
                   pad_id=pad_id)
         if mesh is not None:
-            return _generate_sharded(model, params, prompts, mesh, **kw)
+            return _generate_sharded(model, params, prompts, mesh,
+                                     sharded=sharded, **kw)
         return _generate_static(model, params, prompts, **kw)
     eng = Engine(model, params, batch=b, max_len=max_len, page_size=page_size,
                  num_pages=num_pages, eos_id=eos_id, greedy=greedy,
                  temperature=temperature, rng=rng, mesh=mesh,
-                 cache_dtype=cache_dtype)
+                 cache_dtype=cache_dtype, sharded=sharded)
     t0 = time.perf_counter()
     rids = [eng.submit(prompts[i].tolist(), gen_tokens) for i in range(b)]
     results = eng.drain(max_steps=8 * (b * gen_tokens + b))
@@ -161,6 +165,13 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
     with torch.no_grad(), use_rules(rules):
         logits, cache = model.prefill(params, toks, max_len=max_len)
         tok = model.greedy_token(logits).cpu().numpy()
+        if rules is not None:
+            # the prefill's layout into the decode steps' (once)
+            gb = b * rules.data_size
+            cache = reshard_cache(
+                cache, cache_pspecs(model, rules.mesh, gb, max_len,
+                                    kind="prefill"),
+                cache_pspecs(model, rules.mesh, gb, max_len), rules.mesh)
     prefill_s = time.perf_counter() - t0
     # the persisted decode split, passed to the step (its graph keeps it)
     tuned = apply_tuned_winners(cfg, b, plen, max_len, device=model.device,
@@ -199,11 +210,12 @@ def _generate_static(model: LM, params, prompts: np.ndarray, *,
                  "engine": False, "tuned": tuned, "device": str(model.device)}
 
 
-def _generate_sharded(model, params, prompts, mesh, **kw):
-    """The static loop on ``mesh``: this rank's parameter shards and its
-    rows of the prompts; the data ranks' rows gathered at the end, each
-    padded to the longest (a row stopped early on EOS is padded, as the
-    loop pads it)."""
+def _generate_sharded(model, params, prompts, mesh, *, sharded=False, **kw):
+    """The static loop on ``mesh``: this rank's parameter shards (``params``
+    cut to them, or ``params`` themselves with ``sharded``) and its rows of
+    the prompts; the data ranks' rows gathered at the end, each padded to
+    the longest (a row stopped early on EOS is padded, as the loop pads
+    it)."""
     placements, _, rules, _ = make_shardings(model, mesh)
     n, i = rules.data_size, rules.data_index()
     b = prompts.shape[0]
@@ -213,9 +225,9 @@ def _generate_sharded(model, params, prompts, mesh, **kw):
             "ranks (the sequence-sharded cache of cache_pspecs is not "
             "ported)")
     c = b // n
-    out, stats = _generate_static(model, shard_tree(params, placements),
-                                  prompts[i * c:(i + 1) * c], rules=rules,
-                                  **kw)
+    local = params if sharded else shard_tree(params, placements)
+    out, stats = _generate_static(model, local, prompts[i * c:(i + 1) * c],
+                                  rules=rules, **kw)
     if n > 1:
         dev = model.device
         width = int(comm.all_reduce(torch.tensor([out.shape[1]], device=dev),

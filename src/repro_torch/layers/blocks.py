@@ -16,11 +16,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.ssm_scan import ssm_scan_state
-
 from . import attention as attn
 from . import mamba as mb
-from .common import rmsnorm, silu
+from .common import rmsnorm
 from .mlp import mlp_forward, mlp_init
 from .moe import moe_forward, moe_init
 
@@ -65,7 +63,7 @@ def _ffn(params, x, cfg, moe, dispatch):
     h = rmsnorm(x, params["norm2"], eps=cfg.norm_eps)
     if moe:
         return moe_forward(params["moe"], h, cfg, dispatch=dispatch)
-    return mlp_forward(params["mlp"], h), None
+    return mlp_forward(params["mlp"], h, cfg.d_ff), None
 
 
 def tblock_forward(params, x, cfg, *, moe=False, prefix_len=0,
@@ -105,7 +103,8 @@ def tblock_prefill(params, x, cfg, *, moe=False, dispatch="einsum",
         cache = attn.mla_prefill_cache(cache, latent, cfg)
     else:
         a, (k, v) = attn.gqa_forward(params["attn"], h, cfg,
-                                     prefix_len=prefix_len, return_kv=True)
+                                     prefix_len=prefix_len, return_kv=True,
+                                     max_len=max_len)
         cache = attn.gqa_cache_init(cfg, x.shape[0], max_len, x.dtype,
                                     x.device)
         cache = attn.gqa_prefill_cache(cache, k, v, cfg)
@@ -202,16 +201,8 @@ def mamba_block_prefill(params, x, cfg):
     if _mamba2(cfg):
         y, state, raw = mb._mamba2_scan(p, h, cfg)
         return x + y, {"conv": _conv_tail(raw, kc, x.dtype), "h": state}
-    xi = h @ p["in_x"]
-    z = h @ p["in_z"]
-    tail = _conv_tail(xi, kc, x.dtype)
-    xi = silu(mb._causal_conv(xi, p["conv_w"], p["conv_b"]).to(xi.dtype))
-    dt, Bm, Cm = mb._mamba1_dtbc(p, xi, cfg)
-    A = -torch.exp(p["A_log"])
-    y, hT = ssm_scan_state(xi, dt, A, Bm, Cm, p["D"])
-    y = y * silu(z)
-    out = x + (y @ p["out_proj"])
-    return out, {"conv": tail, "h": hT}
+    y, hT, raw = mb._mamba1_scan(p, h, cfg, state=True)
+    return x + y, {"conv": _conv_tail(raw, kc, x.dtype), "h": hT}
 
 
 def mamba_block_decode(params, x, cache, cfg):

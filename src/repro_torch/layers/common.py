@@ -7,11 +7,33 @@ backend switch as in ``repro.layers.common``.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import torch
 
 from repro_torch.kernels.rmsnorm import rmsnorm
 
-__all__ = ["dense_init", "rmsnorm", "silu", "softplus"]
+__all__ = ["dense_init", "keeping", "rmsnorm", "silu", "softplus"]
+
+_KEEP = contextvars.ContextVar("repro_torch_dense_init_keep", default=None)
+
+
+@contextlib.contextmanager
+def keeping(fn):
+    """Within: every tensor :func:`dense_init` makes is passed to ``fn`` as
+    soon as it is drawn, and ``fn``'s result is what the init keeps (a
+    rank's shard of the leaf: ``LM.init(placements=)``)."""
+    tok = _KEEP.set(fn)
+    try:
+        yield
+    finally:
+        _KEEP.reset(tok)
+
+
+def _kept(t):
+    fn = _KEEP.get()
+    return t if fn is None else fn(t)
 
 
 def dense_init(gen, shape, dtype, device, *, n=None, scale=None,
@@ -26,7 +48,7 @@ def dense_init(gen, shape, dtype, device, *, n=None, scale=None,
     if torch.device(device).type == "meta":
         # shapes only (parallel.steps.params_shape): no draw, and no meta
         # arithmetic, which imports torch._dynamo
-        return torch.empty(full, dtype=dtype, device=device)
+        return _kept(torch.empty(full, dtype=dtype, device=device))
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     if per_layer and n is not None:
@@ -35,10 +57,11 @@ def dense_init(gen, shape, dtype, device, *, n=None, scale=None,
         for i in range(n):
             torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
             out[i].copy_(t.mul_(std))
-        return out
+        del t
+        return _kept(out)
     t = torch.empty(full, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (t * std).to(dtype)
+    return _kept((t * std).to(dtype))
 
 
 def silu(x):

@@ -12,6 +12,13 @@ path runs them.
 Parameters of ``n`` stacked layers carry a leading ``(n, ...)`` axis (the
 JAX package's scanned stacks); the forward and decode take one layer's
 slice. Decode updates its cache IN PLACE (JAX returns a new one).
+
+Under tensor parallelism the mixers follow their leaves' splits
+(``model_split``): mamba1 runs its d_inner shard (x_proj row-parallel, its
+outputs summed before falcon's dt/B/C norm), mamba2 its heads, with the
+conv output of its di + 2N column shard gathered (:class:`_M2Plan`) and
+the gated norm's statistics summed over "model"; ``out_proj`` is
+row-parallel in both.
 """
 
 from __future__ import annotations
@@ -21,6 +28,12 @@ import math
 import torch
 
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_state
+
+from repro_torch.parallel.context import (cache_split, copy_to_model,
+                                          gather_over_model, local_shape,
+                                          model_split, model_sum,
+                                          partial_product, reduce_over_model,
+                                          row_parallel, shard_activation)
 
 from .common import dense_init, silu, softplus
 
@@ -49,6 +62,17 @@ def _rms_nw(x, eps=1e-6):
         x.dtype)
 
 
+def _dt_bias(gen, shape, device):
+    """dt bias so softplus(bias) spans [1e-3, 1e-1] (the mamba convention).
+    On meta tensors the shape alone (meta arithmetic imports
+    ``torch._dynamo``: seconds a process, ``parallel.steps.params_shape``)."""
+    u = torch.rand(shape, generator=gen, device=device)
+    if u.is_meta:
+        return u
+    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    return dt0 + torch.log(-torch.expm1(-dt0))
+
+
 def mamba1_init(gen, cfg, dtype, device, *, n=None):
     """Parameters with the JAX package's names and shapes; ``n`` stacks
     that many layers on a leading axis."""
@@ -56,10 +80,12 @@ def mamba1_init(gen, cfg, dtype, device, *, n=None):
     ns, kc, r = cfg.ssm_state, cfg.ssm_conv, cfg.resolved_dt_rank
     lead = () if n is None else (n,)
     f32 = torch.float32
-    # dt bias so softplus(bias) spans [1e-3, 1e-1] (the mamba convention)
-    u = torch.rand((*lead, di), generator=gen, device=device)
-    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
-    a_log = torch.log(torch.arange(1, ns + 1, dtype=f32, device=device))
+    dt_bias = _dt_bias(gen, (*lead, di), device)
+    if dt_bias.is_meta:
+        a_log = torch.empty((*lead, di, ns), dtype=f32, device=device)
+    else:
+        a_log = torch.log(torch.arange(1, ns + 1, dtype=f32, device=device))
+        a_log = a_log.expand(*lead, di, ns).contiguous()
     return {
         "in_x": dense_init(gen, (d, di), dtype, device, n=n),
         "in_z": dense_init(gen, (d, di), dtype, device, n=n),
@@ -68,58 +94,111 @@ def mamba1_init(gen, cfg, dtype, device, *, n=None):
         "conv_b": torch.zeros((*lead, di), dtype=f32, device=device),
         "x_proj": dense_init(gen, (di, r + 2 * ns), dtype, device, n=n),
         "dt_w": dense_init(gen, (r, di), f32, device, n=n, scale=r ** -0.5),
-        "dt_bias": dt0 + torch.log(-torch.expm1(-dt0)),
-        "A_log": a_log.expand(*lead, di, ns).contiguous(),
+        "dt_bias": dt_bias,
+        "A_log": a_log,
         "D": torch.ones((*lead, di), dtype=f32, device=device),
         "out_proj": dense_init(gen, (di, d), dtype, device, n=n),
     }
 
 
-def _mamba1_dtbc(params, xi, cfg):
+def _mamba1_tp(params, cfg):
+    """True when the mixer runs on this rank's d_inner shard: every d_inner
+    leaf split over "model" as ``out_proj``'s rows (``model_split``), else
+    False (all replicated)."""
+    d, di = cfg.d_model, cfg.resolved_d_inner
+    n, r, kc = cfg.ssm_state, cfg.resolved_dt_rank, cfg.ssm_conv
+    shapes = {"in_x": (d, di), "in_z": (d, di), "conv_w": (kc, di),
+              "conv_b": (di,), "x_proj": (di, r + 2 * n), "dt_w": (r, di),
+              "dt_bias": (di,), "A_log": (di, n), "D": (di,),
+              "out_proj": (di, d)}
+    ranges = {k: model_split(k, v, params[k]) for k, v in shapes.items()}
+    got = {None if sp is None else (sp.lo, sp.hi) for sp in ranges.values()}
+    if len(got) != 1:
+        raise ValueError(f"mamba1: the d_inner leaves are split unlike "
+                         f"out_proj's rows: {ranges}")
+    return None not in got
+
+
+def _mamba1_dtbc(params, xi, cfg, tp=False):
     """(dt f32, B, C in xi's dtype), each contiguous: the projections of
-    the conv output that drive the scan."""
+    the conv output that drive the scan. ``tp``: xi is this rank's d_inner
+    shard, so the x_proj outputs are partial sums, added over "model"
+    before falcon's norm; dt/B/C then enter this rank's channels."""
     n, r = cfg.ssm_state, cfg.resolved_dt_rank
-    dbc = xi @ params["x_proj"]
+    if tp:
+        dbc = reduce_over_model(partial_product(xi, params["x_proj"])).to(
+            xi.dtype)
+    else:
+        dbc = xi @ params["x_proj"]
     dt_r, Bm, Cm = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
     if cfg.ssm_bcdt_norm:
         dt_r, Bm, Cm = _rms_nw(dt_r), _rms_nw(Bm), _rms_nw(Cm)
+    if tp:
+        dt_r, Bm, Cm = (copy_to_model(t) for t in (dt_r, Bm, Cm))
     # dt_w is f32: the product runs in f32, as JAX promotes it
     dt = softplus(dt_r.float() @ params["dt_w"] + params["dt_bias"])
     return dt, Bm.contiguous(), Cm.contiguous()
 
 
+def _mamba1_scan(params, x, cfg, *, state=False):
+    """The mamba1 mixer over a full sequence: (out (B, L, d_model), the
+    final state (B, di', N) f32 and the pre-conv x (B, L, di') when
+    ``state``, else None for both), the scan on ``ssm_scan`` (the JAX
+    layer's pallas branch) or the state-returning ``ssm_scan_state``.
+    Under tensor parallelism on this rank's d_inner shard (di'), the
+    output summed over "model"."""
+    tp = _mamba1_tp(params, cfg)
+    xin = shard_activation(x, "act_btd") if tp else x
+    xi = xin @ params["in_x"]
+    z = xin @ params["in_z"]
+    raw = xi
+    xi = silu(_causal_conv(xi, params["conv_w"], params["conv_b"]).to(
+        xi.dtype))
+    dt, Bm, Cm = _mamba1_dtbc(params, xi, cfg, tp)
+    A = -torch.exp(params["A_log"])
+    hT = None
+    if state:
+        y, hT = ssm_scan_state(xi, dt, A, Bm, Cm, params["D"])
+    else:
+        y = ssm_scan(xi, dt, A, Bm, Cm, params["D"])
+    y = y * silu(z)
+    out = row_parallel(y, params["out_proj"]) if tp else y @ params[
+        "out_proj"]
+    return out, hT, (raw if state else None)
+
+
 def mamba1_forward(params, x, cfg):
     """x: (B, L, d_model) -> (B, L, d_model), the scan on ``ssm_scan`` (the
     JAX layer's pallas branch)."""
-    xi = x @ params["in_x"]
-    z = x @ params["in_z"]
-    xi = silu(_causal_conv(xi, params["conv_w"], params["conv_b"]).to(
-        xi.dtype))
-    dt, Bm, Cm = _mamba1_dtbc(params, xi, cfg)
-    A = -torch.exp(params["A_log"])
-    y = ssm_scan(xi, dt, A, Bm, Cm, params["D"])
-    y = y * silu(z)
-    return (y @ params["out_proj"]).to(x.dtype)
+    return _mamba1_scan(params, x, cfg)[0].to(x.dtype)
+
+
+def _cache(shapes, device):
+    """Zero cache leaves {key: (full shape, dtype)}, each this rank's shard
+    under the ambient cache layout (``cache_split``)."""
+    return {k: torch.zeros(local_shape(shape, cache_split(k, shape)),
+                           dtype=dt, device=device)
+            for k, (shape, dt) in shapes.items()}
 
 
 def mamba1_cache_init(cfg, batch, dtype, device):
     di, n, kc = cfg.resolved_d_inner, cfg.ssm_state, cfg.ssm_conv
-    return {
-        "conv": torch.zeros((batch, kc - 1, di), dtype=dtype, device=device),
-        "h": torch.zeros((batch, di, n), dtype=torch.float32, device=device),
-    }
+    return _cache({"conv": ((batch, kc - 1, di), dtype),
+                   "h": ((batch, di, n), torch.float32)}, device)
 
 
 def mamba1_decode(params, x, cache, cfg):
     """x: (B, 1, d_model): one step of the conv window and the SSM state,
-    both updated in ``cache`` in place. Returns (y, cache)."""
+    both updated in ``cache`` in place (this rank's d_inner shard of them
+    under tensor parallelism). Returns (y, cache)."""
+    tp = _mamba1_tp(params, cfg)
     xi = x @ params["in_x"]                                   # (B, 1, di)
     z = x @ params["in_z"]
     win = torch.cat([cache["conv"], xi.to(cache["conv"].dtype)], dim=1)
     conv = ((win * params["conv_w"]).sum(dim=1, keepdim=True)
             + params["conv_b"])
     xi = silu(conv.to(xi.dtype))
-    dt, Bm, Cm = _mamba1_dtbc(params, xi, cfg)
+    dt, Bm, Cm = _mamba1_dtbc(params, xi, cfg, tp)
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt[:, 0, :, None] * A)                     # (B, di, N)
     dBx = (dt[:, 0, :, None] * Bm[:, 0, None, :]
@@ -129,7 +208,9 @@ def mamba1_decode(params, x, cache, cfg):
     y = y[:, None].to(x.dtype) * silu(z)
     cache["conv"].copy_(win[:, 1:])
     cache["h"].copy_(h)
-    return y @ params["out_proj"], cache
+    out = row_parallel(y, params["out_proj"]) if tp else y @ params[
+        "out_proj"]
+    return out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +227,9 @@ def mamba2_init(gen, cfg, dtype, device, *, n=None):
     conv_dim = di + 2 * ns
     lead = () if n is None else (n,)
     f32 = torch.float32
-    u = torch.rand((*lead, h), generator=gen, device=device)
-    dt0 = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
-    a0 = 1.0 + torch.rand((*lead, h), generator=gen, device=device) * 15.0
+    dt_bias = _dt_bias(gen, (*lead, h), device)
+    a0 = torch.rand((*lead, h), generator=gen, device=device)
+    a_log = a0 if a0.is_meta else torch.log(1.0 + a0 * 15.0)
     big = dict(n=n, per_layer=True)
     return {
         "in_z": dense_init(gen, (d, di), dtype, device, **big),
@@ -157,8 +238,8 @@ def mamba2_init(gen, cfg, dtype, device, *, n=None):
         "conv_w": dense_init(gen, (kc, conv_dim), f32, device, n=n,
                              scale=kc ** -0.5),
         "conv_b": torch.zeros((*lead, conv_dim), dtype=f32, device=device),
-        "A_log": torch.log(a0),
-        "dt_bias": dt0 + torch.log(-torch.expm1(-dt0)),
+        "A_log": a_log,
+        "dt_bias": dt_bias,
         "D": torch.ones((*lead, h), dtype=f32, device=device),
         "norm_w": torch.ones((*lead, di), dtype=f32, device=device),
         "out_proj": dense_init(gen, (di, d), dtype, device, **big),
@@ -225,35 +306,99 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk=128, h0=None):
     return torch.cat(ys, dim=1), S
 
 
+class _M2Plan:
+    """This rank's part of a mamba2 mixer under the ambient rules, read off
+    its leaves' splits (``model_split``): the d_inner channels [c0, c1)
+    (``out_proj``'s rows; ``in_z`` and ``norm_w`` split alike) of the heads
+    [c0 / P, c1 / P) (``in_dt``, ``A_log``, ``dt_bias``, ``D``), and the
+    conv columns it holds (``in_xbc``, ``conv_w``, ``conv_b``: a split of
+    the di + 2N columns x | B | C, which need not line up with the heads:
+    the conv output is gathered and each rank takes its heads' x and all
+    of B and C)."""
+
+    def __init__(self, params, cfg):
+        d, di, n = cfg.d_model, cfg.resolved_d_inner, cfg.ssm_state
+        p, kc = cfg.ssm_head_dim, cfg.ssm_conv
+        h, cd = di // p, di + 2 * n
+
+        def rng(name, shape):
+            sp = model_split(name, shape, params[name])
+            return None if sp is None else (sp.lo, sp.hi)
+
+        chans = {rng("out_proj", (di, d)), rng("in_z", (d, di)),
+                 rng("norm_w", (di,))}
+        heads = {rng(k, s) for k, s in (("in_dt", (d, h)), ("A_log", (h,)),
+                                        ("dt_bias", (h,)), ("D", (h,)))}
+        conv = {rng(k, s) for k, s in (("in_xbc", (d, cd)),
+                                       ("conv_w", (kc, cd)),
+                                       ("conv_b", (cd,)))}
+        hl = {None if r is None else (r[0] * p, r[1] * p) for r in heads}
+        if len(chans) != 1 or len(conv) != 1 or hl != chans:
+            raise ValueError(f"mamba2: the d_inner leaves {chans}, the head "
+                             f"leaves {heads} and the conv leaves {conv} "
+                             "are not split alike")
+        (c,), (cv,) = chans, conv
+        self.tp = c is not None
+        self.chans = c if c is not None else (0, di)
+        self.conv = cv
+        self.di, self.n = di, n
+
+    def xbc(self, conv_out):
+        """(x of this rank's channels, B, C) from this rank's conv output
+        columns: gathered over "model" where the conv columns are split."""
+        full = (gather_over_model(conv_out, -1) if self.conv is not None
+                else conv_out)
+        di, n = self.di, self.n
+        c0, c1 = self.chans
+        return (full[..., c0:c1].contiguous(), full[..., di:di + n],
+                full[..., di + n:])
+
+    def gated_norm(self, y, z, norm_w, eps, dtype):
+        """mamba2's gated RMSNorm: y * silu(z) in ``dtype``, statistics in
+        f32 over the GLOBAL d_inner (the sum of squares summed over "model"
+        where the channels are split)."""
+        y = y.to(dtype) * silu(z)
+        yf = y.float()
+        if self.tp:
+            ms = model_sum((yf * yf).sum(-1, keepdim=True)) / self.di
+        else:
+            ms = (yf * yf).mean(-1, keepdim=True)
+        return (yf * torch.rsqrt(ms + eps) * norm_w).to(dtype)
+
+    def out(self, y, w):
+        return row_parallel(y, w) if self.tp else y @ w
+
+
 def _mamba2_scan(params, x, cfg):
     """The mamba2 mixer over a full sequence: (out (B, L, d_model), final
-    state (B, H, P, N) f32, the pre-conv xBC (B, L, di + 2N)). The scan is
-    ``ssm_scan_state`` (the kernel on the card) with the per-head dt and A
-    repeated over each head's P channels and D's skip in the kernel; its
-    final state (B, di, N) viewed as (B, H, P, N) is the SSD state,
-    channel h P + p."""
+    state (B, H', P, N) f32, the pre-conv xBC (B, L, .) of the conv columns
+    this rank holds). The scan is ``ssm_scan_state`` (the kernel on the
+    card) with the per-head dt and A repeated over each head's P channels
+    and D's skip in the kernel; its final state (B, di, N) viewed as
+    (B, H, P, N) is the SSD state, channel h P + p. Under tensor
+    parallelism on this rank's heads (:class:`_M2Plan`)."""
     b, L, _ = x.shape
-    di, n, p = cfg.resolved_d_inner, cfg.ssm_state, cfg.ssm_head_dim
-    z = x @ params["in_z"]
-    xbc_raw = x @ params["in_xbc"]
-    dt = (x @ params["in_dt"]).float()                        # (B, L, H)
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    plan = _M2Plan(params, cfg)
+    xc = shard_activation(x, "act_btd") if plan.tp else x
+    z = xc @ params["in_z"]
+    xbc_raw = (xc if plan.conv is not None else x) @ params["in_xbc"]
+    dt = (xc @ params["in_dt"]).float()                       # (B, L, H')
     xbc = silu(_causal_conv(xbc_raw, params["conv_w"], params["conv_b"]).to(
         xbc_raw.dtype))
-    xi = xbc[..., :di].contiguous()
-    Bm = xbc[..., di:di + n].contiguous()
-    Cm = xbc[..., di + n:].contiguous()
+    if plan.tp and plan.conv is None:
+        xbc = copy_to_model(xbc)
+    xi, Bm, Cm = plan.xbc(xbc)
+    Bm, Cm = Bm.contiguous(), Cm.contiguous()
+    di = xi.shape[-1]
     dt = softplus(dt + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     dt_ch = dt.repeat_interleave(p, dim=-1)                   # (B, L, di)
     A_ch = A.repeat_interleave(p)[:, None].expand(di, n).contiguous()
     y, hT = ssm_scan_state(xi, dt_ch, A_ch, Bm, Cm,
                            params["D"].repeat_interleave(p))
-    y = y.to(x.dtype) * silu(z)
-    # gated RMSNorm: y * silu(z) in x's dtype, statistics in f32
-    yf = y.float()
-    y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + cfg.norm_eps)
-         * params["norm_w"]).to(x.dtype)
-    out = (y @ params["out_proj"]).to(x.dtype)
+    y = plan.gated_norm(y, z, params["norm_w"], cfg.norm_eps, x.dtype)
+    out = plan.out(y, params["out_proj"]).to(x.dtype)
     return out, hT.view(b, di // p, p, n), xbc_raw
 
 
@@ -265,30 +410,28 @@ def mamba2_forward(params, x, cfg):
 def mamba2_cache_init(cfg, batch, dtype, device):
     di, n, kc, p = (cfg.resolved_d_inner, cfg.ssm_state, cfg.ssm_conv,
                     cfg.ssm_head_dim)
-    return {
-        "conv": torch.zeros((batch, kc - 1, di + 2 * n), dtype=dtype,
-                            device=device),
-        "h": torch.zeros((batch, di // p, p, n), dtype=torch.float32,
-                         device=device),
-    }
+    return _cache({"conv": ((batch, kc - 1, di + 2 * n), dtype),
+                   "h": ((batch, di // p, p, n), torch.float32)}, device)
 
 
 def mamba2_decode(params, x, cache, cfg):
     """x: (B, 1, d_model): one step of the conv window and the SSD state,
-    both updated in ``cache`` in place. Returns (y, cache)."""
+    both updated in ``cache`` in place (under tensor parallelism the conv
+    window of this rank's conv columns and the state of its heads).
+    Returns (y, cache)."""
     b = x.shape[0]
-    di, n, p = cfg.resolved_d_inner, cfg.ssm_state, cfg.ssm_head_dim
-    h = di // p
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
+    plan = _M2Plan(params, cfg)
     z = x @ params["in_z"]
     xbc = x @ params["in_xbc"]
     dt = (x @ params["in_dt"]).float()
     win = torch.cat([cache["conv"], xbc.to(cache["conv"].dtype)], dim=1)
     conv = ((win * params["conv_w"]).sum(dim=1, keepdim=True)
             + params["conv_b"])
-    xbc = silu(conv.to(xbc.dtype))
-    xi = xbc[..., :di]
-    Bm = xbc[:, 0, di:di + n].float()
-    Cm = xbc[:, 0, di + n:].float()
+    xi, Bm, Cm = plan.xbc(silu(conv.to(xbc.dtype)))
+    Bm, Cm = Bm[:, 0].float(), Cm[:, 0].float()
+    di = xi.shape[-1]
+    h = di // p
     dt = softplus(dt + params["dt_bias"])[:, 0]               # (B, H)
     A = -torch.exp(params["A_log"])
     xh = xi.reshape(b, h, p).float()
@@ -296,10 +439,8 @@ def mamba2_decode(params, x, cache, cfg):
     S = (dA[:, :, None, None] * cache["h"] + dt[:, :, None, None]
          * torch.einsum("bn,bhp->bhpn", Bm, xh))
     y = torch.einsum("bn,bhpn->bhp", Cm, S) + params["D"][:, None] * xh
-    y = y.reshape(b, 1, di).to(x.dtype) * silu(z)
-    yf = y.float()
-    y = (yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + cfg.norm_eps)
-         * params["norm_w"]).to(x.dtype)
+    y = plan.gated_norm(y.reshape(b, 1, di), z, params["norm_w"],
+                        cfg.norm_eps, x.dtype)
     cache["conv"].copy_(win[:, 1:])
     cache["h"].copy_(S)
-    return y @ params["out_proj"], cache
+    return plan.out(y, params["out_proj"]), cache

@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.parallel.context import data_mean
+from repro_torch.parallel.context import (copy_to_model, data_mean,
+                                          model_split, partial_product,
+                                          shard_activation, widen)
 
 from .common import dense_init, silu
 
@@ -89,14 +91,23 @@ def _one_hot(idx, e):
     return idx[..., None] == torch.arange(e, device=idx.device)
 
 
-def _experts(params, ein):
-    """The experts' SwiGLU on their slots: ein (G, E, C, d) -> (G, E, C, d)."""
+def _experts(params, ein, partial=False):
+    """The experts' SwiGLU on their slots: ein (G, E, C, d) -> (G, E, C, d).
+    ``partial``: each expert's ffn dim is split (TP-MoE), so the output is
+    this rank's partial sum, kept in f32 where ``widen`` says."""
     h = silu(torch.einsum("gecd,edf->gecf", ein, params["w_gate"])) * \
         torch.einsum("gecd,edf->gecf", ein, params["w_up"])
-    return torch.einsum("gecf,efd->gecd", h, params["w_down"])
+    w = params["w_down"]
+    if partial:
+        h, w = widen(h, w)
+    return torch.einsum("gecf,efd->gecd", h, w)
 
 
-def _dispatch_einsum(params, x, gate, idx, cfg):
+def _dispatch_einsum(params, x, gate, idx, cfg, experts=None, mode=None):
+    """The one-hot dispatch, the experts [e0, e1) = ``experts`` (this
+    rank's, whose weights ``params`` holds; all by default) run on their
+    slots. ``mode`` ("ep" or "ffn", :func:`_expert_plan`): the output is
+    this rank's partial sum, kept in f32 where ``widen`` says."""
     g, t, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_per_tok
     c = _capacity(t, cfg)
@@ -112,18 +123,24 @@ def _dispatch_einsum(params, x, gate, idx, cfg):
     slots = torch.arange(c, device=x.device, dtype=torch.int32)
     disp = ((posc[..., None] == slots) & keep[..., None]).to(dtype)
     disp = disp.reshape(g, t, k, e, c)
+    e0, e1 = experts or (0, e)
+    disp = disp[:, :, :, e0:e1]
     combine = torch.einsum("gtkec,gtk->gtec", disp, gate.to(dtype))
     dispatch = disp.sum(dim=2)                                   # (G,T,E,C)
     ein = torch.einsum("gtec,gtd->gecd", dispatch, x)
-    out = _experts(params, ein)
-    return torch.einsum("gtec,gecd->gtd", combine, out)
+    out = _experts(params, ein, partial=mode == "ffn")
+    if mode is not None:
+        combine, out = widen(combine, out)
+    return torch.einsum("gtec,gecd->gtd", combine, out.to(combine.dtype))
 
 
-def _dispatch_gather(params, x, gate, idx, cfg):
+def _dispatch_gather(params, x, gate, idx, cfg, experts=None, mode=None):
     """Index-based dispatch: (token, gate, valid) scattered into slot tables
     of E*C + 1 entries per group, the last catching every dropped choice
-    (JAX drops them with ``mode="drop"``); the experts' inputs gathered,
-    their gated outputs added back with ``index_add_``."""
+    (JAX drops them with ``mode="drop"``); the inputs of the experts
+    [e0, e1) = ``experts`` (their slots of the tables) gathered, their gated
+    outputs added back with ``index_add_`` (``mode`` as
+    :func:`_dispatch_einsum`'s)."""
     g, t, d = x.shape
     e, k = cfg.n_experts, cfg.n_experts_per_tok
     c = _capacity(t, cfg)
@@ -142,34 +159,91 @@ def _dispatch_gather(params, x, gate, idx, cfg):
         1, slot, flat_g)[:, :-1]
     slot_valid = torch.zeros((g, n), dtype=x.dtype, device=dev).scatter(
         1, slot, torch.ones_like(flat_g, dtype=x.dtype))[:, :-1]
+    e0, e1 = experts or (0, e)
+    e = e1 - e0
+    slot_token = slot_token[:, e0 * c:e1 * c]
+    slot_gate = slot_gate[:, e0 * c:e1 * c]
+    slot_valid = slot_valid[:, e0 * c:e1 * c]
     ein = torch.gather(x, 1, slot_token[..., None].expand(g, e * c, d))
     ein = (ein * slot_valid[..., None]).reshape(g, e, c, d)
-    out = _experts(params, ein).reshape(g, e * c, d)
+    out = _experts(params, ein, partial=mode == "ffn").reshape(g, e * c, d)
+    if mode is not None:
+        (out,) = widen(out)
     out = out * (slot_gate[..., None].to(out.dtype) * slot_valid[..., None])
     rows = (slot_token + t * torch.arange(g, device=dev)[:, None]).reshape(-1)
-    y = torch.zeros((g * t, d), dtype=x.dtype, device=dev)
+    y = torch.zeros((g * t, d), dtype=out.dtype, device=dev)
     return y.index_add_(0, rows, out.reshape(g * e * c, d)).reshape(g, t, d)
+
+
+def _expert_plan(params, cfg):
+    """(experts [e0, e1) this rank runs, the split: "ep", "ffn" or None):
+    the experts' splits under the ambient rules (``model_split``): EP (the
+    experts split: this rank's E / n), TP-MoE (the ffn dim split: every
+    expert on this rank's ffn shard), or replicated. Split, the routed
+    output is a partial sum over "model"."""
+    e, d = cfg.n_experts, cfg.d_model
+    f = cfg.moe_d_ff or cfg.d_ff
+    splits = {model_split("w_gate", (e, d, f), params["w_gate"]),
+              model_split("w_up", (e, d, f), params["w_up"])}
+    down = model_split("w_down", (e, f, d), params["w_down"])
+    (up,) = splits
+    if up is None:
+        return (0, e), None
+    if up.dim == 0:
+        return (up.lo, up.hi), "ep"
+    if down is None or down.dim != 1 or (down.lo, down.hi) != (up.lo, up.hi):
+        raise ValueError("moe: w_gate/w_up's ffn shard and w_down's rows "
+                         "differ")
+    return (0, e), "ffn"
 
 
 def moe_forward(params, x, cfg, *, dispatch="einsum"):
     """x: (B, S, d) -> (y, aux). Tokens are dispatched within groups of
-    ``min(cfg.moe_group_size, S)`` tokens, lowered until it divides S."""
+    ``min(cfg.moe_group_size, S)`` tokens, lowered until it divides S.
+
+    Under tensor parallelism the router runs replicated (the same gates,
+    drops and ``aux`` on every rank, never summed over "model"); each rank
+    runs its experts (EP) or every expert on its ffn shard (TP-MoE), and
+    the shared experts on their ffn shard; the partial outputs are summed
+    in one all-reduce."""
     b, s, d = x.shape
     gs = min(cfg.moe_group_size, s)
     while s % gs:
         gs -= 1
+    experts, mode = _expert_plan(params, cfg)
+    routed_partial = mode is not None
+    xc = shard_activation(x, "act_btd")
     xg = x.reshape(b * (s // gs), gs, d)
     gate, idx, aux = _router(params, xg, cfg)
+    if routed_partial:
+        gate = copy_to_model(gate)
+    xr = (xc if routed_partial else x).reshape(b * (s // gs), gs, d)
     if dispatch == "gather":
-        y = _dispatch_gather(params, xg, gate, idx, cfg)
+        y = _dispatch_gather(params, xr, gate, idx, cfg, experts, mode)
     elif dispatch == "einsum":
-        y = _dispatch_einsum(params, xg, gate, idx, cfg)
+        y = _dispatch_einsum(params, xr, gate, idx, cfg, experts, mode)
     else:
         raise ValueError(f"moe dispatch must be einsum|gather, got "
                          f"{dispatch!r}")
     y = y.reshape(b, s, d)
+    partial, whole = [y] if routed_partial else [], [] if routed_partial \
+        else [y]
     if cfg.n_shared_experts:
         sh = params["shared"]
-        hs = silu(x @ sh["w_gate"]) * (x @ sh["w_up"])
-        y = y + hs @ sh["w_down"]
+        sdff = (cfg.moe_d_ff or cfg.d_ff) * cfg.n_shared_experts
+        split = model_split("w_down", (sdff, d), sh["w_down"])
+        xs = xc if split is not None else x
+        hs = silu(xs @ sh["w_gate"]) * (xs @ sh["w_up"])
+        if split is not None:
+            partial.append(partial_product(hs, sh["w_down"]))
+        else:
+            whole.append(hs @ sh["w_down"])
+    y = None
+    if partial:
+        # the routed and the shared experts' partials in one all-reduce, in
+        # f32 where widened, rounded once
+        y = shard_activation(sum(partial[1:], partial[0]), "act_btd",
+                             partial=True).to(x.dtype)
+    for w in whole:
+        y = w if y is None else y + w
     return y, aux

@@ -35,6 +35,7 @@ as one CUDA graph on the card through ``parallel.build_train_step``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
@@ -48,12 +49,15 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.lm_head import (lm_head_bwd, lm_head_ce,
                                          lm_head_logits)
 from repro_torch.layers import blocks
-from repro_torch.layers.common import dense_init, rmsnorm
+from repro_torch.layers.common import dense_init, keeping, rmsnorm
 from repro_torch.layers.rope import sinusoidal_embedding
 from repro_torch.parallel import comm
-from repro_torch.parallel.context import (current_rules, data_sum, local_cfg,
+from repro_torch.parallel.context import (cache_split, copy_to_model,
+                                          current_rules, data_sum,
+                                          gather_over_model, model_split,
                                           shard_activation, tensor_parallel)
-from repro_torch.parallel.steps import cache_overflow
+from repro_torch.parallel.steps import Placement, cache_overflow
+from repro_torch.tree import leaves, tree_map
 
 __all__ = ["LM", "StackSpec", "build_program", "pad_vocab"]
 
@@ -257,9 +261,62 @@ class LM:
                             if cfg.embed_scale else None)
 
     # ------------------------------------------------------------------ init
-    def init(self, gen: torch.Generator):
+    def init(self, gen: torch.Generator, placements=None):
         """Random parameters drawn from ``gen`` (a generator on the model's
-        device), with the JAX package's names and shapes."""
+        device), with the JAX package's names and shapes.
+
+        ``placements`` (a tree of ``parallel.Placement``, e.g.
+        ``make_shardings``' first): this rank's shards of the same draws.
+        Each leaf is drawn whole in the one-rank order and cut to its shard
+        at once, so the shards are slices of the one-rank weights and a
+        rank never holds more than one whole large leaf (the other leaves,
+        norms and biases, are cut when the tree is done)."""
+        if placements is None:
+            return self._init(gen)
+        order = iter(self._draw_order(placements))
+        kept = set()
+
+        def keep(t):
+            # the leaf as drawn may carry its stack dims otherwise (a zamba
+            # group's (n * group, ...), the shared block's (1, ...)): its
+            # base dims, the last ones, take the leaf's spec
+            p = next(order)
+            k = min(len(p.spec), t.dim())
+            spec = (None,) * (t.dim() - k) + tuple(p.spec[len(p.spec) - k:])
+            out = Placement(p.mesh, spec).local(t)
+            kept.add(id(out))
+            return out
+
+        with keeping(keep):
+            tree = self._init(gen)
+
+        def cut(t, p):
+            return t if id(t) in kept or id(t._base) in kept else p.local(t)
+        return tree_map(cut, tree, placements)
+
+    def _draw_order(self, placements):
+        """The placement of the leaf each :func:`dense_init` call of the
+        init makes, in call order (a dry run on meta tensors; a stacked
+        group's leaf is a view of the drawn tensor)."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        drawn = []
+
+        def tag(t):
+            t.draw_index = len(drawn)
+            drawn.append(t)
+            return t
+
+        with keeping(tag):
+            shapes = meta._init(torch.Generator())
+        order = [None] * len(drawn)
+        for t, p in zip(leaves(shapes), leaves(placements)):
+            src = t if hasattr(t, "draw_index") else t._base
+            if src is not None and hasattr(src, "draw_index"):
+                order[src.draw_index] = p
+        return order
+
+    def _init(self, gen):
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         params = {
             "embed": dense_init(gen, (self.vpad, cfg.d_model), dtype, dev,
@@ -302,6 +359,30 @@ class LM:
         inactive = expert_params * (1 - cfg.n_experts_per_tok / cfg.n_experts)
         return int(total - inactive)
 
+    def _group_params(self, gp, group):
+        """One zamba group's mamba2 leaves (group, ...) as its layers read
+        them. JAX's rules peel a stacked leaf's dims until a rule of its
+        name fits, so a group's ``A_log`` (n, group, H) takes the 2-D rule
+        of mamba1's (d_inner, N) and splits the GROUP dim where it divides
+        the axis (or stays replicated), while each layer's mamba2 rule
+        splits its H heads. The group's leaf is gathered whole (the
+        backward sums the ranks' gradients and keeps this rank's layers) and
+        each layer takes its heads from it: the layers follow their own
+        leaf's rule."""
+        a = gp["mixer"]["A_log"]
+        h = self.cfg.resolved_d_inner // self.cfg.ssm_head_dim
+        whole = model_split("A_log", (group, h), a)
+        per_layer = model_split("A_log", (h,))
+        if whole is None and per_layer is None:
+            return gp
+        if whole is not None:
+            a = gather_over_model(a, whole.dim)
+        else:                    # replicated, entering this rank's heads
+            a = copy_to_model(a)
+        if per_layer is not None:
+            a = a.narrow(1, per_layer.lo, per_layer.width)
+        return dict(gp, mixer=dict(gp["mixer"], A_log=a))
+
     def _block_kw(self, spec):
         """The transformer block's MoE arguments for a stack of ``spec``."""
         return dict(moe=spec.kind == "moe", dispatch=self.moe_dispatch)
@@ -312,10 +393,11 @@ class LM:
         after ``prefix_embeddings`` (B, P, d) when given (the frontend stub's
         conditioning frames or image patches, unscaled), plus sinusoidal
         positions from ``pos0`` (an int, or the cache's 0-dim device
-        position) when the config asks for them. Under tensor parallelism
-        each rank looks up the tokens of its vocab shard (zeros for the
-        others) and the rows are summed over "model"."""
-        vs = self._vocab_shard()
+        position) when the config asks for them. Where ``embed`` is split
+        by vocab, each rank looks up the tokens of its shard (zeros for the
+        others) and the rows are summed over "model"; the prefix enters
+        replicated beside them."""
+        vs = self._vocab_shard(params, "embed")
         if vs is None:
             x = params["embed"][tokens.long()]
         else:
@@ -345,22 +427,27 @@ class LM:
 
     def _head(self, params):
         """The (d_model, Vpad) head matrix: for tied embeddings the view
-        ``embed.T`` (the LM-head kernel reads it in place). Under tensor
-        parallelism this rank's (d_model, Vpad / n) vocab shard."""
+        ``embed.T`` (the LM-head kernel reads it in place). Where it is
+        split by vocab, this rank's (d_model, Vpad / n) shard."""
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["head"])
 
-    def _vocab_shard(self):
+    def _head_leaf(self):
+        return "embed" if self.cfg.tie_embeddings else "head"
+
+    def _vocab_shard(self, params, leaf=None):
         """(first column, padded width, true columns) of this rank's vocab
-        shard under tensor parallelism, else None (``make_shardings``
-        refuses a mesh whose last shard holds no true column)."""
-        tp = tensor_parallel()
-        if tp is None:
+        shard of ``leaf`` ("embed", or "head": the head's leaf, the
+        embedding where tied) where its spec splits it over "model"
+        (``model_split``), else None (``make_shardings`` refuses a mesh
+        whose last shard holds no true column)."""
+        leaf = leaf or self._head_leaf()
+        d, v = self.cfg.d_model, self.vpad
+        full = (v, d) if leaf == "embed" else (d, v)
+        sp = model_split(leaf, full, params[leaf])
+        if sp is None:
             return None
-        _, n, r = tp
-        width = self.vpad // n
-        off = r * width
-        return off, width, min(self.cfg.vocab_size - off, width)
+        return sp.lo, sp.width, min(self.cfg.vocab_size - sp.lo, sp.width)
 
     def _logits(self, params, x):
         """(B, S, Vpad) f32 logits of the hidden states ``x``: the fused
@@ -369,7 +456,7 @@ class LM:
         f32) with the padded vocab masked to -1e30, differentiable (on one
         rank). Under tensor parallelism each rank computes its vocab
         shard's columns and the shards are gathered (exactly)."""
-        vs = self._vocab_shard()
+        vs = self._vocab_shard(params)
         if vs is not None:
             with torch.no_grad():
                 return comm.all_gather(self._local_logits(params, x), -1,
@@ -379,7 +466,7 @@ class LM:
     def _local_logits(self, params, x):
         b, s, d = x.shape
         head = self._head(params)
-        vs = self._vocab_shard()
+        vs = self._vocab_shard(params)
         vocab = self.cfg.vocab_size if vs is None else vs[2]
         width = head.shape[1]
         if not self.fused_head:
@@ -401,7 +488,7 @@ class LM:
             logits = self._logits(params, x)[:, 0]
             return self.greedy_token(logits), logits
         b, _, d = x.shape
-        vs = self._vocab_shard()
+        vs = self._vocab_shard(params)
         logits, m, arg = lm_head_logits.raw(
             x.reshape(b, d), self._head(params).to(x.dtype),
             vocab=self.cfg.vocab_size if vs is None else vs[2])
@@ -430,10 +517,11 @@ class LM:
         """``body(x, layer_params) -> (x, aux or None)`` for one unit of a
         stack of ``spec``, the unit JAX's scan body holds: a layer, or a
         zamba group (its mamba2 layers, then the shared block)."""
-        cfg = local_cfg(self.cfg)
+        cfg = self.cfg
         if spec.kind == "zamba_group":
             def body(x, gp):
-                for lp in _unstack(gp, spec.group):
+                for lp in _unstack(self._group_params(gp, spec.group),
+                                   spec.group):
                     x = blocks.mamba_block_forward(lp, x, cfg)
                 return blocks.tblock_forward(params["shared_attn"], x, cfg)
         elif spec.kind in _MAMBA:
@@ -482,7 +570,7 @@ class LM:
         b, s, d = x.shape
         head = self._head(params).to(x.dtype)
         lab = labels.reshape(b * s, 1).to(torch.int32)
-        vs = self._vocab_shard()
+        vs = self._vocab_shard(params)
         if vs is None:
             nll = lm_head_ce(x.reshape(b * s, d), head, lab.contiguous(),
                              vocab=self.cfg.vocab_size)
@@ -569,9 +657,11 @@ class LM:
         (n, B, K-1, C) and state (n, B, di, N) (mamba1) or (n, B, H, P, N)
         (mamba2) f32; a zamba group stack {"mamba": those leaves with
         (n, group, ...), "attn": the shared block's k/v, one per
-        application (n, ...)}. Under tensor parallelism the k/v hold this
-        rank's kv heads."""
-        cfg, dev = local_cfg(self.cfg), self.device
+        application (n, ...)}. Under tensor parallelism each leaf is this
+        rank's shard in the ambient rules' cache layout (``Rules.cache``:
+        kv heads, head dim or sequence; MLA's lora columns; mamba's
+        channels)."""
+        cfg, dev = self.cfg, self.device
         dtype = dtype or self.dtype
         stacks = []
         def ssm():
@@ -612,7 +702,13 @@ class LM:
                 sc = sc["attn"]
             elif spec.kind not in ("dense", "moe"):
                 continue
-            caps.append(sc["ckv"].shape[2] if "ckv" in sc else sc["k"].shape[3])
+            if "ckv" in sc:
+                caps.append(sc["ckv"].shape[2])
+                continue
+            # a cache split by sequence holds m / n slots a rank
+            sp = cache_split("k", tuple(sc["k"].shape[1:]), local=True)
+            caps.append(sp.size if sp is not None and sp.dim == 2
+                        else sc["k"].shape[3])
         return min(caps) if caps else None
 
     # -------------------------------------------------------------- prefill
@@ -624,7 +720,7 @@ class LM:
         final state; MLA's latent ckv/krope (n, B, m, .) of m = max_len
         slots. ``cache["pos"]`` = P + S, a 0-dim int32 tensor on the
         model's device."""
-        cfg = local_cfg(self.cfg)
+        cfg = self.cfg
         x = self._embed(params, tokens, prefix_embeddings)
         s = x.shape[1]
         max_len = max_len or s
@@ -660,10 +756,10 @@ class LM:
         """A zamba group stack's prefill: each group's mamba2 layers, then
         the shared block with a fresh KV cache of ``max_len`` slots.
         Returns (x, {"mamba": (n, group, ...) leaves, "attn": (n, ...)})."""
-        cfg = local_cfg(self.cfg)
+        cfg = self.cfg
         mamba, attn = [], []
         for i in range(spec.n):
-            gp, group = _layer(sp, i), []
+            gp, group = self._group_params(_layer(sp, i), spec.group), []
             for j in range(spec.group):
                 x, c = blocks.mamba_block_prefill(_layer(gp, j), x, cfg)
                 group.append(c)
@@ -686,7 +782,7 @@ class LM:
         ``pos`` unless the step is being captured into a CUDA graph (as JAX
         checks only a concrete ``pos``), where the compiled step counts
         positions on the host instead."""
-        cfg = local_cfg(self.cfg)
+        cfg = self.cfg
         pos = cache["pos"]
         cap = self.cache_capacity(cache)
         if cap is not None and not _capturing(pos) and int(pos) >= cap:
@@ -696,7 +792,8 @@ class LM:
                                 cache["stacks"]):
             if spec.kind == "zamba_group":
                 for i in range(spec.n):
-                    gp, gc = _layer(sp, i), _layer(sc["mamba"], i)
+                    gp = self._group_params(_layer(sp, i), spec.group)
+                    gc = _layer(sc["mamba"], i)
                     for j in range(spec.group):
                         x, _ = blocks.mamba_block_decode(
                             _layer(gp, j), x, _layer(gc, j), cfg)
@@ -750,7 +847,8 @@ class LM:
         per-slot block tables, lengths and the pool-wide slot -> position
         map. Page 0 is the NULL page (idle slots point at it; its positions
         stay -1). Under tensor parallelism the pools hold this rank's kv
-        heads."""
+        heads, or all of them where the ambient cache layout replicates
+        them."""
         if not self.pageable:
             raise ValueError(
                 "paged decode needs an attention-only GQA program with rope "
@@ -762,7 +860,7 @@ class LM:
             return {k: torch.zeros((n, *v.shape), dtype=v.dtype, device=dev)
                     for k, v in single.items()}
 
-        cfg = local_cfg(self.cfg)
+        cfg = self.cfg
         stacks = [stacked(s.n, blocks.tblock_paged_cache_init(
                       cfg, num_pages, page_size, dtype or self.dtype, "meta"))
                   for s in self.program]
@@ -779,7 +877,7 @@ class LM:
         place. Every slot decodes every step: idle slots carry len 0 and a
         zero block table, writing into and reading from the null page.
         ``split``: paged decode's split length (None: its rule)."""
-        cfg = local_cfg(self.cfg)
+        cfg = self.cfg
         table, lens = cache["table"], cache["len"]
         pos_pages = cache["pos_pages"]
         b, nsp = table.shape

@@ -26,7 +26,8 @@ for an all-reduce of 800 MB (``tools/gloo_probe.py``; ``PERF.md``, PR
 A group is a ``torch.distributed`` process group (``mesh.get_group(axis)``)
 or None for the default one. ``elapsed`` holds the host seconds spent in
 these calls since :func:`reset_elapsed` (each call synchronises its device
-first, so the time is the collective's, not the queued kernels').
+first, so the time is the collective's, not the queued kernels'), and
+"gathered_bytes" the bytes :func:`all_gather` received from other ranks.
 """
 
 from __future__ import annotations
@@ -42,12 +43,13 @@ __all__ = ["all_reduce", "all_reduce_", "broadcast", "all_gather",
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
         "min": dist.ReduceOp.MIN}
-elapsed = {"seconds": 0.0, "calls": 0}
+elapsed = {"seconds": 0.0, "calls": 0, "gathered_bytes": 0}
 
 
 def reset_elapsed():
     elapsed["seconds"] = 0.0
     elapsed["calls"] = 0
+    elapsed["gathered_bytes"] = 0
 
 
 def group_size(group) -> int:
@@ -114,6 +116,7 @@ def all_gather(x, dim, group=None):
     x = x.detach().contiguous()
     bufs = [x if i == r else torch.empty_like(x) for i in range(n)]
     _broadcasts(bufs, group)
+    elapsed["gathered_bytes"] += (n - 1) * x.numel() * x.element_size()
     return torch.cat(bufs, dim)
 
 

@@ -28,6 +28,31 @@ the "model" axis has more than one rank). The kinds and
   "act_bd"   (batch, d)                  -> (batch_axes, None)
   "act_btv"  (batch, seq, vocab)         -> (batch_axes, None, "model")
 
+Where a layer computes it reads each parameter leaf's spec,
+:func:`model_split` (the rule tables' spec, the one its ``Placement``
+holds: a column shard, a row shard, or replicated), and follows it; it
+never infers a layout from the program kind. A replicated leaf computes
+replicated, with no collective. Every replicated value holds its whole
+gradient on every rank, so where one enters rank-specific work (this
+rank's heads, experts or channels) the layers mark it with
+:func:`copy_to_model`, and a replicated product's output used so is marked
+itself. The other collective points:
+
+- :func:`gather_over_model`: where a shard does not line up with the work
+  that follows (k/v split mid-head: RoPE pairs dims i and i + hd/2; query
+  heads that do not divide the axis; mamba2's conv output, split across
+  x, B and C), the rank gathers the activation it needs; the backward sums
+  the ranks' gradients and keeps the rank's slice;
+- :func:`model_sum`: the global sum of a statistic over a split dim (the
+  gated RMSNorm's sum of squares), used by each rank for its shard;
+- :func:`reduce_over_model`: partial sums used as a replicated value
+  (mamba1's x_proj outputs before falcon's dt/B/C norm);
+- :func:`merge_over_model`: the exact lse merge of a sequence-sharded
+  decode cache's partials (``ring_merge``).
+
+A cache rests in the layout of the rules' ``cache`` specs (one layer's,
+from ``parallel.steps.cache_pspecs``); :func:`cache_split` reads it.
+
 Data parallelism needs no marker in the layers: the batch's leading dim
 is each rank's slice. Where a loss reads a mean over the GLOBAL batch
 (the CE's token mean, MoE's router statistics), :func:`data_sum` and
@@ -42,6 +67,7 @@ ring schedule over ``ring_axis`` instead (parameters replicated).
 from __future__ import annotations
 
 import contextlib
+import copy
 import contextvars
 import dataclasses
 from typing import Optional
@@ -49,16 +75,20 @@ from typing import Optional
 import torch
 
 from . import comm
-from .rules import mesh_shape, spec
+from .rules import leaf_spec, mesh_shape, spec
 
 __all__ = ["shard_activation", "use_rules", "current_rules", "Rules",
-           "local_cfg", "tensor_parallel", "data_sum", "data_mean"]
+           "tensor_parallel", "data_sum", "data_mean", "Split",
+           "model_split", "cache_split", "local_shape", "copy_to_model",
+           "reduce_over_model", "gather_over_model", "model_sum",
+           "merge_over_model", "row_parallel", "partial_product",
+           "widen"]
 
 
 class Rules:
     def __init__(self, *, batch_axes=("pod", "data"), model_axis="model",
                  seq_axes=None, mesh=None, ring_axis=None,
-                 tensor_parallel=False):
+                 tensor_parallel=False, cache=None):
         self.batch_axes = batch_axes
         self.model_axis = model_axis
         self.seq_axes = seq_axes
@@ -70,6 +100,17 @@ class Rules:
         # the layers run on their "model" shards with collectives where
         # shard_activation marks them
         self.tensor_parallel = bool(tensor_parallel)
+        # {cache leaf key: its one-layer spec} of the caches the steps make
+        # and read under these rules (``parallel.steps.cache_pspecs``'
+        # layout of one layer): the layers place their cache writes and
+        # reads by it (``cache_split``)
+        self.cache = dict(cache or {})
+
+    def with_cache(self, cache):
+        """These rules with another cache layout (see ``cache``)."""
+        out = copy.copy(self)
+        out.cache = dict(cache)
+        return out
 
     def spec(self, kind: str):
         """JAX's activation spec of ``kind`` as a tuple (None: no rule)."""
@@ -146,16 +187,88 @@ def tensor_parallel():
     return r.group(ax), r.size(ax), r.coordinate(ax)
 
 
-def local_cfg(cfg):
-    """``cfg`` with this rank's head counts under tensor parallelism (the
-    layers read them from the config), else ``cfg`` itself."""
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a tensor is split over "model": dim ``dim`` of ``size`` in ``n``
+    equal slices, this rank holding slice ``r``, elements [lo, hi)."""
+    dim: int
+    size: int
+    n: int
+    r: int
+
+    @property
+    def width(self) -> int:
+        return self.size // self.n
+
+    @property
+    def lo(self) -> int:
+        return self.r * self.width
+
+    @property
+    def hi(self) -> int:
+        return self.lo + self.width
+
+
+def _split_of(spec, shape, name):
     tp = tensor_parallel()
     if tp is None:
-        return cfg
-    n = tp[1]
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // n,
-                               n_kv_heads=cfg.n_kv_heads // n,
-                               head_dim=cfg.resolved_head_dim)
+        return None
+    r = _rules.get()
+    dims = [i for i, e in enumerate(spec) if e is not None
+            and r.model_axis in (e if isinstance(e, tuple) else (e,))]
+    if not dims:
+        return None
+    if len(dims) > 1:
+        raise ValueError(f"{name}: spec {spec} splits more than one dim over "
+                         f"{r.model_axis!r}")
+    return Split(dims[0], int(shape[dims[0]]), tp[1], tp[2])
+
+
+def model_split(name, full_shape, local=None):
+    """How the parameter leaf ``name`` of (one layer's) ``full_shape`` is
+    split over "model" under the ambient rules: its spec from the rule
+    tables (``rules.leaf_spec``, the spec its :class:`Placement` holds) as a
+    :class:`Split`, or None where it is replicated or the rules run no
+    tensor parallelism. Given the ``local`` tensor, its shape is checked
+    against the split."""
+    tp = tensor_parallel()
+    if tp is None:
+        return None
+    sp = _split_of(leaf_spec(name, tuple(full_shape), tp[1],
+                             _rules.get().model_axis), full_shape, name)
+    if local is not None:
+        want = list(full_shape)
+        if sp is not None:
+            want[sp.dim] = sp.width
+        if list(local.shape[-len(want):]) != want:
+            raise ValueError(f"{name}: local shape {tuple(local.shape)} is "
+                             f"not the shard {tuple(want)} of "
+                             f"{tuple(full_shape)} its spec makes")
+    return sp
+
+
+def cache_split(key, shape, *, local=False):
+    """How the cache leaf ``key`` (one layer's, unstacked, of ``shape``)
+    rests over "model": the ambient rules' cache spec for it
+    (``Rules.cache``, set by the step builders from ``cache_pspecs``) as a
+    :class:`Split`, or None (replicated, or no cache layout in effect).
+    ``local=True``: ``shape`` is this rank's shard (the full size of the
+    split dim is n times its)."""
+    r = _rules.get()
+    if r is None or not r.cache or key not in r.cache:
+        return None
+    sp = _split_of(r.cache[key], shape, key)
+    if sp is not None and local:
+        sp = dataclasses.replace(sp, size=sp.size * sp.n)
+    return sp
+
+
+def local_shape(full_shape, split):
+    """``full_shape`` with ``split``'s dim cut to this rank's slice."""
+    shape = list(full_shape)
+    if split is not None:
+        shape[split.dim] = split.width
+    return tuple(shape)
 
 
 def _model_sum(x, group):
@@ -200,6 +313,138 @@ def shard_activation(x, kind: str, *, partial: bool = False):
     if partial:
         return _ReduceFromModel.apply(x, tp[0])
     return _CopyToModel.apply(x, tp[0])
+
+
+_LOW = (torch.bfloat16, torch.float16)
+
+
+def _keep_f32(*ts) -> bool:
+    """True where a rank's partial sum of ``ts`` is kept in f32: tensor
+    parallelism on, low-precision operands, no gradient asked (a backward
+    keeps the operands' dtype: an f32 copy of every weight would be kept
+    for it)."""
+    return (tensor_parallel() is not None and ts[0].dtype in _LOW
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in ts)))
+
+
+def widen(*ts):
+    """``ts`` as f32 where a rank's partial sum of them is kept in f32
+    (:func:`row_parallel`'s rule), else as they are."""
+    if not _keep_f32(*ts):
+        return ts
+    return tuple(t.float() for t in ts)
+
+
+def partial_product(a, w):
+    """``a @ w`` where it is this rank's partial sum of a product whose
+    contracted dim is split over "model": in f32 where :func:`widen` keeps
+    partials so (on the card the product's f32 accumulation as it is,
+    ``bmm(out_dtype=)``, with no f32 copy of ``w``), else ``a @ w``."""
+    if not _keep_f32(a, w):
+        return a @ w
+    if a.is_cuda and a.dtype == w.dtype:
+        return torch.bmm(a.reshape(1, -1, a.shape[-1]), w[None],
+                         out_dtype=torch.float32).reshape(*a.shape[:-1],
+                                                          w.shape[-1])
+    return a.float() @ w.float()
+
+
+def row_parallel(a, w):
+    """``a @ w`` of a row-parallel product (``a``'s last dim and ``w``'s
+    rows this rank's shard), summed over "model": each rank's partial in
+    f32 where the operands are bf16/f16 (:func:`partial_product`), the sum
+    rounded once to their dtype, as one rank rounds its whole product
+    once. Without tensor parallelism, ``a @ w``."""
+    if tensor_parallel() is None:
+        return a @ w
+    return shard_activation(partial_product(a, w), "act_btd",
+                            partial=True).to(a.dtype)
+
+
+def copy_to_model(x):
+    """The identity whose backward sums the ranks' gradients over "model":
+    where a replicated value enters rank-specific work (a column shard's
+    product, this rank's heads or experts) its gradient is each rank's
+    part. The identity without tensor parallelism."""
+    tp = tensor_parallel()
+    return x if tp is None else _CopyToModel.apply(x, tp[0])
+
+
+def reduce_over_model(x):
+    """The sum over "model" of the ranks' partial results, used as a
+    replicated value (its gradient passes through)."""
+    tp = tensor_parallel()
+    return x if tp is None else _ReduceFromModel.apply(x, tp[0])
+
+
+class _GatherModel(torch.autograd.Function):
+    """The ranks' slices concatenated along ``dim``; the backward sums the
+    ranks' gradients and keeps this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return comm.all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return comm.reduce_scatter(g.contiguous(), ctx.dim, ctx.group), \
+            None, None
+
+
+def gather_over_model(x, dim):
+    """The whole of an activation each rank holds a ``dim`` slice of (in
+    rank order): where a shard does not line up with the work that follows,
+    the rank gathers the activation it needs instead of another parameter
+    layout. The backward sums the ranks' gradients and keeps this rank's
+    slice. ``x`` itself without tensor parallelism."""
+    tp = tensor_parallel()
+    if tp is None:
+        return x
+    return _GatherModel.apply(x, dim % x.dim(), tp[0])
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The ranks' partial sums added, where each rank uses the total for its
+    own shard: the backward sums the ranks' gradients too."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _model_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum(g, ctx.group), None
+
+
+def model_sum(x):
+    """The global sum of a statistic each rank sums over its shard (the
+    sum of squares of a norm over a dim split over "model"), used by each
+    rank for its own shard: forward and backward are sums over "model"."""
+    tp = tensor_parallel()
+    return x if tp is None else _SumOverModel.apply(x, tp[0])
+
+
+def merge_over_model(o, lse):
+    """The exact softmax merge over "model" of each rank's attention partial
+    (o, lse) over its slice of the keys (a sequence-sharded decode cache):
+    every rank's partial is gathered and folded in rank order by
+    ``ring_merge`` (a slice with no visible key, lse = -inf, weighs 0), so
+    every rank holds the same merged o. Forward only (decode)."""
+    from repro_torch.kernels.flash_attention.ring import ring_merge
+
+    tp = tensor_parallel()
+    if tp is None:
+        return o
+    group, n, _ = tp
+    os_ = comm.all_gather(o.unsqueeze(0), 0, group)
+    ls = comm.all_gather(lse.float().reshape(1, *o.shape[:-1]), 0, group)
+    out = (os_[0], ls[0])
+    for i in range(1, n):
+        out = ring_merge(out, (os_[i], ls[i]))
+    return out[0]
 
 
 class _DataSum(torch.autograd.Function):

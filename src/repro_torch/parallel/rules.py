@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["param_specs", "batch_specs", "zero1_specs",
+__all__ = ["param_specs", "leaf_spec", "batch_specs", "zero1_specs",
            "spec_bytes_per_device", "ring_axis_for", "mesh_shape", "spec",
            "spec_map", "spec_leaves"]
 
@@ -143,6 +143,23 @@ def _apply_divisibility(template, shape, msize, model_axis):
                  for dim, t in zip(shape, template))
 
 
+def leaf_spec(name, base, msize, model_axis="model"):
+    """The spec of one layer's (unstacked) leaf ``name`` of shape ``base``
+    on a "model" axis of ``msize`` ranks: the rule tables with the
+    divisibility fallback (what :func:`param_specs` gives each leaf after
+    its stack dims)."""
+    base = tuple(base)
+    if name in _EXPERT_3D and len(base) == 3:
+        ep, tp = _EXPERT_3D[name]
+        template = ep if base[0] % msize == 0 else tp
+        return _apply_divisibility(template, base, msize, model_axis)
+    if len(base) == 1 and name in _RULES_1D:
+        return _apply_divisibility(_RULES_1D[name], base, msize, model_axis)
+    if len(base) == 2 and name in _RULES_2D:
+        return _apply_divisibility(_RULES_2D[name], base, msize, model_axis)
+    return (None,) * len(base)
+
+
 def param_specs(params, cfg, mesh, *, model_axis="model"):
     """A tree of specs matching ``params`` (tensors or meta tensors)."""
     del cfg                        # the rules read leaf names and shapes
@@ -164,20 +181,8 @@ def param_specs(params, cfg, mesh, *, model_axis="model"):
                     break
             else:
                 extra = 1
-        base = shape[extra:]
-        lead = (None,) * extra
-        if name in _EXPERT_3D and len(base) == 3:
-            ep, tp = _EXPERT_3D[name]
-            template = ep if base[0] % msize == 0 else tp
-            return lead + _apply_divisibility(template, base, msize,
-                                              model_axis)
-        if len(base) == 1 and name in _RULES_1D:
-            return lead + _apply_divisibility(_RULES_1D[name], base, msize,
-                                              model_axis)
-        if len(base) == 2 and name in _RULES_2D:
-            return lead + _apply_divisibility(_RULES_2D[name], base, msize,
-                                              model_axis)
-        return (None,) * len(shape)
+        return (None,) * extra + leaf_spec(name, shape[extra:], msize,
+                                           model_axis)
 
     return spec_map(assign, params)
 

@@ -9,12 +9,12 @@ caller has started (``launch.mesh``). The specs are JAX's, from
 rank holds its LOCAL shard of every leaf: :class:`Placement` slices a full
 tensor to it and gathers the shards back (``parallel.comm``), and the
 layers compute on the shards with the collectives ``shard_activation``
-marks (``parallel.context``). Tensor parallelism covers dense GQA blocks
-whose "model"-sharded dims all divide the axis; :func:`make_shardings`
-refuses every other program kind up front. Data parallelism over
-("pod", "data") takes every config: each rank runs its slice of the batch,
-the loss is the global batch's, and the gradients are summed over the data
-axes before AdamW. ``zero1`` keeps each rank's ``zero1_specs`` slice of the
+marks (``parallel.context``). Tensor parallelism covers every program
+kind: each layer reads its leaves' specs and follows them, and the caches
+rest in :func:`cache_pspecs`' layouts (``Rules.cache``). Data parallelism
+over ("pod", "data") takes every config: each rank runs its slice of the
+batch, the loss is the global batch's, and the gradients are summed over
+the data axes before AdamW. ``zero1`` keeps each rank's ``zero1_specs`` slice of the
 moments and gathers the updated parameters; ``fsdp`` keeps the parameters
 themselves sliced at rest, gathers them at the step's start and slices
 their reduced gradients (JAX's ZeRO-3 computes the same; its peak memory
@@ -50,7 +50,8 @@ from . import rules as R
 from .context import Rules, use_rules
 
 __all__ = ["axis_names", "make_shardings", "cache_pspecs", "batch_pspecs",
-           "paged_cache_pspecs", "build_train_step", "build_prefill_step",
+           "paged_cache_pspecs", "layer_cache_specs", "paged_layer_specs",
+           "reshard_cache", "build_train_step", "build_prefill_step",
            "build_serve_step", "build_paged_serve_step", "GraphStep",
            "TrainGraphStep", "ShardedStep", "Placement", "shard_tree",
            "gather_tree", "shard_batch", "capture", "cache_overflow",
@@ -167,27 +168,12 @@ def shard_batch(batch, rules):
     return {k: rows(v) for k, v in batch.items()}
 
 
-# tensor parallelism's scope: the program kinds, attention types and
-# frontends whose layers run on their "model" shards (ROADMAP A.5 lists the
-# rest)
-def _tp_refusal(model, n):
-    cfg = model.cfg
-    kinds = sorted({s.kind for s in model.program} - {"dense"})
-    if kinds:
-        return f"program kind(s) {kinds}"
-    if cfg.attn_type != "gqa":
-        return f"attention type {cfg.attn_type!r}"
-    if cfg.frontend:
-        return f"frontend {cfg.frontend!r}"
-    if cfg.window:
-        return f"sliding window {cfg.window}"
-    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-            "d_ff": cfg.d_ff, "padded vocab": model.vpad}
-    bad = {k: v for k, v in dims.items() if v % n}
-    if bad:
-        return (f"{bad} not divisible by the model axis (a kv head count "
-                "below the axis needs a sequence-sharded cache)")
-    if cfg.vocab_size <= (n - 1) * (model.vpad // n):
+def _vocab_refusal(model, n):
+    """The one edge tensor parallelism refuses: a vocab split whose last
+    shard holds no true column (none of the ten configs on the production
+    or local meshes)."""
+    if model.vpad % n == 0 and model.cfg.vocab_size <= (n - 1) * (
+            model.vpad // n):
         return f"no true vocab column on the last of {n} vocab shards"
     return None
 
@@ -204,10 +190,11 @@ def make_shardings(model, mesh, *, fsdp=False, ring=False):
     runs the ring schedule when the sequence divides the axis, and the
     parameters stay replicated over "model" (their "model" entries are
     dropped; the ring takes the axis for the sequence). Otherwise a
-    "model" axis of more than one rank runs the layers tensor-parallel,
-    which raises ``NotImplementedError`` up front for a model outside its
-    scope (MoE, MLA, mamba, hybrids, frontends, windows, kv heads that do
-    not divide the axis)."""
+    "model" axis of more than one rank runs the layers tensor-parallel
+    (every program kind: each layer follows its leaves' specs), with the
+    caches in JAX's "prefill" layout (``Rules.cache``; the serve steps set
+    their own). A vocab split whose last shard holds no true column raises
+    ``NotImplementedError``."""
     batch_axes, model_axis = axis_names(mesh)
     names = _names(mesh)
     shape = params_shape(model)
@@ -222,13 +209,16 @@ def make_shardings(model, mesh, *, fsdp=False, ring=False):
             None if e == model_axis else e for e in next(it)), shape)
     tp = msize > 1 and ring_axis is None
     if tp:
-        why = _tp_refusal(model, msize)
+        why = _vocab_refusal(model, msize)
         if why is not None:
             raise NotImplementedError(
                 f"tensor parallelism over a model axis of {msize}: "
-                f"{model.cfg.name} has {why}; not ported (ROADMAP A.5)")
+                f"{model.cfg.name} has {why}")
+    bsize = math.prod(R.mesh_shape(mesh)[a] for a in batch_axes)
     rules = Rules(batch_axes=batch_axes, model_axis=model_axis, mesh=mesh,
-                  ring_axis=ring_axis, tensor_parallel=tp)
+                  ring_axis=ring_axis, tensor_parallel=tp,
+                  cache=layer_cache_specs(model, mesh, bsize, 0,
+                                          kind="prefill"))
     return _placements(mesh, pspecs, shape), pspecs, rules, shape
 
 
@@ -236,14 +226,9 @@ def make_shardings(model, mesh, *, fsdp=False, ring=False):
 # cache partition specs (per stack kind; base ranks are kind-specific)
 # ---------------------------------------------------------------------------
 
-def cache_pspecs(model, mesh, batch: int, max_len: int,
-                 kind: str = "decode"):
-    """JAX's static-cache specs, in JAX's cache structure (a per-stack
-    "pos" entry included). kind="decode": layouts for per-token reads (the
-    cache sequence sharded over "model" when the kv heads do not divide
-    it); kind="prefill": the freshly computed k/v's natural layout (head
-    dim sharded). A batch that does not divide the batch axes shards the
-    sequence over them instead."""
+def _cache_parts(model, mesh, batch, max_len, kind):
+    """(attention specs, mamba specs) of one layer's cache (see
+    :func:`cache_pspecs`)."""
     cfg = model.cfg
     batch_axes, m = axis_names(mesh)
     sizes = R.mesh_shape(mesh)
@@ -293,6 +278,29 @@ def cache_pspecs(model, mesh, batch: int, max_len: int,
         return {"conv": R.spec(b_ax, None, div(di + 2 * n, m)),
                 "h": R.spec(b_ax, div(di // p, m), None, None)}
 
+    return attn_spec(), (mamba_spec() if cfg.ssm_type else {})
+
+
+def layer_cache_specs(model, mesh, batch: int, max_len: int,
+                      kind: str = "decode"):
+    """{cache leaf key: its one-layer spec} of :func:`cache_pspecs`' layout
+    (what ``Rules.cache`` holds for the layers)."""
+    attn, mamba = _cache_parts(model, mesh, batch, max_len, kind)
+    out = {k: v for k, v in attn.items() if k != "pos"}
+    out.update(mamba)
+    return out
+
+
+def cache_pspecs(model, mesh, batch: int, max_len: int,
+                 kind: str = "decode"):
+    """JAX's static-cache specs, in JAX's cache structure (a per-stack
+    "pos" entry included). kind="decode": layouts for per-token reads (the
+    cache sequence sharded over "model" when the kv heads do not divide
+    it); kind="prefill": the freshly computed k/v's natural layout (head
+    dim sharded). A batch that does not divide the batch axes shards the
+    sequence over them instead."""
+    attn, mamba = _cache_parts(model, mesh, batch, max_len, kind)
+
     def prefixed(tree, n_extra):
         return {k: (prefixed(v, n_extra) if isinstance(v, dict)
                     else (None,) * n_extra + tuple(v))
@@ -301,13 +309,32 @@ def cache_pspecs(model, mesh, batch: int, max_len: int,
     stacks = []
     for spec in model.program:
         if spec.kind == "zamba_group":
-            stacks.append({"mamba": prefixed(mamba_spec(), 2),
-                           "attn": prefixed(attn_spec(), 1)})
+            stacks.append({"mamba": prefixed(mamba, 2),
+                           "attn": prefixed(attn, 1)})
         elif spec.kind in ("mamba1", "mamba2"):
-            stacks.append(prefixed(mamba_spec(), 1))
+            stacks.append(prefixed(mamba, 1))
         else:
-            stacks.append(prefixed(attn_spec(), 1))
+            stacks.append(prefixed(attn, 1))
     return {"pos": (), "stacks": stacks}
+
+
+def reshard_cache(cache, src, dst, mesh):
+    """``cache`` (this rank's shards laid out by the spec tree ``src``)
+    moved into the layout of ``dst`` (both :func:`cache_pspecs` trees):
+    each leaf whose spec changes is gathered whole and sliced to this
+    rank's shard of ``dst``. JAX's serve step takes the prefill's cache in
+    the decode layout; this is that move, once, after the prefill."""
+    def move(t, a, b):
+        if isinstance(t, dict):
+            return {k: move(v, a[k], b[k]) for k, v in t.items()}
+        if isinstance(t, list):
+            return [move(v, x, y) for v, x, y in zip(t, a, b)]
+        if tuple(a) == tuple(b):
+            return t
+        return Placement(mesh, b).local(Placement(mesh, a).gather(t))
+
+    return {"pos": cache["pos"],
+            "stacks": move(cache["stacks"], src["stacks"], dst["stacks"])}
 
 
 def _join(a, b):
@@ -332,13 +359,21 @@ def paged_cache_pspecs(model, mesh, batch: int):
     divide it, else replicated pools; tables, lengths and the position map
     replicated (host-managed control state)."""
     del batch
+    pool = {k: (None,) + v for k, v in paged_layer_specs(model, mesh).items()
+            if k in ("kp", "vp")}
+    return {"table": (), "len": (), "pos_pages": (),
+            "stacks": [dict(pool) for _ in model.program]}
+
+
+def paged_layer_specs(model, mesh):
+    """One layer's pool specs (kp, vp (P, Hk, page, hd)) and those of the
+    contiguous prefill cache the engine scatters into them (k, v: the same
+    kv heads): ``Rules.cache`` for the engine."""
     _, m = axis_names(mesh)
     hk = max(model.cfg.n_kv_heads, 1)
     head_ax = m if hk % R.mesh_shape(mesh)[m] == 0 else None
-    pool = {"kp": (None, None, head_ax, None, None),
-            "vp": (None, None, head_ax, None, None)}
-    return {"table": (), "len": (), "pos_pages": (),
-            "stacks": [dict(pool) for _ in model.program]}
+    spec = (None, head_ax, None, None)
+    return {"kp": spec, "vp": spec, "k": spec, "v": spec}
 
 
 def capture(fn):
@@ -594,21 +629,25 @@ class ShardedStep:
     over gloo cannot be captured into a CUDA graph; graph capture of the
     sharded steps waits for NCCL on cards of their own). ``stats``:
     {"eager": True, "steps", "host_ms" (each call's host wall),
-    "collective_ms" (each call's host ms inside ``parallel.comm``)}."""
+    "collective_ms" (each call's host ms inside ``parallel.comm``),
+    "gathered_bytes" (each call's bytes received by ``comm.all_gather``)}."""
 
     def __init__(self, fn):
         self._fn = fn
         self.stats = {"eager": True, "steps": 0, "host_ms": [],
-                      "collective_ms": []}
+                      "collective_ms": [], "gathered_bytes": []}
 
     def __call__(self, *args):
         c0 = comm.elapsed["seconds"]
+        b0 = comm.elapsed["gathered_bytes"]
         t0 = time.perf_counter()
         out = self._fn(*args)
         self.stats["steps"] += 1
         self.stats["host_ms"].append(1e3 * (time.perf_counter() - t0))
         self.stats["collective_ms"].append(
             1e3 * (comm.elapsed["seconds"] - c0))
+        self.stats["gathered_bytes"].append(
+            comm.elapsed["gathered_bytes"] - b0)
         return out
 
 
@@ -826,10 +865,12 @@ def _with_split(method, split):
                                                           split=split)
 
 
-def _sharded_serve(model, method, mesh):
+def _sharded_serve(model, method, mesh, cache):
     """The multi-rank serve step: ``method`` eagerly under the mesh's
-    rules; (step, info) with the parameter placements and rules."""
+    rules with the cache layout ``cache`` (one layer's specs); (step,
+    info) with the parameter placements and rules."""
     placements, pspecs, rules, _ = make_shardings(model, mesh)
+    rules = rules.with_cache(cache)
 
     def fn(params, cache, tokens):
         with torch.no_grad(), use_rules(rules):
@@ -852,10 +893,12 @@ def build_serve_step(model, mesh=None, *, batch, max_len=None, greedy=True,
     Without a mesh (or on one rank): on the card a :class:`GraphStep` that
     checks the cache's capacity on the host; on the CPU the method,
     eagerly. On a mesh of more than one rank: a :class:`ShardedStep` over
-    this rank's parameter shards, its cache (kv heads over "model", rows
+    this rank's parameter shards, its cache in JAX's decode layout (kv
+    heads over "model", or the sequence where they do not divide it; rows
     over the batch axes: info["cache_pspecs"], :func:`cache_pspecs` at
-    ``max_len``) and its rows of tokens; the greedy logits are this rank's
-    vocab shard, the next tokens global. Returns (step, info)."""
+    ``max_len``; :func:`reshard_cache` moves a prefill's cache there) and
+    its rows of tokens; the greedy logits are this rank's vocab shard, the
+    next tokens global. Returns (step, info)."""
     method = _with_split(model.greedy_step if greedy else model.decode_step,
                          split)
     if not _multi_rank(mesh):
@@ -863,7 +906,8 @@ def build_serve_step(model, mesh=None, *, batch, max_len=None, greedy=True,
                       capacity=model.cache_capacity)
         return step, {"greedy": greedy,
                       "cuda_graph": isinstance(step, GraphStep)}
-    step, info = _sharded_serve(model, method, mesh)
+    step, info = _sharded_serve(model, method, mesh, layer_cache_specs(
+        model, mesh, batch, max_len or 0))
     info.update(greedy=greedy, cache_pspecs=cache_pspecs(
         model, mesh, batch, max_len or 0))
     return step, info
@@ -892,7 +936,8 @@ def build_paged_serve_step(model, mesh=None, *, batch, greedy=True,
         step = _serve(model, method, batch=batch)
         return step, {"greedy": greedy,
                       "cuda_graph": isinstance(step, GraphStep)}
-    step, info = _sharded_serve(model, method, mesh)
+    step, info = _sharded_serve(model, method, mesh,
+                                paged_layer_specs(model, mesh))
     info.update(greedy=greedy,
                 cache_pspecs=paged_cache_pspecs(model, mesh, batch))
     return step, info

@@ -36,9 +36,10 @@ nothing up and runs the kernel's rule.
 ``Engine(mesh=)`` serves on a ("data", "model") mesh of several ranks, each
 running the same engine: the parameters are this rank's shards
 (``parallel.shard_tree`` by ``make_shardings``' placements, which the
-engine applies to the full tree it is given), the pools hold this rank's kv
-heads (``paged_cache_pspecs``), and the tables, lengths and position rows
-are replicated. Every rank submits the same requests in the same order, so
+engine applies to the full tree it is given, or the shards themselves with
+``sharded=True``), the pools hold this rank's kv heads, or all of them
+where they do not divide the "model" axis (``paged_cache_pspecs``), and
+the tables, lengths and position rows are replicated. Every rank submits the same requests in the same order, so
 the host schedulers make the same decisions; the admission prefill, the
 decode step (``build_paged_serve_step(mesh)``, eager) and the greedy
 argmax run under the mesh's rules, and the tokens every rank emits are the
@@ -56,7 +57,8 @@ from repro_torch.launch import tuning
 from repro_torch.parallel import comm
 from repro_torch.parallel.context import use_rules
 from repro_torch.parallel.steps import (build_paged_serve_step,
-                                        make_shardings, shard_tree)
+                                        make_shardings, paged_layer_specs,
+                                        shard_tree)
 
 from .scheduler import Scheduler
 
@@ -77,7 +79,7 @@ class Engine:
                  num_pages: int | None = None, page_size: int | None = None,
                  eos_id: int | None = None, greedy: bool = True,
                  temperature: float = 1.0, rng=None, use_tuned: bool = True,
-                 mesh=None, cache_dtype=None):
+                 mesh=None, cache_dtype=None, sharded=False):
         if not model.pageable:
             raise ValueError("Engine needs a pageable model (see LM.pageable)")
         if temperature <= 0:
@@ -90,8 +92,12 @@ class Engine:
         self.mesh = mesh
         self._rules = None
         if mesh is not None:
-            placements, _, self._rules, _ = make_shardings(model, mesh)
-            params = shard_tree(params, placements)
+            placements, _, rules, _ = make_shardings(model, mesh)
+            # the pools' layout, and that of the prefill caches scattered
+            # into them: kv heads over "model", or all of them replicated
+            self._rules = rules.with_cache(paged_layer_specs(model, mesh))
+            if not sharded:
+                params = shard_tree(params, placements)
         self.params = params
         self.batch = batch
         self.max_len = max_len

@@ -3100,3 +3100,80 @@ def test_lm_head_ce_on_a_vocab_shard_with_labels_outside(dev, dtype):
     rdx, rdw = lm_head_bwd_ref(x, w, labels, glse, g, vocab=vs)
     _close_rel(dx, rdx, 1e-3)
     _close_rel(dw, rdw, 1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the kernels at the local shard shapes of tensor parallelism below the
+# kv heads (chip_smoke.py phase 23), one rank, no process group
+# ---------------------------------------------------------------------------
+
+def _shard_cache(dev, b, h, hk, skv, d, dtype, seed):
+    q = _rnd(dev, b, h, 1, d, seed=seed).to(dtype)
+    k = _rnd(dev, b, hk, skv, d, seed=seed + 1).to(dtype)
+    v = _rnd(dev, b, hk, skv, d, seed=seed + 2).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off,q_pos", [(0, 600), (256, 300), (512, 300)])
+def test_flash_decode_lse_on_a_sequence_shard(dev, dtype, off, q_pos):
+    """paligemma's 8 query heads over its 1 kv head (d 256) on a shard of
+    256 slots holding positions [off, off + 256) (``slot_pos``): o and lse
+    against the plain version. A shard whose first slot is past ``q_pos``
+    (off 512) sees nothing: o = 0, lse = -inf, and the merge weighs it 0;
+    one partly past it (off 256) is masked by position, the range skip by
+    slot index staying sound."""
+    q, k, v = _shard_cache(dev, 2, 8, 1, 256, 256, dtype, seed=off)
+    slot_pos = torch.arange(off, off + 256, dtype=torch.int32, device=dev)
+    kv_len = torch.full((1,), q_pos + 1, dtype=torch.int32, device=dev)
+    reset_launches()
+    o, lse = flash_decode(q, k, v, kv_len=kv_len, slot_pos=slot_pos,
+                          return_lse=True)
+    assert flash_decode.launches == 1 and lse.shape == (2, 8)
+    ro, rlse = decode_ref(q, k, v, kv_len=kv_len, slot_pos=slot_pos,
+                          return_lse=True)
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    if off > q_pos:
+        assert (o == 0).all() and (lse == float("-inf")).all()
+        assert (rlse == float("-inf")).all()
+    else:
+        torch.testing.assert_close(lse, rlse, atol=1e-3, rtol=1e-4)
+
+
+def test_flash_decode_shards_merge_to_the_whole_cache(dev):
+    """Two sequence shards' (o, lse) merged by ``ring_merge`` equal one
+    ``flash_decode`` over the whole cache, the second shard wholly past the
+    query included."""
+    from repro_torch.kernels.flash_attention.ring import ring_merge
+
+    q, k, v = _shard_cache(dev, 2, 8, 1, 512, 256, torch.float32, seed=9)
+    kv_len = torch.full((1,), 200, dtype=torch.int32, device=dev)
+    whole = flash_decode(q, k, v, kv_len=kv_len)
+    for cut in (256, 128):
+        parts = []
+        for lo, hi in ((0, cut), (cut, 512)):
+            sp = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+            o, lse = flash_decode(q, k[:, :, lo:hi].contiguous(),
+                                  v[:, :, lo:hi].contiguous(), kv_len=kv_len,
+                                  slot_pos=sp, return_lse=True)
+            parts.append((o, lse[..., None]))
+        o, _ = ring_merge(*parts)
+        torch.testing.assert_close(o, whole, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_four_query_heads_over_one_kv_head_d256(dev, dtype):
+    """paligemma on 2 ranks: 4 query heads a rank over the replicated kv
+    head (g 4, d 256, g d = 1024) on 256-token pages, against
+    paged_decode_ref."""
+    lens = [300, 1, 0, 511]
+    q, kp, vp, kw = _paged_inputs(dev, lens, 256, 2, 1, 4, 256, dtype,
+                                  seed=43)
+    reset_launches()
+    o = paged_decode_attention(q, kp, vp, **kw)
+    assert paged_decode_attention.launches == 1
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o.float(),
+                               paged_decode_ref(q, kp, vp, **kw).float(),
+                               **tol)

@@ -3,8 +3,8 @@ ranks): for all ten configs, whole (meta tensors in the port,
 ``jax.eval_shape`` in JAX), the parameter, ZeRO-1, batch, static-cache
 (decode and prefill) and paged-cache specs and the bytes a device holds,
 on five meshes, leaf for leaf; ``choose_mesh_shape``, ``mesh_probes`` and
-``Rules.spec``; and ``make_shardings`` refusing, before anything runs,
-each tensor-parallel kind the port leaves out. Both packages get one stand-in
+``Rules.spec``; and ``make_shardings`` taking every config
+tensor-parallel. Both packages get one stand-in
 mesh with ``.shape`` and ``.axis_names`` (their functions read nothing
 else)."""
 
@@ -183,33 +183,24 @@ def test_rules_spec_matches_jax_for_every_kind():
                 assert got == tuple(want), (kw, kind)
 
 
-_REFUSED = {"deepseek_v2_lite": "program kind", "mixtral_8x22b": "program",
-            "falcon_mamba_7b": "program kind", "zamba2_7b": "program kind",
-            "musicgen_medium": "frontend", "paligemma_3b": "frontend"}
-
-
 @pytest.mark.parametrize("arch", ARCHS)
-def test_make_shardings_refuses_unported_tensor_parallel_kinds(arch):
-    """Dense GQA with divisible dims is sharded; every other kind raises
-    NotImplementedError naming it whenever model > 1, and data parallelism
-    alone takes every config."""
+def test_make_shardings_takes_every_kind_tensor_parallel(arch):
+    """Every config runs tensor-parallel at (1, 2) and (1, 16): the rules
+    declare it, the placements hold the specs leaf for leaf, and the layers'
+    cache layout is JAX's prefill layout; data parallelism alone declares
+    none, and the ring keeps the parameters replicated over "model"."""
     tm = LM(get_config(arch), device="cpu")
     dp = make_shardings(tm, Mesh({"data": 4, "model": 1}))
     assert not dp[2].tensor_parallel
-    mesh = Mesh({"data": 1, "model": 2})
-    if arch in _REFUSED:
-        with pytest.raises(NotImplementedError, match=_REFUSED[arch]):
-            make_shardings(tm, mesh)
-        return
-    placements, pspecs, rules, shape = make_shardings(tm, mesh)
-    assert rules.tensor_parallel and rules.ring_axis is None
-    assert spec_leaves(pspecs) == [p.spec for p in jax.tree.leaves(
-        placements, is_leaf=lambda x: isinstance(x, steps.Placement))]
-    # kv heads that do not divide the model axis (8 kv heads over 16)
-    with pytest.raises(NotImplementedError, match="n_kv_heads"):
-        make_shardings(tm, Mesh({"data": 1, "model": 16}))
-    # the ring keeps the parameters replicated over "model"
-    ring = make_shardings(tm, mesh, ring=True)
+    for model in (2, 16):
+        mesh = Mesh({"data": 1, "model": model})
+        placements, pspecs, rules, shape = make_shardings(tm, mesh)
+        assert rules.tensor_parallel and rules.ring_axis is None
+        assert spec_leaves(pspecs) == [p.spec for p in jax.tree.leaves(
+            placements, is_leaf=lambda x: isinstance(x, steps.Placement))]
+        assert rules.cache == steps.layer_cache_specs(tm, mesh, 1, 0,
+                                                      kind="prefill")
+    ring = make_shardings(tm, Mesh({"data": 1, "model": 2}), ring=True)
     assert ring[2].ring_axis == "model" and not ring[2].tensor_parallel
     assert all("model" not in s for s in spec_leaves(ring[1]))
 

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """``chip_smoke.py``'s phase 22 (the mesh: two ranks on the card over
-gloo) alone, after building the kernels.
+gloo) or phase 23 (every program kind on the mesh, and the pipeline)
+alone, after building the kernels.
 
-    python3 tools/mesh_phase.py
+    python3 tools/mesh_phase.py        # phase 22
+    python3 tools/mesh_phase.py 23     # phase 23
 
 Builds every kernel (one ``nvcc`` each, all at once), then runs
-``chip_smoke.mesh_phase`` and prints its ``[time] ...@tp`` rows. Its
+``chip_smoke.mesh_phase`` (or ``chip_smoke.tp_phase``) and prints its
+``[time]`` rows. Its
 timings run cold where the whole smoke's do not: the first ``cuBLAS`` and
 profiler use of the process land in the phase. As ``chip_smoke.main`` it
 keeps the bytecode it compiles under a temporary ``PYTHONPYCACHEPREFIX``,
@@ -37,9 +40,11 @@ def main():
         t0 = time.perf_counter()
         _build.build_all()
         print(f"[build] {time.perf_counter() - t0:.1f}s", flush=True)
+        phase = sys.argv[1] if len(sys.argv) > 1 else "22"
+        run = {"22": chip_smoke.mesh_phase, "23": chip_smoke.tp_phase}[phase]
         t0 = time.perf_counter()
-        times = chip_smoke.mesh_phase(torch.device("cuda"))
-        print(f"[phase 22] {time.perf_counter() - t0:.1f}s", flush=True)
+        times = run(torch.device("cuda"))
+        print(f"[phase {phase}] {time.perf_counter() - t0:.1f}s", flush=True)
         for name, t in times.items():
             lib = ("null" if t["library_ms"] is None
                    else f"{t['library_ms']:.4f} ms")
